@@ -1,0 +1,356 @@
+#!/usr/bin/env python3
+"""Drive the torch port of simpletuner-tpu once on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases (each prints one line; any failure exits non-zero with no result line):
+
+1. environment: torch/CUDA versions, the card's name and power limit;
+2. build: compile every hand-written kernel of the render path from csrc/;
+3. kernels: each kernel against its plain PyTorch version on the card, bf16,
+   at the shapes the render path gives it (and ragged/narrow cases), with
+   kernel and plain times at the Flux shape (CUDA events, after warm-up);
+4. render: the port's inference runtime renders one 1024x1024 image with
+   full-width Flux.1-dev (19 double + 38 single blocks, hidden 3072, 24x128
+   heads, guidance embedding; depth not cut) and the Flux VAE decoder, from
+   seeded random weights and seeded prompt embeds in the text-embed cache,
+   4 Euler steps; counts the flash-kernel launches of that run;
+5. parity: one full-width denoise call through the kernel against the same
+   call through mha_reference, on the same (AdaLN-perturbed) weights;
+6. profile: one full-width denoise call under torch.profiler, device time by
+   kernel bucket and the device's idle share of the call.
+
+Then a JSON line with the kernels, and last the device line.  Needs one CUDA
+device; builds into build/kernels/ inside the checkout.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import struct
+import subprocess
+import sys
+import tempfile
+import time
+import zlib
+
+STEPS = 4
+RESOLUTION = 1024
+TXT_LEN, TXT_VALID = 512, 77  # T5-XXL max length; a short prompt's real tokens
+# kernel vs plain, bf16 (reasons in tests/test_torch_kernels_cuda.py): out
+# within two bf16 ulps of the largest reference output and 8e-3 in relative
+# L2 (its P-in-bf16 rounding gives about 2.5e-3); lse is f32 on both sides
+OUT_REL_MAX, OUT_REL_L2, LSE_ATOL = 2.0 ** -6, 8e-3, 1e-3
+# full-width velocity, kernel vs mha_reference path: every attention output
+# differs by about one bf16 rounding (P in bf16), and 57 blocks re-round the
+# residual stream to bf16 after each op, so the two paths agree to a few
+# bf16 ulps in relative L2 (bf16 ulp = 2^-8 = 3.9e-3)
+PARITY_REL_L2 = 5e-2
+
+
+def phase(name: str, **fields) -> None:
+    print(f"phase {name}: " + json.dumps(fields, sort_keys=True), flush=True)
+
+
+def nvidia_smi() -> str:
+    result = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return result.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def check_png(path: str, width: int, height: int) -> None:
+    """Parse the PNG by hand: signature, IHDR, and IDAT inflating to the pixel rows."""
+    with open(path, "rb") as handle:
+        data = handle.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise RuntimeError(f"{path} is not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if zlib.crc32(tag + body) != struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])[0]:
+            raise RuntimeError(f"{path}: bad CRC in {tag!r}")
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + length
+    if header is None or header[:4] != (width, height, 8, 2):
+        raise RuntimeError(f"{path}: IHDR {header} is not {width}x{height} 8-bit RGB")
+    if len(zlib.decompress(idat)) != height * (1 + 3 * width):
+        raise RuntimeError(f"{path}: pixel data has the wrong size")
+
+
+def kernel_cases():
+    """Phase 3: the kernel against its plain version; returns (max_abs_err, ms, plain_ms)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from simpletuner_tpu_torch.ops import SEGMENT_PAD_ID, flash_attention, mha_reference_lse
+
+    dev = torch.device("cuda")
+
+    def qkv(seed, b, h, s, d):
+        rng = np.random.default_rng(seed)
+        return [torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32)).to(dev, torch.bfloat16)
+                for _ in range(3)]
+
+    flux_seg = torch.zeros((1, TXT_LEN + (RESOLUTION // 16) ** 2), dtype=torch.int32, device=dev)
+    flux_seg[:, TXT_VALID:TXT_LEN] = SEGMENT_PAD_ID
+    packed = torch.zeros((2, 300), dtype=torch.int32, device=dev)
+    packed[:, 130:] = 1
+    packed[1, 280:] = SEGMENT_PAD_ID
+    flux_s = flux_seg.shape[1]
+    cases = [
+        ("flux_unmasked", (1, 24, flux_s, 128), None),
+        ("flux_t5_padded", (1, 24, flux_s, 128), flux_seg),
+        ("ragged_s1000_d64", (1, 8, 1000, 64), None),
+        ("segments_s300_d32", (2, 4, 300, 32), packed),
+    ]
+    worst = 0.0
+    errors = {}
+    for seed, (name, shape, seg) in enumerate(cases):
+        q, k, v = qkv(seed, *shape)
+        out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
+        ref, ref_lse = mha_reference_lse(q, k, v, seg, seg)
+        torch.cuda.synchronize()
+        out_err = (out.float() - ref.float()).abs().max().item()
+        out_bound = OUT_REL_MAX * ref.float().abs().max().item()
+        out_rel_l2 = rel_l2(out, ref)
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not (torch.isfinite(out.float()).all() and out_err <= out_bound and out_rel_l2 <= OUT_REL_L2
+                and lse_err <= LSE_ATOL):
+            raise RuntimeError(f"kernel case {name}: out err {out_err} (<= {out_bound}), out rel L2 "
+                               f"{out_rel_l2} (<= {OUT_REL_L2}), lse err {lse_err} (<= {LSE_ATOL})")
+        if seg is not None:
+            dead = seg == SEGMENT_PAD_ID  # rows that see no key
+            rows = out.permute(0, 2, 1, 3)[dead]
+            if rows.numel() and not (rows == 0).all():
+                raise RuntimeError(f"kernel case {name}: fully masked rows are not exactly 0")
+        errors[name] = {"out": out_err, "out_bound": out_bound, "out_rel_l2": out_rel_l2, "lse": lse_err}
+        worst = max(worst, out_err)
+
+    q, k, v = qkv(9, 1, 24, flux_s, 128)
+    times = {
+        "kernel_unmasked_ms": cuda_ms(lambda: flash_attention(q, k, v), 20),
+        "kernel_masked_ms": cuda_ms(lambda: flash_attention(q, k, v, flux_seg, flux_seg), 20),
+        "plain_unmasked_ms": cuda_ms(lambda: mha_reference_lse(q, k, v), 5),
+        "plain_masked_ms": cuda_ms(lambda: mha_reference_lse(q, k, v, flux_seg, flux_seg), 5),
+        "sdpa_baseline_unmasked_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
+    }
+    flops = 4 * 24 * flux_s * flux_s * 128
+    times["kernel_unmasked_tflops"] = flops / times["kernel_unmasked_ms"] / 1e9
+    phase("3 kernels", shape=[1, 24, flux_s, 128], tol={"out_rel_max": OUT_REL_MAX, "out_rel_l2": OUT_REL_L2,
+          "lse": LSE_ATOL}, errors=errors, **times)
+    return worst, times["kernel_masked_ms"], times["plain_masked_ms"]
+
+
+def profile_denoise(denoise, noise, sigma) -> None:
+    """Phase 6: one denoise call under torch.profiler, device time by bucket."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        for _ in range(2):
+            denoise(noise, sigma)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        denoise(noise, sigma)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            denoise(noise, sigma)
+            torch.cuda.synchronize()
+    # device-side events only: the CPU ops that launched them carry their time too
+    kernels = [(e.key, e.count, e.device_time_total / 1e3) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    buckets = {"flash_fwd": 0.0, "gemm": 0.0, "other": 0.0}
+    for key, _, ms in kernels:
+        if "flash_fwd_kernel" in key:
+            buckets["flash_fwd"] += ms
+        elif any(tag in key.lower() for tag in ("gemm", "nvjet", "cutlass", "xmma")):
+            buckets["gemm"] += ms
+        else:
+            buckets["other"] += ms
+    device_ms = sum(buckets.values())
+    if not buckets["flash_fwd"]:
+        raise RuntimeError("profile: no flash_fwd kernel time in the traced denoise call")
+    top = sorted(kernels, key=lambda k: -k[2])[:8]
+    phase("6 profile", wall_ms=wall_ms, device_ms=device_ms, idle_share=1 - device_ms / wall_ms,
+          bucket_ms=buckets, top=[{"kernel": key[:100], "calls": n, "ms": ms} for key, n, ms in top])
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    phase("1 environment", torch=torch.__version__, cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
+    print(smi, flush=True)
+
+    from simpletuner_tpu_torch import csrc
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime
+    from simpletuner_tpu_torch.models.layers import lecun_normal_
+    from simpletuner_tpu_torch.ops import flash_fwd_kernel, set_attention_backend
+
+    kernels = [flash_fwd_kernel]
+    start = time.perf_counter()
+    for kernel in kernels:
+        csrc.load(kernel.name)
+    ptxas = [line.strip() for line in csrc.build_log_path("flash_fwd").read_text().splitlines()
+             if "registers" in line]
+    phase("2 build", seconds=time.perf_counter() - start, nvcc_seconds=csrc.BUILD_SECONDS, ptxas=ptxas)
+
+    max_err, kernel_ms, plain_ms = kernel_cases()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        import numpy as np
+
+        rng = np.random.default_rng(0)
+        prompt = "a lighthouse on a basalt cliff at dusk, volumetric light"
+        embeds = {
+            "t5_embeds": rng.standard_normal((TXT_LEN, 4096), dtype=np.float32),
+            "pooled_embeds": rng.standard_normal(768, dtype=np.float32),
+            "attention_mask": (np.arange(TXT_LEN) < TXT_VALID).astype(np.int64),
+        }
+        text_dir = os.path.join(work, "text")
+        config_path = os.path.join(work, "config.json")
+        with open(config_path, "w") as handle:
+            json.dump({
+                "model_family": "flux", "model_flavour": "dev", "model_type": "full",
+                "allow_untrained_init": True, "mixed_precision": "bf16", "vae_dtype": "bf16",
+                "validation_resolution": RESOLUTION, "validation_seed": 42, "seed": 42,
+                "validation_guidance_real": 3.5, "flow_schedule_auto_shift": True,
+                "flux_attention_masked_training": True,
+                "data_backend_config": [{"id": "embeds", "dataset_type": "text_embeds", "type": "local",
+                                         "default": True, "cache_dir": text_dir}],
+            }, handle)
+
+        start = time.perf_counter()
+        runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "out"))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - start
+        runtime.text_cache.save(prompt, embeds)  # the cache the runtime renders from
+        module, model = runtime.module, runtime.model
+        params = sum(p.numel() for p in module.parameters())
+        cfg = model.arch
+        if (cfg.hidden_size, cfg.depth_double, cfg.depth_single, cfg.num_heads, cfg.head_dim) != (3072, 19, 38, 24, 128):
+            raise RuntimeError(f"not the full-width Flux.1-dev config: {cfg}")
+
+        step_times, step_start, finite, vae_s = [], [], [], []
+
+        def before_step(mod, args):
+            torch.cuda.synchronize()
+            step_start.append(time.perf_counter())
+
+        def after_step(mod, args, out):
+            torch.cuda.synchronize()
+            step_times.append(time.perf_counter() - step_start[-1])
+
+        def decode_checked(z):
+            finite.append(bool(torch.isfinite(z).all()))
+            start = time.perf_counter()
+            image = decode(z)
+            torch.cuda.synchronize()
+            vae_s.append(time.perf_counter() - start)
+            return image
+
+        hooks = [module.register_forward_pre_hook(before_step), module.register_forward_hook(after_step)]
+        decode = runtime.vae.decode
+        runtime.vae.decode = decode_checked
+
+        torch.cuda.reset_peak_memory_stats()
+        for kernel in kernels:
+            kernel.launches = 0
+        start = time.perf_counter()
+        paths = runtime.render(prompt, steps=STEPS)
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - start
+        launches = {kernel.name: kernel.launches for kernel in kernels}
+        peak = torch.cuda.max_memory_allocated()
+        runtime.vae.decode = decode
+        for hook in hooks:
+            hook.remove()
+
+        expected = (cfg.depth_double + cfg.depth_single) * STEPS
+        if launches["flash_fwd"] != expected:
+            raise RuntimeError(f"flash_fwd launched {launches['flash_fwd']} times in the render, expected {expected}")
+        if len(paths) != 1 or finite != [True]:
+            raise RuntimeError(f"render produced {paths}, finite latents {finite}")
+        check_png(paths[0], RESOLUTION, RESOLUTION)
+        phase("4 render", params=params, resolution=RESOLUTION, steps=STEPS, init_s=init_s, render_s=render_s,
+              s_per_step=sum(step_times[1:]) / (len(step_times) - 1), step_s=step_times,
+              vae_decode_s=vae_s[0], peak_gib=peak / 2**30, launches=launches,
+              png=os.path.basename(paths[0]), png_bytes=os.path.getsize(paths[0]), device=smi)
+
+        # phase 5: AdaLN lin weights start at zero, so every gate is 0 and
+        # attention would not reach the output; give them the lecun-normal
+        # draw every other kernel gets
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        with torch.no_grad():
+            for name, param in module.named_parameters():
+                if name.endswith(("_mod.lin.weight", "modulation.lin.weight")):
+                    lecun_normal_(param, param.shape[1], gen)
+        dev = torch.device("cuda")
+        latent = RESOLUTION // 8
+        batch = {"latents": torch.zeros((1, latent, latent, model.latent_channels), device=dev)}
+        for key, value in model.collate_text_embeds([embeds]).items():
+            batch[key] = torch.as_tensor(value, device=dev)
+        cond = model.inference_conditioning(batch)
+        noise = torch.randn((1, latent, latent, model.latent_channels), generator=gen, device=dev)
+        sigma = torch.tensor(0.7)
+        with torch.no_grad():
+            kernel_v = model.denoise_fn(module, cond)(noise, sigma)
+            unmasked_v = model.denoise_fn(module, {k: v for k, v in cond.items() if k != "t5_masks"})(noise, sigma)
+            set_attention_backend("xla")
+            try:
+                plain_v = model.denoise_fn(module, cond)(noise, sigma)
+            finally:
+                set_attention_backend("auto")
+        err, mask_effect = rel_l2(kernel_v, plain_v), rel_l2(unmasked_v, plain_v)
+        if not (torch.isfinite(kernel_v).all() and err <= PARITY_REL_L2 and mask_effect > 5 * err):
+            raise RuntimeError(f"full-width parity: rel L2 {err} (<= {PARITY_REL_L2}), mask effect {mask_effect}")
+        phase("5 parity", rel_l2=err, bound=PARITY_REL_L2, unmasked_rel_l2=mask_effect)
+        profile_denoise(model.denoise_fn(module, cond), noise, sigma)
+
+    print(json.dumps({"kernels": [{
+        "name": "flash_fwd", "route": "cuda", "source": "simpletuner_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "simpletuner_tpu/ops/flash_attention.py:68", "launches": launches["flash_fwd"],
+        "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,220 @@
+"""Shared building blocks, the subset the Flux DiT uses.
+
+PyTorch counterpart of ``simpletuner_tpu/models/layers.py``.  Submodule names
+follow the JAX modules so that a Flax parameter tree maps onto a ``state_dict``
+by name (``models/weight_bridge.py``).  Linear weights live in the compute
+dtype (the JAX code casts its f32 kernels at use, layers.py:208/:217, so the
+arithmetic is the same); norm scales stay f32 and norms compute in f32 with
+``eps=1e-6``.
+
+Only the plain dense path and the ``lora`` adapter algorithm are ported; other
+adapter algorithms and quantized bases raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# flax lecun_normal draws N(0, 1) truncated at +-2 and rescales by this
+# factor so that the truncated draw keeps unit variance
+_TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+class LoRADense(nn.Module):
+    """Linear layer with an optional low-rank adapter: y = x W^T + b + (a/r) (x A^T) B^T.
+
+    ``weight`` is (out, in) and ``lora_A``/``lora_B`` are (rank, in)/(out, rank),
+    the torch/PEFT orientation of the JAX (in, out)/(in, rank)/(rank, out)
+    leaves.  ``zero_init`` mirrors ``kernel_init=zeros`` (AdaLN-Zero)."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        use_bias: bool = True,
+        dtype: torch.dtype = torch.bfloat16,
+        lora_rank: int = 0,
+        lora_alpha: Optional[float] = None,
+        lora_algo: str = "lora",
+        zero_init: bool = False,
+    ) -> None:
+        super().__init__()
+        if lora_algo != "lora":
+            raise NotImplementedError(f"lora_algo={lora_algo!r} is not ported (only 'lora')")
+        self.in_features = in_features
+        self.features = features
+        self.dtype = dtype
+        self.zero_init = zero_init
+        self.weight = nn.Parameter(torch.empty(features, in_features, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(features, dtype=dtype)) if use_bias else None
+        self.lora_rank = lora_rank
+        if lora_rank > 0:
+            self.lora_scale = (lora_alpha if lora_alpha is not None else float(lora_rank)) / lora_rank
+            self.lora_A = nn.Parameter(torch.empty(lora_rank, in_features, dtype=dtype))
+            self.lora_B = nn.Parameter(torch.empty(features, lora_rank, dtype=dtype))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        if self.zero_init:
+            self.weight.zero_()
+        else:
+            lecun_normal_(self.weight, self.in_features, generator)
+        if self.bias is not None:
+            self.bias.zero_()
+        if self.lora_rank > 0:
+            # flax variance_scaling(1/3, fan_in, uniform) == U(+-1/sqrt(fan_in))
+            bound = 1.0 / math.sqrt(self.in_features)
+            self.lora_A.copy_(
+                torch.empty(self.lora_A.shape, device=self.lora_A.device)
+                .uniform_(-bound, bound, generator=generator)
+            )
+            self.lora_B.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        y = F.linear(x, self.weight, self.bias)
+        if self.lora_rank > 0:
+            y = y + self.lora_scale * F.linear(F.linear(x, self.lora_A), self.lora_B)
+        return y
+
+
+@torch.no_grad()
+def lecun_normal_(tensor: torch.Tensor, fan_in: int, generator: Optional[torch.Generator] = None) -> None:
+    """flax ``lecun_normal``: truncated (+-2 sigma) normal with variance 1/fan_in.
+
+    Drawn in f32 and copied, so a bf16 parameter gets a rounded f32 draw."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNCATED_NORMAL_STD
+    draw = torch.empty(tensor.shape, dtype=torch.float32, device=tensor.device)
+    nn.init.trunc_normal_(draw, mean=0.0, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+    tensor.copy_(draw)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.empty(dim, dtype=torch.float32))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.scale.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_f = x.to(torch.float32)
+        var = x_f.square().mean(dim=-1, keepdim=True)
+        return (x_f * torch.rsqrt(var + self.eps) * self.scale).to(self.dtype)
+
+
+def layer_norm(x: torch.Tensor, dtype: torch.dtype, eps: float = 1e-6) -> torch.Tensor:
+    """``LayerNorm(use_scale=False, use_bias=False)``: f32 statistics, output in ``dtype``."""
+    return F.layer_norm(x.to(torch.float32), (x.shape[-1],), eps=eps).to(dtype)
+
+
+def timestep_embedding(
+    timesteps: torch.Tensor, dim: int, max_period: float = 10000.0, time_factor: float = 1000.0
+) -> torch.Tensor:
+    """Sinusoidal timestep embedding, cos before sin; sigma in [0, 1] is scaled by 1000."""
+    timesteps = timesteps.to(torch.float32) * time_factor
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=timesteps.device) / half
+    )
+    args = timesteps[:, None] * freqs[None]
+    embedding = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        embedding = torch.cat([embedding, torch.zeros_like(embedding[:, :1])], dim=-1)
+    return embedding
+
+
+class MLPEmbedder(nn.Module):
+    """2-layer SiLU MLP used for time/vector/guidance conditioning."""
+
+    def __init__(self, in_features: int, hidden_size: int, dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.in_layer = LoRADense(in_features, hidden_size, dtype=dtype)
+        self.out_layer = LoRADense(hidden_size, hidden_size, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out_layer(F.silu(self.in_layer(x)))
+
+
+class FeedForward(nn.Module):
+    """gelu(tanh) MLP, the JAX module's Flux branch (geglu/silu are not ported)."""
+
+    def __init__(
+        self,
+        dim: int,
+        mult: float = 4.0,
+        dtype: torch.dtype = torch.bfloat16,
+        lora_rank: int = 0,
+        lora_alpha: Optional[float] = None,
+        lora_algo: str = "lora",
+    ) -> None:
+        super().__init__()
+        inner = int(dim * mult)
+        lora = dict(dtype=dtype, lora_rank=lora_rank, lora_alpha=lora_alpha, lora_algo=lora_algo)
+        self.proj_in = LoRADense(dim, inner, **lora)
+        self.proj_out = LoRADense(inner, dim, **lora)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj_out(F.gelu(self.proj_in(x), approximate="tanh"))
+
+
+def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(B, dim) mods broadcast over the sequence; (B, S, dim) mods apply per token."""
+    if shift.dim() == 2:
+        shift, scale = shift[:, None, :], scale[:, None, :]
+    return x * (1.0 + scale) + shift
+
+
+def gate_mod(gate: torch.Tensor) -> torch.Tensor:
+    """Broadcast a (B, dim) gate over the sequence axis; pass (B, S, dim) through."""
+    return gate[:, None, :] if gate.dim() == 2 else gate
+
+
+class AdaLayerNormZero(nn.Module):
+    """AdaLN-Zero: emits ``num_outputs`` (shift/scale/gate) chunks from the
+    conditioning vector; ``lin`` starts at zero."""
+
+    def __init__(
+        self,
+        dim: int,
+        num_outputs: int = 6,
+        dtype: torch.dtype = torch.bfloat16,
+        lora_rank: int = 0,
+        lora_alpha: Optional[float] = None,
+        lora_algo: str = "lora",
+    ) -> None:
+        super().__init__()
+        self.num_outputs = num_outputs
+        self.lin = LoRADense(
+            dim, dim * num_outputs, dtype=dtype, zero_init=True,
+            lora_rank=lora_rank, lora_alpha=lora_alpha, lora_algo=lora_algo,
+        )
+
+    def forward(self, vec: torch.Tensor) -> List[torch.Tensor]:
+        return list(self.lin(F.silu(vec)).chunk(self.num_outputs, dim=-1))
+
+
+@torch.no_grad()
+def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Seeded initialisation mirroring the Flax initialisers: lecun-normal
+    dense and conv kernels, zero biases, unit norm scales, zero AdaLN ``lin``,
+    and the ``lora`` adapter's U(+-1/sqrt(in)) A and zero B."""
+    for sub in module.modules():
+        if isinstance(sub, (LoRADense, RMSNorm)):
+            sub.reset_parameters(generator)
+        elif isinstance(sub, (nn.Linear, nn.Conv2d)):
+            lecun_normal_(sub.weight, sub.weight[0].numel(), generator)
+            if sub.bias is not None:
+                sub.bias.zero_()
+        elif isinstance(sub, nn.GroupNorm):
+            sub.weight.fill_(1.0)
+            sub.bias.zero_()
+    return module
