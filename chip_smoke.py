@@ -18,7 +18,17 @@ Phases (each prints one line; any failure exits non-zero with no result line):
 5. parity: one full-width denoise call through the kernel against the same
    call through mha_reference, on the same (AdaLN-perturbed) weights;
 6. profile: one full-width denoise call under torch.profiler, device time by
-   kernel bucket and the device's idle share of the call.
+   kernel bucket and the device's idle share of the call;
+7. backward kernels: dq, dk and dv from the dq/dkv kernels against the plain
+   backward on the card, bf16, at the Flux shape masked and unmasked and at
+   ragged/narrow shapes, with kernel and plain times (CUDA events);
+8. train step: the flagship LoRA step (simpletuner_tpu_torch.bench.flagship:
+   full-width, full-depth Flux.1-dev, bf16 frozen base, rank-16 LoRA, AdamW,
+   1024 px, T5 padding masked) with remat policy attn, then full; 2 warm-up and
+   4 timed steps each; counts the kernel launches of the runs;
+9. gradient parity: one step's LoRA gradients through the kernels against the
+   same step through mha_reference under autograd, full width, depth cut to
+   2 double + 4 single blocks.
 
 Then a JSON line with the kernels, and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.
@@ -26,7 +36,9 @@ device; builds into build/kernels/ inside the checkout.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import struct
 import subprocess
@@ -47,6 +59,15 @@ OUT_REL_MAX, OUT_REL_L2, LSE_ATOL = 2.0 ** -6, 8e-3, 1e-3
 # residual stream to bf16 after each op, so the two paths agree to a few
 # bf16 ulps in relative L2 (bf16 ulp = 2^-8 = 3.9e-3)
 PARITY_REL_L2 = 5e-2
+# backward kernels vs mha_backward_reference on the same out/lse/dO (reasons in
+# tests/test_torch_kernels_cuda.py): each gradient within two bf16 ulps of its
+# largest plain value and 1e-2 in relative L2
+GRAD_REL_MAX, GRAD_REL_L2 = 2.0 ** -6, 1e-2
+# one train step's LoRA gradients, kernel path vs mha_reference path, 6 blocks
+# at full width: each attention output and gradient differs by about one bf16
+# rounding (P and dS in bf16), compounded through the blocks' backward
+TRAIN_GRAD_REL_L2 = 5e-2
+PARITY_DOUBLE, PARITY_SINGLE = 2, 4
 
 
 def phase(name: str, **fields) -> None:
@@ -169,6 +190,185 @@ def kernel_cases():
     return worst, times["kernel_masked_ms"], times["plain_masked_ms"]
 
 
+def backward_cases():
+    """Phase 7: the dq/dkv kernels against the plain backward; returns
+    {kernel: max_abs_err} and {kernel: (ms, plain_ms)} at the masked Flux shape."""
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.ops import (
+        SEGMENT_PAD_ID, flash_attention, flash_backward, flash_bwd_dkv_kernel, flash_bwd_dq_kernel,
+        mha_backward_reference,
+    )
+
+    dev = torch.device("cuda")
+
+    def tensors(seed, b, h, s, d):
+        rng = np.random.default_rng(100 + seed)
+        return [torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32)).to(dev, torch.bfloat16)
+                for _ in range(4)]
+
+    flux_s = TXT_LEN + (RESOLUTION // 16) ** 2
+    flux_seg = torch.zeros((1, flux_s), dtype=torch.int32, device=dev)
+    flux_seg[:, TXT_VALID:TXT_LEN] = SEGMENT_PAD_ID
+    packed = torch.zeros((2, 300), dtype=torch.int32, device=dev)
+    packed[:, 130:] = 1
+    packed[1, 280:] = SEGMENT_PAD_ID
+    cases = [
+        ("flux_unmasked", (1, 24, flux_s, 128), None),
+        ("flux_t5_padded", (1, 24, flux_s, 128), flux_seg),
+        ("ragged_s1000_d64", (1, 8, 1000, 64), None),
+        ("segments_s300_d32", (2, 4, 300, 32), packed),
+    ]
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    errors = {}
+    for seed, (name, shape, seg) in enumerate(cases):
+        q, k, v, do = tensors(seed, *shape)
+        scale = shape[-1] ** -0.5
+        out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
+        grads = flash_backward(q, k, v, seg, seg, out, lse, do, scale)
+        refs = mha_backward_reference(q, k, v, seg, seg, out, lse, do, scale)
+        torch.cuda.synchronize()
+        errors[name] = {}
+        for grad_name, grad, ref in zip(("dq", "dk", "dv"), grads, refs):
+            g, r = grad.float(), ref.float()
+            err, bound, l2 = (g - r).abs().max().item(), GRAD_REL_MAX * r.abs().max().item(), rel_l2(g, r)
+            if not (torch.isfinite(g).all() and r.norm() > 0 and err <= bound and l2 <= GRAD_REL_L2):
+                raise RuntimeError(f"backward case {name} {grad_name}: err {err} (<= {bound}), rel L2 {l2} "
+                                   f"(<= {GRAD_REL_L2})")
+            if seg is not None and not (grad.permute(0, 2, 1, 3)[seg == SEGMENT_PAD_ID] == 0).all():
+                raise RuntimeError(f"backward case {name}: {grad_name} of padded tokens is not exactly 0")
+            errors[name][grad_name] = {"err": err, "bound": bound, "rel_l2": l2}
+            kernel = "flash_bwd_dq" if grad_name == "dq" else "flash_bwd_dkv"
+            worst[kernel] = max(worst[kernel], err)
+
+    times = {}
+    for mode, seg in (("unmasked", None), ("masked", flux_seg)):
+        q, k, v, do = tensors(9, 1, 24, flux_s, 128)
+        scale = 128 ** -0.5
+        out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
+        delta = (out.float() * do.float()).sum(dim=-1)
+        times[f"dq_dkv_{mode}_ms"] = cuda_ms(lambda: flash_backward(q, k, v, seg, seg, out, lse, do, scale), 10)
+        times[f"dq_{mode}_ms"] = cuda_ms(lambda: flash_bwd_dq_kernel(q, k, v, seg, seg, lse, delta, do, scale), 10)
+        times[f"dkv_{mode}_ms"] = cuda_ms(lambda: flash_bwd_dkv_kernel(q, k, v, seg, seg, lse, delta, do, scale), 10)
+        times[f"plain_{mode}_ms"] = cuda_ms(
+            lambda: mha_backward_reference(q, k, v, seg, seg, out, lse, do, scale), 3)
+    # executed flops: dq runs 3 products (S, dP, dS K), dkv 4 (S, dP, P^T dO, dS^T Q)
+    flops = 7 * 2 * 24 * flux_s * flux_s * 128
+    times["dq_dkv_unmasked_tflops"] = flops / times["dq_dkv_unmasked_ms"] / 1e9
+    phase("7 backward kernels", shape=[1, 24, flux_s, 128], tol={"grad_rel_max": GRAD_REL_MAX,
+          "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
+    return worst, {"flash_bwd_dq": (times["dq_masked_ms"], times["plain_masked_ms"]),
+                   "flash_bwd_dkv": (times["dkv_masked_ms"], times["plain_masked_ms"])}
+
+
+@contextlib.contextmanager
+def record_backward_norms(norms, calls: int):
+    """Append the norms of dO and of dq/dk/dv at the first ``calls`` flash
+    backward calls (the warm-up steps; the timed steps run unprobed)."""
+    import torch
+
+    flash = sys.modules["simpletuner_tpu_torch.ops.flash_attention"]
+    plain = flash.flash_backward
+
+    def recording(*args):
+        grads = plain(*args)
+        if len(norms) < calls:
+            norms.append(torch.stack([args[7].float().norm()] + [g.float().norm() for g in grads]))
+        return grads
+
+    flash.flash_backward = recording
+    try:
+        yield
+    finally:
+        flash.flash_backward = plain
+
+
+def train_steps(kernels):
+    """Phase 8: the flagship LoRA step with remat attn, then full; returns
+    the launch counts of the attn run."""
+    import torch
+
+    from simpletuner_tpu_torch.bench import flagship
+
+    blocks = 19 + 38
+    expected_fwd = {"attn": blocks + 19, "full": 2 * blocks}  # attn saves the single blocks' flash outputs
+    counts = {}
+    for policy in ("attn", "full"):
+        norms = []
+        for kernel in kernels:
+            kernel.launches = 0
+        with record_backward_norms(norms, calls=2 * blocks):
+            result = flagship(steps=4, warmup=2, remat_policy=policy)
+        counts[policy] = {kernel.name: kernel.launches for kernel in kernels}
+        per_step = result["launches_per_step"]
+        norms = torch.stack(norms).cpu()
+        losses = result["losses"]
+        problems = []
+        if not all(map(math.isfinite, losses)) or result["skipped_nonfinite"]:
+            problems.append(f"non-finite losses {losses}")
+        if not result["lora_delta"] > 0:
+            problems.append("the LoRA weights did not move")
+        if per_step != {"flash_fwd": expected_fwd[policy], "flash_bwd_dq": blocks, "flash_bwd_dkv": blocks}:
+            problems.append(f"launches per step {per_step}")
+        if len(norms) != 2 * blocks or not (norms > 0).all():
+            problems.append(f"zero dO/dq/dk/dv reaching the kernels: {norms.min(dim=0).values.tolist()}")
+        if problems:
+            raise RuntimeError(f"train step ({policy}): " + "; ".join(problems))
+        result["backward_norms_min"] = dict(zip(("do", "dq", "dk", "dv"), norms.min(dim=0).values.tolist()))
+        phase(f"8 train step ({policy})", **result, launches_run=counts[policy])
+    return counts["attn"]
+
+
+def gradient_parity() -> None:
+    """Phase 9: a step's LoRA gradients, kernel path against mha_reference path."""
+    import dataclasses
+
+    import torch
+
+    from simpletuner_tpu_torch.bench import flagship_batch, flagship_config, perturb_adaln
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.flux import Flux, FluxConfig
+    from simpletuner_tpu_torch.models.layers import freeze_base, init_parameters
+    from simpletuner_tpu_torch.ops import set_attention_backend
+
+    dev = torch.device("cuda")
+    arch = dataclasses.replace(FluxConfig(), depth_double=PARITY_DOUBLE, depth_single=PARITY_SINGLE)
+    model = Flux(config_namespace(flagship_config("full")), arch=arch)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    with torch.device(dev):
+        module = init_parameters(model.create_module(), gen)
+    perturb_adaln(module, gen)
+    params = freeze_base(module)
+    with torch.no_grad():
+        for name, param in params.items():
+            if name.endswith("lora_B"):
+                param.normal_(0.0, 0.01, generator=gen)
+    batch = flagship_batch(arch, gen)
+    batch["override_noise"] = torch.randn(batch["latents"].shape, generator=gen, device=dev)
+    batch["override_sigmas"] = torch.full((1,), 0.6, device=dev)
+
+    def grads(batch):
+        loss, _ = model.loss_fn(module, gen, batch)
+        return loss.detach(), torch.cat([g.flatten() for g in torch.autograd.grad(loss, list(params.values()))])
+
+    loss_kernel, kernel = grads(batch)
+    _, unmasked = grads({k: v for k, v in batch.items() if k != "t5_masks"})
+    set_attention_backend("xla")
+    try:
+        loss_plain, plain = grads(batch)
+    finally:
+        set_attention_backend("auto")
+    err, mask_effect = rel_l2(kernel, plain), rel_l2(unmasked, plain)
+    if not (torch.isfinite(kernel).all() and plain.norm() > 0 and err <= TRAIN_GRAD_REL_L2 and mask_effect > 5 * err):
+        raise RuntimeError(f"gradient parity: rel L2 {err} (<= {TRAIN_GRAD_REL_L2}), mask effect {mask_effect}")
+    phase("9 gradient parity", blocks=[PARITY_DOUBLE, PARITY_SINGLE], lora_tensors=len(params),
+          loss_kernel=float(loss_kernel), loss_plain=float(loss_plain), rel_l2=err, bound=TRAIN_GRAD_REL_L2,
+          unmasked_rel_l2=mask_effect)
+    del module, params
+    torch.cuda.empty_cache()
+
+
 def profile_denoise(denoise, noise, sigma) -> None:
     """Phase 6: one denoise call under torch.profiler, device time by bucket."""
     import torch
@@ -219,15 +419,19 @@ def main() -> int:
 
     from simpletuner_tpu_torch import csrc
     from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime
-    from simpletuner_tpu_torch.models.layers import lecun_normal_
-    from simpletuner_tpu_torch.ops import flash_fwd_kernel, set_attention_backend
+    from simpletuner_tpu_torch.ops import (
+        flash_bwd_dkv_kernel, flash_bwd_dq_kernel, flash_fwd_kernel, set_attention_backend,
+    )
+    from simpletuner_tpu_torch.bench import perturb_adaln
 
-    kernels = [flash_fwd_kernel]
+    kernels = [flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel]
+    libraries = sorted({kernel.library for kernel in kernels})
     start = time.perf_counter()
-    for kernel in kernels:
-        csrc.load(kernel.name)
-    ptxas = [line.strip() for line in csrc.build_log_path("flash_fwd").read_text().splitlines()
-             if "registers" in line]
+    csrc.build(libraries)  # one nvcc per source, all at once
+    for library in libraries:
+        csrc.load(library)
+    ptxas = {library: [line.strip() for line in csrc.build_log_path(library).read_text().splitlines()
+                       if "registers" in line or "spill" in line] for library in libraries}
     phase("2 build", seconds=time.perf_counter() - start, nvcc_seconds=csrc.BUILD_SECONDS, ptxas=ptxas)
 
     max_err, kernel_ms, plain_ms = kernel_cases()
@@ -296,6 +500,8 @@ def main() -> int:
         torch.cuda.synchronize()
         render_s = time.perf_counter() - start
         launches = {kernel.name: kernel.launches for kernel in kernels}
+        if launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]:
+            raise RuntimeError(f"the render launched backward kernels: {launches}")
         peak = torch.cuda.max_memory_allocated()
         runtime.vae.decode = decode
         for hook in hooks:
@@ -316,10 +522,7 @@ def main() -> int:
         # attention would not reach the output; give them the lecun-normal
         # draw every other kernel gets
         gen = torch.Generator(device="cuda").manual_seed(5)
-        with torch.no_grad():
-            for name, param in module.named_parameters():
-                if name.endswith(("_mod.lin.weight", "modulation.lin.weight")):
-                    lecun_normal_(param, param.shape[1], gen)
+        perturb_adaln(module, gen)
         dev = torch.device("cuda")
         latent = RESOLUTION // 8
         batch = {"latents": torch.zeros((1, latent, latent, model.latent_channels), device=dev)}
@@ -341,12 +544,26 @@ def main() -> int:
             raise RuntimeError(f"full-width parity: rel L2 {err} (<= {PARITY_REL_L2}), mask effect {mask_effect}")
         phase("5 parity", rel_l2=err, bound=PARITY_REL_L2, unmasked_rel_l2=mask_effect)
         profile_denoise(model.denoise_fn(module, cond), noise, sigma)
+        del runtime, module, model
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda", "source": "simpletuner_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "simpletuner_tpu/ops/flash_attention.py:68", "launches": launches["flash_fwd"],
-        "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-    }]}), flush=True)
+    bwd_err, bwd_ms = backward_cases()
+    train_launches = train_steps(kernels)
+    gradient_parity()
+
+    print(json.dumps({"kernels": [
+        {"name": "flash_fwd", "route": "cuda", "source": "simpletuner_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "simpletuner_tpu/ops/flash_attention.py:68", "launches": launches["flash_fwd"],
+         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms},
+        {"name": "flash_bwd_dq", "route": "cuda", "source": "simpletuner_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "simpletuner_tpu/ops/flash_attention.py:197", "launches": train_launches["flash_bwd_dq"],
+         "max_abs_err": bwd_err["flash_bwd_dq"], "ms": bwd_ms["flash_bwd_dq"][0],
+         "plain_ms": bwd_ms["flash_bwd_dq"][1]},
+        {"name": "flash_bwd_dkv", "route": "cuda", "source": "simpletuner_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "simpletuner_tpu/ops/flash_attention.py:239", "launches": train_launches["flash_bwd_dkv"],
+         "max_abs_err": bwd_err["flash_bwd_dkv"], "ms": bwd_ms["flash_bwd_dkv"][0],
+         "plain_ms": bwd_ms["flash_bwd_dkv"][1]},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -5,7 +5,8 @@ a shared library with a plain C interface and loaded with :mod:`ctypes`.  The
 build happens at first use, into ``build/kernels/`` at the root of the
 checkout, keyed by a hash of the sources and flags, so an edited kernel is
 rebuilt and an unchanged one is reused.  A failed build raises: nothing falls
-back to a plain PyTorch path on the card.
+back to a plain PyTorch path on the card.  Every ``*.cuh`` in the directory
+is part of every library's key, so a shared header rebuilds all of them.
 
 Kernel table (every Pallas kernel of the JAX package, ``pl.pallas_call`` sites
 in ``simpletuner_tpu/ops/flash_attention.py``):
@@ -14,8 +15,8 @@ in ``simpletuner_tpu/ops/flash_attention.py``):
  #    Pallas kernel                               Hopper port              status
 ====  ==========================================  =======================  ==========================
  1    ``_fwd_kernel`` :68, call :157              ``csrc/flash_fwd.cu``    ported (CUDA, mma.sync)
- 2    ``_bwd_dq_kernel`` :197, call :334          --                       to port (training path)
- 3    ``_bwd_dkv_kernel`` :239, call :369         --                       to port (training path)
+ 2    ``_bwd_dq_kernel`` :197, call :334          ``csrc/flash_bwd.cu``    ported (CUDA, mma.sync)
+ 3    ``_bwd_dkv_kernel`` :239, call :369         ``csrc/flash_bwd.cu``    ported (CUDA, mma.sync)
 ====  ==========================================  =======================  ==========================
 """
 
@@ -28,8 +29,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR.parents[1] / "build" / "kernels"
@@ -87,6 +89,15 @@ def _build(name: str, target: Path) -> None:
             f"nvcc failed for {name}.cu (exit {result.returncode}):\n{result.stderr[-4000:]}"
         )
     os.replace(tmp, target)
+
+
+def build(names: Iterable[str]) -> None:
+    """Compile every named library that is not built yet, one ``nvcc`` per
+    source, all started together."""
+    todo = [name for name in dict.fromkeys(names) if not library_path(name).exists()]
+    if todo:
+        with ThreadPoolExecutor(len(todo)) as pool:
+            list(pool.map(lambda name: _build(name, library_path(name)), todo))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -31,22 +31,14 @@
 //     the semantics of padding by SEGMENT_PAD_ID; rows past S are never stored.
 // wgmma/TMA and warp specialisation are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace flash;
 
 constexpr int BLOCK_M = 64;
 constexpr int BLOCK_N = 64;
-constexpr int NUM_WARPS = 4;
-constexpr int NUM_THREADS = NUM_WARPS * 32;
-constexpr int SEGMENT_PAD_ID = -1;
-constexpr float MASK_VALUE = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const bf16* q;
@@ -65,81 +57,11 @@ struct Params {
 
 template <int D>
 struct Tile {
-  static constexpr int STRIDE = D + 8;  // +16 bytes: conflict-free fragments
+  static constexpr int STRIDE = Row<D>::STRIDE;
   static constexpr int ELEMS = BLOCK_M * STRIDE;
   // Q + double-buffered K and V
   static constexpr int SMEM_BYTES = 5 * ELEMS * (int)sizeof(bf16);
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16-byte async copy; src_size 0 fills the destination with zeros
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// c += a (16x16, row) * b (16x8, col)
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(ptr)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&pair);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const bf16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-// rows [row0, row0 + 64) of a (rows, D) matrix with row stride `stride`;
-// rows at or past `nrows` are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t stride, int row0,
-                                          int nrows, int tid) {
-  constexpr int CHUNKS_PER_ROW = D / 8;
-  constexpr int CHUNKS = BLOCK_M * CHUNKS_PER_ROW;
-#pragma unroll
-  for (int i = 0; i < CHUNKS / NUM_THREADS; ++i) {
-    const int chunk = tid + i * NUM_THREADS;
-    const int r = chunk / CHUNKS_PER_ROW;
-    const int col = (chunk % CHUNKS_PER_ROW) * 8;
-    const int row = row0 + r;
-    const bool valid = row < nrows;
-    const bf16* from = valid ? src + (int64_t)row * stride + col : src;
-    cp_async_16(dst + r * Tile<D>::STRIDE + col, from, valid);
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 template <int D, bool MASKED>
 __global__ void __launch_bounds__(NUM_THREADS) flash_fwd_kernel(const Params p) {
@@ -166,9 +88,9 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_fwd_kernel(const Params p) 
   const bf16* vg = p.v + b * p.v_sb + h * p.v_sh;
   const int n_tiles = (p.sk + BLOCK_N - 1) / BLOCK_N;
 
-  load_tile<D>(q_s, qg, p.q_ss, m0, p.sq, tid);
-  load_tile<D>(k_s, kg, p.k_ss, 0, p.sk, tid);
-  load_tile<D>(v_s, vg, p.v_ss, 0, p.sk, tid);
+  load_tile<BLOCK_M, D>(q_s, qg, p.q_ss, m0, p.sq, tid);
+  load_tile<BLOCK_M, D>(k_s, kg, p.k_ss, 0, p.sk, tid);
+  load_tile<BLOCK_M, D>(v_s, vg, p.v_ss, 0, p.sk, tid);
   cp_async_commit();
 
   // this thread holds query rows r[0] = row and r[1] = row + 8 of the tile
@@ -195,8 +117,8 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_fwd_kernel(const Params p) 
     const int buf = j & 1;
     if (j + 1 < n_tiles) {
       const int next = (buf ^ 1) * Tile<D>::ELEMS;
-      load_tile<D>(k_s + next, kg, p.k_ss, (j + 1) * BLOCK_N, p.sk, tid);
-      load_tile<D>(v_s + next, vg, p.v_ss, (j + 1) * BLOCK_N, p.sk, tid);
+      load_tile<BLOCK_M, D>(k_s + next, kg, p.k_ss, (j + 1) * BLOCK_N, p.sk, tid);
+      load_tile<BLOCK_M, D>(v_s + next, vg, p.v_ss, (j + 1) * BLOCK_N, p.sk, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {

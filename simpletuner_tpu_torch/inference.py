@@ -29,7 +29,7 @@ import torch
 from simpletuner_tpu.caching.text_embeds import TextEmbeddingCache
 from simpletuner_tpu.configuration.dataloader import load_dataloader_config
 from simpletuner_tpu.configuration.fields import REGISTRY
-from simpletuner_tpu.configuration.loader import load_config
+from simpletuner_tpu.configuration.loader import load_config, normalize_key
 from simpletuner_tpu.data.backends.local import LocalDataBackend
 
 from .models.flux import Flux
@@ -42,17 +42,22 @@ _VAE_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "default": to
                "fp32": torch.float32, "float32": torch.float32}
 
 
-def load_inference_config(config_path: Optional[str], overrides: Optional[dict] = None) -> SimpleNamespace:
-    """Registry defaults + the config file (+ overrides), as attributes.
+def config_namespace(values: dict) -> SimpleNamespace:
+    """Registry defaults + ``values``, as attributes: the port's config object.
 
-    Goes through the JAX package's jax-free loader; the full ``TrainingConfig``
-    is not used because its cross-validation imports the optimizer registry."""
-    values = dict(REGISTRY.defaults())
-    values.update(load_config(config_path=config_path))
-    values.update(overrides or {})
-    if values.get("mixed_precision") == "no":
-        values["mixed_precision"] = "fp32"
-    return SimpleNamespace(**values)
+    The JAX package's ``TrainingConfig`` is not used because its
+    cross-validation imports the optimizer registry."""
+    merged = dict(REGISTRY.defaults())
+    merged.update({normalize_key(k): v for k, v in values.items()})
+    if merged.get("mixed_precision") == "no":
+        merged["mixed_precision"] = "fp32"
+    return SimpleNamespace(**merged)
+
+
+def load_inference_config(config_path: Optional[str], overrides: Optional[dict] = None) -> SimpleNamespace:
+    """Registry defaults + the config file (+ overrides), through the JAX
+    package's jax-free loader."""
+    return config_namespace({**load_config(config_path=config_path), **(overrides or {})})
 
 
 def resolve_device(device: str) -> torch.device:

@@ -6,18 +6,32 @@ fused stream, axial RoPE over (t, h, w) ids, AdaLN-Zero modulation and the
 guidance embedding of the distilled flavours.  Submodules keep the JAX names
 (``double_{i}.img_attn_q``, ``single_{i}.linear1``, ``time_in.in_layer``, ...).
 
-Remat, TREAD routing, ControlNet residuals, FlowMap conditioning, QK-clip and
-tokenwise timesteps are not ported; the forward takes none of them.
+Remat (``gradient_checkpointing``) runs each block under
+``torch.utils.checkpoint`` (non-reentrant) with one of two policies:
+
+* ``full``: every double and single block keeps only its inputs and is
+  recomputed in the backward;
+* ``attn``: as ``full``, except that the single-stream blocks keep their
+  attention outputs across the boundary (JAX ``save_only_these_names("attn_out")``,
+  transformer.py:344-351).  Selective checkpointing saves the outputs of the
+  flash op (``out`` and ``lse``), so the recompute skips the forward kernel.
+
+Remat changes no gradient.  The other JAX policies (``attn_all``, ``single``,
+``dots``), ``remat_skip_last`` and ``remat_interval``, TREAD routing,
+ControlNet residuals, FlowMap conditioning, QK-clip and tokenwise timesteps
+are not ported; the forward takes none of them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ...ops import apply_rope, axial_rope, dot_product_attention
 from ..layers import (
@@ -33,6 +47,16 @@ from ..layers import (
 )
 
 Rope = Tuple[torch.Tensor, torch.Tensor]
+REMAT_POLICIES = ("full", "attn")
+
+
+def _save_attention_outputs(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op is torch.ops.simpletuner_tpu_torch.flash_attention.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SAVE_ATTENTION = functools.partial(create_selective_checkpoint_contexts, _save_attention_outputs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,14 +96,16 @@ class DoubleStreamBlock(nn.Module):
     """MMDiT block: separate img/txt params, joint attention over the fused stream."""
 
     def __init__(self, config: FluxConfig, dtype: torch.dtype = torch.bfloat16, lora_rank: int = 0,
-                 lora_alpha: Optional[float] = None, lora_algo: str = "lora") -> None:
+                 lora_alpha: Optional[float] = None, lora_algo: str = "lora",
+                 lora_mod_layers: bool = False) -> None:
         super().__init__()
         self.config = config
         self.dtype = dtype
         dim = config.hidden_size
         lora = dict(dtype=dtype, lora_rank=lora_rank, lora_alpha=lora_alpha, lora_algo=lora_algo)
+        mod_lora = lora if lora_mod_layers else dict(dtype=dtype)
         for prefix in ("img", "txt"):
-            self.add_module(f"{prefix}_mod", AdaLayerNormZero(dim, 6, dtype=dtype))
+            self.add_module(f"{prefix}_mod", AdaLayerNormZero(dim, 6, **mod_lora))
             for proj in ("q", "k", "v"):
                 self.add_module(
                     f"{prefix}_attn_{proj}", LoRADense(dim, dim, use_bias=config.qkv_bias, **lora)
@@ -134,14 +160,15 @@ class SingleStreamBlock(nn.Module):
     """DiT block over the fused (txt+img) stream with a fused qkv+mlp projection."""
 
     def __init__(self, config: FluxConfig, dtype: torch.dtype = torch.bfloat16, lora_rank: int = 0,
-                 lora_alpha: Optional[float] = None, lora_algo: str = "lora") -> None:
+                 lora_alpha: Optional[float] = None, lora_algo: str = "lora",
+                 lora_mod_layers: bool = False) -> None:
         super().__init__()
         self.config = config
         self.dtype = dtype
         dim = config.hidden_size
         self.mlp_dim = int(dim * config.mlp_ratio)
         lora = dict(dtype=dtype, lora_rank=lora_rank, lora_alpha=lora_alpha, lora_algo=lora_algo)
-        self.modulation = AdaLayerNormZero(dim, 3, dtype=dtype)
+        self.modulation = AdaLayerNormZero(dim, 3, **(lora if lora_mod_layers else dict(dtype=dtype)))
         self.linear1 = LoRADense(dim, dim * 3 + self.mlp_dim, **lora)
         self.norm_q = RMSNorm(config.head_dim, dtype=dtype)
         self.norm_k = RMSNorm(config.head_dim, dtype=dtype)
@@ -180,13 +207,24 @@ class FluxTransformer(nn.Module):
     guidance: (B,) guidance scale (distilled flavours)
     segment_ids: (B, S_txt + S_img) int32, -1 on tokens nothing may attend to
     Returns (B, S_img, in_channels) f32.
+
+    ``lora_mod_layers`` adapts the blocks' AdaLN modulation linears too
+    (``flux_lora_target=ai-toolkit``); ``remat``/``remat_policy`` as in the
+    module docstring.
     """
 
     def __init__(self, config: FluxConfig = FluxConfig(), dtype: torch.dtype = torch.bfloat16,
-                 lora_rank: int = 0, lora_alpha: Optional[float] = None, lora_algo: str = "lora") -> None:
+                 lora_rank: int = 0, lora_alpha: Optional[float] = None, lora_algo: str = "lora",
+                 lora_mod_layers: bool = False, remat: bool = False, remat_policy: str = "full") -> None:
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise NotImplementedError(
+                f"gradient_checkpointing_policy={remat_policy!r} is not ported (only {REMAT_POLICIES})"
+            )
         self.config = config
         self.dtype = dtype
+        self.remat = remat
+        self.remat_policy = remat_policy
         dim = config.hidden_size
         lora = dict(dtype=dtype, lora_rank=lora_rank, lora_alpha=lora_alpha, lora_algo=lora_algo)
         self.img_in = LoRADense(config.in_channels, dim, **lora)
@@ -197,9 +235,9 @@ class FluxTransformer(nn.Module):
         if config.guidance_embed:
             self.guidance_in = MLPEmbedder(256, dim, dtype=dtype)
         for i in range(config.depth_double):
-            self.add_module(f"double_{i}", DoubleStreamBlock(config, **lora))
+            self.add_module(f"double_{i}", DoubleStreamBlock(config, lora_mod_layers=lora_mod_layers, **lora))
         for i in range(config.depth_single):
-            self.add_module(f"single_{i}", SingleStreamBlock(config, **lora))
+            self.add_module(f"single_{i}", SingleStreamBlock(config, lora_mod_layers=lora_mod_layers, **lora))
         self.final_mod = AdaLayerNormZero(dim, 2, dtype=dtype)
         self.final_proj = LoRADense(dim, config.in_channels, dtype=dtype)
 
@@ -230,16 +268,23 @@ class FluxTransformer(nn.Module):
 
         rope = axial_rope(cfg.axes_dim, torch.cat([txt_ids, img_ids], dim=1), cfg.theta)
         for i in range(cfg.depth_double):
-            img_tok, txt_tok = getattr(self, f"double_{i}")(img_tok, txt_tok, cond, rope, segment_ids)
+            img_tok, txt_tok = self._block(getattr(self, f"double_{i}"), img_tok, txt_tok, cond, rope, segment_ids)
 
         stream = torch.cat([txt_tok, img_tok], dim=1)
         for i in range(cfg.depth_single):
-            stream = getattr(self, f"single_{i}")(stream, cond, rope, segment_ids)
+            stream = self._block(getattr(self, f"single_{i}"), stream, cond, rope, segment_ids)
         img_tok = stream[:, txt_tok.shape[1]:]
 
         shift, scale = self.final_mod(cond)
         img_tok = modulate(layer_norm(img_tok, self.dtype), shift, scale)
         return self.final_proj(img_tok).to(torch.float32)
+
+    def _block(self, block: nn.Module, *args):
+        if not (self.remat and torch.is_grad_enabled()):
+            return block(*args)
+        if self.remat_policy == "attn" and isinstance(block, SingleStreamBlock):
+            return checkpoint(block, *args, use_reentrant=False, context_fn=_SAVE_ATTENTION)
+        return checkpoint(block, *args, use_reentrant=False)
 
 
 def pack_latents(latents: torch.Tensor, patch: int = 2) -> torch.Tensor:

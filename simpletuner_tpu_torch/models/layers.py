@@ -5,16 +5,19 @@ follow the JAX modules so that a Flax parameter tree maps onto a ``state_dict``
 by name (``models/weight_bridge.py``).  Linear weights live in the compute
 dtype (the JAX code casts its f32 kernels at use, layers.py:208/:217, so the
 arithmetic is the same); norm scales stay f32 and norms compute in f32 with
-``eps=1e-6``.
+``eps=1e-6``.  LoRA adapters are f32 master weights cast to the compute dtype
+at use, as the JAX ``lora`` collection is (``param_dtype``, layers.py:277-297).
 
 Only the plain dense path and the ``lora`` adapter algorithm are ported; other
-adapter algorithms and quantized bases raise.
+adapter algorithms and quantized bases raise.  Which modules get an adapter
+is decided by a predicate on the JAX module path (:func:`apply_lora_target`,
+the counterpart of ``lora_path_enabled``, layers.py:77).
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,12 +28,16 @@ from torch import nn
 _TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 
+LORA_LEAVES = ("lora_A", "lora_B")
+
+
 class LoRADense(nn.Module):
     """Linear layer with an optional low-rank adapter: y = x W^T + b + (a/r) (x A^T) B^T.
 
     ``weight`` is (out, in) and ``lora_A``/``lora_B`` are (rank, in)/(out, rank),
     the torch/PEFT orientation of the JAX (in, out)/(in, rank)/(rank, out)
-    leaves.  ``zero_init`` mirrors ``kernel_init=zeros`` (AdaLN-Zero)."""
+    leaves.  The adapter is f32 and is cast to ``dtype`` at use.
+    ``zero_init`` mirrors ``kernel_init=zeros`` (AdaLN-Zero)."""
 
     def __init__(
         self,
@@ -55,8 +62,13 @@ class LoRADense(nn.Module):
         self.lora_rank = lora_rank
         if lora_rank > 0:
             self.lora_scale = (lora_alpha if lora_alpha is not None else float(lora_rank)) / lora_rank
-            self.lora_A = nn.Parameter(torch.empty(lora_rank, in_features, dtype=dtype))
-            self.lora_B = nn.Parameter(torch.empty(features, lora_rank, dtype=dtype))
+            self.lora_A = nn.Parameter(torch.empty(lora_rank, in_features, dtype=torch.float32))
+            self.lora_B = nn.Parameter(torch.empty(features, lora_rank, dtype=torch.float32))
+
+    def remove_adapter(self) -> None:
+        if self.lora_rank > 0:
+            del self.lora_A, self.lora_B
+            self.lora_rank = 0
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -69,18 +81,47 @@ class LoRADense(nn.Module):
         if self.lora_rank > 0:
             # flax variance_scaling(1/3, fan_in, uniform) == U(+-1/sqrt(fan_in))
             bound = 1.0 / math.sqrt(self.in_features)
-            self.lora_A.copy_(
-                torch.empty(self.lora_A.shape, device=self.lora_A.device)
-                .uniform_(-bound, bound, generator=generator)
-            )
+            self.lora_A.uniform_(-bound, bound, generator=generator)
             self.lora_B.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         y = F.linear(x, self.weight, self.bias)
         if self.lora_rank > 0:
-            y = y + self.lora_scale * F.linear(F.linear(x, self.lora_A), self.lora_B)
+            h = F.linear(x, self.lora_A.to(self.dtype))
+            y = y + self.lora_scale * F.linear(h, self.lora_B.to(self.dtype))
         return y
+
+
+def apply_lora_target(module: nn.Module, predicate: Optional[Callable[[str], bool]]) -> nn.Module:
+    """Drop the adapter of every ``LoRADense`` whose "/"-joined JAX module path
+    fails ``predicate`` (None keeps every adapter), as ``lora_path_enabled``
+    decides in the JAX package.  The port keeps the JAX submodule names, so the
+    path is the torch module name with dots as slashes."""
+    if predicate is not None:
+        for name, sub in module.named_modules():
+            if isinstance(sub, LoRADense) and sub.lora_rank > 0 and not predicate(name.replace(".", "/")):
+                sub.remove_adapter()
+    return module
+
+
+def lora_parameters(module: nn.Module) -> Dict[str, nn.Parameter]:
+    """The adapters by JAX path (``double_0/img_attn_q/lora_A``), in module order."""
+    return {
+        name.replace(".", "/"): param
+        for name, param in module.named_parameters()
+        if name.rsplit(".", 1)[-1] in LORA_LEAVES
+    }
+
+
+def freeze_base(module: nn.Module) -> Dict[str, nn.Parameter]:
+    """LoRA training: every parameter but the adapters stops requiring grad
+    (autograd then builds no base-weight gradients); returns the adapters."""
+    adapters = lora_parameters(module)
+    trainable = {id(p) for p in adapters.values()}
+    for param in module.parameters():
+        param.requires_grad_(id(param) in trainable)
+    return adapters
 
 
 @torch.no_grad()

@@ -1,12 +1,14 @@
-"""Flax parameter trees -> the port's ``state_dict``.
+"""Flax parameter trees <-> the port's parameters.
 
 The port keeps the JAX submodule names, so the bridge only renames leaves and
 transposes: a dense ``kernel`` (in, out) becomes ``weight`` (out, in), a conv
 ``kernel`` (kh, kw, in, out) becomes ``weight`` (out, in, kh, kw), ``lora_A``
 (in, r) / ``lora_B`` (r, out) become (r, in) / (out, r), and a norm ``scale``
 stays ``scale`` (RMSNorm) or becomes ``weight`` (GroupNorm).  Values take the
-dtype of the port's parameter: linear and conv weights the compute dtype,
-norm scales f32.  Quantized leaves (int8/fp8/int4 bases) are refused.
+dtype of the port's parameter (linear and conv weights the compute dtype,
+norm scales f32), except the ``lora`` collection, which stays f32: it is the
+optimizer's master copy.  Quantized leaves (int8/fp8/int4 bases) are refused.
+:func:`lora_to_flax` maps the port's adapters back to a Flax ``lora`` tree.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Any, Dict, Iterable, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from .layers import LORA_LEAVES, lora_parameters
 
 _FLOAT_KINDS = ("float16", "float32", "float64", "bfloat16")
 
@@ -41,7 +45,7 @@ def _to_torch(path: Tuple[str, ...], value: Any) -> torch.Tensor:
         arr = arr.T
     elif leaf == "kernel" and arr.ndim == 4:
         arr = arr.transpose(3, 2, 0, 1)
-    elif leaf in ("lora_A", "lora_B"):
+    elif leaf in LORA_LEAVES:
         arr = arr.T
     return torch.from_numpy(np.array(arr, order="C"))  # a writable, C-ordered copy
 
@@ -50,7 +54,7 @@ def _target_name(path: Tuple[str, ...], target: Mapping[str, torch.Tensor]) -> s
     module, leaf = "".join(p + "." for p in path[:-1]), path[-1]
     if leaf == "kernel":
         return f"{module}weight"
-    if leaf in ("bias", "lora_A", "lora_B"):
+    if leaf in ("bias",) + LORA_LEAVES:
         return f"{module}{leaf}"
     if leaf == "scale":
         return f"{module}scale" if f"{module}scale" in target else f"{module}weight"
@@ -80,7 +84,7 @@ def flax_to_state_dict(
             tensor = _to_torch(path, value)
             if tuple(tensor.shape) != tuple(target[name].shape):
                 raise ValueError(f"{name}: flax shape {tuple(tensor.shape)} != port {tuple(target[name].shape)}")
-            out[name] = tensor.to(target[name].dtype)
+            out[name] = tensor.float() if path[-1] in LORA_LEAVES else tensor.to(target[name].dtype)
     missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError(f"port parameters without a flax leaf: {missing[:8]}")
@@ -96,3 +100,16 @@ def load_flax_params(
     """Copy Flax weights into ``module`` in place (on its device); returns it."""
     module.load_state_dict(flax_to_state_dict(params, module, lora, ignore))
     return module
+
+
+def lora_to_flax(module: nn.Module) -> Dict[str, Any]:
+    """The port's adapters as a Flax ``lora`` collection: nested dicts by
+    module path with f32 numpy ``lora_A`` (in, r) and ``lora_B`` (r, out)."""
+    tree: Dict[str, Any] = {}
+    for path, param in lora_parameters(module).items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = param.detach().float().cpu().numpy().T.copy()
+    return tree

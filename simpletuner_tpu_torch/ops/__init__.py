@@ -8,7 +8,11 @@ from .flash_attention import (
     DEFAULT_MASK_VALUE,
     SEGMENT_PAD_ID,
     flash_attention,
+    flash_backward,
+    flash_bwd_dkv_kernel,
+    flash_bwd_dq_kernel,
     flash_fwd_kernel,
+    mha_backward_reference,
     mha_reference,
     mha_reference_lse,
 )

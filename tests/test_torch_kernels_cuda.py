@@ -1,4 +1,4 @@
-"""The Hopper flash-attention kernel against its plain PyTorch version, on the card.
+"""The Hopper flash-attention kernels against their plain PyTorch versions, on the card.
 
 Skipped without CUDA: a CUDA kernel has no CPU mode.  Run on a machine with an
 H100 (the JAX test bootstrap in conftest.py is not needed there):
@@ -10,7 +10,16 @@ import numpy as np
 import pytest
 import torch
 
-from simpletuner_tpu_torch.ops import SEGMENT_PAD_ID, flash_attention, mha_reference_lse
+from simpletuner_tpu_torch.ops import (
+    SEGMENT_PAD_ID,
+    flash_attention,
+    flash_backward,
+    flash_bwd_dkv_kernel,
+    flash_bwd_dq_kernel,
+    mha_backward_reference,
+    mha_reference,
+    mha_reference_lse,
+)
 from simpletuner_tpu_torch.ops.attention import dot_product_attention
 
 pytestmark = pytest.mark.gpu
@@ -28,6 +37,12 @@ OUT_REL_L2 = 8e-3
 # lse is f32 on both sides from the same bf16 inputs; only the summation order
 # of the f32 dot products differs
 LSE_ATOL = 1e-3
+# backward, kernel vs mha_backward_reference on the same out/lse/dO: both round
+# P and dS to bf16 at the same sites and dq/dk/dv to bf16 at the end, so they
+# differ where an f32 sum order (or exp2 vs exp) flips a rounding; each
+# gradient within two bf16 ulps of its largest plain value and 1e-2 in
+# relative L2
+GRAD_REL_MAX, GRAD_REL_L2 = 2.0 ** -6, 1e-2
 
 
 @pytest.fixture
@@ -115,3 +130,68 @@ def test_kernel_rejects_unsupported(cuda):
     q96 = torch.zeros((1, 2, 128, 96), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(NotImplementedError):
         flash_attention(q96, q96, q96)
+
+
+def _check_backward(q, k, v, seg=None, seed=0):
+    """Kernel dq/dk/dv against the plain backward on the kernel's own out and lse."""
+    out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
+    rng = np.random.default_rng(seed)
+    do = torch.from_numpy(rng.standard_normal(tuple(q.shape), dtype=np.float32)).to(q.device, torch.bfloat16)
+    before = (flash_bwd_dq_kernel.launches, flash_bwd_dkv_kernel.launches)
+    grads = flash_backward(q, k, v, seg, seg, out, lse, do, q.shape[-1] ** -0.5)
+    assert (flash_bwd_dq_kernel.launches, flash_bwd_dkv_kernel.launches) == (before[0] + 1, before[1] + 1)
+    refs = mha_backward_reference(q, k, v, seg, seg, out, lse, do, q.shape[-1] ** -0.5)
+    torch.cuda.synchronize()
+    for grad, ref in zip(grads, refs):
+        assert grad.shape == ref.shape and grad.dtype == torch.bfloat16
+        assert torch.isfinite(grad.float()).all()
+        g, r = grad.float(), ref.float()
+        assert r.norm() > 0
+        assert (g - r).abs().max().item() <= GRAD_REL_MAX * r.abs().max().item()
+        assert ((g - r).norm() / r.norm()).item() <= GRAD_REL_L2
+    return grads
+
+
+@pytest.mark.parametrize(
+    "batch,heads,seq,dim",
+    [(1, 24, 4608, 128), (1, 4, 1000, 64), (2, 3, 256, 32), (1, 2, 100, 64)],
+)
+def test_backward_kernels_match_plain(cuda, batch, heads, seq, dim):
+    q, k, v = _qkv(5, batch, heads, seq, seq, dim, cuda)
+    _check_backward(q, k, v)
+
+
+def test_backward_kernels_flux_text_padding(cuda):
+    q, k, v = _qkv(6, 1, 24, 4608, 4608, 128, cuda)
+    seg = _flux_text_pad_segments(1, 512, 77, 4096, cuda)
+    dq, dk, dv = _check_backward(q, k, v, seg)
+    # padded text rows see no key, and no row sees a padded key: exactly zero
+    for grad in (dq, dk, dv):
+        assert (grad[:, :, 77:512] == 0).all()
+
+
+def test_backward_kernels_packed_segments_ragged(cuda):
+    q, k, v = _qkv(7, 2, 2, 300, 300, 32, cuda)
+    seg = torch.zeros((2, 300), dtype=torch.int32, device=cuda)
+    seg[:, 130:] = 1
+    seg[1, 280:] = SEGMENT_PAD_ID
+    dq, dk, dv = _check_backward(q, k, v, seg)
+    for grad in (dq, dk, dv):
+        assert (grad[1, :, 280:] == 0).all()
+
+
+def test_backward_through_the_strided_dispatcher(cuda):
+    # autograd through the (B, S, H, D) dispatcher: the kernels read q/k/v/dO
+    # through their strides and write gradients in the views' layout; held
+    # against autograd through the plain version
+    q, k, v = (x.transpose(1, 2).contiguous() for x in _qkv(8, 1, 8, 640, 640, 64, cuda))  # (B, S, H, D)
+    do = torch.randn(q.shape, device=cuda, dtype=torch.bfloat16, generator=torch.Generator(cuda).manual_seed(0))
+    grads = {}
+    for backend in ("pallas_flash", "xla"):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        (dot_product_attention(*leaves, backend=backend).float() * do.float()).sum().backward()
+        grads[backend] = [x.grad for x in leaves]
+    for grad, ref in zip(grads["pallas_flash"], grads["xla"]):
+        assert grad.stride() == q.stride()
+        g, r = grad.float(), ref.float()
+        assert ((g - r).norm() / r.norm()).item() <= GRAD_REL_L2

@@ -15,6 +15,11 @@ def numpy_variables(flax_module, *args, seed=0, **kwargs):
     zero, so AdaLN gates and LoRA ``B`` (zero at init in both frameworks) let
     attention and the adapter reach the output."""
     shapes = jax.eval_shape(lambda: flax_module.init(jax.random.PRNGKey(0), *args, **kwargs))
+    return fill_numpy(shapes, seed)
+
+
+def fill_numpy(shapes, seed=0):
+    """Seeded numpy leaves for a tree of shapes, by the rule of numpy_variables."""
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
