@@ -23,12 +23,20 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    backward on the card, bf16, at the Flux shape masked and unmasked and at
    ragged/narrow shapes, with kernel and plain times (CUDA events);
 8. train step: the flagship LoRA step (simpletuner_tpu_torch.bench.flagship:
-   full-width, full-depth Flux.1-dev, bf16 frozen base, rank-16 LoRA, AdamW,
-   1024 px, T5 padding masked) with remat policy attn, then full; 2 warm-up and
-   4 timed steps each; counts the kernel launches of the runs;
+   full-width, full-depth Flux.1-dev, rank-16 LoRA, AdamW, 1024 px, T5 padding
+   masked): first the JAX flagship's configuration, an int8 frozen base with
+   quantized_matmul=full and remat policy attn, then an int4 base (attn), then
+   a bf16 base with remat attn and full; 2 warm-up and 4 timed steps each;
+   counts the kernel launches of each run;
 9. gradient parity: one step's LoRA gradients through the kernels against the
    same step through mha_reference under autograd, full width, depth cut to
-   2 double + 4 single blocks.
+   2 double + 4 single blocks;
+10. int8 products: torch._int_mm at the Flux linears' (k, n) with m = 4608
+   rows and with one (padded) row, in the forward's and the dx backward's
+   operand layouts, each int32 result equal to the float64 product of the same
+   int8 operands; int8_dynamic_dot's output and dx against a plain version
+   that contracts in float64; times beside bf16 products of the same shapes;
+11. gradient parity on an int8 base (quantized_matmul=full): phase 9 again.
 
 Then a JSON line with the kernels, and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.
@@ -68,6 +76,15 @@ GRAD_REL_MAX, GRAD_REL_L2 = 2.0 ** -6, 1e-2
 # rounding (P and dS in bf16), compounded through the blocks' backward
 TRAIN_GRAD_REL_L2 = 5e-2
 PARITY_DOUBLE, PARITY_SINGLE = 2, 4
+# phase 10: the Flux linears' (in, out): attention q/k/v and proj, single-block
+# linear1 (q, k, v, mlp) and linear2, the MLP in and out, double-block AdaLN
+INT8_SHAPES = ((3072, 3072), (3072, 21504), (15360, 3072), (3072, 12288), (12288, 3072), (3072, 18432))
+INT8_ROWS = 4608  # 4096 image + 512 text tokens
+# int8_dynamic_dot against a plain version written out here (f32 per-row
+# quantize, float64 contraction and scaling, one rounding to bf16): the codes
+# and the products are exact on both sides and the scaled values differ by f32
+# roundings, so every element is within one bf16 ulp (at most 2^-7 of its value)
+DOT_REL = 2.0 ** -7
 
 
 def phase(name: str, **fields) -> None:
@@ -284,23 +301,34 @@ def record_backward_norms(norms, calls: int):
         flash.flash_backward = plain
 
 
+# phase 8 runs: (label, flagship keyword arguments); the first is the JAX flagship
+TRAIN_RUNS = (
+    ("int8 attn", dict(quant="int8", quantized_matmul="full", remat_policy="attn")),
+    ("int4 attn", dict(quant="int4", quantized_matmul="full", remat_policy="attn")),
+    ("bf16 attn", dict(quant="none", quantized_matmul="off", remat_policy="attn")),
+    ("bf16 full", dict(quant="none", quantized_matmul="off", remat_policy="full")),
+)
+
+
 def train_steps(kernels):
-    """Phase 8: the flagship LoRA step with remat attn, then full; returns
-    the launch counts of the attn run."""
+    """Phase 8: the flagship LoRA step in each of TRAIN_RUNS; returns the
+    launch counts of the first (the JAX flagship's configuration)."""
     import torch
 
     from simpletuner_tpu_torch.bench import flagship
 
     blocks = 19 + 38
-    expected_fwd = {"attn": blocks + 19, "full": 2 * blocks}  # attn saves the single blocks' flash outputs
+    # attn saves the single blocks' flash outputs; full recomputes every block's
+    expected_fwd = {"attn": blocks + 19, "full": 2 * blocks}
     counts = {}
-    for policy in ("attn", "full"):
+    for label, kwargs in TRAIN_RUNS:
+        policy = kwargs["remat_policy"]
         norms = []
         for kernel in kernels:
             kernel.launches = 0
         with record_backward_norms(norms, calls=2 * blocks):
-            result = flagship(steps=4, warmup=2, remat_policy=policy)
-        counts[policy] = {kernel.name: kernel.launches for kernel in kernels}
+            result = flagship(steps=4, warmup=2, **kwargs)
+        counts[label] = {kernel.name: kernel.launches for kernel in kernels}
         per_step = result["launches_per_step"]
         norms = torch.stack(norms).cpu()
         losses = result["losses"]
@@ -313,15 +341,20 @@ def train_steps(kernels):
             problems.append(f"launches per step {per_step}")
         if len(norms) != 2 * blocks or not (norms > 0).all():
             problems.append(f"zero dO/dq/dk/dv reaching the kernels: {norms.min(dim=0).values.tolist()}")
+        if result["quant"] != kwargs["quant"] or result["quantized_matmul"] != kwargs["quantized_matmul"]:
+            problems.append(f"the run used quant={result['quant']}, quantized_matmul={result['quantized_matmul']}")
+        if (kwargs["quant"] != "none") != (result["int_mm_per_step"] > 0):
+            problems.append(f"{result['int_mm_per_step']} int8 products per step")
         if problems:
-            raise RuntimeError(f"train step ({policy}): " + "; ".join(problems))
+            raise RuntimeError(f"train step ({label}): " + "; ".join(problems))
         result["backward_norms_min"] = dict(zip(("do", "dq", "dk", "dv"), norms.min(dim=0).values.tolist()))
-        phase(f"8 train step ({policy})", **result, launches_run=counts[policy])
-    return counts["attn"]
+        phase(f"8 train step ({label})", **result, launches_run=counts[label])
+    return counts[TRAIN_RUNS[0][0]]
 
 
-def gradient_parity() -> None:
-    """Phase 9: a step's LoRA gradients, kernel path against mha_reference path."""
+def gradient_parity(name: str, quant: str = "none") -> None:
+    """Phases 9 and 11: a step's LoRA gradients, kernel path against
+    mha_reference path, on a bf16 base or a quantized one (int8 products)."""
     import dataclasses
 
     import torch
@@ -329,21 +362,23 @@ def gradient_parity() -> None:
     from simpletuner_tpu_torch.bench import flagship_batch, flagship_config, perturb_adaln
     from simpletuner_tpu_torch.inference import config_namespace
     from simpletuner_tpu_torch.models.flux import Flux, FluxConfig
-    from simpletuner_tpu_torch.models.layers import freeze_base, init_parameters
+    from simpletuner_tpu_torch.models.layers import freeze_base, init_parameters, quantize_module
     from simpletuner_tpu_torch.ops import set_attention_backend
 
     dev = torch.device("cuda")
     arch = dataclasses.replace(FluxConfig(), depth_double=PARITY_DOUBLE, depth_single=PARITY_SINGLE)
-    model = Flux(config_namespace(flagship_config("full")), arch=arch)
+    model = Flux(config_namespace(flagship_config("full", quant, "full")), arch=arch)
     gen = torch.Generator(device=dev).manual_seed(9)
     with torch.device(dev):
         module = init_parameters(model.create_module(), gen)
     perturb_adaln(module, gen)
     params = freeze_base(module)
     with torch.no_grad():
-        for name, param in params.items():
-            if name.endswith("lora_B"):
+        for path, param in params.items():
+            if path.endswith("lora_B"):
                 param.normal_(0.0, 0.01, generator=gen)
+    if model.base_precision:
+        quantize_module(module, model.base_precision)
     batch = flagship_batch(arch, gen)
     batch["override_noise"] = torch.randn(batch["latents"].shape, generator=gen, device=dev)
     batch["override_sigmas"] = torch.full((1,), 0.6, device=dev)
@@ -361,12 +396,97 @@ def gradient_parity() -> None:
         set_attention_backend("auto")
     err, mask_effect = rel_l2(kernel, plain), rel_l2(unmasked, plain)
     if not (torch.isfinite(kernel).all() and plain.norm() > 0 and err <= TRAIN_GRAD_REL_L2 and mask_effect > 5 * err):
-        raise RuntimeError(f"gradient parity: rel L2 {err} (<= {TRAIN_GRAD_REL_L2}), mask effect {mask_effect}")
-    phase("9 gradient parity", blocks=[PARITY_DOUBLE, PARITY_SINGLE], lora_tensors=len(params),
+        raise RuntimeError(f"{name}: rel L2 {err} (<= {TRAIN_GRAD_REL_L2}), mask effect {mask_effect}")
+    phase(name, blocks=[PARITY_DOUBLE, PARITY_SINGLE], base=model.base_precision or "bf16",
+          quantized_matmul=model.quantized_matmul, lora_tensors=len(params),
           loss_kernel=float(loss_kernel), loss_plain=float(loss_plain), rel_l2=err, bound=TRAIN_GRAD_REL_L2,
           unmasked_rel_l2=mask_effect)
     del module, params
     torch.cuda.empty_cache()
+
+
+def int8_cases() -> None:
+    """Phase 10: torch._int_mm exact at the Flux shapes, int8_dynamic_dot
+    against its float64-contraction plain version, and times."""
+    import torch
+    import torch.nn.functional as F
+
+    from simpletuner_tpu_torch.training.quantization import (
+        _dynamic_quantize, int8_dynamic_dot, int8_matmul, quantize_weight,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=gen)
+
+    # the plain version shares nothing with the port's but the stored weight
+    def plain_quantize(v):
+        v = v.float()
+        scales = torch.clamp_min(v.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-12)
+        return torch.round(v / scales).to(torch.int8), scales
+
+    def plain_dot(x, w_q, w_scale):
+        x_q, x_scales = plain_quantize(x)
+        acc = x_q.double() @ w_q.double().t()
+        return (acc * x_scales.double() * w_scale.double()).to(x.dtype)
+
+    def plain_dx(dy, w_q, w_scale):
+        dy_q, dy_scales = plain_quantize(dy.float() * w_scale.float())
+        return ((dy_q.double() @ w_q.double()) * dy_scales.double()).to(dy.dtype)
+
+    def rel_max(a, b):
+        a, b = a.detach().float(), b.detach().float()
+        return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+    shapes = {}
+    for k, n in INT8_SHAPES:
+        a, w, dy_q = codes(INT8_ROWS, k), codes(n, k), codes(INT8_ROWS, n)  # w: the stored (out, in)
+        forward = int8_matmul(a, w.t())
+        exact = torch.equal(forward.double(), a.double() @ w.double().t())
+        exact &= torch.equal(int8_matmul(a[:1], w.t()).double(), a[:1].double() @ w.double().t())
+        exact &= torch.equal(int8_matmul(dy_q, w.t().contiguous().t()).double(), dy_q.double() @ w.double())
+        exact &= torch.equal(int8_matmul(dy_q[:1], w.t().contiguous().t()).double(), dy_q[:1].double() @ w.double())
+        if not exact:
+            raise RuntimeError(f"int8 product at (m, k, n) = ({INT8_ROWS}, {k}, {n}) is not exact")
+        del forward
+
+        stored = quantize_weight(torch.randn(n, k, device=dev, generator=gen) * k ** -0.5, "int8")
+        w_q, w_scale = stored["weight"], stored["weight_scale"]
+        x = torch.randn(INT8_ROWS, k, device=dev, generator=gen).bfloat16().requires_grad_(True)
+        dy = torch.randn(INT8_ROWS, n, device=dev, generator=gen).bfloat16()
+        errors = {}
+        for rows in (INT8_ROWS, 1):
+            xr = x[:rows].detach().requires_grad_(True)
+            y = int8_dynamic_dot(xr, w_q, w_scale, True)
+            (dx,) = torch.autograd.grad(y, xr, dy[:rows])
+            errors[rows] = {"y": rel_max(y, plain_dot(xr.detach(), w_q, w_scale)),
+                            "dx": rel_max(dx, plain_dx(dy[:rows], w_q, w_scale))}
+            if max(errors[rows].values()) > DOT_REL:
+                raise RuntimeError(f"int8_dynamic_dot at ({rows}, {k}, {n}): {errors[rows]} (<= {DOT_REL})")
+
+        w_bf16 = (w_q.float() * w_scale[:, None]).bfloat16()
+        y = int8_dynamic_dot(x, w_q, w_scale, True)
+        y_bf16 = F.linear(x, w_bf16)
+        w_t = w.t()
+        shapes[f"{k}x{n}"] = {
+            "exact": exact, "rel_err": errors,
+            "int_mm_ms": cuda_ms(lambda: int8_matmul(a, w_t), 10),
+            "int_mm_dx_ms": cuda_ms(lambda: int8_matmul(dy_q, w.t().contiguous().t()), 10),
+            "int_mm_dx_row_major_ms": cuda_ms(lambda: torch._int_mm(dy_q, w), 3),
+            "weight_transpose_ms": cuda_ms(lambda: w.t().contiguous(), 10),
+            "bf16_mm_ms": cuda_ms(lambda: F.linear(x.detach(), w_bf16), 10),
+            "bf16_mm_dx_ms": cuda_ms(lambda: dy @ w_bf16, 10),
+            "quantize_ms": cuda_ms(lambda: _dynamic_quantize(x.detach()), 10),
+            "dot_fwd_ms": cuda_ms(lambda: int8_dynamic_dot(x.detach(), w_q, w_scale, True), 10),
+            "dot_dx_ms": cuda_ms(lambda: torch.autograd.grad(y, x, dy, retain_graph=True), 10),
+            "linear_fwd_ms": cuda_ms(lambda: F.linear(x.detach(), w_bf16), 10),
+            "linear_dx_ms": cuda_ms(lambda: torch.autograd.grad(y_bf16, x, dy, retain_graph=True), 10),
+        }
+        del a, w, w_t, dy_q, x, dy, y, y_bf16, w_bf16
+        torch.cuda.empty_cache()
+    phase("10 int8 products", rows=INT8_ROWS, tol={"int_mm": "exact", "dot_rel": DOT_REL}, shapes=shapes)
 
 
 def profile_denoise(denoise, noise, sigma) -> None:
@@ -549,7 +669,9 @@ def main() -> int:
 
     bwd_err, bwd_ms = backward_cases()
     train_launches = train_steps(kernels)
-    gradient_parity()
+    gradient_parity("9 gradient parity")
+    int8_cases()
+    gradient_parity("11 gradient parity (int8 base)", quant="int8")
 
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "simpletuner_tpu_torch/csrc/flash_fwd.cu",

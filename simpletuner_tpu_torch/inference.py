@@ -11,7 +11,10 @@ BFL/diffusers weights (``pretrained_model_name_or_path``), the text encoders
 (prompt embeds must already be in the text-embed cache), families other than
 flux.  Without pretrained weights the model starts from seeded random
 initialisation, which ``allow_untrained_init`` must permit, as in the JAX
-trainer.
+trainer.  A ``base_model_precision`` (``model_type=lora`` only) quantizes the
+base after it is initialised, as the JAX trainer's ``create_train_state``
+does, and the render then uses that base dequantized to bf16 with dense
+products, as the JAX runtime renders ``TrainState.variables()``.
 
     python -m simpletuner_tpu_torch.inference --config config.json --prompt "a cat"
 """
@@ -33,7 +36,7 @@ from simpletuner_tpu.configuration.loader import load_config, normalize_key
 from simpletuner_tpu.data.backends.local import LocalDataBackend
 
 from .models.flux import Flux
-from .models.layers import init_parameters
+from .models.layers import dequantize_module, init_parameters, quantize_module
 from .models.vae import AutoencoderKL, VAEConfig
 from .training.validation import Validation
 
@@ -124,6 +127,12 @@ class CheckpointInferenceRuntime:
         generator = torch.Generator(device=self.device).manual_seed(int(getattr(config, "seed", 42) or 42))
         with torch.device(self.device):
             self.module = init_parameters(self.model.create_module(), generator).eval()
+            if self.model.base_precision:
+                if self.model.lora_rank <= 0:
+                    raise ValueError("base_model_precision quantization requires model_type=lora (frozen base)")
+                # the JAX runtime renders TrainState.variables(): the quantized
+                # base dequantized to bf16, with dense products
+                dequantize_module(quantize_module(self.module, self.model.base_precision))
             tiny = getattr(config, "model_arch_preset", None) == "tiny"
             vae_dtype = str(getattr(config, "vae_dtype", "bf16") or "bf16").lower()
             if vae_dtype not in _VAE_DTYPES:

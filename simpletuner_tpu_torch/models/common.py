@@ -7,7 +7,8 @@ the JAX methods take a Flax ``variables`` tree, the port takes the
 the port takes a ``torch.Generator``.
 
 Ported: the family contract, ``denoise_fn``, the LoRA target predicate
-(``lora_target_modules`` / ``_build_lora_target_predicate``), and the flow
+(``lora_target_modules`` / ``_build_lora_target_predicate``), the quantized
+base's settings (``base_precision``, ``quantized_matmul``), and the flow
 branch of ``prepare_batch`` (with the ``override_noise``/``override_sigmas``
 hooks), ``compute_loss`` and ``loss_fn``.  Refused with NotImplementedError:
 DDPM (epsilon / v-prediction) training, noise offset, input perturbation,
@@ -33,6 +34,7 @@ from ..training.losses import (
     parse_flow_custom_timesteps,
     sample_flow_sigmas,
 )
+from ..training.quantization import resolve_precision, resolve_quantized_matmul
 
 # config keys whose training features are not ported: each must be unset
 _UNPORTED_TRAINING = (
@@ -78,6 +80,20 @@ class ModelFoundation:
     @property
     def lora_alpha(self) -> Optional[float]:
         return getattr(self.config, "lora_alpha", None)
+
+    # ---- quantized frozen base -----------------------------------------------------------
+    @property
+    def base_precision(self) -> Optional[str]:
+        """``base_model_precision`` resolved to None, "int8", "fp8" or "int4":
+        the ``quantize_mode`` that ``create_train_state`` takes."""
+        return resolve_precision(self.config)
+
+    @property
+    def quantized_matmul(self) -> str:
+        """The int8 product mode of the quantized base ("off", "forward",
+        "full"), resolved from the config as ``apply_trace_globals`` does
+        (common.py:102-105); ``create_module`` sets it on every layer."""
+        return resolve_quantized_matmul(self.config)
 
     @property
     def lora_algo(self) -> str:

@@ -2,7 +2,8 @@
 
 Counterpart of ``simpletuner_tpu/models/flux/model.py``: flavour -> guidance
 embedding, latent channels, VAE factors, the ``flux_lora_target`` presets,
-the module with its adapters and remat settings, ``prepare_batch`` (ids and
+the module with its adapters, remat settings and int8 product mode,
+``prepare_batch`` (ids and
 guidance), the conditioning for sampling, the transformer inputs (with
 ``--flux_attention_masked_training`` segment ids) and ``model_predict``.
 ControlNet, Kontext, TREAD, FlowMap and QK-clip are not ported.
@@ -17,7 +18,7 @@ import torch
 from torch import nn
 
 from ..common import ModelFoundation
-from ..layers import apply_lora_target
+from ..layers import apply_lora_target, set_quantized_matmul
 from .transformer import (
     FluxConfig,
     FluxTransformer,
@@ -108,15 +109,11 @@ class Flux(ModelFoundation):
 
     def create_module(self) -> FluxTransformer:
         """The transformer, with LoRA adapters on the targeted modules in
-        ``model_type=lora`` (f32 masters, B = 0 at init) and the remat settings."""
+        ``model_type=lora`` (f32 masters, B = 0 at init), the remat settings
+        and the int8 product mode of a quantized base.  The base itself is
+        quantized by ``create_train_state(quantize_mode=model.base_precision)``,
+        after the weights are initialised or loaded, as in the JAX trainer."""
         cfg = self.config
-        precision = getattr(cfg, "base_model_precision", None) or "no_change"
-        if precision != "no_change":
-            raise NotImplementedError(f"base_model_precision={precision!r}: quantized bases are not ported")
-        if int(getattr(cfg, "gradient_checkpointing_skip_last", 0) or 0) or int(
-            getattr(cfg, "gradient_checkpointing_interval", 0) or 1
-        ) > 1:
-            raise NotImplementedError("gradient_checkpointing_skip_last/_interval are not ported")
         rank = self.lora_rank
         module = FluxTransformer(
             config=self.arch,
@@ -127,7 +124,10 @@ class Flux(ModelFoundation):
             lora_mod_layers=rank > 0 and getattr(cfg, "flux_lora_target", None) == "ai-toolkit",
             remat=bool(getattr(cfg, "gradient_checkpointing", False)),
             remat_policy=getattr(cfg, "gradient_checkpointing_policy", None) or "full",
+            remat_skip_last=int(getattr(cfg, "gradient_checkpointing_skip_last", 0) or 0),
+            remat_interval=int(getattr(cfg, "gradient_checkpointing_interval", 0) or 1),
         )
+        set_quantized_matmul(module, self.quantized_matmul)
         if rank:
             apply_lora_target(module, self._build_lora_target_predicate())
         return module

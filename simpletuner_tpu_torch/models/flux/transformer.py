@@ -6,27 +6,36 @@ fused stream, axial RoPE over (t, h, w) ids, AdaLN-Zero modulation and the
 guidance embedding of the distilled flavours.  Submodules keep the JAX names
 (``double_{i}.img_attn_q``, ``single_{i}.linear1``, ``time_in.in_layer``, ...).
 
-Remat (``gradient_checkpointing``) runs each block under
-``torch.utils.checkpoint`` (non-reentrant) with one of two policies:
+Remat (``gradient_checkpointing``) runs blocks under
+``torch.utils.checkpoint`` (non-reentrant) with the JAX policies
+(transformer.py:340-431):
 
 * ``full``: every double and single block keeps only its inputs and is
   recomputed in the backward;
 * ``attn``: as ``full``, except that the single-stream blocks keep their
-  attention outputs across the boundary (JAX ``save_only_these_names("attn_out")``,
-  transformer.py:344-351).  Selective checkpointing saves the outputs of the
-  flash op (``out`` and ``lse``), so the recompute skips the forward kernel.
+  attention outputs across the boundary (JAX ``save_only_these_names("attn_out")``).
+  Selective checkpointing saves the outputs of the flash op (``out`` and
+  ``lse``), so the recompute skips the forward kernel;
+* ``attn_all``: as ``attn`` in the double-stream blocks too (``attn_out_double``);
+* ``single``: only the single-stream blocks are checkpointed (``full`` inside);
+* ``dots``: JAX ``dots_with_no_batch_dims_saveable``.  Selective
+  checkpointing saves the outputs of the 2-D products (``aten.mm``,
+  ``aten.addmm``, ``aten._int_mm``: every linear) and recomputes the rest,
+  batched products (``bmm``, the plain attention path) and the flash op
+  included.
 
-Remat changes no gradient.  The other JAX policies (``attn_all``, ``single``,
-``dots``), ``remat_skip_last`` and ``remat_interval``, TREAD routing,
-ControlNet residuals, FlowMap conditioning, QK-clip and tokenwise timesteps
-are not ported; the forward takes none of them.
+``remat_skip_last`` leaves the last N single-stream blocks unchecked, and
+``remat_interval`` checkpoints only every k-th block of both stacks.  Remat
+changes no gradient.  TREAD routing, ControlNet residuals, FlowMap
+conditioning, QK-clip and tokenwise timesteps are not ported; the forward
+takes none of them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,16 +56,28 @@ from ..layers import (
 )
 
 Rope = Tuple[torch.Tensor, torch.Tensor]
-REMAT_POLICIES = ("full", "attn")
+REMAT_POLICIES = ("full", "attn", "attn_all", "single", "dots")
 
 
-def _save_attention_outputs(ctx, op, *args, **kwargs) -> CheckpointPolicy:
-    if op is torch.ops.simpletuner_tpu_torch.flash_attention.default:
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
+def _saving(ops) -> Callable:
+    """A checkpoint ``context_fn`` that saves the outputs of ``ops`` and recomputes the rest."""
+
+    def policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+        return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
-_SAVE_ATTENTION = functools.partial(create_selective_checkpoint_contexts, _save_attention_outputs)
+_SAVE_ATTENTION = _saving({torch.ops.simpletuner_tpu_torch.flash_attention.default})
+_SAVE_DOTS = _saving({torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten._int_mm.default})
+# (policy, single-stream block) -> checkpoint context_fn; None: plain checkpoint
+_CONTEXTS = {
+    ("attn", True): _SAVE_ATTENTION,
+    ("attn_all", False): _SAVE_ATTENTION,
+    ("attn_all", True): _SAVE_ATTENTION,
+    ("dots", False): _SAVE_DOTS,
+    ("dots", True): _SAVE_DOTS,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,22 +230,23 @@ class FluxTransformer(nn.Module):
     Returns (B, S_img, in_channels) f32.
 
     ``lora_mod_layers`` adapts the blocks' AdaLN modulation linears too
-    (``flux_lora_target=ai-toolkit``); ``remat``/``remat_policy`` as in the
-    module docstring.
+    (``flux_lora_target=ai-toolkit``); ``remat``, ``remat_policy``,
+    ``remat_skip_last`` and ``remat_interval`` as in the module docstring.
     """
 
     def __init__(self, config: FluxConfig = FluxConfig(), dtype: torch.dtype = torch.bfloat16,
                  lora_rank: int = 0, lora_alpha: Optional[float] = None, lora_algo: str = "lora",
-                 lora_mod_layers: bool = False, remat: bool = False, remat_policy: str = "full") -> None:
+                 lora_mod_layers: bool = False, remat: bool = False, remat_policy: str = "full",
+                 remat_skip_last: int = 0, remat_interval: int = 1) -> None:
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
-            raise NotImplementedError(
-                f"gradient_checkpointing_policy={remat_policy!r} is not ported (only {REMAT_POLICIES})"
-            )
+            raise ValueError(f"unknown gradient_checkpointing_policy {remat_policy!r}; known: {REMAT_POLICIES}")
         self.config = config
         self.dtype = dtype
         self.remat = remat
         self.remat_policy = remat_policy
+        self.remat_skip_last = remat_skip_last
+        self.remat_interval = max(1, remat_interval)
         dim = config.hidden_size
         lora = dict(dtype=dtype, lora_rank=lora_rank, lora_alpha=lora_alpha, lora_algo=lora_algo)
         self.img_in = LoRADense(config.in_channels, dim, **lora)
@@ -268,23 +290,35 @@ class FluxTransformer(nn.Module):
 
         rope = axial_rope(cfg.axes_dim, torch.cat([txt_ids, img_ids], dim=1), cfg.theta)
         for i in range(cfg.depth_double):
-            img_tok, txt_tok = self._block(getattr(self, f"double_{i}"), img_tok, txt_tok, cond, rope, segment_ids)
+            img_tok, txt_tok = self._block(False, i, img_tok, txt_tok, cond, rope, segment_ids)
 
         stream = torch.cat([txt_tok, img_tok], dim=1)
         for i in range(cfg.depth_single):
-            stream = self._block(getattr(self, f"single_{i}"), stream, cond, rope, segment_ids)
+            stream = self._block(True, i, stream, cond, rope, segment_ids)
         img_tok = stream[:, txt_tok.shape[1]:]
 
         shift, scale = self.final_mod(cond)
         img_tok = modulate(layer_norm(img_tok, self.dtype), shift, scale)
         return self.final_proj(img_tok).to(torch.float32)
 
-    def _block(self, block: nn.Module, *args):
-        if not (self.remat and torch.is_grad_enabled()):
+    def checkpointed(self, single: bool, layer: int) -> bool:
+        """Whether remat checkpoints block ``layer`` of the single (or double)
+        stack: every ``remat_interval``-th block, no double block under
+        ``single``, none of the last ``remat_skip_last`` single blocks."""
+        if not self.remat or layer % self.remat_interval:
+            return False
+        if single:
+            return layer < self.config.depth_single - self.remat_skip_last
+        return self.remat_policy != "single"
+
+    def _block(self, single: bool, layer: int, *args):
+        block = getattr(self, f"{'single' if single else 'double'}_{layer}")
+        if not (torch.is_grad_enabled() and self.checkpointed(single, layer)):
             return block(*args)
-        if self.remat_policy == "attn" and isinstance(block, SingleStreamBlock):
-            return checkpoint(block, *args, use_reentrant=False, context_fn=_SAVE_ATTENTION)
-        return checkpoint(block, *args, use_reentrant=False)
+        context = _CONTEXTS.get((self.remat_policy, single))
+        if context is None:
+            return checkpoint(block, *args, use_reentrant=False)
+        return checkpoint(block, *args, use_reentrant=False, context_fn=context)
 
 
 def pack_latents(latents: torch.Tensor, patch: int = 2) -> torch.Tensor:

@@ -8,9 +8,10 @@ arithmetic is the same); norm scales stay f32 and norms compute in f32 with
 ``eps=1e-6``.  LoRA adapters are f32 master weights cast to the compute dtype
 at use, as the JAX ``lora`` collection is (``param_dtype``, layers.py:277-297).
 
-Only the plain dense path and the ``lora`` adapter algorithm are ported; other
-adapter algorithms and quantized bases raise.  Which modules get an adapter
-is decided by a predicate on the JAX module path (:func:`apply_lora_target`,
+The dense path, the quantized frozen base (:func:`quantize_module`, the
+use sites of layers.py:159-208) and the ``lora`` adapter algorithm are
+ported; other adapter algorithms raise.  Which modules get an adapter is
+decided by a predicate on the JAX module path (:func:`apply_lora_target`,
 the counterpart of ``lora_path_enabled``, layers.py:77).
 """
 
@@ -22,6 +23,14 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..training.quantization import (
+    dequantize_weight,
+    int8_dynamic_dot,
+    quantize_weight,
+    unpack_int4,
+    unpack_int4_to_int8,
+)
 
 # flax lecun_normal draws N(0, 1) truncated at +-2 and rescales by this
 # factor so that the truncated draw keeps unit variance
@@ -37,7 +46,18 @@ class LoRADense(nn.Module):
     ``weight`` is (out, in) and ``lora_A``/``lora_B`` are (rank, in)/(out, rank),
     the torch/PEFT orientation of the JAX (in, out)/(in, rank)/(rank, out)
     leaves.  The adapter is f32 and is cast to ``dtype`` at use.
-    ``zero_init`` mirrors ``kernel_init=zeros`` (AdaLN-Zero)."""
+    ``zero_init`` mirrors ``kernel_init=zeros`` (AdaLN-Zero).
+
+    After :meth:`quantize_` the base is stored as ``training/quantization.py``
+    lays it out (``quant`` names the mode) and is used as the JAX use site
+    uses it: int8 (and int4, unpacked to int8) goes through
+    ``int8_dynamic_dot`` unless ``quantized_matmul`` is "off" ("full" also
+    runs dx in int8); otherwise the weight is dequantized to ``dtype`` at use.
+    fp8 always dequantizes: the JAX package has no fp8 product.  The
+    dequantized weight is a transient of the forward, so under a block's
+    checkpoint device memory holds it for one layer at a time.  ``float8`` is
+    a floating dtype, so ``Module.to(dtype)`` would cast an fp8 base: move a
+    quantized module with ``.to(device)`` only."""
 
     def __init__(
         self,
@@ -57,6 +77,8 @@ class LoRADense(nn.Module):
         self.features = features
         self.dtype = dtype
         self.zero_init = zero_init
+        self.quant: Optional[str] = None
+        self.quantized_matmul = "off"
         self.weight = nn.Parameter(torch.empty(features, in_features, dtype=dtype))
         self.bias = nn.Parameter(torch.empty(features, dtype=dtype)) if use_bias else None
         self.lora_rank = lora_rank
@@ -72,6 +94,8 @@ class LoRADense(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        if self.quant is not None:
+            raise RuntimeError("initialise the weights before quantizing them")
         if self.zero_init:
             self.weight.zero_()
         else:
@@ -84,9 +108,56 @@ class LoRADense(nn.Module):
             self.lora_A.uniform_(-bound, bound, generator=generator)
             self.lora_B.zero_()
 
+    @torch.no_grad()
+    def quantize_(self, mode: str) -> None:
+        """Replace the float weight by its quantized storage, in place: int8
+        and fp8 keep a frozen ``weight`` parameter of that dtype, int4 holds a
+        ``weight_packed`` buffer instead; ``weight_scale`` is a buffer."""
+        if self.quant is not None:
+            raise RuntimeError(f"the weight is already quantized ({self.quant})")
+        stored = quantize_weight(self.weight, mode)
+        del self.weight  # the float copy goes before the next layer is quantized
+        if "weight" in stored:
+            self.weight = nn.Parameter(stored["weight"], requires_grad=False)
+        else:
+            self.register_buffer("weight_packed", stored["weight_packed"])
+        self.register_buffer("weight_scale", stored["weight_scale"])
+        self.quant = mode
+
+    @torch.no_grad()
+    def dequantize_(self, dtype: torch.dtype = torch.bfloat16) -> None:
+        """Replace the quantized storage by the float weight that
+        ``dequantize_params`` rebuilds in ``dtype``, held in the layer's dtype
+        (the JAX layer casts that kernel to its dtype at use), in place."""
+        if self.quant is None:
+            raise RuntimeError("the weight is not quantized")
+        if self.quant == "int4":
+            weight = unpack_int4(self.weight_packed, self.weight_scale, dtype)
+            del self.weight_packed
+        else:
+            weight = dequantize_weight(self.weight, self.weight_scale, dtype)
+            del self.weight
+        del self.weight_scale
+        self.weight = nn.Parameter(weight.to(self.dtype), requires_grad=False)
+        self.quant = None
+
+    def _base(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant is None:
+            return F.linear(x, self.weight, self.bias)
+        matmul = self.quantized_matmul
+        if self.quant == "int4" and matmul != "off":
+            y = int8_dynamic_dot(x, unpack_int4_to_int8(self.weight_packed), self.weight_scale, matmul == "full")
+        elif self.quant == "int8" and matmul != "off":
+            y = int8_dynamic_dot(x, self.weight, self.weight_scale, matmul == "full")
+        elif self.quant == "int4":
+            y = torch.matmul(x, unpack_int4(self.weight_packed, self.weight_scale, self.dtype).t())
+        else:
+            y = torch.matmul(x, dequantize_weight(self.weight, self.weight_scale, self.dtype).t())
+        return y if self.bias is None else y + self.bias
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        y = F.linear(x, self.weight, self.bias)
+        y = self._base(x)
         if self.lora_rank > 0:
             h = F.linear(x, self.lora_A.to(self.dtype))
             y = y + self.lora_scale * F.linear(h, self.lora_B.to(self.dtype))
@@ -122,6 +193,41 @@ def freeze_base(module: nn.Module) -> Dict[str, nn.Parameter]:
     for param in module.parameters():
         param.requires_grad_(id(param) in trainable)
     return adapters
+
+
+def quantize_module(module: nn.Module, mode: str) -> nn.Module:
+    """Quantize every ``LoRADense`` base weight of ``module`` in place, one
+    layer at a time, so the float and the quantized copy of the whole base
+    never coexist (the counterpart of ``quantize_params``, which quantizes
+    every 2-D ``kernel``).  Returns ``module``."""
+    for sub in module.modules():
+        if isinstance(sub, LoRADense):
+            sub.quantize_(mode)
+    return module
+
+
+def dequantize_module(module: nn.Module, dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+    """Rebuild every quantized ``LoRADense`` weight of ``module`` in place,
+    one layer at a time, as ``dequantize_params`` rebuilds the frozen tree in
+    ``dtype`` (bf16 by default, as ``TrainState.variables`` asks for it).
+    Returns ``module``."""
+    for sub in module.modules():
+        if isinstance(sub, LoRADense) and sub.quant is not None:
+            sub.dequantize_(dtype)
+    return module
+
+
+def set_quantized_matmul(module: nn.Module, mode: str) -> nn.Module:
+    """Set the int8 product mode ("off", "forward" or "full", as
+    ``resolve_quantized_matmul`` gives it) of every ``LoRADense`` in
+    ``module``: the per-module counterpart of the JAX global
+    ``set_quantized_matmul`` (layers.py:34)."""
+    if mode not in ("off", "forward", "full"):
+        raise ValueError(f"quantized_matmul mode {mode!r} is not one of off/forward/full")
+    for sub in module.modules():
+        if isinstance(sub, LoRADense):
+            sub.quantized_matmul = mode
+    return module
 
 
 @torch.no_grad()

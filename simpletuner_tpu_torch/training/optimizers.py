@@ -1,7 +1,10 @@
-"""Optimizer factory: gradient clipping and AdamW with optax's semantics.
+"""Optimizer factory: gradient clipping and the AdamW family with optax's semantics.
 
-PyTorch counterpart of the ``adamw`` entries of
-``simpletuner_tpu/training/optimizers.py``.  ``torch.optim.AdamW`` and
+PyTorch counterpart of ``simpletuner_tpu/training/optimizers.py`` for the
+names a LoRA run on a quantized base uses: AdamW (and plain Adam), the
+Kahan-compensated ``adamw_bf16`` (the registry default), and the
+block-quantized 8-bit / 4-bit / fp8 AdamW and 8-bit Lion of
+``training/optim_quant.py``.  ``torch.optim.AdamW`` and
 ``torch.nn.utils.clip_grad_norm_`` differ from ``optax.adamw`` and
 ``optax.clip_by_global_norm`` in small ways (torch's clip divides by
 ``norm + 1e-6`` and always rescales; torch decays the weights in a separate
@@ -13,18 +16,20 @@ count before the update), so the port writes the optax formulas out:
     u  <- (mu / (1 - b1^n)) / (sqrt(nu / (1 - b2^n)) + eps) + wd * p
     p  <- p - lr(n - 1) * u
 
-Clipping comes before AdamW, as in the JAX chain (optimizers.py:663-675).
+Clipping comes before the optimizer, as in the JAX chain (optimizers.py:663-675).
 Every other optimizer name raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Union
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 Tensors = Dict[str, torch.Tensor]
+Schedule = Union[float, Callable[[int], float]]
 
 ADAMW_NAMES = ("adamw", "torch-adamw", "optimi-adamw", "bnb-adamw", "bnb-adamw-paged")
 
@@ -68,6 +73,41 @@ def global_norm(tensors: Tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors.values()))
 
 
+def bias_corrections(count: int, b1: float, b2: float, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``1 - b1^count`` and ``1 - b2^count`` in f32, as optax computes them."""
+    step = torch.tensor(count, dtype=torch.float32, device=device)
+    beta = lambda b: torch.tensor(b, dtype=torch.float32, device=device)  # noqa: E731
+    return 1 - beta(b1) ** step, 1 - beta(b2) ** step
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """``clip_by_global_norm(max_norm)`` (when ``max_norm`` > 0), then the
+    optimizer's own update (``_update``).  ``update`` returns (updates, new
+    state); ``params + updates`` is the stepped tree."""
+
+    learning_rate: Schedule
+    max_norm: float = 0.0
+
+    def lr(self, count: int) -> float:
+        return self.learning_rate(count) if callable(self.learning_rate) else self.learning_rate
+
+    def init(self, params: Tensors):
+        raise NotImplementedError
+
+    def _update(self, grads: Tensors, state, params: Tensors):
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state, params: Tensors):
+        grads = {k: g.float() for k, g in grads.items()}
+        if self.max_norm and self.max_norm > 0:
+            norm = global_norm(grads)
+            keep = norm < self.max_norm
+            grads = {k: torch.where(keep, g, g / norm * self.max_norm) for k, g in grads.items()}
+        return self._update(grads, state, params)
+
+
 @dataclasses.dataclass
 class AdamWState:
     count: int
@@ -76,15 +116,14 @@ class AdamWState:
 
 
 @dataclasses.dataclass(frozen=True)
-class AdamW:
-    """``clip_by_global_norm(max_norm)`` (when ``max_norm`` > 0) then ``optax.adamw``."""
+class AdamW(Optimizer):
+    """``optax.adamw``; with ``weight_decay=0`` it is ``optax.adam`` (the
+    decay term adds ``0 * p``)."""
 
-    learning_rate: Union[float, Callable[[int], float]]
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 1e-2
-    max_norm: float = 0.0
 
     def init(self, params: Tensors) -> AdamWState:
         return AdamWState(
@@ -93,22 +132,10 @@ class AdamW:
             nu={k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
         )
 
-    def lr(self, count: int) -> float:
-        return self.learning_rate(count) if callable(self.learning_rate) else self.learning_rate
-
-    @torch.no_grad()
-    def update(self, grads: Tensors, state: AdamWState, params: Tensors):
-        """(updates, new state); ``params + updates`` is the stepped tree."""
-        grads = {k: g.float() for k, g in grads.items()}
-        if self.max_norm and self.max_norm > 0:
-            norm = global_norm(grads)
-            keep = norm < self.max_norm
-            grads = {k: torch.where(keep, g, g / norm * self.max_norm) for k, g in grads.items()}
+    def _update(self, grads: Tensors, state: AdamWState, params: Tensors):
         count = state.count + 1
         dev = next(iter(grads.values())).device if grads else None
-        step = torch.tensor(count, dtype=torch.float32, device=dev)
-        bc1 = 1 - torch.tensor(self.b1, dtype=torch.float32, device=dev) ** step
-        bc2 = 1 - torch.tensor(self.b2, dtype=torch.float32, device=dev) ** step
+        bc1, bc2 = bias_corrections(count, self.b1, self.b2, dev)
         lr = self.lr(state.count)
         mu, nu, updates = {}, {}, {}
         for k, g in grads.items():
@@ -120,24 +147,110 @@ class AdamW:
         return updates, AdamWState(count=count, mu=mu, nu=nu)
 
 
-def get_optimizer(config: Any, learning_rate: Union[float, Callable[[int], float]]) -> AdamW:
-    """The optimizer chain of the JAX package's ``get_optimizer``, for the
-    AdamW names: global-norm clip at ``max_grad_norm`` (when > 0) then AdamW
-    with ``optimizer_config`` overrides of b1/b2/eps/weight_decay."""
+@dataclasses.dataclass
+class KahanAdamWState:
+    count: int
+    mu: Tensors
+    nu: Tensors
+    compensation: Tensors
+
+
+@dataclasses.dataclass(frozen=True)
+class KahanAdamW(Optimizer):
+    """``kahan_adamw`` (``adamw_bf16``, optimizers.py:27-81): AdamW whose step
+    is added to the parameter with Kahan compensation in the parameter's
+    dtype; moments and compensation take the parameter's dtype.  As in the
+    JAX function the schedule is read at the count *after* the increment,
+    and the learning rate scales the decay term itself."""
+
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 1e-2
+
+    def init(self, params: Tensors) -> KahanAdamWState:
+        zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}  # noqa: E731
+        return KahanAdamWState(count=0, mu=zeros(), nu=zeros(), compensation=zeros())
+
+    def _update(self, grads: Tensors, state: KahanAdamWState, params: Tensors):
+        count = state.count + 1
+        dev = next(iter(grads.values())).device if grads else None
+        bc1, bc2 = bias_corrections(count, self.b1, self.b2, dev)
+        lr = self.lr(count)
+        if callable(self.learning_rate):  # a schedule's value is an f32 array in JAX
+            lr = torch.tensor(lr, dtype=torch.float32, device=dev)
+        mu, nu, comp, updates = {}, {}, {}, {}
+        for k, g in grads.items():
+            p, m, n = params[k], state.mu[k], state.nu[k]
+            mf = m.float() * self.b1 + g * (1.0 - self.b1)
+            nf = n.float() * self.b2 + g.square() * (1.0 - self.b2)
+            step = lr * (mf / bc1) / (torch.sqrt(nf / bc2) + self.eps)
+            step = step + lr * self.weight_decay * p.float()
+            delta = (-step).to(p.dtype) + state.compensation[k]
+            new_p = p + delta
+            comp[k] = delta - (new_p - p)  # the low-order bits the add lost
+            updates[k] = new_p - p
+            mu[k], nu[k] = mf.to(m.dtype), nf.to(n.dtype)
+        return updates, KahanAdamWState(count=count, mu=mu, nu=nu, compensation=comp)
+
+
+def _adamw(lr, config, overrides, max_norm):
+    kw = {**_adam_kwargs(config), **{k: v for k, v in overrides.items() if k in ("b1", "b2", "eps")}}
+    return AdamW(lr, max_norm, weight_decay=overrides.get("weight_decay", _weight_decay(config)), **kw)
+
+
+def _adam(lr, config, overrides, max_norm):
+    return AdamW(lr, max_norm, weight_decay=0.0, **_adam_kwargs(config))
+
+
+def _adamw_bf16(lr, config, overrides, max_norm):
+    return KahanAdamW(lr, max_norm, weight_decay=overrides.get("weight_decay", _weight_decay(config)),
+                      **_adam_kwargs(config))
+
+
+def _adamw_quantized(state: str, lr, config, overrides, max_norm):
+    from .optim_quant import INT4_PACKED, AdamWQuantized
+
+    state_dtype = {"int8": torch.int8, "int4": INT4_PACKED, "fp8": torch.float8_e4m3fn}[state]
+    return AdamWQuantized(lr, max_norm, weight_decay=overrides.get("weight_decay", _weight_decay(config)),
+                          state_dtype=state_dtype, **_adam_kwargs(config))
+
+
+def _lion_8bit(lr, config, overrides, max_norm):
+    from .optim_quant import LionQuantized
+
+    return LionQuantized(lr, max_norm, b1=overrides.get("b1", 0.9), b2=overrides.get("b2", 0.99),
+                         weight_decay=overrides.get("weight_decay", _weight_decay(config)))
+
+
+# name -> factory(learning_rate, config, overrides, max_norm), as the JAX registry
+# (optimizers.py:128-197).  JAX registers "bnb-adam8bit" twice (:169, 8-bit
+# state, and :195, plain Adam); the later registration wins there, so here too
+# it is plain Adam.
+OPTIMIZERS: Dict[str, Callable] = {
+    **dict.fromkeys(ADAMW_NAMES, _adamw),
+    **dict.fromkeys(("ao-adamw8bit", "bnb-adamw8bit", "bnb-adamw8bit-paged"),
+                    functools.partial(_adamw_quantized, "int8")),
+    "ao-adamw4bit": functools.partial(_adamw_quantized, "int4"),
+    **dict.fromkeys(("ao-adamfp8", "ao-adamwfp8"), functools.partial(_adamw_quantized, "fp8")),
+    **dict.fromkeys(("bnb-lion8bit", "bnb-lion8bit-paged"), _lion_8bit),
+    "adamw_bf16": _adamw_bf16,
+    **dict.fromkeys(("adam", "torch-adam", "optimi-adam", "bnb-adam", "bnb-adam8bit"), _adam),
+}
+
+
+def get_optimizer(config: Any, learning_rate: Schedule) -> Optimizer:
+    """The optimizer chain of the JAX package's ``get_optimizer`` for the
+    ported names: global-norm clip at ``max_grad_norm`` (when > 0), then the
+    named optimizer with its ``optimizer_config`` overrides."""
     name = (_get(config, "optimizer") or "adamw").lower()
-    if name not in ADAMW_NAMES:
-        raise NotImplementedError(f"optimizer {name!r} is not ported (only {ADAMW_NAMES})")
+    if name not in OPTIMIZERS:
+        raise NotImplementedError(f"optimizer {name!r} is not ported (only {sorted(OPTIMIZERS)})")
     method = _get(config, "grad_clip_method", "norm") or "norm"
     if method != "norm":
         raise NotImplementedError(f"grad_clip_method={method!r} is not ported (only 'norm')")
     if _get(config, "train_text_encoder") or _get(config, "lyrics_embedder_train"):
         raise NotImplementedError("sidecar optimizer groups (text encoder, lyrics embedder) are not ported")
     overrides = parse_optimizer_config(_get(config, "optimizer_config"))
-    kw = {**_adam_kwargs(config), **{k: v for k, v in overrides.items() if k in ("b1", "b2", "eps")}}
     max_norm = _get(config, "max_grad_norm", 1.0)
-    return AdamW(
-        learning_rate,
-        weight_decay=overrides.get("weight_decay", _weight_decay(config)),
-        max_norm=float(max_norm) if max_norm and max_norm > 0 else 0.0,
-        **kw,
-    )
+    return OPTIMIZERS[name](learning_rate, config, overrides, float(max_norm) if max_norm and max_norm > 0 else 0.0)

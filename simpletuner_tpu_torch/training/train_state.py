@@ -2,9 +2,10 @@
 
 PyTorch counterpart of ``simpletuner_tpu/training/train_state.py``: one step
 does prepare -> forward -> loss -> grad -> global norm -> non-finite guard ->
-clip + AdamW -> EMA.  PyTorch runs it eagerly on the module's device; the
-trainable adapters are updated in place (the JAX step returns a new state
-with the same values).
+clip + optimizer (``training/optimizers.py``) -> EMA.  PyTorch runs it
+eagerly on the module's device; the trainable adapters are updated in place
+(the JAX step returns a new state with the same values).  The frozen base
+may be stored quantized (``quantize_mode``, ``training/quantization.py``).
 
 Semantics kept from the JAX step (train_state.py:172-337):
 
@@ -25,14 +26,15 @@ critics, text-encoder and sidecar training and CREPA raise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
 
-from ..models.layers import freeze_base
+from ..models.layers import freeze_base, quantize_module
 from .ema import EMAConfig, ema_init, ema_update
-from .optimizers import AdamW, AdamWState, global_norm
+from .optimizers import global_norm
+from .quantization import dequantize_state_dict
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -42,21 +44,40 @@ class TrainState:
     step: int
     module: nn.Module  # the frozen base with the adapters in it
     trainable: Dict[str, nn.Parameter]  # the f32 adapters by JAX path
-    opt_state: AdamWState
+    opt_state: Any
     ema: Optional[Tensors] = None
+
+    def state_dict(self, use_ema: bool = False, dtype: torch.dtype = torch.bfloat16) -> Tensors:
+        """The module's weights for export, a quantized base dequantized to
+        ``dtype`` and the adapters (or their EMA) as they are: the counterpart
+        of ``TrainState.variables`` (train_state.py:32-38)."""
+        state = dequantize_state_dict(self.module.state_dict(), dtype)
+        if use_ema and self.ema is not None:
+            state.update({path.replace("/", "."): value for path, value in self.ema.items()})
+        return state
 
 
 def create_train_state(
-    model, module: nn.Module, tx: AdamW, ema_config: Optional[EMAConfig] = None
+    model,
+    module: nn.Module,
+    tx,
+    ema_config: Optional[EMAConfig] = None,
+    quantize_mode: Optional[str] = None,
 ) -> TrainState:
     """Freeze the base of ``module`` and set up the optimizer (and EMA) over
-    its adapters."""
+    its adapters.  ``quantize_mode`` ("int8", "fp8", "int4": the resolved
+    ``base_model_precision``) stores the frozen base quantized, in place and
+    one layer at a time; the adapters stay f32."""
     model_type = getattr(model.config, "model_type", "lora")
+    if quantize_mode and model.lora_rank <= 0:
+        raise ValueError("base_model_precision quantization requires model_type=lora (frozen base)")
     if model_type != "lora":
         raise NotImplementedError(f"model_type={model_type!r}: only LoRA training is ported")
     trainable = freeze_base(module)
     if not trainable:
         raise ValueError("model_type=lora but the module has no adapters (check flux_lora_target)")
+    if quantize_mode:
+        quantize_module(module, quantize_mode)
     return TrainState(
         step=0,
         module=module,
@@ -68,7 +89,7 @@ def create_train_state(
 
 def build_train_step(
     model,
-    tx: AdamW,
+    tx,
     lr_schedule: Optional[Callable[[int], float]] = None,
     ema_config: Optional[EMAConfig] = None,
     grad_accum_steps: int = 1,

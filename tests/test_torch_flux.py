@@ -229,11 +229,28 @@ def test_pack_unpack_and_ids_match_jax():
 
 
 def test_bridge_refuses_quantized_and_incomplete_trees():
+    from simpletuner_tpu.training.quantization import QuantizedParam
+
     port = tl.LoRADense(4, 3, dtype=torch.float32)
     good = {"kernel": np.ones((4, 3), np.float32), "bias": np.zeros(3, np.float32)}
     assert flax_to_state_dict(good, port)["weight"].shape == (3, 4)
-    with pytest.raises(NotImplementedError):
+    int8_tree = {"kernel": np.ones((4, 3), np.int8), "bias": good["bias"]}
+    scales = {"kernel_scale": np.full(3, 0.5, np.float32)}
+    # a quantized leaf needs a port layer quantized in the same mode
+    with pytest.raises(ValueError):
+        flax_to_state_dict(int8_tree, port)
+    quantized = tl.LoRADense(4, 3, dtype=torch.float32)
+    quantized.quantize_("int8")
+    state = flax_to_state_dict(int8_tree, quantized, qscales=scales)
+    assert state["weight"].dtype == torch.int8 and state["weight_scale"].tolist() == [0.5] * 3
+    with pytest.raises(ValueError):
         flax_to_state_dict({"kernel": np.ones((4, 3), np.int8), "bias": good["bias"]}, port)
+    # what is still unported: legacy QuantizedParam leaves, other storage dtypes
+    legacy = QuantizedParam(jnp.ones((4, 3), jnp.int8), jnp.ones(3), 1)
+    with pytest.raises(NotImplementedError):
+        flax_to_state_dict({"kernel": legacy, "bias": good["bias"]}, quantized)
+    with pytest.raises(NotImplementedError):
+        flax_to_state_dict({"kernel": np.ones((4, 3), np.int32), "bias": good["bias"]}, port)
     with pytest.raises(KeyError):
         flax_to_state_dict({"kernel": good["kernel"]}, port)
     with pytest.raises(ValueError):

@@ -206,6 +206,65 @@ def test_render_matches_jax_end_to_end(tmp_path):
     assert diff.max() <= 1 and diff.mean() < 0.05
 
 
+@pytest.mark.parametrize("precision", ["int8-quanto", "fp8-quanto", "int4-quanto"])
+def test_render_on_a_quantized_base_matches_jax(tmp_path, precision):
+    """The runtime quantizes a LoRA model's base and renders it as the JAX
+    runtime renders ``TrainState.variables()``: ``dequantize_params`` of
+    ``quantize_params``' tree (bf16 kernels), with dense products."""
+    from simpletuner_tpu.models import layers as jl
+    from simpletuner_tpu.training.quantization import dequantize_params, quantize_params
+
+    from simpletuner_tpu_torch.models.layers import LoRADense, init_parameters
+    from simpletuner_tpu_torch.models.weight_bridge import flax_variables
+
+    config_path = _config(tmp_path, model_type="lora", lora_rank=4, base_model_precision=precision)
+    embeds = _write_embeds(tmp_path)
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=str(tmp_path / "out"), device="cpu")
+    mode = runtime.model.base_precision
+    dense = [m for m in runtime.module.modules() if isinstance(m, LoRADense)]
+    assert dense and all(m.quant is None and m.weight.dtype == torch.float32 for m in dense)
+    # the base is the seeded initialisation through quantize_params and dequantize_params
+    generator = torch.Generator().manual_seed(int(getattr(runtime.config, "seed", 42) or 42))
+    initial = flax_variables(init_parameters(Flux(runtime.config).create_module(), generator))
+    expected = dequantize_params(quantize_params(initial, mode))["params"]
+    got = flax_variables(runtime.module)["params"]
+    for path, leaf in jax.tree_util.tree_flatten_with_path(expected)[0]:
+        value = got
+        for key in path:
+            value = value[key.key]
+        np.testing.assert_array_equal(value, np.asarray(leaf, np.float32), err_msg=str(path))
+    previous = jl._LORA_TARGET, jl._QUANTIZED_MATMUL
+    try:
+        jmodel, flux_vars, jvae, vae_vars = _jax_weights(runtime.config)  # installs the int8 matmul mode
+        rendered = dequantize_params(quantize_params(flux_vars, mode))
+        bridge(rendered, runtime.module)
+        bridge(vae_vars, runtime.vae, ignore=("encoder", "quant_conv"))
+        (path,) = runtime.render(PROMPT, steps=4)
+        image = np.asarray(Image.open(path)).astype(np.int32)
+        batch = {
+            "latents": jnp.zeros((1, 8, 8, 4)),
+            "t5_embeds": jnp.asarray(embeds["t5_embeds"])[None],
+            "pooled_embeds": jnp.asarray(embeds["pooled_embeds"])[None],
+            "t5_masks": jnp.asarray(embeds["attention_mask"])[None],
+        }
+        noise = torch.randn((1, 8, 8, 4), generator=noise_generator(7, 0)).numpy()
+        jsched = jax_build_scheduler(jmodel, 4, image_seq_len=16)
+
+        def render(v, vae_v, cond, n):
+            latents = jax_sample_loop(jsched, jmodel.denoise_fn(v, cond), n)
+            z = latents / jmodel.VAE_SCALING_FACTOR + jmodel.VAE_SHIFT_FACTOR
+            return jvae.apply(vae_v, z, method=JaxAutoencoderKL.decode)
+
+        ref = np.asarray(jax.jit(render)(rendered, vae_vars, jmodel.inference_conditioning(batch), noise))[0]
+    finally:
+        jl.set_lora_target(previous[0])
+        jl.set_quantized_matmul(previous[1])
+    ref = np.clip((ref + 1.0) * 127.5, 0, 255).astype(np.int32)
+    # f32 both sides; uint8 truncation can flip a pixel by one level
+    diff = np.abs(image - ref)
+    assert diff.max() <= 1 and diff.mean() < 0.05
+
+
 def test_true_cfg_render_matches_jax(tmp_path):
     """A family without a guidance embedding (schnell) renders with true CFG
     against the cached negative prompt's embeds."""
@@ -271,7 +330,8 @@ def test_refusals(tmp_path):
             _config(tmp_path, model_arch_preset=None, allow_untrained_init=False), device="cpu")
     with pytest.raises(NotImplementedError):
         CheckpointInferenceRuntime(_config(tmp_path, model_family="sdxl"), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # a quantized base needs a frozen one, as the JAX trainer's create_train_state says
+    with pytest.raises(ValueError, match="model_type=lora"):
         CheckpointInferenceRuntime(_config(tmp_path, base_model_precision="int8-quanto"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):

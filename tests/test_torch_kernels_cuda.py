@@ -195,3 +195,51 @@ def test_backward_through_the_strided_dispatcher(cuda):
         assert grad.stride() == q.stride()
         g, r = grad.float(), ref.float()
         assert ((g - r).norm() / r.norm()).item() <= GRAD_REL_L2
+
+
+# ---- the quantized base's int8 products (torch._int_mm, not a hand-written kernel) ----------------
+
+
+@pytest.mark.parametrize("rows", [1, 16, 17, 300])
+def test_int8_products_are_exact_on_the_card(cuda, rows):
+    from simpletuner_tpu_torch.training.quantization import int8_dynamic_dot, int8_matmul, quantize_weight
+
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    a = torch.randint(-127, 128, (rows, 256), dtype=torch.int8, device=cuda, generator=gen)
+    w = torch.randint(-127, 128, (96, 256), dtype=torch.int8, device=cuda, generator=gen)  # stored (out, in)
+    assert torch.equal(int8_matmul(a, w.t()).double(), a.double() @ w.double().t())
+    with pytest.raises(ValueError, match="K-major"):
+        int8_matmul(a[:, :96].contiguous(), w)  # a row-major (k, n) operand
+    stored = quantize_weight(torch.randn(96, 256, device=cuda, generator=gen), "int8")
+    x = torch.randn(rows, 256, device=cuda, generator=gen).bfloat16().requires_grad_(True)
+    y = int8_dynamic_dot(x, stored["weight"], stored["weight_scale"], True)
+    (dx,) = torch.autograd.grad(y, x, torch.ones_like(y))
+    assert y.shape == (rows, 96) and dx.shape == x.shape and torch.isfinite(dx.float()).all()
+
+
+@pytest.mark.parametrize("precision", ["int8-quanto", "int4-quanto", "fp8-quanto"])
+def test_quantized_base_train_step_on_the_card(cuda, precision):
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.flux import Flux
+    from simpletuner_tpu_torch.models.layers import LoRADense, init_parameters
+    from simpletuner_tpu_torch.training.optimizers import get_optimizer
+    from simpletuner_tpu_torch.training.train_state import build_train_step, create_train_state
+
+    config = config_namespace({"model_family": "flux", "model_type": "lora", "lora_rank": 4,
+                               "model_arch_preset": "tiny", "mixed_precision": "bf16", "optimizer": "ao-adamw8bit",
+                               "learning_rate": 1e-3, "base_model_precision": precision,
+                               "gradient_checkpointing": True, "gradient_checkpointing_policy": "dots"})
+    model = Flux(config)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with torch.device(cuda):
+        module = init_parameters(model.create_module(), gen)
+    tx = get_optimizer(config, 1e-3)
+    state = create_train_state(model, module, tx, quantize_mode=model.base_precision)
+    assert all(m.quant == model.base_precision for m in module.modules() if isinstance(m, LoRADense))
+    step = build_train_step(model, tx)
+    batch = {"latents": torch.randn(2, 8, 8, 4, device=cuda, generator=gen),
+             "t5_embeds": torch.randn(2, 12, 32, device=cuda, generator=gen),
+             "pooled_embeds": torch.randn(2, 32, device=cuda, generator=gen)}
+    for _ in range(3):
+        state, metrics = step(state, batch, gen)
+        assert torch.isfinite(metrics["loss"]) and float(metrics["skipped_nonfinite"]) == 0.0

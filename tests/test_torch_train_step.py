@@ -133,7 +133,7 @@ def test_lr_schedules_match_optax(name, warmup):
 def test_unknown_schedule_and_optimizers_raise():
     with pytest.raises(ValueError):
         get_lr_schedule({"lr_scheduler": "no-such"}, 10)
-    for name in ("adamw_bf16", "prodigy", "lion"):
+    for name in ("prodigy", "lion", "soap"):
         with pytest.raises(NotImplementedError):
             get_optimizer({"optimizer": name}, 1e-4)
 
@@ -246,8 +246,7 @@ def test_bench_flops_and_peak():
 
 def test_unported_training_options_raise():
     for extra in ({"lora_dropout": 0.1}, {"lora_init_type": "gaussian"}, {"lora_type": "lycoris"},
-                  {"gradient_checkpointing": True, "gradient_checkpointing_policy": "dots"},
-                  {"gradient_checkpointing_skip_last": 2}):
+                  {"peft_lora_mode": "dora"}):
         with pytest.raises(NotImplementedError):
             Flux(config_namespace(_tiny_config(**extra))).create_module()
     model = Flux(config_namespace(_tiny_config(noise_offset=0.1)))
@@ -373,6 +372,11 @@ def test_lora_trajectory_tracks_jax(pair):
 
 @pytest.mark.parametrize("backend", ["xla", "pallas_flash"])
 def test_remat_leaves_gradients_bit_identical(pair, backend, monkeypatch):
+    configured = Flux(config_namespace(_tiny_config(
+        gradient_checkpointing=True, gradient_checkpointing_policy="dots", gradient_checkpointing_skip_last=2,
+        gradient_checkpointing_interval=3))).create_module()
+    assert (configured.remat, configured.remat_policy, configured.remat_skip_last, configured.remat_interval) == (
+        True, "dots", 2, 3)
     flash = sys.modules["simpletuner_tpu_torch.ops.flash_attention"]
     calls = []
     plain = flash.mha_reference_lse
@@ -381,25 +385,31 @@ def test_remat_leaves_gradients_bit_identical(pair, backend, monkeypatch):
     tl.freeze_base(module)
     batch = _step_batch(pair, 0, "torch")
     set_attention_backend(backend)
+    # (remat, policy, skip_last, interval) -> flash forward calls with 2 double
+    # + 2 single blocks: full remat re-runs every block's forward op, attn
+    # keeps the single blocks' flash outputs across the boundary and attn_all
+    # every block's, single checkpoints the single stack only, dots saves the
+    # 2-D products and recomputes the flash op, skip_last=2 leaves both single
+    # blocks unchecked, interval=2 checkpoints blocks 0 of each stack
+    settings = {
+        (False, "full", 0, 1): 4, (True, "full", 0, 1): 8, (True, "attn", 0, 1): 6, (True, "attn_all", 0, 1): 4,
+        (True, "single", 0, 1): 6, (True, "dots", 0, 1): 8, (True, "full", 2, 1): 6, (True, "full", 0, 2): 6,
+    }
     try:
         results = {}
-        for remat, policy in ((False, "full"), (True, "full"), (True, "attn")):
-            module.remat, module.remat_policy = remat, policy
+        for key in settings:
+            module.remat, module.remat_policy, module.remat_skip_last, module.remat_interval = key
             calls.clear()
-            results[(remat, policy)] = _port_grads(pair, module, batch)
-            results[(remat, policy)] += (len(calls),)
+            results[key] = _port_grads(pair, module, batch) + (len(calls),)
     finally:
         set_attention_backend("auto")
-    base_loss, base_grads, base_calls = results[(False, "full")]
-    for key in ((True, "full"), (True, "attn")):
-        loss, grads, _ = results[key]
+    base_loss, base_grads, _ = results[(False, "full", 0, 1)]
+    for key, (loss, grads, _) in results.items():
         assert torch.equal(loss, base_loss)
         for name, grad in grads.items():
             assert torch.equal(grad, base_grads[name]), (key, name)
     if backend == "pallas_flash":
-        # 2 double + 2 single blocks: full remat re-runs every block's forward
-        # op, attn keeps the single blocks' flash outputs across the boundary
-        assert (base_calls, results[(True, "full")][2], results[(True, "attn")][2]) == (4, 8, 6)
+        assert {key: result[2] for key, result in results.items()} == settings
 
 
 def test_nonfinite_batch_skips_the_update_and_advances_adam_as_jax(pair):

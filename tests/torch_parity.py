@@ -35,8 +35,10 @@ def fill_numpy(shapes, seed=0):
 
 
 def bridge(variables, port, ignore=()):
-    """Load a numpy variables tree into a port module through the weight bridge."""
-    return load_flax_params(port, variables["params"], variables.get("lora"), ignore=ignore)
+    """Load a numpy variables tree (a quantized base's ``qscales`` included)
+    into a port module through the weight bridge."""
+    return load_flax_params(port, variables["params"], variables.get("lora"), ignore=ignore,
+                            qscales=variables.get("qscales"))
 
 
 def rel(a, b):
