@@ -7,9 +7,13 @@ Phases (each prints one line; any failure exits non-zero with no result line):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compile every hand-written kernel of the render path from csrc/;
-3. kernels: each kernel against its plain PyTorch version on the card, bf16,
-   at the shapes the render path gives it (and ragged/narrow cases), with
-   kernel and plain times at the Flux shape (CUDA events, after warm-up);
+3. kernels: the forward kernel against its plain PyTorch version on the
+   card, bf16, at the Flux shape masked and unmasked, Flux padding at a ragged
+   S = 4173, a ragged S = 1000, packed samples (mixed tiles), narrow heads
+   (D = 64, 32) and a (B, S, H, D) strided view; rows that see no key exactly
+   0 with lse -1e30; kernel, plain and SDPA times (CUDA events, after warm-up;
+   SDPA with the T5 mask as a boolean attn_mask is the masked yardstick), the
+   bound, and the skip/full/mixed tile counts of the Flux masked call;
 4. render: the port's inference runtime renders one 1024x1024 image with
    full-width Flux.1-dev (19 double + 38 single blocks, hidden 3072, 24x128
    heads, guidance embedding; depth not cut) and the Flux VAE decoder, from
@@ -20,14 +24,16 @@ Phases (each prints one line; any failure exits non-zero with no result line):
 6. profile: one full-width denoise call under torch.profiler, device time by
    kernel bucket and the device's idle share of the call;
 7. backward kernels: dq, dk and dv from the dq/dkv kernels against the plain
-   backward on the card, bf16, at the Flux shape masked and unmasked and at
-   ragged/narrow shapes, with kernel and plain times (CUDA events);
+   backward on the card, bf16, at the cases of phase 3 (dk and dv of pad
+   keys, dq of pad queries exactly 0; gradients of strided inputs in their
+   layout), with kernel, plain and SDPA-backward times and the bounds;
 8. train step: the flagship LoRA step (simpletuner_tpu_torch.bench.flagship:
    full-width, full-depth Flux.1-dev, rank-16 LoRA, AdamW, 1024 px, T5 padding
    masked): first the JAX flagship's configuration, an int8 frozen base with
    quantized_matmul=full and remat policy attn, then an int4 base (attn), then
    a bf16 base with remat attn and full; 2 warm-up and 4 timed steps each;
-   counts the kernel launches of each run;
+   counts the kernel launches of each run; the first run's device time by
+   kernel bucket from one more step under torch.profiler;
 9. gradient parity: one step's LoRA gradients through the kernels against the
    same step through mha_reference under autograd, full width, depth cut to
    2 double + 4 single blocks;
@@ -76,6 +82,8 @@ GRAD_REL_MAX, GRAD_REL_L2 = 2.0 ** -6, 1e-2
 # rounding (P and dS in bf16), compounded through the blocks' backward
 TRAIN_GRAD_REL_L2 = 5e-2
 PARITY_DOUBLE, PARITY_SINGLE = 2, 4
+# H100 SXM: dense bf16 tensor-core peak and device-memory rate (bounds only)
+PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 # phase 10: the Flux linears' (in, out): attention q/k/v and proj, single-block
 # linear1 (q, k, v, mlp) and linear2, the MLP in and out, double-block AdaLN
 INT8_SHAPES = ((3072, 3072), (3072, 21504), (15360, 3072), (3072, 12288), (12288, 3072), (3072, 18432))
@@ -142,37 +150,96 @@ def check_png(path: str, width: int, height: int) -> None:
         raise RuntimeError(f"{path}: pixel data has the wrong size")
 
 
-def kernel_cases():
-    """Phase 3: the kernel against its plain version; returns (max_abs_err, ms, plain_ms)."""
+def _qkv(seed, b, h, s, d, n=3):
     import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32)).to("cuda", torch.bfloat16)
+            for _ in range(n)]
+
+
+def _segments(batch, length, txt_valid=None, packed_at=None, pad_from=None):
+    """int32 segment ids on the card: Flux T5 padding (text first, tokens
+    txt_valid..TXT_LEN pad), or packed samples (1 from packed_at, pad from
+    pad_from in the last batch row)."""
+    import torch
+
+    from simpletuner_tpu_torch.ops import SEGMENT_PAD_ID
+
+    seg = torch.zeros((batch, length), dtype=torch.int32, device="cuda")
+    if txt_valid is not None:
+        seg[:, txt_valid:TXT_LEN] = SEGMENT_PAD_ID
+    if packed_at is not None:
+        seg[:, packed_at:] = 1
+        seg[-1, pad_from:] = SEGMENT_PAD_ID
+    return seg
+
+
+# (name, (batch, heads, seq, head_dim), segment ids, (B, S, H, D) strided view):
+# the Flux shape masked and not, Flux padding at a ragged S, a ragged S
+# without ids, packed samples with mixed tiles, narrow heads through the
+# dispatcher's strided layout
+FLUX_S = TXT_LEN + (RESOLUTION // 16) ** 2
+KERNEL_CASES = (
+    ("flux_unmasked", (1, 24, FLUX_S, 128), None, False),
+    ("flux_t5_padded", (1, 24, FLUX_S, 128), {"txt_valid": TXT_VALID}, False),
+    ("flux_t5_padded_s4173", (1, 24, 4173, 128), {"txt_valid": TXT_VALID}, False),
+    ("ragged_s1000_d64", (1, 8, 1000, 64), None, False),
+    ("segments_s300_d32", (2, 4, 300, 32), {"packed_at": 130, "pad_from": 280}, False),
+    ("strided_bshd_s640_d64", (1, 8, 640, 64), {"txt_valid": 40}, True),
+)
+
+
+def _case_inputs(seed, shape, ids, strided, n):
+    tensors = _qkv(seed, *shape, n=n)
+    if strided:  # (B, S, H, D) memory, viewed as (B, H, S, D)
+        tensors = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in tensors]
+    seg = None if ids is None else _segments(shape[0], shape[2], **ids)
+    return tensors, seg
+
+
+def _sdpa_backend(fn):
+    """(name, ms) of the fastest SDPA backend that runs ``fn`` (of flash,
+    cuDNN, memory-efficient, math), each timed with CUDA events."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                fn()
+                times[backend.name.lower()] = cuda_ms(fn, 20)
+        except RuntimeError:
+            continue
+    if not times:
+        raise RuntimeError("no SDPA backend ran")
+    return min(times.items(), key=lambda item: item[1])
+
+
+def _attention_bound_ms(products, pairs, heads, dim, nbytes):
+    """The larger of the tensor-core time of ``products`` S x S x D products
+    over ``pairs`` attended (query, key) pairs per head (989 TFLOP/s dense
+    bf16) and the time to move ``nbytes`` once (3.35 TB/s); and which bounds."""
+    flop_ms = products * 2.0 * heads * pairs * dim / PEAK_BF16_FLOPS * 1e3
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(flop_ms, byte_ms), "operations" if flop_ms >= byte_ms else "bytes"
+
+
+def kernel_cases():
+    """Phase 3: the forward kernel against its plain version; returns the
+    kernels-line entry of flash_fwd (without launches)."""
     import torch
     import torch.nn.functional as F
 
     from simpletuner_tpu_torch.ops import SEGMENT_PAD_ID, flash_attention, mha_reference_lse
+    from simpletuner_tpu_torch.ops.flash_attention import FWD_BLOCKS, TILE_FULL, TILE_MIXED, TILE_SKIP, tile_schedule
 
-    dev = torch.device("cuda")
-
-    def qkv(seed, b, h, s, d):
-        rng = np.random.default_rng(seed)
-        return [torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32)).to(dev, torch.bfloat16)
-                for _ in range(3)]
-
-    flux_seg = torch.zeros((1, TXT_LEN + (RESOLUTION // 16) ** 2), dtype=torch.int32, device=dev)
-    flux_seg[:, TXT_VALID:TXT_LEN] = SEGMENT_PAD_ID
-    packed = torch.zeros((2, 300), dtype=torch.int32, device=dev)
-    packed[:, 130:] = 1
-    packed[1, 280:] = SEGMENT_PAD_ID
-    flux_s = flux_seg.shape[1]
-    cases = [
-        ("flux_unmasked", (1, 24, flux_s, 128), None),
-        ("flux_t5_padded", (1, 24, flux_s, 128), flux_seg),
-        ("ragged_s1000_d64", (1, 8, 1000, 64), None),
-        ("segments_s300_d32", (2, 4, 300, 32), packed),
-    ]
     worst = 0.0
     errors = {}
-    for seed, (name, shape, seg) in enumerate(cases):
-        q, k, v = qkv(seed, *shape)
+    for seed, (name, shape, ids, strided) in enumerate(KERNEL_CASES):
+        (q, k, v), seg = _case_inputs(seed, shape, ids, strided, 3)
         out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
         ref, ref_lse = mha_reference_lse(q, k, v, seg, seg)
         torch.cuda.synchronize()
@@ -184,63 +251,66 @@ def kernel_cases():
                 and lse_err <= LSE_ATOL):
             raise RuntimeError(f"kernel case {name}: out err {out_err} (<= {out_bound}), out rel L2 "
                                f"{out_rel_l2} (<= {OUT_REL_L2}), lse err {lse_err} (<= {LSE_ATOL})")
-        if seg is not None:
-            dead = seg == SEGMENT_PAD_ID  # rows that see no key
-            rows = out.permute(0, 2, 1, 3)[dead]
-            if rows.numel() and not (rows == 0).all():
-                raise RuntimeError(f"kernel case {name}: fully masked rows are not exactly 0")
         errors[name] = {"out": out_err, "out_bound": out_bound, "out_rel_l2": out_rel_l2, "lse": lse_err}
+        if seg is not None:
+            dead = seg == SEGMENT_PAD_ID  # rows that see no key: exactly 0 and lse -1e30
+            rows, dead_lse = out.permute(0, 2, 1, 3)[dead], lse.permute(0, 2, 1)[dead]
+            if rows.numel() and not ((rows == 0).all() and (dead_lse == -1e30).all()):
+                raise RuntimeError(f"kernel case {name}: fully masked rows are not exactly 0 with lse -1e30")
+            errors[name]["masked_rows"] = int(rows.shape[0])
         worst = max(worst, out_err)
 
-    q, k, v = qkv(9, 1, 24, flux_s, 128)
+    q, k, v = _qkv(9, 1, 24, FLUX_S, 128)
+    flux_seg = _segments(1, FLUX_S, txt_valid=TXT_VALID)
+    classes = tile_schedule(flux_seg, flux_seg, FLUX_S, FLUX_S, *FWD_BLOCKS)
+    tiles = {name: int((classes == cls).sum()) for name, cls in
+             (("skip", TILE_SKIP), ("full", TILE_FULL), ("mixed", TILE_MIXED))}
+    allowed = (flux_seg[0][:, None] == flux_seg[0][None, :]) & (flux_seg[0] != SEGMENT_PAD_ID)[None, :]
+    sdpa_mask = allowed[None, None]
+    unmasked_backend, sdpa_ms = _sdpa_backend(lambda: F.scaled_dot_product_attention(q, k, v))
+    masked_backend, sdpa_masked_ms = _sdpa_backend(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask))
+    with torch.no_grad():
+        sdpa_out = F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)
+    dead = sdpa_out[0, :, TXT_VALID:TXT_LEN].float()
     times = {
         "kernel_unmasked_ms": cuda_ms(lambda: flash_attention(q, k, v), 20),
         "kernel_masked_ms": cuda_ms(lambda: flash_attention(q, k, v, flux_seg, flux_seg), 20),
         "plain_unmasked_ms": cuda_ms(lambda: mha_reference_lse(q, k, v), 5),
         "plain_masked_ms": cuda_ms(lambda: mha_reference_lse(q, k, v, flux_seg, flux_seg), 5),
-        "sdpa_baseline_unmasked_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
+        "sdpa_unmasked_ms": sdpa_ms, "sdpa_unmasked_backend": unmasked_backend,
+        "sdpa_masked_ms": sdpa_masked_ms, "sdpa_masked_backend": masked_backend,
+        # SDPA gives rows that see no key the mean of V (or NaN), not 0
+        "sdpa_masked_rows": {"nan": int(dead.isnan().sum()), "max_abs": float(dead.nan_to_num().abs().max())},
     }
-    flops = 4 * 24 * flux_s * flux_s * 128
-    times["kernel_unmasked_tflops"] = flops / times["kernel_unmasked_ms"] / 1e9
-    phase("3 kernels", shape=[1, 24, flux_s, 128], tol={"out_rel_max": OUT_REL_MAX, "out_rel_l2": OUT_REL_L2,
-          "lse": LSE_ATOL}, errors=errors, **times)
-    return worst, times["kernel_masked_ms"], times["plain_masked_ms"]
+    pairs = int(allowed.sum())
+    nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
+    bound_ms, bound_by = _attention_bound_ms(2, pairs, 24, 128, nbytes)
+    times["bound_unmasked_ms"] = _attention_bound_ms(2, FLUX_S ** 2, 24, 128, nbytes - 2 * FLUX_S * 4)[0]
+    times["bound_masked_ms"] = bound_ms
+    times["kernel_unmasked_tflops"] = 4 * 24 * FLUX_S * FLUX_S * 128 / times["kernel_unmasked_ms"] / 1e9
+    phase("3 kernels", shape=[1, 24, FLUX_S, 128], tol={"out_rel_max": OUT_REL_MAX, "out_rel_l2": OUT_REL_L2,
+          "lse": LSE_ATOL}, errors=errors, flux_masked_tiles=tiles, attended_pairs=pairs, **times)
+    return {"max_abs_err": worst, "ms": times["kernel_masked_ms"], "plain_ms": times["plain_masked_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_masked_ms,
+            "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}
 
 
 def backward_cases():
-    """Phase 7: the dq/dkv kernels against the plain backward; returns
-    {kernel: max_abs_err} and {kernel: (ms, plain_ms)} at the masked Flux shape."""
-    import numpy as np
+    """Phase 7: the dq/dkv kernels against the plain backward; returns the
+    kernels-line entries of flash_bwd_dq and flash_bwd_dkv (without launches)."""
     import torch
+    import torch.nn.functional as F
 
     from simpletuner_tpu_torch.ops import (
         SEGMENT_PAD_ID, flash_attention, flash_backward, flash_bwd_dkv_kernel, flash_bwd_dq_kernel,
         mha_backward_reference,
     )
 
-    dev = torch.device("cuda")
-
-    def tensors(seed, b, h, s, d):
-        rng = np.random.default_rng(100 + seed)
-        return [torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32)).to(dev, torch.bfloat16)
-                for _ in range(4)]
-
-    flux_s = TXT_LEN + (RESOLUTION // 16) ** 2
-    flux_seg = torch.zeros((1, flux_s), dtype=torch.int32, device=dev)
-    flux_seg[:, TXT_VALID:TXT_LEN] = SEGMENT_PAD_ID
-    packed = torch.zeros((2, 300), dtype=torch.int32, device=dev)
-    packed[:, 130:] = 1
-    packed[1, 280:] = SEGMENT_PAD_ID
-    cases = [
-        ("flux_unmasked", (1, 24, flux_s, 128), None),
-        ("flux_t5_padded", (1, 24, flux_s, 128), flux_seg),
-        ("ragged_s1000_d64", (1, 8, 1000, 64), None),
-        ("segments_s300_d32", (2, 4, 300, 32), packed),
-    ]
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     errors = {}
-    for seed, (name, shape, seg) in enumerate(cases):
-        q, k, v, do = tensors(seed, *shape)
+    for seed, (name, shape, ids, strided) in enumerate(KERNEL_CASES):
+        (q, k, v, do), seg = _case_inputs(100 + seed, shape, ids, strided, 4)
         scale = shape[-1] ** -0.5
         out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
         grads = flash_backward(q, k, v, seg, seg, out, lse, do, scale)
@@ -253,15 +323,20 @@ def backward_cases():
             if not (torch.isfinite(g).all() and r.norm() > 0 and err <= bound and l2 <= GRAD_REL_L2):
                 raise RuntimeError(f"backward case {name} {grad_name}: err {err} (<= {bound}), rel L2 {l2} "
                                    f"(<= {GRAD_REL_L2})")
+            # pad queries see no key and pad keys are seen by no query: exact zeros
             if seg is not None and not (grad.permute(0, 2, 1, 3)[seg == SEGMENT_PAD_ID] == 0).all():
                 raise RuntimeError(f"backward case {name}: {grad_name} of padded tokens is not exactly 0")
+            if strided and grad.stride() != (q, k, v)[("dq", "dk", "dv").index(grad_name)].stride():
+                raise RuntimeError(f"backward case {name}: {grad_name} not in its input's layout")
             errors[name][grad_name] = {"err": err, "bound": bound, "rel_l2": l2}
             kernel = "flash_bwd_dq" if grad_name == "dq" else "flash_bwd_dkv"
             worst[kernel] = max(worst[kernel], err)
 
     times = {}
+    flux_seg = _segments(1, FLUX_S, txt_valid=TXT_VALID)
+    allowed = (flux_seg[0][:, None] == flux_seg[0][None, :]) & (flux_seg[0] != SEGMENT_PAD_ID)[None, :]
     for mode, seg in (("unmasked", None), ("masked", flux_seg)):
-        q, k, v, do = tensors(9, 1, 24, flux_s, 128)
+        q, k, v, do = _qkv(9, 1, 24, FLUX_S, 128, n=4)
         scale = 128 ** -0.5
         out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
         delta = (out.float() * do.float()).sum(dim=-1)
@@ -270,13 +345,41 @@ def backward_cases():
         times[f"dkv_{mode}_ms"] = cuda_ms(lambda: flash_bwd_dkv_kernel(q, k, v, seg, seg, lse, delta, do, scale), 10)
         times[f"plain_{mode}_ms"] = cuda_ms(
             lambda: mha_backward_reference(q, k, v, seg, seg, out, lse, do, scale), 3)
-    # executed flops: dq runs 3 products (S, dP, dS K), dkv 4 (S, dP, P^T dO, dS^T Q)
-    flops = 7 * 2 * 24 * flux_s * flux_s * 128
-    times["dq_dkv_unmasked_tflops"] = flops / times["dq_dkv_unmasked_ms"] / 1e9
-    phase("7 backward kernels", shape=[1, 24, flux_s, 128], tol={"grad_rel_max": GRAD_REL_MAX,
+        # SDPA's backward: autograd.grad of its output minus its forward
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        mask = None if seg is None else allowed[None, None]
+
+        def forward():
+            return F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+
+        def forward_backward():
+            return torch.autograd.grad(forward(), leaves, do)
+
+        backend, fwd_bwd_ms = _sdpa_backend(forward_backward)
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        with sdpa_kernel([getattr(SDPBackend, backend.upper())]):
+            times[f"sdpa_backward_{mode}_ms"] = fwd_bwd_ms - cuda_ms(forward, 20)
+        times[f"sdpa_backward_{mode}_backend"] = backend
+    pairs_masked, pairs_unmasked = int(allowed.sum()), FLUX_S ** 2
+    act = 24 * FLUX_S * 128 * 2
+    # dq reads q, k, v, dO, lse, delta and writes dq; dkv the same inputs, writes dk and dv
+    dq_bound, dq_by = _attention_bound_ms(3, pairs_masked, 24, 128, 5 * act + 2 * 24 * FLUX_S * 4)
+    dkv_bound, dkv_by = _attention_bound_ms(4, pairs_masked, 24, 128, 6 * act + 2 * 24 * FLUX_S * 4)
+    times["bound_dq_unmasked_ms"] = _attention_bound_ms(3, pairs_unmasked, 24, 128, 0)[0]
+    times["bound_dkv_unmasked_ms"] = _attention_bound_ms(4, pairs_unmasked, 24, 128, 0)[0]
+    times["bound_dq_masked_ms"], times["bound_dkv_masked_ms"] = dq_bound, dkv_bound
+    phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
-    return worst, {"flash_bwd_dq": (times["dq_masked_ms"], times["plain_masked_ms"]),
-                   "flash_bwd_dkv": (times["dkv_masked_ms"], times["plain_masked_ms"])}
+    library = {"library_ms": times["sdpa_backward_masked_ms"],
+               "library_call": "scaled_dot_product_attention backward, dq + dk + dv together, boolean attn_mask "
+                               f"({times['sdpa_backward_masked_backend']})"}
+    return {
+        "flash_bwd_dq": {"max_abs_err": worst["flash_bwd_dq"], "ms": times["dq_masked_ms"],
+                         "plain_ms": times["plain_masked_ms"], "bound_ms": dq_bound, "bound_by": dq_by, **library},
+        "flash_bwd_dkv": {"max_abs_err": worst["flash_bwd_dkv"], "ms": times["dkv_masked_ms"],
+                          "plain_ms": times["plain_masked_ms"], "bound_ms": dkv_bound, "bound_by": dkv_by,
+                          **library},
+    }
 
 
 @contextlib.contextmanager
@@ -327,7 +430,7 @@ def train_steps(kernels):
         for kernel in kernels:
             kernel.launches = 0
         with record_backward_norms(norms, calls=2 * blocks):
-            result = flagship(steps=4, warmup=2, **kwargs)
+            result = flagship(steps=4, warmup=2, profile=label == TRAIN_RUNS[0][0], **kwargs)
         counts[label] = {kernel.name: kernel.launches for kernel in kernels}
         per_step = result["launches_per_step"]
         norms = torch.stack(norms).cpu()
@@ -554,7 +657,7 @@ def main() -> int:
                        if "registers" in line or "spill" in line] for library in libraries}
     phase("2 build", seconds=time.perf_counter() - start, nvcc_seconds=csrc.BUILD_SECONDS, ptxas=ptxas)
 
-    max_err, kernel_ms, plain_ms = kernel_cases()
+    fwd_entry = kernel_cases()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         import numpy as np
@@ -667,24 +770,22 @@ def main() -> int:
         del runtime, module, model
     torch.cuda.empty_cache()
 
-    bwd_err, bwd_ms = backward_cases()
+    bwd_entries = backward_cases()
     train_launches = train_steps(kernels)
     gradient_parity("9 gradient parity")
     int8_cases()
     gradient_parity("11 gradient parity (int8 base)", quant="int8")
 
+    sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
+               "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}
+    entries = {"flash_fwd": fwd_entry, **bwd_entries}
+    launches_main = {"flash_fwd": launches["flash_fwd"], "flash_bwd_dq": train_launches["flash_bwd_dq"],
+                     "flash_bwd_dkv": train_launches["flash_bwd_dkv"]}
     print(json.dumps({"kernels": [
-        {"name": "flash_fwd", "route": "cuda", "source": "simpletuner_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "simpletuner_tpu/ops/flash_attention.py:68", "launches": launches["flash_fwd"],
-         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms},
-        {"name": "flash_bwd_dq", "route": "cuda", "source": "simpletuner_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": "simpletuner_tpu/ops/flash_attention.py:197", "launches": train_launches["flash_bwd_dq"],
-         "max_abs_err": bwd_err["flash_bwd_dq"], "ms": bwd_ms["flash_bwd_dq"][0],
-         "plain_ms": bwd_ms["flash_bwd_dq"][1]},
-        {"name": "flash_bwd_dkv", "route": "cuda", "source": "simpletuner_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": "simpletuner_tpu/ops/flash_attention.py:239", "launches": train_launches["flash_bwd_dkv"],
-         "max_abs_err": bwd_err["flash_bwd_dkv"], "ms": bwd_ms["flash_bwd_dkv"][0],
-         "plain_ms": bwd_ms["flash_bwd_dkv"][1]},
+        {"name": name, "route": "cuda", "source": f"simpletuner_tpu_torch/{source}",
+         "replaces": f"simpletuner_tpu/ops/flash_attention.py:{line}", "launches": launches_main[name],
+         **entries[name]}
+        for name, (source, line) in sources.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)

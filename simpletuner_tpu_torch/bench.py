@@ -105,6 +105,43 @@ def flagship_batch(arch: FluxConfig, generator: torch.Generator, resolution: int
     }
 
 
+# kernel-name fragments of each device-time bucket, first match wins
+BUCKETS = (
+    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("int8_gemm", ("gemm_s8", "imma", "i8i8", "s8s8")),
+    ("bf16_gemm", ("gemm", "nvjet", "cutlass", "xmma")),
+)
+
+
+def profile_step(step) -> Dict:
+    """One call of ``step`` under ``torch.profiler``: device ms and launches
+    by kernel bucket (elementwise and copies in ``other``), and the wall
+    time of the traced call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3
+    buckets = {name: [0.0, 0] for name, _ in BUCKETS}
+    buckets["other"] = [0.0, 0]
+    for event in prof.key_averages():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        key = event.key.lower()
+        name = next((n for n, tags in BUCKETS if any(tag in key for tag in tags)), "other")
+        buckets[name][0] += event.device_time_total / 1e3
+        buckets[name][1] += event.count
+    device_ms = sum(ms for ms, _ in buckets.values())
+    return {"bucket_ms": {k: v[0] for k, v in buckets.items()}, "bucket_launches": {k: v[1] for k, v in buckets.items()},
+            "device_ms": device_ms, "traced_wall_ms": wall_ms}
+
+
 def flagship(
     steps: int = 4,
     remat_policy: str = "attn",
@@ -114,9 +151,11 @@ def flagship(
     quant: str = "int8",
     quantized_matmul: str = "full",
     skip_last: int = 0,
+    profile: bool = False,
 ) -> Dict:
     """Train ``warmup`` + ``steps`` LoRA steps of full-width Flux.1-dev on the
-    card and time the last ``steps``."""
+    card and time the last ``steps``; with ``profile``, one more step under
+    ``torch.profiler`` gives the device time by kernel bucket."""
     if not torch.cuda.is_available():
         raise RuntimeError("the flagship benchmark needs a CUDA device")
     dev = torch.device("cuda")
@@ -159,6 +198,7 @@ def flagship(
     launches = {k.name: (k.launches - c) / steps for k, c in zip(KERNELS, counts)}
     int_mm = (int8_matmul.launches - int_mm) / steps
     peak = torch.cuda.max_memory_allocated()
+    traced = profile_step(lambda: step_fn(state, batch, gen)) if profile else None
     delta = torch.sqrt(sum((p.detach() - before[k]).float().square().sum() for k, p in state.trainable.items()))
 
     s_img = (resolution // 16) ** 2
@@ -191,6 +231,9 @@ def flagship(
         "launches_per_step": launches,
         "int_mm_per_step": int_mm,
     }
+    if traced is not None:
+        traced["idle_share_vs_median"] = 1 - traced["device_ms"] / 1e3 / result["s_per_step_median"]
+        result["profile"] = traced
     del state, module, before
     torch.cuda.empty_cache()
     return result

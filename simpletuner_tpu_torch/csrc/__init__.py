@@ -7,6 +7,9 @@ checkout, keyed by a hash of the sources and flags, so an edited kernel is
 rebuilt and an unchanged one is reused.  A failed build raises: nothing falls
 back to a plain PyTorch path on the card.  Every ``*.cuh`` in the directory
 is part of every library's key, so a shared header rebuilds all of them.
+The libraries need no ``-lcuda``: the TMA tensor maps are encoded through
+the driver entry point that ``cudaGetDriverEntryPoint`` returns
+(``hopper.cuh``).
 
 Kernel table (every Pallas kernel of the JAX package, ``pl.pallas_call`` sites
 in ``simpletuner_tpu/ops/flash_attention.py``):
@@ -14,9 +17,9 @@ in ``simpletuner_tpu/ops/flash_attention.py``):
 ====  ==========================================  =======================  ==========================
  #    Pallas kernel                               Hopper port              status
 ====  ==========================================  =======================  ==========================
- 1    ``_fwd_kernel`` :68, call :157              ``csrc/flash_fwd.cu``    ported (CUDA, mma.sync)
+ 1    ``_fwd_kernel`` :68, call :157              ``csrc/flash_fwd.cu``    ported (CUDA, TMA + wgmma)
  2    ``_bwd_dq_kernel`` :197, call :334          ``csrc/flash_bwd.cu``    ported (CUDA, mma.sync)
- 3    ``_bwd_dkv_kernel`` :239, call :369         ``csrc/flash_bwd.cu``    ported (CUDA, mma.sync)
+ 3    ``_bwd_dkv_kernel`` :239, call :369         ``csrc/flash_bwd.cu``    ported (CUDA, TMA + wgmma)
 ====  ==========================================  =======================  ==========================
 """
 

@@ -1,6 +1,7 @@
-// Building blocks shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): cp.async tile loads into padded shared memory, the bf16
-// mma.sync m16n8k16 product, ldmatrix, bf16 packing and quad reductions.
+// Building blocks of the flash-attention kernels: the mask semantics, bf16
+// packing and quad reductions shared by all of them (flash_fwd.cu,
+// flash_bwd.cu), and the mma.sync path of the dq kernel: cp.async tile loads
+// into padded shared memory, the bf16 mma.sync m16n8k16 product, ldmatrix.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): {A[g][2t..2t+1]}, {A[g+8][2t..]}, {A[g][2t+8..]}, {A[g+8][2t+8..]}

@@ -29,16 +29,15 @@ from typing import List, Optional
 
 import torch
 
-from simpletuner_tpu.caching.text_embeds import TextEmbeddingCache
-from simpletuner_tpu.configuration.dataloader import load_dataloader_config
-from simpletuner_tpu.configuration.fields import REGISTRY
-from simpletuner_tpu.configuration.loader import load_config, normalize_key
-from simpletuner_tpu.data.backends.local import LocalDataBackend
-
+from .caching.text_embeds import TextEmbeddingCache
+from .configuration.dataloader import load_dataloader_config
+from .configuration.fields import REGISTRY
+from .configuration.loader import load_config, normalize_key
+from .data.backends.local import LocalDataBackend
 from .models.flux import Flux
 from .models.layers import dequantize_module, init_parameters, quantize_module
 from .models.vae import AutoencoderKL, VAEConfig
-from .training.validation import Validation
+from .training.validation import Validation, resolve_device
 
 _VAE_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "default": torch.bfloat16,
                "fp16": torch.bfloat16, "float16": torch.bfloat16, "half": torch.bfloat16,
@@ -58,16 +57,9 @@ def config_namespace(values: dict) -> SimpleNamespace:
 
 
 def load_inference_config(config_path: Optional[str], overrides: Optional[dict] = None) -> SimpleNamespace:
-    """Registry defaults + the config file (+ overrides), through the JAX
-    package's jax-free loader."""
+    """Registry defaults + the config file (+ overrides), through the port's
+    copy of the JAX package's loader."""
     return config_namespace({**load_config(config_path=config_path), **(overrides or {})})
-
-
-def resolve_device(device: str) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
-    return device
 
 
 def text_embed_cache(config, model_type: str) -> TextEmbeddingCache:

@@ -142,14 +142,14 @@ class ModelFoundation:
         """The resolved targets as a predicate over "/"-joined JAX module paths.
 
         A path matches when its dotted form, or a diffusers name it maps to
-        through the family LoRA key map (``simpletuner_tpu.training.lora``),
+        through the family LoRA key map (``training/lora.py``),
         equals a target or ends with "." + target; a fused projection (Flux
         ``linear1`` = q|k|v|mlp) adapts whole when any of its split names
         matches."""
         targets = self.lora_target_modules()
         if targets is None:
             return None
-        from simpletuner_tpu.training.lora import _key_map_for
+        from ..training.lora import _key_map_for
 
         patterns = [t.replace("/", ".") for t in targets]
         key_map = _key_map_for(self)

@@ -2,11 +2,12 @@
 
 PyTorch counterpart of ``simpletuner_tpu/ops/flash_attention.py``.  On CUDA
 tensors :func:`flash_attention` launches the hand-written Hopper kernels:
-``csrc/flash_fwd.cu`` (the port of the Pallas ``_fwd_kernel``) in the forward
-and ``csrc/flash_bwd.cu`` (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) in the
-backward.  On CPU tensors it runs their plain PyTorch versions,
-:func:`mha_reference_lse` and :func:`mha_backward_reference`.  There is no
-fallback between the two: a CUDA call that a kernel cannot take raises.
+``csrc/flash_fwd.cu`` (the port of the Pallas ``_fwd_kernel``; TMA + wgmma) in
+the forward and ``csrc/flash_bwd.cu`` (``_bwd_dq_kernel``, mma.sync, and
+``_bwd_dkv_kernel``, TMA + wgmma) in the backward.  On CPU tensors it runs
+their plain PyTorch versions, :func:`mha_reference_lse` and
+:func:`mha_backward_reference`.  There is no fallback between the two: a
+CUDA call that a kernel cannot take raises.
 
 The differentiable op is ``torch.ops.simpletuner_tpu_torch.flash_attention``
 (a ``torch.library`` custom op returning ``(out, lse)``), so selective
@@ -31,9 +32,14 @@ from .. import csrc
 SEGMENT_PAD_ID = -1
 DEFAULT_MASK_VALUE = -1e30
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
-# key tile of csrc/flash_fwd.cu and query/key tile of csrc/flash_bwd.cu; a
-# ragged tail needs the masked mode
-KERNEL_BLOCK = 64
+# (query, key) tiles of each kernel; a ragged tail needs the masked mode
+FWD_BLOCKS = (128, 128)
+DQ_BLOCKS = (64, 64)
+DKV_BLOCKS = (64, 128)
+# the TMA + wgmma kernels take these head dims; head_dim 32 reaches them
+# zero-padded to 64 (exact: the padded columns add 0 to every product)
+WGMMA_HEAD_DIMS = (64, 128)
+TILE_SKIP, TILE_FULL, TILE_MIXED = 0, 1, 2
 
 
 def _segment_mask(q_segment_ids, kv_segment_ids, batch, sq, sk, device):
@@ -44,6 +50,54 @@ def _segment_mask(q_segment_ids, kv_segment_ids, batch, sq, sk, device):
     q_ids = q_segment_ids[:, None, :, None]
     kv_ids = kv_segment_ids[:, None, None, :]
     return (q_ids == kv_ids) & (kv_ids != SEGMENT_PAD_ID)
+
+
+def _tile_ranges(ids: torch.Tensor, block: int):
+    """(min, max) over each tile of ``block`` ids, and (min, max, count)
+    over its non-pad ids; positions past the end count as pad."""
+    batch, length = ids.shape
+    tiles = -(-length // block)
+    padded = torch.full((batch, tiles * block), SEGMENT_PAD_ID, dtype=torch.int64, device=ids.device)
+    padded[:, :length] = ids.to(torch.int64)
+    padded = padded.view(batch, tiles, block)
+    valid = padded != SEGMENT_PAD_ID
+    big = torch.iinfo(torch.int64).max
+    valid_lo = torch.where(valid, padded, torch.full_like(padded, big)).amin(-1)
+    valid_hi = torch.where(valid, padded, torch.full_like(padded, -big)).amax(-1)
+    return padded.amin(-1), padded.amax(-1), valid_lo, valid_hi, valid.sum(-1)
+
+
+def tile_schedule(
+    q_segment_ids: Optional[torch.Tensor],
+    kv_segment_ids: Optional[torch.Tensor],
+    sq: int,
+    sk: int,
+    block_q: int,
+    block_k: int,
+    batch: int = 1,
+) -> torch.Tensor:
+    """Class of every (query tile, key tile) pair of the segment mask, as the
+    TMA + wgmma kernels schedule them (``hopper::tile_class`` in
+    ``csrc/hopper.cuh``): (batch, q tiles, k tiles) int8 of ``TILE_SKIP`` (no
+    pair of the two tiles attends), ``TILE_FULL`` (every pair attends) or
+    ``TILE_MIXED``.  Missing ids are all 0; positions past the sequence are
+    pad.  The rule reads only id ranges: skip when the key tile has no
+    non-pad id or its non-pad range misses the query range, full when every
+    key is non-pad and all ids of both tiles are one value."""
+    if q_segment_ids is None:
+        q_segment_ids = torch.zeros((batch, sq), dtype=torch.int32)
+    if kv_segment_ids is None:
+        kv_segment_ids = torch.zeros((batch, sk), dtype=torch.int32, device=q_segment_ids.device)
+    q_lo, q_hi = _tile_ranges(q_segment_ids, block_q)[:2]
+    _, _, kv_lo, kv_hi, kv_n = _tile_ranges(kv_segment_ids.to(q_segment_ids.device), block_k)
+    q_lo, q_hi = q_lo[:, :, None], q_hi[:, :, None]
+    kv_lo, kv_hi, kv_n = kv_lo[:, None, :], kv_hi[:, None, :], kv_n[:, None, :]
+    skip = (kv_n == 0) | (kv_hi < q_lo) | (kv_lo > q_hi)
+    full = (kv_n == block_k) & (q_lo == q_hi) & (kv_lo == kv_hi) & (q_lo == kv_lo)
+    classes = torch.full(skip.shape, TILE_MIXED, dtype=torch.int8, device=skip.device)
+    classes[full] = TILE_FULL
+    classes[skip] = TILE_SKIP
+    return classes
 
 
 def _masked_scores(q, k, q_segment_ids, kv_segment_ids, sm_scale):
@@ -162,6 +216,13 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
+def _pad_head_dim(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its head dim zero-padded to the next head dim the TMA +
+    wgmma kernels take."""
+    width = next(d for d in WGMMA_HEAD_DIMS if d >= x.shape[-1])
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
 class FlashForwardKernel:
     """ctypes binding of ``st_flash_fwd_bf16`` with its launch count.
 
@@ -182,7 +243,7 @@ class FlashForwardKernel:
             fn.argtypes = [ptr] * 7 + [i64] * 9 + [i32] * 5 + [ctypes.c_float, i32, ptr]
             fn.restype = i32
             lib.st_flash_fwd_abi_version.restype = i32
-            if lib.st_flash_fwd_abi_version() != 1:
+            if lib.st_flash_fwd_abi_version() != 2:
                 raise RuntimeError("flash_fwd library has an unexpected ABI version")
             self._fn = fn
         return self._fn
@@ -202,21 +263,23 @@ class FlashForwardKernel:
         if k.shape != (batch, heads, sk, dim) or v.shape != k.shape:
             raise ValueError(f"flash kernel: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
         segs = _kernel_segments("flash kernel", q, k, q_segment_ids, kv_segment_ids)
-        masked = any(s is not None for s in segs) or sk % KERNEL_BLOCK != 0
+        masked = any(s is not None for s in segs) or sk % FWD_BLOCKS[1] != 0
+        if dim not in WGMMA_HEAD_DIMS:
+            q, k, v = (_pad_head_dim(x) for x in (q, k, v))
 
-        out = torch.empty((batch, heads, sq, dim), dtype=torch.bfloat16, device=q.device)
+        out = torch.empty((batch, heads, sq, q.shape[-1]), dtype=torch.bfloat16, device=q.device)
         lse = torch.empty((batch, heads, sq), dtype=torch.float32, device=q.device)
         status = self._entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _ptr(segs[0]), _ptr(segs[1]),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            batch, heads, sq, sk, dim, float(sm_scale), int(masked),
+            batch, heads, sq, sk, q.shape[-1], float(sm_scale), int(masked),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
         if status != 0:  # a refused launch never runs; only cudaGetLastError shows it
             raise RuntimeError(f"flash_fwd launch failed with cudaError_t {status}")
         self.launches += 1
-        return out, lse
+        return (out if out.shape[-1] == dim else out[..., :dim].contiguous()), lse
 
 
 class FlashBackwardKernel:
@@ -247,7 +310,7 @@ class FlashBackwardKernel:
             fn.argtypes = [ptr] * (8 + n_out) + [ptr] + [i32] * 5 + [ctypes.c_float, i32, ptr]
             fn.restype = i32
             lib.st_flash_bwd_abi_version.restype = i32
-            if lib.st_flash_bwd_abi_version() != 1:
+            if lib.st_flash_bwd_abi_version() != 2:
                 raise RuntimeError("flash_bwd library has an unexpected ABI version")
             self._fn = fn
         return self._fn
@@ -277,24 +340,32 @@ class FlashBackwardKernel:
                     or x.device != q.device:
                 raise ValueError(f"{kernel}: {name} must be contiguous f32 {(batch, heads, sq)} on q's device")
         segs = _kernel_segments(kernel, q, k, q_segment_ids, kv_segment_ids)
-        masked = any(s is not None for s in segs) or sq % KERNEL_BLOCK != 0 or sk % KERNEL_BLOCK != 0
-
-        outs = [torch.empty_like(q)] if self.part == "dq" else [torch.empty_like(k), torch.empty_like(v)]
-        for x in outs:
+        block_q, block_k = DQ_BLOCKS if self.part == "dq" else DKV_BLOCKS
+        masked = any(s is not None for s in segs) or sq % block_q != 0 or sk % block_k != 0
+        grads = [torch.empty_like(q)] if self.part == "dq" else [torch.empty_like(k), torch.empty_like(v)]
+        for x in grads:
             if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3]):
                 raise ValueError(f"{kernel}: cannot lay out a gradient with strides {x.stride()}")
+        outs = grads
+        if self.part == "dkv" and dim not in WGMMA_HEAD_DIMS:
+            q, k, v, do = (_pad_head_dim(x) for x in (q, k, v, do))
+            outs = [torch.empty_like(k), torch.empty_like(v)]
+
         layouts = [q, k, v, do] + outs + ([outs[0]] if len(outs) == 1 else [])
         strides = (ctypes.c_int64 * 18)(*[s for x in layouts for s in x.stride()[:3]])
         status = self._entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             _ptr(segs[0]), _ptr(segs[1]), *[x.data_ptr() for x in outs], strides,
-            batch, heads, sq, sk, dim, float(sm_scale), int(masked),
+            batch, heads, sq, sk, q.shape[-1], float(sm_scale), int(masked),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
         if status != 0:
             raise RuntimeError(f"{self.name} launch failed with cudaError_t {status}")
         self.launches += 1
-        return tuple(outs) if len(outs) > 1 else outs[0]
+        if outs is not grads:
+            for grad, padded in zip(grads, outs):
+                grad.copy_(padded[..., :dim])
+        return tuple(grads) if len(grads) > 1 else grads[0]
 
 
 flash_fwd_kernel = FlashForwardKernel()

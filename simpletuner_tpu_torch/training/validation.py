@@ -24,6 +24,14 @@ from torch import nn
 from ..schedulers import FlowMatchEulerScheduler, classifier_free_guidance, sample_loop
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
+    return device
+
+
 def build_scheduler(model, num_steps: int, image_seq_len: Optional[int] = None):
     """Per-family inference scheduler; only the flow-matching branch is ported."""
     if not model.is_flow:
@@ -52,13 +60,13 @@ class Validation:
         config,
         decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
         output_dir: str = "output",
-        device: torch.device = torch.device("cpu"),
+        device="cuda",
     ):
         self.model = model
         self.config = config
         self.decode_fn = decode_fn
         self.output_dir = output_dir
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         raw = getattr(config, "validation_prompt", None)
         self.prompts: List[str] = ([raw] if isinstance(raw, str) else list(raw)) if raw else []
         self._embeds: List[Dict[str, np.ndarray]] = []

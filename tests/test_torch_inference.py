@@ -276,7 +276,7 @@ def test_true_cfg_render_matches_jax(tmp_path):
     jmodel, flux_vars, _, _ = _jax_weights(config, dataclasses.replace(JaxFluxConfig.tiny(), guidance_embed=False))
     model = Flux(config, dataclasses.replace(FluxConfig.tiny(), guidance_embed=False))
     module = bridge(flux_vars, model.create_module())
-    validation = Validation(model, config)
+    validation = Validation(model, config, device="cpu")
     validation.load_embeds(text_embed_cache(config, "flux"))
     out = validation._render_single(module, validation._embeds[0], 0)  # no decode_fn: latents
 

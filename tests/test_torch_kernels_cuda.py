@@ -105,6 +105,28 @@ def test_kernel_flux_text_padding(cuda):
     assert (lse[:, :, 77:512] == -1e30).all()
 
 
+def test_kernel_flux_text_padding_ragged_s(cuda):
+    # Flux padding at S = 4173 (not a multiple of the 128-row tiles): pad
+    # query tiles write 0 / -1e30 without loading K/V, pad key tiles are
+    # skipped, tile 0 is mixed, the ragged last tile is masked as pad
+    q, k, v = _qkv(11, 1, 24, 4173, 4173, 128, cuda)
+    seg = _flux_text_pad_segments(1, 512, 77, 4173 - 512, cuda)
+    out, lse = _check(q, k, v, seg, seg)
+    assert (out[:, :, 77:512] == 0).all()
+    assert (lse[:, :, 77:512] == -1e30).all()
+
+
+def test_kernel_cross_attention_pad_key_tiles(cuda):
+    # queries of one segment against keys whose second and fourth 128-key
+    # tiles are all pad: those tiles are skipped; no row is fully masked
+    q, k, v = _qkv(12, 2, 3, 200, 512, 64, cuda)
+    q_seg = torch.zeros((2, 200), dtype=torch.int32, device=cuda)
+    kv_seg = torch.zeros((2, 512), dtype=torch.int32, device=cuda)
+    kv_seg[:, 128:256] = SEGMENT_PAD_ID
+    kv_seg[:, 384:] = SEGMENT_PAD_ID
+    _check(q, k, v, q_seg, kv_seg)
+
+
 def test_kernel_packed_segments_ragged(cuda):
     q, k, v = _qkv(2, 2, 2, 300, 300, 32, cuda)
     seg = torch.zeros((2, 300), dtype=torch.int32, device=cuda)
@@ -166,6 +188,15 @@ def test_backward_kernels_flux_text_padding(cuda):
     seg = _flux_text_pad_segments(1, 512, 77, 4096, cuda)
     dq, dk, dv = _check_backward(q, k, v, seg)
     # padded text rows see no key, and no row sees a padded key: exactly zero
+    for grad in (dq, dk, dv):
+        assert (grad[:, :, 77:512] == 0).all()
+
+
+def test_backward_kernels_flux_text_padding_ragged_s(cuda):
+    q, k, v = _qkv(13, 1, 24, 4173, 4173, 128, cuda)
+    seg = _flux_text_pad_segments(1, 512, 77, 4173 - 512, cuda)
+    dq, dk, dv = _check_backward(q, k, v, seg)
+    # a whole key tile of pad (keys 128-255) and the pad queries: exact zeros
     for grad in (dq, dk, dv):
         assert (grad[:, :, 77:512] == 0).all()
 
