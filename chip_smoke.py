@@ -24,9 +24,12 @@ Phases (each prints one line; any failure exits non-zero with no result line):
 6. profile: one full-width denoise call under torch.profiler, device time by
    kernel bucket and the device's idle share of the call;
 7. backward kernels: dq, dk and dv from the dq/dkv kernels against the plain
-   backward on the card, bf16, at the cases of phase 3 (dk and dv of pad
-   keys, dq of pad queries exactly 0; gradients of strided inputs in their
-   layout), with kernel, plain and SDPA-backward times and the bounds;
+   backward on the card, bf16, at the cases of phase 3 and a cross-attention
+   case (200 queries against 512 keys with two 128-key blocks of pad: the dq
+   kernel's skip tiles); dk and dv of pad keys and dq of pad queries exactly
+   0; gradients of strided inputs in their layout; dq bitwise equal over two
+   launches at the Flux masked shape; kernel, plain and SDPA-backward times,
+   the bounds and each kernel's share of its bound;
 8. train step: the flagship LoRA step (simpletuner_tpu_torch.bench.flagship:
    full-width, full-depth Flux.1-dev, rank-16 LoRA, AdamW, 1024 px, T5 padding
    masked): first the JAX flagship's configuration, an int8 frozen base with
@@ -45,7 +48,9 @@ Phases (each prints one line; any failure exits non-zero with no result line):
 11. gradient parity on an int8 base (quantized_matmul=full): phase 9 again.
 
 Then a JSON line with the kernels, and last the device line.  Needs one CUDA
-device; builds into build/kernels/ inside the checkout.
+device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
+register, spill and warning lines per kernel (a C7514 warning means ptxas
+serialized a wgmma pipeline).
 """
 
 from __future__ import annotations
@@ -309,42 +314,75 @@ def backward_cases():
 
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     errors = {}
-    for seed, (name, shape, ids, strided) in enumerate(KERNEL_CASES):
-        (q, k, v, do), seg = _case_inputs(100 + seed, shape, ids, strided, 4)
-        scale = shape[-1] ** -0.5
-        out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
-        grads = flash_backward(q, k, v, seg, seg, out, lse, do, scale)
-        refs = mha_backward_reference(q, k, v, seg, seg, out, lse, do, scale)
+
+    def check(name, q, k, v, do, q_seg, kv_seg, strided):
+        scale = q.shape[-1] ** -0.5
+        out, lse = flash_attention(q, k, v, q_seg, kv_seg, return_lse=True)
+        grads = flash_backward(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+        refs = mha_backward_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
         torch.cuda.synchronize()
         errors[name] = {}
-        for grad_name, grad, ref in zip(("dq", "dk", "dv"), grads, refs):
+        sides = zip(("dq", "dk", "dv"), grads, refs, (q_seg, kv_seg, kv_seg), (q, k, v))
+        for grad_name, grad, ref, ids, like in sides:
             g, r = grad.float(), ref.float()
             err, bound, l2 = (g - r).abs().max().item(), GRAD_REL_MAX * r.abs().max().item(), rel_l2(g, r)
             if not (torch.isfinite(g).all() and r.norm() > 0 and err <= bound and l2 <= GRAD_REL_L2):
                 raise RuntimeError(f"backward case {name} {grad_name}: err {err} (<= {bound}), rel L2 {l2} "
                                    f"(<= {GRAD_REL_L2})")
             # pad queries see no key and pad keys are seen by no query: exact zeros
-            if seg is not None and not (grad.permute(0, 2, 1, 3)[seg == SEGMENT_PAD_ID] == 0).all():
+            if ids is not None and not (grad.permute(0, 2, 1, 3)[ids == SEGMENT_PAD_ID] == 0).all():
                 raise RuntimeError(f"backward case {name}: {grad_name} of padded tokens is not exactly 0")
-            if strided and grad.stride() != (q, k, v)[("dq", "dk", "dv").index(grad_name)].stride():
+            if strided and grad.stride() != like.stride():
                 raise RuntimeError(f"backward case {name}: {grad_name} not in its input's layout")
             errors[name][grad_name] = {"err": err, "bound": bound, "rel_l2": l2}
             kernel = "flash_bwd_dq" if grad_name == "dq" else "flash_bwd_dkv"
             worst[kernel] = max(worst[kernel], err)
 
+    for seed, (name, shape, ids, strided) in enumerate(KERNEL_CASES):
+        (q, k, v, do), seg = _case_inputs(100 + seed, shape, ids, strided, 4)
+        check(name, q, k, v, do, seg, seg, strided)
+    # cross attention: queries of one segment against keys whose second and
+    # fourth 128-key blocks are pad, so the dq kernel skips whole key tiles
+    q, do = _qkv(120, 2, 3, 200, 64, n=2)
+    k, v = _qkv(121, 2, 3, 512, 64, n=2)
+    q_seg = torch.zeros((2, 200), dtype=torch.int32, device="cuda")
+    kv_seg = torch.zeros((2, 512), dtype=torch.int32, device="cuda")
+    kv_seg[:, 128:256] = SEGMENT_PAD_ID
+    kv_seg[:, 384:] = SEGMENT_PAD_ID
+    check("cross_q200_k512_pad_key_tiles_d64", q, k, v, do, q_seg, kv_seg, False)
+
     times = {}
     flux_seg = _segments(1, FLUX_S, txt_valid=TXT_VALID)
     allowed = (flux_seg[0][:, None] == flux_seg[0][None, :]) & (flux_seg[0] != SEGMENT_PAD_ID)[None, :]
+    pairs = {"unmasked": FLUX_S ** 2, "masked": int(allowed.sum())}
+    act = 24 * FLUX_S * 128 * 2
+    # dq reads q, k, v, dO, lse, delta and writes dq; dkv the same inputs, writes dk and dv
+    bounds = {(kernel, mode): _attention_bound_ms(products, pairs[mode], 24, 128, nbytes)
+              for kernel, products, nbytes in (("dq", 3, 5 * act + 2 * 24 * FLUX_S * 4),
+                                               ("dkv", 4, 6 * act + 2 * 24 * FLUX_S * 4))
+              for mode in pairs}
     for mode, seg in (("unmasked", None), ("masked", flux_seg)):
         q, k, v, do = _qkv(9, 1, 24, FLUX_S, 128, n=4)
         scale = 128 ** -0.5
         out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
         delta = (out.float() * do.float()).sum(dim=-1)
+
+        def dq():
+            return flash_bwd_dq_kernel(q, k, v, seg, seg, lse, delta, do, scale)
+
         times[f"dq_dkv_{mode}_ms"] = cuda_ms(lambda: flash_backward(q, k, v, seg, seg, out, lse, do, scale), 10)
-        times[f"dq_{mode}_ms"] = cuda_ms(lambda: flash_bwd_dq_kernel(q, k, v, seg, seg, lse, delta, do, scale), 10)
-        times[f"dkv_{mode}_ms"] = cuda_ms(lambda: flash_bwd_dkv_kernel(q, k, v, seg, seg, lse, delta, do, scale), 10)
+        times[f"dq_{mode}_ms"] = cuda_ms(dq, 10)
+        times[f"dkv_{mode}_ms"] = cuda_ms(
+            lambda: flash_bwd_dkv_kernel(q, k, v, seg, seg, lse, delta, do, scale), 10)
+        for kernel in ("dq", "dkv"):
+            times[f"bound_{kernel}_{mode}_ms"] = bounds[(kernel, mode)][0]
+            times[f"{kernel}_{mode}_share_of_bound"] = bounds[(kernel, mode)][0] / times[f"{kernel}_{mode}_ms"]
         times[f"plain_{mode}_ms"] = cuda_ms(
             lambda: mha_backward_reference(q, k, v, seg, seg, out, lse, do, scale), 3)
+        if seg is not None:
+            if not torch.equal(dq(), dq()):
+                raise RuntimeError("flash_bwd_dq is not bitwise equal over two launches at the Flux masked shape")
+            times["dq_masked_bitwise_equal_over_two_launches"] = True
         # SDPA's backward: autograd.grad of its output minus its forward
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         mask = None if seg is None else allowed[None, None]
@@ -360,25 +398,16 @@ def backward_cases():
         with sdpa_kernel([getattr(SDPBackend, backend.upper())]):
             times[f"sdpa_backward_{mode}_ms"] = fwd_bwd_ms - cuda_ms(forward, 20)
         times[f"sdpa_backward_{mode}_backend"] = backend
-    pairs_masked, pairs_unmasked = int(allowed.sum()), FLUX_S ** 2
-    act = 24 * FLUX_S * 128 * 2
-    # dq reads q, k, v, dO, lse, delta and writes dq; dkv the same inputs, writes dk and dv
-    dq_bound, dq_by = _attention_bound_ms(3, pairs_masked, 24, 128, 5 * act + 2 * 24 * FLUX_S * 4)
-    dkv_bound, dkv_by = _attention_bound_ms(4, pairs_masked, 24, 128, 6 * act + 2 * 24 * FLUX_S * 4)
-    times["bound_dq_unmasked_ms"] = _attention_bound_ms(3, pairs_unmasked, 24, 128, 0)[0]
-    times["bound_dkv_unmasked_ms"] = _attention_bound_ms(4, pairs_unmasked, 24, 128, 0)[0]
-    times["bound_dq_masked_ms"], times["bound_dkv_masked_ms"] = dq_bound, dkv_bound
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
     library = {"library_ms": times["sdpa_backward_masked_ms"],
                "library_call": "scaled_dot_product_attention backward, dq + dk + dv together, boolean attn_mask "
                                f"({times['sdpa_backward_masked_backend']})"}
     return {
-        "flash_bwd_dq": {"max_abs_err": worst["flash_bwd_dq"], "ms": times["dq_masked_ms"],
-                         "plain_ms": times["plain_masked_ms"], "bound_ms": dq_bound, "bound_by": dq_by, **library},
-        "flash_bwd_dkv": {"max_abs_err": worst["flash_bwd_dkv"], "ms": times["dkv_masked_ms"],
-                          "plain_ms": times["plain_masked_ms"], "bound_ms": dkv_bound, "bound_by": dkv_by,
-                          **library},
+        f"flash_bwd_{kernel}": {"max_abs_err": worst[f"flash_bwd_{kernel}"], "ms": times[f"{kernel}_masked_ms"],
+                                "plain_ms": times["plain_masked_ms"], "bound_ms": bounds[(kernel, "masked")][0],
+                                "bound_by": bounds[(kernel, "masked")][1], **library}
+        for kernel in ("dq", "dkv")
     }
 
 
@@ -654,7 +683,8 @@ def main() -> int:
     for library in libraries:
         csrc.load(library)
     ptxas = {library: [line.strip() for line in csrc.build_log_path(library).read_text().splitlines()
-                       if "registers" in line or "spill" in line] for library in libraries}
+                       if any(key in line for key in ("entry function", "registers", "spill", "warning"))]
+             for library in libraries}
     phase("2 build", seconds=time.perf_counter() - start, nvcc_seconds=csrc.BUILD_SECONDS, ptxas=ptxas)
 
     fwd_entry = kernel_cases()

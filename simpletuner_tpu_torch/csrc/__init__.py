@@ -18,7 +18,7 @@ in ``simpletuner_tpu/ops/flash_attention.py``):
  #    Pallas kernel                               Hopper port              status
 ====  ==========================================  =======================  ==========================
  1    ``_fwd_kernel`` :68, call :157              ``csrc/flash_fwd.cu``    ported (CUDA, TMA + wgmma)
- 2    ``_bwd_dq_kernel`` :197, call :334          ``csrc/flash_bwd.cu``    ported (CUDA, mma.sync)
+ 2    ``_bwd_dq_kernel`` :197, call :334          ``csrc/flash_bwd.cu``    ported (CUDA, TMA + wgmma)
  3    ``_bwd_dkv_kernel`` :239, call :369         ``csrc/flash_bwd.cu``    ported (CUDA, TMA + wgmma)
 ====  ==========================================  =======================  ==========================
 """

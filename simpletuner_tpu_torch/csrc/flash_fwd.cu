@@ -73,8 +73,8 @@ struct Smem {
   static constexpr int KV_IDS = V + STAGES * TILE;  // int [STAGES][BLOCK_N]: key ids of a mixed tile
   // q_full, k_full[STAGES], v_full[STAGES], k_empty[STAGES], v_empty[STAGES]
   static constexpr int BARS = KV_IDS + STAGES * BLOCK_N * 4;
-  static constexpr int BOUNDS = BARS + 8 * (1 + 4 * STAGES);  // query id range
-  static constexpr int CLASSES = BOUNDS + 16;                 // one byte per key tile
+  static constexpr int BOUNDS = BARS + 8 * (1 + 4 * STAGES);  // query id range of each row warp
+  static constexpr int CLASSES = BOUNDS + 8 * (BLOCK_M / 32);  // one byte per key tile
   static int bytes(int key_tiles) { return 1024 + CLASSES + ((key_tiles + 15) & ~15); }
 };
 
@@ -167,41 +167,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(&v_empty[s], CONSUMER_THREADS);
     }
     mbar_init_fence();
-    bounds[0] = 0x7fffffff;
-    bounds[1] = -0x7fffffff - 1;
   }
-  if (MASKED) {
-    // the tile schedule: query id range, then one class per key tile
-    __syncthreads();
-    if (tid < BLOCK_M) {
-      const int id = segment_id(p.q_seg, b, p.sq, m0 + tid);
-      const int lo = __reduce_min_sync(0xffffffffu, id);
-      const int hi = __reduce_max_sync(0xffffffffu, id);
-      if (lane == 0) {
-        atomicMin(&bounds[0], lo);
-        atomicMax(&bounds[1], hi);
-      }
-    }
-    __syncthreads();
-    const int q_lo = bounds[0];
-    const int q_hi = bounds[1];
-    for (int j = warp; j < n_tiles; j += THREADS / 32) {
-      int lo = 0x7fffffff, hi = -0x7fffffff - 1, n = 0;
-#pragma unroll
-      for (int r = 0; r < BLOCK_N / 32; ++r) {
-        const int id = segment_id(p.kv_seg, b, p.sk, j * BLOCK_N + r * 32 + lane);
-        if (id != SEGMENT_PAD_ID) {
-          lo = min(lo, id);
-          hi = max(hi, id);
-          ++n;
-        }
-      }
-      lo = __reduce_min_sync(0xffffffffu, lo);
-      hi = __reduce_max_sync(0xffffffffu, hi);
-      n = __reduce_add_sync(0xffffffffu, n);
-      if (lane == 0) classes[j] = (uint8_t)tile_class(q_lo, q_hi, lo, hi, n, BLOCK_N);
-    }
-  }
+  // the tile schedule: query id range, then one class per key tile
+  if (MASKED) schedule_key_tiles<BLOCK_M, BLOCK_N, THREADS>(p.q_seg, p.kv_seg, b, p.sq, p.sk, m0, bounds, classes);
   __syncthreads();
   // the next tile at or after j that is not skipped (n_tiles when none)
   auto next_tile = [&](int j) {

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels built on
-// TMA and wgmma (flash_fwd.cu, and the dkv kernel of flash_bwd.cu):
+// Hopper (sm_90a) building blocks of the flash-attention kernels, all built
+// on TMA and wgmma (flash_fwd.cu, and the dq and dkv kernels of flash_bwd.cu):
 //   * TMA: 4-D tensor maps over (batch, heads, seq, dim) bf16 views read
 //     through their strides, boxes of `rows` x 64 columns (128 bytes) stored
 //     with the 128-byte swizzle that wgmma descriptors read; rows past the
@@ -10,7 +10,8 @@
 //     memory (K-major) or from registers, B from shared memory (K-major for
 //     a row-major tile whose columns are the contraction, MN-major for one
 //     whose rows are);
-//   * the tile schedule of the segment mask (tile_class), mirrored by
+//   * the tile schedule of the segment mask (tile_class, and the per-CTA
+//     schedule_key_tiles of the forward and dq kernels), mirrored by
 //     simpletuner_tpu_torch/ops/flash_attention.py::tile_schedule.
 //
 // A tile of R rows x D columns is stored as D / 64 column blocks of R x 64
@@ -33,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace hopper {
 
 // ---------------------------------------------------------------------------
@@ -52,6 +55,52 @@ __host__ __device__ __forceinline__ int tile_class(int q_lo, int q_hi, int kv_lo
   if (n_valid == 0 || kv_hi < q_lo || kv_lo > q_hi) return TILE_SKIP;
   if (n_valid == keys && q_lo == q_hi && kv_lo == kv_hi && q_lo == kv_lo) return TILE_FULL;
   return TILE_MIXED;
+}
+
+// The schedule of a CTA that owns query rows [m0, m0 + ROWS) and streams key
+// tiles of KEYS: each warp of the first ROWS threads reduces its query ids to
+// a range in `bounds` (two ints per warp of shared memory), then every key
+// tile is classed into `classes` (one byte per tile).  All THREADS threads of
+// the CTA call it; the caller syncs before it reads `classes`.
+template <int ROWS, int KEYS, int THREADS>
+__device__ __forceinline__ void schedule_key_tiles(const int32_t* q_seg, const int32_t* kv_seg, int b, int sq,
+                                                   int sk, int m0, int* bounds, uint8_t* classes) {
+  static_assert(ROWS % 32 == 0 && ROWS <= THREADS && KEYS % 32 == 0, "whole warps per row and key block");
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  if (tid < ROWS) {
+    const int id = flash::segment_id(q_seg, b, sq, m0 + tid);
+    const int lo = __reduce_min_sync(0xffffffffu, id);
+    const int hi = __reduce_max_sync(0xffffffffu, id);
+    if (lane == 0) {
+      bounds[2 * (tid / 32)] = lo;
+      bounds[2 * (tid / 32) + 1] = hi;
+    }
+  }
+  __syncthreads();
+  int q_lo = bounds[0], q_hi = bounds[1];
+#pragma unroll
+  for (int w = 1; w < ROWS / 32; ++w) {
+    q_lo = min(q_lo, bounds[2 * w]);
+    q_hi = max(q_hi, bounds[2 * w + 1]);
+  }
+  const int n_tiles = (sk + KEYS - 1) / KEYS;
+  for (int j = tid / 32; j < n_tiles; j += THREADS / 32) {
+    int lo = 0x7fffffff, hi = -0x7fffffff - 1, n = 0;
+#pragma unroll
+    for (int r = 0; r < KEYS / 32; ++r) {
+      const int id = flash::segment_id(kv_seg, b, sk, j * KEYS + r * 32 + lane);
+      if (id != flash::SEGMENT_PAD_ID) {
+        lo = min(lo, id);
+        hi = max(hi, id);
+        ++n;
+      }
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    n = __reduce_add_sync(0xffffffffu, n);
+    if (lane == 0) classes[j] = (uint8_t)tile_class(q_lo, q_hi, lo, hi, n, KEYS);
+  }
 }
 
 // ---------------------------------------------------------------------------

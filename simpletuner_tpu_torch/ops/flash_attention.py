@@ -1,11 +1,11 @@
 """Flash attention, forward and backward, over ``(batch, heads, seq, head_dim)`` tensors.
 
 PyTorch counterpart of ``simpletuner_tpu/ops/flash_attention.py``.  On CUDA
-tensors :func:`flash_attention` launches the hand-written Hopper kernels:
-``csrc/flash_fwd.cu`` (the port of the Pallas ``_fwd_kernel``; TMA + wgmma) in
-the forward and ``csrc/flash_bwd.cu`` (``_bwd_dq_kernel``, mma.sync, and
-``_bwd_dkv_kernel``, TMA + wgmma) in the backward.  On CPU tensors it runs
-their plain PyTorch versions, :func:`mha_reference_lse` and
+tensors :func:`flash_attention` launches the hand-written Hopper kernels, all
+warp-specialised TMA + wgmma kernels: ``csrc/flash_fwd.cu`` (the port of the
+Pallas ``_fwd_kernel``) in the forward and ``csrc/flash_bwd.cu`` (the ports
+of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) in the backward.  On CPU
+tensors it runs their plain PyTorch versions, :func:`mha_reference_lse` and
 :func:`mha_backward_reference`.  There is no fallback between the two: a
 CUDA call that a kernel cannot take raises.
 
@@ -34,10 +34,10 @@ DEFAULT_MASK_VALUE = -1e30
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 # (query, key) tiles of each kernel; a ragged tail needs the masked mode
 FWD_BLOCKS = (128, 128)
-DQ_BLOCKS = (64, 64)
+DQ_BLOCKS = (128, 64)
 DKV_BLOCKS = (64, 128)
-# the TMA + wgmma kernels take these head dims; head_dim 32 reaches them
-# zero-padded to 64 (exact: the padded columns add 0 to every product)
+# the kernels take these head dims; head_dim 32 reaches them zero-padded to
+# 64 (exact: the padded columns add 0 to every product)
 WGMMA_HEAD_DIMS = (64, 128)
 TILE_SKIP, TILE_FULL, TILE_MIXED = 0, 1, 2
 
@@ -310,7 +310,7 @@ class FlashBackwardKernel:
             fn.argtypes = [ptr] * (8 + n_out) + [ptr] + [i32] * 5 + [ctypes.c_float, i32, ptr]
             fn.restype = i32
             lib.st_flash_bwd_abi_version.restype = i32
-            if lib.st_flash_bwd_abi_version() != 2:
+            if lib.st_flash_bwd_abi_version() != 3:
                 raise RuntimeError("flash_bwd library has an unexpected ABI version")
             self._fn = fn
         return self._fn
@@ -347,9 +347,9 @@ class FlashBackwardKernel:
             if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3]):
                 raise ValueError(f"{kernel}: cannot lay out a gradient with strides {x.stride()}")
         outs = grads
-        if self.part == "dkv" and dim not in WGMMA_HEAD_DIMS:
+        if dim not in WGMMA_HEAD_DIMS:
             q, k, v, do = (_pad_head_dim(x) for x in (q, k, v, do))
-            outs = [torch.empty_like(k), torch.empty_like(v)]
+            outs = [torch.empty_like(q)] if self.part == "dq" else [torch.empty_like(k), torch.empty_like(v)]
 
         layouts = [q, k, v, do] + outs + ([outs[0]] if len(outs) == 1 else [])
         strides = (ctypes.c_int64 * 18)(*[s for x in layouts for s in x.stride()[:3]])

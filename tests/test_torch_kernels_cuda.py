@@ -154,15 +154,17 @@ def test_kernel_rejects_unsupported(cuda):
         flash_attention(q96, q96, q96)
 
 
-def _check_backward(q, k, v, seg=None, seed=0):
-    """Kernel dq/dk/dv against the plain backward on the kernel's own out and lse."""
-    out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
+def _check_backward(q, k, v, seg=None, seed=0, kv_seg=None):
+    """Kernel dq/dk/dv against the plain backward on the kernel's own out and
+    lse; ``seg`` holds the ids of both sides unless ``kv_seg`` is given."""
+    kv_seg = seg if kv_seg is None else kv_seg
+    out, lse = flash_attention(q, k, v, seg, kv_seg, return_lse=True)
     rng = np.random.default_rng(seed)
     do = torch.from_numpy(rng.standard_normal(tuple(q.shape), dtype=np.float32)).to(q.device, torch.bfloat16)
     before = (flash_bwd_dq_kernel.launches, flash_bwd_dkv_kernel.launches)
-    grads = flash_backward(q, k, v, seg, seg, out, lse, do, q.shape[-1] ** -0.5)
+    grads = flash_backward(q, k, v, seg, kv_seg, out, lse, do, q.shape[-1] ** -0.5)
     assert (flash_bwd_dq_kernel.launches, flash_bwd_dkv_kernel.launches) == (before[0] + 1, before[1] + 1)
-    refs = mha_backward_reference(q, k, v, seg, seg, out, lse, do, q.shape[-1] ** -0.5)
+    refs = mha_backward_reference(q, k, v, seg, kv_seg, out, lse, do, q.shape[-1] ** -0.5)
     torch.cuda.synchronize()
     for grad, ref in zip(grads, refs):
         assert grad.shape == ref.shape and grad.dtype == torch.bfloat16
@@ -209,6 +211,32 @@ def test_backward_kernels_packed_segments_ragged(cuda):
     dq, dk, dv = _check_backward(q, k, v, seg)
     for grad in (dq, dk, dv):
         assert (grad[1, :, 280:] == 0).all()
+
+
+def test_backward_kernels_cross_attention_pad_key_tiles(cuda):
+    # 200 queries of one segment against 512 keys whose second and fourth
+    # 128-key blocks are pad: the dq kernel skips those 64-key tiles, the
+    # ragged query tile is mixed; pad keys get exactly zero dk and dv
+    q, k, v = _qkv(14, 2, 3, 200, 512, 64, cuda)
+    q_seg = torch.zeros((2, 200), dtype=torch.int32, device=cuda)
+    kv_seg = torch.zeros((2, 512), dtype=torch.int32, device=cuda)
+    kv_seg[:, 128:256] = SEGMENT_PAD_ID
+    kv_seg[:, 384:] = SEGMENT_PAD_ID
+    _, dk, dv = _check_backward(q, k, v, q_seg, kv_seg=kv_seg)
+    for grad in (dk, dv):
+        assert (grad[:, :, 128:256] == 0).all() and (grad[:, :, 384:] == 0).all()
+
+
+def test_backward_dq_is_deterministic(cuda):
+    # no atomics: two launches on the same inputs give the same bits
+    q, k, v = _qkv(15, 1, 24, 4608, 4608, 128, cuda)
+    seg = _flux_text_pad_segments(1, 512, 77, 4096, cuda)
+    do = torch.randn(q.shape, device=cuda, dtype=torch.bfloat16, generator=torch.Generator(cuda).manual_seed(1))
+    out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
+    delta = (out.float() * do.float()).sum(dim=-1)
+    first = flash_bwd_dq_kernel(q, k, v, seg, seg, lse, delta, do, 128 ** -0.5)
+    second = flash_bwd_dq_kernel(q, k, v, seg, seg, lse, delta, do, 128 ** -0.5)
+    assert torch.equal(first, second)
 
 
 def test_backward_through_the_strided_dispatcher(cuda):

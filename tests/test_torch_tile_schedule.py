@@ -1,6 +1,6 @@
 """The tile schedule of the segment mask against the dense mask, on the CPU.
 
-The TMA + wgmma flash kernels (csrc/flash_fwd.cu, the dkv kernel of
+The TMA + wgmma flash kernels (csrc/flash_fwd.cu, the dq and dkv kernels of
 csrc/flash_bwd.cu) class every (query tile, key tile) pair before they run:
 skip (never loaded), full (no mask) or mixed (per-element mask).  The rule
 lives once in ``ops.flash_attention.tile_schedule`` and the kernels mirror it
@@ -15,6 +15,7 @@ import torch
 
 from simpletuner_tpu_torch.ops.flash_attention import (
     DKV_BLOCKS,
+    DQ_BLOCKS,
     FWD_BLOCKS,
     SEGMENT_PAD_ID,
     TILE_FULL,
@@ -87,7 +88,7 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("blocks", [FWD_BLOCKS, DKV_BLOCKS], ids=["fwd", "dkv"])
+@pytest.mark.parametrize("blocks", [FWD_BLOCKS, DKV_BLOCKS, DQ_BLOCKS], ids=["fwd", "dkv", "dq"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_tile_classes_agree_with_the_dense_mask(case, blocks):
     ids, length = CASES[case]
@@ -118,3 +119,19 @@ def test_flux_schedule_counts():
     ragged = tile_schedule(None, None, 1000, 1000, *FWD_BLOCKS)
     assert (ragged[0, :-1, :-1] == TILE_FULL).all()
     assert (ragged[0, -1] == TILE_MIXED).all() and (ragged[0, :, -1] == TILE_MIXED).all()
+
+
+def test_flux_schedule_counts_dq_blocks():
+    # the dq kernel's 128-row query tiles against 64-key tiles: query tiles
+    # 1-3 (rows 128-511) are all pad and skip every key tile, as do key tiles
+    # 2-7 (keys 128-511) against every query tile; query tile 0 (text and
+    # pad) is mixed against every key tile it sees, and so is key tile 1
+    # (keys 64-127: the last valid text tokens and pad)
+    classes = tile_schedule(torch.from_numpy(_flux_ids(4608)), torch.from_numpy(_flux_ids(4608)),
+                            4608, 4608, *DQ_BLOCKS)
+    counts = {name: int((classes == cls).sum()) for name, cls in
+              (("skip", TILE_SKIP), ("full", TILE_FULL), ("mixed", TILE_MIXED))}
+    assert counts == {"skip": 414, "full": 2080, "mixed": 98}
+    assert (classes[0, 1:4] == TILE_SKIP).all() and (classes[0, :, 2:8] == TILE_SKIP).all()
+    assert (classes[0, 0, [0, 1, *range(8, 72)]] == TILE_MIXED).all() and (classes[0, 4:, 1] == TILE_MIXED).all()
+    assert (classes[0, 4:, 0] == TILE_FULL).all() and (classes[0, 4:, 8:] == TILE_FULL).all()
