@@ -34,7 +34,8 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    full-width, full-depth Flux.1-dev, rank-16 LoRA, AdamW, 1024 px, T5 padding
    masked): first the JAX flagship's configuration, an int8 frozen base with
    quantized_matmul=full and remat policy attn, then an int4 base (attn), then
-   a bf16 base with remat attn and full; 2 warm-up and 4 timed steps each;
+   a bf16 base with remat attn and full; the eager step, 2 warm-up and 2 timed
+   steps each (phase 12 times the int8 step over 20);
    counts the kernel launches of each run; the first run's device time by
    kernel bucket from one more step under torch.profiler;
 9. gradient parity: one step's LoRA gradients through the kernels against the
@@ -45,9 +46,24 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    operand layouts, each int32 result equal to the float64 product of the same
    int8 operands; int8_dynamic_dot's output and dx against a plain version
    that contracts in float64; times beside bf16 products of the same shapes;
-11. gradient parity on an int8 base (quantized_matmul=full): phase 9 again.
+11. gradient parity on an int8 base (quantized_matmul=full): phase 9 again;
+12. graphed train step: the int8 flagship of phase 8 (attn) through
+   jit_train_step, the step captured as one CUDA graph: two runs of 5 eager
+   steps from one snapshot of the adapters, the optimizer state and the
+   generator (bitwise equal, or the difference printed and the graph held to
+   it), then 5 graph replays from the same snapshot, whose losses, grad norms
+   and LoRA tensors must equal the eager ones bitwise; then 20 eager steps and
+   20 replays timed, one of each profiled (device time by bucket, idle share);
+   the launches of the profiled replay as the profiler recorded them on the
+   card (76 / 57 / 57 flash, 1,069 torch._int_mm), which must equal what the
+   capture recorded (a replay runs no wrapper, so the counters count the
+   warm-up steps and the capture, and not the replays);
+13. full-depth gradient parity: phase 9 at 19 + 38 blocks on a bf16 base.
 
-Then a JSON line with the kernels, and last the device line.  Needs one CUDA
+Phases 3 and 7 also run head dims 72, 96 and 112 (pixart, lumina2, sana),
+which the wrappers zero-pad to 128, masked and unmasked.  Then a JSON line
+with the kernels (launches: the profiler's count in phase 12's profiled
+replay), and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
 register, spill and warning lines per kernel (a C7514 warning means ptxas
 serialized a wgmma pipeline).
@@ -83,10 +99,13 @@ PARITY_REL_L2 = 5e-2
 # largest plain value and 1e-2 in relative L2
 GRAD_REL_MAX, GRAD_REL_L2 = 2.0 ** -6, 1e-2
 # one train step's LoRA gradients, kernel path vs mha_reference path, 6 blocks
-# at full width: each attention output and gradient differs by about one bf16
-# rounding (P and dS in bf16), compounded through the blocks' backward
+# (phases 9, 11) or the full 57 (phase 13) at full width: each attention
+# output and gradient differs by about one bf16 rounding (P and dS in bf16),
+# compounded through the blocks' backward
 TRAIN_GRAD_REL_L2 = 5e-2
 PARITY_DOUBLE, PARITY_SINGLE = 2, 4
+# phase 12: steps held bitwise against the eager step, and steps timed
+GRAPH_CHECK_STEPS, GRAPH_TIMED_STEPS = 5, 20
 # H100 SXM: dense bf16 tensor-core peak and device-memory rate (bounds only)
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 # phase 10: the Flux linears' (in, out): attention q/k/v and proj, single-block
@@ -193,7 +212,16 @@ KERNEL_CASES = (
     ("ragged_s1000_d64", (1, 8, 1000, 64), None, False),
     ("segments_s300_d32", (2, 4, 300, 32), {"packed_at": 130, "pad_from": 280}, False),
     ("strided_bshd_s640_d64", (1, 8, 640, 64), {"txt_valid": 40}, True),
+    # head dims the wrappers zero-pad to 128 (pixart 72, lumina2 96, sana 112)
+    ("ragged_s1000_d72", (1, 8, 1000, 72), None, False),
+    ("t5_padded_s1000_d72", (1, 8, 1000, 72), {"txt_valid": TXT_VALID}, False),
+    ("s640_d96", (1, 8, 640, 96), None, False),
+    ("strided_bshd_t5_padded_s640_d96", (1, 8, 640, 96), {"txt_valid": 40}, True),
+    ("s384_d112", (2, 4, 384, 112), None, False),
+    ("segments_s300_d112", (2, 4, 300, 112), {"packed_at": 130, "pad_from": 280}, False),
 )
+# head dims timed at the Flux sequence (T5 padding masked) beside 128
+PADDED_HEAD_DIMS = (72, 96, 112)
 
 
 def _case_inputs(seed, shape, ids, strided, n):
@@ -288,6 +316,9 @@ def kernel_cases():
         # SDPA gives rows that see no key the mean of V (or NaN), not 0
         "sdpa_masked_rows": {"nan": int(dead.isnan().sum()), "max_abs": float(dead.nan_to_num().abs().max())},
     }
+    for dim in PADDED_HEAD_DIMS:
+        qd, kd, vd = _qkv(10 + dim, 1, 24, FLUX_S, dim)
+        times[f"kernel_masked_d{dim}_ms"] = cuda_ms(lambda: flash_attention(qd, kd, vd, flux_seg, flux_seg), 20)
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
     bound_ms, bound_by = _attention_bound_ms(2, pairs, 24, 128, nbytes)
@@ -398,6 +429,11 @@ def backward_cases():
         with sdpa_kernel([getattr(SDPBackend, backend.upper())]):
             times[f"sdpa_backward_{mode}_ms"] = fwd_bwd_ms - cuda_ms(forward, 20)
         times[f"sdpa_backward_{mode}_backend"] = backend
+    for dim in PADDED_HEAD_DIMS:
+        q, k, v, do = _qkv(20 + dim, 1, 24, FLUX_S, dim, n=4)
+        out, lse = flash_attention(q, k, v, flux_seg, flux_seg, return_lse=True)
+        times[f"dq_dkv_masked_d{dim}_ms"] = cuda_ms(
+            lambda: flash_backward(q, k, v, flux_seg, flux_seg, out, lse, do, dim ** -0.5), 10)
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
     library = {"library_ms": times["sdpa_backward_masked_ms"],
@@ -442,9 +478,8 @@ TRAIN_RUNS = (
 )
 
 
-def train_steps(kernels):
-    """Phase 8: the flagship LoRA step in each of TRAIN_RUNS; returns the
-    launch counts of the first (the JAX flagship's configuration)."""
+def train_steps(kernels) -> None:
+    """Phase 8: the eager flagship LoRA step in each of TRAIN_RUNS."""
     import torch
 
     from simpletuner_tpu_torch.bench import flagship
@@ -459,7 +494,7 @@ def train_steps(kernels):
         for kernel in kernels:
             kernel.launches = 0
         with record_backward_norms(norms, calls=2 * blocks):
-            result = flagship(steps=4, warmup=2, profile=label == TRAIN_RUNS[0][0], **kwargs)
+            result = flagship(steps=2, warmup=2, profile=label == TRAIN_RUNS[0][0], graph=False, **kwargs)
         counts[label] = {kernel.name: kernel.launches for kernel in kernels}
         per_step = result["launches_per_step"]
         norms = torch.stack(norms).cpu()
@@ -481,12 +516,12 @@ def train_steps(kernels):
             raise RuntimeError(f"train step ({label}): " + "; ".join(problems))
         result["backward_norms_min"] = dict(zip(("do", "dq", "dk", "dv"), norms.min(dim=0).values.tolist()))
         phase(f"8 train step ({label})", **result, launches_run=counts[label])
-    return counts[TRAIN_RUNS[0][0]]
 
 
-def gradient_parity(name: str, quant: str = "none") -> None:
-    """Phases 9 and 11: a step's LoRA gradients, kernel path against
-    mha_reference path, on a bf16 base or a quantized one (int8 products)."""
+def gradient_parity(name: str, quant: str = "none", depth=(PARITY_DOUBLE, PARITY_SINGLE)) -> None:
+    """Phases 9, 11 and 13: a step's LoRA gradients, kernel path against
+    mha_reference path, on a bf16 base or a quantized one (int8 products),
+    at ``depth`` (double, single) blocks."""
     import dataclasses
 
     import torch
@@ -498,7 +533,9 @@ def gradient_parity(name: str, quant: str = "none") -> None:
     from simpletuner_tpu_torch.ops import set_attention_backend
 
     dev = torch.device("cuda")
-    arch = dataclasses.replace(FluxConfig(), depth_double=PARITY_DOUBLE, depth_single=PARITY_SINGLE)
+    start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    arch = dataclasses.replace(FluxConfig(), depth_double=depth[0], depth_single=depth[1])
     model = Flux(config_namespace(flagship_config("full", quant, "full")), arch=arch)
     gen = torch.Generator(device=dev).manual_seed(9)
     with torch.device(dev):
@@ -526,15 +563,105 @@ def gradient_parity(name: str, quant: str = "none") -> None:
         loss_plain, plain = grads(batch)
     finally:
         set_attention_backend("auto")
+    peak = torch.cuda.max_memory_allocated() / 2**30
     err, mask_effect = rel_l2(kernel, plain), rel_l2(unmasked, plain)
-    if not (torch.isfinite(kernel).all() and plain.norm() > 0 and err <= TRAIN_GRAD_REL_L2 and mask_effect > 5 * err):
+    if not (torch.isfinite(kernel).all() and plain.norm() > 0 and err <= TRAIN_GRAD_REL_L2
+            and mask_effect > 5 * err):
         raise RuntimeError(f"{name}: rel L2 {err} (<= {TRAIN_GRAD_REL_L2}), mask effect {mask_effect}")
-    phase(name, blocks=[PARITY_DOUBLE, PARITY_SINGLE], base=model.base_precision or "bf16",
+    phase(name, blocks=list(depth), base=model.base_precision or "bf16",
           quantized_matmul=model.quantized_matmul, lora_tensors=len(params),
           loss_kernel=float(loss_kernel), loss_plain=float(loss_plain), rel_l2=err, bound=TRAIN_GRAD_REL_L2,
-          unmasked_rel_l2=mask_effect)
+          unmasked_rel_l2=mask_effect, peak_gib=peak, seconds=time.perf_counter() - start)
     del module, params
     torch.cuda.empty_cache()
+
+
+def graph_step(kernels):
+    """Phase 12: the int8 flagship step captured as one CUDA graph against
+    the eager step (bitwise), then both timed; returns each kernel's launches
+    in the profiled replay, as the profiler recorded them on the card."""
+    import torch
+
+    from simpletuner_tpu_torch.bench import build_run, flagship_config, time_steps
+    from simpletuner_tpu_torch.models.flux import FluxConfig
+    from simpletuner_tpu_torch.training.quantization import int8_matmul
+    from simpletuner_tpu_torch.training.train_state import jit_train_step, state_tensors
+
+    run = build_run(flagship_config("attn", "int8", "full"), FluxConfig())
+    state, batch, gen = run.state, run.batch, run.generator
+    with torch.no_grad():
+        saved = [t.clone() for t in state_tensors(state)]
+    rng = gen.get_state()
+
+    def restore():
+        with torch.no_grad():
+            for tensor, value in zip(state_tensors(state), saved):
+                tensor.copy_(value)
+        gen.set_state(rng)
+
+    def trajectory(step):
+        current, losses, norms = state, [], []
+        for _ in range(GRAPH_CHECK_STEPS):
+            current, metrics = step(current, batch, gen)
+            losses.append(metrics["loss"])
+            norms.append(metrics["grad_norm"])
+        lora = torch.cat([p.detach().flatten() for p in current.trainable.values()])
+        return torch.stack(losses), torch.stack(norms), lora.clone()
+
+    def max_diff(a, b):
+        return [float((x.float() - y.float()).abs().max()) for x, y in zip(a, b)]
+
+    first = trajectory(run.step_fn)
+    restore()
+    second = trajectory(run.step_fn)
+    restore()
+    eager_diff = max_diff(first, second)  # losses, grad norms, LoRA tensors
+    eager = time_steps(run.step_fn, state, batch, gen, GRAPH_TIMED_STEPS, 0, profile=True)
+    eager.pop("state")
+    restore()
+
+    counters = (*kernels, int8_matmul)
+    for counter in counters:
+        counter.launches = 0
+    start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    graphed = jit_train_step(run.step_fn, state, batch, gen)
+    torch.cuda.synchronize()
+    capture_s, capture_peak = time.perf_counter() - start, torch.cuda.max_memory_allocated() / 2**30
+    captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
+    replayed = trajectory(graphed)
+    graph_diff = max_diff(replayed, first)
+    timed = time_steps(graphed, state, batch, gen, GRAPH_TIMED_STEPS, 0, profile=True)
+    timed.pop("state")
+    # the wrappers count where they launch: the warm-up steps and the capture
+    wrapper_counts = {counter.name: counter.launches for counter in counters}
+    recorded = timed["profile"]["bucket_launches"]
+    device = {**{kernel.name: recorded[kernel.name] for kernel in kernels}, "int_mm": recorded["int8_gemm"]}
+    problems = []
+    if any(d > e for d, e in zip(graph_diff, eager_diff)):
+        problems.append(f"graph replays differ from the eager steps by {graph_diff} (two eager runs: {eager_diff})")
+    if captured != {"flash_fwd": 19 + 38 + 19, "flash_bwd_dq": 57, "flash_bwd_dkv": 57, "int_mm": 1069}:
+        problems.append(f"the capture recorded {captured}")
+    if device != captured:
+        problems.append(f"the profiled replay launched {device} on the card, the capture recorded {captured}")
+    if not all(wrapper_counts.values()):
+        problems.append(f"a wrapper counted no launch on the main path: {wrapper_counts}")
+    if not torch.isfinite(replayed[0]).all():
+        problems.append(f"non-finite losses {replayed[0].tolist()}")
+    if problems:
+        raise RuntimeError("graphed train step: " + "; ".join(problems))
+    summary = lambda r: {k: r[k] for k in ("s_per_step_median", "s_per_step", "step_s", "peak_gib")}  # noqa: E731
+    phase("12 graphed train step", quant=run.model.base_precision, quantized_matmul=run.model.quantized_matmul,
+          remat_policy="attn", check_steps=GRAPH_CHECK_STEPS, losses=replayed[0].tolist(),
+          grad_norms=replayed[1].tolist(), bitwise_equal_to_eager=graph_diff == [0.0, 0.0, 0.0],
+          eager_runs_bitwise_equal=eager_diff == [0.0, 0.0, 0.0], graph_vs_eager_max_diff=graph_diff,
+          eager_vs_eager_max_diff=eager_diff, capture_s=capture_s, capture_peak_gib=capture_peak,
+          launches_captured=captured, launches_profiled_replay=device, wrapper_counts_warmup_and_capture=wrapper_counts,
+          eager={**summary(eager), "profile": eager["profile"]}, graph={**summary(timed), "profile": timed["profile"]},
+          speedup_median=eager["s_per_step_median"] / timed["s_per_step_median"])
+    del graphed, run, state, saved
+    torch.cuda.empty_cache()
+    return device
 
 
 def int8_cases() -> None:
@@ -801,16 +928,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     bwd_entries = backward_cases()
-    train_launches = train_steps(kernels)
+    train_steps(kernels)
     gradient_parity("9 gradient parity")
     int8_cases()
     gradient_parity("11 gradient parity (int8 base)", quant="int8")
+    launches_main = graph_step(kernels)
+    gradient_parity("13 gradient parity (full depth)", depth=(19, 38))
 
     sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
                "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}
     entries = {"flash_fwd": fwd_entry, **bwd_entries}
-    launches_main = {"flash_fwd": launches["flash_fwd"], "flash_bwd_dq": train_launches["flash_bwd_dq"],
-                     "flash_bwd_dkv": train_launches["flash_bwd_dkv"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"simpletuner_tpu_torch/{source}",
          "replaces": f"simpletuner_tpu/ops/flash_attention.py:{line}", "launches": launches_main[name],

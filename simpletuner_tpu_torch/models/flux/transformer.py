@@ -315,10 +315,12 @@ class FluxTransformer(nn.Module):
         block = getattr(self, f"{'single' if single else 'double'}_{layer}")
         if not (torch.is_grad_enabled() and self.checkpointed(single, layer)):
             return block(*args)
+        # a block draws no random numbers, so the recompute needs no saved RNG
+        # state (reading it is refused while a CUDA graph captures the step)
         context = _CONTEXTS.get((self.remat_policy, single))
         if context is None:
-            return checkpoint(block, *args, use_reentrant=False)
-        return checkpoint(block, *args, use_reentrant=False, context_fn=context)
+            return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False, context_fn=context)
 
 
 def pack_latents(latents: torch.Tensor, patch: int = 2) -> torch.Tensor:

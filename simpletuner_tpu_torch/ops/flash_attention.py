@@ -31,13 +31,13 @@ from .. import csrc
 
 SEGMENT_PAD_ID = -1
 DEFAULT_MASK_VALUE = -1e30
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
 # (query, key) tiles of each kernel; a ragged tail needs the masked mode
 FWD_BLOCKS = (128, 128)
 DQ_BLOCKS = (128, 64)
 DKV_BLOCKS = (64, 128)
-# the kernels take these head dims; head_dim 32 reaches them zero-padded to
-# 64 (exact: the padded columns add 0 to every product)
+# the kernels take these head dims; every other head dim up to 128 reaches
+# them zero-padded to the next one (exact: the padded columns add 0 to every
+# product, and sm_scale stays that of the unpadded head dim)
 WGMMA_HEAD_DIMS = (64, 128)
 TILE_SKIP, TILE_FULL, TILE_MIXED = 0, 1, 2
 
@@ -181,8 +181,21 @@ def mha_backward_reference(
     return dq.to(dtype), dk.to(dtype), dv.to(dtype)
 
 
+def _kernel_head_dim(dim: int) -> int:
+    """The head dim a kernel runs for ``dim``: 64 or 128 as they are, every
+    other ``dim`` <= 128 zero-padded to the next of the two."""
+    if dim < 1:
+        raise ValueError(f"head_dim must be positive, got {dim}")
+    for width in WGMMA_HEAD_DIMS:
+        if dim <= width:
+            return width
+    raise NotImplementedError(f"the flash kernels take head_dim <= 128, got {dim}; the head_dim 256 kernel "
+                              "(AuraFlow) is still to port")
+
+
 def _check_kernel_operands(kernel: str, q: torch.Tensor, **tensors: torch.Tensor) -> None:
-    """Device, dtype and layout checks shared by the kernel wrappers."""
+    """Device, dtype and layout checks shared by the kernel wrappers, on the
+    operands as the kernel reads them (after any head-dim padding)."""
     for name, x in (("q", q), *tensors.items()):
         if not x.is_cuda or x.device != q.device:
             raise ValueError(f"{kernel}: {name} must be on q's CUDA device")
@@ -198,8 +211,6 @@ def _kernel_segments(kernel, q, k, q_segment_ids, kv_segment_ids):
     """Checked shapes; the segment ids as contiguous int32 (or None)."""
     batch, heads, sq, dim = q.shape
     sk = k.shape[2]
-    if dim not in SUPPORTED_HEAD_DIMS:
-        raise NotImplementedError(f"{kernel} supports head_dim {SUPPORTED_HEAD_DIMS}, got {dim}")
     if sq == 0 or sk == 0 or batch * heads > 65535:
         raise ValueError(f"{kernel}: unsupported sizes batch*heads={batch * heads} sq={sq} sk={sk}")
     segs = []
@@ -217,10 +228,10 @@ def _ptr(x: Optional[torch.Tensor]):
 
 
 def _pad_head_dim(x: torch.Tensor) -> torch.Tensor:
-    """``x`` with its head dim zero-padded to the next head dim the TMA +
-    wgmma kernels take."""
-    width = next(d for d in WGMMA_HEAD_DIMS if d >= x.shape[-1])
-    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    """``x`` with its head dim zero-padded to :func:`_kernel_head_dim` (a
+    contiguous copy; ``x`` itself when no padding is needed)."""
+    width = _kernel_head_dim(x.shape[-1])
+    return x if width == x.shape[-1] else torch.nn.functional.pad(x, (0, width - x.shape[-1]))
 
 
 class FlashForwardKernel:
@@ -257,15 +268,14 @@ class FlashForwardKernel:
         kv_segment_ids: Optional[torch.Tensor],
         sm_scale: float,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        _check_kernel_operands("flash kernel", q, k=k, v=v)
         batch, heads, sq, dim = q.shape
         sk = k.shape[2]
         if k.shape != (batch, heads, sk, dim) or v.shape != k.shape:
             raise ValueError(f"flash kernel: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
+        q, k, v = (_pad_head_dim(x) for x in (q, k, v))
+        _check_kernel_operands("flash kernel", q, k=k, v=v)
         segs = _kernel_segments("flash kernel", q, k, q_segment_ids, kv_segment_ids)
         masked = any(s is not None for s in segs) or sk % FWD_BLOCKS[1] != 0
-        if dim not in WGMMA_HEAD_DIMS:
-            q, k, v = (_pad_head_dim(x) for x in (q, k, v))
 
         out = torch.empty((batch, heads, sq, q.shape[-1]), dtype=torch.bfloat16, device=q.device)
         lse = torch.empty((batch, heads, sq), dtype=torch.float32, device=q.device)
@@ -329,7 +339,6 @@ class FlashBackwardKernel:
     ) -> Tuple[torch.Tensor, ...]:
         """dq (part "dq") or (dk, dv) (part "dkv")."""
         kernel = f"flash {self.part} kernel"
-        _check_kernel_operands(kernel, q, k=k, v=v, do=do)
         batch, heads, sq, dim = q.shape
         sk = k.shape[2]
         if k.shape != (batch, heads, sk, dim) or v.shape != k.shape or do.shape != q.shape:
@@ -339,17 +348,21 @@ class FlashBackwardKernel:
             if x.shape != (batch, heads, sq) or x.dtype != torch.float32 or not x.is_contiguous() \
                     or x.device != q.device:
                 raise ValueError(f"{kernel}: {name} must be contiguous f32 {(batch, heads, sq)} on q's device")
+        padded = _kernel_head_dim(dim) != dim
+        grads = [torch.empty_like(q)] if self.part == "dq" else [torch.empty_like(k), torch.empty_like(v)]
+        q, k, v, do = (_pad_head_dim(x) for x in (q, k, v, do))
+        _check_kernel_operands(kernel, q, k=k, v=v, do=do)
         segs = _kernel_segments(kernel, q, k, q_segment_ids, kv_segment_ids)
         block_q, block_k = DQ_BLOCKS if self.part == "dq" else DKV_BLOCKS
         masked = any(s is not None for s in segs) or sq % block_q != 0 or sk % block_k != 0
-        grads = [torch.empty_like(q)] if self.part == "dq" else [torch.empty_like(k), torch.empty_like(v)]
-        for x in grads:
+        # a padded call writes padded gradients, sliced into ``grads`` below;
+        # otherwise the kernel writes ``grads`` in place, in their inputs' layout
+        outs = grads
+        if padded:
+            outs = [torch.empty_like(q)] if self.part == "dq" else [torch.empty_like(k), torch.empty_like(v)]
+        for x in outs:
             if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3]):
                 raise ValueError(f"{kernel}: cannot lay out a gradient with strides {x.stride()}")
-        outs = grads
-        if dim not in WGMMA_HEAD_DIMS:
-            q, k, v, do = (_pad_head_dim(x) for x in (q, k, v, do))
-            outs = [torch.empty_like(q)] if self.part == "dq" else [torch.empty_like(k), torch.empty_like(v)]
 
         layouts = [q, k, v, do] + outs + ([outs[0]] if len(outs) == 1 else [])
         strides = (ctypes.c_int64 * 18)(*[s for x in layouts for s in x.stride()[:3]])
@@ -362,9 +375,9 @@ class FlashBackwardKernel:
         if status != 0:
             raise RuntimeError(f"{self.name} launch failed with cudaError_t {status}")
         self.launches += 1
-        if outs is not grads:
-            for grad, padded in zip(grads, outs):
-                grad.copy_(padded[..., :dim])
+        if padded:
+            for grad, wide in zip(grads, outs):
+                grad.copy_(wide[..., :dim])
         return tuple(grads) if len(grads) > 1 else grads[0]
 
 

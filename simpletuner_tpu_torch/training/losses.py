@@ -105,7 +105,9 @@ def sample_flow_sigmas(
     device = torch.device(device) if device is not None else generator.device
 
     def choice(values):
-        table = torch.tensor(values, dtype=torch.float32, device=device)
+        # the table is filled on the device: no host-to-device copy, so a
+        # captured step can draw from it
+        table = torch.stack([torch.full((), v, dtype=torch.float32, device=device) for v in values])
         index = torch.randint(0, table.shape[0], (batch_size,), generator=generator, device=device)
         return table[index]
 
@@ -171,9 +173,10 @@ def _pointwise_loss(pred: torch.Tensor, target: torch.Tensor, config: LossConfig
     raise ValueError(f"unknown loss type {config.loss_type}")
 
 
-def _huber_c_for(config: LossConfig, timesteps: Optional[torch.Tensor], num_train_timesteps: int) -> torch.Tensor:
+def _huber_c_for(config: LossConfig, timesteps: Optional[torch.Tensor], num_train_timesteps: int,
+                 device) -> torch.Tensor:
     if config.loss_type == "l2" or config.huber_schedule == "constant" or timesteps is None:
-        return torch.tensor(config.huber_c, dtype=torch.float32)
+        return torch.full((), config.huber_c, dtype=torch.float32, device=device)
     t_frac = timesteps.float() / max(num_train_timesteps - 1, 1)
     if config.huber_schedule == "exponential":
         return config.huber_c * torch.exp(-t_frac * 10.0)
@@ -201,7 +204,7 @@ def diffusion_loss(
     which are not ported: it raises when it would apply."""
     del sigmas  # the flow loss does not weight by sigma
     batch = model_pred.shape[0]
-    huber_c = _huber_c_for(config, timesteps, num_train_timesteps).to(model_pred.device)
+    huber_c = _huber_c_for(config, timesteps, num_train_timesteps, model_pred.device)
     if huber_c.dim():  # per-timestep schedule -> broadcast over spatial dims
         huber_c = huber_c.reshape(batch, *([1] * (model_pred.dim() - 1)))
     loss = _pointwise_loss(model_pred, target, config, huber_c)

@@ -33,12 +33,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .optimizers import Optimizer, Tensors, bias_corrections
+from .optimizers import Optimizer, Tensors, bias_corrections, zero_count
 
 DEFAULT_BLOCK = 256
 INT4_PACKED = "int4_packed"  # two 4-bit codes per uint8 byte
@@ -142,7 +142,7 @@ def _zero_moment(p: torch.Tensor, dtype: Any, block: int, min_quant_size: int,
 
 @dataclasses.dataclass
 class QuantizedAdamState:
-    count: int
+    count: torch.Tensor
     mu_q: Tensors
     mu_scale: Tensors
     nu_q: Tensors
@@ -168,15 +168,15 @@ class AdamWQuantized(Optimizer):
                                   min_quant_size=self.min_quant_size)
         mu = {k: zeros(p) for k, p in params.items()}
         nu = {k: zeros(p, unsigned=True) for k, p in params.items()}
-        return QuantizedAdamState(0, {k: v[0] for k, v in mu.items()}, {k: v[1] for k, v in mu.items()},
-                                  {k: v[0] for k, v in nu.items()}, {k: v[1] for k, v in nu.items()})
+        return QuantizedAdamState(zero_count(params), {k: v[0] for k, v in mu.items()},
+                                  {k: v[1] for k, v in mu.items()}, {k: v[0] for k, v in nu.items()},
+                                  {k: v[1] for k, v in nu.items()})
 
-    def _update(self, grads: Tensors, state: QuantizedAdamState, params: Tensors):
+    def _update(self, grads: Tensors, state: QuantizedAdamState, params: Tensors, lr: Optional[torch.Tensor]):
         b1, b2 = self.b1, self.b2
         count = state.count + 1
-        dev = next(iter(grads.values())).device if grads else None
-        bc1, bc2 = bias_corrections(count, b1, b2, dev)
-        lr = self.lr(state.count)
+        bc1, bc2 = bias_corrections(count, b1, b2)
+        neg_lr = -self._lr(state.count, lr)
         new = QuantizedAdamState(count, {}, {}, {}, {})
         updates = {}
         for k, g in grads.items():
@@ -195,13 +195,13 @@ class AdamWQuantized(Optimizer):
                 new.mu_q[k], new.mu_scale[k] = quantize_blockwise(m, self.state_dtype, self.block_size)
                 new.nu_q[k], new.nu_scale[k] = quantize_blockwise(n, self.state_dtype, self.block_size,
                                                                   unsigned=True)
-            updates[k] = -lr * (u + self.weight_decay * params[k].float())
+            updates[k] = neg_lr * (u + self.weight_decay * params[k].float())
         return updates, new
 
 
 @dataclasses.dataclass
 class QuantizedLionState:
-    count: int
+    count: torch.Tensor
     mu_q: Tensors
     mu_scale: Tensors
 
@@ -221,10 +221,11 @@ class LionQuantized(Optimizer):
 
     def init(self, params: Tensors) -> QuantizedLionState:
         mu = {k: _zero_moment(p, self.state_dtype, self.block_size, self.min_quant_size) for k, p in params.items()}
-        return QuantizedLionState(0, {k: v[0] for k, v in mu.items()}, {k: v[1] for k, v in mu.items()})
+        return QuantizedLionState(zero_count(params), {k: v[0] for k, v in mu.items()},
+                                  {k: v[1] for k, v in mu.items()})
 
-    def _update(self, grads: Tensors, state: QuantizedLionState, params: Tensors):
-        lr = self.lr(state.count)
+    def _update(self, grads: Tensors, state: QuantizedLionState, params: Tensors, lr: Optional[torch.Tensor]):
+        neg_lr = -self._lr(state.count, lr)
         new = QuantizedLionState(state.count + 1, {}, {})
         updates = {}
         for k, g in grads.items():
@@ -236,7 +237,7 @@ class LionQuantized(Optimizer):
             direction = torch.sign(m * self.b1 + g * (1.0 - self.b1))
             new_m = m * self.b2 + g * (1.0 - self.b2)
             step = direction + self.weight_decay * p
-            updates[k] = -lr * (step if small else _jax_order(step))
+            updates[k] = neg_lr * (step if small else _jax_order(step))
             if small:
                 new.mu_q[k], new.mu_scale[k] = new_m, ms
             else:

@@ -18,6 +18,13 @@ count before the update), so the port writes the optax formulas out:
 
 Clipping comes before the optimizer, as in the JAX chain (optimizers.py:663-675).
 Every other optimizer name raises.
+
+A state's ``count`` is a 0-dim int32 tensor on the parameters' device, so a
+step captured as a CUDA graph (``training/train_state.py::jit_train_step``)
+advances it itself; the bias corrections come from it on the device.  The
+train step writes the scheduled learning rate ``step_lr(count)`` into a 0-dim
+f32 buffer before each step and passes it as ``update(..., lr=)``; without
+the buffer the schedule is read here from the count (a host sync).
 """
 
 from __future__ import annotations
@@ -73,10 +80,17 @@ def global_norm(tensors: Tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors.values()))
 
 
-def bias_corrections(count: int, b1: float, b2: float, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``1 - b1^count`` and ``1 - b2^count`` in f32, as optax computes them."""
-    step = torch.tensor(count, dtype=torch.float32, device=device)
-    beta = lambda b: torch.tensor(b, dtype=torch.float32, device=device)  # noqa: E731
+def zero_count(params: Tensors) -> torch.Tensor:
+    """A state's count at init: 0 as a 0-dim int32 tensor on the parameters' device."""
+    return torch.zeros((), dtype=torch.int32, device=next(iter(params.values())).device if params else None)
+
+
+def bias_corrections(count: torch.Tensor, b1: float, b2: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``1 - b1^count`` and ``1 - b2^count`` in f32, as optax computes them.
+    Every value is made on the count's device (no host-to-device copy), so a
+    captured step can run it."""
+    step = count.to(torch.float32)
+    beta = lambda b: torch.full((), b, dtype=torch.float32, device=count.device)  # noqa: E731
     return 1 - beta(b1) ** step, 1 - beta(b2) ** step
 
 
@@ -92,25 +106,44 @@ class Optimizer:
     def lr(self, count: int) -> float:
         return self.learning_rate(count) if callable(self.learning_rate) else self.learning_rate
 
+    def step_lr(self, count: int) -> float:
+        """The learning rate of the update from a state at ``count``: the
+        schedule at the count before the update, as optax reads it."""
+        return self.lr(count)
+
+    def _lr(self, count: torch.Tensor, lr: Optional[torch.Tensor]):
+        """The learning rate ``_update`` applies: the constant, else ``lr``
+        (the caller's f32 buffer holding ``step_lr(count)``), else the
+        schedule read here from the count, as an f32 tensor (a schedule's
+        value is an f32 array in JAX)."""
+        if not callable(self.learning_rate):
+            return self.learning_rate
+        if lr is not None:
+            return lr
+        return torch.full((), self.step_lr(int(count)), dtype=torch.float32, device=count.device)
+
     def init(self, params: Tensors):
         raise NotImplementedError
 
-    def _update(self, grads: Tensors, state, params: Tensors):
+    def _update(self, grads: Tensors, state, params: Tensors, lr: Optional[torch.Tensor]):
         raise NotImplementedError
 
     @torch.no_grad()
-    def update(self, grads: Tensors, state, params: Tensors):
+    def update(self, grads: Tensors, state, params: Tensors, lr: Optional[torch.Tensor] = None):
+        """(updates, new state); ``lr``: a 0-dim f32 tensor holding
+        ``step_lr(count)``, read in place of the schedule (see the module
+        docstring)."""
         grads = {k: g.float() for k, g in grads.items()}
         if self.max_norm and self.max_norm > 0:
             norm = global_norm(grads)
             keep = norm < self.max_norm
             grads = {k: torch.where(keep, g, g / norm * self.max_norm) for k, g in grads.items()}
-        return self._update(grads, state, params)
+        return self._update(grads, state, params, lr)
 
 
 @dataclasses.dataclass
 class AdamWState:
-    count: int
+    count: torch.Tensor
     mu: Tensors
     nu: Tensors
 
@@ -127,29 +160,28 @@ class AdamW(Optimizer):
 
     def init(self, params: Tensors) -> AdamWState:
         return AdamWState(
-            count=0,
+            count=zero_count(params),
             mu={k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
             nu={k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
         )
 
-    def _update(self, grads: Tensors, state: AdamWState, params: Tensors):
+    def _update(self, grads: Tensors, state: AdamWState, params: Tensors, lr: Optional[torch.Tensor]):
         count = state.count + 1
-        dev = next(iter(grads.values())).device if grads else None
-        bc1, bc2 = bias_corrections(count, self.b1, self.b2, dev)
-        lr = self.lr(state.count)
+        bc1, bc2 = bias_corrections(count, self.b1, self.b2)
+        neg_lr = -self._lr(state.count, lr)  # once: a tensor lr would negate per tensor
         mu, nu, updates = {}, {}, {}
         for k, g in grads.items():
             mu[k] = (1 - self.b1) * g + self.b1 * state.mu[k]
             nu[k] = (1 - self.b2) * g.square() + self.b2 * state.nu[k]
             u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
             u = u + self.weight_decay * params[k].float()
-            updates[k] = -lr * u
+            updates[k] = neg_lr * u
         return updates, AdamWState(count=count, mu=mu, nu=nu)
 
 
 @dataclasses.dataclass
 class KahanAdamWState:
-    count: int
+    count: torch.Tensor
     mu: Tensors
     nu: Tensors
     compensation: Tensors
@@ -170,15 +202,15 @@ class KahanAdamW(Optimizer):
 
     def init(self, params: Tensors) -> KahanAdamWState:
         zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}  # noqa: E731
-        return KahanAdamWState(count=0, mu=zeros(), nu=zeros(), compensation=zeros())
+        return KahanAdamWState(count=zero_count(params), mu=zeros(), nu=zeros(), compensation=zeros())
 
-    def _update(self, grads: Tensors, state: KahanAdamWState, params: Tensors):
+    def step_lr(self, count: int) -> float:
+        return self.lr(count + 1)
+
+    def _update(self, grads: Tensors, state: KahanAdamWState, params: Tensors, lr: Optional[torch.Tensor]):
         count = state.count + 1
-        dev = next(iter(grads.values())).device if grads else None
-        bc1, bc2 = bias_corrections(count, self.b1, self.b2, dev)
-        lr = self.lr(count)
-        if callable(self.learning_rate):  # a schedule's value is an f32 array in JAX
-            lr = torch.tensor(lr, dtype=torch.float32, device=dev)
+        bc1, bc2 = bias_corrections(count, self.b1, self.b2)
+        lr = self._lr(state.count, lr)
         mu, nu, comp, updates = {}, {}, {}, {}
         for k, g in grads.items():
             p, m, n = params[k], state.mu[k], state.nu[k]

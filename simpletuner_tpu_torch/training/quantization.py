@@ -200,6 +200,8 @@ class Int8Matmul:
     ``launches`` goes up by one for every ``torch._int_mm`` call and for
     nothing else."""
 
+    name = "int_mm"
+
     def __init__(self) -> None:
         self.launches = 0
 

@@ -23,8 +23,10 @@ from simpletuner_tpu_torch.ops import (
     flash_attention,
     flash_fwd_kernel,
     mha_reference,
+    mha_reference_lse,
     set_context_parallel,
 )
+from simpletuner_tpu_torch.ops.flash_attention import _kernel_head_dim, _pad_head_dim
 
 # f32 on both sides; the Pallas kernel and the port differ only in the order
 # of f32 sums (online softmax over 128-key blocks vs one softmax) -- the same
@@ -145,3 +147,41 @@ def test_backend_is_not_read_from_the_environment(monkeypatch):
     monkeypatch.setenv("SIMPLETUNER_ATTENTION_BACKEND", "xla")
     importlib.reload(attention)
     assert attention.get_attention_backend() == "auto"
+
+
+# ---- head dims the kernels reach zero-padded --------------------------------------------------------
+
+
+@pytest.mark.parametrize("dim,width", [(1, 64), (32, 64), (48, 64), (64, 64), (72, 128), (80, 128), (96, 128),
+                                       (112, 128), (128, 128)])
+def test_kernel_head_dim_pads_to_the_next_kernel_width(dim, width):
+    assert _kernel_head_dim(dim) == width
+    x = torch.ones((1, 1, 4, dim))
+    padded = _pad_head_dim(x)
+    assert padded.shape[-1] == width and (padded[..., dim:] == 0).all() and torch.equal(padded[..., :dim], x)
+    assert (padded is x) == (dim == width)
+
+
+@pytest.mark.parametrize("dim", [129, 160, 256])
+def test_kernel_head_dim_refuses_above_128(dim):
+    with pytest.raises(NotImplementedError, match="256"):
+        _kernel_head_dim(dim)
+
+
+@pytest.mark.parametrize("dim", [72, 96, 112])  # pixart, lumina2, sana
+def test_narrow_head_dims_keep_their_own_scale(dim):
+    q, k, v = _qkv(6, heads=2, sq=200, sk=200, dim=dim)
+    seg = np.zeros((1, 200), np.int32)
+    seg[:, 30:77] = SEGMENT_PAD_ID
+    ref = _jax_flash(q, k, v, seg)  # sm_scale = dim ** -0.5 in the Pallas wrapper
+    np.testing.assert_allclose(_port(flash_attention, q, k, v, seg, seg).numpy(), ref, atol=TOL, rtol=TOL)
+    # what the kernel wrappers compute: operands zero-padded to the kernel's
+    # head dim, scaled by the unpadded dim; the padded columns come out 0
+    padded = [_pad_head_dim(torch.from_numpy(x)) for x in (q, k, v)]
+    seg_t = torch.from_numpy(seg)
+    out, _ = mha_reference_lse(*padded, seg_t, seg_t, sm_scale=dim ** -0.5)
+    np.testing.assert_allclose(out[..., :dim].numpy(), ref, atol=TOL, rtol=TOL)
+    assert (out[..., dim:] == 0).all()
+    # the padded width's own scale would change every row that attends
+    wrong, _ = mha_reference_lse(*padded, seg_t, seg_t)
+    assert np.abs(wrong[..., :dim].numpy() - ref).max() > 100 * TOL

@@ -28,6 +28,7 @@ from simpletuner_tpu_torch.ops import (
     mha_backward_reference,
     mha_reference,
 )
+from simpletuner_tpu_torch.ops.flash_attention import _pad_head_dim
 
 # f32 on both sides; only the order of f32 sums differs (the Pallas kernels
 # accumulate over 128-row blocks, the plain version in one einsum)
@@ -157,3 +158,29 @@ def test_cpu_backward_never_reaches_the_kernels():
     assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
     assert (flash_bwd_dq_kernel.launches, flash_bwd_dkv_kernel.launches) == before
     assert flash_bwd_dq_kernel.name == "flash_bwd_dq" and flash_bwd_dkv_kernel.name == "flash_bwd_dkv"
+
+
+@pytest.mark.parametrize("dim", [72, 96, 112])  # pixart, lumina2, sana
+def test_padded_head_dim_backward_matches_pallas_kernels(dim):
+    # the kernel wrappers zero-pad q, k, v and dO to the kernel's head dim and
+    # slice the gradients back; the padded columns' gradients are exactly 0
+    # and the result is the Pallas backward of the unpadded inputs
+    batch, heads, seq = 1, 2, 256
+    q, k, v, do = _inputs(5, batch, heads, seq, seq, dim)
+    seg = _segments("t5_padding", batch, seq)
+    seg_j = jnp.asarray(seg)
+    scale = dim ** -0.5
+    out, lse_lanes = _flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), seg_j, seg_j, scale, 128, 128, True
+    )
+    grads_j = _flash_backward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), seg_j, seg_j, out, lse_lanes, jnp.asarray(do),
+        scale, block_q=128, block_kv=128, interpret=True,
+    )
+    lse = _t(np.asarray(lse_lanes)[:, :, 0].reshape(batch, heads, seq))
+    padded = [_pad_head_dim(_t(x)) for x in (q, k, v, np.asarray(out), do)]
+    assert padded[0].shape[-1] == 128
+    grads = mha_backward_reference(*padded[:3], _t(seg), _t(seg), padded[3], lse, padded[4], scale)
+    for port, ref in zip(grads, grads_j):
+        assert (port[..., dim:] == 0).all()
+        _close(port[..., :dim].numpy(), ref)

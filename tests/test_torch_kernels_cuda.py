@@ -149,9 +149,10 @@ def test_kernel_rejects_unsupported(cuda):
     q, k, v = _qkv(4, 1, 2, 128, 128, 64, cuda)
     with pytest.raises(TypeError):
         flash_attention(q.float(), k.float(), v.float())
-    q96 = torch.zeros((1, 2, 128, 96), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q96, q96, q96)
+    # every head dim up to 128 is taken (zero-padded); 256 is still to port
+    q256 = torch.zeros((1, 2, 128, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="256"):
+        flash_attention(q256, q256, q256)
 
 
 def _check_backward(q, k, v, seg=None, seed=0, kv_seg=None):
@@ -254,6 +255,67 @@ def test_backward_through_the_strided_dispatcher(cuda):
         assert grad.stride() == q.stride()
         g, r = grad.float(), ref.float()
         assert ((g - r).norm() / r.norm()).item() <= GRAD_REL_L2
+
+
+@pytest.mark.parametrize("dim", [72, 96, 112])  # pixart, lumina2, sana: zero-padded to 128
+@pytest.mark.parametrize("masked", [False, True])
+def test_padded_head_dims_match_plain(cuda, dim, masked):
+    q, k, v = _qkv(16 + dim, 1, 8, 1000, 1000, dim, cuda)
+    seg = _flux_text_pad_segments(1, 512, 77, 1000 - 512, cuda) if masked else None
+    out, _ = _check(q, k, v, seg, seg)
+    assert out.shape == q.shape
+    dq, dk, dv = _check_backward(q, k, v, seg, seed=dim)
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    if masked:
+        for x in (out, dq, dk, dv):
+            assert (x[:, :, 77:512] == 0).all()
+
+
+def test_graph_replays_are_bitwise_the_eager_steps(cuda):
+    # the int8 flagship step at full width, depth cut to 2 + 4 blocks: four
+    # eager steps, then four replays of the captured step from the same
+    # state and generator state give the same losses, norms and adapters
+    import dataclasses
+
+    from simpletuner_tpu_torch.bench import build_run, flagship_config, profile_step
+    from simpletuner_tpu_torch.models.flux import FluxConfig
+    from simpletuner_tpu_torch.training.quantization import int8_matmul
+    from simpletuner_tpu_torch.training.train_state import jit_train_step, state_tensors
+
+    arch = dataclasses.replace(FluxConfig(), depth_double=2, depth_single=4)
+    run = build_run(flagship_config("attn", "int8", "full"), arch, seed=3)
+    with torch.no_grad():
+        saved = [x.clone() for x in state_tensors(run.state)]
+    rng = run.generator.get_state()
+
+    def trajectory(step):
+        state, out = run.state, []
+        for _ in range(4):
+            state, metrics = step(state, run.batch, run.generator)
+            out += [metrics["loss"], metrics["grad_norm"]]
+        return torch.stack(out), torch.cat([p.detach().flatten() for p in state.trainable.values()]).clone()
+
+    eager = trajectory(run.step_fn)
+    with torch.no_grad():
+        for x, value in zip(state_tensors(run.state), saved):
+            x.copy_(value)
+    run.generator.set_state(rng)
+    graphed = jit_train_step(run.step_fn, run.state, run.batch, run.generator)
+    captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
+    assert captured == {"flash_fwd": 6 + 2, "flash_bwd_dq": 6, "flash_bwd_dkv": 6, "int_mm": captured["int_mm"]}
+    assert captured["int_mm"] > 0
+    before = int8_matmul.launches
+    replayed = trajectory(graphed)
+    assert int8_matmul.launches == before  # a replay runs no wrapper
+    assert torch.isfinite(replayed[0]).all()
+    assert torch.equal(replayed[0], eager[0]) and torch.equal(replayed[1], eager[1])
+    # what a replay launches on the card, as the profiler records it
+    recorded = profile_step(lambda: graphed(run.state, run.batch, run.generator))["bucket_launches"]
+    assert {name: recorded[name] for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} == {
+        name: count for name, count in captured.items() if name != "int_mm"}
+    assert recorded["int8_gemm"] == captured["int_mm"]
+    with pytest.raises(ValueError):
+        graphed(run.state, run.batch, torch.Generator(device=cuda))
 
 
 # ---- the quantized base's int8 products (torch._int_mm, not a hand-written kernel) ----------------
