@@ -17,12 +17,17 @@ Phases (each prints one line; any failure exits non-zero with no result line):
 4. render: the port's inference runtime renders one 1024x1024 image with
    full-width Flux.1-dev (19 double + 38 single blocks, hidden 3072, 24x128
    heads, guidance embedding; depth not cut) and the Flux VAE decoder, from
-   seeded random weights and seeded prompt embeds in the text-embed cache,
-   4 Euler steps; counts the flash-kernel launches of that run;
+   seeded random weights, the prompt encoded by phase 15's CLIP-L and
+   T5-XXL through Validation.precompute_embeds, 4 Euler steps, unmasked as
+   the JAX render is; counts the flash-kernel launches of that run;
 5. parity: one full-width denoise call through the kernel against the same
-   call through mha_reference, on the same (AdaLN-perturbed) weights;
-6. profile: one full-width denoise call under torch.profiler, device time by
-   kernel bucket and the device's idle share of the call;
+   call through mha_reference, on the same (AdaLN-perturbed) weights, with
+   the T5 padding mask collated as the trainer collates it; the denoise call
+   timed masked and unmasked (the render's step before and after the repair
+   of its mask);
+6. profile: one full-width denoise call, unmasked as the render runs it,
+   under torch.profiler, device time by kernel bucket and the device's idle
+   share of the call;
 7. backward kernels: dq, dk and dv from the dq/dkv kernels against the plain
    backward on the card, bf16, at the cases of phase 3 and a cross-attention
    case (200 queries against 512 keys with two 128-key blocks of pad: the dq
@@ -58,8 +63,31 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    card (76 / 57 / 57 flash, 1,069 torch._int_mm), which must equal what the
    capture recorded (a replay runs no wrapper, so the counters count the
    warm-up steps and the capture, and not the replays);
-13. full-depth gradient parity: phase 9 at 19 + 38 blocks on a bf16 base.
+13. full-depth gradient parity: phase 9 at 19 + 38 blocks on a bf16 base;
+14. weight import (runs after phase 3): seeded bf16 Flux weights at full width
+   (hidden 3072, 24x128 heads) written with the port's safetensors writer,
+   at a cut depth (1 double + 2 single blocks) in the BFL layout (one file)
+   and the diffusers layout (two shards), and at full depth (19 + 38 blocks,
+   11.9B parameters, 23.8 GB) as one BFL file; the Flux VAE (diffusers
+   layout, with the quant convs) and CLIP-L at full size; each loaded onto
+   the card, both cut layouts bitwise equal, and the full-depth module
+   bitwise equal to them on the tensors they share; load seconds and GB/s
+   (the files are read back from the page cache right after being written),
+   peak host and device memory; a rank-16 LoRA adapter saved and loaded back
+   bitwise;
+15. text encoders: CLIP-L (phase 14's file) and T5-XXL at full size (24
+   layers, d_model 4096, 64x64 heads, d_ff 10240, gated-gelu; seeded, bf16)
+   encode 16 prompts at T5 length 512 through Flux.encode_text and
+   TextEmbeddingCache.compute_embeddings_for_prompts; the payload read back
+   bitwise what was encoded; the bf16 T5 output against the f32 module;
+   prompts/s and MFU;
+16. VAE cache: the Flux VAE encoder (phase 14's file, bf16) through
+   VAECache.process_buckets over 24 JPEGs in the three Flux buckets
+   (1024x1024, 1152x896, 896x1152), batch 8, with the trainer's encode
+   function; every image cached; bf16 latents against the f32 encoder;
+   images/s end to end and on the device, MFU, peak GiB.
 
+Phases 14-16 print before phase 4, which renders from phase 15's encoders.
 Phases 3 and 7 also run head dims 72, 96 and 112 (pixart, lumina2, sana),
 which the wrappers zero-pad to 128, masked and unmasked.  Then a JSON line
 with the kernels (launches: the profiler's count in phase 12's profiled
@@ -75,6 +103,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -108,6 +137,18 @@ PARITY_DOUBLE, PARITY_SINGLE = 2, 4
 GRAPH_CHECK_STEPS, GRAPH_TIMED_STEPS = 5, 20
 # H100 SXM: dense bf16 tensor-core peak and device-memory rate (bounds only)
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+# phase 14: the cut depth of the two-layout Flux checkpoints (full width); the
+# full depth is written and imported once more, in the BFL layout
+IMPORT_DOUBLE, IMPORT_SINGLE = 1, 2
+# phase 15: bf16 T5-XXL against the f32 module on the same weights and
+# tokens: every product and the residual stream round to bf16 (2^-8) in each
+# of 24 layers, so the outputs agree to about a percent in relative L2
+T5_BF16_REL_L2 = 5e-2
+TEXT_PROMPTS = 16
+# phase 16: bf16 VAE encoder against the f32 one: about 20 bf16-rounded
+# convolutions deep, the latents agree to about a percent in relative L2
+VAE_BF16_REL_L2 = 5e-2
+VAE_BATCH, VAE_IMAGES = 8, 24  # one batch of 8 in each of the three Flux buckets
 # phase 10: the Flux linears' (in, out): attention q/k/v and proj, single-block
 # linear1 (q, k, v, mlp) and linear2, the MLP in and out, double-block AdaLN
 INT8_SHAPES = ((3072, 3072), (3072, 21504), (15360, 3072), (3072, 12288), (12288, 3072), (3072, 18432))
@@ -132,18 +173,9 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    import torch
+    from simpletuner_tpu_torch.bench_cache import cuda_ms as timed
 
-    for _ in range(warmup):
-        fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    return timed(fn, iters, warmup)
 
 
 def rel_l2(a, b) -> float:
@@ -748,6 +780,374 @@ def int8_cases() -> None:
     phase("10 int8 products", rows=INT8_ROWS, tol={"int_mm": "exact", "dot_rel": DOT_REL}, shapes=shapes)
 
 
+def _rss_gib() -> dict:
+    """The process's resident host memory now and its peak so far, GiB."""
+    import resource
+
+    with open("/proc/self/status") as handle:
+        now = next(int(line.split()[1]) for line in handle if line.startswith("VmRSS:"))
+    return {"now": now / 2**20, "peak": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20}
+
+
+def _filesystem(path: str) -> str:
+    """The type of the filesystem that holds ``path`` (from /proc/mounts)."""
+    path, best, kind = os.path.realpath(path), "", "unknown"
+    with open("/proc/mounts") as handle:
+        for line in handle:
+            fields = line.split()
+            if len(fields) > 2 and (path + "/").startswith(fields[1].rstrip("/") + "/") and len(fields[1]) > len(best):
+                best, kind = fields[1], fields[2]
+    return kind
+
+
+def weight_import(work: str) -> dict:
+    """Phase 14: write seeded checkpoints with the port's writer, load each
+    onto the card, compare; returns the checkpoint paths for phases 15-16."""
+    import dataclasses
+
+    import torch
+
+    from simpletuner_tpu_torch.bench import flagship_config
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import (
+        flux_bfl_from_diffusers, flux_checkpoint_shapes, vae_checkpoint_shapes,
+    )
+    from simpletuner_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel, load_clip_text
+    from simpletuner_tpu_torch.models.flux import Flux, FluxConfig
+    from simpletuner_tpu_torch.models.layers import init_adapters, lora_parameters
+    from simpletuner_tpu_torch.models.text_encoders import init_encoder
+    from simpletuner_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from simpletuner_tpu_torch.models.vae_import import load_vae_params
+    from simpletuner_tpu_torch.models.weight_bridge import load_flax_params
+    from simpletuner_tpu_torch.models.weight_import import load_transformer_params, save_safetensors
+    from simpletuner_tpu_torch.training.lora import load_lora_safetensors, save_lora_safetensors
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    start = time.perf_counter()
+    rss_before = _rss_gib()
+
+    def seeded(shapes):
+        """bf16 tensors on the card: N(0, 1/fan_in) matrices and convs, 1 + N(0, 0.1) norm scales, N(0, 0.01) biases."""
+        out = {}
+        for name, shape in shapes.items():
+            draw = torch.randn(shape, generator=gen, device=dev)
+            if len(shape) > 1:
+                draw = draw / math.sqrt(math.prod(shape[1:]))
+            elif name.endswith(".weight"):  # the 1-D weights are norm scales
+                draw = 1.0 + 0.1 * draw
+            else:
+                draw = 0.01 * draw
+            out[name] = draw.to(torch.bfloat16)
+        return out
+
+    def in_cut(name):
+        for prefix, depth in (("transformer_blocks.", IMPORT_DOUBLE), ("single_transformer_blocks.", IMPORT_SINGLE)):
+            if name.startswith(prefix):
+                return int(name.split(".")[1]) < depth
+        return True
+
+    # Flux at full width and depth (diffusers names), drawn on the card; the
+    # cut depth is its first blocks, so the two imports share those tensors
+    full_arch = FluxConfig()
+    weights = seeded(flux_checkpoint_shapes(full_arch))
+    full_bytes = sum(t.numel() * t.element_size() for t in weights.values())
+    free = shutil.disk_usage(work).free
+    if free < full_bytes + 4e9:
+        raise RuntimeError(f"weight import: {free / 1e9:.1f} GB free under {work}, the checkpoints need "
+                           f"{(full_bytes + 4e9) / 1e9:.1f} GB")
+    cut = {k: v for k, v in weights.items() if in_cut(k)}
+    arch = dataclasses.replace(full_arch, depth_double=IMPORT_DOUBLE, depth_single=IMPORT_SINGLE)
+    flux_dir = os.path.join(work, "flux")
+    os.makedirs(os.path.join(flux_dir, "transformer"))
+    names = sorted(cut)
+    t0 = time.perf_counter()
+    for shard, part in enumerate((names[: len(names) // 2], names[len(names) // 2:])):
+        save_safetensors({k: cut[k] for k in part}, os.path.join(
+            flux_dir, "transformer", f"diffusion_pytorch_model-0000{shard + 1}-of-00002.safetensors"))
+    bfl_path = os.path.join(work, "flux1-dev-cut.safetensors")
+    save_safetensors(flux_bfl_from_diffusers(cut), bfl_path)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in cut.values())
+    del cut
+
+    model = Flux(config_namespace(flagship_config("attn", "none", "off")), arch=arch)
+    loads, modules = {}, {}
+    for layout, path in (("bfl", bfl_path), ("diffusers", flux_dir)):
+        with torch.device(dev):
+            module = init_adapters(model.create_module(), gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        load_transformer_params(model, module, path)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        loads[layout] = {"s": seconds, "gb_per_s": nbytes / seconds / 1e9,
+                         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+        modules[layout] = module
+    bfl_state, diffusers_state = modules["bfl"].state_dict(), modules["diffusers"].state_dict()
+    base = [k for k in bfl_state if k.rsplit(".", 1)[-1] not in ("lora_A", "lora_B")]
+    unequal = [k for k in base if not torch.equal(bfl_state[k], diffusers_state[k])]
+    if unequal or not base:
+        raise RuntimeError(f"weight import: the BFL and diffusers modules differ at {unequal[:8]}")
+
+    # a rank-16 adapter, saved by the port and loaded back into the other module
+    with torch.no_grad():
+        for param in lora_parameters(modules["bfl"]).values():
+            param.normal_(0.0, 0.01, generator=gen)
+    lora_path = os.path.join(work, "pytorch_lora_weights.safetensors")
+    save_lora_safetensors(model, modules["bfl"], lora_path)
+    missing = load_lora_safetensors(model, lora_path, modules["diffusers"])
+    saved, loaded = lora_parameters(modules["bfl"]), lora_parameters(modules["diffusers"])
+    lora_equal = not missing and all(torch.equal(saved[k], loaded[k]) for k in saved)
+    if not lora_equal:
+        raise RuntimeError(f"LoRA round trip: missing {missing[:4]}, or tensors differ")
+    del modules, module, diffusers_state
+
+    # the full depth as one BFL file (11.9B bf16), imported once; the file was
+    # just written, so its pages are read from the host's page cache
+    full_path = os.path.join(work, "flux1-dev.safetensors")
+    t0 = time.perf_counter()
+    save_safetensors(flux_bfl_from_diffusers(weights), full_path)
+    full_write_s = time.perf_counter() - t0
+    del weights
+    torch.cuda.empty_cache()
+    full_model = Flux(config_namespace(flagship_config("attn", "none", "off")), arch=full_arch)
+    with torch.device(dev):
+        full_module = init_adapters(full_model.create_module(), gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss_full_before = _rss_gib()
+    t0 = time.perf_counter()
+    load_transformer_params(full_model, full_module, full_path)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    full_state = full_module.state_dict()
+    full_unequal = [k for k in base if not torch.equal(full_state[k], bfl_state[k])]
+    if full_unequal:
+        raise RuntimeError(f"weight import: the full-depth module differs from the cut one at {full_unequal[:8]}")
+    full = {"blocks": [full_arch.depth_double, full_arch.depth_single], "params": full_bytes // 2,
+            "gb": full_bytes / 1e9, "file_gb": os.path.getsize(full_path) / 1e9, "write_s": full_write_s,
+            "load_s": full_s, "gb_per_s": full_bytes / full_s / 1e9,
+            "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "host_rss_gib": {"before": rss_full_before, "after": _rss_gib()},
+            "cut_tensors_bitwise": len(base), "work_fs": _filesystem(work), "free_gb_before": free / 1e9}
+    os.remove(full_path)
+    del full_module, full_state, bfl_state
+    torch.cuda.empty_cache()
+
+    # the Flux VAE (diffusers layout, modern attention) and CLIP-L, full size
+    with torch.device(dev):
+        vae = AutoencoderKL(VAEConfig.flux(), torch.bfloat16)
+    vae_dir = os.path.join(flux_dir, "vae")
+    os.makedirs(vae_dir)
+    vae_weights = seeded(vae_checkpoint_shapes(vae))
+    save_safetensors(vae_weights, os.path.join(vae_dir, "diffusion_pytorch_model.safetensors"))
+    t0 = time.perf_counter()
+    load_flax_params(vae, load_vae_params(vae, flux_dir)["params"])
+    torch.cuda.synchronize()
+    vae_s = time.perf_counter() - t0
+    file_tensors = list(vae_weights.values())
+    vae_equal = all(torch.equal(t, f.reshape(t.shape).to(dev)) for t, f in zip(vae.state_dict().values(), file_tensors))
+    clip_dir = os.path.join(flux_dir, "text_encoder")
+    os.makedirs(clip_dir)
+    with torch.device(dev):
+        clip = init_encoder(CLIPTextModel(CLIPTextConfig.clip_l(), torch.bfloat16), gen)
+    save_safetensors(clip.state_dict(), os.path.join(clip_dir, "model.safetensors"))
+    with open(os.path.join(clip_dir, "config.json"), "w") as handle:
+        json.dump({**dataclasses.asdict(CLIPTextConfig.clip_l()), "architectures": ["CLIPTextModel"]}, handle)
+    t0 = time.perf_counter()
+    loaded_clip = load_clip_text(clip_dir, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    clip_s = time.perf_counter() - t0
+    clip_equal = all(torch.equal(a, b) for a, b in zip(clip.state_dict().values(), loaded_clip.state_dict().values()))
+    if not (vae_equal and clip_equal):
+        raise RuntimeError(f"weight import: VAE equal {vae_equal}, CLIP-L equal {clip_equal}")
+    phase("14 weight import", flux_blocks=[IMPORT_DOUBLE, IMPORT_SINGLE], hidden=arch.hidden_size,
+          flux_params=nbytes // 2, flux_gb=nbytes / 1e9, write_s=write_s, load=loads, full_depth=full,
+          bfl_equals_diffusers_bitwise=True, base_tensors=len(base), lora_round_trip_bitwise=True,
+          lora_tensors=len(saved), vae_params=sum(p.numel() for p in vae.parameters()), vae_load_s=vae_s,
+          vae_bitwise=True, clip_params=sum(p.numel() for p in clip.parameters()), clip_load_s=clip_s,
+          clip_bitwise=True, host_rss_gib={"before": rss_before, "after": _rss_gib()},
+          seconds=time.perf_counter() - start)
+    del vae, clip, loaded_clip
+    torch.cuda.empty_cache()
+    return {"work": work, "flux_dir": flux_dir, "clip_dir": clip_dir}
+
+
+def text_encoders(paths: dict) -> list:
+    """Phase 15: CLIP-L and T5-XXL through Flux.encode_text and the text
+    cache; returns the encoders (bf16, on the card) for phase 4."""
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for, t5_encoder_flops
+    from simpletuner_tpu_torch.caching.text_embeds import TextEmbeddingCache
+    from simpletuner_tpu_torch.data.backends.local import LocalDataBackend
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.clip import load_clip_text
+    from simpletuner_tpu_torch.models.flux import Flux
+    from simpletuner_tpu_torch.models.t5 import T5Config, T5EncoderModel
+    from simpletuner_tpu_torch.models.text_encoders import TextEncoder, _TinyTokenizer, init_encoder
+
+    dev = torch.device("cuda")
+    start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    clip = load_clip_text(paths["clip_dir"], dtype=torch.bfloat16, device=dev)
+    with torch.device(dev):
+        t5_f32 = init_encoder(T5EncoderModel(T5Config.xxl(), torch.float32), gen).eval()
+        t5 = T5EncoderModel(T5Config.xxl(), torch.bfloat16).eval()
+    t5.load_state_dict(t5_f32.state_dict())
+    specs = Flux.TEXT_ENCODER_CONFIGURATION
+    encoders = [TextEncoder(specs[0], clip, _TinyTokenizer(specs[0].max_length)),
+                TextEncoder(specs[1], t5, _TinyTokenizer(specs[1].max_length))]
+    model = Flux(config_namespace({"model_family": "flux", "model_flavour": "dev"}))
+    model.attach_text_encoders(encoders)
+    prompts = prompts_for(TEXT_PROMPTS)
+    model.encode_text(prompts[:2])  # warm-up
+    encoded = {}
+
+    def encode_fn(batch):
+        out = model.encode_text(batch)
+        encoded.update(zip(batch, out))
+        return out
+
+    cache = TextEmbeddingCache("phase15", LocalDataBackend("phase15"), os.path.join(paths["work"], "text"),
+                               "flux", encode_fn=encode_fn, batch_size=TEXT_PROMPTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache.compute_embeddings_for_prompts(prompts)
+    e2e_s = time.perf_counter() - t0
+    mismatched = []
+    for prompt in prompts:
+        back, sent = cache.load(prompt), encoded[prompt]
+        if sorted(back) != sorted(sent) or not all(back[k].dtype == sent[k].dtype and np.array_equal(back[k], sent[k])
+                                                   for k in sent):
+            mismatched.append(prompt)
+    payload = encoded[prompts[0]]
+    shapes = {k: list(v.shape) for k, v in payload.items()}
+    if mismatched or shapes != {"t5_embeds": [512, 4096], "pooled_embeds": [768], "attention_mask": [512]} \
+            or not all(np.isfinite(encoded[p]["t5_embeds"]).all() for p in prompts):
+        raise RuntimeError(f"text cache: {len(mismatched)} payloads differ after the read-back, shapes {shapes}")
+
+    tokens = encoders[1].tokenize(prompts)
+    ids = torch.from_numpy(np.asarray(tokens["input_ids"])).to(dev)
+    mask = torch.from_numpy(np.asarray(tokens["attention_mask"])).to(dev)
+    clip_tokens = encoders[0].tokenize(prompts)
+    clip_ids = torch.from_numpy(np.asarray(clip_tokens["input_ids"])).to(dev)
+    clip_mask = torch.from_numpy(np.asarray(clip_tokens["attention_mask"])).to(dev)
+    with torch.no_grad():
+        bf16_out = t5(ids, mask)["last_hidden_state"].float()
+        f32_out = t5_f32(ids, mask)["last_hidden_state"]
+        t5_ms = cuda_ms(lambda: t5(ids, mask), 5)
+        clip_ms = cuda_ms(lambda: clip(clip_ids, clip_mask), 5)
+    err = rel_l2(bf16_out, f32_out)
+    valid = mask.bool()
+    err_valid = rel_l2(bf16_out[valid], f32_out[valid])
+    if not (torch.isfinite(bf16_out).all() and err <= T5_BF16_REL_L2):
+        raise RuntimeError(f"T5-XXL bf16 against f32: rel L2 {err} (<= {T5_BF16_REL_L2})")
+    n_t5 = sum(p.numel() for p in t5.parameters())
+    n_clip = sum(p.numel() for p in clip.parameters())
+    flops = t5_encoder_flops(n_t5, specs[1].max_length) + t5_encoder_flops(n_clip, specs[0].max_length)
+    device_rate = TEXT_PROMPTS / ((t5_ms + clip_ms) / 1e3)
+    phase("15 text encoders", prompts=TEXT_PROMPTS, t5_len=specs[1].max_length, clip_len=specs[0].max_length,
+          t5_params=n_t5, clip_params=n_clip, valid_tokens=int(valid.sum()), payload_shapes=shapes,
+          readback_bitwise=True, e2e_s=e2e_s, e2e_prompts_per_s=TEXT_PROMPTS / e2e_s,
+          e2e_mfu=TEXT_PROMPTS / e2e_s * flops / PEAK_BF16_FLOPS, t5_ms_per_batch=t5_ms, clip_ms_per_batch=clip_ms,
+          device_prompts_per_s=device_rate, device_mfu=device_rate * flops / PEAK_BF16_FLOPS,
+          t5_bf16_vs_f32_rel_l2=err, t5_bf16_vs_f32_rel_l2_valid_tokens=err_valid, bound=T5_BF16_REL_L2,
+          peak_gib=torch.cuda.max_memory_allocated() / 2**30, seconds=time.perf_counter() - start)
+    del t5_f32, f32_out, bf16_out
+    torch.cuda.empty_cache()
+    return encoders
+
+
+def vae_cache(paths: dict) -> None:
+    """Phase 16: the Flux VAE encoder through VAECache.process_buckets."""
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import vae_encoder_flops, write_images
+    from simpletuner_tpu_torch.caching.vae_cache import VAECache
+    from simpletuner_tpu_torch.data.backends.local import LocalDataBackend
+    from simpletuner_tpu_torch.data.buckets import BucketConfig, target_size_for_aspect
+    from simpletuner_tpu_torch.data.metadata import MetadataBackend
+    from simpletuner_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from simpletuner_tpu_torch.models.vae_import import load_vae_params
+    from simpletuner_tpu_torch.models.weight_bridge import load_flax_params
+    from simpletuner_tpu_torch.training.trainer import vae_encode_fn
+
+    dev = torch.device("cuda")
+    start = time.perf_counter()
+    root = os.path.join(paths["work"], "vae_cache")
+    data_dir = os.path.join(root, "data")
+    sizes = ((1024, 1024), (1152, 896), (896, 1152))
+    write_images(data_dir, VAE_IMAGES, sizes=sizes, seed=16)
+    cfg = VAEConfig.flux()
+    vaes = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        with torch.device(dev):
+            vaes[dtype] = AutoencoderKL(cfg, dtype).eval()
+        load_flax_params(vaes[dtype], load_vae_params(vaes[dtype], paths["flux_dir"])["params"])
+    backend = LocalDataBackend("phase16", instance_data_dir=data_dir)
+    buckets = BucketConfig(resolution=1024, resolution_type="pixel_area", crop=False)
+    metadata = MetadataBackend("phase16", backend, buckets, instance_data_dir=data_dir,
+                               cache_file=os.path.join(root, "buckets.json"),
+                               metadata_file=os.path.join(root, "meta.json"))
+    metadata.discover()
+    targets = {key: target_size_for_aspect(float(key), buckets) for key in metadata.aspect_ratio_bucket_indices}
+    if sorted(targets.values()) != sorted(sizes):
+        raise RuntimeError(f"VAE cache: buckets {targets}, expected the sizes {sizes}")
+    encode = vae_encode_fn(vaes[torch.bfloat16], dev)
+    cache = VAECache("phase16", backend, metadata, os.path.join(root, "cache"), encode_fn=encode,
+                     bucket_config=buckets, instance_data_dir=data_dir, batch_size=VAE_BATCH, transfer_dtype="uint8")
+    for w, h in targets.values():  # one warm-up batch per bucket shape
+        encode(np.zeros((VAE_BATCH, h, w, 3), np.uint8), VAE_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done = cache.process_buckets()
+    e2e_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if done != VAE_IMAGES:
+        raise RuntimeError(f"VAE cache: {done} of {VAE_IMAGES} images cached")
+    files = sorted(p for paths_ in metadata.aspect_ratio_bucket_indices.values() for p in paths_)
+    shapes = {}
+    for path in files:
+        latent = cache.load(path)
+        w, h = targets[metadata.image_metadata[path]["bucket"]]
+        if latent.shape != (h // 8, w // 8, 16) or not np.isfinite(latent).all():
+            raise RuntimeError(f"VAE cache: {path} holds latents of shape {latent.shape}")
+        shapes[f"{w}x{h}"] = list(latent.shape)
+    # bf16 latents against the f32 encoder, two images of the square bucket
+    square = [p for p in files if metadata.image_metadata[p]["bucket"] == "1.0"][:2]
+    pixels = np.stack([cache._prepare_one(p)[1] for p in square])
+    with torch.no_grad():
+        ref = vae_encode_fn(vaes[torch.float32], dev)(pixels, len(square))
+    got = torch.from_numpy(np.stack([cache.load(p) for p in square])).to(dev)
+    err = rel_l2(got, ref)
+    if not err <= VAE_BF16_REL_L2:
+        raise RuntimeError(f"VAE cache: bf16 latents against the f32 encoder, rel L2 {err} (<= {VAE_BF16_REL_L2})")
+    batch = torch.from_numpy(np.random.default_rng(16).integers(0, 256, (VAE_BATCH, 1024, 1024, 3),
+                                                               dtype=np.uint8)).to(dev)
+    vae = vaes[torch.bfloat16]
+    with torch.no_grad():
+        device_ms = cuda_ms(lambda: vae.encode(batch.to(torch.float32) / 127.5 - 1.0), 3)
+    flops = {f"{w}x{h}": vae_encoder_flops(h, w, cfg) for w, h in sizes}
+    mean_flops = sum(flops.values()) / len(flops)
+    device_rate = VAE_BATCH / (device_ms / 1e3)
+    phase("16 vae cache", images=done, batch=VAE_BATCH, buckets={f"{w}x{h}": len(metadata.aspect_ratio_bucket_indices[k])
+          for k, (w, h) in targets.items()}, latent_shapes=shapes, route="process_buckets (PIL decode)",
+          e2e_s=e2e_s, e2e_images_per_s=done / e2e_s, e2e_mfu=done / e2e_s * mean_flops / PEAK_BF16_FLOPS,
+          device_ms_per_batch_1024=device_ms, device_images_per_s=device_rate,
+          device_mfu=device_rate * flops["1024x1024"] / PEAK_BF16_FLOPS,
+          encode_tflop_per_image=flops, bf16_vs_f32_rel_l2=err, bound=VAE_BF16_REL_L2, peak_gib=peak,
+          seconds=time.perf_counter() - start)
+    del vaes, vae, batch
+    torch.cuda.empty_cache()
+
+
 def profile_denoise(denoise, noise, sigma) -> None:
     """Phase 6: one denoise call under torch.profiler, device time by bucket."""
     import torch
@@ -817,16 +1217,11 @@ def main() -> int:
     fwd_entry = kernel_cases()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        import numpy as np
+        checkpoints = weight_import(work)
+        encoders = text_encoders(checkpoints)
+        vae_cache(checkpoints)
 
-        rng = np.random.default_rng(0)
         prompt = "a lighthouse on a basalt cliff at dusk, volumetric light"
-        embeds = {
-            "t5_embeds": rng.standard_normal((TXT_LEN, 4096), dtype=np.float32),
-            "pooled_embeds": rng.standard_normal(768, dtype=np.float32),
-            "attention_mask": (np.arange(TXT_LEN) < TXT_VALID).astype(np.int64),
-        }
-        text_dir = os.path.join(work, "text")
         config_path = os.path.join(work, "config.json")
         with open(config_path, "w") as handle:
             json.dump({
@@ -835,15 +1230,13 @@ def main() -> int:
                 "validation_resolution": RESOLUTION, "validation_seed": 42, "seed": 42,
                 "validation_guidance_real": 3.5, "flow_schedule_auto_shift": True,
                 "flux_attention_masked_training": True,
-                "data_backend_config": [{"id": "embeds", "dataset_type": "text_embeds", "type": "local",
-                                         "default": True, "cache_dir": text_dir}],
             }, handle)
 
         start = time.perf_counter()
         runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "out"))
         torch.cuda.synchronize()
         init_s = time.perf_counter() - start
-        runtime.text_cache.save(prompt, embeds)  # the cache the runtime renders from
+        runtime.model.attach_text_encoders(encoders)  # phase 15's full-size CLIP-L and T5-XXL
         module, model = runtime.module, runtime.model
         params = sum(p.numel() for p in module.parameters())
         cfg = model.arch
@@ -906,25 +1299,33 @@ def main() -> int:
         dev = torch.device("cuda")
         latent = RESOLUTION // 8
         batch = {"latents": torch.zeros((1, latent, latent, model.latent_channels), device=dev)}
+        embeds = model.encode_text([prompt])[0]
         for key, value in model.collate_text_embeds([embeds]).items():
             batch[key] = torch.as_tensor(value, device=dev)
         cond = model.inference_conditioning(batch)
         noise = torch.randn((1, latent, latent, model.latent_channels), generator=gen, device=dev)
         sigma = torch.tensor(0.7)
+        unmasked_cond = {k: v for k, v in cond.items() if k != "t5_masks"}
         with torch.no_grad():
             kernel_v = model.denoise_fn(module, cond)(noise, sigma)
-            unmasked_v = model.denoise_fn(module, {k: v for k, v in cond.items() if k != "t5_masks"})(noise, sigma)
+            unmasked_v = model.denoise_fn(module, unmasked_cond)(noise, sigma)
             set_attention_backend("xla")
             try:
                 plain_v = model.denoise_fn(module, cond)(noise, sigma)
             finally:
                 set_attention_backend("auto")
+            step_ms = {}
+            for label in ("masked", "unmasked", "unmasked", "masked"):  # in turns
+                fn = model.denoise_fn(module, cond if label == "masked" else unmasked_cond)
+                step_ms.setdefault(label, []).append(cuda_ms(lambda: fn(noise, sigma), 3, warmup=1))
         err, mask_effect = rel_l2(kernel_v, plain_v), rel_l2(unmasked_v, plain_v)
         if not (torch.isfinite(kernel_v).all() and err <= PARITY_REL_L2 and mask_effect > 5 * err):
             raise RuntimeError(f"full-width parity: rel L2 {err} (<= {PARITY_REL_L2}), mask effect {mask_effect}")
-        phase("5 parity", rel_l2=err, bound=PARITY_REL_L2, unmasked_rel_l2=mask_effect)
-        profile_denoise(model.denoise_fn(module, cond), noise, sigma)
-        del runtime, module, model
+        phase("5 parity", rel_l2=err, bound=PARITY_REL_L2, unmasked_rel_l2=mask_effect,
+              denoise_ms_masked=step_ms["masked"], denoise_ms_unmasked=step_ms["unmasked"],
+              txt_valid=int(embeds["attention_mask"].sum()))
+        profile_denoise(model.denoise_fn(module, unmasked_cond), noise, sigma)  # as the render runs it
+        del runtime, module, model, encoders
     torch.cuda.empty_cache()
 
     bwd_entries = backward_cases()

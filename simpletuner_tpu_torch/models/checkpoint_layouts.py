@@ -1,0 +1,141 @@
+"""Published checkpoint layouts, for writing seeded checkpoints.
+
+The writing side of ``models/weight_import.py``: the tensor names and torch
+shapes of the files its importers read, so that ``chip_smoke.py`` and the
+tests can write seeded checkpoints with ``weight_import.save_safetensors``
+when no published file is at hand.  Nothing in the library imports this
+module.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import torch
+from torch import nn
+
+
+def flux_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers-layout Flux transformer
+    (``FluxTransformer2DModel``) of ``arch``."""
+    h, hd, mlp = arch.hidden_size, arch.head_dim, int(arch.hidden_size * arch.mlp_ratio)
+    shapes: Dict[str, tuple] = {}
+
+    def linear(name, out_features, in_features):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        shapes[f"{name}.bias"] = (out_features,)
+
+    linear("x_embedder", h, arch.in_channels)
+    linear("context_embedder", h, arch.txt_in_features)
+    embedders = [("timestep_embedder", 256)]
+    if arch.vector_embed:
+        embedders.append(("text_embedder", arch.vec_in_features))
+    if arch.guidance_embed:
+        embedders.append(("guidance_embedder", 256))
+    for name, in_features in embedders:
+        linear(f"time_text_embed.{name}.linear_1", h, in_features)
+        linear(f"time_text_embed.{name}.linear_2", h, h)
+    linear("norm_out.linear", 2 * h, h)
+    linear("proj_out", arch.in_channels, h)
+    for i in range(arch.depth_double):
+        p = f"transformer_blocks.{i}"
+        linear(f"{p}.norm1.linear", 6 * h, h)
+        linear(f"{p}.norm1_context.linear", 6 * h, h)
+        for proj in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj", "to_out.0", "to_add_out"):
+            linear(f"{p}.attn.{proj}", h, h)
+        for norm in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            shapes[f"{p}.attn.{norm}.weight"] = (hd,)
+        for ff in ("ff", "ff_context"):
+            linear(f"{p}.{ff}.net.0.proj", mlp, h)
+            linear(f"{p}.{ff}.net.2", h, mlp)
+    for i in range(arch.depth_single):
+        p = f"single_transformer_blocks.{i}"
+        for proj in ("to_q", "to_k", "to_v"):
+            linear(f"{p}.attn.{proj}", h, h)
+        shapes[f"{p}.attn.norm_q.weight"] = (hd,)
+        shapes[f"{p}.attn.norm_k.weight"] = (hd,)
+        linear(f"{p}.proj_mlp", mlp, h)
+        linear(f"{p}.proj_out", h, h + mlp)
+        linear(f"{p}.norm.linear", 3 * h, h)
+    return shapes
+
+
+def flux_bfl_from_diffusers(weights: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The same Flux weights in the original BFL layout: fused q|k|v (and
+    q|k|v|mlp in the single blocks), (shift, scale) order in the final
+    modulation, BFL names."""
+    w = dict(weights)
+    out: Dict[str, torch.Tensor] = {}
+
+    def take(theirs, ours):
+        for suffix in ("weight", "bias"):
+            if f"{theirs}.{suffix}" in w:
+                out[f"{ours}.{suffix}"] = w.pop(f"{theirs}.{suffix}")
+
+    def fuse(parts, ours):
+        for suffix in ("weight", "bias"):
+            out[f"{ours}.{suffix}"] = torch.cat([w.pop(f"{part}.{suffix}") for part in parts])
+
+    take("x_embedder", "img_in")
+    take("context_embedder", "txt_in")
+    for theirs, ours in (("timestep_embedder", "time_in"), ("text_embedder", "vector_in"),
+                         ("guidance_embedder", "guidance_in")):
+        take(f"time_text_embed.{theirs}.linear_1", f"{ours}.in_layer")
+        take(f"time_text_embed.{theirs}.linear_2", f"{ours}.out_layer")
+    for suffix in ("weight", "bias"):
+        scale, shift = w.pop(f"norm_out.linear.{suffix}").chunk(2)
+        out[f"final_layer.adaLN_modulation.1.{suffix}"] = torch.cat([shift, scale])
+    take("proj_out", "final_layer.linear")
+    blocks = {int(k.split(".")[1]) for k in w if k.startswith("transformer_blocks.")}
+    for i in sorted(blocks):
+        p, q = f"transformer_blocks.{i}", f"double_blocks.{i}"
+        for stream, mod, projs, norms, out_proj, ff in (
+            ("img", "norm1", ("to_q", "to_k", "to_v"), ("norm_q", "norm_k"), "to_out.0", "ff"),
+            ("txt", "norm1_context", ("add_q_proj", "add_k_proj", "add_v_proj"), ("norm_added_q", "norm_added_k"),
+             "to_add_out", "ff_context"),
+        ):
+            take(f"{p}.{mod}.linear", f"{q}.{stream}_mod.lin")
+            fuse([f"{p}.attn.{proj}" for proj in projs], f"{q}.{stream}_attn.qkv")
+            out[f"{q}.{stream}_attn.norm.query_norm.scale"] = w.pop(f"{p}.attn.{norms[0]}.weight")
+            out[f"{q}.{stream}_attn.norm.key_norm.scale"] = w.pop(f"{p}.attn.{norms[1]}.weight")
+            take(f"{p}.attn.{out_proj}", f"{q}.{stream}_attn.proj")
+            take(f"{p}.{ff}.net.0.proj", f"{q}.{stream}_mlp.0")
+            take(f"{p}.{ff}.net.2", f"{q}.{stream}_mlp.2")
+    blocks = {int(k.split(".")[1]) for k in w if k.startswith("single_transformer_blocks.")}
+    for i in sorted(blocks):
+        p, q = f"single_transformer_blocks.{i}", f"single_blocks.{i}"
+        fuse([f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v", f"{p}.proj_mlp"], f"{q}.linear1")
+        take(f"{p}.proj_out", f"{q}.linear2")
+        take(f"{p}.norm.linear", f"{q}.modulation.lin")
+        out[f"{q}.norm.query_norm.scale"] = w.pop(f"{p}.attn.norm_q.weight")
+        out[f"{q}.norm.key_norm.scale"] = w.pop(f"{p}.attn.norm_k.weight")
+    if w:
+        raise KeyError(f"diffusers keys without a BFL counterpart: {sorted(w)[:8]}")
+    return out
+
+
+def vae_checkpoint_shapes(vae: nn.Module, legacy_attention: bool = False) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers ``AutoencoderKL``
+    checkpoint for the port's ``vae`` module, ``quant_conv`` and
+    ``post_quant_conv`` included (FLUX.1-dev's published VAE has neither,
+    and ``load_vae_params`` refuses it); ``legacy_attention`` names the mid
+    attention as the old 1x1 convs (``q``/``k``/``v``/``proj_out``)."""
+    attn = ({"norm": "norm", "to_q": "q", "to_k": "k", "to_v": "v", "to_out": "proj_out"} if legacy_attention else
+            {"norm": "group_norm", "to_q": "to_q", "to_k": "to_k", "to_v": "to_v", "to_out": "to_out.0"})
+    shapes: Dict[str, tuple] = {}
+    for name, tensor in vae.state_dict().items():
+        shape = tuple(tensor.shape)
+        name = re.sub(r"^(encoder|decoder)\.(down|up)_(\d+)_block_(\d+)\.", r"\1.\2_blocks.\3.resnets.\4.", name)
+        name = re.sub(r"^encoder\.down_(\d+)_downsample\.", r"encoder.down_blocks.\1.downsamplers.0.conv.", name)
+        name = re.sub(r"^decoder\.up_(\d+)_upsample\.", r"decoder.up_blocks.\1.upsamplers.0.conv.", name)
+        name = re.sub(r"\.mid_block_(\d)\.", lambda m: f".mid_block.resnets.{int(m.group(1)) - 1}.", name)
+        name = name.replace(".norm_out.", ".conv_norm_out.")
+        match = re.match(r"^(encoder|decoder)\.mid_attn\.(\w+)\.(weight|bias)$", name)
+        if match:
+            part, leaf = match.group(2), match.group(3)
+            if legacy_attention and part != "norm" and leaf == "weight":
+                shape = shape + (1, 1)
+            name = f"{match.group(1)}.mid_block.attentions.0.{attn[part]}.{leaf}"
+        shapes[name] = shape
+    return shapes

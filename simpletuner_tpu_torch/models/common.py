@@ -6,8 +6,10 @@ the JAX methods take a Flax ``variables`` tree, the port takes the
 ``nn.Module`` that holds its weights; where they take a ``jax.random`` key,
 the port takes a ``torch.Generator``.
 
-Ported: the family contract, ``denoise_fn``, the LoRA target predicate
-(``lora_target_modules`` / ``_build_lora_target_predicate``), the quantized
+Ported: the family contract (with ``TextEncoderSpec``,
+``attach_text_encoders`` and the ``encode_text`` hook), ``denoise_fn``, the
+LoRA target predicate (``lora_target_modules`` /
+``_build_lora_target_predicate``), the quantized
 base's settings (``base_precision``, ``quantized_matmul``), and the flow
 branch of ``prepare_batch`` (with the ``override_noise``/``override_sigmas``
 hooks), ``compute_loss`` and ``loss_fn``.  Refused with NotImplementedError:
@@ -18,9 +20,10 @@ prior preservation, REPA/CREPA and TwinFlow.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -44,11 +47,23 @@ _UNPORTED_TRAINING = (
 )
 
 
+@dataclasses.dataclass(frozen=True)
+class TextEncoderSpec:
+    name: str
+    family: str  # clip-l | clip-g | t5-xxl | t5
+    subfolder: Optional[str] = None
+    tokenizer_subfolder: Optional[str] = None
+    max_length: int = 77
+    output: str = "last_hidden_state"  # or "pooled" / "penultimate"
+
+
 class ModelFoundation:
     NAME: str = "base"
+    MODEL_TYPE: str = "transformer"  # transformer | unet
     PREDICTION_TYPE: str = "flow_matching"
     REQUIRES_VAE: bool = True
     DEFAULT_FLAVOUR: Optional[str] = None
+    TEXT_ENCODER_CONFIGURATION: Sequence[TextEncoderSpec] = ()
     # --slider_lora_target: attention-only adapter for concept-slider training
     SLIDER_LORA_TARGET: Sequence[str] = (
         "to_q", "to_k", "to_v", "to_out.0",
@@ -60,6 +75,7 @@ class ModelFoundation:
     def __init__(self, config: Any):
         self.config = config
         self.flavour = getattr(config, "model_flavour", None) or self.DEFAULT_FLAVOUR
+        self.text_encoders: List[Any] = []
 
     @property
     def is_flow(self) -> bool:
@@ -279,3 +295,11 @@ class ModelFoundation:
             return self.model_predict(module, prepared)
 
         return fn
+
+    # ---- host-side text encoding -----------------------------------------------------------
+    def attach_text_encoders(self, encoders: Sequence[Any]) -> None:
+        self.text_encoders = list(encoders)
+
+    def encode_text(self, prompts: Sequence[str]) -> List[Dict[str, Any]]:
+        """Encode prompts -> one embed dict per prompt (the cache payload format)."""
+        raise NotImplementedError

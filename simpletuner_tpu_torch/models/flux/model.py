@@ -5,19 +5,20 @@ embedding, latent channels, VAE factors, the ``flux_lora_target`` presets,
 the module with its adapters, remat settings and int8 product mode,
 ``prepare_batch`` (ids and
 guidance), the conditioning for sampling, the transformer inputs (with
-``--flux_attention_masked_training`` segment ids) and ``model_predict``.
+``--flux_attention_masked_training`` segment ids), ``model_predict`` and
+``encode_text`` (CLIP-L pooled + T5-XXL sequence embeds).
 ControlNet, Kontext, TREAD, FlowMap and QK-clip are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..common import ModelFoundation
+from ..common import ModelFoundation, TextEncoderSpec
 from ..layers import apply_lora_target, set_quantized_matmul
 from .transformer import (
     FluxConfig,
@@ -31,8 +32,14 @@ from .transformer import (
 
 class Flux(ModelFoundation):
     NAME = "flux"
+    MODEL_TYPE = "transformer"
     PREDICTION_TYPE = "flow_matching"
+    LATENT_CHANNEL_COUNT = 16
     DEFAULT_FLAVOUR = "dev"
+    TEXT_ENCODER_CONFIGURATION = (
+        TextEncoderSpec(name="clip-l", family="clip-l", subfolder="text_encoder", max_length=77, output="pooled"),
+        TextEncoderSpec(name="t5-xxl", family="t5-xxl", subfolder="text_encoder_2", max_length=512),
+    )
     SLIDER_LORA_TARGET = ("to_k", "to_q", "to_v", "to_out.0", "to_qkv")
     VAE_SCALING_FACTOR = 0.3611
     VAE_SHIFT_FACTOR = 0.1159
@@ -192,6 +199,22 @@ class Flux(ModelFoundation):
         tokens = module(**self.get_model_inputs(prepared))
         height, width = prepared["noisy_latents"].shape[1:3]
         return unpack_latents(tokens, height, width)
+
+    def encode_text(self, prompts: Sequence[str]) -> List[Dict[str, np.ndarray]]:
+        """CLIP-L pooled + T5 sequence embeds, one dict per prompt (the cache
+        payload): ``t5_embeds`` and ``pooled_embeds`` in f32, and the T5
+        ``attention_mask``."""
+        clip, t5 = self.text_encoders
+        clip_out = clip.encode(prompts)
+        t5_out = t5.encode(prompts)
+        return [
+            {
+                "t5_embeds": np.asarray(t5_out["last_hidden_state"][i], np.float32),
+                "pooled_embeds": np.asarray(clip_out["pooled"][i], np.float32),
+                "attention_mask": np.asarray(t5_out["attention_mask"][i]),
+            }
+            for i in range(len(prompts))
+        ]
 
     def collate_text_embeds(self, embeds: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
         out = {

@@ -102,6 +102,10 @@ class LoRADense(nn.Module):
             lecun_normal_(self.weight, self.in_features, generator)
         if self.bias is not None:
             self.bias.zero_()
+        self.reset_adapter(generator)
+
+    @torch.no_grad()
+    def reset_adapter(self, generator: Optional[torch.Generator] = None) -> None:
         if self.lora_rank > 0:
             # flax variance_scaling(1/3, fan_in, uniform) == U(+-1/sqrt(fan_in))
             bound = 1.0 / math.sqrt(self.in_features)
@@ -183,6 +187,15 @@ def lora_parameters(module: nn.Module) -> Dict[str, nn.Parameter]:
         for name, param in module.named_parameters()
         if name.rsplit(".", 1)[-1] in LORA_LEAVES
     }
+
+
+def init_adapters(module: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Fresh adapters on every ``LoRADense`` (U(+-1/sqrt(in)) A, zero B),
+    base weights untouched: the adapters of an imported base."""
+    for sub in module.modules():
+        if isinstance(sub, LoRADense):
+            sub.reset_adapter(generator)
+    return module
 
 
 def freeze_base(module: nn.Module) -> Dict[str, nn.Parameter]:

@@ -1,18 +1,21 @@
-"""AutoencoderKL image VAE, the decoder half.
+"""AutoencoderKL image VAE (SD/SDXL/Flux), encoder and decoder.
 
 Counterpart of ``simpletuner_tpu/models/vae.py``: GroupNorm+SiLU resnet
-blocks, a mid attention block, nearest x2 upsampling, and ``decode`` with the
-config's scaling/shift.  Public functions keep the JAX NHWC layout; inside,
-tensors are NCHW.  flax ``GroupNorm`` uses eps=1e-6 (torch defaults to 1e-5)
-and computes its statistics in f32 whatever the compute dtype.  The encoder
-is not ported yet.
+blocks, a mid attention block, stride-2 downsampling and nearest x2
+upsampling, ``encode_moments`` (logvar clipped to [-30, 20]), ``encode``
+(the mean, or a sample drawn from a ``torch.Generator``) and ``decode``, each
+with the config's scaling/shift.  Public functions keep the JAX NHWC layout;
+inside, tensors are NCHW.  flax ``GroupNorm`` uses eps=1e-6 (torch defaults
+to 1e-5) and computes its statistics in f32 whatever the compute dtype.  The
+downsample conv pads only the bottom and right edge by one (flax padding
+``((0, 1), (0, 1))``), so it pads explicitly and convolves unpadded.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +33,10 @@ class VAEConfig:
     layers_per_block: int = 2
     scaling_factor: float = 0.18215
     shift_factor: float = 0.0
+
+    @classmethod
+    def sdxl(cls) -> "VAEConfig":
+        return cls(scaling_factor=0.13025)
 
     @classmethod
     def flux(cls) -> "VAEConfig":
@@ -95,6 +102,39 @@ class AttnBlock(nn.Module):
         return x + out.reshape(batch, height, width, channels).permute(0, 3, 1, 2)
 
 
+class Encoder(nn.Module):
+    def __init__(self, config: VAEConfig, dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.config = config
+        channels = config.base_channels
+        self.conv_in = nn.Conv2d(config.in_channels, channels, 3, padding=1, dtype=dtype)
+        levels = len(config.channel_multipliers)
+        for level, mult in enumerate(config.channel_multipliers):
+            out = config.base_channels * mult
+            for block in range(config.layers_per_block):
+                self.add_module(f"down_{level}_block_{block}", ResnetBlock(channels, out, dtype))
+                channels = out
+            if level < levels - 1:
+                self.add_module(f"down_{level}_downsample", nn.Conv2d(channels, channels, 3, stride=2, dtype=dtype))
+        self.mid_block_1 = ResnetBlock(channels, channels, dtype)
+        self.mid_attn = AttnBlock(channels, dtype)
+        self.mid_block_2 = ResnetBlock(channels, channels, dtype)
+        self.norm_out = _group_norm(channels)
+        self.conv_out = nn.Conv2d(channels, 2 * config.latent_channels, 3, padding=1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        h = self.conv_in(x.to(self.conv_in.weight.dtype))
+        levels = len(cfg.channel_multipliers)
+        for level in range(levels):
+            for block in range(cfg.layers_per_block):
+                h = getattr(self, f"down_{level}_block_{block}")(h)
+            if level < levels - 1:
+                h = getattr(self, f"down_{level}_downsample")(F.pad(h, (0, 1, 0, 1)))
+        h = self.mid_block_2(self.mid_attn(self.mid_block_1(h)))
+        return self.conv_out(F.silu(_norm(self.norm_out, h)))
+
+
 class Decoder(nn.Module):
     def __init__(self, config: VAEConfig, dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
@@ -130,13 +170,32 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Decoder-only AutoencoderKL: ``post_quant_conv`` then :class:`Decoder`."""
+    """:class:`Encoder` then ``quant_conv``; ``post_quant_conv`` then :class:`Decoder`."""
 
     def __init__(self, config: VAEConfig = VAEConfig(), dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.config = config
+        self.encoder = Encoder(config, dtype)
         self.decoder = Decoder(config, dtype)
+        self.quant_conv = nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1, dtype=dtype)
         self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1, dtype=dtype)
+
+    def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Image (B, H, W, 3) in [-1, 1] -> (mean, logvar), each (B, h, w, C),
+        in the compute dtype, logvar clipped to [-30, 20]."""
+        moments = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+        mean, logvar = moments.chunk(2, dim=-1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Scaled latents (B, h, w, C) for the diffusion model: the mean, or
+        with ``generator`` a sample mean + std * N(0, 1) drawn from it."""
+        mean, logvar = self.encode_moments(x)
+        latent = mean
+        if generator is not None:
+            noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype, device=mean.device)
+            latent = mean + torch.exp(0.5 * logvar) * noise
+        return (latent - self.config.shift_factor) * self.config.scaling_factor
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Scaled latents (B, h, w, C) -> image (B, H, W, 3), nominally in [-1, 1]."""

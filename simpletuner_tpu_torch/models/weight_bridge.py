@@ -25,7 +25,7 @@ are not ported and raise.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +48,11 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[
 
 
 def _to_torch(path: Tuple[str, ...], value: Any) -> torch.Tensor:
+    leaf = path[-1]
+    if isinstance(value, torch.Tensor):  # an imported checkpoint's leaf: a (transposed) view, no copy
+        if leaf in ("kernel", "kernel_packed") + LORA_LEAVES and value.dim() == 2:
+            return value.t()
+        return value.permute(3, 2, 0, 1) if leaf == "kernel" and value.dim() == 4 else value
     if hasattr(value, "dequantize") and hasattr(value, "scales"):
         raise NotImplementedError(
             f"{'/'.join(path)} is a legacy QuantizedParam leaf, which the port does not read; "
@@ -59,7 +64,6 @@ def _to_torch(path: Tuple[str, ...], value: Any) -> torch.Tensor:
         raise NotImplementedError(f"{'/'.join(path)} has dtype {kind}, which the port does not store")
     if kind == "bfloat16":
         arr = arr.astype(np.float32)
-    leaf = path[-1]
     if leaf in ("kernel", "kernel_packed") + LORA_LEAVES and arr.ndim == 2:
         arr = arr.T
     elif leaf == "kernel" and arr.ndim == 4:
@@ -86,21 +90,19 @@ def flax_to_state_dict(
     params: Mapping[str, Any],
     module: nn.Module,
     lora: Optional[Mapping[str, Any]] = None,
-    ignore: Iterable[str] = (),
     qscales: Optional[Mapping[str, Any]] = None,
+    keep_adapters: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Map Flax ``params`` (and the ``lora`` and ``qscales`` collections) onto
-    ``module``'s state dict.  Top-level subtrees named in ``ignore`` are
-    skipped (e.g. the VAE encoder, which the port does not have); every other
-    leaf must land on a port tensor of the same shape and storage class, and
-    every port tensor must be set."""
+    ``module``'s state dict.  Leaves are numpy arrays (a JAX tree) or CPU
+    tensors (an imported checkpoint's, in the file's dtype).  Every leaf
+    must land on a port tensor of the same shape and storage class, and every
+    port tensor must be set, except the adapters when ``keep_adapters`` is
+    true."""
     target = module.state_dict()
-    skip = set(ignore)
     out: Dict[str, torch.Tensor] = {}
     for tree in (params, lora or {}, qscales or {}):
         for path, value in _flatten(tree):
-            if path[0] in skip:
-                continue
             name = _target_name(path, target)
             tensor = _to_torch(path, value)
             if name not in target:
@@ -112,7 +114,8 @@ def flax_to_state_dict(
                 raise ValueError(f"{name}: flax {tensor.dtype} does not match the port's {target[name].dtype} "
                                  "(quantize the port's module in the tree's mode first)")
             out[name] = tensor.float() if path[-1] in LORA_LEAVES else tensor.to(target[name].dtype)
-    missing = sorted(set(target) - set(out))
+    missing = sorted(name for name in set(target) - set(out)
+                     if not (keep_adapters and name.rsplit(".", 1)[-1] in LORA_LEAVES))
     if missing:
         raise KeyError(f"port tensors without a flax leaf: {missing[:8]}")
     return out
@@ -122,11 +125,14 @@ def load_flax_params(
     module: nn.Module,
     params: Mapping[str, Any],
     lora: Optional[Mapping[str, Any]] = None,
-    ignore: Iterable[str] = (),
     qscales: Optional[Mapping[str, Any]] = None,
+    keep_adapters: bool = False,
 ) -> nn.Module:
-    """Copy Flax weights into ``module`` in place (on its device); returns it."""
-    module.load_state_dict(flax_to_state_dict(params, module, lora, ignore, qscales))
+    """Copy Flax weights into ``module`` in place (on its device); returns it.
+    With ``keep_adapters`` the module's LoRA tensors that the tree lacks keep
+    their values."""
+    state = flax_to_state_dict(params, module, lora, qscales, keep_adapters)
+    module.load_state_dict(state, strict=not keep_adapters)
     return module
 
 

@@ -1,0 +1,475 @@
+"""Pretrained-weight import: safetensors checkpoints -> the port's modules.
+
+Counterpart of the Flux and VAE paths of
+``simpletuner_tpu/models/weight_import.py``.  The importers build the same
+Flax-layout tree as the JAX functions, leaf for leaf (dense ``kernel`` (in,
+out), conv ``kernel`` (kh, kw, in, out), norm ``scale``), and
+``weight_bridge.load_flax_params`` puts that tree on the module.  Both Flux
+checkpoint layouts are read:
+
+* **original/BFL** single file (``double_blocks.*``, fused ``img_attn.qkv``);
+* **diffusers** model dirs (``transformer/*.safetensors``,
+  ``transformer_blocks.*``, split ``attn.to_q``).
+
+Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
+keeps f32 and bf16 leaves in the file's dtype (``_float``) and takes every
+other dtype through f32, so the module the bridge fills is bitwise the one
+the JAX import followed by the bridge gives, without an f32 copy of the
+checkpoint in host memory.  Kernels are transposed views of the file's
+tensors; the bridge transposes them back.
+
+The safetensors reader and writer are the port's own (stdlib, numpy and
+torch): an 8-byte little-endian header length, a JSON header, raw
+little-endian bytes.  Files are memory-mapped copy-on-write, so a tensor is
+read from disk when it is first used.  Only the ``flux`` family imports;
+every other family raises.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import struct
+import sys
+from typing import Any, Dict, List, Mapping, Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from .weight_bridge import load_flax_params
+
+logger = logging.getLogger(__name__)
+
+# safetensors dtype names <-> torch dtypes (the ones a diffusion checkpoint holds)
+_DTYPES = {
+    "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16, "F8_E4M3": torch.float8_e4m3fn,
+    "I8": torch.int8, "U8": torch.uint8, "I32": torch.int32, "I64": torch.int64,
+}
+_NAMES = {dtype: name for name, dtype in _DTYPES.items()}
+
+
+# ---------------------------------------------------------------------------------
+# safetensors reading and writing
+# ---------------------------------------------------------------------------------
+
+
+def load_safetensors_file(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of one ``.safetensors`` file, as CPU tensors over a
+    copy-on-write memory map of the file (writable; the file is never
+    changed).  ``__metadata__`` is dropped."""
+    if sys.byteorder != "little":
+        raise RuntimeError("safetensors stores little-endian bytes; this reader runs on little-endian hosts only")
+    size = os.path.getsize(path)
+    with open(path, "rb") as handle:
+        (length,) = struct.unpack("<Q", handle.read(8))
+        if length > size - 8:
+            raise ValueError(f"{path}: header length {length} exceeds the file ({size} bytes)")
+        header = json.loads(handle.read(length))
+    header.pop("__metadata__", None)
+    start_of_data = 8 + length
+    data_bytes = size - start_of_data
+    buffer = (torch.from_numpy(np.memmap(path, dtype=np.uint8, mode="c", offset=start_of_data))
+              if data_bytes else torch.empty(0, dtype=torch.uint8, device="cpu"))
+    tensors: Dict[str, torch.Tensor] = {}
+    for name, info in header.items():
+        if info["dtype"] not in _DTYPES:
+            raise NotImplementedError(f"{path}: {name} has dtype {info['dtype']}, which the reader does not take")
+        dtype, shape = _DTYPES[info["dtype"]], [int(d) for d in info["shape"]]
+        begin, end = (int(x) for x in info["data_offsets"])
+        itemsize = dtype.itemsize
+        if not 0 <= begin <= end <= data_bytes or end - begin != itemsize * int(np.prod(shape, dtype=np.int64)):
+            raise ValueError(f"{path}: {name} has offsets {info['data_offsets']} for {info['dtype']} {shape}")
+        raw = buffer[begin:end]
+        if begin % itemsize:  # a view needs an aligned start: copy the bytes once
+            raw = raw.clone()
+        tensors[name] = raw.view(dtype).reshape(shape)
+    return tensors
+
+
+def save_safetensors(
+    tensors: Mapping[str, Union[torch.Tensor, np.ndarray]], path: str, metadata: Optional[Dict[str, str]] = None
+) -> None:
+    """Write ``tensors`` as one ``.safetensors`` file (written to a temporary
+    name, then renamed).  Tensors are ordered by element size, then name, and
+    the header is padded with spaces to 8 bytes, as the safetensors package
+    lays a file out; tensors on a device are copied to the host one at a time."""
+    if sys.byteorder != "little":
+        raise RuntimeError("safetensors stores little-endian bytes; this writer runs on little-endian hosts only")
+    items = []
+    for name, value in tensors.items():
+        tensor = torch.from_numpy(np.ascontiguousarray(value)) if isinstance(value, np.ndarray) else value
+        if tensor.dtype not in _NAMES:
+            raise NotImplementedError(f"{name}: dtype {tensor.dtype} has no safetensors name here")
+        items.append((name, tensor.detach()))
+    items.sort(key=lambda item: (-item[1].element_size(), item[0]))
+    header: Dict[str, Any] = {}
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
+    offset = 0
+    for name, tensor in items:
+        nbytes = tensor.numel() * tensor.element_size()
+        header[name] = {"dtype": _NAMES[tensor.dtype], "shape": list(tensor.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as handle:
+        handle.write(struct.pack("<Q", len(blob)))
+        handle.write(blob)
+        for _, tensor in items:
+            host = tensor.to("cpu").contiguous().reshape(-1)
+            handle.write(host.view(torch.uint8).numpy().data)
+    os.replace(tmp, path)
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Read one file or every ``*.safetensors`` shard in a directory (a
+    ``transformer/`` or ``unet/`` subfolder is preferred when present)."""
+    files: List[str]
+    if os.path.isdir(path):
+        for sub in ("transformer", "unet"):
+            cand = os.path.join(path, sub)
+            if os.path.isdir(cand):
+                path = cand
+                break
+        files = sorted(os.path.join(path, f) for f in os.listdir(path) if f.endswith(".safetensors"))
+    else:
+        files = [path]
+    if not files:
+        raise FileNotFoundError(f"no safetensors found under {path}")
+    tensors: Dict[str, torch.Tensor] = {}
+    for file in files:
+        tensors.update(load_safetensors_file(file))
+    return tensors
+
+
+# ---------------------------------------------------------------------------------
+# leaves
+# ---------------------------------------------------------------------------------
+
+
+def _float(value: torch.Tensor) -> torch.Tensor:
+    """A leaf in a float dtype: f32 and bf16 as stored, every other dtype
+    through f32 (the JAX ``_to_f32``; the bridge then rounds once to the
+    module's dtype, as it does from the JAX tree)."""
+    return value if value.dtype in (torch.float32, torch.bfloat16) else value.to(torch.float32)
+
+
+def _linear(weights: Mapping[str, torch.Tensor], key: str) -> Dict[str, torch.Tensor]:
+    out = {"kernel": _float(weights[f"{key}.weight"]).t()}
+    if f"{key}.bias" in weights:
+        out["bias"] = _float(weights[f"{key}.bias"])
+    return out
+
+
+def _scale(weights: Mapping[str, torch.Tensor], key: str) -> Dict[str, torch.Tensor]:
+    return {"scale": _float(weights[key])}
+
+
+# ---------------------------------------------------------------------------------
+# Flux
+# ---------------------------------------------------------------------------------
+
+
+def _flux_detect_layout(weights: Mapping[str, torch.Tensor]) -> str:
+    if any(k.startswith("double_blocks.") for k in weights):
+        return "bfl"
+    if any(k.startswith("transformer_blocks.") for k in weights):
+        return "diffusers"
+    # single-file checkpoints sometimes prefix with model.diffusion_model.
+    if any("double_blocks." in k for k in weights):
+        return "bfl-prefixed"
+    raise ValueError("unrecognized flux checkpoint layout")
+
+
+def _strip_prefix(weights: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    out = {}
+    for key, value in weights.items():
+        for prefix in ("model.diffusion_model.", "module.", "transformer."):
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+        out[key] = value
+    return out
+
+
+def _flux_pack_permutation(packed_features: int, patch: int = 2) -> torch.Tensor:
+    """The reference packs latent patches in (c, ph, pw) feature order; the
+    port's ``pack_latents`` flattens (ph, pw, c).  Returns ``perm`` with
+    ``perm[ours] = theirs``."""
+    channels = packed_features // (patch * patch)
+    perm = [c * patch * patch + ph * patch + pw for ph in range(patch) for pw in range(patch) for c in range(channels)]
+    return torch.tensor(perm, dtype=torch.int64, device="cpu")
+
+
+def _flux_permute_io(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Reorder img_in input rows and final_proj output columns/bias from the
+    reference (c, ph, pw) packing to the port's (ph, pw, c)."""
+    img_in = dict(params["img_in"])
+    img_in["kernel"] = img_in["kernel"][_flux_pack_permutation(img_in["kernel"].shape[0])]
+    params["img_in"] = img_in
+    final = dict(params["final_proj"])
+    out_perm = _flux_pack_permutation(final["kernel"].shape[1])
+    final["kernel"] = final["kernel"][:, out_perm]
+    if "bias" in final:
+        final["bias"] = final["bias"][out_perm]
+    params["final_proj"] = final
+    return params
+
+
+def flux_params_from_bfl(weights: Mapping[str, torch.Tensor], depth_double: int, depth_single: int) -> Dict[str, Any]:
+    w = weights
+    params: Dict[str, Any] = {
+        "img_in": _linear(w, "img_in"),
+        "txt_in": _linear(w, "txt_in"),
+        "time_in": {"in_layer": _linear(w, "time_in.in_layer"), "out_layer": _linear(w, "time_in.out_layer")},
+        "vector_in": {"in_layer": _linear(w, "vector_in.in_layer"), "out_layer": _linear(w, "vector_in.out_layer")},
+        "final_proj": _linear(w, "final_layer.linear"),
+        "final_mod": {"lin": _linear(w, "final_layer.adaLN_modulation.1")},
+    }
+    if "guidance_in.in_layer.weight" in w:
+        params["guidance_in"] = {
+            "in_layer": _linear(w, "guidance_in.in_layer"),
+            "out_layer": _linear(w, "guidance_in.out_layer"),
+        }
+    for i in range(depth_double):
+        p = f"double_blocks.{i}"
+        block: Dict[str, Any] = {}
+        for stream in ("img", "txt"):
+            qkv_w = _float(w[f"{p}.{stream}_attn.qkv.weight"])  # (3d, d)
+            qkv_b = _float(w[f"{p}.{stream}_attn.qkv.bias"])
+            dim = qkv_w.shape[1]
+            for j, name in enumerate(("q", "k", "v")):
+                block[f"{stream}_attn_{name}"] = {
+                    "kernel": qkv_w[j * dim:(j + 1) * dim].t(),
+                    "bias": qkv_b[j * dim:(j + 1) * dim],
+                }
+            block[f"{stream}_attn_norm_q"] = _scale(w, f"{p}.{stream}_attn.norm.query_norm.scale")
+            block[f"{stream}_attn_norm_k"] = _scale(w, f"{p}.{stream}_attn.norm.key_norm.scale")
+            block[f"{stream}_attn_proj"] = _linear(w, f"{p}.{stream}_attn.proj")
+            block[f"{stream}_mlp"] = {"proj_in": _linear(w, f"{p}.{stream}_mlp.0"),
+                                      "proj_out": _linear(w, f"{p}.{stream}_mlp.2")}
+            block[f"{stream}_mod"] = {"lin": _linear(w, f"{p}.{stream}_mod.lin")}
+        params[f"double_{i}"] = block
+    for i in range(depth_single):
+        p = f"single_blocks.{i}"
+        params[f"single_{i}"] = {
+            "linear1": _linear(w, f"{p}.linear1"),
+            "linear2": _linear(w, f"{p}.linear2"),
+            "modulation": {"lin": _linear(w, f"{p}.modulation.lin")},
+            "norm_q": _scale(w, f"{p}.norm.query_norm.scale"),
+            "norm_k": _scale(w, f"{p}.norm.key_norm.scale"),
+        }
+    return _flux_permute_io(params)
+
+
+def flux_params_from_diffusers(
+    weights: Mapping[str, torch.Tensor], depth_double: int, depth_single: int
+) -> Dict[str, Any]:
+    w = weights
+    params: Dict[str, Any] = {
+        "img_in": _linear(w, "x_embedder"),
+        "txt_in": _linear(w, "context_embedder"),
+        "time_in": {
+            "in_layer": _linear(w, "time_text_embed.timestep_embedder.linear_1"),
+            "out_layer": _linear(w, "time_text_embed.timestep_embedder.linear_2"),
+        },
+        "final_proj": _linear(w, "proj_out"),
+    }
+    # LongCat-Image (timestep-only modulation) has no pooled-text embedder
+    if "time_text_embed.text_embedder.linear_1.weight" in w:
+        params["vector_in"] = {
+            "in_layer": _linear(w, "time_text_embed.text_embedder.linear_1"),
+            "out_layer": _linear(w, "time_text_embed.text_embedder.linear_2"),
+        }
+    if "time_text_embed.guidance_embedder.linear_1.weight" in w:
+        params["guidance_in"] = {
+            "in_layer": _linear(w, "time_text_embed.guidance_embedder.linear_1"),
+            "out_layer": _linear(w, "time_text_embed.guidance_embedder.linear_2"),
+        }
+    # diffusers AdaLayerNormContinuous emits (scale, shift); BFL and the port
+    # (shift, scale): swap the two output halves (rows of the torch weight)
+    weight, bias = _float(w["norm_out.linear.weight"]), _float(w["norm_out.linear.bias"])
+    half = weight.shape[0] // 2
+    params["final_mod"] = {"lin": {"kernel": torch.cat([weight[half:], weight[:half]]).t(),
+                                   "bias": torch.cat([bias[half:], bias[:half]])}}
+    for i in range(depth_double):
+        p = f"transformer_blocks.{i}"
+        params[f"double_{i}"] = {
+            "img_mod": {"lin": _linear(w, f"{p}.norm1.linear")},
+            "txt_mod": {"lin": _linear(w, f"{p}.norm1_context.linear")},
+            "img_attn_q": _linear(w, f"{p}.attn.to_q"),
+            "img_attn_k": _linear(w, f"{p}.attn.to_k"),
+            "img_attn_v": _linear(w, f"{p}.attn.to_v"),
+            "txt_attn_q": _linear(w, f"{p}.attn.add_q_proj"),
+            "txt_attn_k": _linear(w, f"{p}.attn.add_k_proj"),
+            "txt_attn_v": _linear(w, f"{p}.attn.add_v_proj"),
+            "img_attn_norm_q": _scale(w, f"{p}.attn.norm_q.weight"),
+            "img_attn_norm_k": _scale(w, f"{p}.attn.norm_k.weight"),
+            "txt_attn_norm_q": _scale(w, f"{p}.attn.norm_added_q.weight"),
+            "txt_attn_norm_k": _scale(w, f"{p}.attn.norm_added_k.weight"),
+            "img_attn_proj": _linear(w, f"{p}.attn.to_out.0"),
+            "txt_attn_proj": _linear(w, f"{p}.attn.to_add_out"),
+            "img_mlp": {"proj_in": _linear(w, f"{p}.ff.net.0.proj"), "proj_out": _linear(w, f"{p}.ff.net.2")},
+            "txt_mlp": {"proj_in": _linear(w, f"{p}.ff_context.net.0.proj"),
+                        "proj_out": _linear(w, f"{p}.ff_context.net.2")},
+        }
+    for i in range(depth_single):
+        p = f"single_transformer_blocks.{i}"
+        parts = [f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v", f"{p}.proj_mlp"]
+        params[f"single_{i}"] = {
+            "linear1": {"kernel": torch.cat([_float(w[f"{part}.weight"]) for part in parts]).t(),
+                        "bias": torch.cat([_float(w[f"{part}.bias"]) for part in parts])},
+            "linear2": _linear(w, f"{p}.proj_out"),
+            "modulation": {"lin": _linear(w, f"{p}.norm.linear")},
+            "norm_q": _scale(w, f"{p}.attn.norm_q.weight"),
+            "norm_k": _scale(w, f"{p}.attn.norm_k.weight"),
+        }
+    return _flux_permute_io(params)
+
+
+def load_flux_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a BFL or diffusers Flux checkpoint."""
+    weights = _strip_prefix(read_safetensors(path))
+    layout = _flux_detect_layout(weights)
+    arch = model.arch
+    if layout.startswith("bfl"):
+        params = flux_params_from_bfl(weights, arch.depth_double, arch.depth_single)
+    else:
+        params = flux_params_from_diffusers(weights, arch.depth_double, arch.depth_single)
+    logger.info("imported flux weights (%s layout) from %s", layout, path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
+# VAE (diffusers AutoencoderKL)
+# ---------------------------------------------------------------------------------
+
+
+def _conv(weights: Mapping[str, torch.Tensor], key: str) -> Dict[str, torch.Tensor]:
+    # torch conv (O, I, kh, kw) -> flax (kh, kw, I, O)
+    out = {"kernel": _float(weights[f"{key}.weight"]).permute(2, 3, 1, 0)}
+    if f"{key}.bias" in weights:
+        out["bias"] = _float(weights[f"{key}.bias"])
+    return out
+
+
+def _norm(weights: Mapping[str, torch.Tensor], key: str) -> Dict[str, torch.Tensor]:
+    return {"scale": _float(weights[f"{key}.weight"]), "bias": _float(weights[f"{key}.bias"])}
+
+
+def _vae_resnet(w: Mapping[str, torch.Tensor], src: str) -> Dict[str, Any]:
+    block = {
+        "norm1": _norm(w, f"{src}.norm1"),
+        "conv1": _conv(w, f"{src}.conv1"),
+        "norm2": _norm(w, f"{src}.norm2"),
+        "conv2": _conv(w, f"{src}.conv2"),
+    }
+    if f"{src}.conv_shortcut.weight" in w:
+        block["conv_shortcut"] = _conv(w, f"{src}.conv_shortcut")
+    return block
+
+
+def _vae_attn(w: Mapping[str, torch.Tensor], src: str) -> Dict[str, Any]:
+    if f"{src}.to_q.weight" in w:  # modern diffusers Attention (Linear)
+        return {
+            "norm": _norm(w, f"{src}.group_norm"),
+            "to_q": _linear(w, f"{src}.to_q"),
+            "to_k": _linear(w, f"{src}.to_k"),
+            "to_v": _linear(w, f"{src}.to_v"),
+            "to_out": _linear(w, f"{src}.to_out.0"),
+        }
+
+    # legacy layout: 1x1 convs q/k/v/proj_out -> Dense kernels
+    def conv1x1(key):
+        return {"kernel": _float(w[f"{key}.weight"])[:, :, 0, 0].t(), "bias": _float(w[f"{key}.bias"])}
+
+    return {
+        "norm": _norm(w, f"{src}.norm"),
+        "to_q": conv1x1(f"{src}.q"),
+        "to_k": conv1x1(f"{src}.k"),
+        "to_v": conv1x1(f"{src}.v"),
+        "to_out": conv1x1(f"{src}.proj_out"),
+    }
+
+
+def vae_params_from_diffusers(weights: Mapping[str, torch.Tensor], config) -> Dict[str, Any]:
+    w = weights
+    levels = len(config.channel_multipliers)
+    blocks = config.layers_per_block
+    encoder: Dict[str, Any] = {
+        "conv_in": _conv(w, "encoder.conv_in"),
+        "mid_block_1": _vae_resnet(w, "encoder.mid_block.resnets.0"),
+        "mid_block_2": _vae_resnet(w, "encoder.mid_block.resnets.1"),
+        "mid_attn": _vae_attn(w, "encoder.mid_block.attentions.0"),
+        "norm_out": _norm(w, "encoder.conv_norm_out"),
+        "conv_out": _conv(w, "encoder.conv_out"),
+    }
+    for level in range(levels):
+        for block in range(blocks):
+            encoder[f"down_{level}_block_{block}"] = _vae_resnet(w, f"encoder.down_blocks.{level}.resnets.{block}")
+        if level < levels - 1:
+            encoder[f"down_{level}_downsample"] = _conv(w, f"encoder.down_blocks.{level}.downsamplers.0.conv")
+    decoder: Dict[str, Any] = {
+        "conv_in": _conv(w, "decoder.conv_in"),
+        "mid_block_1": _vae_resnet(w, "decoder.mid_block.resnets.0"),
+        "mid_block_2": _vae_resnet(w, "decoder.mid_block.resnets.1"),
+        "mid_attn": _vae_attn(w, "decoder.mid_block.attentions.0"),
+        "norm_out": _norm(w, "decoder.conv_norm_out"),
+        "conv_out": _conv(w, "decoder.conv_out"),
+    }
+    for level in range(levels):
+        for block in range(blocks + 1):
+            decoder[f"up_{level}_block_{block}"] = _vae_resnet(w, f"decoder.up_blocks.{level}.resnets.{block}")
+        if level < levels - 1:
+            decoder[f"up_{level}_upsample"] = _conv(w, f"decoder.up_blocks.{level}.upsamplers.0.conv")
+    params = {"encoder": encoder, "decoder": decoder}
+    if "quant_conv.weight" in w:
+        params["quant_conv"] = _conv(w, "quant_conv")
+    if "post_quant_conv.weight" in w:
+        params["post_quant_conv"] = _conv(w, "post_quant_conv")
+    return params
+
+
+def load_vae_params(vae, path: str) -> Dict[str, Any]:
+    """``{"params": tree}`` for ``models/vae.py::AutoencoderKL`` from a
+    diffusers dir (a ``vae/`` subfolder is found) or a single file with
+    ``encoder.*``/``decoder.*`` keys (a ``vae.`` prefix is dropped)."""
+    if os.path.isdir(path) and os.path.isdir(os.path.join(path, "vae")):
+        path = os.path.join(path, "vae")
+    weights = read_safetensors(path)
+    weights = {k[len("vae."):] if k.startswith("vae.") else k: v for k, v in weights.items()}
+    missing = [k for k in ("quant_conv.weight", "post_quant_conv.weight") if k not in weights]
+    if missing:
+        # FLUX.1-dev's VAE (use_quant_conv / use_post_quant_conv false) has
+        # neither conv; the module, as the JAX one, always applies both
+        raise NotImplementedError(
+            f"{path}: the VAE checkpoint has no {' / '.join(k.split('.')[0] for k in missing)} "
+            "(a VAE with use_quant_conv=false, as FLUX.1-dev's); AutoencoderKL always applies both "
+            "convs, so this file does not load (ROADMAP Queue 3)"
+        )
+    return {"params": vae_params_from_diffusers(weights, vae.config)}
+
+
+# ---------------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------------
+
+_IMPORTERS = {"flux": load_flux_params}
+
+
+def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:
+    """Import ``path`` onto ``module`` (the family's transformer, on its
+    device) in place and return it.  Every base tensor of the module must
+    come from the checkpoint, with its shape; LoRA adapters keep their values
+    (the trainer draws them fresh first, ``layers.init_adapters``, as the JAX
+    import takes them from a fresh initialisation)."""
+    importer = _IMPORTERS.get(model.NAME)
+    if importer is None:
+        raise NotImplementedError(
+            f"no weight importer for family {model.NAME!r} in the port (only flux; the other "
+            "families are ROADMAP Queue 1 item 6)"
+        )
+    return load_flax_params(module, importer(model, path), keep_adapters=True)

@@ -1,14 +1,27 @@
-"""LoRA key maps: the port's module paths onto the diffusers key names.
+"""LoRA key maps and adapter files in the PEFT (diffusers) and ComfyUI layouts.
 
 The torch port's copy of the part of ``simpletuner_tpu/training/lora.py`` it
 uses: ``flux_key_map`` (lora.py:76) and ``_key_map_for`` (lora.py:680), which
-resolve the ``flux_lora_target`` presets and name the adapters of an export.
-The port keeps the JAX submodule names, so one map serves both packages.
+resolve the ``flux_lora_target`` presets and name the adapters of an export,
+and the plain-LoRA path of the adapter files: ``lora_state_dict`` (:693),
+``_emit``, ``save_lora_safetensors`` (:764) and ``load_lora_safetensors``
+(:790-907), written with the port's own safetensors reader and writer.  The
+port keeps the JAX submodule names, so one map serves both packages, and the
+port's adapters are already in the torch orientation of a file: ``lora_A``
+(r, in) and ``lora_B`` (out, r).  A file saved here loads into the JAX
+package and back.  LyCORIS layouts (LoKr, LoHa, (IA)^3) and DoRA magnitudes
+are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from ..models.layers import lora_parameters
+from ..models.weight_import import load_safetensors_file, save_safetensors
 
 
 def flux_key_map(arch) -> Dict[str, Any]:
@@ -63,3 +76,109 @@ def _key_map_for(model) -> Dict[str, Any]:
         return builder(model)
     # generic: keep flax path with slashes -> dots
     return {}
+
+
+# ---------------------------------------------------------------------------------
+# adapter files
+# ---------------------------------------------------------------------------------
+
+
+def _adapters(module: nn.Module) -> Dict[str, Dict[str, nn.Parameter]]:
+    """The module's adapters by JAX module path: {"double_0/img_attn_q": {"lora_A", "lora_B"}}."""
+    flat: Dict[str, Dict[str, nn.Parameter]] = {}
+    for path, param in lora_parameters(module).items():
+        parent, leaf = path.rsplit("/", 1)
+        flat.setdefault(parent, {})[leaf] = param
+    return flat
+
+
+def _prefix(model) -> str:
+    return "transformer." if getattr(model, "MODEL_TYPE", "transformer") == "transformer" else "unet."
+
+
+def lora_state_dict(
+    model, module: nn.Module, format: str = "diffusers", alpha: Optional[float] = None
+) -> Dict[str, torch.Tensor]:
+    """The module's adapters as the tensors of an adapter file (f32, on the
+    host): fused projections (Flux ``linear1``) split into their diffusers
+    parts with the shared A and the slice of B."""
+    key_map = _key_map_for(model)
+    prefix = _prefix(model)
+    alpha = alpha if alpha is not None else float(model.lora_alpha or model.lora_rank)
+    tensors: Dict[str, torch.Tensor] = {}
+    for path, leaves in _adapters(module).items():
+        a = leaves["lora_A"].detach().to("cpu", torch.float32)  # (r, in)
+        b = leaves["lora_B"].detach().to("cpu", torch.float32)  # (out, r)
+        target = key_map.get(path, path.replace("/", "."))
+        if isinstance(target, list):  # fused projection: shared A, sliced B
+            for name, start, end in target:
+                _emit(tensors, prefix + name, a, b[start:end], alpha, format)
+        else:
+            _emit(tensors, prefix + target, a, b, alpha, format)
+    return tensors
+
+
+def _emit(tensors: Dict[str, torch.Tensor], module: str, a: torch.Tensor, b: torch.Tensor, alpha: float,
+          format: str) -> None:
+    if format == "diffusers":
+        tensors[f"{module}.lora_A.weight"] = a.contiguous()  # (r, in)
+        tensors[f"{module}.lora_B.weight"] = b.contiguous()  # (out, r)
+    elif format == "comfyui":
+        key = "diffusion_model." + module.removeprefix("transformer.").removeprefix("unet.")
+        tensors[f"{key}.lora_down.weight"] = a.contiguous()
+        tensors[f"{key}.lora_up.weight"] = b.contiguous()
+        tensors[f"{key}.alpha"] = torch.tensor(alpha, dtype=torch.float32)
+    else:
+        raise ValueError(f"unknown lora export format {format!r}")
+
+
+def save_lora_safetensors(
+    model,
+    module: nn.Module,
+    path: str,
+    format: str = "diffusers",
+    metadata: Optional[Dict[str, str]] = None,
+) -> None:
+    """Write the module's adapters as a diffusers- or ComfyUI-layout file."""
+    meta = {"format": "pt"}
+    if metadata:
+        meta.update({k: str(v) for k, v in metadata.items()})
+    save_safetensors(lora_state_dict(model, module, format=format), path, metadata=meta)
+
+
+def load_lora_safetensors(model, path: str, module: nn.Module) -> List[str]:
+    """Copy a diffusers- or ComfyUI-layout adapter file into the module's
+    adapters, in place; returns the adapter paths the file does not hold
+    (those keep their values, as the JAX loader keeps the template's).  A
+    fused projection takes the file's shared A and assembles B from its
+    parts; parts with different A matrices would need a wider rank than the
+    module has, and raise."""
+    normalized: Dict[str, torch.Tensor] = {}
+    for key, value in load_safetensors_file(path).items():
+        key = key.replace("diffusion_model.", "transformer.")
+        key = key.replace(".lora_down.weight", ".lora_A.weight").replace(".lora_up.weight", ".lora_B.weight")
+        key = key.replace(".lora.down.weight", ".lora_A.weight").replace(".lora.up.weight", ".lora_B.weight")
+        normalized[key] = value
+    key_map = _key_map_for(model)
+    prefix = _prefix(model)
+    missing: List[str] = []
+    with torch.no_grad():
+        for path, leaves in _adapters(module).items():
+            target = key_map.get(path, path.replace("/", "."))
+            parts = target if isinstance(target, list) else [(target, 0, leaves["lora_B"].shape[0])]
+            keys = [(f"{prefix}{name}.lora_A.weight", f"{prefix}{name}.lora_B.weight", start, end)
+                    for name, start, end in parts]
+            if any(a_key not in normalized for a_key, _, _, _ in keys):
+                missing.append(path)
+                continue
+            a_first = normalized[keys[0][0]]
+            if not all(normalized[a_key].shape == a_first.shape and torch.allclose(normalized[a_key], a_first)
+                       for a_key, _, _, _ in keys):
+                raise ValueError(f"{path}: the parts of the fused projection carry different A matrices; "
+                                 f"their ranks add up beyond the module's rank {leaves['lora_A'].shape[0]}")
+            b = torch.zeros(leaves["lora_B"].shape, dtype=torch.float32, device="cpu")
+            for _, b_key, start, end in keys:
+                b[start:end] = normalized[b_key].to(torch.float32)
+            leaves["lora_A"].copy_(a_first.to(torch.float32))
+            leaves["lora_B"].copy_(b)
+    return missing

@@ -1,12 +1,17 @@
 """Validation renders: prompt embeds -> flow Euler sampling -> VAE decode -> PNG.
 
 Counterpart of the render path of ``simpletuner_tpu/training/validation.py``
-(``build_scheduler``, resolution and seed handling, ``_latent_shape``,
-``_render_single``, ``_save_png``).  Prompt embeds come from the text-embed
-cache (the text encoders are not ported) and are collated the way the
-trainer collates them, so a cached T5 ``attention_mask`` becomes ``t5_masks``.
-Noise comes from a ``torch.Generator`` seeded from ``validation_seed`` and the
-prompt index.  Previews, img2img, adapter sweeps, benchmarks, video/audio and
+(``build_scheduler``, resolution and seed handling, ``precompute_embeds``,
+``_latent_shape``, ``_render_single``, ``_save_png``).  ``precompute_embeds``
+encodes the prompts (and, for true CFG, the negative prompt) through the
+model's attached text encoders.  The render batch takes the payload's keys
+as they are, as the JAX ``_render_single`` does (validation.py:714-718): the
+T5 padding mask stays ``attention_mask``, which ``inference_conditioning``
+does not read, so renders are unmasked, as in the JAX package, even with
+``flux_attention_masked_training``.  Where the JAX ``precompute_embeds``
+logs a failed encode and disables validation, the port raises.  Noise comes
+from a ``torch.Generator`` seeded from ``validation_seed`` and the prompt
+index.  Previews, img2img, adapter sweeps, benchmarks, video/audio and
 trackers are not ported.  PNGs are written with ``zlib``/``struct`` alone.
 """
 
@@ -80,20 +85,15 @@ class Validation:
         self.seed = int(getattr(config, "validation_seed", None) or getattr(config, "seed", 42) or 42)
 
     # ---- embeds --------------------------------------------------------------------------
-    def load_embeds(self, text_cache) -> None:
-        """Fetch every prompt's embeds (and the negative prompt's, for true CFG)
-        from a ``TextEmbeddingCache``; a prompt that is not cached raises."""
-
-        def fetch(prompt: str) -> Dict[str, np.ndarray]:
-            if not text_cache.exists(prompt):
-                raise FileNotFoundError(
-                    f"no cached text embeds for prompt {prompt!r} at {text_cache.cache_path(prompt)}"
-                )
-            return text_cache.load(prompt)
-
-        self._embeds = [fetch(prompt) for prompt in self.prompts]
+    def precompute_embeds(self) -> None:
+        """Encode every prompt (and the negative prompt, for true CFG) with
+        the model's text encoders, while they are attached."""
+        if not self.prompts:
+            return
+        self._embeds = self.model.encode_text(self.prompts)
         if self._wants_cfg():
-            self._negative_embeds = fetch(str(getattr(self.config, "validation_negative_prompt", "") or ""))
+            negative = str(getattr(self.config, "validation_negative_prompt", "") or "")
+            self._negative_embeds = self.model.encode_text([negative])[0]
 
     def _wants_cfg(self) -> bool:
         """True CFG (two forward passes) for families without guidance embeds."""
@@ -119,9 +119,11 @@ class Validation:
         return paths
 
     def _batch(self, embeds: Dict[str, np.ndarray], latent_shape) -> Dict[str, torch.Tensor]:
+        """Zero latents and the payload's arrays under their own keys, batch 1."""
         batch = {"latents": torch.zeros(latent_shape, dtype=torch.float32, device=self.device)}
-        for key, value in self.model.collate_text_embeds([embeds]).items():
-            batch[key] = torch.as_tensor(value, device=self.device)
+        for key, value in embeds.items():
+            if hasattr(value, "shape"):
+                batch[key] = torch.as_tensor(np.asarray(value), device=self.device)[None]
         return batch
 
     @torch.no_grad()

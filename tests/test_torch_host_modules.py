@@ -2,10 +2,12 @@
 
 The port imports nothing of ``simpletuner_tpu``: it keeps copies of the
 framework-free modules it reads (the config-field registry, the config and
-dataloader loaders, the local storage backend, the text-embed cache's read
-and write paths, the Flux LoRA key map).  These tests hold each copy to its
-JAX counterpart on the same inputs, exactly, and check in a fresh process
-that importing the whole port loads no module of the JAX package.
+dataloader loaders, the local storage backend, the text-embed cache, the
+Flux LoRA key map, the bucket math, the text-encoder specs).  These tests
+hold each copy to its JAX counterpart on the same inputs, exactly, and check
+in a fresh process that importing the whole port loads no module of the JAX
+package, and that it imports with ``jax``, ``safetensors``, ``PIL`` and
+``transformers`` refused (the caching tests hold the data and cache copies).
 """
 
 import dataclasses
@@ -37,15 +39,19 @@ from simpletuner_tpu_torch.training.lora import flux_key_map
 
 REPO = Path(__file__).resolve().parents[1]
 
-# a meta-path finder that refuses the JAX package, then every module of the
-# port and every import statement of chip_smoke.py (module level and inside
-# its functions); prints the JAX package's modules that got loaded
+# a meta-path finder that refuses the JAX package, JAX itself and the
+# libraries the port reads and writes its files without (safetensors, PIL,
+# transformers), then every module of the port and every import statement of
+# chip_smoke.py (module level and inside its functions); prints the JAX
+# package's modules that got loaded
 _ISOLATION_SCRIPT = r"""
 import ast, importlib, importlib.abc, pkgutil, sys
 
+REFUSED = ("simpletuner_tpu", "jax", "jaxlib", "flax", "safetensors", "PIL", "transformers")
+
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name == "simpletuner_tpu" or name.startswith("simpletuner_tpu."):
+        if name.split(".")[0] in REFUSED:
             raise ImportError(f"the port imported {name}")
         return None
 
@@ -199,3 +205,14 @@ def test_validation_defaults_to_the_card():
         with pytest.raises(RuntimeError, match="cuda"):
             Validation(model, config)
     assert Validation(model, config, device="cpu").device.type == "cpu"
+
+
+def test_text_encoder_specs_match():
+    from simpletuner_tpu.models.flux.model import Flux as JaxFlux
+
+    from simpletuner_tpu_torch.models.flux import Flux
+
+    ours = [dataclasses.asdict(s) for s in Flux.TEXT_ENCODER_CONFIGURATION]
+    theirs = [dataclasses.asdict(s) for s in JaxFlux.TEXT_ENCODER_CONFIGURATION]
+    assert ours == theirs
+    assert (Flux.LATENT_CHANNEL_COUNT, Flux.MODEL_TYPE) == (JaxFlux.LATENT_CHANNEL_COUNT, JaxFlux.MODEL_TYPE)

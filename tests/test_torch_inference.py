@@ -1,10 +1,14 @@
 """The torch port's render path against the JAX package, on the CPU.
 
-Scheduler, sampling loop, VAE decoder and the whole slice (cached embeds ->
-flow Euler loop over tiny Flux -> VAE decode -> PNG) take the same numpy
-weights, embeds and noise on both sides.  Also: the inference entry point end
-to end in a subprocess, its refusals, and a subprocess that proves the port
-imports without JAX, Flax, Optax, Orbax, PIL or transformers.
+Scheduler, sampling loop, VAE decoder and the whole slice (prompt encoded by
+the tiny text encoders -> flow Euler loop over tiny Flux -> VAE decode ->
+PNG) take the same numpy weights, embeds and noise on both sides.  The JAX
+side builds its render batch from the embed payload's keys, as the JAX
+``Validation`` does, so a render is unmasked even with
+``flux_attention_masked_training``; one test runs the JAX ``Validation``
+itself next to the port's.  Also: the inference entry point end to end in a
+subprocess, its refusals, and a subprocess that proves the port imports
+without JAX, Flax, Optax, Orbax, PIL or transformers.
 """
 
 import dataclasses
@@ -20,9 +24,8 @@ import pytest
 import torch
 from PIL import Image
 
-from simpletuner_tpu.caching.text_embeds import TextEmbeddingCache
-from simpletuner_tpu.data.backends.local import LocalDataBackend
 from simpletuner_tpu.models.flux.model import Flux as JaxFlux
+from simpletuner_tpu.models.text_encoders import load_text_encoders as jax_load_text_encoders
 from simpletuner_tpu.models.flux.transformer import FluxConfig as JaxFluxConfig
 from simpletuner_tpu.models.vae import AutoencoderKL as JaxAutoencoderKL
 from simpletuner_tpu.models.vae import VAEConfig as JaxVAEConfig
@@ -30,10 +33,14 @@ from simpletuner_tpu.schedulers import FlowMatchEulerScheduler as JaxScheduler
 from simpletuner_tpu.schedulers.flow_euler import flow_sigmas_for_training as jax_training_sigmas
 from simpletuner_tpu.schedulers import classifier_free_guidance as jax_cfg
 from simpletuner_tpu.schedulers import sample_loop as jax_sample_loop
+from simpletuner_tpu.training.validation import Validation as JaxValidation
 from simpletuner_tpu.training.validation import build_scheduler as jax_build_scheduler
 
-from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, load_inference_config, text_embed_cache
+from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, load_inference_config
+from simpletuner_tpu_torch.models.clip import clip_state_dict_from_flax
 from simpletuner_tpu_torch.models.flux import Flux, FluxConfig
+from simpletuner_tpu_torch.models.t5 import t5_state_dict_from_flax
+from simpletuner_tpu_torch.models.text_encoders import load_text_encoders
 from simpletuner_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from simpletuner_tpu_torch.schedulers import (
     FlowMatchEulerScheduler,
@@ -41,7 +48,8 @@ from simpletuner_tpu_torch.schedulers import (
     flow_sigmas_for_training,
     sample_loop,
 )
-from simpletuner_tpu_torch.training.validation import Validation, noise_generator, write_png
+from simpletuner_tpu_torch.training.trainer import Trainer
+from simpletuner_tpu_torch.training.validation import Validation, build_scheduler, noise_generator, write_png
 
 from torch_parity import bridge, numpy_variables, rel, t
 
@@ -100,10 +108,7 @@ def _config(tmp_path, **extra):
         "validation_guidance_real": 3.5,
         "flow_schedule_auto_shift": True,
         "flux_attention_masked_training": True,
-        "data_backend_config": [
-            {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
-             "cache_dir": str(tmp_path / "text")},
-        ],
+        "tokenizer_max_length": 16,
     }
     values.update(extra)
     path = tmp_path / "config.json"
@@ -111,16 +116,12 @@ def _config(tmp_path, **extra):
     return str(path)
 
 
-def _write_embeds(tmp_path, prompt=PROMPT, txt_len=12, valid=5, seed=0):
-    rng = np.random.default_rng(seed)
-    embeds = {
-        "t5_embeds": rng.standard_normal((txt_len, 32), dtype=np.float32),
-        "pooled_embeds": rng.standard_normal(32, dtype=np.float32),
-        "attention_mask": (np.arange(txt_len) < valid).astype(np.int64),
-    }
-    cache = TextEmbeddingCache("embeds", LocalDataBackend("embeds"), str(tmp_path / "text"), "flux")
-    cache.save(prompt, embeds)
-    return embeds
+def _jax_batch(payload):
+    """The JAX Validation's render batch: the payload's arrays under their own
+    keys (validation.py:714-718), so the T5 mask stays ``attention_mask``."""
+    batch = {"latents": jnp.zeros((1, 8, 8, 4))}
+    batch.update({k: jnp.asarray(v)[None] for k, v in payload.items() if hasattr(v, "shape")})
+    return batch
 
 
 def _jax_weights(config, arch=None):
@@ -161,7 +162,7 @@ def test_sample_loop_and_vae_decode_match_jax(tmp_path):
     # f32, 4 Euler steps over 4 blocks: only f32 sum order differs
     assert rel(out.numpy(), np.asarray(ref)) < 1e-4
 
-    vae = bridge(vae_vars, AutoencoderKL(VAEConfig.tiny(), torch.float32), ignore=("encoder", "quant_conv"))
+    vae = bridge(vae_vars, AutoencoderKL(VAEConfig.tiny(), torch.float32))
     z = rng.standard_normal((1, 8, 8, 4), dtype=np.float32)
     ref_img = jax.jit(lambda p, x: jvae.apply(p, x, method=JaxAutoencoderKL.decode))(vae_vars, z)
     with torch.no_grad():
@@ -171,26 +172,20 @@ def test_sample_loop_and_vae_decode_match_jax(tmp_path):
 
 
 def test_render_matches_jax_end_to_end(tmp_path):
-    """Config -> cached embeds -> runtime render -> PNG, against the JAX chain
+    """Config -> prompt encoded -> runtime render -> PNG, against the JAX chain
     (inference_conditioning -> sample_loop -> VAE decode -> uint8) on the same
-    weights and noise."""
+    weights, embeds and noise."""
     config_path = _config(tmp_path)
-    embeds = _write_embeds(tmp_path)
     runtime = CheckpointInferenceRuntime(config_path=config_path, output=str(tmp_path / "out"), device="cpu")
     jmodel, flux_vars, jvae, vae_vars = _jax_weights(runtime.config)
     bridge(flux_vars, runtime.module)
-    bridge(vae_vars, runtime.vae, ignore=("encoder", "quant_conv"))
+    bridge(vae_vars, runtime.vae)
     (path,) = runtime.render(PROMPT, steps=4)
     image = np.asarray(Image.open(path))
     # latents are resolution/8 (as in JAX); the tiny VAE upsamples only x2
     assert image.shape == (16, 16, 3) and image.dtype == np.uint8
 
-    batch = {
-        "latents": jnp.zeros((1, 8, 8, 4)),
-        "t5_embeds": jnp.asarray(embeds["t5_embeds"])[None],
-        "pooled_embeds": jnp.asarray(embeds["pooled_embeds"])[None],
-        "t5_masks": jnp.asarray(embeds["attention_mask"])[None],
-    }
+    batch = _jax_batch(runtime.model.encode_text([PROMPT])[0])
     noise = torch.randn((1, 8, 8, 4), generator=noise_generator(7, 0)).numpy()
     jsched = jax_build_scheduler(jmodel, 4, image_seq_len=16)
 
@@ -218,7 +213,6 @@ def test_render_on_a_quantized_base_matches_jax(tmp_path, precision):
     from simpletuner_tpu_torch.models.weight_bridge import flax_variables
 
     config_path = _config(tmp_path, model_type="lora", lora_rank=4, base_model_precision=precision)
-    embeds = _write_embeds(tmp_path)
     runtime = CheckpointInferenceRuntime(config_path=config_path, output=str(tmp_path / "out"), device="cpu")
     mode = runtime.model.base_precision
     dense = [m for m in runtime.module.modules() if isinstance(m, LoRADense)]
@@ -238,15 +232,10 @@ def test_render_on_a_quantized_base_matches_jax(tmp_path, precision):
         jmodel, flux_vars, jvae, vae_vars = _jax_weights(runtime.config)  # installs the int8 matmul mode
         rendered = dequantize_params(quantize_params(flux_vars, mode))
         bridge(rendered, runtime.module)
-        bridge(vae_vars, runtime.vae, ignore=("encoder", "quant_conv"))
+        bridge(vae_vars, runtime.vae)
         (path,) = runtime.render(PROMPT, steps=4)
         image = np.asarray(Image.open(path)).astype(np.int32)
-        batch = {
-            "latents": jnp.zeros((1, 8, 8, 4)),
-            "t5_embeds": jnp.asarray(embeds["t5_embeds"])[None],
-            "pooled_embeds": jnp.asarray(embeds["pooled_embeds"])[None],
-            "t5_masks": jnp.asarray(embeds["attention_mask"])[None],
-        }
+        batch = _jax_batch(runtime.model.encode_text([PROMPT])[0])
         noise = torch.randn((1, 8, 8, 4), generator=noise_generator(7, 0)).numpy()
         jsched = jax_build_scheduler(jmodel, 4, image_seq_len=16)
 
@@ -267,25 +256,20 @@ def test_render_on_a_quantized_base_matches_jax(tmp_path, precision):
 
 def test_true_cfg_render_matches_jax(tmp_path):
     """A family without a guidance embedding (schnell) renders with true CFG
-    against the cached negative prompt's embeds."""
+    against the negative prompt's embeds, both encoded by precompute_embeds."""
     config = load_inference_config(_config(
         tmp_path, validation_prompt=PROMPT, validation_guidance=4.0, validation_guidance_rescale=0.5,
         validation_negative_prompt="blurry"))
-    embeds = _write_embeds(tmp_path)
-    negative = _write_embeds(tmp_path, prompt="blurry", valid=3, seed=1)
     jmodel, flux_vars, _, _ = _jax_weights(config, dataclasses.replace(JaxFluxConfig.tiny(), guidance_embed=False))
     model = Flux(config, dataclasses.replace(FluxConfig.tiny(), guidance_embed=False))
+    Trainer(model, config, device="cpu").init_preprocessing_models()  # attaches the tiny text encoders
     module = bridge(flux_vars, model.create_module())
     validation = Validation(model, config, device="cpu")
-    validation.load_embeds(text_embed_cache(config, "flux"))
+    validation.precompute_embeds()
     out = validation._render_single(module, validation._embeds[0], 0)  # no decode_fn: latents
 
-    def batch(e):
-        return {"latents": jnp.zeros((1, 8, 8, 4)), "t5_embeds": jnp.asarray(e["t5_embeds"])[None],
-                "pooled_embeds": jnp.asarray(e["pooled_embeds"])[None],
-                "t5_masks": jnp.asarray(e["attention_mask"])[None]}
-
-    cond, uncond = jmodel.inference_conditioning(batch(embeds)), jmodel.inference_conditioning(batch(negative))
+    cond = jmodel.inference_conditioning(_jax_batch(validation._embeds[0]))
+    uncond = jmodel.inference_conditioning(_jax_batch(validation._negative_embeds))
     jsched = jax_build_scheduler(jmodel, config.validation_num_inference_steps, image_seq_len=16)
 
     def sample(v, c, u, n):
@@ -297,9 +281,58 @@ def test_true_cfg_render_matches_jax(tmp_path):
     assert rel(out, ref) < 1e-4  # f32, 20 guided steps: only f32 sum order differs
 
 
+def test_masked_training_flag_renders_unmasked_as_the_jax_validation(tmp_path, monkeypatch):
+    """With flux_attention_masked_training the JAX Validation still renders
+    unmasked: its batch carries the payload's ``attention_mask``, which
+    ``inference_conditioning`` does not read.  The JAX Validation itself
+    (precompute_embeds on the JAX tiny encoders, _render_single with the
+    port's noise) against the port's on the same weights."""
+    config = load_inference_config(_config(tmp_path, validation_prompt=PROMPT, validation_num_inference_steps=4))
+    assert config.flux_attention_masked_training
+    jmodel, flux_vars, jvae, vae_vars = _jax_weights(config)
+    specs = [dataclasses.replace(s, max_length=16) for s in jmodel.TEXT_ENCODER_CONFIGURATION]
+    jax_encoders = jax_load_text_encoders(specs, tiny=True)
+    jmodel.attach_text_encoders(jax_encoders)
+    decode = jax.jit(lambda z: jvae.apply(vae_vars, z, method=JaxAutoencoderKL.decode))
+    jax_validation = JaxValidation(jmodel, config, decode_fn=decode, output_dir=str(tmp_path / "jax"))
+    jax_validation.precompute_embeds()
+    assert not jax_validation.disabled
+    noise = torch.randn((1, 8, 8, 4), generator=noise_generator(7, 0)).numpy()
+    monkeypatch.setattr(jax.random, "normal", lambda key, shape, dtype=jnp.float32: jnp.asarray(noise, dtype))
+    ref = jax_validation._render_single(flux_vars, jax_validation._embeds[0], 0).astype(np.int32)
+
+    model = Flux(config)
+    encoders = load_text_encoders(specs, tiny=True, device="cpu")
+    encoders[0].model.load_state_dict(clip_state_dict_from_flax(jax_encoders[0].model.params))
+    encoders[1].model.load_state_dict(t5_state_dict_from_flax(jax_encoders[1].model.params))
+    model.attach_text_encoders(encoders)
+    module = bridge(flux_vars, model.create_module())
+    vae = bridge(vae_vars, AutoencoderKL(VAEConfig.tiny(), torch.float32))
+    validation = Validation(model, config, decode_fn=vae.decode, device="cpu")
+    validation.precompute_embeds()
+    payload, jax_payload = validation._embeds[0], jax_validation._embeds[0]
+    assert sorted(payload) == sorted(jax_payload) and np.array_equal(payload["attention_mask"],
+                                                                      jax_payload["attention_mask"])
+    assert 0 < payload["attention_mask"].sum() < payload["attention_mask"].size  # the mask would matter
+    image = validation._render_single(module, payload, 0).astype(np.int32)
+    # f32 both sides; uint8 truncation can flip a pixel by one level
+    diff = np.abs(image - ref)
+    assert diff.max() <= 1 and diff.mean() < 0.05
+
+    # the check tells the two apart: the trainer's collated (masked) conditioning renders otherwise
+    batch = {"latents": torch.zeros((1, 8, 8, 4))}
+    batch.update({k: torch.as_tensor(v) for k, v in model.collate_text_embeds([payload]).items()})
+    cond = model.inference_conditioning(batch)
+    assert "t5_masks" in cond
+    with torch.no_grad():
+        latents = sample_loop(build_scheduler(model, 4, image_seq_len=16), model.denoise_fn(module, cond), t(noise))
+        masked = vae.decode(latents / model.VAE_SCALING_FACTOR + model.VAE_SHIFT_FACTOR)[0]
+    masked = ((masked + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).numpy().astype(np.int32)
+    assert np.abs(masked - ref).max() > 1
+
+
 def test_cli_end_to_end_writes_the_rendered_png(tmp_path):
     config_path = _config(tmp_path, mixed_precision="bf16", vae_dtype="bf16")
-    _write_embeds(tmp_path)
     out_dir = tmp_path / "cli"
     result = subprocess.run(
         [sys.executable, "-m", "simpletuner_tpu_torch.inference", "--config", config_path,
@@ -321,10 +354,9 @@ def test_cli_end_to_end_writes_the_rendered_png(tmp_path):
 
 
 def test_refusals(tmp_path):
-    with pytest.raises(FileNotFoundError):  # no cached embeds: never zeros
-        CheckpointInferenceRuntime(_config(tmp_path), str(tmp_path), device="cpu").render("uncached", steps=1)
-    with pytest.raises(NotImplementedError):
-        CheckpointInferenceRuntime(_config(tmp_path, pretrained_model_name_or_path="/x"), device="cpu")
+    with pytest.raises(FileNotFoundError):  # a configured model path must exist: never random weights
+        CheckpointInferenceRuntime(_config(tmp_path, model_arch_preset=None, allow_untrained_init=False,
+                                           pretrained_model_name_or_path=str(tmp_path / "missing")), device="cpu")
     with pytest.raises(ValueError):
         CheckpointInferenceRuntime(
             _config(tmp_path, model_arch_preset=None, allow_untrained_init=False), device="cpu")

@@ -364,3 +364,73 @@ def test_quantized_base_train_step_on_the_card(cuda, precision):
     for _ in range(3):
         state, metrics = step(state, batch, gen)
         assert torch.isfinite(metrics["loss"]) and float(metrics["skipped_nonfinite"]) == 0.0
+
+
+# ---- the preprocessing path on the card (no hand-written kernel: library products) ----------
+
+
+def test_weight_import_onto_the_card(cuda, tmp_path):
+    """A tiny Flux checkpoint imports onto the card bitwise as onto the CPU, and an adapter round-trips."""
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.flux import Flux
+    from simpletuner_tpu_torch.models.layers import init_adapters, lora_parameters
+    from simpletuner_tpu_torch.models.checkpoint_layouts import flux_bfl_from_diffusers, flux_checkpoint_shapes
+    from simpletuner_tpu_torch.models.weight_import import load_transformer_params, save_safetensors
+    from simpletuner_tpu_torch.training.lora import load_lora_safetensors, save_lora_safetensors
+
+    model = Flux(config_namespace({"model_family": "flux", "model_arch_preset": "tiny", "model_type": "lora",
+                                   "lora_rank": 4}))
+    gen = torch.Generator().manual_seed(0)
+    weights = {k: torch.randn(v, generator=gen).to(torch.bfloat16) for k, v in flux_checkpoint_shapes(model.arch).items()}
+    path = str(tmp_path / "flux.safetensors")
+    save_safetensors(flux_bfl_from_diffusers(weights), path)
+    on_cpu = load_transformer_params(model, init_adapters(model.create_module(), gen), path)
+    with torch.device(cuda):
+        on_card = load_transformer_params(model, init_adapters(model.create_module()), path)
+    cpu_state, card_state = on_cpu.state_dict(), on_card.state_dict()
+    base = [k for k in cpu_state if not k.endswith(("lora_A", "lora_B"))]
+    assert all(card_state[k].is_cuda and torch.equal(card_state[k].cpu(), cpu_state[k]) for k in base)
+    save_lora_safetensors(model, on_cpu, str(tmp_path / "lora.safetensors"))
+    assert load_lora_safetensors(model, str(tmp_path / "lora.safetensors"), on_card) == []
+    card_lora = lora_parameters(on_card)
+    assert all(torch.equal(card_lora[k].cpu(), v) for k, v in lora_parameters(on_cpu).items())
+
+
+def test_vae_encode_on_the_card(cuda):
+    """The VAE encoder on the card in f32 against the CPU, and bf16 against f32, at a small size."""
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+
+    config = VAEConfig(base_channels=32, channel_multipliers=(1, 2, 4, 4), layers_per_block=1, latent_channels=16)
+    vae = init_parameters(AutoencoderKL(config), torch.Generator().manual_seed(1)).eval()
+    image = torch.rand((2, 128, 96, 3), generator=torch.Generator().manual_seed(2)) * 2 - 1
+    with torch.no_grad():
+        ref = vae.encode(image)
+        card = vae.to(cuda).encode(image.to(cuda))
+        half = AutoencoderKL(config, torch.bfloat16).to(cuda)
+        half.load_state_dict(vae.state_dict())
+        low = half.encode(image.to(cuda)).float()
+    # f32 convolutions on both (no TF32): cuDNN and the CPU sum in other orders
+    assert float((card.cpu() - ref).norm() / ref.norm()) < 1e-5
+    # bf16 compute, f32 statistics: a few bf16 roundings deep
+    assert float((low.cpu() - ref).norm() / ref.norm()) < 3e-2
+
+
+def test_text_encoders_on_the_card(cuda):
+    """The tiny CLIP and T5 encoders on the card against the same modules on
+    the CPU (f32, no TF32: sum order only), through Flux.encode_text."""
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.flux import Flux
+    from simpletuner_tpu_torch.models.text_encoders import load_text_encoders
+
+    model = Flux(config_namespace({"model_family": "flux", "model_arch_preset": "tiny"}))
+    prompts = ["a lighthouse on a basalt cliff", "portrait", ""]
+    model.attach_text_encoders(load_text_encoders(model.TEXT_ENCODER_CONFIGURATION, tiny=True, device="cpu"))
+    ref = model.encode_text(prompts)
+    for encoder in model.text_encoders:
+        encoder.model.to(cuda)
+    out = model.encode_text(prompts)
+    for a, b in zip(out, ref):
+        assert np.array_equal(a["attention_mask"], b["attention_mask"])
+        for key in ("t5_embeds", "pooled_embeds"):
+            assert np.linalg.norm(a[key] - b[key]) <= 1e-5 * np.linalg.norm(b[key]), key

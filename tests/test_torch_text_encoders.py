@@ -1,0 +1,171 @@
+"""The port's CLIP and T5 encoders against the Flax models the JAX package runs, on the CPU.
+
+Tiny CLIP text models (the JAX package's tiny configs) and tiny T5 encoders
+(``relu`` and ``gated-gelu``) take the Flax models' own params; the same
+tokens go through both.  f32 on both sides, so ``last_hidden_state`` and
+``pooled`` agree to f32 sum order (relative L2 under 1e-5).  The pooling
+rule is checked for the three cases HF distinguishes.  ``Flux.encode_text``
+is held against the JAX family's on the JAX package's tiny encoders, and an
+HF torch-layout checkpoint written by ``transformers``' torch classes loads
+into the port's modules and gives the HF outputs.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import transformers
+from transformers import CLIPTextConfig as HFCLIPTextConfig
+from transformers import FlaxCLIPTextModel, FlaxT5EncoderModel
+from transformers import T5Config as HFT5Config
+
+from simpletuner_tpu.models import layers as jl
+from simpletuner_tpu.models.flux.model import Flux as JaxFlux
+from simpletuner_tpu.models.text_encoders import _TinyTokenizer as JaxTinyTokenizer
+from simpletuner_tpu.models.text_encoders import load_text_encoders as jax_load_text_encoders
+
+from simpletuner_tpu_torch.inference import config_namespace
+from simpletuner_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel, clip_state_dict_from_flax, load_clip_text
+from simpletuner_tpu_torch.models.flux import Flux
+from simpletuner_tpu_torch.models.t5 import (
+    T5Config,
+    T5EncoderModel,
+    load_t5_encoder,
+    relative_position_bucket,
+    t5_state_dict_from_flax,
+)
+from simpletuner_tpu_torch.models.text_encoders import TextEncoder, _TinyTokenizer, load_text_encoders
+
+from torch_parity import rel
+
+PROMPTS = ["a lighthouse on a basalt cliff at dusk", "portrait", "a very long prompt " * 20, ""]
+
+
+def _tokens(max_length):
+    tokens = _TinyTokenizer(max_length)(PROMPTS)
+    return tokens["input_ids"], tokens["attention_mask"]
+
+
+def test_tiny_tokenizer_matches_jax():
+    ours, theirs = _TinyTokenizer(77)(PROMPTS), JaxTinyTokenizer(77)(PROMPTS)
+    for key in ("input_ids", "attention_mask"):
+        assert ours[key].dtype == theirs[key].dtype and np.array_equal(ours[key], theirs[key])
+
+
+def _clip_pair(eos_token_id, hidden=32):
+    config = HFCLIPTextConfig(vocab_size=1000, hidden_size=hidden, intermediate_size=64, num_hidden_layers=2,
+                              num_attention_heads=2, max_position_embeddings=77, eos_token_id=eos_token_id)
+    flax_model = FlaxCLIPTextModel(config, seed=0)
+    port = CLIPTextModel(CLIPTextConfig.from_hf(config.to_dict()))
+    port.load_state_dict(clip_state_dict_from_flax(flax_model.params))
+    return flax_model, port.eval()
+
+
+# 49407: HF's default eos, which no tiny token equals (pool at 0); 2: argmax of
+# the ids; 1: the tiny tokenizer's eos, the first position where it occurs
+@pytest.mark.parametrize("eos_token_id", [49407, 2, 1])
+@pytest.mark.parametrize("hidden", [32, 64], ids=["clip-l", "clip-g"])
+def test_clip_matches_flax(eos_token_id, hidden):
+    flax_model, port = _clip_pair(eos_token_id, hidden)
+    ids, mask = _tokens(77)
+    ref = flax_model(input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask))
+    with torch.no_grad():
+        out = port(torch.from_numpy(ids), torch.from_numpy(mask))
+    assert rel(out["last_hidden_state"].numpy(), np.asarray(ref.last_hidden_state)) < 1e-5
+    assert rel(out["pooler_output"].numpy(), np.asarray(ref.pooler_output)) < 1e-5
+    hidden_state = out["last_hidden_state"].numpy()
+    if eos_token_id == 49407:
+        expected = np.zeros(len(PROMPTS), np.int64)
+    elif eos_token_id == 2:
+        expected = ids.argmax(axis=-1)
+    else:
+        expected = (ids == 1).argmax(axis=-1)
+    np.testing.assert_array_equal(out["pooler_output"].numpy(), hidden_state[np.arange(len(PROMPTS)), expected])
+
+
+@pytest.mark.parametrize("feed_forward_proj", ["relu", "gated-gelu"])
+def test_t5_matches_flax(feed_forward_proj):
+    config = HFT5Config(vocab_size=1000, d_model=32, d_ff=64, num_layers=2, num_heads=2, d_kv=16,
+                        feed_forward_proj=feed_forward_proj)
+    flax_model = FlaxT5EncoderModel(config, seed=0)
+    port = T5EncoderModel(T5Config.tiny(feed_forward_proj))
+    port.load_state_dict(t5_state_dict_from_flax(flax_model.params))
+    ids, mask = _tokens(64)
+    ref = flax_model(input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask)).last_hidden_state
+    with torch.no_grad():
+        out = port.eval()(torch.from_numpy(ids), torch.from_numpy(mask))["last_hidden_state"]
+    assert rel(out.numpy(), np.asarray(ref)) < 1e-5
+
+
+def test_relative_position_buckets_match_flax():
+    from transformers.models.t5.modeling_flax_t5 import FlaxT5Attention
+
+    positions = np.arange(-700, 701)
+    ref = np.asarray(FlaxT5Attention._relative_position_bucket(jnp.asarray(positions), bidirectional=True,
+                                                                num_buckets=32, max_distance=128))
+    np.testing.assert_array_equal(relative_position_bucket(torch.from_numpy(positions)).numpy(), ref)
+
+
+def test_flux_encode_text_matches_jax():
+    """Flux.encode_text on the JAX package's tiny encoders and on the port's
+    modules with the same params: the cache payload, key for key."""
+    config = config_namespace({"model_family": "flux", "model_arch_preset": "tiny", "tokenizer_max_length": 24})
+    previous = jl._LORA_TARGET
+    try:
+        jmodel = JaxFlux(config)
+    finally:
+        jl.set_lora_target(previous)
+    specs = [type(s)(**{**s.__dict__, "max_length": 24}) for s in jmodel.TEXT_ENCODER_CONFIGURATION]
+    jax_encoders = jax_load_text_encoders(specs, tiny=True)
+    jmodel.attach_text_encoders(jax_encoders)
+    model = Flux(config)
+    ports = load_text_encoders(model.TEXT_ENCODER_CONFIGURATION, tiny=True, device="cpu")
+    ports[0].model.load_state_dict(clip_state_dict_from_flax(jax_encoders[0].model.params))
+    ports[1].model.load_state_dict(t5_state_dict_from_flax(jax_encoders[1].model.params))
+    model.attach_text_encoders([TextEncoder(s, e.model, e.tokenizer) for s, e in zip(specs, ports)])
+    ours, theirs = model.encode_text(PROMPTS), jmodel.encode_text(PROMPTS)
+    for a, b in zip(ours, theirs):
+        assert sorted(a) == sorted(b) == ["attention_mask", "pooled_embeds", "t5_embeds"]
+        for key in b:
+            assert a[key].dtype == b[key].dtype and a[key].shape == b[key].shape, key
+        assert np.array_equal(a["attention_mask"], b["attention_mask"])
+        assert rel(a["t5_embeds"], b["t5_embeds"]) < 1e-5 and rel(a["pooled_embeds"], b["pooled_embeds"]) < 1e-5
+
+
+def test_hf_torch_checkpoints_load(tmp_path):
+    """Checkpoints written by transformers' torch classes load by name into
+    the port's modules and give the HF forward's outputs."""
+    torch.manual_seed(0)
+    hf_clip = transformers.CLIPTextModel(HFCLIPTextConfig(
+        vocab_size=1000, hidden_size=32, intermediate_size=64, num_hidden_layers=2, num_attention_heads=2,
+        max_position_embeddings=77, eos_token_id=2)).eval()
+    hf_t5 = transformers.T5EncoderModel(HFT5Config(
+        vocab_size=1000, d_model=32, d_ff=64, num_layers=2, num_heads=2, d_kv=16, feed_forward_proj="gated-gelu",
+        dropout_rate=0.0)).eval()
+    hf_clip.save_pretrained(str(tmp_path / "text_encoder"), safe_serialization=True)
+    hf_t5.save_pretrained(str(tmp_path / "text_encoder_2"), safe_serialization=True)
+    clip = load_clip_text(str(tmp_path / "text_encoder"))
+    t5 = load_t5_encoder(str(tmp_path / "text_encoder_2"))
+    assert clip.config.eos_token_id == 2 and t5.config.gated
+    ids, mask = (torch.from_numpy(x).long() for x in _tokens(77))
+    with torch.no_grad():
+        ref_clip = hf_clip(input_ids=ids, attention_mask=mask)
+        ref_t5 = hf_t5(input_ids=ids, attention_mask=mask).last_hidden_state
+        out_clip, out_t5 = clip(ids, mask), t5(ids, mask)["last_hidden_state"]
+    assert rel(out_clip["last_hidden_state"].numpy(), ref_clip.last_hidden_state.numpy()) < 1e-5
+    assert rel(out_clip["pooler_output"].numpy(), ref_clip.pooler_output.numpy()) < 1e-5
+    assert rel(out_t5.numpy(), ref_t5.numpy()) < 1e-5
+    assert os.path.exists(str(tmp_path / "text_encoder_2" / "config.json"))
+
+
+def test_refusals():
+    with pytest.raises(NotImplementedError):
+        T5EncoderModel(T5Config.tiny("gated-silu"))
+    with pytest.raises(NotImplementedError):
+        CLIPTextModel(CLIPTextConfig.from_hf({"hidden_act": "gelu", "hidden_size": 32, "intermediate_size": 64,
+                                              "num_hidden_layers": 1, "num_attention_heads": 2}))
+    spec = type(Flux.TEXT_ENCODER_CONFIGURATION[0])(name="llm", family="llama")
+    with pytest.raises(NotImplementedError):
+        load_text_encoders([spec], tiny=True, device="cpu")

@@ -34,11 +34,10 @@ def fill_numpy(shapes, seed=0):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def bridge(variables, port, ignore=()):
+def bridge(variables, port):
     """Load a numpy variables tree (a quantized base's ``qscales`` included)
     into a port module through the weight bridge."""
-    return load_flax_params(port, variables["params"], variables.get("lora"), ignore=ignore,
-                            qscales=variables.get("qscales"))
+    return load_flax_params(port, variables["params"], variables.get("lora"), qscales=variables.get("qscales"))
 
 
 def rel(a, b):
