@@ -87,7 +87,27 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    function; every image cached; bf16 latents against the f32 encoder;
    images/s end to end and on the device, MFU, peak GiB.
 
-Phases 14-16 print before phase 4, which renders from phase 15's encoders.
+17. trainer: ``Trainer.run()`` (what ``python -m simpletuner_tpu_torch.train``
+   runs) on full-width, full-depth Flux.1-dev from phase 14's BFL file and
+   Flux dir (phase 15 adds its bf16 T5-XXL and seeded tokenizer files):
+   int8 base with quantized_matmul=full, remat attn, rank-16 LoRA on `all`,
+   AdamW 1e-4, the T5 mask in the attention, batch 1 at 1024 px over 8 of
+   phase 16's JPEGs in two buckets (one graph each), 8 steps with
+   checkpoints at 4 and 8 and the validation prompt rendered at 1024 px with
+   4 Euler steps; then a run resumed from checkpoint-4 whose losses and
+   final LoRA must equal the straight run's bitwise; each run's kernel
+   launches (every kernel must launch), init seconds and peak memory per
+   stage, caching rates, capture seconds per shape, median s/step beside
+   phase 12's graphed flagship, the idle share of a profiled window of the
+   resumed run, checkpoint save and restore seconds and bytes, validation
+   seconds.  Its checkpoints refer to the frozen base instead of writing it,
+   which keeps the script's disk writes near 40 GB in all (phases 14-15
+   write 37 GB, a full-state checkpoint 12.3 GB, and the runs save five
+   times); ``python -m simpletuner_tpu_torch.bench_checkpoint`` times the
+   full-state save and restore.
+
+Phases 14-16 print before phase 4, which renders from phase 15's encoders;
+phase 14's full-depth Flux file stays on disk for phase 17.
 Phases 3 and 7 also run head dims 72, 96 and 112 (pixart, lumina2, sana),
 which the wrappers zero-pad to 128, masked and unmasked.  Then a JSON line
 with the kernels (launches: the profiler's count in phase 12's profiled
@@ -149,6 +169,18 @@ TEXT_PROMPTS = 16
 # convolutions deep, the latents agree to about a percent in relative L2
 VAE_BF16_REL_L2 = 5e-2
 VAE_BATCH, VAE_IMAGES = 8, 24  # one batch of 8 in each of the three Flux buckets
+# phase 17: the trainer at full width and depth on 8 of phase 16's JPEGs in two
+# buckets (4 square, 4 at 1152x896), checkpoints every 4 of 8 steps, then a
+# resumed run from checkpoint-4; the validation prompt renders at 1024 px
+TRAIN_STEPS, TRAIN_CHECKPOINT_STEPS, TRAIN_VALIDATION_STEPS = 8, 4, 4
+TRAIN_CAPTIONS = [f"a seeded photo number {i}, waves of colour" for i in range(8)]
+TRAIN_PROMPT = "a lighthouse on a basalt cliff at dusk"
+# the checkpoints refer to the frozen base (checkpoint_frozen_base: reference)
+# instead of writing its 12 GB at each of the five saves, which keeps the
+# script's writes near 40 GB in all (phases 14-15 write 37 GB; python -m
+# simpletuner_tpu_torch.bench_checkpoint times the full-state save); the runs
+# then need a few GB of disk
+TRAIN_CHECKPOINT_GB = 4.0
 # phase 10: the Flux linears' (in, out): attention q/k/v and proj, single-block
 # linear1 (q, k, v, mlp) and linear2, the MLP in and out, double-block AdaLN
 INT8_SHAPES = ((3072, 3072), (3072, 21504), (15360, 3072), (3072, 12288), (12288, 3072), (3072, 18432))
@@ -693,7 +725,177 @@ def graph_step(kernels):
           speedup_median=eager["s_per_step_median"] / timed["s_per_step_median"])
     del graphed, run, state, saved
     torch.cuda.empty_cache()
-    return device
+    return device, timed["s_per_step_median"]
+
+
+def trainer_phase(paths: dict, flagship_median_s: float, kernels, device: str) -> dict:
+    """Phase 17: ``Trainer.run()`` on full-width, full-depth Flux with an int8
+    base, twice: a straight run of 8 steps, then a run resumed from its
+    checkpoint-4 (the checkpoint hard-linked into a fresh output dir, the
+    config otherwise the same); returns each kernel's launches in the two
+    runs."""
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.weight_import import load_safetensors_file
+    from simpletuner_tpu_torch.training.checkpoints import flatten_state
+    from simpletuner_tpu_torch.training.lora import load_lora_safetensors
+    from simpletuner_tpu_torch.training.trainer import Trainer
+
+    import gc
+
+    gc.collect()  # the earlier phases' modules, caught in autograd reference cycles
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    start = time.perf_counter()
+    work = paths["work"]
+    free = shutil.disk_usage(work).free
+    if free < TRAIN_CHECKPOINT_GB * 1e9:
+        raise RuntimeError(f"trainer: {free / 1e9:.1f} GB free under {work}, the checkpoints need "
+                           f"{TRAIN_CHECKPOINT_GB:.1f} GB")
+    # 4 square and 4 landscape JPEGs of phase 16, with captions
+    data = os.path.join(work, "train_data")
+    os.makedirs(data)
+    source = os.path.join(work, "vae_cache", "data")
+    # phase 16 writes img_<i>.jpg at its sizes in turn: i % 3 == 0 square, 1 the 1152x896 bucket
+    names = [f"img_{i:04d}.jpg" for i in range(0, 12, 3)] + [f"img_{i:04d}.jpg" for i in range(1, 12, 3)]
+    for name, caption in zip(names, TRAIN_CAPTIONS):
+        shutil.copy(os.path.join(source, name), os.path.join(data, name))
+        with open(os.path.join(data, os.path.splitext(name)[0] + ".txt"), "w") as handle:
+            handle.write(caption)
+
+    def values(out, **extra):
+        return {
+            "model_family": "flux", "model_flavour": "dev", "model_type": "lora", "lora_rank": 16,
+            "flux_lora_target": "all", "pretrained_model_name_or_path": paths["flux_dir"],
+            "pretrained_transformer_model_name_or_path": paths["flux_file"],
+            "base_model_precision": "int8-quanto", "quantized_matmul": "full", "gradient_checkpointing": True,
+            "gradient_checkpointing_policy": "attn", "optimizer": "adamw", "learning_rate": 1e-4,
+            "lr_scheduler": "constant", "flux_attention_masked_training": True, "mixed_precision": "bf16",
+            "text_encoder_precision": "bf16", "vae_dtype": "bf16", "train_batch_size": 1, "resolution": 1024,
+            "resolution_type": "pixel_area", "max_train_steps": TRAIN_STEPS,
+            "checkpointing_steps": TRAIN_CHECKPOINT_STEPS, "logging_steps": 1, "report_to": "jsonl", "seed": 42,
+            "validation_prompt": TRAIN_PROMPT, "validation_steps": TRAIN_STEPS, "validation_resolution": RESOLUTION,
+            "validation_num_inference_steps": TRAIN_VALIDATION_STEPS, "validation_seed": 42,
+            "validation_guidance_real": 3.5, "cache_dir": os.path.join(work, "train_cache"),
+            "output_dir": os.path.join(work, out), "checkpoint_frozen_base": "reference",
+            "data_backend_config": [
+                {"id": "train", "dataset_type": "image", "type": "local", "instance_data_dir": data,
+                 "resolution": 1024, "resolution_type": "pixel_area", "caption_strategy": "textfile",
+                 "cache_dir_vae": os.path.join(work, "train_cache", "vae")},
+                {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
+                 "cache_dir": os.path.join(work, "train_cache", "text")},
+            ],
+            **extra,
+        }
+
+    def run(config):
+        for kernel in kernels:
+            kernel.launches = 0
+        trainer = Trainer(config=TrainingConfig(config), device="cuda")
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        launches = {kernel.name: kernel.launches for kernel in kernels}
+        if not all(launches.values()):
+            raise RuntimeError(f"trainer: a kernel of the path was never launched: {launches}")
+        with open(os.path.join(config["output_dir"], "simpletuner-tpu-metrics.jsonl")) as handle:
+            metrics = [json.loads(line) for line in handle]
+        return trainer, metrics, launches, time.perf_counter() - t0
+
+    def step_seconds(trainer, metrics):
+        """Wall seconds of each logged step: log to log, without the steps
+        that captured a graph or follow a checkpoint or validation."""
+        skip = {c["step"] for c in trainer.capture_report}
+        skip |= {int(os.path.basename(s["path"]).rsplit("-", 1)[1]) + 1 for s in trainer.checkpoint_manager.saves}
+        return {m["step"]: m["time"] - prev["time"] for prev, m in zip(metrics, metrics[1:]) if m["step"] not in skip}
+
+    def report(trainer, run_s, metrics):
+        stages = trainer.stage_report
+        order = list(stages)
+        after = order[order.index("init_unload_text_encoder") + 1:]
+        startup = trainer.data_plane.startup_metrics
+        seconds = step_seconds(trainer, metrics)
+        return {
+            "run_s": run_s, "stage_s": {k: v["seconds"] for k, v in stages.items()},
+            "stage_peak_gib": {k: v["peak_gib"] for k, v in stages.items()},
+            "peak_gib_after_unload": max(stages[k]["peak_gib"] for k in after),
+            "peak_gib_run": max(v["peak_gib"] for v in stages.values()),
+            "allocated_gib_after_unload": stages["init_unload_text_encoder"]["allocated_gib"],
+            "caching": {"images": startup.get("images_train"), "vae_s": startup.get("vae_cache_train_s"),
+                        "images_per_s": startup.get("images_train", 0) / max(startup.get("vae_cache_train_s", 0), 1e-9),
+                        "captions": startup.get("captions"), "text_s": startup.get("text_cache_train_s"),
+                        "prompts_per_s": startup.get("captions", 0) / max(startup.get("text_cache_train_s", 0), 1e-9)},
+            "capture_s": [{"step": c["step"], "seconds": c["seconds"], "latents": c["shapes"]["latents"]}
+                          for c in trainer.capture_report],
+            "step_s": seconds, "s_per_step_median": float(np.median(list(seconds.values()))) if seconds else None,
+            "checkpoint_saves": [{"checkpoint": os.path.basename(s["path"]), "s": s["seconds"], "bytes": s["bytes"],
+                                  "gb_per_s": s["bytes"] / s["seconds"] / 1e9}
+                                 for s in trainer.checkpoint_manager.saves],
+            "restores_s": [r["seconds"] for r in trainer.checkpoint_manager.restores],
+            "full_state_bytes": sum(t.numel() * t.element_size() for t in flatten_state(trainer._state)[0].values()),
+            "validation_s": [{"step": v["step"], "s": v["seconds"]} for v in trainer.validation_report],
+        }
+
+    straight, straight_metrics, straight_launches, straight_s = run(values("train_straight"))
+    losses = [m["loss"] for m in straight_metrics]
+    if [m["step"] for m in straight_metrics] != list(range(1, TRAIN_STEPS + 1)) or \
+            not all(np.isfinite(losses)) or not all(m["grad_norm"] > 0 for m in straight_metrics):
+        raise RuntimeError(f"trainer: metrics {straight_metrics}")
+    if len(straight.capture_report) != 2:
+        raise RuntimeError(f"trainer: {len(straight.capture_report)} graphs captured, expected one per bucket")
+    out = os.path.join(work, "train_straight")
+    for step in (TRAIN_CHECKPOINT_STEPS, TRAIN_STEPS):
+        checkpoint = os.path.join(out, f"checkpoint-{step}")
+        present = set(os.listdir(checkpoint))
+        needed = {".checkpoint_complete", "manifest.json", "trainer_state.json", "pytorch_lora_weights.safetensors"}
+        if not needed <= present:
+            raise RuntimeError(f"trainer: {checkpoint} holds {sorted(present)}")
+        missing = load_lora_safetensors(straight.model, os.path.join(checkpoint, "pytorch_lora_weights.safetensors"),
+                                        straight._state.module)
+        if missing:
+            raise RuntimeError(f"trainer: the export of {checkpoint} lacks {missing[:4]}")
+    png = os.path.join(out, "validation", f"step_{TRAIN_STEPS}_0.png")
+    check_png(png, RESOLUTION, RESOLUTION)
+    straight_report = report(straight, straight_s, straight_metrics)
+    del straight
+    torch.cuda.empty_cache()
+
+    # the resumed run: checkpoint-4 in a fresh output dir, its files hard-linked
+    resumed_out = os.path.join(work, "train_resumed")
+    shutil.copytree(os.path.join(out, f"checkpoint-{TRAIN_CHECKPOINT_STEPS}"),
+                    os.path.join(resumed_out, f"checkpoint-{TRAIN_CHECKPOINT_STEPS}"), copy_function=os.link)
+    final_lora = load_safetensors_file(os.path.join(out, f"checkpoint-{TRAIN_STEPS}",
+                                                    "pytorch_lora_weights.safetensors"))
+    shutil.rmtree(os.path.join(out, f"checkpoint-{TRAIN_STEPS}", "state"))  # disk for the resumed run's
+    resumed, resumed_metrics, resumed_launches, resumed_s = run(values(
+        "train_resumed", resume_from_checkpoint="latest", profile_steps="6-8"))
+    tail = straight_metrics[TRAIN_CHECKPOINT_STEPS:]
+    if [m["step"] for m in resumed_metrics] != [m["step"] for m in tail] or \
+            [m["loss"] for m in resumed_metrics] != [m["loss"] for m in tail]:
+        raise RuntimeError(f"trainer: the resumed run's losses {[m['loss'] for m in resumed_metrics]} are not the "
+                           f"straight run's {[m['loss'] for m in tail]}")
+    resumed_lora = load_safetensors_file(os.path.join(resumed_out, f"checkpoint-{TRAIN_STEPS}",
+                                                      "pytorch_lora_weights.safetensors"))
+    if sorted(resumed_lora) != sorted(final_lora) or not all(torch.equal(resumed_lora[k], final_lora[k])
+                                                           for k in final_lora):
+        raise RuntimeError("trainer: the resumed run's final LoRA differs from the straight run's")
+    resumed_report = report(resumed, resumed_s, resumed_metrics)
+    phase("17 trainer", blocks=[19, 38], hidden=3072, base="int8", quantized_matmul="full", remat_policy="attn",
+          lora_rank=16, buckets=["1024x1024", "1152x896"], steps=TRAIN_STEPS, losses=losses,
+          grad_norms=[m["grad_norm"] for m in straight_metrics], resumed_losses_bitwise=True,
+          resumed_final_lora_bitwise=True, lora_tensors=len(final_lora), validation_png=os.path.basename(png),
+          launches_straight=straight_launches, launches_resumed=resumed_launches,
+          straight=straight_report, resumed=resumed_report,
+          profiled_window=resumed.profiler.summary, flagship_graphed_median_s=flagship_median_s,
+          allocated_gib_before_phase=baseline_gib,
+          trainer_vs_flagship=(straight_report["s_per_step_median"] / flagship_median_s
+                               if straight_report["s_per_step_median"] else None),
+          seconds=time.perf_counter() - start, device=device)
+    del resumed
+    torch.cuda.empty_cache()
+    return {"straight": straight_launches, "resumed": resumed_launches}
 
 
 def int8_cases() -> None:
@@ -932,7 +1134,6 @@ def weight_import(work: str) -> dict:
             "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
             "host_rss_gib": {"before": rss_full_before, "after": _rss_gib()},
             "cut_tensors_bitwise": len(base), "work_fs": _filesystem(work), "free_gb_before": free / 1e9}
-    os.remove(full_path)
     del full_module, full_state, bfl_state
     torch.cuda.empty_cache()
 
@@ -972,12 +1173,52 @@ def weight_import(work: str) -> dict:
           seconds=time.perf_counter() - start)
     del vae, clip, loaded_clip
     torch.cuda.empty_cache()
-    return {"work": work, "flux_dir": flux_dir, "clip_dir": clip_dir}
+    return {"work": work, "flux_dir": flux_dir, "clip_dir": clip_dir, "flux_file": full_path}
+
+
+def write_tokenizers(root: str, words) -> None:
+    """Tokenizer files in the layout of a diffusers Flux dir, for seeded
+    encoders: CLIP's BPE files (``tokenizer/``: one token per character, no
+    merges, CLIP's bos/eos ids) and T5's (``tokenizer_2/tokenizer.json``: a
+    unigram model over ``words`` and single characters, with T5's pad/eos/unk
+    ids, its metaspace pre-tokenizer and the eos appended)."""
+    import string
+
+    from tokenizers import Tokenizer, models, normalizers, pre_tokenizers, processors
+
+    clip = os.path.join(root, "tokenizer")
+    os.makedirs(clip, exist_ok=True)
+    chars = sorted(set(string.ascii_lowercase + string.digits + ",.#'-!?"))
+    vocab = {c: i for i, c in enumerate(chars)}
+    vocab.update({c + "</w>": len(chars) + i for i, c in enumerate(chars)})
+    vocab.update({"<|startoftext|>": 49406, "<|endoftext|>": 49407})
+    with open(os.path.join(clip, "vocab.json"), "w") as handle:
+        json.dump(vocab, handle)
+    with open(os.path.join(clip, "merges.txt"), "w") as handle:
+        handle.write("#version: 0.2\n")
+    with open(os.path.join(clip, "tokenizer_config.json"), "w") as handle:
+        json.dump({"model_max_length": 77, "bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
+                   "unk_token": "<|endoftext|>", "pad_token": "<|endoftext|>", "do_lower_case": True}, handle)
+    t5 = os.path.join(root, "tokenizer_2")
+    os.makedirs(t5, exist_ok=True)
+    pieces = [("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0), ("\u2581", -2.0)]
+    pieces += [("\u2581" + w, -1.0) for w in sorted({w.lower() for w in words})]
+    pieces += [(c, -5.0) for c in chars]
+    tokenizer = Tokenizer(models.Unigram(pieces, unk_id=2))
+    tokenizer.normalizer = normalizers.Lowercase()
+    tokenizer.pre_tokenizer = pre_tokenizers.Metaspace(replacement="\u2581", prepend_scheme="always")
+    tokenizer.post_processor = processors.TemplateProcessing(single="$A </s>", special_tokens=[("</s>", 1)])
+    tokenizer.save(os.path.join(t5, "tokenizer.json"))
+    with open(os.path.join(t5, "tokenizer_config.json"), "w") as handle:
+        json.dump({"model_max_length": 512, "eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>",
+                   "extra_ids": 0}, handle)
 
 
 def text_encoders(paths: dict) -> list:
     """Phase 15: CLIP-L and T5-XXL through Flux.encode_text and the text
     cache; returns the encoders (bf16, on the card) for phase 4."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -989,6 +1230,7 @@ def text_encoders(paths: dict) -> list:
     from simpletuner_tpu_torch.models.flux import Flux
     from simpletuner_tpu_torch.models.t5 import T5Config, T5EncoderModel
     from simpletuner_tpu_torch.models.text_encoders import TextEncoder, _TinyTokenizer, init_encoder
+    from simpletuner_tpu_torch.models.weight_import import save_safetensors
 
     dev = torch.device("cuda")
     start = time.perf_counter()
@@ -999,6 +1241,15 @@ def text_encoders(paths: dict) -> list:
         t5_f32 = init_encoder(T5EncoderModel(T5Config.xxl(), torch.float32), gen).eval()
         t5 = T5EncoderModel(T5Config.xxl(), torch.bfloat16).eval()
     t5.load_state_dict(t5_f32.state_dict())
+    # the bf16 T5-XXL and both tokenizers join phase 14's Flux dir (phase 17 trains from it)
+    t5_dir = os.path.join(paths["flux_dir"], "text_encoder_2")
+    os.makedirs(t5_dir)
+    t0 = time.perf_counter()
+    save_safetensors(t5.state_dict(), os.path.join(t5_dir, "model.safetensors"))
+    with open(os.path.join(t5_dir, "config.json"), "w") as handle:
+        json.dump({**dataclasses.asdict(T5Config.xxl()), "architectures": ["T5EncoderModel"]}, handle)
+    write_tokenizers(paths["flux_dir"], " ".join(prompts_for(TEXT_PROMPTS) + TRAIN_CAPTIONS + [TRAIN_PROMPT]).split())
+    t5_write_s = time.perf_counter() - t0
     specs = Flux.TEXT_ENCODER_CONFIGURATION
     encoders = [TextEncoder(specs[0], clip, _TinyTokenizer(specs[0].max_length)),
                 TextEncoder(specs[1], t5, _TinyTokenizer(specs[1].max_length))]
@@ -1057,7 +1308,8 @@ def text_encoders(paths: dict) -> list:
           e2e_mfu=TEXT_PROMPTS / e2e_s * flops / PEAK_BF16_FLOPS, t5_ms_per_batch=t5_ms, clip_ms_per_batch=clip_ms,
           device_prompts_per_s=device_rate, device_mfu=device_rate * flops / PEAK_BF16_FLOPS,
           t5_bf16_vs_f32_rel_l2=err, t5_bf16_vs_f32_rel_l2_valid_tokens=err_valid, bound=T5_BF16_REL_L2,
-          peak_gib=torch.cuda.max_memory_allocated() / 2**30, seconds=time.perf_counter() - start)
+          peak_gib=torch.cuda.max_memory_allocated() / 2**30, t5_write_s=t5_write_s,
+          seconds=time.perf_counter() - start)
     del t5_f32, f32_out, bf16_out
     torch.cuda.empty_cache()
     return encoders
@@ -1326,15 +1578,16 @@ def main() -> int:
               txt_valid=int(embeds["attention_mask"].sum()))
         profile_denoise(model.denoise_fn(module, unmasked_cond), noise, sigma)  # as the render runs it
         del runtime, module, model, encoders
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    bwd_entries = backward_cases()
-    train_steps(kernels)
-    gradient_parity("9 gradient parity")
-    int8_cases()
-    gradient_parity("11 gradient parity (int8 base)", quant="int8")
-    launches_main = graph_step(kernels)
-    gradient_parity("13 gradient parity (full depth)", depth=(19, 38))
+        bwd_entries = backward_cases()
+        train_steps(kernels)
+        gradient_parity("9 gradient parity")
+        int8_cases()
+        gradient_parity("11 gradient parity (int8 base)", quant="int8")
+        launches_main, flagship_median = graph_step(kernels)
+        gradient_parity("13 gradient parity (full depth)", depth=(19, 38))
+        trainer_phase(checkpoints, flagship_median, kernels, smi)
 
     sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
                "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}

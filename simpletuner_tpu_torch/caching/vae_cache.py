@@ -94,6 +94,14 @@ class VAECache:
     def save(self, filepath: str, latents: np.ndarray) -> None:
         self.data_backend.torch_save(latents, self.generate_vae_cache_filename(filepath)[0])
 
+    def get(self, filepath: str) -> np.ndarray:
+        """The cached latents of ``filepath`` (the collate's read); the JAX
+        cache's on-demand encode is not ported, so a missing entry raises
+        KeyError as the JAX cache does without ``ondemand``."""
+        if self.exists(filepath):
+            return self.load(filepath)
+        raise KeyError(f"no cached latents for {filepath}")
+
     # ---- discovery ---------------------------------------------------------------------------
     def discover_unprocessed_files(self) -> List[str]:
         """Full candidate list in deterministic (bucket-sorted) order.

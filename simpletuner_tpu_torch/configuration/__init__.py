@@ -1,8 +1,9 @@
-"""The port's configuration: the field registry, the config-file loader and
-the dataloader-config parser, copied from ``simpletuner_tpu/configuration``
-(the JAX package's ``TrainingConfig`` is not: its cross-validation reaches the
-JAX optimizer registry)."""
+"""The port's configuration: the field registry, the config-file loader, the
+dataloader-config parser and ``TrainingConfig``, copied from
+``simpletuner_tpu/configuration`` (``TrainingConfig`` leaves the optimizer
+name to the port's ``get_optimizer``)."""
 
+from .args import TrainingConfig
 from .dataloader import DataloaderConfigError, DatasetConfig, load_dataloader_config
 from .fields import REGISTRY, ConfigField, FieldRegistry, FieldType
 from .loader import find_config_file, load_config, normalize_key
@@ -18,4 +19,5 @@ __all__ = [
     "find_config_file",
     "load_config",
     "normalize_key",
+    "TrainingConfig",
 ]

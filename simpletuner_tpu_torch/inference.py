@@ -11,8 +11,8 @@ through the port's validation path: prompts encoded by the attached text
 encoders -> flow Euler loop over the Flux DiT (the Hopper flash kernel on the
 card) -> VAE decode -> PNG.
 
-Not ported yet, and refused: Orbax checkpoints (``--checkpoint``) and
-families other than flux.  A ``base_model_precision`` (``model_type=lora``
+Not ported yet, and refused: checkpoints (``--checkpoint``) and families
+other than flux (``models/registry.py``).  A ``base_model_precision`` (``model_type=lora``
 only) quantizes the base after it is loaded, as the JAX trainer's
 ``create_train_state`` does, and the render then uses that base dequantized
 to bf16 with dense products, as the JAX runtime renders
@@ -30,8 +30,8 @@ from typing import List, Optional
 
 from .configuration.fields import REGISTRY
 from .configuration.loader import load_config, normalize_key
-from .models.flux import Flux
 from .models.layers import dequantize_module, quantize_module
+from .models.registry import get_model_family
 from .training.trainer import Trainer
 from .training.validation import Validation
 
@@ -64,13 +64,10 @@ class CheckpointInferenceRuntime:
         config_overrides: Optional[dict] = None,
         device: str = "cuda",
     ) -> None:
-        config = load_inference_config(config_path, config_overrides)
-        family = getattr(config, "model_family", None)
-        if family != "flux":
-            raise NotImplementedError(f"model_family={family!r} is not ported (only flux)")
+        config = load_inference_config(config_path, {**(config_overrides or {}), "output_dir": output})
         self.config = config
         self.output_dir = output
-        trainer = Trainer(Flux(config), config, device=device)
+        trainer = Trainer(get_model_family(config), config, device=device)
         trainer.init_preprocessing_models()
         trainer.init_load_base_model()
         self.trainer, self.model, self.device = trainer, trainer.model, trainer.device
@@ -109,7 +106,7 @@ class CheckpointInferenceRuntime:
             self.model, config, decode_fn=self._decode_fn, output_dir=self.output_dir, device=self.device
         )
         validation.precompute_embeds()
-        return validation.run_validations(self.module)
+        return validation.run_validations(self.module, force=True)
 
 
 def run_inference(

@@ -62,6 +62,9 @@ class ModelFoundation:
     MODEL_TYPE: str = "transformer"  # transformer | unet
     PREDICTION_TYPE: str = "flow_matching"
     REQUIRES_VAE: bool = True
+    MODALITY: str = "image"
+    DEFAULT_RESOLUTION: int = 1024
+    HUGGINGFACE_PATHS: Dict[str, str] = {}
     DEFAULT_FLAVOUR: Optional[str] = None
     TEXT_ENCODER_CONFIGURATION: Sequence[TextEncoderSpec] = ()
     # --slider_lora_target: attention-only adapter for concept-slider training
@@ -85,6 +88,16 @@ class ModelFoundation:
     @property
     def prediction_type(self) -> str:
         return getattr(self.config, "prediction_type", None) or self.PREDICTION_TYPE
+
+    def huggingface_path(self) -> Optional[str]:
+        explicit = getattr(self.config, "pretrained_model_name_or_path", None)
+        if explicit:
+            return explicit
+        if self.flavour and self.flavour in self.HUGGINGFACE_PATHS:
+            return self.HUGGINGFACE_PATHS[self.flavour]
+        if self.HUGGINGFACE_PATHS:
+            return next(iter(self.HUGGINGFACE_PATHS.values()))
+        return None
 
     # ---- adapters ----------------------------------------------------------------------
     @property

@@ -35,7 +35,14 @@ class Flux(ModelFoundation):
     MODEL_TYPE = "transformer"
     PREDICTION_TYPE = "flow_matching"
     LATENT_CHANNEL_COUNT = 16
+    DEFAULT_RESOLUTION = 1024
     DEFAULT_FLAVOUR = "dev"
+    HUGGINGFACE_PATHS = {
+        "dev": "black-forest-labs/FLUX.1-dev",
+        "schnell": "black-forest-labs/FLUX.1-schnell",
+        "krea": "black-forest-labs/FLUX.1-Krea-dev",
+        "kontext": "black-forest-labs/FLUX.1-Kontext-dev",
+    }
     TEXT_ENCODER_CONFIGURATION = (
         TextEncoderSpec(name="clip-l", family="clip-l", subfolder="text_encoder", max_length=77, output="pooled"),
         TextEncoderSpec(name="t5-xxl", family="t5-xxl", subfolder="text_encoder_2", max_length=512),

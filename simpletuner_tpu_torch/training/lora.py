@@ -15,7 +15,7 @@ are not ported.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import torch
 from torch import nn
@@ -83,10 +83,16 @@ def _key_map_for(model) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------------
 
 
-def _adapters(module: nn.Module) -> Dict[str, Dict[str, nn.Parameter]]:
-    """The module's adapters by JAX module path: {"double_0/img_attn_q": {"lora_A", "lora_B"}}."""
-    flat: Dict[str, Dict[str, nn.Parameter]] = {}
-    for path, param in lora_parameters(module).items():
+Adapters = Union[nn.Module, Mapping[str, torch.Tensor]]
+
+
+def _adapters(module: Adapters) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The adapters by JAX module path: {"double_0/img_attn_q": {"lora_A",
+    "lora_B"}}, from a module or from its ``lora_parameters`` (a snapshot of
+    them, e.g. the trainer's host copy at a checkpoint)."""
+    flat: Dict[str, Dict[str, torch.Tensor]] = {}
+    tensors = lora_parameters(module) if isinstance(module, nn.Module) else module
+    for path, param in tensors.items():
         parent, leaf = path.rsplit("/", 1)
         flat.setdefault(parent, {})[leaf] = param
     return flat
@@ -97,10 +103,10 @@ def _prefix(model) -> str:
 
 
 def lora_state_dict(
-    model, module: nn.Module, format: str = "diffusers", alpha: Optional[float] = None
+    model, module: Adapters, format: str = "diffusers", alpha: Optional[float] = None
 ) -> Dict[str, torch.Tensor]:
-    """The module's adapters as the tensors of an adapter file (f32, on the
-    host): fused projections (Flux ``linear1``) split into their diffusers
+    """The adapters of a module (or a snapshot of its ``lora_parameters``)
+    as the tensors of an adapter file (f32, on the host): fused projections (Flux ``linear1``) split into their diffusers
     parts with the shared A and the slice of B."""
     key_map = _key_map_for(model)
     prefix = _prefix(model)
@@ -134,12 +140,13 @@ def _emit(tensors: Dict[str, torch.Tensor], module: str, a: torch.Tensor, b: tor
 
 def save_lora_safetensors(
     model,
-    module: nn.Module,
+    module: Adapters,
     path: str,
     format: str = "diffusers",
     metadata: Optional[Dict[str, str]] = None,
 ) -> None:
-    """Write the module's adapters as a diffusers- or ComfyUI-layout file."""
+    """Write the adapters of a module (or a snapshot of its
+    ``lora_parameters``) as a diffusers- or ComfyUI-layout file."""
     meta = {"format": "pt"}
     if metadata:
         meta.update({k: str(v) for k, v in metadata.items()})

@@ -32,13 +32,14 @@ critics, text-encoder and sidecar training and CREPA raise.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 from torch import nn
 
-from ..models.layers import freeze_base, quantize_module
+from ..models.layers import LoRADense, freeze_base, quantize_module
 from ..ops.flash_attention import flash_bwd_dkv_kernel, flash_bwd_dq_kernel, flash_fwd_kernel
 from .ema import EMAConfig, ema_init, ema_update
 from .optimizers import global_norm
@@ -87,6 +88,38 @@ class TrainState:
         if use_ema and self.ema is not None:
             state.update({path.replace("/", "."): value for path, value in self.ema.items()})
         return state
+
+
+@contextlib.contextmanager
+def render_view(state: TrainState, use_ema: bool = False, zero_adapters: bool = False) -> Iterator[nn.Module]:
+    """The state's module as the JAX trainer renders ``TrainState.variables``,
+    for the duration of a ``with``: a quantized base is used dequantized with
+    dense products (``quantized_matmul`` "off": each layer dequantizes its
+    weight to its dtype at use, one layer at a time), and the adapters hold
+    the EMA (``use_ema``, when the state has one) or zeros
+    (``zero_adapters``, the base-model render).  The adapters' values are
+    copied in and back in place, so graphs captured over the state stay
+    valid."""
+    module = state.module
+    modes = {sub: sub.quantized_matmul for sub in module.modules() if isinstance(sub, LoRADense)}
+    swap = zero_adapters or (use_ema and state.ema is not None)
+    saved = None
+    with torch.no_grad():
+        if swap:
+            saved = {key: param.clone() for key, param in state.trainable.items()}
+            for key, param in state.trainable.items():
+                param.copy_(torch.zeros_like(param) if zero_adapters else state.ema[key])
+    for sub in modes:
+        sub.quantized_matmul = "off"
+    try:
+        yield module
+    finally:
+        for sub, mode in modes.items():
+            sub.quantized_matmul = mode
+        if saved is not None:
+            with torch.no_grad():
+                for key, param in state.trainable.items():
+                    param.copy_(saved[key])
 
 
 def create_train_state(
@@ -276,7 +309,8 @@ class GraphedTrainStep:
     wrapper runs then, so the launch counters do not move at a replay (the
     profiler reads a replay's launches on the card)."""
 
-    def __init__(self, step_fn: TrainStep, state: TrainState, example_batch: Dict, generator: torch.Generator) -> None:
+    def __init__(self, step_fn: TrainStep, state: TrainState, example_batch: Dict, generator: torch.Generator,
+                 pool=None, stream: Optional[torch.cuda.Stream] = None) -> None:
         schedule = step_fn.model.flow_schedule_config()
         if schedule.custom_sigmas and schedule.custom_mode == "round-robin":
             raise ValueError("flow_timesteps_mode=round-robin reads the step on the host, which a captured step "
@@ -297,7 +331,7 @@ class GraphedTrainStep:
         with torch.no_grad():
             saved = [t.clone() for t in state_tensors(self.state)]
         saved_rng = generator.get_state()
-        side = torch.cuda.Stream(device)
+        side = stream if stream is not None else torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
@@ -309,7 +343,7 @@ class GraphedTrainStep:
         before = [counter.launches for counter in LAUNCH_COUNTERS]
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph, stream=side):
+        with torch.cuda.graph(self.graph, pool=pool, stream=side):
             self.metrics = self._body()
         self.captured_launches = {counter: counter.launches - count
                                   for counter, count in zip(LAUNCH_COUNTERS, before)}
@@ -348,7 +382,8 @@ class GraphedTrainStep:
 
 
 def jit_train_step(step_fn: TrainStep, state: TrainState, example_batch: Dict,
-                   generator: torch.Generator) -> GraphedTrainStep:
+                   generator: torch.Generator, pool=None,
+                   stream: Optional[torch.cuda.Stream] = None) -> GraphedTrainStep:
     """The step as one CUDA graph: the counterpart of the JAX
     ``jit_train_step`` (train_state.py:350-364) on one device, with no mesh.
 
@@ -359,5 +394,11 @@ def jit_train_step(step_fn: TrainStep, state: TrainState, example_batch: Dict,
     registered with the graph, so each replay draws new noise and sigmas, the
     same numbers an eager step would.  The state, batch and generator must
     be on a CUDA device: there is no eager fallback, and a capture that fails
-    raises."""
-    return GraphedTrainStep(step_fn, state, example_batch, generator)
+    raises.  Steps for several batch shapes over one state share its
+    graphs' memory through one ``pool`` (``torch.cuda.graph_pool_handle()``):
+    they replay one at a time, and each call's metrics are copied out before
+    the next replay.  Such steps also warm up and capture on one side
+    ``stream``: the adapters' gradient accumulators outlive a capture and
+    keep the stream they were made on, and a capture on another stream
+    than theirs is invalidated."""
+    return GraphedTrainStep(step_fn, state, example_batch, generator, pool, stream)

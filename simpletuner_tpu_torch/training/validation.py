@@ -1,22 +1,33 @@
 """Validation renders: prompt embeds -> flow Euler sampling -> VAE decode -> PNG.
 
-Counterpart of the render path of ``simpletuner_tpu/training/validation.py``
-(``build_scheduler``, resolution and seed handling, ``precompute_embeds``,
-``_latent_shape``, ``_render_single``, ``_save_png``).  ``precompute_embeds``
-encodes the prompts (and, for true CFG, the negative prompt) through the
-model's attached text encoders.  The render batch takes the payload's keys
-as they are, as the JAX ``_render_single`` does (validation.py:714-718): the
-T5 padding mask stays ``attention_mask``, which ``inference_conditioning``
-does not read, so renders are unmasked, as in the JAX package, even with
+Counterpart of ``simpletuner_tpu/training/validation.py``: ``build_scheduler``,
+resolution and seed handling, the prompt list (``validation_prompt``, a user
+prompt library or the built-in one), ``precompute_embeds``, the trainer's
+schedule (``would_validate``), ``run_validations`` -> ``_run_one_pass``
+(step-named PNGs with a slug, ``num_validation_images`` variants, the
+``_vs_base`` stitch against ``run_benchmark``'s base renders, the
+validation webhook event and the trackers' images), ``_latent_shape`` and
+``_render_single``.  ``precompute_embeds`` encodes the prompts (and, for
+true CFG, the negative prompt) through the model's attached text encoders.
+The render batch takes the payload's keys as they are, as the JAX
+``_render_single`` does (validation.py:714-718): the T5 padding mask stays
+``attention_mask``, which ``inference_conditioning`` does not read, so
+renders are unmasked, as in the JAX package, even with
 ``flux_attention_masked_training``.  Where the JAX ``precompute_embeds``
 logs a failed encode and disables validation, the port raises.  Noise comes
 from a ``torch.Generator`` seeded from ``validation_seed`` and the prompt
-index.  Previews, img2img, adapter sweeps, benchmarks, video/audio and
-trackers are not ported.  PNGs are written with ``zlib``/``struct`` alone.
+index.  ``run_validations`` takes the module to render; the trainer hands it
+``train_state.render_view`` (the counterpart of ``TrainState.variables``).
+Refused, naming ROADMAP Queue 1 item 4d: img2img (``validation_using_datasets``),
+validation adapters, external-script validation, previews, batched
+(``validation_parallel``) and staged renders and skip-layer guidance.  PNGs are written with
+``zlib``/``struct`` alone.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import os
 import struct
 import zlib
@@ -27,6 +38,26 @@ import torch
 from torch import nn
 
 from ..schedulers import FlowMatchEulerScheduler, classifier_free_guidance, sample_loop
+from ..webhooks.events import validation_event
+
+logger = logging.getLogger(__name__)
+
+# default validation prompts for --validation_prompt_library without a user
+# library file (the JAX package's BUILTIN_PROMPT_LIBRARY)
+BUILTIN_PROMPT_LIBRARY: Dict[str, str] = {
+    "woman": "a woman, hanging out on the beach",
+    "man": "a man playing guitar in a park",
+    "child": "a child flying a kite on a sunny day",
+    "animal": "a golden retriever running through a field",
+    "landscape": "an alpine lake at sunrise, mist over the water",
+    "architecture": "a futuristic city skyline at night, neon reflections",
+    "still_life": "a bowl of fruit on a wooden table, soft window light",
+    "abstract": "colorful abstract shapes, flowing gradients",
+}
+
+# validation options the port does not render (ROADMAP Queue 1 item 4d)
+_UNPORTED = ("validation_using_datasets", "validation_adapters", "validation_adapter_path", "validation_preview",
+             "validation_parallel", "validation_guidance_skip_layers")
 
 
 def resolve_device(device) -> torch.device:
@@ -65,35 +96,62 @@ class Validation:
         config,
         decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
         output_dir: str = "output",
+        trackers: Optional[List] = None,
+        webhook_handler=None,
         device="cuda",
     ):
+        for key in _UNPORTED:
+            if getattr(config, key, None):
+                raise NotImplementedError(f"{key} is not ported (ROADMAP Queue 1 item 4d)")
+        method = str(getattr(config, "validation_method", None) or "simpletuner-local").strip().lower()
+        if method.replace("_", "-") != "simpletuner-local":
+            raise NotImplementedError(f"validation_method={method!r} is not ported (ROADMAP Queue 1 item 4d)")
         self.model = model
         self.config = config
         self.decode_fn = decode_fn
         self.output_dir = output_dir
+        self.trackers = trackers or []
+        self.webhook_handler = webhook_handler
         self.device = resolve_device(device)
         raw = getattr(config, "validation_prompt", None)
         self.prompts: List[str] = ([raw] if isinstance(raw, str) else list(raw)) if raw else []
+        library = getattr(config, "user_prompt_library", None)
+        if library and os.path.exists(str(library)):
+            with open(library) as handle:
+                self.prompts.extend(json.load(handle).values())
+        elif getattr(config, "validation_prompt_library", False):
+            self.prompts.extend(BUILTIN_PROMPT_LIBRARY.values())
         self._embeds: List[Dict[str, np.ndarray]] = []
         self._negative_embeds: Optional[Dict[str, np.ndarray]] = None
+        self._benchmark_images: List[np.ndarray] = []
 
         self.num_steps = int(getattr(config, "validation_num_inference_steps", 20) or 20)
         raw_res = getattr(config, "validation_resolution", None) or getattr(config, "resolution", 512) or 512
         if isinstance(raw_res, str) and "x" in raw_res:  # reference "WxH" format
             raw_res = raw_res.split("x")[0]
         self.resolution = int(float(raw_res))
+        self.interval = getattr(config, "validation_steps", None)
         self.seed = int(getattr(config, "validation_seed", None) or getattr(config, "seed", 42) or 42)
+        self.disabled = bool(getattr(config, "validation_disable", False)) or not self.prompts
 
     # ---- embeds --------------------------------------------------------------------------
     def precompute_embeds(self) -> None:
         """Encode every prompt (and the negative prompt, for true CFG) with
         the model's text encoders, while they are attached."""
-        if not self.prompts:
+        if self.disabled:
             return
         self._embeds = self.model.encode_text(self.prompts)
         if self._wants_cfg():
             negative = str(getattr(self.config, "validation_negative_prompt", "") or "")
             self._negative_embeds = self.model.encode_text([negative])[0]
+
+    def _cfg_params(self, scheduler):
+        """(rescale, no-CFG threshold t) of the guided render
+        (``validation_guidance_rescale``, ``validation_no_cfg_until_timestep``)."""
+        rescale = float(getattr(self.config, "validation_guidance_rescale", 0.0) or 0.0)
+        until = int(getattr(self.config, "validation_no_cfg_until_timestep", 0) or 0)
+        no_cfg_t = scheduler.timestep(min(until, scheduler.num_steps - 1)) if until > 0 else None
+        return rescale, no_cfg_t
 
     def _wants_cfg(self) -> bool:
         """True CFG (two forward passes) for families without guidance embeds."""
@@ -101,22 +159,76 @@ class Validation:
         has_guidance_embed = bool(getattr(getattr(self.model, "arch", None), "guidance_embed", False))
         return guidance > 1.0 and not has_guidance_embed
 
+    # ---- scheduling ------------------------------------------------------------------------
+    def would_validate(self, step: int, force: bool = False) -> bool:
+        if self.disabled:
+            return False
+        if force:
+            return True
+        return bool(self.interval) and step > 0 and step % int(self.interval) == 0
+
+    # ---- benchmark (base-model renders for stitching) ---------------------------------------
+    def run_benchmark(self, module: nn.Module) -> None:
+        """Render every prompt with ``module`` (the trainer's base, adapters
+        zeroed) into ``benchmark/base_<i>.png``; later passes stitch their
+        render beside it."""
+        if self.disabled:
+            return
+        self._benchmark_images = []
+        for index, embeds in enumerate(self._embeds):
+            image = self._render_single(module, embeds, index)
+            path = os.path.join(self.output_dir, "benchmark", f"base_{index}.png")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            self._save_png(image, path)
+            self._benchmark_images.append(image)
+
+    def _stitch(self, base: np.ndarray, current: np.ndarray) -> np.ndarray:
+        height = min(base.shape[0], current.shape[0])
+        return np.concatenate([base[:height], current[:height]], axis=1)
+
     # ---- run -------------------------------------------------------------------------------
     def _latent_shape(self, batch_size: int):
         factor = 8 if getattr(self.model, "REQUIRES_VAE", True) else 1
         size = self.resolution // factor
         return (batch_size, size, size, self.model.latent_channels)
 
-    def run_validations(self, module: nn.Module, step: int = 0) -> List[str]:
-        """Render every prompt; returns the saved PNG paths."""
-        paths = []
-        for index, embeds in enumerate(self._embeds):
+    def run_validations(self, module: nn.Module, step: int = 0, force: bool = False, slug: str = "") -> List[str]:
+        """Render every prompt with ``module`` when ``would_validate(step,
+        force)``; returns the saved PNG paths.  ``slug`` suffixes the file
+        names (``_ema`` for the EMA comparison pass)."""
+        if not self.would_validate(step, force):
+            return []
+        return self._run_one_pass(module, step, slug)
+
+    def _run_one_pass(self, module: nn.Module, step: int, slug: str = "") -> List[str]:
+        paths, images = [], []
+        num_images = max(1, int(getattr(self.config, "num_validation_images", 1) or 1))
+        for index, (prompt, embeds) in enumerate(zip(self.prompts, self._embeds)):
+            # extra per-prompt variants, noise from a disjoint index space
+            for variant in range(1, num_images):
+                extra = self._render_single(module, embeds, index + 7919 * variant)
+                self._save_png(extra, self._path(f"step_{step}_{index}_v{variant}{slug}.png"))
             image = self._render_single(module, embeds, index)
-            filename = os.path.join(self.output_dir, "validation", f"step_{step}_{index}.png")
-            os.makedirs(os.path.dirname(filename), exist_ok=True)
+            filename = self._path(f"step_{step}_{index}{slug}.png")
             self._save_png(image, filename)
+            if index < len(self._benchmark_images):
+                stitched = self._stitch(self._benchmark_images[index], image)
+                self._save_png(stitched, self._path(f"step_{step}_{index}_vs_base.png"))
             paths.append(filename)
+            images.append(image)
+            if self.webhook_handler is not None:
+                self.webhook_handler.send_raw(validation_event(step, prompt, filename))
+        for tracker in self.trackers:
+            try:
+                tracker.log_images(images, self.prompts, step)
+            except Exception as exc:
+                logger.debug("tracker image log failed: %s", exc)
         return paths
+
+    def _path(self, name: str) -> str:
+        path = os.path.join(self.output_dir, "validation", name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        return path
 
     def _batch(self, embeds: Dict[str, np.ndarray], latent_shape) -> Dict[str, torch.Tensor]:
         """Zero latents and the payload's arrays under their own keys, batch 1."""
@@ -139,10 +251,12 @@ class Validation:
             )
             cond_fn = denoise
             scale = float(getattr(self.config, "validation_guidance", 0.0) or 0.0)
-            rescale = float(getattr(self.config, "validation_guidance_rescale", 0.0) or 0.0)
+            rescale, no_cfg_t = self._cfg_params(scheduler)
 
             def denoise(latents, t):
-                return classifier_free_guidance(cond_fn(latents, t), uncond_fn(latents, t), scale, rescale)
+                # CFG off while t is above the threshold (t descends)
+                step_scale = 1.0 if no_cfg_t is not None and bool(t > no_cfg_t) else scale
+                return classifier_free_guidance(cond_fn(latents, t), uncond_fn(latents, t), step_scale, rescale)
 
         noise = torch.randn(latent_shape, generator=noise_generator(self.seed, index), dtype=torch.float32)
         latents = sample_loop(scheduler, denoise, noise.to(self.device))

@@ -2,8 +2,11 @@
 
 The port imports nothing of ``simpletuner_tpu``: it keeps copies of the
 framework-free modules it reads (the config-field registry, the config and
-dataloader loaders, the local storage backend, the text-embed cache, the
-Flux LoRA key map, the bucket math, the text-encoder specs).  These tests
+dataloader loaders, ``TrainingConfig``, the local storage backend, the
+text-embed cache, the Flux LoRA key map, the bucket math, the text-encoder
+specs, and for the trainer runtime the webhooks, the iteration tracker, the
+JSONL tracker, ``DiskGuard``, captions, the sampler, the batch fetcher, the
+bucket report and the modelspec / model card).  These tests
 hold each copy to its JAX counterpart on the same inputs, exactly, and check
 in a fresh process that importing the whole port loads no module of the JAX
 package, and that it imports with ``jax``, ``safetensors``, ``PIL`` and
@@ -216,3 +219,251 @@ def test_text_encoder_specs_match():
     theirs = [dataclasses.asdict(s) for s in JaxFlux.TEXT_ENCODER_CONFIGURATION]
     assert ours == theirs
     assert (Flux.LATENT_CHANNEL_COUNT, Flux.MODEL_TYPE) == (JaxFlux.LATENT_CHANNEL_COUNT, JaxFlux.MODEL_TYPE)
+
+
+# ---- the trainer runtime's host copies -----------------------------------------------------
+
+
+def _without_time(event):
+    return {k: v for k, v in event.items() if k not in ("timestamp", "time")}
+
+
+def test_webhook_events_and_handler_match():
+    from simpletuner_tpu.webhooks import events as jax_events
+    from simpletuner_tpu.webhooks.handler import WebhookHandler as JaxWebhookHandler
+
+    from simpletuner_tpu_torch.webhooks import events
+    from simpletuner_tpu_torch.webhooks.handler import WebhookHandler
+
+    calls = [
+        ("lifecycle_stage_event", ("train", "failed", "job", "boom"), {}),
+        ("training_status_event", (4, 8, 1), {"loss": 0.5, "learning_rate": 1e-4, "iterations_per_second": 2.0,
+                                               "eta_seconds": 2.0, "job_id": "j", "extra_metrics": {"a": 1}}),
+        ("notification_event", ("hello", "warning", "j"), {}),
+        ("error_event", ("failed", ValueError("x"), "j"), {}),
+        ("checkpoint_event", ("/out/checkpoint-4", 4, True, "j"), {}),
+        ("device_fault_event", ("oom", {"step": 3}, "j"), {}),
+        ("validation_event", (8, "a cat", "/out/validation/step_8_0.png", "j"), {}),
+    ]
+    for name, args, kwargs in calls:
+        assert _without_time(getattr(events, name)(*args, **kwargs)) == \
+            _without_time(getattr(jax_events, name)(*args, **kwargs)), name
+    # without a webhook configured neither handler queues anything
+    for handler in (WebhookHandler(), JaxWebhookHandler()):
+        assert not handler.enabled
+        handler.send_raw(events.checkpoint_event("/x", 1))
+        handler.send("message")
+        assert handler._queue.empty() and handler._worker is None
+
+
+def test_iteration_tracker_matches(monkeypatch):
+    from simpletuner_tpu.training import iteration_tracker as jax_module
+
+    from simpletuner_tpu_torch.training import iteration_tracker as module
+
+    clock = iter(np.cumsum([0.0, 1.5, 0.5, 2.0, 400.0, 1.0, 0.25, 3.0] * 4).tolist())
+    ticks = []
+
+    def now():
+        if not ticks:
+            ticks.append(next(clock))
+        return ticks[-1]
+
+    monkeypatch.setattr(module.time, "monotonic", now)
+    monkeypatch.setattr(jax_module.time, "monotonic", now)
+    ours, theirs = module.IterationTracker(), jax_module.IterationTracker()
+    for _ in range(8):
+        ticks.clear()
+        ours.record_step()
+        theirs.record_step()
+        assert ours.rates() == theirs.rates()
+        assert ours.eta_seconds(10) == theirs.eta_seconds(10) and ours.rate(60) == theirs.rate(60)
+
+
+def test_trackers_match(tmp_path):
+    from simpletuner_tpu.configuration import TrainingConfig as JaxTrainingConfig
+    from simpletuner_tpu.training.trackers import build_trackers as jax_build_trackers
+
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.training.trackers import build_trackers
+
+    values = {"report_to": "jsonl,unknown_tracker", "tracker_run_name": "run"}
+    ours = build_trackers(TrainingConfig(values), str(tmp_path / "ours"))
+    theirs = jax_build_trackers(JaxTrainingConfig(values), str(tmp_path / "theirs"))
+    assert [t.name for t in ours] == [t.name for t in theirs] == ["jsonl"]
+    for trackers in (ours, theirs):
+        trackers[0].log({"loss": torch.tensor(0.25), "grad_norm": np.float32(1.5), "epoch": 2, "tag": "x"}, 3)
+        trackers[0].finish()
+    lines = [[_without_time(json.loads(line)) for line in open(d / "run-metrics.jsonl")]
+             for d in (tmp_path / "ours", tmp_path / "theirs")]
+    assert lines[0] == lines[1] == [{"step": 3, "loss": 0.25, "grad_norm": 1.5, "epoch": 2.0, "tag": "x"}]
+
+
+def test_disk_guard_matches(tmp_path):
+    from simpletuner_tpu.training.profiling import DiskGuard as JaxDiskGuard
+    from simpletuner_tpu.training.profiling import parse_size_threshold as jax_parse
+
+    from simpletuner_tpu_torch.training.profiling import DiskGuard, parse_size_threshold
+
+    for raw in (None, "", "None", "100G", "50M", "1.5T", "500K", "1024", "2gb", 4096):
+        assert parse_size_threshold(raw) == jax_parse(raw)
+    with pytest.raises(ValueError):
+        parse_size_threshold("lots")
+    for config in ({"disk_low_threshold": "1K"}, {"disk_low_threshold": "1000T"}, {},
+                   {"disk_space_threshold_gb": 1e9, "disk_space_action": "warn"},
+                   {"disk_space_threshold_gb": 1e9, "disk_space_action": "stop"}):
+        outcomes = []
+        for guard_cls in (DiskGuard, JaxDiskGuard):
+            guard = guard_cls(config, str(tmp_path / "missing" / "dir"))
+            try:
+                outcomes.append(guard.check_before_checkpoint())
+            except RuntimeError as exc:
+                outcomes.append(type(exc).__name__ + str(exc).split(":")[0])
+        assert outcomes[0] == outcomes[1], config
+
+
+def test_captions_match(tmp_path):
+    from simpletuner_tpu.data.captions import get_caption as jax_get_caption
+
+    from simpletuner_tpu_torch.data.captions import get_caption
+
+    (tmp_path / "a_photo-of_cat.png").write_bytes(b"")
+    (tmp_path / "with_text.png").write_bytes(b"")
+    (tmp_path / "with_text.txt").write_text("  a red cat, sitting  \n")
+    backend = LocalDataBackend("c", instance_data_dir=str(tmp_path))
+    cases = [
+        dict(strategy="filename"), dict(strategy="textfile"), dict(strategy="instanceprompt", instance_prompt="sks"),
+        dict(strategy="textfile", instance_prompt="sks", prepend_instance_prompt=True),
+        dict(strategy="textfile", caption_filters=["red ", "s/cat/dog/"]),
+        dict(strategy="csv", metadata_row={"caption": ["first", "second"]}),
+        dict(strategy="parquet", metadata_row={"text": "row caption"}, parquet_config={"caption_column": "text"}),
+    ]
+    for name in ("a_photo-of_cat.png", "with_text.png"):
+        for kwargs in cases:
+            path = str(tmp_path / name)
+            assert get_caption(path, backend, **kwargs) == jax_get_caption(path, backend, **kwargs), kwargs
+
+
+class _Buckets:
+    """A metadata backend's bucket index, as the sampler and the report read it."""
+
+    def __init__(self):
+        self.id = "m"
+        self.aspect_ratio_bucket_indices = {"1.0": [f"/d/s{i}.png" for i in range(5)],
+                                            "0.75": [f"/d/p{i}.png" for i in range(3)],
+                                            "1.33": ["/d/l0.png"]}
+        self.image_metadata = {p: {"crop_coordinates": [i, 0]} for i, p in enumerate(
+            sum(self.aspect_ratio_bucket_indices.values(), []))}
+        self.image_metadata["/d/l0.png"]["skipped"] = "too small"
+
+    def bucket_keys(self):
+        return sorted(self.aspect_ratio_bucket_indices)
+
+
+def test_sampler_matches():
+    from simpletuner_tpu.data.sampler import MultiAspectSampler as JaxSampler
+
+    from simpletuner_tpu_torch.data.sampler import MultiAspectSampler
+
+    ours, theirs = MultiAspectSampler("m", _Buckets(), 2, seed=5, repeats=1), JaxSampler("m", _Buckets(), 2, 5,
+                                                                                          repeats=1)
+    assert len(ours) == len(theirs) > 0
+    for epoch in range(3):
+        batches = [list(ours), list(theirs)]
+        assert batches[0] == batches[1] and batches[0], epoch
+        assert ours.save_state() == theirs.save_state()
+    # mid-epoch state round-trips through JSON on both sides
+    it_ours, it_theirs = iter(ours), iter(theirs)
+    assert next(it_ours) == next(it_theirs)
+    state = json.loads(ours.state_json())
+    assert state == json.loads(theirs.state_json())
+    rest = list(it_ours)
+    fresh_ours, fresh_theirs = MultiAspectSampler("m", _Buckets(), 2, seed=5, repeats=1), JaxSampler(
+        "m", _Buckets(), 2, 5, repeats=1)
+    fresh_ours.load_state(state)
+    fresh_theirs.load_state(state)
+    assert list(fresh_ours) == list(fresh_theirs) == rest
+
+
+def test_batch_fetcher_matches():
+    from simpletuner_tpu.data.batch_fetcher import BatchFetcher as JaxBatchFetcher
+
+    from simpletuner_tpu_torch.data.batch_fetcher import BatchFetcher
+
+    class Counting:
+        def __init__(self):
+            self.cursor, self.epoch = 0, 0
+
+        def next_batch(self, step=0):
+            self.cursor += 1
+            self.epoch = self.cursor // 3
+            return {"latents": np.full((1,), step, np.float32), "cursor": self.cursor}
+
+        def save_state(self):
+            return {"cursor": self.cursor}
+
+    seqs = []
+    for fetcher_cls in (BatchFetcher, JaxBatchFetcher):
+        fetcher = fetcher_cls(Counting(), start_step=5, depth=3)
+        seqs.append([(raw["cursor"], float(raw["latents"][0]), epoch, state)
+                     for raw, epoch, state in (fetcher.next_batch() for _ in range(7))])
+        fetcher.stop()
+    assert seqs[0] == seqs[1] and seqs[0][0] == (1, 5.0, 0, {"cursor": 1})
+
+
+def test_bucket_report_matches():
+    from simpletuner_tpu.data.bucket_report import bucket_report as jax_bucket_report
+    from simpletuner_tpu.data.bucket_report import format_report as jax_format_report
+
+    from simpletuner_tpu_torch.data.bucket_report import bucket_report, format_report
+
+    assert bucket_report(_Buckets()) == jax_bucket_report(_Buckets())
+    assert format_report(bucket_report(_Buckets())) == jax_format_report(jax_bucket_report(_Buckets()))
+
+
+def test_modelspec_and_model_card_match():
+    from simpletuner_tpu.configuration import TrainingConfig as JaxTrainingConfig
+    from simpletuner_tpu.models.flux.model import Flux as JaxFlux
+    from simpletuner_tpu.publishing.metadata import build_model_card as jax_build_model_card
+    from simpletuner_tpu.publishing.metadata import safetensors_modelspec as jax_modelspec
+
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.flux import Flux
+    from simpletuner_tpu_torch.publishing.metadata import build_model_card, safetensors_modelspec
+
+    values = {"model_family": "flux", "model_arch_preset": "tiny", "resolution": 512, "instance_prompt": "sks",
+              "modelspec_trigger_words": "ohwx, dog", "modelspec_comment": "note", "lora_rank": 4,
+              "base_model_precision": "int8-quanto", "model_card_note": "hello"}
+    ours, theirs = Flux(TrainingConfig(values)), JaxFlux(JaxTrainingConfig(values))
+    kwargs = dict(trigger_words=["cat"], tag_frequency={"a": {"red": 2}})
+    spec, jax_spec = safetensors_modelspec(ours, ours.config, **kwargs), jax_modelspec(theirs, theirs.config, **kwargs)
+    assert {k: v for k, v in spec.items() if k != "modelspec.date"} == \
+        {k: v for k, v in jax_spec.items() if k != "modelspec.date"}
+    card = dict(validation_prompts=["a", "b"], validation_images=["v.png"], train_steps=8)
+    assert build_model_card(ours, ours.config, **card) == jax_build_model_card(theirs, theirs.config, **card)
+
+
+def test_training_config_matches(tmp_path):
+    from simpletuner_tpu.configuration import TrainingConfig as JaxTrainingConfig
+
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+
+    path = _write_config(tmp_path, "json")
+    argv = ["--config", str(path), "--max_train_steps", "12", "--use_ema", "true", "--custom_key", "v",
+            "--flag_only"]
+    ours, theirs = TrainingConfig.from_cli(argv), JaxTrainingConfig.from_cli(argv)
+    assert ours.to_dict() == theirs.to_dict() and ours.lora_alpha == 16
+    assert ours.was_provided("max_train_steps") and not ours.was_provided("seed")
+
+
+def test_model_registry_refuses_other_families():
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.flux import Flux
+    from simpletuner_tpu_torch.models.registry import get_model_family
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "flux"})), Flux)
+    for family in ("sdxl", "sd15", "wan"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+            get_model_family(TrainingConfig({"model_family": family}))
+    with pytest.raises(KeyError):
+        get_model_family(TrainingConfig({"model_family": "nope"}))

@@ -272,9 +272,15 @@ def test_true_cfg_render_matches_jax(tmp_path):
     uncond = jmodel.inference_conditioning(_jax_batch(validation._negative_embeds))
     jsched = jax_build_scheduler(jmodel, config.validation_num_inference_steps, image_seq_len=16)
 
+    # the JAX Validation's CFG settings: rescale, and CFG off while t is above
+    # the validation_no_cfg_until_timestep threshold (default 2)
+    rescale, no_cfg_t = JaxValidation(jmodel, config)._cfg_params(jsched)
+    assert rescale == 0.5 and no_cfg_t is not None
+
     def sample(v, c, u, n):
         cond_fn, uncond_fn = jmodel.denoise_fn(v, c), jmodel.denoise_fn(v, u)
-        return jax_sample_loop(jsched, lambda z, s: jax_cfg(cond_fn(z, s), uncond_fn(z, s), 4.0, 0.5), n)
+        return jax_sample_loop(jsched, lambda z, s: jax_cfg(cond_fn(z, s), uncond_fn(z, s),
+                                                            jnp.where(s > no_cfg_t, 1.0, 4.0), rescale), n)
 
     noise = torch.randn((1, 8, 8, 4), generator=noise_generator(7, 0)).numpy()
     ref = np.asarray(jax.jit(sample)(flux_vars, cond, uncond, noise))[0]

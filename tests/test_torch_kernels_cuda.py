@@ -318,6 +318,107 @@ def test_graph_replays_are_bitwise_the_eager_steps(cuda):
         graphed(run.state, run.batch, torch.Generator(device=cuda))
 
 
+def _tiny_trainer_run(device):
+    """Tiny Flux (bf16, masked attention, EMA) as the trainer builds it: the
+    state, the step, and batches of two aspect buckets."""
+    from simpletuner_tpu_torch.bench import perturb_adaln
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.flux import Flux
+    from simpletuner_tpu_torch.models.layers import init_parameters, lora_parameters
+    from simpletuner_tpu_torch.training.ema import EMAConfig
+    from simpletuner_tpu_torch.training.optimizers import get_optimizer
+    from simpletuner_tpu_torch.training.schedules import get_lr_schedule
+    from simpletuner_tpu_torch.training.train_state import build_train_step, create_train_state
+
+    config = TrainingConfig({"model_family": "flux", "model_arch_preset": "tiny", "model_type": "lora",
+                             "lora_rank": 4, "learning_rate": 1e-3, "optimizer": "adamw",
+                             "flux_attention_masked_training": True, "base_model_precision": "int8-quanto"})
+    model = Flux(config)
+    gen = torch.Generator(device=device).manual_seed(8)
+    with torch.device(device):
+        module = init_parameters(model.create_module(), gen)
+    perturb_adaln(module, gen)
+    with torch.no_grad():
+        for name, param in lora_parameters(module).items():
+            if name.endswith("lora_B"):
+                param.normal_(0.0, 0.02, generator=gen)
+    schedule = get_lr_schedule(config, 10)
+    tx = get_optimizer(config, schedule)
+    ema = EMAConfig(decay=0.99)
+    state = create_train_state(model, module, tx, ema, quantize_mode=model.base_precision)
+    step_fn = build_train_step(model, tx, schedule, ema)
+    batches = []
+    for height, width in ((8, 8), (8, 12)):  # latent sizes of two buckets
+        masks = torch.zeros((1, 16), dtype=torch.int64, device=device)
+        masks[:, :5] = 1
+        batches.append({"latents": torch.randn((1, height, width, 4), generator=gen, device=device),
+                        "t5_embeds": torch.randn((1, 16, 32), generator=gen, device=device),
+                        "pooled_embeds": torch.randn((1, 32), generator=gen, device=device), "t5_masks": masks})
+    return state, step_fn, batches, torch.Generator(device=device)
+
+
+def test_two_shapes_share_one_pool_and_match_eager_steps(cuda):
+    # the trainer's graphs: one per batch shape, over one state, one memory
+    # pool and one capture stream, the generator seeded per step; replays in
+    # the order A, B, B, A equal the eager steps bitwise
+    from simpletuner_tpu_torch.training.train_state import jit_train_step, state_tensors
+    from simpletuner_tpu_torch.training.trainer import step_seed
+
+    state, step_fn, batches, gen = _tiny_trainer_run(cuda)
+    order = (0, 1, 1, 0)
+    with torch.no_grad():
+        saved = [x.clone() for x in state_tensors(state)]
+
+    def trajectory(steps):
+        current, out = state, []
+        for n, which in enumerate(order):
+            gen.manual_seed(step_seed(42, n))
+            current, metrics = steps[which](current, batches[which], gen)
+            out += [metrics["loss"], metrics["grad_norm"]]
+        with torch.no_grad():  # a clone in grad mode keeps the adapters' accumulators (and their stream) alive
+            return torch.stack(out), [x.clone() for x in state_tensors(current)]
+
+    eager = trajectory((step_fn, step_fn))
+    with torch.no_grad():
+        for x, value in zip(state_tensors(state), saved):
+            x.copy_(value)
+    state.step = 0
+    pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(cuda)
+    graphs = [jit_train_step(step_fn, state, batch, gen, pool=pool, stream=stream) for batch in batches]
+    replayed = trajectory(graphs)
+    assert torch.isfinite(eager[0]).all() and (eager[0][1::2] > 0).all()
+    assert torch.equal(replayed[0], eager[0])
+    assert all(torch.equal(a, b) for a, b in zip(replayed[1], eager[1]))
+
+
+def test_restore_into_a_captured_state_then_replay(cuda, tmp_path):
+    # a checkpoint restored into the graph's own state: the same tensors
+    # (addresses), and the replays after it repeat the steps after the save
+    from simpletuner_tpu_torch.training.checkpoints import CheckpointManager, flatten_state
+    from simpletuner_tpu_torch.training.train_state import jit_train_step
+    from simpletuner_tpu_torch.training.trainer import step_seed
+
+    state, step_fn, batches, gen = _tiny_trainer_run(cuda)
+    graphed = jit_train_step(step_fn, state, batches[1], gen, pool=torch.cuda.graph_pool_handle())
+
+    def steps(first, count):
+        out = []
+        for n in range(first, first + count):
+            gen.manual_seed(step_seed(7, n))
+            _, metrics = graphed(state, batches[1], gen)
+            out += [metrics["loss"], metrics["grad_norm"]]
+        return torch.stack(out)
+
+    steps(0, 2)
+    manager = CheckpointManager(str(tmp_path))
+    path = manager.save(2, state, {"global_step": 2})
+    pointers = {k: t.data_ptr() for k, t in flatten_state(state)[0].items()}
+    after = steps(2, 3)
+    manager.restore(path, state)
+    assert {k: t.data_ptr() for k, t in flatten_state(state)[0].items()} == pointers and state.step == 2
+    assert torch.equal(steps(2, 3), after)
+
+
 # ---- the quantized base's int8 products (torch._int_mm, not a hand-written kernel) ----------------
 
 
