@@ -105,6 +105,25 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    write 37 GB, a full-state checkpoint 12.3 GB, and the runs save five
    times); ``python -m simpletuner_tpu_torch.bench_checkpoint`` times the
    full-state save and restore.
+18. server: the port's training server (``server/app.py``) in this process
+   on an ephemeral port with ``device="cuda"``: ``/health``,
+   ``/api/hardware`` (must name the H100), ``/api/config/validate``; a
+   training job (``POST /api/training/start``) with phase 17's straight-run
+   config, its caches and a new output dir, plus an eval split (two of phase
+   16's JPEGs that phase 17 does not train on, ``dataset_type: eval``,
+   ``eval_steps_interval: 4``, ``eval_timesteps: 4``), which the server runs as ``python -m
+   simpletuner_tpu_torch.train --device cuda`` in a child process: its losses,
+   grad norms and final LoRA must equal phase 17's straight run bitwise (a
+   child's launch counters cannot be read from here: bitwise equality is what
+   shows it ran the same kernels and graphs), and it must log a finite
+   ``eval_loss`` at steps 4 and 8; then a render job
+   (``POST /api/inference/start``: ``cli inference`` in a child process) from
+   phase 17's checkpoint-8 (of the resumed run, whose LoRA is the straight
+   run's), whose 1024x1024 PNG must equal phase 17's final validation image
+   byte for byte; the events stream (``/api/events``) must show both jobs
+   start and finish.  Prints the parent's allocation before the phase, each
+   job's wall time, the time to the first step, the children's peaks and the
+   eval seconds.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
 phase 14's full-depth Flux file stays on disk for phase 17.
@@ -181,6 +200,12 @@ TRAIN_PROMPT = "a lighthouse on a basalt cliff at dusk"
 # simpletuner_tpu_torch.bench_checkpoint times the full-state save); the runs
 # then need a few GB of disk
 TRAIN_CHECKPOINT_GB = 4.0
+# phase 18: the eval split of the server's training job, phase 16's square
+# JPEGs 12 and 15 (phase 17 trains on 0-10)
+SERVER_EVAL_IMAGES = (12, 15)
+# draws per eval image (eval_timesteps; the registry default is 28, an eager
+# full-width forward of about 0.36 s each)
+SERVER_EVAL_DRAWS = 4
 # phase 10: the Flux linears' (in, out): attention q/k/v and proj, single-block
 # linear1 (q, k, v, mlp) and linear2, the MLP in and out, double-block AdaLN
 INT8_SHAPES = ((3072, 3072), (3072, 21504), (15360, 3072), (3072, 12288), (12288, 3072), (3072, 18432))
@@ -895,7 +920,172 @@ def trainer_phase(paths: dict, flagship_median_s: float, kernels, device: str) -
           seconds=time.perf_counter() - start, device=device)
     del resumed
     torch.cuda.empty_cache()
-    return {"straight": straight_launches, "resumed": resumed_launches}
+    return {"straight": straight_launches, "resumed": resumed_launches, "config": values("train_straight"),
+            "losses": losses, "grad_norms": [m["grad_norm"] for m in straight_metrics], "final_lora": final_lora,
+            "png": png, "checkpoint": os.path.join(resumed_out, f"checkpoint-{TRAIN_STEPS}"), "data": data}
+
+
+def server_phase(phase17: dict, device: str) -> None:
+    """Phase 18: the port's training server in this process on an ephemeral
+    port (``device="cuda"``): health, the hardware report, config validation;
+    a training job (phase 17's straight run with an eval split added: two of
+    phase 16's JPEGs that phase 17 does not train on, ``eval_steps_interval``
+    4) in a child process, whose losses and final LoRA must equal phase 17's
+    bitwise and which logs a finite eval loss at steps 4 and 8; then a render
+    job, ``cli inference`` from phase 17's checkpoint-8 in a child process,
+    whose PNG must equal phase 17's final validation image byte for byte.
+    The events stream (``/api/events``) must show both jobs start and
+    finish."""
+    import ast
+    import http.client
+    import re
+    import threading
+
+    import torch
+
+    from simpletuner_tpu_torch.models.weight_import import load_safetensors_file
+    from simpletuner_tpu_torch.server.app import create_server
+
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_gib = {"allocated": torch.cuda.memory_allocated() / 2**30, "reserved": torch.cuda.memory_reserved() / 2**30}
+    start = time.perf_counter()
+    work = os.path.dirname(phase17["data"])
+    held = os.path.join(work, "held_out")
+    os.makedirs(held)
+    source = os.path.join(work, "vae_cache", "data")
+    for i, index in enumerate(SERVER_EVAL_IMAGES):  # square JPEGs that phase 17 does not train on
+        name = f"img_{index:04d}.jpg"
+        shutil.copy(os.path.join(source, name), os.path.join(held, name))
+        with open(os.path.join(held, os.path.splitext(name)[0] + ".txt"), "w") as handle:
+            handle.write(f"a held-out seeded photo number {i}")
+    config = json.loads(json.dumps(phase17["config"]))
+    config["output_dir"] = os.path.join(work, "server_train")
+    config["eval_steps_interval"] = TRAIN_CHECKPOINT_STEPS
+    config["eval_timesteps"] = SERVER_EVAL_DRAWS
+    config["data_backend_config"].insert(1, {
+        "id": "held_out", "dataset_type": "eval", "type": "local", "instance_data_dir": held,
+        "resolution": config["resolution"],
+        "resolution_type": "pixel_area", "caption_strategy": "textfile",
+        "cache_dir_vae": os.path.join(work, "train_cache", "vae_held_out")})
+    render_config = os.path.join(work, "phase17_config.json")
+    with open(render_config, "w") as handle:
+        json.dump(phase17["config"], handle)
+
+    srv = create_server("127.0.0.1", 0, state_dir=os.path.join(work, "server_state"), device="cuda")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    port = srv.server_address[1]
+
+    def api(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        payload = json.dumps(body) if body is not None else None
+        conn.request(method, path, body=payload, headers={"Content-Type": "application/json"} if payload else {})
+        response = conn.getresponse()
+        data = json.loads(response.read() or b"null")
+        conn.close()
+        return response.status, data
+
+    events, listener = [], http.client.HTTPConnection("127.0.0.1", port, timeout=None)
+
+    def listen():
+        listener.request("GET", "/api/events")
+        response = listener.getresponse()
+        try:
+            for line in response:
+                if line.startswith(b"data: "):
+                    events.append(json.loads(line[6:]))
+        except (OSError, ValueError):
+            pass
+
+    threading.Thread(target=listen, daemon=True).start()
+
+    def run_job(path, body, timeout):
+        status, job = api("POST", path, body)
+        if status != 201:
+            raise RuntimeError(f"server: {path} answered {status} {job}")
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            _, info = api("GET", f"/api/training/status/{job['job_id']}")
+            if info["state"] in ("completed", "failed", "cancelled"):
+                break
+            time.sleep(1.0)
+        _, logs = api("GET", f"/api/training/logs/{job['job_id']}?tail=2000")
+        if info["state"] != "completed" or info["return_code"] != 0:
+            tail = "\n".join(logs["logs"][-40:])
+            raise RuntimeError(f"server: job {job['job_id']} ({path}) ended {info['state']} rc "
+                               f"{info['return_code']}:\n{tail}")
+        return info, logs["logs"]
+
+    try:
+        status, health = api("GET", "/health")
+        _, hardware = api("GET", "/api/hardware")
+        kinds = [d["kind"] for d in hardware["accelerators"]]
+        if status != 200 or health["status"] != "ok" or not kinds or "H100" not in kinds[0]:
+            raise RuntimeError(f"server: health {status} {health}, accelerators {kinds}")
+        status, valid = api("POST", "/api/config/validate", {"config": config})
+        if status != 200 or not valid.get("valid"):
+            raise RuntimeError(f"server: config validation answered {status} {valid}")
+
+        train_info, train_logs = run_job("/api/training/start", {"config": config}, timeout=900)
+        with open(os.path.join(config["output_dir"], "simpletuner-tpu-metrics.jsonl")) as handle:
+            metrics = [json.loads(line) for line in handle]
+        steps = [m for m in metrics if "loss" in m]
+        evals = [m for m in metrics if "eval_loss" in m]
+        if [m["loss"] for m in steps] != phase17["losses"] or [m["grad_norm"] for m in steps] != phase17["grad_norms"]:
+            raise RuntimeError(f"server: the job's losses {[m['loss'] for m in steps]} are not phase 17's "
+                               f"{phase17['losses']}")
+        if [m["step"] for m in evals] != [TRAIN_CHECKPOINT_STEPS, TRAIN_STEPS] or \
+                not all(math.isfinite(m["eval_loss"]) for m in evals):
+            raise RuntimeError(f"server: eval lines {evals}")
+        lora = load_safetensors_file(os.path.join(config["output_dir"], f"checkpoint-{TRAIN_STEPS}",
+                                                  "pytorch_lora_weights.safetensors"))
+        final = phase17["final_lora"]
+        if sorted(lora) != sorted(final) or not all(torch.equal(lora[k], final[k]) for k in final):
+            raise RuntimeError("server: the job's final LoRA differs from phase 17's")
+        stages = {m.group(1): ast.literal_eval(m.group(2)) for m in
+                  (re.search(r"stage (\w+): (\{.*\})", line) for line in train_logs) if m}
+        eval_s = [float(m.group(1)) for m in (re.search(r"eval_loss \S+ at step \d+ \(([\d.]+) s\)", line)
+                                              for line in train_logs) if m]
+
+        render_out = os.path.join(work, "server_render")
+        render_info, render_logs = run_job("/api/inference/start", {
+            "checkpoint": phase17["checkpoint"], "prompt": TRAIN_PROMPT, "steps": TRAIN_VALIDATION_STEPS,
+            "seed": 42, "resolution": RESOLUTION, "config": render_config, "output": render_out}, timeout=600)
+        png = os.path.join(render_out, "validation", f"step_{TRAIN_STEPS}_0.png")
+        check_png(png, RESOLUTION, RESOLUTION)
+        with open(png, "rb") as a, open(phase17["png"], "rb") as b:
+            if a.read() != b.read():
+                raise RuntimeError(f"server: the render {png} differs from phase 17's {phase17['png']}")
+        render_peak = [float(m.group(1)) for m in (re.search(r"peak device memory: ([\d.]+) GiB", line)
+                                                   for line in render_logs) if m]
+        seen = {(e.get("event_type"), e.get("job_id")) for e in events}
+        for info in (train_info, render_info):
+            for kind in ("job_started", "job_finished"):
+                if (kind, info["job_id"]) not in seen:
+                    raise RuntimeError(f"server: the events stream lacks {kind} of {info['job_id']}: {sorted(seen)}")
+    finally:
+        for job in list(srv.keeper.jobs.values()):
+            if job.process is not None and job.process.poll() is None:
+                job.process.kill()
+                job.process.wait()
+        listener.close()
+        srv.run_queue.close()
+        srv.shutdown()
+        srv.server_close()
+
+    phase("18 server", blocks=[19, 38], hidden=3072, base="int8", steps=TRAIN_STEPS, losses_bitwise=True,
+          final_lora_bitwise=True, render_png_bitwise=True, render_png=os.path.basename(png),
+          eval_loss={m["step"]: m["eval_loss"] for m in evals}, eval_s=eval_s, eval_images=len(SERVER_EVAL_IMAGES),
+          eval_draws_per_image=SERVER_EVAL_DRAWS,
+          train_job_s=train_info["finished_at"] - train_info["started_at"],
+          time_to_first_step_s=steps[0]["time"] - train_info["started_at"],
+          train_child_peak_gib=max((v.get("peak_gib", 0.0) for v in stages.values()), default=None),
+          train_child_stage_peak_gib={k: v.get("peak_gib") for k, v in stages.items()},
+          render_job_s=render_info["finished_at"] - render_info["started_at"],
+          render_child_peak_gib=render_peak[-1] if render_peak else None,
+          parent_gib_before_phase=parent_gib, hardware=kinds, seconds=time.perf_counter() - start, device=device)
 
 
 def int8_cases() -> None:
@@ -1587,7 +1777,8 @@ def main() -> int:
         gradient_parity("11 gradient parity (int8 base)", quant="int8")
         launches_main, flagship_median = graph_step(kernels)
         gradient_parity("13 gradient parity (full depth)", depth=(19, 38))
-        trainer_phase(checkpoints, flagship_median, kernels, smi)
+        phase17 = trainer_phase(checkpoints, flagship_median, kernels, smi)
+        server_phase(phase17, smi)
 
     sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
                "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}

@@ -3,10 +3,11 @@
 The torch port's copy of ``simpletuner_tpu/configuration/args.py``: the
 registry's defaults under the given values, attribute and ``get`` access,
 ``to_dict``, the same cross-field checks and ``from_cli`` (a ``--config``
-file under ``--key value`` flags).  Two checks are the port's own: the JAX
-class checks the optimizer name against the JAX optimizer registry, which
-the port leaves to its ``get_optimizer`` (unported names raise there), and
-it does not warn about unwired fields (``configuration/wiring.py``).
+file under ``--key value`` flags).  The optimizer name is checked against
+the JAX optimizer registry's names (``training/optimizers.py::JAX_OPTIMIZERS``),
+as the JAX class checks it; a name the port does not train is refused by its
+``get_optimizer``.  The port does not warn about unwired fields
+(``configuration/wiring.py``).
 """
 
 from __future__ import annotations
@@ -75,6 +76,12 @@ class TrainingConfig:
             errors.append("gradient_accumulation_steps must be >= 1")
         if v.get("mixed_precision") == "no":
             v["mixed_precision"] = "fp32"
+        optimizer = v.get("optimizer")
+        if optimizer:
+            from ..training.optimizers import JAX_OPTIMIZERS
+
+            if optimizer not in JAX_OPTIMIZERS:
+                errors.append(f"unknown optimizer {optimizer!r}")
         if errors:
             raise ValueError("invalid config: " + "; ".join(errors))
 

@@ -51,7 +51,7 @@ def check_collatable(bundle: DatasetBundle, model) -> None:
     """Refuse the batches ``collate_batch`` does not build (the JAX branches
     that are not ported)."""
     cfg = bundle.config
-    if cfg.dataset_type != "image":
+    if cfg.dataset_type not in ("image", "eval"):
         raise NotImplementedError(
             f"dataset {bundle.id!r}: {cfg.dataset_type} batches are not ported (ROADMAP Queue 1 item 4f)")
     if getattr(model, "trains_text_encoder", False):

@@ -11,8 +11,10 @@ datasets over the port's ``LocalDataBackend``, ``MetadataBackend``,
 arguments.  Refused, naming their ROADMAP item: other storage backends
 (memory, S3, CSV, Hugging Face, webshart) and streaming datasets, the parquet
 metadata backend, on-demand and unhashed caches, the NSFW filter,
-conditioning / video / audio / caption / eval / distillation datasets and
-image-embed caches.
+conditioning / video / audio / caption / distillation datasets and
+image-embed caches.  Eval datasets (``dataset_type: eval``) are built and
+cached as image datasets; they, and the datasets ``eval_dataset_id`` names,
+stay out of the train iterator (the eval loss reads them).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from .captions import get_caption
 from .dataset import DatasetBundle, MultiDatasetIterator, check_collatable
 from .metadata import MetadataBackend
 from .sampler import MultiAspectSampler
+from ..training.evaluation import eval_dataset_id_set
 
 logger = logging.getLogger(__name__)
 
@@ -76,10 +79,7 @@ def _check_ported(configs: List[DatasetConfig], args) -> None:
         if args.get(key):
             raise NotImplementedError(f"{key}: on-demand caches are not ported (ROADMAP Queue 1 item 4e)")
     for config in configs:
-        if config.dataset_type == "eval":
-            raise NotImplementedError(
-                f"dataset {config.id!r}: eval datasets (the eval loss) are not ported (ROADMAP Queue 1 item 4b)")
-        if config.dataset_type not in ("image", "text_embeds"):
+        if config.dataset_type not in ("image", "eval", "text_embeds"):
             raise NotImplementedError(
                 f"dataset {config.id!r}: dataset_type {config.dataset_type!r} is not ported "
                 "(ROADMAP Queue 1 item 4f)")
@@ -219,7 +219,7 @@ def configure_multi_databackend(
     # ---- primary datasets -------------------------------------------------------------------
     bundles: Dict[str, DatasetBundle] = {}
     for config in configs:
-        if config.dataset_type != "image":
+        if config.dataset_type not in ("image", "eval"):
             continue
         backend = storage[config.id]
         bucket_cfg = bucket_config_for(config, args)
@@ -232,7 +232,7 @@ def configure_multi_databackend(
             cache_file=os.path.join(cache_base, "aspect_ratio_bucket_indices.json"),
             metadata_file=os.path.join(cache_base, "aspect_ratio_bucket_metadata.json"),
             repeats=config.repeats,
-            dataset_type=config.dataset_type,
+            dataset_type="image",
         )
         metadata.refresh(max_workers=int(args.get("max_workers", 16) or 16))
 
@@ -304,10 +304,15 @@ def configure_multi_databackend(
     except Exception:
         pass
     logger.info("data plane ready: %s", metrics)
-    if args.get("eval_dataset_id"):
-        raise NotImplementedError("eval_dataset_id: the eval loss is not ported (ROADMAP Queue 1 item 4b)")
+    # eval_dataset_id marks image datasets as held-out eval splits: they stay
+    # out of the train iterator and the eval loss reads them
+    eval_ids = eval_dataset_id_set(args.get("eval_dataset_id"))
+    unknown_eval = eval_ids - set(bundles)
+    if unknown_eval:
+        raise ValueError(
+            f"--eval_dataset_id references unknown dataset(s): {sorted(unknown_eval)} (have: {sorted(bundles)})")
     iterator = MultiDatasetIterator(
-        list(bundles.values()),
+        [b for b in bundles.values() if b.config.dataset_type == "image" and b.id not in eval_ids],
         model,
         caption_dropout_probability=float(args.get("caption_dropout_probability", 0.0) or 0.0),
         seed=int(args.get("seed", 42) or 42),

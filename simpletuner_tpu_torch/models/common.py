@@ -75,6 +75,39 @@ class ModelFoundation:
     VAE_SCALING_FACTOR: float = 1.0
     VAE_SHIFT_FACTOR: float = 0.0
 
+    @classmethod
+    def get_acceleration_presets(cls) -> List[Dict[str, Any]]:
+        """Declarative memory/speed presets for the UI and the configure
+        wizard: the JAX package's single-device presets (remat policy, int8
+        frozen base, quantized optimizer state), each with the config
+        overrides that enact it.  The JAX ``multichip`` (FSDP) preset is left
+        out: a mesh is not ported (ROADMAP Queue 1 item 5)."""
+        return [
+            {
+                "name": "speed",
+                "description": "No remat, bf16 base — fastest when the model fits device memory",
+                "tradeoff": "highest device memory; full activation residency",
+                "config": {"gradient_checkpointing": False, "base_model_precision": "no_change"},
+            },
+            {
+                "name": "balanced",
+                "description": "Full remat with attention outputs saved across the boundary",
+                "tradeoff": "less activation memory for some recompute",
+                "config": {"gradient_checkpointing": True, "gradient_checkpointing_policy": "attn"},
+            },
+            {
+                "name": "memory",
+                "description": "Full remat + int8 frozen base (LoRA) + int8 optimizer states",
+                "tradeoff": "the smallest device memory; slower steps",
+                "config": {
+                    "gradient_checkpointing": True,
+                    "gradient_checkpointing_policy": "full",
+                    "base_model_precision": "int8",
+                    "optimizer": "bnb-adamw8bit",
+                },
+            },
+        ]
+
     def __init__(self, config: Any):
         self.config = config
         self.flavour = getattr(config, "model_flavour", None) or self.DEFAULT_FLAVOUR

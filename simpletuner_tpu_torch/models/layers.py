@@ -79,6 +79,9 @@ class LoRADense(nn.Module):
         self.zero_init = zero_init
         self.quant: Optional[str] = None
         self.quantized_matmul = "off"
+        # dtype a quantized weight is dequantized to at use (None: the layer's);
+        # ``render_view`` sets bf16, as ``dequantize_params`` rebuilds the tree
+        self.dequantize_dtype: Optional[torch.dtype] = None
         self.weight = nn.Parameter(torch.empty(features, in_features, dtype=dtype))
         self.bias = nn.Parameter(torch.empty(features, dtype=dtype)) if use_bias else None
         self.lora_rank = lora_rank
@@ -154,9 +157,11 @@ class LoRADense(nn.Module):
         elif self.quant == "int8" and matmul != "off":
             y = int8_dynamic_dot(x, self.weight, self.weight_scale, matmul == "full")
         elif self.quant == "int4":
-            y = torch.matmul(x, unpack_int4(self.weight_packed, self.weight_scale, self.dtype).t())
+            dtype = self.dequantize_dtype or self.dtype
+            y = torch.matmul(x, unpack_int4(self.weight_packed, self.weight_scale, dtype).to(self.dtype).t())
         else:
-            y = torch.matmul(x, dequantize_weight(self.weight, self.weight_scale, self.dtype).t())
+            dtype = self.dequantize_dtype or self.dtype
+            y = torch.matmul(x, dequantize_weight(self.weight, self.weight_scale, dtype).to(self.dtype).t())
         return y if self.bias is None else y + self.bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,25 +1,90 @@
 """Model family registry.
 
-Counterpart of ``simpletuner_tpu/models/registry.py``: ``get_model_family``
-builds the family a config names.  Only ``flux`` is ported; every other
-family of the JAX registry is refused by name (ROADMAP Queue 1 item 6), and
-an unknown name raises as in the JAX registry.
+Counterpart of ``simpletuner_tpu/models/registry.py``: ``ModelRegistry``
+(``families``, ``metadata``, ``get``, ``create``) over a copy of the JAX
+registry's family table and aliases, and ``get_model_family``, which builds
+the family a config names.  Every family of the JAX registry is listed with
+its metadata; only ``flux`` is ported, so ``get`` of any other family raises
+naming ROADMAP Queue 1 item 6, and an unknown name raises ``KeyError`` as in
+the JAX registry.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict, List, Type
 
-# the JAX registry's families (models/registry.py:9-51) and aliases (:53-59)
-JAX_FAMILIES = (
-    "flux", "sd1x", "sd2x", "sdxl", "sd3", "pixart_sigma", "auraflow", "wan", "ltxvideo", "ltxvideo2", "ace_step",
-    "chroma", "krea2", "kolors", "hunyuanvideo", "flux2", "lumina2", "sana", "deepfloyd", "mageflow", "z_image",
-    "cosmos3", "cosmos", "hidream", "qwen_image", "longcat_image", "longcat_video", "anima", "ideogram",
-    "kandinsky5_image", "kandinsky5_video", "sanavideo", "boogu_image", "ernie", "stable_cascade", "wan_s2v",
-    "heartmula", "omnigen", "z_image_omni", "zlab_i1",
-)
+# the JAX registry's families with their metadata (models/registry.py:9-51), in its order
+_FAMILIES: Dict[str, Dict[str, str]] = {
+    "flux": {"modality": "image", "prediction": "flow_matching"},
+    "sd1x": {"modality": "image", "prediction": "epsilon"},
+    "sd2x": {"modality": "image", "prediction": "v_prediction"},
+    "sdxl": {"modality": "image", "prediction": "epsilon"},
+    "sd3": {"modality": "image", "prediction": "flow_matching"},
+    "pixart_sigma": {"modality": "image", "prediction": "epsilon"},
+    "auraflow": {"modality": "image", "prediction": "flow_matching"},
+    "wan": {"modality": "video", "prediction": "flow_matching"},
+    "ltxvideo": {"modality": "video", "prediction": "flow_matching"},
+    "ltxvideo2": {"modality": "video", "prediction": "flow_matching"},
+    "ace_step": {"modality": "audio", "prediction": "flow_matching"},
+    "chroma": {"modality": "image", "prediction": "flow_matching"},
+    "krea2": {"modality": "image", "prediction": "flow_matching"},
+    "kolors": {"modality": "image", "prediction": "epsilon"},
+    "hunyuanvideo": {"modality": "video", "prediction": "flow_matching"},
+    "flux2": {"modality": "image", "prediction": "flow_matching"},
+    "lumina2": {"modality": "image", "prediction": "flow_matching"},
+    "sana": {"modality": "image", "prediction": "flow_matching"},
+    "deepfloyd": {"modality": "image", "prediction": "epsilon"},
+    "mageflow": {"modality": "image", "prediction": "flow_matching"},
+    "z_image": {"modality": "image", "prediction": "flow_matching"},
+    "cosmos3": {"modality": "video", "prediction": "flow_matching"},
+    "cosmos": {"modality": "image", "prediction": "sample"},
+    "hidream": {"modality": "image", "prediction": "flow_matching"},
+    "qwen_image": {"modality": "image", "prediction": "flow_matching"},
+    "longcat_image": {"modality": "image", "prediction": "flow_matching"},
+    "longcat_video": {"modality": "video", "prediction": "flow_matching"},
+    "anima": {"modality": "image", "prediction": "flow_matching"},
+    "ideogram": {"modality": "image", "prediction": "flow_matching"},
+    "kandinsky5_image": {"modality": "image", "prediction": "flow_matching"},
+    "kandinsky5_video": {"modality": "video", "prediction": "flow_matching"},
+    "sanavideo": {"modality": "video", "prediction": "flow_matching"},
+    "boogu_image": {"modality": "image", "prediction": "flow_matching"},
+    "ernie": {"modality": "image", "prediction": "flow_matching"},
+    "stable_cascade": {"modality": "image", "prediction": "epsilon"},
+    "wan_s2v": {"modality": "video", "prediction": "flow_matching"},
+    "heartmula": {"modality": "audio", "prediction": "autoregressive"},
+    "omnigen": {"modality": "image", "prediction": "flow_matching"},
+    "z_image_omni": {"modality": "image", "prediction": "flow_matching"},
+    "zlab_i1": {"modality": "image", "prediction": "flow_matching"},
+}
+# the JAX registry's aliases (:53-59)
 ALIASES = {"sd15": "sd1x", "sd21": "sd2x", "pixart": "pixart_sigma", "ltx2": "ltxvideo2",
            "kandinsky5-image": "kandinsky5_image"}
+
+
+class ModelRegistry:
+    @staticmethod
+    def families() -> List[str]:
+        return list(_FAMILIES)
+
+    @staticmethod
+    def metadata(name: str) -> Dict[str, Any]:
+        name = ALIASES.get(name, name)
+        if name not in _FAMILIES:
+            raise KeyError(f"unknown model family {name!r}; known: {list(_FAMILIES)}")
+        return dict(_FAMILIES[name])
+
+    @staticmethod
+    def get(name: str) -> Type:
+        ModelRegistry.metadata(name)  # unknown names raise KeyError
+        if ALIASES.get(name, name) != "flux":
+            raise NotImplementedError(f"model_family={name!r} is not ported (only flux; ROADMAP Queue 1 item 6)")
+        from .flux import Flux
+
+        return Flux
+
+    @staticmethod
+    def create(name: str, config: Any):
+        return ModelRegistry.get(name)(config)
 
 
 def get_model_family(config: Any):
@@ -27,13 +92,7 @@ def get_model_family(config: Any):
     family = getattr(config, "model_family", None)
     if not family:
         raise ValueError("config.model_family is required")
-    name = ALIASES.get(family, family)
-    if name not in JAX_FAMILIES:
-        raise KeyError(f"unknown model family {family!r}; known: {list(JAX_FAMILIES)}")
-    if name != "flux":
-        raise NotImplementedError(f"model_family={family!r} is not ported (only flux; ROADMAP Queue 1 item 6)")
+    cls = ModelRegistry.get(family)
     if getattr(config, "train_text_encoder", False):
         raise NotImplementedError("train_text_encoder is not ported (ROADMAP Queue 1 item 4i)")
-    from .flux import Flux
-
-    return Flux(config)
+    return cls(config)

@@ -21,7 +21,9 @@ from .configuration.args import TrainingConfig
 from .training.trainer import Trainer
 
 
-def main(argv=None) -> int:
+def configure_logging() -> None:
+    """Log to stderr at ``SIMPLETUNER_LOG_LEVEL`` (default INFO), the loop at
+    ``SIMPLETUNER_TRAINING_LOOP_LOG_LEVEL``."""
     level = getattr(logging, os.environ.get("SIMPLETUNER_LOG_LEVEL", "INFO").upper(), logging.INFO)
     logging.basicConfig(level=level, format="%(asctime)s [%(levelname)s] %(name)s: %(message)s", force=True)
     loop_level = os.environ.get("SIMPLETUNER_TRAINING_LOOP_LOG_LEVEL")
@@ -29,6 +31,10 @@ def main(argv=None) -> int:
         logging.getLogger("simpletuner_tpu_torch.training.trainer").setLevel(
             getattr(logging, loop_level.upper(), logging.INFO)
         )
+
+
+def main(argv=None) -> int:
+    configure_logging()
     parser = argparse.ArgumentParser(add_help=False)
     parser.add_argument("--device", default="cuda", help="torch device; 'cpu' for tests and tiny runs")
     known, rest = parser.parse_known_args(argv)

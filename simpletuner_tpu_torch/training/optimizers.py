@@ -271,13 +271,34 @@ OPTIMIZERS: Dict[str, Callable] = {
 }
 
 
+# every name of the JAX optimizer registry (``optimizer_names()`` there): the
+# names a config may give; the port trains those in ``OPTIMIZERS``
+JAX_OPTIMIZERS = (
+    "adadelta", "adafactor", "adagrad", "adam", "adamax", "adamw", "adamw-schedulefree", "adamw_bf16", "adan",
+    "ao-adamfp8", "ao-adamw4bit", "ao-adamw8bit", "ao-adamwfp8", "asgd", "bnb-adagrad", "bnb-adagrad8bit",
+    "bnb-adam", "bnb-adam8bit", "bnb-adamw", "bnb-adamw-paged", "bnb-adamw8bit", "bnb-adamw8bit-paged",
+    "bnb-lion", "bnb-lion-paged", "bnb-lion8bit", "bnb-lion8bit-paged", "lion", "muon", "nadam", "optimi-adam",
+    "optimi-adamw", "optimi-adamw-schedulefree", "optimi-adan", "optimi-lion", "optimi-radam", "optimi-ranger",
+    "optimi-sgd", "optimi-stableadamw", "prodigy", "prodigy-sf", "radam", "ranger", "rmsprop",
+    "schedule_free_adamw", "schedulefree-adamw", "sgd", "soap", "sparseadam", "stableadamw", "torch-adadelta",
+    "torch-adafactor", "torch-adagrad", "torch-adam", "torch-adamax", "torch-adamw", "torch-asgd", "torch-nadam",
+    "torch-radam", "torch-rmsprop", "torch-sgd", "torch-sparseadam",
+)
+
+
+def optimizer_names() -> Tuple[str, ...]:
+    """The optimizers the port trains, sorted (the CLI's and the server's listing)."""
+    return tuple(sorted(OPTIMIZERS))
+
+
 def get_optimizer(config: Any, learning_rate: Schedule) -> Optimizer:
     """The optimizer chain of the JAX package's ``get_optimizer`` for the
     ported names: global-norm clip at ``max_grad_norm`` (when > 0), then the
     named optimizer with its ``optimizer_config`` overrides."""
     name = (_get(config, "optimizer") or "adamw").lower()
     if name not in OPTIMIZERS:
-        raise NotImplementedError(f"optimizer {name!r} is not ported (only {sorted(OPTIMIZERS)})")
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported (only {sorted(OPTIMIZERS)}; ROADMAP Queue 1 item 7)")
     method = _get(config, "grad_clip_method", "norm") or "norm"
     if method != "norm":
         raise NotImplementedError(f"grad_clip_method={method!r} is not ported (only 'norm')")

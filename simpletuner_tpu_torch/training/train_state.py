@@ -95,7 +95,8 @@ def render_view(state: TrainState, use_ema: bool = False, zero_adapters: bool = 
     """The state's module as the JAX trainer renders ``TrainState.variables``,
     for the duration of a ``with``: a quantized base is used dequantized with
     dense products (``quantized_matmul`` "off": each layer dequantizes its
-    weight to its dtype at use, one layer at a time), and the adapters hold
+    weight at use, one layer at a time, to bf16 and then to its dtype, as
+    ``dequantize_params`` rebuilds the tree in bf16), and the adapters hold
     the EMA (``use_ema``, when the state has one) or zeros
     (``zero_adapters``, the base-model render).  The adapters' values are
     copied in and back in place, so graphs captured over the state stay
@@ -110,12 +111,12 @@ def render_view(state: TrainState, use_ema: bool = False, zero_adapters: bool = 
             for key, param in state.trainable.items():
                 param.copy_(torch.zeros_like(param) if zero_adapters else state.ema[key])
     for sub in modes:
-        sub.quantized_matmul = "off"
+        sub.quantized_matmul, sub.dequantize_dtype = "off", torch.bfloat16
     try:
         yield module
     finally:
         for sub, mode in modes.items():
-            sub.quantized_matmul = mode
+            sub.quantized_matmul, sub.dequantize_dtype = mode, None
         if saved is not None:
             with torch.no_grad():
                 for key, param in state.trainable.items():

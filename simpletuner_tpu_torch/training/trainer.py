@@ -10,7 +10,8 @@ device, ``cuda`` unless the caller asks for the CPU:
   normalized on the device, f32 latents);
 * ``init_data_backend``: the data plane (``data/factory.py``) with both
   caching passes;
-* ``init_validations`` (prompt embeds while the encoders live),
+* ``init_validations`` (prompt embeds while the encoders live, and the eval
+  loss over the eval split, ``training/evaluation.py``),
   ``init_unload_text_encoder`` (drops them and returns their device memory);
 * ``init_load_base_model``: the module from the pretrained checkpoint (BFL or
   diffusers safetensors) or, where allowed, seeded weights;
@@ -21,9 +22,10 @@ device, ``cuda`` unless the caller asks for the CPU:
   the step, and the resume (state restored in place, data plane cursor);
 * ``init_benchmark_base_model``, ``init_trackers``, ``init_huggingface_hub``;
 * ``train``: the loop with epoch-rollover and interval / rolling
-  checkpoints, logging, status webhooks, validation (with the EMA comparison
-  pass), the final checkpoint, validation and model card, and the SIGTERM
-  preemption checkpoint.
+  checkpoints, logging, status webhooks, the eval loss every
+  ``eval_steps_interval`` steps (logged as ``eval_loss`` to every tracker),
+  validation (with the EMA comparison pass), the final checkpoint, validation
+  and model card, and the SIGTERM preemption checkpoint.
 
 On the card each batch shape's step is captured once as a CUDA graph
 (``jit_train_step``), all over the one train state and one memory pool; on
@@ -39,8 +41,7 @@ text encoders from 0.  Half-precision text encoders are bf16 in the port
 dtype and T5 overflows fp16.  Refused, each naming its ROADMAP item:
 families other than flux, full fine-tunes and ControlNet, distillation and
 ODE pairs, CREPA / U-REPA, text-encoder training, slider and assistant
-adapters, the eval loss, a mesh of more than one device and multi-process
-runs.
+adapters, a mesh of more than one device and multi-process runs.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ from ..webhooks.events import checkpoint_event, device_fault_event, error_event
 from ..webhooks.handler import WebhookConfig
 from .checkpoints import CheckpointManager
 from .ema import EMAConfig
+from .evaluation import EvalLoss
 from .iteration_tracker import IterationTracker
 from .lora import load_lora_safetensors, save_lora_safetensors
 from .optimizers import get_optimizer
@@ -107,8 +109,6 @@ _UNPORTED_OPTIONS = (
     ("slider_negative_prompt", "slider training", "Queue 1 item 7"),
     ("assistant_lora_path", "the assistant adapter", "Queue 1 item 7"),
     ("controlnet", "ControlNet", "Queue 1 item 7"),
-    ("eval_steps_interval", "the eval loss", "Queue 1 item 4b"),
-    ("eval_dataset_id", "the eval loss", "Queue 1 item 4b"),
     ("push_to_hub", "hub upload", "Queue 1 item 4j"),
     ("push_checkpoints_to_hub", "hub upload", "Queue 1 item 4j"),
     ("fsdp", "a device mesh", "Queue 1 item 5"),
@@ -209,6 +209,7 @@ class Trainer:
         self.vae: Optional[AutoencoderKL] = None
         self.module: Optional[torch.nn.Module] = None
         self.validation: Optional[Validation] = None
+        self.eval_loss: Optional[EvalLoss] = None
         self.trackers: List = []
         self.iteration_tracker = IterationTracker()
         self.should_abort = False
@@ -227,6 +228,7 @@ class Trainer:
         self.stage_report: Dict[str, Dict[str, float]] = {}
         self.capture_report: List[Dict[str, Any]] = []
         self.validation_report: List[Dict[str, Any]] = []
+        self.eval_report: List[Dict[str, Any]] = []
 
     @property
     def checkpoint_manager(self) -> CheckpointManager:
@@ -363,6 +365,15 @@ class Trainer:
             device=self.device,
         )
         self.validation.precompute_embeds()
+        self.eval_loss = EvalLoss(
+            self.model,
+            list(self.data_plane.bundles.values()) if self.data_plane else [],
+            seed=self.seed,
+            max_batches=int(self._get("num_eval_images", 8) or 8),
+            eval_dataset_ids=self._get("eval_dataset_id"),
+            draws_per_batch=int(self._get("eval_timesteps", 1) or 1),
+            device=self.device,
+        )
         self._stage("init_validations", "completed")
 
     def init_unload_text_encoder(self) -> None:
@@ -665,6 +676,21 @@ class Trainer:
                                            "paths": paths})
         return paths
 
+    def _evaluate(self, step: int) -> Optional[float]:
+        """The eval loss on the state as ``render_view`` shows it (the JAX
+        trainer evaluates ``TrainState.variables()``), logged as
+        ``eval_loss`` to every tracker."""
+        start = time.perf_counter()
+        with render_view(self._state) as module:
+            value = self.eval_loss.execute_eval(module)
+        seconds = time.perf_counter() - start
+        if value is not None:
+            for tracker in self.trackers:
+                tracker.log({"eval_loss": value}, step)
+        self.eval_report.append({"step": step, "eval_loss": value, "seconds": seconds})
+        logger.info("eval_loss %s at step %d (%.3f s)", value, step, seconds)
+        return value
+
     # ---- the loop ---------------------------------------------------------------------------
     def train(self) -> None:
         self._stage("train")
@@ -675,6 +701,7 @@ class Trainer:
         rolling_interval = self._get("checkpointing_rolling_steps")
         checkpoint_epoch_interval = self._get("checkpoint_epoch_interval")
         validation_epoch_interval = self._get("validation_epoch_interval")
+        eval_interval = self._get("eval_steps_interval")
         log_interval = int(self._get("logging_steps", 1) or 1)
         webhook_interval = int(self._get("webhook_reporting_interval", 10) or 10)
 
@@ -752,6 +779,14 @@ class Trainer:
                 elif rolling_interval and self.global_step % int(rolling_interval) == 0:
                     if self.disk_guard.check_before_checkpoint():
                         self.save_checkpoint(rolling=True)
+
+                if (
+                    self.eval_loss is not None
+                    and self.eval_loss.enabled
+                    and eval_interval
+                    and self.global_step % int(eval_interval) == 0
+                ):
+                    self._evaluate(self.global_step)
 
                 if self.validation is not None and self.validation.would_validate(self.global_step):
                     # --ema_validation: none | ema_only | comparison;

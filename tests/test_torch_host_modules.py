@@ -6,7 +6,8 @@ dataloader loaders, ``TrainingConfig``, the local storage backend, the
 text-embed cache, the Flux LoRA key map, the bucket math, the text-encoder
 specs, and for the trainer runtime the webhooks, the iteration tracker, the
 JSONL tracker, ``DiskGuard``, captions, the sampler, the batch fetcher, the
-bucket report and the modelspec / model card).  These tests
+bucket report and the modelspec / model card; for the entry points the
+OPTIONS.md generator and the model registry).  These tests
 hold each copy to its JAX counterpart on the same inputs, exactly, and check
 in a fresh process that importing the whole port loads no module of the JAX
 package, and that it imports with ``jax``, ``safetensors``, ``PIL`` and
@@ -467,3 +468,28 @@ def test_model_registry_refuses_other_families():
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):
         get_model_family(TrainingConfig({"model_family": "nope"}))
+
+
+def test_doc_generator_matches():
+    from simpletuner_tpu.configuration.doc_generator import generate_options_markdown as jax_markdown
+
+    from simpletuner_tpu_torch.configuration.doc_generator import generate_options_markdown
+
+    assert generate_options_markdown() == jax_markdown()
+
+
+def test_model_registry_matches():
+    from simpletuner_tpu.models.registry import ModelRegistry as JaxModelRegistry
+
+    from simpletuner_tpu_torch.models.flux import Flux
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+
+    assert ModelRegistry.families() == JaxModelRegistry.families()
+    for name in ModelRegistry.families() + ["sd15", "pixart", "ltx2", "kandinsky5-image"]:
+        assert ModelRegistry.metadata(name) == JaxModelRegistry.metadata(name), name
+    assert ModelRegistry.get("flux") is Flux
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+        ModelRegistry.get("sd15")
+    for registry in (ModelRegistry, JaxModelRegistry):
+        with pytest.raises(KeyError):
+            registry.metadata("nope")

@@ -11,6 +11,7 @@ subprocess, its refusals, and a subprocess that proves the port imports
 without JAX, Flax, Optax, Orbax, PIL or transformers.
 """
 
+import copy
 import dataclasses
 import json
 import os
@@ -203,35 +204,42 @@ def test_render_matches_jax_end_to_end(tmp_path):
 
 @pytest.mark.parametrize("precision", ["int8-quanto", "fp8-quanto", "int4-quanto"])
 def test_render_on_a_quantized_base_matches_jax(tmp_path, precision):
-    """The runtime quantizes a LoRA model's base and renders it as the JAX
-    runtime renders ``TrainState.variables()``: ``dequantize_params`` of
-    ``quantize_params``' tree (bf16 kernels), with dense products."""
+    """The runtime stores a LoRA model's base quantized (``create_train_state``)
+    and renders it as the JAX runtime renders ``TrainState.variables()``:
+    ``dequantize_params`` of ``quantize_params``' tree (bf16 kernels), with
+    dense products."""
     from simpletuner_tpu.models import layers as jl
     from simpletuner_tpu.training.quantization import dequantize_params, quantize_params
 
-    from simpletuner_tpu_torch.models.layers import LoRADense, init_parameters
+    from simpletuner_tpu_torch.models.layers import LoRADense, dequantize_module, init_parameters
     from simpletuner_tpu_torch.models.weight_bridge import flax_variables
 
     config_path = _config(tmp_path, model_type="lora", lora_rank=4, base_model_precision=precision)
     runtime = CheckpointInferenceRuntime(config_path=config_path, output=str(tmp_path / "out"), device="cpu")
     mode = runtime.model.base_precision
     dense = [m for m in runtime.module.modules() if isinstance(m, LoRADense)]
-    assert dense and all(m.quant is None and m.weight.dtype == torch.float32 for m in dense)
-    # the base is the seeded initialisation through quantize_params and dequantize_params
+    assert dense and all(m.quant == mode for m in dense)
+    # the base is the seeded initialisation through quantize_params, and what a
+    # render uses is dequantize_params of it
     generator = torch.Generator().manual_seed(int(getattr(runtime.config, "seed", 42) or 42))
     initial = flax_variables(init_parameters(Flux(runtime.config).create_module(), generator))
-    expected = dequantize_params(quantize_params(initial, mode))["params"]
-    got = flax_variables(runtime.module)["params"]
-    for path, leaf in jax.tree_util.tree_flatten_with_path(expected)[0]:
-        value = got
-        for key in path:
-            value = value[key.key]
-        np.testing.assert_array_equal(value, np.asarray(leaf, np.float32), err_msg=str(path))
+    stored = quantize_params(initial, mode)
+    got = flax_variables(runtime.module)
+    expected = dequantize_params(stored)["params"]
+    rebuilt = flax_variables(dequantize_module(copy.deepcopy(runtime.module)))["params"]
+    for tree, mine in ((stored["params"], got["params"]), (stored["qscales"], got["qscales"]), (expected, rebuilt)):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            value = mine
+            for key in path:
+                value = value[key.key]
+            np.testing.assert_array_equal(np.asarray(value, np.float32), np.asarray(leaf, np.float32),
+                                          err_msg=str(path))
     previous = jl._LORA_TARGET, jl._QUANTIZED_MATMUL
     try:
         jmodel, flux_vars, jvae, vae_vars = _jax_weights(runtime.config)  # installs the int8 matmul mode
-        rendered = dequantize_params(quantize_params(flux_vars, mode))
-        bridge(rendered, runtime.module)
+        quantized = quantize_params(flux_vars, mode)
+        rendered = dequantize_params(quantized)
+        bridge(quantized, runtime.module)
         bridge(vae_vars, runtime.vae)
         (path,) = runtime.render(PROMPT, steps=4)
         image = np.asarray(Image.open(path)).astype(np.int32)
@@ -361,19 +369,23 @@ def test_cli_end_to_end_writes_the_rendered_png(tmp_path):
 
 def test_refusals(tmp_path):
     with pytest.raises(FileNotFoundError):  # a configured model path must exist: never random weights
-        CheckpointInferenceRuntime(_config(tmp_path, model_arch_preset=None, allow_untrained_init=False,
-                                           pretrained_model_name_or_path=str(tmp_path / "missing")), device="cpu")
+        CheckpointInferenceRuntime(config_path=_config(
+            tmp_path, model_arch_preset=None, allow_untrained_init=False,
+            pretrained_model_name_or_path=str(tmp_path / "missing")), device="cpu")
     with pytest.raises(ValueError):
-        CheckpointInferenceRuntime(
-            _config(tmp_path, model_arch_preset=None, allow_untrained_init=False), device="cpu")
+        CheckpointInferenceRuntime(config_path=_config(
+            tmp_path, model_arch_preset=None, allow_untrained_init=False), device="cpu")
     with pytest.raises(NotImplementedError):
-        CheckpointInferenceRuntime(_config(tmp_path, model_family="sdxl"), device="cpu")
+        CheckpointInferenceRuntime(config_path=_config(tmp_path, model_family="sdxl"), device="cpu")
     # a quantized base needs a frozen one, as the JAX trainer's create_train_state says
     with pytest.raises(ValueError, match="model_type=lora"):
-        CheckpointInferenceRuntime(_config(tmp_path, base_model_precision="int8-quanto"), device="cpu")
+        CheckpointInferenceRuntime(config_path=_config(tmp_path, base_model_precision="int8-quanto"), device="cpu")
+    # a checkpoint directory that does not exist is refused, never rendered as the base
+    with pytest.raises(FileNotFoundError, match="checkpoint"):
+        CheckpointInferenceRuntime(str(tmp_path / "checkpoint-9"), config_path=_config(tmp_path), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
-            CheckpointInferenceRuntime(_config(tmp_path), device="cuda")
+            CheckpointInferenceRuntime(config_path=_config(tmp_path), device="cuda")
 
 
 @pytest.mark.parametrize("shape", [(5, 7, 3), (4, 6), (3, 2, 4)])

@@ -400,3 +400,164 @@ def test_checkpoint_bench_needs_the_card():
     if torch.cuda.is_available():
         pytest.skip("on a card the benchmark writes 12 GB: run it as python -m simpletuner_tpu_torch.bench_checkpoint")
     assert bench_checkpoint.main([]) == 2
+
+
+# ---- the eval loss and checkpoint inference, against the JAX Trainer -----------------------------
+
+EVAL_PROMPT = "a red cube on a table"
+
+
+def _stand_in_text(self, prompts):
+    """Each prompt's Flux payload from a generator seeded by its md5: the same
+    embeds on both sides and in every process."""
+    import hashlib
+
+    out = []
+    for prompt in prompts:
+        rng = np.random.default_rng(int(hashlib.md5(prompt.encode()).hexdigest()[:8], 16))
+        mask = (np.arange(16) < min(len(prompt.split()) + 1, 16)).astype(np.int32)
+        out.append({"t5_embeds": rng.standard_normal((16, 32)).astype(np.float32),
+                    "pooled_embeds": rng.standard_normal(32).astype(np.float32), "attention_mask": mask})
+    return out
+
+
+def _eval_overrides(calls):
+    """``collate_batch`` with the same numpy noise and sigmas on both sides, per eval batch in order."""
+
+    def wrap(collate):
+        def collate_batch(samples, bundle, model, *args, **kwargs):
+            batch = collate(samples, bundle, model, *args, **kwargs)
+            rng = np.random.default_rng(2000 + len(calls))
+            calls.append([s["image_path"] for s in samples])
+            batch["override_noise"] = rng.standard_normal(batch["latents"].shape).astype(np.float32)
+            batch["override_sigmas"] = rng.uniform(0.05, 0.95, batch["latents"].shape[0]).astype(np.float32)
+            return batch
+
+        return collate_batch
+
+    return wrap
+
+
+def _port_noise_render(original):
+    """The JAX ``_render_single`` with the port's validation noise for (seed, index)."""
+    import jax.numpy as jnp
+
+    from simpletuner_tpu_torch.training.validation import noise_generator
+
+    def render_single(self, variables, embeds, index):
+        noise = torch.randn(self._latent_shape(1), generator=noise_generator(self.seed, index)).numpy()
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(jax.random, "normal", lambda key, shape, dtype=jnp.float32: jnp.asarray(noise, dtype))
+            return original(self, variables, embeds, index)
+
+    return render_single
+
+
+@pytest.fixture(scope="module")
+def eval_runs(runs):
+    """The ``runs`` configuration with an eval split (two more images,
+    ``dataset_type: eval``, ``eval_steps_interval: 2``), a validation prompt
+    and a seeded VAE file, on both sides; then each package's
+    ``run_inference`` on its own ``checkpoint-4``."""
+    from simpletuner_tpu import inference as jax_inference
+    from simpletuner_tpu.data import dataset as jax_dataset
+    from simpletuner_tpu.models.flux.model import Flux as JaxFlux
+    from simpletuner_tpu.training import evaluation as jax_evaluation
+    from simpletuner_tpu.training.validation import Validation as JaxValidation
+
+    from simpletuner_tpu_torch import inference
+    from simpletuner_tpu_torch.models.checkpoint_layouts import vae_checkpoint_shapes
+    from simpletuner_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from simpletuner_tpu_torch.training import evaluation
+
+    root = runs[0]
+    _write_images(root / "held", count=2)
+    for i in range(2):
+        os.replace(root / "held" / f"i_{i}.txt", root / "held" / f"e_{i}.txt")
+        os.replace(root / "held" / f"i_{i}.png", root / "held" / f"e_{i}.png")
+        (root / "held" / f"e_{i}.txt").write_text(f"held out {i}")
+    (root / "vaemodel" / "vae").mkdir(parents=True)
+    save_safetensors(_seeded(vae_checkpoint_shapes(AutoencoderKL(VAEConfig.tiny())), seed=6),
+                     str(root / "vaemodel" / "vae" / "diffusion_pytorch_model.safetensors"))
+
+    def values(out):
+        config = _values(root, out, pretrained_model_name_or_path=str(root / "flux.safetensors"),
+                         init_lora=str(root / "init_lora.safetensors"), eval_steps_interval=2,
+                         validation_prompt=EVAL_PROMPT, validation_resolution=64, validation_num_inference_steps=2,
+                         disable_benchmark=True, pretrained_vae_model_name_or_path=str(root / "vaemodel"))
+        config["data_backend_config"].insert(1, {
+            "id": "held", "dataset_type": "eval", "type": "local", "instance_data_dir": str(root / "held"),
+            "resolution": 32, "resolution_type": "pixel_area", "aspect_bucket_alignment": 16,
+            "caption_strategy": "textfile", "cache_dir_vae": str(root / "cache" / "vae_held")})
+        return config
+
+    calls = {"jax": [], "port": []}
+    renders = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_trainer_module, "build_mesh", lambda config: jax_build_mesh(config, devices=jax.devices()[:1]))
+        mp.setattr(JaxIterator, "next_batch", _overriding(JaxIterator.next_batch))
+        mp.setattr(MultiDatasetIterator, "next_batch", _overriding(MultiDatasetIterator.next_batch))
+        mp.setattr(JaxFlux, "encode_text", _stand_in_text)
+        mp.setattr(Flux, "encode_text", _stand_in_text)
+        mp.setattr(JaxValidation, "_render_single", _port_noise_render(JaxValidation._render_single))
+        execute = jax_evaluation.EvalLoss.execute_eval
+
+        def jax_execute(self, variables):
+            with pytest.MonkeyPatch.context() as m:
+                m.setattr(jax_dataset, "collate_batch", _eval_overrides(calls["jax"])(jax_dataset.collate_batch))
+                return execute(self, variables)
+
+        mp.setattr(jax_evaluation.EvalLoss, "execute_eval", jax_execute)
+        mp.setattr(evaluation, "collate_batch", _eval_overrides(calls["port"])(evaluation.collate_batch))
+        jax_trainer = JaxTrainer(config=JaxTrainingConfig(values("jax_eval")))
+        jax_trainer.run()
+        port_trainer = Trainer(config=values("port_eval"), device="cpu")
+        port_trainer.run()
+        config_path = root / "eval_config.json"
+        config_path.write_text(json.dumps(values("unused")))
+        for side, run in (("jax", jax_inference.run_inference), ("port", inference.run_inference)):
+            kwargs = {} if side == "jax" else {"device": "cpu"}
+            assert run(checkpoint=str(root / f"{side}_eval" / "checkpoint-4"), prompt=EVAL_PROMPT,
+                       config_path=str(config_path), output=str(root / f"{side}_render"), steps=2,
+                       resolution=64, seed=42, **kwargs) == 0
+    return root, calls, jax_trainer, port_trainer
+
+
+def test_eval_loss_matches_jax(eval_runs):
+    root, calls, _, port_trainer = eval_runs
+    ours = [m for m in _metrics(root / "port_eval") if "eval_loss" in m]
+    theirs = [m for m in _metrics(root / "jax_eval") if "eval_loss" in m]
+    assert [m["step"] for m in ours] == [m["step"] for m in theirs] == [2, 4]
+    for a, b in zip(ours, theirs):
+        assert np.isfinite(a["eval_loss"]) and abs(a["eval_loss"] - b["eval_loss"]) <= TRAJECTORY_TOL * abs(b["eval_loss"])
+    # both evaluators read the same batches: the eval split's two images, once per eval
+    assert calls["port"] == calls["jax"] and len(calls["port"]) == 4
+    assert all(os.path.basename(p).startswith("e_") for batch in calls["port"] for p in batch)
+    assert [r["step"] for r in port_trainer.eval_report] == [2, 4]
+
+
+def test_eval_split_leaves_the_training_losses(runs, eval_runs):
+    """The eval split never enters the train iterator: on each side the
+    training losses with it are bitwise those without it."""
+    root = runs[0]
+    for side in ("jax", "port"):
+        without = [(m["loss"], m["grad_norm"]) for m in _metrics(root / side)]
+        with_eval = [(m["loss"], m["grad_norm"]) for m in _metrics(root / f"{side}_eval") if "loss" in m]
+        assert with_eval == without, side
+
+
+def test_checkpoint_inference_renders_the_final_validation(eval_runs):
+    """Each package's run_inference on its own checkpoint-4 renders its
+    trainer's final validation image bitwise; the port's render matches the
+    JAX one within the render tolerance."""
+    root = eval_runs[0]
+    images = {}
+    for side in ("jax", "port"):
+        final = np.asarray(Image.open(root / f"{side}_eval" / "validation" / "step_4_0.png"))
+        rendered = np.asarray(Image.open(root / f"{side}_render" / "validation" / "step_4_0.png"))
+        assert final.shape == (16, 16, 3)  # the tiny preset renders at a quarter size
+        np.testing.assert_array_equal(rendered, final, err_msg=side)
+        images[side] = rendered.astype(np.int32)
+    # f32 both sides; adapters within 1e-5; uint8 truncation can flip a pixel by one level
+    diff = np.abs(images["port"] - images["jax"])
+    assert diff.max() <= 1 and diff.mean() < 0.05
