@@ -10,10 +10,12 @@ Phases (each prints one line; any failure exits non-zero with no result line):
 3. kernels: the forward kernel against its plain PyTorch version on the
    card, bf16, at the Flux shape masked and unmasked, Flux padding at a ragged
    S = 4173, a ragged S = 1000, packed samples (mixed tiles), narrow heads
-   (D = 64, 32) and a (B, S, H, D) strided view; rows that see no key exactly
+   (D = 64, 32), a (B, S, H, D) strided view and SD3.5 Large's (1, 38, 4429,
+   64) with no caller mask (the ragged tail); rows that see no key exactly
    0 with lse -1e30; kernel, plain and SDPA times (CUDA events, after warm-up;
    SDPA with the T5 mask as a boolean attn_mask is the masked yardstick), the
-   bound, and the skip/full/mixed tile counts of the Flux masked call;
+   bound, and the skip/full/mixed tile counts of the Flux masked call; the
+   kernel, plain and SDPA times and the bound at SD3.5 Large's shape;
 4. render: the port's inference runtime renders one 1024x1024 image with
    full-width Flux.1-dev (19 double + 38 single blocks, hidden 3072, 24x128
    heads, guidance embedding; depth not cut) and the Flux VAE decoder, from
@@ -34,7 +36,8 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    kernel's skip tiles); dk and dv of pad keys and dq of pad queries exactly
    0; gradients of strided inputs in their layout; dq bitwise equal over two
    launches at the Flux masked shape; kernel, plain and SDPA-backward times,
-   the bounds and each kernel's share of its bound;
+   the bounds and each kernel's share of its bound, at the Flux shape and at
+   SD3.5 Large's;
 8. train step: the flagship LoRA step (simpletuner_tpu_torch.bench.flagship:
    full-width, full-depth Flux.1-dev, rank-16 LoRA, AdamW, 1024 px, T5 padding
    masked): first the JAX flagship's configuration, an int8 frozen base with
@@ -68,16 +71,19 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    (hidden 3072, 24x128 heads) written with the port's safetensors writer,
    at a cut depth (1 double + 2 single blocks) in the BFL layout (one file)
    and the diffusers layout (two shards), and at full depth (19 + 38 blocks,
-   11.9B parameters, 23.8 GB) as one BFL file; the Flux VAE (diffusers
-   layout, with the quant convs) and CLIP-L at full size; each loaded onto
-   the card, both cut layouts bitwise equal, and the full-depth module
-   bitwise equal to them on the tensors they share; load seconds and GB/s
-   (the files are read back from the page cache right after being written),
-   peak host and device memory; a rank-16 LoRA adapter saved and loaded back
-   bitwise;
+   11.9B parameters) as one fp8 (e4m3) BFL file of 11.9 GB, as the published
+   fp8 Flux files are (the card's machine ends a run that writes more than
+   45 GiB in all, deleted files included, and phase 19 writes SD3.5 Large in
+   bf16); the Flux VAE
+   (diffusers layout, with the quant convs) and CLIP-L at full size; each
+   loaded onto the card, both cut layouts bitwise equal, and the full-depth
+   module equal to the cut one rounded to e4m3 on the tensors they share;
+   load seconds and GB/s (the files are read back from the page cache right
+   after being written), peak host and device memory; a rank-16 LoRA adapter
+   saved and loaded back bitwise;
 15. text encoders: CLIP-L (phase 14's file) and T5-XXL at full size (24
-   layers, d_model 4096, 64x64 heads, d_ff 10240, gated-gelu; seeded, bf16)
-   encode 16 prompts at T5 length 512 through Flux.encode_text and
+   layers, d_model 4096, 64x64 heads, d_ff 10240, gated-gelu; seeded, bf16;
+   written for phases 17-19 at full width and 6 of its 24 blocks) encode 16 prompts at T5 length 512 through Flux.encode_text and
    TextEmbeddingCache.compute_embeddings_for_prompts; the payload read back
    bitwise what was encoded; the bf16 T5 output against the f32 module;
    prompts/s and MFU;
@@ -88,8 +94,8 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    images/s end to end and on the device, MFU, peak GiB.
 
 17. trainer: ``Trainer.run()`` (what ``python -m simpletuner_tpu_torch.train``
-   runs) on full-width, full-depth Flux.1-dev from phase 14's BFL file and
-   Flux dir (phase 15 adds its bf16 T5-XXL and seeded tokenizer files):
+   runs) on full-width, full-depth Flux.1-dev from phase 14's fp8 BFL file and
+   Flux dir (phase 15 adds its cut-depth T5-XXL and seeded tokenizer files):
    int8 base with quantized_matmul=full, remat attn, rank-16 LoRA on `all`,
    AdamW 1e-4, the T5 mask in the attention, batch 1 at 1024 px over 8 of
    phase 16's JPEGs in two buckets (one graph each), 8 steps with
@@ -102,8 +108,8 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    resumed run, checkpoint save and restore seconds and bytes, validation
    seconds.  Its checkpoints refer to the frozen base instead of writing it,
    which keeps the script's disk writes near 40 GB in all (phases 14-15
-   write 37 GB, a full-state checkpoint 12.3 GB, and the runs save five
-   times); ``python -m simpletuner_tpu_torch.bench_checkpoint`` times the
+   write 18 GB and phase 19 18 GB, a full-state checkpoint is 12.3 GB, and
+   the runs save five times); ``python -m simpletuner_tpu_torch.bench_checkpoint`` times the
    full-state save and restore.
 18. server: the port's training server (``server/app.py``) in this process
    on an ephemeral port with ``device="cuda"``: ``/health``,
@@ -124,9 +130,30 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    start and finish.  Prints the parent's allocation before the phase, each
    job's wall time, the time to the first step, the children's peaks and the
    eval seconds.
+19. sd3: SD3.5 Large (stabilityai/stable-diffusion-3.5-large's
+   ``transformer/config.json``: hidden 2432, 38 heads of 64, 38 blocks,
+   ``pos_embed_max_size`` 192, qk RMSNorm; 8.1B parameters) at full width and
+   depth.  Deletes phase 14's Flux file and phase 17-18's output dirs, checks
+   the free disk and what the run has written; writes with the port's writer a seeded diffusers
+   transformer (16.3 GB bf16, two shards), a seeded CLIP-G (bf16, with the
+   projection the importer leaves out) and a 16-channel VAE with both quant
+   convs, beside hard links to phase 14-15's CLIP-L, T5-XXL and tokenizers
+   (the tokenizer subfolders both packages read); imports the transformer
+   through ``load_transformer_params`` (s, GB/s, peak host RSS and device
+   GiB; every tensor bitwise the written one); renders 1024x1024 through
+   ``CheckpointInferenceRuntime`` (``model_flavour: large-3.5``) with true CFG
+   at ``validation_guidance`` 5 (two forwards per Euler step; the PNG checked,
+   the latents finite, 76 flash launches per step); one full-depth denoise
+   call with the kernels against the plain attention (relative L2 within
+   the bound of phase 5); ``Trainer.run()`` with an int8 base
+   (``quantized_matmul: full``), every block checkpointed, rank-16 LoRA, 6
+   steps on four of phase 16's square JPEGs in one bucket, graphed: losses,
+   s/step, MFU (``sd3_step_flops``, bench.py's convention), capture s, time
+   to the first step, peak GiB, and the launches of a profiled replay, which
+   must equal the capture's (76 / 38 / 38).
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
-phase 14's full-depth Flux file stays on disk for phase 17.
+their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-19.
 Phases 3 and 7 also run head dims 72, 96 and 112 (pixart, lumina2, sana),
 which the wrappers zero-pad to 128, masked and unmasked.  Then a JSON line
 with the kernels (launches: the profiler's count in phase 12's profiled
@@ -184,6 +211,8 @@ IMPORT_DOUBLE, IMPORT_SINGLE = 1, 2
 # of 24 layers, so the outputs agree to about a percent in relative L2
 T5_BF16_REL_L2 = 5e-2
 TEXT_PROMPTS = 16
+# the T5-XXL file phases 17-19 load: full width, the first 6 of 24 blocks
+T5_FILE_LAYERS = 6
 # phase 16: bf16 VAE encoder against the f32 one: about 20 bf16-rounded
 # convolutions deep, the latents agree to about a percent in relative L2
 VAE_BF16_REL_L2 = 5e-2
@@ -196,9 +225,9 @@ TRAIN_CAPTIONS = [f"a seeded photo number {i}, waves of colour" for i in range(8
 TRAIN_PROMPT = "a lighthouse on a basalt cliff at dusk"
 # the checkpoints refer to the frozen base (checkpoint_frozen_base: reference)
 # instead of writing its 12 GB at each of the five saves, which keeps the
-# script's writes near 40 GB in all (phases 14-15 write 37 GB; python -m
-# simpletuner_tpu_torch.bench_checkpoint times the full-state save); the runs
-# then need a few GB of disk
+# script's writes near 40 GB in all (phases 14-15 write 18 GB, phase 19 18 GB;
+# python -m simpletuner_tpu_torch.bench_checkpoint times the full-state save);
+# the runs then need a few GB of disk
 TRAIN_CHECKPOINT_GB = 4.0
 # phase 18: the eval split of the server's training job, phase 16's square
 # JPEGs 12 and 15 (phase 17 trains on 0-10)
@@ -206,6 +235,14 @@ SERVER_EVAL_IMAGES = (12, 15)
 # draws per eval image (eval_timesteps; the registry default is 28, an eager
 # full-width forward of about 0.36 s each)
 SERVER_EVAL_DRAWS = 4
+# phase 19: SD3.5 Large; the render's guidance (true CFG, two forwards per
+# Euler step), the trainer's steps on phase 16's first square JPEGs, and what
+# the whole run may have written when the phase's files are added (the card's
+# machine ends a run beyond 45 GiB = 48.3 GB, deleted files included)
+SD3_PROMPT = "a lighthouse on a basalt cliff at dusk"
+SD3_GUIDANCE = 5.0
+SD3_TRAIN_STEPS, SD3_TRAIN_IMAGES = 6, 4
+SD3_WRITE_LIMIT_GB = 46.0
 # phase 10: the Flux linears' (in, out): attention q/k/v and proj, single-block
 # linear1 (q, k, v, mlp) and linear2, the MLP in and out, double-block AdaLN
 INT8_SHAPES = ((3072, 3072), (3072, 21504), (15360, 3072), (3072, 12288), (12288, 3072), (3072, 18432))
@@ -294,6 +331,8 @@ def _segments(batch, length, txt_valid=None, packed_at=None, pad_from=None):
 # without ids, packed samples with mixed tiles, narrow heads through the
 # dispatcher's strided layout
 FLUX_S = TXT_LEN + (RESOLUTION // 16) ** 2
+SD3_TXT = 77 + 256  # CLIP tokens, then T5-XXL's 256
+SD3_S = SD3_TXT + (RESOLUTION // 16) ** 2
 KERNEL_CASES = (
     ("flux_unmasked", (1, 24, FLUX_S, 128), None, False),
     ("flux_t5_padded", (1, 24, FLUX_S, 128), {"txt_valid": TXT_VALID}, False),
@@ -308,6 +347,10 @@ KERNEL_CASES = (
     ("strided_bshd_t5_padded_s640_d96", (1, 8, 640, 96), {"txt_valid": 40}, True),
     ("s384_d112", (2, 4, 384, 112), None, False),
     ("segments_s300_d112", (2, 4, 300, 112), {"packed_at": 130, "pad_from": 280}, False),
+    # SD3.5 Large at 1024 px: 38 heads of 64 over 77 CLIP + 256 T5 + 4096 image
+    # tokens; 4429 is no multiple of the 128-row tiles, so the kernels run their
+    # masked mode with no mask from the caller
+    ("sd35_large_s4429_d64", (1, 38, SD3_S, 64), None, False),
 )
 # head dims timed at the Flux sequence (T5 padding masked) beside 128
 PADDED_HEAD_DIMS = (72, 96, 112)
@@ -408,6 +451,15 @@ def kernel_cases():
     for dim in PADDED_HEAD_DIMS:
         qd, kd, vd = _qkv(10 + dim, 1, 24, FLUX_S, dim)
         times[f"kernel_masked_d{dim}_ms"] = cuda_ms(lambda: flash_attention(qd, kd, vd, flux_seg, flux_seg), 20)
+    q3, k3, v3 = _qkv(19, 1, 38, SD3_S, 64)
+    sd3_backend, sd3_sdpa_ms = _sdpa_backend(lambda: F.scaled_dot_product_attention(q3, k3, v3))
+    sd3_bound, sd3_bound_by = _attention_bound_ms(2, SD3_S ** 2, 38, 64, 4 * 38 * SD3_S * 64 * 2 + 38 * SD3_S * 4)
+    sd3 = {"shape": [1, 38, SD3_S, 64], "kernel_ms": cuda_ms(lambda: flash_attention(q3, k3, v3), 20),
+           "plain_ms": cuda_ms(lambda: mha_reference_lse(q3, k3, v3), 5), "sdpa_ms": sd3_sdpa_ms,
+           "sdpa_backend": sd3_backend, "bound_ms": sd3_bound, "bound_by": sd3_bound_by}
+    sd3["share_of_bound"] = sd3_bound / sd3["kernel_ms"]
+    times["sd35_large"] = sd3
+    del q3, k3, v3
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
     bound_ms, bound_by = _attention_bound_ms(2, pairs, 24, 128, nbytes)
@@ -523,6 +575,7 @@ def backward_cases():
         out, lse = flash_attention(q, k, v, flux_seg, flux_seg, return_lse=True)
         times[f"dq_dkv_masked_d{dim}_ms"] = cuda_ms(
             lambda: flash_backward(q, k, v, flux_seg, flux_seg, out, lse, do, dim ** -0.5), 10)
+    times["sd35_large"] = sd3_backward_times()
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
     library = {"library_ms": times["sdpa_backward_masked_ms"],
@@ -534,6 +587,44 @@ def backward_cases():
                                 "bound_by": bounds[(kernel, "masked")][1], **library}
         for kernel in ("dq", "dkv")
     }
+
+
+def sd3_backward_times() -> dict:
+    """Phase 7 at SD3.5 Large's shape (1, 38, 4429, 64), no caller mask: dq,
+    dkv, the whole kernel backward, the plain backward and SDPA's, with the
+    bounds and each kernel's share of its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from simpletuner_tpu_torch.ops import flash_attention, flash_backward, flash_bwd_dkv_kernel, flash_bwd_dq_kernel
+    from simpletuner_tpu_torch.ops import mha_backward_reference
+
+    q, k, v, do = _qkv(29, 1, 38, SD3_S, 64, n=4)
+    scale = 64 ** -0.5
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    delta = (out.float() * do.float()).sum(dim=-1)
+    act, stats = 38 * SD3_S * 64 * 2, 2 * 38 * SD3_S * 4
+    times = {"shape": [1, 38, SD3_S, 64]}
+    for kernel, products, nbytes, fn in (
+            ("dq", 3, 5 * act + stats, lambda: flash_bwd_dq_kernel(q, k, v, None, None, lse, delta, do, scale)),
+            ("dkv", 4, 6 * act + stats, lambda: flash_bwd_dkv_kernel(q, k, v, None, None, lse, delta, do, scale))):
+        times[f"{kernel}_ms"] = cuda_ms(fn, 10)
+        times[f"bound_{kernel}_ms"], times[f"bound_{kernel}_by"] = _attention_bound_ms(
+            products, SD3_S ** 2, 38, 64, nbytes)
+        times[f"{kernel}_share_of_bound"] = times[f"bound_{kernel}_ms"] / times[f"{kernel}_ms"]
+    times["dq_dkv_ms"] = cuda_ms(lambda: flash_backward(q, k, v, None, None, out, lse, do, scale), 10)
+    times["plain_ms"] = cuda_ms(lambda: mha_backward_reference(q, k, v, None, None, out, lse, do, scale), 3)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+    def forward():
+        return F.scaled_dot_product_attention(*leaves)
+
+    backend, fwd_bwd_ms = _sdpa_backend(lambda: torch.autograd.grad(forward(), leaves, do))
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel([getattr(SDPBackend, backend.upper())]):
+        times["sdpa_backward_ms"] = fwd_bwd_ms - cuda_ms(forward, 20)
+    times["sdpa_backward_backend"] = backend
+    return times
 
 
 @contextlib.contextmanager
@@ -1088,6 +1179,298 @@ def server_phase(phase17: dict, device: str) -> None:
           parent_gib_before_phase=parent_gib, hardware=kinds, seconds=time.perf_counter() - start, device=device)
 
 
+def sd3_step_flops(arch, batch: int, s_img: int, s_txt: int) -> float:
+    """Model matmul FLOPs of one SD3 train step in bench.py's convention
+    (forward x 3; remat recompute is hardware work, not model work): per
+    block the image stream's q, k, v, proj and MLP, the text stream's (the
+    last block, context_pre_only, has only q, k, v), joint attention at 4 x S
+    x hidden per token; the patch, context and output projections."""
+    h, mlp = arch.hidden_size, arch.mlp_ratio
+    stream = 2 * h * h * (4 + 2 * mlp)
+    s = s_img + s_txt
+    fwd = s_img * arch.depth * stream + s_txt * ((arch.depth - 1) * stream + 2 * h * h * 3)
+    fwd += s * arch.depth * 4 * s * h
+    p2c = arch.patch_size ** 2 * arch.in_channels
+    fwd += s_img * 2 * p2c * h * 2 + s_txt * 2 * arch.context_dim * h
+    return batch * fwd * 3.0
+
+
+def _link_tree(source: str, target: str) -> None:
+    """``source``'s files hard-linked under ``target`` (nothing is written)."""
+    shutil.copytree(source, target, copy_function=os.link)
+
+
+def sd3_phase(paths: dict, kernels, device: str) -> None:
+    """Phase 19: SD3.5 Large at full width and depth: a seeded diffusers
+    transformer file, CLIP-G and a 16-channel VAE written with the port's
+    writer beside hard links to phase 14-15's CLIP-L, T5-XXL and tokenizers;
+    the import held bitwise to the written tensors; a 1024 px render with
+    true CFG through ``CheckpointInferenceRuntime``; one denoise call with
+    the kernels against the plain attention; ``Trainer.run()`` with an int8
+    base; the kernels' launches of a profiled replay against the capture's."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench import profile_step
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import (
+        clip_checkpoint_shapes, sd3_checkpoint_shapes, vae_checkpoint_shapes,
+    )
+    from simpletuner_tpu_torch.models.clip import CLIPTextConfig
+    from simpletuner_tpu_torch.models.sd3 import SD3, SD3Config
+    from simpletuner_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from simpletuner_tpu_torch.models.weight_bridge import flax_to_state_dict
+    from simpletuner_tpu_torch.models.weight_import import (
+        load_transformer_params, save_safetensors, sd3_params_from_diffusers,
+    )
+    from simpletuner_tpu_torch.ops import set_attention_backend
+    from simpletuner_tpu_torch.training.quantization import int8_matmul
+    from simpletuner_tpu_torch.training.trainer import Trainer
+
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    # phase 14's Flux file and phase 17-18's outputs: disk space (not the write budget)
+    os.remove(paths["flux_file"])
+    for out in ("train_straight", "train_resumed", "server_train"):
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    arch = SD3Config.large()
+    shapes = sd3_checkpoint_shapes(arch)
+    file_bytes = sum(2 * math.prod(shape) for shape in shapes.values())
+    free, written_before = shutil.disk_usage(work).free, _written_gb()
+    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 4 > SD3_WRITE_LIMIT_GB:
+        raise RuntimeError(f"sd3: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
+                           f"the files need {file_bytes / 1e9:.1f} GB of the {SD3_WRITE_LIMIT_GB} GB a run may write")
+
+    # (b) the seeded files: transformer (two shards), CLIP-G with its
+    # projection, the VAE with both quant convs; hard links to the rest
+    sd3_dir = os.path.join(work, "sd3")
+    os.makedirs(os.path.join(sd3_dir, "transformer"))
+    weights = seeded_weights(shapes, gen)
+    names = sorted(weights)
+    t0 = time.perf_counter()
+    for shard, part in enumerate((names[: len(names) // 2], names[len(names) // 2:])):
+        save_safetensors({k: weights[k] for k in part}, os.path.join(
+            sd3_dir, "transformer", f"diffusion_pytorch_model-0000{shard + 1}-of-00002.safetensors"))
+    write_s = time.perf_counter() - t0
+    clip_g = CLIPTextConfig.clip_g()
+    os.makedirs(os.path.join(sd3_dir, "text_encoder_2"))
+    save_safetensors(seeded_weights(clip_checkpoint_shapes(clip_g, projection=True), gen),
+                     os.path.join(sd3_dir, "text_encoder_2", "model.safetensors"))
+    with open(os.path.join(sd3_dir, "text_encoder_2", "config.json"), "w") as handle:
+        json.dump({**dataclasses.asdict(clip_g), "projection_dim": clip_g.hidden_size,
+                   "architectures": ["CLIPTextModelWithProjection"]}, handle)
+    with torch.device(dev):
+        vae = AutoencoderKL(VAEConfig.flux(), torch.bfloat16)
+    os.makedirs(os.path.join(sd3_dir, "vae"))
+    save_safetensors(seeded_weights(vae_checkpoint_shapes(vae), gen),
+                     os.path.join(sd3_dir, "vae", "diffusion_pytorch_model.safetensors"))
+    del vae
+    for source, target in (("text_encoder", "text_encoder"), ("text_encoder_2", "text_encoder_3"),
+                           ("tokenizer", "tokenizer"), ("tokenizer_2", "tokenizer_2")):
+        _link_tree(os.path.join(flux_dir, source), os.path.join(sd3_dir, target))
+    files = {"transformer_gb": file_bytes / 1e9, "write_s": write_s, "write_gb_per_s": file_bytes / write_s / 1e9,
+             "clip_g_params": sum(math.prod(v) for v in clip_checkpoint_shapes(clip_g).values()),
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) import through load_transformer_params, every tensor bitwise the written one
+    model = SD3(config_namespace({"model_family": "sd3", "model_flavour": "large-3.5", "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"sd3: large-3.5 builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()  # model_type full: no adapters
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = _rss_gib()
+    t0 = time.perf_counter()
+    load_transformer_params(model, module, sd3_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    imported = {"s": load_s, "gb_per_s": file_bytes / load_s / 1e9, "host_rss_gib": {"before": rss_before,
+                "after": _rss_gib()}, "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "params": sum(p.numel() for p in module.parameters())}
+    expected = flax_to_state_dict(sd3_params_from_diffusers(weights, arch), module)
+    unequal = [k for k, v in module.state_dict().items() if not torch.equal(v, expected[k])]
+    if unequal:
+        raise RuntimeError(f"sd3: the imported module differs from the written tensors at {unequal[:8]}")
+    imported["tensors_bitwise"] = len(expected)
+    del weights, expected, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) a 1024x1024 render with true CFG through the checkpoint runtime
+    config_path = os.path.join(work, "sd3_render.json")
+    with open(config_path, "w") as handle:
+        json.dump({"model_family": "sd3", "model_flavour": "large-3.5", "model_type": "full",
+                   "pretrained_model_name_or_path": sd3_dir, "mixed_precision": "bf16",
+                   "text_encoder_precision": "bf16", "vae_dtype": "bf16", "validation_resolution": RESOLUTION,
+                   "validation_seed": 42, "seed": 42, "validation_guidance": SD3_GUIDANCE}, handle)
+    t0 = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "sd3_render"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "sd3":
+        raise RuntimeError(f"sd3: the runtime built {model.NAME} {model.arch}, not SD3.5 Large")
+    forward_s, finite = [], []
+
+    def before(mod, args):
+        torch.cuda.synchronize()
+        forward_s.append(-time.perf_counter())
+
+    def after(mod, args, out):
+        torch.cuda.synchronize()
+        forward_s[-1] += time.perf_counter()
+
+    decode = runtime.vae.decode
+
+    def decode_checked(z):
+        finite.append(bool(torch.isfinite(z).all()))
+        return decode(z)
+
+    hooks = [module.register_forward_pre_hook(before), module.register_forward_hook(after)]
+    runtime.vae.decode = decode_checked
+    for kernel in kernels:
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pngs = runtime.render(SD3_PROMPT, steps=STEPS, guidance=SD3_GUIDANCE)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    render_launches = {kernel.name: kernel.launches for kernel in kernels}
+    render_peak = torch.cuda.max_memory_allocated() / 2**30
+    runtime.vae.decode = decode
+    for hook in hooks:
+        hook.remove()
+    if render_launches != {"flash_fwd": arch.depth * 2 * STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        raise RuntimeError(f"sd3 render: launches {render_launches}, expected {arch.depth} per forward, two "
+                           f"forwards per step")
+    if len(pngs) != 1 or finite != [True] or len(forward_s) != 2 * STEPS:
+        raise RuntimeError(f"sd3 render: {pngs}, finite latents {finite}, {len(forward_s)} forwards")
+    check_png(pngs[0], RESOLUTION, RESOLUTION)
+
+    # (e) one full-depth denoise call, kernels against the plain attention
+    latent = RESOLUTION // 8
+    batch = {"latents": torch.zeros((1, latent, latent, 16), device=dev)}
+    for key, value in model.collate_text_embeds(model.encode_text([SD3_PROMPT])).items():
+        batch[key] = torch.as_tensor(value, device=dev)
+    if tuple(batch["text_embeds"].shape) != (1, SD3_TXT, 4096):
+        raise RuntimeError(f"sd3: text_embeds {tuple(batch['text_embeds'].shape)}, expected (1, {SD3_TXT}, 4096)")
+    model.text_encoders = []  # the plain attention's scores need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    cond = model.inference_conditioning(batch)
+    noise = torch.randn((1, latent, latent, 16), generator=gen, device=dev)
+    with torch.no_grad():
+        kernel_v = model.denoise_fn(module, cond)(noise, torch.tensor(0.7))
+        set_attention_backend("xla")
+        try:
+            plain_v = model.denoise_fn(module, cond)(noise, torch.tensor(0.7))
+        finally:
+            set_attention_backend("auto")
+    parity = rel_l2(kernel_v, plain_v)
+    if not (torch.isfinite(kernel_v).all() and torch.isfinite(plain_v).all() and parity <= PARITY_REL_L2):
+        raise RuntimeError(f"sd3 full-depth parity: rel L2 {parity} (<= {PARITY_REL_L2})")
+    del runtime, module, model, kernel_v, plain_v, batch, cond
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) Trainer.run(): int8 base, full remat, rank-16 LoRA, one square bucket, graphed
+    data = os.path.join(work, "sd3_data")
+    os.makedirs(data)
+    source = os.path.join(work, "vae_cache", "data")
+    for i, index in enumerate(range(0, 3 * SD3_TRAIN_IMAGES, 3)):  # phase 16's square JPEGs
+        name = f"img_{index:04d}.jpg"
+        os.link(os.path.join(source, name), os.path.join(data, name))
+        with open(os.path.join(data, f"img_{index:04d}.txt"), "w") as handle:
+            handle.write(TRAIN_CAPTIONS[i])
+    out = os.path.join(work, "sd3_train")
+    config = {
+        "model_family": "sd3", "model_flavour": "large-3.5", "model_type": "lora", "lora_rank": 16,
+        "pretrained_model_name_or_path": sd3_dir, "base_model_precision": "int8-quanto", "quantized_matmul": "full",
+        "gradient_checkpointing": True, "optimizer": "adamw", "learning_rate": 1e-4, "lr_scheduler": "constant",
+        "mixed_precision": "bf16", "text_encoder_precision": "bf16", "vae_dtype": "bf16", "train_batch_size": 1,
+        "resolution": RESOLUTION, "resolution_type": "pixel_area", "max_train_steps": SD3_TRAIN_STEPS,
+        "logging_steps": 1, "report_to": "jsonl", "seed": 42, "cache_dir": os.path.join(work, "sd3_cache"),
+        "output_dir": out, "checkpoint_frozen_base": "reference",
+        "data_backend_config": [
+            {"id": "train", "dataset_type": "image", "type": "local", "instance_data_dir": data,
+             "resolution": RESOLUTION, "resolution_type": "pixel_area", "caption_strategy": "textfile",
+             "cache_dir_vae": os.path.join(work, "sd3_cache", "vae")},
+            {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
+             "cache_dir": os.path.join(work, "sd3_cache", "text")},
+        ],
+    }
+    for kernel in kernels:
+        kernel.launches = 0
+    int8_matmul.launches = 0
+    trainer = Trainer(config=config, device="cuda")
+    run_start = time.time()
+    trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.time() - run_start
+    train_launches = {kernel.name: kernel.launches for kernel in kernels}
+    with open(os.path.join(out, "simpletuner-tpu-metrics.jsonl")) as handle:
+        metrics = [json.loads(line) for line in handle]
+    losses = [m["loss"] for m in metrics]
+    if [m["step"] for m in metrics] != list(range(1, SD3_TRAIN_STEPS + 1)) or not all(np.isfinite(losses)) or \
+            not all(m["grad_norm"] > 0 for m in metrics) or not all(train_launches.values()):
+        raise RuntimeError(f"sd3 trainer: metrics {metrics}, launches {train_launches}")
+    if len(trainer._graphs) != 1 or trainer.model.arch != arch:
+        raise RuntimeError(f"sd3 trainer: {len(trainer._graphs)} graphs, arch {trainer.model.arch}")
+    captures = {c["step"] for c in trainer.capture_report}
+    step_s = {m["step"]: m["time"] - prev["time"] for prev, m in zip(metrics, metrics[1:]) if m["step"] not in captures}
+    median_s = float(np.median(list(step_s.values())))
+    graphed = next(iter(trainer._graphs.values()))
+    captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
+    profile = profile_step(lambda: graphed(trainer._state, graphed.batch, trainer._generator))
+    # the three kernels' launches as the profiler recorded them on the card; the
+    # int8 products are printed beside the capture's count, not held to it: a
+    # cuBLAS int8 kernel whose name carries none of the bucket's tags lands in
+    # another bucket (one of 1,520 did in one run)
+    recorded = profile["bucket_launches"]
+    replayed = {kernel.name: recorded[kernel.name] for kernel in kernels}
+    expected_launches = {"flash_fwd": 2 * arch.depth, "flash_bwd_dq": arch.depth, "flash_bwd_dkv": arch.depth}
+    if replayed != {k: captured[k] for k in replayed} or replayed != expected_launches:
+        raise RuntimeError(f"sd3 trainer: the profiled replay launched {replayed}, the capture recorded {captured}")
+    replayed["int8_gemm_bucket"] = recorded["int8_gemm"]
+    s_img, s_txt = (RESOLUTION // 16) ** 2, SD3_TXT
+    flops = sd3_step_flops(arch, 1, s_img, s_txt)
+    stages = trainer.stage_report
+    phase("19 sd3", config="stabilityai/stable-diffusion-3.5-large transformer/config.json", hidden=arch.hidden_size,
+          heads=[arch.num_heads, arch.head_dim], blocks=arch.depth, pos_embed_max_size=arch.pos_embed_max_size,
+          tokens={"text": s_txt, "image": s_img}, files=files, imported=imported,
+          render={"init_s": init_s, "render_s": render_s, "steps": STEPS, "guidance": SD3_GUIDANCE,
+                  "s_per_step": sum(forward_s[2:]) / (len(forward_s) - 2) * 2, "forward_s": forward_s,
+                  "peak_gib": render_peak, "launches": render_launches, "png": os.path.basename(pngs[0]),
+                  "png_bytes": os.path.getsize(pngs[0])},
+          parity={"rel_l2": parity, "bound": PARITY_REL_L2},
+          train={"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                 "lora_params": sum(p.numel() for p in trainer._state.trainable.values()),
+                 "losses": losses, "grad_norms": [m["grad_norm"] for m in metrics], "step_s": step_s,
+                 "s_per_step_median": median_s, "flops_per_step": flops,
+                 "mfu": flops / median_s / PEAK_BF16_FLOPS, "run_s": run_s,
+                 "time_to_first_step_s": metrics[0]["time"] - run_start,
+                 "capture_s": [c["seconds"] for c in trainer.capture_report],
+                 "stage_s": {k: v["seconds"] for k, v in stages.items()},
+                 "peak_gib": max(v["peak_gib"] for v in stages.values()),
+                 "stage_peak_gib": {k: v["peak_gib"] for k, v in stages.items()},
+                 "launches_run": train_launches, "launches_captured": captured, "launches_profiled_replay": replayed,
+                 "profile": {k: profile[k] for k in ("bucket_ms", "device_ms", "idle_share_traced")}},
+          allocated_gib_before_phase=baseline_gib, written_gb=_written_gb(), seconds=time.perf_counter() - start,
+          device=device)
+    del trainer, graphed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def int8_cases() -> None:
     """Phase 10: torch._int_mm exact at the Flux shapes, int8_dynamic_dot
     against its float64-contraction plain version, and times."""
@@ -1181,6 +1564,14 @@ def _rss_gib() -> dict:
     return {"now": now / 2**20, "peak": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20}
 
 
+def _written_gb() -> float:
+    """GB this process has written so far (``wchar`` of /proc/self/io: every
+    byte handed to a write call); the card's machine ends a run that writes
+    more than 45 GiB in all."""
+    with open("/proc/self/io") as handle:
+        return next(int(line.split()[1]) for line in handle if line.startswith("wchar:")) / 1e9
+
+
 def _filesystem(path: str) -> str:
     """The type of the filesystem that holds ``path`` (from /proc/mounts)."""
     path, best, kind = os.path.realpath(path), "", "unknown"
@@ -1190,6 +1581,23 @@ def _filesystem(path: str) -> str:
             if len(fields) > 2 and (path + "/").startswith(fields[1].rstrip("/") + "/") and len(fields[1]) > len(best):
                 best, kind = fields[1], fields[2]
     return kind
+
+
+def seeded_weights(shapes: dict, gen) -> dict:
+    """bf16 tensors on the card: N(0, 1/fan_in) matrices and convs, 1 + N(0, 0.1) norm scales, N(0, 0.01) biases."""
+    import torch
+
+    out = {}
+    for name, shape in shapes.items():
+        draw = torch.randn(shape, generator=gen, device=gen.device)
+        if len(shape) > 1:
+            draw = draw / math.sqrt(math.prod(shape[1:]))
+        elif name.endswith(".weight"):  # the 1-D weights are norm scales
+            draw = 1.0 + 0.1 * draw
+        else:
+            draw = 0.01 * draw
+        out[name] = draw.to(torch.bfloat16)
+    return out
 
 
 def weight_import(work: str) -> dict:
@@ -1220,18 +1628,7 @@ def weight_import(work: str) -> dict:
     rss_before = _rss_gib()
 
     def seeded(shapes):
-        """bf16 tensors on the card: N(0, 1/fan_in) matrices and convs, 1 + N(0, 0.1) norm scales, N(0, 0.01) biases."""
-        out = {}
-        for name, shape in shapes.items():
-            draw = torch.randn(shape, generator=gen, device=dev)
-            if len(shape) > 1:
-                draw = draw / math.sqrt(math.prod(shape[1:]))
-            elif name.endswith(".weight"):  # the 1-D weights are norm scales
-                draw = 1.0 + 0.1 * draw
-            else:
-                draw = 0.01 * draw
-            out[name] = draw.to(torch.bfloat16)
-        return out
+        return seeded_weights(shapes, gen)
 
     def in_cut(name):
         for prefix, depth in (("transformer_blocks.", IMPORT_DOUBLE), ("single_transformer_blocks.", IMPORT_SINGLE)):
@@ -1243,7 +1640,7 @@ def weight_import(work: str) -> dict:
     # cut depth is its first blocks, so the two imports share those tensors
     full_arch = FluxConfig()
     weights = seeded(flux_checkpoint_shapes(full_arch))
-    full_bytes = sum(t.numel() * t.element_size() for t in weights.values())
+    full_bytes = sum(t.numel() for t in weights.values())  # as fp8
     free = shutil.disk_usage(work).free
     if free < full_bytes + 4e9:
         raise RuntimeError(f"weight import: {free / 1e9:.1f} GB free under {work}, the checkpoints need "
@@ -1296,11 +1693,14 @@ def weight_import(work: str) -> dict:
         raise RuntimeError(f"LoRA round trip: missing {missing[:4]}, or tensors differ")
     del modules, module, diffusers_state
 
-    # the full depth as one BFL file (11.9B bf16), imported once; the file was
-    # just written, so its pages are read from the host's page cache
-    full_path = os.path.join(work, "flux1-dev.safetensors")
+    # the full depth as one fp8 (e4m3) BFL file, 11.9 GB, as the published fp8
+    # Flux files are: the card's machine ends a run that writes more than 45
+    # GiB in all, deleted files included, and phase 19 writes SD3.5 Large (16.3
+    # GB bf16).  Imported once; the file was just written, so its pages are
+    # read from the page cache
+    full_path = os.path.join(work, "flux1-dev-fp8.safetensors")
     t0 = time.perf_counter()
-    save_safetensors(flux_bfl_from_diffusers(weights), full_path)
+    save_safetensors({k: v.to(torch.float8_e4m3fn) for k, v in flux_bfl_from_diffusers(weights).items()}, full_path)
     full_write_s = time.perf_counter() - t0
     del weights
     torch.cuda.empty_cache()
@@ -1315,15 +1715,17 @@ def weight_import(work: str) -> dict:
     torch.cuda.synchronize()
     full_s = time.perf_counter() - t0
     full_state = full_module.state_dict()
-    full_unequal = [k for k in base if not torch.equal(full_state[k], bfl_state[k])]
+    # the cut module's tensors rounded to e4m3 (an elementwise rounding commutes
+    # with the importer's transposes, permutations and concatenations)
+    full_unequal = [k for k in base if not torch.equal(
+        full_state[k], bfl_state[k].to(torch.float8_e4m3fn).to(full_state[k].dtype))]
     if full_unequal:
         raise RuntimeError(f"weight import: the full-depth module differs from the cut one at {full_unequal[:8]}")
-    full = {"blocks": [full_arch.depth_double, full_arch.depth_single], "params": full_bytes // 2,
+    full = {"blocks": [full_arch.depth_double, full_arch.depth_single], "params": full_bytes, "dtype": "F8_E4M3",
             "gb": full_bytes / 1e9, "file_gb": os.path.getsize(full_path) / 1e9, "write_s": full_write_s,
             "load_s": full_s, "gb_per_s": full_bytes / full_s / 1e9,
             "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "host_rss_gib": {"before": rss_full_before, "after": _rss_gib()},
-            "cut_tensors_bitwise": len(base), "work_fs": _filesystem(work), "free_gb_before": free / 1e9}
+            "host_rss_gib": {"before": rss_full_before, "after": _rss_gib()}, "cut_tensors_bitwise": len(base)}
     del full_module, full_state, bfl_state
     torch.cuda.empty_cache()
 
@@ -1356,6 +1758,8 @@ def weight_import(work: str) -> dict:
         raise RuntimeError(f"weight import: VAE equal {vae_equal}, CLIP-L equal {clip_equal}")
     phase("14 weight import", flux_blocks=[IMPORT_DOUBLE, IMPORT_SINGLE], hidden=arch.hidden_size,
           flux_params=nbytes // 2, flux_gb=nbytes / 1e9, write_s=write_s, load=loads, full_depth=full,
+          work_fs=_filesystem(work),
+          free_gb_before=free / 1e9, written_gb=_written_gb(),
           bfl_equals_diffusers_bitwise=True, base_tensors=len(base), lora_round_trip_bitwise=True,
           lora_tensors=len(saved), vae_params=sum(p.numel() for p in vae.parameters()), vae_load_s=vae_s,
           vae_bitwise=True, clip_params=sum(p.numel() for p in clip.parameters()), clip_load_s=clip_s,
@@ -1431,13 +1835,18 @@ def text_encoders(paths: dict) -> list:
         t5_f32 = init_encoder(T5EncoderModel(T5Config.xxl(), torch.float32), gen).eval()
         t5 = T5EncoderModel(T5Config.xxl(), torch.bfloat16).eval()
     t5.load_state_dict(t5_f32.state_dict())
-    # the bf16 T5-XXL and both tokenizers join phase 14's Flux dir (phase 17 trains from it)
+    # T5-XXL at full width and a cut depth (its first T5_FILE_LAYERS blocks; the
+    # run's 45 GiB write budget) and both tokenizers join phase 14's Flux dir
+    # (phases 17-19 encode with them)
     t5_dir = os.path.join(paths["flux_dir"], "text_encoder_2")
     os.makedirs(t5_dir)
     t0 = time.perf_counter()
-    save_safetensors(t5.state_dict(), os.path.join(t5_dir, "model.safetensors"))
+    save_safetensors({k: v for k, v in t5.state_dict().items()
+                      if not k.startswith("encoder.block.") or int(k.split(".")[2]) < T5_FILE_LAYERS},
+                     os.path.join(t5_dir, "model.safetensors"))
     with open(os.path.join(t5_dir, "config.json"), "w") as handle:
-        json.dump({**dataclasses.asdict(T5Config.xxl()), "architectures": ["T5EncoderModel"]}, handle)
+        json.dump({**dataclasses.asdict(T5Config.xxl()), "num_layers": T5_FILE_LAYERS,
+                   "architectures": ["T5EncoderModel"]}, handle)
     write_tokenizers(paths["flux_dir"], " ".join(prompts_for(TEXT_PROMPTS) + TRAIN_CAPTIONS + [TRAIN_PROMPT]).split())
     t5_write_s = time.perf_counter() - t0
     specs = Flux.TEXT_ENCODER_CONFIGURATION
@@ -1779,6 +2188,7 @@ def main() -> int:
         gradient_parity("13 gradient parity (full depth)", depth=(19, 38))
         phase17 = trainer_phase(checkpoints, flagship_median, kernels, smi)
         server_phase(phase17, smi)
+        sd3_phase(checkpoints, kernels, smi)
 
     sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
                "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}

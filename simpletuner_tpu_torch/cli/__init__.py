@@ -14,8 +14,8 @@ Device handling: ``train`` hands ``--config`` and the remaining argv to
 ``inference`` and ``server`` take ``--device`` (default ``cuda``; the server
 hands it to every job it spawns).  Nothing falls back to the CPU: without a
 card the default ``cuda`` raises.  ``models`` lists every family of the JAX
-registry (an unported family fails when it trains, naming ROADMAP Queue 1
-item 6); ``optimizers`` lists the port's registry; ``version --full`` reports
+registry (``flux`` and ``sd3`` train; any other family fails when it trains,
+naming ROADMAP Queue 1 item 6); ``optimizers`` lists the port's registry; ``version --full`` reports
 torch, CUDA and the card.
 """
 

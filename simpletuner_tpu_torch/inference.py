@@ -16,8 +16,9 @@ caller asks for the CPU):
   ``init_ema_model``, ``resume_and_prepare``, then one forced validation pass
   (``run_validations(..., force=True)``) over ``train_state.render_view``, as
   the trainer's own validation renders: the prompt encoded by the text
-  encoders -> flow Euler loop over the Flux DiT (the Hopper flash kernel on
-  the card) -> VAE decode -> PNG;
+  encoders -> flow Euler loop over the family's DiT (Flux or SD3, the Hopper
+  flash kernel on the card; SD3 with true CFG when ``validation_guidance`` >
+  1) -> VAE decode -> PNG;
 * ``CheckpointInferenceRuntime``: the same stages without the data plane and
   the validation stages, so the text encoders stay attached and each
   ``render()`` encodes a fresh prompt.
@@ -31,7 +32,7 @@ full model (``model_type`` other than ``lora``) without a checkpoint renders
 the loaded base as it is: its train state would only add an optimizer state
 that a render never reads, and the port trains no full model (ROADMAP Queue 1
 item 7), so no full checkpoint exists to restore.  Families other than flux
-are refused (``models/registry.py``).
+and sd3 are refused (``models/registry.py``).
 
     python -m simpletuner_tpu_torch.inference --config config.json --prompt "a cat" \
         [--checkpoint output/checkpoint-8] [--device cuda|cpu]

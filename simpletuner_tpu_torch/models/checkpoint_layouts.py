@@ -61,6 +61,71 @@ def flux_checkpoint_shapes(arch) -> Dict[str, tuple]:
     return shapes
 
 
+def sd3_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers-layout SD3 / SD3.5
+    transformer (``SD3Transformer2DModel``) of ``arch``: the patchify conv,
+    the position table (``pos_embed_max_size`` > 0), and a last block with
+    ``context_pre_only`` (its context norm an ``AdaLayerNormContinuous``)."""
+    h, hd, mlp = arch.hidden_size, arch.head_dim, int(arch.hidden_size * arch.mlp_ratio)
+    p, c = arch.patch_size, arch.in_channels
+    shapes: Dict[str, tuple] = {"pos_embed.proj.weight": (h, c, p, p), "pos_embed.proj.bias": (h,)}
+
+    def linear(name, out_features, in_features):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        shapes[f"{name}.bias"] = (out_features,)
+
+    if arch.pos_embed_max_size:
+        shapes["pos_embed.pos_embed"] = (1, arch.pos_embed_max_size ** 2, h)
+    linear("context_embedder", h, arch.context_dim)
+    for name, in_features in (("timestep_embedder", 256), ("text_embedder", arch.pooled_dim)):
+        linear(f"time_text_embed.{name}.linear_1", h, in_features)
+        linear(f"time_text_embed.{name}.linear_2", h, h)
+    linear("norm_out.linear", 2 * h, h)
+    linear("proj_out", p * p * c, h)
+    for i in range(arch.depth):
+        b = f"transformer_blocks.{i}"
+        last = i == arch.depth - 1
+        linear(f"{b}.norm1.linear", 6 * h, h)
+        linear(f"{b}.norm1_context.linear", (2 if last else 6) * h, h)
+        projs = ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj", "to_out.0")
+        for proj in projs if last else projs + ("to_add_out",):
+            linear(f"{b}.attn.{proj}", h, h)
+        if arch.qk_norm:
+            for norm in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+                shapes[f"{b}.attn.{norm}.weight"] = (hd,)
+        for ff in ("ff",) if last else ("ff", "ff_context"):
+            linear(f"{b}.{ff}.net.0.proj", mlp, h)
+            linear(f"{b}.{ff}.net.2", h, mlp)
+    return shapes
+
+
+def clip_checkpoint_shapes(config, projection: bool = False) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of an HF ``CLIPTextModel`` of ``config``
+    (``models/clip.py::CLIPTextConfig``); ``projection`` adds the
+    ``text_projection`` of a ``CLIPTextModelWithProjection`` (SD3's
+    ``text_encoder_2``), which the importer leaves out."""
+    h, f = config.hidden_size, config.intermediate_size
+    shapes: Dict[str, tuple] = {
+        "text_model.embeddings.token_embedding.weight": (config.vocab_size, h),
+        "text_model.embeddings.position_embedding.weight": (config.max_position_embeddings, h),
+        "text_model.final_layer_norm.weight": (h,),
+        "text_model.final_layer_norm.bias": (h,),
+    }
+    for i in range(config.num_hidden_layers):
+        layer = f"text_model.encoder.layers.{i}"
+        for name, out_features, in_features in (("self_attn.q_proj", h, h), ("self_attn.k_proj", h, h),
+                                                ("self_attn.v_proj", h, h), ("self_attn.out_proj", h, h),
+                                                ("mlp.fc1", f, h), ("mlp.fc2", h, f)):
+            shapes[f"{layer}.{name}.weight"] = (out_features, in_features)
+            shapes[f"{layer}.{name}.bias"] = (out_features,)
+        for norm in ("layer_norm1", "layer_norm2"):
+            shapes[f"{layer}.{norm}.weight"] = (h,)
+            shapes[f"{layer}.{norm}.bias"] = (h,)
+    if projection:
+        shapes["text_projection.weight"] = (h, h)
+    return shapes
+
+
 def flux_bfl_from_diffusers(weights: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The same Flux weights in the original BFL layout: fused q|k|v (and
     q|k|v|mlp in the single blocks), (shift, scale) order in the final

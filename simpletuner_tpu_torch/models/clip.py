@@ -1,4 +1,4 @@
-"""CLIP text model (CLIP-L for Flux, the tiny test config), the port's own module.
+"""CLIP text model (CLIP-L, CLIP-G, the tiny test config), the port's own module.
 
 Counterpart of ``transformers``' ``FlaxCLIPTextModel``, which the JAX package
 runs (``simpletuner_tpu/models/text_encoders.py:65-82``), so that encoding
@@ -8,14 +8,18 @@ needs no ``transformers``.  Submodule names are those of the HF torch
 and :func:`clip_state_dict_from_flax` maps the Flax params onto the same
 names.
 
-Pre-LN blocks with ``quick_gelu``, attention scaled by head_dim^-0.5 under a
+Pre-LN blocks with ``quick_gelu`` (CLIP-L) or the exact erf ``gelu``
+(OpenCLIP bigG, SD3's CLIP-G), attention scaled by head_dim^-0.5 under a
 causal mask combined with the padding mask, and a final layer norm (eps
 1e-5).  The pooled output copies HF's rule exactly: with ``eos_token_id ==
 2`` (configs written before HF fixed CLIP's eos id, Flux's CLIP-L among them)
 it takes the position of ``argmax(input_ids)``; otherwise the first position
 where ``input_ids == eos_token_id``, and position 0 when no token matches (the
 JAX tiny tokenizer against the default eos id 49407).  Products run in the
-weights' dtype, layer norms and the softmax in f32.
+weights' dtype, layer norms and the softmax in f32.  CLIP-G is a plain text
+model here, as the JAX package builds it (a ``FlaxCLIPTextModel``): its
+pooled output is ``pooler_output``, and an HF ``CLIPTextModelWithProjection``
+file's ``text_projection`` is not read.
 """
 
 from __future__ import annotations
@@ -47,6 +51,12 @@ class CLIPTextConfig:
     def clip_l(cls) -> "CLIPTextConfig":
         """openai/clip-vit-large-patch14's text tower, Flux's ``text_encoder`` (123M parameters)."""
         return cls()
+
+    @classmethod
+    def clip_g(cls) -> "CLIPTextConfig":
+        """OpenCLIP ViT-bigG/14's text tower in the HF layout, SD3's ``text_encoder_2`` (695M parameters)."""
+        return cls(hidden_size=1280, intermediate_size=5120, num_hidden_layers=32, num_attention_heads=20,
+                   hidden_act="gelu")
 
     @classmethod
     def tiny(cls, hidden_size: int = 32, max_position_embeddings: int = 77) -> "CLIPTextConfig":
@@ -89,17 +99,24 @@ class CLIPAttention(nn.Module):
         return self.out_proj(torch.matmul(weights, v).transpose(1, 2).reshape(batch, length, dim))
 
 
+# HF ACT2FN: quick_gelu x * sigmoid(1.702 x), gelu the exact erf form
+_ACTIVATIONS = {
+    "quick_gelu": lambda h: h * torch.sigmoid(1.702 * h),
+    "gelu": lambda h: F.gelu(h, approximate="none"),
+}
+
+
 class CLIPMLP(nn.Module):
     def __init__(self, config: CLIPTextConfig, dtype: torch.dtype) -> None:
         super().__init__()
-        if config.hidden_act != "quick_gelu":
-            raise NotImplementedError(f"hidden_act={config.hidden_act!r} is not ported (quick_gelu)")
+        if config.hidden_act not in _ACTIVATIONS:
+            raise NotImplementedError(f"hidden_act={config.hidden_act!r} is not ported ({', '.join(_ACTIVATIONS)})")
+        self.act = _ACTIVATIONS[config.hidden_act]
         self.fc1 = nn.Linear(config.hidden_size, config.intermediate_size, dtype=dtype)
         self.fc2 = nn.Linear(config.intermediate_size, config.hidden_size, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.fc1(x)
-        return self.fc2(h * torch.sigmoid(1.702 * h))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class CLIPEncoderLayer(nn.Module):
@@ -189,13 +206,16 @@ def clip_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tens
 
 def load_clip_text(path: str, dtype: torch.dtype = torch.float32, device=None) -> CLIPTextModel:
     """An HF torch-layout CLIP text model directory (``config.json`` and
-    ``*.safetensors``, e.g. Flux's ``text_encoder/``)."""
+    ``*.safetensors``, e.g. Flux's ``text_encoder/`` or SD3's ``text_encoder_2/``)."""
     from .weight_import import read_safetensors
 
     with open(os.path.join(path, "config.json")) as handle:
         config = CLIPTextConfig.from_hf(json.load(handle))
     weights = read_safetensors(path)
     weights.pop("text_model.embeddings.position_ids", None)  # a buffer older files carry
+    # a CLIPTextModelWithProjection file (SD3's text_encoder_2): the JAX
+    # package reads it as a plain FlaxCLIPTextModel, without the projection
+    weights.pop("text_projection.weight", None)
     with torch.device(device or "cpu"):
         model = CLIPTextModel(config, dtype)
     model.load_state_dict(weights)

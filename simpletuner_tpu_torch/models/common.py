@@ -342,6 +342,10 @@ class ModelFoundation:
 
         return fn
 
+    def check_user_config(self) -> None:
+        """Family-specific config validation (``get_model_family`` calls it);
+        raises ValueError on a bad combination."""
+
     # ---- host-side text encoding -----------------------------------------------------------
     def attach_text_encoders(self, encoders: Sequence[Any]) -> None:
         self.text_encoders = list(encoders)

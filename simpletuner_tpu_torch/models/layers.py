@@ -1,4 +1,4 @@
-"""Shared building blocks, the subset the Flux DiT uses.
+"""Shared building blocks, the subset the Flux and SD3 DiTs use.
 
 PyTorch counterpart of ``simpletuner_tpu/models/layers.py``.  Submodule names
 follow the JAX modules so that a Flax parameter tree maps onto a ``state_dict``
@@ -371,8 +371,12 @@ class AdaLayerNormZero(nn.Module):
 def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
     """Seeded initialisation mirroring the Flax initialisers: lecun-normal
     dense and conv kernels, zero biases, unit norm scales, zero AdaLN ``lin``,
-    and the ``lora`` adapter's U(+-1/sqrt(in)) A and zero B."""
+    the ``lora`` adapter's U(+-1/sqrt(in)) A and zero B, and a module's own
+    parameters where it defines ``reset_own_parameters`` (SD3's position
+    table)."""
     for sub in module.modules():
+        if hasattr(sub, "reset_own_parameters"):
+            sub.reset_own_parameters(generator)
         if isinstance(sub, (LoRADense, RMSNorm)):
             sub.reset_parameters(generator)
         elif isinstance(sub, (nn.Linear, nn.Conv2d)):

@@ -4,9 +4,9 @@ Counterpart of ``simpletuner_tpu/models/registry.py``: ``ModelRegistry``
 (``families``, ``metadata``, ``get``, ``create``) over a copy of the JAX
 registry's family table and aliases, and ``get_model_family``, which builds
 the family a config names.  Every family of the JAX registry is listed with
-its metadata; only ``flux`` is ported, so ``get`` of any other family raises
-naming ROADMAP Queue 1 item 6, and an unknown name raises ``KeyError`` as in
-the JAX registry.
+its metadata; ``flux`` and ``sd3`` are ported, so ``get`` of any other family
+raises naming ROADMAP Queue 1 item 6, and an unknown name raises ``KeyError``
+as in the JAX registry.
 """
 
 from __future__ import annotations
@@ -76,11 +76,16 @@ class ModelRegistry:
     @staticmethod
     def get(name: str) -> Type:
         ModelRegistry.metadata(name)  # unknown names raise KeyError
-        if ALIASES.get(name, name) != "flux":
-            raise NotImplementedError(f"model_family={name!r} is not ported (only flux; ROADMAP Queue 1 item 6)")
-        from .flux import Flux
+        family = ALIASES.get(name, name)
+        if family == "flux":
+            from .flux import Flux
 
-        return Flux
+            return Flux
+        if family == "sd3":
+            from .sd3 import SD3
+
+            return SD3
+        raise NotImplementedError(f"model_family={name!r} is not ported (only flux and sd3; ROADMAP Queue 1 item 6)")
 
     @staticmethod
     def create(name: str, config: Any):
@@ -92,7 +97,8 @@ def get_model_family(config: Any):
     family = getattr(config, "model_family", None)
     if not family:
         raise ValueError("config.model_family is required")
-    cls = ModelRegistry.get(family)
+    model = ModelRegistry.create(family, config)
+    model.check_user_config()
     if getattr(config, "train_text_encoder", False):
         raise NotImplementedError("train_text_encoder is not ported (ROADMAP Queue 1 item 4i)")
-    return cls(config)
+    return model

@@ -4,7 +4,8 @@ The port keeps the JAX submodule names, so the bridge only renames leaves and
 transposes: a dense ``kernel`` (in, out) becomes ``weight`` (out, in), a conv
 ``kernel`` (kh, kw, in, out) becomes ``weight`` (out, in, kh, kw), ``lora_A``
 (in, r) / ``lora_B`` (r, out) become (r, in) / (out, r), and a norm ``scale``
-stays ``scale`` (RMSNorm) or becomes ``weight`` (GroupNorm).  Values take the
+stays ``scale`` (RMSNorm) or becomes ``weight`` (GroupNorm); any other leaf
+names a parameter of its module as it is (SD3's ``pos_embed`` table).  Values take the
 dtype of the port's parameter (linear and conv weights the compute dtype,
 norm scales f32), except the ``lora`` collection, which stays f32: it is the
 optimizer's master copy.
@@ -83,6 +84,8 @@ def _target_name(path: Tuple[str, ...], target: Mapping[str, torch.Tensor]) -> s
         return f"{module}scale" if f"{module}scale" in target else f"{module}weight"
     if leaf in _QSCALE_LEAVES:
         return module + _QSCALE_LEAVES[leaf]
+    if f"{module}{leaf}" in target:  # a parameter of the module itself (SD3's pos_embed)
+        return f"{module}{leaf}"
     raise KeyError(f"no port counterpart for flax leaf {'/'.join(path)}")
 
 

@@ -1,6 +1,6 @@
 """Pretrained-weight import: safetensors checkpoints -> the port's modules.
 
-Counterpart of the Flux and VAE paths of
+Counterpart of the Flux, SD3 and VAE paths of
 ``simpletuner_tpu/models/weight_import.py``.  The importers build the same
 Flax-layout tree as the JAX functions, leaf for leaf (dense ``kernel`` (in,
 out), conv ``kernel`` (kh, kw, in, out), norm ``scale``), and
@@ -11,18 +11,22 @@ checkpoint layouts are read:
 * **diffusers** model dirs (``transformer/*.safetensors``,
   ``transformer_blocks.*``, split ``attn.to_q``).
 
+SD3 / SD3.5 read the diffusers ``SD3Transformer2DModel`` layout.
+
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
-keeps f32 and bf16 leaves in the file's dtype (``_float``) and takes every
-other dtype through f32, so the module the bridge fills is bitwise the one
-the JAX import followed by the bridge gives, without an f32 copy of the
-checkpoint in host memory.  Kernels are transposed views of the file's
+keeps f32 and bf16 leaves in the file's dtype (``_float``), takes fp8 (e4m3)
+leaves to bf16, which holds every e4m3 value exactly, and every other dtype
+through f32, so the module the bridge fills is bitwise the one the JAX
+import followed by the bridge gives, without an f32 copy of the checkpoint in
+host memory.  (The JAX reader, through ``safetensors.numpy``, cannot read an
+fp8 file at all; the port reads the dtype the published fp8 checkpoints use.)  Kernels are transposed views of the file's
 tensors; the bridge transposes them back.
 
 The safetensors reader and writer are the port's own (stdlib, numpy and
 torch): an 8-byte little-endian header length, a JSON header, raw
 little-endian bytes.  Files are memory-mapped copy-on-write, so a tensor is
-read from disk when it is first used.  Only the ``flux`` family imports;
-every other family raises.
+read from disk when it is first used.  Only the ``flux`` and ``sd3``
+families import; every other family raises.
 """
 
 from __future__ import annotations
@@ -152,10 +156,13 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
 
 
 def _float(value: torch.Tensor) -> torch.Tensor:
-    """A leaf in a float dtype: f32 and bf16 as stored, every other dtype
-    through f32 (the JAX ``_to_f32``; the bridge then rounds once to the
-    module's dtype, as it does from the JAX tree)."""
-    return value if value.dtype in (torch.float32, torch.bfloat16) else value.to(torch.float32)
+    """A leaf in a float dtype: f32 and bf16 as stored, fp8 (e4m3) as bf16
+    (exact, at half the host bytes of f32), every other dtype through f32 (the
+    JAX ``_to_f32``; the bridge then rounds once to the module's dtype, as it
+    does from the JAX tree)."""
+    if value.dtype in (torch.float32, torch.bfloat16):
+        return value
+    return value.to(torch.bfloat16 if value.dtype == torch.float8_e4m3fn else torch.float32)
 
 
 def _linear(weights: Mapping[str, torch.Tensor], key: str) -> Dict[str, torch.Tensor]:
@@ -454,10 +461,89 @@ def load_vae_params(vae, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# SD3 (diffusers SD3Transformer2DModel)
+# ---------------------------------------------------------------------------------
+
+
+def _swap_halves_linear(node: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """diffusers ``AdaLayerNormContinuous`` emits (scale, shift); the port's
+    modulation (shift, scale): swap the two output halves of a (in, out) kernel."""
+    kernel = node["kernel"]
+    half = kernel.shape[1] // 2
+    out = {"kernel": torch.cat([kernel[:, half:], kernel[:, :half]], dim=1)}
+    if "bias" in node:
+        out["bias"] = torch.cat([node["bias"][half:], node["bias"][:half]])
+    return out
+
+
+def sd3_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a diffusers SD3 transformer: the patchify conv
+    as a dense kernel in (ph, pw, c) row order, the position table as (side,
+    side, dim), the last block's text modulation (an ``AdaLayerNormContinuous``)
+    and ``norm_out`` with their halves swapped."""
+    w = weights
+    dim = arch.hidden_size
+    conv = _float(w["pos_embed.proj.weight"])  # (dim, C, p, p) -> ((p p C), dim)
+    params: Dict[str, Any] = {
+        "patch_in": {"kernel": conv.permute(2, 3, 1, 0).reshape(-1, dim), "bias": _float(w["pos_embed.proj.bias"])},
+        "context_in": _linear(w, "context_embedder"),
+        "time_in": {
+            "in_layer": _linear(w, "time_text_embed.timestep_embedder.linear_1"),
+            "out_layer": _linear(w, "time_text_embed.timestep_embedder.linear_2"),
+        },
+        "pooled_in": {
+            "in_layer": _linear(w, "time_text_embed.text_embedder.linear_1"),
+            "out_layer": _linear(w, "time_text_embed.text_embedder.linear_2"),
+        },
+        "final_mod": {"lin": _swap_halves_linear(_linear(w, "norm_out.linear"))},
+        "final_proj": _linear(w, "proj_out"),
+    }
+    if arch.pos_embed_max_size:
+        side = arch.pos_embed_max_size
+        params["pos_embed"] = _float(w["pos_embed.pos_embed"]).reshape(side, side, dim)
+    for i in range(arch.depth):
+        src = f"transformer_blocks.{i}"
+        block: Dict[str, Any] = {
+            "img_mod": {"lin": _linear(w, f"{src}.norm1.linear")},
+            "img_attn_q": _linear(w, f"{src}.attn.to_q"),
+            "img_attn_k": _linear(w, f"{src}.attn.to_k"),
+            "img_attn_v": _linear(w, f"{src}.attn.to_v"),
+            "txt_attn_q": _linear(w, f"{src}.attn.add_q_proj"),
+            "txt_attn_k": _linear(w, f"{src}.attn.add_k_proj"),
+            "txt_attn_v": _linear(w, f"{src}.attn.add_v_proj"),
+            "img_attn_proj": _linear(w, f"{src}.attn.to_out.0"),
+            "img_mlp_in": _linear(w, f"{src}.ff.net.0.proj"),
+            "img_mlp_out": _linear(w, f"{src}.ff.net.2"),
+        }
+        if i == arch.depth - 1:  # context_pre_only
+            block["txt_mod"] = {"lin": _swap_halves_linear(_linear(w, f"{src}.norm1_context.linear"))}
+        else:
+            block["txt_mod"] = {"lin": _linear(w, f"{src}.norm1_context.linear")}
+            block["txt_attn_proj"] = _linear(w, f"{src}.attn.to_add_out")
+            block["txt_mlp_in"] = _linear(w, f"{src}.ff_context.net.0.proj")
+            block["txt_mlp_out"] = _linear(w, f"{src}.ff_context.net.2")
+        if arch.qk_norm and f"{src}.attn.norm_q.weight" in w:
+            block["img_attn_norm_q"] = _scale(w, f"{src}.attn.norm_q.weight")
+            block["img_attn_norm_k"] = _scale(w, f"{src}.attn.norm_k.weight")
+            block["txt_attn_norm_q"] = _scale(w, f"{src}.attn.norm_added_q.weight")
+            block["txt_attn_norm_k"] = _scale(w, f"{src}.attn.norm_added_k.weight")
+        params[f"block_{i}"] = block
+    return params
+
+
+def load_sd3_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a diffusers SD3 / SD3.5 transformer
+    (a model dir with ``transformer/`` shards, or one file)."""
+    params = sd3_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported sd3 weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
-_IMPORTERS = {"flux": load_flux_params}
+_IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:
@@ -469,7 +555,7 @@ def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:
     importer = _IMPORTERS.get(model.NAME)
     if importer is None:
         raise NotImplementedError(
-            f"no weight importer for family {model.NAME!r} in the port (only flux; the other "
+            f"no weight importer for family {model.NAME!r} in the port (only flux and sd3; the other "
             "families are ROADMAP Queue 1 item 6)"
         )
     return load_flax_params(module, importer(model, path), keep_adapters=True)

@@ -14,8 +14,9 @@ the JAX server answers, except where the port differs by design:
 * ``/api/hardware`` reports the ``torch.cuda`` devices, ``/api/version``
   torch, CUDA and the card;
 * ``/api/optimizers`` lists the port's optimizer registry, and
-  ``/api/models/<family>/presets`` answers 501 for a family the port does not
-  train (ROADMAP Queue 1 item 6).
+  ``/api/models/<family>/presets`` gives the port's presets (the JAX ones
+  without the mesh preset, ROADMAP Queue 1 item 5) for ``flux`` and ``sd3``
+  and answers 501 for a family the port does not train (item 6).
 
 Routes:
   GET  /health

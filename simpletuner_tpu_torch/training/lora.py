@@ -1,8 +1,10 @@
 """LoRA key maps and adapter files in the PEFT (diffusers) and ComfyUI layouts.
 
 The torch port's copy of the part of ``simpletuner_tpu/training/lora.py`` it
-uses: ``flux_key_map`` (lora.py:76) and ``_key_map_for`` (lora.py:680), which
-resolve the ``flux_lora_target`` presets and name the adapters of an export,
+uses: ``flux_key_map`` (lora.py:76), ``sd3_key_map`` (lora.py:158) and
+``_key_map_for`` (lora.py:680), which resolve the LoRA target presets and
+name the adapters of an export (the maps leave ``patch_in`` and
+``context_in`` under their own names, as the JAX export does),
 and the plain-LoRA path of the adapter files: ``lora_state_dict`` (:693),
 ``_emit``, ``save_lora_safetensors`` (:764) and ``load_lora_safetensors``
 (:790-907), written with the port's own safetensors reader and writer.  The
@@ -64,9 +66,32 @@ def flux_key_map(arch) -> Dict[str, Any]:
     return mapping
 
 
+def sd3_key_map(arch) -> Dict[str, Any]:
+    mapping: Dict[str, Any] = {}
+    table = {
+        "img_attn_q": "attn.to_q",
+        "img_attn_k": "attn.to_k",
+        "img_attn_v": "attn.to_v",
+        "txt_attn_q": "attn.add_q_proj",
+        "txt_attn_k": "attn.add_k_proj",
+        "txt_attn_v": "attn.add_v_proj",
+        "img_attn_proj": "attn.to_out.0",
+        "txt_attn_proj": "attn.to_add_out",
+        "img_mlp_in": "ff.net.0.proj",
+        "img_mlp_out": "ff.net.2",
+        "txt_mlp_in": "ff_context.net.0.proj",
+        "txt_mlp_out": "ff_context.net.2",
+    }
+    for layer in range(arch.depth):
+        for ours, theirs in table.items():
+            mapping[f"block_{layer}/{ours}"] = f"transformer_blocks.{layer}.{theirs}"
+    return mapping
+
+
 # family name -> key map builder, for the families the port has
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
+    "sd3": lambda m: sd3_key_map(m.arch),
 }
 
 

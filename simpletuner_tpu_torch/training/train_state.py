@@ -141,7 +141,7 @@ def create_train_state(
         raise NotImplementedError(f"model_type={model_type!r}: only LoRA training is ported")
     trainable = freeze_base(module)
     if not trainable:
-        raise ValueError("model_type=lora but the module has no adapters (check flux_lora_target)")
+        raise ValueError("model_type=lora but the module has no adapters (check the LoRA target settings)")
     if quantize_mode:
         quantize_module(module, quantize_mode)
     device = next(iter(trainable.values())).device

@@ -193,6 +193,51 @@ def test_flux_lora_key_map_matches(preset):
     assert flux_key_map(arch) == jax_flux_key_map(jax_arch)
 
 
+@pytest.mark.parametrize("preset", ["tiny", "medium", "large"])
+def test_sd3_lora_key_map_matches(preset):
+    from simpletuner_tpu.models.sd3 import SD3Config as JaxSD3Config
+    from simpletuner_tpu.training.lora import sd3_key_map as jax_sd3_key_map
+
+    from simpletuner_tpu_torch.models.sd3 import SD3Config
+    from simpletuner_tpu_torch.training.lora import sd3_key_map
+
+    jax_arch, arch = getattr(JaxSD3Config, preset)(), getattr(SD3Config, preset)()
+    assert dataclasses.asdict(arch) == dataclasses.asdict(jax_arch)
+    assert sd3_key_map(arch) == jax_sd3_key_map(jax_arch)
+
+
+def test_sd3_family_matches():
+    """The SD3 family's static contract: flavours and their configs, the three
+    encoder specs (T5 at 256 tokens, no tokenizer subfolders), the VAE
+    factors, the LoRA target names, the acceleration presets (the port leaves
+    out the mesh preset, ROADMAP Queue 1 item 5)."""
+    from simpletuner_tpu.configuration import TrainingConfig as JaxTrainingConfig
+    from simpletuner_tpu.models.sd3 import SD3 as JaxSD3
+
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.sd3 import SD3
+
+    for name in ("NAME", "PREDICTION_TYPE", "MODEL_TYPE", "LATENT_CHANNEL_COUNT", "DEFAULT_RESOLUTION",
+                 "DEFAULT_FLAVOUR", "HUGGINGFACE_PATHS", "DEFAULT_LORA_TARGET", "VAE_SCALING_FACTOR",
+                 "VAE_SHIFT_FACTOR"):
+        assert getattr(SD3, name) == getattr(JaxSD3, name), name
+    assert [dataclasses.asdict(s) for s in SD3.TEXT_ENCODER_CONFIGURATION] == \
+        [dataclasses.asdict(s) for s in JaxSD3.TEXT_ENCODER_CONFIGURATION]
+    for values in ({}, {"model_flavour": "large-3.5"}, {"model_flavour": "medium-3.0"},
+                   {"model_arch_preset": "tiny"}):
+        values = {"model_family": "sd3", **values}
+        ours, theirs = SD3(TrainingConfig(values)), JaxSD3(JaxTrainingConfig(values))
+        assert dataclasses.asdict(ours.arch) == dataclasses.asdict(theirs.arch)
+        assert ours.latent_channels == theirs.latent_channels and ours.huggingface_path() == theirs.huggingface_path()
+        assert {k: tuple(v.shape) for k, v in ours.example_batch(2, 128).items()} == \
+            {k: tuple(v.shape) for k, v in theirs.example_batch(2, 128).items()}
+    jax_presets = [p for p in JaxSD3.get_acceleration_presets() if p["name"] != "multichip"]
+    assert [(p["name"], p["config"]) for p in SD3.get_acceleration_presets()] == \
+        [(p["name"], p["config"]) for p in jax_presets]
+    with pytest.raises(ValueError, match="flow-matching"):
+        SD3(TrainingConfig({"model_family": "sd3", "prediction_type": "epsilon"})).check_user_config()
+
+
 def test_validation_defaults_to_the_card():
     import inspect
 
@@ -462,7 +507,12 @@ def test_model_registry_refuses_other_families():
     from simpletuner_tpu_torch.models.flux import Flux
     from simpletuner_tpu_torch.models.registry import get_model_family
 
+    from simpletuner_tpu_torch.models.sd3 import SD3
+
     assert isinstance(get_model_family(TrainingConfig({"model_family": "flux"})), Flux)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "sd3"})), SD3)
+    with pytest.raises(ValueError, match="flow-matching"):  # check_user_config runs, as in the JAX registry
+        get_model_family(TrainingConfig({"model_family": "sd3", "prediction_type": "epsilon"}))
     for family in ("sdxl", "sd15", "wan"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
@@ -487,7 +537,9 @@ def test_model_registry_matches():
     assert ModelRegistry.families() == JaxModelRegistry.families()
     for name in ModelRegistry.families() + ["sd15", "pixart", "ltx2", "kandinsky5-image"]:
         assert ModelRegistry.metadata(name) == JaxModelRegistry.metadata(name), name
-    assert ModelRegistry.get("flux") is Flux
+    from simpletuner_tpu_torch.models.sd3 import SD3
+
+    assert ModelRegistry.get("flux") is Flux and ModelRegistry.get("sd3") is SD3
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
         ModelRegistry.get("sd15")
     for registry in (ModelRegistry, JaxModelRegistry):

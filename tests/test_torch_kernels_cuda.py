@@ -271,6 +271,73 @@ def test_padded_head_dims_match_plain(cuda, dim, masked):
             assert (x[:, :, 77:512] == 0).all()
 
 
+# SD3.5 Large at 1024 px: 38 heads of 64 over 77 CLIP + 256 T5 + 4096 image
+# tokens.  4429 is no multiple of the 128-row tiles, so the kernels run their
+# masked mode with no mask from the caller (the ragged tail)
+SD35_LARGE = (1, 38, 4429, 64)
+
+
+def test_kernel_at_the_sd35_large_shape(cuda):
+    batch, heads, seq, dim = SD35_LARGE
+    q, k, v = _qkv(18, batch, heads, seq, seq, dim, cuda)
+    out, lse = _check(q, k, v)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    # the dispatcher's (B, S, H, D) layout, as the SD3 blocks call it
+    strided = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+    through = dot_product_attention(*strided, backend="pallas_flash")
+    _assert_out_close(through.transpose(1, 2), out)
+
+
+def test_backward_kernels_at_the_sd35_large_shape(cuda):
+    batch, heads, seq, dim = SD35_LARGE
+    q, k, v = _qkv(19, batch, heads, seq, seq, dim, cuda)
+    dq, dk, dv = _check_backward(q, k, v, seed=19)
+    assert dq.shape == dk.shape == dv.shape == q.shape
+
+
+def test_sd3_blocks_on_the_card_match_the_plain_attention(cuda):
+    """Two SD3.5 Large blocks at full width, 512 px (333 text + 1024 image
+    tokens): velocity and LoRA gradients through the kernels against the
+    plain attention under autograd, within the full-width parity bound of
+    chip_smoke.py (5e-2 relative L2: each attention output and gradient
+    differs by about one bf16 rounding)."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.layers import freeze_base, init_parameters
+    from simpletuner_tpu_torch.models.sd3 import SD3, SD3Config
+    from simpletuner_tpu_torch.ops import set_attention_backend
+
+    arch = dataclasses.replace(SD3Config.large(), depth=2)
+    model = SD3(config_namespace({"model_family": "sd3", "model_type": "lora", "lora_rank": 4}), arch=arch)
+    gen = torch.Generator(cuda).manual_seed(3)
+    with torch.device(cuda):
+        module = init_parameters(model.create_module(), gen)
+    with torch.no_grad():  # AdaLN-Zero and LoRA B start at zero: give them a draw
+        for name, param in module.named_parameters():
+            if name.endswith(("lin.weight", "lora_B")):
+                param.normal_(0.0, 0.02, generator=gen)
+    params = freeze_base(module)
+    batch = {"latents": torch.randn((1, 64, 64, 16), generator=gen, device=cuda),
+             "text_embeds": torch.randn((1, 333, 4096), generator=gen, device=cuda),
+             "pooled_embeds": torch.randn((1, 2048), generator=gen, device=cuda),
+             "override_noise": torch.randn((1, 64, 64, 16), generator=gen, device=cuda),
+             "override_sigmas": torch.full((1,), 0.6, device=cuda)}
+
+    def grads():
+        loss, _ = model.loss_fn(module, gen, batch)
+        return torch.cat([g.flatten() for g in torch.autograd.grad(loss, list(params.values()))])
+
+    kernel = grads()
+    set_attention_backend("xla")
+    try:
+        plain = grads()
+    finally:
+        set_attention_backend("auto")
+    assert torch.isfinite(kernel).all() and plain.norm() > 0
+    assert ((kernel - plain).norm() / plain.norm()).item() <= 5e-2
+
+
 def test_graph_replays_are_bitwise_the_eager_steps(cuda):
     # the int8 flagship step at full width, depth cut to 2 + 4 blocks: four
     # eager steps, then four replays of the captured step from the same

@@ -9,11 +9,12 @@ are normalised.  Routes that differ by design are named in ``DIFFERS`` and
 checked for what the port answers instead: ``/api/optimizers`` (the port's
 registry), ``/api/version`` and ``/api/system`` (torch, CUDA and the card),
 ``/api/hardware`` (the ``torch.cuda`` devices), ``/api/models/<f>/presets``
-(the port's presets; 501 for a family it does not train) and a job's logs
+(the port's presets: ``sd3``'s are the JAX ones without the mesh preset; 501
+for a family it does not train) and a job's logs
 (the spawned command: ``python -m simpletuner_tpu_torch.train --config ...
 --device cpu``).  On the port's server alone: a tiny-Flux job completes and
 its LoRA is bitwise the one an in-process ``Trainer`` trains from the same
-config; an ``sd3`` job fails with a log line naming ROADMAP Queue 1 item 6;
+config; an ``sdxl`` job fails with a log line naming ROADMAP Queue 1 item 6;
 a running job takes a checkpoint signal and is cancelled.
 """
 
@@ -52,7 +53,7 @@ VOLATILE = {"job_id", "approval_id", "token", "time", "mtime", "id", "scan_id", 
 JAX_LYCORIS = copy.deepcopy(jax_configure_tui.LYCORIS_ALGORITHMS)
 # the routes whose answers differ by design (checked on their own below)
 DIFFERS = ("/api/optimizers", "/api/version", "/api/system", "/api/hardware", "/api/models/flux/presets",
-           "/api/training/logs/<id>")
+           "/api/models/sd3/presets", "/api/models/sdxl/presets", "/api/training/logs/<id>")
 
 
 def _start(factory, state, **kwargs):
@@ -425,8 +426,12 @@ def test_routes_that_differ_by_design(pair):
     assert system["version"] == version and system["state_dir"] == str(pair.states["port"])
     presets = pair.both("GET", "/api/models/flux/presets", compare=False)
     assert presets["port"][0] == 200 and [p["name"] for p in presets["port"][1]] == ["speed", "balanced", "memory"]
-    assert pair.both("GET", "/api/models/sd3/presets", compare=False)["port"] == (
-        501, {"error": "model_family='sd3' is not ported (only flux; ROADMAP Queue 1 item 6)"})
+    sd3 = pair.both("GET", "/api/models/sd3/presets", compare=False)
+    assert sd3["port"][0] == sd3["jax"][0] == 200
+    jax_presets = [(p["name"], p["config"]) for p in sd3["jax"][1] if p["name"] != "multichip"]  # a mesh: item 5
+    assert [(p["name"], p["config"]) for p in sd3["port"][1]] == jax_presets and len(jax_presets) == 3
+    assert pair.both("GET", "/api/models/sdxl/presets", compare=False)["port"] == (
+        501, {"error": "model_family='sdxl' is not ported (only flux and sd3; ROADMAP Queue 1 item 6)"})
     pair.both("GET", "/api/models/nope/presets")  # unknown: 404 on both
     job = pair.both("POST", "/api/inference/start",
                     {"checkpoint": "/nope/checkpoint-1", "prompt": "a cat", "steps": 1})
@@ -510,7 +515,7 @@ def test_an_unported_family_fails_naming_its_item(port_server, tmp_path):
     _, port = port_server
     _write_images(tmp_path / "data")
     status, job = _http(port, "POST", "/api/training/start",
-                        {"config": _values(tmp_path, "out", model_family="sd3")})
+                        {"config": _values(tmp_path, "out", model_family="sdxl")})
     info = _wait(port, job["job_id"])
     _, logs = _http(port, "GET", f"/api/training/logs/{job['job_id']}?tail=200")
     assert info["state"] == "failed" and info["return_code"] != 0

@@ -3,7 +3,8 @@
 Tiny CLIP text models (the JAX package's tiny configs) and tiny T5 encoders
 (``relu`` and ``gated-gelu``) take the Flax models' own params; the same
 tokens go through both.  f32 on both sides, so ``last_hidden_state`` and
-``pooled`` agree to f32 sum order (relative L2 under 1e-5).  The pooling
+``pooled`` agree to f32 sum order (relative L2 under 1e-5), with CLIP-G's
+exact ``gelu`` as with CLIP-L's ``quick_gelu``.  The pooling
 rule is checked for the three cases HF distinguishes.  ``Flux.encode_text``
 is held against the JAX family's on the JAX package's tiny encoders, and an
 HF torch-layout checkpoint written by ``transformers``' torch classes loads
@@ -27,6 +28,7 @@ from simpletuner_tpu.models.text_encoders import _TinyTokenizer as JaxTinyTokeni
 from simpletuner_tpu.models.text_encoders import load_text_encoders as jax_load_text_encoders
 
 from simpletuner_tpu_torch.inference import config_namespace
+from simpletuner_tpu_torch.models.checkpoint_layouts import clip_checkpoint_shapes
 from simpletuner_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel, clip_state_dict_from_flax, load_clip_text
 from simpletuner_tpu_torch.models.flux import Flux
 from simpletuner_tpu_torch.models.t5 import (
@@ -83,6 +85,52 @@ def test_clip_matches_flax(eos_token_id, hidden):
     else:
         expected = (ids == 1).argmax(axis=-1)
     np.testing.assert_array_equal(out["pooler_output"].numpy(), hidden_state[np.arange(len(PROMPTS)), expected])
+
+
+def test_clip_g_gelu_matches_flax():
+    """CLIP-G's exact-erf ``gelu`` (OpenCLIP bigG; the port refused every
+    activation but ``quick_gelu`` before): a tiny CLIP with ``hidden_act="gelu"``
+    against ``FlaxCLIPTextModel`` on the same weights, relative L2 under 1e-5
+    (f32 both sides); ``quick_gelu`` on the same weights lands far away."""
+    config = HFCLIPTextConfig(vocab_size=1000, hidden_size=64, intermediate_size=64, num_hidden_layers=2,
+                              num_attention_heads=2, max_position_embeddings=77, hidden_act="gelu")
+    flax_model = FlaxCLIPTextModel(config, seed=0)
+    port = CLIPTextModel(CLIPTextConfig.from_hf(config.to_dict()))
+    assert port.config.hidden_act == "gelu"
+    port.load_state_dict(clip_state_dict_from_flax(flax_model.params))
+    quick = CLIPTextModel(CLIPTextConfig.from_hf({**config.to_dict(), "hidden_act": "quick_gelu"}))
+    quick.load_state_dict(port.state_dict())
+    ids, mask = _tokens(77)
+    ref = flax_model(input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask))
+    with torch.no_grad():
+        out = port.eval()(torch.from_numpy(ids), torch.from_numpy(mask))
+        other = quick.eval()(torch.from_numpy(ids), torch.from_numpy(mask))
+    err = rel(out["last_hidden_state"].numpy(), np.asarray(ref.last_hidden_state))
+    assert err < 1e-5 and rel(out["pooler_output"].numpy(), np.asarray(ref.pooler_output)) < 1e-5
+    assert rel(other["last_hidden_state"].numpy(), np.asarray(ref.last_hidden_state)) > 100 * err
+    full = CLIPTextConfig.clip_g()
+    assert (full.hidden_size, full.num_hidden_layers, full.num_attention_heads, full.intermediate_size,
+            full.max_position_embeddings, full.hidden_act) == (1280, 32, 20, 5120, 77, "gelu")
+
+
+def test_clip_with_projection_checkpoint_loads_without_the_projection(tmp_path):
+    """SD3's ``text_encoder_2`` is an HF ``CLIPTextModelWithProjection``; the
+    JAX package reads it as a plain ``FlaxCLIPTextModel``, so the port drops
+    ``text_projection`` and gives HF's ``last_hidden_state``."""
+    torch.manual_seed(0)
+    hf = transformers.CLIPTextModelWithProjection(HFCLIPTextConfig(
+        vocab_size=1000, hidden_size=64, intermediate_size=64, num_hidden_layers=2, num_attention_heads=2,
+        max_position_embeddings=77, hidden_act="gelu", projection_dim=64)).eval()
+    hf.save_pretrained(str(tmp_path / "text_encoder_2"), safe_serialization=True)
+    port = load_clip_text(str(tmp_path / "text_encoder_2"))
+    ids, mask = (torch.from_numpy(x).long() for x in _tokens(77))
+    with torch.no_grad():
+        ref = hf(input_ids=ids, attention_mask=mask).last_hidden_state
+        out = port(ids, mask)["last_hidden_state"]
+    assert port.config.hidden_act == "gelu" and rel(out.numpy(), ref.numpy()) < 1e-5
+    # the layout the seeded files are written in is HF's, projection included
+    hf_shapes = {k: tuple(v.shape) for k, v in hf.state_dict().items() if not k.endswith("position_ids")}
+    assert clip_checkpoint_shapes(port.config, projection=True) == hf_shapes
 
 
 @pytest.mark.parametrize("feed_forward_proj", ["relu", "gated-gelu"])
@@ -164,7 +212,7 @@ def test_refusals():
     with pytest.raises(NotImplementedError):
         T5EncoderModel(T5Config.tiny("gated-silu"))
     with pytest.raises(NotImplementedError):
-        CLIPTextModel(CLIPTextConfig.from_hf({"hidden_act": "gelu", "hidden_size": 32, "intermediate_size": 64,
+        CLIPTextModel(CLIPTextConfig.from_hf({"hidden_act": "silu", "hidden_size": 32, "intermediate_size": 64,
                                               "num_hidden_layers": 1, "num_attention_heads": 2}))
     spec = type(Flux.TEXT_ENCODER_CONFIGURATION[0])(name="llm", family="llama")
     with pytest.raises(NotImplementedError):

@@ -152,6 +152,32 @@ def test_flux_import_matches_jax_bitwise(tmp_path, flux_models, layout, sharded,
 
 
 @pytest.mark.parametrize("layout", ["bfl", "diffusers"])
+def test_fp8_file_imports_its_values_without_an_f32_copy(tmp_path, flux_models, layout):
+    """An F8_E4M3 checkpoint (the published fp8 files' dtype; the JAX reader
+    cannot open one) imports as the f32 file of the same values does, bitwise,
+    in bf16 and f32 modules; its leaves reach the bridge as bf16, which holds
+    every e4m3 value exactly, not as an f32 copy."""
+    _, model = flux_models
+    fp8 = {k: _to_torch(v).to(torch.float8_e4m3fn)
+           for k, v in _seeded(flux_checkpoint_shapes(model.arch), seed=6, dtype="f32").items()}
+    as_f32 = {k: v.float().numpy() for k, v in fp8.items()}
+    if layout == "bfl":
+        fp8, as_f32 = flux_bfl_from_diffusers(fp8), flux_bfl_from_diffusers({k: torch.from_numpy(v)
+                                                                             for k, v in as_f32.items()})
+    save_safetensors(fp8, str(tmp_path / "fp8.safetensors"))
+    save_safetensors(as_f32, str(tmp_path / "f32.safetensors"))
+    tree = load_flux_params(model, str(tmp_path / "fp8.safetensors"))
+    assert {leaf.dtype for _, leaf in _flat(tree)} == {torch.bfloat16}
+    for precision in ("bf16", "fp32"):
+        target = Flux(_config(precision))
+        a = load_transformer_params(target, init_adapters(target.create_module()), str(tmp_path / "fp8.safetensors"))
+        b = load_transformer_params(target, init_adapters(target.create_module()), str(tmp_path / "f32.safetensors"))
+        ours, theirs = a.state_dict(), b.state_dict()
+        base = [k for k in theirs if not k.endswith(("lora_A", "lora_B"))]
+        assert base and all(torch.equal(ours[k], theirs[k]) for k in base), precision
+
+
+@pytest.mark.parametrize("layout", ["bfl", "diffusers"])
 def test_imported_flux_forward_matches_jax(tmp_path, flux_models, layout):
     """An f32 module from the file against the JAX module on the JAX import of the same file."""
     from simpletuner_tpu.models import layers as jl
