@@ -11,7 +11,12 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    card, bf16, at the Flux shape masked and unmasked, Flux padding at a ragged
    S = 4173, a ragged S = 1000, packed samples (mixed tiles), narrow heads
    (D = 64, 32), a (B, S, H, D) strided view and SD3.5 Large's (1, 38, 4429,
-   64) with no caller mask (the ragged tail); rows that see no key exactly
+   64) with no caller mask (the ragged tail), and SDXL's six attention shapes
+   at 1024 px (self-attention at (1, 5, 16384, 64), (1, 10, 4096, 64) and
+   (1, 20, 1024, 64), and the same queries against 77 CLIP keys, below one
+   128-key tile; level 0's keys also as views into a NaN-padded buffer,
+   which must give the contiguous output bitwise), each with its kernel,
+   plain and SDPA times and bound; rows that see no key exactly
    0 with lse -1e30; kernel, plain and SDPA times (CUDA events, after warm-up;
    SDPA with the T5 mask as a boolean attn_mask is the masked yardstick), the
    bound, and the skip/full/mixed tile counts of the Flux masked call; the
@@ -36,8 +41,8 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    kernel's skip tiles); dk and dv of pad keys and dq of pad queries exactly
    0; gradients of strided inputs in their layout; dq bitwise equal over two
    launches at the Flux masked shape; kernel, plain and SDPA-backward times,
-   the bounds and each kernel's share of its bound, at the Flux shape and at
-   SD3.5 Large's;
+   the bounds and each kernel's share of its bound, at the Flux shape, at
+   SD3.5 Large's and at SDXL's six;
 8. train step: the flagship LoRA step (simpletuner_tpu_torch.bench.flagship:
    full-width, full-depth Flux.1-dev, rank-16 LoRA, AdamW, 1024 px, T5 padding
    masked): first the JAX flagship's configuration, an int8 frozen base with
@@ -151,9 +156,29 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    s/step, MFU (``sd3_step_flops``, bench.py's convention), capture s, time
    to the first step, peak GiB, and the launches of a profiled replay, which
    must equal the capture's (76 / 38 / 38).
+20. sdxl: the SDXL UNet as the JAX preset builds it (``UNetConfig.sdxl()``:
+   channels 320 / 640 / 1280, transformer depths 1 / 2 / 10, cross-attention
+   at all three levels where the published SDXL UNet has none at level 0,
+   context 2048, added conditioning 2816; 2.58B parameters) at full width and
+   depth.  Deletes phase 19's transformer and outputs; writes with the port's
+   writer a seeded diffusers UNet (5.17 GB bf16, two shards; e4m3 if the
+   run's writes would pass the budget) and a 4-channel VAE beside hard links
+   to phase 14's CLIP-L and tokenizer and phase 19's CLIP-G; imports the UNet
+   (s, GB/s; every tensor bitwise the written one); renders 1024x1024 through
+   ``CheckpointInferenceRuntime`` with true CFG at guidance 7.5, 4 steps of
+   DDIM (the default) and then of UniPC (s per CFG step, peak GiB, 150 flash
+   launches per UNet forward: 75 transformer blocks, two attentions each);
+   one UNet forward with the kernels against the plain attention (relative
+   L2 within phase 5's bound); ``Trainer.run()`` with a bf16 base, remat of
+   every resnet and spatial transformer, rank-16 LoRA on to_q / to_k / to_v /
+   to_out, AdamW 1e-4, min-SNR gamma 5 epsilon, 6 steps on four of phase 16's
+   square JPEGs in one bucket, graphed: losses, s/step, MFU
+   (``sdxl_step_flops``, forward x 3), time to the first step, peak GiB, and
+   the launches of a profiled replay (300 / 150 / 150: forward, recompute,
+   backward), which must equal the capture's, with the replay's top kernels.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
-their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-19.
+their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-20.
 Phases 3 and 7 also run head dims 72, 96 and 112 (pixart, lumina2, sana),
 which the wrappers zero-pad to 128, masked and unmasked.  Then a JSON line
 with the kernels (launches: the profiler's count in phase 12's profiled
@@ -243,6 +268,20 @@ SD3_PROMPT = "a lighthouse on a basalt cliff at dusk"
 SD3_GUIDANCE = 5.0
 SD3_TRAIN_STEPS, SD3_TRAIN_IMAGES = 6, 4
 SD3_WRITE_LIMIT_GB = 46.0
+# phase 20: SDXL (the JAX preset: attention at all three UNet levels, where
+# the published SDXL UNet has none at level 0); the render's guidance (true
+# CFG, two UNet forwards per step), its schedulers, the trainer's steps and
+# min-SNR gamma, and the timestep of the full-depth parity forward
+SDXL_GUIDANCE = 7.5
+SDXL_TRAIN_STEPS, SDXL_TRAIN_IMAGES = 6, 4
+SDXL_SNR_GAMMA = 5.0
+SDXL_PARITY_T = 500
+SDXL_PROMPT = "a lighthouse on a basalt cliff at dusk"
+# phases 3 and 7 at SDXL's 1024 px attention: per level, the heads of 64 and
+# the H x W image tokens, self-attention and cross-attention against the 77
+# CLIP tokens (below one 128-key tile: the kernels' masked mode, no caller mask)
+SDXL_TXT = 77
+SDXL_LEVELS = ((5, (RESOLUTION // 8) ** 2), (10, (RESOLUTION // 16) ** 2), (20, (RESOLUTION // 32) ** 2))
 # phase 10: the Flux linears' (in, out): attention q/k/v and proj, single-block
 # linear1 (q, k, v, mlp) and linear2, the MLP in and out, double-block AdaLN
 INT8_SHAPES = ((3072, 3072), (3072, 21504), (15360, 3072), (3072, 12288), (12288, 3072), (3072, 18432))
@@ -460,6 +499,8 @@ def kernel_cases():
     sd3["share_of_bound"] = sd3_bound / sd3["kernel_ms"]
     times["sd35_large"] = sd3
     del q3, k3, v3
+    times["sdxl"] = sdxl_forward_cases(errors)
+    worst = max([worst] + [errors[name]["out"] for name in times["sdxl"]])
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
     bound_ms, bound_by = _attention_bound_ms(2, pairs, 24, 128, nbytes)
@@ -576,6 +617,7 @@ def backward_cases():
         times[f"dq_dkv_masked_d{dim}_ms"] = cuda_ms(
             lambda: flash_backward(q, k, v, flux_seg, flux_seg, out, lse, do, dim ** -0.5), 10)
     times["sd35_large"] = sd3_backward_times()
+    times["sdxl"] = sdxl_backward_cases(check)
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
     library = {"library_ms": times["sdpa_backward_masked_ms"],
@@ -587,6 +629,115 @@ def backward_cases():
                                 "bound_by": bounds[(kernel, "masked")][1], **library}
         for kernel in ("dq", "dkv")
     }
+
+
+def _sdxl_inputs(seed, heads, sq, sk, n):
+    """q over ``sq`` tokens, k and v over ``sk`` (and dO over ``sq`` when
+    ``n`` is 4), in the (B, S, H, D) memory the UNet's dispatcher call gives
+    the kernels."""
+    tensors = _qkv(seed, 1, heads, sq, 64, n=1) + _qkv(seed + 1, 1, heads, sk, 64, n=2)
+    if n == 4:
+        tensors += _qkv(seed + 2, 1, heads, sq, 64, n=1)
+    return [x.transpose(1, 2).contiguous().transpose(1, 2) for x in tensors]
+
+
+def sdxl_cases():
+    """(name, heads, query tokens, key tokens) of SDXL's attention at 1024 px."""
+    for level, (heads, seq) in enumerate(SDXL_LEVELS):
+        yield f"sdxl_l{level}_self", heads, seq, seq
+        yield f"sdxl_l{level}_cross", heads, seq, SDXL_TXT
+
+
+def sdxl_forward_cases(errors: dict) -> dict:
+    """Phase 3 at SDXL's six attention shapes: the forward kernel against its
+    plain version (the bounds of the other cases), kernel, plain and SDPA
+    times and the bound; at level 0's cross-attention also the keys as views
+    into a buffer whose rows 77-127 of each head hold NaN: the 128-key tile
+    runs past each head's keys, and those rows must come back as zeros or be
+    masked (0 x NaN is NaN), so the output is bitwise the contiguous one."""
+    import torch
+    import torch.nn.functional as F
+
+    from simpletuner_tpu_torch.ops import flash_attention, mha_reference_lse
+
+    cases = {}
+    for seed, (name, heads, sq, sk) in enumerate(sdxl_cases()):
+        q, k, v = _sdxl_inputs(300 + 2 * seed, heads, sq, sk, 3)
+        out, lse = flash_attention(q, k, v, return_lse=True)
+        ref, ref_lse = mha_reference_lse(q, k, v)
+        torch.cuda.synchronize()
+        out_err = (out.float() - ref.float()).abs().max().item()
+        out_bound = OUT_REL_MAX * ref.float().abs().max().item()
+        out_rel_l2, lse_err = rel_l2(out, ref), (lse - ref_lse).abs().max().item()
+        if not (torch.isfinite(out.float()).all() and out_err <= out_bound and out_rel_l2 <= OUT_REL_L2
+                and lse_err <= LSE_ATOL):
+            raise RuntimeError(f"kernel case {name}: out err {out_err} (<= {out_bound}), out rel L2 "
+                               f"{out_rel_l2} (<= {OUT_REL_L2}), lse err {lse_err} (<= {LSE_ATOL})")
+        errors[name] = {"out": out_err, "out_bound": out_bound, "out_rel_l2": out_rel_l2, "lse": lse_err}
+        if name == "sdxl_l0_cross":
+            buffers = [torch.full((1, heads, 128, 64), float("nan"), dtype=torch.bfloat16, device="cuda")
+                       for _ in range(2)]
+            for buf, x in zip(buffers, (k, v)):
+                buf[:, :, :sk] = x
+            if not torch.equal(flash_attention(q, buffers[0][:, :, :sk], buffers[1][:, :, :sk]), out):
+                raise RuntimeError(f"kernel case {name}: keys past a head's 77 rows reached the output")
+            errors[name]["nan_padded_keys_bitwise"] = True
+        backend, sdpa_ms = _sdpa_backend(lambda: F.scaled_dot_product_attention(q, k, v))
+        nbytes = 2 * heads * (sq + sk) * 64 * 2 + heads * sq * 4  # q, out; k, v; lse
+        bound, bound_by = _attention_bound_ms(2, sq * sk, heads, 64, nbytes)
+        kernel_ms = cuda_ms(lambda: flash_attention(q, k, v), 20)
+        cases[name] = {"shape": [1, heads, sq, sk, 64], "kernel_ms": kernel_ms,
+                       "plain_ms": cuda_ms(lambda: mha_reference_lse(q, k, v), 5), "sdpa_ms": sdpa_ms,
+                       "sdpa_backend": backend, "bound_ms": bound, "bound_by": bound_by,
+                       "share_of_bound": bound / kernel_ms}
+        del q, k, v, out, ref
+    return cases
+
+
+def sdxl_backward_cases(check) -> dict:
+    """Phase 7 at SDXL's six attention shapes: dq, dk and dv against the plain
+    backward (``check``, in the dispatcher's layout), the dq and dkv kernels'
+    times, the plain backward's and SDPA's, the bounds and shares."""
+    import torch
+    import torch.nn.functional as F
+
+    from simpletuner_tpu_torch.ops import (
+        flash_attention, flash_bwd_dkv_kernel, flash_bwd_dq_kernel, mha_backward_reference,
+    )
+
+    cases = {}
+    for seed, (name, heads, sq, sk) in enumerate(sdxl_cases()):
+        q, k, v, do = _sdxl_inputs(400 + 2 * seed, heads, sq, sk, 4)
+        check(name, q, k, v, do, None, None, True)
+        scale = 64 ** -0.5
+        out, lse = flash_attention(q, k, v, return_lse=True)
+        delta = (out.float() * do.float()).sum(dim=-1)
+        q_act, k_act, stats = heads * sq * 64 * 2, heads * sk * 64 * 2, 2 * heads * sq * 4
+        times = {"shape": [1, heads, sq, sk, 64]}
+        # dq reads q, k, v, dO, lse, delta and writes dq; dkv reads the same and writes dk, dv
+        for kernel, products, nbytes, fn in (
+                ("dq", 3, 3 * q_act + 2 * k_act + stats,
+                 lambda: flash_bwd_dq_kernel(q, k, v, None, None, lse, delta, do, scale)),
+                ("dkv", 4, 2 * q_act + 4 * k_act + stats,
+                 lambda: flash_bwd_dkv_kernel(q, k, v, None, None, lse, delta, do, scale))):
+            times[f"{kernel}_ms"] = cuda_ms(fn, 10)
+            times[f"bound_{kernel}_ms"], times[f"bound_{kernel}_by"] = _attention_bound_ms(
+                products, sq * sk, heads, 64, nbytes)
+            times[f"{kernel}_share_of_bound"] = times[f"bound_{kernel}_ms"] / times[f"{kernel}_ms"]
+        times["plain_ms"] = cuda_ms(lambda: mha_backward_reference(q, k, v, None, None, out, lse, do, scale), 3)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+        def forward():
+            return F.scaled_dot_product_attention(*leaves)
+
+        backend, fwd_bwd_ms = _sdpa_backend(lambda: torch.autograd.grad(forward(), leaves, do))
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        with sdpa_kernel([getattr(SDPBackend, backend.upper())]):
+            times["sdpa_backward_ms"] = fwd_bwd_ms - cuda_ms(forward, 20)
+        times["sdpa_backward_backend"] = backend
+        cases[name] = times
+        del q, k, v, do, out, leaves
+    return cases
 
 
 def sd3_backward_times() -> dict:
@@ -1471,6 +1622,355 @@ def sd3_phase(paths: dict, kernels, device: str) -> None:
     torch.cuda.empty_cache()
 
 
+def sdxl_step_flops(arch, batch: int, height: int, width: int, txt: int) -> float:
+    """Model FLOPs of one SDXL train step in bench.py's convention (forward x
+    3; remat recompute is hardware work, not model work), counted from the
+    UNet config at ``height`` x ``width`` latents: every convolution (conv_in,
+    each resnet's two 3x3 convs and 1x1 shortcut, down- and upsampling,
+    conv_out), each spatial transformer's proj_in / proj_out, per block the
+    self-attention's q, k, v and out, the cross-attention's q and out over
+    the image tokens and k and v over the ``txt`` text tokens, both
+    attentions at 4 x S x S_k x C, the GEGLU feed-forward (C -> 8C, 4C -> C),
+    and the time and added-conditioning MLPs."""
+    c0, time_dim = arch.block_out_channels[0], arch.block_out_channels[0] * 4
+    fwd = 2.0 * (c0 * time_dim + time_dim * time_dim)
+    if arch.addition_embed_dim:
+        fwd += 2.0 * (arch.addition_embed_dim * time_dim + time_dim * time_dim)
+
+    def conv(tokens, cin, cout, kernel=3):
+        return 2.0 * tokens * cin * cout * kernel * kernel
+
+    def resnet(tokens, cin, cout):
+        return conv(tokens, cin, cout) + conv(tokens, cout, cout) + (conv(tokens, cin, cout, 1) if cin != cout else 0) \
+            + 2.0 * time_dim * cout
+
+    def spatial(tokens, channels, depth):
+        per_block = 2.0 * tokens * channels * channels * 6  # attn1 q k v out, attn2 q out
+        per_block += 2.0 * txt * arch.cross_attention_dim * channels * 2  # attn2 k v
+        per_block += 4.0 * tokens * (tokens + txt) * channels  # both attentions' two products
+        per_block += 2.0 * tokens * channels * 12 * channels  # GEGLU: C -> 8C, 4C -> C
+        return 2.0 * tokens * channels * channels * 2 + depth * per_block
+
+    tokens = height * width
+    fwd += conv(tokens, arch.in_channels, c0)
+    skips, channels, levels = [c0], c0, len(arch.block_out_channels)
+    for level, out_ch in enumerate(arch.block_out_channels):
+        for _ in range(arch.layers_per_block):
+            fwd += resnet(tokens, channels, out_ch)
+            channels = out_ch
+            if arch.cross_attention_blocks[level]:
+                fwd += spatial(tokens, out_ch, arch.depth_at(level))
+            skips.append(channels)
+        if level < levels - 1:
+            tokens //= 4
+            fwd += conv(tokens, out_ch, out_ch)
+            skips.append(channels)
+    mid = arch.block_out_channels[-1]
+    fwd += resnet(tokens, channels, mid) + spatial(tokens, mid, arch.depth_at(levels - 1)) + resnet(tokens, mid, mid)
+    channels = mid
+    for level in reversed(range(levels)):
+        out_ch = arch.block_out_channels[level]
+        for _ in range(arch.layers_per_block + 1):
+            fwd += resnet(tokens, channels + skips.pop(), out_ch)
+            channels = out_ch
+            if arch.cross_attention_blocks[level]:
+                fwd += spatial(tokens, out_ch, arch.depth_at(level))
+        if level > 0:
+            tokens *= 4
+            fwd += conv(tokens, out_ch, out_ch)
+    fwd += conv(tokens, channels, arch.out_channels)
+    return batch * fwd * 3.0
+
+
+def sdxl_phase(paths: dict, kernels, device: str) -> None:
+    """Phase 20: SDXL at full width and depth as the JAX preset builds it: a
+    seeded diffusers UNet and a 4-channel VAE written with the port's writer
+    beside hard links to phase 14's CLIP-L and tokenizer and phase 19's CLIP-G;
+    the import held bitwise to the written tensors; a 1024 px render with true
+    CFG through ``CheckpointInferenceRuntime`` with DDIM, then UniPC; one UNet
+    forward with the kernels against the plain attention; ``Trainer.run()``
+    with a bf16 base, rank-16 LoRA on the attention projections, remat and
+    min-SNR; the kernels' launches of a profiled replay against the capture's."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench import profile_step
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import unet_checkpoint_shapes, vae_checkpoint_shapes
+    from simpletuner_tpu_torch.models.sdxl import SDXL
+    from simpletuner_tpu_torch.models.unet import UNetConfig
+    from simpletuner_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from simpletuner_tpu_torch.models.weight_bridge import flax_to_state_dict
+    from simpletuner_tpu_torch.models.weight_import import (
+        load_transformer_params, save_safetensors, unet_params_from_diffusers,
+    )
+    from simpletuner_tpu_torch.ops import set_attention_backend
+    from simpletuner_tpu_torch.schedulers import DDIMScheduler, UniPCScheduler
+    from simpletuner_tpu_torch.training.trainer import Trainer
+    from simpletuner_tpu_torch.training.validation import build_scheduler
+
+    start = time.perf_counter()
+    work, flux_dir, sd3_dir = paths["work"], paths["flux_dir"], os.path.join(paths["work"], "sd3")
+    # phase 19's transformer and outputs: disk space (not the write budget)
+    for out in (os.path.join(sd3_dir, "transformer"), os.path.join(work, "sd3_train"), os.path.join(work, "sd3_cache")):
+        shutil.rmtree(out, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    arch = UNetConfig.sdxl()
+    shapes = unet_checkpoint_shapes(arch)
+    params = sum(math.prod(shape) for shape in shapes.values())
+    # bf16 unless the run's writes would pass the budget; then e4m3, which the importer takes to bf16 exactly
+    written_before = _written_gb()
+    fp8 = written_before + 2 * params / 1e9 + 1.0 > SD3_WRITE_LIMIT_GB
+    file_bytes = (1 if fp8 else 2) * params
+    free = shutil.disk_usage(work).free
+    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 1.0 > SD3_WRITE_LIMIT_GB:
+        raise RuntimeError(f"sdxl: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
+                           f"the UNet needs {file_bytes / 1e9:.1f} GB of the {SD3_WRITE_LIMIT_GB} GB a run may write")
+
+    # (b) the seeded files: the UNet (two shards) and the 4-channel VAE; hard
+    # links to phase 14's CLIP-L and tokenizer and phase 19's CLIP-G (both
+    # SDXL specs read ``tokenizer``)
+    sdxl_dir = os.path.join(work, "sdxl")
+    os.makedirs(os.path.join(sdxl_dir, "unet"))
+    weights = seeded_weights(shapes, gen)
+    if fp8:
+        weights = {k: v.to(torch.float8_e4m3fn) for k, v in weights.items()}
+    names = sorted(weights)
+    t0 = time.perf_counter()
+    for shard, part in enumerate((names[: len(names) // 2], names[len(names) // 2:])):
+        save_safetensors({k: weights[k] for k in part}, os.path.join(
+            sdxl_dir, "unet", f"diffusion_pytorch_model-0000{shard + 1}-of-00002.safetensors"))
+    write_s = time.perf_counter() - t0
+    with torch.device(dev):
+        vae = AutoencoderKL(VAEConfig.sdxl(), torch.bfloat16)
+    os.makedirs(os.path.join(sdxl_dir, "vae"))
+    save_safetensors(seeded_weights(vae_checkpoint_shapes(vae), gen),
+                     os.path.join(sdxl_dir, "vae", "diffusion_pytorch_model.safetensors"))
+    del vae
+    for source, target in ((os.path.join(flux_dir, "text_encoder"), "text_encoder"),
+                           (os.path.join(sd3_dir, "text_encoder_2"), "text_encoder_2"),
+                           (os.path.join(flux_dir, "tokenizer"), "tokenizer")):
+        _link_tree(source, os.path.join(sdxl_dir, target))
+    files = {"unet_gb": file_bytes / 1e9, "unet_dtype": "float8_e4m3fn" if fp8 else "bfloat16", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "written_gb_before": written_before,
+             "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) import through load_transformer_params, every tensor bitwise the written one
+    model = SDXL(config_namespace({"model_family": "sdxl", "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"sdxl: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()  # model_type full: no adapters
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = _rss_gib()
+    t0 = time.perf_counter()
+    load_transformer_params(model, module, sdxl_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    imported = {"s": load_s, "gb_per_s": file_bytes / load_s / 1e9, "host_rss_gib": {"before": rss_before,
+                "after": _rss_gib()}, "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "params": sum(p.numel() for p in module.parameters())}
+    expected = flax_to_state_dict(unet_params_from_diffusers(weights, arch), module)
+    unequal = [k for k, v in module.state_dict().items() if not torch.equal(v, expected[k])]
+    if unequal or imported["params"] != params:
+        raise RuntimeError(f"sdxl: the imported module differs from the written tensors at {unequal[:8]} "
+                           f"({imported['params']} parameters, {params} written)")
+    imported["tensors_bitwise"] = len(expected)
+    del weights, expected, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) 1024x1024 renders with true CFG through the checkpoint runtime: DDIM (the default), then UniPC
+    config_path = os.path.join(work, "sdxl_render.json")
+    with open(config_path, "w") as handle:
+        json.dump({"model_family": "sdxl", "model_type": "full", "pretrained_model_name_or_path": sdxl_dir,
+                   "mixed_precision": "bf16", "text_encoder_precision": "bf16", "vae_dtype": "bf16",
+                   "validation_resolution": RESOLUTION, "validation_seed": 42, "seed": 42,
+                   "validation_guidance": SDXL_GUIDANCE}, handle)
+    t0 = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "sdxl_render"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "sdxl" or model.is_flow:
+        raise RuntimeError(f"sdxl: the runtime built {model.NAME} {model.arch}")
+    forward_s, finite = [], []
+
+    def before(mod, args):
+        torch.cuda.synchronize()
+        forward_s.append(-time.perf_counter())
+
+    def after(mod, args, out):
+        torch.cuda.synchronize()
+        forward_s[-1] += time.perf_counter()
+
+    decode = runtime.vae.decode
+
+    def decode_checked(z):
+        finite.append(bool(torch.isfinite(z).all()))
+        return decode(z)
+
+    hooks = [module.register_forward_pre_hook(before), module.register_forward_hook(after)]
+    runtime.vae.decode = decode_checked
+    renders = {}
+    # two attentions per transformer block: the down path's layers_per_block
+    # and the up path's layers_per_block + 1 spatial transformers per level, and the mid one
+    levels = len(arch.block_out_channels)
+    per_forward = 2 * (sum(arch.depth_at(level) * (2 * arch.layers_per_block + 1)
+                           for level in range(levels) if arch.cross_attention_blocks[level])
+                       + arch.depth_at(levels - 1))
+    for scheduler, cls in (("ddim", DDIMScheduler), ("unipc", UniPCScheduler)):
+        runtime.config.validation_noise_scheduler = scheduler
+        forward_s.clear()
+        finite.clear()
+        for kernel in kernels:
+            kernel.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pngs = runtime.render(SDXL_PROMPT, steps=STEPS, guidance=SDXL_GUIDANCE)
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        launches = {kernel.name: kernel.launches for kernel in kernels}
+        if launches != {"flash_fwd": per_forward * 2 * STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+            raise RuntimeError(f"sdxl render ({scheduler}): launches {launches}, expected {per_forward} per forward, "
+                               "two forwards per step")
+        if len(pngs) != 1 or finite != [True] or len(forward_s) != 2 * STEPS:
+            raise RuntimeError(f"sdxl render ({scheduler}): {pngs}, finite latents {finite}, {len(forward_s)} forwards")
+        check_png(pngs[0], RESOLUTION, RESOLUTION)
+        if not isinstance(build_scheduler(model, STEPS), cls):
+            raise RuntimeError(f"sdxl render: validation_noise_scheduler={scheduler} does not build {cls.__name__}")
+        renders[scheduler] = {"render_s": render_s, "s_per_cfg_step": sum(forward_s[2:]) / (len(forward_s) - 2) * 2,
+                              "forward_s": list(forward_s), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                              "launches": launches, "png_bytes": os.path.getsize(pngs[0])}
+    runtime.vae.decode = decode
+    for hook in hooks:
+        hook.remove()
+
+    # (e) one full-depth UNet forward, kernels against the plain attention
+    latent = RESOLUTION // 8
+    batch = {"latents": torch.zeros((1, latent, latent, 4), device=dev)}
+    for key, value in model.collate_text_embeds(model.encode_text([SDXL_PROMPT])).items():
+        batch[key] = torch.as_tensor(value, device=dev)
+    if tuple(batch["text_embeds"].shape) != (1, SDXL_TXT, 2048) or tuple(batch["pooled_embeds"].shape) != (1, 1280):
+        raise RuntimeError(f"sdxl: text_embeds {tuple(batch['text_embeds'].shape)}, pooled "
+                           f"{tuple(batch['pooled_embeds'].shape)}")
+    model.text_encoders = []  # the plain attention's scores need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    cond = model.inference_conditioning(batch)
+    noise = torch.randn((1, latent, latent, 4), generator=gen, device=dev)
+    t = torch.tensor(SDXL_PARITY_T)
+    with torch.no_grad():
+        kernel_eps = model.denoise_fn(module, cond)(noise, t)
+        set_attention_backend("xla")
+        try:
+            plain_eps = model.denoise_fn(module, cond)(noise, t)
+        finally:
+            set_attention_backend("auto")
+        forward_ms = cuda_ms(lambda: model.denoise_fn(module, cond)(noise, t), 3, warmup=1)
+    parity = rel_l2(kernel_eps, plain_eps)
+    if not (torch.isfinite(kernel_eps).all() and torch.isfinite(plain_eps).all() and parity <= PARITY_REL_L2):
+        raise RuntimeError(f"sdxl full-depth parity: rel L2 {parity} (<= {PARITY_REL_L2})")
+    del runtime, module, model, kernel_eps, plain_eps, batch, cond
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) Trainer.run(): bf16 base, rank-16 LoRA on the attention projections,
+    # remat, min-SNR epsilon, one square bucket, graphed
+    data = os.path.join(work, "sdxl_data")
+    os.makedirs(data)
+    source = os.path.join(work, "vae_cache", "data")
+    for i, index in enumerate(range(0, 3 * SDXL_TRAIN_IMAGES, 3)):  # phase 16's square JPEGs
+        name = f"img_{index:04d}.jpg"
+        os.link(os.path.join(source, name), os.path.join(data, name))
+        with open(os.path.join(data, f"img_{index:04d}.txt"), "w") as handle:
+            handle.write(TRAIN_CAPTIONS[i])
+    out = os.path.join(work, "sdxl_train")
+    config = {
+        "model_family": "sdxl", "model_type": "lora", "lora_rank": 16,
+        "lora_target_modules": list(SDXL.DEFAULT_LORA_TARGET), "pretrained_model_name_or_path": sdxl_dir,
+        "gradient_checkpointing": True, "snr_gamma": SDXL_SNR_GAMMA, "optimizer": "adamw", "learning_rate": 1e-4,
+        "lr_scheduler": "constant", "mixed_precision": "bf16", "text_encoder_precision": "bf16", "vae_dtype": "bf16",
+        "train_batch_size": 1, "resolution": RESOLUTION, "resolution_type": "pixel_area",
+        "max_train_steps": SDXL_TRAIN_STEPS, "logging_steps": 1, "report_to": "jsonl", "seed": 42,
+        "cache_dir": os.path.join(work, "sdxl_cache"), "output_dir": out, "checkpoint_frozen_base": "reference",
+        "data_backend_config": [
+            {"id": "train", "dataset_type": "image", "type": "local", "instance_data_dir": data,
+             "resolution": RESOLUTION, "resolution_type": "pixel_area", "caption_strategy": "textfile",
+             "cache_dir_vae": os.path.join(work, "sdxl_cache", "vae")},
+            {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
+             "cache_dir": os.path.join(work, "sdxl_cache", "text")},
+        ],
+    }
+    for kernel in kernels:
+        kernel.launches = 0
+    trainer = Trainer(config=config, device="cuda")
+    run_start = time.time()
+    trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.time() - run_start
+    train_launches = {kernel.name: kernel.launches for kernel in kernels}
+    with open(os.path.join(out, "simpletuner-tpu-metrics.jsonl")) as handle:
+        metrics = [json.loads(line) for line in handle]
+    losses = [m["loss"] for m in metrics]
+    if [m["step"] for m in metrics] != list(range(1, SDXL_TRAIN_STEPS + 1)) or not all(np.isfinite(losses)) or \
+            not all(m["grad_norm"] > 0 for m in metrics) or not all(train_launches.values()):
+        raise RuntimeError(f"sdxl trainer: metrics {metrics}, launches {train_launches}")
+    if len(trainer._graphs) != 1 or trainer.model.arch != arch or trainer.vae.config != VAEConfig.sdxl():
+        raise RuntimeError(f"sdxl trainer: {len(trainer._graphs)} graphs, arch {trainer.model.arch}")
+    targets = {name.rsplit("/", 2)[-2] for name in trainer._state.trainable}
+    if targets != {"to_q", "to_k", "to_v", "to_out"}:
+        raise RuntimeError(f"sdxl trainer: adapters on {targets}")
+    captures = {c["step"] for c in trainer.capture_report}
+    step_s = {m["step"]: m["time"] - prev["time"] for prev, m in zip(metrics, metrics[1:]) if m["step"] not in captures}
+    median_s = float(np.median(list(step_s.values())))
+    graphed = next(iter(trainer._graphs.values()))
+    captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
+    profile = profile_step(lambda: graphed(trainer._state, graphed.batch, trainer._generator))
+    recorded = profile["bucket_launches"]
+    replayed = {kernel.name: recorded[kernel.name] for kernel in kernels}
+    # every attention's forward, its recompute under remat, and its backward
+    expected_launches = {"flash_fwd": 2 * per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
+    if replayed != {k: captured[k] for k in replayed} or replayed != expected_launches:
+        raise RuntimeError(f"sdxl trainer: the profiled replay launched {replayed}, the capture recorded "
+                           f"{captured}, expected {expected_launches}")
+    flops = sdxl_step_flops(arch, 1, latent, latent, SDXL_TXT)
+    stages = trainer.stage_report
+    phase("20 sdxl", config="UNetConfig.sdxl() (the JAX preset: attention at all three levels; the published SDXL "
+          "UNet has none at level 0)", params=params, channels=list(arch.block_out_channels),
+          transformer_depths=list(arch.transformer_layers), heads_of_64=[c // 64 for c in arch.block_out_channels],
+          tokens={"text": SDXL_TXT, "image_per_level": [s for _, s in SDXL_LEVELS]},
+          attention_per_forward=per_forward, files=files, imported=imported,
+          render={"init_s": init_s, "steps": STEPS, "guidance": SDXL_GUIDANCE, **renders},
+          parity={"rel_l2": parity, "bound": PARITY_REL_L2, "t": SDXL_PARITY_T, "forward_ms": forward_ms},
+          train={"base": "bf16", "remat": "every resnet and spatial transformer", "lora_rank": 16,
+                 "lora_targets": sorted(targets), "snr_gamma": SDXL_SNR_GAMMA,
+                 "lora_params": sum(p.numel() for p in trainer._state.trainable.values()),
+                 "losses": losses, "grad_norms": [m["grad_norm"] for m in metrics], "step_s": step_s,
+                 "s_per_step_median": median_s, "flops_per_step": flops,
+                 "mfu": flops / median_s / PEAK_BF16_FLOPS, "run_s": run_s,
+                 "time_to_first_step_s": metrics[0]["time"] - run_start,
+                 "capture_s": [c["seconds"] for c in trainer.capture_report],
+                 "stage_s": {k: v["seconds"] for k, v in stages.items()},
+                 "peak_gib": max(v["peak_gib"] for v in stages.values()),
+                 "stage_peak_gib": {k: v["peak_gib"] for k, v in stages.items()},
+                 "launches_run": train_launches, "launches_captured": captured, "launches_profiled_replay": replayed,
+                 "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "device_ms", "traced_event_ms",
+                                                     "idle_share_traced", "top_kernels")}},
+          allocated_gib_before_phase=baseline_gib, written_gb=_written_gb(), seconds=time.perf_counter() - start,
+          device=device)
+    del trainer, graphed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def int8_cases() -> None:
     """Phase 10: torch._int_mm exact at the Flux shapes, int8_dynamic_dot
     against its float64-contraction plain version, and times."""
@@ -2189,6 +2689,7 @@ def main() -> int:
         phase17 = trainer_phase(checkpoints, flagship_median, kernels, smi)
         server_phase(phase17, smi)
         sd3_phase(checkpoints, kernels, smi)
+        sdxl_phase(checkpoints, kernels, smi)
 
     sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
                "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}

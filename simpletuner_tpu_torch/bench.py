@@ -134,13 +134,16 @@ BUCKETS = (
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("int8_gemm", ("gemm_s8", "imma", "i8i8", "s8s8")),
+    # cuDNN convolutions (the UNet's): forward, data and weight gradients
+    ("conv", ("fprop", "dgrad", "wgrad", "convolve", "conv2d")),
     ("bf16_gemm", ("gemm", "nvjet", "cutlass", "xmma")),
 )
 
 
 def profile_step(step) -> Dict:
     """One call of ``step`` under ``torch.profiler``: device ms and launches
-    by kernel bucket (elementwise and copies in ``other``), the wall time and
+    by kernel bucket (elementwise and copies in ``other``), the twelve
+    kernels with the most device time (name, bucket, launches), the wall time and
     the CUDA-event time of the traced call, and the device's idle share of
     that event time (the profiler lengthens kernels a little, so the share
     against an unprofiled step of a graph replay can come out below 0)."""
@@ -158,6 +161,7 @@ def profile_step(step) -> Dict:
     wall_ms = (time.perf_counter() - start) * 1e3
     buckets = {name: [0.0, 0] for name, _ in BUCKETS}
     buckets["other"] = [0.0, 0]
+    kernels = []
     for event in prof.key_averages():
         if event.device_type != DeviceType.CUDA:
             continue
@@ -165,10 +169,12 @@ def profile_step(step) -> Dict:
         name = next((n for n, tags in BUCKETS if any(tag in key for tag in tags)), "other")
         buckets[name][0] += event.device_time_total / 1e3
         buckets[name][1] += event.count
+        kernels.append((event.device_time_total / 1e3, event.count, event.key[:120], name))
     device_ms = sum(ms for ms, _ in buckets.values())
+    top = [{"kernel": key, "bucket": name, "launches": n, "ms": ms} for ms, n, key, name in sorted(kernels, reverse=True)[:12]]
     return {"bucket_ms": {k: v[0] for k, v in buckets.items()}, "bucket_launches": {k: v[1] for k, v in buckets.items()},
             "device_ms": device_ms, "traced_wall_ms": wall_ms, "traced_event_ms": begin.elapsed_time(end),
-            "idle_share_traced": 1 - device_ms / begin.elapsed_time(end)}
+            "idle_share_traced": 1 - device_ms / begin.elapsed_time(end), "top_kernels": top}
 
 
 @dataclasses.dataclass

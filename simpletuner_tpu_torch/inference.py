@@ -16,9 +16,10 @@ caller asks for the CPU):
   ``init_ema_model``, ``resume_and_prepare``, then one forced validation pass
   (``run_validations(..., force=True)``) over ``train_state.render_view``, as
   the trainer's own validation renders: the prompt encoded by the text
-  encoders -> flow Euler loop over the family's DiT (Flux or SD3, the Hopper
-  flash kernel on the card; SD3 with true CFG when ``validation_guidance`` >
-  1) -> VAE decode -> PNG;
+  encoders -> the family's sampling loop (flow Euler over Flux's or SD3's
+  DiT, DDIM or UniPC over SDXL's UNet; the Hopper flash kernel on the card;
+  SD3 and SDXL with true CFG when ``validation_guidance`` > 1) -> VAE
+  decode -> PNG;
 * ``CheckpointInferenceRuntime``: the same stages without the data plane and
   the validation stages, so the text encoders stay attached and each
   ``render()`` encodes a fresh prompt.
@@ -31,8 +32,8 @@ dense products, as the JAX runtime renders ``TrainState.variables()``.  A
 full model (``model_type`` other than ``lora``) without a checkpoint renders
 the loaded base as it is: its train state would only add an optimizer state
 that a render never reads, and the port trains no full model (ROADMAP Queue 1
-item 7), so no full checkpoint exists to restore.  Families other than flux
-and sd3 are refused (``models/registry.py``).
+item 7), so no full checkpoint exists to restore.  Families other than flux,
+sd3 and sdxl are refused (``models/registry.py``).
 
     python -m simpletuner_tpu_torch.inference --config config.json --prompt "a cat" \
         [--checkpoint output/checkpoint-8] [--device cuda|cpu]

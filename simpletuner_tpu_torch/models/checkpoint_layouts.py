@@ -99,6 +99,92 @@ def sd3_checkpoint_shapes(arch) -> Dict[str, tuple]:
     return shapes
 
 
+def unet_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers-layout
+    ``UNet2DConditionModel`` of ``arch`` (``models/unet.py::UNetConfig``) as
+    ``unet_params_from_diffusers`` reads it: a spatial transformer wherever
+    ``cross_attention_blocks`` marks a level (the JAX sdxl preset marks all
+    three, where the published SDXL UNet has none at level 0), Linear
+    ``proj_in`` / ``proj_out``, the time and added-conditioning MLPs."""
+    shapes: Dict[str, tuple] = {}
+    c0, time_dim = arch.block_out_channels[0], arch.block_out_channels[0] * 4
+
+    def linear(name, out_features, in_features, bias=True):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        if bias:
+            shapes[f"{name}.bias"] = (out_features,)
+
+    def conv(name, out_channels, in_channels, kernel):
+        shapes[f"{name}.weight"] = (out_channels, in_channels, kernel, kernel)
+        shapes[f"{name}.bias"] = (out_channels,)
+
+    def norm(name, channels):
+        shapes[f"{name}.weight"] = (channels,)
+        shapes[f"{name}.bias"] = (channels,)
+
+    def resnet(src, in_channels, out_channels):
+        norm(f"{src}.norm1", in_channels)
+        conv(f"{src}.conv1", out_channels, in_channels, 3)
+        linear(f"{src}.time_emb_proj", out_channels, time_dim)
+        norm(f"{src}.norm2", out_channels)
+        conv(f"{src}.conv2", out_channels, out_channels, 3)
+        if in_channels != out_channels:
+            conv(f"{src}.conv_shortcut", out_channels, in_channels, 1)
+
+    def spatial(src, channels, depth):
+        norm(f"{src}.norm", channels)
+        linear(f"{src}.proj_in", channels, channels)
+        linear(f"{src}.proj_out", channels, channels)
+        for i in range(depth):
+            block = f"{src}.transformer_blocks.{i}"
+            for attn, context in (("attn1", channels), ("attn2", arch.cross_attention_dim)):
+                linear(f"{block}.{attn}.to_q", channels, channels, bias=False)
+                linear(f"{block}.{attn}.to_k", channels, context, bias=False)
+                linear(f"{block}.{attn}.to_v", channels, context, bias=False)
+                linear(f"{block}.{attn}.to_out.0", channels, channels)
+            for name in ("norm1", "norm2", "norm3"):
+                norm(f"{block}.{name}", channels)
+            linear(f"{block}.ff.net.0.proj", channels * 8, channels)
+            linear(f"{block}.ff.net.2", channels, channels * 4)
+
+    conv("conv_in", c0, arch.in_channels, 3)
+    linear("time_embedding.linear_1", time_dim, c0)
+    linear("time_embedding.linear_2", time_dim, time_dim)
+    if arch.addition_embed_dim:
+        linear("add_embedding.linear_1", time_dim, arch.addition_embed_dim)
+        linear("add_embedding.linear_2", time_dim, time_dim)
+    levels = len(arch.block_out_channels)
+    skips, channels = [c0], c0
+    for level, out_ch in enumerate(arch.block_out_channels):
+        for j in range(arch.layers_per_block):
+            resnet(f"down_blocks.{level}.resnets.{j}", channels, out_ch)
+            channels = out_ch
+            if arch.cross_attention_blocks[level]:
+                spatial(f"down_blocks.{level}.attentions.{j}", out_ch, arch.depth_at(level))
+            skips.append(channels)
+        if level < levels - 1:
+            conv(f"down_blocks.{level}.downsamplers.0.conv", out_ch, out_ch, 3)
+            skips.append(channels)
+    mid = arch.block_out_channels[-1]
+    resnet("mid_block.resnets.0", channels, mid)
+    spatial("mid_block.attentions.0", mid, arch.depth_at(levels - 1))
+    resnet("mid_block.resnets.1", mid, mid)
+    channels = mid
+    for u in range(levels):
+        level = levels - 1 - u
+        out_ch = arch.block_out_channels[level]
+        for j in range(arch.layers_per_block + 1):
+            resnet(f"up_blocks.{u}.resnets.{j}", channels + skips.pop(), out_ch)
+            channels = out_ch
+            if arch.cross_attention_blocks[level]:
+                spatial(f"up_blocks.{u}.attentions.{j}", out_ch, arch.depth_at(level))
+        if level > 0:
+            conv(f"up_blocks.{u}.upsamplers.0.conv", out_ch, out_ch, 3)
+    norm("conv_norm_out", channels)
+    conv("conv_out", arch.out_channels, channels, 3)
+    return shapes
+
+
 def clip_checkpoint_shapes(config, projection: bool = False) -> Dict[str, tuple]:
     """Tensor names and torch shapes of an HF ``CLIPTextModel`` of ``config``
     (``models/clip.py::CLIPTextConfig``); ``projection`` adds the

@@ -1,5 +1,5 @@
 """Model-family base class: the static contract, LoRA targeting and the
-flow-matching training path.
+flow-matching and DDPM training paths.
 
 Counterpart of ``simpletuner_tpu/models/common.py::ModelFoundation``.  Where
 the JAX methods take a Flax ``variables`` tree, the port takes the
@@ -10,12 +10,17 @@ Ported: the family contract (with ``TextEncoderSpec``,
 ``attach_text_encoders`` and the ``encode_text`` hook), ``denoise_fn``, the
 LoRA target predicate (``lora_target_modules`` /
 ``_build_lora_target_predicate``), the quantized
-base's settings (``base_precision``, ``quantized_matmul``), and the flow
-branch of ``prepare_batch`` (with the ``override_noise``/``override_sigmas``
-hooks), ``compute_loss`` and ``loss_fn``.  Refused with NotImplementedError:
-DDPM (epsilon / v-prediction) training, noise offset, input perturbation,
-diff2flow, ReflexFlow, text-encoder training, T-LoRA, scheduled sampling,
-prior preservation, REPA/CREPA and TwinFlow.
+base's settings (``base_precision``, ``quantized_matmul``), the schedules
+(``flow_schedule_config``, ``ddpm_schedule_config`` with the family's beta
+ladder, ``timestep_sampling_config`` with the refiner's window), and both
+branches of ``prepare_batch`` (flow sigmas, or DDPM timesteps with the
+epsilon / v / sample targets; the ``override_noise`` / ``override_sigmas`` /
+``override_timesteps`` hooks), ``compute_loss`` and ``loss_fn``.  The alpha-bar
+ladder and the timestep CDF are made once per device (``ddpm_tables``), so a
+captured step reads them and makes no table.  Refused with
+NotImplementedError: noise offset, input perturbation, diff2flow, ReflexFlow,
+text-encoder training, T-LoRA, scheduled sampling, prior preservation,
+REPA/CREPA and TwinFlow.
 """
 
 from __future__ import annotations
@@ -29,13 +34,20 @@ import torch
 from torch import nn
 
 from ..training.losses import (
+    DDPMScheduleConfig,
     FlowScheduleConfig,
     LossConfig,
+    TimestepSamplingConfig,
+    add_noise,
     diffusion_loss,
     flow_interpolate,
     flow_target,
+    make_alphas_cumprod,
     parse_flow_custom_timesteps,
     sample_flow_sigmas,
+    sample_timesteps,
+    timestep_weights,
+    velocity_target,
 )
 from ..training.quantization import resolve_precision, resolve_quantized_matmul
 
@@ -74,6 +86,11 @@ class ModelFoundation:
     )
     VAE_SCALING_FACTOR: float = 1.0
     VAE_SHIFT_FACTOR: float = 0.0
+    # the family's DDPM betas (the SD-arch hub scheduler configs: scaled_linear
+    # 0.00085 -> 0.012)
+    DDPM_BETA_START: float = 0.00085
+    DDPM_BETA_END: float = 0.012
+    DDPM_BETA_SCHEDULE: str = "scaled_linear"
 
     @classmethod
     def get_acceleration_presets(cls) -> List[Dict[str, Any]]:
@@ -112,6 +129,7 @@ class ModelFoundation:
         self.config = config
         self.flavour = getattr(config, "model_flavour", None) or self.DEFAULT_FLAVOUR
         self.text_encoders: List[Any] = []
+        self._ddpm_tables: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     @property
     def is_flow(self) -> bool:
@@ -247,6 +265,54 @@ class ModelFoundation:
             fast_schedule=fast,
         )
 
+    def ddpm_schedule_config(self) -> DDPMScheduleConfig:
+        return DDPMScheduleConfig(
+            beta_start=self.DDPM_BETA_START,
+            beta_end=self.DDPM_BETA_END,
+            beta_schedule=self.DDPM_BETA_SCHEDULE,
+            rescale_betas_zero_snr=bool(getattr(self.config, "rescale_betas_zero_snr", False)),
+        )
+
+    def timestep_sampling_config(self) -> TimestepSamplingConfig:
+        c = self.config
+        range_begin, range_end = 0, 0
+        if getattr(c, "refiner_training", False) and not getattr(c, "sdxl_refiner_uses_full_range", False):
+            # the refiner's window: the low-noise segment [0, strength T), or
+            # inverted, the high-noise segment [strength T, T)
+            steps = 1000
+            strength = float(getattr(c, "refiner_training_strength", 0.2) or 0.2)
+            if not 0.0 < strength < 1.0:
+                raise ValueError("refiner_training_strength must be in (0, 1)")
+            if getattr(c, "refiner_training_invert_schedule", False):
+                range_begin, range_end = int(strength * steps), steps
+            else:
+                range_begin, range_end = 0, int(strength * steps)
+        return TimestepSamplingConfig(
+            range_begin=range_begin,
+            range_end=range_end,
+            bias_strategy=getattr(c, "timestep_bias_strategy", "none") or "none",
+            bias_multiplier=getattr(c, "timestep_bias_multiplier", 1.0) or 1.0,
+            bias_begin=getattr(c, "timestep_bias_begin", 0) or 0,
+            bias_end=getattr(c, "timestep_bias_end", 1000) or 1000,
+            bias_portion=getattr(c, "timestep_bias_portion", 0.25) or 0.25,
+        )
+
+    @property
+    def alphas_cumprod(self) -> torch.Tensor:
+        """The family's f32 alpha-bar ladder, on the CPU."""
+        return self.ddpm_tables(torch.device("cpu"))[0]
+
+    def ddpm_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(alpha-bar ladder, cumulative timestep weights) on ``device``, made
+        there the first time (an eager or warm-up step), read afterwards."""
+        device = torch.device(device)
+        if device not in self._ddpm_tables:
+            self._ddpm_tables[device] = (
+                make_alphas_cumprod(self.ddpm_schedule_config(), device=device),
+                torch.cumsum(timestep_weights(self.timestep_sampling_config(), device=device), dim=0),
+            )
+        return self._ddpm_tables[device]
+
     def loss_config(self) -> LossConfig:
         c = self.config
         return LossConfig(
@@ -262,8 +328,11 @@ class ModelFoundation:
 
     def check_training_config(self) -> None:
         """Refuse the training features of the JAX ``loss_fn`` that are not ported."""
-        if not self.is_flow:
-            raise NotImplementedError(f"prediction_type={self.prediction_type!r}: only flow matching is ported")
+        if self.prediction_type not in ("flow_matching", "epsilon", "v_prediction", "sample"):
+            raise ValueError(f"unknown prediction_type {self.prediction_type!r}")
+        if not self.is_flow and getattr(self.config, "diff2flow_enabled", False) and \
+                getattr(self.config, "diff2flow_loss", False):
+            raise NotImplementedError("diff2flow is not ported (ROADMAP Queue 1 item 7)")
         for key in _UNPORTED_TRAINING:
             if getattr(self.config, key, None):
                 raise NotImplementedError(f"{key} is not ported")
@@ -272,43 +341,63 @@ class ModelFoundation:
 
     # ---- training path ---------------------------------------------------------------------
     def prepare_batch(self, generator: torch.Generator, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Noise, sigmas and the noisy model input (the flow branch).
+        """Noise, sigmas or timesteps, and the noisy model input.
 
         ``batch`` holds ``latents`` (B, H, W, C) plus the family's conditioning;
-        the result adds ``noisy_latents``, ``noise``, ``sigmas``/``timesteps`` and
-        ``target``.  A batch may carry its own ``override_noise`` and
-        ``override_sigmas``."""
+        the result adds ``noisy_latents``, ``noise``, ``timesteps`` (flow: the
+        sigmas, also under ``sigmas``; DDPM: int32 timesteps) and ``target``.
+        A batch may carry its own ``override_noise`` and ``override_sigmas`` /
+        ``override_timesteps``.  The noise is drawn first, then the sigmas or
+        timesteps, from ``generator``."""
         self.check_training_config()
         latents = batch["latents"]
         prepared = dict(batch)
         override_noise = prepared.pop("override_noise", None)
         override_sigmas = prepared.pop("override_sigmas", None)
-        prepared.pop("override_timesteps", None)
+        override_timesteps = prepared.pop("override_timesteps", None)
         noise = torch.randn(latents.shape, generator=generator, device=latents.device, dtype=torch.float32)
         if override_noise is not None:
             noise = override_noise.float()
-        seq_len = (latents.shape[1] // 2) * (latents.shape[2] // 2) if latents.dim() == 4 else None
-        if override_sigmas is not None:
-            sigmas = override_sigmas.float()
+        batch_size = latents.shape[0]
+        if self.is_flow:
+            seq_len = (latents.shape[1] // 2) * (latents.shape[2] // 2) if latents.dim() == 4 else None
+            if override_sigmas is not None:
+                sigmas = override_sigmas.float()
+            else:
+                sigmas = sample_flow_sigmas(
+                    generator, batch_size, self.flow_schedule_config(), seq_len,
+                    global_step=batch.get("global_step"), device=latents.device,
+                )
+            prepared["sigmas"] = sigmas
+            prepared["timesteps"] = sigmas  # flow models take sigma in (0, 1) as the timestep
+            prepared["noisy_latents"] = flow_interpolate(latents.float(), noise, sigmas)
+            prepared["target"] = flow_target(latents.float(), noise)
         else:
-            sigmas = sample_flow_sigmas(
-                generator, latents.shape[0], self.flow_schedule_config(), seq_len,
-                global_step=batch.get("global_step"), device=latents.device,
-            )
-        prepared["sigmas"] = sigmas
-        prepared["timesteps"] = sigmas  # flow models take sigma in (0, 1) as the timestep
-        prepared["noisy_latents"] = flow_interpolate(latents.float(), noise, sigmas)
-        prepared["target"] = flow_target(latents.float(), noise)
+            alphas_cumprod, cdf = self.ddpm_tables(latents.device)
+            if override_timesteps is not None:
+                timesteps = override_timesteps.to(torch.int32)
+            else:
+                timesteps = sample_timesteps(generator, batch_size, self.timestep_sampling_config(),
+                                             device=latents.device, cdf=cdf).to(torch.int32)
+            prepared["timesteps"] = timesteps
+            prepared["noisy_latents"] = add_noise(latents.float(), noise, timesteps, alphas_cumprod)
+            if self.prediction_type == "v_prediction":
+                prepared["target"] = velocity_target(latents.float(), noise, timesteps, alphas_cumprod)
+            elif self.prediction_type == "sample":
+                prepared["target"] = latents.float()
+            else:
+                prepared["target"] = noise
         prepared["noise"] = noise
         return prepared
 
     def compute_loss(self, model_pred: torch.Tensor, prepared: Dict[str, torch.Tensor]) -> torch.Tensor:
+        flow = self.is_flow
         return diffusion_loss(
             model_pred,
             prepared["target"],
             self.loss_config(),
-            timesteps=None,
-            alphas_cumprod=None,
+            timesteps=None if flow else prepared["timesteps"],
+            alphas_cumprod=None if flow else self.ddpm_tables(model_pred.device)[0],
             sigmas=prepared.get("sigmas"),
             mask=prepared.get("loss_mask"),
             loss_weight=prepared.get("loss_weight"),

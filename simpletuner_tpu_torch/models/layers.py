@@ -383,7 +383,7 @@ def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = No
             lecun_normal_(sub.weight, sub.weight[0].numel(), generator)
             if sub.bias is not None:
                 sub.bias.zero_()
-        elif isinstance(sub, nn.GroupNorm):
+        elif isinstance(sub, (nn.GroupNorm, nn.LayerNorm)):
             sub.weight.fill_(1.0)
             sub.bias.zero_()
     return module

@@ -4,8 +4,8 @@ Counterpart of ``simpletuner_tpu/models/registry.py``: ``ModelRegistry``
 (``families``, ``metadata``, ``get``, ``create``) over a copy of the JAX
 registry's family table and aliases, and ``get_model_family``, which builds
 the family a config names.  Every family of the JAX registry is listed with
-its metadata; ``flux`` and ``sd3`` are ported, so ``get`` of any other family
-raises naming ROADMAP Queue 1 item 6, and an unknown name raises ``KeyError``
+its metadata; ``flux``, ``sd3`` and ``sdxl`` are ported, so ``get`` of any
+other family raises naming ROADMAP Queue 1 item 6, and an unknown name raises ``KeyError``
 as in the JAX registry.
 """
 
@@ -85,7 +85,12 @@ class ModelRegistry:
             from .sd3 import SD3
 
             return SD3
-        raise NotImplementedError(f"model_family={name!r} is not ported (only flux and sd3; ROADMAP Queue 1 item 6)")
+        if family == "sdxl":
+            from .sdxl import SDXL
+
+            return SDXL
+        raise NotImplementedError(
+            f"model_family={name!r} is not ported (only flux, sd3 and sdxl; ROADMAP Queue 1 item 6)")
 
     @staticmethod
     def create(name: str, config: Any):

@@ -11,7 +11,10 @@ checkpoint layouts are read:
 * **diffusers** model dirs (``transformer/*.safetensors``,
   ``transformer_blocks.*``, split ``attn.to_q``).
 
-SD3 / SD3.5 read the diffusers ``SD3Transformer2DModel`` layout.
+SD3 / SD3.5 read the diffusers ``SD3Transformer2DModel`` layout, and SDXL the
+diffusers ``UNet2DConditionModel`` layout (``unet/``), level for level as the
+JAX preset builds it: attention wherever ``cross_attention_blocks`` marks a
+level, so ``down_blocks.0.attentions.*`` too (ROADMAP Queue 3).
 
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
 keeps f32 and bf16 leaves in the file's dtype (``_float``), takes fp8 (e4m3)
@@ -25,8 +28,8 @@ tensors; the bridge transposes them back.
 The safetensors reader and writer are the port's own (stdlib, numpy and
 torch): an 8-byte little-endian header length, a JSON header, raw
 little-endian bytes.  Files are memory-mapped copy-on-write, so a tensor is
-read from disk when it is first used.  Only the ``flux`` and ``sd3``
-families import; every other family raises.
+read from disk when it is first used.  Only the ``flux``, ``sd3`` and
+``sdxl`` families import; every other family raises.
 """
 
 from __future__ import annotations
@@ -540,10 +543,119 @@ def load_sd3_params(model, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# UNet (diffusers UNet2DConditionModel: SDXL, and SD 1.x / 2.x on the same arch)
+# ---------------------------------------------------------------------------------
+
+
+def _maybe_conv1x1_as_linear(w: Mapping[str, torch.Tensor], key: str) -> Dict[str, torch.Tensor]:
+    """SD 1.x spatial-transformer proj_in/out are 1x1 convs; SDXL's are Linear."""
+    weight = _float(w[f"{key}.weight"])
+    if weight.dim() == 4:
+        weight = weight[:, :, 0, 0]
+    out = {"kernel": weight.t()}
+    if f"{key}.bias" in w:
+        out["bias"] = _float(w[f"{key}.bias"])
+    return out
+
+
+def _unet_resnet(w: Mapping[str, torch.Tensor], src: str) -> Dict[str, Any]:
+    block = {
+        "GroupNorm_0": _norm(w, f"{src}.norm1"),
+        "conv1": _conv(w, f"{src}.conv1"),
+        "time_emb_proj": _linear(w, f"{src}.time_emb_proj"),
+        "GroupNorm_1": _norm(w, f"{src}.norm2"),
+        "conv2": _conv(w, f"{src}.conv2"),
+    }
+    if f"{src}.conv_shortcut.weight" in w:
+        block["conv_shortcut"] = _conv(w, f"{src}.conv_shortcut")
+    return block
+
+
+def _unet_tblock(w: Mapping[str, torch.Tensor], src: str) -> Dict[str, Any]:
+    def attn(name: str) -> Dict[str, Any]:
+        return {proj: _linear(w, f"{src}.{name}.{theirs}")
+                for proj, theirs in (("to_q", "to_q"), ("to_k", "to_k"), ("to_v", "to_v"), ("to_out", "to_out.0"))}
+
+    return {
+        "norm1": _norm(w, f"{src}.norm1"),
+        "attn1": attn("attn1"),
+        "norm2": _norm(w, f"{src}.norm2"),
+        "attn2": attn("attn2"),
+        "norm3": _norm(w, f"{src}.norm3"),
+        "ff_proj": _linear(w, f"{src}.ff.net.0.proj"),
+        "ff_out": _linear(w, f"{src}.ff.net.2"),
+    }
+
+
+def _unet_spatial(w: Mapping[str, torch.Tensor], src: str, depth: int) -> Dict[str, Any]:
+    block: Dict[str, Any] = {
+        "GroupNorm_0": _norm(w, f"{src}.norm"),
+        "proj_in": _maybe_conv1x1_as_linear(w, f"{src}.proj_in"),
+        "proj_out": _maybe_conv1x1_as_linear(w, f"{src}.proj_out"),
+    }
+    for i in range(depth):
+        block[f"blocks_{i}"] = _unet_tblock(w, f"{src}.transformer_blocks.{i}")
+    return block
+
+
+def unet_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a diffusers UNet of ``arch`` (``UNetConfig``):
+    diffusers up block ``u`` is level ``levels - 1 - u``."""
+    w = weights
+    levels = len(arch.block_out_channels)
+    lpb = arch.layers_per_block
+    params: Dict[str, Any] = {
+        "conv_in": _conv(w, "conv_in"),
+        "time_embed_0": _linear(w, "time_embedding.linear_1"),
+        "time_embed_2": _linear(w, "time_embedding.linear_2"),
+        "conv_norm_out": _norm(w, "conv_norm_out"),
+        "conv_out": _conv(w, "conv_out"),
+        "mid_res_0": _unet_resnet(w, "mid_block.resnets.0"),
+        "mid_res_1": _unet_resnet(w, "mid_block.resnets.1"),
+        "mid_attn": _unet_spatial(w, "mid_block.attentions.0", arch.depth_at(levels - 1)),
+    }
+    if "add_embedding.linear_1.weight" in w:
+        params["add_embed_0"] = _linear(w, "add_embedding.linear_1")
+        params["add_embed_2"] = _linear(w, "add_embedding.linear_2")
+    if "class_embedding.linear_1.weight" in w:
+        # class_embed_type="timestep": the module refuses it (ROADMAP Queue 1 item 6)
+        params["class_embed_0"] = _linear(w, "class_embedding.linear_1")
+        params["class_embed_2"] = _linear(w, "class_embedding.linear_2")
+    for level in range(levels):
+        has_attn = arch.cross_attention_blocks[level]
+        for block in range(lpb):
+            params[f"down_{level}_res_{block}"] = _unet_resnet(w, f"down_blocks.{level}.resnets.{block}")
+            if has_attn:
+                params[f"down_{level}_attn_{block}"] = _unet_spatial(
+                    w, f"down_blocks.{level}.attentions.{block}", arch.depth_at(level))
+        if level < levels - 1:
+            params[f"down_{level}_downsample"] = {"conv": _conv(w, f"down_blocks.{level}.downsamplers.0.conv")}
+    for u in range(levels):
+        level = levels - 1 - u
+        has_attn = arch.cross_attention_blocks[level]
+        for block in range(lpb + 1):
+            params[f"up_{level}_res_{block}"] = _unet_resnet(w, f"up_blocks.{u}.resnets.{block}")
+            if has_attn:
+                params[f"up_{level}_attn_{block}"] = _unet_spatial(
+                    w, f"up_blocks.{u}.attentions.{block}", arch.depth_at(level))
+        if level > 0:
+            params[f"up_{level}_upsample"] = {"conv": _conv(w, f"up_blocks.{u}.upsamplers.0.conv")}
+    return params
+
+
+def load_unet_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a diffusers UNet (a model dir with a
+    ``unet/`` subfolder, or one file)."""
+    params = unet_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported unet weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
-_IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params}
+_IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_unet_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:
@@ -555,7 +667,7 @@ def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:
     importer = _IMPORTERS.get(model.NAME)
     if importer is None:
         raise NotImplementedError(
-            f"no weight importer for family {model.NAME!r} in the port (only flux and sd3; the other "
+            f"no weight importer for family {model.NAME!r} in the port (only flux, sd3 and sdxl; the other "
             "families are ROADMAP Queue 1 item 6)"
         )
     return load_flax_params(module, importer(model, path), keep_adapters=True)

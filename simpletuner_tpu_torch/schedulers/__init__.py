@@ -5,4 +5,6 @@ from .flow_euler import (
     time_shift,
     time_shift_exp,
 )
+from .ddim import DDIMScheduler
 from .sampling import classifier_free_guidance, sample_loop
+from .unipc import UniPCScheduler

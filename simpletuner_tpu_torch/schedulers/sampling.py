@@ -2,8 +2,10 @@
 
 Counterpart of ``simpletuner_tpu/schedulers/sampling.py``.  The JAX loop is a
 ``lax.scan`` inside one jitted program; PyTorch runs eagerly, so here it is a
-Python loop over the scheduler's steps.  Only text-to-image sampling with a
-stateless scheduler is ported (no img2img strength, no partial ladders).
+Python loop over the scheduler's steps, with the scheduler's state (UniPC's
+previous x0) carried beside the latents when it has one.  Only
+text-to-image sampling is ported (no img2img strength, no partial ladders:
+ROADMAP Queue 1 item 4d).
 """
 
 from __future__ import annotations
@@ -38,10 +40,14 @@ def sample_loop(
     """Run the full denoise ladder from ``noise``.
 
     ``denoise_fn(latents, timestep) -> model_pred`` closes over the weights
-    and conditioning (and CFG if wanted)."""
-    if hasattr(scheduler, "step_with_state"):
-        raise NotImplementedError("stateful schedulers are not ported")
+    and conditioning (and CFG if wanted).  Schedulers with state expose
+    ``init_state`` / ``step_with_state``."""
     latents = scheduler.init_latents(noise)
+    if hasattr(scheduler, "step_with_state"):
+        state = scheduler.init_state(noise)
+        for i in range(scheduler.num_steps):
+            latents, state = scheduler.step_with_state(i, latents, denoise_fn(latents, scheduler.timestep(i)), state)
+        return latents
     for i in range(scheduler.num_steps):
         latents = scheduler.step(i, latents, denoise_fn(latents, scheduler.timestep(i)))
     return latents

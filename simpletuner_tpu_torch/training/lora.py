@@ -1,7 +1,8 @@
 """LoRA key maps and adapter files in the PEFT (diffusers) and ComfyUI layouts.
 
 The torch port's copy of the part of ``simpletuner_tpu/training/lora.py`` it
-uses: ``flux_key_map`` (lora.py:76), ``sd3_key_map`` (lora.py:158) and
+uses: ``flux_key_map`` (lora.py:76), ``unet_key_map`` (lora.py:116),
+``sd3_key_map`` (lora.py:158) and
 ``_key_map_for`` (lora.py:680), which resolve the LoRA target presets and
 name the adapters of an export (the maps leave ``patch_in`` and
 ``context_in`` under their own names, as the JAX export does),
@@ -66,6 +67,33 @@ def flux_key_map(arch) -> Dict[str, Any]:
     return mapping
 
 
+def unet_key_map(arch) -> Dict[str, Any]:
+    """diffusers ``UNet2DConditionModel`` paths (sdxl; sd1x/sd2x/kolors share them)."""
+    mapping: Dict[str, Any] = {}
+    levels = len(arch.block_out_channels)
+
+    def spatial(ours: str, theirs: str, depth: int) -> None:
+        for i in range(depth):
+            for attn in ("attn1", "attn2"):
+                for proj, tproj in (("to_q", "to_q"), ("to_k", "to_k"), ("to_v", "to_v"), ("to_out", "to_out.0")):
+                    mapping[f"{ours}/blocks_{i}/{attn}/{proj}"] = f"{theirs}.transformer_blocks.{i}.{attn}.{tproj}"
+            mapping[f"{ours}/blocks_{i}/ff_proj"] = f"{theirs}.transformer_blocks.{i}.ff.net.0.proj"
+            mapping[f"{ours}/blocks_{i}/ff_out"] = f"{theirs}.transformer_blocks.{i}.ff.net.2"
+        mapping[f"{ours}/proj_in"] = f"{theirs}.proj_in"
+        mapping[f"{ours}/proj_out"] = f"{theirs}.proj_out"
+
+    for level in range(levels):
+        if not arch.cross_attention_blocks[level]:
+            continue
+        for block in range(arch.layers_per_block):
+            spatial(f"down_{level}_attn_{block}", f"down_blocks.{level}.attentions.{block}", arch.depth_at(level))
+        u = levels - 1 - level  # diffusers up index
+        for block in range(arch.layers_per_block + 1):
+            spatial(f"up_{level}_attn_{block}", f"up_blocks.{u}.attentions.{block}", arch.depth_at(level))
+    spatial("mid_attn", "mid_block.attentions.0", arch.depth_at(levels - 1))
+    return mapping
+
+
 def sd3_key_map(arch) -> Dict[str, Any]:
     mapping: Dict[str, Any] = {}
     table = {
@@ -92,6 +120,7 @@ def sd3_key_map(arch) -> Dict[str, Any]:
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
     "sd3": lambda m: sd3_key_map(m.arch),
+    "sdxl": lambda m: unet_key_map(m.arch),
 }
 
 

@@ -1,11 +1,16 @@
-"""Flow-matching loss math: sigma sampling, schedule shifts, interpolation, loss.
+"""Diffusion loss math: flow-matching sigmas and DDPM schedules, targets, loss.
 
-PyTorch counterpart of the flow-matching half of
-``simpletuner_tpu/training/losses.py``.  Random draws come from an explicit
-``torch.Generator``; they are not JAX's numbers, so parity is held on their
-distribution or through the ``override_noise``/``override_sigmas`` batch
-hooks.  The DDPM (epsilon / v-prediction) schedules and SNR weighting are not
-ported: the flow families take none of them.
+PyTorch counterpart of ``simpletuner_tpu/training/losses.py``: the flow half
+(sigma sampling, schedule shifts, interpolation) and the DDPM half (the beta
+ladders with the zero-SNR rescale, ``add_noise``, the v target, SNR and
+soft-min SNR, the biased and windowed timestep weights and their draw), and
+``diffusion_loss`` with its SNR, soft-min-SNR and Huber schedules.  Random
+draws come from an explicit ``torch.Generator``; they are not JAX's numbers,
+so parity is held on their distribution (the timestep weights themselves
+against the JAX function) or through the ``override_noise`` /
+``override_sigmas`` / ``override_timesteps`` batch hooks.  Every draw stays
+on the device with no host sync, so a step captured as a CUDA graph draws
+anew at each replay.
 """
 
 from __future__ import annotations
@@ -149,6 +154,128 @@ def flow_target(latents: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     return noise - latents
 
 
+# ---------------------------------------------------------------------------------
+# DDPM-style (epsilon / v-prediction) schedules
+# ---------------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DDPMScheduleConfig:
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    beta_schedule: str = "scaled_linear"  # linear | scaled_linear | squaredcos_cap_v2
+    rescale_betas_zero_snr: bool = False
+
+
+def make_alphas_cumprod(config: DDPMScheduleConfig, device=None) -> torch.Tensor:
+    """The (num_train_timesteps,) f32 alpha-bar ladder, computed in f32 as
+    the JAX function computes it."""
+    steps = config.num_train_timesteps
+    f32 = dict(dtype=torch.float32, device=device)
+    if config.beta_schedule == "linear":
+        betas = torch.linspace(config.beta_start, config.beta_end, steps, **f32)
+    elif config.beta_schedule == "scaled_linear":
+        betas = torch.linspace(config.beta_start ** 0.5, config.beta_end ** 0.5, steps, **f32) ** 2
+    elif config.beta_schedule == "squaredcos_cap_v2":
+        t = torch.arange(steps + 1, **f32) / steps
+        f = torch.cos((t + 0.008) / 1.008 * math.pi / 2) ** 2
+        betas = torch.clamp(1.0 - f[1:] / f[:-1], 0.0, 0.999)
+    else:
+        raise ValueError(f"unknown beta schedule {config.beta_schedule}")
+    alphas_cumprod = torch.cumprod(1.0 - betas, dim=0)
+    if config.rescale_betas_zero_snr:
+        # shift sqrt(alpha-bar) so the final step has zero SNR (Lin et al. 2023)
+        sqrt_ac = torch.sqrt(alphas_cumprod)
+        sqrt_ac = (sqrt_ac - sqrt_ac[-1]) * (sqrt_ac[0] / (sqrt_ac[0] - sqrt_ac[-1]))
+        alphas_cumprod = sqrt_ac ** 2
+    return alphas_cumprod
+
+
+def _alpha_bar(timesteps: torch.Tensor, alphas_cumprod: torch.Tensor, ndim: int) -> torch.Tensor:
+    return alphas_cumprod[timesteps.long()].reshape(timesteps.shape[0], *([1] * (ndim - 1)))
+
+
+def add_noise(latents: torch.Tensor, noise: torch.Tensor, timesteps: torch.Tensor,
+              alphas_cumprod: torch.Tensor) -> torch.Tensor:
+    """x_t = sqrt(alpha-bar_t) x0 + sqrt(1 - alpha-bar_t) eps."""
+    ac = _alpha_bar(timesteps, alphas_cumprod, latents.dim())
+    return torch.sqrt(ac) * latents + torch.sqrt(1.0 - ac) * noise
+
+
+def velocity_target(latents: torch.Tensor, noise: torch.Tensor, timesteps: torch.Tensor,
+                    alphas_cumprod: torch.Tensor) -> torch.Tensor:
+    """v = sqrt(alpha-bar_t) eps - sqrt(1 - alpha-bar_t) x0."""
+    ac = _alpha_bar(timesteps, alphas_cumprod, latents.dim())
+    return torch.sqrt(ac) * noise - torch.sqrt(1.0 - ac) * latents
+
+
+def compute_snr(timesteps: torch.Tensor, alphas_cumprod: torch.Tensor) -> torch.Tensor:
+    ac = alphas_cumprod[timesteps.long()]
+    return ac / torch.clamp(1.0 - ac, min=1e-12)
+
+
+def compute_soft_min_snr(timesteps: torch.Tensor, alphas_cumprod: torch.Tensor,
+                         sigma_data: float = 1.0) -> torch.Tensor:
+    """Soft-min SNR: (sigma sigma_d)^2 / (sigma^2 + sigma_d^2)^2 with sigma = sqrt(1 - alpha-bar_t)."""
+    ac = alphas_cumprod[timesteps.long()]
+    sigma_sq = torch.clamp(1.0 - ac, min=1e-12)
+    sd_sq = float(sigma_data) ** 2
+    return (sigma_sq * sd_sq) / torch.square(sigma_sq + sd_sq)
+
+
+@dataclasses.dataclass(frozen=True)
+class TimestepSamplingConfig:
+    num_train_timesteps: int = 1000
+    bias_strategy: str = "none"  # none | earlier | later | range
+    bias_multiplier: float = 1.0
+    bias_begin: int = 0
+    bias_end: int = 1000
+    bias_portion: float = 0.25
+    # hard window: timesteps outside [range_begin, range_end) are never drawn
+    # (the refiner's low-noise segment, or the inverted high-noise one)
+    range_begin: int = 0
+    range_end: int = 0  # 0 = no restriction
+
+
+def timestep_weights(config: TimestepSamplingConfig, device=None) -> torch.Tensor:
+    """Per-timestep sampling weights (f32, summing to 1): the hard window,
+    then the bias strategy's multiplier on its span."""
+    steps = config.num_train_timesteps
+    idx = torch.arange(steps, device=device)
+    weights = torch.ones((steps,), dtype=torch.float32, device=device)
+    if config.range_end > config.range_begin:
+        weights = torch.where((idx >= config.range_begin) & (idx < config.range_end), weights, 0.0)
+    if config.bias_strategy == "none" or config.bias_multiplier == 1.0:
+        return weights / weights.sum()
+    num_biased = int(config.bias_portion * steps)
+    if config.bias_strategy == "earlier":
+        mask = idx < num_biased
+    elif config.bias_strategy == "later":
+        mask = idx >= steps - num_biased
+    elif config.bias_strategy == "range":
+        mask = (idx >= config.bias_begin) & (idx < config.bias_end)
+    else:
+        raise ValueError(f"unknown bias strategy {config.bias_strategy}")
+    weights = torch.where(mask, weights * config.bias_multiplier, weights)
+    return weights / weights.sum()
+
+
+def sample_timesteps(generator: torch.Generator, batch_size: int, config: TimestepSamplingConfig,
+                     device=None, cdf: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(batch_size,) int64 timesteps drawn from ``timestep_weights``: the
+    inverse CDF at a uniform draw, as ``jax.random.choice`` draws with ``p``
+    (cumulative weights, ``searchsorted`` of total x (1 - u)).  ``cdf`` (the
+    cumulative weights, on ``device``) may be given so a captured step makes
+    no table; everything stays on the device."""
+    device = torch.device(device) if device is not None else generator.device
+    if cdf is None:
+        cdf = torch.cumsum(timestep_weights(config, device=device), dim=0)
+    u = torch.rand((batch_size,), generator=generator, device=device)
+    index = torch.searchsorted(cdf, cdf[-1] * (1.0 - u))
+    return torch.clamp(index, max=config.num_train_timesteps - 1)
+
+
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
     loss_type: str = "l2"  # l2 | huber | smooth_l1
@@ -196,12 +323,13 @@ def diffusion_loss(
     num_train_timesteps: int = 1000,
     elementwise_weight: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Scalar training loss with an optional pixel mask and per-sample weight.
+    """Scalar training loss with SNR weighting and an optional pixel mask.
 
     ``mask``: broadcastable to pred (1 = keep); ``loss_weight``: per-sample
     weight; ``elementwise_weight``: per-element multiplier before reduction.
-    SNR weighting applies only to epsilon/v-prediction with DDPM timesteps,
-    which are not ported: it raises when it would apply."""
+    ``snr_gamma`` (min-SNR, or the soft-min curve under ``use_soft_min_snr``)
+    weights epsilon / v-prediction losses, ``soft_min_snr_gamma`` any loss
+    given DDPM timesteps."""
     del sigmas  # the flow loss does not weight by sigma
     batch = model_pred.shape[0]
     huber_c = _huber_c_for(config, timesteps, num_train_timesteps, model_pred.device)
@@ -217,10 +345,22 @@ def diffusion_loss(
         per_example = loss.reshape(batch, -1).sum(dim=-1) / torch.clamp(denom, min=1.0)
     else:
         per_example = loss.reshape(batch, -1).mean(dim=-1)
-    snr_weighted = config.snr_gamma is not None and config.prediction_type in ("epsilon", "v_prediction")
-    soft_min = config.soft_min_snr_gamma is not None and timesteps is not None and alphas_cumprod is not None
-    if snr_weighted or soft_min:
-        raise NotImplementedError("SNR loss weighting (DDPM schedules) is not ported")
+    if config.snr_gamma is not None and config.prediction_type in ("epsilon", "v_prediction"):
+        if timesteps is None or alphas_cumprod is None:
+            raise ValueError("snr weighting requires timesteps and alphas_cumprod")
+        if config.use_soft_min_snr:
+            snr = compute_soft_min_snr(timesteps, alphas_cumprod, config.soft_min_snr_sigma_data)
+        else:
+            snr = compute_snr(timesteps, alphas_cumprod)
+        if config.prediction_type == "v_prediction":
+            snr_weight = torch.clamp(snr, max=config.snr_gamma) / torch.clamp(snr + 1.0, min=1e-8)
+        else:
+            snr_weight = torch.clamp(snr, max=config.snr_gamma) / torch.clamp(snr, min=1e-8)
+        per_example = per_example * snr_weight
+    elif config.soft_min_snr_gamma is not None and timesteps is not None and alphas_cumprod is not None:
+        snr = compute_snr(timesteps, alphas_cumprod)
+        gamma = config.soft_min_snr_gamma
+        per_example = per_example * (gamma / (snr + gamma))
     if loss_weight is not None:
         per_example = per_example * loss_weight.float()
     return per_example.mean()

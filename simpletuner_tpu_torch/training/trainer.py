@@ -38,11 +38,14 @@ Where the JAX stage draws random weights from ``jax.random`` keys, the port
 draws from ``torch.Generator``s: the base from ``seed``, the VAE and the tiny
 text encoders from 0.  Half-precision text encoders are bf16 in the port
 (``fp16`` included), since the port's encoders compute in their weights'
-dtype and T5 overflows fp16.  The families are ``flux`` and ``sd3``; the
-batch reaches the step with every numeric array the family's collate gives
-(Flux's ``t5_embeds``/``t5_masks``, SD3's ``text_embeds``), and
-``pooled_embeds`` for both.  Refused, each naming its ROADMAP item:
-families other than flux and sd3, full fine-tunes and ControlNet, distillation and
+dtype and T5 overflows fp16.  The families are ``flux``, ``sd3`` and
+``sdxl`` (the 4-channel ``VAEConfig.sdxl()`` VAE, its two CLIP encoders and
+the DDPM epsilon / v path); the batch reaches the step with every numeric
+array the family's collate gives (Flux's ``t5_embeds``/``t5_masks``, SD3's
+and SDXL's ``text_embeds``, SDXL's size conditioning ``original_sizes``,
+``crop_coordinates`` and ``target_sizes``), and ``pooled_embeds`` for all
+three.  Refused, each naming its ROADMAP item:
+families other than flux, sd3 and sdxl, full fine-tunes and ControlNet, distillation and
 ODE pairs, CREPA / U-REPA, text-encoder training, slider and assistant
 adapters, a mesh of more than one device and multi-process runs.
 """

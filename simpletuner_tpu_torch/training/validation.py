@@ -1,6 +1,9 @@
-"""Validation renders: prompt embeds -> flow Euler sampling -> VAE decode -> PNG.
+"""Validation renders: prompt embeds -> sampling loop -> VAE decode -> PNG.
 
-Counterpart of ``simpletuner_tpu/training/validation.py``: ``build_scheduler``,
+Counterpart of ``simpletuner_tpu/training/validation.py``: ``build_scheduler``
+(flow Euler for the flow families; for the DDPM families the family's beta
+ladder with ``rescale_betas_zero_snr``, DDIM by default and UniPC when
+``validation_noise_scheduler`` asks for it),
 resolution and seed handling, the prompt list (``validation_prompt``, a user
 prompt library or the built-in one), ``precompute_embeds``, the trainer's
 schedule (``would_validate``), ``run_validations`` -> ``_run_one_pass``
@@ -20,12 +23,14 @@ index.  ``run_validations`` takes the module to render; the trainer hands it
 ``train_state.render_view`` (the counterpart of ``TrainState.variables``).
 Refused, naming ROADMAP Queue 1 item 4d: img2img (``validation_using_datasets``),
 validation adapters, external-script validation, previews, batched
-(``validation_parallel``) and staged renders and skip-layer guidance.  PNGs are written with
+(``validation_parallel``) and staged renders (SDXL's ``full-pipeline``
+mode) and skip-layer guidance; the EDM Euler ladder of cosmos names item 4c.  PNGs are written with
 ``zlib``/``struct`` alone.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -37,7 +42,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..schedulers import FlowMatchEulerScheduler, classifier_free_guidance, sample_loop
+from ..schedulers import (
+    DDIMScheduler,
+    FlowMatchEulerScheduler,
+    UniPCScheduler,
+    classifier_free_guidance,
+    sample_loop,
+)
 from ..webhooks.events import validation_event
 
 logger = logging.getLogger(__name__)
@@ -69,17 +80,27 @@ def resolve_device(device) -> torch.device:
 
 
 def build_scheduler(model, num_steps: int, image_seq_len: Optional[int] = None):
-    """Per-family inference scheduler; only the flow-matching branch is ported."""
-    if not model.is_flow:
-        raise NotImplementedError(f"{model.prediction_type} schedulers are not ported")
-    shift = getattr(model.config, "validation_noise_scheduler_shift", None)
-    use_dyn = bool(getattr(model.config, "flow_schedule_auto_shift", False))
-    return FlowMatchEulerScheduler.create(
-        num_steps,
-        shift=shift if shift is not None else 3.0,
-        use_dynamic_shifting=use_dyn,
-        image_seq_len=image_seq_len,
+    """Per-family inference scheduler."""
+    if model.is_flow:
+        shift = getattr(model.config, "validation_noise_scheduler_shift", None)
+        use_dyn = bool(getattr(model.config, "flow_schedule_auto_shift", False))
+        return FlowMatchEulerScheduler.create(
+            num_steps,
+            shift=shift if shift is not None else 3.0,
+            use_dynamic_shifting=use_dyn,
+            image_seq_len=image_seq_len,
+        )
+    if model.prediction_type == "sample" and hasattr(model, "sigma_max"):
+        raise NotImplementedError("the EDM Euler scheduler (cosmos) is not ported (ROADMAP Queue 1 item 4c)")
+    name = (getattr(model.config, "validation_noise_scheduler", None) or "ddim").lower()
+    # the family's beta ladder, not the SD default
+    schedule = dataclasses.replace(
+        model.ddpm_schedule_config(),
+        rescale_betas_zero_snr=bool(getattr(model.config, "rescale_betas_zero_snr", False)),
     )
+    if name == "unipc":
+        return UniPCScheduler.create_ddpm(num_steps, schedule, model.prediction_type)
+    return DDIMScheduler.create(num_steps, schedule, model.prediction_type)
 
 
 def noise_generator(seed: int, index: int) -> torch.Generator:
@@ -103,6 +124,10 @@ class Validation:
         for key in _UNPORTED:
             if getattr(config, key, None):
                 raise NotImplementedError(f"{key} is not ported (ROADMAP Queue 1 item 4d)")
+        staged = getattr(model, "supports_multistage_validation", None)
+        if callable(staged) and staged():
+            raise NotImplementedError("staged (full-pipeline) validation renders are not ported "
+                                      "(ROADMAP Queue 1 item 4d)")
         method = str(getattr(config, "validation_method", None) or "simpletuner-local").strip().lower()
         if method.replace("_", "-") != "simpletuner-local":
             raise NotImplementedError(f"validation_method={method!r} is not ported (ROADMAP Queue 1 item 4d)")

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from simpletuner_tpu.ops import dot_product_attention as jax_dpa
 from simpletuner_tpu.ops import mha_reference as jax_mha_reference
@@ -32,6 +33,39 @@ from simpletuner_tpu_torch.ops.flash_attention import _kernel_head_dim, _pad_hea
 # of f32 sums (online softmax over 128-key blocks vs one softmax) -- the same
 # bound test_ops_attention.py holds the Pallas kernel to
 TOL = 2e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_reference():
+    """The references compiled in this module, from nothing, with nothing set
+    by an earlier file of the same worker.
+
+    The persistent compile cache that tests/conftest.py keeps is shared by
+    every worker and every run; XLA:CPU loads each of its entries with a
+    warning that the entry's target features (+prefer-no-scatter,
+    +prefer-no-gather) do not match the host's, the mode in which conftest's
+    own comment records entries computing wrong math.  Eager ops here (the
+    JAX ``mha_reference``) compile op by op, and under a loaded run each took
+    long enough to be written there.  So this module clears the in-memory
+    executables, turns the persistent cache off while it runs, and starts
+    from the default attention state of both packages."""
+    from jax._src import compilation_cache
+
+    from simpletuner_tpu.ops.attention import set_attention_backend as jax_set_attention_backend
+    from simpletuner_tpu.ops.attention import set_context_parallel as jax_set_context_parallel
+    from simpletuner_tpu_torch.ops import set_attention_backend
+
+    previous = jax.config.jax_enable_compilation_cache
+    jax.clear_caches()
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    for reset_backend, reset_cp in ((set_attention_backend, set_context_parallel),
+                                    (jax_set_attention_backend, jax_set_context_parallel)):
+        reset_backend("auto")
+        reset_cp(None)
+    yield
+    jax.config.update("jax_enable_compilation_cache", previous)
+    compilation_cache.reset_cache()
 
 
 def _qkv(seed, batch=1, heads=2, sq=256, sk=256, dim=32):

@@ -78,8 +78,11 @@ def test_the_port_imports_nothing_of_the_jax_package():
                             text=True, timeout=300)
     assert result.returncode == 0, result.stderr[-3000:]
     count, loaded = result.stdout.strip().splitlines()[-1].split(" ", 1)
-    n_modules = len(list(pkgutil.walk_packages(simpletuner_tpu_torch.__path__, "simpletuner_tpu_torch.")))
-    assert int(count) == n_modules and loaded == "[]"
+    names = [m.name for m in pkgutil.walk_packages(simpletuner_tpu_torch.__path__, "simpletuner_tpu_torch.")]
+    assert int(count) == len(names) and loaded == "[]"
+    # the SDXL slice's modules are among those imported
+    assert {f"simpletuner_tpu_torch.{name}" for name in (
+        "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -513,7 +516,12 @@ def test_model_registry_refuses_other_families():
     assert isinstance(get_model_family(TrainingConfig({"model_family": "sd3"})), SD3)
     with pytest.raises(ValueError, match="flow-matching"):  # check_user_config runs, as in the JAX registry
         get_model_family(TrainingConfig({"model_family": "sd3", "prediction_type": "epsilon"}))
-    for family in ("sdxl", "sd15", "wan"):
+    from simpletuner_tpu_torch.models.sdxl import SDXL
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "sdxl"})), SDXL)
+    with pytest.raises(ValueError, match="epsilon"):
+        get_model_family(TrainingConfig({"model_family": "sdxl", "prediction_type": "flow_matching"}))
+    for family in ("sd1x", "sd15", "kolors", "wan"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):

@@ -295,6 +295,84 @@ def test_backward_kernels_at_the_sd35_large_shape(cuda):
     assert dq.shape == dk.shape == dv.shape == q.shape
 
 
+# SDXL at 1024 px (the JAX preset: attention at all three levels): self-
+# attention at (1, 5, 16384, 64), (1, 10, 4096, 64) and (1, 20, 1024, 64), and
+# cross-attention of the same queries against 77 CLIP tokens, below one
+# 128-key tile: the kernels run their masked mode with no caller mask
+SDXL_SELF = [(1, 5, 16384, 64), (1, 10, 4096, 64), (1, 20, 1024, 64)]
+SDXL_TEXT = 77
+
+
+@pytest.mark.parametrize("batch,heads,seq,dim", SDXL_SELF, ids=["level0", "level1", "level2"])
+def test_kernels_at_the_sdxl_self_attention_shapes(cuda, batch, heads, seq, dim):
+    q, k, v = _qkv(20 + heads, batch, heads, seq, seq, dim, cuda)
+    out, lse = _check(q, k, v)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    _check_backward(q, k, v, seed=heads)
+
+
+@pytest.mark.parametrize("batch,heads,seq,dim", SDXL_SELF, ids=["level0", "level1", "level2"])
+def test_kernels_at_the_sdxl_cross_attention_shapes(cuda, batch, heads, seq, dim):
+    """Sq queries against 77 keys, through the dispatcher's (B, S, H, D)
+    layout as the UNet calls it, forward and backward."""
+    q, k, v = _qkv(30 + heads, batch, heads, seq, SDXL_TEXT, dim, cuda)
+    _check(q, k, v)
+    dq, dk, dv = _check_backward(q, k, v, seed=30 + heads)
+    assert dk.shape == dv.shape == k.shape
+    strided = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+    _assert_out_close(dot_product_attention(*strided, backend="pallas_flash").transpose(1, 2),
+                      mha_reference_lse(q, k, v)[0])
+
+
+def test_short_keys_never_read_past_their_head(cuda):
+    """77 keys per head in a buffer of 128 rows per head whose rows 77-127 hold
+    NaN: the 128-key tile runs past each head's keys, and those rows must come
+    back as zeros or be masked, never as values (0 x NaN is NaN)."""
+    q, k, v = _qkv(40, 2, 10, 1024, SDXL_TEXT, 64, cuda)
+    k_buf, v_buf = (torch.full((2, 10, 128, 64), float("nan"), dtype=torch.bfloat16, device=cuda) for _ in range(2))
+    k_buf[:, :, :SDXL_TEXT], v_buf[:, :, :SDXL_TEXT] = k, v
+    k_view, v_view = k_buf[:, :, :SDXL_TEXT], v_buf[:, :, :SDXL_TEXT]
+    out, lse = _check(q, k_view, v_view)
+    ref, _ = _check(q, k, v)
+    assert torch.equal(out, ref)
+    dq, dk, dv = _check_backward(q, k_view, v_view, seed=40)
+    assert all(torch.isfinite(g.float()).all() for g in (dq, dk, dv))
+
+
+def test_tiny_sdxl_unet_on_the_card_matches_its_cpu_run(cuda):
+    """The tiny_xl UNet (head dim 16, padded to the kernels' 64) in bf16
+    through the kernels on the card against the same weights in f32 on the
+    CPU (the plain attention): prediction and LoRA gradients of a linear loss
+    within 5e-2 relative L2, the full-width parity bound of chip_smoke.py
+    (bf16 rounds every product and the residual stream, 2^-8 per rounding)."""
+    from simpletuner_tpu_torch.models.layers import freeze_base, init_parameters
+    from simpletuner_tpu_torch.models.unet import UNet2DCondition, UNetConfig
+
+    cfg = UNetConfig.tiny_xl()
+    cpu = init_parameters(UNet2DCondition(cfg, dtype=torch.float32, lora_rank=4), torch.Generator().manual_seed(0))
+    with torch.no_grad():  # LoRA B starts at zero: give it a draw so the adapters reach the output
+        for name, param in cpu.named_parameters():
+            if name.endswith("lora_B"):
+                param.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
+    with torch.device(cuda):
+        card = UNet2DCondition(cfg, dtype=torch.bfloat16, lora_rank=4)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(2)
+    inputs = [torch.randn((2, 32, 32, 4), generator=gen), torch.tensor([999, 250]),
+              torch.randn((2, 77, 96), generator=gen), torch.randn((2, 112), generator=gen)]
+    weight = torch.randn((2, 32, 32, 4), generator=gen)
+    results = []
+    for module, device in ((cpu, "cpu"), (card, cuda)):
+        params = freeze_base(module)
+        out = module(*[x.to(device) for x in inputs])
+        grads = torch.autograd.grad((out * weight.to(device)).sum(), list(params.values()))
+        results.append((out.float().cpu(), torch.cat([g.float().flatten().cpu() for g in grads])))
+    (out_cpu, grad_cpu), (out_card, grad_card) = results
+    assert torch.isfinite(out_card).all() and torch.isfinite(grad_card).all()
+    assert ((out_card - out_cpu).norm() / out_cpu.norm()).item() <= 5e-2
+    assert ((grad_card - grad_cpu).norm() / grad_cpu.norm()).item() <= 5e-2
+
+
 def test_sd3_blocks_on_the_card_match_the_plain_attention(cuda):
     """Two SD3.5 Large blocks at full width, 512 px (333 text + 1024 image
     tokens): velocity and LoRA gradients through the kernels against the

@@ -9,12 +9,12 @@ are normalised.  Routes that differ by design are named in ``DIFFERS`` and
 checked for what the port answers instead: ``/api/optimizers`` (the port's
 registry), ``/api/version`` and ``/api/system`` (torch, CUDA and the card),
 ``/api/hardware`` (the ``torch.cuda`` devices), ``/api/models/<f>/presets``
-(the port's presets: ``sd3``'s are the JAX ones without the mesh preset; 501
-for a family it does not train) and a job's logs
+(the port's presets: ``sd3``'s and ``sdxl``'s are the JAX ones without the
+mesh preset; 501 for a family it does not train) and a job's logs
 (the spawned command: ``python -m simpletuner_tpu_torch.train --config ...
 --device cpu``).  On the port's server alone: a tiny-Flux job completes and
 its LoRA is bitwise the one an in-process ``Trainer`` trains from the same
-config; an ``sdxl`` job fails with a log line naming ROADMAP Queue 1 item 6;
+config; an ``sd1x`` job fails with a log line naming ROADMAP Queue 1 item 6;
 a running job takes a checkpoint signal and is cancelled.
 """
 
@@ -226,7 +226,11 @@ def test_basic_routes_and_a_failing_job(pair):
     for path in ("/", "/static/app.js", "/static/style.css", "/static/../app.py"):
         pair.both("GET", path)
     pair.both("GET", "/metrics")
-    pair.both("POST", "/api/training/start", {"config": {"model_family": "flux", "max_train_steps": 1}})
+    # this job fails too; the queue is read once it has ended on both sides
+    # (read while one side's job still ran, slots_free differed: 1 against 0)
+    pair.keep("job2", pair.both("POST", "/api/training/start",
+                                {"config": {"model_family": "flux", "max_train_steps": 1}}), "job_id")
+    pair.wait("job2")
     pair.both("GET", "/api/audit")
     pair.both("GET", "/api/queue")
 
@@ -430,8 +434,12 @@ def test_routes_that_differ_by_design(pair):
     assert sd3["port"][0] == sd3["jax"][0] == 200
     jax_presets = [(p["name"], p["config"]) for p in sd3["jax"][1] if p["name"] != "multichip"]  # a mesh: item 5
     assert [(p["name"], p["config"]) for p in sd3["port"][1]] == jax_presets and len(jax_presets) == 3
-    assert pair.both("GET", "/api/models/sdxl/presets", compare=False)["port"] == (
-        501, {"error": "model_family='sdxl' is not ported (only flux and sd3; ROADMAP Queue 1 item 6)"})
+    sdxl = pair.both("GET", "/api/models/sdxl/presets", compare=False)
+    assert sdxl["port"][0] == sdxl["jax"][0] == 200
+    assert [(p["name"], p["config"]) for p in sdxl["port"][1]] == [
+        (p["name"], p["config"]) for p in sdxl["jax"][1] if p["name"] != "multichip"]
+    assert pair.both("GET", "/api/models/sd1x/presets", compare=False)["port"] == (
+        501, {"error": "model_family='sd1x' is not ported (only flux, sd3 and sdxl; ROADMAP Queue 1 item 6)"})
     pair.both("GET", "/api/models/nope/presets")  # unknown: 404 on both
     job = pair.both("POST", "/api/inference/start",
                     {"checkpoint": "/nope/checkpoint-1", "prompt": "a cat", "steps": 1})
@@ -515,7 +523,7 @@ def test_an_unported_family_fails_naming_its_item(port_server, tmp_path):
     _, port = port_server
     _write_images(tmp_path / "data")
     status, job = _http(port, "POST", "/api/training/start",
-                        {"config": _values(tmp_path, "out", model_family="sdxl")})
+                        {"config": _values(tmp_path, "out", model_family="sd1x")})
     info = _wait(port, job["job_id"])
     _, logs = _http(port, "GET", f"/api/training/logs/{job['job_id']}?tail=200")
     assert info["state"] == "failed" and info["return_code"] != 0
