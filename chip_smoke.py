@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero with no result line):
+Phases (each prints one line, with ``elapsed_s`` since the start; any failure
+exits non-zero with no result line):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compile every hand-written kernel of the render path from csrc/;
@@ -175,12 +176,37 @@ Phases (each prints one line; any failure exits non-zero with no result line):
    square JPEGs in one bucket, graphed: losses, s/step, MFU
    (``sdxl_step_flops``, forward x 3), time to the first step, peak GiB, and
    the launches of a profiled replay (300 / 150 / 150: forward, recompute,
-   backward), which must equal the capture's, with the replay's top kernels.
+   backward), which must equal the capture's, with the replay's top kernels;
+   its UNet file is e4m3 when the run's writes would leave phase 21 less than
+   ``PHASE21_WRITE_GB``.
+21. sd1x, sd2x, pixart_sigma: deletes phase 20's UNet shards and outputs,
+   then for SD 1.5 (``UNetConfig.sd15()``, the JAX preset: 5 / 10 / 20 heads
+   of 64 where the published UNet runs 8 heads; 1x1-conv ``proj_in`` /
+   ``proj_out``; 0.86B parameters) at 512 px, SD 2.1 (``UNetConfig.sd21()``,
+   0.87B, v-prediction, min-SNR gamma 5 in training) at 768 px and
+   PixArt-Sigma (``PixartConfig.sigma_1024()``: 28 blocks, 1152 wide, 16
+   heads of 72, T5-XXL context at 300 tokens, the 8-channel learned-range
+   head; 0.61B) at 1024 px in turn: writes a seeded diffusers base as an
+   e4m3 file beside hard links to phase 20's 4-channel VAE and phase 14-15's
+   CLIP-L / T5-XXL and tokenizers (SD 2.1: a seeded OpenCLIP-H at full width,
+   4 of its 23 layers); imports it (s, GB/s; every tensor bitwise the
+   written one); renders through ``CheckpointInferenceRuntime`` with 4 DDIM
+   steps under true CFG (guidance 7.5, PixArt 4.5; s per CFG step, peak GiB,
+   32 / 32 / 56 flash launches per forward); one full-depth forward with the
+   kernels against the plain attention (phase 5's bound); ``Trainer.run()``
+   with a bf16 base, rank-16 LoRA on the attention projections, remat, AdamW
+   1e-4, 6 graphed steps on four of phase 16's square JPEGs: losses, s/step,
+   MFU (``sdxl_step_flops`` / ``pixart_step_flops``), time to the first
+   step, peak GiB, and the launches of a profiled replay (64 / 32 / 32 for
+   the UNets, 112 / 56 / 56 for PixArt), which must equal the capture's.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
-their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-20.
+their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-21.
 Phases 3 and 7 also run head dims 72, 96 and 112 (pixart, lumina2, sana),
-which the wrappers zero-pad to 128, masked and unmasked.  Then a JSON line
+which the wrappers zero-pad to 128, masked and unmasked, and the shapes
+phase 21 meets first (``PHASE21_KERNEL_CASES``: PixArt's (1, 16, 4096, 72)
+self-attention and its 300 T5 keys, with the kernel at D = 128 on the same
+shape beside them; SD 2.1's 576- and 9216-token levels; SD 1.5's 256).  Then a JSON line
 with the kernels (launches: the profiler's count in phase 12's profiled
 replay), and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
@@ -277,11 +303,41 @@ SDXL_TRAIN_STEPS, SDXL_TRAIN_IMAGES = 6, 4
 SDXL_SNR_GAMMA = 5.0
 SDXL_PARITY_T = 500
 SDXL_PROMPT = "a lighthouse on a basalt cliff at dusk"
+# phase 21: SD 1.5 (epsilon, 512 px), SD 2.1 (v-prediction, 768 px, the
+# published 2.1-v model's size; min-SNR gamma 5) and PixArt-Sigma (epsilon,
+# 1024 px, T5-XXL at 300 tokens): (family, resolution, render guidance, the
+# trainer's extra keys).  The base files are written as fp8 (e4m3), which the
+# importer takes to bf16 exactly, with SD 2.1's OpenCLIP-H at full width and
+# PHASE21_CLIP_H_LAYERS of its 23 layers (bf16); what the phase writes in all,
+# which phase 20 leaves room for
+PHASE21_MODELS = (
+    ("sd1x", 512, 7.5, {}),
+    ("sd2x", 768, 7.5, {"snr_gamma": 5.0}),
+    ("pixart_sigma", 1024, 4.5, {}),
+)
+PHASE21_CLIP_H_LAYERS = 4
+PHASE21_WRITE_GB = 3.0
+PHASE21_TXT = {"sd1x": 77, "sd2x": 77, "pixart_sigma": 300}
 # phases 3 and 7 at SDXL's 1024 px attention: per level, the heads of 64 and
 # the H x W image tokens, self-attention and cross-attention against the 77
 # CLIP tokens (below one 128-key tile: the kernels' masked mode, no caller mask)
 SDXL_TXT = 77
 SDXL_LEVELS = ((5, (RESOLUTION // 8) ** 2), (10, (RESOLUTION // 16) ** 2), (20, (RESOLUTION // 32) ** 2))
+# phases 3 and 7 at the shapes phase 21 runs first: (name, heads, query
+# tokens, key tokens, head dim).  PixArt-Sigma at 1024 px: 16 heads of 72
+# (zero-padded to 128 in the wrapper, scaled by 72^-0.5) over 4096 image
+# tokens, and against 300 T5 keys with no caller mask (no multiple of the
+# 128-key tiles: the last tile runs masked); SD 2.1 at 768 px: level 2's 576
+# tokens (4.5 tiles: Sq and Sk ragged) and level 0's 9216; SD 1.5 at 512 px:
+# level 2's 256 tokens (its 4096- and 1024-token levels and the 77 keys are
+# SDXL's shapes with other head counts)
+PHASE21_KERNEL_CASES = (
+    ("pixart_self", 16, (RESOLUTION // 16) ** 2, (RESOLUTION // 16) ** 2, 72),
+    ("pixart_cross_t5", 16, (RESOLUTION // 16) ** 2, 300, 72),
+    ("sd21_l2_self", 20, (768 // 32) ** 2, (768 // 32) ** 2, 64),
+    ("sd21_l0_self", 5, (768 // 8) ** 2, (768 // 8) ** 2, 64),
+    ("sd15_l2_self", 20, (512 // 32) ** 2, (512 // 32) ** 2, 64),
+)
 # phase 10: the Flux linears' (in, out): attention q/k/v and proj, single-block
 # linear1 (q, k, v, mlp) and linear2, the MLP in and out, double-block AdaLN
 INT8_SHAPES = ((3072, 3072), (3072, 21504), (15360, 3072), (3072, 12288), (12288, 3072), (3072, 18432))
@@ -291,9 +347,13 @@ INT8_ROWS = 4608  # 4096 image + 512 text tokens
 # and the products are exact on both sides and the scaled values differ by f32
 # roundings, so every element is within one bf16 ulp (at most 2^-7 of its value)
 DOT_REL = 2.0 ** -7
+_STARTED = time.perf_counter()
 
 
 def phase(name: str, **fields) -> None:
+    """One phase's line, with the seconds since the script started (``elapsed_s``:
+    a phase's seconds are the difference to the line before)."""
+    fields["elapsed_s"] = time.perf_counter() - _STARTED
     print(f"phase {name}: " + json.dumps(fields, sort_keys=True), flush=True)
 
 
@@ -499,8 +559,8 @@ def kernel_cases():
     sd3["share_of_bound"] = sd3_bound / sd3["kernel_ms"]
     times["sd35_large"] = sd3
     del q3, k3, v3
-    times["sdxl"] = sdxl_forward_cases(errors)
-    worst = max([worst] + [errors[name]["out"] for name in times["sdxl"]])
+    times["ddpm_families"] = ddpm_forward_cases(errors)
+    worst = max([worst] + [errors[name]["out"] for name in times["ddpm_families"]])
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
     bound_ms, bound_by = _attention_bound_ms(2, pairs, 24, 128, nbytes)
@@ -617,7 +677,7 @@ def backward_cases():
         times[f"dq_dkv_masked_d{dim}_ms"] = cuda_ms(
             lambda: flash_backward(q, k, v, flux_seg, flux_seg, out, lse, do, dim ** -0.5), 10)
     times["sd35_large"] = sd3_backward_times()
-    times["sdxl"] = sdxl_backward_cases(check)
+    times["ddpm_families"] = ddpm_backward_cases(check)
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
     library = {"library_ms": times["sdpa_backward_masked_ms"],
@@ -631,38 +691,46 @@ def backward_cases():
     }
 
 
-def _sdxl_inputs(seed, heads, sq, sk, n):
+def _ddpm_inputs(seed, heads, sq, sk, dim, n):
     """q over ``sq`` tokens, k and v over ``sk`` (and dO over ``sq`` when
-    ``n`` is 4), in the (B, S, H, D) memory the UNet's dispatcher call gives
-    the kernels."""
-    tensors = _qkv(seed, 1, heads, sq, 64, n=1) + _qkv(seed + 1, 1, heads, sk, 64, n=2)
+    ``n`` is 4), in the (B, S, H, D) memory the UNet's and the DiT's
+    dispatcher calls give the kernels."""
+    tensors = _qkv(seed, 1, heads, sq, dim, n=1) + _qkv(seed + 1, 1, heads, sk, dim, n=2)
     if n == 4:
-        tensors += _qkv(seed + 2, 1, heads, sq, 64, n=1)
+        tensors += _qkv(seed + 2, 1, heads, sq, dim, n=1)
     return [x.transpose(1, 2).contiguous().transpose(1, 2) for x in tensors]
 
 
-def sdxl_cases():
-    """(name, heads, query tokens, key tokens) of SDXL's attention at 1024 px."""
+def ddpm_cases():
+    """(name, heads, query tokens, key tokens, head dim) of the DDPM families'
+    attention: SDXL's six shapes at 1024 px, then the new shapes of phase 21
+    (PixArt-Sigma's 1024 px self-attention at D = 72 and its cross-attention
+    against 300 T5 keys; SD 2.1's 768 px level 2 (576 ragged tokens) and
+    level 0; SD 1.5's 512 px level 2)."""
     for level, (heads, seq) in enumerate(SDXL_LEVELS):
-        yield f"sdxl_l{level}_self", heads, seq, seq
-        yield f"sdxl_l{level}_cross", heads, seq, SDXL_TXT
+        yield f"sdxl_l{level}_self", heads, seq, seq, 64
+        yield f"sdxl_l{level}_cross", heads, seq, SDXL_TXT, 64
+    yield from PHASE21_KERNEL_CASES
 
 
-def sdxl_forward_cases(errors: dict) -> dict:
-    """Phase 3 at SDXL's six attention shapes: the forward kernel against its
-    plain version (the bounds of the other cases), kernel, plain and SDPA
-    times and the bound; at level 0's cross-attention also the keys as views
-    into a buffer whose rows 77-127 of each head hold NaN: the 128-key tile
-    runs past each head's keys, and those rows must come back as zeros or be
-    masked (0 x NaN is NaN), so the output is bitwise the contiguous one."""
+def ddpm_forward_cases(errors: dict) -> dict:
+    """Phase 3 at the DDPM families' attention shapes (``ddpm_cases``): the
+    forward kernel against its plain version (the bounds of the other
+    cases), kernel, plain and SDPA times and the bound (D = 72 counted as 72:
+    the zero-padding to 128 is the kernel's cost), and at D = 72 the kernel
+    at D = 128 on the same shape beside it; at SDXL level 0's cross-attention
+    also the keys as views into a buffer whose rows 77-127 of each head hold
+    NaN: the 128-key tile runs past each head's keys, and those rows must
+    come back as zeros or be masked (0 x NaN is NaN), so the output is
+    bitwise the contiguous one."""
     import torch
     import torch.nn.functional as F
 
     from simpletuner_tpu_torch.ops import flash_attention, mha_reference_lse
 
     cases = {}
-    for seed, (name, heads, sq, sk) in enumerate(sdxl_cases()):
-        q, k, v = _sdxl_inputs(300 + 2 * seed, heads, sq, sk, 3)
+    for seed, (name, heads, sq, sk, dim) in enumerate(ddpm_cases()):
+        q, k, v = _ddpm_inputs(300 + 2 * seed, heads, sq, sk, dim, 3)
         out, lse = flash_attention(q, k, v, return_lse=True)
         ref, ref_lse = mha_reference_lse(q, k, v)
         torch.cuda.synchronize()
@@ -675,7 +743,7 @@ def sdxl_forward_cases(errors: dict) -> dict:
                                f"{out_rel_l2} (<= {OUT_REL_L2}), lse err {lse_err} (<= {LSE_ATOL})")
         errors[name] = {"out": out_err, "out_bound": out_bound, "out_rel_l2": out_rel_l2, "lse": lse_err}
         if name == "sdxl_l0_cross":
-            buffers = [torch.full((1, heads, 128, 64), float("nan"), dtype=torch.bfloat16, device="cuda")
+            buffers = [torch.full((1, heads, 128, dim), float("nan"), dtype=torch.bfloat16, device="cuda")
                        for _ in range(2)]
             for buf, x in zip(buffers, (k, v)):
                 buf[:, :, :sk] = x
@@ -683,21 +751,26 @@ def sdxl_forward_cases(errors: dict) -> dict:
                 raise RuntimeError(f"kernel case {name}: keys past a head's 77 rows reached the output")
             errors[name]["nan_padded_keys_bitwise"] = True
         backend, sdpa_ms = _sdpa_backend(lambda: F.scaled_dot_product_attention(q, k, v))
-        nbytes = 2 * heads * (sq + sk) * 64 * 2 + heads * sq * 4  # q, out; k, v; lse
-        bound, bound_by = _attention_bound_ms(2, sq * sk, heads, 64, nbytes)
+        nbytes = 2 * heads * (sq + sk) * dim * 2 + heads * sq * 4  # q, out; k, v; lse
+        bound, bound_by = _attention_bound_ms(2, sq * sk, heads, dim, nbytes)
         kernel_ms = cuda_ms(lambda: flash_attention(q, k, v), 20)
-        cases[name] = {"shape": [1, heads, sq, sk, 64], "kernel_ms": kernel_ms,
+        cases[name] = {"shape": [1, heads, sq, sk, dim], "kernel_ms": kernel_ms,
                        "plain_ms": cuda_ms(lambda: mha_reference_lse(q, k, v), 5), "sdpa_ms": sdpa_ms,
                        "sdpa_backend": backend, "bound_ms": bound, "bound_by": bound_by,
                        "share_of_bound": bound / kernel_ms}
+        if dim != 64 and dim < 128:  # the same shape at D = 128: what the zero-padding costs
+            wide = _ddpm_inputs(300 + 2 * seed, heads, sq, sk, 128, 3)
+            cases[name]["kernel_d128_ms"] = cuda_ms(lambda: flash_attention(*wide), 20)
+            del wide
         del q, k, v, out, ref
     return cases
 
 
-def sdxl_backward_cases(check) -> dict:
-    """Phase 7 at SDXL's six attention shapes: dq, dk and dv against the plain
-    backward (``check``, in the dispatcher's layout), the dq and dkv kernels'
-    times, the plain backward's and SDPA's, the bounds and shares."""
+def ddpm_backward_cases(check) -> dict:
+    """Phase 7 at the DDPM families' attention shapes (``ddpm_cases``): dq, dk
+    and dv against the plain backward (``check``, in the dispatcher's layout),
+    the dq and dkv kernels' times, the plain backward's and SDPA's, the
+    bounds and shares."""
     import torch
     import torch.nn.functional as F
 
@@ -706,14 +779,14 @@ def sdxl_backward_cases(check) -> dict:
     )
 
     cases = {}
-    for seed, (name, heads, sq, sk) in enumerate(sdxl_cases()):
-        q, k, v, do = _sdxl_inputs(400 + 2 * seed, heads, sq, sk, 4)
+    for seed, (name, heads, sq, sk, dim) in enumerate(ddpm_cases()):
+        q, k, v, do = _ddpm_inputs(400 + 2 * seed, heads, sq, sk, dim, 4)
         check(name, q, k, v, do, None, None, True)
-        scale = 64 ** -0.5
+        scale = dim ** -0.5
         out, lse = flash_attention(q, k, v, return_lse=True)
         delta = (out.float() * do.float()).sum(dim=-1)
-        q_act, k_act, stats = heads * sq * 64 * 2, heads * sk * 64 * 2, 2 * heads * sq * 4
-        times = {"shape": [1, heads, sq, sk, 64]}
+        q_act, k_act, stats = heads * sq * dim * 2, heads * sk * dim * 2, 2 * heads * sq * 4
+        times = {"shape": [1, heads, sq, sk, dim]}
         # dq reads q, k, v, dO, lse, delta and writes dq; dkv reads the same and writes dk, dv
         for kernel, products, nbytes, fn in (
                 ("dq", 3, 3 * q_act + 2 * k_act + stats,
@@ -722,7 +795,7 @@ def sdxl_backward_cases(check) -> dict:
                  lambda: flash_bwd_dkv_kernel(q, k, v, None, None, lse, delta, do, scale))):
             times[f"{kernel}_ms"] = cuda_ms(fn, 10)
             times[f"bound_{kernel}_ms"], times[f"bound_{kernel}_by"] = _attention_bound_ms(
-                products, sq * sk, heads, 64, nbytes)
+                products, sq * sk, heads, dim, nbytes)
             times[f"{kernel}_share_of_bound"] = times[f"bound_{kernel}_ms"] / times[f"{kernel}_ms"]
         times["plain_ms"] = cuda_ms(lambda: mha_backward_reference(q, k, v, None, None, out, lse, do, scale), 3)
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
@@ -1726,7 +1799,7 @@ def sdxl_phase(paths: dict, kernels, device: str) -> None:
     params = sum(math.prod(shape) for shape in shapes.values())
     # bf16 unless the run's writes would pass the budget; then e4m3, which the importer takes to bf16 exactly
     written_before = _written_gb()
-    fp8 = written_before + 2 * params / 1e9 + 1.0 > SD3_WRITE_LIMIT_GB
+    fp8 = written_before + 2 * params / 1e9 + 1.0 + PHASE21_WRITE_GB > SD3_WRITE_LIMIT_GB
     file_bytes = (1 if fp8 else 2) * params
     free = shutil.disk_usage(work).free
     if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 1.0 > SD3_WRITE_LIMIT_GB:
@@ -1969,6 +2042,355 @@ def sdxl_phase(paths: dict, kernels, device: str) -> None:
     del trainer, graphed
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def pixart_step_flops(arch, batch: int, tokens: int, txt: int) -> float:
+    """Model FLOPs of one PixArt train step in bench.py's convention (forward
+    x 3), counted from the config at ``tokens`` image tokens and ``txt``
+    caption tokens: the patch embedding, the caption projection, the
+    timestep MLP and ``t6``, per block the self-attention's q, k, v and out,
+    the cross-attention's q and out over the image tokens and k and v over
+    the caption, both attentions' two products at the model's head dim (72,
+    not the kernels' padded 128), the feed-forward, and the final projection."""
+    dim, inner, p = arch.hidden_size, arch.num_heads * arch.head_dim, arch.patch_size
+    ffn = int(dim * arch.ffn_ratio)
+    fwd = 2.0 * tokens * p * p * arch.in_channels * dim
+    fwd += 2.0 * txt * (arch.text_dim * dim + dim * dim)
+    fwd += 2.0 * (256 * dim + dim * dim + dim * 6 * dim)
+    per_block = 2.0 * tokens * dim * inner * 6 + 2.0 * txt * dim * inner * 2
+    per_block += 4.0 * tokens * (tokens + txt) * inner + 2.0 * tokens * dim * ffn * 2
+    fwd += arch.depth * per_block + 2.0 * tokens * dim * p * p * arch.effective_out_channels
+    return batch * fwd * 3.0
+
+
+def _phase21_files(family: str, paths: dict, gen) -> tuple:
+    """The seeded fp8 base (two shards in ``unet/`` or ``transformer/``),
+    SD 2.1's cut OpenCLIP-H, and hard links to phase 14's CLIP-L and
+    tokenizer, phase 15's T5-XXL and its tokenizer and phase 20's 4-channel
+    VAE: (model dir, arch, written fp8 tensors, file GB, write s)."""
+    import dataclasses
+
+    import torch
+
+    from simpletuner_tpu_torch.models.checkpoint_layouts import (
+        clip_checkpoint_shapes, pixart_checkpoint_shapes, unet_checkpoint_shapes,
+    )
+    from simpletuner_tpu_torch.models.clip import CLIPTextConfig
+    from simpletuner_tpu_torch.models.pixart import PixartConfig
+    from simpletuner_tpu_torch.models.unet import UNetConfig
+    from simpletuner_tpu_torch.models.weight_import import save_safetensors
+
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    model_dir = os.path.join(work, family)
+    if family == "pixart_sigma":
+        arch, sub = PixartConfig.sigma_1024(), "transformer"
+        shapes = pixart_checkpoint_shapes(arch)
+    else:
+        arch, sub = (UNetConfig.sd15() if family == "sd1x" else UNetConfig.sd21()), "unet"
+        shapes = unet_checkpoint_shapes(arch, conv_proj=family == "sd1x")  # SD 1.5's 1x1-conv proj_in / out
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 0.5 > SD3_WRITE_LIMIT_GB:
+        raise RuntimeError(f"{family}: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before; the "
+                           f"base needs {file_bytes / 1e9:.2f} GB of the {SD3_WRITE_LIMIT_GB} GB a run may write")
+    os.makedirs(os.path.join(model_dir, sub))
+    weights = {k: v.to(torch.float8_e4m3fn) for k, v in seeded_weights(shapes, gen).items()}
+    names = sorted(weights)
+    t0 = time.perf_counter()
+    for shard, part in enumerate((names[: len(names) // 2], names[len(names) // 2:])):
+        save_safetensors({k: weights[k] for k in part}, os.path.join(
+            model_dir, sub, f"diffusion_pytorch_model-0000{shard + 1}-of-00002.safetensors"))
+    write_s = time.perf_counter() - t0
+    links = [(os.path.join(work, "sdxl", "vae"), "vae")]
+    if family == "sd1x":
+        links += [(os.path.join(flux_dir, "text_encoder"), "text_encoder"), (os.path.join(flux_dir, "tokenizer"),
+                                                                             "tokenizer")]
+    elif family == "sd2x":
+        clip_h = dataclasses.replace(CLIPTextConfig.open_clip_h(), num_hidden_layers=PHASE21_CLIP_H_LAYERS)
+        os.makedirs(os.path.join(model_dir, "text_encoder"))
+        save_safetensors(seeded_weights(clip_checkpoint_shapes(clip_h), gen),
+                         os.path.join(model_dir, "text_encoder", "model.safetensors"))
+        with open(os.path.join(model_dir, "text_encoder", "config.json"), "w") as handle:
+            json.dump({**dataclasses.asdict(clip_h), "architectures": ["CLIPTextModel"]}, handle)
+        links.append((os.path.join(flux_dir, "tokenizer"), "tokenizer"))
+    else:
+        # the T5 spec reads ``tokenizer_2`` when it names no tokenizer
+        # subfolder, in both packages (a published PixArt dir has ``tokenizer``)
+        links += [(os.path.join(flux_dir, "text_encoder_2"), "text_encoder"),
+                  (os.path.join(flux_dir, "tokenizer_2"), "tokenizer_2")]
+    for source, target in links:
+        _link_tree(source, os.path.join(model_dir, target))
+    return model_dir, arch, weights, file_bytes / 1e9, write_s
+
+
+def ddpm_family_phase(family: str, resolution: int, guidance: float, train_extra: dict, paths: dict, kernels,
+                      device: str) -> None:
+    """Phase 21 for one family: the seeded files, the import bitwise, a true-CFG
+    DDIM render through ``CheckpointInferenceRuntime``, one full-depth
+    forward with the kernels against the plain attention, and 6 graphed LoRA
+    steps through ``Trainer.run()`` with the launches of a profiled replay
+    held to the capture's."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench import profile_step
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.vae import VAEConfig
+    from simpletuner_tpu_torch.models.weight_bridge import flax_to_state_dict
+    from simpletuner_tpu_torch.models.weight_import import (
+        load_transformer_params, pixart_params_from_diffusers, unet_params_from_diffusers,
+    )
+    from simpletuner_tpu_torch.ops import set_attention_backend
+    from simpletuner_tpu_torch.schedulers import DDIMScheduler
+    from simpletuner_tpu_torch.training.trainer import Trainer
+    from simpletuner_tpu_torch.training.validation import build_scheduler
+
+    start = time.perf_counter()
+    work = paths["work"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    pixart = family == "pixart_sigma"
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    written_before = _written_gb()
+    model_dir, arch, weights, file_gb, write_s = _phase21_files(family, paths, gen)
+    files = {"base_gb": file_gb, "base_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_gb / write_s, "written_gb_before": written_before,
+             "written_gb_after": _written_gb()}
+
+    # (c) import through load_transformer_params, every tensor bitwise the written one
+    model = ModelRegistry.create(family, config_namespace({"model_family": family, "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"{family}: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()  # model_type full: no adapters
+    params = sum(p.numel() for p in module.parameters())
+    torch.cuda.synchronize()
+    rss_before = _rss_gib()
+    t0 = time.perf_counter()
+    load_transformer_params(model, module, model_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    imported = {"s": load_s, "gb_per_s": file_gb / load_s, "params": params,
+                "host_rss_gib": {"before": rss_before, "after": _rss_gib()}}
+    importer = pixart_params_from_diffusers if pixart else unet_params_from_diffusers
+    expected = flax_to_state_dict(importer(weights, arch), module)
+    unequal = [k for k, v in module.state_dict().items() if not torch.equal(v, expected[k])]
+    if unequal or params != sum(v.numel() for v in weights.values()):
+        raise RuntimeError(f"{family}: the imported module differs from the written tensors at {unequal[:8]}")
+    imported["tensors_bitwise"] = len(expected)
+    del weights, expected, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) a true-CFG DDIM render through the checkpoint runtime
+    config_path = os.path.join(work, f"{family}_render.json")
+    with open(config_path, "w") as handle:
+        json.dump({"model_family": family, "model_type": "full", "pretrained_model_name_or_path": model_dir,
+                   "mixed_precision": "bf16", "text_encoder_precision": "bf16", "vae_dtype": "bf16",
+                   "validation_resolution": resolution, "validation_seed": 42, "seed": 42,
+                   "validation_guidance": guidance}, handle)
+    t0 = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, f"{family}_render"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != family or model.is_flow:
+        raise RuntimeError(f"{family}: the runtime built {model.NAME} {model.arch}")
+    if not isinstance(build_scheduler(model, STEPS), DDIMScheduler):
+        raise RuntimeError(f"{family}: the default scheduler is not DDIM")
+    forward_s, finite = [], []
+
+    def before(mod, args):
+        torch.cuda.synchronize()
+        forward_s.append(-time.perf_counter())
+
+    def after(mod, args, out):
+        torch.cuda.synchronize()
+        forward_s[-1] += time.perf_counter()
+
+    decode = runtime.vae.decode
+
+    def decode_checked(z):
+        finite.append(bool(torch.isfinite(z).all()))
+        return decode(z)
+
+    hooks = [module.register_forward_pre_hook(before), module.register_forward_hook(after)]
+    runtime.vae.decode = decode_checked
+    # two attentions per transformer block: the UNet's down path has
+    # layers_per_block and the up path layers_per_block + 1 spatial
+    # transformers per attention level, and one mid; PixArt's blocks
+    if pixart:
+        per_forward = 2 * arch.depth
+    else:
+        levels = len(arch.block_out_channels)
+        per_forward = 2 * (sum(arch.depth_at(level) * (2 * arch.layers_per_block + 1)
+                               for level in range(levels) if arch.cross_attention_blocks[level])
+                           + arch.depth_at(levels - 1))
+    for kernel in kernels:
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pngs = runtime.render(SDXL_PROMPT, steps=STEPS, guidance=guidance)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    launches = {kernel.name: kernel.launches for kernel in kernels}
+    runtime.vae.decode = decode
+    for hook in hooks:
+        hook.remove()
+    if launches != {"flash_fwd": per_forward * 2 * STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        raise RuntimeError(f"{family} render: launches {launches}, expected {per_forward} per forward, two per step")
+    if len(pngs) != 1 or finite != [True] or len(forward_s) != 2 * STEPS:
+        raise RuntimeError(f"{family} render: {pngs}, finite latents {finite}, {len(forward_s)} forwards")
+    check_png(pngs[0], resolution, resolution)
+    render = {"init_s": init_s, "steps": STEPS, "guidance": guidance, "scheduler": "ddim",
+              "prediction_type": model.prediction_type, "render_s": render_s,
+              "s_per_cfg_step": sum(forward_s[2:]) / (len(forward_s) - 2) * 2, "forward_s": list(forward_s),
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+              "png_bytes": os.path.getsize(pngs[0])}
+
+    # (e) one full-depth forward, kernels against the plain attention
+    latent = resolution // 8
+    txt = PHASE21_TXT[family]
+    batch = {"latents": torch.zeros((1, latent, latent, 4), device=dev)}
+    for key, value in model.collate_text_embeds(model.encode_text([SDXL_PROMPT])).items():
+        batch[key] = torch.as_tensor(value, device=dev)
+    width = arch.text_dim if pixart else arch.cross_attention_dim
+    if tuple(batch["text_embeds"].shape) != (1, txt, width):
+        raise RuntimeError(f"{family}: text_embeds {tuple(batch['text_embeds'].shape)}, expected (1, {txt}, {width})")
+    model.text_encoders = []  # the plain attention's scores need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    cond = model.inference_conditioning(batch)
+    noise = torch.randn((1, latent, latent, 4), generator=gen, device=dev)
+    t = torch.tensor(SDXL_PARITY_T)
+    with torch.no_grad():
+        kernel_out = model.denoise_fn(module, cond)(noise, t)
+        set_attention_backend("xla")
+        try:
+            plain_out = model.denoise_fn(module, cond)(noise, t)
+        finally:
+            set_attention_backend("auto")
+        forward_ms = cuda_ms(lambda: model.denoise_fn(module, cond)(noise, t), 3, warmup=1)
+    parity = rel_l2(kernel_out, plain_out)
+    if not (torch.isfinite(kernel_out).all() and torch.isfinite(plain_out).all() and parity <= PARITY_REL_L2):
+        raise RuntimeError(f"{family} full-depth parity: rel L2 {parity} (<= {PARITY_REL_L2})")
+    del runtime, module, model, kernel_out, plain_out, batch, cond
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) Trainer.run(): bf16 base, rank-16 LoRA on the attention projections,
+    # every resnet / spatial transformer (UNet) or block (PixArt) checkpointed,
+    # one square bucket, graphed
+    data = os.path.join(work, f"{family}_data")
+    os.makedirs(data)
+    source = os.path.join(work, "vae_cache", "data")
+    for i, index in enumerate(range(0, 3 * SDXL_TRAIN_IMAGES, 3)):  # phase 16's square JPEGs
+        name = f"img_{index:04d}.jpg"
+        os.link(os.path.join(source, name), os.path.join(data, name))
+        with open(os.path.join(data, f"img_{index:04d}.txt"), "w") as handle:
+            handle.write(TRAIN_CAPTIONS[i])
+    out = os.path.join(work, f"{family}_train")
+    cache = os.path.join(work, f"{family}_cache")
+    # PixArt's attention projections by their diffusers names (its family
+    # preset names no module of the JAX tree); the UNets' DEFAULT_LORA_TARGET
+    targets = ["to_q", "to_k", "to_v", "to_out.0"] if pixart else ["to_q", "to_k", "to_v", "to_out"]
+    config = {
+        "model_family": family, "model_type": "lora", "lora_rank": 16, "lora_target_modules": targets,
+        "pretrained_model_name_or_path": model_dir, "gradient_checkpointing": True, "optimizer": "adamw",
+        "learning_rate": 1e-4, "lr_scheduler": "constant", "mixed_precision": "bf16",
+        "text_encoder_precision": "bf16", "vae_dtype": "bf16", "train_batch_size": 1, "resolution": resolution,
+        "resolution_type": "pixel_area", "max_train_steps": SDXL_TRAIN_STEPS, "logging_steps": 1,
+        "report_to": "jsonl", "seed": 42, "cache_dir": cache, "output_dir": out,
+        "checkpoint_frozen_base": "reference", **train_extra,
+        "data_backend_config": [
+            {"id": "train", "dataset_type": "image", "type": "local", "instance_data_dir": data,
+             "resolution": resolution, "resolution_type": "pixel_area", "caption_strategy": "textfile",
+             "cache_dir_vae": os.path.join(cache, "vae")},
+            {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
+             "cache_dir": os.path.join(cache, "text")},
+        ],
+    }
+    for kernel in kernels:
+        kernel.launches = 0
+    trainer = Trainer(config=config, device="cuda")
+    run_start = time.time()
+    trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.time() - run_start
+    train_launches = {kernel.name: kernel.launches for kernel in kernels}
+    with open(os.path.join(out, "simpletuner-tpu-metrics.jsonl")) as handle:
+        metrics = [json.loads(line) for line in handle]
+    losses = [m["loss"] for m in metrics]
+    if [m["step"] for m in metrics] != list(range(1, SDXL_TRAIN_STEPS + 1)) or not all(np.isfinite(losses)) or \
+            not all(m["grad_norm"] > 0 for m in metrics) or not all(train_launches.values()):
+        raise RuntimeError(f"{family} trainer: metrics {metrics}, launches {train_launches}")
+    if len(trainer._graphs) != 1 or trainer.model.arch != arch or trainer.vae.config != VAEConfig():
+        raise RuntimeError(f"{family} trainer: {len(trainer._graphs)} graphs, arch {trainer.model.arch}, "
+                           f"VAE {trainer.vae.config}")
+    adapted = {name.rsplit("/", 2)[-2] for name in trainer._state.trainable}
+    expected_targets = {f"{a}_{p}" for a in ("attn1", "attn2") for p in ("q", "k", "v", "proj")} if pixart \
+        else {"to_q", "to_k", "to_v", "to_out"}
+    if adapted != expected_targets:
+        raise RuntimeError(f"{family} trainer: adapters on {adapted}")
+    captures = {c["step"] for c in trainer.capture_report}
+    step_s = {m["step"]: m["time"] - prev["time"] for prev, m in zip(metrics, metrics[1:]) if m["step"] not in captures}
+    median_s = float(np.median(list(step_s.values())))
+    graphed = next(iter(trainer._graphs.values()))
+    captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
+    profile = profile_step(lambda: graphed(trainer._state, graphed.batch, trainer._generator))
+    recorded = profile["bucket_launches"]
+    replayed = {kernel.name: recorded[kernel.name] for kernel in kernels}
+    # every attention's forward, its recompute under remat, and its backward
+    expected_launches = {"flash_fwd": 2 * per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
+    if replayed != {k: captured[k] for k in replayed} or replayed != expected_launches:
+        raise RuntimeError(f"{family} trainer: the profiled replay launched {replayed}, the capture recorded "
+                           f"{captured}, expected {expected_launches}")
+    if pixart:
+        flops = pixart_step_flops(arch, 1, (latent // arch.patch_size) ** 2, txt)
+    else:
+        flops = sdxl_step_flops(arch, 1, latent, latent, txt)
+    stages = trainer.stage_report
+    heads = [arch.num_heads] if pixart else [c // arch.attention_head_dim for c, a in
+                                             zip(arch.block_out_channels, arch.cross_attention_blocks) if a]
+    phase(f"21 {family}", config=repr(arch), params=params, resolution=resolution,
+          heads=heads, head_dim=arch.head_dim if pixart else arch.attention_head_dim,
+          tokens={"text": txt, "image_level0": (latent // (arch.patch_size if pixart else 1)) ** 2},
+          attention_per_forward=per_forward, files=files, imported=imported, render=render,
+          parity={"rel_l2": parity, "bound": PARITY_REL_L2, "t": SDXL_PARITY_T, "forward_ms": forward_ms},
+          train={"base": "bf16", "remat": "every block" if pixart else "every resnet and spatial transformer",
+                 "lora_rank": 16, "lora_targets": sorted(adapted), "prediction_type": trainer.model.prediction_type,
+                 "extra": train_extra, "lora_params": sum(p.numel() for p in trainer._state.trainable.values()),
+                 "losses": losses, "grad_norms": [m["grad_norm"] for m in metrics], "step_s": step_s,
+                 "s_per_step_median": median_s, "flops_per_step": flops,
+                 "mfu": flops / median_s / PEAK_BF16_FLOPS, "run_s": run_s,
+                 "time_to_first_step_s": metrics[0]["time"] - run_start,
+                 "capture_s": [c["seconds"] for c in trainer.capture_report],
+                 "stage_s": {k: v["seconds"] for k, v in stages.items()},
+                 "peak_gib": max(v["peak_gib"] for v in stages.values()),
+                 "launches_run": train_launches, "launches_captured": captured, "launches_profiled_replay": replayed,
+                 "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "device_ms", "traced_event_ms",
+                                                     "idle_share_traced", "top_kernels")}},
+          allocated_gib_before_phase=baseline_gib, written_gb=_written_gb(), seconds=time.perf_counter() - start,
+          device=device)
+    del trainer, graphed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ddpm_families_phase(paths: dict, kernels, device: str) -> None:
+    """Phase 21: SD 1.5, SD 2.1 and PixArt-Sigma in turn (``PHASE21_MODELS``),
+    after phase 20's UNet shards and outputs are deleted (disk space, not the
+    write budget)."""
+    work = paths["work"]
+    for out in (os.path.join(work, "sdxl", "unet"), os.path.join(work, "sdxl_train"), os.path.join(work, "sdxl_cache")):
+        shutil.rmtree(out, ignore_errors=True)
+    for family, resolution, guidance, extra in PHASE21_MODELS:
+        ddpm_family_phase(family, resolution, guidance, extra, paths, kernels, device)
 
 
 def int8_cases() -> None:
@@ -2690,6 +3112,7 @@ def main() -> int:
         server_phase(phase17, smi)
         sd3_phase(checkpoints, kernels, smi)
         sdxl_phase(checkpoints, kernels, smi)
+        ddpm_families_phase(checkpoints, kernels, smi)
 
     sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
                "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}

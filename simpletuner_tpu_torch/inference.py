@@ -17,9 +17,9 @@ caller asks for the CPU):
   (``run_validations(..., force=True)``) over ``train_state.render_view``, as
   the trainer's own validation renders: the prompt encoded by the text
   encoders -> the family's sampling loop (flow Euler over Flux's or SD3's
-  DiT, DDIM or UniPC over SDXL's UNet; the Hopper flash kernel on the card;
-  SD3 and SDXL with true CFG when ``validation_guidance`` > 1) -> VAE
-  decode -> PNG;
+  DiT, DDIM or UniPC over the SDXL, SD 1.x / 2.x UNets and PixArt-Sigma's
+  DiT; the Hopper flash kernel on the card; every family but Flux with true
+  CFG when ``validation_guidance`` > 1) -> VAE decode -> PNG;
 * ``CheckpointInferenceRuntime``: the same stages without the data plane and
   the validation stages, so the text encoders stay attached and each
   ``render()`` encodes a fresh prompt.
@@ -33,7 +33,7 @@ full model (``model_type`` other than ``lora``) without a checkpoint renders
 the loaded base as it is: its train state would only add an optimizer state
 that a render never reads, and the port trains no full model (ROADMAP Queue 1
 item 7), so no full checkpoint exists to restore.  Families other than flux,
-sd3 and sdxl are refused (``models/registry.py``).
+sd3, sdxl, sd1x, sd2x and pixart_sigma are refused (``models/registry.py``).
 
     python -m simpletuner_tpu_torch.inference --config config.json --prompt "a cat" \
         [--checkpoint output/checkpoint-8] [--device cuda|cpu]

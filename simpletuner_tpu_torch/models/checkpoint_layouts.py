@@ -99,13 +99,14 @@ def sd3_checkpoint_shapes(arch) -> Dict[str, tuple]:
     return shapes
 
 
-def unet_checkpoint_shapes(arch) -> Dict[str, tuple]:
+def unet_checkpoint_shapes(arch, conv_proj: bool = False) -> Dict[str, tuple]:
     """Tensor names and torch shapes of a diffusers-layout
     ``UNet2DConditionModel`` of ``arch`` (``models/unet.py::UNetConfig``) as
     ``unet_params_from_diffusers`` reads it: a spatial transformer wherever
     ``cross_attention_blocks`` marks a level (the JAX sdxl preset marks all
     three, where the published SDXL UNet has none at level 0), Linear
-    ``proj_in`` / ``proj_out``, the time and added-conditioning MLPs."""
+    ``proj_in`` / ``proj_out`` (SD 2.x, SDXL) or, with ``conv_proj``, the 1x1
+    convs of SD 1.x, the time and added-conditioning MLPs."""
     shapes: Dict[str, tuple] = {}
     c0, time_dim = arch.block_out_channels[0], arch.block_out_channels[0] * 4
 
@@ -133,8 +134,11 @@ def unet_checkpoint_shapes(arch) -> Dict[str, tuple]:
 
     def spatial(src, channels, depth):
         norm(f"{src}.norm", channels)
-        linear(f"{src}.proj_in", channels, channels)
-        linear(f"{src}.proj_out", channels, channels)
+        for proj in ("proj_in", "proj_out"):
+            if conv_proj:
+                conv(f"{src}.{proj}", channels, channels, 1)
+            else:
+                linear(f"{src}.{proj}", channels, channels)
         for i in range(depth):
             block = f"{src}.transformer_blocks.{i}"
             for attn, context in (("attn1", channels), ("attn2", arch.cross_attention_dim)):
@@ -182,6 +186,39 @@ def unet_checkpoint_shapes(arch) -> Dict[str, tuple]:
             conv(f"up_blocks.{u}.upsamplers.0.conv", out_ch, out_ch, 3)
     norm("conv_norm_out", channels)
     conv("conv_out", arch.out_channels, channels, 3)
+    return shapes
+
+
+def pixart_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers ``PixArtTransformer2DModel``
+    of ``arch`` (``models/pixart/transformer.py::PixartConfig``) as
+    ``pixart_params_from_diffusers`` reads it: the patchify conv, the caption
+    projection, adaLN-single, the per-block and final scale-shift tables;
+    every linear has a bias."""
+    dim, p, inner = arch.hidden_size, arch.patch_size, arch.num_heads * arch.head_dim
+    ffn = int(dim * arch.ffn_ratio)
+    shapes: Dict[str, tuple] = {"pos_embed.proj.weight": (dim, arch.in_channels, p, p), "pos_embed.proj.bias": (dim,)}
+
+    def linear(name, out_features, in_features):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        shapes[f"{name}.bias"] = (out_features,)
+
+    linear("caption_projection.linear_1", dim, arch.text_dim)
+    linear("caption_projection.linear_2", dim, dim)
+    linear("adaln_single.emb.timestep_embedder.linear_1", dim, 256)
+    linear("adaln_single.emb.timestep_embedder.linear_2", dim, dim)
+    linear("adaln_single.linear", 6 * dim, dim)
+    for i in range(arch.depth):
+        block = f"transformer_blocks.{i}"
+        shapes[f"{block}.scale_shift_table"] = (6, dim)
+        for attn in ("attn1", "attn2"):
+            for proj in ("to_q", "to_k", "to_v"):
+                linear(f"{block}.{attn}.{proj}", inner, dim)
+            linear(f"{block}.{attn}.to_out.0", dim, inner)
+        linear(f"{block}.ff.net.0.proj", ffn, dim)
+        linear(f"{block}.ff.net.2", dim, ffn)
+    shapes["scale_shift_table"] = (2, dim)
+    linear("proj_out", p * p * arch.effective_out_channels, dim)
     return shapes
 
 

@@ -59,6 +59,12 @@ class CLIPTextConfig:
                    hidden_act="gelu")
 
     @classmethod
+    def open_clip_h(cls) -> "CLIPTextConfig":
+        """OpenCLIP ViT-H/14's text tower in the HF layout, SD 2.x's ``text_encoder`` (340M parameters)."""
+        return cls(hidden_size=1024, intermediate_size=4096, num_hidden_layers=23, num_attention_heads=16,
+                   hidden_act="gelu")
+
+    @classmethod
     def tiny(cls, hidden_size: int = 32, max_position_embeddings: int = 77) -> "CLIPTextConfig":
         """The JAX package's tiny test encoder (text_encoders.py:69-76; HF's default eos id)."""
         return cls(vocab_size=1000, hidden_size=hidden_size, intermediate_size=64, num_hidden_layers=2,

@@ -50,6 +50,7 @@ from ..training.losses import (
     velocity_target,
 )
 from ..training.quantization import resolve_precision, resolve_quantized_matmul
+from .layers import apply_lora_target, set_quantized_matmul
 
 # config keys whose training features are not ported: each must be unset
 _UNPORTED_TRAINING = (
@@ -91,6 +92,10 @@ class ModelFoundation:
     DDPM_BETA_START: float = 0.00085
     DDPM_BETA_END: float = 0.012
     DDPM_BETA_SCHEDULE: str = "scaled_linear"
+    # the config prefix of the family's staged (base/refiner, stage-1/stage-2)
+    # validation mode, as the JAX TwoStageValidationMixin reads it: "sdxl" or
+    # "pixart"; "" for a family without one
+    STAGED_VALIDATION_PREFIX: str = ""
 
     @classmethod
     def get_acceleration_presets(cls) -> List[Dict[str, Any]]:
@@ -160,6 +165,27 @@ class ModelFoundation:
     @property
     def lora_alpha(self) -> Optional[float]:
         return getattr(self.config, "lora_alpha", None)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype: bf16 under ``mixed_precision: bf16`` (the default), else f32."""
+        return torch.bfloat16 if getattr(self.config, "mixed_precision", "bf16") == "bf16" else torch.float32
+
+    def build_module(self, module_cls: Callable[..., nn.Module], **extra: Any) -> nn.Module:
+        """``module_cls`` of the family's arch with LoRA adapters on every
+        ``LoRADense`` the targets allow (f32 masters, B = 0 at init), the
+        ``gradient_checkpointing`` remat and the int8 product mode of a
+        quantized base (the base itself is quantized by
+        ``create_train_state(quantize_mode=model.base_precision)`` after the
+        weights are set, as in the JAX trainer)."""
+        rank = self.lora_rank
+        module = module_cls(config=self.arch, dtype=self.dtype, lora_rank=rank, lora_alpha=self.lora_alpha,
+                            lora_algo=self.lora_algo if rank else "lora",
+                            remat=bool(getattr(self.config, "gradient_checkpointing", False)), **extra)
+        set_quantized_matmul(module, self.quantized_matmul)
+        if rank:
+            apply_lora_target(module, self._build_lora_target_predicate())
+        return module
 
     # ---- quantized frozen base -----------------------------------------------------------
     @property
@@ -430,6 +456,20 @@ class ModelFoundation:
             return self.model_predict(module, prepared)
 
         return fn
+
+    def supports_multistage_validation(self) -> bool:
+        """True in ``<prefix>_validation_pipeline_mode: full-pipeline`` (which
+        ``Validation`` refuses, ROADMAP Queue 1 item 4d), as the JAX mixin
+        decides it: not with ``validation_using_datasets`` or a ControlNet."""
+        if not self.STAGED_VALIDATION_PREFIX:
+            return False
+        field = f"{self.STAGED_VALIDATION_PREFIX}_validation_pipeline_mode"
+        mode = str(getattr(self.config, field, None) or "trained-stage").strip().lower()
+        if mode not in ("trained-stage", "full-pipeline"):
+            raise ValueError(f"{field} must be one of: full-pipeline, trained-stage")
+        if mode != "full-pipeline" or getattr(self.config, "validation_using_datasets", False):
+            return False
+        return not (getattr(self.config, "controlnet", False) or getattr(self.config, "control", False))
 
     def check_user_config(self) -> None:
         """Family-specific config validation (``get_model_family`` calls it);

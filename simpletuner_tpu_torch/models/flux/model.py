@@ -19,7 +19,6 @@ import torch
 from torch import nn
 
 from ..common import ModelFoundation, TextEncoderSpec
-from ..layers import apply_lora_target, set_quantized_matmul
 from .transformer import (
     FluxConfig,
     FluxTransformer,
@@ -106,10 +105,6 @@ class Flux(ModelFoundation):
     def latent_channels(self) -> int:
         return self.arch.in_channels // 4  # 2x2 packing
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return torch.bfloat16 if getattr(self.config, "mixed_precision", "bf16") == "bf16" else torch.float32
-
     def family_lora_targets(self):
         preset = getattr(self.config, "flux_lora_target", None) or "all"
         if preset == "controlnet":
@@ -128,23 +123,13 @@ class Flux(ModelFoundation):
         quantized by ``create_train_state(quantize_mode=model.base_precision)``,
         after the weights are initialised or loaded, as in the JAX trainer."""
         cfg = self.config
-        rank = self.lora_rank
-        module = FluxTransformer(
-            config=self.arch,
-            dtype=self.dtype,
-            lora_rank=rank,
-            lora_alpha=self.lora_alpha,
-            lora_algo=self.lora_algo if rank else "lora",
-            lora_mod_layers=rank > 0 and getattr(cfg, "flux_lora_target", None) == "ai-toolkit",
-            remat=bool(getattr(cfg, "gradient_checkpointing", False)),
+        return self.build_module(
+            FluxTransformer,
+            lora_mod_layers=self.lora_rank > 0 and getattr(cfg, "flux_lora_target", None) == "ai-toolkit",
             remat_policy=getattr(cfg, "gradient_checkpointing_policy", None) or "full",
             remat_skip_last=int(getattr(cfg, "gradient_checkpointing_skip_last", 0) or 0),
             remat_interval=int(getattr(cfg, "gradient_checkpointing_interval", 0) or 1),
         )
-        set_quantized_matmul(module, self.quantized_matmul)
-        if rank:
-            apply_lora_target(module, self._build_lora_target_predicate())
-        return module
 
     def prepare_batch(self, generator: torch.Generator, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         prepared = super().prepare_batch(generator, batch)

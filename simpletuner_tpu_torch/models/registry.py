@@ -4,9 +4,10 @@ Counterpart of ``simpletuner_tpu/models/registry.py``: ``ModelRegistry``
 (``families``, ``metadata``, ``get``, ``create``) over a copy of the JAX
 registry's family table and aliases, and ``get_model_family``, which builds
 the family a config names.  Every family of the JAX registry is listed with
-its metadata; ``flux``, ``sd3`` and ``sdxl`` are ported, so ``get`` of any
-other family raises naming ROADMAP Queue 1 item 6, and an unknown name raises ``KeyError``
-as in the JAX registry.
+its metadata; ``flux``, ``sd3``, ``sdxl``, ``sd1x``, ``sd2x`` and
+``pixart_sigma`` are ported (with the JAX aliases ``sd15``, ``sd21`` and
+``pixart``), so ``get`` of any other family raises naming ROADMAP Queue 1
+item 6, and an unknown name raises ``KeyError`` as in the JAX registry.
 """
 
 from __future__ import annotations
@@ -59,6 +60,8 @@ _FAMILIES: Dict[str, Dict[str, str]] = {
 # the JAX registry's aliases (:53-59)
 ALIASES = {"sd15": "sd1x", "sd21": "sd2x", "pixart": "pixart_sigma", "ltx2": "ltxvideo2",
            "kandinsky5-image": "kandinsky5_image"}
+# the families the port builds
+PORTED = ("flux", "sd3", "sdxl", "sd1x", "sd2x", "pixart_sigma")
 
 
 class ModelRegistry:
@@ -89,8 +92,16 @@ class ModelRegistry:
             from .sdxl import SDXL
 
             return SDXL
-        raise NotImplementedError(
-            f"model_family={name!r} is not ported (only flux, sd3 and sdxl; ROADMAP Queue 1 item 6)")
+        if family in ("sd1x", "sd2x"):
+            from .sd1x import SD1x, SD2x
+
+            return SD1x if family == "sd1x" else SD2x
+        if family == "pixart_sigma":
+            from .pixart import PixartSigma
+
+            return PixartSigma
+        raise NotImplementedError(f"model_family={name!r} is not ported (only {', '.join(PORTED)}; "
+                                  "ROADMAP Queue 1 item 6)")
 
     @staticmethod
     def create(name: str, config: Any):

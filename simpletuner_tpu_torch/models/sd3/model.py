@@ -20,7 +20,6 @@ import torch
 from torch import nn
 
 from ..common import ModelFoundation, TextEncoderSpec
-from ..layers import apply_lora_target, set_quantized_matmul
 from .transformer import SD3Config, SD3Transformer
 
 
@@ -63,28 +62,12 @@ class SD3(ModelFoundation):
     def latent_channels(self) -> int:
         return self.arch.in_channels
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return torch.bfloat16 if getattr(self.config, "mixed_precision", "bf16") == "bf16" else torch.float32
-
     def create_module(self) -> SD3Transformer:
         """The transformer, with LoRA adapters on every ``LoRADense`` the
         targets allow (f32 masters, B = 0 at init), whole-block remat and the
         int8 product mode of a quantized base (stored quantized by
         ``create_train_state``)."""
-        rank = self.lora_rank
-        module = SD3Transformer(
-            config=self.arch,
-            dtype=self.dtype,
-            lora_rank=rank,
-            lora_alpha=self.lora_alpha,
-            lora_algo=self.lora_algo if rank else "lora",
-            remat=bool(getattr(self.config, "gradient_checkpointing", False)),
-        )
-        set_quantized_matmul(module, self.quantized_matmul)
-        if rank:
-            apply_lora_target(module, self._build_lora_target_predicate())
-        return module
+        return self.build_module(SD3Transformer)
 
     def example_batch(self, batch_size: int = 1, resolution: int = 64, device=None) -> Dict[str, torch.Tensor]:
         latent = resolution // 8

@@ -25,13 +25,10 @@ import torch
 from torch import nn
 
 from ..common import ModelFoundation, TextEncoderSpec
-from ..layers import apply_lora_target, set_quantized_matmul
 from ..unet import UNet2DCondition, UNetConfig, make_sdxl_added_cond
 
-_PIPELINE_MODES = ("trained-stage", "full-pipeline")
-
-
 class SDXL(ModelFoundation):
+    STAGED_VALIDATION_PREFIX = "sdxl"
     NAME = "sdxl"
     PREDICTION_TYPE = "epsilon"
     MODEL_TYPE = "unet"
@@ -64,10 +61,6 @@ class SDXL(ModelFoundation):
         return self.arch.in_channels
 
     @property
-    def dtype(self) -> torch.dtype:
-        return torch.bfloat16 if getattr(self.config, "mixed_precision", "bf16") == "bf16" else torch.float32
-
-    @property
     def _is_refiner(self) -> bool:
         return bool(self.flavour and "refiner" in str(self.flavour))
 
@@ -93,19 +86,7 @@ class SDXL(ModelFoundation):
         allow (the attention projections and the GEGLU feed-forward carry a
         rank; f32 masters, B = 0 at init), remat of every resnet and spatial
         transformer, and the int8 product mode of a quantized base."""
-        rank = self.lora_rank
-        module = UNet2DCondition(
-            config=self.arch,
-            dtype=self.dtype,
-            lora_rank=rank,
-            lora_alpha=self.lora_alpha,
-            lora_algo=self.lora_algo if rank else "lora",
-            remat=bool(getattr(self.config, "gradient_checkpointing", False)),
-        )
-        set_quantized_matmul(module, self.quantized_matmul)
-        if rank:
-            apply_lora_target(module, self._build_lora_target_predicate())
-        return module
+        return self.build_module(UNet2DCondition)
 
     def example_batch(self, batch_size: int = 1, resolution: int = 64, device=None) -> Dict[str, torch.Tensor]:
         latent = resolution // 8
@@ -156,17 +137,6 @@ class SDXL(ModelFoundation):
             "pooled_embeds": batch["pooled_embeds"],
             "time_ids": self._default_time_ids(float(latents.shape[1] * 8), latents.shape[0], latents.device),
         }
-
-    # ---- staged base/refiner validation ---------------------------------------------------
-    def supports_multistage_validation(self) -> bool:
-        """True in ``sdxl_validation_pipeline_mode: full-pipeline`` (which
-        ``Validation`` refuses, 4d), as the JAX mixin decides it."""
-        mode = str(getattr(self.config, "sdxl_validation_pipeline_mode", None) or "trained-stage").strip().lower()
-        if mode not in _PIPELINE_MODES:
-            raise ValueError(f"sdxl_validation_pipeline_mode must be one of: {', '.join(sorted(_PIPELINE_MODES))}")
-        if mode != "full-pipeline" or getattr(self.config, "validation_using_datasets", False):
-            return False
-        return not (getattr(self.config, "controlnet", False) or getattr(self.config, "control", False))
 
     # ---- host-side text encoding ------------------------------------------------------------
     def encode_text(self, prompts: Sequence[str]) -> List[Dict[str, np.ndarray]]:

@@ -11,10 +11,13 @@ checkpoint layouts are read:
 * **diffusers** model dirs (``transformer/*.safetensors``,
   ``transformer_blocks.*``, split ``attn.to_q``).
 
-SD3 / SD3.5 read the diffusers ``SD3Transformer2DModel`` layout, and SDXL the
-diffusers ``UNet2DConditionModel`` layout (``unet/``), level for level as the
-JAX preset builds it: attention wherever ``cross_attention_blocks`` marks a
-level, so ``down_blocks.0.attentions.*`` too (ROADMAP Queue 3).
+SD3 / SD3.5 read the diffusers ``SD3Transformer2DModel`` layout; SDXL, SD 1.x
+and SD 2.x the diffusers ``UNet2DConditionModel`` layout (``unet/``), level
+for level as the JAX presets build it: attention wherever
+``cross_attention_blocks`` marks a level, so SDXL's
+``down_blocks.0.attentions.*`` too (ROADMAP Queue 3), and SD 1.x's 1x1-conv
+``proj_in`` / ``proj_out`` read as dense kernels; PixArt-Sigma the diffusers
+``PixArtTransformer2DModel`` layout (``transformer/``).
 
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
 keeps f32 and bf16 leaves in the file's dtype (``_float``), takes fp8 (e4m3)
@@ -28,8 +31,9 @@ tensors; the bridge transposes them back.
 The safetensors reader and writer are the port's own (stdlib, numpy and
 torch): an 8-byte little-endian header length, a JSON header, raw
 little-endian bytes.  Files are memory-mapped copy-on-write, so a tensor is
-read from disk when it is first used.  Only the ``flux``, ``sd3`` and
-``sdxl`` families import; every other family raises.
+read from disk when it is first used.  Only the ``flux``, ``sd3``, ``sdxl``,
+``sd1x``, ``sd2x`` and ``pixart_sigma`` families import; every other family
+raises.
 """
 
 from __future__ import annotations
@@ -652,10 +656,57 @@ def load_unet_params(model, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# PixArt (diffusers PixArtTransformer2DModel: pos_embed.proj conv, caption_projection
+# gelu MLP, adaln_single, per-block scale_shift_table + attn1/attn2/ff)
+# ---------------------------------------------------------------------------------
+
+
+def pixart_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a diffusers PixArt transformer of ``arch``
+    (``PixartConfig``): the patchify conv as a (p, p, C) -> dim dense kernel,
+    the tables reshaped to (6, dim) and (2, dim)."""
+    w = weights
+    dim = arch.hidden_size
+    conv = _float(w["pos_embed.proj.weight"])  # (dim, C, p, p)
+    params: Dict[str, Any] = {
+        "patch_in": {"kernel": conv.permute(2, 3, 1, 0).reshape(-1, dim), "bias": _float(w["pos_embed.proj.bias"])},
+        "caption_in_1": _linear(w, "caption_projection.linear_1"),
+        "caption_in_2": _linear(w, "caption_projection.linear_2"),
+        "time_in": {
+            "in_layer": _linear(w, "adaln_single.emb.timestep_embedder.linear_1"),
+            "out_layer": _linear(w, "adaln_single.emb.timestep_embedder.linear_2"),
+        },
+        "time_proj": _linear(w, "adaln_single.linear"),
+        "final_scale_shift_table": _float(w["scale_shift_table"]).reshape(2, dim),
+        "final_proj": _linear(w, "proj_out"),
+    }
+    table = (("attn1_q", "attn1.to_q"), ("attn1_k", "attn1.to_k"), ("attn1_v", "attn1.to_v"),
+             ("attn1_proj", "attn1.to_out.0"), ("attn2_q", "attn2.to_q"), ("attn2_k", "attn2.to_k"),
+             ("attn2_v", "attn2.to_v"), ("attn2_proj", "attn2.to_out.0"), ("ff_in", "ff.net.0.proj"),
+             ("ff_out", "ff.net.2"))
+    for i in range(arch.depth):
+        src = f"transformer_blocks.{i}"
+        block: Dict[str, Any] = {"scale_shift_table": _float(w[f"{src}.scale_shift_table"]).reshape(6, dim)}
+        for ours, theirs in table:
+            block[ours] = _linear(w, f"{src}.{theirs}")
+        params[f"block_{i}"] = block
+    return params
+
+
+def load_pixart_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a diffusers PixArt transformer (a
+    model dir with a ``transformer/`` subfolder, or one file)."""
+    params = pixart_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported pixart weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
-_IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_unet_params}
+_IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_unet_params, "sd1x": load_unet_params,
+              "sd2x": load_unet_params, "pixart_sigma": load_pixart_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:
@@ -667,7 +718,7 @@ def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:
     importer = _IMPORTERS.get(model.NAME)
     if importer is None:
         raise NotImplementedError(
-            f"no weight importer for family {model.NAME!r} in the port (only flux, sd3 and sdxl; the other "
-            "families are ROADMAP Queue 1 item 6)"
+            f"no weight importer for family {model.NAME!r} in the port (only {', '.join(_IMPORTERS)}; the "
+            "other families are ROADMAP Queue 1 item 6)"
         )
     return load_flax_params(module, importer(model, path), keep_adapters=True)

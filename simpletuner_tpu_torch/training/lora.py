@@ -1,9 +1,9 @@
 """LoRA key maps and adapter files in the PEFT (diffusers) and ComfyUI layouts.
 
 The torch port's copy of the part of ``simpletuner_tpu/training/lora.py`` it
-uses: ``flux_key_map`` (lora.py:76), ``unet_key_map`` (lora.py:116),
-``sd3_key_map`` (lora.py:158) and
-``_key_map_for`` (lora.py:680), which resolve the LoRA target presets and
+uses: ``flux_key_map`` (lora.py:76), ``unet_key_map`` (lora.py:116; sdxl,
+sd1x and sd2x), ``sd3_key_map`` (lora.py:158), ``pixart_key_map``
+(lora.py:336) and ``_key_map_for`` (lora.py:680), which resolve the LoRA target presets and
 name the adapters of an export (the maps leave ``patch_in`` and
 ``context_in`` under their own names, as the JAX export does),
 and the plain-LoRA path of the adapter files: ``lora_state_dict`` (:693),
@@ -116,11 +116,32 @@ def sd3_key_map(arch) -> Dict[str, Any]:
     return mapping
 
 
+def pixart_key_map(arch) -> Dict[str, Any]:
+    mapping: Dict[str, Any] = {
+        "caption_in_1": "caption_projection.linear_1",
+        "caption_in_2": "caption_projection.linear_2",
+    }
+    table = {
+        "attn1_q": "attn1.to_q", "attn1_k": "attn1.to_k", "attn1_v": "attn1.to_v",
+        "attn1_proj": "attn1.to_out.0",
+        "attn2_q": "attn2.to_q", "attn2_k": "attn2.to_k", "attn2_v": "attn2.to_v",
+        "attn2_proj": "attn2.to_out.0",
+        "ff_in": "ff.net.0.proj", "ff_out": "ff.net.2",
+    }
+    for layer in range(arch.depth):
+        for ours, theirs in table.items():
+            mapping[f"block_{layer}/{ours}"] = f"transformer_blocks.{layer}.{theirs}"
+    return mapping
+
+
 # family name -> key map builder, for the families the port has
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
-    "sd3": lambda m: sd3_key_map(m.arch),
+    "sd1x": lambda m: unet_key_map(m.arch),
+    "sd2x": lambda m: unet_key_map(m.arch),
     "sdxl": lambda m: unet_key_map(m.arch),
+    "sd3": lambda m: sd3_key_map(m.arch),
+    "pixart_sigma": lambda m: pixart_key_map(m.arch),
 }
 
 

@@ -124,8 +124,7 @@ class Validation:
         for key in _UNPORTED:
             if getattr(config, key, None):
                 raise NotImplementedError(f"{key} is not ported (ROADMAP Queue 1 item 4d)")
-        staged = getattr(model, "supports_multistage_validation", None)
-        if callable(staged) and staged():
+        if model.supports_multistage_validation():
             raise NotImplementedError("staged (full-pipeline) validation renders are not ported "
                                       "(ROADMAP Queue 1 item 4d)")
         method = str(getattr(config, "validation_method", None) or "simpletuner-local").strip().lower()

@@ -80,9 +80,10 @@ def test_the_port_imports_nothing_of_the_jax_package():
     count, loaded = result.stdout.strip().splitlines()[-1].split(" ", 1)
     names = [m.name for m in pkgutil.walk_packages(simpletuner_tpu_torch.__path__, "simpletuner_tpu_torch.")]
     assert int(count) == len(names) and loaded == "[]"
-    # the SDXL slice's modules are among those imported
+    # the SDXL slice's modules and the SD 1.x / 2.x and PixArt-Sigma ones are among those imported
     assert {f"simpletuner_tpu_torch.{name}" for name in (
-        "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc")} <= set(names)
+        "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc", "models.sd1x",
+        "models.sd1x.model", "models.pixart", "models.pixart.model", "models.pixart.transformer")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -521,7 +522,7 @@ def test_model_registry_refuses_other_families():
     assert isinstance(get_model_family(TrainingConfig({"model_family": "sdxl"})), SDXL)
     with pytest.raises(ValueError, match="epsilon"):
         get_model_family(TrainingConfig({"model_family": "sdxl", "prediction_type": "flow_matching"}))
-    for family in ("sd1x", "sd15", "kolors", "wan"):
+    for family in ("kolors", "auraflow", "wan"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):
@@ -548,8 +549,13 @@ def test_model_registry_matches():
     from simpletuner_tpu_torch.models.sd3 import SD3
 
     assert ModelRegistry.get("flux") is Flux and ModelRegistry.get("sd3") is SD3
+    from simpletuner_tpu_torch.models.pixart import PixartSigma
+    from simpletuner_tpu_torch.models.sd1x import SD1x, SD2x
+
+    assert ModelRegistry.get("sd15") is SD1x and ModelRegistry.get("sd21") is SD2x
+    assert ModelRegistry.get("pixart") is ModelRegistry.get("pixart_sigma") is PixartSigma
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        ModelRegistry.get("sd15")
+        ModelRegistry.get("kolors")
     for registry in (ModelRegistry, JaxModelRegistry):
         with pytest.raises(KeyError):
             registry.metadata("nope")

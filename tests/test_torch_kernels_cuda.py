@@ -373,6 +373,94 @@ def test_tiny_sdxl_unet_on_the_card_matches_its_cpu_run(cuda):
     assert ((grad_card - grad_cpu).norm() / grad_cpu.norm()).item() <= 5e-2
 
 
+# SD 1.5, SD 2.1 and PixArt-Sigma at their published sizes: PixArt's 1024 px
+# self-attention at D = 72 (zero-padded to 128, scaled by 72^-0.5) and its
+# cross-attention against 300 T5 keys with no caller mask (the last key tile
+# ragged); SD 2.1's 768 px level 2 (576 tokens, 4.5 key tiles: both Sq and
+# Sk ragged) and level 0 (9216 tokens); SD 1.5's 512 px level 2 (256 tokens)
+DDPM_FAMILY_CASES = [("pixart_self", 1, 16, 4096, 4096, 72), ("pixart_cross_t5_300", 1, 16, 4096, 300, 72),
+                     ("sd21_level2_576", 1, 20, 576, 576, 64), ("sd21_level0_9216", 1, 5, 9216, 9216, 64),
+                     ("sd15_level2_256", 1, 20, 256, 256, 64)]
+
+
+@pytest.mark.parametrize("name,batch,heads,sq,sk,dim", DDPM_FAMILY_CASES, ids=[c[0] for c in DDPM_FAMILY_CASES])
+def test_kernels_at_the_sd15_sd21_pixart_shapes(cuda, name, batch, heads, sq, sk, dim):
+    """Forward and both backward kernels against the plain versions, in the
+    dispatcher's (B, S, H, D) layout as the UNet and the DiT call them; the
+    padded head dims never reach the output (its last dim is the caller's)."""
+    q, k, v = _qkv(50 + heads + sk % 7, batch, heads, sq, sk, dim, cuda)
+    strided = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    out, lse = _check(*strided)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    dq, dk, dv = _check_backward(*strided, seed=50 + heads)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    _assert_out_close(dot_product_attention(*(x.transpose(1, 2) for x in strided),
+                                            backend="pallas_flash").transpose(1, 2), mha_reference_lse(q, k, v)[0])
+
+
+def _card_against_cpu(cpu, card, inputs, weight, device):
+    """Prediction and LoRA gradients of a linear loss: the bf16 module through
+    the kernels on the card against the f32 module on the CPU (plain
+    attention), within 5e-2 relative L2, the full-width parity bound of
+    chip_smoke.py (bf16 rounds every product and the residual stream)."""
+    from simpletuner_tpu_torch.models.layers import freeze_base
+
+    with torch.no_grad():  # LoRA B starts at zero: give it a draw so the adapters reach the output
+        for name, param in cpu.named_parameters():
+            if name.endswith("lora_B"):
+                param.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
+    card.load_state_dict(cpu.state_dict())
+    results = []
+    for module, where in ((cpu, "cpu"), (card, device)):
+        params = freeze_base(module)
+        out = module(*[x.to(where) for x in inputs])
+        grads = torch.autograd.grad((out * weight.to(where)).sum(), list(params.values()))
+        results.append((out.float().cpu(), torch.cat([g.float().flatten().cpu() for g in grads])))
+    (out_cpu, grad_cpu), (out_card, grad_card) = results
+    assert torch.isfinite(out_card).all() and torch.isfinite(grad_card).all()
+    assert ((out_card - out_cpu).norm() / out_cpu.norm()).item() <= 5e-2
+    assert ((grad_card - grad_cpu).norm() / grad_cpu.norm()).item() <= 5e-2
+
+
+def test_tiny_sd2x_unet_on_the_card_matches_its_cpu_run(cuda):
+    """The tiny UNet of the sd2x family (head dim 16, padded) with remat, on
+    a 40 x 40 latent (1600 and 400 ragged tokens) against its CPU run."""
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.sd1x import SD2x
+
+    model = SD2x(config_namespace({"model_family": "sd2x", "model_arch_preset": "tiny", "model_type": "lora",
+                                   "lora_rank": 4, "gradient_checkpointing": True, "mixed_precision": "no"}))
+    cpu = init_parameters(model.create_module(), torch.Generator().manual_seed(0))
+    model.config.mixed_precision = "bf16"
+    with torch.device(cuda):
+        card = model.create_module()
+    gen = torch.Generator().manual_seed(2)
+    inputs = [torch.randn((2, 40, 40, 4), generator=gen), torch.tensor([999, 250]),
+              torch.randn((2, 77, 32), generator=gen)]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 40, 40, 4), generator=gen), cuda)
+
+
+def test_tiny_pixart_on_the_card_matches_its_cpu_run(cuda):
+    """A tiny PixArt DiT at head dim 72 (padded to 128) with the learned-range
+    head, remat, 900 ragged image tokens and 300 unmasked caption tokens,
+    against its CPU run."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.pixart import PixartConfig, PixartTransformer
+
+    cfg = dataclasses.replace(PixartConfig.tiny(), num_heads=2, head_dim=72, hidden_size=144, out_channels=8)
+    cpu = init_parameters(PixartTransformer(cfg, dtype=torch.float32, lora_rank=4, remat=True),
+                          torch.Generator().manual_seed(0))
+    with torch.device(cuda):
+        card = PixartTransformer(cfg, dtype=torch.bfloat16, lora_rank=4, remat=True)
+    gen = torch.Generator().manual_seed(3)
+    inputs = [torch.randn((2, 60, 60, 4), generator=gen), torch.tensor([999, 250]),
+              torch.randn((2, 300, cfg.text_dim), generator=gen)]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 60, 60, 4), generator=gen), cuda)
+
+
 def test_sd3_blocks_on_the_card_match_the_plain_attention(cuda):
     """Two SD3.5 Large blocks at full width, 512 px (333 text + 1024 image
     tokens): velocity and LoRA gradients through the kernels against the

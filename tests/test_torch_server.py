@@ -9,12 +9,13 @@ are normalised.  Routes that differ by design are named in ``DIFFERS`` and
 checked for what the port answers instead: ``/api/optimizers`` (the port's
 registry), ``/api/version`` and ``/api/system`` (torch, CUDA and the card),
 ``/api/hardware`` (the ``torch.cuda`` devices), ``/api/models/<f>/presets``
-(the port's presets: ``sd3``'s and ``sdxl``'s are the JAX ones without the
-mesh preset; 501 for a family it does not train) and a job's logs
+(the port's presets: ``sd3``'s, ``sdxl``'s, ``sd1x``'s, ``sd2x``'s and
+``pixart_sigma``'s are the JAX ones without the mesh preset; 501 for a family
+it does not train) and a job's logs
 (the spawned command: ``python -m simpletuner_tpu_torch.train --config ...
 --device cpu``).  On the port's server alone: a tiny-Flux job completes and
 its LoRA is bitwise the one an in-process ``Trainer`` trains from the same
-config; an ``sd1x`` job fails with a log line naming ROADMAP Queue 1 item 6;
+config; a ``kolors`` job fails with a log line naming ROADMAP Queue 1 item 6;
 a running job takes a checkpoint signal and is cancelled.
 """
 
@@ -53,7 +54,8 @@ VOLATILE = {"job_id", "approval_id", "token", "time", "mtime", "id", "scan_id", 
 JAX_LYCORIS = copy.deepcopy(jax_configure_tui.LYCORIS_ALGORITHMS)
 # the routes whose answers differ by design (checked on their own below)
 DIFFERS = ("/api/optimizers", "/api/version", "/api/system", "/api/hardware", "/api/models/flux/presets",
-           "/api/models/sd3/presets", "/api/models/sdxl/presets", "/api/training/logs/<id>")
+           "/api/models/sd3/presets", "/api/models/sdxl/presets", "/api/models/sd1x/presets",
+           "/api/models/sd2x/presets", "/api/models/pixart_sigma/presets", "/api/training/logs/<id>")
 
 
 def _start(factory, state, **kwargs):
@@ -370,7 +372,7 @@ def test_configs_extras_datasets_themes_and_git(pair, tmp_path, monkeypatch):
             break
         time.sleep(0.2)
     pair.both("GET", "/api/datasets/scan/status?scan_id={scan}")
-    pair.both("GET", "/api/datasets/viewer/summary?path=myset")
+    _compare_viewer_summary(pair, "myset")
     datasets = [{"id": "train", "type": "local", "dataset_type": "image", "instance_data_dir": "/data"},
                 {"id": "embeds", "type": "local", "dataset_type": "text_embeds", "default": True}]
     pair.both("POST", "/api/datasets/plan/save", {"datasets": datasets})
@@ -392,6 +394,56 @@ def test_configs_extras_datasets_themes_and_git(pair, tmp_path, monkeypatch):
     pair.both("POST", "/api/git/snapshot", {"message": "first"})
     pair.both("GET", "/api/git/history")
     pair.both("POST", "/api/inference/start", {"prompt": "x"})
+
+
+def _folder_bytes(folder):
+    return sum(os.path.getsize(os.path.join(base, name)) for base, _, names in os.walk(folder) for name in names)
+
+
+def _compare_viewer_summary(pair, name):
+    """``total_bytes`` sums every file of the folder, the scan's
+    ``.st_buckets.json`` too, whose ``updated_at`` is ``time.time()`` written
+    as its shortest repr: one digit more or less from run to run.  So each
+    side's ``total_bytes`` is held exactly to its own folder, and the two
+    answers, each with its bucket cache's size taken off, are compared whole."""
+    answers = pair.both("GET", f"/api/datasets/viewer/summary?path={name}", compare=False)
+    for side, (status, summary) in answers.items():
+        folder = pair.states[side] / "datasets" / name
+        assert status == 200 and summary["total_bytes"] == _folder_bytes(folder), side
+        summary["total_bytes"] -= os.path.getsize(folder / ".st_buckets.json")
+    assert pair._normalise("port", answers["port"]) == pair._normalise("jax", answers["jax"])
+
+
+def test_viewer_summary_bytes_follow_the_bucket_cache_timestamp(tmp_path, monkeypatch):
+    """The run-dependent part of the viewer summary: the scan's bucket cache
+    written at two times whose shortest reprs differ in length gives
+    ``total_bytes`` that differ by exactly that length, in both packages."""
+    import importlib
+
+    stamps = (1792238038.25, 1792238038.2251427)  # reprs of 13 and 18 characters
+    for package in ("simpletuner_tpu", "simpletuner_tpu_torch"):
+        local = importlib.import_module(f"{package}.data.backends.local")
+        buckets = importlib.import_module(f"{package}.data.buckets")
+        metadata = importlib.import_module(f"{package}.data.metadata")
+        service = importlib.import_module(f"{package}.server.datasets").DatasetService(str(tmp_path / package))
+        folder = os.path.join(service.root, "set")
+        os.makedirs(folder)
+        for i in range(2):
+            with open(os.path.join(folder, f"img_{i}.png"), "wb") as handle:
+                handle.write(_png_bytes(i))
+        sizes = []
+        for stamp in stamps:  # what ScanRunner.start's thread runs, at a fixed time
+            meta = metadata.MetadataBackend(
+                "scan", local.LocalDataBackend("scan", instance_data_dir=folder),
+                buckets.BucketConfig(resolution=64, resolution_type="pixel_area"), instance_data_dir=folder,
+                cache_file=os.path.join(folder, ".st_buckets.json"),
+                metadata_file=os.path.join(folder, ".st_metadata.json"))
+            meta.discover()
+            monkeypatch.setattr(metadata.time, "time", lambda stamp=stamp: stamp)
+            meta.save_cache()
+            monkeypatch.undo()
+            sizes.append(service.summary("set")["total_bytes"])
+        assert sizes[1] - sizes[0] == len(repr(stamps[1])) - len(repr(stamps[0])) == 5, package
 
 
 def test_cli_platform_commands_against_both_servers(pair, capsys):
@@ -434,12 +486,14 @@ def test_routes_that_differ_by_design(pair):
     assert sd3["port"][0] == sd3["jax"][0] == 200
     jax_presets = [(p["name"], p["config"]) for p in sd3["jax"][1] if p["name"] != "multichip"]  # a mesh: item 5
     assert [(p["name"], p["config"]) for p in sd3["port"][1]] == jax_presets and len(jax_presets) == 3
-    sdxl = pair.both("GET", "/api/models/sdxl/presets", compare=False)
-    assert sdxl["port"][0] == sdxl["jax"][0] == 200
-    assert [(p["name"], p["config"]) for p in sdxl["port"][1]] == [
-        (p["name"], p["config"]) for p in sdxl["jax"][1] if p["name"] != "multichip"]
-    assert pair.both("GET", "/api/models/sd1x/presets", compare=False)["port"] == (
-        501, {"error": "model_family='sd1x' is not ported (only flux, sd3 and sdxl; ROADMAP Queue 1 item 6)"})
+    for family in ("sdxl", "sd1x", "sd2x", "pixart_sigma"):
+        answers = pair.both("GET", f"/api/models/{family}/presets", compare=False)
+        assert answers["port"][0] == answers["jax"][0] == 200
+        assert [(p["name"], p["config"]) for p in answers["port"][1]] == [
+            (p["name"], p["config"]) for p in answers["jax"][1] if p["name"] != "multichip"], family
+    assert pair.both("GET", "/api/models/kolors/presets", compare=False)["port"] == (
+        501, {"error": "model_family='kolors' is not ported (only flux, sd3, sdxl, sd1x, sd2x, pixart_sigma; "
+                       "ROADMAP Queue 1 item 6)"})
     pair.both("GET", "/api/models/nope/presets")  # unknown: 404 on both
     job = pair.both("POST", "/api/inference/start",
                     {"checkpoint": "/nope/checkpoint-1", "prompt": "a cat", "steps": 1})
@@ -523,7 +577,7 @@ def test_an_unported_family_fails_naming_its_item(port_server, tmp_path):
     _, port = port_server
     _write_images(tmp_path / "data")
     status, job = _http(port, "POST", "/api/training/start",
-                        {"config": _values(tmp_path, "out", model_family="sd1x")})
+                        {"config": _values(tmp_path, "out", model_family="kolors")})
     info = _wait(port, job["job_id"])
     _, logs = _http(port, "GET", f"/api/training/logs/{job['job_id']}?tail=200")
     assert info["state"] == "failed" and info["return_code"] != 0

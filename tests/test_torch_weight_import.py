@@ -297,11 +297,11 @@ def test_read_safetensors_directory_rules(tmp_path):
 
 
 def test_only_flux_imports(tmp_path):
-    class Sd1x:
-        NAME = "sd1x"
+    class Kolors:
+        NAME = "kolors"
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        load_transformer_params(Sd1x(), torch.nn.Linear(1, 1), str(tmp_path))
+        load_transformer_params(Kolors(), torch.nn.Linear(1, 1), str(tmp_path))
 
 
 def test_trainer_loads_a_pretrained_checkpoint(tmp_path, flux_models):
