@@ -141,12 +141,13 @@ exits non-zero with no result line):
    ``pos_embed_max_size`` 192, qk RMSNorm; 8.1B parameters) at full width and
    depth.  Deletes phase 14's Flux file and phase 17-18's output dirs, checks
    the free disk and what the run has written; writes with the port's writer a seeded diffusers
-   transformer (16.3 GB bf16, two shards), a seeded CLIP-G (bf16, with the
+   transformer (8.15 GB e4m3, two shards, as phase 14's Flux file: the write
+   budget), a seeded CLIP-G (bf16, with the
    projection the importer leaves out) and a 16-channel VAE with both quant
    convs, beside hard links to phase 14-15's CLIP-L, T5-XXL and tokenizers
    (the tokenizer subfolders both packages read); imports the transformer
    through ``load_transformer_params`` (s, GB/s, peak host RSS and device
-   GiB; every tensor bitwise the written one); renders 1024x1024 through
+   GiB; every tensor bitwise the written one taken to bf16); renders 1024x1024 through
    ``CheckpointInferenceRuntime`` (``model_flavour: large-3.5``) with true CFG
    at ``validation_guidance`` 5 (two forwards per Euler step; the PNG checked,
    the latents finite, 76 flash launches per step); one full-depth denoise
@@ -177,8 +178,8 @@ exits non-zero with no result line):
    (``sdxl_step_flops``, forward x 3), time to the first step, peak GiB, and
    the launches of a profiled replay (300 / 150 / 150: forward, recompute,
    backward), which must equal the capture's, with the replay's top kernels;
-   its UNet file is e4m3 when the run's writes would leave phase 21 less than
-   ``PHASE21_WRITE_GB``.
+   its UNet file is e4m3 when the run's writes would leave phases 21 and 22
+   less than ``PHASE21_WRITE_GB`` + ``PHASE22_WRITE_GB``.
 21. sd1x, sd2x, pixart_sigma: deletes phase 20's UNet shards and outputs,
    then for SD 1.5 (``UNetConfig.sd15()``, the JAX preset: 5 / 10 / 20 heads
    of 64 where the published UNet runs 8 heads; 1x1-conv ``proj_in`` /
@@ -199,16 +200,45 @@ exits non-zero with no result line):
    MFU (``sdxl_step_flops`` / ``pixart_step_flops``), time to the first
    step, peak GiB, and the launches of a profiled replay (64 / 32 / 32 for
    the UNets, 112 / 56 / 56 for PixArt), which must equal the capture's.
+22. auraflow: AuraFlow v0.3 at its published size (fal/AuraFlow-v0.3's
+   ``transformer/config.json``: 4 joint + 32 single blocks, hidden 3072, 12
+   heads of 256, SwiGLU 8192, 8 register tokens; 6.8B parameters) at 1024
+   px.  Deletes phase 21's files; checks ``auraflow_step_flops`` against
+   ``torch.utils.flop_counter`` on two small configs; writes with the port's
+   writer a seeded diffusers transformer (6.8 GB e4m3, two shards) and a
+   seeded Pile-T5-XL (a ``umt5`` file: d_model 2048, 32 heads of 64, d_ff
+   5120, gated-silu, a relative attention bias in every layer; full width, 6
+   of its 24 blocks, bf16) beside hard links to phase 15's T5 tokenizer (as
+   ``tokenizer_2``, the subfolder both packages' T5 spec reads) and phase
+   20's 4-channel VAE; imports the transformer (s, GB/s; every tensor
+   bitwise the written one taken to bf16); renders 1024x1024 through
+   ``CheckpointInferenceRuntime`` with 4 flow Euler steps under true CFG
+   (guidance 3.5; s per CFG step, peak GiB, 72 flash launches per CFG step);
+   one full-depth forward with the head dim 256 kernels against the plain
+   attention (phase 5's bound); ``Trainer.run()`` with an int8 base
+   (``quantized_matmul: full``), every block checkpointed, rank-16 LoRA on
+   to_q / to_k / to_v / to_out.0, AdamW 1e-4, 6 graphed steps on four of phase
+   16's square JPEGs: losses, s/step, MFU (``auraflow_step_flops``, forward
+   x 3), time to the first step, peak GiB, and the launches of a profiled
+   replay (72 / 36 / 36, every one a head dim 256 instance), which must equal
+   the capture's, with device ms by bucket and the idle share.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
-their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-21.
+their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-22.
 Phases 3 and 7 also run head dims 72, 96 and 112 (pixart, lumina2, sana),
-which the wrappers zero-pad to 128, masked and unmasked, and the shapes
+which the wrappers zero-pad to 128, masked and unmasked, the shapes
 phase 21 meets first (``PHASE21_KERNEL_CASES``: PixArt's (1, 16, 4096, 72)
 self-attention and its 300 T5 keys, with the kernel at D = 128 on the same
-shape beside them; SD 2.1's 576- and 9216-token levels; SD 1.5's 256).  Then a JSON line
-with the kernels (launches: the profiler's count in phase 12's profiled
-replay), and last the device line.  Needs one CUDA
+shape beside them; SD 2.1's 576- and 9216-token levels; SD 1.5's 256), and
+the head dim 256 instances (``D256_CASES``: AuraFlow's (1, 12, 4360, 256)
+with no caller mask, 4096 tokens unmasked, packed samples, D = 192 padded
+to 256, and phase 7's cross case at D = 256; dq bitwise over two launches
+at AuraFlow's shape; kernel, plain and SDPA times and bounds).  Every phase
+line carries ``elapsed_s`` and ``written_gb`` (the card's machine ends a run
+that writes more than 45 GiB, deleted files included).
+Then a JSON line with the kernels, each wrapper's head dim 256 instances
+beside it (launches: the profiler's count in phase 12's profiled replay,
+and for the head dim 256 rows in phase 22's), and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
 register, spill and warning lines per kernel (a C7514 warning means ptxas
 serialized a wgmma pipeline).
@@ -338,6 +368,36 @@ PHASE21_KERNEL_CASES = (
     ("sd21_l0_self", 5, (768 // 8) ** 2, (768 // 8) ** 2, 64),
     ("sd15_l2_self", 20, (512 // 32) ** 2, (512 // 32) ** 2, 64),
 )
+# phase 22: AuraFlow v0.3 at its published size (fal/AuraFlow-v0.3's
+# transformer/config.json: 4 joint + 32 single blocks, hidden 3072, 12 heads
+# of 256, AuraFlowConfig()) at 1024 px: the render's guidance (true CFG, two
+# forwards per Euler step), Pile-T5-XL (the published text_encoder/config.json,
+# a umt5 model: d_model 2048, 32 heads of 64, d_ff 5120, gated-silu) at full
+# width and the first PHASE22_T5_LAYERS of its 24 blocks, the trainer's steps
+# on phase 16's first square JPEGs, and what the phase writes (the e4m3
+# transformer, 6.8 GB, and the bf16 Pile-T5, 0.71 GB), which phase 20 leaves
+# room for
+AURA_GUIDANCE = 3.5
+AURA_TRAIN_STEPS, AURA_TRAIN_IMAGES = 6, 4
+AURA_PROMPT = "a lighthouse on a basalt cliff at dusk"
+AURA_T5_LEN = 256
+AURA_TXT = 8 + AURA_T5_LEN  # the register tokens, then the caption
+AURA_S = AURA_TXT + (RESOLUTION // 16) ** 2
+AURA_SIGMA = 0.7  # the full-depth parity forward's sigma
+PHASE22_T5_LAYERS = 6
+PHASE22_WRITE_GB = 8.0
+# phases 3 and 7 at head dim 256, the head dim 256 kernels: (name, (batch,
+# heads, seq, head dim), segment ids): AuraFlow's (1, 12, 4360, 256) with no
+# caller mask (4360 is no multiple of the 64- and 32-row tiles, so the
+# kernels run their masked mode: the ragged tail), 4096 tokens unmasked,
+# packed samples with a padded tail, and a head dim of 192, zero-padded to
+# 256, with T5 padding; phase 7 adds the cross case at head dim 256
+D256_CASES = (
+    ("auraflow_s4360_d256", (1, 12, AURA_S, 256), None),
+    ("s4096_d256", (1, 12, 4096, 256), None),
+    ("segments_s600_d256", (2, 4, 600, 256), {"packed_at": 260, "pad_from": 520}),
+    ("t5_padded_s1000_d192", (1, 8, 1000, 192), {"txt_valid": TXT_VALID}),
+)
 # phase 10: the Flux linears' (in, out): attention q/k/v and proj, single-block
 # linear1 (q, k, v, mlp) and linear2, the MLP in and out, double-block AdaLN
 INT8_SHAPES = ((3072, 3072), (3072, 21504), (15360, 3072), (3072, 12288), (12288, 3072), (3072, 18432))
@@ -352,8 +412,10 @@ _STARTED = time.perf_counter()
 
 def phase(name: str, **fields) -> None:
     """One phase's line, with the seconds since the script started (``elapsed_s``:
-    a phase's seconds are the difference to the line before)."""
+    a phase's seconds are the difference to the line before) and the GB the
+    process has written so far (``written_gb``)."""
     fields["elapsed_s"] = time.perf_counter() - _STARTED
+    fields.setdefault("written_gb", _written_gb())
     print(f"phase {name}: " + json.dumps(fields, sort_keys=True), flush=True)
 
 
@@ -491,9 +553,39 @@ def _attention_bound_ms(products, pairs, heads, dim, nbytes):
     return max(flop_ms, byte_ms), "operations" if flop_ms >= byte_ms else "bytes"
 
 
+def _check_forward(name: str, q, k, v, seg, errors: dict):
+    """The forward kernel against its plain version on one case: out within
+    two bf16 ulps of the largest reference value and ``OUT_REL_L2``, lse
+    within ``LSE_ATOL``, and rows that see no key exactly 0 with lse -1e30;
+    records the errors under ``name`` and returns (out, lse)."""
+    import torch
+
+    from simpletuner_tpu_torch.ops import SEGMENT_PAD_ID, flash_attention, mha_reference_lse
+
+    out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
+    ref, ref_lse = mha_reference_lse(q, k, v, seg, seg)
+    torch.cuda.synchronize()
+    out_err = (out.float() - ref.float()).abs().max().item()
+    out_bound = OUT_REL_MAX * ref.float().abs().max().item()
+    out_rel_l2, lse_err = rel_l2(out, ref), (lse - ref_lse).abs().max().item()
+    if not (torch.isfinite(out.float()).all() and out_err <= out_bound and out_rel_l2 <= OUT_REL_L2
+            and lse_err <= LSE_ATOL):
+        raise RuntimeError(f"kernel case {name}: out err {out_err} (<= {out_bound}), out rel L2 "
+                           f"{out_rel_l2} (<= {OUT_REL_L2}), lse err {lse_err} (<= {LSE_ATOL})")
+    errors[name] = {"out": out_err, "out_bound": out_bound, "out_rel_l2": out_rel_l2, "lse": lse_err}
+    if seg is not None:
+        dead = seg == SEGMENT_PAD_ID  # rows that see no key: exactly 0 and lse -1e30
+        rows, dead_lse = out.permute(0, 2, 1, 3)[dead], lse.permute(0, 2, 1)[dead]
+        if rows.numel() and not ((rows == 0).all() and (dead_lse == -1e30).all()):
+            raise RuntimeError(f"kernel case {name}: fully masked rows are not exactly 0 with lse -1e30")
+        errors[name]["masked_rows"] = int(rows.shape[0])
+    return out, lse
+
+
 def kernel_cases():
     """Phase 3: the forward kernel against its plain version; returns the
-    kernels-line entry of flash_fwd (without launches)."""
+    kernels-line entries of flash_fwd and of its head dim 256 instance
+    (without launches)."""
     import torch
     import torch.nn.functional as F
 
@@ -504,25 +596,8 @@ def kernel_cases():
     errors = {}
     for seed, (name, shape, ids, strided) in enumerate(KERNEL_CASES):
         (q, k, v), seg = _case_inputs(seed, shape, ids, strided, 3)
-        out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
-        ref, ref_lse = mha_reference_lse(q, k, v, seg, seg)
-        torch.cuda.synchronize()
-        out_err = (out.float() - ref.float()).abs().max().item()
-        out_bound = OUT_REL_MAX * ref.float().abs().max().item()
-        out_rel_l2 = rel_l2(out, ref)
-        lse_err = (lse - ref_lse).abs().max().item()
-        if not (torch.isfinite(out.float()).all() and out_err <= out_bound and out_rel_l2 <= OUT_REL_L2
-                and lse_err <= LSE_ATOL):
-            raise RuntimeError(f"kernel case {name}: out err {out_err} (<= {out_bound}), out rel L2 "
-                               f"{out_rel_l2} (<= {OUT_REL_L2}), lse err {lse_err} (<= {LSE_ATOL})")
-        errors[name] = {"out": out_err, "out_bound": out_bound, "out_rel_l2": out_rel_l2, "lse": lse_err}
-        if seg is not None:
-            dead = seg == SEGMENT_PAD_ID  # rows that see no key: exactly 0 and lse -1e30
-            rows, dead_lse = out.permute(0, 2, 1, 3)[dead], lse.permute(0, 2, 1)[dead]
-            if rows.numel() and not ((rows == 0).all() and (dead_lse == -1e30).all()):
-                raise RuntimeError(f"kernel case {name}: fully masked rows are not exactly 0 with lse -1e30")
-            errors[name]["masked_rows"] = int(rows.shape[0])
-        worst = max(worst, out_err)
+        _check_forward(name, q, k, v, seg, errors)
+        worst = max(worst, errors[name]["out"])
 
     q, k, v = _qkv(9, 1, 24, FLUX_S, 128)
     flux_seg = _segments(1, FLUX_S, txt_valid=TXT_VALID)
@@ -561,6 +636,7 @@ def kernel_cases():
     del q3, k3, v3
     times["ddpm_families"] = ddpm_forward_cases(errors)
     worst = max([worst] + [errors[name]["out"] for name in times["ddpm_families"]])
+    times["head_dim_256"], fwd256_entry = d256_forward_cases(errors)
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
     bound_ms, bound_by = _attention_bound_ms(2, pairs, 24, 128, nbytes)
@@ -571,12 +647,13 @@ def kernel_cases():
           "lse": LSE_ATOL}, errors=errors, flux_masked_tiles=tiles, attended_pairs=pairs, **times)
     return {"max_abs_err": worst, "ms": times["kernel_masked_ms"], "plain_ms": times["plain_masked_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_masked_ms,
-            "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}
+            "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}, fwd256_entry
 
 
 def backward_cases():
     """Phase 7: the dq/dkv kernels against the plain backward; returns the
-    kernels-line entries of flash_bwd_dq and flash_bwd_dkv (without launches)."""
+    kernels-line entries of flash_bwd_dq and flash_bwd_dkv and of their head
+    dim 256 instances (without launches)."""
     import torch
     import torch.nn.functional as F
 
@@ -676,19 +753,21 @@ def backward_cases():
         out, lse = flash_attention(q, k, v, flux_seg, flux_seg, return_lse=True)
         times[f"dq_dkv_masked_d{dim}_ms"] = cuda_ms(
             lambda: flash_backward(q, k, v, flux_seg, flux_seg, out, lse, do, dim ** -0.5), 10)
-    times["sd35_large"] = sd3_backward_times()
+    times["sd35_large"] = backward_times(29, 1, 38, SD3_S, 64)
     times["ddpm_families"] = ddpm_backward_cases(check)
+    worst_d128 = dict(worst)  # the head dim 256 instances have their own entries
+    times["head_dim_256"], d256_entries = d256_backward_cases(check, errors)
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
     library = {"library_ms": times["sdpa_backward_masked_ms"],
                "library_call": "scaled_dot_product_attention backward, dq + dk + dv together, boolean attn_mask "
                                f"({times['sdpa_backward_masked_backend']})"}
-    return {
-        f"flash_bwd_{kernel}": {"max_abs_err": worst[f"flash_bwd_{kernel}"], "ms": times[f"{kernel}_masked_ms"],
+    return {**{
+        f"flash_bwd_{kernel}": {"max_abs_err": worst_d128[f"flash_bwd_{kernel}"], "ms": times[f"{kernel}_masked_ms"],
                                 "plain_ms": times["plain_masked_ms"], "bound_ms": bounds[(kernel, "masked")][0],
                                 "bound_by": bounds[(kernel, "masked")][1], **library}
         for kernel in ("dq", "dkv")
-    }
+    }, **d256_entries}
 
 
 def _ddpm_inputs(seed, heads, sq, sk, dim, n):
@@ -731,17 +810,7 @@ def ddpm_forward_cases(errors: dict) -> dict:
     cases = {}
     for seed, (name, heads, sq, sk, dim) in enumerate(ddpm_cases()):
         q, k, v = _ddpm_inputs(300 + 2 * seed, heads, sq, sk, dim, 3)
-        out, lse = flash_attention(q, k, v, return_lse=True)
-        ref, ref_lse = mha_reference_lse(q, k, v)
-        torch.cuda.synchronize()
-        out_err = (out.float() - ref.float()).abs().max().item()
-        out_bound = OUT_REL_MAX * ref.float().abs().max().item()
-        out_rel_l2, lse_err = rel_l2(out, ref), (lse - ref_lse).abs().max().item()
-        if not (torch.isfinite(out.float()).all() and out_err <= out_bound and out_rel_l2 <= OUT_REL_L2
-                and lse_err <= LSE_ATOL):
-            raise RuntimeError(f"kernel case {name}: out err {out_err} (<= {out_bound}), out rel L2 "
-                               f"{out_rel_l2} (<= {OUT_REL_L2}), lse err {lse_err} (<= {LSE_ATOL})")
-        errors[name] = {"out": out_err, "out_bound": out_bound, "out_rel_l2": out_rel_l2, "lse": lse_err}
+        out, _ = _check_forward(name, q, k, v, None, errors)
         if name == "sdxl_l0_cross":
             buffers = [torch.full((1, heads, 128, dim), float("nan"), dtype=torch.bfloat16, device="cuda")
                        for _ in range(2)]
@@ -762,7 +831,7 @@ def ddpm_forward_cases(errors: dict) -> dict:
             wide = _ddpm_inputs(300 + 2 * seed, heads, sq, sk, 128, 3)
             cases[name]["kernel_d128_ms"] = cuda_ms(lambda: flash_attention(*wide), 20)
             del wide
-        del q, k, v, out, ref
+        del q, k, v, out
     return cases
 
 
@@ -813,29 +882,36 @@ def ddpm_backward_cases(check) -> dict:
     return cases
 
 
-def sd3_backward_times() -> dict:
-    """Phase 7 at SD3.5 Large's shape (1, 38, 4429, 64), no caller mask: dq,
-    dkv, the whole kernel backward, the plain backward and SDPA's, with the
-    bounds and each kernel's share of its bound."""
+def backward_times(seed: int, batch: int, heads: int, seq: int, dim: int, deterministic: bool = False) -> dict:
+    """Phase 7 at one self-attention shape, no caller mask (SD3.5 Large's
+    (1, 38, 4429, 64), AuraFlow's (1, 12, 4360, 256)): dq, dkv, the whole
+    kernel backward, the plain backward and SDPA's, with the bounds and each
+    kernel's share of its bound; with ``deterministic`` also dq bitwise equal
+    over two launches."""
     import torch
     import torch.nn.functional as F
 
     from simpletuner_tpu_torch.ops import flash_attention, flash_backward, flash_bwd_dkv_kernel, flash_bwd_dq_kernel
     from simpletuner_tpu_torch.ops import mha_backward_reference
 
-    q, k, v, do = _qkv(29, 1, 38, SD3_S, 64, n=4)
-    scale = 64 ** -0.5
+    q, k, v, do = _qkv(seed, batch, heads, seq, dim, n=4)
+    scale = dim ** -0.5
     out, lse = flash_attention(q, k, v, return_lse=True)
     delta = (out.float() * do.float()).sum(dim=-1)
-    act, stats = 38 * SD3_S * 64 * 2, 2 * 38 * SD3_S * 4
-    times = {"shape": [1, 38, SD3_S, 64]}
+    act, stats = batch * heads * seq * dim * 2, 2 * batch * heads * seq * 4
+    times = {"shape": [batch, heads, seq, dim]}
     for kernel, products, nbytes, fn in (
             ("dq", 3, 5 * act + stats, lambda: flash_bwd_dq_kernel(q, k, v, None, None, lse, delta, do, scale)),
             ("dkv", 4, 6 * act + stats, lambda: flash_bwd_dkv_kernel(q, k, v, None, None, lse, delta, do, scale))):
         times[f"{kernel}_ms"] = cuda_ms(fn, 10)
         times[f"bound_{kernel}_ms"], times[f"bound_{kernel}_by"] = _attention_bound_ms(
-            products, SD3_S ** 2, 38, 64, nbytes)
+            products, batch * seq ** 2, heads, dim, nbytes)
         times[f"{kernel}_share_of_bound"] = times[f"bound_{kernel}_ms"] / times[f"{kernel}_ms"]
+    if deterministic:
+        first = flash_bwd_dq_kernel(q, k, v, None, None, lse, delta, do, scale)
+        if not torch.equal(first, flash_bwd_dq_kernel(q, k, v, None, None, lse, delta, do, scale)):
+            raise RuntimeError(f"flash_bwd_dq is not bitwise equal over two launches at {times['shape']}")
+        times["dq_bitwise_equal_over_two_launches"] = True
     times["dq_dkv_ms"] = cuda_ms(lambda: flash_backward(q, k, v, None, None, out, lse, do, scale), 10)
     times["plain_ms"] = cuda_ms(lambda: mha_backward_reference(q, k, v, None, None, out, lse, do, scale), 3)
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
@@ -849,6 +925,88 @@ def sd3_backward_times() -> dict:
         times["sdpa_backward_ms"] = fwd_bwd_ms - cuda_ms(forward, 20)
     times["sdpa_backward_backend"] = backend
     return times
+
+
+def _attended_pairs(seg, length: int) -> int:
+    """(query, key) pairs that attend under ``seg`` (None: all), summed over the batch."""
+    from simpletuner_tpu_torch.ops import SEGMENT_PAD_ID
+
+    if seg is None:
+        return length * length
+    return int(((seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] != SEGMENT_PAD_ID)).sum())
+
+
+def d256_forward_cases(errors: dict) -> tuple:
+    """Phase 3 at head dim 256 (``D256_CASES``): the forward kernel against its
+    plain version (the bounds of the other cases), rows that see no key
+    exactly 0 with lse -1e30, and each case's kernel, plain and SDPA times
+    (with the ids as a boolean attn_mask where there are ids) and its bound
+    (over the attended pairs; D = 192 counted as 192).  Returns the cases and
+    the kernels-line entry of the head dim 256 forward at AuraFlow's shape."""
+    import torch.nn.functional as F
+
+    from simpletuner_tpu_torch.ops import SEGMENT_PAD_ID, flash_attention, mha_reference_lse
+
+    cases, worst = {}, 0.0
+    for seed, (name, shape, ids) in enumerate(D256_CASES):
+        (q, k, v), seg = _case_inputs(500 + seed, shape, ids, False, 3)
+        _check_forward(name, q, k, v, seg, errors)
+        worst = max(worst, errors[name]["out"])
+        mask = None
+        if seg is not None:
+            mask = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] != SEGMENT_PAD_ID))[:, None]
+        batch, heads, seq, dim = shape
+        nbytes = 4 * batch * heads * seq * dim * 2 + batch * heads * seq * 4 + (0 if seg is None else 2 * seq * 4)
+        bound, bound_by = _attention_bound_ms(2, _attended_pairs(seg, seq), heads, dim, nbytes)
+        backend, sdpa_ms = _sdpa_backend(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, seg, seg), 20)
+        cases[name] = {"shape": list(shape), "kernel_ms": kernel_ms, "bound_ms": bound, "bound_by": bound_by,
+                       "share_of_bound": bound / kernel_ms, "sdpa_ms": sdpa_ms, "sdpa_backend": backend,
+                       "plain_ms": cuda_ms(lambda: mha_reference_lse(q, k, v, seg, seg), 5)}
+        del q, k, v, mask
+    aura = cases["auraflow_s4360_d256"]
+    return cases, {"max_abs_err": worst, "ms": aura["kernel_ms"], "plain_ms": aura["plain_ms"],
+                   "bound_ms": aura["bound_ms"], "bound_by": aura["bound_by"], "library_ms": aura["sdpa_ms"],
+                   "library_call": f"scaled_dot_product_attention ({aura['sdpa_backend']})"}
+
+
+def d256_backward_cases(check, errors: dict) -> tuple:
+    """Phase 7 at head dim 256: dq, dk and dv of ``D256_CASES`` and of 200
+    queries against 512 keys whose 64-key tiles 2-3 and 6-7 are pad (the dq
+    kernel's skip tiles), against the plain backward (``check``); dq bitwise
+    equal over two launches at AuraFlow's shape; at AuraFlow's shape and at
+    4096 tokens the dq and dkv kernels' times, the plain backward's and
+    SDPA's, the bounds and shares (``backward_times``).  Returns those times
+    and the kernels-line entries of the head dim 256 dq and dkv at AuraFlow's
+    shape."""
+    import torch
+
+    from simpletuner_tpu_torch.ops import SEGMENT_PAD_ID
+
+    for seed, (name, shape, ids) in enumerate(D256_CASES):
+        (q, k, v, do), seg = _case_inputs(600 + seed, shape, ids, False, 4)
+        check(name, q, k, v, do, seg, seg, False)
+    q, do = _qkv(620, 2, 3, 200, 256, n=2)
+    k, v = _qkv(621, 2, 3, 512, 256, n=2)
+    q_seg = torch.zeros((2, 200), dtype=torch.int32, device="cuda")
+    kv_seg = torch.zeros((2, 512), dtype=torch.int32, device="cuda")
+    kv_seg[:, 128:256] = SEGMENT_PAD_ID
+    kv_seg[:, 384:] = SEGMENT_PAD_ID
+    check("cross_q200_k512_pad_key_tiles_d256", q, k, v, do, q_seg, kv_seg, False)
+    names = [name for name, _, _ in D256_CASES] + ["cross_q200_k512_pad_key_tiles_d256"]
+    worst = {kernel: max(errors[name][grad]["err"] for name in names for grad in grads)
+             for kernel, grads in (("dq", ("dq",)), ("dkv", ("dk", "dv")))}
+
+    cases = {name: backward_times(630 + seed, *shape, deterministic=name == "auraflow_s4360_d256")
+             for seed, (name, shape, _) in enumerate(D256_CASES[:2])}
+    aura = cases["auraflow_s4360_d256"]
+    library = {"library_ms": aura["sdpa_backward_ms"],
+               "library_call": f"scaled_dot_product_attention backward, dq + dk + dv together "
+                               f"({aura['sdpa_backward_backend']})"}
+    return cases, {f"flash_bwd_{kernel}_d256": {
+        "max_abs_err": worst[kernel], "ms": aura[f"{kernel}_ms"], "plain_ms": aura["plain_ms"],
+        "bound_ms": aura[f"bound_{kernel}_ms"], "bound_by": aura[f"bound_{kernel}_by"], **library}
+        for kernel in ("dq", "dkv")}
 
 
 @contextlib.contextmanager
@@ -1467,17 +1625,18 @@ def sd3_phase(paths: dict, kernels, device: str) -> None:
     gen = torch.Generator(device=dev).manual_seed(19)
     arch = SD3Config.large()
     shapes = sd3_checkpoint_shapes(arch)
-    file_bytes = sum(2 * math.prod(shape) for shape in shapes.values())
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     free, written_before = shutil.disk_usage(work).free, _written_gb()
     if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 4 > SD3_WRITE_LIMIT_GB:
         raise RuntimeError(f"sd3: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
                            f"the files need {file_bytes / 1e9:.1f} GB of the {SD3_WRITE_LIMIT_GB} GB a run may write")
 
-    # (b) the seeded files: transformer (two shards), CLIP-G with its
-    # projection, the VAE with both quant convs; hard links to the rest
+    # (b) the seeded files: transformer (two shards, e4m3 as phase 14's Flux
+    # file: the write budget), CLIP-G with its projection, the VAE with both
+    # quant convs; hard links to the rest
     sd3_dir = os.path.join(work, "sd3")
     os.makedirs(os.path.join(sd3_dir, "transformer"))
-    weights = seeded_weights(shapes, gen)
+    weights = {k: v.to(torch.float8_e4m3fn) for k, v in seeded_weights(shapes, gen).items()}
     names = sorted(weights)
     t0 = time.perf_counter()
     for shard, part in enumerate((names[: len(names) // 2], names[len(names) // 2:])):
@@ -1500,11 +1659,13 @@ def sd3_phase(paths: dict, kernels, device: str) -> None:
     for source, target in (("text_encoder", "text_encoder"), ("text_encoder_2", "text_encoder_3"),
                            ("tokenizer", "tokenizer"), ("tokenizer_2", "tokenizer_2")):
         _link_tree(os.path.join(flux_dir, source), os.path.join(sd3_dir, target))
-    files = {"transformer_gb": file_bytes / 1e9, "write_s": write_s, "write_gb_per_s": file_bytes / write_s / 1e9,
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9,
              "clip_g_params": sum(math.prod(v) for v in clip_checkpoint_shapes(clip_g).values()),
              "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
 
-    # (c) import through load_transformer_params, every tensor bitwise the written one
+    # (c) import through load_transformer_params, every tensor bitwise the
+    # written one taken to bf16 (exact for every e4m3 value)
     model = SD3(config_namespace({"model_family": "sd3", "model_flavour": "large-3.5", "model_type": "full"}))
     if model.arch != arch:
         raise RuntimeError(f"sd3: large-3.5 builds {model.arch}, not {arch}")
@@ -1799,7 +1960,7 @@ def sdxl_phase(paths: dict, kernels, device: str) -> None:
     params = sum(math.prod(shape) for shape in shapes.values())
     # bf16 unless the run's writes would pass the budget; then e4m3, which the importer takes to bf16 exactly
     written_before = _written_gb()
-    fp8 = written_before + 2 * params / 1e9 + 1.0 + PHASE21_WRITE_GB > SD3_WRITE_LIMIT_GB
+    fp8 = written_before + 2 * params / 1e9 + 1.0 + PHASE21_WRITE_GB + PHASE22_WRITE_GB > SD3_WRITE_LIMIT_GB
     file_bytes = (1 if fp8 else 2) * params
     free = shutil.disk_usage(work).free
     if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 1.0 > SD3_WRITE_LIMIT_GB:
@@ -2391,6 +2552,364 @@ def ddpm_families_phase(paths: dict, kernels, device: str) -> None:
         shutil.rmtree(out, ignore_errors=True)
     for family, resolution, guidance, extra in PHASE21_MODELS:
         ddpm_family_phase(family, resolution, guidance, extra, paths, kernels, device)
+
+
+def auraflow_step_flops(arch, batch: int, tokens: int, t5_tokens: int) -> int:
+    """Model FLOPs of one AuraFlow train step in bench.py's convention
+    (forward x 3; remat recompute is hardware work, not model work), counted
+    from the config at ``tokens`` image and ``t5_tokens`` caption tokens (the
+    register tokens join the caption): the patch and caption linears, the
+    timestep MLP and every block's modulation linear (per sample), per token
+    of each stream q, k, v, out and the SwiGLU feed-forward, each block's two
+    attention products over the whole sequence at the model's head dim, and
+    the final modulation and projection."""
+    d, ffn, c = arch.hidden_size, arch.ffn_hidden, arch.in_channels * arch.patch_size ** 2
+    seq = tokens + arch.num_register_tokens + t5_tokens
+    blocks = arch.depth_double + arch.depth_single
+    per_block = seq * 2 * d * (4 * d + 3 * ffn) + 4 * seq * seq * d
+    modulation = 2 * d * 6 * d * (2 * arch.depth_double + arch.depth_single) + 2 * d * 2 * d
+    fwd = 2 * tokens * c * d + 2 * t5_tokens * arch.text_dim * d + 2 * (256 * d + d * d) + modulation
+    fwd += blocks * per_block + 2 * tokens * d * c
+    return batch * fwd * 3
+
+
+def _auraflow_flop_checks() -> list:
+    """``auraflow_step_flops`` / 3 against ``torch.utils.flop_counter`` on
+    the forward of two small configs on the CPU (f32; the attention through
+    the plain version, whose two products the counter sees as bmm): equal."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from simpletuner_tpu_torch.models.auraflow import AuraFlowConfig, AuraFlowTransformer
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    checks = []
+    wider = AuraFlowConfig(hidden_size=96, depth_double=2, depth_single=1, num_heads=3, text_dim=48,
+                           pos_embed_max_size=64)
+    for arch, (height, width), t5_tokens in ((AuraFlowConfig.tiny(), (8, 8), 20), (wider, (8, 12), 11)):
+        module = init_parameters(AuraFlowTransformer(arch, dtype=torch.float32), torch.Generator().manual_seed(0))
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            module(torch.zeros(2, height, width, 4), torch.full((2,), 0.5), torch.zeros(2, t5_tokens, arch.text_dim))
+        tokens = (height // arch.patch_size) * (width // arch.patch_size)
+        expected = auraflow_step_flops(arch, 2, tokens, t5_tokens) // 3
+        if counter.get_total_flops() != expected:
+            raise RuntimeError(f"auraflow_step_flops: {expected} forward FLOPs at {arch}, the counter "
+                               f"{counter.get_total_flops()}")
+        checks.append({"hidden": arch.hidden_size, "latent": [height, width], "flops": expected})
+    return checks
+
+
+def auraflow_phase(paths: dict, kernels, device: str) -> dict:
+    """Phase 22: AuraFlow v0.3 at its published size: a seeded e4m3 diffusers
+    transformer and a seeded Pile-T5-XL (a umt5 file, cut to
+    ``PHASE22_T5_LAYERS`` blocks) written with the port's writer beside hard
+    links to phase 15's T5 tokenizer (``tokenizer_2``, the subfolder both
+    packages' T5 spec reads) and phase 20's 4-channel VAE; the import held
+    bitwise to the written tensors; a 1024 px true-CFG flow Euler render
+    through ``CheckpointInferenceRuntime``; one full-depth forward with the
+    head dim 256 kernels against the plain attention; 6 graphed LoRA steps
+    through ``Trainer.run()`` on an int8 base, and the launches of a profiled
+    replay held to the capture's, every flash launch a head dim 256 instance.
+    Returns the replay's launches per kernel."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench import profile_step
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.models.auraflow import AuraFlowConfig
+    from simpletuner_tpu_torch.models.checkpoint_layouts import auraflow_checkpoint_shapes
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.t5 import T5Config, T5EncoderModel
+    from simpletuner_tpu_torch.models.text_encoders import init_encoder
+    from simpletuner_tpu_torch.models.vae import VAEConfig
+    from simpletuner_tpu_torch.models.weight_bridge import flax_to_state_dict
+    from simpletuner_tpu_torch.models.weight_import import (
+        auraflow_params_from_diffusers, load_transformer_params, save_safetensors,
+    )
+    from simpletuner_tpu_torch.ops import set_attention_backend
+    from simpletuner_tpu_torch.training.quantization import int8_matmul
+    from simpletuner_tpu_torch.training.trainer import Trainer
+
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    # phase 21's files and outputs: disk space (not the write budget)
+    for family, _, _, _ in PHASE21_MODELS:
+        for out in (family, f"{family}_train", f"{family}_cache", f"{family}_data", f"{family}_render"):
+            shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    flop_checks = _auraflow_flop_checks()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    arch = AuraFlowConfig()
+    if (arch.hidden_size, arch.depth_double, arch.depth_single, arch.num_heads, arch.head_dim) != (3072, 4, 32, 12, 256):
+        raise RuntimeError(f"not AuraFlow v0.3's published transformer: {arch}")
+    shapes = auraflow_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + PHASE22_WRITE_GB > SD3_WRITE_LIMIT_GB:
+        raise RuntimeError(f"auraflow: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
+                           f"phase; it writes {PHASE22_WRITE_GB} GB of the {SD3_WRITE_LIMIT_GB} GB a run may write")
+
+    # (b) the seeded files: the transformer (two e4m3 shards; the position
+    # table and the register tokens at their initialisation scales, N(0, 0.1)
+    # and N(0, 0.02), which e4m3 holds), Pile-T5-XL at full width and a cut
+    # depth as a umt5 file (a relative attention bias in every layer, which
+    # the loader drops but layer 0's, as the Flax model does); hard links to
+    # the rest
+    aura_dir = os.path.join(work, "auraflow")
+    os.makedirs(os.path.join(aura_dir, "transformer"))
+    drawn = seeded_weights(shapes, gen)
+    drawn["pos_embed.pos_embed"] = 0.1 * torch.randn(shapes["pos_embed.pos_embed"], generator=gen, device=dev)
+    drawn["register_tokens"] = 0.02 * torch.randn(shapes["register_tokens"], generator=gen, device=dev)
+    weights = {k: v.to(torch.float8_e4m3fn) for k, v in drawn.items()}
+    del drawn
+    names = sorted(weights)
+    t0 = time.perf_counter()
+    for shard, part in enumerate((names[: len(names) // 2], names[len(names) // 2:])):
+        save_safetensors({k: weights[k] for k in part}, os.path.join(
+            aura_dir, "transformer", f"diffusion_pytorch_model-0000{shard + 1}-of-00002.safetensors"))
+    write_s = time.perf_counter() - t0
+    t5_config = dataclasses.replace(T5Config.pile_xl(), num_layers=PHASE22_T5_LAYERS)
+    with torch.device(dev):
+        t5 = init_encoder(T5EncoderModel(t5_config, torch.bfloat16), gen)
+    t5_state = dict(t5.state_dict())
+    for layer in range(1, PHASE22_T5_LAYERS):
+        t5_state[f"encoder.block.{layer}.layer.0.SelfAttention.relative_attention_bias.weight"] = (
+            torch.randn((t5_config.relative_attention_num_buckets, t5_config.num_heads), generator=gen, device=dev)
+            * t5_config.d_model ** -0.5).to(torch.bfloat16)
+    os.makedirs(os.path.join(aura_dir, "text_encoder"))
+    save_safetensors(t5_state, os.path.join(aura_dir, "text_encoder", "model.safetensors"))
+    with open(os.path.join(aura_dir, "text_encoder", "config.json"), "w") as handle:
+        json.dump({**dataclasses.asdict(t5_config), "model_type": "umt5", "architectures": ["UMT5EncoderModel"],
+                   "dense_act_fn": "silu", "is_gated_act": True, "tie_word_embeddings": False}, handle)
+    t5_params = sum(v.numel() for v in t5_state.values())
+    del t5, t5_state
+    for source, target in ((os.path.join(flux_dir, "tokenizer_2"), "tokenizer_2"),
+                           (os.path.join(work, "sdxl", "vae"), "vae")):
+        _link_tree(source, os.path.join(aura_dir, target))
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "pile_t5_params": t5_params,
+             "pile_t5_layers": PHASE22_T5_LAYERS, "written_gb_before": written_before,
+             "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) import through load_transformer_params, every tensor bitwise the
+    # written one taken to bf16 (exact for every e4m3 value)
+    model = ModelRegistry.create("auraflow", config_namespace({"model_family": "auraflow", "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"auraflow: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()  # model_type full: no adapters
+    params = sum(p.numel() for p in module.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = _rss_gib()
+    t0 = time.perf_counter()
+    load_transformer_params(model, module, aura_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    imported = {"s": load_s, "gb_per_s": file_bytes / load_s / 1e9, "params": params,
+                "host_rss_gib": {"before": rss_before, "after": _rss_gib()},
+                "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+    expected = flax_to_state_dict(auraflow_params_from_diffusers(weights, arch), module)
+    unequal = [k for k, v in module.state_dict().items() if not torch.equal(v, expected[k])]
+    if unequal or params != sum(v.numel() for v in weights.values()):
+        raise RuntimeError(f"auraflow: the imported module differs from the written tensors at {unequal[:8]}")
+    imported["tensors_bitwise"] = len(expected)
+    del weights, expected, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) a 1024x1024 true-CFG flow Euler render through the checkpoint runtime
+    config_path = os.path.join(work, "auraflow_render.json")
+    with open(config_path, "w") as handle:
+        json.dump({"model_family": "auraflow", "model_type": "full", "pretrained_model_name_or_path": aura_dir,
+                   "mixed_precision": "bf16", "text_encoder_precision": "bf16", "vae_dtype": "bf16",
+                   "validation_resolution": RESOLUTION, "validation_seed": 42, "seed": 42,
+                   "validation_guidance": AURA_GUIDANCE}, handle)
+    t0 = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "auraflow_render"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "auraflow" or not model.is_flow:
+        raise RuntimeError(f"auraflow: the runtime built {model.NAME} {model.arch}")
+    encoder = model.text_encoders[0].model
+    if encoder.config != t5_config or len(encoder.encoder.block) != PHASE22_T5_LAYERS:
+        raise RuntimeError(f"auraflow: the runtime's text encoder is {encoder.config}, not the file's {t5_config}")
+    forward_s, finite = [], []
+
+    def before(mod, args):
+        torch.cuda.synchronize()
+        forward_s.append(-time.perf_counter())
+
+    def after(mod, args, out):
+        torch.cuda.synchronize()
+        forward_s[-1] += time.perf_counter()
+
+    decode = runtime.vae.decode
+
+    def decode_checked(z):
+        finite.append(bool(torch.isfinite(z).all()))
+        return decode(z)
+
+    hooks = [module.register_forward_pre_hook(before), module.register_forward_hook(after)]
+    runtime.vae.decode = decode_checked
+    per_forward = arch.depth_double + arch.depth_single
+    for kernel in kernels:
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pngs = runtime.render(AURA_PROMPT, steps=STEPS, guidance=AURA_GUIDANCE)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    render_launches = {kernel.name: kernel.launches for kernel in kernels}
+    render_peak = torch.cuda.max_memory_allocated() / 2**30
+    runtime.vae.decode = decode
+    for hook in hooks:
+        hook.remove()
+    if render_launches != {"flash_fwd": per_forward * 2 * STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        raise RuntimeError(f"auraflow render: launches {render_launches}, expected {per_forward} per forward, two "
+                           f"forwards per step")
+    if len(pngs) != 1 or finite != [True] or len(forward_s) != 2 * STEPS:
+        raise RuntimeError(f"auraflow render: {pngs}, finite latents {finite}, {len(forward_s)} forwards")
+    check_png(pngs[0], RESOLUTION, RESOLUTION)
+
+    # (e) one full-depth forward, the head dim 256 kernels against the plain
+    # attention (the file's modulation weights are drawn, so every gate is
+    # open and attention reaches the output)
+    latent = RESOLUTION // 8
+    batch = {"latents": torch.zeros((1, latent, latent, 4), device=dev)}
+    for key, value in model.collate_text_embeds(model.encode_text([AURA_PROMPT])).items():
+        batch[key] = torch.as_tensor(value, device=dev)
+    if tuple(batch["text_embeds"].shape) != (1, AURA_T5_LEN, arch.text_dim):
+        raise RuntimeError(f"auraflow: text_embeds {tuple(batch['text_embeds'].shape)}, expected "
+                           f"(1, {AURA_T5_LEN}, {arch.text_dim})")
+    model.text_encoders = []  # the plain attention's scores need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    cond = model.inference_conditioning(batch)
+    noise = torch.randn((1, latent, latent, 4), generator=gen, device=dev)
+    sigma = torch.tensor(AURA_SIGMA)
+    with torch.no_grad():
+        kernel_v = model.denoise_fn(module, cond)(noise, sigma)
+        set_attention_backend("xla")
+        try:
+            plain_v = model.denoise_fn(module, cond)(noise, sigma)
+        finally:
+            set_attention_backend("auto")
+        forward_ms = cuda_ms(lambda: model.denoise_fn(module, cond)(noise, sigma), 3, warmup=1)
+    parity = rel_l2(kernel_v, plain_v)
+    if not (torch.isfinite(kernel_v).all() and torch.isfinite(plain_v).all() and parity <= PARITY_REL_L2):
+        raise RuntimeError(f"auraflow full-depth parity: rel L2 {parity} (<= {PARITY_REL_L2})")
+    del runtime, module, model, kernel_v, plain_v, batch, cond
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) Trainer.run(): int8 base with quantized_matmul=full, every block
+    # checkpointed, rank-16 LoRA on the attention projections by their
+    # diffusers names, one square bucket, graphed
+    data = os.path.join(work, "auraflow_data")
+    os.makedirs(data)
+    source = os.path.join(work, "vae_cache", "data")
+    for i, index in enumerate(range(0, 3 * AURA_TRAIN_IMAGES, 3)):  # phase 16's square JPEGs
+        name = f"img_{index:04d}.jpg"
+        os.link(os.path.join(source, name), os.path.join(data, name))
+        with open(os.path.join(data, f"img_{index:04d}.txt"), "w") as handle:
+            handle.write(TRAIN_CAPTIONS[i])
+    out = os.path.join(work, "auraflow_train")
+    cache = os.path.join(work, "auraflow_cache")
+    config = {
+        "model_family": "auraflow", "model_type": "lora", "lora_rank": 16,
+        "lora_target_modules": ["to_q", "to_k", "to_v", "to_out.0"], "pretrained_model_name_or_path": aura_dir,
+        "base_model_precision": "int8-quanto", "quantized_matmul": "full", "gradient_checkpointing": True,
+        "optimizer": "adamw", "learning_rate": 1e-4, "lr_scheduler": "constant", "mixed_precision": "bf16",
+        "text_encoder_precision": "bf16", "vae_dtype": "bf16", "train_batch_size": 1, "resolution": RESOLUTION,
+        "resolution_type": "pixel_area", "max_train_steps": AURA_TRAIN_STEPS, "logging_steps": 1,
+        "report_to": "jsonl", "seed": 42, "cache_dir": cache, "output_dir": out,
+        "checkpoint_frozen_base": "reference",
+        "data_backend_config": [
+            {"id": "train", "dataset_type": "image", "type": "local", "instance_data_dir": data,
+             "resolution": RESOLUTION, "resolution_type": "pixel_area", "caption_strategy": "textfile",
+             "cache_dir_vae": os.path.join(cache, "vae")},
+            {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
+             "cache_dir": os.path.join(cache, "text")},
+        ],
+    }
+    for kernel in kernels:
+        kernel.launches = 0
+    int8_matmul.launches = 0
+    trainer = Trainer(config=config, device="cuda")
+    run_start = time.time()
+    trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.time() - run_start
+    train_launches = {kernel.name: kernel.launches for kernel in kernels}
+    with open(os.path.join(out, "simpletuner-tpu-metrics.jsonl")) as handle:
+        metrics = [json.loads(line) for line in handle]
+    losses = [m["loss"] for m in metrics]
+    if [m["step"] for m in metrics] != list(range(1, AURA_TRAIN_STEPS + 1)) or not all(np.isfinite(losses)) or \
+            not all(m["grad_norm"] > 0 for m in metrics) or not all(train_launches.values()):
+        raise RuntimeError(f"auraflow trainer: metrics {metrics}, launches {train_launches}")
+    if len(trainer._graphs) != 1 or trainer.model.arch != arch or trainer.vae.config != VAEConfig():
+        raise RuntimeError(f"auraflow trainer: {len(trainer._graphs)} graphs, arch {trainer.model.arch}, "
+                           f"VAE {trainer.vae.config}")
+    adapted = {name.rsplit("/", 2)[-2] for name in trainer._state.trainable}
+    if adapted != {"attn_q", "attn_k", "attn_v", "attn_proj"}:
+        raise RuntimeError(f"auraflow trainer: adapters on {adapted}")
+    captures = {c["step"] for c in trainer.capture_report}
+    step_s = {m["step"]: m["time"] - prev["time"] for prev, m in zip(metrics, metrics[1:]) if m["step"] not in captures}
+    median_s = float(np.median(list(step_s.values())))
+    graphed = next(iter(trainer._graphs.values()))
+    captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
+    profile = profile_step(lambda: graphed(trainer._state, graphed.batch, trainer._generator))
+    recorded = profile["bucket_launches"]
+    replayed = {kernel.name: recorded[kernel.name] for kernel in kernels}
+    # every attention's forward, its recompute under remat, and its backward
+    expected_launches = {"flash_fwd": 2 * per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
+    instances = profile["flash_instances"]
+    if replayed != {k: captured[k] for k in replayed} or replayed != expected_launches or \
+            not all("<256," in name for name in instances):
+        raise RuntimeError(f"auraflow trainer: the profiled replay launched {replayed} ({instances}), the capture "
+                           f"recorded {captured}, expected {expected_launches} of the head dim 256 instances")
+    latent_tokens = (latent // arch.patch_size) ** 2
+    flops = auraflow_step_flops(arch, 1, latent_tokens, AURA_T5_LEN)
+    stages = trainer.stage_report
+    phase("22 auraflow", config="fal/AuraFlow-v0.3 transformer/config.json", params=params,
+          hidden=arch.hidden_size, heads=[arch.num_heads, arch.head_dim], blocks=[arch.depth_double, arch.depth_single],
+          ffn_hidden=arch.ffn_hidden, tokens={"registers": arch.num_register_tokens, "text": AURA_T5_LEN,
+                                              "image": latent_tokens, "sequence": AURA_S},
+          files=files, imported=imported,
+          render={"init_s": init_s, "render_s": render_s, "steps": STEPS, "guidance": AURA_GUIDANCE,
+                  "s_per_cfg_step": sum(forward_s[2:]) / (len(forward_s) - 2) * 2, "forward_s": forward_s,
+                  "peak_gib": render_peak, "launches": render_launches, "png": os.path.basename(pngs[0]),
+                  "png_bytes": os.path.getsize(pngs[0])},
+          parity={"rel_l2": parity, "bound": PARITY_REL_L2, "sigma": AURA_SIGMA, "forward_ms": forward_ms},
+          train={"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                 "lora_targets": sorted(adapted),
+                 "lora_params": sum(p.numel() for p in trainer._state.trainable.values()),
+                 "losses": losses, "grad_norms": [m["grad_norm"] for m in metrics], "step_s": step_s,
+                 "s_per_step_median": median_s, "flops_per_step": flops, "flop_checks": flop_checks,
+                 "mfu": flops / median_s / PEAK_BF16_FLOPS, "run_s": run_s,
+                 "time_to_first_step_s": metrics[0]["time"] - run_start,
+                 "capture_s": [c["seconds"] for c in trainer.capture_report],
+                 "stage_s": {k: v["seconds"] for k, v in stages.items()},
+                 "peak_gib": max(v["peak_gib"] for v in stages.values()),
+                 "launches_run": train_launches, "launches_captured": captured,
+                 "launches_profiled_replay": replayed, "flash_instances": instances,
+                 "int8_gemm_bucket": recorded["int8_gemm"],
+                 "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "device_ms", "traced_event_ms",
+                                                     "idle_share_traced", "top_kernels")}},
+          allocated_gib_before_phase=baseline_gib, written_gb=_written_gb(), seconds=time.perf_counter() - start,
+          device=device)
+    del trainer, graphed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return replayed
 
 
 def int8_cases() -> None:
@@ -2987,7 +3506,7 @@ def main() -> int:
              for library in libraries}
     phase("2 build", seconds=time.perf_counter() - start, nvcc_seconds=csrc.BUILD_SECONDS, ptxas=ptxas)
 
-    fwd_entry = kernel_cases()
+    fwd_entry, fwd256_entry = kernel_cases()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         checkpoints = weight_import(work)
@@ -3113,15 +3632,21 @@ def main() -> int:
         sd3_phase(checkpoints, kernels, smi)
         sdxl_phase(checkpoints, kernels, smi)
         ddpm_families_phase(checkpoints, kernels, smi)
+        launches_auraflow = auraflow_phase(checkpoints, kernels, smi)
 
+    # each wrapper's head dim 256 instances beside its others: launches from
+    # phase 22's profiled replay (AuraFlow's attention, all at head dim 256),
+    # the others' from phase 12's
     sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
                "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}
-    entries = {"flash_fwd": fwd_entry, **bwd_entries}
+    entries = {"flash_fwd": fwd_entry, "flash_fwd_d256": fwd256_entry, **bwd_entries}
+    rows = [(name, name, launches_main) for name in sources] + \
+        [(f"{name}_d256", name, launches_auraflow) for name in sources]
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": f"simpletuner_tpu_torch/{source}",
-         "replaces": f"simpletuner_tpu/ops/flash_attention.py:{line}", "launches": launches_main[name],
+        {"name": name, "route": "cuda", "source": f"simpletuner_tpu_torch/{sources[kernel][0]}",
+         "replaces": f"simpletuner_tpu/ops/flash_attention.py:{sources[kernel][1]}", "launches": launches[kernel],
          **entries[name]}
-        for name, (source, line) in sources.items()
+        for name, kernel, launches in rows
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)

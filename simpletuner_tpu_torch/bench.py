@@ -42,6 +42,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -142,7 +143,9 @@ BUCKETS = (
 
 def profile_step(step) -> Dict:
     """One call of ``step`` under ``torch.profiler``: device ms and launches
-    by kernel bucket (elementwise and copies in ``other``), the twelve
+    by kernel bucket (elementwise and copies in ``other``), the launches of
+    each flash kernel instance (``flash_fwd_kernel<256, true>``: the head dim
+    and the masked mode), the twelve
     kernels with the most device time (name, bucket, launches), the wall time and
     the CUDA-event time of the traced call, and the device's idle share of
     that event time (the profiler lengthens kernels a little, so the share
@@ -161,6 +164,7 @@ def profile_step(step) -> Dict:
     wall_ms = (time.perf_counter() - start) * 1e3
     buckets = {name: [0.0, 0] for name, _ in BUCKETS}
     buckets["other"] = [0.0, 0]
+    instances: Dict[str, int] = {}
     kernels = []
     for event in prof.key_averages():
         if event.device_type != DeviceType.CUDA:
@@ -169,10 +173,15 @@ def profile_step(step) -> Dict:
         name = next((n for n, tags in BUCKETS if any(tag in key for tag in tags)), "other")
         buckets[name][0] += event.device_time_total / 1e3
         buckets[name][1] += event.count
+        if name.startswith("flash"):
+            instance = re.search(r"flash_\w+_kernel<[^>]*>", event.key)
+            key = instance.group(0) if instance else event.key[:120]
+            instances[key] = instances.get(key, 0) + event.count
         kernels.append((event.device_time_total / 1e3, event.count, event.key[:120], name))
     device_ms = sum(ms for ms, _ in buckets.values())
     top = [{"kernel": key, "bucket": name, "launches": n, "ms": ms} for ms, n, key, name in sorted(kernels, reverse=True)[:12]]
     return {"bucket_ms": {k: v[0] for k, v in buckets.items()}, "bucket_launches": {k: v[1] for k, v in buckets.items()},
+            "flash_instances": instances,
             "device_ms": device_ms, "traced_wall_ms": wall_ms, "traced_event_ms": begin.elapsed_time(end),
             "idle_share_traced": 1 - device_ms / begin.elapsed_time(end), "top_kernels": top}
 

@@ -21,6 +21,12 @@ in ``simpletuner_tpu/ops/flash_attention.py``):
  2    ``_bwd_dq_kernel`` :197, call :334          ``csrc/flash_bwd.cu``    ported (CUDA, TMA + wgmma)
  3    ``_bwd_dkv_kernel`` :239, call :369         ``csrc/flash_bwd.cu``    ported (CUDA, TMA + wgmma)
 ====  ==========================================  =======================  ==========================
+
+Each kernel is one template over the head dim, with instances at 64, 128
+and 256 (every other head dim up to 256 is zero-padded to the next): the
+head dim 256 instances stream narrower tiles (forward: 64 keys; dq: 32 keys
+in 2 stages), and the dkv instance at 256 gives each consumer warpgroup one
+half of D of dK and dV for all of the CTA's 64 keys.
 """
 
 from __future__ import annotations

@@ -16,7 +16,9 @@
 // What bounds it: at the Flux shape each kernel does 3 (dq) or 4 (dkv)
 // S x S x D products (1.3e11 flop each) against a few tens of MB of q, k, v,
 // dO, lse and delta: tensor-core bound, not device-memory bound.  The S x S
-// matrices (P, dP, dS) never leave registers.
+// matrices (P, dP, dS) never leave registers.  Head dims 64, 128 and 256
+// are instances of the same two kernels; at 256 the tiles narrow and the dkv
+// kernel splits D between its warpgroups (DqSmem, DkvSmem).
 //
 // Design, shared by both kernels:
 //   * the TPU split is kept: two kernels and no atomics on a gradient, so the
@@ -60,16 +62,6 @@ struct BwdParams {
   float scale_log2;  // sm_scale * log2(e)
 };
 
-// d (64 x D, f32) += A (64 x 16, bf16 registers) * B (16 x D, smem, MN-major)
-template <int D>
-__device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t* a, uint64_t desc) {
-  if constexpr (D == 128) {
-    hopper::wgmma_rs_n128(acc, a, desc);
-  } else {
-    hopper::wgmma_rs_n64(acc, a, desc);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // dQ: one CTA per (batch * head, 128 query rows), streaming 64-key tiles
 // ---------------------------------------------------------------------------
@@ -91,12 +83,16 @@ __device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t* 
 // (hopper::schedule_key_tiles, as in the forward).
 
 constexpr int DQ_BLOCK_M = 128;  // query rows per CTA, 64 per consumer warpgroup
-constexpr int DQ_BLOCK_N = 64;   // keys per streamed tile
-constexpr int DQ_STAGES = 3;
 
-// byte offsets from the 1024-aligned start of dynamic shared memory
+// byte offsets from the 1024-aligned start of dynamic shared memory, and the
+// streamed key tiles: 64 keys in a 3-stage ring up to head dim 128.  At head
+// dim 256, Q and dO take 128 KB, so K and V stream as 32-key tiles through 2
+// stages (4 x 16 KB), and a consumer thread holds the 64 x 256 f32 dQ (128
+// registers) beside S and dP of 64 x 32 (16 each).
 template <int D>
 struct DqSmem {
+  static constexpr int DQ_BLOCK_N = D == 256 ? 32 : 64;  // keys per streamed tile
+  static constexpr int DQ_STAGES = D == 256 ? 2 : 3;
   static constexpr int OWN = DQ_BLOCK_M * D * 2;   // Q or dO
   static constexpr int TILE = DQ_BLOCK_N * D * 2;  // one K or V stage
   static constexpr int Q = 0;
@@ -114,7 +110,7 @@ struct DqSmem {
 // dS = P (dP - delta) for one tile into dp, with P = exp(s scale - lse):
 // element 4 i + e is the thread's query row e / 2, key 8 i + 2 t + e % 2 of
 // the tile; a mixed tile zeroes P where the segment mask is false
-template <bool MIXED>
+template <int DQ_BLOCK_N, bool MIXED>
 __device__ __forceinline__ void ds_tile(const float (&s)[DQ_BLOCK_N / 2], float (&dp)[DQ_BLOCK_N / 2],
                                         float scale_log2, const float (&lse)[2], const float (&delta)[2],
                                         const int (&q_ids)[2], const int* kv_ids, int t) {
@@ -135,6 +131,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                         const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                         const BwdParams p) {
   using S = DqSmem<D>;
+  constexpr int DQ_BLOCK_N = S::DQ_BLOCK_N;
+  constexpr int DQ_STAGES = S::DQ_STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   int* kv_id_s = reinterpret_cast<int*>(smem + S::KV_IDS);
@@ -255,7 +253,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     const uint32_t q_tile = hopper::smem_u32(smem + S::Q);
     const uint32_t do_tile = hopper::smem_u32(smem + S::DO);
-    auto advance = [](int& stage, uint32_t& phase) {
+    auto advance = [&](int& stage, uint32_t& phase) {
       if (++stage == DQ_STAGES) {
         stage = 0;
         phase ^= 1;
@@ -273,13 +271,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        hopper::wgmma_ss_n64(s, hopper::desc_k_major<DQ_BLOCK_M>(q_tile, c * 64 * 128, kk),
-                             hopper::desc_k_major<DQ_BLOCK_N>(k_tile, 0, kk), kk > 0);
+        hopper::wgmma_ss<DQ_BLOCK_N>(s, hopper::desc_k_major<DQ_BLOCK_M>(q_tile, c * 64 * 128, kk),
+                                     hopper::desc_k_major<DQ_BLOCK_N>(k_tile, 0, kk), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        hopper::wgmma_ss_n64(dp, hopper::desc_k_major<DQ_BLOCK_M>(do_tile, c * 64 * 128, kk),
-                             hopper::desc_k_major<DQ_BLOCK_N>(v_tile, 0, kk), kk > 0);
+        hopper::wgmma_ss<DQ_BLOCK_N>(dp, hopper::desc_k_major<DQ_BLOCK_M>(do_tile, c * 64 * 128, kk),
+                                     hopper::desc_k_major<DQ_BLOCK_N>(v_tile, 0, kk), kk > 0);
       }
       hopper::wgmma_commit();
     };
@@ -290,9 +288,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       hopper::fence_regs(dp);
       hopper::mbar_arrive(&v_empty[stage]);
       if (MASKED && classes[j] == hopper::TILE_MIXED) {
-        ds_tile<true>(s, dp, p.scale_log2, lse, delta, q_ids, kv_id_s + stage * DQ_BLOCK_N, t);
+        ds_tile<DQ_BLOCK_N, true>(s, dp, p.scale_log2, lse, delta, q_ids, kv_id_s + stage * DQ_BLOCK_N, t);
       } else {
-        ds_tile<false>(s, dp, p.scale_log2, lse, delta, q_ids, kv_id_s, t);
+        ds_tile<DQ_BLOCK_N, false>(s, dp, p.scale_log2, lse, delta, q_ids, kv_id_s, t);
       }
     };
     // dS re-packed as the bf16 A operand of dS K
@@ -312,7 +310,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DQ_BLOCK_N / 16; ++kk) {
-        product_rs<D>(dq, &dsa[4 * kk], hopper::desc_mn_major<DQ_BLOCK_N>(k_tile, kk));
+        hopper::wgmma_rs<D, DQ_BLOCK_N>(dq, &dsa[4 * kk], k_tile, kk);
       }
       hopper::wgmma_commit();
     };
@@ -396,13 +394,23 @@ __global__ void __launch_bounds__(THREADS, 1)
 // with dK and dV in f32 registers for the whole sweep.  The query tiles are
 // scheduled against the CTA's key ids.
 
-constexpr int DKV_BLOCK_N = 128;  // key rows per CTA, 64 per consumer warpgroup
-constexpr int DKV_BLOCK_M = 64;   // queries per streamed tile
-constexpr int DKV_STAGES = 2;
-
-// byte offsets from the 1024-aligned start of dynamic shared memory
+// byte offsets from the 1024-aligned start of dynamic shared memory, and the
+// tiles.  Up to head dim 128 a CTA owns 128 keys, 64 per consumer warpgroup,
+// with dK and dV over all of D, and streams 64-query tiles.  At head dim 256
+// a warpgroup's dK and dV of 64 keys would take 256 f32 registers a thread,
+// above the 255 cap, so the D is split: both warpgroups share the CTA's 64
+// keys, each owns one half of D of dK and dV (128 registers) and computes
+// the whole S^T and dP^T of each tile (over all of D) for itself, with
+// 32-query tiles (K and V 64 KB, 2 stages of Q and dO 64 KB).  The split
+// spends half as many products again as the 4 that the function needs,
+// and keeps the kernel free of any exchange between the warpgroups.
 template <int D>
 struct DkvSmem {
+  static constexpr bool SPLIT_D = D == 256;  // each consumer warpgroup owns one half of D
+  static constexpr int DKV_BLOCK_N = SPLIT_D ? 64 : 128;  // key rows per CTA
+  static constexpr int DKV_BLOCK_M = SPLIT_D ? 32 : 64;   // queries per streamed tile
+  static constexpr int DKV_STAGES = 2;
+  static constexpr int ACC_D = SPLIT_D ? D / 2 : D;  // dK and dV columns per consumer warpgroup
   static constexpr int OWN = DKV_BLOCK_N * D * 2;   // K or V
   static constexpr int TILE = DKV_BLOCK_M * D * 2;  // one Q or dO stage
   static constexpr int K = 0;
@@ -421,7 +429,7 @@ struct DkvSmem {
 // P^T into s and dS^T = P^T (dP^T - delta) into dp for one tile: element
 // 4 i + e is the thread's key row e / 2, query column 8 i + 2 t + e % 2 of
 // the tile; a mixed tile zeroes P where the segment mask is false
-template <bool MIXED>
+template <int DKV_BLOCK_M, bool MIXED>
 __device__ __forceinline__ void probabilities(float (&s)[DKV_BLOCK_M / 2], float (&dp)[DKV_BLOCK_M / 2],
                                               float scale_log2, const float* lse, const float* delta,
                                               const int* q_ids, const int (&kv_ids)[2], int t) {
@@ -444,6 +452,10 @@ __global__ void __launch_bounds__(THREADS, 1)
                          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                          const BwdParams p) {
   using S = DkvSmem<D>;
+  constexpr int DKV_BLOCK_N = S::DKV_BLOCK_N;
+  constexpr int DKV_BLOCK_M = S::DKV_BLOCK_M;
+  constexpr int DKV_STAGES = S::DKV_STAGES;
+  constexpr int ACC_D = S::ACC_D;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   float* lse_s = reinterpret_cast<float*>(smem + S::LSE);
@@ -560,19 +572,23 @@ __global__ void __launch_bounds__(THREADS, 1)
   } else {
     // ----------------------------------------------------------- consumers
     hopper::regs_alloc<240>();
-    const int c = warp / 4 - 1;  // key rows [64 c, 64 c + 64) of the CTA's tile
+    // key rows [64 c, 64 c + 64) of the CTA's tile, or with the split D all
+    // 64 keys and dK / dV columns [ACC_D c, ACC_D c + ACC_D)
+    const int c = warp / 4 - 1;
     const int w = warp % 4;
     const int g = lane >> 2;
     const int t = lane & 3;
-    const int rows[2] = {n0 + 64 * c + 16 * w + g, n0 + 64 * c + 16 * w + g + 8};
+    const int key0 = S::SPLIT_D ? 0 : 64 * c;  // first key row of the warpgroup within the CTA's tile
+    const int col0 = S::SPLIT_D ? ACC_D * c : 0;
+    const int rows[2] = {n0 + key0 + 16 * w + g, n0 + key0 + 16 * w + g + 8};
     int kv_ids[2] = {0, 0};
     if (MASKED) {
       kv_ids[0] = segment_id(p.kv_seg, b, p.sk, rows[0]);
       kv_ids[1] = segment_id(p.kv_seg, b, p.sk, rows[1]);
     }
-    float dk[D / 2], dv[D / 2];
+    float dk[ACC_D / 2], dv[ACC_D / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < ACC_D / 2; ++i) dk[i] = dv[i] = 0.f;
 
     const uint32_t k_tile = hopper::smem_u32(smem + S::K);
     const uint32_t v_tile = hopper::smem_u32(smem + S::V);
@@ -599,7 +615,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const float* delta_t = delta_s + stage * DKV_BLOCK_M;
       const int* qid_t = qid_s + stage * DKV_BLOCK_M;
 
-      // S^T = K Q^T and dP^T = V dO^T: this warpgroup's 64 keys x 64 queries
+      // S^T = K Q^T and dP^T = V dO^T: this warpgroup's 64 keys x DKV_BLOCK_M queries
       float s[DKV_BLOCK_M / 2], dp[DKV_BLOCK_M / 2];
 #pragma unroll
       for (int i = 0; i < DKV_BLOCK_M / 2; ++i) s[i] = dp[i] = 0.f;
@@ -610,13 +626,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        hopper::wgmma_ss_n64(s, hopper::desc_k_major<DKV_BLOCK_N>(k_tile, c * 64 * 128, kk),
-                             hopper::desc_k_major<DKV_BLOCK_M>(q_tile, 0, kk), kk > 0);
+        hopper::wgmma_ss<DKV_BLOCK_M>(s, hopper::desc_k_major<DKV_BLOCK_N>(k_tile, key0 * 128, kk),
+                                      hopper::desc_k_major<DKV_BLOCK_M>(q_tile, 0, kk), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        hopper::wgmma_ss_n64(dp, hopper::desc_k_major<DKV_BLOCK_N>(v_tile, c * 64 * 128, kk),
-                             hopper::desc_k_major<DKV_BLOCK_M>(do_tile, 0, kk), kk > 0);
+        hopper::wgmma_ss<DKV_BLOCK_M>(dp, hopper::desc_k_major<DKV_BLOCK_N>(v_tile, key0 * 128, kk),
+                                      hopper::desc_k_major<DKV_BLOCK_M>(do_tile, 0, kk), kk > 0);
       }
       hopper::wgmma_commit();
       pass_turn();
@@ -627,9 +643,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       // P^T in s, dS^T = P^T (dP^T - delta) in dp; element 4 i + e is key
       // row rows[e / 2], query column 8 i + 2 t + e % 2 of the tile
       if (MASKED && cls == hopper::TILE_MIXED) {
-        probabilities<true>(s, dp, p.scale_log2, lse_t, delta_t, qid_t, kv_ids, t);
+        probabilities<DKV_BLOCK_M, true>(s, dp, p.scale_log2, lse_t, delta_t, qid_t, kv_ids, t);
       } else {
-        probabilities<false>(s, dp, p.scale_log2, lse_t, delta_t, qid_t, kv_ids, t);
+        probabilities<DKV_BLOCK_M, false>(s, dp, p.scale_log2, lse_t, delta_t, qid_t, kv_ids, t);
       }
       uint32_t pa[DKV_BLOCK_M / 4], dsa[DKV_BLOCK_M / 4];
 #pragma unroll
@@ -641,7 +657,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
 
-      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q
+      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q, over the warpgroup's
+      // columns of dO and Q (their column blocks are DKV_BLOCK_M * 128 bytes apart)
+      const uint32_t col_off = (col0 / 64) * DKV_BLOCK_M * 128;
       hopper::fence_regs(pa);
       hopper::fence_regs(dsa);
       hopper::fence_regs(dv);
@@ -650,11 +668,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DKV_BLOCK_M / 16; ++kk) {
-        product_rs<D>(dv, &pa[4 * kk], hopper::desc_mn_major<DKV_BLOCK_M>(do_tile, kk));
+        hopper::wgmma_rs<ACC_D, DKV_BLOCK_M>(dv, &pa[4 * kk], do_tile + col_off, kk);
       }
 #pragma unroll
       for (int kk = 0; kk < DKV_BLOCK_M / 16; ++kk) {
-        product_rs<D>(dk, &dsa[4 * kk], hopper::desc_mn_major<DKV_BLOCK_M>(q_tile, kk));
+        hopper::wgmma_rs<ACC_D, DKV_BLOCK_M>(dk, &dsa[4 * kk], q_tile + col_off, kk);
       }
       hopper::wgmma_commit();
       pass_turn();
@@ -675,10 +693,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (rows[r] >= p.sk) continue;
-      bf16* krow = dkg + (int64_t)rows[r] * p.o0_ss + 2 * t;
-      bf16* vrow = dvg + (int64_t)rows[r] * p.o1_ss + 2 * t;
+      bf16* krow = dkg + (int64_t)rows[r] * p.o0_ss + col0 + 2 * t;
+      bf16* vrow = dvg + (int64_t)rows[r] * p.o1_ss + col0 + 2 * t;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < ACC_D / 8; ++i) {
         *reinterpret_cast<uint32_t*>(krow + 8 * i) =
             pack_bf16(dk[4 * i + 2 * r] * p.scale, dk[4 * i + 2 * r + 1] * p.scale);
         *reinterpret_cast<uint32_t*>(vrow + 8 * i) = pack_bf16(dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
@@ -700,7 +718,8 @@ cudaError_t launch(Kernel kernel, const CUtensorMap* maps, const BwdParams& p, d
 template <int D>
 cudaError_t launch_dq(const CUtensorMap* maps, const BwdParams& p, int batch_heads, int masked,
                       cudaStream_t stream) {
-  const int smem = DqSmem<D>::bytes((p.sk + DQ_BLOCK_N - 1) / DQ_BLOCK_N);
+  constexpr int block_n = DqSmem<D>::DQ_BLOCK_N;
+  const int smem = DqSmem<D>::bytes((p.sk + block_n - 1) / block_n);
   const dim3 grid((p.sq + DQ_BLOCK_M - 1) / DQ_BLOCK_M, batch_heads);
   return masked ? launch(flash_bwd_dq_kernel<D, true>, maps, p, grid, smem, stream)
                 : launch(flash_bwd_dq_kernel<D, false>, maps, p, grid, smem, stream);
@@ -709,8 +728,9 @@ cudaError_t launch_dq(const CUtensorMap* maps, const BwdParams& p, int batch_hea
 template <int D>
 cudaError_t launch_dkv(const CUtensorMap* maps, const BwdParams& p, int batch_heads, int masked,
                        cudaStream_t stream) {
-  const int smem = DkvSmem<D>::bytes((p.sq + DKV_BLOCK_M - 1) / DKV_BLOCK_M);
-  const dim3 grid((p.sk + DKV_BLOCK_N - 1) / DKV_BLOCK_N, batch_heads);
+  using S = DkvSmem<D>;
+  const int smem = S::bytes((p.sq + S::DKV_BLOCK_M - 1) / S::DKV_BLOCK_M);
+  const dim3 grid((p.sk + S::DKV_BLOCK_N - 1) / S::DKV_BLOCK_N, batch_heads);
   return masked ? launch(flash_bwd_dkv_kernel<D, true>, maps, p, grid, smem, stream)
                 : launch(flash_bwd_dkv_kernel<D, false>, maps, p, grid, smem, stream);
 }
@@ -752,48 +772,63 @@ BwdParams make_params(const void* lse, const void* delta, const void* q_seg, con
 
 }  // namespace
 
-extern "C" int st_flash_bwd_abi_version() { return 3; }
+extern "C" int st_flash_bwd_abi_version() { return 4; }
 
 // Common arguments of both entries.  q/k/v/dout: bf16 with unit stride on the
 // last (head) dim and the given element strides (batch, head, sequence) in
 // `strides` [q, k, v, dout, out0, out1] (18 values; multiples of 8, bases
 // 16-byte aligned); lse/delta: contiguous (batch, heads, sq) f32;
-// q_seg/kv_seg: contiguous int32 or null; head_dim 64 or 128.  Each returns
-// a cudaError_t (0 on a successful launch).
+// q_seg/kv_seg: contiguous int32 or null; head_dim 64, 128 or 256.  Each
+// returns a cudaError_t (0 on a successful launch).
 
 // dq (out0) = scale * dS K.  `masked` = 0 is only valid when there are no
-// segment ids, sq is a multiple of 128 and sk a multiple of 64.
+// segment ids, sq is a multiple of 128 and sk a multiple of the key tile
+// (64; 32 at head_dim 256).
 extern "C" int st_flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
                                     const void* lse, const void* delta, const void* q_seg,
                                     const void* kv_seg, void* dq, const int64_t* strides, int batch,
                                     int heads, int sq, int sk, int head_dim, float sm_scale,
                                     int masked, void* stream) {
-  if (head_dim != 64 && head_dim != 128) return cudaErrorInvalidValue;
+  if (head_dim != 64 && head_dim != 128 && head_dim != 256) return cudaErrorInvalidValue;
+  const int keys = head_dim == 256 ? DqSmem<256>::DQ_BLOCK_N : DqSmem<128>::DQ_BLOCK_N;
   CUtensorMap maps[4];
-  const cudaError_t err =
-      make_maps(maps, q, k, v, dout, strides, batch, heads, sq, sk, head_dim, DQ_BLOCK_M, DQ_BLOCK_N);
+  const cudaError_t err = make_maps(maps, q, k, v, dout, strides, batch, heads, sq, sk, head_dim, DQ_BLOCK_M, keys);
   if (err != cudaSuccess) return err;
   const BwdParams p = make_params(lse, delta, q_seg, kv_seg, dq, nullptr, strides, heads, sq, sk, sm_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return head_dim == 128 ? launch_dq<128>(maps, p, batch * heads, masked, s)
-                         : launch_dq<64>(maps, p, batch * heads, masked, s);
+  switch (head_dim) {
+    case 256:
+      return launch_dq<256>(maps, p, batch * heads, masked, s);
+    case 128:
+      return launch_dq<128>(maps, p, batch * heads, masked, s);
+    default:
+      return launch_dq<64>(maps, p, batch * heads, masked, s);
+  }
 }
 
 // dk (out0) = scale * dS^T Q, dv (out1) = P^T dO.  `masked` = 0 is only
-// valid when there are no segment ids, sq is a multiple of 64 and sk a
-// multiple of 128.
+// valid when there are no segment ids, sq is a multiple of the query tile
+// and sk of the key tile (64 and 128; 32 and 64 at head_dim 256).
 extern "C" int st_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                                      const void* lse, const void* delta, const void* q_seg,
                                      const void* kv_seg, void* dk, void* dv, const int64_t* strides,
                                      int batch, int heads, int sq, int sk, int head_dim,
                                      float sm_scale, int masked, void* stream) {
-  if (head_dim != 64 && head_dim != 128) return cudaErrorInvalidValue;
+  if (head_dim != 64 && head_dim != 128 && head_dim != 256) return cudaErrorInvalidValue;
+  const bool wide = head_dim == 256;
+  const int queries = wide ? DkvSmem<256>::DKV_BLOCK_M : DkvSmem<128>::DKV_BLOCK_M;
+  const int keys = wide ? DkvSmem<256>::DKV_BLOCK_N : DkvSmem<128>::DKV_BLOCK_N;
   CUtensorMap maps[4];
-  const cudaError_t err =
-      make_maps(maps, q, k, v, dout, strides, batch, heads, sq, sk, head_dim, DKV_BLOCK_M, DKV_BLOCK_N);
+  const cudaError_t err = make_maps(maps, q, k, v, dout, strides, batch, heads, sq, sk, head_dim, queries, keys);
   if (err != cudaSuccess) return err;
   const BwdParams p = make_params(lse, delta, q_seg, kv_seg, dk, dv, strides, heads, sq, sk, sm_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return head_dim == 128 ? launch_dkv<128>(maps, p, batch * heads, masked, s)
-                         : launch_dkv<64>(maps, p, batch * heads, masked, s);
+  switch (head_dim) {
+    case 256:
+      return launch_dkv<256>(maps, p, batch * heads, masked, s);
+    case 128:
+      return launch_dkv<128>(maps, p, batch * heads, masked, s);
+    default:
+      return launch_dkv<64>(maps, p, batch * heads, masked, s);
+  }
 }

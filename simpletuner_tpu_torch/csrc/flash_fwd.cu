@@ -12,20 +12,23 @@
 //
 // What bounds it: at the Flux shape (S = 4608, D = 128) the two S x S x D
 // products are 2.6e11 flop against 114 MB of q/k/v/out (0.26 ms at 989
-// TFLOP/s against 0.03 ms at 3.35 TB/s): tensor-core bound.  The design keeps
+// TFLOP/s against 0.03 ms at 3.35 TB/s): tensor-core bound, as is AuraFlow's
+// head dim 256 at (1, 12, 4360, 256) (2.3e11 flop, 0.236 ms).  The design keeps
 // the S x S scores out of device memory and feeds the tensor cores through
 // Hopper's asynchronous paths:
 //   * one CTA per (batch * head, 128 query rows): one producer warpgroup and
 //     two consumer warpgroups of 64 rows each; setmaxnreg moves registers
 //     from the producer (24) to the consumers (240);
-//   * one producer warp loads Q once and streams 128-row K and V tiles
-//     through a 2-stage ring with TMA (128-byte swizzle, rows past S
+//   * one producer warp loads Q once and streams K and V tiles of 128 keys
+//     (64 at head dim 256, block_n) through a 2-stage ring with TMA
+//     (128-byte swizzle, rows past S
 //     zero-filled), completion on mbarriers; the consumers release a K stage
 //     and a V stage apart, on "empty" mbarriers, once their products have
 //     read it;
 //   * S = Q K^T is a wgmma with both operands in shared memory; O += P V a
 //     wgmma with P in registers (the S accumulator re-packed as bf16) and V
-//     read MN-major through the descriptor;
+//     read MN-major through the descriptor (at head dim 256 as two n128
+//     products, hopper::wgmma_rs);
 //   * softmax in base 2 in registers, row statistics reduced across the quad
 //     of lanes that shares a row; it runs while S of the next tile and P V
 //     of the current one are in flight, and the two consumer warpgroups
@@ -49,8 +52,16 @@ using namespace flash;
 using namespace hopper;
 
 constexpr int BLOCK_M = 128;  // query rows per CTA, 64 per consumer warpgroup
-constexpr int BLOCK_N = 128;  // keys per streamed tile
 constexpr int STAGES = 2;
+
+// keys per streamed tile: 128 up to head dim 128; 64 at head dim 256, where
+// Q (64 KB) and two stages of K and V (4 x 32 KB) fill 192 KB of the 227 KB
+// of shared memory, and a consumer thread holds the 64 x 256 f32 O (128
+// registers) beside a 64 x 64 S (32)
+template <int D>
+constexpr int block_n() {
+  return D == 256 ? 64 : 128;
+}
 constexpr int THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int CONSUMER_THREADS = 256;
 
@@ -66,6 +77,7 @@ struct Params {
 // byte offsets from the 1024-aligned start of dynamic shared memory
 template <int D>
 struct Smem {
+  static constexpr int BLOCK_N = block_n<D>();
   static constexpr int TILE = BLOCK_N * D * 2;  // one K or V stage
   static constexpr int Q = 0;
   static constexpr int K = Q + BLOCK_M * D * 2;
@@ -78,20 +90,11 @@ struct Smem {
   static int bytes(int key_tiles) { return 1024 + CLASSES + ((key_tiles + 15) & ~15); }
 };
 
-template <int D>
-__device__ __forceinline__ void product_pv(float (&o)[D / 2], const uint32_t* p, uint64_t desc) {
-  if constexpr (D == 128) {
-    wgmma_rs_n128(o, p, desc);
-  } else {
-    wgmma_rs_n64(o, p, desc);
-  }
-}
-
 // scores of one tile -> f32 probabilities (in place) against the new row
 // maxima m_new (base 2), with their row sums; element 4 i + e is the
 // thread's row e / 2, key 8 i + 2 t + e % 2 of the tile.  A mixed tile sets
 // masked logits to -1e30 and zeroes their probabilities by selection.
-template <bool MIXED>
+template <int BLOCK_N, bool MIXED>
 __device__ __forceinline__ void softmax_tile(float (&s)[BLOCK_N / 2], float scale_log2, const float (&m_run)[2],
                                              const int (&q_ids)[2], const int* kv_ids, int t, float (&m_new)[2],
                                              float (&row_sum)[2]) {
@@ -138,6 +141,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const Params p) {
   using S = Smem<D>;
+  constexpr int BLOCK_N = S::BLOCK_N;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   int* kv_id_s = reinterpret_cast<int*>(smem + S::KV_IDS);
@@ -261,8 +265,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        wgmma_ss_n128(s, desc_k_major<BLOCK_M>(q_tile, c * 64 * 128, kk), desc_k_major<BLOCK_N>(k_tile, 0, kk),
-                      kk > 0);
+        wgmma_ss<BLOCK_N>(s, desc_k_major<BLOCK_M>(q_tile, c * 64 * 128, kk), desc_k_major<BLOCK_N>(k_tile, 0, kk),
+                          kk > 0);
       }
       wgmma_commit();
     };
@@ -271,9 +275,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     auto softmax = [&](int j, float (&m_new)[2], float (&row_sum)[2]) {
       fence_regs(s);
       if (MASKED && classes[j] == TILE_MIXED) {
-        softmax_tile<true>(s, p.scale_log2, m_run, q_ids, kv_id_s + k_stage * BLOCK_N, t, m_new, row_sum);
+        softmax_tile<BLOCK_N, true>(s, p.scale_log2, m_run, q_ids, kv_id_s + k_stage * BLOCK_N, t, m_new, row_sum);
       } else {
-        softmax_tile<false>(s, p.scale_log2, m_run, q_ids, kv_id_s, t, m_new, row_sum);
+        softmax_tile<BLOCK_N, false>(s, p.scale_log2, m_run, q_ids, kv_id_s, t, m_new, row_sum);
       }
       mbar_arrive(&k_empty[k_stage]);
       if (++k_stage == STAGES) {
@@ -314,7 +318,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-        product_pv<D>(o, &pa[4 * kk], desc_mn_major<BLOCK_N>(v_tile, kk));
+        wgmma_rs<D, BLOCK_N>(o, &pa[4 * kk], v_tile, kk);
       }
       wgmma_commit();
     };
@@ -387,7 +391,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <int D, bool MASKED>
 cudaError_t launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v, const Params& p,
                    int batch_heads, cudaStream_t stream) {
-  const int smem = Smem<D>::bytes((p.sk + BLOCK_N - 1) / BLOCK_N);
+  const int smem = Smem<D>::bytes((p.sk + Smem<D>::BLOCK_N - 1) / Smem<D>::BLOCK_N);
   cudaError_t err =
       cudaFuncSetAttribute(flash_fwd_kernel<D, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -405,25 +409,26 @@ cudaError_t launch_dim(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const C
 
 }  // namespace
 
-extern "C" int st_flash_fwd_abi_version() { return 2; }
+extern "C" int st_flash_fwd_abi_version() { return 3; }
 
 // q/k/v: bf16 (batch, heads, seq, head_dim) views with unit stride on the
 // head dim and the given element strides elsewhere (multiples of 8, base
 // 16-byte aligned); out: contiguous (batch, heads, sq, head_dim) bf16; lse:
 // contiguous (batch, heads, sq) f32; q_seg/kv_seg: contiguous int32 or null.
-// head_dim 64 or 128.  `masked` = 0 is only valid when there are no segment
-// ids and sk is a multiple of 128.  Returns a cudaError_t (0 on a successful
-// launch).
+// head_dim 64, 128 or 256.  `masked` = 0 is only valid when there are no
+// segment ids and sk is a multiple of the key tile (128; 64 at head_dim 256).
+// Returns a cudaError_t (0 on a successful launch).
 extern "C" int st_flash_fwd_bf16(const void* q, const void* k, const void* v, void* out, void* lse,
                                  const void* q_seg, const void* kv_seg, int64_t q_sb, int64_t q_sh, int64_t q_ss,
                                  int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
                                  int64_t v_ss, int batch, int heads, int sq, int sk, int head_dim, float sm_scale,
                                  int masked, void* stream) {
-  if (head_dim != 64 && head_dim != 128) return cudaErrorInvalidValue;
+  if (head_dim != 64 && head_dim != 128 && head_dim != 256) return cudaErrorInvalidValue;
+  const int keys = head_dim == 256 ? block_n<256>() : block_n<128>();
   CUtensorMap tm_q, tm_k, tm_v;
   cudaError_t err = make_tensor_map(&tm_q, q, batch, heads, sq, head_dim, q_sb, q_sh, q_ss, BLOCK_M);
-  if (err == cudaSuccess) err = make_tensor_map(&tm_k, k, batch, heads, sk, head_dim, k_sb, k_sh, k_ss, BLOCK_N);
-  if (err == cudaSuccess) err = make_tensor_map(&tm_v, v, batch, heads, sk, head_dim, v_sb, v_sh, v_ss, BLOCK_N);
+  if (err == cudaSuccess) err = make_tensor_map(&tm_k, k, batch, heads, sk, head_dim, k_sb, k_sh, k_ss, keys);
+  if (err == cudaSuccess) err = make_tensor_map(&tm_v, v, batch, heads, sk, head_dim, v_sb, v_sh, v_ss, keys);
   if (err != cudaSuccess) return err;
   Params p;
   p.q_seg = static_cast<const int32_t*>(q_seg);
@@ -435,6 +440,12 @@ extern "C" int st_flash_fwd_bf16(const void* q, const void* k, const void* v, vo
   p.sk = sk;
   p.scale_log2 = sm_scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return head_dim == 128 ? launch_dim<128>(tm_q, tm_k, tm_v, p, batch * heads, masked, s)
-                         : launch_dim<64>(tm_q, tm_k, tm_v, p, batch * heads, masked, s);
+  switch (head_dim) {
+    case 256:
+      return launch_dim<256>(tm_q, tm_k, tm_v, p, batch * heads, masked, s);
+    case 128:
+      return launch_dim<128>(tm_q, tm_k, tm_v, p, batch * heads, masked, s);
+    default:
+      return launch_dim<64>(tm_q, tm_k, tm_v, p, batch * heads, masked, s);
+  }
 }

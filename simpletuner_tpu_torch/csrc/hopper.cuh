@@ -9,7 +9,8 @@
 //   * wgmma: m64nNk16 bf16 products with f32 accumulators, A from shared
 //     memory (K-major) or from registers, B from shared memory (K-major for
 //     a row-major tile whose columns are the contraction, MN-major for one
-//     whose rows are);
+//     whose rows are); wgmma_ss / wgmma_rs pick the width N, and an N = 256
+//     product (the head dim 256 accumulators) runs as two n128 halves;
 //   * the tile schedule of the segment mask (tile_class, and the per-CTA
 //     schedule_key_tiles of the forward and dq kernels), mirrored by
 //     simpletuner_tpu_torch/ops/flash_attention.py::tile_schedule.
@@ -241,6 +242,16 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
+// d (64 x 32, f32) (+)= A (64 x 16, smem, K-major) * B (16 x 32, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d (64 x 64, f32) (+)= A (64 x 16, smem, K-major) * B (16 x 64, smem, K-major)
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
   asm volatile(
@@ -279,6 +290,37 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x N, f32) (+)= A (64 x 16, smem, K-major) * B (16 x N, smem, K-major), N in {32, 64, 128}
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  if constexpr (N == 128) {
+    wgmma_ss_n128(d, desc_a, desc_b, accumulate);
+  } else if constexpr (N == 64) {
+    wgmma_ss_n64(d, desc_a, desc_b, accumulate);
+  } else {
+    static_assert(N == 32, "wgmma_ss takes N = 32, 64 or 128");
+    wgmma_ss_n32(d, desc_a, desc_b, accumulate);
+  }
+}
+
+// d (64 x N, f32) += A (64 x 16, bf16 registers) * B (16 x N, smem, MN-major):
+// k-slice kk of a tile of ROWS rows whose first column block starts at
+// `tile`, N in {64, 128, 256}.  N = 256 runs as two n128 products, over
+// column blocks 0-1 into d[0, 64) and column blocks 2-3 into d[64, 128): the
+// accumulator layout of each half is that of an n128 product.
+template <int N, int ROWS>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint32_t tile, int kk) {
+  if constexpr (N == 256) {
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, desc_mn_major<ROWS>(tile, kk));
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a, desc_mn_major<ROWS>(tile + 2 * ROWS * 128, kk));
+  } else if constexpr (N == 128) {
+    wgmma_rs_n128(d, a, desc_mn_major<ROWS>(tile, kk));
+  } else {
+    static_assert(N == 64, "wgmma_rs takes N = 64, 128 or 256");
+    wgmma_rs_n64(d, a, desc_mn_major<ROWS>(tile, kk));
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -222,6 +222,47 @@ def pixart_checkpoint_shapes(arch) -> Dict[str, tuple]:
     return shapes
 
 
+def auraflow_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers ``AuraFlowTransformer2DModel``
+    of ``arch`` (``models/auraflow/transformer.py::AuraFlowConfig``) as
+    ``auraflow_params_from_diffusers`` reads it and the JAX
+    ``export_auraflow_to_diffusers`` writes it: the patch linear and the time
+    MLP with biases, every other linear bias-free, the position table and the
+    register tokens with a leading batch axis."""
+    dim, p, ffn = arch.hidden_size, arch.patch_size, arch.ffn_hidden
+    shapes: Dict[str, tuple] = {
+        "pos_embed.proj.weight": (dim, p * p * arch.in_channels), "pos_embed.proj.bias": (dim,),
+        "pos_embed.pos_embed": (1, arch.pos_embed_max_size, dim),
+        "context_embedder.weight": (dim, arch.text_dim),
+        "register_tokens": (1, arch.num_register_tokens, dim),
+        "time_step_proj.linear_1.weight": (dim, 256), "time_step_proj.linear_1.bias": (dim,),
+        "time_step_proj.linear_2.weight": (dim, dim), "time_step_proj.linear_2.bias": (dim,),
+    }
+
+    def ff(prefix):
+        shapes[f"{prefix}.linear_1.weight"] = (ffn, dim)
+        shapes[f"{prefix}.linear_2.weight"] = (ffn, dim)
+        shapes[f"{prefix}.out_projection.weight"] = (dim, ffn)
+
+    for i in range(arch.depth_double):
+        block = f"joint_transformer_blocks.{i}"
+        shapes[f"{block}.norm1.linear.weight"] = (6 * dim, dim)
+        shapes[f"{block}.norm1_context.linear.weight"] = (6 * dim, dim)
+        for proj in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj", "to_out.0", "to_add_out"):
+            shapes[f"{block}.attn.{proj}.weight"] = (dim, dim)
+        ff(f"{block}.ff")
+        ff(f"{block}.ff_context")
+    for i in range(arch.depth_single):
+        block = f"single_transformer_blocks.{i}"
+        shapes[f"{block}.norm1.linear.weight"] = (6 * dim, dim)
+        for proj in ("to_q", "to_k", "to_v", "to_out.0"):
+            shapes[f"{block}.attn.{proj}.weight"] = (dim, dim)
+        ff(f"{block}.ff")
+    shapes["norm_out.linear.weight"] = (2 * dim, dim)
+    shapes["proj_out.weight"] = (p * p * arch.in_channels, dim)
+    return shapes
+
+
 def clip_checkpoint_shapes(config, projection: bool = False) -> Dict[str, tuple]:
     """Tensor names and torch shapes of an HF ``CLIPTextModel`` of ``config``
     (``models/clip.py::CLIPTextConfig``); ``projection`` adds the

@@ -4,8 +4,8 @@ Counterpart of ``simpletuner_tpu/models/registry.py``: ``ModelRegistry``
 (``families``, ``metadata``, ``get``, ``create``) over a copy of the JAX
 registry's family table and aliases, and ``get_model_family``, which builds
 the family a config names.  Every family of the JAX registry is listed with
-its metadata; ``flux``, ``sd3``, ``sdxl``, ``sd1x``, ``sd2x`` and
-``pixart_sigma`` are ported (with the JAX aliases ``sd15``, ``sd21`` and
+its metadata; ``flux``, ``sd3``, ``sdxl``, ``sd1x``, ``sd2x``,
+``pixart_sigma`` and ``auraflow`` are ported (with the JAX aliases ``sd15``, ``sd21`` and
 ``pixart``), so ``get`` of any other family raises naming ROADMAP Queue 1
 item 6, and an unknown name raises ``KeyError`` as in the JAX registry.
 """
@@ -61,7 +61,7 @@ _FAMILIES: Dict[str, Dict[str, str]] = {
 ALIASES = {"sd15": "sd1x", "sd21": "sd2x", "pixart": "pixart_sigma", "ltx2": "ltxvideo2",
            "kandinsky5-image": "kandinsky5_image"}
 # the families the port builds
-PORTED = ("flux", "sd3", "sdxl", "sd1x", "sd2x", "pixart_sigma")
+PORTED = ("flux", "sd3", "sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow")
 
 
 class ModelRegistry:
@@ -100,6 +100,10 @@ class ModelRegistry:
             from .pixart import PixartSigma
 
             return PixartSigma
+        if family == "auraflow":
+            from .auraflow import AuraFlow
+
+            return AuraFlow
         raise NotImplementedError(f"model_family={name!r} is not ported (only {', '.join(PORTED)}; "
                                   "ROADMAP Queue 1 item 6)")
 

@@ -1,4 +1,4 @@
-"""T5 encoder (T5-XXL for Flux, the tiny test config), the port's own module.
+"""T5 encoder (T5-XXL for Flux, Pile-T5-XL for AuraFlow, the tiny test config), the port's own module.
 
 Counterpart of ``transformers``' ``FlaxT5EncoderModel``, which the JAX
 package runs (``simpletuner_tpu/models/text_encoders.py:85-95``), so that
@@ -12,8 +12,14 @@ What the module keeps of the Flax model: attention takes no scaling; the
 relative position bias is bidirectional (32 buckets, max distance 128),
 computed in layer 0 only, with the padding mask folded in, and shared by the
 later layers; the RMS ``T5LayerNorm`` keeps its variance in f32, and a final
-layer norm closes the stack; the feed-forward is ``relu`` (``wi``, ``wo``) or
-``gated-gelu`` (``wi_0``, ``wi_1``, ``wo``, the tanh gelu).  Products run in
+layer norm closes the stack; the feed-forward is ``relu`` (``wi``, ``wo``),
+``gated-gelu`` (``wi_0``, ``wi_1``, ``wo``, the tanh gelu) or ``gated-silu``
+(the same with silu: Pile-T5).  A ``umt5`` checkpoint (AuraFlow's
+``text_encoder``, read through the ``t5-xxl`` family as the JAX package reads
+it with ``FlaxT5EncoderModel.from_pretrained``) carries a relative attention
+bias in every layer; the Flax model has one in layer 0 only and drops the
+others as unused weights, so :func:`load_t5_encoder` drops them too and every
+layer takes layer 0's bias (ROADMAP Queue 3).  Products run in
 the weights' dtype (bf16 or f32) with norms, the position bias and the
 softmax in f32.  The JAX package with ``text_encoder_precision=bf16`` keeps
 bf16 weights but computes in f32; the port computes in bf16.
@@ -52,6 +58,13 @@ class T5Config:
         return cls()
 
     @classmethod
+    def pile_xl(cls) -> "T5Config":
+        """EleutherAI's Pile-T5-XL encoder, AuraFlow's ``text_encoder`` (a
+        ``umt5`` config.json: d_model 2048, 32 heads of 64, d_ff 5120,
+        gated-silu; 1.2B parameters)."""
+        return cls(d_model=2048, d_ff=5120, num_heads=32, feed_forward_proj="gated-silu")
+
+    @classmethod
     def tiny(cls, feed_forward_proj: str = "relu") -> "T5Config":
         """The JAX package's tiny test encoder (text_encoders.py:89)."""
         return cls(vocab_size=1000, d_model=32, d_ff=64, num_layers=2, num_heads=2, d_kv=16,
@@ -65,10 +78,12 @@ class T5Config:
 
     @property
     def gated(self) -> bool:
-        """True for ``gated-gelu``, False for ``relu``; other forms raise."""
-        if self.feed_forward_proj not in ("relu", "gated-gelu"):
-            raise NotImplementedError(f"feed_forward_proj={self.feed_forward_proj!r} is not ported (relu, gated-gelu)")
-        return self.feed_forward_proj == "gated-gelu"
+        """True for ``gated-gelu`` and ``gated-silu``, False for ``relu``;
+        other forms raise."""
+        if self.feed_forward_proj not in ("relu", "gated-gelu", "gated-silu"):
+            raise NotImplementedError(f"feed_forward_proj={self.feed_forward_proj!r} is not ported "
+                                      "(relu, gated-gelu, gated-silu)")
+        return self.feed_forward_proj != "relu"
 
 
 def relative_position_bucket(relative_position: torch.Tensor, num_buckets: int = 32,
@@ -155,12 +170,15 @@ class T5DenseActDense(nn.Module):
 class T5DenseGatedActDense(nn.Module):
     def __init__(self, config: T5Config, dtype: torch.dtype) -> None:
         super().__init__()
+        self.silu = config.feed_forward_proj == "gated-silu"
         self.wi_0 = nn.Linear(config.d_model, config.d_ff, bias=False, dtype=dtype)
         self.wi_1 = nn.Linear(config.d_model, config.d_ff, bias=False, dtype=dtype)
         self.wo = nn.Linear(config.d_ff, config.d_model, bias=False, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wo(F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x))
+        gate = self.wi_0(x)
+        gate = F.silu(gate) if self.silu else F.gelu(gate, approximate="tanh")
+        return self.wo(gate * self.wi_1(x))
 
 
 class T5LayerFF(nn.Module):
@@ -257,14 +275,18 @@ def t5_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor
 
 
 def load_t5_encoder(path: str, dtype: torch.dtype = torch.float32, device=None) -> T5EncoderModel:
-    """An HF torch-layout T5 encoder directory (``config.json`` and
-    ``*.safetensors`` shards, e.g. Flux's ``text_encoder_2/``)."""
+    """An HF torch-layout T5 or UMT5 encoder directory (``config.json`` and
+    ``*.safetensors`` shards, e.g. Flux's ``text_encoder_2/`` or AuraFlow's
+    ``text_encoder/``).  A UMT5 file's relative attention biases of layers
+    1 and up are dropped, as the Flax model drops them."""
     from .weight_import import read_safetensors
 
     with open(os.path.join(path, "config.json")) as handle:
         config = T5Config.from_hf(json.load(handle))
     weights = read_safetensors(path)
     weights.pop("encoder.embed_tokens.weight", None)  # tied to shared.weight
+    for layer in range(1, config.num_layers):
+        weights.pop(f"encoder.block.{layer}.layer.0.SelfAttention.relative_attention_bias.weight", None)
     with torch.device(device or "cpu"):
         model = T5EncoderModel(config, dtype)
     model.load_state_dict(weights)

@@ -17,7 +17,8 @@ for level as the JAX presets build it: attention wherever
 ``cross_attention_blocks`` marks a level, so SDXL's
 ``down_blocks.0.attentions.*`` too (ROADMAP Queue 3), and SD 1.x's 1x1-conv
 ``proj_in`` / ``proj_out`` read as dense kernels; PixArt-Sigma the diffusers
-``PixArtTransformer2DModel`` layout (``transformer/``).
+``PixArtTransformer2DModel`` layout (``transformer/``); AuraFlow the
+diffusers ``AuraFlowTransformer2DModel`` layout (``transformer/``).
 
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
 keeps f32 and bf16 leaves in the file's dtype (``_float``), takes fp8 (e4m3)
@@ -32,8 +33,8 @@ The safetensors reader and writer are the port's own (stdlib, numpy and
 torch): an 8-byte little-endian header length, a JSON header, raw
 little-endian bytes.  Files are memory-mapped copy-on-write, so a tensor is
 read from disk when it is first used.  Only the ``flux``, ``sd3``, ``sdxl``,
-``sd1x``, ``sd2x`` and ``pixart_sigma`` families import; every other family
-raises.
+``sd1x``, ``sd2x``, ``pixart_sigma`` and ``auraflow`` families import; every
+other family raises.
 """
 
 from __future__ import annotations
@@ -702,11 +703,67 @@ def load_pixart_params(model, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# AuraFlow (diffusers AuraFlowTransformer2DModel: learned position table,
+# register tokens, joint + single blocks, SwiGLU feed-forwards, bias-free linears)
+# ---------------------------------------------------------------------------------
+
+
+def _aura_ff(w: Mapping[str, torch.Tensor], src: str) -> Dict[str, Any]:
+    return {name: _linear(w, f"{src}.{name}") for name in ("linear_1", "linear_2", "out_projection")}
+
+
+def auraflow_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a diffusers AuraFlow transformer of ``arch``
+    (``AuraFlowConfig``): the position table and register tokens without the
+    checkpoint's leading batch axis."""
+    w = weights
+    params: Dict[str, Any] = {
+        "patch_in": _linear(w, "pos_embed.proj"),
+        "pos_embed": _float(w["pos_embed.pos_embed"]).reshape(-1, arch.hidden_size),
+        "context_in": _linear(w, "context_embedder"),
+        "register_tokens": _float(w["register_tokens"]).reshape(-1, arch.hidden_size),
+        "time_in": {
+            "in_layer": _linear(w, "time_step_proj.linear_1"),
+            "out_layer": _linear(w, "time_step_proj.linear_2"),
+        },
+        "final_mod": _linear(w, "norm_out.linear"),
+        "final_proj": _linear(w, "proj_out"),
+    }
+    attention = (("attn_q", "attn.to_q"), ("attn_k", "attn.to_k"), ("attn_v", "attn.to_v"),
+                 ("attn_proj", "attn.to_out.0"))
+    joint = attention + (("attn_add_q", "attn.add_q_proj"), ("attn_add_k", "attn.add_k_proj"),
+                         ("attn_add_v", "attn.add_v_proj"), ("attn_add_proj", "attn.to_add_out"))
+    for i in range(arch.depth_double):
+        src = f"joint_transformer_blocks.{i}"
+        block: Dict[str, Any] = {"norm1_lin": _linear(w, f"{src}.norm1.linear"),
+                                 "norm1_context_lin": _linear(w, f"{src}.norm1_context.linear"),
+                                 "ff": _aura_ff(w, f"{src}.ff"), "ff_context": _aura_ff(w, f"{src}.ff_context")}
+        for ours, theirs in joint:
+            block[ours] = _linear(w, f"{src}.{theirs}")
+        params[f"double_{i}"] = block
+    for i in range(arch.depth_single):
+        src = f"single_transformer_blocks.{i}"
+        block = {"norm1_lin": _linear(w, f"{src}.norm1.linear"), "ff": _aura_ff(w, f"{src}.ff")}
+        for ours, theirs in attention:
+            block[ours] = _linear(w, f"{src}.{theirs}")
+        params[f"single_{i}"] = block
+    return params
+
+
+def load_auraflow_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a diffusers AuraFlow transformer (a
+    model dir with a ``transformer/`` subfolder, or one file)."""
+    params = auraflow_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported auraflow weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
 _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_unet_params, "sd1x": load_unet_params,
-              "sd2x": load_unet_params, "pixart_sigma": load_pixart_params}
+              "sd2x": load_unet_params, "pixart_sigma": load_pixart_params, "auraflow": load_auraflow_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:

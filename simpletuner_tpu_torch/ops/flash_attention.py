@@ -7,7 +7,9 @@ Pallas ``_fwd_kernel``) in the forward and ``csrc/flash_bwd.cu`` (the ports
 of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) in the backward.  On CPU
 tensors it runs their plain PyTorch versions, :func:`mha_reference_lse` and
 :func:`mha_backward_reference`.  There is no fallback between the two: a
-CUDA call that a kernel cannot take raises.
+CUDA call that a kernel cannot take raises.  Each kernel has instances at
+head dims 64, 128 and 256 (AuraFlow's); any other head dim up to 256 is
+zero-padded to the next of them.
 
 The differentiable op is ``torch.ops.simpletuner_tpu_torch.flash_attention``
 (a ``torch.library`` custom op returning ``(out, lse)``), so selective
@@ -31,14 +33,21 @@ from .. import csrc
 
 SEGMENT_PAD_ID = -1
 DEFAULT_MASK_VALUE = -1e30
-# (query, key) tiles of each kernel; a ragged tail needs the masked mode
+# (query, key) tiles of each kernel up to head dim 128; a ragged tail needs
+# the masked mode
 FWD_BLOCKS = (128, 128)
 DQ_BLOCKS = (128, 64)
 DKV_BLOCKS = (64, 128)
-# the kernels take these head dims; every other head dim up to 128 reaches
+# the head dim 256 forms stream narrower tiles, so that the tiles fit in
+# shared memory and the accumulators in registers (csrc/flash_fwd.cu
+# ``block_n``, csrc/flash_bwd.cu ``DqSmem`` / ``DkvSmem``)
+FWD_BLOCKS_256 = (128, 64)
+DQ_BLOCKS_256 = (128, 32)
+DKV_BLOCKS_256 = (32, 64)
+# the kernels take these head dims; every other head dim up to 256 reaches
 # them zero-padded to the next one (exact: the padded columns add 0 to every
 # product, and sm_scale stays that of the unpadded head dim)
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 TILE_SKIP, TILE_FULL, TILE_MIXED = 0, 1, 2
 
 
@@ -182,15 +191,22 @@ def mha_backward_reference(
 
 
 def _kernel_head_dim(dim: int) -> int:
-    """The head dim a kernel runs for ``dim``: 64 or 128 as they are, every
-    other ``dim`` <= 128 zero-padded to the next of the two."""
+    """The head dim a kernel runs for ``dim``: 64, 128 or 256 as they are,
+    every other ``dim`` <= 256 zero-padded to the next of the three."""
     if dim < 1:
         raise ValueError(f"head_dim must be positive, got {dim}")
     for width in WGMMA_HEAD_DIMS:
         if dim <= width:
             return width
-    raise NotImplementedError(f"the flash kernels take head_dim <= 128, got {dim}; the head_dim 256 kernel "
-                              "(AuraFlow) is still to port")
+    raise NotImplementedError(f"the flash kernels take head_dim <= 256, got {dim}")
+
+
+def kernel_blocks(part: str, head_dim: int) -> Tuple[int, int]:
+    """(query, key) tile of kernel ``part`` ("fwd", "dq" or "dkv") at the
+    kernel head dim ``head_dim`` (64, 128 or 256)."""
+    blocks = {"fwd": (FWD_BLOCKS, FWD_BLOCKS_256), "dq": (DQ_BLOCKS, DQ_BLOCKS_256),
+              "dkv": (DKV_BLOCKS, DKV_BLOCKS_256)}[part]
+    return blocks[head_dim == 256]
 
 
 def _check_kernel_operands(kernel: str, q: torch.Tensor, **tensors: torch.Tensor) -> None:
@@ -254,7 +270,7 @@ class FlashForwardKernel:
             fn.argtypes = [ptr] * 7 + [i64] * 9 + [i32] * 5 + [ctypes.c_float, i32, ptr]
             fn.restype = i32
             lib.st_flash_fwd_abi_version.restype = i32
-            if lib.st_flash_fwd_abi_version() != 2:
+            if lib.st_flash_fwd_abi_version() != 3:
                 raise RuntimeError("flash_fwd library has an unexpected ABI version")
             self._fn = fn
         return self._fn
@@ -275,7 +291,7 @@ class FlashForwardKernel:
         q, k, v = (_pad_head_dim(x) for x in (q, k, v))
         _check_kernel_operands("flash kernel", q, k=k, v=v)
         segs = _kernel_segments("flash kernel", q, k, q_segment_ids, kv_segment_ids)
-        masked = any(s is not None for s in segs) or sk % FWD_BLOCKS[1] != 0
+        masked = any(s is not None for s in segs) or sk % kernel_blocks("fwd", q.shape[-1])[1] != 0
 
         out = torch.empty((batch, heads, sq, q.shape[-1]), dtype=torch.bfloat16, device=q.device)
         lse = torch.empty((batch, heads, sq), dtype=torch.float32, device=q.device)
@@ -320,7 +336,7 @@ class FlashBackwardKernel:
             fn.argtypes = [ptr] * (8 + n_out) + [ptr] + [i32] * 5 + [ctypes.c_float, i32, ptr]
             fn.restype = i32
             lib.st_flash_bwd_abi_version.restype = i32
-            if lib.st_flash_bwd_abi_version() != 3:
+            if lib.st_flash_bwd_abi_version() != 4:
                 raise RuntimeError("flash_bwd library has an unexpected ABI version")
             self._fn = fn
         return self._fn
@@ -353,7 +369,7 @@ class FlashBackwardKernel:
         q, k, v, do = (_pad_head_dim(x) for x in (q, k, v, do))
         _check_kernel_operands(kernel, q, k=k, v=v, do=do)
         segs = _kernel_segments(kernel, q, k, q_segment_ids, kv_segment_ids)
-        block_q, block_k = DQ_BLOCKS if self.part == "dq" else DKV_BLOCKS
+        block_q, block_k = kernel_blocks(self.part, q.shape[-1])
         masked = any(s is not None for s in segs) or sq % block_q != 0 or sk % block_k != 0
         # a padded call writes padded gradients, sliced into ``grads`` below;
         # otherwise the kernel writes ``grads`` in place, in their inputs' layout

@@ -3,7 +3,7 @@
 The torch port's copy of the part of ``simpletuner_tpu/training/lora.py`` it
 uses: ``flux_key_map`` (lora.py:76), ``unet_key_map`` (lora.py:116; sdxl,
 sd1x and sd2x), ``sd3_key_map`` (lora.py:158), ``pixart_key_map``
-(lora.py:336) and ``_key_map_for`` (lora.py:680), which resolve the LoRA target presets and
+(lora.py:336), ``auraflow_key_map`` (lora.py:561) and ``_key_map_for`` (lora.py:680), which resolve the LoRA target presets and
 name the adapters of an export (the maps leave ``patch_in`` and
 ``context_in`` under their own names, as the JAX export does),
 and the plain-LoRA path of the adapter files: ``lora_state_dict`` (:693),
@@ -134,6 +134,22 @@ def pixart_key_map(arch) -> Dict[str, Any]:
     return mapping
 
 
+def auraflow_key_map(arch) -> Dict[str, Any]:
+    attention = {"attn_q": "attn.to_q", "attn_k": "attn.to_k", "attn_v": "attn.to_v", "attn_proj": "attn.to_out.0"}
+    ff = {f"ff/{name}": f"ff.{name}" for name in ("linear_1", "linear_2", "out_projection")}
+    joint = {**attention, "attn_add_q": "attn.add_q_proj", "attn_add_k": "attn.add_k_proj",
+             "attn_add_v": "attn.add_v_proj", "attn_add_proj": "attn.to_add_out", **ff,
+             **{f"ff_context/{name}": f"ff_context.{name}" for name in ("linear_1", "linear_2", "out_projection")}}
+    mapping: Dict[str, Any] = {}
+    for layer in range(arch.depth_double):
+        for ours, theirs in joint.items():
+            mapping[f"double_{layer}/{ours}"] = f"joint_transformer_blocks.{layer}.{theirs}"
+    for layer in range(arch.depth_single):
+        for ours, theirs in {**attention, **ff}.items():
+            mapping[f"single_{layer}/{ours}"] = f"single_transformer_blocks.{layer}.{theirs}"
+    return mapping
+
+
 # family name -> key map builder, for the families the port has
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
@@ -142,6 +158,7 @@ _KEY_MAPS = {
     "sdxl": lambda m: unet_key_map(m.arch),
     "sd3": lambda m: sd3_key_map(m.arch),
     "pixart_sigma": lambda m: pixart_key_map(m.arch),
+    "auraflow": lambda m: auraflow_key_map(m.arch),
 }
 
 

@@ -41,14 +41,15 @@ text encoders from 0.  Half-precision text encoders are bf16 in the port
 dtype and T5 overflows fp16.  The families are ``flux``, ``sd3``, ``sdxl``
 (the 4-channel ``VAEConfig.sdxl()`` VAE, its two CLIP encoders and the DDPM
 epsilon / v path), ``sd1x`` and ``sd2x`` (one CLIP encoder, the SD VAE, epsilon
-and v-prediction) and ``pixart_sigma`` (T5-XXL at 300 tokens, epsilon; the
-SD ``VAEConfig()``, as the JAX trainer builds it for every 4-channel family
-but sdxl and kolors); the batch reaches the step with every numeric array
+and v-prediction), ``pixart_sigma`` (T5-XXL at 300 tokens, epsilon) and
+``auraflow`` (Pile-T5 at 256 tokens, flow matching; both with the SD
+``VAEConfig()``, as the JAX trainer builds it for every 4-channel family but
+sdxl and kolors); the batch reaches the step with every numeric array
 the family's collate gives (Flux's ``t5_embeds``/``t5_masks``, the others'
 ``text_embeds``, SDXL's size conditioning ``original_sizes``,
 ``crop_coordinates`` and ``target_sizes``), and ``pooled_embeds`` for flux,
 sd3 and sdxl.  Refused, each naming its ROADMAP item:
-families other than these six, full fine-tunes and ControlNet, distillation and
+families other than these seven, full fine-tunes and ControlNet, distillation and
 ODE pairs, CREPA / U-REPA, text-encoder training, slider and assistant
 adapters, a mesh of more than one device and multi-process runs.
 """

@@ -187,7 +187,7 @@ def test_backend_is_not_read_from_the_environment(monkeypatch):
 
 
 @pytest.mark.parametrize("dim,width", [(1, 64), (32, 64), (48, 64), (64, 64), (72, 128), (80, 128), (96, 128),
-                                       (112, 128), (128, 128)])
+                                       (112, 128), (128, 128), (129, 256), (192, 256), (256, 256)])
 def test_kernel_head_dim_pads_to_the_next_kernel_width(dim, width):
     assert _kernel_head_dim(dim) == width
     x = torch.ones((1, 1, 4, dim))
@@ -198,8 +198,50 @@ def test_kernel_head_dim_pads_to_the_next_kernel_width(dim, width):
 
 @pytest.mark.parametrize("dim", [129, 160, 256])
 def test_kernel_head_dim_refuses_above_128(dim):
+    """The head dim 128 kernels take no wider head: these reach the head dim
+    256 instances (zero-padded below 256), and a head wider than 256 is
+    refused by name."""
+    assert _kernel_head_dim(dim) == 256
     with pytest.raises(NotImplementedError, match="256"):
+        _kernel_head_dim(dim + 128)
+
+
+@pytest.mark.parametrize("dim", [257, 320, 512])
+def test_kernel_head_dim_refuses_above_256(dim):
+    with pytest.raises(NotImplementedError, match="head_dim <= 256"):
         _kernel_head_dim(dim)
+
+
+@pytest.mark.parametrize("seq,masked", [(256, False), (192, False), (256, True), (192, True)])
+def test_head_dim_256_matches_jax(seq, masked):
+    """AuraFlow's head dim: the port's op (the plain versions of the head dim
+    256 kernels on the CPU) against the JAX ``flash_attention`` (the Pallas
+    kernels in interpret mode) on the same inputs, forward and the
+    gradients of a seeded projection, within ``TOL``; 192 is a ragged S."""
+    q, k, v = _qkv(7 + seq, heads=2, sq=seq, sk=seq, dim=256)
+    do = np.random.default_rng(seq).standard_normal(q.shape, dtype=np.float32)
+    seg = None
+    if masked:  # two packed samples and padding
+        seg = np.zeros((1, seq), np.int32)
+        seg[:, 100:] = 1
+        seg[:, seq - 30:] = SEGMENT_PAD_ID
+    seg_j = None if seg is None else jnp.asarray(seg)
+
+    def loss(q, k, v):
+        out = jax_flash(q, k, v, seg_j, seg_j, interpret=True, block_q=128, block_kv=128)
+        return jnp.sum(out * jnp.asarray(do)), out
+
+    (_, ref), grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    seg_t = None if seg is None else torch.from_numpy(seg)
+    out = flash_attention(*leaves, seg_t, seg_t)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=TOL, rtol=TOL)
+    (out * torch.from_numpy(do)).sum().backward()
+    for leaf, grad in zip(leaves, grads):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(grad), atol=TOL, rtol=TOL)
+    if masked:
+        assert (out[:, :, seq - 30:] == 0).all() and all((x.grad[:, :, seq - 30:] == 0).all() for x in leaves)
 
 
 @pytest.mark.parametrize("dim", [72, 96, 112])  # pixart, lumina2, sana

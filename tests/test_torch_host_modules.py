@@ -80,10 +80,11 @@ def test_the_port_imports_nothing_of_the_jax_package():
     count, loaded = result.stdout.strip().splitlines()[-1].split(" ", 1)
     names = [m.name for m in pkgutil.walk_packages(simpletuner_tpu_torch.__path__, "simpletuner_tpu_torch.")]
     assert int(count) == len(names) and loaded == "[]"
-    # the SDXL slice's modules and the SD 1.x / 2.x and PixArt-Sigma ones are among those imported
+    # the SDXL slice's modules, the SD 1.x / 2.x, PixArt-Sigma and AuraFlow ones are among those imported
     assert {f"simpletuner_tpu_torch.{name}" for name in (
         "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc", "models.sd1x",
-        "models.sd1x.model", "models.pixart", "models.pixart.model", "models.pixart.transformer")} <= set(names)
+        "models.sd1x.model", "models.pixart", "models.pixart.model", "models.pixart.transformer",
+        "models.auraflow", "models.auraflow.model", "models.auraflow.transformer")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -522,7 +523,10 @@ def test_model_registry_refuses_other_families():
     assert isinstance(get_model_family(TrainingConfig({"model_family": "sdxl"})), SDXL)
     with pytest.raises(ValueError, match="epsilon"):
         get_model_family(TrainingConfig({"model_family": "sdxl", "prediction_type": "flow_matching"}))
-    for family in ("kolors", "auraflow", "wan"):
+    from simpletuner_tpu_torch.models.auraflow import AuraFlow
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "auraflow"})), AuraFlow)
+    for family in ("kolors", "chroma", "wan"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):

@@ -149,10 +149,10 @@ def test_kernel_rejects_unsupported(cuda):
     q, k, v = _qkv(4, 1, 2, 128, 128, 64, cuda)
     with pytest.raises(TypeError):
         flash_attention(q.float(), k.float(), v.float())
-    # every head dim up to 128 is taken (zero-padded); 256 is still to port
-    q256 = torch.zeros((1, 2, 128, 256), dtype=torch.bfloat16, device=cuda)
+    # every head dim up to 256 is taken (zero-padded); above it is refused
+    q257 = torch.zeros((1, 2, 128, 257), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(NotImplementedError, match="256"):
-        flash_attention(q256, q256, q256)
+        flash_attention(q257, q257, q257)
 
 
 def _check_backward(q, k, v, seg=None, seed=0, kv_seg=None):
@@ -269,6 +269,66 @@ def test_padded_head_dims_match_plain(cuda, dim, masked):
     if masked:
         for x in (out, dq, dk, dv):
             assert (x[:, :, 77:512] == 0).all()
+
+
+# AuraFlow at 1024 px: 12 heads of 256 over 8 register + 256 T5 + 4096 image
+# tokens; 4360 is no multiple of the head dim 256 tiles (64 keys forward, 32
+# keys dq, 32 queries / 64 keys dkv), so the kernels run their masked mode with
+# no caller mask.  The others: unmasked, a cross case against pad key tiles,
+# and ragged queries below one tile.
+HEAD_DIM_256 = [(1, 12, 4360, 4360), (1, 12, 4096, 4096), (2, 3, 200, 512), (1, 2, 100, 64)]
+
+
+@pytest.mark.parametrize("batch,heads,sq,sk", HEAD_DIM_256, ids=["auraflow", "unmasked", "cross", "short"])
+def test_head_dim_256_kernels_match_plain(cuda, batch, heads, sq, sk):
+    q, k, v = _qkv(40 + sq, batch, heads, sq, sk, 256, cuda)
+    out, lse = _check(q, k, v)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    dq, dk, dv = _check_backward(q, k, v, seed=sq)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+def test_head_dim_256_packed_segments_and_pad_keys(cuda):
+    # two packed samples and a padded tail: pad rows and keys exactly 0
+    q, k, v = _qkv(41, 2, 2, 600, 600, 256, cuda)
+    seg = torch.zeros((2, 600), dtype=torch.int32, device=cuda)
+    seg[:, 260:] = 1
+    seg[1, 520:] = SEGMENT_PAD_ID
+    out, lse = _check(q, k, v, seg, seg)
+    assert (out[1, :, 520:] == 0).all() and (lse[1, :, 520:] == -1e30).all()
+    for grad in _check_backward(q, k, v, seg, seed=41):
+        assert (grad[1, :, 520:] == 0).all()
+    # queries of one segment against keys whose 64-key tiles 2-3 and 6- are pad
+    q, k, v = _qkv(42, 2, 3, 200, 512, 256, cuda)
+    q_seg = torch.zeros((2, 200), dtype=torch.int32, device=cuda)
+    kv_seg = torch.zeros((2, 512), dtype=torch.int32, device=cuda)
+    kv_seg[:, 128:256] = SEGMENT_PAD_ID
+    kv_seg[:, 384:] = SEGMENT_PAD_ID
+    _check(q, k, v, q_seg, kv_seg)
+    _, dk, dv = _check_backward(q, k, v, q_seg, kv_seg=kv_seg, seed=42)
+    for grad in (dk, dv):
+        assert (grad[:, :, 128:256] == 0).all() and (grad[:, :, 384:] == 0).all()
+
+
+def test_head_dim_256_dq_is_deterministic(cuda):
+    q, k, v = _qkv(43, 1, 12, 4360, 4360, 256, cuda)
+    do = torch.randn(q.shape, device=cuda, dtype=torch.bfloat16, generator=torch.Generator(cuda).manual_seed(2))
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    delta = (out.float() * do.float()).sum(dim=-1)
+    first = flash_bwd_dq_kernel(q, k, v, None, None, lse, delta, do, 256 ** -0.5)
+    second = flash_bwd_dq_kernel(q, k, v, None, None, lse, delta, do, 256 ** -0.5)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dim", [160, 192])  # zero-padded to 256
+def test_head_dims_padded_to_256_match_plain(cuda, dim):
+    q, k, v = _qkv(44 + dim, 1, 4, 1000, 1000, dim, cuda)
+    seg = _flux_text_pad_segments(1, 512, 77, 1000 - 512, cuda)
+    out, _ = _check(q, k, v, seg, seg)
+    dq, dk, dv = _check_backward(q, k, v, seg, seed=dim)
+    assert out.shape == dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    for x in (out, dq, dk, dv):
+        assert (x[:, :, 77:512] == 0).all()
 
 
 # SD3.5 Large at 1024 px: 38 heads of 64 over 77 CLIP + 256 T5 + 4096 image
@@ -459,6 +519,30 @@ def test_tiny_pixart_on_the_card_matches_its_cpu_run(cuda):
     inputs = [torch.randn((2, 60, 60, 4), generator=gen), torch.tensor([999, 250]),
               torch.randn((2, 300, cfg.text_dim), generator=gen)]
     _card_against_cpu(cpu, card, inputs, torch.randn((2, 60, 60, 4), generator=gen), cuda)
+
+
+def test_tiny_auraflow_at_head_dim_256_on_the_card_matches_its_cpu_run(cuda):
+    """An AuraFlow DiT two heads of 256 wide (the head dim 256 kernels), one
+    joint and two single blocks, remat, a non-square bucket of 960 image
+    tokens behind 8 register and 100 caption tokens, against its CPU run;
+    the zero-initialised modulations get a draw, so that attention reaches
+    the output."""
+    from simpletuner_tpu_torch.models.auraflow import AuraFlowConfig, AuraFlowTransformer
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg = AuraFlowConfig(hidden_size=512, depth_double=1, depth_single=2, num_heads=2, text_dim=64)
+    cpu = init_parameters(AuraFlowTransformer(cfg, dtype=torch.float32, lora_rank=4, remat=True),
+                          torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, param in cpu.named_parameters():
+            if "norm1" in name:
+                param.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(2))
+    with torch.device(cuda):
+        card = AuraFlowTransformer(cfg, dtype=torch.bfloat16, lora_rank=4, remat=True)
+    gen = torch.Generator().manual_seed(3)
+    inputs = [torch.randn((2, 48, 80, 4), generator=gen), torch.tensor([0.9, 0.25]),
+              torch.randn((2, 100, cfg.text_dim), generator=gen)]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 48, 80, 4), generator=gen), cuda)
 
 
 def test_sd3_blocks_on_the_card_match_the_plain_attention(cuda):

@@ -1,14 +1,16 @@
 """The port's CLIP and T5 encoders against the Flax models the JAX package runs, on the CPU.
 
 Tiny CLIP text models (the JAX package's tiny configs) and tiny T5 encoders
-(``relu`` and ``gated-gelu``) take the Flax models' own params; the same
+(``relu``, ``gated-gelu`` and Pile-T5's ``gated-silu``) take the Flax models' own params; the same
 tokens go through both.  f32 on both sides, so ``last_hidden_state`` and
 ``pooled`` agree to f32 sum order (relative L2 under 1e-5), with CLIP-G's
 exact ``gelu`` as with CLIP-L's ``quick_gelu``.  The pooling
 rule is checked for the three cases HF distinguishes.  ``Flux.encode_text``
 is held against the JAX family's on the JAX package's tiny encoders, and an
 HF torch-layout checkpoint written by ``transformers``' torch classes loads
-into the port's modules and gives the HF outputs.
+into the port's modules and gives the HF outputs; a ``umt5`` checkpoint
+(AuraFlow's Pile-T5) loads as the JAX package loads it, through
+``FlaxT5EncoderModel.from_pretrained``.
 """
 
 import os
@@ -133,7 +135,7 @@ def test_clip_with_projection_checkpoint_loads_without_the_projection(tmp_path):
     assert clip_checkpoint_shapes(port.config, projection=True) == hf_shapes
 
 
-@pytest.mark.parametrize("feed_forward_proj", ["relu", "gated-gelu"])
+@pytest.mark.parametrize("feed_forward_proj", ["relu", "gated-gelu", "gated-silu"])
 def test_t5_matches_flax(feed_forward_proj):
     config = HFT5Config(vocab_size=1000, d_model=32, d_ff=64, num_layers=2, num_heads=2, d_kv=16,
                         feed_forward_proj=feed_forward_proj)
@@ -208,9 +210,42 @@ def test_hf_torch_checkpoints_load(tmp_path):
     assert os.path.exists(str(tmp_path / "text_encoder_2" / "config.json"))
 
 
+def test_umt5_checkpoint_loads_as_the_flax_model_loads_it(tmp_path):
+    """A tiny ``umt5`` encoder written by ``transformers``' torch class (a
+    relative attention bias in every layer, gated-silu): the port's module
+    gives what ``FlaxT5EncoderModel.from_pretrained`` gives on the same
+    directory (the JAX package's load), which keeps layer 0's bias only and
+    shares it with every layer (relative L2 under 1e-5, f32), and so not what
+    the torch UMT5 gives."""
+    config = transformers.UMT5Config(vocab_size=1000, d_model=32, d_ff=64, num_layers=2, num_heads=2, d_kv=16,
+                                     feed_forward_proj="gated-silu", dropout_rate=0.0)
+    torch.manual_seed(0)
+    hf = transformers.UMT5EncoderModel(config).eval()
+    hf.save_pretrained(str(tmp_path / "text_encoder"), safe_serialization=True)
+    assert "encoder.block.1.layer.0.SelfAttention.relative_attention_bias.weight" in hf.state_dict()
+    port = load_t5_encoder(str(tmp_path / "text_encoder"))
+    assert port.config.feed_forward_proj == "gated-silu" and port.config.gated
+    flax_model = FlaxT5EncoderModel.from_pretrained(str(tmp_path / "text_encoder"))
+    ids, mask = _tokens(24)
+    ref = flax_model(input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask)).last_hidden_state
+    with torch.no_grad():
+        out = port(torch.from_numpy(ids), torch.from_numpy(mask))["last_hidden_state"]
+        umt5 = hf(input_ids=torch.from_numpy(ids).long(), attention_mask=torch.from_numpy(mask).long())
+    assert rel(out.numpy(), np.asarray(ref)) < 1e-5
+    assert rel(umt5.last_hidden_state.numpy(), np.asarray(ref)) > 1e-3
+
+
+def test_pile_t5_xl_config_reads_from_its_config_json():
+    values = {"model_type": "umt5", "d_model": 2048, "d_ff": 5120, "d_kv": 64, "num_heads": 32, "num_layers": 24,
+              "feed_forward_proj": "gated-silu", "vocab_size": 32128, "relative_attention_num_buckets": 32,
+              "relative_attention_max_distance": 128, "layer_norm_epsilon": 1e-6, "dense_act_fn": "silu",
+              "is_gated_act": True, "tie_word_embeddings": False}
+    assert T5Config.from_hf(values) == T5Config.pile_xl()
+
+
 def test_refusals():
     with pytest.raises(NotImplementedError):
-        T5EncoderModel(T5Config.tiny("gated-silu"))
+        T5EncoderModel(T5Config.tiny("gelu"))
     with pytest.raises(NotImplementedError):
         CLIPTextModel(CLIPTextConfig.from_hf({"hidden_act": "silu", "hidden_size": 32, "intermediate_size": 64,
                                               "num_hidden_layers": 1, "num_attention_heads": 2}))

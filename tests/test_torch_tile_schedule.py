@@ -15,8 +15,11 @@ import torch
 
 from simpletuner_tpu_torch.ops.flash_attention import (
     DKV_BLOCKS,
+    DKV_BLOCKS_256,
     DQ_BLOCKS,
+    DQ_BLOCKS_256,
     FWD_BLOCKS,
+    FWD_BLOCKS_256,
     SEGMENT_PAD_ID,
     TILE_FULL,
     TILE_MIXED,
@@ -88,7 +91,8 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("blocks", [FWD_BLOCKS, DKV_BLOCKS, DQ_BLOCKS], ids=["fwd", "dkv", "dq"])
+@pytest.mark.parametrize("blocks", [FWD_BLOCKS, DKV_BLOCKS, DQ_BLOCKS, FWD_BLOCKS_256, DKV_BLOCKS_256, DQ_BLOCKS_256],
+                         ids=["fwd", "dkv", "dq", "fwd_d256", "dkv_d256", "dq_d256"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_tile_classes_agree_with_the_dense_mask(case, blocks):
     ids, length = CASES[case]
