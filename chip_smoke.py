@@ -66,7 +66,7 @@ exits non-zero with no result line):
    steps from one snapshot of the adapters, the optimizer state and the
    generator (bitwise equal, or the difference printed and the graph held to
    it), then 5 graph replays from the same snapshot, whose losses, grad norms
-   and LoRA tensors must equal the eager ones bitwise; then 20 eager steps and
+   and LoRA tensors must equal the eager ones bitwise; then 10 eager steps and
    20 replays timed, one of each profiled (device time by bucket, idle share);
    the launches of the profiled replay as the profiler recorded them on the
    card (76 / 57 / 57 flash, 1,069 torch._int_mm), which must equal what the
@@ -222,9 +222,36 @@ exits non-zero with no result line):
    x 3), time to the first step, peak GiB, and the launches of a profiled
    replay (72 / 36 / 36, every one a head dim 256 instance), which must equal
    the capture's, with device ms by bucket and the idle share.
+23. wan: Wan 2.1 T2V-1.3B as the JAX preset builds it (``WanConfig.b1_3()``:
+   30 blocks, 1536 wide, 12 heads of 128, FFN 4 x 1536, umT5 text dim 4096;
+   1.16B parameters) on its published 480p clip, 832 x 480 x 81 frames (21 x
+   60 x 104 latents, 32,760 tokens).  Deletes phase 22's files; checks
+   ``wan_step_flops`` against ``torch.utils.flop_counter`` on two small
+   configs; writes with the port's writer a seeded diffusers transformer
+   (1.16 GB e4m3, two shards) beside hard links to phase 15's T5-XXL (as
+   ``text_encoder``, the umT5 spec's subfolder) and T5 tokenizer (as
+   ``tokenizer_2``, the subfolder both packages' T5 spec reads), and two seeded
+   clips as mp4 (OpenCV, mp4v) with captions; imports the transformer (s,
+   GB/s; every tensor bitwise the written one taken to bf16); ``Trainer.run()``
+   on the video dataset (discovery into the ``1.73x81`` bucket, the text cache
+   at 512 tokens, the video VAE cache one clip per encode: s per clip and the
+   stage's peak GiB), bf16 base, every block checkpointed, rank-16 LoRA on
+   to_q / to_k / to_v / to_out.0, AdamW 1e-4, 6 graphed steps: losses, s/step,
+   MFU (``wan_step_flops``, forward x 3), time to the first step, peak GiB, and
+   the launches of a profiled replay (120 / 60 / 60), which must equal the
+   capture's, with device ms by bucket and the idle share; a true-CFG render
+   (guidance 5, 4 flow Euler steps) through ``CheckpointInferenceRuntime`` at
+   480 px square and 81 frames (18,900 tokens), written as mp4 and read back
+   (81 frames of 480 x 480): s per CFG step, the VAE decode s, peak GiB; one
+   full-depth forward with the kernels against the plain attention on a
+   17-frame clip (7,800 tokens; phase 5's bound); and one graphed LoRA step of
+   ``i2v-14b-480p`` at its published width (5120, 40 heads of 128, 36
+   channels in, 16 out) at 4 of its 40 blocks, built in memory on an int8 base
+   (``quantized_matmul: full``) on the first clip's cached latents: s/step,
+   peak GiB and the captured launches (16 / 8 / 8).
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
-their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-22.
+their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-23.
 Phases 3 and 7 also run head dims 72, 96 and 112 (pixart, lumina2, sana),
 which the wrappers zero-pad to 128, masked and unmasked, the shapes
 phase 21 meets first (``PHASE21_KERNEL_CASES``: PixArt's (1, 16, 4096, 72)
@@ -233,12 +260,24 @@ shape beside them; SD 2.1's 576- and 9216-token levels; SD 1.5's 256), and
 the head dim 256 instances (``D256_CASES``: AuraFlow's (1, 12, 4360, 256)
 with no caller mask, 4096 tokens unmasked, packed samples, D = 192 padded
 to 256, and phase 7's cross case at D = 256; dq bitwise over two launches
-at AuraFlow's shape; kernel, plain and SDPA times and bounds).  Every phase
+at AuraFlow's shape; kernel, plain and SDPA times and bounds), and Wan's
+shapes (``WAN_KERNEL_CASES``: the (1, 12, 32760, 128) self-attention with
+its ragged tail, the same queries against 512 keys, and the 14B's (1, 40,
+32760, 128); each held against the plain version at 2 heads, one head at a
+time, and timed at its full head count beside the plain version head by
+head, SDPA's fastest fused backend and the bound; the inputs drawn on the
+card).  Every phase
 line carries ``elapsed_s`` and ``written_gb`` (the card's machine ends a run
-that writes more than 45 GiB, deleted files included).
+that writes more than 45 GiB, deleted files included).  On an H100 80GB HBM3 at
+700 W the whole script takes 850-950 s of its 1,200 s limit (the host's share
+varies by some 10% between machines) and writes about 46.2 GB: phases 3 and 7
+about 100 s (Wan's shapes about 45 s of it), phase 12 about 105 s, phases 17-18
+about 230 s, phases 19-23 about 290 s.
 Then a JSON line with the kernels, each wrapper's head dim 256 instances
-beside it (launches: the profiler's count in phase 12's profiled replay,
-and for the head dim 256 rows in phase 22's), and last the device line.  Needs one CUDA
+and its rows at Wan's three shapes beside it (launches: the profiler's count
+in phase 12's profiled replay, for the head dim 256 rows in phase 22's, and
+for the Wan rows the wrappers' count at that shape per step in phase 23's
+runs), and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
 register, spill and warning lines per kernel (a C7514 warning means ptxas
 serialized a wgmma pipeline).
@@ -247,6 +286,7 @@ serialized a wgmma pipeline).
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import math
 import os
@@ -280,8 +320,11 @@ GRAD_REL_MAX, GRAD_REL_L2 = 2.0 ** -6, 1e-2
 # compounded through the blocks' backward
 TRAIN_GRAD_REL_L2 = 5e-2
 PARITY_DOUBLE, PARITY_SINGLE = 2, 4
-# phase 12: steps held bitwise against the eager step, and steps timed
-GRAPH_CHECK_STEPS, GRAPH_TIMED_STEPS = 5, 20
+# phase 12: steps held bitwise against the eager step, and the eager steps and
+# graph replays timed (the replays are the flagship's number, as the bench's
+# median of 20; the eager step at 2.4 s is a yardstick, and 10 keep the script's
+# time in its limit)
+GRAPH_CHECK_STEPS, GRAPH_EAGER_TIMED_STEPS, GRAPH_TIMED_STEPS = 5, 10, 20
 # H100 SXM: dense bf16 tensor-core peak and device-memory rate (bounds only)
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 # phase 14: the cut depth of the two-layout Flux checkpoints (full width); the
@@ -398,6 +441,43 @@ D256_CASES = (
     ("segments_s600_d256", (2, 4, 600, 256), {"packed_at": 260, "pad_from": 520}),
     ("t5_padded_s1000_d192", (1, 8, 1000, 192), {"txt_valid": TXT_VALID}),
 )
+# phase 23: Wan 2.1 T2V-1.3B (Wan-AI/Wan2.1-T2V-1.3B-Diffusers, the JAX preset
+# WanConfig.b1_3(): 30 blocks, 1536 wide, 12 heads of 128, FFN 4 x 1536) on its
+# published 480p clip, 832 x 480 x 81 frames: 21 x 60 x 104 latents, 21 x 30 x 52
+# = 32,760 tokens after the (1, 2, 2) patchify (255 full 128-row tiles and a
+# ragged tail of 120), umT5 at 512 tokens (phase 15's T5-XXL file, 6 of 24
+# blocks).  Two seeded clips; the render at 480 px square and 81 frames (21 x
+# 30 x 30 = 18,900 tokens); the full-depth parity forward on a 17-frame clip
+# (5 x 30 x 52 = 7,800 tokens: the plain attention's scores fit); the 14B I2V
+# shape (i2v-14b-480p: 5120 wide, 40 heads of 128, 36 channels in) at 4 of its 40
+# blocks, built in memory (its 14 GB file has no room in the write budget); what
+# the phase writes (the e4m3 transformer, 1.2 GB, two mp4 clips, caches and
+# outputs), which phase 20 leaves room for
+WAN_FRAMES, WAN_WIDTH, WAN_HEIGHT = 81, 832, 480
+WAN_TOKENS = 21 * (WAN_HEIGHT // 16) * (WAN_WIDTH // 16)
+WAN_TEXT = 512
+WAN_CLIPS, WAN_TRAIN_STEPS = 2, 6
+WAN_RENDER_SIZE, WAN_GUIDANCE = 480, 5.0
+WAN_PARITY_FRAMES, WAN_SIGMA = 17, 0.7
+WAN14B_BLOCKS = 4
+WAN_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
+PHASE23_WRITE_GB = 2.0
+# the most a run may write, deleted files included (45 GiB); phase 23 comes
+# last and checks against it
+RUN_WRITE_LIMIT_GB = 48.3
+# phases 3 and 7 at Wan's attention shapes: (name, heads, query tokens, key
+# tokens), head dim 128: the 1.3B's self-attention (12 heads over 32,760
+# tokens, the ragged tail masked), its cross-attention (the same queries
+# against the 512 umT5 keys: 4 key tiles) and the 14B's self-attention (40
+# heads).  Held against the plain version at WAN_CHECK_HEADS heads (the heads
+# are independent and the plain S x S scores of one head take 4.3 GB in f32);
+# timed at the full head count, the plain version head by head
+WAN_KERNEL_CASES = (
+    ("wan_self", 12, WAN_TOKENS, WAN_TOKENS),
+    ("wan_cross", 12, WAN_TOKENS, WAN_TEXT),
+    ("wan14b_self", 40, WAN_TOKENS, WAN_TOKENS),
+)
+WAN_CHECK_HEADS = 2
 # phase 10: the Flux linears' (in, out): attention q/k/v and proj, single-block
 # linear1 (q, k, v, mlp) and linear2, the MLP in and out, double-block AdaLN
 INT8_SHAPES = ((3072, 3072), (3072, 21504), (15360, 3072), (3072, 12288), (12288, 3072), (3072, 18432))
@@ -525,18 +605,21 @@ def _case_inputs(seed, shape, ids, strided, n):
     return tensors, seg
 
 
-def _sdpa_backend(fn):
+def _sdpa_backend(fn, iters: int = 20, fused_only: bool = False):
     """(name, ms) of the fastest SDPA backend that runs ``fn`` (of flash,
-    cuDNN, memory-efficient, math), each timed with CUDA events."""
+    cuDNN, memory-efficient and, unless ``fused_only``, math), each timed
+    over ``iters`` calls with CUDA events.  ``fused_only`` leaves out math,
+    which writes the S x S scores to device memory and is never the fastest
+    at a long sequence."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     times = {}
-    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
-                    SDPBackend.MATH):
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+    for backend in backends + ([] if fused_only else [SDPBackend.MATH]):
         try:
             with sdpa_kernel([backend]):
                 fn()
-                times[backend.name.lower()] = cuda_ms(fn, 20)
+                times[backend.name.lower()] = cuda_ms(fn, iters)
         except RuntimeError:
             continue
     if not times:
@@ -584,8 +667,8 @@ def _check_forward(name: str, q, k, v, seg, errors: dict):
 
 def kernel_cases():
     """Phase 3: the forward kernel against its plain version; returns the
-    kernels-line entries of flash_fwd and of its head dim 256 instance
-    (without launches)."""
+    kernels-line entries of flash_fwd, of its head dim 256 instance and at
+    Wan's shapes (without launches)."""
     import torch
     import torch.nn.functional as F
 
@@ -637,6 +720,7 @@ def kernel_cases():
     times["ddpm_families"] = ddpm_forward_cases(errors)
     worst = max([worst] + [errors[name]["out"] for name in times["ddpm_families"]])
     times["head_dim_256"], fwd256_entry = d256_forward_cases(errors)
+    times["wan"], wan_entries = wan_forward_cases(errors)
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
     bound_ms, bound_by = _attention_bound_ms(2, pairs, 24, 128, nbytes)
@@ -647,13 +731,14 @@ def kernel_cases():
           "lse": LSE_ATOL}, errors=errors, flux_masked_tiles=tiles, attended_pairs=pairs, **times)
     return {"max_abs_err": worst, "ms": times["kernel_masked_ms"], "plain_ms": times["plain_masked_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_masked_ms,
-            "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}, fwd256_entry
+            "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}, fwd256_entry, \
+        wan_entries
 
 
 def backward_cases():
     """Phase 7: the dq/dkv kernels against the plain backward; returns the
-    kernels-line entries of flash_bwd_dq and flash_bwd_dkv and of their head
-    dim 256 instances (without launches)."""
+    kernels-line entries of flash_bwd_dq and flash_bwd_dkv, of their head
+    dim 256 instances and at Wan's shapes (without launches)."""
     import torch
     import torch.nn.functional as F
 
@@ -757,6 +842,7 @@ def backward_cases():
     times["ddpm_families"] = ddpm_backward_cases(check)
     worst_d128 = dict(worst)  # the head dim 256 instances have their own entries
     times["head_dim_256"], d256_entries = d256_backward_cases(check, errors)
+    times["wan"], wan_entries = wan_backward_cases(errors)
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
     library = {"library_ms": times["sdpa_backward_masked_ms"],
@@ -767,7 +853,7 @@ def backward_cases():
                                 "plain_ms": times["plain_masked_ms"], "bound_ms": bounds[(kernel, "masked")][0],
                                 "bound_by": bounds[(kernel, "masked")][1], **library}
         for kernel in ("dq", "dkv")
-    }, **d256_entries}
+    }, **d256_entries, **wan_entries}
 
 
 def _ddpm_inputs(seed, heads, sq, sk, dim, n):
@@ -1009,6 +1095,158 @@ def d256_backward_cases(check, errors: dict) -> tuple:
         for kernel in ("dq", "dkv")}
 
 
+
+def _wan_inputs(seed, heads, sq, sk, n):
+    """``_ddpm_inputs`` drawn on the card (a seeded CUDA generator): q (and
+    dO when ``n`` is 4) over ``sq`` tokens, k and v over ``sk``, bf16 views of
+    (B, S, H, D) memory; drawing Wan's 40-head tensors on the host would take
+    seconds each."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(length):
+        return torch.randn((1, length, heads, 128), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    tensors = [draw(sq), draw(sk), draw(sk)]
+    return tensors + [draw(sq)] if n == 4 else tensors
+
+
+def _by_heads(fn, *tensors):
+    """``fn`` over one head at a time (every tensor's dim 1), the results
+    joined on that dim: the plain version at a head count whose S x S scores
+    do not fit at once."""
+    import torch
+
+    parts = [fn(*(x[:, h:h + 1] for x in tensors)) for h in range(tensors[0].shape[1])]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(list(group), dim=1) for group in zip(*parts))
+    return torch.cat(parts, dim=1)
+
+
+def wan_forward_cases(errors: dict) -> tuple:
+    """Phase 3 at Wan's shapes (``WAN_KERNEL_CASES``, the dispatcher's (B,
+    S, H, D) layout): the forward kernel against its plain version at
+    ``WAN_CHECK_HEADS`` heads (the bounds of the other cases, the plain
+    version head by head); at the full head count the kernel's time, the
+    plain version's (head by head), SDPA's fastest fused backend's and the
+    bound.  Returns the cases and the kernels-line entries (without launches)."""
+    import torch
+    import torch.nn.functional as F
+
+    from simpletuner_tpu_torch.ops import flash_attention, mha_reference_lse
+
+    cases, entries = {}, {}
+    for seed, (name, heads, sq, sk) in enumerate(WAN_KERNEL_CASES):
+        q, k, v = _wan_inputs(700 + 2 * seed, WAN_CHECK_HEADS, sq, sk, 3)
+        out, lse = flash_attention(q, k, v, return_lse=True)
+        ref, ref_lse = _by_heads(mha_reference_lse, q, k, v)
+        torch.cuda.synchronize()
+        err, bound = (out.float() - ref.float()).abs().max().item(), OUT_REL_MAX * ref.float().abs().max().item()
+        l2, lse_err = rel_l2(out, ref), (lse - ref_lse).abs().max().item()
+        if not (torch.isfinite(out.float()).all() and err <= bound and l2 <= OUT_REL_L2 and lse_err <= LSE_ATOL):
+            raise RuntimeError(f"kernel case {name}: out err {err} (<= {bound}), rel L2 {l2} (<= {OUT_REL_L2}), "
+                               f"lse err {lse_err} (<= {LSE_ATOL})")
+        errors[name] = {"heads_checked": WAN_CHECK_HEADS, "out": err, "out_bound": bound, "out_rel_l2": l2,
+                        "lse": lse_err}
+        del q, k, v, out, lse, ref, ref_lse
+        q, k, v = _wan_inputs(710 + 2 * seed, heads, sq, sk, 3)
+        backend, sdpa_ms = _sdpa_backend(lambda: F.scaled_dot_product_attention(q, k, v), 10, fused_only=True)
+        nbytes = 2 * heads * (sq + sk) * 128 * 2 + heads * sq * 4  # q, out; k, v; lse
+        bound_ms, bound_by = _attention_bound_ms(2, sq * sk, heads, 128, nbytes)
+        kernel_ms = cuda_ms(lambda: flash_attention(q, k, v), 10)
+        plain_ms = cuda_ms(lambda: _by_heads(mha_reference_lse, q, k, v), 1, warmup=1)
+        cases[name] = {"shape": [1, heads, sq, sk, 128], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                       "sdpa_ms": sdpa_ms, "sdpa_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "share_of_bound": bound_ms / kernel_ms}
+        entries[f"flash_fwd_{name}"] = {
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sdpa_ms, "library_call": f"scaled_dot_product_attention ({backend})",
+            "shape": [1, heads, sq, sk, 128], "max_abs_err_heads": WAN_CHECK_HEADS,
+            "plain_call": "mha_reference_lse, one head at a time"}
+        del q, k, v
+        torch.cuda.empty_cache()
+    return cases, entries
+
+
+def wan_backward_cases(errors: dict) -> tuple:
+    """Phase 7 at Wan's shapes: dq, dk and dv from the kernels against the
+    plain backward (head by head) at ``WAN_CHECK_HEADS`` heads, in the
+    dispatcher's layout; at the full head count the dq and dkv kernels'
+    times, the plain backward's (head by head), SDPA's backward (dq + dk +
+    dv, its fastest fused backend) and the bounds and shares.  Returns the
+    cases and the kernels-line entries (without launches)."""
+    import torch
+    import torch.nn.functional as F
+
+    from simpletuner_tpu_torch.ops import (
+        flash_attention, flash_backward, flash_bwd_dkv_kernel, flash_bwd_dq_kernel, mha_backward_reference,
+    )
+
+    cases, entries = {}, {}
+    scale = 128 ** -0.5
+
+    def plain(q, k, v, out, lse, do):
+        return mha_backward_reference(q, k, v, None, None, out, lse, do, scale)
+
+    for seed, (name, heads, sq, sk) in enumerate(WAN_KERNEL_CASES):
+        q, k, v, do = _wan_inputs(720 + 2 * seed, WAN_CHECK_HEADS, sq, sk, 4)
+        out, lse = flash_attention(q, k, v, return_lse=True)
+        grads = flash_backward(q, k, v, None, None, out, lse, do, scale)
+        refs = _by_heads(plain, q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        errors[name + "_backward"] = {"heads_checked": WAN_CHECK_HEADS}
+        worst = {"dq": 0.0, "dkv": 0.0}
+        for grad_name, grad, ref in zip(("dq", "dk", "dv"), grads, refs):
+            g, r = grad.float(), ref.float()
+            err, bound, l2 = (g - r).abs().max().item(), GRAD_REL_MAX * r.abs().max().item(), rel_l2(g, r)
+            if not (torch.isfinite(g).all() and r.norm() > 0 and err <= bound and l2 <= GRAD_REL_L2):
+                raise RuntimeError(f"backward case {name} {grad_name}: err {err} (<= {bound}), rel L2 {l2} "
+                                   f"(<= {GRAD_REL_L2})")
+            errors[name + "_backward"][grad_name] = {"err": err, "bound": bound, "rel_l2": l2}
+            kernel = "dq" if grad_name == "dq" else "dkv"
+            worst[kernel] = max(worst[kernel], err)
+        del q, k, v, do, out, lse, grads, refs
+        torch.cuda.empty_cache()
+
+        q, k, v, do = _wan_inputs(730 + 2 * seed, heads, sq, sk, 4)
+        out, lse = flash_attention(q, k, v, return_lse=True)
+        delta = (out.float() * do.float()).sum(dim=-1)
+        q_act, k_act, stats = heads * sq * 128 * 2, heads * sk * 128 * 2, 2 * heads * sq * 4
+        times = {"shape": [1, heads, sq, sk, 128]}
+        for kernel, products, nbytes, fn in (
+                ("dq", 3, 3 * q_act + 2 * k_act + stats,
+                 lambda: flash_bwd_dq_kernel(q, k, v, None, None, lse, delta, do, scale)),
+                ("dkv", 4, 2 * q_act + 4 * k_act + stats,
+                 lambda: flash_bwd_dkv_kernel(q, k, v, None, None, lse, delta, do, scale))):
+            times[f"{kernel}_ms"] = cuda_ms(fn, 5)
+            times[f"bound_{kernel}_ms"], times[f"bound_{kernel}_by"] = _attention_bound_ms(
+                products, sq * sk, heads, 128, nbytes)
+            times[f"{kernel}_share_of_bound"] = times[f"bound_{kernel}_ms"] / times[f"{kernel}_ms"]
+        times["plain_ms"] = cuda_ms(lambda: _by_heads(plain, q, k, v, out, lse, do), 1, warmup=1)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+        def forward():
+            return F.scaled_dot_product_attention(*leaves)
+
+        backend, fwd_bwd_ms = _sdpa_backend(lambda: torch.autograd.grad(forward(), leaves, do), 5, fused_only=True)
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        with sdpa_kernel([getattr(SDPBackend, backend.upper())]):
+            times["sdpa_backward_ms"] = fwd_bwd_ms - cuda_ms(forward, 5)
+        times["sdpa_backward_backend"] = backend
+        cases[name] = times
+        for kernel in ("dq", "dkv"):
+            entries[f"flash_bwd_{kernel}_{name}"] = {
+                "max_abs_err": worst[kernel], "ms": times[f"{kernel}_ms"], "plain_ms": times["plain_ms"],
+                "bound_ms": times[f"bound_{kernel}_ms"], "bound_by": times[f"bound_{kernel}_by"],
+                "library_ms": times["sdpa_backward_ms"],
+                "library_call": f"scaled_dot_product_attention backward, dq + dk + dv together ({backend})",
+                "shape": [1, heads, sq, sk, 128], "max_abs_err_heads": WAN_CHECK_HEADS,
+                "plain_call": "mha_backward_reference (whole backward), one head at a time"}
+        del q, k, v, do, out, lse, delta, leaves
+        torch.cuda.empty_cache()
+    return cases, entries
+
 @contextlib.contextmanager
 def record_backward_norms(norms, calls: int):
     """Append the norms of dO and of dq/dk/dv at the first ``calls`` flash
@@ -1178,7 +1416,7 @@ def graph_step(kernels):
     second = trajectory(run.step_fn)
     restore()
     eager_diff = max_diff(first, second)  # losses, grad norms, LoRA tensors
-    eager = time_steps(run.step_fn, state, batch, gen, GRAPH_TIMED_STEPS, 0, profile=True)
+    eager = time_steps(run.step_fn, state, batch, gen, GRAPH_EAGER_TIMED_STEPS, 0, profile=True)
     eager.pop("state")
     restore()
 
@@ -1960,7 +2198,8 @@ def sdxl_phase(paths: dict, kernels, device: str) -> None:
     params = sum(math.prod(shape) for shape in shapes.values())
     # bf16 unless the run's writes would pass the budget; then e4m3, which the importer takes to bf16 exactly
     written_before = _written_gb()
-    fp8 = written_before + 2 * params / 1e9 + 1.0 + PHASE21_WRITE_GB + PHASE22_WRITE_GB > SD3_WRITE_LIMIT_GB
+    fp8 = written_before + 2 * params / 1e9 + 1.0 + PHASE21_WRITE_GB + PHASE22_WRITE_GB + PHASE23_WRITE_GB > \
+        SD3_WRITE_LIMIT_GB
     file_bytes = (1 if fp8 else 2) * params
     free = shutil.disk_usage(work).free
     if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 1.0 > SD3_WRITE_LIMIT_GB:
@@ -2912,6 +3151,468 @@ def auraflow_phase(paths: dict, kernels, device: str) -> dict:
     return replayed
 
 
+def wan_step_flops(arch, batch: int, tokens: int, text_tokens: int) -> int:
+    """Model FLOPs of one Wan train step in bench.py's convention (forward x
+    3; remat recompute is hardware work, not model work), counted from the
+    config at ``tokens`` video and ``text_tokens`` umT5 tokens: the patch
+    linear, the two-layer text projection over every text token, the
+    timestep MLP and ``time_proj`` (per sample), per block q, k, v and out of
+    the self-attention and q and out of the cross-attention per video token,
+    the cross-attention's k and v per text token, the feed-forward, the two
+    products of each attention, and the final projection."""
+    d, inner, ffn = arch.hidden_size, arch.num_heads * arch.head_dim, arch.ffn_hidden
+    pt, ph, pw = arch.patch
+    c_in, c_out = pt * ph * pw * arch.in_channels, pt * ph * pw * (arch.out_channels or arch.in_channels)
+    per_block = (2 * tokens * 6 * d * inner + 2 * text_tokens * 2 * d * inner + 2 * tokens * 2 * d * ffn
+                 + 4 * tokens * tokens * inner + 4 * tokens * text_tokens * inner)
+    fwd = (2 * tokens * c_in * d + 2 * text_tokens * (arch.text_dim * d + d * d) + 2 * (256 * d + d * d)
+           + 2 * d * 6 * d + arch.depth * per_block + 2 * tokens * d * c_out)
+    return batch * fwd * 3
+
+
+def _wan_flop_checks() -> list:
+    """``wan_step_flops`` / 3 against ``torch.utils.flop_counter`` on the
+    forward of two small configs on the CPU (f32; the attention through the
+    plain version, whose two products the counter sees as bmm), the second
+    with the I2V head (12 channels in, 4 out): equal."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.wan import WanConfig, WanTransformer
+
+    checks = []
+    wider = WanConfig(in_channels=12, out_channels=4, hidden_size=96, depth=2, num_heads=3, head_dim=32, text_dim=48,
+                      axes_dim=(12, 10, 10))
+    for arch, (frames, height, width), text in ((WanConfig.tiny(), (3, 4, 6), 5), (wider, (2, 6, 4), 7)):
+        module = init_parameters(WanTransformer(arch, dtype=torch.float32), torch.Generator().manual_seed(0))
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            module(torch.zeros(2, frames, height, width, arch.in_channels), torch.full((2,), 0.5),
+                   torch.zeros(2, text, arch.text_dim))
+        tokens = frames * (height // 2) * (width // 2)
+        expected = wan_step_flops(arch, 2, tokens, text) // 3
+        if counter.get_total_flops() != expected:
+            raise RuntimeError(f"wan_step_flops: {expected} forward FLOPs at {arch}, the counter "
+                               f"{counter.get_total_flops()}")
+        checks.append({"hidden": arch.hidden_size, "latent": [frames, height, width], "flops": expected})
+    return checks
+
+
+def _seeded_clip(seed: int, frames: int, height: int, width: int):
+    """uint8 RGB frames (T, H, W, 3): a seeded colour gradient drifting by
+    frame, with a little seeded noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:height, 0:width].astype(np.float32)
+    phase = rng.uniform(0, 2 * np.pi, 3).astype(np.float32)
+    out = np.empty((frames, height, width, 3), np.uint8)
+    for t in range(frames):
+        for c in range(3):
+            wave = np.sin(xs / (40 + 17 * c) + ys / (55 + 9 * c) + phase[c] + 0.08 * t * (c + 1))
+            out[t, :, :, c] = np.clip(127.5 + 110 * wave + rng.normal(0, 6, (height, width)), 0, 255)
+    return out
+
+
+def _per_shape(kernels, scale: int = 1) -> dict:
+    """Each wrapper's launches by (heads, sq, sk, head dim) as "HxSqxSkxD", over ``scale``."""
+    return {kernel.name: {"x".join(map(str, key)): n // scale for key, n in sorted(kernel.shape_launches.items())}
+            for kernel in kernels}
+
+
+def wan_phase(paths: dict, kernels, device: str) -> dict:
+    """Phase 23: Wan 2.1 T2V-1.3B at the JAX preset's full width and depth on
+    its published 832 x 480 x 81 clip: a seeded e4m3 diffusers transformer
+    written with the port's writer beside hard links to phase 15's T5-XXL
+    (``text_encoder``) and T5 tokenizer (``tokenizer_2``, the subfolder both
+    packages' T5 spec reads); two seeded clips written as mp4 with captions;
+    the import held bitwise to the written tensors; ``Trainer.run()``
+    (discovery of the video dataset, the text cache, the video VAE cache one
+    clip at a time, 6 graphed LoRA steps on a bf16 base with every block
+    checkpointed), the launches of a profiled replay held to the capture's;
+    a true-CFG render through ``CheckpointInferenceRuntime`` at 480 px square
+    and 81 frames, written as mp4 and read back; one full-depth forward with
+    the kernels against the plain attention on a 17-frame clip; and one
+    graphed LoRA step of the 14B I2V shape at 4 of its 40 blocks on an int8
+    base.  Returns the launches per step of each kernel at each Wan shape."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench import profile_step
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import wan_checkpoint_shapes
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.video_vae import VideoAutoencoderKL, VideoVAEConfig
+    from simpletuner_tpu_torch.models.wan import Wan, WanConfig
+    from simpletuner_tpu_torch.models.weight_bridge import flax_to_state_dict
+    from simpletuner_tpu_torch.models.weight_import import (
+        load_transformer_params, save_safetensors, wan_params_from_diffusers,
+    )
+    from simpletuner_tpu_torch.ops import set_attention_backend
+    from simpletuner_tpu_torch.training.optimizers import get_optimizer
+    from simpletuner_tpu_torch.training.schedules import get_lr_schedule
+    from simpletuner_tpu_torch.training.train_state import build_train_step, create_train_state, jit_train_step
+    from simpletuner_tpu_torch.training.trainer import Trainer
+
+    cv2 = importlib.import_module("cv2")  # OpenCV writes and reads the clips (the port imports it where it reads one)
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    # phase 22's files and outputs: disk space (not the write budget)
+    for out in ("auraflow", "auraflow_train", "auraflow_cache", "auraflow_data", "auraflow_render"):
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    flop_checks = _wan_flop_checks()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    arch = WanConfig.b1_3()
+    if (arch.hidden_size, arch.depth, arch.num_heads, arch.head_dim, arch.ffn_hidden) != (1536, 30, 12, 128, 6144):
+        raise RuntimeError(f"not the JAX preset of Wan 2.1 T2V-1.3B: {arch}")
+    latent_shape = (WAN_FRAMES - 1) // 4 + 1, WAN_HEIGHT // 8, WAN_WIDTH // 8
+    if latent_shape[0] * (latent_shape[1] // 2) * (latent_shape[2] // 2) != WAN_TOKENS:
+        raise RuntimeError(f"wan: {latent_shape} latents do not give {WAN_TOKENS} tokens")
+    shapes = wan_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + PHASE23_WRITE_GB > RUN_WRITE_LIMIT_GB:
+        raise RuntimeError(f"wan: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; it "
+                           f"writes {PHASE23_WRITE_GB} GB of the {RUN_WRITE_LIMIT_GB} GB a run may write")
+
+    # (b) the seeded files: the transformer (two e4m3 shards), hard links to
+    # phase 15's T5-XXL and T5 tokenizer, and two mp4 clips with captions
+    wan_dir = os.path.join(work, "wan")
+    os.makedirs(os.path.join(wan_dir, "transformer"))
+    weights = {k: v.to(torch.float8_e4m3fn) for k, v in seeded_weights(shapes, gen).items()}
+    names = sorted(weights)
+    t0 = time.perf_counter()
+    for shard, part in enumerate((names[: len(names) // 2], names[len(names) // 2:])):
+        save_safetensors({k: weights[k] for k in part}, os.path.join(
+            wan_dir, "transformer", f"diffusion_pytorch_model-0000{shard + 1}-of-00002.safetensors"))
+    write_s = time.perf_counter() - t0
+    for source, target in (("text_encoder_2", "text_encoder"), ("tokenizer_2", "tokenizer_2")):
+        _link_tree(os.path.join(flux_dir, source), os.path.join(wan_dir, target))
+    data = os.path.join(work, "wan_data")
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    clip_bytes = 0
+    for i in range(WAN_CLIPS):
+        path = os.path.join(data, f"clip_{i}.mp4")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 16, (WAN_WIDTH, WAN_HEIGHT))
+        for frame in _seeded_clip(i, WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH):
+            writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+        writer.release()
+        clip_bytes += os.path.getsize(path)
+        with open(os.path.join(data, f"clip_{i}.txt"), "w") as handle:
+            handle.write(TRAIN_CAPTIONS[i])
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "clips": WAN_CLIPS, "clip_mb": clip_bytes / WAN_CLIPS / 1e6,
+             "clip_write_s": time.perf_counter() - t0, "written_gb_before": written_before,
+             "written_gb_after": _written_gb(), "free_gb_before": free / 1e9, "route": "mp4 (cv2 " + cv2.__version__ + ")"}
+
+    # (c) import through load_transformer_params, every tensor bitwise the
+    # written one taken to bf16 (exact for every e4m3 value)
+    model = ModelRegistry.create("wan", config_namespace({"model_family": "wan", "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"wan: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()  # model_type full: no adapters
+    params = sum(p.numel() for p in module.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = _rss_gib()
+    t0 = time.perf_counter()
+    load_transformer_params(model, module, wan_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    imported = {"s": load_s, "gb_per_s": file_bytes / load_s / 1e9, "params": params,
+                "host_rss_gib": {"before": rss_before, "after": _rss_gib()},
+                "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+    expected = flax_to_state_dict(wan_params_from_diffusers(weights, arch), module)
+    unequal = [k for k, v in module.state_dict().items() if not torch.equal(v, expected[k])]
+    if unequal or params != sum(v.numel() for v in weights.values()):
+        raise RuntimeError(f"wan: the imported module differs from the written tensors at {unequal[:8]}")
+    imported["tensors_bitwise"] = len(expected)
+    del weights, expected, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) Trainer.run(): discovery, the text cache and the video VAE cache
+    # (one clip per encode), then rank-16 LoRA on the attention projections
+    # by their diffusers names, bf16 base, every block checkpointed, graphed
+    out = os.path.join(work, "wan_train")
+    cache = os.path.join(work, "wan_cache")
+    dataset = {"resolution": 640, "resolution_type": "pixel_area", "aspect_bucket_alignment": 16}
+    config = {
+        "model_family": "wan", "model_type": "lora", "lora_rank": 16,
+        "lora_target_modules": ["to_q", "to_k", "to_v", "to_out.0"], "pretrained_model_name_or_path": wan_dir,
+        "gradient_checkpointing": True, "optimizer": "adamw", "learning_rate": 1e-4, "lr_scheduler": "constant",
+        "mixed_precision": "bf16", "text_encoder_precision": "bf16", "train_batch_size": 1, "vae_batch_size": 1,
+        "max_train_steps": WAN_TRAIN_STEPS, "logging_steps": 1, "report_to": "jsonl", "seed": 42,
+        "cache_dir": cache, "output_dir": out, "checkpoint_frozen_base": "reference", **dataset,
+        "data_backend_config": [
+            {"id": "clips", "dataset_type": "video", "type": "local", "instance_data_dir": data, **dataset,
+             "caption_strategy": "textfile", "cache_dir_vae": os.path.join(cache, "vae"),
+             "video": {"num_frames": WAN_FRAMES}},
+            {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
+             "cache_dir": os.path.join(cache, "text")},
+        ],
+    }
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    trainer = Trainer(config=config, device="cuda")
+    run_start = time.time()
+    trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.time() - run_start
+    train_launches = {kernel.name: kernel.launches for kernel in kernels}
+    shape_launches = _per_shape(kernels, 3)  # two warm-up steps and the capture
+    with open(os.path.join(out, "simpletuner-tpu-metrics.jsonl")) as handle:
+        metrics = [json.loads(line) for line in handle]
+    losses = [m["loss"] for m in metrics]
+    if [m["step"] for m in metrics] != list(range(1, WAN_TRAIN_STEPS + 1)) or not all(np.isfinite(losses)) or \
+            not all(m["grad_norm"] > 0 for m in metrics) or not all(train_launches.values()):
+        raise RuntimeError(f"wan trainer: metrics {metrics}, launches {train_launches}")
+    bundle = trainer.data_plane.bundles["clips"]
+    bucket_keys = sorted(bundle.metadata_backend.aspect_ratio_bucket_indices)
+    clips = bundle.metadata_backend.aspect_ratio_bucket_indices.get(f"1.73x{WAN_FRAMES}", [])
+    if len(trainer._graphs) != 1 or trainer.model.arch != arch or bucket_keys != [f"1.73x{WAN_FRAMES}"] or \
+            len(clips) != WAN_CLIPS or not isinstance(trainer.vae, VideoAutoencoderKL) or \
+            trainer.vae.config != VideoVAEConfig.wan():
+        raise RuntimeError(f"wan trainer: {len(trainer._graphs)} graphs, arch {trainer.model.arch}, buckets "
+                           f"{bucket_keys}, VAE {type(trainer.vae).__name__}")
+    cached = [bundle.vae_cache.load(p) for p in clips]
+    if any(c.shape != latent_shape + (16,) or not np.isfinite(c).all() for c in cached):
+        raise RuntimeError(f"wan trainer: cached latents {[c.shape for c in cached]}, expected {latent_shape}")
+    adapted = {name.rsplit("/", 2)[-2] for name in trainer._state.trainable}
+    if adapted != {f"{a}_{p}" for a in ("self_attn", "cross_attn") for p in ("q", "k", "v", "proj")}:
+        raise RuntimeError(f"wan trainer: adapters on {adapted}")
+    captures = {c["step"] for c in trainer.capture_report}
+    step_s = {m["step"]: m["time"] - prev["time"] for prev, m in zip(metrics, metrics[1:]) if m["step"] not in captures}
+    median_s = float(np.median(list(step_s.values())))
+    graphed = next(iter(trainer._graphs.values()))
+    captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
+    profile = profile_step(lambda: graphed(trainer._state, graphed.batch, trainer._generator))
+    recorded = profile["bucket_launches"]
+    replayed = {kernel.name: recorded[kernel.name] for kernel in kernels}
+    # every attention's forward, its recompute under remat, and its backward: two attentions a block
+    per_forward = 2 * arch.depth
+    expected_launches = {"flash_fwd": 2 * per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
+    self_key, cross_key = f"12x{WAN_TOKENS}x{WAN_TOKENS}x128", f"12x{WAN_TOKENS}x{WAN_TEXT}x128"
+    if replayed != {k: captured[k] for k in replayed} or replayed != expected_launches or \
+            {k: 3 * v for k, v in replayed.items()} != train_launches or \
+            any(set(shape_launches[k]) != {self_key, cross_key} or shape_launches[k][self_key] !=
+                shape_launches[k][cross_key] for k in replayed):
+        raise RuntimeError(f"wan trainer: the profiled replay launched {replayed}, the capture recorded {captured}, "
+                           f"the run {train_launches} ({shape_launches}), expected {expected_launches} a step")
+    flops = wan_step_flops(arch, 1, WAN_TOKENS, WAN_TEXT)
+    stages, startup = trainer.stage_report, trainer.data_plane.startup_metrics
+    train = {"base": "bf16", "remat": "every block", "lora_rank": 16, "lora_targets": sorted(adapted),
+             "lora_params": sum(p.numel() for p in trainer._state.trainable.values()),
+             "buckets": bucket_keys, "latents": list(cached[0].shape),
+             "cache": {"text_s": startup.get("text_cache_clips_s"), "vae_s": startup.get("vae_cache_clips_s"),
+                       "vae_s_per_clip": startup.get("vae_cache_clips_s", 0.0) / WAN_CLIPS,
+                       "init_data_backend_peak_gib": stages["init_data_backend"]["peak_gib"]},
+             "losses": losses, "grad_norms": [m["grad_norm"] for m in metrics], "step_s": step_s,
+             "s_per_step_median": median_s, "flops_per_step": flops, "flop_checks": flop_checks,
+             "mfu": flops / median_s / PEAK_BF16_FLOPS, "run_s": run_s,
+             "time_to_first_step_s": metrics[0]["time"] - run_start,
+             "capture_s": [c["seconds"] for c in trainer.capture_report],
+             "stage_s": {k: v["seconds"] for k, v in stages.items()},
+             "peak_gib": max(v["peak_gib"] for v in stages.values()),
+             "launches_run": train_launches, "launches_captured": captured, "launches_profiled_replay": replayed,
+             "launches_per_step_by_shape": shape_launches, "flash_instances": profile["flash_instances"],
+             "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "device_ms", "traced_event_ms",
+                                                 "idle_share_traced", "top_kernels")}}
+    text_payload = bundle.text_cache.get(TRAIN_CAPTIONS[0])
+    del trainer, graphed, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) a true-CFG flow Euler render at 480 px square and 81 frames through
+    # the checkpoint runtime, written as mp4 and read back
+    config_path = os.path.join(work, "wan_render.json")
+    with open(config_path, "w") as handle:
+        json.dump({"model_family": "wan", "model_type": "full", "pretrained_model_name_or_path": wan_dir,
+                   "mixed_precision": "bf16", "text_encoder_precision": "bf16", "seed": 42,
+                   "validation_resolution": WAN_RENDER_SIZE, "validation_num_video_frames": WAN_FRAMES,
+                   "validation_seed": 42, "validation_guidance": WAN_GUIDANCE}, handle)
+    t0 = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "wan_render"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "wan" or not model.is_flow:
+        raise RuntimeError(f"wan: the runtime built {model.NAME} {model.arch}")
+    forward_s, finite, decode_s = [], [], []
+
+    def before(mod, args):
+        torch.cuda.synchronize()
+        forward_s.append(-time.perf_counter())
+
+    def after(mod, args, out):
+        torch.cuda.synchronize()
+        forward_s[-1] += time.perf_counter()
+
+    decode = runtime.vae.decode
+
+    def decode_checked(z):
+        finite.append(bool(torch.isfinite(z).all()))
+        t1 = time.perf_counter()
+        frames = decode(z)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t1)
+        return frames
+
+    hooks = [module.register_forward_pre_hook(before), module.register_forward_hook(after)]
+    runtime.vae.decode = decode_checked
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rendered = runtime.render(WAN_PROMPT, steps=STEPS, guidance=WAN_GUIDANCE)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    render_launches = {kernel.name: kernel.launches for kernel in kernels}
+    render_shapes = _per_shape(kernels)
+    render_peak = torch.cuda.max_memory_allocated() / 2**30
+    runtime.vae.decode = decode
+    for hook in hooks:
+        hook.remove()
+    render_tokens = latent_shape[0] * (WAN_RENDER_SIZE // 16) ** 2
+    if render_launches != {"flash_fwd": per_forward * 2 * STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        raise RuntimeError(f"wan render: launches {render_launches}, expected {per_forward} per forward, two "
+                           f"forwards per step")
+    if len(rendered) != 1 or not rendered[0].endswith(".mp4") or finite != [True] or len(forward_s) != 2 * STEPS:
+        raise RuntimeError(f"wan render: {rendered}, finite latents {finite}, {len(forward_s)} forwards")
+    capture = cv2.VideoCapture(rendered[0])
+    read = []
+    while True:
+        ok, frame = capture.read()
+        if not ok:
+            break
+        read.append(frame.shape)
+    capture.release()
+    if len(read) != WAN_FRAMES or set(read) != {(WAN_RENDER_SIZE, WAN_RENDER_SIZE, 3)}:
+        raise RuntimeError(f"wan render: the mp4 holds {len(read)} frames of {set(read)}")
+    render = {"init_s": init_s, "render_s": render_s, "steps": STEPS, "guidance": WAN_GUIDANCE,
+              "frames": WAN_FRAMES, "size": WAN_RENDER_SIZE, "tokens": render_tokens,
+              "s_per_cfg_step": sum(forward_s[2:]) / (len(forward_s) - 2) * 2, "forward_s": forward_s,
+              "vae_decode_s": decode_s[0], "peak_gib": render_peak, "launches": render_launches,
+              "launches_by_shape": render_shapes, "mp4": os.path.basename(rendered[0]),
+              "mp4_bytes": os.path.getsize(rendered[0]), "mp4_frames": len(read)}
+
+    # (f) one full-depth forward, the kernels against the plain attention, on
+    # a 17-frame clip (5 x 30 x 52 = 7,800 tokens: the plain scores fit)
+    parity_latent = ((WAN_PARITY_FRAMES - 1) // 4 + 1, latent_shape[1], latent_shape[2])
+    batch = {"latents": torch.zeros((1,) + parity_latent + (16,), device=dev)}
+    for key, value in model.collate_text_embeds(model.encode_text([WAN_PROMPT])).items():
+        batch[key] = torch.as_tensor(value, device=dev)
+    if tuple(batch["text_embeds"].shape) != (1, WAN_TEXT, arch.text_dim):
+        raise RuntimeError(f"wan: text_embeds {tuple(batch['text_embeds'].shape)}, expected "
+                           f"(1, {WAN_TEXT}, {arch.text_dim})")
+    model.text_encoders = []  # the plain attention's scores need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    cond = model.inference_conditioning(batch)
+    noise = torch.randn((1,) + parity_latent + (16,), generator=gen, device=dev)
+    sigma = torch.tensor(WAN_SIGMA)
+    with torch.no_grad():
+        kernel_v = model.denoise_fn(module, cond)(noise, sigma)
+        set_attention_backend("xla")
+        try:
+            plain_v = model.denoise_fn(module, cond)(noise, sigma)
+        finally:
+            set_attention_backend("auto")
+        forward_ms = cuda_ms(lambda: model.denoise_fn(module, cond)(noise, sigma), 3, warmup=1)
+    parity = rel_l2(kernel_v, plain_v)
+    if not (torch.isfinite(kernel_v).all() and torch.isfinite(plain_v).all() and parity <= PARITY_REL_L2):
+        raise RuntimeError(f"wan full-depth parity: rel L2 {parity} (<= {PARITY_REL_L2})")
+    parity_tokens = parity_latent[0] * (parity_latent[1] // 2) * (parity_latent[2] // 2)
+    del runtime, module, model, kernel_v, plain_v, batch, cond
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) the 14B I2V shape (i2v-14b-480p: 5120 wide, 40 heads of 128, 36
+    # channels in, 16 out) at WAN14B_BLOCKS of its 40 blocks, built in memory
+    # from seeded weights: an int8 base (quantized_matmul full), every block
+    # checkpointed, rank 16 on the attention projections, one graphed step on
+    # the first clip's cached latents and its caption's umT5 features
+    values = {"model_family": "wan", "model_flavour": "i2v-14b-480p", "model_type": "lora", "lora_rank": 16,
+              "lora_target_modules": ["to_q", "to_k", "to_v", "to_out.0"], "base_model_precision": "int8-quanto",
+              "quantized_matmul": "full", "gradient_checkpointing": True, "optimizer": "adamw", "learning_rate": 1e-4,
+              "lr_scheduler": "constant", "max_train_steps": 10, "mixed_precision": "bf16"}
+    cfg14 = config_namespace(values)
+    arch14 = dataclasses.replace(WanConfig.b14(), depth=WAN14B_BLOCKS, in_channels=36, out_channels=16)
+    model14 = Wan(cfg14, arch=arch14)
+    if not model14.is_i2v or model14.latent_channels != 16 or \
+            dataclasses.replace(Wan(config_namespace(values)).arch, depth=WAN14B_BLOCKS) != arch14:
+        raise RuntimeError(f"wan 14B: the i2v-14b-480p flavour builds {Wan(config_namespace(values)).arch}")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device(dev):
+        module14 = init_parameters(model14.create_module(), gen)
+    params14 = sum(p.numel() for p in module14.parameters())
+    schedule = get_lr_schedule(cfg14, cfg14.max_train_steps)
+    tx = get_optimizer(cfg14, schedule)
+    state = create_train_state(model14, module14, tx, quantize_mode=model14.base_precision)
+    step_fn = build_train_step(model14, tx, schedule)
+    batch = {"latents": torch.as_tensor(cached[0], device=dev)[None],
+             "text_embeds": torch.as_tensor(text_payload["text_embeds"], device=dev)[None]}
+    generator = torch.Generator(device=dev).manual_seed(0)
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    t0 = time.perf_counter()
+    graphed14 = jit_train_step(step_fn, state, batch, generator)
+    torch.cuda.synchronize()
+    capture14_s = time.perf_counter() - t0
+    shapes14 = _per_shape(kernels, 3)
+    captured14 = {counter.name: count for counter, count in graphed14.captured_launches.items()}
+    replays = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, metrics14 = graphed14(state, batch, generator)
+        torch.cuda.synchronize()
+        replays.append(time.perf_counter() - t0)
+    loss14, norm14 = float(metrics14["loss"]), float(metrics14["grad_norm"])
+    per_forward14 = 2 * WAN14B_BLOCKS
+    key14 = f"40x{WAN_TOKENS}x{WAN_TOKENS}x128"
+    if {k.name: captured14[k.name] for k in kernels} != {"flash_fwd": 2 * per_forward14,
+                                                         "flash_bwd_dq": per_forward14,
+                                                         "flash_bwd_dkv": per_forward14} or \
+            not (np.isfinite(loss14) and norm14 > 0) or any(shapes14[k.name].get(key14) != captured14[k.name] // 2
+                                                           for k in kernels):
+        raise RuntimeError(f"wan 14B: captured {captured14} ({shapes14}), loss {loss14}, grad norm {norm14}")
+    flops14 = wan_step_flops(arch14, 1, WAN_TOKENS, WAN_TEXT)
+    i2v = {"flavour": "i2v-14b-480p", "blocks": [WAN14B_BLOCKS, 40], "hidden": arch14.hidden_size,
+           "heads": [arch14.num_heads, arch14.head_dim], "channels": [arch14.in_channels, arch14.out_channels],
+           "params": params14, "base": "int8", "quantized_matmul": "full", "capture_s": capture14_s,
+           "replay_s": replays, "s_per_step": min(replays), "flops_per_step": flops14,
+           "mfu": flops14 / min(replays) / PEAK_BF16_FLOPS, "loss": loss14, "grad_norm": norm14,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches_captured": captured14,
+           "launches_per_step_by_shape": shapes14}
+    del state, graphed14, module14, model14, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("23 wan", config="Wan-AI/Wan2.1-T2V-1.3B-Diffusers as the JAX preset WanConfig.b1_3 builds it (FFN 4 x 1536)",
+          params=params, hidden=arch.hidden_size, heads=[arch.num_heads, arch.head_dim], blocks=arch.depth,
+          ffn_hidden=arch.ffn_hidden, clip=[WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH], latents=list(latent_shape),
+          tokens={"video": WAN_TOKENS, "text": WAN_TEXT}, files=files, imported=imported, train=train,
+          render=render, parity={"rel_l2": parity, "bound": PARITY_REL_L2, "sigma": WAN_SIGMA,
+                                 "frames": WAN_PARITY_FRAMES, "tokens": parity_tokens, "forward_ms": forward_ms},
+          i2v_14b=i2v, depth_cut=f"i2v-14b-480p at {WAN14B_BLOCKS} of its 40 blocks",
+          allocated_gib_before_phase=baseline_gib, written_gb=_written_gb(), seconds=time.perf_counter() - start,
+          device=device)
+    return {"wan_self": {k: v.get(self_key) for k, v in shape_launches.items()},
+            "wan_cross": {k: v.get(cross_key) for k, v in shape_launches.items()},
+            "wan14b_self": {k: v.get(key14) for k, v in shapes14.items()}}
+
 def int8_cases() -> None:
     """Phase 10: torch._int_mm exact at the Flux shapes, int8_dynamic_dot
     against its float64-contraction plain version, and times."""
@@ -3506,7 +4207,7 @@ def main() -> int:
              for library in libraries}
     phase("2 build", seconds=time.perf_counter() - start, nvcc_seconds=csrc.BUILD_SECONDS, ptxas=ptxas)
 
-    fwd_entry, fwd256_entry = kernel_cases()
+    fwd_entry, fwd256_entry, wan_fwd_entries = kernel_cases()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         checkpoints = weight_import(work)
@@ -3633,15 +4334,19 @@ def main() -> int:
         sdxl_phase(checkpoints, kernels, smi)
         ddpm_families_phase(checkpoints, kernels, smi)
         launches_auraflow = auraflow_phase(checkpoints, kernels, smi)
+        launches_wan = wan_phase(checkpoints, kernels, smi)
 
     # each wrapper's head dim 256 instances beside its others: launches from
     # phase 22's profiled replay (AuraFlow's attention, all at head dim 256),
-    # the others' from phase 12's
+    # the others' from phase 12's; each kernel at Wan's three shapes, launches
+    # per step at that shape in phase 23's runs (the 1.3B trainer's, the 14B
+    # step's)
     sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
                "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}
-    entries = {"flash_fwd": fwd_entry, "flash_fwd_d256": fwd256_entry, **bwd_entries}
+    entries = {"flash_fwd": fwd_entry, "flash_fwd_d256": fwd256_entry, **bwd_entries, **wan_fwd_entries}
     rows = [(name, name, launches_main) for name in sources] + \
-        [(f"{name}_d256", name, launches_auraflow) for name in sources]
+        [(f"{name}_d256", name, launches_auraflow) for name in sources] + \
+        [(f"{name}_{shape}", name, launches_wan[shape]) for shape, _, _, _ in WAN_KERNEL_CASES for name in sources]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"simpletuner_tpu_torch/{sources[kernel][0]}",
          "replaces": f"simpletuner_tpu/ops/flash_attention.py:{sources[kernel][1]}", "launches": launches[kernel],

@@ -1,4 +1,4 @@
-"""VAE latent cache, image datasets.
+"""VAE latent cache, image and video datasets.
 
 The torch port's copy of ``simpletuner_tpu/caching/vae_cache.py``.  Disk
 layout matches the reference (reference: helpers/caching/vae.py:118
@@ -7,8 +7,11 @@ so caches interoperate both ways.  Host threads decode, crop and resize
 (``data/training_sample.py``), batches are stacked per bucket shape and
 pushed through ``encode_fn`` by one dispatch thread, and writer threads fetch
 the latents and persist ``.pt`` files, so decode, encode and write overlap
-(reference vae.py:2037 process_buckets).  Audio and video datasets and the
-NSFW scan are not ported (they raise).
+(reference vae.py:2037 process_buckets).  A clip (a path whose metadata
+holds ``num_frames``) is decoded to that many frames, resized and cropped
+(``data/video.py``) and encoded whole, and its latents are stored 4-D
+(T', H', W', C), as the JAX cache stores them.  Audio datasets and the NSFW
+scan are not ported (they raise).
 """
 
 from __future__ import annotations
@@ -123,12 +126,25 @@ class VAECache:
         JAX cache skips those too, so callers compare the count
         ``process_buckets`` returns with the number of images)."""
         existing = self.metadata_backend.image_metadata.get(path, {})
-        if "duration" in existing or "num_frames" in existing:
-            raise NotImplementedError(f"{path}: audio and video caches are not ported (ROADMAP Queue 1 item 3)")
+        if "duration" in existing:
+            raise NotImplementedError(f"{path}: audio caches are not ported (ROADMAP Queue 1 item 3)")
+        rng = random.Random((self.seed, path).__hash__())
+        if "num_frames" in existing:  # a clip of a video dataset
+            from ..data.video import load_video_frames, prepare_video, video_to_array
+
+            try:
+                frames = load_video_frames(self.data_backend, path, int(existing["num_frames"]))
+            except OSError as exc:
+                logger.warning("vae cache %s: skipping %s (%s)", self.id, path, exc)
+                return None
+            if frames is None:
+                logger.warning("vae cache %s: skipping %s (no frame decodes)", self.id, path)
+                return None
+            prepared, meta = prepare_video(frames, self.bucket_config, self.crop_style, rng)
+            return path, video_to_array(prepared), meta
         try:
             from PIL import Image, ImageOps
 
-            rng = random.Random((self.seed, path).__hash__())
             image = Image.open(io.BytesIO(self.data_backend.read(path)))
             # honor EXIF orientation (reference image_manipulation/load.py)
             image = ImageOps.exif_transpose(image)
@@ -236,7 +252,7 @@ class VAECache:
 
         def _encode_and_write(batch_paths: List[str], batch_arrays: List[np.ndarray]) -> None:
             try:
-                stacked = np.stack(batch_arrays)  # (B, H, W, 3)
+                stacked = np.stack(batch_arrays)  # (B, H, W, 3), or (B, T, H, W, 3) clips
                 latents = self.encode_fn(stacked, len(batch_paths))
                 # encode_fn may return a tensor still being computed on the
                 # device; the fetch rides a writer thread so the dispatch

@@ -1,13 +1,15 @@
 """Collate + multi-dataset iteration.
 
 Counterpart of ``simpletuner_tpu/data/dataset.py``: ``DatasetBundle``,
-``collate_batch`` for image datasets with cached latents and text embeds
+``collate_batch`` for image and video datasets with cached latents (4-D
+clips stack to 5-D (B, T', H', W', C) batches) and text embeds
 (the cache reads on threads, the caption and its dropout, the family's
 ``collate_text_embeds``, the size conditioning arrays and the
 regularisation flag, in the JAX order) and ``MultiDatasetIterator`` (weighted
 round-robin with schedule windows, epoch rollover, JSON-safe state), line for
 line where ported.  Output batches are numpy dicts with static shapes per
-bucket.  Caption-only, audio-token, conditioning-paired (ControlNet / edit /
+bucket (a video bucket's key carries its frame count, ``"1.73x81"``).
+Caption-only, audio-token, conditioning-paired (ControlNet / edit /
 loss masks), audio-paired and image-embed batches and text-encoder token
 batches raise, naming their ROADMAP item; the per-process slice of a
 multi-process run is ROADMAP Queue 1 item 5.
@@ -51,7 +53,7 @@ def check_collatable(bundle: DatasetBundle, model) -> None:
     """Refuse the batches ``collate_batch`` does not build (the JAX branches
     that are not ported)."""
     cfg = bundle.config
-    if cfg.dataset_type not in ("image", "eval"):
+    if cfg.dataset_type not in ("image", "video", "eval"):
         raise NotImplementedError(
             f"dataset {bundle.id!r}: {cfg.dataset_type} batches are not ported (ROADMAP Queue 1 item 4f)")
     if getattr(model, "trains_text_encoder", False):

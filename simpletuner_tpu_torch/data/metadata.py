@@ -3,11 +3,14 @@
 Reference: helpers/metadata/backends/base.py:95 ``MetadataBackend`` (bucket index
 construction, persistence, constraints, DP splits).  The torch port's copy of
 ``MetadataBackend`` from ``simpletuner_tpu/data/metadata.py``, for image and
-caption datasets: the index maps ``bucket_key -> [file paths]`` plus per-file
-metadata (original/target size, crop coords), built on host threads and
-persisted as JSON on the dataset's storage backend, in the same files as the
-JAX package writes.  Video and audio discovery and the parquet backend are
-not ported (they raise).
+caption datasets, and video datasets (``_discover_video``: (aspect,
+frame count) bucket keys such as ``"1.73x81"``, the frame count aligned to
+1 + 4k and capped by the dataset's ``video`` settings ``num_frames`` /
+``min_frames``): the index maps ``bucket_key -> [file paths]`` plus per-file
+metadata (original/target size, crop coords; a clip's frame counts and fps),
+built on host threads and persisted as JSON on the dataset's storage backend,
+in the same files as the JAX package writes.  Audio discovery and the
+parquet backend are not ported (they raise).
 """
 
 from __future__ import annotations
@@ -36,12 +39,14 @@ class MetadataBackend:
         metadata_file: Optional[str] = None,
         repeats: int = 0,
         dataset_type: str = "image",
+        video_config: Optional[Dict[str, Any]] = None,
     ):
         self.id = id
         self.data_backend = data_backend
         self.bucket_config = bucket_config
         self.instance_data_dir = instance_data_dir
         self.dataset_type = dataset_type
+        self.video_config = video_config or {}
         base = instance_data_dir or "."
         self.cache_file = cache_file or os.path.join(base, "aspect_ratio_bucket_indices.json")
         self.metadata_file = metadata_file or os.path.join(base, "aspect_ratio_bucket_metadata.json")
@@ -70,10 +75,10 @@ class MetadataBackend:
 
     def discover(self, max_workers: int = 16) -> Dict[str, List[str]]:
         """Walk the dataset, probe sizes, and build the bucket index."""
-        if self.dataset_type in ("video", "audio"):
-            raise NotImplementedError(
-                f"{self.dataset_type} datasets are not ported (ROADMAP Queue 1 item 3: audio and video caches)"
-            )
+        if self.dataset_type == "video":
+            return self._discover_video(max_workers)
+        if self.dataset_type == "audio":
+            raise NotImplementedError("audio datasets are not ported (ROADMAP Queue 1 item 3: audio caches)")
         if self.dataset_type == "caption":
             return self._discover_caption()
         files = self.data_backend.list_files(instance_data_dir=self.instance_data_dir)
@@ -102,6 +107,55 @@ class MetadataBackend:
             }
             self.aspect_ratio_bucket_indices.setdefault(key, []).append(path)
         # drop deleted files
+        current = set(files)
+        for key in list(self.aspect_ratio_bucket_indices):
+            kept = [f for f in self.aspect_ratio_bucket_indices[key] if f in current]
+            if kept:
+                self.aspect_ratio_bucket_indices[key] = kept
+            else:
+                del self.aspect_ratio_bucket_indices[key]
+        return self.aspect_ratio_bucket_indices
+
+    def _discover_video(self, max_workers: int = 16) -> Dict[str, List[str]]:
+        """Video buckets: (aspect, frame count) keys (reference
+        metadata/backends/base.py:350 video bucket keys)."""
+        from .buckets import video_bucket_key
+        from .video import VIDEO_EXTENSIONS, align_frame_count, probe_video
+
+        files = self.data_backend.list_files(
+            file_extensions=VIDEO_EXTENSIONS, instance_data_dir=self.instance_data_dir
+        )
+        known = set(self.image_metadata)
+        new_files = [f for f in files if f not in known]
+        max_frames = int(self.video_config.get("num_frames", 0) or 0)
+        min_frames = int(self.video_config.get("min_frames", 1) or 1)
+
+        with ThreadPoolExecutor(max_workers=max_workers) as pool:
+            results = list(pool.map(lambda p: (p, probe_video(self.data_backend, p)), new_files))
+
+        for path, info in results:
+            if info is None or info["frames"] < 1:
+                continue
+            width, height = info["width"], info["height"]
+            ok, reason = image_passes_constraints(width, height, self.bucket_config)
+            if not ok:
+                self.image_metadata[path] = {"skipped": reason}
+                continue
+            frames = align_frame_count(info["frames"])
+            if max_frames:
+                frames = min(frames, align_frame_count(max_frames))
+            if frames < min_frames:
+                self.image_metadata[path] = {"skipped": f"too short ({info['frames']} frames)"}
+                continue
+            key = video_bucket_key(width, height, frames, self.bucket_config)
+            self.image_metadata[path] = {
+                "original_size": [width, height],
+                "num_frames": frames,
+                "total_frames": info["frames"],
+                "fps": info.get("fps"),
+                "bucket": key,
+            }
+            self.aspect_ratio_bucket_indices.setdefault(key, []).append(path)
         current = set(files)
         for key in list(self.aspect_ratio_bucket_indices):
             kept = [f for f in self.aspect_ratio_bucket_indices[key] if f in current]

@@ -18,8 +18,9 @@ caller asks for the CPU):
   the trainer's own validation renders: the prompt encoded by the text
   encoders -> the family's sampling loop (flow Euler over Flux's, SD3's or
   AuraFlow's DiT, DDIM or UniPC over the SDXL, SD 1.x / 2.x UNets and PixArt-Sigma's
-  DiT; the Hopper flash kernel on the card; every family but Flux with true
-  CFG when ``validation_guidance`` > 1) -> VAE decode -> PNG;
+  DiT, flow Euler over Wan's video DiT; the Hopper flash kernel on the card;
+  every family but Flux with true CFG when ``validation_guidance`` > 1) -> VAE
+  decode -> PNG (a video family: the video VAE's decode -> mp4);
 * ``CheckpointInferenceRuntime``: the same stages without the data plane and
   the validation stages, so the text encoders stay attached and each
   ``render()`` encodes a fresh prompt.
@@ -33,7 +34,7 @@ full model (``model_type`` other than ``lora``) without a checkpoint renders
 the loaded base as it is: its train state would only add an optimizer state
 that a render never reads, and the port trains no full model (ROADMAP Queue 1
 item 7), so no full checkpoint exists to restore.  Families other than flux,
-sd3, sdxl, sd1x, sd2x, pixart_sigma and auraflow are refused (``models/registry.py``).
+sd3, sdxl, sd1x, sd2x, pixart_sigma, auraflow and wan are refused (``models/registry.py``).
 
     python -m simpletuner_tpu_torch.inference --config config.json --prompt "a cat" \
         [--checkpoint output/checkpoint-8] [--device cuda|cpu]

@@ -344,6 +344,48 @@ def flux_bfl_from_diffusers(weights: Mapping[str, torch.Tensor]) -> Dict[str, to
     return out
 
 
+def wan_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers ``WanTransformer3DModel``
+    of ``arch`` (``models/wan/transformer.py::WanConfig``) as
+    ``wan_params_from_diffusers`` reads it and the JAX
+    ``export_wan_to_diffusers`` writes it: the Conv3d patch embed, the
+    tables with a leading batch axis, every linear with a bias, the affine
+    ``norm2`` and, with ``qk_norm``, the q and k RMSNorm scales."""
+    dim, inner, ffn = arch.hidden_size, arch.num_heads * arch.head_dim, arch.ffn_hidden
+    pt, ph, pw = arch.patch
+    out_channels = arch.out_channels or arch.in_channels
+    shapes: Dict[str, tuple] = {
+        "patch_embedding.weight": (dim, arch.in_channels, pt, ph, pw), "patch_embedding.bias": (dim,),
+        "scale_shift_table": (1, 2, dim),
+    }
+
+    def linear(name, out_features, in_features):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        shapes[f"{name}.bias"] = (out_features,)
+
+    linear("condition_embedder.text_embedder.linear_1", dim, arch.text_dim)
+    linear("condition_embedder.text_embedder.linear_2", dim, dim)
+    linear("condition_embedder.time_embedder.linear_1", dim, 256)
+    linear("condition_embedder.time_embedder.linear_2", dim, dim)
+    linear("condition_embedder.time_proj", 6 * dim, dim)
+    for i in range(arch.depth):
+        block = f"blocks.{i}"
+        shapes[f"{block}.scale_shift_table"] = (1, 6, dim)
+        for attn in ("attn1", "attn2"):
+            for proj in ("to_q", "to_k", "to_v"):
+                linear(f"{block}.{attn}.{proj}", inner, dim)
+            linear(f"{block}.{attn}.to_out.0", dim, inner)
+            if arch.qk_norm:
+                shapes[f"{block}.{attn}.norm_q.weight"] = (inner,)
+                shapes[f"{block}.{attn}.norm_k.weight"] = (inner,)
+        shapes[f"{block}.norm2.weight"] = (dim,)
+        shapes[f"{block}.norm2.bias"] = (dim,)
+        linear(f"{block}.ffn.net.0.proj", ffn, dim)
+        linear(f"{block}.ffn.net.2", dim, ffn)
+    linear("proj_out", pt * ph * pw * out_channels, dim)
+    return shapes
+
+
 def vae_checkpoint_shapes(vae: nn.Module, legacy_attention: bool = False) -> Dict[str, tuple]:
     """Tensor names and torch shapes of a diffusers ``AutoencoderKL``
     checkpoint for the port's ``vae`` module, ``quant_conv`` and

@@ -379,7 +379,7 @@ def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = No
             sub.reset_own_parameters(generator)
         if isinstance(sub, (LoRADense, RMSNorm)):
             sub.reset_parameters(generator)
-        elif isinstance(sub, (nn.Linear, nn.Conv2d)):
+        elif isinstance(sub, (nn.Linear, nn.Conv2d, nn.Conv3d)):
             lecun_normal_(sub.weight, sub.weight[0].numel(), generator)
             if sub.bias is not None:
                 sub.bias.zero_()

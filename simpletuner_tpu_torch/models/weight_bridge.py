@@ -2,7 +2,8 @@
 
 The port keeps the JAX submodule names, so the bridge only renames leaves and
 transposes: a dense ``kernel`` (in, out) becomes ``weight`` (out, in), a conv
-``kernel`` (kh, kw, in, out) becomes ``weight`` (out, in, kh, kw), ``lora_A``
+``kernel`` (kh, kw, in, out) becomes ``weight`` (out, in, kh, kw) and a 3-D
+conv ``kernel`` (kt, kh, kw, in, out) ``weight`` (out, in, kt, kh, kw), ``lora_A``
 (in, r) / ``lora_B`` (r, out) become (r, in) / (out, r), and a norm ``scale``
 stays ``scale`` (RMSNorm) or becomes ``weight`` (GroupNorm); any other leaf
 names a parameter of its module as it is (SD3's ``pos_embed`` table).  Values take the
@@ -38,6 +39,9 @@ _FLOAT_KINDS = ("float16", "float32", "float64", "bfloat16")
 _QUANT_KINDS = ("int8", "uint8", "float8_e4m3fn")
 _QSCALE_LEAVES = {"kernel_scale": "weight_scale", "kernel_packed": "weight_packed"}
 _STORED = (torch.int8, torch.uint8, torch.float8_e4m3fn)  # quantized storage, never cast
+# conv kernels by rank: flax (k..., in, out) <-> torch (out, in, k...)
+_CONV_TO_TORCH = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+_CONV_TO_FLAX = {4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -53,7 +57,9 @@ def _to_torch(path: Tuple[str, ...], value: Any) -> torch.Tensor:
     if isinstance(value, torch.Tensor):  # an imported checkpoint's leaf: a (transposed) view, no copy
         if leaf in ("kernel", "kernel_packed") + LORA_LEAVES and value.dim() == 2:
             return value.t()
-        return value.permute(3, 2, 0, 1) if leaf == "kernel" and value.dim() == 4 else value
+        if leaf == "kernel" and value.dim() in _CONV_TO_TORCH:
+            return value.permute(*_CONV_TO_TORCH[value.dim()])
+        return value
     if hasattr(value, "dequantize") and hasattr(value, "scales"):
         raise NotImplementedError(
             f"{'/'.join(path)} is a legacy QuantizedParam leaf, which the port does not read; "
@@ -67,8 +73,8 @@ def _to_torch(path: Tuple[str, ...], value: Any) -> torch.Tensor:
         arr = arr.astype(np.float32)
     if leaf in ("kernel", "kernel_packed") + LORA_LEAVES and arr.ndim == 2:
         arr = arr.T
-    elif leaf == "kernel" and arr.ndim == 4:
-        arr = arr.transpose(3, 2, 0, 1)
+    elif leaf == "kernel" and arr.ndim in _CONV_TO_TORCH:
+        arr = arr.transpose(*_CONV_TO_TORCH[arr.ndim])
     if kind == "float8_e4m3fn":  # numpy has no fp8: carry the bytes
         return torch.from_numpy(np.array(arr.view(np.uint8), order="C")).view(torch.float8_e4m3fn)
     return torch.from_numpy(np.array(arr, order="C"))  # a writable, C-ordered copy
@@ -161,8 +167,8 @@ def flax_variables(module: nn.Module) -> Dict[str, Dict[str, Any]]:
         value = _numpy(tensor)
         if leaf in ("weight", "weight_packed") and value.ndim == 2:
             value = value.T
-        elif leaf == "weight" and value.ndim == 4:
-            value = value.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and value.ndim in _CONV_TO_FLAX:
+            value = value.transpose(*_CONV_TO_FLAX[value.ndim])
         if leaf in ("weight_scale", "weight_packed"):
             collection, leaf = "qscales", {v: k for k, v in _QSCALE_LEAVES.items()}[leaf]
         else:

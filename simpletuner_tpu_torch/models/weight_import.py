@@ -18,7 +18,8 @@ for level as the JAX presets build it: attention wherever
 ``down_blocks.0.attentions.*`` too (ROADMAP Queue 3), and SD 1.x's 1x1-conv
 ``proj_in`` / ``proj_out`` read as dense kernels; PixArt-Sigma the diffusers
 ``PixArtTransformer2DModel`` layout (``transformer/``); AuraFlow the
-diffusers ``AuraFlowTransformer2DModel`` layout (``transformer/``).
+diffusers ``AuraFlowTransformer2DModel`` layout (``transformer/``); Wan the
+diffusers ``WanTransformer3DModel`` layout (``transformer/``).
 
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
 keeps f32 and bf16 leaves in the file's dtype (``_float``), takes fp8 (e4m3)
@@ -33,7 +34,7 @@ The safetensors reader and writer are the port's own (stdlib, numpy and
 torch): an 8-byte little-endian header length, a JSON header, raw
 little-endian bytes.  Files are memory-mapped copy-on-write, so a tensor is
 read from disk when it is first used.  Only the ``flux``, ``sd3``, ``sdxl``,
-``sd1x``, ``sd2x``, ``pixart_sigma`` and ``auraflow`` families import; every
+``sd1x``, ``sd2x``, ``pixart_sigma``, ``auraflow`` and ``wan`` families import; every
 other family raises.
 """
 
@@ -759,11 +760,68 @@ def load_auraflow_params(model, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# Wan (diffusers WanTransformer3DModel: Conv3d patch embed, condition_embedder,
+# per-block scale_shift_table, attn1 / attn2 with q and k RMSNorms, affine norm2)
+# ---------------------------------------------------------------------------------
+
+
+def wan_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a diffusers Wan transformer of ``arch``
+    (``WanConfig``): the Conv3d patch embed (dim, C, pt, ph, pw) as a dense
+    ((pt, ph, pw, C), dim) kernel, the tables reshaped to (6, dim) and (2,
+    dim).  An I2V file's image embedder and ``add_k_proj`` / ``add_v_proj``
+    have no place in the JAX module and are left unread, as the JAX importer
+    leaves them."""
+    w = weights
+    dim = arch.hidden_size
+    conv = _float(w["patch_embedding.weight"])  # (dim, C, pt, ph, pw)
+    params: Dict[str, Any] = {
+        "patch_in": {"kernel": conv.permute(2, 3, 4, 1, 0).reshape(-1, dim),
+                     "bias": _float(w["patch_embedding.bias"])},
+        "text_in0": _linear(w, "condition_embedder.text_embedder.linear_1"),
+        "text_in2": _linear(w, "condition_embedder.text_embedder.linear_2"),
+        "time_in": {
+            "in_layer": _linear(w, "condition_embedder.time_embedder.linear_1"),
+            "out_layer": _linear(w, "condition_embedder.time_embedder.linear_2"),
+        },
+        "time_proj": _linear(w, "condition_embedder.time_proj"),
+        "final_scale_shift_table": _float(w["scale_shift_table"]).reshape(2, dim),
+        "final_proj": _linear(w, "proj_out"),
+    }
+    table = (("self_attn_q", "attn1.to_q"), ("self_attn_k", "attn1.to_k"), ("self_attn_v", "attn1.to_v"),
+             ("self_attn_proj", "attn1.to_out.0"), ("cross_attn_q", "attn2.to_q"), ("cross_attn_k", "attn2.to_k"),
+             ("cross_attn_v", "attn2.to_v"), ("cross_attn_proj", "attn2.to_out.0"), ("ffn_in", "ffn.net.0.proj"),
+             ("ffn_out", "ffn.net.2"))
+    for i in range(arch.depth):
+        src = f"blocks.{i}"
+        block: Dict[str, Any] = {"scale_shift_table": _float(w[f"{src}.scale_shift_table"]).reshape(6, dim),
+                                 # the JAX LayerNorm wrapper nests its affine params one level down
+                                 "cross_norm": {"LayerNorm_0": _norm(w, f"{src}.norm2")}}
+        for ours, theirs in table:
+            block[ours] = _linear(w, f"{src}.{theirs}")
+        if arch.qk_norm and f"{src}.attn1.norm_q.weight" in w:
+            for ours, theirs in (("self_attn_norm_q", "attn1.norm_q"), ("self_attn_norm_k", "attn1.norm_k"),
+                                 ("cross_attn_norm_q", "attn2.norm_q"), ("cross_attn_norm_k", "attn2.norm_k")):
+                block[ours] = _scale(w, f"{src}.{theirs}.weight")
+        params[f"block_{i}"] = block
+    return params
+
+
+def load_wan_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a diffusers Wan transformer (a
+    model dir with a ``transformer/`` subfolder, or one file)."""
+    params = wan_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported wan weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
 _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_unet_params, "sd1x": load_unet_params,
-              "sd2x": load_unet_params, "pixart_sigma": load_pixart_params, "auraflow": load_auraflow_params}
+              "sd2x": load_unet_params, "pixart_sigma": load_pixart_params, "auraflow": load_auraflow_params,
+              "wan": load_wan_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:

@@ -25,6 +25,7 @@ their dq is exactly 0, as are the dk and dv of keys nothing attends to.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
@@ -253,13 +254,15 @@ def _pad_head_dim(x: torch.Tensor) -> torch.Tensor:
 class FlashForwardKernel:
     """ctypes binding of ``st_flash_fwd_bf16`` with its launch count.
 
-    ``launches`` goes up by one for every kernel launch and for nothing else."""
+    ``launches`` goes up by one for every kernel launch and for nothing else;
+    ``shape_launches`` counts the same launches by (heads, sq, sk, head dim)."""
 
     name = "flash_fwd"
     library = "flash_fwd"
 
     def __init__(self) -> None:
         self.launches = 0
+        self.shape_launches: Counter = Counter()
         self._fn = None
 
     def _entry(self):
@@ -305,6 +308,7 @@ class FlashForwardKernel:
         if status != 0:  # a refused launch never runs; only cudaGetLastError shows it
             raise RuntimeError(f"flash_fwd launch failed with cudaError_t {status}")
         self.launches += 1
+        self.shape_launches[(heads, sq, sk, dim)] += 1
         return (out if out.shape[-1] == dim else out[..., :dim].contiguous()), lse
 
 
@@ -315,7 +319,8 @@ class FlashBackwardKernel:
     Both read q, k, v and dO through their strides (unit stride on the head
     dim) and write their gradients in the layout of the tensor they belong
     to.  ``launches`` goes up by one for every kernel launch and for nothing
-    else."""
+    else; ``shape_launches`` counts the same launches by (heads, sq, sk, head
+    dim)."""
 
     library = "flash_bwd"
 
@@ -325,6 +330,7 @@ class FlashBackwardKernel:
         self.part = part
         self.name = f"flash_bwd_{part}"
         self.launches = 0
+        self.shape_launches: Counter = Counter()
         self._fn = None
 
     def _entry(self):
@@ -391,6 +397,7 @@ class FlashBackwardKernel:
         if status != 0:
             raise RuntimeError(f"{self.name} launch failed with cudaError_t {status}")
         self.launches += 1
+        self.shape_launches[(heads, sq, sk, dim)] += 1
         if padded:
             for grad, wide in zip(grads, outs):
                 grad.copy_(wide[..., :dim])

@@ -3,7 +3,8 @@
 The torch port's copy of the part of ``simpletuner_tpu/training/lora.py`` it
 uses: ``flux_key_map`` (lora.py:76), ``unet_key_map`` (lora.py:116; sdxl,
 sd1x and sd2x), ``sd3_key_map`` (lora.py:158), ``pixart_key_map``
-(lora.py:336), ``auraflow_key_map`` (lora.py:561) and ``_key_map_for`` (lora.py:680), which resolve the LoRA target presets and
+(lora.py:336), ``wan_key_map`` (lora.py:316), ``auraflow_key_map`` (lora.py:561) and ``_key_map_for``
+(lora.py:680), which resolve the LoRA target presets and
 name the adapters of an export (the maps leave ``patch_in`` and
 ``context_in`` under their own names, as the JAX export does),
 and the plain-LoRA path of the adapter files: ``lora_state_dict`` (:693),
@@ -150,6 +151,21 @@ def auraflow_key_map(arch) -> Dict[str, Any]:
     return mapping
 
 
+def wan_key_map(arch) -> Dict[str, Any]:
+    table = {
+        "self_attn_q": "attn1.to_q", "self_attn_k": "attn1.to_k", "self_attn_v": "attn1.to_v",
+        "self_attn_proj": "attn1.to_out.0",
+        "cross_attn_q": "attn2.to_q", "cross_attn_k": "attn2.to_k", "cross_attn_v": "attn2.to_v",
+        "cross_attn_proj": "attn2.to_out.0",
+        "ffn_in": "ffn.net.0.proj", "ffn_out": "ffn.net.2",
+    }
+    mapping: Dict[str, Any] = {}
+    for layer in range(arch.depth):
+        for ours, theirs in table.items():
+            mapping[f"block_{layer}/{ours}"] = f"blocks.{layer}.{theirs}"
+    return mapping
+
+
 # family name -> key map builder, for the families the port has
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
@@ -158,6 +174,7 @@ _KEY_MAPS = {
     "sdxl": lambda m: unet_key_map(m.arch),
     "sd3": lambda m: sd3_key_map(m.arch),
     "pixart_sigma": lambda m: pixart_key_map(m.arch),
+    "wan": lambda m: wan_key_map(m.arch),
     "auraflow": lambda m: auraflow_key_map(m.arch),
 }
 

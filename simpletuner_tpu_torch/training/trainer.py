@@ -7,7 +7,8 @@ device, ``cuda`` unless the caller asks for the CPU:
 * ``configure_webhook``, ``init_seed``;
 * ``init_preprocessing_models``: the text encoders (``text_encoder_precision``,
   ``tokenizer_max_length``) and the VAE (``vae_dtype``; uint8 pixels
-  normalized on the device, f32 latents);
+  normalized on the device, f32 latents; a video family's causal video VAE,
+  seeded, bf16, as the JAX trainer builds it);
 * ``init_data_backend``: the data plane (``data/factory.py``) with both
   caching passes;
 * ``init_validations`` (prompt embeds while the encoders live, and the eval
@@ -44,12 +45,14 @@ epsilon / v path), ``sd1x`` and ``sd2x`` (one CLIP encoder, the SD VAE, epsilon
 and v-prediction), ``pixart_sigma`` (T5-XXL at 300 tokens, epsilon) and
 ``auraflow`` (Pile-T5 at 256 tokens, flow matching; both with the SD
 ``VAEConfig()``, as the JAX trainer builds it for every 4-channel family but
-sdxl and kolors); the batch reaches the step with every numeric array
+sdxl and kolors) and ``wan`` (umT5 at 512 tokens, the video VAE, 5-D
+latents; each video bucket, whose key carries the frame count, is one batch
+shape and so one captured graph); the batch reaches the step with every numeric array
 the family's collate gives (Flux's ``t5_embeds``/``t5_masks``, the others'
 ``text_embeds``, SDXL's size conditioning ``original_sizes``,
 ``crop_coordinates`` and ``target_sizes``), and ``pooled_embeds`` for flux,
 sd3 and sdxl.  Refused, each naming its ROADMAP item:
-families other than these seven, full fine-tunes and ControlNet, distillation and
+families other than these eight, full fine-tunes and ControlNet, distillation and
 ODE pairs, CREPA / U-REPA, text-encoder training, slider and assistant
 adapters, a mesh of more than one device and multi-process runs.
 """
@@ -67,6 +70,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..configuration.args import TrainingConfig
 from ..data.bucket_report import data_plane_report, format_report
@@ -75,6 +79,7 @@ from ..models.layers import init_adapters, init_parameters
 from ..models.registry import get_model_family
 from ..models.text_encoders import load_text_encoders
 from ..models.vae import AutoencoderKL, VAEConfig
+from ..models.video_vae import VideoAutoencoderKL
 from ..models.vae_import import load_vae_params
 from ..models.weight_bridge import load_flax_params
 from ..models.weight_import import load_transformer_params
@@ -147,9 +152,10 @@ def step_seed(seed: int, step: int) -> int:
     return ((int(seed) * 1_000_003 + 0xBEEF) * 1_000_033 + int(step)) % 2**63
 
 
-def vae_encode_fn(vae: AutoencoderKL, device: torch.device) -> Callable[[np.ndarray, int], torch.Tensor]:
-    """The caching pass's encoder: images (B, H, W, 3) -> f32 latents on the
-    device, unfetched (the cache's writer threads fetch them).  uint8 pixels
+def vae_encode_fn(vae: nn.Module, device: torch.device) -> Callable[[np.ndarray, int], torch.Tensor]:
+    """The caching pass's encoder: images (B, H, W, 3), or clips (B, T, H,
+    W, 3) through the video VAE, -> f32 latents on the device, unfetched (the
+    cache's writer threads fetch them).  uint8 pixels
     cross to the device as they are and are normalized there (exact in f32);
     float images cross in f32."""
 
@@ -216,7 +222,7 @@ class Trainer:
         self.epoch = 0
         self.grad_accum_steps = int(self.config.get("gradient_accumulation_steps", 1) or 1)
         self.data_plane = None
-        self.vae: Optional[AutoencoderKL] = None
+        self.vae: Optional[nn.Module] = None  # AutoencoderKL or VideoAutoencoderKL
         self.module: Optional[torch.nn.Module] = None
         self.validation: Optional[Validation] = None
         self.eval_loss: Optional[EvalLoss] = None
@@ -317,8 +323,18 @@ class Trainer:
         return _VAE_DTYPES[raw]
 
     def _init_vae(self, tiny: bool) -> None:
-        if not getattr(self.model, "REQUIRES_VAE", True) or getattr(self.model, "MODALITY", "image") != "image":
-            raise NotImplementedError(f"{self.model.NAME}: only the image VAE is ported")
+        modality = getattr(self.model, "MODALITY", "image")
+        if not getattr(self.model, "REQUIRES_VAE", True) or modality not in ("image", "video"):
+            raise NotImplementedError(f"{self.model.NAME}: only the image and video VAEs are ported")
+        if modality == "video":
+            # the JAX trainer builds the causal video VAE from PRNGKey(0) for
+            # every video family, whatever pretrained_vae_model_name_or_path
+            # says (ROADMAP Queue 3); the port draws it from a generator seeded
+            # 0, in bf16 as the JAX module computes
+            with torch.device(self.device):
+                vae = VideoAutoencoderKL(self.model.video_vae_config())
+            self.vae = init_parameters(vae, torch.Generator(device=self.device).manual_seed(0)).eval()
+            return
         if tiny:
             vae_config = VAEConfig.tiny()
         elif self.model.LATENT_CHANNEL_COUNT >= 16:

@@ -1,4 +1,4 @@
-"""Validation renders: prompt embeds -> sampling loop -> VAE decode -> PNG.
+"""Validation renders: prompt embeds -> sampling loop -> VAE decode -> PNG or mp4.
 
 Counterpart of ``simpletuner_tpu/training/validation.py``: ``build_scheduler``
 (flow Euler for the flow families; for the DDPM families the family's beta
@@ -10,7 +10,11 @@ schedule (``would_validate``), ``run_validations`` -> ``_run_one_pass``
 (step-named PNGs with a slug, ``num_validation_images`` variants, the
 ``_vs_base`` stitch against ``run_benchmark``'s base renders, the
 validation webhook event and the trackers' images), ``_latent_shape`` and
-``_render_single``.  ``precompute_embeds`` encodes the prompts (and, for
+``_render_single``; a video family renders a square clip at the resolution
+of ``validation_num_video_frames`` frames (default 9: 3 latent frames),
+decoded 5-D and written as an mp4 (mp4v, 8 fps, through OpenCV, imported
+when a clip is written), its middle frame going to the trackers; it has no
+benchmark render, as in the JAX package.  ``precompute_embeds`` encodes the prompts (and, for
 true CFG, the negative prompt) through the model's attached text encoders.
 The render batch takes the payload's keys as they are, as the JAX
 ``_render_single`` does (validation.py:714-718): the T5 padding mask stays
@@ -196,7 +200,7 @@ class Validation:
         """Render every prompt with ``module`` (the trainer's base, adapters
         zeroed) into ``benchmark/base_<i>.png``; later passes stitch their
         render beside it."""
-        if self.disabled:
+        if self.disabled or getattr(self.model, "MODALITY", "image") != "image":
             return
         self._benchmark_images = []
         for index, embeds in enumerate(self._embeds):
@@ -212,13 +216,19 @@ class Validation:
 
     # ---- run -------------------------------------------------------------------------------
     def _latent_shape(self, batch_size: int):
+        channels = self.model.latent_channels
+        if getattr(self.model, "MODALITY", "image") == "video":
+            vae_cfg = self.model.video_vae_config()
+            size = self.resolution // vae_cfg.spatial_factor
+            frames = int(getattr(self.config, "validation_num_video_frames", 9) or 9)
+            return (batch_size, (frames - 1) // vae_cfg.temporal_factor + 1, size, size, channels)
         factor = 8 if getattr(self.model, "REQUIRES_VAE", True) else 1
         size = self.resolution // factor
-        return (batch_size, size, size, self.model.latent_channels)
+        return (batch_size, size, size, channels)
 
     def run_validations(self, module: nn.Module, step: int = 0, force: bool = False, slug: str = "") -> List[str]:
         """Render every prompt with ``module`` when ``would_validate(step,
-        force)``; returns the saved PNG paths.  ``slug`` suffixes the file
+        force)``; returns the saved PNG (or mp4) paths.  ``slug`` suffixes the file
         names (``_ema`` for the EMA comparison pass)."""
         if not self.would_validate(step, force):
             return []
@@ -231,11 +241,13 @@ class Validation:
             # extra per-prompt variants, noise from a disjoint index space
             for variant in range(1, num_images):
                 extra = self._render_single(module, embeds, index + 7919 * variant)
-                self._save_png(extra, self._path(f"step_{step}_{index}_v{variant}{slug}.png"))
+                self._save(extra, self._path(f"step_{step}_{index}_v{variant}{slug}.{self._ext(extra)}"))
             image = self._render_single(module, embeds, index)
-            filename = self._path(f"step_{step}_{index}{slug}.png")
-            self._save_png(image, filename)
-            if index < len(self._benchmark_images):
+            filename = self._path(f"step_{step}_{index}{slug}.{self._ext(image)}")
+            self._save(image, filename)
+            if image.ndim == 4:  # a clip: its middle frame for the trackers
+                image = image[image.shape[0] // 2]
+            elif index < len(self._benchmark_images):
                 stitched = self._stitch(self._benchmark_images[index], image)
                 self._save_png(stitched, self._path(f"step_{step}_{index}_vs_base.png"))
             paths.append(filename)
@@ -248,6 +260,16 @@ class Validation:
             except Exception as exc:
                 logger.debug("tracker image log failed: %s", exc)
         return paths
+
+    @staticmethod
+    def _ext(image: np.ndarray) -> str:
+        return "mp4" if image.ndim == 4 else "png"
+
+    def _save(self, image: np.ndarray, path: str) -> None:
+        if image.ndim == 4:
+            self._save_video(image, path)
+        else:
+            self._save_png(image, path)
 
     def _path(self, name: str) -> str:
         path = os.path.join(self.output_dir, "validation", name)
@@ -265,7 +287,10 @@ class Validation:
     @torch.no_grad()
     def _render_single(self, module: nn.Module, embeds: Dict[str, np.ndarray], index: int) -> np.ndarray:
         latent_shape = self._latent_shape(1)
-        seq_len = (latent_shape[1] // 2) * (latent_shape[2] // 2)
+        if len(latent_shape) == 5:  # video: (B, T, H, W, C)
+            seq_len = latent_shape[1] * (latent_shape[2] // 2) * (latent_shape[3] // 2)
+        else:
+            seq_len = (latent_shape[1] // 2) * (latent_shape[2] // 2)
         scheduler = build_scheduler(self.model, self.num_steps, image_seq_len=seq_len)
         cond = self.model.inference_conditioning(self._batch(embeds, latent_shape))
         denoise = self.model.denoise_fn(module, cond)
@@ -290,6 +315,22 @@ class Validation:
         shift = self.model.VAE_SHIFT_FACTOR or 0.0
         out = self.decode_fn(latents / scaling + shift)[0].to(torch.float32)
         return ((out + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+    @staticmethod
+    def _save_video(frames: np.ndarray, path: str, fps: int = 8) -> None:
+        """(T, H, W, C) frames -> mp4 (mp4v); non-uint8 input is min-max normalized."""
+        import cv2
+
+        if frames.dtype != np.uint8:
+            lo, hi = float(frames.min()), float(frames.max())
+            frames = ((frames - lo) / max(hi - lo, 1e-6) * 255).astype(np.uint8)
+        height, width = frames.shape[1:3]
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (width, height))
+        try:
+            for frame in frames:
+                writer.write(cv2.cvtColor(np.ascontiguousarray(frame[..., :3]), cv2.COLOR_RGB2BGR))
+        finally:
+            writer.release()
 
     @staticmethod
     def _save_png(image: np.ndarray, path: str) -> None:

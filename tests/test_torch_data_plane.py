@@ -174,7 +174,7 @@ def test_unported_datasets_are_refused(tmp_path):
     cases = [
         ({"type": "memory"}, "item 4e"),
         ({"dataset_type": "conditioning"}, "item 4f"),
-        ({"dataset_type": "video"}, "item 4f"),
+        ({"dataset_type": "audio"}, "item 4f"),  # video datasets are built (tests/test_torch_video.py)
         ({"dataset_type": "caption"}, "item 4f"),  # eval datasets are built (tests/test_torch_evaluation.py)
         ({"vae_cache_ondemand": True}, "item 4e"),
         ({"conditioning_data": ["b"]}, "item 4f"),

@@ -10,8 +10,9 @@ bucket report and the modelspec / model card; for the entry points the
 OPTIONS.md generator and the model registry).  These tests
 hold each copy to its JAX counterpart on the same inputs, exactly, and check
 in a fresh process that importing the whole port loads no module of the JAX
-package, and that it imports with ``jax``, ``safetensors``, ``PIL`` and
-``transformers`` refused (the caching tests hold the data and cache copies).
+package, and that it imports with ``jax``, ``safetensors``, ``PIL``,
+``transformers`` and ``cv2`` refused (the caching tests hold the data and
+cache copies; ``tests/test_torch_video.py`` the video copies).
 """
 
 import dataclasses
@@ -45,13 +46,13 @@ REPO = Path(__file__).resolve().parents[1]
 
 # a meta-path finder that refuses the JAX package, JAX itself and the
 # libraries the port reads and writes its files without (safetensors, PIL,
-# transformers), then every module of the port and every import statement of
+# transformers; OpenCV, which reads and writes clips), then every module of the port and every import statement of
 # chip_smoke.py (module level and inside its functions); prints the JAX
 # package's modules that got loaded
 _ISOLATION_SCRIPT = r"""
 import ast, importlib, importlib.abc, pkgutil, sys
 
-REFUSED = ("simpletuner_tpu", "jax", "jaxlib", "flax", "safetensors", "PIL", "transformers")
+REFUSED = ("simpletuner_tpu", "jax", "jaxlib", "flax", "safetensors", "PIL", "transformers", "cv2")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -80,11 +81,12 @@ def test_the_port_imports_nothing_of_the_jax_package():
     count, loaded = result.stdout.strip().splitlines()[-1].split(" ", 1)
     names = [m.name for m in pkgutil.walk_packages(simpletuner_tpu_torch.__path__, "simpletuner_tpu_torch.")]
     assert int(count) == len(names) and loaded == "[]"
-    # the SDXL slice's modules, the SD 1.x / 2.x, PixArt-Sigma and AuraFlow ones are among those imported
+    # the SDXL slice's modules, the SD 1.x / 2.x, PixArt-Sigma, AuraFlow and Wan ones are among those imported
     assert {f"simpletuner_tpu_torch.{name}" for name in (
         "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc", "models.sd1x",
         "models.sd1x.model", "models.pixart", "models.pixart.model", "models.pixart.transformer",
-        "models.auraflow", "models.auraflow.model", "models.auraflow.transformer")} <= set(names)
+        "models.auraflow", "models.auraflow.model", "models.auraflow.transformer", "models.wan", "models.wan.model",
+        "models.wan.transformer", "models.video_vae", "data.video")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -526,7 +528,10 @@ def test_model_registry_refuses_other_families():
     from simpletuner_tpu_torch.models.auraflow import AuraFlow
 
     assert isinstance(get_model_family(TrainingConfig({"model_family": "auraflow"})), AuraFlow)
-    for family in ("kolors", "chroma", "wan"):
+    from simpletuner_tpu_torch.models.wan import Wan
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "wan"})), Wan)
+    for family in ("kolors", "chroma", "hunyuanvideo"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):

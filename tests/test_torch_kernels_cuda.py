@@ -545,6 +545,74 @@ def test_tiny_auraflow_at_head_dim_256_on_the_card_matches_its_cpu_run(cuda):
     _card_against_cpu(cpu, card, inputs, torch.randn((2, 48, 80, 4), generator=gen), cuda)
 
 
+
+# Wan 2.1 at 832 x 480 x 81 (21 x 30 x 52 = 32,760 tokens after the (1, 2, 2)
+# patchify, 255 full 128-row tiles and a ragged tail of 120): the
+# self-attention, and the same queries against 512 umT5 keys; two heads, since
+# the heads are independent and the plain version's 32,760^2 scores must fit
+WAN_TOKENS, WAN_TEXT = 21 * 30 * 52, 512
+WAN_CASES = [("wan_self_s32760", 1, 2, WAN_TOKENS, WAN_TOKENS, 128),
+             ("wan_cross_t5_512", 1, 2, WAN_TOKENS, WAN_TEXT, 128)]
+
+
+@pytest.mark.parametrize("name,batch,heads,sq,sk,dim", WAN_CASES, ids=[c[0] for c in WAN_CASES])
+def test_kernels_at_the_wan_shapes(cuda, name, batch, heads, sq, sk, dim):
+    """Forward and both backward kernels at Wan's shapes against the plain
+    versions, in the dispatcher's (B, S, H, D) layout as the DiT calls them
+    (the 14B's 40 heads are these heads, 20 times over)."""
+    q, k, v = _qkv(60 + sk % 11, batch, heads, sq, sk, dim, cuda)
+    strided = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    out, lse = _check(*strided)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    del out, lse
+    dq, dk, dv = _check_backward(*strided, seed=61)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+def test_tiny_wan_on_the_card_matches_its_cpu_run(cuda):
+    """A Wan DiT two heads of 128 wide (the head dim 128 kernels, Wan's RoPE
+    axes 44 / 42 / 42), two blocks, remat, 5 x 8 x 14 latents (140 ragged
+    tokens) and 40 text tokens, against its CPU run."""
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.wan import WanConfig, WanTransformer
+
+    cfg = WanConfig(in_channels=4, hidden_size=256, depth=2, num_heads=2, head_dim=128, text_dim=64)
+    cpu = init_parameters(WanTransformer(cfg, dtype=torch.float32, lora_rank=4, remat=True),
+                          torch.Generator().manual_seed(0))
+    with torch.device(cuda):
+        card = WanTransformer(cfg, dtype=torch.bfloat16, lora_rank=4, remat=True)
+    gen = torch.Generator().manual_seed(3)
+    inputs = [torch.randn((2, 5, 8, 14, 4), generator=gen), torch.tensor([0.9, 0.25]),
+              torch.randn((2, 40, cfg.text_dim), generator=gen)]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 5, 8, 14, 4), generator=gen), cuda)
+
+
+def test_video_vae_on_the_card(cuda, monkeypatch):
+    """The causal video VAE on the card in f32 against the CPU (sum order
+    only), with its norms and convolutions split into runs of frames as at
+    81 x 480 x 832, and bf16 (the trainer's) against f32."""
+    from simpletuner_tpu_torch.models import video_vae
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    config = video_vae.VideoVAEConfig(base_channels=32)
+    vae = init_parameters(video_vae.VideoAutoencoderKL(config, torch.float32), torch.Generator().manual_seed(1))
+    clip = torch.rand((1, 9, 64, 48, 3), generator=torch.Generator().manual_seed(2)) * 2 - 1
+    with torch.no_grad():
+        ref = vae.encode(clip)
+        frames = vae.decode(ref)
+        card = vae.to(cuda)
+        monkeypatch.setattr(video_vae, "CONV_CHUNK_ELEMENTS", 2 ** 18)
+        monkeypatch.setattr(video_vae, "NORM_CHUNK_ELEMENTS", 2 ** 16)
+        split = card.encode(clip.to(cuda))
+        split_frames = card.decode(split)
+        half = video_vae.VideoAutoencoderKL(config).to(cuda)
+        half.load_state_dict(vae.state_dict())
+        low = half.encode(clip.to(cuda)).float()
+    assert split.shape == ref.shape == (1, 3, 8, 6, 16) and split_frames.shape == frames.shape
+    assert float((split.cpu() - ref).norm() / ref.norm()) < 1e-5
+    assert float((split_frames.cpu() - frames).norm() / frames.norm()) < 1e-5
+    assert float((low.cpu() - ref).norm() / ref.norm()) < 5e-2
+
 def test_sd3_blocks_on_the_card_match_the_plain_attention(cuda):
     """Two SD3.5 Large blocks at full width, 512 px (333 text + 1024 image
     tokens): velocity and LoRA gradients through the kernels against the
