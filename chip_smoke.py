@@ -75,7 +75,8 @@ exits non-zero with no result line):
 13. full-depth gradient parity: phase 9 at 19 + 38 blocks on a bf16 base;
 14. weight import (runs after phase 3): seeded bf16 Flux weights at full width
    (hidden 3072, 24x128 heads) written with the port's safetensors writer,
-   at a cut depth (1 double + 2 single blocks) in the BFL layout (one file)
+   at a cut depth (1 double + 1 single block: the write budget) in the BFL
+   layout (one file)
    and the diffusers layout (two shards), and at full depth (19 + 38 blocks,
    11.9B parameters) as one fp8 (e4m3) BFL file of 11.9 GB, as the published
    fp8 Flux files are (the card's machine ends a run that writes more than
@@ -142,7 +143,8 @@ exits non-zero with no result line):
    depth.  Deletes phase 14's Flux file and phase 17-18's output dirs, checks
    the free disk and what the run has written; writes with the port's writer a seeded diffusers
    transformer (8.15 GB e4m3, two shards, as phase 14's Flux file: the write
-   budget), a seeded CLIP-G (bf16, with the
+   budget), a seeded CLIP-G (bf16, full width, the first 4 of its 32 layers:
+   the write budget; with the
    projection the importer leaves out) and a 16-channel VAE with both quant
    convs, beside hard links to phase 14-15's CLIP-L, T5-XXL and tokenizers
    (the tokenizer subfolders both packages read); imports the transformer
@@ -249,9 +251,39 @@ exits non-zero with no result line):
    channels in, 16 out) at 4 of its 40 blocks, built in memory on an int8 base
    (``quantized_matmul: full``) on the first clip's cached latents: s/step,
    peak GiB and the captured launches (16 / 8 / 8).
+24. ltx: LTX-Video 0.9.5 2B as the JAX preset builds it (``LTXConfig()``: 28
+   blocks, 2048 wide, 32 heads of 64, FFN 4 x 2048, T5-XXL captions at 128
+   tokens; 1.92B parameters) on 768 x 512 x 121 clips (sides multiples of
+   32, 8n + 1 frames; 16 x 16 x 24 latents of 128 channels, 6,144 tokens with
+   the (1, 1, 1) patch).  Deletes phase 23's files; checks ``ltx_step_flops``
+   against ``torch.utils.flop_counter`` on two small configs (one per-frame);
+   writes with the port's writer a seeded diffusers transformer (1.92 GB
+   e4m3, two shards) beside hard links to phase 15's T5-XXL (``text_encoder``)
+   and T5 tokenizer (``tokenizer_2``), and two seeded clips as mp4 with
+   captions; imports the transformer (s, GB/s; every tensor bitwise the
+   written one taken to bf16); ``Trainer.run()`` on the video dataset
+   (discovery into the ``1.5x121`` bucket, the text cache at 128 tokens, the
+   video VAE cache at LTX's config, 32x spatial and 8x temporal, one clip per
+   encode: s per clip and the stage's peak GiB), bf16 base, every block
+   checkpointed, rank-16 LoRA on to_q / to_k / to_v / to_out.0, AdamW 1e-4,
+   the default ``ltx_i2v_prob`` (0.1), so every step takes the per-frame
+   timesteps (1, 16), which the DiT's recorded calls must show; 6 graphed
+   steps: losses, s/step, MFU (``ltx_step_flops``, forward x 3), time to the
+   first step, peak GiB, and the launches of a profiled replay (112 / 56 /
+   56), which must equal the capture's, with device ms by bucket and the idle
+   share; a true-CFG render (guidance 4, 4 flow Euler steps) through
+   ``CheckpointInferenceRuntime`` at 512 px square and 121 frames (4,096
+   tokens), written as mp4 and read back: s per CFG step, the VAE decode s,
+   peak GiB; one full-depth forward with the kernels against the plain
+   attention on the training clip's 6,144 tokens (phase 5's bound); one
+   graphed LoRA step of ``13b-0.9.7`` at its published width (4096, 32 heads
+   of 128, cross 4096) at 4 of its 48 blocks, built in memory on an int8 base
+   (``quantized_matmul: full``) on the first clip's cached latents: s/step,
+   MFU, peak GiB and the captured launches (16 / 8 / 8); last, the run's
+   writes against ``RUN_WRITE_LIMIT_GB`` less ``RUN_WRITE_MARGIN_GB``.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
-their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-23.
+their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-24.
 Phases 3 and 7 also run head dims 72, 96 and 112 (pixart, lumina2, sana),
 which the wrappers zero-pad to 128, masked and unmasked, the shapes
 phase 21 meets first (``PHASE21_KERNEL_CASES``: PixArt's (1, 16, 4096, 72)
@@ -266,18 +298,23 @@ its ragged tail, the same queries against 512 keys, and the 14B's (1, 40,
 32760, 128); each held against the plain version at 2 heads, one head at a
 time, and timed at its full head count beside the plain version head by
 head, SDPA's fastest fused backend and the bound; the inputs drawn on the
-card).  Every phase
+card), and LTX's (``LTX_KERNEL_CASES``: the 2B's (1, 32, 6144, 64)
+self-attention, 48 full tiles, the same queries against 128 T5 keys, one key
+tile, and the 13B's (1, 32, 6144, 128); held against the plain version at
+every head, one head at a time); phases 3 and 7 print the seconds of each of
+their sections (``section_s``).  Every phase
 line carries ``elapsed_s`` and ``written_gb`` (the card's machine ends a run
 that writes more than 45 GiB, deleted files included).  On an H100 80GB HBM3 at
-700 W the whole script takes 850-950 s of its 1,200 s limit (the host's share
-varies by some 10% between machines) and writes about 46.2 GB: phases 3 and 7
-about 100 s (Wan's shapes about 45 s of it), phase 12 about 105 s, phases 17-18
-about 230 s, phases 19-23 about 290 s.
+700 W the whole script takes 760-803 s of its 1,200 s limit (the host's share
+varies by 10-15% between machines; the fp8 files import at about 5 GB/s, their
+bytes cast on the card) and writes about 46.7 GB: phases 3
+and 7 about 100 s, phase 12 about 110 s, phases 17-18 about 180 s, phases 19-24
+about 240 s.
 Then a JSON line with the kernels, each wrapper's head dim 256 instances
-and its rows at Wan's three shapes beside it (launches: the profiler's count
-in phase 12's profiled replay, for the head dim 256 rows in phase 22's, and
-for the Wan rows the wrappers' count at that shape per step in phase 23's
-runs), and last the device line.  Needs one CUDA
+and its rows at Wan's and LTX's three shapes beside it (launches: the
+profiler's count in phase 12's profiled replay, for the head dim 256 rows in
+phase 22's, and for the Wan and LTX rows the wrappers' count at that shape per
+step in phase 23's and phase 24's runs), and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
 register, spill and warning lines per kernel (a C7514 warning means ptxas
 serialized a wgmma pipeline).
@@ -329,7 +366,7 @@ GRAPH_CHECK_STEPS, GRAPH_EAGER_TIMED_STEPS, GRAPH_TIMED_STEPS = 5, 10, 20
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 # phase 14: the cut depth of the two-layout Flux checkpoints (full width); the
 # full depth is written and imported once more, in the BFL layout
-IMPORT_DOUBLE, IMPORT_SINGLE = 1, 2
+IMPORT_DOUBLE, IMPORT_SINGLE = 1, 1
 # phase 15: bf16 T5-XXL against the f32 module on the same weights and
 # tokens: every product and the residual stream round to bf16 (2^-8) in each
 # of 24 layers, so the outputs agree to about a percent in relative L2
@@ -367,6 +404,10 @@ SD3_PROMPT = "a lighthouse on a basalt cliff at dusk"
 SD3_GUIDANCE = 5.0
 SD3_TRAIN_STEPS, SD3_TRAIN_IMAGES = 6, 4
 SD3_WRITE_LIMIT_GB = 46.0
+# the CLIP-G (bigG) file phases 19 and 20 load: full width, the first 4 of its
+# 32 layers (bf16, 0.29 GB; all 32 would write 1.39 GB), as phase 15's T5-XXL
+# and phase 21's OpenCLIP-H are cut, to leave phase 24 room in the write budget
+PHASE19_CLIP_G_LAYERS = 4
 # phase 20: SDXL (the JAX preset: attention at all three UNet levels, where
 # the published SDXL UNet has none at level 0); the render's guidance (true
 # CFG, two UNet forwards per step), its schedulers, the trainer's steps and
@@ -461,23 +502,60 @@ WAN_RENDER_SIZE, WAN_GUIDANCE = 480, 5.0
 WAN_PARITY_FRAMES, WAN_SIGMA = 17, 0.7
 WAN14B_BLOCKS = 4
 WAN_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
-PHASE23_WRITE_GB = 2.0
-# the most a run may write, deleted files included (45 GiB); phase 23 comes
-# last and checks against it
-RUN_WRITE_LIMIT_GB = 48.3
+PHASE23_WRITE_GB = 1.5
 # phases 3 and 7 at Wan's attention shapes: (name, heads, query tokens, key
-# tokens), head dim 128: the 1.3B's self-attention (12 heads over 32,760
+# tokens, head dim): the 1.3B's self-attention (12 heads of 128 over 32,760
 # tokens, the ragged tail masked), its cross-attention (the same queries
 # against the 512 umT5 keys: 4 key tiles) and the 14B's self-attention (40
 # heads).  Held against the plain version at WAN_CHECK_HEADS heads (the heads
 # are independent and the plain S x S scores of one head take 4.3 GB in f32);
 # timed at the full head count, the plain version head by head
 WAN_KERNEL_CASES = (
-    ("wan_self", 12, WAN_TOKENS, WAN_TOKENS),
-    ("wan_cross", 12, WAN_TOKENS, WAN_TEXT),
-    ("wan14b_self", 40, WAN_TOKENS, WAN_TOKENS),
+    ("wan_self", 12, WAN_TOKENS, WAN_TOKENS, 128),
+    ("wan_cross", 12, WAN_TOKENS, WAN_TEXT, 128),
+    ("wan14b_self", 40, WAN_TOKENS, WAN_TOKENS, 128),
 )
 WAN_CHECK_HEADS = 2
+# phase 24: LTX-Video 0.9.5 2B (Lightricks/LTX-Video-0.9.5, the JAX preset
+# LTXConfig(): 28 blocks, 2048 wide, 32 heads of 64, FFN 4 x 2048, T5-XXL
+# captions at 128 tokens) on 768 x 512 x 121 clips (sides multiples of 32,
+# 8n + 1 frames, as LTX-Video asks): 16 x 16 x 24 latents of 128 channels, and
+# with the (1, 1, 1) patch as many tokens, 6,144 (48 full 128-row tiles);
+# phase 15's T5-XXL file (6 of 24 blocks).  Two seeded clips; the render at
+# 512 px square and 121 frames (16 x 16 x 16 = 4,096 tokens); the full-depth
+# parity forward on the training clip's latent grid (the plain attention's
+# 6,144^2 scores fit); the 13B width (13b-0.9.7: 4096 wide, 32 heads of 128,
+# cross 4096) at 4 of its 48 blocks, built in memory (its 13 GB file has no
+# room in the write budget); what the phase writes (the e4m3 transformer, 1.92
+# GB, two mp4 clips, caches and outputs), which phase 23 leaves room for
+LTX_FRAMES, LTX_WIDTH, LTX_HEIGHT = 121, 768, 512
+LTX_LATENT = ((LTX_FRAMES - 1) // 8 + 1, LTX_HEIGHT // 32, LTX_WIDTH // 32)
+LTX_TOKENS = LTX_LATENT[0] * LTX_LATENT[1] * LTX_LATENT[2]
+LTX_TEXT = 128
+LTX_CLIPS, LTX_TRAIN_STEPS = 2, 6
+LTX_RENDER_SIZE, LTX_GUIDANCE = 512, 4.0
+LTX_SIGMA = 0.7
+LTX13B_BLOCKS = 4
+LTX_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
+PHASE24_WRITE_GB = 2.3
+# phases 3 and 7 at LTX's attention shapes, as WAN_KERNEL_CASES: the 2B's
+# self-attention (32 heads of 64 over 6,144 tokens: full tiles, the unmasked
+# fast path), its cross-attention (the same queries against the 128 T5 keys:
+# one key tile) and the 13B's self-attention (32 heads of 128); held against
+# the plain version at every head (one head at a time), timed at the full
+# head count beside the plain version, SDPA's fastest fused backend and the
+# bound
+LTX_KERNEL_CASES = (
+    ("ltx_self", 32, LTX_TOKENS, LTX_TOKENS, 64),
+    ("ltx_cross", 32, LTX_TOKENS, LTX_TEXT, 64),
+    ("ltx13b_self", 32, LTX_TOKENS, LTX_TOKENS, 128),
+)
+LTX_CHECK_HEADS = 32
+# the most a run may write, deleted files included (45 GiB), and the margin
+# below it for what this process's count does not see (the server jobs' child
+# processes in phase 18, nvcc's outputs); phase 24 comes last and checks the
+# run's writes against the difference
+RUN_WRITE_LIMIT_GB, RUN_WRITE_MARGIN_GB = 48.3, 1.0
 # phase 10: the Flux linears' (in, out): attention q/k/v and proj, single-block
 # linear1 (q, k, v, mlp) and linear2, the MLP in and out, double-block AdaLN
 INT8_SHAPES = ((3072, 3072), (3072, 21504), (15360, 3072), (3072, 12288), (12288, 3072), (3072, 18432))
@@ -677,10 +755,12 @@ def kernel_cases():
 
     worst = 0.0
     errors = {}
+    marks = [("start", time.perf_counter())]
     for seed, (name, shape, ids, strided) in enumerate(KERNEL_CASES):
         (q, k, v), seg = _case_inputs(seed, shape, ids, strided, 3)
         _check_forward(name, q, k, v, seg, errors)
         worst = max(worst, errors[name]["out"])
+    marks.append(("cases", time.perf_counter()))
 
     q, k, v = _qkv(9, 1, 24, FLUX_S, 128)
     flux_seg = _segments(1, FLUX_S, txt_valid=TXT_VALID)
@@ -717,10 +797,17 @@ def kernel_cases():
     sd3["share_of_bound"] = sd3_bound / sd3["kernel_ms"]
     times["sd35_large"] = sd3
     del q3, k3, v3
+    marks.append(("flux_sd3", time.perf_counter()))
     times["ddpm_families"] = ddpm_forward_cases(errors)
     worst = max([worst] + [errors[name]["out"] for name in times["ddpm_families"]])
+    marks.append(("ddpm_families", time.perf_counter()))
     times["head_dim_256"], fwd256_entry = d256_forward_cases(errors)
-    times["wan"], wan_entries = wan_forward_cases(errors)
+    marks.append(("head_dim_256", time.perf_counter()))
+    times["wan"], wan_entries = long_forward_cases(WAN_KERNEL_CASES, WAN_CHECK_HEADS, 700, errors)
+    marks.append(("wan", time.perf_counter()))
+    times["ltx"], ltx_entries = long_forward_cases(LTX_KERNEL_CASES, LTX_CHECK_HEADS, 740, errors)
+    marks.append(("ltx", time.perf_counter()))
+    times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
     bound_ms, bound_by = _attention_bound_ms(2, pairs, 24, 128, nbytes)
@@ -732,7 +819,7 @@ def kernel_cases():
     return {"max_abs_err": worst, "ms": times["kernel_masked_ms"], "plain_ms": times["plain_masked_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_masked_ms,
             "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}, fwd256_entry, \
-        wan_entries
+        {**wan_entries, **ltx_entries}
 
 
 def backward_cases():
@@ -773,6 +860,7 @@ def backward_cases():
             kernel = "flash_bwd_dq" if grad_name == "dq" else "flash_bwd_dkv"
             worst[kernel] = max(worst[kernel], err)
 
+    marks = [("start", time.perf_counter())]
     for seed, (name, shape, ids, strided) in enumerate(KERNEL_CASES):
         (q, k, v, do), seg = _case_inputs(100 + seed, shape, ids, strided, 4)
         check(name, q, k, v, do, seg, seg, strided)
@@ -839,10 +927,17 @@ def backward_cases():
         times[f"dq_dkv_masked_d{dim}_ms"] = cuda_ms(
             lambda: flash_backward(q, k, v, flux_seg, flux_seg, out, lse, do, dim ** -0.5), 10)
     times["sd35_large"] = backward_times(29, 1, 38, SD3_S, 64)
+    marks.append(("cases_flux_sd3", time.perf_counter()))
     times["ddpm_families"] = ddpm_backward_cases(check)
+    marks.append(("ddpm_families", time.perf_counter()))
     worst_d128 = dict(worst)  # the head dim 256 instances have their own entries
     times["head_dim_256"], d256_entries = d256_backward_cases(check, errors)
-    times["wan"], wan_entries = wan_backward_cases(errors)
+    marks.append(("head_dim_256", time.perf_counter()))
+    times["wan"], wan_entries = long_backward_cases(WAN_KERNEL_CASES, WAN_CHECK_HEADS, 720, errors)
+    marks.append(("wan", time.perf_counter()))
+    times["ltx"], ltx_entries = long_backward_cases(LTX_KERNEL_CASES, LTX_CHECK_HEADS, 760, errors)
+    marks.append(("ltx", time.perf_counter()))
+    times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
     library = {"library_ms": times["sdpa_backward_masked_ms"],
@@ -853,7 +948,7 @@ def backward_cases():
                                 "plain_ms": times["plain_masked_ms"], "bound_ms": bounds[(kernel, "masked")][0],
                                 "bound_by": bounds[(kernel, "masked")][1], **library}
         for kernel in ("dq", "dkv")
-    }, **d256_entries, **wan_entries}
+    }, **d256_entries, **wan_entries, **ltx_entries}
 
 
 def _ddpm_inputs(seed, heads, sq, sk, dim, n):
@@ -1096,7 +1191,7 @@ def d256_backward_cases(check, errors: dict) -> tuple:
 
 
 
-def _wan_inputs(seed, heads, sq, sk, n):
+def _long_inputs(seed, heads, sq, sk, dim, n):
     """``_ddpm_inputs`` drawn on the card (a seeded CUDA generator): q (and
     dO when ``n`` is 4) over ``sq`` tokens, k and v over ``sk``, bf16 views of
     (B, S, H, D) memory; drawing Wan's 40-head tensors on the host would take
@@ -1106,7 +1201,7 @@ def _wan_inputs(seed, heads, sq, sk, n):
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def draw(length):
-        return torch.randn((1, length, heads, 128), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+        return torch.randn((1, length, heads, dim), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
 
     tensors = [draw(sq), draw(sk), draw(sk)]
     return tensors + [draw(sq)] if n == 4 else tensors
@@ -1124,21 +1219,24 @@ def _by_heads(fn, *tensors):
     return torch.cat(parts, dim=1)
 
 
-def wan_forward_cases(errors: dict) -> tuple:
-    """Phase 3 at Wan's shapes (``WAN_KERNEL_CASES``, the dispatcher's (B,
-    S, H, D) layout): the forward kernel against its plain version at
-    ``WAN_CHECK_HEADS`` heads (the bounds of the other cases, the plain
-    version head by head); at the full head count the kernel's time, the
-    plain version's (head by head), SDPA's fastest fused backend's and the
-    bound.  Returns the cases and the kernels-line entries (without launches)."""
+def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tuple:
+    """Phase 3 at a video family's shapes (``WAN_KERNEL_CASES``,
+    ``LTX_KERNEL_CASES``; the dispatcher's (B, S, H, D) layout): the forward
+    kernel against its plain version at ``check_heads`` heads (the bounds of
+    the other cases, the plain version head by head); at the full head count
+    the kernel's time, the plain version's (head by head), SDPA's fastest
+    fused backend's and the bound.  Returns the cases and the kernels-line
+    entries (without launches)."""
     import torch
     import torch.nn.functional as F
 
     from simpletuner_tpu_torch.ops import flash_attention, mha_reference_lse
 
-    cases, entries = {}, {}
-    for seed, (name, heads, sq, sk) in enumerate(WAN_KERNEL_CASES):
-        q, k, v = _wan_inputs(700 + 2 * seed, WAN_CHECK_HEADS, sq, sk, 3)
+    cases_out, entries = {}, {}
+    for index, (name, heads, sq, sk, dim) in enumerate(cases):
+        t0 = time.perf_counter()
+        checked = min(heads, check_heads)
+        q, k, v = _long_inputs(seed + 2 * index, checked, sq, sk, dim, 3)
         out, lse = flash_attention(q, k, v, return_lse=True)
         ref, ref_lse = _by_heads(mha_reference_lse, q, k, v)
         torch.cuda.synchronize()
@@ -1147,32 +1245,31 @@ def wan_forward_cases(errors: dict) -> tuple:
         if not (torch.isfinite(out.float()).all() and err <= bound and l2 <= OUT_REL_L2 and lse_err <= LSE_ATOL):
             raise RuntimeError(f"kernel case {name}: out err {err} (<= {bound}), rel L2 {l2} (<= {OUT_REL_L2}), "
                                f"lse err {lse_err} (<= {LSE_ATOL})")
-        errors[name] = {"heads_checked": WAN_CHECK_HEADS, "out": err, "out_bound": bound, "out_rel_l2": l2,
-                        "lse": lse_err}
+        errors[name] = {"heads_checked": checked, "out": err, "out_bound": bound, "out_rel_l2": l2, "lse": lse_err}
         del q, k, v, out, lse, ref, ref_lse
-        q, k, v = _wan_inputs(710 + 2 * seed, heads, sq, sk, 3)
+        q, k, v = _long_inputs(seed + 10 + 2 * index, heads, sq, sk, dim, 3)
         backend, sdpa_ms = _sdpa_backend(lambda: F.scaled_dot_product_attention(q, k, v), 10, fused_only=True)
-        nbytes = 2 * heads * (sq + sk) * 128 * 2 + heads * sq * 4  # q, out; k, v; lse
-        bound_ms, bound_by = _attention_bound_ms(2, sq * sk, heads, 128, nbytes)
+        nbytes = 2 * heads * (sq + sk) * dim * 2 + heads * sq * 4  # q, out; k, v; lse
+        bound_ms, bound_by = _attention_bound_ms(2, sq * sk, heads, dim, nbytes)
         kernel_ms = cuda_ms(lambda: flash_attention(q, k, v), 10)
         plain_ms = cuda_ms(lambda: _by_heads(mha_reference_lse, q, k, v), 1, warmup=1)
-        cases[name] = {"shape": [1, heads, sq, sk, 128], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                       "sdpa_ms": sdpa_ms, "sdpa_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by,
-                       "share_of_bound": bound_ms / kernel_ms}
+        cases_out[name] = {"shape": [1, heads, sq, sk, dim], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                           "sdpa_ms": sdpa_ms, "sdpa_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by,
+                           "share_of_bound": bound_ms / kernel_ms, "seconds": time.perf_counter() - t0}
         entries[f"flash_fwd_{name}"] = {
             "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": sdpa_ms, "library_call": f"scaled_dot_product_attention ({backend})",
-            "shape": [1, heads, sq, sk, 128], "max_abs_err_heads": WAN_CHECK_HEADS,
+            "shape": [1, heads, sq, sk, dim], "max_abs_err_heads": checked,
             "plain_call": "mha_reference_lse, one head at a time"}
         del q, k, v
         torch.cuda.empty_cache()
-    return cases, entries
+    return cases_out, entries
 
 
-def wan_backward_cases(errors: dict) -> tuple:
-    """Phase 7 at Wan's shapes: dq, dk and dv from the kernels against the
-    plain backward (head by head) at ``WAN_CHECK_HEADS`` heads, in the
-    dispatcher's layout; at the full head count the dq and dkv kernels'
+def long_backward_cases(cases, check_heads: int, seed: int, errors: dict) -> tuple:
+    """Phase 7 at a video family's shapes: dq, dk and dv from the kernels
+    against the plain backward (head by head) at ``check_heads`` heads, in
+    the dispatcher's layout; at the full head count the dq and dkv kernels'
     times, the plain backward's (head by head), SDPA's backward (dq + dk +
     dv, its fastest fused backend) and the bounds and shares.  Returns the
     cases and the kernels-line entries (without launches)."""
@@ -1183,19 +1280,21 @@ def wan_backward_cases(errors: dict) -> tuple:
         flash_attention, flash_backward, flash_bwd_dkv_kernel, flash_bwd_dq_kernel, mha_backward_reference,
     )
 
-    cases, entries = {}, {}
-    scale = 128 ** -0.5
+    cases_out, entries = {}, {}
+    for index, (name, heads, sq, sk, dim) in enumerate(cases):
+        t0 = time.perf_counter()
+        scale = dim ** -0.5
 
-    def plain(q, k, v, out, lse, do):
-        return mha_backward_reference(q, k, v, None, None, out, lse, do, scale)
+        def plain(q, k, v, out, lse, do):
+            return mha_backward_reference(q, k, v, None, None, out, lse, do, scale)
 
-    for seed, (name, heads, sq, sk) in enumerate(WAN_KERNEL_CASES):
-        q, k, v, do = _wan_inputs(720 + 2 * seed, WAN_CHECK_HEADS, sq, sk, 4)
+        checked = min(heads, check_heads)
+        q, k, v, do = _long_inputs(seed + 2 * index, checked, sq, sk, dim, 4)
         out, lse = flash_attention(q, k, v, return_lse=True)
         grads = flash_backward(q, k, v, None, None, out, lse, do, scale)
         refs = _by_heads(plain, q, k, v, out, lse, do)
         torch.cuda.synchronize()
-        errors[name + "_backward"] = {"heads_checked": WAN_CHECK_HEADS}
+        errors[name + "_backward"] = {"heads_checked": checked}
         worst = {"dq": 0.0, "dkv": 0.0}
         for grad_name, grad, ref in zip(("dq", "dk", "dv"), grads, refs):
             g, r = grad.float(), ref.float()
@@ -1209,11 +1308,11 @@ def wan_backward_cases(errors: dict) -> tuple:
         del q, k, v, do, out, lse, grads, refs
         torch.cuda.empty_cache()
 
-        q, k, v, do = _wan_inputs(730 + 2 * seed, heads, sq, sk, 4)
+        q, k, v, do = _long_inputs(seed + 10 + 2 * index, heads, sq, sk, dim, 4)
         out, lse = flash_attention(q, k, v, return_lse=True)
         delta = (out.float() * do.float()).sum(dim=-1)
-        q_act, k_act, stats = heads * sq * 128 * 2, heads * sk * 128 * 2, 2 * heads * sq * 4
-        times = {"shape": [1, heads, sq, sk, 128]}
+        q_act, k_act, stats = heads * sq * dim * 2, heads * sk * dim * 2, 2 * heads * sq * 4
+        times = {"shape": [1, heads, sq, sk, dim]}
         for kernel, products, nbytes, fn in (
                 ("dq", 3, 3 * q_act + 2 * k_act + stats,
                  lambda: flash_bwd_dq_kernel(q, k, v, None, None, lse, delta, do, scale)),
@@ -1221,7 +1320,7 @@ def wan_backward_cases(errors: dict) -> tuple:
                  lambda: flash_bwd_dkv_kernel(q, k, v, None, None, lse, delta, do, scale))):
             times[f"{kernel}_ms"] = cuda_ms(fn, 5)
             times[f"bound_{kernel}_ms"], times[f"bound_{kernel}_by"] = _attention_bound_ms(
-                products, sq * sk, heads, 128, nbytes)
+                products, sq * sk, heads, dim, nbytes)
             times[f"{kernel}_share_of_bound"] = times[f"bound_{kernel}_ms"] / times[f"{kernel}_ms"]
         times["plain_ms"] = cuda_ms(lambda: _by_heads(plain, q, k, v, out, lse, do), 1, warmup=1)
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
@@ -1234,18 +1333,19 @@ def wan_backward_cases(errors: dict) -> tuple:
         with sdpa_kernel([getattr(SDPBackend, backend.upper())]):
             times["sdpa_backward_ms"] = fwd_bwd_ms - cuda_ms(forward, 5)
         times["sdpa_backward_backend"] = backend
-        cases[name] = times
+        times["seconds"] = time.perf_counter() - t0
+        cases_out[name] = times
         for kernel in ("dq", "dkv"):
             entries[f"flash_bwd_{kernel}_{name}"] = {
                 "max_abs_err": worst[kernel], "ms": times[f"{kernel}_ms"], "plain_ms": times["plain_ms"],
                 "bound_ms": times[f"bound_{kernel}_ms"], "bound_by": times[f"bound_{kernel}_by"],
                 "library_ms": times["sdpa_backward_ms"],
                 "library_call": f"scaled_dot_product_attention backward, dq + dk + dv together ({backend})",
-                "shape": [1, heads, sq, sk, 128], "max_abs_err_heads": WAN_CHECK_HEADS,
+                "shape": [1, heads, sq, sk, dim], "max_abs_err_heads": checked,
                 "plain_call": "mha_backward_reference (whole backward), one head at a time"}
         del q, k, v, do, out, lse, delta, leaves
         torch.cuda.empty_cache()
-    return cases, entries
+    return cases_out, entries
 
 @contextlib.contextmanager
 def record_backward_norms(norms, calls: int):
@@ -1881,7 +1981,7 @@ def sd3_phase(paths: dict, kernels, device: str) -> None:
         save_safetensors({k: weights[k] for k in part}, os.path.join(
             sd3_dir, "transformer", f"diffusion_pytorch_model-0000{shard + 1}-of-00002.safetensors"))
     write_s = time.perf_counter() - t0
-    clip_g = CLIPTextConfig.clip_g()
+    clip_g = dataclasses.replace(CLIPTextConfig.clip_g(), num_hidden_layers=PHASE19_CLIP_G_LAYERS)
     os.makedirs(os.path.join(sd3_dir, "text_encoder_2"))
     save_safetensors(seeded_weights(clip_checkpoint_shapes(clip_g, projection=True), gen),
                      os.path.join(sd3_dir, "text_encoder_2", "model.safetensors"))
@@ -1900,6 +2000,7 @@ def sd3_phase(paths: dict, kernels, device: str) -> None:
     files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
              "write_gb_per_s": file_bytes / write_s / 1e9,
              "clip_g_params": sum(math.prod(v) for v in clip_checkpoint_shapes(clip_g).values()),
+             "clip_g_layers": [PHASE19_CLIP_G_LAYERS, CLIPTextConfig.clip_g().num_hidden_layers],
              "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
 
     # (c) import through load_transformer_params, every tensor bitwise the
@@ -2198,8 +2299,8 @@ def sdxl_phase(paths: dict, kernels, device: str) -> None:
     params = sum(math.prod(shape) for shape in shapes.values())
     # bf16 unless the run's writes would pass the budget; then e4m3, which the importer takes to bf16 exactly
     written_before = _written_gb()
-    fp8 = written_before + 2 * params / 1e9 + 1.0 + PHASE21_WRITE_GB + PHASE22_WRITE_GB + PHASE23_WRITE_GB > \
-        SD3_WRITE_LIMIT_GB
+    fp8 = written_before + 2 * params / 1e9 + 1.0 + PHASE21_WRITE_GB + PHASE22_WRITE_GB + PHASE23_WRITE_GB + \
+        PHASE24_WRITE_GB > SD3_WRITE_LIMIT_GB
     file_bytes = (1 if fp8 else 2) * params
     free = shutil.disk_usage(work).free
     if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 1.0 > SD3_WRITE_LIMIT_GB:
@@ -3220,6 +3321,142 @@ def _per_shape(kernels, scale: int = 1) -> dict:
             for kernel in kernels}
 
 
+def _write_e4m3_transformer(root: str, shapes: dict, gen) -> tuple:
+    """Seeded weights of ``shapes`` taken to e4m3 on the card, written with the
+    port's writer as two diffusers shards under ``root/transformer``; returns
+    the weights and the write seconds."""
+    import torch
+
+    from simpletuner_tpu_torch.models.weight_import import save_safetensors
+
+    os.makedirs(os.path.join(root, "transformer"))
+    weights = {k: v.to(torch.float8_e4m3fn) for k, v in seeded_weights(shapes, gen).items()}
+    names = sorted(weights)
+    t0 = time.perf_counter()
+    for shard, part in enumerate((names[: len(names) // 2], names[len(names) // 2:])):
+        save_safetensors({k: weights[k] for k in part}, os.path.join(
+            root, "transformer", f"diffusion_pytorch_model-0000{shard + 1}-of-00002.safetensors"))
+    return weights, time.perf_counter() - t0
+
+
+def _write_clips(data: str, count: int, frames: int, height: int, width: int, fps: int, seed: int) -> dict:
+    """``count`` seeded clips as mp4 (OpenCV, mp4v) with ``TRAIN_CAPTIONS``
+    beside them; returns their size and the seconds taken."""
+    cv2 = importlib.import_module("cv2")  # the port imports OpenCV only where it reads or writes a clip
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    clip_bytes = 0
+    for i in range(count):
+        path = os.path.join(data, f"clip_{i}.mp4")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (width, height))
+        for frame in _seeded_clip(seed + i, frames, height, width):
+            writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+        writer.release()
+        clip_bytes += os.path.getsize(path)
+        with open(os.path.join(data, f"clip_{i}.txt"), "w") as handle:
+            handle.write(TRAIN_CAPTIONS[i])
+    return {"clips": count, "clip_mb": clip_bytes / count / 1e6, "clip_write_s": time.perf_counter() - t0,
+            "route": "mp4 (cv2 " + cv2.__version__ + ")"}
+
+
+def _mp4_frame_shapes(path: str) -> list:
+    """The (H, W, 3) shape of every frame OpenCV reads back from ``path``."""
+    cv2 = importlib.import_module("cv2")
+    capture = cv2.VideoCapture(path)
+    shapes = []
+    while True:
+        ok, frame = capture.read()
+        if not ok:
+            break
+        shapes.append(frame.shape)
+    capture.release()
+    return shapes
+
+
+def _timed_render(runtime, kernels, prompt: str, guidance: float) -> dict:
+    """``runtime.render`` of ``prompt`` over ``STEPS`` steps, each DiT forward
+    and the VAE decode timed (synchronised hooks), the latents checked
+    finite, and the wrappers' launches counted from 0."""
+    import torch
+
+    module = runtime.module
+    forward_s, finite, decode_s = [], [], []
+
+    def before(mod, args):
+        torch.cuda.synchronize()
+        forward_s.append(-time.perf_counter())
+
+    def after(mod, args, out):
+        torch.cuda.synchronize()
+        forward_s[-1] += time.perf_counter()
+
+    decode = runtime.vae.decode
+
+    def decode_checked(z):
+        finite.append(bool(torch.isfinite(z).all()))
+        t1 = time.perf_counter()
+        frames = decode(z)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t1)
+        return frames
+
+    hooks = [module.register_forward_pre_hook(before), module.register_forward_hook(after)]
+    runtime.vae.decode = decode_checked
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        rendered = runtime.render(prompt, steps=STEPS, guidance=guidance)
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+    finally:
+        runtime.vae.decode = decode
+        for hook in hooks:
+            hook.remove()
+    return {"rendered": rendered, "render_s": render_s, "forward_s": forward_s, "finite": finite,
+            "decode_s": decode_s, "launches": {kernel.name: kernel.launches for kernel in kernels},
+            "launches_by_shape": _per_shape(kernels), "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _graphed_step(model, module, batch: dict, kernels) -> dict:
+    """One LoRA step of ``model``'s ``module`` (built in memory) captured by
+    ``jit_train_step`` on ``batch`` and replayed twice: capture seconds,
+    replay seconds, the captured launches (in all and by shape, the wrappers
+    counting the two warm-up steps and the capture), loss, grad norm and the
+    peak since the caller's last reset."""
+    import torch
+
+    from simpletuner_tpu_torch.training.optimizers import get_optimizer
+    from simpletuner_tpu_torch.training.schedules import get_lr_schedule
+    from simpletuner_tpu_torch.training.train_state import build_train_step, create_train_state, jit_train_step
+
+    schedule = get_lr_schedule(model.config, model.config.max_train_steps)
+    tx = get_optimizer(model.config, schedule)
+    state = create_train_state(model, module, tx, quantize_mode=model.base_precision)
+    step_fn = build_train_step(model, tx, schedule)
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    t0 = time.perf_counter()
+    graphed = jit_train_step(step_fn, state, batch, generator)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    replays = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, metrics = graphed(state, batch, generator)
+        torch.cuda.synchronize()
+        replays.append(time.perf_counter() - t0)
+    return {"capture_s": capture_s, "replay_s": replays, "s_per_step": min(replays),
+            "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches_captured": {counter.name: count for counter, count in graphed.captured_launches.items()},
+            "launches_per_step_by_shape": _per_shape(kernels, 3)}
+
+
 def wan_phase(paths: dict, kernels, device: str) -> dict:
     """Phase 23: Wan 2.1 T2V-1.3B at the JAX preset's full width and depth on
     its published 832 x 480 x 81 clip: a seeded e4m3 diffusers transformer
@@ -3249,16 +3486,10 @@ def wan_phase(paths: dict, kernels, device: str) -> dict:
     from simpletuner_tpu_torch.models.video_vae import VideoAutoencoderKL, VideoVAEConfig
     from simpletuner_tpu_torch.models.wan import Wan, WanConfig
     from simpletuner_tpu_torch.models.weight_bridge import flax_to_state_dict
-    from simpletuner_tpu_torch.models.weight_import import (
-        load_transformer_params, save_safetensors, wan_params_from_diffusers,
-    )
+    from simpletuner_tpu_torch.models.weight_import import load_transformer_params, wan_params_from_diffusers
     from simpletuner_tpu_torch.ops import set_attention_backend
-    from simpletuner_tpu_torch.training.optimizers import get_optimizer
-    from simpletuner_tpu_torch.training.schedules import get_lr_schedule
-    from simpletuner_tpu_torch.training.train_state import build_train_step, create_train_state, jit_train_step
     from simpletuner_tpu_torch.training.trainer import Trainer
 
-    cv2 = importlib.import_module("cv2")  # OpenCV writes and reads the clips (the port imports it where it reads one)
     start = time.perf_counter()
     work, flux_dir = paths["work"], paths["flux_dir"]
     # phase 22's files and outputs: disk space (not the write budget)
@@ -3279,40 +3510,23 @@ def wan_phase(paths: dict, kernels, device: str) -> dict:
     shapes = wan_checkpoint_shapes(arch)
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     written_before, free = _written_gb(), shutil.disk_usage(work).free
-    if free < file_bytes + 6e9 or written_before + PHASE23_WRITE_GB > RUN_WRITE_LIMIT_GB:
+    target_gb = RUN_WRITE_LIMIT_GB - RUN_WRITE_MARGIN_GB
+    if free < file_bytes + 6e9 or written_before + PHASE23_WRITE_GB + PHASE24_WRITE_GB > target_gb:
         raise RuntimeError(f"wan: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; it "
-                           f"writes {PHASE23_WRITE_GB} GB of the {RUN_WRITE_LIMIT_GB} GB a run may write")
+                           f"and phase 24 write {PHASE23_WRITE_GB + PHASE24_WRITE_GB} GB of the {target_gb} GB a run "
+                           "may write")
 
     # (b) the seeded files: the transformer (two e4m3 shards), hard links to
     # phase 15's T5-XXL and T5 tokenizer, and two mp4 clips with captions
     wan_dir = os.path.join(work, "wan")
-    os.makedirs(os.path.join(wan_dir, "transformer"))
-    weights = {k: v.to(torch.float8_e4m3fn) for k, v in seeded_weights(shapes, gen).items()}
-    names = sorted(weights)
-    t0 = time.perf_counter()
-    for shard, part in enumerate((names[: len(names) // 2], names[len(names) // 2:])):
-        save_safetensors({k: weights[k] for k in part}, os.path.join(
-            wan_dir, "transformer", f"diffusion_pytorch_model-0000{shard + 1}-of-00002.safetensors"))
-    write_s = time.perf_counter() - t0
+    weights, write_s = _write_e4m3_transformer(wan_dir, shapes, gen)
     for source, target in (("text_encoder_2", "text_encoder"), ("tokenizer_2", "tokenizer_2")):
         _link_tree(os.path.join(flux_dir, source), os.path.join(wan_dir, target))
     data = os.path.join(work, "wan_data")
-    os.makedirs(data)
-    t0 = time.perf_counter()
-    clip_bytes = 0
-    for i in range(WAN_CLIPS):
-        path = os.path.join(data, f"clip_{i}.mp4")
-        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 16, (WAN_WIDTH, WAN_HEIGHT))
-        for frame in _seeded_clip(i, WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH):
-            writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
-        writer.release()
-        clip_bytes += os.path.getsize(path)
-        with open(os.path.join(data, f"clip_{i}.txt"), "w") as handle:
-            handle.write(TRAIN_CAPTIONS[i])
     files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
-             "write_gb_per_s": file_bytes / write_s / 1e9, "clips": WAN_CLIPS, "clip_mb": clip_bytes / WAN_CLIPS / 1e6,
-             "clip_write_s": time.perf_counter() - t0, "written_gb_before": written_before,
-             "written_gb_after": _written_gb(), "free_gb_before": free / 1e9, "route": "mp4 (cv2 " + cv2.__version__ + ")"}
+             "write_gb_per_s": file_bytes / write_s / 1e9,
+             **_write_clips(data, WAN_CLIPS, WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH, 16, 0),
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
 
     # (c) import through load_transformer_params, every tensor bitwise the
     # written one taken to bf16 (exact for every e4m3 value)
@@ -3449,63 +3663,23 @@ def wan_phase(paths: dict, kernels, device: str) -> dict:
     module, model = runtime.module, runtime.model
     if model.arch != arch or model.NAME != "wan" or not model.is_flow:
         raise RuntimeError(f"wan: the runtime built {model.NAME} {model.arch}")
-    forward_s, finite, decode_s = [], [], []
-
-    def before(mod, args):
-        torch.cuda.synchronize()
-        forward_s.append(-time.perf_counter())
-
-    def after(mod, args, out):
-        torch.cuda.synchronize()
-        forward_s[-1] += time.perf_counter()
-
-    decode = runtime.vae.decode
-
-    def decode_checked(z):
-        finite.append(bool(torch.isfinite(z).all()))
-        t1 = time.perf_counter()
-        frames = decode(z)
-        torch.cuda.synchronize()
-        decode_s.append(time.perf_counter() - t1)
-        return frames
-
-    hooks = [module.register_forward_pre_hook(before), module.register_forward_hook(after)]
-    runtime.vae.decode = decode_checked
-    for kernel in kernels:
-        kernel.launches = 0
-        kernel.shape_launches.clear()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    rendered = runtime.render(WAN_PROMPT, steps=STEPS, guidance=WAN_GUIDANCE)
-    torch.cuda.synchronize()
-    render_s = time.perf_counter() - t0
-    render_launches = {kernel.name: kernel.launches for kernel in kernels}
-    render_shapes = _per_shape(kernels)
-    render_peak = torch.cuda.max_memory_allocated() / 2**30
-    runtime.vae.decode = decode
-    for hook in hooks:
-        hook.remove()
+    timed = _timed_render(runtime, kernels, WAN_PROMPT, WAN_GUIDANCE)
+    rendered, forward_s = timed["rendered"], timed["forward_s"]
     render_tokens = latent_shape[0] * (WAN_RENDER_SIZE // 16) ** 2
-    if render_launches != {"flash_fwd": per_forward * 2 * STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
-        raise RuntimeError(f"wan render: launches {render_launches}, expected {per_forward} per forward, two "
+    if timed["launches"] != {"flash_fwd": per_forward * 2 * STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        raise RuntimeError(f"wan render: launches {timed['launches']}, expected {per_forward} per forward, two "
                            f"forwards per step")
-    if len(rendered) != 1 or not rendered[0].endswith(".mp4") or finite != [True] or len(forward_s) != 2 * STEPS:
-        raise RuntimeError(f"wan render: {rendered}, finite latents {finite}, {len(forward_s)} forwards")
-    capture = cv2.VideoCapture(rendered[0])
-    read = []
-    while True:
-        ok, frame = capture.read()
-        if not ok:
-            break
-        read.append(frame.shape)
-    capture.release()
+    if len(rendered) != 1 or not rendered[0].endswith(".mp4") or timed["finite"] != [True] or \
+            len(forward_s) != 2 * STEPS:
+        raise RuntimeError(f"wan render: {rendered}, finite latents {timed['finite']}, {len(forward_s)} forwards")
+    read = _mp4_frame_shapes(rendered[0])
     if len(read) != WAN_FRAMES or set(read) != {(WAN_RENDER_SIZE, WAN_RENDER_SIZE, 3)}:
         raise RuntimeError(f"wan render: the mp4 holds {len(read)} frames of {set(read)}")
-    render = {"init_s": init_s, "render_s": render_s, "steps": STEPS, "guidance": WAN_GUIDANCE,
+    render = {"init_s": init_s, "render_s": timed["render_s"], "steps": STEPS, "guidance": WAN_GUIDANCE,
               "frames": WAN_FRAMES, "size": WAN_RENDER_SIZE, "tokens": render_tokens,
               "s_per_cfg_step": sum(forward_s[2:]) / (len(forward_s) - 2) * 2, "forward_s": forward_s,
-              "vae_decode_s": decode_s[0], "peak_gib": render_peak, "launches": render_launches,
-              "launches_by_shape": render_shapes, "mp4": os.path.basename(rendered[0]),
+              "vae_decode_s": timed["decode_s"][0], "peak_gib": timed["peak_gib"], "launches": timed["launches"],
+              "launches_by_shape": timed["launches_by_shape"], "mp4": os.path.basename(rendered[0]),
               "mp4_bytes": os.path.getsize(rendered[0]), "mp4_frames": len(read)}
 
     # (f) one full-depth forward, the kernels against the plain attention, on
@@ -3558,46 +3732,25 @@ def wan_phase(paths: dict, kernels, device: str) -> dict:
     with torch.device(dev):
         module14 = init_parameters(model14.create_module(), gen)
     params14 = sum(p.numel() for p in module14.parameters())
-    schedule = get_lr_schedule(cfg14, cfg14.max_train_steps)
-    tx = get_optimizer(cfg14, schedule)
-    state = create_train_state(model14, module14, tx, quantize_mode=model14.base_precision)
-    step_fn = build_train_step(model14, tx, schedule)
     batch = {"latents": torch.as_tensor(cached[0], device=dev)[None],
              "text_embeds": torch.as_tensor(text_payload["text_embeds"], device=dev)[None]}
-    generator = torch.Generator(device=dev).manual_seed(0)
-    for kernel in kernels:
-        kernel.launches = 0
-        kernel.shape_launches.clear()
-    t0 = time.perf_counter()
-    graphed14 = jit_train_step(step_fn, state, batch, generator)
-    torch.cuda.synchronize()
-    capture14_s = time.perf_counter() - t0
-    shapes14 = _per_shape(kernels, 3)
-    captured14 = {counter.name: count for counter, count in graphed14.captured_launches.items()}
-    replays = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        state, metrics14 = graphed14(state, batch, generator)
-        torch.cuda.synchronize()
-        replays.append(time.perf_counter() - t0)
-    loss14, norm14 = float(metrics14["loss"]), float(metrics14["grad_norm"])
+    step14 = _graphed_step(model14, module14, batch, kernels)
+    captured14, shapes14 = step14["launches_captured"], step14["launches_per_step_by_shape"]
     per_forward14 = 2 * WAN14B_BLOCKS
     key14 = f"40x{WAN_TOKENS}x{WAN_TOKENS}x128"
     if {k.name: captured14[k.name] for k in kernels} != {"flash_fwd": 2 * per_forward14,
                                                          "flash_bwd_dq": per_forward14,
                                                          "flash_bwd_dkv": per_forward14} or \
-            not (np.isfinite(loss14) and norm14 > 0) or any(shapes14[k.name].get(key14) != captured14[k.name] // 2
-                                                           for k in kernels):
-        raise RuntimeError(f"wan 14B: captured {captured14} ({shapes14}), loss {loss14}, grad norm {norm14}")
+            not (np.isfinite(step14["loss"]) and step14["grad_norm"] > 0) or \
+            any(shapes14[k.name].get(key14) != captured14[k.name] // 2 for k in kernels):
+        raise RuntimeError(f"wan 14B: captured {captured14} ({shapes14}), loss {step14['loss']}, grad norm "
+                           f"{step14['grad_norm']}")
     flops14 = wan_step_flops(arch14, 1, WAN_TOKENS, WAN_TEXT)
     i2v = {"flavour": "i2v-14b-480p", "blocks": [WAN14B_BLOCKS, 40], "hidden": arch14.hidden_size,
            "heads": [arch14.num_heads, arch14.head_dim], "channels": [arch14.in_channels, arch14.out_channels],
-           "params": params14, "base": "int8", "quantized_matmul": "full", "capture_s": capture14_s,
-           "replay_s": replays, "s_per_step": min(replays), "flops_per_step": flops14,
-           "mfu": flops14 / min(replays) / PEAK_BF16_FLOPS, "loss": loss14, "grad_norm": norm14,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches_captured": captured14,
-           "launches_per_step_by_shape": shapes14}
-    del state, graphed14, module14, model14, step_fn, batch
+           "params": params14, "base": "int8", "quantized_matmul": "full", "flops_per_step": flops14,
+           "mfu": flops14 / step14["s_per_step"] / PEAK_BF16_FLOPS, **step14}
+    del module14, model14, batch
     gc.collect()
     torch.cuda.empty_cache()
     phase("23 wan", config="Wan-AI/Wan2.1-T2V-1.3B-Diffusers as the JAX preset WanConfig.b1_3 builds it (FFN 4 x 1536)",
@@ -3612,6 +3765,391 @@ def wan_phase(paths: dict, kernels, device: str) -> dict:
     return {"wan_self": {k: v.get(self_key) for k, v in shape_launches.items()},
             "wan_cross": {k: v.get(cross_key) for k, v in shape_launches.items()},
             "wan14b_self": {k: v.get(key14) for k, v in shapes14.items()}}
+
+def ltx_step_flops(arch, batch: int, tokens: int, text_tokens: int, timestep_rows: int = 1) -> int:
+    """Model FLOPs of one LTX-Video train step in bench.py's convention
+    (forward x 3; remat recompute is hardware work, not model work), counted
+    from the config at ``tokens`` video and ``text_tokens`` T5 tokens: the
+    patch linear, the caption MLP over every text token, the timestep MLP and
+    ``time_proj`` once per timestep row (one per sample, or one per latent
+    frame on the per-frame path: ``timestep_rows``), per block q, k, v and out
+    of the self-attention and q and out of the cross-attention per video
+    token, the cross-attention's k and v per text token, the feed-forward, the
+    two products of each attention, and the final projection."""
+    d, inner, ffn = arch.hidden_size, arch.num_heads * arch.head_dim, arch.ffn_hidden
+    per_block = (2 * tokens * 6 * d * inner + 2 * text_tokens * 2 * d * inner + 2 * tokens * 2 * d * ffn
+                 + 4 * tokens * tokens * inner + 4 * tokens * text_tokens * inner)
+    fwd = (2 * tokens * arch.in_channels * d + 2 * text_tokens * (arch.text_dim * d + d * d)
+           + timestep_rows * (2 * (256 * d + d * d) + 2 * d * 6 * d) + arch.depth * per_block
+           + 2 * tokens * d * arch.out_channels)
+    return batch * fwd * 3
+
+
+def _ltx_flop_checks() -> list:
+    """``ltx_step_flops`` / 3 against ``torch.utils.flop_counter`` on the
+    forward of two small configs on the CPU (f32; the attention through the
+    plain version, whose two products the counter sees as bmm): the tiny
+    config with per-sample timesteps, and a wider one (inner 96, so the RoPE
+    tables pad) with per-frame timesteps: equal."""
+    import dataclasses
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.ltxvideo import LTXConfig, LTXTransformer
+
+    checks = []
+    wider = dataclasses.replace(LTXConfig.tiny(), in_channels=12, out_channels=12, hidden_size=96, num_heads=3,
+                                text_dim=48)
+    for arch, (frames, height, width), text, per_frame in ((LTXConfig.tiny(), (3, 4, 6), 5, False),
+                                                           (wider, (2, 6, 4), 7, True)):
+        module = init_parameters(LTXTransformer(arch, dtype=torch.float32), torch.Generator().manual_seed(0))
+        timesteps = torch.full((2, frames) if per_frame else (2,), 0.5)
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            module(torch.zeros(2, frames, height, width, arch.in_channels), timesteps,
+                   torch.zeros(2, text, arch.text_dim))
+        tokens = frames * height * width
+        expected = ltx_step_flops(arch, 2, tokens, text, frames if per_frame else 1) // 3
+        if counter.get_total_flops() != expected:
+            raise RuntimeError(f"ltx_step_flops: {expected} forward FLOPs at {arch}, the counter "
+                               f"{counter.get_total_flops()}")
+        checks.append({"hidden": arch.hidden_size, "latent": [frames, height, width], "per_frame": per_frame,
+                       "flops": expected})
+    return checks
+
+
+def ltx_phase(paths: dict, kernels, device: str) -> dict:
+    """Phase 24: LTX-Video 0.9.5 2B at the JAX preset's full width and depth
+    on 768 x 512 x 121 clips: a seeded e4m3 diffusers transformer written with
+    the port's writer beside hard links to phase 15's T5-XXL
+    (``text_encoder``) and T5 tokenizer (``tokenizer_2``, the subfolder both
+    packages' T5 spec reads); two seeded clips written as mp4 with captions;
+    the import held bitwise to the written tensors; ``Trainer.run()``
+    (discovery of the video dataset, the text cache, the video VAE cache at
+    LTX's config one clip at a time, 6 graphed LoRA steps on a bf16 base with
+    every block checkpointed and the default ``ltx_i2v_prob``, so the
+    per-frame timesteps), the launches of a profiled replay held to the
+    capture's; a true-CFG render through ``CheckpointInferenceRuntime`` at
+    512 px square and 121 frames, written as mp4 and read back; one
+    full-depth forward with the kernels against the plain attention on the
+    training clip's latent grid; and one graphed LoRA step of the 13B width
+    at 4 of its 48 blocks on an int8 base.  Last, the run's writes against
+    the machine's limit.  Returns the launches per step of each kernel at
+    each LTX shape."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench import profile_step
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import ltx_checkpoint_shapes
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.ltxvideo import LTXConfig, LTXTransformer, LTXVideo
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.video_vae import VideoAutoencoderKL
+    from simpletuner_tpu_torch.models.weight_bridge import flax_to_state_dict
+    from simpletuner_tpu_torch.models.weight_import import load_transformer_params, ltx_params_from_diffusers
+    from simpletuner_tpu_torch.ops import set_attention_backend
+    from simpletuner_tpu_torch.training.trainer import Trainer
+
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    # phase 23's files and outputs: disk space (not the write budget)
+    for out in ("wan", "wan_train", "wan_cache", "wan_data", "wan_render"):
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    flop_checks = _ltx_flop_checks()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    arch = LTXConfig()
+    if (arch.hidden_size, arch.depth, arch.num_heads, arch.head_dim, arch.ffn_hidden, arch.in_channels) != \
+            (2048, 28, 32, 64, 8192, 128):
+        raise RuntimeError(f"not the JAX preset of LTX-Video 0.9.5 2B: {arch}")
+    shapes = ltx_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    target_gb = RUN_WRITE_LIMIT_GB - RUN_WRITE_MARGIN_GB
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + PHASE24_WRITE_GB > target_gb:
+        raise RuntimeError(f"ltx: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; it "
+                           f"writes {PHASE24_WRITE_GB} GB of the {target_gb} GB a run may write")
+
+    # (b) the seeded files: the transformer (two e4m3 shards), hard links to
+    # phase 15's T5-XXL and T5 tokenizer, and two mp4 clips with captions
+    ltx_dir = os.path.join(work, "ltx")
+    weights, write_s = _write_e4m3_transformer(ltx_dir, shapes, gen)
+    for source, target in (("text_encoder_2", "text_encoder"), ("tokenizer_2", "tokenizer_2")):
+        _link_tree(os.path.join(flux_dir, source), os.path.join(ltx_dir, target))
+    data = os.path.join(work, "ltx_data")
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9,
+             **_write_clips(data, LTX_CLIPS, LTX_FRAMES, LTX_HEIGHT, LTX_WIDTH, 24, 100),
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) import through load_transformer_params, every tensor bitwise the
+    # written one taken to bf16 (exact for every e4m3 value)
+    model = ModelRegistry.create("ltxvideo", config_namespace({"model_family": "ltxvideo", "model_type": "full"}))
+    if model.arch != arch or model.flavour != "2b-0.9.5":
+        raise RuntimeError(f"ltx: the family builds {model.flavour} {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()  # model_type full: no adapters
+    params = sum(p.numel() for p in module.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = _rss_gib()
+    t0 = time.perf_counter()
+    load_transformer_params(model, module, ltx_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    imported = {"s": load_s, "gb_per_s": file_bytes / load_s / 1e9, "params": params,
+                "host_rss_gib": {"before": rss_before, "after": _rss_gib()},
+                "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+    expected = flax_to_state_dict(ltx_params_from_diffusers(weights, arch), module)
+    unequal = [k for k, v in module.state_dict().items() if not torch.equal(v, expected[k])]
+    if unequal or params != sum(v.numel() for v in weights.values()):
+        raise RuntimeError(f"ltx: the imported module differs from the written tensors at {unequal[:8]}")
+    imported["tensors_bitwise"] = len(expected)
+    del weights, expected, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) Trainer.run(): discovery, the text cache and the video VAE cache at
+    # LTX's config (one clip per encode), then rank-16 LoRA on the attention
+    # projections by their diffusers names, bf16 base, every block
+    # checkpointed, graphed; the default ltx_i2v_prob takes the per-frame path
+    out = os.path.join(work, "ltx_train")
+    cache = os.path.join(work, "ltx_cache")
+    dataset = {"resolution": 640, "resolution_type": "pixel_area", "aspect_bucket_alignment": 32}
+    config = {
+        "model_family": "ltxvideo", "model_type": "lora", "lora_rank": 16,
+        "lora_target_modules": ["to_q", "to_k", "to_v", "to_out.0"], "pretrained_model_name_or_path": ltx_dir,
+        "gradient_checkpointing": True, "optimizer": "adamw", "learning_rate": 1e-4, "lr_scheduler": "constant",
+        "mixed_precision": "bf16", "text_encoder_precision": "bf16", "train_batch_size": 1, "vae_batch_size": 1,
+        "max_train_steps": LTX_TRAIN_STEPS, "logging_steps": 1, "report_to": "jsonl", "seed": 42,
+        "cache_dir": cache, "output_dir": out, "checkpoint_frozen_base": "reference", **dataset,
+        "data_backend_config": [
+            {"id": "clips", "dataset_type": "video", "type": "local", "instance_data_dir": data, **dataset,
+             "caption_strategy": "textfile", "cache_dir_vae": os.path.join(cache, "vae"),
+             "video": {"num_frames": LTX_FRAMES}},
+            {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
+             "cache_dir": os.path.join(cache, "text")},
+        ],
+    }
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    timestep_shapes = []  # the DiT's timesteps at each eager call (the warm-up steps and the capture)
+    forward = LTXTransformer.forward
+
+    def recording(self, latents, timesteps, context):
+        timestep_shapes.append(tuple(timesteps.shape))
+        return forward(self, latents, timesteps, context)
+
+    trainer = Trainer(config=config, device="cuda")
+    LTXTransformer.forward = recording
+    try:
+        run_start = time.time()
+        trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.time() - run_start
+    finally:
+        LTXTransformer.forward = forward
+    train_launches = {kernel.name: kernel.launches for kernel in kernels}
+    shape_launches = _per_shape(kernels, 3)  # two warm-up steps and the capture
+    with open(os.path.join(out, "simpletuner-tpu-metrics.jsonl")) as handle:
+        metrics = [json.loads(line) for line in handle]
+    losses = [m["loss"] for m in metrics]
+    if [m["step"] for m in metrics] != list(range(1, LTX_TRAIN_STEPS + 1)) or not all(np.isfinite(losses)) or \
+            not all(m["grad_norm"] > 0 for m in metrics) or not all(train_launches.values()):
+        raise RuntimeError(f"ltx trainer: metrics {metrics}, launches {train_launches}")
+    if not timestep_shapes or set(timestep_shapes) != {(1, LTX_LATENT[0])}:
+        raise RuntimeError(f"ltx trainer: the DiT took timesteps of shapes {sorted(set(timestep_shapes))}, not the "
+                           f"per-frame (1, {LTX_LATENT[0]})")
+    bundle = trainer.data_plane.bundles["clips"]
+    bucket_keys = sorted(bundle.metadata_backend.aspect_ratio_bucket_indices)
+    clips = bundle.metadata_backend.aspect_ratio_bucket_indices.get(f"1.5x{LTX_FRAMES}", [])
+    vae_config = model.video_vae_config()
+    if len(trainer._graphs) != 1 or trainer.model.arch != arch or bucket_keys != [f"1.5x{LTX_FRAMES}"] or \
+            len(clips) != LTX_CLIPS or not isinstance(trainer.vae, VideoAutoencoderKL) or \
+            trainer.vae.config != vae_config or (vae_config.spatial_factor, vae_config.temporal_factor) != (32, 8):
+        raise RuntimeError(f"ltx trainer: {len(trainer._graphs)} graphs, arch {trainer.model.arch}, buckets "
+                           f"{bucket_keys}, VAE {type(trainer.vae).__name__} {trainer.vae.config}")
+    cached = [bundle.vae_cache.load(p) for p in clips]
+    if any(c.shape != LTX_LATENT + (128,) or not np.isfinite(c).all() for c in cached):
+        raise RuntimeError(f"ltx trainer: cached latents {[c.shape for c in cached]}, expected {LTX_LATENT}")
+    adapted = {name.rsplit("/", 2)[-2] for name in trainer._state.trainable}
+    if adapted != {f"{a}_{p}" for a in ("attn1", "attn2") for p in ("q", "k", "v", "proj")}:
+        raise RuntimeError(f"ltx trainer: adapters on {adapted}")
+    captures = {c["step"] for c in trainer.capture_report}
+    step_s = {m["step"]: m["time"] - prev["time"] for prev, m in zip(metrics, metrics[1:]) if m["step"] not in captures}
+    median_s = float(np.median(list(step_s.values())))
+    graphed = next(iter(trainer._graphs.values()))
+    captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
+    profile = profile_step(lambda: graphed(trainer._state, graphed.batch, trainer._generator))
+    recorded = profile["bucket_launches"]
+    replayed = {kernel.name: recorded[kernel.name] for kernel in kernels}
+    # every attention's forward, its recompute under remat, and its backward: two attentions a block
+    per_forward = 2 * arch.depth
+    expected_launches = {"flash_fwd": 2 * per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
+    self_key, cross_key = f"32x{LTX_TOKENS}x{LTX_TOKENS}x64", f"32x{LTX_TOKENS}x{LTX_TEXT}x64"
+    if replayed != {k: captured[k] for k in replayed} or replayed != expected_launches or \
+            {k: 3 * v for k, v in replayed.items()} != train_launches or \
+            any(set(shape_launches[k]) != {self_key, cross_key} or shape_launches[k][self_key] !=
+                shape_launches[k][cross_key] for k in replayed):
+        raise RuntimeError(f"ltx trainer: the profiled replay launched {replayed}, the capture recorded {captured}, "
+                           f"the run {train_launches} ({shape_launches}), expected {expected_launches} a step")
+    flops = ltx_step_flops(arch, 1, LTX_TOKENS, LTX_TEXT, LTX_LATENT[0])
+    stages, startup = trainer.stage_report, trainer.data_plane.startup_metrics
+    train = {"base": "bf16", "remat": "every block", "lora_rank": 16, "lora_targets": sorted(adapted),
+             "lora_params": sum(p.numel() for p in trainer._state.trainable.values()),
+             "ltx_i2v_prob": getattr(trainer.model.config, "ltx_i2v_prob", None), "timesteps": list(timestep_shapes[0]),
+             "buckets": bucket_keys, "latents": list(cached[0].shape),
+             "cache": {"text_s": startup.get("text_cache_clips_s"), "vae_s": startup.get("vae_cache_clips_s"),
+                       "vae_s_per_clip": startup.get("vae_cache_clips_s", 0.0) / LTX_CLIPS,
+                       "init_data_backend_peak_gib": stages["init_data_backend"]["peak_gib"]},
+             "losses": losses, "grad_norms": [m["grad_norm"] for m in metrics], "step_s": step_s,
+             "s_per_step_median": median_s, "flops_per_step": flops, "flop_checks": flop_checks,
+             "mfu": flops / median_s / PEAK_BF16_FLOPS, "run_s": run_s,
+             "time_to_first_step_s": metrics[0]["time"] - run_start,
+             "capture_s": [c["seconds"] for c in trainer.capture_report],
+             "stage_s": {k: v["seconds"] for k, v in stages.items()},
+             "peak_gib": max(v["peak_gib"] for v in stages.values()),
+             "launches_run": train_launches, "launches_captured": captured, "launches_profiled_replay": replayed,
+             "launches_per_step_by_shape": shape_launches, "flash_instances": profile["flash_instances"],
+             "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "device_ms", "traced_event_ms",
+                                                 "idle_share_traced", "top_kernels")}}
+    text_payload = bundle.text_cache.get(TRAIN_CAPTIONS[0])
+    del trainer, graphed, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) a true-CFG flow Euler render at 512 px square and 121 frames through
+    # the checkpoint runtime, written as mp4 and read back
+    config_path = os.path.join(work, "ltx_render.json")
+    with open(config_path, "w") as handle:
+        json.dump({"model_family": "ltxvideo", "model_type": "full", "pretrained_model_name_or_path": ltx_dir,
+                   "mixed_precision": "bf16", "text_encoder_precision": "bf16", "seed": 42,
+                   "validation_resolution": LTX_RENDER_SIZE, "validation_num_video_frames": LTX_FRAMES,
+                   "validation_seed": 42, "validation_guidance": LTX_GUIDANCE}, handle)
+    t0 = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "ltx_render"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "ltxvideo" or not model.is_flow:
+        raise RuntimeError(f"ltx: the runtime built {model.NAME} {model.arch}")
+    timed = _timed_render(runtime, kernels, LTX_PROMPT, LTX_GUIDANCE)
+    rendered, forward_s = timed["rendered"], timed["forward_s"]
+    render_latent = (LTX_LATENT[0], LTX_RENDER_SIZE // 32, LTX_RENDER_SIZE // 32)
+    render_tokens = math.prod(render_latent)
+    if timed["launches"] != {"flash_fwd": per_forward * 2 * STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0} or \
+            set(timed["launches_by_shape"]["flash_fwd"]) != {f"32x{render_tokens}x{render_tokens}x64",
+                                                             f"32x{render_tokens}x{LTX_TEXT}x64"}:
+        raise RuntimeError(f"ltx render: launches {timed['launches']} ({timed['launches_by_shape']}), expected "
+                           f"{per_forward} per forward, two forwards per step")
+    if len(rendered) != 1 or not rendered[0].endswith(".mp4") or timed["finite"] != [True] or \
+            len(forward_s) != 2 * STEPS:
+        raise RuntimeError(f"ltx render: {rendered}, finite latents {timed['finite']}, {len(forward_s)} forwards")
+    read = _mp4_frame_shapes(rendered[0])
+    if len(read) != LTX_FRAMES or set(read) != {(LTX_RENDER_SIZE, LTX_RENDER_SIZE, 3)}:
+        raise RuntimeError(f"ltx render: the mp4 holds {len(read)} frames of {set(read)}")
+    render = {"init_s": init_s, "render_s": timed["render_s"], "steps": STEPS, "guidance": LTX_GUIDANCE,
+              "frames": LTX_FRAMES, "size": LTX_RENDER_SIZE, "latents": list(render_latent), "tokens": render_tokens,
+              "s_per_cfg_step": sum(forward_s[2:]) / (len(forward_s) - 2) * 2, "forward_s": forward_s,
+              "vae_decode_s": timed["decode_s"][0], "peak_gib": timed["peak_gib"], "launches": timed["launches"],
+              "launches_by_shape": timed["launches_by_shape"], "mp4": os.path.basename(rendered[0]),
+              "mp4_bytes": os.path.getsize(rendered[0]), "mp4_frames": len(read)}
+
+    # (f) one full-depth forward, the kernels against the plain attention, on
+    # the training clip's latent grid (6,144 tokens: the plain scores fit)
+    batch = {"latents": torch.zeros((1,) + LTX_LATENT + (128,), device=dev)}
+    for key, value in model.collate_text_embeds(model.encode_text([LTX_PROMPT])).items():
+        batch[key] = torch.as_tensor(value, device=dev)
+    if tuple(batch["text_embeds"].shape) != (1, LTX_TEXT, arch.text_dim):
+        raise RuntimeError(f"ltx: text_embeds {tuple(batch['text_embeds'].shape)}, expected "
+                           f"(1, {LTX_TEXT}, {arch.text_dim})")
+    model.text_encoders = []  # the plain attention's scores need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    cond = model.inference_conditioning(batch)
+    noise = torch.randn((1,) + LTX_LATENT + (128,), generator=gen, device=dev)
+    sigma = torch.tensor(LTX_SIGMA)
+    with torch.no_grad():
+        kernel_v = model.denoise_fn(module, cond)(noise, sigma)
+        set_attention_backend("xla")
+        try:
+            plain_v = model.denoise_fn(module, cond)(noise, sigma)
+        finally:
+            set_attention_backend("auto")
+        forward_ms = cuda_ms(lambda: model.denoise_fn(module, cond)(noise, sigma), 3, warmup=1)
+    parity = rel_l2(kernel_v, plain_v)
+    if not (torch.isfinite(kernel_v).all() and torch.isfinite(plain_v).all() and parity <= PARITY_REL_L2):
+        raise RuntimeError(f"ltx full-depth parity: rel L2 {parity} (<= {PARITY_REL_L2})")
+    del runtime, module, model, kernel_v, plain_v, batch, cond
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) the 13B width (13b-0.9.7: 4096 wide, 32 heads of 128, cross 4096)
+    # at LTX13B_BLOCKS of its 48 blocks, built in memory from seeded weights:
+    # an int8 base (quantized_matmul full), every block checkpointed, rank 16
+    # on the attention projections, one graphed step on the first clip's
+    # cached latents and its caption's T5 features, on the per-frame path
+    values = {"model_family": "ltxvideo", "model_flavour": "13b-0.9.7", "model_type": "lora", "lora_rank": 16,
+              "lora_target_modules": ["to_q", "to_k", "to_v", "to_out.0"], "base_model_precision": "int8-quanto",
+              "quantized_matmul": "full", "gradient_checkpointing": True, "optimizer": "adamw", "learning_rate": 1e-4,
+              "lr_scheduler": "constant", "max_train_steps": 10, "mixed_precision": "bf16"}
+    cfg13 = config_namespace(values)
+    arch13 = dataclasses.replace(LTXConfig.b13(), depth=LTX13B_BLOCKS)
+    model13 = LTXVideo(cfg13, arch=arch13)
+    if dataclasses.replace(LTXVideo(config_namespace(values)).arch, depth=LTX13B_BLOCKS) != arch13 or \
+            (arch13.hidden_size, arch13.num_heads, arch13.head_dim, arch13.cross_dim) != (4096, 32, 128, 4096):
+        raise RuntimeError(f"ltx 13B: the 13b-0.9.7 flavour builds {LTXVideo(config_namespace(values)).arch}")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device(dev):
+        module13 = init_parameters(model13.create_module(), gen)
+    params13 = sum(p.numel() for p in module13.parameters())
+    batch = {"latents": torch.as_tensor(cached[0], device=dev)[None],
+             "text_embeds": torch.as_tensor(text_payload["text_embeds"], device=dev)[None]}
+    step13 = _graphed_step(model13, module13, batch, kernels)
+    captured13, shapes13 = step13["launches_captured"], step13["launches_per_step_by_shape"]
+    per_forward13 = 2 * LTX13B_BLOCKS
+    key13 = f"32x{LTX_TOKENS}x{LTX_TOKENS}x128"
+    if {k.name: captured13[k.name] for k in kernels} != {"flash_fwd": 2 * per_forward13,
+                                                         "flash_bwd_dq": per_forward13,
+                                                         "flash_bwd_dkv": per_forward13} or \
+            not (np.isfinite(step13["loss"]) and step13["grad_norm"] > 0) or \
+            any(shapes13[k.name].get(key13) != captured13[k.name] // 2 for k in kernels):
+        raise RuntimeError(f"ltx 13B: captured {captured13} ({shapes13}), loss {step13['loss']}, grad norm "
+                           f"{step13['grad_norm']}")
+    flops13 = ltx_step_flops(arch13, 1, LTX_TOKENS, LTX_TEXT, LTX_LATENT[0])
+    b13 = {"flavour": "13b-0.9.7", "blocks": [LTX13B_BLOCKS, 48], "hidden": arch13.hidden_size,
+           "heads": [arch13.num_heads, arch13.head_dim], "params": params13, "base": "int8",
+           "quantized_matmul": "full", "flops_per_step": flops13,
+           "mfu": flops13 / step13["s_per_step"] / PEAK_BF16_FLOPS, **step13}
+    del module13, model13, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    written = _written_gb()
+    if written > target_gb:
+        raise RuntimeError(f"the run wrote {written:.2f} GB, past the {target_gb} GB it may write ({RUN_WRITE_LIMIT_GB} "
+                           f"GB on the card's machine, less {RUN_WRITE_MARGIN_GB} GB for what this count cannot see)")
+    phase("24 ltx", config="Lightricks/LTX-Video-0.9.5 as the JAX preset LTXConfig() builds it", params=params,
+          hidden=arch.hidden_size, heads=[arch.num_heads, arch.head_dim], blocks=arch.depth,
+          ffn_hidden=arch.ffn_hidden, clip=[LTX_FRAMES, LTX_HEIGHT, LTX_WIDTH], latents=list(LTX_LATENT),
+          tokens={"video": LTX_TOKENS, "text": LTX_TEXT}, files=files, imported=imported, train=train,
+          render=render, parity={"rel_l2": parity, "bound": PARITY_REL_L2, "sigma": LTX_SIGMA,
+                                 "tokens": LTX_TOKENS, "forward_ms": forward_ms},
+          b13=b13, depth_cut=f"13b-0.9.7 at {LTX13B_BLOCKS} of its 48 blocks",
+          allocated_gib_before_phase=baseline_gib, written_gb=written,
+          write_target_gb=target_gb, seconds=time.perf_counter() - start, device=device)
+    return {"ltx_self": {k: v.get(self_key) for k, v in shape_launches.items()},
+            "ltx_cross": {k: v.get(cross_key) for k, v in shape_launches.items()},
+            "ltx13b_self": {k: v.get(key13) for k, v in shapes13.items()}}
+
 
 def int8_cases() -> None:
     """Phase 10: torch._int_mm exact at the Flux shapes, int8_dynamic_dot
@@ -4207,7 +4745,7 @@ def main() -> int:
              for library in libraries}
     phase("2 build", seconds=time.perf_counter() - start, nvcc_seconds=csrc.BUILD_SECONDS, ptxas=ptxas)
 
-    fwd_entry, fwd256_entry, wan_fwd_entries = kernel_cases()
+    fwd_entry, fwd256_entry, long_fwd_entries = kernel_cases()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         checkpoints = weight_import(work)
@@ -4335,18 +4873,20 @@ def main() -> int:
         ddpm_families_phase(checkpoints, kernels, smi)
         launches_auraflow = auraflow_phase(checkpoints, kernels, smi)
         launches_wan = wan_phase(checkpoints, kernels, smi)
+        launches_ltx = ltx_phase(checkpoints, kernels, smi)
 
     # each wrapper's head dim 256 instances beside its others: launches from
     # phase 22's profiled replay (AuraFlow's attention, all at head dim 256),
-    # the others' from phase 12's; each kernel at Wan's three shapes, launches
-    # per step at that shape in phase 23's runs (the 1.3B trainer's, the 14B
-    # step's)
+    # the others' from phase 12's; each kernel at Wan's and LTX's three shapes,
+    # launches per step at that shape in phase 23's and phase 24's runs (the
+    # trainers', the 14B and 13B steps')
     sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
                "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}
-    entries = {"flash_fwd": fwd_entry, "flash_fwd_d256": fwd256_entry, **bwd_entries, **wan_fwd_entries}
+    entries = {"flash_fwd": fwd_entry, "flash_fwd_d256": fwd256_entry, **bwd_entries, **long_fwd_entries}
     rows = [(name, name, launches_main) for name in sources] + \
         [(f"{name}_d256", name, launches_auraflow) for name in sources] + \
-        [(f"{name}_{shape}", name, launches_wan[shape]) for shape, _, _, _ in WAN_KERNEL_CASES for name in sources]
+        [(f"{name}_{shape}", name, launches_wan[shape]) for shape, *_ in WAN_KERNEL_CASES for name in sources] + \
+        [(f"{name}_{shape}", name, launches_ltx[shape]) for shape, *_ in LTX_KERNEL_CASES for name in sources]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"simpletuner_tpu_torch/{sources[kernel][0]}",
          "replaces": f"simpletuner_tpu/ops/flash_attention.py:{sources[kernel][1]}", "launches": launches[kernel],

@@ -386,6 +386,42 @@ def wan_checkpoint_shapes(arch) -> Dict[str, tuple]:
     return shapes
 
 
+def ltx_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers
+    ``LTXVideoTransformer3DModel`` of ``arch``
+    (``models/ltxvideo/transformer.py::LTXConfig``) as
+    ``ltx_params_from_diffusers`` reads it and the JAX
+    ``export_ltx_to_diffusers`` writes it: every linear with a bias, the
+    (2, dim) and (6, dim) tables, and the q and k RMSNorm scales of both
+    attentions."""
+    dim, inner, ffn = arch.hidden_size, arch.num_heads * arch.head_dim, arch.ffn_hidden
+    shapes: Dict[str, tuple] = {"scale_shift_table": (2, dim)}
+
+    def linear(name, out_features, in_features):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        shapes[f"{name}.bias"] = (out_features,)
+
+    linear("proj_in", dim, arch.in_channels)
+    linear("caption_projection.linear_1", dim, arch.text_dim)
+    linear("caption_projection.linear_2", dim, dim)
+    linear("time_embed.emb.timestep_embedder.linear_1", dim, 256)
+    linear("time_embed.emb.timestep_embedder.linear_2", dim, dim)
+    linear("time_embed.linear", 6 * dim, dim)
+    for i in range(arch.depth):
+        block = f"transformer_blocks.{i}"
+        shapes[f"{block}.scale_shift_table"] = (6, dim)
+        for attn in ("attn1", "attn2"):
+            for proj in ("to_q", "to_k", "to_v"):
+                linear(f"{block}.{attn}.{proj}", inner, dim)
+            linear(f"{block}.{attn}.to_out.0", dim, inner)
+            shapes[f"{block}.{attn}.norm_q.weight"] = (inner,)
+            shapes[f"{block}.{attn}.norm_k.weight"] = (inner,)
+        linear(f"{block}.ff.net.0.proj", ffn, dim)
+        linear(f"{block}.ff.net.2", dim, ffn)
+    linear("proj_out", arch.out_channels, dim)
+    return shapes
+
+
 def vae_checkpoint_shapes(vae: nn.Module, legacy_attention: bool = False) -> Dict[str, tuple]:
     """Tensor names and torch shapes of a diffusers ``AutoencoderKL``
     checkpoint for the port's ``vae`` module, ``quant_conv`` and

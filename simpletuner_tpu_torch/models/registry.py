@@ -5,8 +5,8 @@ Counterpart of ``simpletuner_tpu/models/registry.py``: ``ModelRegistry``
 registry's family table and aliases, and ``get_model_family``, which builds
 the family a config names.  Every family of the JAX registry is listed with
 its metadata; ``flux``, ``sd3``, ``sdxl``, ``sd1x``, ``sd2x``,
-``pixart_sigma``, ``auraflow`` and ``wan`` are ported (with the JAX aliases ``sd15``, ``sd21`` and
-``pixart``), so ``get`` of any other family raises naming ROADMAP Queue 1
+``pixart_sigma``, ``auraflow``, ``wan`` and ``ltxvideo`` are ported (with the JAX aliases
+``sd15``, ``sd21`` and ``pixart``), so ``get`` of any other family raises naming ROADMAP Queue 1
 item 6, and an unknown name raises ``KeyError`` as in the JAX registry.
 """
 
@@ -61,7 +61,7 @@ _FAMILIES: Dict[str, Dict[str, str]] = {
 ALIASES = {"sd15": "sd1x", "sd21": "sd2x", "pixart": "pixart_sigma", "ltx2": "ltxvideo2",
            "kandinsky5-image": "kandinsky5_image"}
 # the families the port builds
-PORTED = ("flux", "sd3", "sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan")
+PORTED = ("flux", "sd3", "sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo")
 
 
 class ModelRegistry:
@@ -108,6 +108,10 @@ class ModelRegistry:
             from .wan import Wan
 
             return Wan
+        if family == "ltxvideo":
+            from .ltxvideo import LTXVideo
+
+            return LTXVideo
         raise NotImplementedError(f"model_family={name!r} is not ported (only {', '.join(PORTED)}; "
                                   "ROADMAP Queue 1 item 6)")
 

@@ -95,20 +95,15 @@ def _target_name(path: Tuple[str, ...], target: Mapping[str, torch.Tensor]) -> s
     raise KeyError(f"no port counterpart for flax leaf {'/'.join(path)}")
 
 
-def flax_to_state_dict(
+def _checked(
     params: Mapping[str, Any],
-    module: nn.Module,
-    lora: Optional[Mapping[str, Any]] = None,
-    qscales: Optional[Mapping[str, Any]] = None,
-    keep_adapters: bool = False,
+    target: Mapping[str, torch.Tensor],
+    lora: Optional[Mapping[str, Any]],
+    qscales: Optional[Mapping[str, Any]],
+    keep_adapters: bool,
 ) -> Dict[str, torch.Tensor]:
-    """Map Flax ``params`` (and the ``lora`` and ``qscales`` collections) onto
-    ``module``'s state dict.  Leaves are numpy arrays (a JAX tree) or CPU
-    tensors (an imported checkpoint's, in the file's dtype).  Every leaf
-    must land on a port tensor of the same shape and storage class, and every
-    port tensor must be set, except the adapters when ``keep_adapters`` is
-    true."""
-    target = module.state_dict()
+    """The Flax leaves by the name of the port tensor each lands on, as torch
+    tensors in the leaf's dtype, every one checked against its port tensor."""
     out: Dict[str, torch.Tensor] = {}
     for tree in (params, lora or {}, qscales or {}):
         for path, value in _flatten(tree):
@@ -119,15 +114,41 @@ def flax_to_state_dict(
             if tuple(tensor.shape) != tuple(target[name].shape):
                 raise ValueError(f"{name}: flax shape {tuple(tensor.shape)} != port {tuple(target[name].shape)}")
             stored = tensor.dtype in _STORED
-            if stored != (target[name].dtype in _STORED) or (stored and tensor.dtype != target[name].dtype):
+            if not _float8_values(tensor, target[name]) and (
+                    stored != (target[name].dtype in _STORED) or (stored and tensor.dtype != target[name].dtype)):
                 raise ValueError(f"{name}: flax {tensor.dtype} does not match the port's {target[name].dtype} "
                                  "(quantize the port's module in the tree's mode first)")
-            out[name] = tensor.float() if path[-1] in LORA_LEAVES else tensor.to(target[name].dtype)
+            out[name] = tensor
     missing = sorted(name for name in set(target) - set(out)
                      if not (keep_adapters and name.rsplit(".", 1)[-1] in LORA_LEAVES))
     if missing:
         raise KeyError(f"port tensors without a flax leaf: {missing[:8]}")
     return out
+
+
+def _float8_values(tensor: torch.Tensor, target: torch.Tensor) -> bool:
+    """An e4m3 leaf bound for a float (not quantized) tensor of the port: a
+    float8 checkpoint's values (a quantized tree's e4m3 kernels come with
+    their ``qscales``, which land on no float module)."""
+    return tensor.dtype == torch.float8_e4m3fn and target.dtype not in _STORED
+
+
+def flax_to_state_dict(
+    params: Mapping[str, Any],
+    module: nn.Module,
+    lora: Optional[Mapping[str, Any]] = None,
+    qscales: Optional[Mapping[str, Any]] = None,
+    keep_adapters: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Map Flax ``params`` (and the ``lora`` and ``qscales`` collections) onto
+    ``module``'s state dict.  Leaves are numpy arrays (a JAX tree) or CPU
+    tensors (an imported checkpoint's, in the file's dtype).  Every leaf
+    must land on a port tensor of the same shape and storage class (or be a
+    float8 checkpoint's e4m3 values for a float tensor), and every port
+    tensor must be set, except the adapters when ``keep_adapters`` is true."""
+    target = module.state_dict()
+    return {name: value.float() if name.rsplit(".", 1)[-1] in LORA_LEAVES else value.to(target[name].dtype)
+            for name, value in _checked(params, target, lora, qscales, keep_adapters).items()}
 
 
 def load_flax_params(
@@ -139,9 +160,14 @@ def load_flax_params(
 ) -> nn.Module:
     """Copy Flax weights into ``module`` in place (on its device); returns it.
     With ``keep_adapters`` the module's LoRA tensors that the tree lacks keep
-    their values."""
-    state = flax_to_state_dict(params, module, lora, qscales, keep_adapters)
-    module.load_state_dict(state, strict=not keep_adapters)
+    their values.  A float8 checkpoint's e4m3 values cross to the module's
+    device as they are, one tensor at a time, and are cast there (exactly)."""
+    target = module.state_dict()
+    with torch.no_grad():
+        for name, value in _checked(params, target, lora, qscales, keep_adapters).items():
+            if _float8_values(value, target[name]):
+                value = value.to(target[name].device)
+            target[name].copy_(value)
     return module
 
 

@@ -19,14 +19,15 @@ for level as the JAX presets build it: attention wherever
 ``proj_in`` / ``proj_out`` read as dense kernels; PixArt-Sigma the diffusers
 ``PixArtTransformer2DModel`` layout (``transformer/``); AuraFlow the
 diffusers ``AuraFlowTransformer2DModel`` layout (``transformer/``); Wan the
-diffusers ``WanTransformer3DModel`` layout (``transformer/``).
+diffusers ``WanTransformer3DModel`` layout (``transformer/``); LTX-Video the
+diffusers ``LTXVideoTransformer3DModel`` layout (``transformer/``).
 
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
-keeps f32 and bf16 leaves in the file's dtype (``_float``), takes fp8 (e4m3)
-leaves to bf16, which holds every e4m3 value exactly, and every other dtype
-through f32, so the module the bridge fills is bitwise the one the JAX
-import followed by the bridge gives, without an f32 copy of the checkpoint in
-host memory.  (The JAX reader, through ``safetensors.numpy``, cannot read an
+keeps f32, bf16 and fp8 (e4m3) leaves in the file's dtype (``_float``; the
+bridge takes e4m3 values to the module's dtype on its device, exactly) and
+every other dtype through f32, so the module the bridge fills is bitwise the
+one the JAX import followed by the bridge gives, without an f32 copy of the
+checkpoint in host memory.  (The JAX reader, through ``safetensors.numpy``, cannot read an
 fp8 file at all; the port reads the dtype the published fp8 checkpoints use.)  Kernels are transposed views of the file's
 tensors; the bridge transposes them back.
 
@@ -34,8 +35,8 @@ The safetensors reader and writer are the port's own (stdlib, numpy and
 torch): an 8-byte little-endian header length, a JSON header, raw
 little-endian bytes.  Files are memory-mapped copy-on-write, so a tensor is
 read from disk when it is first used.  Only the ``flux``, ``sd3``, ``sdxl``,
-``sd1x``, ``sd2x``, ``pixart_sigma``, ``auraflow`` and ``wan`` families import; every
-other family raises.
+``sd1x``, ``sd2x``, ``pixart_sigma``, ``auraflow``, ``wan`` and ``ltxvideo`` families
+import; every other family raises.
 """
 
 from __future__ import annotations
@@ -165,13 +166,15 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
 
 
 def _float(value: torch.Tensor) -> torch.Tensor:
-    """A leaf in a float dtype: f32 and bf16 as stored, fp8 (e4m3) as bf16
-    (exact, at half the host bytes of f32), every other dtype through f32 (the
-    JAX ``_to_f32``; the bridge then rounds once to the module's dtype, as it
-    does from the JAX tree)."""
-    if value.dtype in (torch.float32, torch.bfloat16):
+    """A leaf in a float dtype: f32, bf16 and fp8 (e4m3) as stored, every
+    other dtype through f32 (the JAX ``_to_f32``; the bridge then rounds once
+    to the module's dtype, as it does from the JAX tree).  An e4m3 leaf is a
+    float8 checkpoint's values, which the bridge takes to the module's dtype
+    on the module's device (exact: bf16 holds every e4m3 value), so the file's
+    bytes cross to the card as they are and the host converts nothing."""
+    if value.dtype in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
         return value
-    return value.to(torch.bfloat16 if value.dtype == torch.float8_e4m3fn else torch.float32)
+    return value.to(torch.float32)
 
 
 def _linear(weights: Mapping[str, torch.Tensor], key: str) -> Dict[str, torch.Tensor]:
@@ -816,12 +819,56 @@ def load_wan_params(model, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# LTX-Video (diffusers LTXVideoTransformer3DModel: proj_in, caption_projection,
+# adaLN-single time_embed, per-block scale_shift_table, qk-RMS-normed attn1 / attn2)
+# ---------------------------------------------------------------------------------
+
+
+def ltx_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a diffusers LTX-Video transformer of ``arch``
+    (``LTXConfig``): the tables reshaped to (6, dim) and (2, dim)."""
+    w = weights
+    dim = arch.hidden_size
+    params: Dict[str, Any] = {
+        "patch_in": _linear(w, "proj_in"),
+        "caption_in_1": _linear(w, "caption_projection.linear_1"),
+        "caption_in_2": _linear(w, "caption_projection.linear_2"),
+        "time_in": {
+            "in_layer": _linear(w, "time_embed.emb.timestep_embedder.linear_1"),
+            "out_layer": _linear(w, "time_embed.emb.timestep_embedder.linear_2"),
+        },
+        "time_proj": _linear(w, "time_embed.linear"),
+        "final_scale_shift_table": _float(w["scale_shift_table"]).reshape(2, dim),
+        "final_proj": _linear(w, "proj_out"),
+    }
+    for i in range(arch.depth):
+        src = f"transformer_blocks.{i}"
+        block: Dict[str, Any] = {"scale_shift_table": _float(w[f"{src}.scale_shift_table"]).reshape(6, dim),
+                                 "ff_in": _linear(w, f"{src}.ff.net.0.proj"), "ff_out": _linear(w, f"{src}.ff.net.2")}
+        for attn in ("attn1", "attn2"):
+            for ours, theirs in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("proj", "to_out.0")):
+                block[f"{attn}_{ours}"] = _linear(w, f"{src}.{attn}.{theirs}")
+            for norm in ("norm_q", "norm_k"):
+                block[f"{attn}_{norm}"] = _scale(w, f"{src}.{attn}.{norm}.weight")
+        params[f"block_{i}"] = block
+    return params
+
+
+def load_ltx_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a diffusers LTX-Video transformer
+    (a model dir with a ``transformer/`` subfolder, or one file)."""
+    params = ltx_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported ltxvideo weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
 _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_unet_params, "sd1x": load_unet_params,
               "sd2x": load_unet_params, "pixart_sigma": load_pixart_params, "auraflow": load_auraflow_params,
-              "wan": load_wan_params}
+              "wan": load_wan_params, "ltxvideo": load_ltx_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:

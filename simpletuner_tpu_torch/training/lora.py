@@ -3,7 +3,8 @@
 The torch port's copy of the part of ``simpletuner_tpu/training/lora.py`` it
 uses: ``flux_key_map`` (lora.py:76), ``unet_key_map`` (lora.py:116; sdxl,
 sd1x and sd2x), ``sd3_key_map`` (lora.py:158), ``pixart_key_map``
-(lora.py:336), ``wan_key_map`` (lora.py:316), ``auraflow_key_map`` (lora.py:561) and ``_key_map_for``
+(lora.py:336), ``wan_key_map`` (lora.py:316), ``auraflow_key_map`` (lora.py:561),
+``ltx_key_map`` (lora.py:589) and ``_key_map_for``
 (lora.py:680), which resolve the LoRA target presets and
 name the adapters of an export (the maps leave ``patch_in`` and
 ``context_in`` under their own names, as the JAX export does),
@@ -166,6 +167,21 @@ def wan_key_map(arch) -> Dict[str, Any]:
     return mapping
 
 
+def ltx_key_map(arch) -> Dict[str, Any]:
+    table = {
+        "attn1_q": "attn1.to_q", "attn1_k": "attn1.to_k", "attn1_v": "attn1.to_v",
+        "attn1_proj": "attn1.to_out.0",
+        "attn2_q": "attn2.to_q", "attn2_k": "attn2.to_k", "attn2_v": "attn2.to_v",
+        "attn2_proj": "attn2.to_out.0",
+        "ff_in": "ff.net.0.proj", "ff_out": "ff.net.2",
+    }
+    mapping: Dict[str, Any] = {}
+    for layer in range(arch.depth):
+        for ours, theirs in table.items():
+            mapping[f"block_{layer}/{ours}"] = f"transformer_blocks.{layer}.{theirs}"
+    return mapping
+
+
 # family name -> key map builder, for the families the port has
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
@@ -176,6 +192,7 @@ _KEY_MAPS = {
     "pixart_sigma": lambda m: pixart_key_map(m.arch),
     "wan": lambda m: wan_key_map(m.arch),
     "auraflow": lambda m: auraflow_key_map(m.arch),
+    "ltxvideo": lambda m: ltx_key_map(m.arch),
 }
 
 

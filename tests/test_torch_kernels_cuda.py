@@ -587,6 +587,51 @@ def test_tiny_wan_on_the_card_matches_its_cpu_run(cuda):
     _card_against_cpu(cpu, card, inputs, torch.randn((2, 5, 8, 14, 4), generator=gen), cuda)
 
 
+# LTX-Video at 768 x 512 x 121 (16 x 16 x 24 = 6,144 latent tokens, 48 full
+# 128-row tiles): the 2B's self-attention at head dim 64, the same queries
+# against 128 T5 keys (exactly one key tile), and the 13B's self-attention at
+# head dim 128; two heads (the heads are independent)
+LTX_TOKENS, LTX_TEXT = 16 * 16 * 24, 128
+LTX_CASES = [("ltx_self_s6144_d64", 1, 2, LTX_TOKENS, LTX_TOKENS, 64),
+             ("ltx_cross_t5_128_d64", 1, 2, LTX_TOKENS, LTX_TEXT, 64),
+             ("ltx13b_self_s6144_d128", 1, 2, LTX_TOKENS, LTX_TOKENS, 128)]
+
+
+@pytest.mark.parametrize("name,batch,heads,sq,sk,dim", LTX_CASES, ids=[c[0] for c in LTX_CASES])
+def test_kernels_at_the_ltx_shapes(cuda, name, batch, heads, sq, sk, dim):
+    """Forward and both backward kernels at LTX-Video's shapes against the
+    plain versions, in the dispatcher's (B, S, H, D) layout as the DiT calls
+    them (the published 32 heads are these heads, 16 times over)."""
+    q, k, v = _qkv(70 + sk % 11 + dim, batch, heads, sq, sk, dim, cuda)
+    strided = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    out, lse = _check(*strided)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    del out, lse
+    dq, dk, dv = _check_backward(*strided, seed=71)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+def test_tiny_ltx_on_the_card_matches_its_cpu_run(cuda):
+    """An LTX DiT two heads of 64 wide (the head dim 64 kernels; inner 128,
+    so the RoPE tables pad 2 entries), two blocks, remat, per-frame
+    timesteps, 3 x 8 x 12 latents (288 ragged tokens) and 40 text tokens,
+    against its CPU run."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.ltxvideo import LTXConfig, LTXTransformer
+
+    cfg = dataclasses.replace(LTXConfig.tiny(), hidden_size=128, num_heads=2, head_dim=64, text_dim=64)
+    cpu = init_parameters(LTXTransformer(cfg, dtype=torch.float32, lora_rank=4, remat=True),
+                          torch.Generator().manual_seed(0))
+    with torch.device(cuda):
+        card = LTXTransformer(cfg, dtype=torch.bfloat16, lora_rank=4, remat=True)
+    gen = torch.Generator().manual_seed(3)
+    inputs = [torch.randn((2, 3, 8, 12, 8), generator=gen), torch.tensor([[0.0, 0.9, 0.9], [0.02, 0.25, 0.25]]),
+              torch.randn((2, 40, cfg.text_dim), generator=gen)]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 3, 8, 12, 8), generator=gen), cuda)
+
+
 def test_video_vae_on_the_card(cuda, monkeypatch):
     """The causal video VAE on the card in f32 against the CPU (sum order
     only), with its norms and convolutions split into runs of frames as at

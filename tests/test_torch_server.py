@@ -133,6 +133,8 @@ class Pair:
             return [self._normalise(side, v) for v in value]
         if isinstance(value, str):
             value = value.replace(str(self.states[side]), "<state>")
+            # a job's output dir is named by the second it started in
+            value = re.sub(r"<state>/inference/\d{8}-\d{6}", "<state>/inference/<time>", value)
             for name, real in self.names[side].items():
                 value = value.replace(str(real), "<" + name + ">")
             return value
@@ -453,7 +455,7 @@ def test_cli_platform_commands_against_both_servers(pair, capsys):
         url = f"http://127.0.0.1:{pair.port(side)}"
         assert cli(["users", "create", "root", "--role", "admin", "--server", url]) == 0
         token = capsys.readouterr().out.split("token:")[1].strip()
-        common = ["--server", url, "--token", token]
+        common = ["--server", url, f"--token={token}"]  # a minted token may start with "-"
         lines = []
         for argv in (["users", "create", "alice"], ["users", "list"], ["quota"],
                      ["orgs", "create", "lab", "--owner", "alice", "--require-approval"], ["orgs", "list"],
@@ -465,6 +467,34 @@ def test_cli_platform_commands_against_both_servers(pair, capsys):
             lines.append(re.sub(r"token: \S+", "token: <token>", out))
         outputs[side] = lines
     assert outputs["port"] == outputs["jax"]
+
+
+def test_cli_takes_a_token_that_starts_with_a_dash(pair, capsys, monkeypatch):
+    """``secrets.token_urlsafe`` starts one token in 64 with "-": both
+    servers mint such a token (the minting monkeypatched in both
+    ``server/accounts.py`` modules), argparse reads the split ``--token <t>``
+    as an option and exits 2 in both CLIs, and the ``--token=<t>`` form gives
+    both servers the same output."""
+    import importlib
+
+    token = "-dAsH_token_0123456789abcdefABCDEF"
+    for package in ("simpletuner_tpu", "simpletuner_tpu_torch"):
+        accounts = importlib.import_module(f"{package}.server.accounts")
+        monkeypatch.setattr(accounts.secrets, "token_urlsafe", lambda nbytes=None: token)
+    outputs = {}
+    for side, cli in (("jax", jax_cli), ("port", port_cli)):
+        url = f"http://127.0.0.1:{pair.port(side)}"
+        assert cli(["users", "create", "root", "--role", "admin", "--server", url]) == 0
+        assert capsys.readouterr().out.split("token:")[1].strip() == token
+        with pytest.raises(SystemExit) as split:
+            cli(["quota", "--server", url, "--token", token])
+        assert split.value.code == 2 and "--token: expected one argument" in capsys.readouterr().err
+        lines = []
+        for argv in (["quota"], ["users", "list"], ["orgs", "list"], ["audit"]):
+            assert cli(argv + ["--server", url, f"--token={token}"]) == 0, argv
+            lines.append(capsys.readouterr().out.replace(url, "<url>"))
+        outputs[side] = lines
+    assert outputs["port"] == outputs["jax"] and "root" in outputs["port"][1]
 
 
 def test_routes_that_differ_by_design(pair):
@@ -486,14 +516,14 @@ def test_routes_that_differ_by_design(pair):
     assert sd3["port"][0] == sd3["jax"][0] == 200
     jax_presets = [(p["name"], p["config"]) for p in sd3["jax"][1] if p["name"] != "multichip"]  # a mesh: item 5
     assert [(p["name"], p["config"]) for p in sd3["port"][1]] == jax_presets and len(jax_presets) == 3
-    for family in ("sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan"):
+    for family in ("sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo"):
         answers = pair.both("GET", f"/api/models/{family}/presets", compare=False)
         assert answers["port"][0] == answers["jax"][0] == 200
         assert [(p["name"], p["config"]) for p in answers["port"][1]] == [
             (p["name"], p["config"]) for p in answers["jax"][1] if p["name"] != "multichip"], family
     assert pair.both("GET", "/api/models/kolors/presets", compare=False)["port"] == (
         501, {"error": "model_family='kolors' is not ported (only flux, sd3, sdxl, sd1x, sd2x, pixart_sigma, "
-                       "auraflow, wan; ROADMAP Queue 1 item 6)"})
+                       "auraflow, wan, ltxvideo; ROADMAP Queue 1 item 6)"})
     pair.both("GET", "/api/models/nope/presets")  # unknown: 404 on both
     job = pair.both("POST", "/api/inference/start",
                     {"checkpoint": "/nope/checkpoint-1", "prompt": "a cat", "steps": 1})

@@ -155,8 +155,9 @@ def test_flux_import_matches_jax_bitwise(tmp_path, flux_models, layout, sharded,
 def test_fp8_file_imports_its_values_without_an_f32_copy(tmp_path, flux_models, layout):
     """An F8_E4M3 checkpoint (the published fp8 files' dtype; the JAX reader
     cannot open one) imports as the f32 file of the same values does, bitwise,
-    in bf16 and f32 modules; its leaves reach the bridge as bf16, which holds
-    every e4m3 value exactly, not as an f32 copy."""
+    in bf16 and f32 modules; its leaves reach the bridge as the file's e4m3
+    bytes, not as an f32 (or any) copy, and the bridge takes them to the
+    module's dtype, which holds every e4m3 value exactly."""
     _, model = flux_models
     fp8 = {k: _to_torch(v).to(torch.float8_e4m3fn)
            for k, v in _seeded(flux_checkpoint_shapes(model.arch), seed=6, dtype="f32").items()}
@@ -167,7 +168,7 @@ def test_fp8_file_imports_its_values_without_an_f32_copy(tmp_path, flux_models, 
     save_safetensors(fp8, str(tmp_path / "fp8.safetensors"))
     save_safetensors(as_f32, str(tmp_path / "f32.safetensors"))
     tree = load_flux_params(model, str(tmp_path / "fp8.safetensors"))
-    assert {leaf.dtype for _, leaf in _flat(tree)} == {torch.bfloat16}
+    assert {leaf.dtype for _, leaf in _flat(tree)} == {torch.float8_e4m3fn}
     for precision in ("bf16", "fp32"):
         target = Flux(_config(precision))
         a = load_transformer_params(target, init_adapters(target.create_module()), str(tmp_path / "fp8.safetensors"))
