@@ -1,7 +1,16 @@
 #!/usr/bin/env python3
 """Drive the torch port of simpletuner-tpu once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                       # every phase, 1-26
+    python3 chip_smoke.py --phases 14-16,25,26  # the named phases, what they need, and 1-3 and 7
+
+With ``--phases`` the script runs the named phases, the phases whose files
+they need (``PHASE_NEEDS``: 25 and 26 need phase 14's Flux VAE, phase 15's
+T5-XXL and tokenizer and phase 16's JPEGs) and phases 1, 2, 3 and 7 (the
+build, and every kernel against its plain version); a named family phase
+whose depth a full run cuts writes its full-depth file where the run's
+writes leave room (``_full_depth``), and the kernels line holds the rows of
+the phases that ran.
 
 Phases (each prints one line, with ``elapsed_s`` since the start; any failure
 exits non-zero with no result line):
@@ -139,8 +148,10 @@ exits non-zero with no result line):
    eval seconds.
 19. sd3: SD3.5 Large (stabilityai/stable-diffusion-3.5-large's
    ``transformer/config.json``: hidden 2432, 38 heads of 64, 38 blocks,
-   ``pos_embed_max_size`` 192, qk RMSNorm; 8.1B parameters) at full width and
-   depth.  Deletes phase 14's Flux file and phase 17-18's output dirs, checks
+   ``pos_embed_max_size`` 192, qk RMSNorm; 8.1B parameters) at full width, its
+   file and module at ``SD3_CUT_BLOCKS`` (6) of its 38 blocks in a run of
+   every phase (the write budget; the line's ``depth``), every launch count
+   following the depth.  Deletes phase 14's Flux file and phase 17-18's output dirs, checks
    the free disk and what the run has written; writes with the port's writer a seeded diffusers
    transformer (8.15 GB e4m3, two shards, as phase 14's Flux file: the write
    budget), a seeded CLIP-G (bf16, full width, the first 4 of its 32 layers:
@@ -202,10 +213,10 @@ exits non-zero with no result line):
    MFU (``sdxl_step_flops`` / ``pixart_step_flops``), time to the first
    step, peak GiB, and the launches of a profiled replay (64 / 32 / 32 for
    the UNets, 112 / 56 / 56 for PixArt), which must equal the capture's.
-22. auraflow: AuraFlow v0.3 at its published size (fal/AuraFlow-v0.3's
+22. auraflow: AuraFlow v0.3 at its published width (fal/AuraFlow-v0.3's
    ``transformer/config.json``: 4 joint + 32 single blocks, hidden 3072, 12
    heads of 256, SwiGLU 8192, 8 register tokens; 6.8B parameters) at 1024
-   px.  Deletes phase 21's files; checks ``auraflow_step_flops`` against
+   px, at ``AURA_CUT_BLOCKS`` (2 + 4) blocks in a run of every phase.  Deletes phase 21's files; checks ``auraflow_step_flops`` against
    ``torch.utils.flop_counter`` on two small configs; writes with the port's
    writer a seeded diffusers transformer (6.8 GB e4m3, two shards) and a
    seeded Pile-T5-XL (a ``umt5`` file: d_model 2048, 32 heads of 64, d_ff
@@ -226,7 +237,8 @@ exits non-zero with no result line):
    the capture's, with device ms by bucket and the idle share.
 23. wan: Wan 2.1 T2V-1.3B as the JAX preset builds it (``WanConfig.b1_3()``:
    30 blocks, 1536 wide, 12 heads of 128, FFN 4 x 1536, umT5 text dim 4096;
-   1.16B parameters) on its published 480p clip, 832 x 480 x 81 frames (21 x
+   1.16B parameters; at ``WAN_CUT_BLOCKS`` (10) blocks in a run of every
+   phase) on its published 480p clip, 832 x 480 x 81 frames (21 x
    60 x 104 latents, 32,760 tokens).  Deletes phase 22's files; checks
    ``wan_step_flops`` against ``torch.utils.flop_counter`` on two small
    configs; writes with the port's writer a seeded diffusers transformer
@@ -253,7 +265,8 @@ exits non-zero with no result line):
    peak GiB and the captured launches (16 / 8 / 8).
 24. ltx: LTX-Video 0.9.5 2B as the JAX preset builds it (``LTXConfig()``: 28
    blocks, 2048 wide, 32 heads of 64, FFN 4 x 2048, T5-XXL captions at 128
-   tokens; 1.92B parameters) on 768 x 512 x 121 clips (sides multiples of
+   tokens; 1.92B parameters; at ``LTX_CUT_BLOCKS`` (10) blocks in a run of
+   every phase) on 768 x 512 x 121 clips (sides multiples of
    32, 8n + 1 frames; 16 x 16 x 24 latents of 128 channels, 6,144 tokens with
    the (1, 1, 1) patch).  Deletes phase 23's files; checks ``ltx_step_flops``
    against ``torch.utils.flop_counter`` on two small configs (one per-frame);
@@ -279,11 +292,54 @@ exits non-zero with no result line):
    graphed LoRA step of ``13b-0.9.7`` at its published width (4096, 32 heads
    of 128, cross 4096) at 4 of its 48 blocks, built in memory on an int8 base
    (``quantized_matmul: full``) on the first clip's cached latents: s/step,
-   MFU, peak GiB and the captured launches (16 / 8 / 8); last, the run's
-   writes against ``RUN_WRITE_LIMIT_GB`` less ``RUN_WRITE_MARGIN_GB``.
+   MFU, peak GiB and the captured launches (16 / 8 / 8).
+25. chroma: Chroma at its published size (lodestones/Chroma's diffusers
+   transformer, ``ChromaConfig()``: Flux's 19 double + 38 single blocks, 3072
+   wide, 24 heads of 128, the 5 x 5120 distilled-guidance approximator over
+   344 modulation slots; 8.9B parameters) at 1024 px.  Deletes phase 24's
+   files; checks ``chroma_step_flops`` against ``torch.utils.flop_counter`` on
+   two small configs; writes with the port's writer a seeded diffusers
+   transformer (8.9 GB e4m3, two shards) beside hard links to phase 14's Flux
+   VAE and phase 15's T5-XXL (``text_encoder``) and T5 tokenizer
+   (``tokenizer_2``); imports it (s, GB/s; every tensor bitwise the written
+   one taken to bf16); renders 1024x1024 through ``CheckpointInferenceRuntime``
+   with 4 flow Euler steps under true CFG (guidance 4: Chroma has no guidance
+   embedding; s per CFG step, peak GiB, 114 flash launches per CFG step); one
+   full-depth forward with the kernels against the plain attention, the T5
+   mask collated as the trainer collates it (phase 5's bound);
+   ``Trainer.run()`` with an int8 base (``quantized_matmul: full``), every
+   block checkpointed (the JAX module's ``nn.remat``, no Flux policy),
+   rank-16 LoRA on Flux's ``all`` targets, the T5 padding masked, AdamW 1e-4,
+   6 graphed steps on four of phase 16's square JPEGs: losses, s/step, MFU,
+   time to the first step, peak GiB, and the launches of a profiled replay
+   (114 / 57 / 57), which must equal the capture's, with device ms by bucket
+   and the idle share.
+26. lumina2: Lumina-Image 2.0 at the JAX preset's size (Alpha-VLLM/
+   Lumina-Image-2.0's ``transformer/``, ``Lumina2Config()``: 26 joint blocks
+   and 2 + 2 refiners, 2304 wide, 24 query / 8 kv heads of 96, SwiGLU 6144;
+   1.97B parameters) with its Gemma-2 2B text encoder at 1024 px.  Deletes
+   phase 25's files; checks ``lumina2_step_flops`` against the flop counter
+   on two small configs; writes a seeded e4m3 diffusers transformer, a seeded
+   Gemma-2 2B in the HF layout (e4m3, ``gemma2_2b`` at full width: 2304 wide,
+   8 heads of 256, 4 kv heads, 256,000 tokens; all 26 layers where the run's
+   writes leave room, else ``GEMMA_FILE_LAYERS`` (6)) with its
+   ``config.json``, a seeded Gemma-convention tokenizer that ``AutoTokenizer``
+   reads (``tokenizer/``) and a hard link to phase 14's Flux VAE; encodes 16
+   prompts at 256 tokens through ``LLMTextEncoder`` (prompts/s; bf16 against
+   the f32 module within ``GEMMA_BF16_REL_L2``); imports the transformer
+   (bitwise); renders 1024x1024 with true CFG (guidance 4, 4 flow Euler
+   steps; 60 flash launches per CFG step: 2 over the 256 caption tokens, 2
+   over 4,096 image tokens, 26 over 4,352 joint tokens, two forwards); one
+   full-depth forward with the D = 96 kernels against the plain attention,
+   the caption mask on (phase 5's bound); ``Trainer.run()`` with a bf16
+   base, every block checkpointed, rank-16 LoRA on the attention projections,
+   AdamW 1e-4, 6 graphed steps: losses, s/step, MFU, time to the first step,
+   peak GiB, and the launches of a profiled replay (60 / 30 / 30, by shape),
+   which must equal the capture's; last, the run's writes against
+   ``RUN_WRITE_LIMIT_GB`` less ``RUN_WRITE_MARGIN_GB``.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
-their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-24.
+their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-26.
 Phases 3 and 7 also run head dims 72, 96 and 112 (pixart, lumina2, sana),
 which the wrappers zero-pad to 128, masked and unmasked, the shapes
 phase 21 meets first (``PHASE21_KERNEL_CASES``: PixArt's (1, 16, 4096, 72)
@@ -301,20 +357,27 @@ head, SDPA's fastest fused backend and the bound; the inputs drawn on the
 card), and LTX's (``LTX_KERNEL_CASES``: the 2B's (1, 32, 6144, 64)
 self-attention, 48 full tiles, the same queries against 128 T5 keys, one key
 tile, and the 13B's (1, 32, 6144, 128); held against the plain version at
-every head, one head at a time); phases 3 and 7 print the seconds of each of
+every head, one head at a time), and Lumina2's (``LUMINA_KERNEL_CASES``: 24
+heads of 96 over the joint 4,352 tokens with a caption-mask segment plane,
+180 of 256 caption tokens valid and the pads at 0, the noise refiners'
+4,096 image tokens unmasked and the context refiners' 256 caption tokens
+masked; held at every head, the bound reckoned at D = 96 over the attended
+pairs, SDPA with the boolean mask); phases 3 and 7 print the seconds of each of
 their sections (``section_s``).  Every phase
 line carries ``elapsed_s`` and ``written_gb`` (the card's machine ends a run
 that writes more than 45 GiB, deleted files included).  On an H100 80GB HBM3 at
-700 W the whole script takes 760-803 s of its 1,200 s limit (the host's share
-varies by 10-15% between machines; the fp8 files import at about 5 GB/s, their
-bytes cast on the card) and writes about 46.7 GB: phases 3
-and 7 about 100 s, phase 12 about 110 s, phases 17-18 about 180 s, phases 19-24
-about 240 s.
-Then a JSON line with the kernels, each wrapper's head dim 256 instances
-and its rows at Wan's and LTX's three shapes beside it (launches: the
-profiler's count in phase 12's profiled replay, for the head dim 256 rows in
-phase 22's, and for the Wan and LTX rows the wrappers' count at that shape per
-step in phase 23's and phase 24's runs), and last the device line.  Needs one CUDA
+700 W the whole script takes about 825 s of its 1,200 s limit (the host's share
+varies by 10-15% between machines; the fp8 files import at 3-5 GB/s, their
+bytes cast on the card) and writes about 45.5 GB: phases 3
+and 7 about 110 s, phase 12 about 110 s, phases 17-18 about 210 s, phases 19-24
+about 175 s, phases 25-26 about 75 s.
+Then a JSON line with the kernels, each wrapper's head dim 256 instances,
+its Chroma row (the Flux shape's times) and its rows at Wan's, LTX's and
+Lumina2's three shapes beside it (launches: the profiler's count in phase
+12's profiled replay, for the head dim 256 rows in phase 22's, for the
+Chroma rows in phase 25's, and for the Wan, LTX and Lumina2 rows the
+wrappers' count at that shape per step in phase 23's, 24's and 26's runs),
+and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
 register, spill and warning lines per kernel (a C7514 warning means ptxas
 serialized a wgmma pipeline).
@@ -323,6 +386,7 @@ serialized a wgmma pipeline).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import json
 import math
@@ -397,13 +461,10 @@ SERVER_EVAL_IMAGES = (12, 15)
 # full-width forward of about 0.36 s each)
 SERVER_EVAL_DRAWS = 4
 # phase 19: SD3.5 Large; the render's guidance (true CFG, two forwards per
-# Euler step), the trainer's steps on phase 16's first square JPEGs, and what
-# the whole run may have written when the phase's files are added (the card's
-# machine ends a run beyond 45 GiB = 48.3 GB, deleted files included)
+# Euler step) and the trainer's steps on phase 16's first square JPEGs
 SD3_PROMPT = "a lighthouse on a basalt cliff at dusk"
 SD3_GUIDANCE = 5.0
 SD3_TRAIN_STEPS, SD3_TRAIN_IMAGES = 6, 4
-SD3_WRITE_LIMIT_GB = 46.0
 # the CLIP-G (bigG) file phases 19 and 20 load: full width, the first 4 of its
 # 32 layers (bf16, 0.29 GB; all 32 would write 1.39 GB), as phase 15's T5-XXL
 # and phase 21's OpenCLIP-H are cut, to leave phase 24 room in the write budget
@@ -469,7 +530,7 @@ AURA_TXT = 8 + AURA_T5_LEN  # the register tokens, then the caption
 AURA_S = AURA_TXT + (RESOLUTION // 16) ** 2
 AURA_SIGMA = 0.7  # the full-depth parity forward's sigma
 PHASE22_T5_LAYERS = 6
-PHASE22_WRITE_GB = 8.0
+PHASE22_WRITE_GB = 2.5  # at the cut depth (AURA_CUT_BLOCKS)
 # phases 3 and 7 at head dim 256, the head dim 256 kernels: (name, (batch,
 # heads, seq, head dim), segment ids): AuraFlow's (1, 12, 4360, 256) with no
 # caller mask (4360 is no multiple of the 64- and 32-row tiles, so the
@@ -502,7 +563,7 @@ WAN_RENDER_SIZE, WAN_GUIDANCE = 480, 5.0
 WAN_PARITY_FRAMES, WAN_SIGMA = 17, 0.7
 WAN14B_BLOCKS = 4
 WAN_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
-PHASE23_WRITE_GB = 1.5
+PHASE23_WRITE_GB = 0.9  # at the cut depth (WAN_CUT_BLOCKS)
 # phases 3 and 7 at Wan's attention shapes: (name, heads, query tokens, key
 # tokens, head dim): the 1.3B's self-attention (12 heads of 128 over 32,760
 # tokens, the ragged tail masked), its cross-attention (the same queries
@@ -537,7 +598,7 @@ LTX_RENDER_SIZE, LTX_GUIDANCE = 512, 4.0
 LTX_SIGMA = 0.7
 LTX13B_BLOCKS = 4
 LTX_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
-PHASE24_WRITE_GB = 2.3
+PHASE24_WRITE_GB = 1.2  # at the cut depth (LTX_CUT_BLOCKS)
 # phases 3 and 7 at LTX's attention shapes, as WAN_KERNEL_CASES: the 2B's
 # self-attention (32 heads of 64 over 6,144 tokens: full tiles, the unmasked
 # fast path), its cross-attention (the same queries against the 128 T5 keys:
@@ -551,11 +612,70 @@ LTX_KERNEL_CASES = (
     ("ltx13b_self", 32, LTX_TOKENS, LTX_TOKENS, 128),
 )
 LTX_CHECK_HEADS = 32
+# phase 25: Chroma (lodestones/Chroma's diffusers transformer, ChromaConfig():
+# Flux's 19 double + 38 single blocks, 3072 wide, 24 heads of 128, the 5 x 5120
+# distilled-guidance approximator; 8.9B parameters) at 1024 px: T5-XXL (phase
+# 15's file, 6 of 24 blocks) at 512 tokens, phase 14's Flux VAE; the render's
+# true CFG (no guidance embedding: two forwards per Euler step), the trainer's
+# steps on phase 16's first square JPEGs, the full-depth parity forward's
+# sigma, and what the phase writes (the e4m3 transformer, 8.9 GB, caches and
+# outputs)
+CHROMA_GUIDANCE = 4.0
+CHROMA_TRAIN_STEPS, CHROMA_TRAIN_IMAGES = 6, 4
+CHROMA_PROMPT = "a lighthouse on a basalt cliff at dusk"
+CHROMA_SIGMA = 0.7
+PHASE25_WRITE_GB = 9.5
+# phase 26: Lumina-Image 2.0 (Alpha-VLLM/Lumina-Image-2.0's transformer/ as the
+# JAX preset Lumina2Config() builds it: 26 joint blocks + 2 context and 2 noise
+# refiners, 2304 wide, 24 query / 8 kv heads of 96, SwiGLU 6144; 1.97B
+# parameters) at 1024 px, its Gemma-2 2B text encoder (gemma2_2b: 2304 wide, 8
+# heads of 256, 4 kv heads, 256,000 tokens) at full width, written at full
+# depth (26 layers) when the run's writes leave room and else at the first
+# GEMMA_FILE_LAYERS of its 26 (as phase 15 cuts T5), captions at 256 tokens;
+# phase 14's Flux VAE.  The render's true CFG, the trainer's steps, the parity
+# sigma, bf16 Gemma-2 against the f32 module (as T5_BF16_REL_L2), and what the
+# phase writes with the cut Gemma-2 (the e4m3 transformer 1.97 GB, Gemma-2
+# 1.06 GB, caches and outputs)
+LUMINA_CAP, LUMINA_VALID = 256, 180  # caption tokens; a prompt's valid ones in the kernel cases
+LUMINA_IMG = (RESOLUTION // 16) ** 2
+LUMINA_S = LUMINA_CAP + LUMINA_IMG
+LUMINA_GUIDANCE = 4.0
+LUMINA_TRAIN_STEPS, LUMINA_TRAIN_IMAGES = 6, 4
+LUMINA_PROMPT = "a lighthouse on a basalt cliff at dusk"
+LUMINA_SIGMA = 0.7
+GEMMA_FILE_LAYERS = 6
+GEMMA_BF16_REL_L2 = 5e-2
+PHASE26_WRITE_GB = 3.6
+# phases 3 and 7 at Lumina2's attention shapes (D = 96, zero-padded to 128 by
+# the wrappers, scaled by 96^-0.5): (name, heads, query tokens, key tokens,
+# head dim, valid caption tokens or None): the joint layers over [256 caption,
+# 4096 image] tokens with a caption-mask segment plane (180 valid caption
+# tokens and the image at 1, the 76 pads at 0, not -1: the JAX module's
+# ids), the noise refiners' 4096 image tokens unmasked and the context
+# refiners' 256 caption tokens masked the same way; held against the plain
+# version at every head (one head at a time)
+LUMINA_KERNEL_CASES = (
+    ("lumina_joint", 24, LUMINA_S, LUMINA_S, 96, LUMINA_VALID),
+    ("lumina_noise_refiner", 24, LUMINA_IMG, LUMINA_IMG, 96, None),
+    ("lumina_context_refiner", 24, LUMINA_CAP, LUMINA_CAP, 96, LUMINA_VALID),
+)
+LUMINA_CHECK_HEADS = 24
+# the depth of the earlier families' seeded files in a run of every phase
+# (full width; the kernels' shapes depend on width and tokens, not depth),
+# cut to make room for phases 25-26 in the write budget: SD3.5 Large at 6 of
+# its 38 blocks, AuraFlow v0.3 at 2 + 4 of its 4 + 32, Wan 2.1 T2V-1.3B at 10
+# of 30, LTX-Video 2B at 10 of 28; a run that names one of these phases
+# (--phases) writes it at full depth where its writes leave room
+SD3_CUT_BLOCKS = 6
+AURA_CUT_BLOCKS = (2, 4)
+WAN_CUT_BLOCKS = 10
+LTX_CUT_BLOCKS = 10
 # the most a run may write, deleted files included (45 GiB), and the margin
 # below it for what this process's count does not see (the server jobs' child
-# processes in phase 18, nvcc's outputs); phase 24 comes last and checks the
-# run's writes against the difference
+# processes in phase 18, nvcc's outputs); the last phase checks the run's
+# writes against the difference
 RUN_WRITE_LIMIT_GB, RUN_WRITE_MARGIN_GB = 48.3, 1.0
+RUN_WRITE_TARGET_GB = RUN_WRITE_LIMIT_GB - RUN_WRITE_MARGIN_GB
 # phase 10: the Flux linears' (in, out): attention q/k/v and proj, single-block
 # linear1 (q, k, v, mlp) and linear2, the MLP in and out, double-block AdaLN
 INT8_SHAPES = ((3072, 3072), (3072, 21504), (15360, 3072), (3072, 12288), (12288, 3072), (3072, 18432))
@@ -566,6 +686,90 @@ INT8_ROWS = 4608  # 4096 image + 512 text tokens
 # roundings, so every element is within one bf16 ulp (at most 2^-7 of its value)
 DOT_REL = 2.0 ** -7
 _STARTED = time.perf_counter()
+# what each family phase writes at its depth in a run of every phase, for the
+# reservations each of phases 19-25 makes for the later phases of the run
+PHASE_WRITE_GB = {19: 2.3, 20: 3.2, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB, 23: PHASE23_WRITE_GB,
+                  24: PHASE24_WRITE_GB, 25: PHASE25_WRITE_GB, 26: PHASE26_WRITE_GB}
+# the phases whose files (or, for 5 and 6, whose runtime) a phase needs before
+# it; 1, 2, 3 and 7 run in every run (the build, and the kernels line's times)
+PHASE_NEEDS = {4: (14, 15, 16), 5: (4,), 6: (5,), 15: (14,), 16: (14,), 17: (14, 15, 16), 18: (17,),
+               19: (14, 15, 16), 20: (19,), 21: (20,), 22: (20,), 23: (15, 16), 24: (15, 16), 25: (14, 15, 16),
+               26: (14, 16)}
+ALWAYS = (1, 2, 3, 7)
+LAST_PHASE = 26
+# the phases named on the command line (None: every phase) and those the run takes
+RUN = {"requested": None, "phases": set(range(1, LAST_PHASE + 1))}
+
+
+def named_phases(spec: str) -> set:
+    """The phases a ``--phases`` spec (``1-3,14-16,25,26``) names."""
+    named = set()
+    for part in spec.split(","):
+        low, _, high = part.strip().partition("-")
+        named.update(range(int(low), int(high or low) + 1))
+    if not named or min(named) < 1 or max(named) > LAST_PHASE:
+        raise SystemExit(f"chip_smoke: --phases {spec!r} names no phase in 1-{LAST_PHASE}")
+    return named
+
+
+def with_needs(named: set) -> set:
+    """``named`` with the phases they need (``PHASE_NEEDS``) and ``ALWAYS``."""
+    taken, todo = set(ALWAYS), list(named)
+    while todo:
+        number = todo.pop()
+        if number not in taken:
+            taken.add(number)
+            todo.extend(PHASE_NEEDS.get(number, ()))
+    return taken
+
+
+def _runs(number: int) -> bool:
+    return number in RUN["phases"]
+
+
+def _reserved(after: int) -> float:
+    """What the run's family phases after ``after`` write (their reservations)."""
+    return sum(gb for number, gb in PHASE_WRITE_GB.items() if number > after and _runs(number))
+
+
+def _full_depth(number: int, extra_gb: float) -> bool:
+    """A phase writes its full-depth file only in a run that names it
+    (``--phases``) and only where the run's writes leave room for the
+    ``extra_gb`` that the full depth adds, beside the phase's own and the
+    later phases' reservations."""
+    requested = RUN["requested"]
+    return requested is not None and number in requested and \
+        _written_gb() + PHASE_WRITE_GB[number] + extra_gb + _reserved(number) <= RUN_WRITE_TARGET_GB
+
+
+@contextlib.contextmanager
+def family_depth(cls, **depth):
+    """Every ``cls`` the trainer, the runtime or the registry builds inside
+    the block from a config (no ``arch`` given) takes ``depth`` (fields of
+    its arch, e.g. ``depth=6``): the depth of the seeded file, whose width is
+    the published one."""
+    init = cls.__init__
+
+    def cut(self, config, arch=None):
+        init(self, config, arch)
+        if arch is None:
+            self.arch = dataclasses.replace(self.arch, **depth)
+
+    cls.__init__ = cut
+    try:
+        yield
+    finally:
+        cls.__init__ = init
+
+
+def check_run_writes() -> dict:
+    """The run's writes against ``RUN_WRITE_TARGET_GB`` (the last phase's check)."""
+    written = _written_gb()
+    if written > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"the run wrote {written:.2f} GB, past the {RUN_WRITE_TARGET_GB} GB it may write "
+                           f"({RUN_WRITE_LIMIT_GB} GB on the card's machine, less {RUN_WRITE_MARGIN_GB} GB for what "
+                           "this count cannot see)")
+    return {"written_gb": written, "write_target_gb": RUN_WRITE_TARGET_GB}
 
 
 def phase(name: str, **fields) -> None:
@@ -807,6 +1011,8 @@ def kernel_cases():
     marks.append(("wan", time.perf_counter()))
     times["ltx"], ltx_entries = long_forward_cases(LTX_KERNEL_CASES, LTX_CHECK_HEADS, 740, errors)
     marks.append(("ltx", time.perf_counter()))
+    times["lumina2"], lumina_entries = long_forward_cases(LUMINA_KERNEL_CASES, LUMINA_CHECK_HEADS, 780, errors)
+    marks.append(("lumina2", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
@@ -819,7 +1025,7 @@ def kernel_cases():
     return {"max_abs_err": worst, "ms": times["kernel_masked_ms"], "plain_ms": times["plain_masked_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_masked_ms,
             "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}, fwd256_entry, \
-        {**wan_entries, **ltx_entries}
+        {**wan_entries, **ltx_entries, **lumina_entries}
 
 
 def backward_cases():
@@ -937,6 +1143,8 @@ def backward_cases():
     marks.append(("wan", time.perf_counter()))
     times["ltx"], ltx_entries = long_backward_cases(LTX_KERNEL_CASES, LTX_CHECK_HEADS, 760, errors)
     marks.append(("ltx", time.perf_counter()))
+    times["lumina2"], lumina_entries = long_backward_cases(LUMINA_KERNEL_CASES, LUMINA_CHECK_HEADS, 800, errors)
+    marks.append(("lumina2", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
@@ -948,7 +1156,7 @@ def backward_cases():
                                 "plain_ms": times["plain_masked_ms"], "bound_ms": bounds[(kernel, "masked")][0],
                                 "bound_by": bounds[(kernel, "masked")][1], **library}
         for kernel in ("dq", "dkv")
-    }, **d256_entries, **wan_entries, **ltx_entries}
+    }, **d256_entries, **wan_entries, **ltx_entries, **lumina_entries}
 
 
 def _ddpm_inputs(seed, heads, sq, sk, dim, n):
@@ -1219,26 +1427,57 @@ def _by_heads(fn, *tensors):
     return torch.cat(parts, dim=1)
 
 
+def _caption_segments(length: int, valid):
+    """Lumina2's segment ids on the card for ``length`` tokens that start
+    with its ``LUMINA_CAP`` caption tokens, ``valid`` of them valid: 1 on the
+    valid caption and on every later token, 0 on the caption's pads (the
+    JAX module's ids, not the pad id -1); None when ``valid`` is None."""
+    import torch
+
+    if valid is None:
+        return None
+    seg = torch.ones((1, length), dtype=torch.int32, device="cuda")
+    seg[:, valid:LUMINA_CAP] = 0
+    return seg
+
+
+def _segment_pairs(seg, length: int) -> int:
+    """(query, key) pairs a segment plane lets attend: the sum of each id's count squared."""
+    import torch
+
+    if seg is None:
+        return length * length
+    return int((torch.bincount(seg[0].long()) ** 2).sum())
+
+
 def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tuple:
-    """Phase 3 at a video family's shapes (``WAN_KERNEL_CASES``,
-    ``LTX_KERNEL_CASES``; the dispatcher's (B, S, H, D) layout): the forward
+    """Phase 3 at a family's long shapes (``WAN_KERNEL_CASES``,
+    ``LTX_KERNEL_CASES``, ``LUMINA_KERNEL_CASES`` with their caption-mask
+    segment planes; the dispatcher's (B, S, H, D) layout): the forward
     kernel against its plain version at ``check_heads`` heads (the bounds of
     the other cases, the plain version head by head); at the full head count
     the kernel's time, the plain version's (head by head), SDPA's fastest
-    fused backend's and the bound.  Returns the cases and the kernels-line
-    entries (without launches)."""
+    fused backend's (a boolean mask where the case has segments) and the
+    bound, reckoned at the case's head dim over the attended pairs.  Returns
+    the cases and the kernels-line entries (without launches)."""
     import torch
     import torch.nn.functional as F
 
     from simpletuner_tpu_torch.ops import flash_attention, mha_reference_lse
 
     cases_out, entries = {}, {}
-    for index, (name, heads, sq, sk, dim) in enumerate(cases):
+    for index, (name, heads, sq, sk, dim, *valid) in enumerate(cases):
         t0 = time.perf_counter()
+        seg = _caption_segments(sq, valid[0] if valid else None)
+        mask = None if seg is None else (seg[0][:, None] == seg[0][None, :])[None, None]
+
+        def plain(q, k, v):
+            return mha_reference_lse(q, k, v, seg, seg)
+
         checked = min(heads, check_heads)
         q, k, v = _long_inputs(seed + 2 * index, checked, sq, sk, dim, 3)
-        out, lse = flash_attention(q, k, v, return_lse=True)
-        ref, ref_lse = _by_heads(mha_reference_lse, q, k, v)
+        out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
+        ref, ref_lse = _by_heads(plain, q, k, v)
         torch.cuda.synchronize()
         err, bound = (out.float() - ref.float()).abs().max().item(), OUT_REL_MAX * ref.float().abs().max().item()
         l2, lse_err = rel_l2(out, ref), (lse - ref_lse).abs().max().item()
@@ -1248,20 +1487,24 @@ def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tupl
         errors[name] = {"heads_checked": checked, "out": err, "out_bound": bound, "out_rel_l2": l2, "lse": lse_err}
         del q, k, v, out, lse, ref, ref_lse
         q, k, v = _long_inputs(seed + 10 + 2 * index, heads, sq, sk, dim, 3)
-        backend, sdpa_ms = _sdpa_backend(lambda: F.scaled_dot_product_attention(q, k, v), 10, fused_only=True)
-        nbytes = 2 * heads * (sq + sk) * dim * 2 + heads * sq * 4  # q, out; k, v; lse
-        bound_ms, bound_by = _attention_bound_ms(2, sq * sk, heads, dim, nbytes)
-        kernel_ms = cuda_ms(lambda: flash_attention(q, k, v), 10)
-        plain_ms = cuda_ms(lambda: _by_heads(mha_reference_lse, q, k, v), 1, warmup=1)
+        backend, sdpa_ms = _sdpa_backend(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 10,
+                                         fused_only=True)
+        nbytes = 2 * heads * (sq + sk) * dim * 2 + heads * sq * 4 + (0 if seg is None else 2 * sq * 4)
+        pairs = _segment_pairs(seg, sq) if seg is not None else sq * sk
+        bound_ms, bound_by = _attention_bound_ms(2, pairs, heads, dim, nbytes)  # q, out; k, v; lse; ids
+        kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, seg, seg), 10)
+        plain_ms = cuda_ms(lambda: _by_heads(plain, q, k, v), 1, warmup=1)
         cases_out[name] = {"shape": [1, heads, sq, sk, dim], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                            "sdpa_ms": sdpa_ms, "sdpa_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by,
-                           "share_of_bound": bound_ms / kernel_ms, "seconds": time.perf_counter() - t0}
+                           "share_of_bound": bound_ms / kernel_ms, "attended_pairs": pairs,
+                           "caption_valid": valid[0] if valid else None, "seconds": time.perf_counter() - t0}
         entries[f"flash_fwd_{name}"] = {
             "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": sdpa_ms, "library_call": f"scaled_dot_product_attention ({backend})",
+            "library_ms": sdpa_ms, "library_call": f"scaled_dot_product_attention ({backend}"
+                                                   f"{'' if seg is None else ', boolean attn_mask'})",
             "shape": [1, heads, sq, sk, dim], "max_abs_err_heads": checked,
             "plain_call": "mha_reference_lse, one head at a time"}
-        del q, k, v
+        del q, k, v, mask
         torch.cuda.empty_cache()
     return cases_out, entries
 
@@ -1281,17 +1524,19 @@ def long_backward_cases(cases, check_heads: int, seed: int, errors: dict) -> tup
     )
 
     cases_out, entries = {}, {}
-    for index, (name, heads, sq, sk, dim) in enumerate(cases):
+    for index, (name, heads, sq, sk, dim, *valid) in enumerate(cases):
         t0 = time.perf_counter()
         scale = dim ** -0.5
+        seg = _caption_segments(sq, valid[0] if valid else None)
+        mask = None if seg is None else (seg[0][:, None] == seg[0][None, :])[None, None]
 
         def plain(q, k, v, out, lse, do):
-            return mha_backward_reference(q, k, v, None, None, out, lse, do, scale)
+            return mha_backward_reference(q, k, v, seg, seg, out, lse, do, scale)
 
         checked = min(heads, check_heads)
         q, k, v, do = _long_inputs(seed + 2 * index, checked, sq, sk, dim, 4)
-        out, lse = flash_attention(q, k, v, return_lse=True)
-        grads = flash_backward(q, k, v, None, None, out, lse, do, scale)
+        out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
+        grads = flash_backward(q, k, v, seg, seg, out, lse, do, scale)
         refs = _by_heads(plain, q, k, v, out, lse, do)
         torch.cuda.synchronize()
         errors[name + "_backward"] = {"heads_checked": checked}
@@ -1309,24 +1554,26 @@ def long_backward_cases(cases, check_heads: int, seed: int, errors: dict) -> tup
         torch.cuda.empty_cache()
 
         q, k, v, do = _long_inputs(seed + 10 + 2 * index, heads, sq, sk, dim, 4)
-        out, lse = flash_attention(q, k, v, return_lse=True)
+        out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
         delta = (out.float() * do.float()).sum(dim=-1)
-        q_act, k_act, stats = heads * sq * dim * 2, heads * sk * dim * 2, 2 * heads * sq * 4
-        times = {"shape": [1, heads, sq, sk, dim]}
+        q_act, k_act = heads * sq * dim * 2, heads * sk * dim * 2
+        stats = 2 * heads * sq * 4 + (0 if seg is None else 2 * sq * 4)
+        pairs = _segment_pairs(seg, sq) if seg is not None else sq * sk
+        times = {"shape": [1, heads, sq, sk, dim], "attended_pairs": pairs}
         for kernel, products, nbytes, fn in (
                 ("dq", 3, 3 * q_act + 2 * k_act + stats,
-                 lambda: flash_bwd_dq_kernel(q, k, v, None, None, lse, delta, do, scale)),
+                 lambda: flash_bwd_dq_kernel(q, k, v, seg, seg, lse, delta, do, scale)),
                 ("dkv", 4, 2 * q_act + 4 * k_act + stats,
-                 lambda: flash_bwd_dkv_kernel(q, k, v, None, None, lse, delta, do, scale))):
+                 lambda: flash_bwd_dkv_kernel(q, k, v, seg, seg, lse, delta, do, scale))):
             times[f"{kernel}_ms"] = cuda_ms(fn, 5)
             times[f"bound_{kernel}_ms"], times[f"bound_{kernel}_by"] = _attention_bound_ms(
-                products, sq * sk, heads, dim, nbytes)
+                products, pairs, heads, dim, nbytes)
             times[f"{kernel}_share_of_bound"] = times[f"bound_{kernel}_ms"] / times[f"{kernel}_ms"]
         times["plain_ms"] = cuda_ms(lambda: _by_heads(plain, q, k, v, out, lse, do), 1, warmup=1)
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
 
         def forward():
-            return F.scaled_dot_product_attention(*leaves)
+            return F.scaled_dot_product_attention(*leaves, attn_mask=mask)
 
         backend, fwd_bwd_ms = _sdpa_backend(lambda: torch.autograd.grad(forward(), leaves, do), 5, fused_only=True)
         from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1340,10 +1587,11 @@ def long_backward_cases(cases, check_heads: int, seed: int, errors: dict) -> tup
                 "max_abs_err": worst[kernel], "ms": times[f"{kernel}_ms"], "plain_ms": times["plain_ms"],
                 "bound_ms": times[f"bound_{kernel}_ms"], "bound_by": times[f"bound_{kernel}_by"],
                 "library_ms": times["sdpa_backward_ms"],
-                "library_call": f"scaled_dot_product_attention backward, dq + dk + dv together ({backend})",
+                "library_call": f"scaled_dot_product_attention backward, dq + dk + dv together ({backend}"
+                                f"{'' if seg is None else ', boolean attn_mask'})",
                 "shape": [1, heads, sq, sk, dim], "max_abs_err_heads": checked,
                 "plain_call": "mha_backward_reference (whole backward), one head at a time"}
-        del q, k, v, do, out, lse, delta, leaves
+        del q, k, v, do, out, lse, delta, leaves, mask
         torch.cuda.empty_cache()
     return cases_out, entries
 
@@ -1727,7 +1975,7 @@ def trainer_phase(paths: dict, flagship_median_s: float, kernels, device: str) -
           profiled_window=resumed.profiler.summary, flagship_graphed_median_s=flagship_median_s,
           allocated_gib_before_phase=baseline_gib,
           trainer_vs_flagship=(straight_report["s_per_step_median"] / flagship_median_s
-                               if straight_report["s_per_step_median"] else None),
+                               if straight_report["s_per_step_median"] and flagship_median_s else None),
           seconds=time.perf_counter() - start, device=device)
     del resumed
     torch.cuda.empty_cache()
@@ -1920,8 +2168,8 @@ def _link_tree(source: str, target: str) -> None:
     shutil.copytree(source, target, copy_function=os.link)
 
 
-def sd3_phase(paths: dict, kernels, device: str) -> None:
-    """Phase 19: SD3.5 Large at full width and depth: a seeded diffusers
+def sd3_phase(paths: dict, kernels, device: str, depth: int) -> None:
+    """Phase 19: SD3.5 Large at full width, ``depth`` of its 38 blocks: a seeded diffusers
     transformer file, CLIP-G and a 16-channel VAE written with the port's
     writer beside hard links to phase 14-15's CLIP-L, T5-XXL and tokenizers;
     the import held bitwise to the written tensors; a 1024 px render with
@@ -1961,13 +2209,14 @@ def sd3_phase(paths: dict, kernels, device: str) -> None:
     baseline_gib = torch.cuda.memory_allocated() / 2**30
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(19)
-    arch = SD3Config.large()
+    arch = dataclasses.replace(SD3Config.large(), depth=depth)
     shapes = sd3_checkpoint_shapes(arch)
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     free, written_before = shutil.disk_usage(work).free, _written_gb()
-    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 4 > SD3_WRITE_LIMIT_GB:
+    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 1.0 + _reserved(19) > RUN_WRITE_TARGET_GB:
         raise RuntimeError(f"sd3: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
-                           f"the files need {file_bytes / 1e9:.1f} GB of the {SD3_WRITE_LIMIT_GB} GB a run may write")
+                           f"the files need {file_bytes / 1e9:.1f} GB and the later phases {_reserved(19):.1f} GB of "
+                           f"the {RUN_WRITE_TARGET_GB} GB a run may write")
 
     # (b) the seeded files: transformer (two shards, e4m3 as phase 14's Flux
     # file: the write budget), CLIP-G with its projection, the VAE with both
@@ -2169,7 +2418,8 @@ def sd3_phase(paths: dict, kernels, device: str) -> None:
     flops = sd3_step_flops(arch, 1, s_img, s_txt)
     stages = trainer.stage_report
     phase("19 sd3", config="stabilityai/stable-diffusion-3.5-large transformer/config.json", hidden=arch.hidden_size,
-          heads=[arch.num_heads, arch.head_dim], blocks=arch.depth, pos_embed_max_size=arch.pos_embed_max_size,
+          heads=[arch.num_heads, arch.head_dim], blocks=arch.depth, depth=[arch.depth, 38],
+          pos_embed_max_size=arch.pos_embed_max_size,
           tokens={"text": s_txt, "image": s_img}, files=files, imported=imported,
           render={"init_s": init_s, "render_s": render_s, "steps": STEPS, "guidance": SD3_GUIDANCE,
                   "s_per_step": sum(forward_s[2:]) / (len(forward_s) - 2) * 2, "forward_s": forward_s,
@@ -2297,15 +2547,16 @@ def sdxl_phase(paths: dict, kernels, device: str) -> None:
     arch = UNetConfig.sdxl()
     shapes = unet_checkpoint_shapes(arch)
     params = sum(math.prod(shape) for shape in shapes.values())
-    # bf16 unless the run's writes would pass the budget; then e4m3, which the importer takes to bf16 exactly
+    # e4m3, which the importer takes to bf16 exactly; bf16 only in a run that
+    # names phase 20 and leaves room for it (_full_depth's rule)
     written_before = _written_gb()
-    fp8 = written_before + 2 * params / 1e9 + 1.0 + PHASE21_WRITE_GB + PHASE22_WRITE_GB + PHASE23_WRITE_GB + \
-        PHASE24_WRITE_GB > SD3_WRITE_LIMIT_GB
+    fp8 = not _full_depth(20, params / 1e9)
     file_bytes = (1 if fp8 else 2) * params
     free = shutil.disk_usage(work).free
-    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 1.0 > SD3_WRITE_LIMIT_GB:
+    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 0.6 + _reserved(20) > RUN_WRITE_TARGET_GB:
         raise RuntimeError(f"sdxl: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
-                           f"the UNet needs {file_bytes / 1e9:.1f} GB of the {SD3_WRITE_LIMIT_GB} GB a run may write")
+                           f"the UNet needs {file_bytes / 1e9:.1f} GB and the later phases {_reserved(20):.1f} GB of "
+                           f"the {RUN_WRITE_TARGET_GB} GB a run may write")
 
     # (b) the seeded files: the UNet (two shards) and the 4-channel VAE; hard
     # links to phase 14's CLIP-L and tokenizer and phase 19's CLIP-G (both
@@ -2591,9 +2842,10 @@ def _phase21_files(family: str, paths: dict, gen) -> tuple:
         shapes = unet_checkpoint_shapes(arch, conv_proj=family == "sd1x")  # SD 1.5's 1x1-conv proj_in / out
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     written_before, free = _written_gb(), shutil.disk_usage(work).free
-    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 0.5 > SD3_WRITE_LIMIT_GB:
+    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 0.5 + _reserved(21) > RUN_WRITE_TARGET_GB:
         raise RuntimeError(f"{family}: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before; the "
-                           f"base needs {file_bytes / 1e9:.2f} GB of the {SD3_WRITE_LIMIT_GB} GB a run may write")
+                           f"base needs {file_bytes / 1e9:.2f} GB and the later phases {_reserved(21):.1f} GB of the "
+                           f"{RUN_WRITE_TARGET_GB} GB a run may write")
     os.makedirs(os.path.join(model_dir, sub))
     weights = {k: v.to(torch.float8_e4m3fn) for k, v in seeded_weights(shapes, gen).items()}
     names = sorted(weights)
@@ -2939,7 +3191,7 @@ def _auraflow_flop_checks() -> list:
     return checks
 
 
-def auraflow_phase(paths: dict, kernels, device: str) -> dict:
+def auraflow_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
     """Phase 22: AuraFlow v0.3 at its published size: a seeded e4m3 diffusers
     transformer and a seeded Pile-T5-XL (a umt5 file, cut to
     ``PHASE22_T5_LAYERS`` blocks) written with the port's writer beside hard
@@ -2985,15 +3237,18 @@ def auraflow_phase(paths: dict, kernels, device: str) -> dict:
     flop_checks = _auraflow_flop_checks()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(22)
-    arch = AuraFlowConfig()
-    if (arch.hidden_size, arch.depth_double, arch.depth_single, arch.num_heads, arch.head_dim) != (3072, 4, 32, 12, 256):
-        raise RuntimeError(f"not AuraFlow v0.3's published transformer: {arch}")
+    published = AuraFlowConfig()
+    if (published.hidden_size, published.depth_double, published.depth_single, published.num_heads,
+            published.head_dim) != (3072, 4, 32, 12, 256):
+        raise RuntimeError(f"not AuraFlow v0.3's published transformer: {published}")
+    arch = dataclasses.replace(published, depth_double=depth[0], depth_single=depth[1])
     shapes = auraflow_checkpoint_shapes(arch)
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     written_before, free = _written_gb(), shutil.disk_usage(work).free
-    if free < file_bytes + 6e9 or written_before + PHASE22_WRITE_GB > SD3_WRITE_LIMIT_GB:
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 1.1 + _reserved(22) > RUN_WRITE_TARGET_GB:
         raise RuntimeError(f"auraflow: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
-                           f"phase; it writes {PHASE22_WRITE_GB} GB of the {SD3_WRITE_LIMIT_GB} GB a run may write")
+                           f"phase; it writes {file_bytes / 1e9 + 1.1:.1f} GB and the later phases "
+                           f"{_reserved(22):.1f} GB of the {RUN_WRITE_TARGET_GB} GB a run may write")
 
     # (b) the seeded files: the transformer (two e4m3 shards; the position
     # table and the register tokens at their initialisation scales, N(0, 0.1)
@@ -3221,6 +3476,7 @@ def auraflow_phase(paths: dict, kernels, device: str) -> dict:
     stages = trainer.stage_report
     phase("22 auraflow", config="fal/AuraFlow-v0.3 transformer/config.json", params=params,
           hidden=arch.hidden_size, heads=[arch.num_heads, arch.head_dim], blocks=[arch.depth_double, arch.depth_single],
+          depth=[[arch.depth_double, arch.depth_single], [published.depth_double, published.depth_single]],
           ffn_hidden=arch.ffn_hidden, tokens={"registers": arch.num_register_tokens, "text": AURA_T5_LEN,
                                               "image": latent_tokens, "sequence": AURA_S},
           files=files, imported=imported,
@@ -3457,7 +3713,7 @@ def _graphed_step(model, module, batch: dict, kernels) -> dict:
             "launches_per_step_by_shape": _per_shape(kernels, 3)}
 
 
-def wan_phase(paths: dict, kernels, device: str) -> dict:
+def wan_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     """Phase 23: Wan 2.1 T2V-1.3B at the JAX preset's full width and depth on
     its published 832 x 480 x 81 clip: a seeded e4m3 diffusers transformer
     written with the port's writer beside hard links to phase 15's T5-XXL
@@ -3504,16 +3760,18 @@ def wan_phase(paths: dict, kernels, device: str) -> dict:
     arch = WanConfig.b1_3()
     if (arch.hidden_size, arch.depth, arch.num_heads, arch.head_dim, arch.ffn_hidden) != (1536, 30, 12, 128, 6144):
         raise RuntimeError(f"not the JAX preset of Wan 2.1 T2V-1.3B: {arch}")
+    arch = dataclasses.replace(arch, depth=depth)
     latent_shape = (WAN_FRAMES - 1) // 4 + 1, WAN_HEIGHT // 8, WAN_WIDTH // 8
     if latent_shape[0] * (latent_shape[1] // 2) * (latent_shape[2] // 2) != WAN_TOKENS:
         raise RuntimeError(f"wan: {latent_shape} latents do not give {WAN_TOKENS} tokens")
     shapes = wan_checkpoint_shapes(arch)
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     written_before, free = _written_gb(), shutil.disk_usage(work).free
-    target_gb = RUN_WRITE_LIMIT_GB - RUN_WRITE_MARGIN_GB
-    if free < file_bytes + 6e9 or written_before + PHASE23_WRITE_GB + PHASE24_WRITE_GB > target_gb:
+    target_gb = RUN_WRITE_TARGET_GB
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.5 + _reserved(23) > target_gb:
         raise RuntimeError(f"wan: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; it "
-                           f"and phase 24 write {PHASE23_WRITE_GB + PHASE24_WRITE_GB} GB of the {target_gb} GB a run "
+                           f"and the later phases write {file_bytes / 1e9 + 0.5 + _reserved(23):.1f} GB of the "
+                           f"{target_gb} GB a run "
                            "may write")
 
     # (b) the seeded files: the transformer (two e4m3 shards), hard links to
@@ -3755,6 +4013,7 @@ def wan_phase(paths: dict, kernels, device: str) -> dict:
     torch.cuda.empty_cache()
     phase("23 wan", config="Wan-AI/Wan2.1-T2V-1.3B-Diffusers as the JAX preset WanConfig.b1_3 builds it (FFN 4 x 1536)",
           params=params, hidden=arch.hidden_size, heads=[arch.num_heads, arch.head_dim], blocks=arch.depth,
+          depth=[arch.depth, WanConfig.b1_3().depth],
           ffn_hidden=arch.ffn_hidden, clip=[WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH], latents=list(latent_shape),
           tokens={"video": WAN_TOKENS, "text": WAN_TEXT}, files=files, imported=imported, train=train,
           render=render, parity={"rel_l2": parity, "bound": PARITY_REL_L2, "sigma": WAN_SIGMA,
@@ -3819,7 +4078,7 @@ def _ltx_flop_checks() -> list:
     return checks
 
 
-def ltx_phase(paths: dict, kernels, device: str) -> dict:
+def ltx_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     """Phase 24: LTX-Video 0.9.5 2B at the JAX preset's full width and depth
     on 768 x 512 x 121 clips: a seeded e4m3 diffusers transformer written with
     the port's writer beside hard links to phase 15's T5-XXL
@@ -3870,13 +4129,15 @@ def ltx_phase(paths: dict, kernels, device: str) -> dict:
     if (arch.hidden_size, arch.depth, arch.num_heads, arch.head_dim, arch.ffn_hidden, arch.in_channels) != \
             (2048, 28, 32, 64, 8192, 128):
         raise RuntimeError(f"not the JAX preset of LTX-Video 0.9.5 2B: {arch}")
+    arch = dataclasses.replace(arch, depth=depth)
     shapes = ltx_checkpoint_shapes(arch)
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
-    target_gb = RUN_WRITE_LIMIT_GB - RUN_WRITE_MARGIN_GB
+    target_gb = RUN_WRITE_TARGET_GB
     written_before, free = _written_gb(), shutil.disk_usage(work).free
-    if free < file_bytes + 6e9 or written_before + PHASE24_WRITE_GB > target_gb:
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.5 + _reserved(24) > target_gb:
         raise RuntimeError(f"ltx: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; it "
-                           f"writes {PHASE24_WRITE_GB} GB of the {target_gb} GB a run may write")
+                           f"and the later phases write {file_bytes / 1e9 + 0.5 + _reserved(24):.1f} GB of the "
+                           f"{target_gb} GB a run may write")
 
     # (b) the seeded files: the transformer (two e4m3 shards), hard links to
     # phase 15's T5-XXL and T5 tokenizer, and two mp4 clips with captions
@@ -4133,22 +4394,636 @@ def ltx_phase(paths: dict, kernels, device: str) -> dict:
     del module13, model13, batch
     gc.collect()
     torch.cuda.empty_cache()
-    written = _written_gb()
-    if written > target_gb:
-        raise RuntimeError(f"the run wrote {written:.2f} GB, past the {target_gb} GB it may write ({RUN_WRITE_LIMIT_GB} "
-                           f"GB on the card's machine, less {RUN_WRITE_MARGIN_GB} GB for what this count cannot see)")
     phase("24 ltx", config="Lightricks/LTX-Video-0.9.5 as the JAX preset LTXConfig() builds it", params=params,
           hidden=arch.hidden_size, heads=[arch.num_heads, arch.head_dim], blocks=arch.depth,
           ffn_hidden=arch.ffn_hidden, clip=[LTX_FRAMES, LTX_HEIGHT, LTX_WIDTH], latents=list(LTX_LATENT),
           tokens={"video": LTX_TOKENS, "text": LTX_TEXT}, files=files, imported=imported, train=train,
           render=render, parity={"rel_l2": parity, "bound": PARITY_REL_L2, "sigma": LTX_SIGMA,
                                  "tokens": LTX_TOKENS, "forward_ms": forward_ms},
-          b13=b13, depth_cut=f"13b-0.9.7 at {LTX13B_BLOCKS} of its 48 blocks",
-          allocated_gib_before_phase=baseline_gib, written_gb=written,
-          write_target_gb=target_gb, seconds=time.perf_counter() - start, device=device)
+          b13=b13, depth_cut=f"13b-0.9.7 at {LTX13B_BLOCKS} of its 48 blocks", depth=[arch.depth, 28],
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device)
     return {"ltx_self": {k: v.get(self_key) for k, v in shape_launches.items()},
             "ltx_cross": {k: v.get(cross_key) for k, v in shape_launches.items()},
             "ltx13b_self": {k: v.get(key13) for k, v in shapes13.items()}}
+
+
+def chroma_step_flops(arch, batch: int, img_tokens: int, txt_tokens: int) -> int:
+    """Model FLOPs of one Chroma train step in bench.py's convention (forward
+    x 3; remat recompute is hardware work, not model work), counted from the
+    config: ``flux_step_flops``' blocks, embedders and head (Flux's formula,
+    which counts no modulation linear) and the approximator over its
+    ``mod_len`` slots per sample."""
+    h, mlp, ha = arch.hidden_size, int(arch.hidden_size * arch.mlp_ratio), arch.approximator_hidden
+    s = img_tokens + txt_tokens
+    blocks = arch.depth_double + arch.depth_single
+    fwd = s * (arch.depth_double * 2 * h * (4 * h + 2 * mlp) + arch.depth_single * (2 * h * (3 * h + mlp) +
+                                                                                   2 * (h + mlp) * h))
+    fwd += blocks * 4 * s * s * h + 4 * img_tokens * arch.in_channels * h + 2 * txt_tokens * arch.txt_in_features * h
+    fwd += arch.mod_len * (2 * arch.approximator_channels * ha + 4 * arch.approximator_layers * ha * ha + 2 * ha * h)
+    return batch * fwd * 3
+
+
+def lumina2_step_flops(arch, batch: int, img_tokens: int, cap_tokens: int) -> int:
+    """Model FLOPs of one Lumina2 train step in bench.py's convention (forward
+    x 3), counted from the config: per token of each block q, k, v, out and
+    the SwiGLU; each block's two attention products over its whole sequence
+    at the query heads' width (the context refiners over the caption, the
+    noise refiners over the image, the joint layers over both); the caption,
+    patch, final and per-sample timestep and modulation linears."""
+    h, td = arch.hidden_size, arch.time_dim
+    q, kv = arch.num_heads * arch.head_dim, arch.num_kv_heads * arch.head_dim
+    joint = img_tokens + cap_tokens
+    per_token = 2 * h * (2 * q + 2 * kv) + 6 * h * arch.ffn_inner
+    fwd = per_token * (arch.refiner_depth * (cap_tokens + img_tokens) + arch.depth * joint)
+    fwd += 4 * q * (arch.refiner_depth * (cap_tokens ** 2 + img_tokens ** 2) + arch.depth * joint ** 2)
+    fwd += 2 * cap_tokens * arch.cap_feat_dim * h + 4 * img_tokens * arch.patch_size ** 2 * arch.in_channels * h
+    fwd += 2 * (256 * td + td * td) + 2 * td * 4 * h * (arch.refiner_depth + arch.depth) + 2 * td * h
+    return batch * fwd * 3
+
+
+def _flop_checks(step_flops, build, cases) -> list:
+    """``step_flops`` / 3 against ``torch.utils.flop_counter`` on the forward
+    of small configs on the CPU (f32; the attention through the plain
+    version, whose two products the counter sees as bmm): equal.  ``cases``
+    holds (arch, forward arguments, ``step_flops`` arguments after arch and
+    batch)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    checks = []
+    for arch, args, counts in cases:
+        module = init_parameters(build(arch, dtype=torch.float32), torch.Generator().manual_seed(0))
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            module(*args)
+        expected = step_flops(arch, 2, *counts) // 3
+        if counter.get_total_flops() != expected:
+            raise RuntimeError(f"{step_flops.__name__}: {expected} forward FLOPs at {arch}, the counter "
+                               f"{counter.get_total_flops()}")
+        checks.append({"hidden": arch.hidden_size, "tokens": list(counts), "flops": expected})
+    return checks
+
+
+def _square_jpegs(work: str, name: str, count: int) -> str:
+    """Hard links to phase 16's first ``count`` square JPEGs with captions, in ``work/name``."""
+    data = os.path.join(work, name)
+    os.makedirs(data)
+    source = os.path.join(work, "vae_cache", "data")
+    for i, index in enumerate(range(0, 3 * count, 3)):
+        image = f"img_{index:04d}.jpg"
+        os.link(os.path.join(source, image), os.path.join(data, image))
+        with open(os.path.join(data, f"img_{index:04d}.txt"), "w") as handle:
+            handle.write(TRAIN_CAPTIONS[i])
+    return data
+
+
+def _import_bitwise(model, module, root: str, weights: dict, params_from_diffusers, file_bytes: int) -> dict:
+    """``load_transformer_params`` of ``root`` onto ``module``: s, GB/s, peak
+    host RSS and device GiB, every tensor bitwise the written one taken to the
+    module's dtype (exact for every e4m3 value)."""
+    import torch
+
+    from simpletuner_tpu_torch.models.weight_bridge import flax_to_state_dict
+    from simpletuner_tpu_torch.models.weight_import import load_transformer_params
+
+    params = sum(p.numel() for p in module.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = _rss_gib()
+    t0 = time.perf_counter()
+    load_transformer_params(model, module, root)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    expected = flax_to_state_dict(params_from_diffusers(weights, model.arch), module)
+    unequal = [k for k, v in module.state_dict().items() if not torch.equal(v, expected[k])]
+    if unequal or params != sum(v.numel() for v in weights.values()):
+        raise RuntimeError(f"{model.NAME}: the imported module differs from the written tensors at {unequal[:8]}")
+    return {"s": load_s, "gb_per_s": file_bytes / load_s / 1e9, "params": params, "tensors_bitwise": len(expected),
+            "host_rss_gib": {"before": rss_before, "after": _rss_gib()},
+            "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _parity_forward(model, module, batch: dict, noise, sigma: float) -> dict:
+    """One full-depth denoise call with the kernels against the same call
+    through the plain attention (phase 5's bound), and the call's time."""
+    import torch
+
+    from simpletuner_tpu_torch.ops import set_attention_backend
+
+    cond = model.inference_conditioning(batch)
+    sigma_t = torch.tensor(sigma)
+    with torch.no_grad():
+        kernel_v = model.denoise_fn(module, cond)(noise, sigma_t)
+        set_attention_backend("xla")
+        try:
+            plain_v = model.denoise_fn(module, cond)(noise, sigma_t)
+        finally:
+            set_attention_backend("auto")
+        forward_ms = cuda_ms(lambda: model.denoise_fn(module, cond)(noise, sigma_t), 3, warmup=1)
+    parity = rel_l2(kernel_v, plain_v)
+    if not (torch.isfinite(kernel_v).all() and torch.isfinite(plain_v).all() and parity <= PARITY_REL_L2):
+        raise RuntimeError(f"{model.NAME} full-depth parity: rel L2 {parity} (<= {PARITY_REL_L2})")
+    return {"rel_l2": parity, "bound": PARITY_REL_L2, "sigma": sigma, "forward_ms": forward_ms}
+
+
+def _train_graphed(config: dict, kernels, steps: int, expected: dict, flops: float, check) -> dict:
+    """``Trainer.run()`` of ``config`` (one square bucket, graphed) and a
+    profiled replay: losses and grad norms finite and positive, one graph, the
+    replay's launches equal to the capture's and to ``expected`` (per step),
+    ``check(trainer)`` for the family's own conditions; s/step (median of the
+    replayed steps), MFU of ``flops``, time to the first step, peak GiB, the
+    launches by shape per step (the wrappers count the two warm-up steps and
+    the capture) and the replay's device ms by bucket and idle share."""
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench import profile_step
+    from simpletuner_tpu_torch.training.trainer import Trainer
+
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    trainer = Trainer(config=config, device="cuda")
+    run_start = time.time()
+    trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.time() - run_start
+    train_launches = {kernel.name: kernel.launches for kernel in kernels}
+    shape_launches = _per_shape(kernels, 3)
+    with open(os.path.join(config["output_dir"], "simpletuner-tpu-metrics.jsonl")) as handle:
+        metrics = [json.loads(line) for line in handle]
+    losses = [m["loss"] for m in metrics]
+    if [m["step"] for m in metrics] != list(range(1, steps + 1)) or not all(np.isfinite(losses)) or \
+            not all(m["grad_norm"] > 0 for m in metrics) or not all(train_launches.values()) or \
+            len(trainer._graphs) != 1:
+        raise RuntimeError(f"{config['model_family']} trainer: metrics {metrics}, launches {train_launches}, "
+                           f"{len(trainer._graphs)} graphs")
+    extra = check(trainer)
+    captures = {c["step"] for c in trainer.capture_report}
+    step_s = {m["step"]: m["time"] - prev["time"] for prev, m in zip(metrics, metrics[1:]) if m["step"] not in captures}
+    median_s = float(np.median(list(step_s.values())))
+    graphed = next(iter(trainer._graphs.values()))
+    captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
+    profile = profile_step(lambda: graphed(trainer._state, graphed.batch, trainer._generator))
+    replayed = {kernel.name: profile["bucket_launches"][kernel.name] for kernel in kernels}
+    if replayed != {k: captured[k] for k in replayed} or replayed != expected or \
+            {k: 3 * v for k, v in replayed.items()} != train_launches:
+        raise RuntimeError(f"{config['model_family']} trainer: the profiled replay launched {replayed}, the capture "
+                           f"recorded {captured}, the run {train_launches}, expected {expected} a step")
+    stages = trainer.stage_report
+    report = {"lora_params": sum(p.numel() for p in trainer._state.trainable.values()),
+              "lora_targets": sorted({name.rsplit("/", 2)[-2] for name in trainer._state.trainable}),
+              "losses": losses, "grad_norms": [m["grad_norm"] for m in metrics], "step_s": step_s,
+              "s_per_step_median": median_s, "flops_per_step": flops, "mfu": flops / median_s / PEAK_BF16_FLOPS,
+              "run_s": run_s, "time_to_first_step_s": metrics[0]["time"] - run_start,
+              "capture_s": [c["seconds"] for c in trainer.capture_report],
+              "stage_s": {k: v["seconds"] for k, v in stages.items()},
+              "peak_gib": max(v["peak_gib"] for v in stages.values()),
+              "launches_run": train_launches, "launches_captured": captured, "launches_profiled_replay": replayed,
+              "launches_per_step_by_shape": shape_launches, "flash_instances": profile["flash_instances"],
+              "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "device_ms", "traced_event_ms",
+                                                  "idle_share_traced", "top_kernels")}, **extra}
+    del trainer, graphed
+    return report
+
+
+def _render_report(timed: dict, per_forward: int, guidance: float, init_s: float) -> dict:
+    """A 1024 px true-CFG render's numbers, its PNG and latents checked and
+    ``per_forward`` flash launches a forward, two forwards a step."""
+    rendered, forward_s = timed["rendered"], timed["forward_s"]
+    if timed["launches"] != {"flash_fwd": per_forward * 2 * STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0} or \
+            len(rendered) != 1 or timed["finite"] != [True] or len(forward_s) != 2 * STEPS:
+        raise RuntimeError(f"render: {rendered}, finite latents {timed['finite']}, {len(forward_s)} forwards, "
+                           f"launches {timed['launches']}, expected {per_forward} per forward, two a step")
+    check_png(rendered[0], RESOLUTION, RESOLUTION)
+    return {"init_s": init_s, "render_s": timed["render_s"], "steps": STEPS, "guidance": guidance,
+            "s_per_cfg_step": sum(forward_s[2:]) / (len(forward_s) - 2) * 2, "forward_s": forward_s,
+            "vae_decode_s": timed["decode_s"][0], "peak_gib": timed["peak_gib"], "launches": timed["launches"],
+            "launches_per_cfg_step": {k: v // STEPS for k, v in timed["launches"].items()},
+            "launches_by_shape": timed["launches_by_shape"], "png": os.path.basename(rendered[0]),
+            "png_bytes": os.path.getsize(rendered[0])}
+
+
+def chroma_phase(paths: dict, kernels, device: str) -> dict:
+    """Phase 25: Chroma at its published size: a seeded e4m3 diffusers
+    transformer (two shards) written with the port's writer beside hard links
+    to phase 14's Flux VAE and phase 15's T5-XXL (``text_encoder``) and T5
+    tokenizer (``tokenizer_2``, the subfolder both packages' T5 spec reads);
+    the import held bitwise to the written tensors; a 1024 px true-CFG flow
+    Euler render through ``CheckpointInferenceRuntime``; one full-depth
+    forward with the kernels against the plain attention, the T5 mask
+    collated as the trainer collates it; 6 graphed LoRA steps through
+    ``Trainer.run()`` on an int8 base (``quantized_matmul: full``), every
+    block checkpointed, and the launches of a profiled replay held to the
+    capture's.  Returns the replay's launches per kernel."""
+    import gc
+
+    import torch
+
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import chroma_checkpoint_shapes
+    from simpletuner_tpu_torch.models.chroma import ChromaConfig, ChromaTransformer
+    from simpletuner_tpu_torch.models.flux import make_img_ids, make_txt_ids
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.vae import VAEConfig
+    from simpletuner_tpu_torch.models.weight_import import chroma_params_from_diffusers
+
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    for out in ("ltx", "ltx_train", "ltx_cache", "ltx_data", "ltx_render"):  # phase 24's: disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = ChromaConfig.tiny()
+    wider = dataclasses.replace(tiny, hidden_size=96, num_heads=3, depth_single=1, approximator_layers=3,
+                                approximator_hidden=80)
+    flop_checks = _flop_checks(chroma_step_flops, ChromaTransformer, [
+        (arch, (torch.zeros(2, (h // 2) * (w // 2), arch.in_channels), make_img_ids(2, h, w),
+                torch.zeros(2, t, arch.txt_in_features), make_txt_ids(2, t), torch.full((2,), 0.5)),
+         ((h // 2) * (w // 2), t)) for arch, (h, w), t in ((tiny, (8, 6), 7), (wider, (4, 8), 5))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    arch = ChromaConfig()
+    if (arch.hidden_size, arch.depth_double, arch.depth_single, arch.num_heads, arch.head_dim, arch.mod_len,
+            arch.approximator_hidden) != (3072, 19, 38, 24, 128, 344, 5120):
+        raise RuntimeError(f"not Chroma's published transformer: {arch}")
+    shapes = chroma_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.6 + _reserved(25) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"chroma: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
+                           f"it and the later phases write {file_bytes / 1e9 + 0.6 + _reserved(25):.1f} GB of the "
+                           f"{RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded files: the transformer (two e4m3 shards), hard links to
+    # phase 14's Flux VAE and phase 15's T5-XXL and T5 tokenizer
+    chroma_dir = os.path.join(work, "chroma")
+    weights, write_s = _write_e4m3_transformer(chroma_dir, shapes, gen)
+    for source, target in (("text_encoder_2", "text_encoder"), ("tokenizer_2", "tokenizer_2"), ("vae", "vae")):
+        _link_tree(os.path.join(flux_dir, source), os.path.join(chroma_dir, target))
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "written_gb_before": written_before,
+             "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) the import, bitwise
+    model = ModelRegistry.create("chroma", config_namespace({"model_family": "chroma", "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"chroma: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()  # model_type full: no adapters
+    imported = _import_bitwise(model, module, chroma_dir, weights, chroma_params_from_diffusers, file_bytes)
+    params = imported["params"]
+    del weights, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) a 1024x1024 true-CFG flow Euler render through the checkpoint
+    # runtime (unmasked, as Flux's validation renders); (e) one full-depth
+    # forward, the kernels against the plain attention, the T5 mask collated
+    # as the trainer collates it
+    config_path = os.path.join(work, "chroma_render.json")
+    with open(config_path, "w") as handle:
+        json.dump({"model_family": "chroma", "model_type": "full", "pretrained_model_name_or_path": chroma_dir,
+                   "mixed_precision": "bf16", "text_encoder_precision": "bf16", "vae_dtype": "bf16",
+                   "validation_resolution": RESOLUTION, "validation_seed": 42, "seed": 42,
+                   "validation_guidance": CHROMA_GUIDANCE, "flux_attention_masked_training": True}, handle)
+    t0 = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "chroma_render"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "chroma" or not model.is_flow:
+        raise RuntimeError(f"chroma: the runtime built {model.NAME} {model.arch}")
+    per_forward = arch.depth_double + arch.depth_single
+    render = _render_report(_timed_render(runtime, kernels, CHROMA_PROMPT, CHROMA_GUIDANCE), per_forward,
+                            CHROMA_GUIDANCE, init_s)
+    latent = RESOLUTION // 8
+    batch = {"latents": torch.zeros((1, latent, latent, 16), device=dev)}
+    embeds = model.encode_text([CHROMA_PROMPT])
+    for key, value in model.collate_text_embeds(embeds).items():
+        batch[key] = torch.as_tensor(value, device=dev)
+    if tuple(batch["t5_embeds"].shape) != (1, TXT_LEN, arch.txt_in_features) or batch["pooled_embeds"].any():
+        raise RuntimeError(f"chroma: t5_embeds {tuple(batch['t5_embeds'].shape)}, pooled all zero "
+                           f"{not batch['pooled_embeds'].any()}")
+    model.text_encoders = []  # the plain attention's scores need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    noise = torch.randn((1, latent, latent, 16), generator=gen, device=dev)
+    parity = {**_parity_forward(model, module, batch, noise, CHROMA_SIGMA),
+              "txt_valid": int(embeds[0]["attention_mask"].sum())}
+    del runtime, module, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) Trainer.run(): int8 base with quantized_matmul=full, every block
+    # checkpointed (the JAX module's nn.remat, no Flux policy), rank-16 LoRA on
+    # Flux's `all` targets, the T5 padding masked, one square bucket, graphed
+    data = _square_jpegs(work, "chroma_data", CHROMA_TRAIN_IMAGES)
+    cache = os.path.join(work, "chroma_cache")
+    config = {
+        "model_family": "chroma", "model_type": "lora", "lora_rank": 16, "pretrained_model_name_or_path": chroma_dir,
+        "base_model_precision": "int8-quanto", "quantized_matmul": "full", "gradient_checkpointing": True,
+        "flux_attention_masked_training": True, "optimizer": "adamw", "learning_rate": 1e-4,
+        "lr_scheduler": "constant", "mixed_precision": "bf16", "text_encoder_precision": "bf16", "vae_dtype": "bf16",
+        "train_batch_size": 1, "resolution": RESOLUTION, "resolution_type": "pixel_area",
+        "max_train_steps": CHROMA_TRAIN_STEPS, "logging_steps": 1, "report_to": "jsonl", "seed": 42,
+        "cache_dir": cache, "output_dir": os.path.join(work, "chroma_train"), "checkpoint_frozen_base": "reference",
+        "data_backend_config": [
+            {"id": "train", "dataset_type": "image", "type": "local", "instance_data_dir": data,
+             "resolution": RESOLUTION, "resolution_type": "pixel_area", "caption_strategy": "textfile",
+             "cache_dir_vae": os.path.join(cache, "vae")},
+            {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
+             "cache_dir": os.path.join(cache, "text")},
+        ],
+    }
+
+    def check(trainer) -> dict:
+        if trainer.model.arch != arch or trainer.vae.config != VAEConfig.flux() or \
+                trainer.model.base_precision != "int8":
+            raise RuntimeError(f"chroma trainer: arch {trainer.model.arch}, VAE {trainer.vae.config}, base "
+                               f"{trainer.model.base_precision}")
+        return {}
+
+    # every attention's forward and its recompute under remat, and its backward
+    expected = {"flash_fwd": 2 * per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
+    flops = chroma_step_flops(arch, 1, (latent // 2) ** 2, TXT_LEN)
+    train = _train_graphed(config, kernels, CHROMA_TRAIN_STEPS, expected, flops, check)
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                  "flop_checks": flop_checks})
+    phase("25 chroma", config="lodestones/Chroma transformer (ChromaConfig())", params=params,
+          hidden=arch.hidden_size, heads=[arch.num_heads, arch.head_dim], blocks=[arch.depth_double, arch.depth_single],
+          depth=[[arch.depth_double, arch.depth_single]] * 2, mod_len=arch.mod_len,
+          approximator=[arch.approximator_layers, arch.approximator_hidden],
+          tokens={"text": TXT_LEN, "image": (latent // 2) ** 2}, files=files, imported=imported, render=render,
+          parity=parity, train=train, allocated_gib_before_phase=baseline_gib,
+          seconds=time.perf_counter() - start, device=device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train["launches_profiled_replay"]
+
+
+def write_gemma_tokenizer(root: str, words) -> None:
+    """A tokenizer in ``root`` in Gemma's convention (``<pad>`` 0, ``<eos>`` 1,
+    ``<bos>`` 2 prepended, padding on the right) that ``AutoTokenizer``
+    reads: a word-level ``tokenizer.json`` over ``words`` and single
+    characters, and a ``tokenizer_config.json``."""
+    import string
+
+    from tokenizers import Tokenizer, models, normalizers, pre_tokenizers, processors
+
+    vocab = {"<pad>": 0, "<eos>": 1, "<bos>": 2, "<unk>": 3}
+    for word in sorted({w.lower().strip(",.") for w in words} | set(string.ascii_lowercase + string.digits)):
+        vocab.setdefault(word, len(vocab))
+    tokenizer = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tokenizer.normalizer = normalizers.Lowercase()
+    tokenizer.pre_tokenizer = pre_tokenizers.Whitespace()
+    tokenizer.post_processor = processors.TemplateProcessing(single="<bos> $A", special_tokens=[("<bos>", 2)])
+    os.makedirs(root, exist_ok=True)
+    tokenizer.save(os.path.join(root, "tokenizer.json"))
+    with open(os.path.join(root, "tokenizer_config.json"), "w") as handle:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "model_max_length": 8192, "pad_token": "<pad>",
+                   "eos_token": "<eos>", "bos_token": "<bos>", "unk_token": "<unk>", "padding_side": "right"}, handle)
+
+
+def lumina2_phase(paths: dict, kernels, device: str) -> dict:
+    """Phase 26: Lumina-Image 2.0 at the JAX preset's published size with its
+    Gemma-2 2B text encoder: a seeded e4m3 diffusers transformer, a seeded
+    Gemma-2 2B in the HF layout (e4m3, full width; full depth where the run's
+    writes leave room, else ``GEMMA_FILE_LAYERS`` of its 26 layers) with its
+    ``config.json``, a seeded tokenizer in ``tokenizer/`` and a hard link to
+    phase 14's Flux VAE; 256-token prompts through ``LLMTextEncoder``
+    (prompts/s, bf16 against the f32 module); the import held bitwise; a
+    1024 px true-CFG flow Euler render; one full-depth forward with the D =
+    96 kernels against the plain attention, the caption mask on; 6 graphed
+    LoRA steps through ``Trainer.run()`` on a bf16 base, every block
+    checkpointed, and the launches of a profiled replay held to the
+    capture's, by shape.  Last, the run's writes against its limit.
+    Returns the launches per step of each kernel at each Lumina2 shape."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import llm_checkpoint_shapes, lumina2_checkpoint_shapes
+    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoder, LLMEncoderConfig
+    from simpletuner_tpu_torch.models.lumina2 import Lumina2, Lumina2Config, Lumina2Transformer
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.text_encoders import LLMTextEncoder, load_text_encoders
+    from simpletuner_tpu_torch.models.vae import VAEConfig
+    from simpletuner_tpu_torch.models.weight_import import lumina2_params_from_diffusers, save_safetensors
+
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    for out in ("chroma", "chroma_train", "chroma_cache", "chroma_data", "chroma_render"):  # disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = Lumina2Config.tiny()
+    wider = dataclasses.replace(tiny, hidden_size=64, num_heads=4, num_kv_heads=1, refiner_depth=2, depth=1,
+                                cap_feat_dim=24, axes_dim=(4, 6, 6))
+    flop_checks = _flop_checks(lumina2_step_flops, Lumina2Transformer, [
+        (arch, (torch.zeros(2, h, w, arch.in_channels), torch.full((2,), 0.5), torch.zeros(2, t, arch.cap_feat_dim),
+                torch.ones(2, t, dtype=torch.int32)), ((h // 2) * (w // 2), t))
+        for arch, (h, w), t in ((tiny, (8, 6), 7), (wider, (4, 8), 5))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    arch = Lumina2Config()
+    if (arch.hidden_size, arch.depth, arch.refiner_depth, arch.num_heads, arch.num_kv_heads, arch.head_dim,
+            arch.ffn_inner) != (2304, 26, 2, 24, 8, 96, 6144):
+        raise RuntimeError(f"not Lumina-Image 2.0's published transformer: {arch}")
+    gemma_full = LLMEncoderConfig.gemma2_2b()
+    shapes = lumina2_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+
+    def gemma_bytes(layers: int) -> int:
+        return sum(math.prod(s) for s in llm_checkpoint_shapes(dataclasses.replace(gemma_full, num_layers=layers))
+                   .values())
+
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    # full depth where the run's writes leave room for it beside the phase's other files
+    room = RUN_WRITE_TARGET_GB - written_before - file_bytes / 1e9 - 0.6
+    layers = gemma_full.num_layers if gemma_bytes(gemma_full.num_layers) / 1e9 <= room else GEMMA_FILE_LAYERS
+    gemma = dataclasses.replace(gemma_full, num_layers=layers)
+    if free < file_bytes + 8e9 or gemma_bytes(layers) / 1e9 > room:
+        raise RuntimeError(f"lumina2: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
+                           f"its files need {(file_bytes + gemma_bytes(layers)) / 1e9 + 0.6:.1f} GB of the "
+                           f"{RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded files: the transformer (two e4m3 shards), Gemma-2 in the
+    # HF layout (one e4m3 file; matrices N(0, 1/fan_in), the embedding N(0,
+    # 1/2304), the unit-offset norm scales N(0, 0.1)) with its config.json,
+    # the tokenizer, and a hard link to phase 14's Flux VAE
+    lumina_dir = os.path.join(work, "lumina2")
+    weights, write_s = _write_e4m3_transformer(lumina_dir, shapes, gen)
+    gemma_shapes = llm_checkpoint_shapes(gemma)
+    gemma_weights = {}
+    for name, shape in gemma_shapes.items():
+        draw = torch.randn(shape, generator=gen, device=dev)
+        draw = 0.1 * draw if len(shape) == 1 else draw / math.sqrt(shape[-1])
+        gemma_weights[name] = draw.to(torch.float8_e4m3fn)
+    os.makedirs(os.path.join(lumina_dir, "text_encoder"))
+    t0 = time.perf_counter()
+    save_safetensors(gemma_weights, os.path.join(lumina_dir, "text_encoder", "model.safetensors"))
+    gemma_write_s = time.perf_counter() - t0
+    del gemma_weights
+    with open(os.path.join(lumina_dir, "text_encoder", "config.json"), "w") as handle:
+        json.dump({"architectures": ["Gemma2Model"], "model_type": "gemma2", "vocab_size": gemma.vocab_size,
+                   "hidden_size": gemma.hidden_size, "intermediate_size": gemma.intermediate_size,
+                   "num_hidden_layers": layers, "num_attention_heads": gemma.num_heads,
+                   "num_key_value_heads": gemma.num_kv_heads, "head_dim": gemma.head_dim,
+                   "rope_theta": gemma.rope_theta, "rms_norm_eps": gemma.rms_eps, "query_pre_attn_scalar": 256,
+                   "attn_logit_softcapping": 50.0, "hidden_activation": "gelu_pytorch_tanh",
+                   "torch_dtype": "float8_e4m3fn"}, handle)
+    write_gemma_tokenizer(os.path.join(lumina_dir, "tokenizer"),
+                          " ".join(TRAIN_CAPTIONS + [LUMINA_PROMPT]).split())
+    _link_tree(os.path.join(flux_dir, "vae"), os.path.join(lumina_dir, "vae"))
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "gemma_gb": gemma_bytes(layers) / 1e9,
+             "gemma_dtype": "float8_e4m3fn", "gemma_layers": [layers, gemma_full.num_layers],
+             "gemma_write_s": gemma_write_s, "written_gb_before": written_before, "written_gb_after": _written_gb(),
+             "free_gb_before": free / 1e9}
+
+    # (c) text encoding: prompts at 256 tokens through the builder the
+    # trainer uses (bf16 compute), prompts/s, and bf16 against the f32 module
+    # on the same weights and tokens
+    spec = Lumina2.TEXT_ENCODER_CONFIGURATION[0]
+    t0 = time.perf_counter()
+    (encoder,) = load_text_encoders([spec], pretrained_path=lumina_dir, device="cuda")
+    torch.cuda.synchronize()
+    encoder_load_s = time.perf_counter() - t0
+    if not isinstance(encoder, LLMTextEncoder) or encoder.config != gemma or \
+            encoder.model.embed_tokens.dtype != torch.bfloat16:
+        raise RuntimeError(f"lumina2: the builder gave {type(encoder).__name__} {encoder.config}")
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]} number {i}" for i in range(TEXT_PROMPTS)]
+    encoder.encode(prompts[:2])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = encoder.encode(prompts)
+    encode_s = time.perf_counter() - t0
+    with torch.device(dev):
+        f32 = LLMEncoder(gemma, dtype=torch.float32)
+    f32.load_state_dict({k: v.float() for k, v in encoder.model.state_dict().items()})
+    out32 = LLMTextEncoder(spec, f32.eval(), encoder.tokenizer).encode(prompts)
+    bf16_err = rel_l2(torch.from_numpy(out["last_hidden_state"]), torch.from_numpy(out32["last_hidden_state"]))
+    valid = out["attention_mask"].sum(axis=1)
+    if out["last_hidden_state"].shape != (TEXT_PROMPTS, LUMINA_CAP, gemma.hidden_size) or \
+            not np.isfinite(out["last_hidden_state"]).all() or bf16_err > GEMMA_BF16_REL_L2 or \
+            not (valid > 1).all():
+        raise RuntimeError(f"lumina2 text encoder: {out['last_hidden_state'].shape}, bf16 vs f32 rel L2 {bf16_err} "
+                           f"(<= {GEMMA_BF16_REL_L2}), valid tokens {valid.tolist()}")
+    text = {"params": sum(p.numel() for p in encoder.model.parameters()), "layers": [layers, gemma_full.num_layers],
+            "load_s": encoder_load_s, "prompts": TEXT_PROMPTS, "tokens": LUMINA_CAP, "encode_s": encode_s,
+            "prompts_per_s": TEXT_PROMPTS / encode_s, "bf16_vs_f32_rel_l2": bf16_err, "bound": GEMMA_BF16_REL_L2,
+            "valid_tokens": [int(valid.min()), int(valid.max())]}
+    del encoder, f32, out, out32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the import, bitwise
+    model = ModelRegistry.create("lumina2", config_namespace({"model_family": "lumina2", "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"lumina2: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, lumina_dir, weights, lumina2_params_from_diffusers, file_bytes)
+    params = imported["params"]
+    del weights, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) a 1024x1024 true-CFG flow Euler render (the caption mask rides the
+    # conditioning); (f) one full-depth forward, kernels against the plain attention
+    config_path = os.path.join(work, "lumina2_render.json")
+    with open(config_path, "w") as handle:
+        json.dump({"model_family": "lumina2", "model_type": "full", "pretrained_model_name_or_path": lumina_dir,
+                   "mixed_precision": "bf16", "vae_dtype": "bf16", "validation_resolution": RESOLUTION,
+                   "validation_seed": 42, "seed": 42, "validation_guidance": LUMINA_GUIDANCE}, handle)
+    t0 = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "lumina2_render"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "lumina2" or not model.is_flow:
+        raise RuntimeError(f"lumina2: the runtime built {model.NAME} {model.arch}")
+    per_forward = 2 * arch.refiner_depth + arch.depth
+    timed = _timed_render(runtime, kernels, LUMINA_PROMPT, LUMINA_GUIDANCE)
+    render = _render_report(timed, per_forward, LUMINA_GUIDANCE, init_s)
+    keys = {name: f"24x{sq}x{sk}x96" for name, _, sq, sk, *_ in LUMINA_KERNEL_CASES}
+    per_shape = {"lumina_joint": arch.depth, "lumina_noise_refiner": arch.refiner_depth,
+                 "lumina_context_refiner": arch.refiner_depth}
+    if timed["launches_by_shape"]["flash_fwd"] != {keys[n]: 2 * STEPS * c for n, c in per_shape.items()}:
+        raise RuntimeError(f"lumina2 render: launches by shape {timed['launches_by_shape']}")
+    latent = RESOLUTION // 8
+    batch = {"latents": torch.zeros((1, latent, latent, 16), device=dev)}
+    embeds = model.encode_text([LUMINA_PROMPT])
+    for key, value in model.collate_text_embeds(embeds).items():
+        batch[key] = torch.as_tensor(value, device=dev)
+    if tuple(batch["text_embeds"].shape) != (1, LUMINA_CAP, arch.cap_feat_dim) or \
+            not 1 < int(batch["text_attention_mask"].sum()) < LUMINA_CAP:
+        raise RuntimeError(f"lumina2: text_embeds {tuple(batch['text_embeds'].shape)}, mask "
+                           f"{int(batch['text_attention_mask'].sum())} valid")
+    model.text_encoders = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    noise = torch.randn((1, latent, latent, 16), generator=gen, device=dev)
+    parity = {**_parity_forward(model, module, batch, noise, LUMINA_SIGMA),
+              "caption_valid": int(batch["text_attention_mask"].sum())}
+    del runtime, module, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) Trainer.run(): bf16 base, every block checkpointed, rank-16 LoRA on
+    # the attention projections by their diffusers names, one square bucket
+    data = _square_jpegs(work, "lumina2_data", LUMINA_TRAIN_IMAGES)
+    cache = os.path.join(work, "lumina2_cache")
+    config = {
+        "model_family": "lumina2", "model_type": "lora", "lora_rank": 16,
+        "lora_target_modules": ["to_q", "to_k", "to_v", "to_out.0"], "pretrained_model_name_or_path": lumina_dir,
+        "gradient_checkpointing": True, "optimizer": "adamw", "learning_rate": 1e-4, "lr_scheduler": "constant",
+        "mixed_precision": "bf16", "vae_dtype": "bf16", "train_batch_size": 1, "resolution": RESOLUTION,
+        "resolution_type": "pixel_area", "max_train_steps": LUMINA_TRAIN_STEPS, "logging_steps": 1,
+        "report_to": "jsonl", "seed": 42, "cache_dir": cache, "output_dir": os.path.join(work, "lumina2_train"),
+        "checkpoint_frozen_base": "reference",
+        "data_backend_config": [
+            {"id": "train", "dataset_type": "image", "type": "local", "instance_data_dir": data,
+             "resolution": RESOLUTION, "resolution_type": "pixel_area", "caption_strategy": "textfile",
+             "cache_dir_vae": os.path.join(cache, "vae")},
+            {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
+             "cache_dir": os.path.join(cache, "text")},
+        ],
+    }
+
+    def check(trainer) -> dict:
+        adapted = {name.rsplit("/", 2)[-2] for name in trainer._state.trainable}
+        if trainer.model.arch != arch or trainer.vae.config != VAEConfig.flux() or \
+                adapted != {"attn_q", "attn_k", "attn_v", "attn_proj"}:
+            raise RuntimeError(f"lumina2 trainer: arch {trainer.model.arch}, VAE {trainer.vae.config}, adapters on "
+                               f"{adapted}")
+        masks = trainer._example_batch()["text_attention_mask"]
+        return {"caption_valid": int(masks.sum())}
+
+    expected = {"flash_fwd": 2 * per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
+    flops = lumina2_step_flops(arch, 1, (latent // 2) ** 2, LUMINA_CAP)
+    train = _train_graphed(config, kernels, LUMINA_TRAIN_STEPS, expected, flops, check)
+    by_shape = train["launches_per_step_by_shape"]
+    if by_shape["flash_fwd"] != {keys[n]: 2 * c for n, c in per_shape.items()} or \
+            any(by_shape[k] != {keys[n]: c for n, c in per_shape.items()} for k in ("flash_bwd_dq", "flash_bwd_dkv")):
+        raise RuntimeError(f"lumina2 trainer: launches per step by shape {by_shape}")
+    train.update({"base": "bf16", "remat": "every block", "lora_rank": 16, "flop_checks": flop_checks})
+    writes = check_run_writes()
+    phase("26 lumina2", config="Alpha-VLLM/Lumina-Image-2.0 transformer/ as the JAX preset Lumina2Config() builds it",
+          params=params, hidden=arch.hidden_size, heads=[arch.num_heads, arch.num_kv_heads, arch.head_dim],
+          blocks=[arch.refiner_depth, arch.refiner_depth, arch.depth], depth=[arch.depth, arch.depth],
+          ffn_inner=arch.ffn_inner, tokens={"caption": LUMINA_CAP, "image": (latent // 2) ** 2, "joint": LUMINA_S},
+          files=files, text_encoder=text, imported=imported, render=render, parity=parity, train=train,
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device, **writes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: {k: v.get(keys[name]) for k, v in by_shape.items()} for name in keys}
 
 
 def int8_cases() -> None:
@@ -4715,8 +5590,131 @@ def profile_denoise(denoise, noise, sigma) -> None:
           bucket_ms=buckets, top=[{"kernel": key[:100], "calls": n, "ms": ms} for key, n, ms in top])
 
 
-def main() -> int:
+def render_phases(work: str, encoders, kernels, smi: str) -> None:
+    """Phases 4-6: the Flux render, its parity call and its profile, from
+    phase 15's encoders."""
     import torch
+
+    from simpletuner_tpu_torch.bench import perturb_adaln
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime
+    from simpletuner_tpu_torch.ops import set_attention_backend
+
+    prompt = "a lighthouse on a basalt cliff at dusk, volumetric light"
+    config_path = os.path.join(work, "config.json")
+    with open(config_path, "w") as handle:
+        json.dump({
+            "model_family": "flux", "model_flavour": "dev", "model_type": "full",
+            "allow_untrained_init": True, "mixed_precision": "bf16", "vae_dtype": "bf16",
+            "validation_resolution": RESOLUTION, "validation_seed": 42, "seed": 42,
+            "validation_guidance_real": 3.5, "flow_schedule_auto_shift": True,
+            "flux_attention_masked_training": True,
+        }, handle)
+
+    start = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "out"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - start
+    runtime.model.attach_text_encoders(encoders)  # phase 15's full-size CLIP-L and T5-XXL
+    module, model = runtime.module, runtime.model
+    params = sum(p.numel() for p in module.parameters())
+    cfg = model.arch
+    if (cfg.hidden_size, cfg.depth_double, cfg.depth_single, cfg.num_heads, cfg.head_dim) != (3072, 19, 38, 24, 128):
+        raise RuntimeError(f"not the full-width Flux.1-dev config: {cfg}")
+
+    step_times, step_start, finite, vae_s = [], [], [], []
+
+    def before_step(mod, args):
+        torch.cuda.synchronize()
+        step_start.append(time.perf_counter())
+
+    def after_step(mod, args, out):
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - step_start[-1])
+
+    def decode_checked(z):
+        finite.append(bool(torch.isfinite(z).all()))
+        start = time.perf_counter()
+        image = decode(z)
+        torch.cuda.synchronize()
+        vae_s.append(time.perf_counter() - start)
+        return image
+
+    hooks = [module.register_forward_pre_hook(before_step), module.register_forward_hook(after_step)]
+    decode = runtime.vae.decode
+    runtime.vae.decode = decode_checked
+
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in kernels:
+        kernel.launches = 0
+    start = time.perf_counter()
+    paths = runtime.render(prompt, steps=STEPS)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - start
+    launches = {kernel.name: kernel.launches for kernel in kernels}
+    if launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]:
+        raise RuntimeError(f"the render launched backward kernels: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    runtime.vae.decode = decode
+    for hook in hooks:
+        hook.remove()
+
+    expected = (cfg.depth_double + cfg.depth_single) * STEPS
+    if launches["flash_fwd"] != expected:
+        raise RuntimeError(f"flash_fwd launched {launches['flash_fwd']} times in the render, expected {expected}")
+    if len(paths) != 1 or finite != [True]:
+        raise RuntimeError(f"render produced {paths}, finite latents {finite}")
+    check_png(paths[0], RESOLUTION, RESOLUTION)
+    phase("4 render", params=params, resolution=RESOLUTION, steps=STEPS, init_s=init_s, render_s=render_s,
+          s_per_step=sum(step_times[1:]) / (len(step_times) - 1), step_s=step_times,
+          vae_decode_s=vae_s[0], peak_gib=peak / 2**30, launches=launches,
+          png=os.path.basename(paths[0]), png_bytes=os.path.getsize(paths[0]), device=smi)
+
+    # phase 5: AdaLN lin weights start at zero, so every gate is 0 and
+    # attention would not reach the output; give them the lecun-normal
+    # draw every other kernel gets
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    perturb_adaln(module, gen)
+    dev = torch.device("cuda")
+    latent = RESOLUTION // 8
+    batch = {"latents": torch.zeros((1, latent, latent, model.latent_channels), device=dev)}
+    embeds = model.encode_text([prompt])[0]
+    for key, value in model.collate_text_embeds([embeds]).items():
+        batch[key] = torch.as_tensor(value, device=dev)
+    cond = model.inference_conditioning(batch)
+    noise = torch.randn((1, latent, latent, model.latent_channels), generator=gen, device=dev)
+    sigma = torch.tensor(0.7)
+    unmasked_cond = {k: v for k, v in cond.items() if k != "t5_masks"}
+    with torch.no_grad():
+        kernel_v = model.denoise_fn(module, cond)(noise, sigma)
+        unmasked_v = model.denoise_fn(module, unmasked_cond)(noise, sigma)
+        set_attention_backend("xla")
+        try:
+            plain_v = model.denoise_fn(module, cond)(noise, sigma)
+        finally:
+            set_attention_backend("auto")
+        step_ms = {}
+        for label in ("masked", "unmasked", "unmasked", "masked"):  # in turns
+            fn = model.denoise_fn(module, cond if label == "masked" else unmasked_cond)
+            step_ms.setdefault(label, []).append(cuda_ms(lambda: fn(noise, sigma), 3, warmup=1))
+    err, mask_effect = rel_l2(kernel_v, plain_v), rel_l2(unmasked_v, plain_v)
+    if not (torch.isfinite(kernel_v).all() and err <= PARITY_REL_L2 and mask_effect > 5 * err):
+        raise RuntimeError(f"full-width parity: rel L2 {err} (<= {PARITY_REL_L2}), mask effect {mask_effect}")
+    phase("5 parity", rel_l2=err, bound=PARITY_REL_L2, unmasked_rel_l2=mask_effect,
+          denoise_ms_masked=step_ms["masked"], denoise_ms_unmasked=step_ms["unmasked"],
+          txt_valid=int(embeds["attention_mask"].sum()))
+    profile_denoise(model.denoise_fn(module, unmasked_cond), noise, sigma)  # as the render runs it
+    del runtime, module, model
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description="Drive the torch port once on one NVIDIA GPU and check it.")
+    parser.add_argument("--phases", help="run these phases (e.g. 1-3,14-16,25,26), the phases they need and 1-3, 7")
+    args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device", file=sys.stderr)
@@ -4728,11 +5726,7 @@ def main() -> int:
     print(smi, flush=True)
 
     from simpletuner_tpu_torch import csrc
-    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime
-    from simpletuner_tpu_torch.ops import (
-        flash_bwd_dkv_kernel, flash_bwd_dq_kernel, flash_fwd_kernel, set_attention_backend,
-    )
-    from simpletuner_tpu_torch.bench import perturb_adaln
+    from simpletuner_tpu_torch.ops import flash_bwd_dkv_kernel, flash_bwd_dq_kernel, flash_fwd_kernel
 
     kernels = [flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel]
     libraries = sorted({kernel.library for kernel in kernels})
@@ -4745,153 +5739,114 @@ def main() -> int:
              for library in libraries}
     phase("2 build", seconds=time.perf_counter() - start, nvcc_seconds=csrc.BUILD_SECONDS, ptxas=ptxas)
 
+    if args.phases is not None:
+        RUN["requested"] = named_phases(args.phases)
+        RUN["phases"] = with_needs(RUN["requested"])
+    print(json.dumps({"phases": sorted(RUN["phases"])}), flush=True)
+
     fwd_entry, fwd256_entry, long_fwd_entries = kernel_cases()
-
+    launches = {"main": None, "auraflow": {}, "wan": {}, "ltx": {}, "chroma": None, "lumina2": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        checkpoints = weight_import(work)
-        encoders = text_encoders(checkpoints)
-        vae_cache(checkpoints)
-
-        prompt = "a lighthouse on a basalt cliff at dusk, volumetric light"
-        config_path = os.path.join(work, "config.json")
-        with open(config_path, "w") as handle:
-            json.dump({
-                "model_family": "flux", "model_flavour": "dev", "model_type": "full",
-                "allow_untrained_init": True, "mixed_precision": "bf16", "vae_dtype": "bf16",
-                "validation_resolution": RESOLUTION, "validation_seed": 42, "seed": 42,
-                "validation_guidance_real": 3.5, "flow_schedule_auto_shift": True,
-                "flux_attention_masked_training": True,
-            }, handle)
-
-        start = time.perf_counter()
-        runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "out"))
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - start
-        runtime.model.attach_text_encoders(encoders)  # phase 15's full-size CLIP-L and T5-XXL
-        module, model = runtime.module, runtime.model
-        params = sum(p.numel() for p in module.parameters())
-        cfg = model.arch
-        if (cfg.hidden_size, cfg.depth_double, cfg.depth_single, cfg.num_heads, cfg.head_dim) != (3072, 19, 38, 24, 128):
-            raise RuntimeError(f"not the full-width Flux.1-dev config: {cfg}")
-
-        step_times, step_start, finite, vae_s = [], [], [], []
-
-        def before_step(mod, args):
-            torch.cuda.synchronize()
-            step_start.append(time.perf_counter())
-
-        def after_step(mod, args, out):
-            torch.cuda.synchronize()
-            step_times.append(time.perf_counter() - step_start[-1])
-
-        def decode_checked(z):
-            finite.append(bool(torch.isfinite(z).all()))
-            start = time.perf_counter()
-            image = decode(z)
-            torch.cuda.synchronize()
-            vae_s.append(time.perf_counter() - start)
-            return image
-
-        hooks = [module.register_forward_pre_hook(before_step), module.register_forward_hook(after_step)]
-        decode = runtime.vae.decode
-        runtime.vae.decode = decode_checked
-
-        torch.cuda.reset_peak_memory_stats()
-        for kernel in kernels:
-            kernel.launches = 0
-        start = time.perf_counter()
-        paths = runtime.render(prompt, steps=STEPS)
-        torch.cuda.synchronize()
-        render_s = time.perf_counter() - start
-        launches = {kernel.name: kernel.launches for kernel in kernels}
-        if launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]:
-            raise RuntimeError(f"the render launched backward kernels: {launches}")
-        peak = torch.cuda.max_memory_allocated()
-        runtime.vae.decode = decode
-        for hook in hooks:
-            hook.remove()
-
-        expected = (cfg.depth_double + cfg.depth_single) * STEPS
-        if launches["flash_fwd"] != expected:
-            raise RuntimeError(f"flash_fwd launched {launches['flash_fwd']} times in the render, expected {expected}")
-        if len(paths) != 1 or finite != [True]:
-            raise RuntimeError(f"render produced {paths}, finite latents {finite}")
-        check_png(paths[0], RESOLUTION, RESOLUTION)
-        phase("4 render", params=params, resolution=RESOLUTION, steps=STEPS, init_s=init_s, render_s=render_s,
-              s_per_step=sum(step_times[1:]) / (len(step_times) - 1), step_s=step_times,
-              vae_decode_s=vae_s[0], peak_gib=peak / 2**30, launches=launches,
-              png=os.path.basename(paths[0]), png_bytes=os.path.getsize(paths[0]), device=smi)
-
-        # phase 5: AdaLN lin weights start at zero, so every gate is 0 and
-        # attention would not reach the output; give them the lecun-normal
-        # draw every other kernel gets
-        gen = torch.Generator(device="cuda").manual_seed(5)
-        perturb_adaln(module, gen)
-        dev = torch.device("cuda")
-        latent = RESOLUTION // 8
-        batch = {"latents": torch.zeros((1, latent, latent, model.latent_channels), device=dev)}
-        embeds = model.encode_text([prompt])[0]
-        for key, value in model.collate_text_embeds([embeds]).items():
-            batch[key] = torch.as_tensor(value, device=dev)
-        cond = model.inference_conditioning(batch)
-        noise = torch.randn((1, latent, latent, model.latent_channels), generator=gen, device=dev)
-        sigma = torch.tensor(0.7)
-        unmasked_cond = {k: v for k, v in cond.items() if k != "t5_masks"}
-        with torch.no_grad():
-            kernel_v = model.denoise_fn(module, cond)(noise, sigma)
-            unmasked_v = model.denoise_fn(module, unmasked_cond)(noise, sigma)
-            set_attention_backend("xla")
-            try:
-                plain_v = model.denoise_fn(module, cond)(noise, sigma)
-            finally:
-                set_attention_backend("auto")
-            step_ms = {}
-            for label in ("masked", "unmasked", "unmasked", "masked"):  # in turns
-                fn = model.denoise_fn(module, cond if label == "masked" else unmasked_cond)
-                step_ms.setdefault(label, []).append(cuda_ms(lambda: fn(noise, sigma), 3, warmup=1))
-        err, mask_effect = rel_l2(kernel_v, plain_v), rel_l2(unmasked_v, plain_v)
-        if not (torch.isfinite(kernel_v).all() and err <= PARITY_REL_L2 and mask_effect > 5 * err):
-            raise RuntimeError(f"full-width parity: rel L2 {err} (<= {PARITY_REL_L2}), mask effect {mask_effect}")
-        phase("5 parity", rel_l2=err, bound=PARITY_REL_L2, unmasked_rel_l2=mask_effect,
-              denoise_ms_masked=step_ms["masked"], denoise_ms_unmasked=step_ms["unmasked"],
-              txt_valid=int(embeds["attention_mask"].sum()))
-        profile_denoise(model.denoise_fn(module, unmasked_cond), noise, sigma)  # as the render runs it
-        del runtime, module, model, encoders
+        checkpoints = weight_import(work) if _runs(14) else {"work": work}
+        encoders = text_encoders(checkpoints) if _runs(15) else None
+        if _runs(16):
+            vae_cache(checkpoints)
+        if _runs(4):
+            render_phases(work, encoders, kernels, smi)
+        del encoders
         torch.cuda.empty_cache()
 
         bwd_entries = backward_cases()
-        train_steps(kernels)
-        gradient_parity("9 gradient parity")
-        int8_cases()
-        gradient_parity("11 gradient parity (int8 base)", quant="int8")
-        launches_main, flagship_median = graph_step(kernels)
-        gradient_parity("13 gradient parity (full depth)", depth=(19, 38))
-        phase17 = trainer_phase(checkpoints, flagship_median, kernels, smi)
-        server_phase(phase17, smi)
-        sd3_phase(checkpoints, kernels, smi)
-        sdxl_phase(checkpoints, kernels, smi)
-        ddpm_families_phase(checkpoints, kernels, smi)
-        launches_auraflow = auraflow_phase(checkpoints, kernels, smi)
-        launches_wan = wan_phase(checkpoints, kernels, smi)
-        launches_ltx = ltx_phase(checkpoints, kernels, smi)
+        if _runs(8):
+            train_steps(kernels)
+        if _runs(9):
+            gradient_parity("9 gradient parity")
+        if _runs(10):
+            int8_cases()
+        if _runs(11):
+            gradient_parity("11 gradient parity (int8 base)", quant="int8")
+        flagship_median = None
+        if _runs(12):
+            launches["main"], flagship_median = graph_step(kernels)
+        if _runs(13):
+            gradient_parity("13 gradient parity (full depth)", depth=(19, 38))
+        if _runs(17):
+            phase17 = trainer_phase(checkpoints, flagship_median, kernels, smi)
+            if _runs(18):
+                server_phase(phase17, smi)
+        from simpletuner_tpu_torch.models.auraflow import AuraFlow, AuraFlowConfig
+        from simpletuner_tpu_torch.models.checkpoint_layouts import (
+            auraflow_checkpoint_shapes, ltx_checkpoint_shapes, sd3_checkpoint_shapes, wan_checkpoint_shapes,
+        )
+        from simpletuner_tpu_torch.models.ltxvideo import LTXConfig, LTXVideo
+        from simpletuner_tpu_torch.models.sd3 import SD3, SD3Config
+        from simpletuner_tpu_torch.models.wan import Wan, WanConfig
 
-    # each wrapper's head dim 256 instances beside its others: launches from
-    # phase 22's profiled replay (AuraFlow's attention, all at head dim 256),
-    # the others' from phase 12's; each kernel at Wan's and LTX's three shapes,
-    # launches per step at that shape in phase 23's and phase 24's runs (the
-    # trainers', the 14B and 13B steps')
+        def extra_gb(layout, full, cut) -> float:  # e4m3: one byte a parameter
+            return sum(math.prod(v) for v in layout(full).values()) / 1e9 - \
+                sum(math.prod(v) for v in layout(cut).values()) / 1e9
+
+        if _runs(19):
+            full = SD3Config.large()
+            depth = full.depth if _full_depth(19, extra_gb(sd3_checkpoint_shapes, full, dataclasses.replace(
+                full, depth=SD3_CUT_BLOCKS))) else SD3_CUT_BLOCKS
+            with family_depth(SD3, depth=depth):
+                sd3_phase(checkpoints, kernels, smi, depth)
+        if _runs(20):
+            sdxl_phase(checkpoints, kernels, smi)
+        if _runs(21):
+            ddpm_families_phase(checkpoints, kernels, smi)
+        if _runs(22):
+            full = AuraFlowConfig()
+            cut = dataclasses.replace(full, depth_double=AURA_CUT_BLOCKS[0], depth_single=AURA_CUT_BLOCKS[1])
+            depth = (full.depth_double, full.depth_single) if _full_depth(
+                22, extra_gb(auraflow_checkpoint_shapes, full, cut)) else AURA_CUT_BLOCKS
+            with family_depth(AuraFlow, depth_double=depth[0], depth_single=depth[1]):
+                launches["auraflow"] = auraflow_phase(checkpoints, kernels, smi, depth)
+        if _runs(23):
+            full = WanConfig.b1_3()
+            depth = full.depth if _full_depth(23, extra_gb(wan_checkpoint_shapes, full, dataclasses.replace(
+                full, depth=WAN_CUT_BLOCKS))) else WAN_CUT_BLOCKS
+            with family_depth(Wan, depth=depth):
+                launches["wan"] = wan_phase(checkpoints, kernels, smi, depth)
+        if _runs(24):
+            full = LTXConfig()
+            depth = full.depth if _full_depth(24, extra_gb(ltx_checkpoint_shapes, full, dataclasses.replace(
+                full, depth=LTX_CUT_BLOCKS))) else LTX_CUT_BLOCKS
+            with family_depth(LTXVideo, depth=depth):
+                launches["ltx"] = ltx_phase(checkpoints, kernels, smi, depth)
+        if _runs(25):
+            launches["chroma"] = chroma_phase(checkpoints, kernels, smi)
+        if _runs(26):
+            launches["lumina2"] = lumina2_phase(checkpoints, kernels, smi)
+        else:
+            check_run_writes()
+
+    # each wrapper's rows: at the Flux shape (launches: the profiler's count in
+    # phase 12's profiled replay), its head dim 256 instances (phase 22's
+    # replay, AuraFlow's attention, all at head dim 256), Chroma's (the Flux
+    # shape's times; phase 25's replay) and each kernel at Wan's, LTX's and
+    # Lumina2's three shapes (the wrappers' count at that shape per step in
+    # phase 23's, 24's and 26's runs: the trainers', the 14B and 13B steps');
+    # in a run of some phases only, the rows of the phases it ran
     sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
                "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}
     entries = {"flash_fwd": fwd_entry, "flash_fwd_d256": fwd256_entry, **bwd_entries, **long_fwd_entries}
-    rows = [(name, name, launches_main) for name in sources] + \
-        [(f"{name}_d256", name, launches_auraflow) for name in sources] + \
-        [(f"{name}_{shape}", name, launches_wan[shape]) for shape, *_ in WAN_KERNEL_CASES for name in sources] + \
-        [(f"{name}_{shape}", name, launches_ltx[shape]) for shape, *_ in LTX_KERNEL_CASES for name in sources]
+    main_launches = launches["main"] or {name: None for name in sources}
+    rows = [(name, name, name, main_launches) for name in sources]
+    if launches["auraflow"]:
+        rows += [(f"{name}_d256", f"{name}_d256", name, launches["auraflow"]) for name in sources]
+    if launches["chroma"]:
+        rows += [(f"{name}_chroma", name, name, launches["chroma"]) for name in sources]
+    for family, cases in (("wan", WAN_KERNEL_CASES), ("ltx", LTX_KERNEL_CASES), ("lumina2", LUMINA_KERNEL_CASES)):
+        if launches[family]:
+            rows += [(f"{name}_{case[0]}", f"{name}_{case[0]}", name, launches[family][case[0]])
+                     for case in cases for name in sources]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"simpletuner_tpu_torch/{sources[kernel][0]}",
-         "replaces": f"simpletuner_tpu/ops/flash_attention.py:{sources[kernel][1]}", "launches": launches[kernel],
-         **entries[name]}
-        for name, kernel, launches in rows
+         "replaces": f"simpletuner_tpu/ops/flash_attention.py:{sources[kernel][1]}", "launches": counts[kernel],
+         **entries[entry]}
+        for name, entry, kernel, counts in rows
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)

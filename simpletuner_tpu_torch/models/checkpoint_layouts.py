@@ -422,6 +422,132 @@ def ltx_checkpoint_shapes(arch) -> Dict[str, tuple]:
     return shapes
 
 
+def chroma_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers ``ChromaTransformer2DModel``
+    of ``arch`` (``models/chroma/transformer.py::ChromaConfig``) as
+    ``chroma_params_from_diffusers`` reads it: Flux's diffusers blocks
+    without their modulation linears, the ``distilled_guidance_layer``
+    approximator, no time, text or guidance embedders and no ``norm_out``."""
+    h, hd, mlp, hidden = arch.hidden_size, arch.head_dim, int(arch.hidden_size * arch.mlp_ratio), \
+        arch.approximator_hidden
+    shapes: Dict[str, tuple] = {}
+
+    def linear(name, out_features, in_features):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        shapes[f"{name}.bias"] = (out_features,)
+
+    linear("x_embedder", h, arch.in_channels)
+    linear("context_embedder", h, arch.txt_in_features)
+    linear("proj_out", arch.in_channels, h)
+    linear("distilled_guidance_layer.in_proj", hidden, arch.approximator_channels)
+    linear("distilled_guidance_layer.out_proj", h, hidden)
+    for i in range(arch.approximator_layers):
+        linear(f"distilled_guidance_layer.layers.{i}.linear_1", hidden, hidden)
+        linear(f"distilled_guidance_layer.layers.{i}.linear_2", hidden, hidden)
+        shapes[f"distilled_guidance_layer.norms.{i}.weight"] = (hidden,)
+    for i in range(arch.depth_double):
+        p = f"transformer_blocks.{i}"
+        for proj in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj", "to_out.0", "to_add_out"):
+            linear(f"{p}.attn.{proj}", h, h)
+        for norm in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            shapes[f"{p}.attn.{norm}.weight"] = (hd,)
+        for ff in ("ff", "ff_context"):
+            linear(f"{p}.{ff}.net.0.proj", mlp, h)
+            linear(f"{p}.{ff}.net.2", h, mlp)
+    for i in range(arch.depth_single):
+        p = f"single_transformer_blocks.{i}"
+        for proj in ("to_q", "to_k", "to_v"):
+            linear(f"{p}.attn.{proj}", h, h)
+        shapes[f"{p}.attn.norm_q.weight"] = (hd,)
+        shapes[f"{p}.attn.norm_k.weight"] = (hd,)
+        linear(f"{p}.proj_mlp", mlp, h)
+        linear(f"{p}.proj_out", h, h + mlp)
+    return shapes
+
+
+def lumina2_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers ``Lumina2Transformer2DModel``
+    of ``arch`` (``models/lumina2/transformer.py::Lumina2Config``) as
+    ``lumina2_params_from_diffusers`` reads it: bias-free attention and
+    SwiGLU, the RMSNorm scales, the time MLP, caption embedder, modulation
+    and final linears with biases."""
+    dim, dh, inner, p = arch.hidden_size, arch.head_dim, arch.ffn_inner, arch.patch_size
+    shapes: Dict[str, tuple] = {}
+
+    def linear(name, out_features, in_features, bias=True):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        if bias:
+            shapes[f"{name}.bias"] = (out_features,)
+
+    linear("x_embedder", dim, p * p * arch.in_channels)
+    linear("time_caption_embed.timestep_embedder.linear_1", arch.time_dim, 256)
+    linear("time_caption_embed.timestep_embedder.linear_2", arch.time_dim, arch.time_dim)
+    shapes["time_caption_embed.caption_embedder.0.weight"] = (arch.cap_feat_dim,)
+    linear("time_caption_embed.caption_embedder.1", dim, arch.cap_feat_dim)
+    linear("norm_out.linear_1", dim, arch.time_dim)
+    linear("norm_out.linear_2", p * p * arch.in_channels, dim)
+    blocks = [(f"context_refiner.{i}", False) for i in range(arch.refiner_depth)]
+    blocks += [(f"noise_refiner.{i}", True) for i in range(arch.refiner_depth)]
+    blocks += [(f"layers.{i}", True) for i in range(arch.depth)]
+    for src, modulated in blocks:
+        linear(f"{src}.attn.to_q", arch.num_heads * dh, dim, bias=False)
+        linear(f"{src}.attn.to_k", arch.num_kv_heads * dh, dim, bias=False)
+        linear(f"{src}.attn.to_v", arch.num_kv_heads * dh, dim, bias=False)
+        linear(f"{src}.attn.to_out.0", dim, arch.num_heads * dh, bias=False)
+        shapes[f"{src}.attn.norm_q.weight"] = (dh,)
+        shapes[f"{src}.attn.norm_k.weight"] = (dh,)
+        linear(f"{src}.feed_forward.linear_1", inner, dim, bias=False)
+        linear(f"{src}.feed_forward.linear_3", inner, dim, bias=False)
+        linear(f"{src}.feed_forward.linear_2", dim, inner, bias=False)
+        for norm in ("norm2", "ffn_norm1", "ffn_norm2"):
+            shapes[f"{src}.{norm}.weight"] = (dim,)
+        if modulated:
+            linear(f"{src}.norm1.linear", 4 * dim, arch.time_dim)
+            shapes[f"{src}.norm1.norm.weight"] = (dim,)
+        else:
+            shapes[f"{src}.norm1.weight"] = (dim,)
+    return shapes
+
+
+def llm_checkpoint_shapes(cfg) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of an HF causal LM of ``cfg``
+    (``models/llm_encoder.py::LLMEncoderConfig``) as ``llm_params_from_hf``
+    reads it: ``model.*`` for the llama / qwen2 / mistral / gemma2 layouts
+    (Gemma-2's four norms per layer), ``transformer.*`` for ChatGLM."""
+    dim, dh, ffn = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    q_out, kv_out = cfg.num_heads * dh, cfg.num_kv_heads * dh
+    if cfg.arch == "chatglm":
+        shapes: Dict[str, tuple] = {"transformer.embedding.word_embeddings.weight": (cfg.vocab_size, dim),
+                                    "transformer.encoder.final_layernorm.weight": (dim,)}
+        for i in range(cfg.num_layers):
+            src = f"transformer.encoder.layers.{i}"
+            shapes[f"{src}.input_layernorm.weight"] = (dim,)
+            shapes[f"{src}.self_attention.query_key_value.weight"] = (q_out + 2 * kv_out, dim)
+            if cfg.qkv_bias:
+                shapes[f"{src}.self_attention.query_key_value.bias"] = (q_out + 2 * kv_out,)
+            shapes[f"{src}.self_attention.dense.weight"] = (dim, q_out)
+            shapes[f"{src}.post_attention_layernorm.weight"] = (dim,)
+            shapes[f"{src}.mlp.dense_h_to_4h.weight"] = (2 * ffn, dim)
+            shapes[f"{src}.mlp.dense_4h_to_h.weight"] = (dim, ffn)
+        return shapes
+    shapes = {"model.embed_tokens.weight": (cfg.vocab_size, dim), "model.norm.weight": (dim,)}
+    norms = ("input_layernorm", "post_attention_layernorm") + (
+        ("pre_feedforward_layernorm", "post_feedforward_layernorm") if cfg.sandwich_norms else ())
+    for i in range(cfg.num_layers):
+        src = f"model.layers.{i}"
+        for norm in norms:
+            shapes[f"{src}.{norm}.weight"] = (dim,)
+        for proj, out_features in (("q_proj", q_out), ("k_proj", kv_out), ("v_proj", kv_out)):
+            shapes[f"{src}.self_attn.{proj}.weight"] = (out_features, dim)
+            if cfg.qkv_bias:
+                shapes[f"{src}.self_attn.{proj}.bias"] = (out_features,)
+        shapes[f"{src}.self_attn.o_proj.weight"] = (dim, q_out)
+        shapes[f"{src}.mlp.gate_proj.weight"] = (ffn, dim)
+        shapes[f"{src}.mlp.up_proj.weight"] = (ffn, dim)
+        shapes[f"{src}.mlp.down_proj.weight"] = (dim, ffn)
+    return shapes
+
+
 def vae_checkpoint_shapes(vae: nn.Module, legacy_attention: bool = False) -> Dict[str, tuple]:
     """Tensor names and torch shapes of a diffusers ``AutoencoderKL``
     checkpoint for the port's ``vae`` module, ``quant_conv`` and

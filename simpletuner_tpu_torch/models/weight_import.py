@@ -20,7 +20,10 @@ for level as the JAX presets build it: attention wherever
 ``PixArtTransformer2DModel`` layout (``transformer/``); AuraFlow the
 diffusers ``AuraFlowTransformer2DModel`` layout (``transformer/``); Wan the
 diffusers ``WanTransformer3DModel`` layout (``transformer/``); LTX-Video the
-diffusers ``LTXVideoTransformer3DModel`` layout (``transformer/``).
+diffusers ``LTXVideoTransformer3DModel`` layout (``transformer/``); Chroma the
+diffusers ``ChromaTransformer2DModel`` layout (``transformer/``; read without
+Flux's packing permutation, as the JAX importer reads it: ROADMAP Queue 3);
+Lumina2 the diffusers ``Lumina2Transformer2DModel`` layout (``transformer/``).
 
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
 keeps f32, bf16 and fp8 (e4m3) leaves in the file's dtype (``_float``; the
@@ -35,8 +38,8 @@ The safetensors reader and writer are the port's own (stdlib, numpy and
 torch): an 8-byte little-endian header length, a JSON header, raw
 little-endian bytes.  Files are memory-mapped copy-on-write, so a tensor is
 read from disk when it is first used.  Only the ``flux``, ``sd3``, ``sdxl``,
-``sd1x``, ``sd2x``, ``pixart_sigma``, ``auraflow``, ``wan`` and ``ltxvideo`` families
-import; every other family raises.
+``sd1x``, ``sd2x``, ``pixart_sigma``, ``auraflow``, ``wan``, ``ltxvideo``, ``chroma``
+and ``lumina2`` families import; every other family raises.
 """
 
 from __future__ import annotations
@@ -863,12 +866,133 @@ def load_ltx_params(model, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# Chroma (diffusers ChromaTransformer2DModel: Flux topology, the per-block
+# modulation pruned into the distilled-guidance approximator)
+# ---------------------------------------------------------------------------------
+
+
+def chroma_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a diffusers Chroma transformer of ``arch``
+    (``ChromaConfig``).  Unlike both Flux importers it does not reorder
+    ``x_embedder`` / ``proj_out`` from diffusers' (c, ph, pw) packing to the
+    port's (ph, pw, c): the JAX importer does not (ROADMAP Queue 3)."""
+    w = weights
+    approx: Dict[str, Any] = {
+        "in_proj": _linear(w, "distilled_guidance_layer.in_proj"),
+        "out_proj": _linear(w, "distilled_guidance_layer.out_proj"),
+    }
+    for i in range(arch.approximator_layers):
+        approx[f"layer_{i}_1"] = _linear(w, f"distilled_guidance_layer.layers.{i}.linear_1")
+        approx[f"layer_{i}_2"] = _linear(w, f"distilled_guidance_layer.layers.{i}.linear_2")
+        approx[f"norm_{i}"] = _scale(w, f"distilled_guidance_layer.norms.{i}.weight")
+    params: Dict[str, Any] = {"img_in": _linear(w, "x_embedder"), "txt_in": _linear(w, "context_embedder"),
+                              "final_proj": _linear(w, "proj_out"), "approximator": approx}
+    for i in range(arch.depth_double):
+        p = f"transformer_blocks.{i}"
+        params[f"double_{i}"] = {
+            "img_attn_q": _linear(w, f"{p}.attn.to_q"),
+            "img_attn_k": _linear(w, f"{p}.attn.to_k"),
+            "img_attn_v": _linear(w, f"{p}.attn.to_v"),
+            "txt_attn_q": _linear(w, f"{p}.attn.add_q_proj"),
+            "txt_attn_k": _linear(w, f"{p}.attn.add_k_proj"),
+            "txt_attn_v": _linear(w, f"{p}.attn.add_v_proj"),
+            "img_attn_norm_q": _scale(w, f"{p}.attn.norm_q.weight"),
+            "img_attn_norm_k": _scale(w, f"{p}.attn.norm_k.weight"),
+            "txt_attn_norm_q": _scale(w, f"{p}.attn.norm_added_q.weight"),
+            "txt_attn_norm_k": _scale(w, f"{p}.attn.norm_added_k.weight"),
+            "img_attn_proj": _linear(w, f"{p}.attn.to_out.0"),
+            "txt_attn_proj": _linear(w, f"{p}.attn.to_add_out"),
+            "img_mlp": {"proj_in": _linear(w, f"{p}.ff.net.0.proj"), "proj_out": _linear(w, f"{p}.ff.net.2")},
+            "txt_mlp": {"proj_in": _linear(w, f"{p}.ff_context.net.0.proj"),
+                        "proj_out": _linear(w, f"{p}.ff_context.net.2")},
+        }
+    for i in range(arch.depth_single):
+        p = f"single_transformer_blocks.{i}"
+        parts = [f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v", f"{p}.proj_mlp"]
+        params[f"single_{i}"] = {
+            "linear1": {"kernel": torch.cat([_float(w[f"{part}.weight"]) for part in parts]).t(),
+                        "bias": torch.cat([_float(w[f"{part}.bias"]) for part in parts])},
+            "linear2": _linear(w, f"{p}.proj_out"),
+            "norm_q": _scale(w, f"{p}.attn.norm_q.weight"),
+            "norm_k": _scale(w, f"{p}.attn.norm_k.weight"),
+        }
+    return params
+
+
+def load_chroma_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a diffusers Chroma transformer
+    (a model dir with a ``transformer/`` subfolder, or one file)."""
+    params = chroma_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported chroma weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
+# Lumina2 (diffusers Lumina2Transformer2DModel: Next-DiT with context / noise
+# refiners and GQA blocks)
+# ---------------------------------------------------------------------------------
+
+
+def _lumina2_block(w: Mapping[str, torch.Tensor], src: str, modulated: bool) -> Dict[str, Any]:
+    block: Dict[str, Any] = {
+        "attn_q": _linear(w, f"{src}.attn.to_q"),
+        "attn_k": _linear(w, f"{src}.attn.to_k"),
+        "attn_v": _linear(w, f"{src}.attn.to_v"),
+        "norm_q": _scale(w, f"{src}.attn.norm_q.weight"),
+        "norm_k": _scale(w, f"{src}.attn.norm_k.weight"),
+        "attn_proj": _linear(w, f"{src}.attn.to_out.0"),
+        "feed_forward": {name: _linear(w, f"{src}.feed_forward.{name}")
+                         for name in ("linear_1", "linear_2", "linear_3")},
+        "norm2": _scale(w, f"{src}.norm2.weight"),
+        "ffn_norm1": _scale(w, f"{src}.ffn_norm1.weight"),
+        "ffn_norm2": _scale(w, f"{src}.ffn_norm2.weight"),
+    }
+    if modulated:
+        block["norm1_linear"] = _linear(w, f"{src}.norm1.linear")
+        block["norm1_norm"] = _scale(w, f"{src}.norm1.norm.weight")
+    else:
+        block["norm1_norm"] = _scale(w, f"{src}.norm1.weight")
+    return block
+
+
+def lumina2_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a diffusers Lumina2 transformer of ``arch`` (``Lumina2Config``)."""
+    w = weights
+    params: Dict[str, Any] = {
+        "patch_in": _linear(w, "x_embedder"),
+        "time_in": {
+            "in_layer": _linear(w, "time_caption_embed.timestep_embedder.linear_1"),
+            "out_layer": _linear(w, "time_caption_embed.timestep_embedder.linear_2"),
+        },
+        "cap_norm": _scale(w, "time_caption_embed.caption_embedder.0.weight"),
+        "cap_in": _linear(w, "time_caption_embed.caption_embedder.1"),
+        "final_mod": _linear(w, "norm_out.linear_1"),
+        "final_proj": _linear(w, "norm_out.linear_2"),
+    }
+    for i in range(arch.refiner_depth):
+        params[f"context_refiner_{i}"] = _lumina2_block(w, f"context_refiner.{i}", modulated=False)
+        params[f"noise_refiner_{i}"] = _lumina2_block(w, f"noise_refiner.{i}", modulated=True)
+    for i in range(arch.depth):
+        params[f"layer_{i}"] = _lumina2_block(w, f"layers.{i}", modulated=True)
+    return params
+
+
+def load_lumina2_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a diffusers Lumina2 transformer
+    (a model dir with a ``transformer/`` subfolder, or one file)."""
+    params = lumina2_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported lumina2 weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
 _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_unet_params, "sd1x": load_unet_params,
               "sd2x": load_unet_params, "pixart_sigma": load_pixart_params, "auraflow": load_auraflow_params,
-              "wan": load_wan_params, "ltxvideo": load_ltx_params}
+              "wan": load_wan_params, "ltxvideo": load_ltx_params, "chroma": load_chroma_params,
+              "lumina2": load_lumina2_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:

@@ -4,7 +4,8 @@ The torch port's copy of the part of ``simpletuner_tpu/training/lora.py`` it
 uses: ``flux_key_map`` (lora.py:76), ``unet_key_map`` (lora.py:116; sdxl,
 sd1x and sd2x), ``sd3_key_map`` (lora.py:158), ``pixart_key_map``
 (lora.py:336), ``wan_key_map`` (lora.py:316), ``auraflow_key_map`` (lora.py:561),
-``ltx_key_map`` (lora.py:589) and ``_key_map_for``
+``ltx_key_map`` (lora.py:589), ``lumina2_key_map`` (lora.py:468; chroma takes
+``flux_key_map``, lora.py:651) and ``_key_map_for``
 (lora.py:680), which resolve the LoRA target presets and
 name the adapters of an export (the maps leave ``patch_in`` and
 ``context_in`` under their own names, as the JAX export does),
@@ -182,6 +183,30 @@ def ltx_key_map(arch) -> Dict[str, Any]:
     return mapping
 
 
+def lumina2_key_map(arch) -> Dict[str, Any]:
+    """diffusers ``Lumina2Transformer2DModel`` paths: the joint ``layers`` and the
+    context / noise refiners, bias-free GQA attention and the SwiGLU."""
+    mapping: Dict[str, Any] = {
+        "cap_in": "time_caption_embed.caption_embedder.1",
+        "patch_in": "x_embedder",
+        "final_proj": "norm_out.linear_2",
+    }
+    table = {
+        "attn_q": "attn.to_q", "attn_k": "attn.to_k", "attn_v": "attn.to_v",
+        "attn_proj": "attn.to_out.0",
+        "feed_forward/linear_1": "feed_forward.linear_1",
+        "feed_forward/linear_2": "feed_forward.linear_2",
+        "feed_forward/linear_3": "feed_forward.linear_3",
+    }
+    groups = [(f"layer_{i}", f"layers.{i}") for i in range(arch.depth)]
+    groups += [(f"noise_refiner_{i}", f"noise_refiner.{i}") for i in range(arch.refiner_depth)]
+    groups += [(f"context_refiner_{i}", f"context_refiner.{i}") for i in range(arch.refiner_depth)]
+    for ours_prefix, theirs_prefix in groups:
+        for ours, theirs in table.items():
+            mapping[f"{ours_prefix}/{ours}"] = f"{theirs_prefix}.{theirs}"
+    return mapping
+
+
 # family name -> key map builder, for the families the port has
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
@@ -193,6 +218,8 @@ _KEY_MAPS = {
     "wan": lambda m: wan_key_map(m.arch),
     "auraflow": lambda m: auraflow_key_map(m.arch),
     "ltxvideo": lambda m: ltx_key_map(m.arch),
+    "chroma": lambda m: flux_key_map(m.arch),
+    "lumina2": lambda m: lumina2_key_map(m.arch),
 }
 
 

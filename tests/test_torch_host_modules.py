@@ -81,14 +81,15 @@ def test_the_port_imports_nothing_of_the_jax_package():
     count, loaded = result.stdout.strip().splitlines()[-1].split(" ", 1)
     names = [m.name for m in pkgutil.walk_packages(simpletuner_tpu_torch.__path__, "simpletuner_tpu_torch.")]
     assert int(count) == len(names) and loaded == "[]"
-    # the SDXL slice's modules, the SD 1.x / 2.x, PixArt-Sigma, AuraFlow, Wan and LTX-Video ones are among those
-    # imported
+    # the SDXL slice's modules, the SD 1.x / 2.x, PixArt-Sigma, AuraFlow, Wan, LTX-Video, Chroma, Lumina2 and
+    # decoder-LLM ones are among those imported
     assert {f"simpletuner_tpu_torch.{name}" for name in (
         "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc", "models.sd1x",
         "models.sd1x.model", "models.pixart", "models.pixart.model", "models.pixart.transformer",
         "models.auraflow", "models.auraflow.model", "models.auraflow.transformer", "models.wan", "models.wan.model",
         "models.wan.transformer", "models.video_vae", "data.video", "models.ltxvideo", "models.ltxvideo.model",
-        "models.ltxvideo.transformer")} <= set(names)
+        "models.ltxvideo.transformer", "models.chroma", "models.chroma.model", "models.chroma.transformer",
+        "models.lumina2", "models.lumina2.model", "models.lumina2.transformer", "models.llm_encoder")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -536,7 +537,12 @@ def test_model_registry_refuses_other_families():
     from simpletuner_tpu_torch.models.ltxvideo import LTXVideo
 
     assert isinstance(get_model_family(TrainingConfig({"model_family": "ltxvideo"})), LTXVideo)
-    for family in ("kolors", "chroma", "hunyuanvideo"):
+    from simpletuner_tpu_torch.models.chroma import Chroma
+    from simpletuner_tpu_torch.models.lumina2 import Lumina2
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "chroma"})), Chroma)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "lumina2"})), Lumina2)
+    for family in ("kolors", "sana", "hunyuanvideo"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):

@@ -632,6 +632,83 @@ def test_tiny_ltx_on_the_card_matches_its_cpu_run(cuda):
     _card_against_cpu(cpu, card, inputs, torch.randn((2, 3, 8, 12, 8), generator=gen), cuda)
 
 
+# Lumina-Image 2.0 at 1024 px: 24 query heads of 96 (zero-padded to 128 by
+# the wrappers, scaled by 96^-0.5) over the joint [256 caption, 4096 image]
+# tokens with a caption-mask segment plane (180 valid caption tokens and the
+# image at 1, the 76 pads at 0, not -1: the JAX module's ids), the noise
+# refiners' 4096 image tokens unmasked and the context refiners' 256 caption
+# tokens masked; two heads (the heads are independent)
+LUMINA_CASES = [("lumina_joint_s4352_d96", 4352, 180), ("lumina_noise_refiner_s4096_d96", 4096, None),
+                ("lumina_context_refiner_s256_d96", 256, 180)]
+
+
+@pytest.mark.parametrize("name,seq,valid", LUMINA_CASES, ids=[c[0] for c in LUMINA_CASES])
+def test_kernels_at_the_lumina2_shapes(cuda, name, seq, valid):
+    """Forward and both backward kernels at Lumina2's D = 96 shapes against
+    the plain versions, in the dispatcher's (B, S, H, D) layout; a pad
+    token's gradients are not zero here (pads attend to each other)."""
+    q, k, v = _qkv(80 + seq % 13, 1, 2, seq, seq, 96, cuda)
+    strided = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    seg = None
+    if valid is not None:
+        seg = torch.ones((1, seq), dtype=torch.int32, device=cuda)
+        seg[:, valid:256] = 0
+    out, lse = _check(*strided, seg, seg)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    del out, lse
+    dq, dk, dv = _check_backward(*strided, seg, seed=81)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    if valid is not None:
+        assert dq[0, :, valid:256].abs().max() > 0
+
+
+def test_tiny_chroma_on_the_card_matches_its_cpu_run(cuda):
+    """A Chroma DiT two heads of 128 wide (the head dim 128 kernels), one
+    double and two single blocks, remat, 6 x 8 latents and 20 T5 tokens with
+    the padding masked (segment id -1), against its CPU run."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.chroma import ChromaConfig, ChromaTransformer
+    from simpletuner_tpu_torch.models.flux import make_img_ids, make_txt_ids
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg = dataclasses.replace(ChromaConfig.tiny(), hidden_size=256, num_heads=2, head_dim=128, depth_double=1,
+                              axes_dim=(16, 56, 56))
+    cpu = init_parameters(ChromaTransformer(cfg, dtype=torch.float32, lora_rank=4, remat=True),
+                          torch.Generator().manual_seed(0))
+    with torch.device(cuda):
+        card = ChromaTransformer(cfg, dtype=torch.bfloat16, lora_rank=4, remat=True)
+    gen = torch.Generator().manual_seed(3)
+    seg = torch.cat([torch.where(torch.arange(20) < 9, 0, -1)[None].expand(2, 20),
+                     torch.zeros((2, 12), dtype=torch.int64)], dim=1).to(torch.int32)
+    inputs = [torch.randn((2, 12, 16), generator=gen), make_img_ids(2, 6, 8), torch.randn((2, 20, 32), generator=gen),
+              make_txt_ids(2, 20), torch.tensor([0.3, 0.8]), torch.zeros(2, 768), torch.zeros(2), seg]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 12, 16), generator=gen), cuda)
+
+
+def test_tiny_lumina2_on_the_card_matches_its_cpu_run(cuda):
+    """A Lumina2 DiT with 4 query and 2 kv heads of 96 (the padded D = 96
+    path, GQA repeated before the op), one refiner of each kind and two joint
+    blocks, remat, 8 x 6 latents and 24 caption tokens with 10 and 24 valid
+    (pads at segment id 0), against its CPU run."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.lumina2 import Lumina2Config, Lumina2Transformer
+
+    cfg = dataclasses.replace(Lumina2Config.tiny(), hidden_size=384, num_heads=4, num_kv_heads=2,
+                              axes_dim=(32, 32, 32), multiple_of=64)
+    cpu = init_parameters(Lumina2Transformer(cfg, dtype=torch.float32, lora_rank=4, remat=True),
+                          torch.Generator().manual_seed(0))
+    with torch.device(cuda):
+        card = Lumina2Transformer(cfg, dtype=torch.bfloat16, lora_rank=4, remat=True)
+    gen = torch.Generator().manual_seed(3)
+    mask = (torch.arange(24)[None] < torch.tensor([[10], [24]])).to(torch.int32)
+    inputs = [torch.randn((2, 8, 6, 4), generator=gen), torch.tensor([0.3, 0.8]),
+              torch.randn((2, 24, cfg.cap_feat_dim), generator=gen), mask]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 8, 6, 4), generator=gen), cuda)
+
+
 def test_video_vae_on_the_card(cuda, monkeypatch):
     """The causal video VAE on the card in f32 against the CPU (sum order
     only), with its norms and convolutions split into runs of frames as at

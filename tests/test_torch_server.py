@@ -516,14 +516,16 @@ def test_routes_that_differ_by_design(pair):
     assert sd3["port"][0] == sd3["jax"][0] == 200
     jax_presets = [(p["name"], p["config"]) for p in sd3["jax"][1] if p["name"] != "multichip"]  # a mesh: item 5
     assert [(p["name"], p["config"]) for p in sd3["port"][1]] == jax_presets and len(jax_presets) == 3
-    for family in ("sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo"):
+    # chroma answers with Flux's presets (the JAX Flux adds a TPU v5e one)
+    assert pair.both("GET", "/api/models/chroma/presets", compare=False)["port"] == presets["port"]
+    for family in ("sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "lumina2"):
         answers = pair.both("GET", f"/api/models/{family}/presets", compare=False)
         assert answers["port"][0] == answers["jax"][0] == 200
         assert [(p["name"], p["config"]) for p in answers["port"][1]] == [
             (p["name"], p["config"]) for p in answers["jax"][1] if p["name"] != "multichip"], family
     assert pair.both("GET", "/api/models/kolors/presets", compare=False)["port"] == (
         501, {"error": "model_family='kolors' is not ported (only flux, sd3, sdxl, sd1x, sd2x, pixart_sigma, "
-                       "auraflow, wan, ltxvideo; ROADMAP Queue 1 item 6)"})
+                       "auraflow, wan, ltxvideo, chroma, lumina2; ROADMAP Queue 1 item 6)"})
     pair.both("GET", "/api/models/nope/presets")  # unknown: 404 on both
     job = pair.both("POST", "/api/inference/start",
                     {"checkpoint": "/nope/checkpoint-1", "prompt": "a cat", "steps": 1})

@@ -249,6 +249,6 @@ def test_refusals():
     with pytest.raises(NotImplementedError):
         CLIPTextModel(CLIPTextConfig.from_hf({"hidden_act": "silu", "hidden_size": 32, "intermediate_size": 64,
                                               "num_hidden_layers": 1, "num_attention_heads": 2}))
-    spec = type(Flux.TEXT_ENCODER_CONFIGURATION[0])(name="llm", family="llama")
+    spec = type(Flux.TEXT_ENCODER_CONFIGURATION[0])(name="siglip", family="siglip")  # no builder in either package
     with pytest.raises(NotImplementedError):
         load_text_encoders([spec], tiny=True, device="cpu")
