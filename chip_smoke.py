@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the torch port of simpletuner-tpu once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                       # every phase, 1-26
-    python3 chip_smoke.py --phases 14-16,25,26  # the named phases, what they need, and 1-3 and 7
+    python3 chip_smoke.py                       # every phase, 1-28
+    python3 chip_smoke.py --phases 14-16,27,28  # the named phases, what they need, and 1-3 and 7
 
 With ``--phases`` the script runs the named phases, the phases whose files
 they need (``PHASE_NEEDS``: 25 and 26 need phase 14's Flux VAE, phase 15's
-T5-XXL and tokenizer and phase 16's JPEGs) and phases 1, 2, 3 and 7 (the
+T5-XXL and tokenizer and phase 16's JPEGs; 27 phase 14's CLIP-L, phase 15's
+CLIP tokenizer and phase 16's JPEGs; 28 phase 15's files) and phases 1, 2, 3 and 7 (the
 build, and every kernel against its plain version); a named family phase
 whose depth a full run cuts writes its full-depth file where the run's
 writes leave room (``_full_depth``), and the kernels line holds the rows of
@@ -77,10 +78,14 @@ exits non-zero with no result line):
    it), then 5 graph replays from the same snapshot, whose losses, grad norms
    and LoRA tensors must equal the eager ones bitwise; then 10 eager steps and
    20 replays timed, one of each profiled (device time by bucket, idle share);
-   the launches of the profiled replay as the profiler recorded them on the
-   card (76 / 57 / 57 flash, 1,069 torch._int_mm), which must equal what the
-   capture recorded (a replay runs no wrapper, so the counters count the
-   warm-up steps and the capture, and not the replays);
+   the launches of a profiled replay as the trace's kernel records give them
+   on the card (76 / 57 / 57 flash, 1,069 torch._int_mm), which must equal
+   what the capture recorded (a replay runs no wrapper, so the counters count
+   the warm-up steps and the capture, and not the replays).  Every
+   profiled-replay launch check of the script (this one and each family
+   phase's) goes through ``bench.replay_launches``: the replay is profiled
+   again while the trace records fewer launches than the capture (three
+   attempts in all; each attempt's counts printed), and fails at once on more;
 13. full-depth gradient parity: phase 9 at 19 + 38 blocks on a bf16 base;
 14. weight import (runs after phase 3): seeded bf16 Flux weights at full width
    (hidden 3072, 24x128 heads) written with the port's safetensors writer,
@@ -293,18 +298,19 @@ exits non-zero with no result line):
    of 128, cross 4096) at 4 of its 48 blocks, built in memory on an int8 base
    (``quantized_matmul: full``) on the first clip's cached latents: s/step,
    MFU, peak GiB and the captured launches (16 / 8 / 8).
-25. chroma: Chroma at its published size (lodestones/Chroma's diffusers
+25. chroma: Chroma at its published width (lodestones/Chroma's diffusers
    transformer, ``ChromaConfig()``: Flux's 19 double + 38 single blocks, 3072
    wide, 24 heads of 128, the 5 x 5120 distilled-guidance approximator over
-   344 modulation slots; 8.9B parameters) at 1024 px.  Deletes phase 24's
+   344 modulation slots; 8.9B parameters; at ``CHROMA_CUT_BLOCKS`` (2 + 4)
+   blocks in a run of every phase, its kernel shapes Flux's) at 1024 px.  Deletes phase 24's
    files; checks ``chroma_step_flops`` against ``torch.utils.flop_counter`` on
    two small configs; writes with the port's writer a seeded diffusers
-   transformer (8.9 GB e4m3, two shards) beside hard links to phase 14's Flux
+   transformer (1.20 GB e4m3 at the cut depth, 8.9 GB at full depth, two shards) beside hard links to phase 14's Flux
    VAE and phase 15's T5-XXL (``text_encoder``) and T5 tokenizer
    (``tokenizer_2``); imports it (s, GB/s; every tensor bitwise the written
    one taken to bf16); renders 1024x1024 through ``CheckpointInferenceRuntime``
    with 4 flow Euler steps under true CFG (guidance 4: Chroma has no guidance
-   embedding; s per CFG step, peak GiB, 114 flash launches per CFG step); one
+   embedding; s per CFG step, peak GiB, 2 x (double + single) flash launches per CFG step); one
    full-depth forward with the kernels against the plain attention, the T5
    mask collated as the trainer collates it (phase 5's bound);
    ``Trainer.run()`` with an int8 base (``quantized_matmul: full``), every
@@ -312,8 +318,9 @@ exits non-zero with no result line):
    rank-16 LoRA on Flux's ``all`` targets, the T5 padding masked, AdamW 1e-4,
    6 graphed steps on four of phase 16's square JPEGs: losses, s/step, MFU,
    time to the first step, peak GiB, and the launches of a profiled replay
-   (114 / 57 / 57), which must equal the capture's, with device ms by bucket
-   and the idle share.
+   (2n / n / n for n blocks: 12 / 6 / 6 at the cut depth, 114 / 57 / 57 at
+   full depth), which must equal the capture's, with device ms by bucket and
+   the idle share.
 26. lumina2: Lumina-Image 2.0 at the JAX preset's size (Alpha-VLLM/
    Lumina-Image-2.0's ``transformer/``, ``Lumina2Config()``: 26 joint blocks
    and 2 + 2 refiners, 2304 wide, 24 query / 8 kv heads of 96, SwiGLU 6144;
@@ -321,12 +328,13 @@ exits non-zero with no result line):
    phase 25's files; checks ``lumina2_step_flops`` against the flop counter
    on two small configs; writes a seeded e4m3 diffusers transformer, a seeded
    Gemma-2 2B in the HF layout (e4m3, ``gemma2_2b`` at full width: 2304 wide,
-   8 heads of 256, 4 kv heads, 256,000 tokens; all 26 layers where the run's
-   writes leave room, else ``GEMMA_FILE_LAYERS`` (6)) with its
+   8 heads of 256, 4 kv heads, 256,000 tokens; ``GEMMA_FILE_LAYERS`` (6) of
+   its 26 layers, all 26 in a run that names phase 26 where the run's writes
+   leave room) with its
    ``config.json``, a seeded Gemma-convention tokenizer that ``AutoTokenizer``
    reads (``tokenizer/``) and a hard link to phase 14's Flux VAE; encodes 16
    prompts at 256 tokens through ``LLMTextEncoder`` (prompts/s; bf16 against
-   the f32 module within ``GEMMA_BF16_REL_L2``); imports the transformer
+   the f32 module within ``LLM_BF16_REL_L2``); imports the transformer
    (bitwise); renders 1024x1024 with true CFG (guidance 4, 4 flow Euler
    steps; 60 flash launches per CFG step: 2 over the 256 caption tokens, 2
    over 4,096 image tokens, 26 over 4,352 joint tokens, two forwards); one
@@ -335,11 +343,61 @@ exits non-zero with no result line):
    base, every block checkpointed, rank-16 LoRA on the attention projections,
    AdamW 1e-4, 6 graphed steps: losses, s/step, MFU, time to the first step,
    peak GiB, and the launches of a profiled replay (60 / 30 / 30, by shape),
-   which must equal the capture's; last, the run's writes against
-   ``RUN_WRITE_LIMIT_GB`` less ``RUN_WRITE_MARGIN_GB``.
+   which must equal the capture's.
+27. kandinsky5: Kandinsky 5.0 Lite, both flavours, at the JAX preset's full
+   width and depth (ai-forever/Kandinsky-5.0-T2V-Lite-sft-5s and T2I-Lite's
+   ``transformer/``, ``Kandinsky5Config()``: 32 visual and 2 text blocks, 2048
+   wide, 32 heads of 64, FFN 5120, 4 latent channels; 2.15B parameters).
+   Deletes phase 26's files; checks ``kandinsky5_step_flops`` against the flop
+   counter on two small configs; writes a seeded e4m3 transformer (2.15 GB,
+   both flavours' file), the seeded Qwen2.5-VL-7B text trunk (``qwen_trunk``:
+   e4m3, full width, ``QWEN_FILE_LAYERS`` (4) of its 28 layers in a run of
+   every phase, a Qwen2.5-VL ``config.json`` with the text sizes at the top
+   level, written once a run and linked by phase 28), a seeded 4-channel SD
+   VAE (the image flavour's), links to phase 14's CLIP-L, phase 15's CLIP
+   tokenizer in ``tokenizer/`` (both specs read it; its config names its
+   class so that ``AutoTokenizer`` reads it too) and two seeded 768 x 512 x
+   61 mp4 clips; encodes 16 prompts at 512 tokens through the Qwen2.5-VL
+   encoder (prompts/s, bf16 against f32 within ``LLM_BF16_REL_L2``); imports
+   the file through both family names (bitwise); ``kandinsky5_image`` at
+   1024 px: a true-CFG flow Euler render (guidance 5; 132 flash launches a
+   CFG step: 64 self, 64 cross, 4 text), one full-depth forward against the
+   plain attention (phase 5's bound), ``Trainer.run()`` with a bf16 base,
+   every block checkpointed, rank-16 LoRA on the attentions' ``to_query`` /
+   ``to_key`` / ``to_value`` / ``out_layer``, AdamW 1e-4, 6 graphed steps on
+   four of phase 16's JPEGs (132 / 66 / 66 launches, by shape);
+   ``kandinsky5_video`` on the clips (the ``1.5x61`` bucket, the video VAE
+   cache at the Wan config and 4 latents: 16 x 64 x 96 latents, 24,576
+   tokens): 6 graphed steps as above, a true-CFG mp4 render at 512 px square
+   and 61 frames (16,384 tokens), the full-depth parity forward on a 17-frame
+   clip (7,680 tokens); each run's s/step, MFU, time to the first step, peak
+   GiB, and a profiled replay's launches held to the capture's.
+28. hunyuanvideo: HunyuanVideo 1.5 t2v-480p at the JAX preset's full width
+   (tencent/HunyuanVideo-1.5's ``transformer/``, ``HunyuanVideo15Config()``: 54
+   dual-stream and 2 refiner blocks, 2048 wide, 16 heads of 128, 65 channels
+   in; 8.33B parameters), at ``HY_CUT_BLOCKS`` (12) of its 54 blocks in a run
+   of every phase.  Deletes phase 27's files (not the Qwen trunk); checks
+   ``hunyuanvideo_step_flops`` against the flop counter on two small configs;
+   writes a seeded e4m3 diffusers transformer, a seeded ByT5-small in the T5
+   layout (google/byt5-small's sizes, bf16) with a byte-level tokenizer in
+   ByT5's ids (``tokenizer_2``, read through ``T5TokenizerFast``), a
+   Qwen-convention tokenizer (``tokenizer/``), the Qwen trunk linked, and two
+   seeded 848 x 480 x 17 mp4 clips; encodes 16 prompts at 256 tokens
+   (prompts/s); imports the transformer (bitwise); ``Trainer.run()`` on the
+   clips (the ``1.77x17`` bucket, the video VAE at 32 latents: 5 x 60 x 106
+   latents, 31,800 video tokens and 333 caption tokens in the joint
+   sequence, both masks), bf16 base, every dual-stream block checkpointed,
+   rank-16 LoRA on ``img_attn_q/k/v/proj``, 6 graphed steps: s/step, MFU,
+   time to the first step, peak GiB, and a profiled replay's launches (2d +
+   2 / d / d at d blocks: the refiner's two attentions run once and have no
+   backward), by shape; a true-CFG mp4 render at 480 px square and 17 frames;
+   one forward against the plain attention on a 5-frame clip with padded
+   captions (the -1 pads in the refiner and the joint layers; phase 5's
+   bound); last, the run's writes against ``RUN_WRITE_LIMIT_GB`` less
+   ``RUN_WRITE_MARGIN_GB``.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
-their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-26.
+their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-28.
 Phases 3 and 7 also run head dims 72, 96 and 112 (pixart, lumina2, sana),
 which the wrappers zero-pad to 128, masked and unmasked, the shapes
 phase 21 meets first (``PHASE21_KERNEL_CASES``: PixArt's (1, 16, 4096, 72)
@@ -362,21 +420,27 @@ heads of 96 over the joint 4,352 tokens with a caption-mask segment plane,
 180 of 256 caption tokens valid and the pads at 0, the noise refiners'
 4,096 image tokens unmasked and the context refiners' 256 caption tokens
 masked; held at every head, the bound reckoned at D = 96 over the attended
-pairs, SDPA with the boolean mask); phases 3 and 7 print the seconds of each of
+pairs, SDPA with the boolean mask), and Kandinsky 5.0's (``K5_KERNEL_CASES``:
+the video self-attention (1, 32, 24576, 64) and its 512 Qwen keys, unmasked)
+and HunyuanVideo's (``HY_KERNEL_CASES``: the joint (1, 16, 32133, 128) with
+the segment plane the DiT makes, 180 of 256 Qwen and 40 of 77 ByT5 tokens
+valid and the pads at -1, and the refiner's 256 tokens, 180 valid), each held
+at 2 heads; phases 3 and 7 print the seconds of each of
 their sections (``section_s``).  Every phase
 line carries ``elapsed_s`` and ``written_gb`` (the card's machine ends a run
 that writes more than 45 GiB, deleted files included).  On an H100 80GB HBM3 at
-700 W the whole script takes about 825 s of its 1,200 s limit (the host's share
+700 W the whole script takes about 865 s of its 1,200 s limit (the host's share
 varies by 10-15% between machines; the fp8 files import at 3-5 GB/s, their
-bytes cast on the card) and writes about 45.5 GB: phases 3
-and 7 about 110 s, phase 12 about 110 s, phases 17-18 about 210 s, phases 19-24
-about 175 s, phases 25-26 about 75 s.
+bytes cast on the card) and writes about 42.7 GB: phases 3
+and 7 about 130 s, phase 12 about 120 s, phases 17-18 about 185 s, phases 19-24
+about 150 s, phases 25-26 about 30 s, phases 27-28 about 110 s.
 Then a JSON line with the kernels, each wrapper's head dim 256 instances,
-its Chroma row (the Flux shape's times) and its rows at Wan's, LTX's and
-Lumina2's three shapes beside it (launches: the profiler's count in phase
-12's profiled replay, for the head dim 256 rows in phase 22's, for the
-Chroma rows in phase 25's, and for the Wan, LTX and Lumina2 rows the
-wrappers' count at that shape per step in phase 23's, 24's and 26's runs),
+its Chroma row (the Flux shape's times) and its rows at Wan's, LTX's,
+Lumina2's, Kandinsky 5.0's and HunyuanVideo's shapes beside it (launches:
+the profiler's count in phase 12's profiled replay, for the head dim 256
+rows in phase 22's, for the Chroma rows in phase 25's, and for the other
+rows the wrappers' count at that shape per step in phase 23's, 24's, 26's,
+27's and 28's runs),
 and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
 register, spill and warning lines per kernel (a C7514 warning means ptxas
@@ -624,14 +688,15 @@ CHROMA_GUIDANCE = 4.0
 CHROMA_TRAIN_STEPS, CHROMA_TRAIN_IMAGES = 6, 4
 CHROMA_PROMPT = "a lighthouse on a basalt cliff at dusk"
 CHROMA_SIGMA = 0.7
-PHASE25_WRITE_GB = 9.5
+PHASE25_WRITE_GB = 1.8  # at the cut depth (CHROMA_CUT_BLOCKS)
 # phase 26: Lumina-Image 2.0 (Alpha-VLLM/Lumina-Image-2.0's transformer/ as the
 # JAX preset Lumina2Config() builds it: 26 joint blocks + 2 context and 2 noise
 # refiners, 2304 wide, 24 query / 8 kv heads of 96, SwiGLU 6144; 1.97B
 # parameters) at 1024 px, its Gemma-2 2B text encoder (gemma2_2b: 2304 wide, 8
-# heads of 256, 4 kv heads, 256,000 tokens) at full width, written at full
-# depth (26 layers) when the run's writes leave room and else at the first
-# GEMMA_FILE_LAYERS of its 26 (as phase 15 cuts T5), captions at 256 tokens;
+# heads of 256, 4 kv heads, 256,000 tokens) at full width, written at the
+# first GEMMA_FILE_LAYERS of its 26 in a run of every phase (as phase 15 cuts
+# T5) and at full depth in a run that names phase 26 where the run's writes
+# leave room, captions at 256 tokens;
 # phase 14's Flux VAE.  The render's true CFG, the trainer's steps, the parity
 # sigma, bf16 Gemma-2 against the f32 module (as T5_BF16_REL_L2), and what the
 # phase writes with the cut Gemma-2 (the e4m3 transformer 1.97 GB, Gemma-2
@@ -644,7 +709,10 @@ LUMINA_TRAIN_STEPS, LUMINA_TRAIN_IMAGES = 6, 4
 LUMINA_PROMPT = "a lighthouse on a basalt cliff at dusk"
 LUMINA_SIGMA = 0.7
 GEMMA_FILE_LAYERS = 6
-GEMMA_BF16_REL_L2 = 5e-2
+# a decoder LLM's bf16 states against the f32 module on the same weights and
+# tokens (phases 26-28): every product and the residual stream round to bf16
+# in each layer, so they agree to about a percent in relative L2
+LLM_BF16_REL_L2 = 5e-2
 PHASE26_WRITE_GB = 3.6
 # phases 3 and 7 at Lumina2's attention shapes (D = 96, zero-padded to 128 by
 # the wrappers, scaled by 96^-0.5): (name, heads, query tokens, key tokens,
@@ -660,16 +728,87 @@ LUMINA_KERNEL_CASES = (
     ("lumina_context_refiner", 24, LUMINA_CAP, LUMINA_CAP, 96, LUMINA_VALID),
 )
 LUMINA_CHECK_HEADS = 24
+# phase 27: Kandinsky 5.0 Lite (ai-forever/Kandinsky-5.0-T2V-Lite-sft-5s and
+# Kandinsky-5.0-T2I-Lite's transformer/, as the JAX preset Kandinsky5Config()
+# builds it: 32 visual and 2 text blocks, 2048 wide, 32 heads of 64, FFN 5120,
+# 4 latent channels; 2.15B parameters; one e4m3 file for both flavours) with
+# Qwen2.5-VL-7B's text trunk (qwen25_7b: 3584 wide, 28 query / 4 kv heads of
+# 128, FFN 18,944, 152,064 tokens, qkv biases) at full width and the first
+# QWEN_FILE_LAYERS of its 28 layers in a run of every phase (as phase 15 cuts
+# T5), captions at 512 tokens, and phase 14's CLIP-L pooled.  The image
+# flavour at 1024 px (the 4-channel SD VAE: 128 x 128 latents, 4,096 tokens);
+# the video flavour on two seeded 768 x 512 x 61 clips (the published 5 s clip
+# is 121 frames, 47,616 tokens: cut to 61 for the time limit; the Wan-config
+# video VAE at 4 latents: 16 x 64 x 96 latents, 16 x 32 x 48 = 24,576
+# tokens), its render at 512 px square and 61 frames (16,384 tokens), its
+# parity forward on a 17-frame clip (5 x 32 x 48 = 7,680 tokens)
+K5_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
+K5_TEXT = 512
+K5_GUIDANCE = 5.0
+K5_TRAIN_STEPS, K5_TRAIN_IMAGES = 6, 4
+K5_IMAGE_TOKENS = (RESOLUTION // 16) ** 2
+K5_FRAMES, K5_WIDTH, K5_HEIGHT = 61, 768, 512
+K5_LATENT = ((K5_FRAMES - 1) // 4 + 1, K5_HEIGHT // 8, K5_WIDTH // 8)
+K5_TOKENS = K5_LATENT[0] * (K5_LATENT[1] // 2) * (K5_LATENT[2] // 2)
+K5_CLIPS, K5_RENDER_SIZE, K5_PARITY_FRAMES, K5_SIGMA = 2, 512, 17, 0.7
+QWEN_FILE_LAYERS = 4
+PHASE27_WRITE_GB = 4.2
+# phases 3 and 7 at Kandinsky 5.0's attention shapes (D = 64, unmasked: the
+# JAX family drops the Qwen mask): the video flavour's self-attention over
+# 24,576 tokens (192 full tiles) and its cross-attention against the 512 Qwen
+# keys; held against the plain version at K5_CHECK_HEADS heads, one at a time
+K5_KERNEL_CASES = (
+    ("k5_self", 32, K5_TOKENS, K5_TOKENS, 64),
+    ("k5_cross", 32, K5_TOKENS, K5_TEXT, 64),
+)
+K5_CHECK_HEADS = 2
+# phase 28: HunyuanVideo 1.5 t2v-480p (tencent/HunyuanVideo-1.5's
+# transformer/ as the JAX preset HunyuanVideo15Config() builds it: 54
+# dual-stream and 2 refiner blocks, 2048 wide, 16 heads of 128, 65 channels
+# in, 32 out; 8.33B parameters) at HY_CUT_BLOCKS of its 54 blocks in a run of
+# every phase, phase 27's Qwen2.5-VL trunk at 256 tokens (linked) and a
+# seeded ByT5-small (google/byt5-small's config.json: d_model 1472, 6 heads
+# of 64, d_ff 3584, 12 layers, gated-gelu, 384 tokens; bf16) at 77 tokens,
+# on two seeded 848 x 480 x 17 clips (the JAX preset's 8x video VAE at 32
+# latents: 5 x 60 x 106 latents, 31,800 video tokens with the (1, 1, 1)
+# patch; the published 121 frames would give 197,160: cut for the time
+# limit), the render at 480 px square and 17 frames, the parity forward on a
+# 5-frame clip with padded captions
+HY_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
+HY_TEXT, HY_TEXT2 = 256, 77
+HY_GUIDANCE = 6.0
+HY_TRAIN_STEPS = 6
+HY_FRAMES, HY_WIDTH, HY_HEIGHT = 17, 848, 480
+HY_LATENT = ((HY_FRAMES - 1) // 4 + 1, HY_HEIGHT // 8, HY_WIDTH // 8)
+HY_VIDEO = HY_LATENT[0] * HY_LATENT[1] * HY_LATENT[2]
+HY_JOINT = HY_VIDEO + HY_TEXT + HY_TEXT2
+HY_CLIPS, HY_RENDER_SIZE, HY_PARITY_FRAMES, HY_SIGMA = 2, 480, 5, 0.7
+HY_QWEN_VALID, HY_BYT5_VALID = 180, 40  # a caption's valid tokens in the kernel cases
+PHASE28_WRITE_GB = 3.0  # at the cut depth (HY_CUT_BLOCKS)
+# phases 3 and 7 at HunyuanVideo's attention shapes (D = 128): the joint
+# attention over 31,800 video tokens then 256 Qwen and 77 ByT5 tokens with
+# the segment plane the DiT makes (video and valid tokens at 0, pads at -1:
+# 180 and 40 valid), and the token refiner's 256 Qwen tokens (180 valid);
+# held against the plain version at HY_CHECK_HEADS heads, one at a time
+HY_KERNEL_CASES = (
+    ("hy_joint", 16, HY_JOINT, HY_JOINT, 128, "hy_joint"),
+    ("hy_refiner", 16, HY_TEXT, HY_TEXT, 128, "hy_refiner"),
+)
+HY_CHECK_HEADS = 2
 # the depth of the earlier families' seeded files in a run of every phase
 # (full width; the kernels' shapes depend on width and tokens, not depth),
-# cut to make room for phases 25-26 in the write budget: SD3.5 Large at 6 of
+# cut to make room for phases 25-28 in the write budget: SD3.5 Large at 6 of
 # its 38 blocks, AuraFlow v0.3 at 2 + 4 of its 4 + 32, Wan 2.1 T2V-1.3B at 10
-# of 30, LTX-Video 2B at 10 of 28; a run that names one of these phases
-# (--phases) writes it at full depth where its writes leave room
+# of 30, LTX-Video 2B at 10 of 28, Chroma at 2 + 4 of its 19 + 38 (its kernel
+# shapes are Flux's), Gemma-2 2B at GEMMA_FILE_LAYERS of 26, HunyuanVideo 1.5
+# at 12 of 54; a run that names one of these phases (--phases) writes it at
+# full depth where its writes leave room
 SD3_CUT_BLOCKS = 6
 AURA_CUT_BLOCKS = (2, 4)
 WAN_CUT_BLOCKS = 10
 LTX_CUT_BLOCKS = 10
+CHROMA_CUT_BLOCKS = (2, 4)
+HY_CUT_BLOCKS = 12
 # the most a run may write, deleted files included (45 GiB), and the margin
 # below it for what this process's count does not see (the server jobs' child
 # processes in phase 18, nvcc's outputs); the last phase checks the run's
@@ -689,14 +828,15 @@ _STARTED = time.perf_counter()
 # what each family phase writes at its depth in a run of every phase, for the
 # reservations each of phases 19-25 makes for the later phases of the run
 PHASE_WRITE_GB = {19: 2.3, 20: 3.2, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB, 23: PHASE23_WRITE_GB,
-                  24: PHASE24_WRITE_GB, 25: PHASE25_WRITE_GB, 26: PHASE26_WRITE_GB}
+                  24: PHASE24_WRITE_GB, 25: PHASE25_WRITE_GB, 26: PHASE26_WRITE_GB, 27: PHASE27_WRITE_GB,
+                  28: PHASE28_WRITE_GB}
 # the phases whose files (or, for 5 and 6, whose runtime) a phase needs before
 # it; 1, 2, 3 and 7 run in every run (the build, and the kernels line's times)
 PHASE_NEEDS = {4: (14, 15, 16), 5: (4,), 6: (5,), 15: (14,), 16: (14,), 17: (14, 15, 16), 18: (17,),
                19: (14, 15, 16), 20: (19,), 21: (20,), 22: (20,), 23: (15, 16), 24: (15, 16), 25: (14, 15, 16),
-               26: (14, 16)}
+               26: (14, 16), 27: (14, 15, 16), 28: (14, 15)}
 ALWAYS = (1, 2, 3, 7)
-LAST_PHASE = 26
+LAST_PHASE = 28
 # the phases named on the command line (None: every phase) and those the run takes
 RUN = {"requested": None, "phases": set(range(1, LAST_PHASE + 1))}
 
@@ -1013,6 +1153,10 @@ def kernel_cases():
     marks.append(("ltx", time.perf_counter()))
     times["lumina2"], lumina_entries = long_forward_cases(LUMINA_KERNEL_CASES, LUMINA_CHECK_HEADS, 780, errors)
     marks.append(("lumina2", time.perf_counter()))
+    times["kandinsky5"], k5_entries = long_forward_cases(K5_KERNEL_CASES, K5_CHECK_HEADS, 820, errors)
+    marks.append(("kandinsky5", time.perf_counter()))
+    times["hunyuanvideo"], hy_entries = long_forward_cases(HY_KERNEL_CASES, HY_CHECK_HEADS, 860, errors)
+    marks.append(("hunyuanvideo", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
@@ -1025,7 +1169,7 @@ def kernel_cases():
     return {"max_abs_err": worst, "ms": times["kernel_masked_ms"], "plain_ms": times["plain_masked_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_masked_ms,
             "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}, fwd256_entry, \
-        {**wan_entries, **ltx_entries, **lumina_entries}
+        {**wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries}
 
 
 def backward_cases():
@@ -1145,6 +1289,10 @@ def backward_cases():
     marks.append(("ltx", time.perf_counter()))
     times["lumina2"], lumina_entries = long_backward_cases(LUMINA_KERNEL_CASES, LUMINA_CHECK_HEADS, 800, errors)
     marks.append(("lumina2", time.perf_counter()))
+    times["kandinsky5"], k5_entries = long_backward_cases(K5_KERNEL_CASES, K5_CHECK_HEADS, 840, errors)
+    marks.append(("kandinsky5", time.perf_counter()))
+    times["hunyuanvideo"], hy_entries = long_backward_cases(HY_KERNEL_CASES, HY_CHECK_HEADS, 880, errors)
+    marks.append(("hunyuanvideo", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
@@ -1156,7 +1304,7 @@ def backward_cases():
                                 "plain_ms": times["plain_masked_ms"], "bound_ms": bounds[(kernel, "masked")][0],
                                 "bound_by": bounds[(kernel, "masked")][1], **library}
         for kernel in ("dq", "dkv")
-    }, **d256_entries, **wan_entries, **ltx_entries, **lumina_entries}
+    }, **d256_entries, **wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries}
 
 
 def _ddpm_inputs(seed, heads, sq, sk, dim, n):
@@ -1427,33 +1575,48 @@ def _by_heads(fn, *tensors):
     return torch.cat(parts, dim=1)
 
 
-def _caption_segments(length: int, valid):
-    """Lumina2's segment ids on the card for ``length`` tokens that start
-    with its ``LUMINA_CAP`` caption tokens, ``valid`` of them valid: 1 on the
+def _case_segments(length: int, plane):
+    """A long case's segment ids on the card for ``length`` tokens, or None
+    when ``plane`` is None.  An int is Lumina2's caption plane: the first
+    ``LUMINA_CAP`` tokens a caption with ``plane`` of them valid, 1 on the
     valid caption and on every later token, 0 on the caption's pads (the
-    JAX module's ids, not the pad id -1); None when ``valid`` is None."""
+    JAX module's ids, not the pad id -1).  "hy_joint" is HunyuanVideo's joint
+    plane (``HY_VIDEO`` video tokens at 0, then ``HY_TEXT`` Qwen and
+    ``HY_TEXT2`` ByT5 tokens, ``HY_QWEN_VALID`` and ``HY_BYT5_VALID`` of them
+    valid at 0, their pads at -1) and "hy_refiner" its refiner's (the Qwen
+    caption alone)."""
     import torch
 
-    if valid is None:
+    if plane is None:
         return None
-    seg = torch.ones((1, length), dtype=torch.int32, device="cuda")
-    seg[:, valid:LUMINA_CAP] = 0
+    seg = torch.zeros((1, length), dtype=torch.int32, device="cuda")
+    if plane == "hy_refiner":
+        seg[:, HY_QWEN_VALID:] = -1
+    elif plane == "hy_joint":
+        seg[:, HY_VIDEO + HY_QWEN_VALID:HY_VIDEO + HY_TEXT] = -1
+        seg[:, HY_VIDEO + HY_TEXT + HY_BYT5_VALID:] = -1
+    else:
+        seg += 1
+        seg[:, plane:LUMINA_CAP] = 0
     return seg
 
 
 def _segment_pairs(seg, length: int) -> int:
-    """(query, key) pairs a segment plane lets attend: the sum of each id's count squared."""
+    """(query, key) pairs a segment plane lets attend: the sum of each id's
+    count squared (a pad at -1 attends and is attended by nothing)."""
     import torch
 
     if seg is None:
         return length * length
-    return int((torch.bincount(seg[0].long()) ** 2).sum())
+    ids = seg[0].long()
+    return int((torch.bincount(ids[ids >= 0]) ** 2).sum())
 
 
 def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tuple:
     """Phase 3 at a family's long shapes (``WAN_KERNEL_CASES``,
-    ``LTX_KERNEL_CASES``, ``LUMINA_KERNEL_CASES`` with their caption-mask
-    segment planes; the dispatcher's (B, S, H, D) layout): the forward
+    ``LTX_KERNEL_CASES``, ``K5_KERNEL_CASES``, ``LUMINA_KERNEL_CASES`` and
+    ``HY_KERNEL_CASES`` with their segment planes, ``_case_segments``; the
+    dispatcher's (B, S, H, D) layout): the forward
     kernel against its plain version at ``check_heads`` heads (the bounds of
     the other cases, the plain version head by head); at the full head count
     the kernel's time, the plain version's (head by head), SDPA's fastest
@@ -1468,7 +1631,7 @@ def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tupl
     cases_out, entries = {}, {}
     for index, (name, heads, sq, sk, dim, *valid) in enumerate(cases):
         t0 = time.perf_counter()
-        seg = _caption_segments(sq, valid[0] if valid else None)
+        seg = _case_segments(sq, valid[0] if valid else None)
         mask = None if seg is None else (seg[0][:, None] == seg[0][None, :])[None, None]
 
         def plain(q, k, v):
@@ -1497,7 +1660,7 @@ def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tupl
         cases_out[name] = {"shape": [1, heads, sq, sk, dim], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                            "sdpa_ms": sdpa_ms, "sdpa_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by,
                            "share_of_bound": bound_ms / kernel_ms, "attended_pairs": pairs,
-                           "caption_valid": valid[0] if valid else None, "seconds": time.perf_counter() - t0}
+                           "segment_plane": valid[0] if valid else None, "seconds": time.perf_counter() - t0}
         entries[f"flash_fwd_{name}"] = {
             "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": sdpa_ms, "library_call": f"scaled_dot_product_attention ({backend}"
@@ -1527,7 +1690,7 @@ def long_backward_cases(cases, check_heads: int, seed: int, errors: dict) -> tup
     for index, (name, heads, sq, sk, dim, *valid) in enumerate(cases):
         t0 = time.perf_counter()
         scale = dim ** -0.5
-        seg = _caption_segments(sq, valid[0] if valid else None)
+        seg = _case_segments(sq, valid[0] if valid else None)
         mask = None if seg is None else (seg[0][:, None] == seg[0][None, :])[None, None]
 
         def plain(q, k, v, out, lse, do):
@@ -1730,7 +1893,7 @@ def graph_step(kernels):
     in the profiled replay, as the profiler recorded them on the card."""
     import torch
 
-    from simpletuner_tpu_torch.bench import build_run, flagship_config, time_steps
+    from simpletuner_tpu_torch.bench import build_run, flagship_config, replay_launches, time_steps
     from simpletuner_tpu_torch.models.flux import FluxConfig
     from simpletuner_tpu_torch.training.quantization import int8_matmul
     from simpletuner_tpu_torch.training.train_state import jit_train_step, state_tensors
@@ -1783,8 +1946,11 @@ def graph_step(kernels):
     timed.pop("state")
     # the wrappers count where they launch: the warm-up steps and the capture
     wrapper_counts = {counter.name: counter.launches for counter in counters}
-    recorded = timed["profile"]["bucket_launches"]
-    device = {**{kernel.name: recorded[kernel.name] for kernel in kernels}, "int_mm": recorded["int8_gemm"]}
+    # the replay's launches as the trace records them, the replay profiled
+    # again where the record falls short (bench.replay_launches)
+    checked = replay_launches(lambda: graphed(state, batch, gen), captured,
+                              {**{kernel.name: kernel.name for kernel in kernels}, "int_mm": "int8_gemm"})
+    device = checked["launch_attempts"][-1]
     problems = []
     if any(d > e for d, e in zip(graph_diff, eager_diff)):
         problems.append(f"graph replays differ from the eager steps by {graph_diff} (two eager runs: {eager_diff})")
@@ -1804,7 +1970,8 @@ def graph_step(kernels):
           grad_norms=replayed[1].tolist(), bitwise_equal_to_eager=graph_diff == [0.0, 0.0, 0.0],
           eager_runs_bitwise_equal=eager_diff == [0.0, 0.0, 0.0], graph_vs_eager_max_diff=graph_diff,
           eager_vs_eager_max_diff=eager_diff, capture_s=capture_s, capture_peak_gib=capture_peak,
-          launches_captured=captured, launches_profiled_replay=device, wrapper_counts_warmup_and_capture=wrapper_counts,
+          launches_captured=captured, launches_profiled_replay=device, launch_attempts=checked["launch_attempts"],
+          wrapper_counts_warmup_and_capture=wrapper_counts,
           eager={**summary(eager), "profile": eager["profile"]}, graph={**summary(timed), "profile": timed["profile"]},
           speedup_median=eager["s_per_step_median"] / timed["s_per_step_median"])
     del graphed, run, state, saved
@@ -2182,7 +2349,7 @@ def sd3_phase(paths: dict, kernels, device: str, depth: int) -> None:
     import numpy as np
     import torch
 
-    from simpletuner_tpu_torch.bench import profile_step
+    from simpletuner_tpu_torch.bench import replay_launches
     from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
     from simpletuner_tpu_torch.models.checkpoint_layouts import (
         clip_checkpoint_shapes, sd3_checkpoint_shapes, vae_checkpoint_shapes,
@@ -2403,7 +2570,8 @@ def sd3_phase(paths: dict, kernels, device: str, depth: int) -> None:
     median_s = float(np.median(list(step_s.values())))
     graphed = next(iter(trainer._graphs.values()))
     captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
-    profile = profile_step(lambda: graphed(trainer._state, graphed.batch, trainer._generator))
+    profile = replay_launches(lambda: graphed(trainer._state, graphed.batch, trainer._generator), captured,
+                              {kernel.name: kernel.name for kernel in kernels})
     # the three kernels' launches as the profiler recorded them on the card; the
     # int8 products are printed beside the capture's count, not held to it: a
     # cuBLAS int8 kernel whose name carries none of the bucket's tags lands in
@@ -2519,7 +2687,7 @@ def sdxl_phase(paths: dict, kernels, device: str) -> None:
     import numpy as np
     import torch
 
-    from simpletuner_tpu_torch.bench import profile_step
+    from simpletuner_tpu_torch.bench import replay_launches
     from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
     from simpletuner_tpu_torch.models.checkpoint_layouts import unet_checkpoint_shapes, vae_checkpoint_shapes
     from simpletuner_tpu_torch.models.sdxl import SDXL
@@ -2758,7 +2926,8 @@ def sdxl_phase(paths: dict, kernels, device: str) -> None:
     median_s = float(np.median(list(step_s.values())))
     graphed = next(iter(trainer._graphs.values()))
     captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
-    profile = profile_step(lambda: graphed(trainer._state, graphed.batch, trainer._generator))
+    profile = replay_launches(lambda: graphed(trainer._state, graphed.batch, trainer._generator), captured,
+                              {kernel.name: kernel.name for kernel in kernels})
     recorded = profile["bucket_launches"]
     replayed = {kernel.name: recorded[kernel.name] for kernel in kernels}
     # every attention's forward, its recompute under remat, and its backward
@@ -2787,7 +2956,7 @@ def sdxl_phase(paths: dict, kernels, device: str) -> None:
                  "peak_gib": max(v["peak_gib"] for v in stages.values()),
                  "stage_peak_gib": {k: v["peak_gib"] for k, v in stages.items()},
                  "launches_run": train_launches, "launches_captured": captured, "launches_profiled_replay": replayed,
-                 "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "device_ms", "traced_event_ms",
+                 "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "launch_attempts", "device_ms", "traced_event_ms",
                                                      "idle_share_traced", "top_kernels")}},
           allocated_gib_before_phase=baseline_gib, written_gb=_written_gb(), seconds=time.perf_counter() - start,
           device=device)
@@ -2888,7 +3057,7 @@ def ddpm_family_phase(family: str, resolution: int, guidance: float, train_extra
     import numpy as np
     import torch
 
-    from simpletuner_tpu_torch.bench import profile_step
+    from simpletuner_tpu_torch.bench import replay_launches
     from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
     from simpletuner_tpu_torch.models.registry import ModelRegistry
     from simpletuner_tpu_torch.models.vae import VAEConfig
@@ -3095,7 +3264,8 @@ def ddpm_family_phase(family: str, resolution: int, guidance: float, train_extra
     median_s = float(np.median(list(step_s.values())))
     graphed = next(iter(trainer._graphs.values()))
     captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
-    profile = profile_step(lambda: graphed(trainer._state, graphed.batch, trainer._generator))
+    profile = replay_launches(lambda: graphed(trainer._state, graphed.batch, trainer._generator), captured,
+                              {kernel.name: kernel.name for kernel in kernels})
     recorded = profile["bucket_launches"]
     replayed = {kernel.name: recorded[kernel.name] for kernel in kernels}
     # every attention's forward, its recompute under remat, and its backward
@@ -3126,7 +3296,7 @@ def ddpm_family_phase(family: str, resolution: int, guidance: float, train_extra
                  "stage_s": {k: v["seconds"] for k, v in stages.items()},
                  "peak_gib": max(v["peak_gib"] for v in stages.values()),
                  "launches_run": train_launches, "launches_captured": captured, "launches_profiled_replay": replayed,
-                 "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "device_ms", "traced_event_ms",
+                 "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "launch_attempts", "device_ms", "traced_event_ms",
                                                      "idle_share_traced", "top_kernels")}},
           allocated_gib_before_phase=baseline_gib, written_gb=_written_gb(), seconds=time.perf_counter() - start,
           device=device)
@@ -3209,7 +3379,7 @@ def auraflow_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
     import numpy as np
     import torch
 
-    from simpletuner_tpu_torch.bench import profile_step
+    from simpletuner_tpu_torch.bench import replay_launches
     from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
     from simpletuner_tpu_torch.models.auraflow import AuraFlowConfig
     from simpletuner_tpu_torch.models.checkpoint_layouts import auraflow_checkpoint_shapes
@@ -3461,7 +3631,8 @@ def auraflow_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
     median_s = float(np.median(list(step_s.values())))
     graphed = next(iter(trainer._graphs.values()))
     captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
-    profile = profile_step(lambda: graphed(trainer._state, graphed.batch, trainer._generator))
+    profile = replay_launches(lambda: graphed(trainer._state, graphed.batch, trainer._generator), captured,
+                              {kernel.name: kernel.name for kernel in kernels})
     recorded = profile["bucket_launches"]
     replayed = {kernel.name: recorded[kernel.name] for kernel in kernels}
     # every attention's forward, its recompute under remat, and its backward
@@ -3498,7 +3669,7 @@ def auraflow_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
                  "launches_run": train_launches, "launches_captured": captured,
                  "launches_profiled_replay": replayed, "flash_instances": instances,
                  "int8_gemm_bucket": recorded["int8_gemm"],
-                 "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "device_ms", "traced_event_ms",
+                 "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "launch_attempts", "device_ms", "traced_event_ms",
                                                      "idle_share_traced", "top_kernels")}},
           allocated_gib_before_phase=baseline_gib, written_gb=_written_gb(), seconds=time.perf_counter() - start,
           device=device)
@@ -3734,8 +3905,8 @@ def wan_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     import numpy as np
     import torch
 
-    from simpletuner_tpu_torch.bench import profile_step
-    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.bench import replay_launches
+    from simpletuner_tpu_torch.inference import config_namespace
     from simpletuner_tpu_torch.models.checkpoint_layouts import wan_checkpoint_shapes
     from simpletuner_tpu_torch.models.layers import init_parameters
     from simpletuner_tpu_torch.models.registry import ModelRegistry
@@ -3818,22 +3989,8 @@ def wan_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     # by their diffusers names, bf16 base, every block checkpointed, graphed
     out = os.path.join(work, "wan_train")
     cache = os.path.join(work, "wan_cache")
-    dataset = {"resolution": 640, "resolution_type": "pixel_area", "aspect_bucket_alignment": 16}
-    config = {
-        "model_family": "wan", "model_type": "lora", "lora_rank": 16,
-        "lora_target_modules": ["to_q", "to_k", "to_v", "to_out.0"], "pretrained_model_name_or_path": wan_dir,
-        "gradient_checkpointing": True, "optimizer": "adamw", "learning_rate": 1e-4, "lr_scheduler": "constant",
-        "mixed_precision": "bf16", "text_encoder_precision": "bf16", "train_batch_size": 1, "vae_batch_size": 1,
-        "max_train_steps": WAN_TRAIN_STEPS, "logging_steps": 1, "report_to": "jsonl", "seed": 42,
-        "cache_dir": cache, "output_dir": out, "checkpoint_frozen_base": "reference", **dataset,
-        "data_backend_config": [
-            {"id": "clips", "dataset_type": "video", "type": "local", "instance_data_dir": data, **dataset,
-             "caption_strategy": "textfile", "cache_dir_vae": os.path.join(cache, "vae"),
-             "video": {"num_frames": WAN_FRAMES}},
-            {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
-             "cache_dir": os.path.join(cache, "text")},
-        ],
-    }
+    config = _video_config("wan", wan_dir, data, cache, out, WAN_FRAMES, WAN_TRAIN_STEPS,
+                           lora_target_modules=["to_q", "to_k", "to_v", "to_out.0"])
     for kernel in kernels:
         kernel.launches = 0
         kernel.shape_launches.clear()
@@ -3869,7 +4026,8 @@ def wan_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     median_s = float(np.median(list(step_s.values())))
     graphed = next(iter(trainer._graphs.values()))
     captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
-    profile = profile_step(lambda: graphed(trainer._state, graphed.batch, trainer._generator))
+    profile = replay_launches(lambda: graphed(trainer._state, graphed.batch, trainer._generator), captured,
+                              {kernel.name: kernel.name for kernel in kernels})
     recorded = profile["bucket_launches"]
     replayed = {kernel.name: recorded[kernel.name] for kernel in kernels}
     # every attention's forward, its recompute under remat, and its backward: two attentions a block
@@ -3899,7 +4057,7 @@ def wan_phase(paths: dict, kernels, device: str, depth: int) -> dict:
              "peak_gib": max(v["peak_gib"] for v in stages.values()),
              "launches_run": train_launches, "launches_captured": captured, "launches_profiled_replay": replayed,
              "launches_per_step_by_shape": shape_launches, "flash_instances": profile["flash_instances"],
-             "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "device_ms", "traced_event_ms",
+             "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "launch_attempts", "device_ms", "traced_event_ms",
                                                  "idle_share_traced", "top_kernels")}}
     text_payload = bundle.text_cache.get(TRAIN_CAPTIONS[0])
     del trainer, graphed, bundle
@@ -3908,37 +4066,12 @@ def wan_phase(paths: dict, kernels, device: str, depth: int) -> dict:
 
     # (e) a true-CFG flow Euler render at 480 px square and 81 frames through
     # the checkpoint runtime, written as mp4 and read back
-    config_path = os.path.join(work, "wan_render.json")
-    with open(config_path, "w") as handle:
-        json.dump({"model_family": "wan", "model_type": "full", "pretrained_model_name_or_path": wan_dir,
-                   "mixed_precision": "bf16", "text_encoder_precision": "bf16", "seed": 42,
-                   "validation_resolution": WAN_RENDER_SIZE, "validation_num_video_frames": WAN_FRAMES,
-                   "validation_seed": 42, "validation_guidance": WAN_GUIDANCE}, handle)
-    t0 = time.perf_counter()
-    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "wan_render"))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    render, runtime = _video_render(work, "wan", wan_dir, "wan", kernels, WAN_PROMPT, WAN_GUIDANCE, WAN_RENDER_SIZE,
+                                    WAN_FRAMES, per_forward)
     module, model = runtime.module, runtime.model
     if model.arch != arch or model.NAME != "wan" or not model.is_flow:
         raise RuntimeError(f"wan: the runtime built {model.NAME} {model.arch}")
-    timed = _timed_render(runtime, kernels, WAN_PROMPT, WAN_GUIDANCE)
-    rendered, forward_s = timed["rendered"], timed["forward_s"]
-    render_tokens = latent_shape[0] * (WAN_RENDER_SIZE // 16) ** 2
-    if timed["launches"] != {"flash_fwd": per_forward * 2 * STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
-        raise RuntimeError(f"wan render: launches {timed['launches']}, expected {per_forward} per forward, two "
-                           f"forwards per step")
-    if len(rendered) != 1 or not rendered[0].endswith(".mp4") or timed["finite"] != [True] or \
-            len(forward_s) != 2 * STEPS:
-        raise RuntimeError(f"wan render: {rendered}, finite latents {timed['finite']}, {len(forward_s)} forwards")
-    read = _mp4_frame_shapes(rendered[0])
-    if len(read) != WAN_FRAMES or set(read) != {(WAN_RENDER_SIZE, WAN_RENDER_SIZE, 3)}:
-        raise RuntimeError(f"wan render: the mp4 holds {len(read)} frames of {set(read)}")
-    render = {"init_s": init_s, "render_s": timed["render_s"], "steps": STEPS, "guidance": WAN_GUIDANCE,
-              "frames": WAN_FRAMES, "size": WAN_RENDER_SIZE, "tokens": render_tokens,
-              "s_per_cfg_step": sum(forward_s[2:]) / (len(forward_s) - 2) * 2, "forward_s": forward_s,
-              "vae_decode_s": timed["decode_s"][0], "peak_gib": timed["peak_gib"], "launches": timed["launches"],
-              "launches_by_shape": timed["launches_by_shape"], "mp4": os.path.basename(rendered[0]),
-              "mp4_bytes": os.path.getsize(rendered[0]), "mp4_frames": len(read)}
+    render["tokens"] = latent_shape[0] * (WAN_RENDER_SIZE // 16) ** 2
 
     # (f) one full-depth forward, the kernels against the plain attention, on
     # a 17-frame clip (5 x 30 x 52 = 7,800 tokens: the plain scores fit)
@@ -4093,17 +4226,16 @@ def ltx_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     512 px square and 121 frames, written as mp4 and read back; one
     full-depth forward with the kernels against the plain attention on the
     training clip's latent grid; and one graphed LoRA step of the 13B width
-    at 4 of its 48 blocks on an int8 base.  Last, the run's writes against
-    the machine's limit.  Returns the launches per step of each kernel at
-    each LTX shape."""
+    at 4 of its 48 blocks on an int8 base.  Returns the launches per step
+    of each kernel at each LTX shape."""
     import dataclasses
     import gc
 
     import numpy as np
     import torch
 
-    from simpletuner_tpu_torch.bench import profile_step
-    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.bench import replay_launches
+    from simpletuner_tpu_torch.inference import config_namespace
     from simpletuner_tpu_torch.models.checkpoint_layouts import ltx_checkpoint_shapes
     from simpletuner_tpu_torch.models.layers import init_parameters
     from simpletuner_tpu_torch.models.ltxvideo import LTXConfig, LTXTransformer, LTXVideo
@@ -4184,22 +4316,8 @@ def ltx_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     # checkpointed, graphed; the default ltx_i2v_prob takes the per-frame path
     out = os.path.join(work, "ltx_train")
     cache = os.path.join(work, "ltx_cache")
-    dataset = {"resolution": 640, "resolution_type": "pixel_area", "aspect_bucket_alignment": 32}
-    config = {
-        "model_family": "ltxvideo", "model_type": "lora", "lora_rank": 16,
-        "lora_target_modules": ["to_q", "to_k", "to_v", "to_out.0"], "pretrained_model_name_or_path": ltx_dir,
-        "gradient_checkpointing": True, "optimizer": "adamw", "learning_rate": 1e-4, "lr_scheduler": "constant",
-        "mixed_precision": "bf16", "text_encoder_precision": "bf16", "train_batch_size": 1, "vae_batch_size": 1,
-        "max_train_steps": LTX_TRAIN_STEPS, "logging_steps": 1, "report_to": "jsonl", "seed": 42,
-        "cache_dir": cache, "output_dir": out, "checkpoint_frozen_base": "reference", **dataset,
-        "data_backend_config": [
-            {"id": "clips", "dataset_type": "video", "type": "local", "instance_data_dir": data, **dataset,
-             "caption_strategy": "textfile", "cache_dir_vae": os.path.join(cache, "vae"),
-             "video": {"num_frames": LTX_FRAMES}},
-            {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
-             "cache_dir": os.path.join(cache, "text")},
-        ],
-    }
+    config = _video_config("ltxvideo", ltx_dir, data, cache, out, LTX_FRAMES, LTX_TRAIN_STEPS, alignment=32,
+                           lora_target_modules=["to_q", "to_k", "to_v", "to_out.0"])
     for kernel in kernels:
         kernel.launches = 0
         kernel.shape_launches.clear()
@@ -4250,7 +4368,8 @@ def ltx_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     median_s = float(np.median(list(step_s.values())))
     graphed = next(iter(trainer._graphs.values()))
     captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
-    profile = profile_step(lambda: graphed(trainer._state, graphed.batch, trainer._generator))
+    profile = replay_launches(lambda: graphed(trainer._state, graphed.batch, trainer._generator), captured,
+                              {kernel.name: kernel.name for kernel in kernels})
     recorded = profile["bucket_launches"]
     replayed = {kernel.name: recorded[kernel.name] for kernel in kernels}
     # every attention's forward, its recompute under remat, and its backward: two attentions a block
@@ -4281,7 +4400,7 @@ def ltx_phase(paths: dict, kernels, device: str, depth: int) -> dict:
              "peak_gib": max(v["peak_gib"] for v in stages.values()),
              "launches_run": train_launches, "launches_captured": captured, "launches_profiled_replay": replayed,
              "launches_per_step_by_shape": shape_launches, "flash_instances": profile["flash_instances"],
-             "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "device_ms", "traced_event_ms",
+             "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "launch_attempts", "device_ms", "traced_event_ms",
                                                  "idle_share_traced", "top_kernels")}}
     text_payload = bundle.text_cache.get(TRAIN_CAPTIONS[0])
     del trainer, graphed, bundle
@@ -4290,40 +4409,17 @@ def ltx_phase(paths: dict, kernels, device: str, depth: int) -> dict:
 
     # (e) a true-CFG flow Euler render at 512 px square and 121 frames through
     # the checkpoint runtime, written as mp4 and read back
-    config_path = os.path.join(work, "ltx_render.json")
-    with open(config_path, "w") as handle:
-        json.dump({"model_family": "ltxvideo", "model_type": "full", "pretrained_model_name_or_path": ltx_dir,
-                   "mixed_precision": "bf16", "text_encoder_precision": "bf16", "seed": 42,
-                   "validation_resolution": LTX_RENDER_SIZE, "validation_num_video_frames": LTX_FRAMES,
-                   "validation_seed": 42, "validation_guidance": LTX_GUIDANCE}, handle)
-    t0 = time.perf_counter()
-    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "ltx_render"))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    render, runtime = _video_render(work, "ltxvideo", ltx_dir, "ltx", kernels, LTX_PROMPT, LTX_GUIDANCE,
+                                    LTX_RENDER_SIZE, LTX_FRAMES, per_forward)
     module, model = runtime.module, runtime.model
     if model.arch != arch or model.NAME != "ltxvideo" or not model.is_flow:
         raise RuntimeError(f"ltx: the runtime built {model.NAME} {model.arch}")
-    timed = _timed_render(runtime, kernels, LTX_PROMPT, LTX_GUIDANCE)
-    rendered, forward_s = timed["rendered"], timed["forward_s"]
     render_latent = (LTX_LATENT[0], LTX_RENDER_SIZE // 32, LTX_RENDER_SIZE // 32)
     render_tokens = math.prod(render_latent)
-    if timed["launches"] != {"flash_fwd": per_forward * 2 * STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0} or \
-            set(timed["launches_by_shape"]["flash_fwd"]) != {f"32x{render_tokens}x{render_tokens}x64",
-                                                             f"32x{render_tokens}x{LTX_TEXT}x64"}:
-        raise RuntimeError(f"ltx render: launches {timed['launches']} ({timed['launches_by_shape']}), expected "
-                           f"{per_forward} per forward, two forwards per step")
-    if len(rendered) != 1 or not rendered[0].endswith(".mp4") or timed["finite"] != [True] or \
-            len(forward_s) != 2 * STEPS:
-        raise RuntimeError(f"ltx render: {rendered}, finite latents {timed['finite']}, {len(forward_s)} forwards")
-    read = _mp4_frame_shapes(rendered[0])
-    if len(read) != LTX_FRAMES or set(read) != {(LTX_RENDER_SIZE, LTX_RENDER_SIZE, 3)}:
-        raise RuntimeError(f"ltx render: the mp4 holds {len(read)} frames of {set(read)}")
-    render = {"init_s": init_s, "render_s": timed["render_s"], "steps": STEPS, "guidance": LTX_GUIDANCE,
-              "frames": LTX_FRAMES, "size": LTX_RENDER_SIZE, "latents": list(render_latent), "tokens": render_tokens,
-              "s_per_cfg_step": sum(forward_s[2:]) / (len(forward_s) - 2) * 2, "forward_s": forward_s,
-              "vae_decode_s": timed["decode_s"][0], "peak_gib": timed["peak_gib"], "launches": timed["launches"],
-              "launches_by_shape": timed["launches_by_shape"], "mp4": os.path.basename(rendered[0]),
-              "mp4_bytes": os.path.getsize(rendered[0]), "mp4_frames": len(read)}
+    if set(render["launches_by_shape"]["flash_fwd"]) != {f"32x{render_tokens}x{render_tokens}x64",
+                                                          f"32x{render_tokens}x{LTX_TEXT}x64"}:
+        raise RuntimeError(f"ltx render: launches by shape {render['launches_by_shape']}")
+    render.update(latents=list(render_latent), tokens=render_tokens)
 
     # (f) one full-depth forward, the kernels against the plain attention, on
     # the training clip's latent grid (6,144 tokens: the plain scores fit)
@@ -4461,7 +4557,8 @@ def _flop_checks(step_flops, build, cases) -> list:
         if counter.get_total_flops() != expected:
             raise RuntimeError(f"{step_flops.__name__}: {expected} forward FLOPs at {arch}, the counter "
                                f"{counter.get_total_flops()}")
-        checks.append({"hidden": arch.hidden_size, "tokens": list(counts), "flops": expected})
+        checks.append({"hidden": getattr(arch, "hidden_size", getattr(arch, "model_dim", None)), "tokens": list(counts),
+                       "flops": expected})
     return checks
 
 
@@ -4538,7 +4635,7 @@ def _train_graphed(config: dict, kernels, steps: int, expected: dict, flops: flo
     import numpy as np
     import torch
 
-    from simpletuner_tpu_torch.bench import profile_step
+    from simpletuner_tpu_torch.bench import replay_launches
     from simpletuner_tpu_torch.training.trainer import Trainer
 
     for kernel in kernels:
@@ -4565,7 +4662,8 @@ def _train_graphed(config: dict, kernels, steps: int, expected: dict, flops: flo
     median_s = float(np.median(list(step_s.values())))
     graphed = next(iter(trainer._graphs.values()))
     captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
-    profile = profile_step(lambda: graphed(trainer._state, graphed.batch, trainer._generator))
+    profile = replay_launches(lambda: graphed(trainer._state, graphed.batch, trainer._generator), captured,
+                              {kernel.name: kernel.name for kernel in kernels})
     replayed = {kernel.name: profile["bucket_launches"][kernel.name] for kernel in kernels}
     if replayed != {k: captured[k] for k in replayed} or replayed != expected or \
             {k: 3 * v for k, v in replayed.items()} != train_launches:
@@ -4582,7 +4680,7 @@ def _train_graphed(config: dict, kernels, steps: int, expected: dict, flops: flo
               "peak_gib": max(v["peak_gib"] for v in stages.values()),
               "launches_run": train_launches, "launches_captured": captured, "launches_profiled_replay": replayed,
               "launches_per_step_by_shape": shape_launches, "flash_instances": profile["flash_instances"],
-              "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "device_ms", "traced_event_ms",
+              "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "launch_attempts", "device_ms", "traced_event_ms",
                                                   "idle_share_traced", "top_kernels")}, **extra}
     del trainer, graphed
     return report
@@ -4605,8 +4703,9 @@ def _render_report(timed: dict, per_forward: int, guidance: float, init_s: float
             "png_bytes": os.path.getsize(rendered[0])}
 
 
-def chroma_phase(paths: dict, kernels, device: str) -> dict:
-    """Phase 25: Chroma at its published size: a seeded e4m3 diffusers
+def chroma_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
+    """Phase 25: Chroma at its published width and ``depth`` (double,
+    single) blocks: a seeded e4m3 diffusers
     transformer (two shards) written with the port's writer beside hard links
     to phase 14's Flux VAE and phase 15's T5-XXL (``text_encoder``) and T5
     tokenizer (``tokenizer_2``, the subfolder both packages' T5 spec reads);
@@ -4645,10 +4744,11 @@ def chroma_phase(paths: dict, kernels, device: str) -> dict:
          ((h // 2) * (w // 2), t)) for arch, (h, w), t in ((tiny, (8, 6), 7), (wider, (4, 8), 5))])
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(25)
-    arch = ChromaConfig()
-    if (arch.hidden_size, arch.depth_double, arch.depth_single, arch.num_heads, arch.head_dim, arch.mod_len,
-            arch.approximator_hidden) != (3072, 19, 38, 24, 128, 344, 5120):
-        raise RuntimeError(f"not Chroma's published transformer: {arch}")
+    full = ChromaConfig()
+    if (full.hidden_size, full.depth_double, full.depth_single, full.num_heads, full.head_dim, full.mod_len,
+            full.approximator_hidden) != (3072, 19, 38, 24, 128, 344, 5120):
+        raise RuntimeError(f"not Chroma's published transformer: {full}")
+    arch = dataclasses.replace(full, depth_double=depth[0], depth_single=depth[1])
     shapes = chroma_checkpoint_shapes(arch)
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     written_before, free = _written_gb(), shutil.disk_usage(work).free
@@ -4754,7 +4854,7 @@ def chroma_phase(paths: dict, kernels, device: str) -> dict:
                   "flop_checks": flop_checks})
     phase("25 chroma", config="lodestones/Chroma transformer (ChromaConfig())", params=params,
           hidden=arch.hidden_size, heads=[arch.num_heads, arch.head_dim], blocks=[arch.depth_double, arch.depth_single],
-          depth=[[arch.depth_double, arch.depth_single]] * 2, mod_len=arch.mod_len,
+          depth=[[arch.depth_double, arch.depth_single], [full.depth_double, full.depth_single]], mod_len=arch.mod_len,
           approximator=[arch.approximator_layers, arch.approximator_hidden],
           tokens={"text": TXT_LEN, "image": (latent // 2) ** 2}, files=files, imported=imported, render=render,
           parity=parity, train=train, allocated_gib_before_phase=baseline_gib,
@@ -4790,8 +4890,9 @@ def write_gemma_tokenizer(root: str, words) -> None:
 def lumina2_phase(paths: dict, kernels, device: str) -> dict:
     """Phase 26: Lumina-Image 2.0 at the JAX preset's published size with its
     Gemma-2 2B text encoder: a seeded e4m3 diffusers transformer, a seeded
-    Gemma-2 2B in the HF layout (e4m3, full width; full depth where the run's
-    writes leave room, else ``GEMMA_FILE_LAYERS`` of its 26 layers) with its
+    Gemma-2 2B in the HF layout (e4m3, full width; ``GEMMA_FILE_LAYERS`` of
+    its 26 layers, the full depth in a run that names phase 26 where its
+    writes leave room) with its
     ``config.json``, a seeded tokenizer in ``tokenizer/`` and a hard link to
     phase 14's Flux VAE; 256-token prompts through ``LLMTextEncoder``
     (prompts/s, bf16 against the f32 module); the import held bitwise; a
@@ -4799,19 +4900,17 @@ def lumina2_phase(paths: dict, kernels, device: str) -> dict:
     96 kernels against the plain attention, the caption mask on; 6 graphed
     LoRA steps through ``Trainer.run()`` on a bf16 base, every block
     checkpointed, and the launches of a profiled replay held to the
-    capture's, by shape.  Last, the run's writes against its limit.
-    Returns the launches per step of each kernel at each Lumina2 shape."""
+    capture's, by shape.  Returns the launches per step of each kernel at
+    each Lumina2 shape."""
     import gc
 
-    import numpy as np
     import torch
 
     from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
     from simpletuner_tpu_torch.models.checkpoint_layouts import llm_checkpoint_shapes, lumina2_checkpoint_shapes
-    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoder, LLMEncoderConfig
+    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoderConfig
     from simpletuner_tpu_torch.models.lumina2 import Lumina2, Lumina2Config, Lumina2Transformer
     from simpletuner_tpu_torch.models.registry import ModelRegistry
-    from simpletuner_tpu_torch.models.text_encoders import LLMTextEncoder, load_text_encoders
     from simpletuner_tpu_torch.models.vae import VAEConfig
     from simpletuner_tpu_torch.models.weight_import import lumina2_params_from_diffusers, save_safetensors
 
@@ -4844,9 +4943,11 @@ def lumina2_phase(paths: dict, kernels, device: str) -> dict:
                    .values())
 
     written_before, free = _written_gb(), shutil.disk_usage(work).free
-    # full depth where the run's writes leave room for it beside the phase's other files
-    room = RUN_WRITE_TARGET_GB - written_before - file_bytes / 1e9 - 0.6
-    layers = gemma_full.num_layers if gemma_bytes(gemma_full.num_layers) / 1e9 <= room else GEMMA_FILE_LAYERS
+    # GEMMA_FILE_LAYERS in a run of every phase; full depth in a run that
+    # names phase 26 where its writes leave room beside the later phases'
+    room = RUN_WRITE_TARGET_GB - written_before - file_bytes / 1e9 - 0.6 - _reserved(26)
+    layers = gemma_full.num_layers if _full_depth(26, (gemma_bytes(gemma_full.num_layers) - gemma_bytes(
+        GEMMA_FILE_LAYERS)) / 1e9) else GEMMA_FILE_LAYERS
     gemma = dataclasses.replace(gemma_full, num_layers=layers)
     if free < file_bytes + 8e9 or gemma_bytes(layers) / 1e9 > room:
         raise RuntimeError(f"lumina2: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
@@ -4890,38 +4991,9 @@ def lumina2_phase(paths: dict, kernels, device: str) -> dict:
     # (c) text encoding: prompts at 256 tokens through the builder the
     # trainer uses (bf16 compute), prompts/s, and bf16 against the f32 module
     # on the same weights and tokens
-    spec = Lumina2.TEXT_ENCODER_CONFIGURATION[0]
-    t0 = time.perf_counter()
-    (encoder,) = load_text_encoders([spec], pretrained_path=lumina_dir, device="cuda")
-    torch.cuda.synchronize()
-    encoder_load_s = time.perf_counter() - t0
-    if not isinstance(encoder, LLMTextEncoder) or encoder.config != gemma or \
-            encoder.model.embed_tokens.dtype != torch.bfloat16:
-        raise RuntimeError(f"lumina2: the builder gave {type(encoder).__name__} {encoder.config}")
     prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]} number {i}" for i in range(TEXT_PROMPTS)]
-    encoder.encode(prompts[:2])  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = encoder.encode(prompts)
-    encode_s = time.perf_counter() - t0
-    with torch.device(dev):
-        f32 = LLMEncoder(gemma, dtype=torch.float32)
-    f32.load_state_dict({k: v.float() for k, v in encoder.model.state_dict().items()})
-    out32 = LLMTextEncoder(spec, f32.eval(), encoder.tokenizer).encode(prompts)
-    bf16_err = rel_l2(torch.from_numpy(out["last_hidden_state"]), torch.from_numpy(out32["last_hidden_state"]))
-    valid = out["attention_mask"].sum(axis=1)
-    if out["last_hidden_state"].shape != (TEXT_PROMPTS, LUMINA_CAP, gemma.hidden_size) or \
-            not np.isfinite(out["last_hidden_state"]).all() or bf16_err > GEMMA_BF16_REL_L2 or \
-            not (valid > 1).all():
-        raise RuntimeError(f"lumina2 text encoder: {out['last_hidden_state'].shape}, bf16 vs f32 rel L2 {bf16_err} "
-                           f"(<= {GEMMA_BF16_REL_L2}), valid tokens {valid.tolist()}")
-    text = {"params": sum(p.numel() for p in encoder.model.parameters()), "layers": [layers, gemma_full.num_layers],
-            "load_s": encoder_load_s, "prompts": TEXT_PROMPTS, "tokens": LUMINA_CAP, "encode_s": encode_s,
-            "prompts_per_s": TEXT_PROMPTS / encode_s, "bf16_vs_f32_rel_l2": bf16_err, "bound": GEMMA_BF16_REL_L2,
-            "valid_tokens": [int(valid.min()), int(valid.max())]}
-    del encoder, f32, out, out32
-    gc.collect()
-    torch.cuda.empty_cache()
+    text = {**_llm_text_report(Lumina2.TEXT_ENCODER_CONFIGURATION[0], lumina_dir, gemma, LUMINA_CAP, prompts),
+            "layers": [layers, gemma_full.num_layers]}
 
     # (d) the import, bitwise
     model = ModelRegistry.create("lumina2", config_namespace({"model_family": "lumina2", "model_type": "full"}))
@@ -5014,16 +5086,711 @@ def lumina2_phase(paths: dict, kernels, device: str) -> dict:
             any(by_shape[k] != {keys[n]: c for n, c in per_shape.items()} for k in ("flash_bwd_dq", "flash_bwd_dkv")):
         raise RuntimeError(f"lumina2 trainer: launches per step by shape {by_shape}")
     train.update({"base": "bf16", "remat": "every block", "lora_rank": 16, "flop_checks": flop_checks})
-    writes = check_run_writes()
     phase("26 lumina2", config="Alpha-VLLM/Lumina-Image-2.0 transformer/ as the JAX preset Lumina2Config() builds it",
           params=params, hidden=arch.hidden_size, heads=[arch.num_heads, arch.num_kv_heads, arch.head_dim],
           blocks=[arch.refiner_depth, arch.refiner_depth, arch.depth], depth=[arch.depth, arch.depth],
           ffn_inner=arch.ffn_inner, tokens={"caption": LUMINA_CAP, "image": (latent // 2) ** 2, "joint": LUMINA_S},
           files=files, text_encoder=text, imported=imported, render=render, parity=parity, train=train,
-          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device, **writes)
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device)
     gc.collect()
     torch.cuda.empty_cache()
     return {name: {k: v.get(keys[name]) for k, v in by_shape.items()} for name in keys}
+
+
+def kandinsky5_step_flops(arch, batch: int, tokens: int, text_tokens: int) -> int:
+    """Model FLOPs of one Kandinsky 5.0 train step in bench.py's convention
+    (forward x 3; remat recompute is hardware work, not model work), counted
+    from the config at ``tokens`` visual and ``text_tokens`` Qwen tokens with
+    per-sample timesteps: the time MLP, the pooled and text embeddings, the
+    visual patch linear; per text block its modulation, q / k / v / out, the
+    attention's two products and the feed-forward; per visual block its
+    modulation, the self-attention (q / k / v / out and two products), the
+    cross-attention (q and out per visual token, k and v per text token, two
+    products) and the feed-forward; the out modulation and projection."""
+    d, td, ff = arch.model_dim, arch.time_dim, arch.ff_dim
+    patch = arch.patch_size[0] * arch.patch_size[1] * arch.patch_size[2]
+    fwd = 2 * (d * td + td * td) + 2 * arch.in_text_dim2 * td + 2 * text_tokens * arch.in_text_dim * d
+    fwd += 2 * tokens * patch * arch.visual_embed_dim * d
+    text_block = 2 * td * 6 * d + 2 * text_tokens * (4 * d * d + 2 * d * ff) + 4 * text_tokens ** 2 * d
+    visual_block = (2 * td * 9 * d + 2 * tokens * (4 * d * d + 2 * d * d + 2 * d * ff) + 4 * tokens ** 2 * d
+                    + 2 * text_tokens * 2 * d * d + 4 * tokens * text_tokens * d)
+    fwd += arch.num_text_blocks * text_block + arch.num_visual_blocks * visual_block
+    fwd += 2 * td * 2 * d + 2 * tokens * d * patch * arch.out_visual_dim
+    return batch * fwd * 3
+
+
+def hunyuanvideo_step_flops(arch, batch: int, video_tokens: int, qwen_tokens: int, byt5_tokens: int) -> int:
+    """Model FLOPs of one HunyuanVideo 1.5 train step in bench.py's
+    convention (forward x 3), counted from the config: the patch linear, the
+    time MLP; the token refiner (its time and pooled-text MLPs, ``proj_in``,
+    per block its gates, q / k / v / out, two products and the MLP over the
+    Qwen tokens); the ByT5 projection (2048, 2048, dim); per dual-stream
+    block both streams' modulation, q / k / v / out and MLP and the joint
+    attention's two products over every token, pads included; the head."""
+    d, mlp = arch.hidden_size, int(arch.hidden_size * arch.mlp_ratio)
+    text = qwen_tokens + byt5_tokens
+    joint = video_tokens + text
+    fwd = 2 * video_tokens * arch.in_channels * d + 2 * (256 * d + d * d)
+    fwd += 2 * (256 * d + d * d) + 2 * (arch.text_dim * d + d * d) + 2 * qwen_tokens * arch.text_dim * d
+    fwd += arch.refiner_depth * (2 * d * 2 * d + 2 * qwen_tokens * (4 * d * d + 2 * d * mlp) + 4 * qwen_tokens ** 2 * d)
+    fwd += 2 * byt5_tokens * (arch.text2_dim * 2048 + 2048 * 2048 + 2048 * d)
+    fwd += arch.depth * (2 * 2 * d * 6 * d + 2 * joint * (4 * d * d + 2 * d * mlp) + 4 * joint * joint * d)
+    fwd += 2 * d * 2 * d + 2 * video_tokens * d * arch.out_channels
+    return batch * fwd * 3
+
+
+def qwen_trunk(paths: dict, number: int) -> dict:
+    """The seeded Qwen2.5-VL-7B text trunk in the HF layout, written once a
+    run (by the first of phases 27-28 that runs, ``number``) under
+    ``work/qwen25_vl/text_encoder``: the ``qwen25_7b`` preset's width (3584,
+    28 query / 4 kv heads of 128, FFN 18,944, 152,064 tokens, qkv biases) at
+    ``QWEN_FILE_LAYERS`` of its 28 layers, or all 28 in a run that names the
+    phase where its writes leave room; e4m3 (matrices N(0, 1/fan_in), norm
+    weights 1 + N(0, 0.1), biases N(0, 0.01)), with one ``visual.*`` tensor
+    of the published file that the importer leaves unread, and a
+    ``config.json`` in Qwen/Qwen2.5-VL-7B-Instruct's layout: the text sizes
+    as top-level keys beside ``vision_config`` and the mrope
+    ``rope_scaling``.  The later phase hard-links it."""
+    import torch
+
+    from simpletuner_tpu_torch.models.checkpoint_layouts import llm_checkpoint_shapes
+    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoderConfig
+    from simpletuner_tpu_torch.models.weight_import import save_safetensors
+
+    if "qwen" in paths:
+        return paths["qwen"]
+    full = LLMEncoderConfig.qwen25_7b()
+    if (full.hidden_size, full.num_layers, full.num_heads, full.num_kv_heads, full.head_dim, full.intermediate_size,
+            full.vocab_size, full.qkv_bias) != (3584, 28, 28, 4, 128, 18944, 152064, True):
+        raise RuntimeError(f"not Qwen2.5-VL-7B's text trunk: {full}")
+
+    def file_gb(layers: int) -> float:
+        return sum(math.prod(v) for v in llm_checkpoint_shapes(dataclasses.replace(full, num_layers=layers))
+                   .values()) / 1e9
+
+    layers = full.num_layers if _full_depth(number, file_gb(full.num_layers) - file_gb(QWEN_FILE_LAYERS)) \
+        else QWEN_FILE_LAYERS
+    config = dataclasses.replace(full, num_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(270)
+    weights = {}
+    for name, shape in llm_checkpoint_shapes(config).items():
+        draw = torch.randn(shape, generator=gen, device="cuda")
+        if len(shape) > 1:
+            draw = draw / math.sqrt(shape[-1])
+        elif name.endswith("norm.weight") or "layernorm" in name:
+            draw = 1.0 + 0.1 * draw
+        else:
+            draw = 0.01 * draw
+        weights[name] = draw.to(torch.float8_e4m3fn)
+    weights["visual.patch_embed.proj.weight"] = (0.02 * torch.randn((1280, 3, 2, 14, 14), generator=gen,
+                                                                    device="cuda")).to(torch.float8_e4m3fn)
+    root = os.path.join(paths["work"], "qwen25_vl")
+    os.makedirs(os.path.join(root, "text_encoder"))
+    t0 = time.perf_counter()
+    save_safetensors(weights, os.path.join(root, "text_encoder", "model.safetensors"))
+    write_s = time.perf_counter() - t0
+    with open(os.path.join(root, "text_encoder", "config.json"), "w") as handle:
+        json.dump({"architectures": ["Qwen2_5_VLForConditionalGeneration"], "model_type": "qwen2_5_vl",
+                   "vocab_size": config.vocab_size, "hidden_size": config.hidden_size,
+                   "intermediate_size": config.intermediate_size, "num_hidden_layers": layers,
+                   "num_attention_heads": config.num_heads, "num_key_value_heads": config.num_kv_heads,
+                   "max_position_embeddings": 128000, "rope_theta": config.rope_theta, "rms_norm_eps": config.rms_eps,
+                   "hidden_act": "silu", "tie_word_embeddings": False, "torch_dtype": "float8_e4m3fn",
+                   "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+                   "vision_config": {"depth": 32, "hidden_size": 1280, "out_hidden_size": 3584, "patch_size": 14,
+                                     "temporal_patch_size": 2}}, handle)
+    del weights
+    torch.cuda.empty_cache()
+    paths["qwen"] = {"root": root, "config": config, "layers": [layers, full.num_layers],
+                     "gb": sum(math.prod(v) for v in llm_checkpoint_shapes(config).values()) / 1e9,
+                     "dtype": "float8_e4m3fn", "write_s": write_s, "written_by_phase": number}
+    return paths["qwen"]
+
+
+def _llm_text_report(spec, root: str, config, tokens: int, prompts: list) -> dict:
+    """``prompts`` at ``tokens`` through the decoder-LLM encoder the trainer
+    builds from ``root`` (bf16 compute; ``config`` the one it must read):
+    load seconds, prompts/s after a warm-up, and the bf16 states against the
+    f32 module on the same weights and tokens (within ``LLM_BF16_REL_L2``)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoder
+    from simpletuner_tpu_torch.models.text_encoders import LLMTextEncoder, load_text_encoders
+
+    t0 = time.perf_counter()
+    (encoder,) = load_text_encoders([spec], pretrained_path=root, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if not isinstance(encoder, LLMTextEncoder) or encoder.config != config or \
+            encoder.model.embed_tokens.dtype != torch.bfloat16:
+        raise RuntimeError(f"the {spec.family} builder gave {type(encoder).__name__} {encoder.config}")
+    encoder.encode(prompts[:2])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = encoder.encode(prompts)
+    encode_s = time.perf_counter() - t0
+    with torch.device("cuda"):
+        f32 = LLMEncoder(config, dtype=torch.float32)
+    f32.load_state_dict({k: v.float() for k, v in encoder.model.state_dict().items()})
+    out32 = LLMTextEncoder(spec, f32.eval(), encoder.tokenizer).encode(prompts)
+    bf16_err = rel_l2(torch.from_numpy(out["last_hidden_state"]), torch.from_numpy(out32["last_hidden_state"]))
+    valid = out["attention_mask"].sum(axis=1)
+    if out["last_hidden_state"].shape != (len(prompts), tokens, config.hidden_size) or \
+            not np.isfinite(out["last_hidden_state"]).all() or bf16_err > LLM_BF16_REL_L2 or \
+            not (1 < valid).all() or not (valid < tokens).all():
+        raise RuntimeError(f"{spec.family} encoder: {out['last_hidden_state'].shape}, bf16 vs f32 rel L2 {bf16_err} "
+                           f"(<= {LLM_BF16_REL_L2}), valid tokens {valid.tolist()}")
+    report = {"params": sum(p.numel() for p in encoder.model.parameters()), "load_s": load_s,
+              "prompts": len(prompts), "tokens": tokens, "encode_s": encode_s,
+              "prompts_per_s": len(prompts) / encode_s, "bf16_vs_f32_rel_l2": bf16_err, "bound": LLM_BF16_REL_L2,
+              "valid_tokens": [int(valid.min()), int(valid.max())]}
+    del encoder, f32, out, out32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def write_byt5_tokenizer(root: str) -> None:
+    """A byte-level tokenizer in ByT5's ids (``<pad>`` 0, ``</s>`` 1,
+    ``<unk>`` 2, then byte b at b + 3, the eos appended) as a
+    ``tokenizer.json`` that ``T5TokenizerFast`` reads (the T5 spec's
+    tokenizer class; ByT5's own tokenizer has no fast form)."""
+    from tokenizers import Tokenizer, models, processors
+
+    pieces = [("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0)] + [(chr(b), -1.0) for b in range(256)]
+    tokenizer = Tokenizer(models.Unigram(pieces, unk_id=2))
+    tokenizer.post_processor = processors.TemplateProcessing(single="$A </s>", special_tokens=[("</s>", 1)])
+    os.makedirs(root, exist_ok=True)
+    tokenizer.save(os.path.join(root, "tokenizer.json"))
+    with open(os.path.join(root, "tokenizer_config.json"), "w") as handle:
+        json.dump({"model_max_length": 1024, "eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>",
+                   "extra_ids": 0}, handle)
+
+
+def _video_config(family: str, root: str, data: str, cache: str, out: str, frames: int, steps: int,
+                  alignment: int = 16, **extra) -> dict:
+    """``Trainer.run()``'s config for a video family: the clips in ``data`` at
+    640 pixel_area and ``alignment`` (16: 832 x 480, 768 x 512 and 848 x 480
+    keep their size; LTX's 32: 768 x 512), rank-16 LoRA, bf16 base, every
+    block checkpointed, AdamW 1e-4, one clip per VAE encode, graphed."""
+    dataset = {"resolution": 640, "resolution_type": "pixel_area", "aspect_bucket_alignment": alignment}
+    return {
+        "model_family": family, "model_type": "lora", "lora_rank": 16, "pretrained_model_name_or_path": root,
+        "gradient_checkpointing": True, "optimizer": "adamw", "learning_rate": 1e-4, "lr_scheduler": "constant",
+        "mixed_precision": "bf16", "text_encoder_precision": "bf16", "train_batch_size": 1, "vae_batch_size": 1,
+        "max_train_steps": steps, "logging_steps": 1, "report_to": "jsonl", "seed": 42, "cache_dir": cache,
+        "output_dir": out, "checkpoint_frozen_base": "reference", **dataset, **extra,
+        "data_backend_config": [
+            {"id": "clips", "dataset_type": "video", "type": "local", "instance_data_dir": data, **dataset,
+             "caption_strategy": "textfile", "cache_dir_vae": os.path.join(cache, "vae"),
+             "video": {"num_frames": frames}},
+            {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
+             "cache_dir": os.path.join(cache, "text")},
+        ],
+    }
+
+
+def _video_render(work: str, family: str, root: str, name: str, kernels, prompt: str, guidance: float, size: int,
+                  frames: int, per_forward: int) -> tuple:
+    """A true-CFG flow Euler render of ``frames`` frames at ``size`` px square
+    through ``CheckpointInferenceRuntime``, written as mp4 and read back, with
+    ``per_forward`` flash launches a forward (two forwards a step); returns
+    the report and the runtime."""
+    import torch
+
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime
+
+    config_path = os.path.join(work, f"{name}_render.json")
+    with open(config_path, "w") as handle:
+        json.dump({"model_family": family, "model_type": "full", "pretrained_model_name_or_path": root,
+                   "mixed_precision": "bf16", "text_encoder_precision": "bf16", "seed": 42,
+                   "validation_resolution": size, "validation_num_video_frames": frames, "validation_seed": 42,
+                   "validation_guidance": guidance}, handle)
+    t0 = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, f"{name}_render"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    timed = _timed_render(runtime, kernels, prompt, guidance)
+    rendered, forward_s = timed["rendered"], timed["forward_s"]
+    if timed["launches"] != {"flash_fwd": per_forward * 2 * STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0} or \
+            len(rendered) != 1 or not rendered[0].endswith(".mp4") or timed["finite"] != [True] or \
+            len(forward_s) != 2 * STEPS:
+        raise RuntimeError(f"{family} render: {rendered}, finite latents {timed['finite']}, {len(forward_s)} "
+                           f"forwards, launches {timed['launches']}, expected {per_forward} per forward, two a step")
+    read = _mp4_frame_shapes(rendered[0])
+    if len(read) != frames or set(read) != {(size, size, 3)}:
+        raise RuntimeError(f"{family} render: the mp4 holds {len(read)} frames of {set(read)}")
+    return {"init_s": init_s, "render_s": timed["render_s"], "steps": STEPS, "guidance": guidance, "frames": frames,
+            "size": size, "s_per_cfg_step": sum(forward_s[2:]) / (len(forward_s) - 2) * 2, "forward_s": forward_s,
+            "vae_decode_s": timed["decode_s"][0], "peak_gib": timed["peak_gib"], "launches": timed["launches"],
+            "launches_per_cfg_step": {k: v // STEPS for k, v in timed["launches"].items()},
+            "launches_by_shape": timed["launches_by_shape"], "mp4": os.path.basename(rendered[0]),
+            "mp4_bytes": os.path.getsize(rendered[0]), "mp4_frames": len(read)}, runtime
+
+
+def _text_batch(model, prompt: str, latents: tuple, dev) -> dict:
+    """Zero ``latents`` and ``prompt``'s collated conditioning on the card."""
+    import torch
+
+    batch = {"latents": torch.zeros(latents, device=dev)}
+    for key, value in model.collate_text_embeds(model.encode_text([prompt])).items():
+        batch[key] = torch.as_tensor(value, device=dev)
+    return batch
+
+
+def kandinsky5_phase(paths: dict, kernels, device: str) -> dict:
+    """Phase 27: Kandinsky 5.0 Lite at the JAX preset's full width and depth,
+    both flavours on one seeded e4m3 transformer file, with phase 15's CLIP-L
+    (``text_encoder_2``) and the seeded Qwen2.5-VL trunk (``qwen_trunk``,
+    ``text_encoder``), both encoders reading ``tokenizer/`` (the CLIP
+    tokenizer, which ``AutoTokenizer`` reads too), and a seeded 4-channel SD
+    VAE (``vae/``, the image flavour's): 512-token prompts through the
+    Qwen2.5-VL encoder (prompts/s, bf16 against the f32 module); the import
+    through both family names held bitwise; ``kandinsky5_image`` at 1024 px:
+    a true-CFG flow Euler render, one full-depth forward with the kernels
+    against the plain attention, 6 graphed LoRA steps on four of phase 16's
+    JPEGs; ``kandinsky5_video`` on two seeded 768 x 512 x 61 clips: 6 graphed
+    LoRA steps after the video VAE cache, a true-CFG mp4 render at 512 px
+    square, the parity forward on a 17-frame clip.  Each run's profiled
+    replay is held to the capture's launches by shape (self / cross / text).
+    Returns the launches per step of each kernel at the video shapes."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import kandinsky5_checkpoint_shapes, vae_checkpoint_shapes
+    from simpletuner_tpu_torch.models.kandinsky5 import Kandinsky5Config, Kandinsky5Transformer, Kandinsky5Video
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from simpletuner_tpu_torch.models.video_vae import VideoAutoencoderKL, VideoVAEConfig
+    from simpletuner_tpu_torch.models.weight_import import kandinsky5_params_from_checkpoint, save_safetensors
+
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    for out in ("lumina2", "lumina2_train", "lumina2_cache", "lumina2_data", "lumina2_render"):  # disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = Kandinsky5Config.tiny()
+    wider = dataclasses.replace(tiny, model_dim=64, ff_dim=96, axes_dims=(8, 12, 12), num_text_blocks=2,
+                                num_visual_blocks=1, in_visual_dim=3, out_visual_dim=5)
+    flop_checks = _flop_checks(kandinsky5_step_flops, Kandinsky5Transformer, [
+        (arch, (torch.zeros(2, t, h, w, arch.visual_embed_dim), torch.zeros(2, txt, arch.in_text_dim),
+                torch.zeros(2, arch.in_text_dim2), torch.full((2,), 500.0)), (t * (h // 2) * (w // 2), txt))
+        for arch, (t, h, w), txt in ((tiny, (3, 4, 6), 7), (wider, (1, 8, 6), 5))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    arch = Kandinsky5Config()
+    if (arch.model_dim, arch.num_heads, arch.head_dim, arch.ff_dim, arch.num_visual_blocks, arch.num_text_blocks,
+            arch.in_visual_dim, arch.in_text_dim) != (2048, 32, 64, 5120, 32, 2, 4, 3584):
+        raise RuntimeError(f"not the JAX preset of Kandinsky 5.0 Lite: {arch}")
+    if K5_LATENT[0] * (K5_LATENT[1] // 2) * (K5_LATENT[2] // 2) != K5_TOKENS:
+        raise RuntimeError(f"kandinsky5: {K5_LATENT} latents do not give {K5_TOKENS} tokens")
+    shapes = kandinsky5_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 8e9 or written_before + PHASE27_WRITE_GB + _reserved(27) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"kandinsky5: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
+                           f"phase; it and the later phases write {PHASE27_WRITE_GB + _reserved(27):.1f} GB of the "
+                           f"{RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded files: the transformer (two e4m3 shards), the 4-channel
+    # SD VAE (bf16), the Qwen2.5-VL trunk and phase 14's CLIP-L linked, and
+    # the CLIP tokenizer in tokenizer/ (both specs read it; its config names
+    # its class, so AutoTokenizer reads it as well)
+    k5_dir = os.path.join(work, "kandinsky5")
+    weights, write_s = _write_e4m3_transformer(k5_dir, shapes, gen)
+    qwen = qwen_trunk(paths, 27)
+    _link_tree(os.path.join(qwen["root"], "text_encoder"), os.path.join(k5_dir, "text_encoder"))
+    _link_tree(os.path.join(flux_dir, "text_encoder"), os.path.join(k5_dir, "text_encoder_2"))
+    os.makedirs(os.path.join(k5_dir, "tokenizer"))
+    for name in os.listdir(os.path.join(flux_dir, "tokenizer")):
+        shutil.copy(os.path.join(flux_dir, "tokenizer", name), os.path.join(k5_dir, "tokenizer", name))
+    tok_config = os.path.join(k5_dir, "tokenizer", "tokenizer_config.json")
+    with open(tok_config) as handle:
+        values = json.load(handle)
+    with open(tok_config, "w") as handle:
+        json.dump({**values, "tokenizer_class": "CLIPTokenizer"}, handle)
+    with torch.device(dev):
+        vae = AutoencoderKL(VAEConfig(), torch.bfloat16)
+    os.makedirs(os.path.join(k5_dir, "vae"))
+    save_safetensors(seeded_weights(vae_checkpoint_shapes(vae), gen),
+                     os.path.join(k5_dir, "vae", "diffusion_pytorch_model.safetensors"))
+    del vae
+    data = os.path.join(work, "k5_clips")
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "qwen": {k: v for k, v in qwen.items()
+                                                                   if k not in ("root", "config")},
+             **_write_clips(data, K5_CLIPS, K5_FRAMES, K5_HEIGHT, K5_WIDTH, 24, 27),
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) 512-token prompts through the Qwen2.5-VL encoder the trainer builds
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    text = _llm_text_report(Kandinsky5Video.TEXT_ENCODER_CONFIGURATION[0], k5_dir, qwen["config"], K5_TEXT,
+                            prompts)
+
+    # (d) the import through both family names, bitwise
+    imported = {}
+    for family in ("kandinsky5_video", "kandinsky5_image"):
+        model = ModelRegistry.create(family, config_namespace({"model_family": family, "model_type": "full"}))
+        if model.arch != arch:
+            raise RuntimeError(f"{family}: the family builds {model.arch}, not {arch}")
+        with torch.device(dev):
+            module = model.create_module()
+        imported[family] = _import_bitwise(model, module, k5_dir, weights, kandinsky5_params_from_checkpoint,
+                                           file_bytes)
+        del module
+        gc.collect()
+        torch.cuda.empty_cache()
+    params = imported["kandinsky5_video"]["params"]
+    del weights
+
+    blocks = {"self": arch.num_visual_blocks, "cross": arch.num_visual_blocks, "text": arch.num_text_blocks}
+    per_forward = sum(blocks.values())
+    targets = [f"{a}.{p}" for a in ("self_attention", "cross_attention") for p in ("to_query", "to_key", "to_value",
+                                                                                   "out_layer")]
+    adapted_expected = {f"{a}/{p}" for a in ("self_attention", "cross_attention")
+                        for p in ("to_query", "to_key", "to_value", "out_layer")}
+
+    def shape_keys(tokens: int) -> dict:
+        return {"self": f"32x{tokens}x{tokens}x64", "cross": f"32x{tokens}x{K5_TEXT}x64",
+                "text": f"32x{K5_TEXT}x{K5_TEXT}x64"}
+
+    def check_by_shape(by_shape: dict, tokens: int, label: str) -> None:
+        keys = shape_keys(tokens)
+        if by_shape["flash_fwd"] != {keys[n]: 2 * c for n, c in blocks.items()} or \
+                any(by_shape[k] != {keys[n]: c for n, c in blocks.items()} for k in ("flash_bwd_dq", "flash_bwd_dkv")):
+            raise RuntimeError(f"{label}: launches per step by shape {by_shape}")
+
+    # (e) kandinsky5_image at 1024 px: render, parity, training
+    config_path = os.path.join(work, "k5_image_render.json")
+    with open(config_path, "w") as handle:
+        json.dump({"model_family": "kandinsky5_image", "model_type": "full", "pretrained_model_name_or_path": k5_dir,
+                   "mixed_precision": "bf16", "text_encoder_precision": "bf16", "vae_dtype": "bf16",
+                   "validation_resolution": RESOLUTION, "validation_seed": 42, "seed": 42,
+                   "validation_guidance": K5_GUIDANCE}, handle)
+    t0 = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "k5_image_render"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "kandinsky5_image" or not model.is_flow:
+        raise RuntimeError(f"kandinsky5_image: the runtime built {model.NAME} {model.arch}")
+    timed = _timed_render(runtime, kernels, K5_PROMPT, K5_GUIDANCE)
+    image_render = _render_report(timed, per_forward, K5_GUIDANCE, init_s)
+    keys = shape_keys(K5_IMAGE_TOKENS)
+    if timed["launches_by_shape"]["flash_fwd"] != {keys[n]: 2 * STEPS * c for n, c in blocks.items()}:
+        raise RuntimeError(f"kandinsky5_image render: launches by shape {timed['launches_by_shape']}")
+    latent = RESOLUTION // 8
+    batch = _text_batch(model, K5_PROMPT, (1, latent, latent, 4), dev)
+    if tuple(batch["text_embeds"].shape) != (1, K5_TEXT, arch.in_text_dim) or \
+            tuple(batch["pooled_embeds"].shape) != (1, arch.in_text_dim2) or "text_attention_mask" in batch:
+        raise RuntimeError(f"kandinsky5: the collated batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    model.text_encoders = []  # the plain attention's scores need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    noise = torch.randn((1, latent, latent, 4), generator=gen, device=dev)
+    image_parity = {**_parity_forward(model, module, batch, noise, K5_SIGMA), "tokens": K5_IMAGE_TOKENS}
+    del runtime, module, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    images = _square_jpegs(work, "k5_image_data", K5_TRAIN_IMAGES)
+    cache = os.path.join(work, "k5_image_cache")
+    config = {
+        "model_family": "kandinsky5_image", "model_type": "lora", "lora_rank": 16, "lora_target_modules": targets,
+        "pretrained_model_name_or_path": k5_dir, "gradient_checkpointing": True, "optimizer": "adamw",
+        "learning_rate": 1e-4, "lr_scheduler": "constant", "mixed_precision": "bf16", "text_encoder_precision": "bf16",
+        "vae_dtype": "bf16", "train_batch_size": 1, "resolution": RESOLUTION, "resolution_type": "pixel_area",
+        "max_train_steps": K5_TRAIN_STEPS, "logging_steps": 1, "report_to": "jsonl", "seed": 42, "cache_dir": cache,
+        "output_dir": os.path.join(work, "k5_image_train"), "checkpoint_frozen_base": "reference",
+        "data_backend_config": [
+            {"id": "train", "dataset_type": "image", "type": "local", "instance_data_dir": images,
+             "resolution": RESOLUTION, "resolution_type": "pixel_area", "caption_strategy": "textfile",
+             "cache_dir_vae": os.path.join(cache, "vae")},
+            {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
+             "cache_dir": os.path.join(cache, "text")},
+        ],
+    }
+
+    def check_image(trainer) -> dict:
+        adapted = {name.rsplit("/", 3)[-3] + "/" + name.rsplit("/", 2)[-2] for name in trainer._state.trainable}
+        batch = trainer._example_batch()
+        if trainer.model.arch != arch or trainer.vae.config != VAEConfig() or adapted != adapted_expected or \
+                batch["latents"].shape != (1, latent, latent, 4) or "text_attention_mask" in batch:
+            raise RuntimeError(f"kandinsky5_image trainer: arch {trainer.model.arch}, VAE {trainer.vae.config}, "
+                               f"adapters on {adapted}, batch {({k: v.shape for k, v in batch.items()})}")
+        return {"vae": "VAEConfig() (SD, 4 latent channels, scaling 0.18215)"}
+
+    expected = {"flash_fwd": 2 * per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
+    flops = kandinsky5_step_flops(arch, 1, K5_IMAGE_TOKENS, K5_TEXT)
+    image_train = _train_graphed(config, kernels, K5_TRAIN_STEPS, expected, flops, check_image)
+    check_by_shape(image_train["launches_per_step_by_shape"], K5_IMAGE_TOKENS, "kandinsky5_image trainer")
+    image_train.update({"base": "bf16", "remat": "every block", "lora_rank": 16})
+
+    # (f) kandinsky5_video: training on the clips (the video VAE cache), the
+    # mp4 render, the parity forward on a 17-frame clip
+    cache = os.path.join(work, "k5_video_cache")
+    config = _video_config("kandinsky5_video", k5_dir, data, cache, os.path.join(work, "k5_video_train"), K5_FRAMES,
+                           K5_TRAIN_STEPS, lora_target_modules=targets)
+    bucket = f"1.5x{K5_FRAMES}"
+
+    def check_video(trainer) -> dict:
+        bundle = trainer.data_plane.bundles["clips"]
+        buckets = sorted(bundle.metadata_backend.aspect_ratio_bucket_indices)
+        clips = bundle.metadata_backend.aspect_ratio_bucket_indices.get(bucket, [])
+        cached = [bundle.vae_cache.load(p) for p in clips]
+        vae_config = dataclasses.replace(VideoVAEConfig.wan(), latent_channels=4)
+        if trainer.model.arch != arch or buckets != [bucket] or len(clips) != K5_CLIPS or \
+                not isinstance(trainer.vae, VideoAutoencoderKL) or trainer.vae.config != vae_config or \
+                any(c.shape != K5_LATENT + (4,) or not np.isfinite(c).all() for c in cached):
+            raise RuntimeError(f"kandinsky5_video trainer: arch {trainer.model.arch}, buckets {buckets}, VAE "
+                               f"{trainer.vae.config}, cached {[c.shape for c in cached]}")
+        startup = trainer.data_plane.startup_metrics
+        return {"buckets": buckets, "latents": list(cached[0].shape),
+                "cache": {"text_s": startup.get("text_cache_clips_s"), "vae_s": startup.get("vae_cache_clips_s"),
+                          "vae_s_per_clip": startup.get("vae_cache_clips_s", 0.0) / K5_CLIPS,
+                          "init_data_backend_peak_gib": trainer.stage_report["init_data_backend"]["peak_gib"]}}
+
+    flops = kandinsky5_step_flops(arch, 1, K5_TOKENS, K5_TEXT)
+    video_train = _train_graphed(config, kernels, K5_TRAIN_STEPS, expected, flops, check_video)
+    by_shape = video_train["launches_per_step_by_shape"]
+    check_by_shape(by_shape, K5_TOKENS, "kandinsky5_video trainer")
+    video_train.update({"base": "bf16", "remat": "every block", "lora_rank": 16, "flop_checks": flop_checks})
+
+    video_render, runtime = _video_render(work, "kandinsky5_video", k5_dir, "k5_video", kernels, K5_PROMPT,
+                                          K5_GUIDANCE, K5_RENDER_SIZE, K5_FRAMES, per_forward)
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "kandinsky5_video":
+        raise RuntimeError(f"kandinsky5_video: the runtime built {model.NAME} {model.arch}")
+    render_tokens = K5_LATENT[0] * (K5_RENDER_SIZE // 16) ** 2
+    if video_render["launches_by_shape"]["flash_fwd"] != {
+            shape_keys(render_tokens)[n]: 2 * STEPS * c for n, c in blocks.items()}:
+        raise RuntimeError(f"kandinsky5_video render: launches by shape {video_render['launches_by_shape']}")
+    video_render["tokens"] = render_tokens
+    parity_latent = ((K5_PARITY_FRAMES - 1) // 4 + 1, K5_LATENT[1], K5_LATENT[2])
+    batch = _text_batch(model, K5_PROMPT, (1,) + parity_latent + (4,), dev)
+    model.text_encoders = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    noise = torch.randn((1,) + parity_latent + (4,), generator=gen, device=dev)
+    video_parity = {**_parity_forward(model, module, batch, noise, K5_SIGMA), "frames": K5_PARITY_FRAMES,
+                    "tokens": parity_latent[0] * (parity_latent[1] // 2) * (parity_latent[2] // 2)}
+    del runtime, module, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("27 kandinsky5", config="ai-forever/Kandinsky-5.0-T2V-Lite-sft-5s / T2I-Lite transformer/ as the JAX preset "
+          "Kandinsky5Config() builds it (4 latent channels)", params=params, hidden=arch.model_dim,
+          heads=[arch.num_heads, arch.head_dim], blocks=[arch.num_text_blocks, arch.num_visual_blocks],
+          depth=[arch.num_visual_blocks, Kandinsky5Config().num_visual_blocks], ff_dim=arch.ff_dim,
+          qwen_layers=qwen["layers"], clip=[K5_FRAMES, K5_HEIGHT, K5_WIDTH], latents=list(K5_LATENT),
+          tokens={"image": K5_IMAGE_TOKENS, "video": K5_TOKENS, "text": K5_TEXT}, files=files, text_encoder=text,
+          imported=imported, image={"render": image_render, "parity": image_parity, "train": image_train},
+          video={"train": video_train, "render": video_render, "parity": video_parity},
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device)
+    keys = shape_keys(K5_TOKENS)
+    return {"k5_self": {k: v.get(keys["self"]) for k, v in by_shape.items()},
+            "k5_cross": {k: v.get(keys["cross"]) for k, v in by_shape.items()}}
+
+
+def hunyuanvideo_phase(paths: dict, kernels, device: str, depth: int) -> dict:
+    """Phase 28: HunyuanVideo 1.5 t2v-480p at the JAX preset's full width and
+    ``depth`` of its 54 dual-stream blocks: a seeded e4m3 diffusers
+    transformer beside phase 27's Qwen2.5-VL trunk (linked, ``text_encoder``)
+    with a Qwen-convention tokenizer (``tokenizer/``), a seeded ByT5-small in
+    the T5 layout (``text_encoder_2``, bf16) with a byte-level tokenizer in
+    ByT5's ids (``tokenizer_2``, read through ``T5TokenizerFast``), and two
+    seeded 848 x 480 x 17 clips: 256-token prompts through the Qwen2.5-VL
+    encoder (prompts/s); the import held bitwise; ``Trainer.run()`` (the
+    video VAE cache at the Wan config and 32 latents, 6 graphed LoRA steps on
+    the video attention projections, bf16 base, every dual-stream block
+    checkpointed) with the profiled replay held to the capture's launches by
+    shape; a true-CFG mp4 render at 480 px square and 17 frames; one forward
+    with the kernels against the plain attention on a 5-frame clip with
+    padded captions (the -1 pads in the refiner and the joint layers).
+    Last, the run's writes against its limit.  Returns the launches per
+    step of each kernel at the HunyuanVideo shapes."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import hunyuanvideo_checkpoint_shapes
+    from simpletuner_tpu_torch.models.hunyuanvideo import HunyuanVideo, HunyuanVideo15Config
+    from simpletuner_tpu_torch.models.hunyuanvideo import HunyuanVideo15Transformer
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.t5 import T5Config, T5EncoderModel
+    from simpletuner_tpu_torch.models.text_encoders import init_encoder
+    from simpletuner_tpu_torch.models.video_vae import VideoAutoencoderKL, VideoVAEConfig
+    from simpletuner_tpu_torch.models.weight_import import hunyuanvideo_params_from_diffusers, save_safetensors
+
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    for out in ("kandinsky5", "k5_clips", "k5_image_data", "k5_image_cache", "k5_image_train", "k5_image_render",
+                "k5_video_cache", "k5_video_train", "k5_video_render"):  # phase 27's: disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = HunyuanVideo15Config.tiny()
+    wider = dataclasses.replace(tiny, num_heads=3, head_dim=16, depth=1, refiner_depth=2, in_channels=5,
+                                out_channels=3, axes_dim=(4, 6, 6))
+    flop_checks = _flop_checks(hunyuanvideo_step_flops, HunyuanVideo15Transformer, [
+        (arch, (torch.zeros(2, t, h, w, arch.in_channels), torch.full((2,), 0.5), torch.zeros(2, l1, arch.text_dim),
+                torch.ones(2, l1, dtype=torch.int32), torch.zeros(2, l2, arch.text2_dim),
+                torch.ones(2, l2, dtype=torch.int32)), (t * h * w, l1, l2))
+        for arch, (t, h, w), l1, l2 in ((tiny, (2, 4, 6), 7, 5), (wider, (1, 6, 4), 5, 3))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    full = HunyuanVideo15Config()
+    if (full.hidden_size, full.num_heads, full.head_dim, full.depth, full.refiner_depth, full.in_channels,
+            full.out_channels, full.text_dim, full.text2_dim) != (2048, 16, 128, 54, 2, 65, 32, 3584, 1472):
+        raise RuntimeError(f"not the JAX preset of HunyuanVideo 1.5: {full}")
+    arch = dataclasses.replace(full, depth=depth)
+    byt5 = T5Config(vocab_size=384, d_model=1472, d_kv=64, d_ff=3584, num_layers=12, num_heads=6,
+                    feed_forward_proj="gated-gelu")
+    shapes = hunyuanvideo_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 1.0 + _reserved(28) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"hunyuanvideo: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
+                           f"phase; it writes {file_bytes / 1e9 + 1.0:.1f} GB of the {RUN_WRITE_TARGET_GB} GB a run "
+                           "may write")
+
+    # (b) the seeded files
+    hy_dir = os.path.join(work, "hunyuanvideo")
+    weights, write_s = _write_e4m3_transformer(hy_dir, shapes, gen)
+    qwen = qwen_trunk(paths, 28)
+    _link_tree(os.path.join(qwen["root"], "text_encoder"), os.path.join(hy_dir, "text_encoder"))
+    write_gemma_tokenizer(os.path.join(hy_dir, "tokenizer"), " ".join(TRAIN_CAPTIONS + [HY_PROMPT]).split())
+    write_byt5_tokenizer(os.path.join(hy_dir, "tokenizer_2"))
+    with torch.device(dev):
+        t5 = init_encoder(T5EncoderModel(byt5, torch.bfloat16), gen)
+    os.makedirs(os.path.join(hy_dir, "text_encoder_2"))
+    t0 = time.perf_counter()
+    save_safetensors(t5.state_dict(), os.path.join(hy_dir, "text_encoder_2", "model.safetensors"))
+    byt5_write_s = time.perf_counter() - t0
+    byt5_bytes = sum(v.numel() * v.element_size() for v in t5.state_dict().values())
+    del t5
+    with open(os.path.join(hy_dir, "text_encoder_2", "config.json"), "w") as handle:
+        json.dump({"architectures": ["T5ForConditionalGeneration"], "model_type": "t5", "d_model": 1472, "d_ff": 3584,
+                   "d_kv": 64, "num_heads": 6, "num_layers": 12, "num_decoder_layers": 4,
+                   "feed_forward_proj": "gated-gelu", "vocab_size": 384, "relative_attention_num_buckets": 32,
+                   "relative_attention_max_distance": 128, "layer_norm_epsilon": 1e-6,
+                   "tie_word_embeddings": False}, handle)
+    data = os.path.join(work, "hy_clips")
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "byt5_gb": byt5_bytes / 1e9, "byt5_dtype": "bfloat16",
+             "byt5_write_s": byt5_write_s, "qwen": {"linked_from_phase": qwen["written_by_phase"],
+                                                   "layers": qwen["layers"]},
+             **_write_clips(data, HY_CLIPS, HY_FRAMES, HY_HEIGHT, HY_WIDTH, 24, 28),
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) 256-token prompts through the Qwen2.5-VL encoder
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    text = _llm_text_report(HunyuanVideo.TEXT_ENCODER_CONFIGURATION[0], hy_dir, qwen["config"], HY_TEXT, prompts)
+
+    # (d) the import, bitwise
+    model = ModelRegistry.create("hunyuanvideo", config_namespace({"model_family": "hunyuanvideo",
+                                                                   "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"hunyuanvideo: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, hy_dir, weights, hunyuanvideo_params_from_diffusers, file_bytes)
+    params = imported["params"]
+    del weights, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) Trainer.run() on the clips: rank-16 LoRA on the video attention projections
+    joint_key, refiner_key = f"16x{HY_JOINT}x{HY_JOINT}x128", f"16x{HY_TEXT}x{HY_TEXT}x128"
+    cache = os.path.join(work, "hy_cache")
+    config = _video_config("hunyuanvideo", hy_dir, data, cache, os.path.join(work, "hy_train"), HY_FRAMES,
+                           HY_TRAIN_STEPS, lora_target_modules=list(HunyuanVideo.DEFAULT_LORA_TARGET))
+    bucket = f"1.77x{HY_FRAMES}"
+
+    def check(trainer) -> dict:
+        bundle = trainer.data_plane.bundles["clips"]
+        buckets = sorted(bundle.metadata_backend.aspect_ratio_bucket_indices)
+        clips = bundle.metadata_backend.aspect_ratio_bucket_indices.get(bucket, [])
+        cached = [bundle.vae_cache.load(p) for p in clips]
+        adapted = {name.rsplit("/", 2)[-2] for name in trainer._state.trainable}
+        batch = trainer._example_batch()
+        vae_config = dataclasses.replace(VideoVAEConfig.wan(), latent_channels=32)
+        if trainer.model.arch != arch or buckets != [bucket] or len(clips) != HY_CLIPS or \
+                not isinstance(trainer.vae, VideoAutoencoderKL) or trainer.vae.config != vae_config or \
+                any(c.shape != HY_LATENT + (32,) or not np.isfinite(c).all() for c in cached) or \
+                adapted != set(HunyuanVideo.DEFAULT_LORA_TARGET) or batch["text_mask"].shape != (1, HY_TEXT) or \
+                batch["text_mask_2"].shape != (1, HY_TEXT2) or not 1 < int(batch["text_mask"].sum()) < HY_TEXT:
+            raise RuntimeError(f"hunyuanvideo trainer: arch {trainer.model.arch}, buckets {buckets}, VAE "
+                               f"{trainer.vae.config}, cached {[c.shape for c in cached]}, adapters {adapted}, batch "
+                               f"{({k: v.shape for k, v in batch.items()})}")
+        startup = trainer.data_plane.startup_metrics
+        return {"buckets": buckets, "latents": list(cached[0].shape), "lora_targets": sorted(adapted),
+                "caption_valid": {"qwen": int(batch["text_mask"].sum()), "byt5": int(batch["text_mask_2"].sum())},
+                "cache": {"text_s": startup.get("text_cache_clips_s"), "vae_s": startup.get("vae_cache_clips_s"),
+                          "vae_s_per_clip": startup.get("vae_cache_clips_s", 0.0) / HY_CLIPS,
+                          "init_data_backend_peak_gib": trainer.stage_report["init_data_backend"]["peak_gib"]}}
+
+    # the refiner's two attentions run once (no remat, nothing to train
+    # behind them: no backward); every dual-stream block's forward, its
+    # recompute and its backward
+    expected = {"flash_fwd": 2 * arch.depth + arch.refiner_depth, "flash_bwd_dq": arch.depth,
+                "flash_bwd_dkv": arch.depth}
+    flops = hunyuanvideo_step_flops(arch, 1, HY_VIDEO, HY_TEXT, HY_TEXT2)
+    train = _train_graphed(config, kernels, HY_TRAIN_STEPS, expected, flops, check)
+    by_shape = train["launches_per_step_by_shape"]
+    if by_shape["flash_fwd"] != {joint_key: 2 * arch.depth, refiner_key: arch.refiner_depth} or \
+            any(by_shape[k] != {joint_key: arch.depth} for k in ("flash_bwd_dq", "flash_bwd_dkv")):
+        raise RuntimeError(f"hunyuanvideo trainer: launches per step by shape {by_shape}")
+    train.update({"base": "bf16", "remat": "every dual-stream block", "lora_rank": 16, "flop_checks": flop_checks})
+
+    # (f) the mp4 render; (g) the parity forward on a 5-frame clip with padded captions
+    per_forward = arch.depth + arch.refiner_depth
+    render, runtime = _video_render(work, "hunyuanvideo", hy_dir, "hy", kernels, HY_PROMPT, HY_GUIDANCE,
+                                    HY_RENDER_SIZE, HY_FRAMES, per_forward)
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "hunyuanvideo":
+        raise RuntimeError(f"hunyuanvideo: the runtime built {model.NAME} {model.arch}")
+    render_joint = HY_LATENT[0] * (HY_RENDER_SIZE // 8) ** 2 + HY_TEXT + HY_TEXT2
+    if render["launches_by_shape"]["flash_fwd"] != {f"16x{render_joint}x{render_joint}x128": 2 * STEPS * arch.depth,
+                                                    refiner_key: 2 * STEPS * arch.refiner_depth}:
+        raise RuntimeError(f"hunyuanvideo render: launches by shape {render['launches_by_shape']}")
+    render["tokens"] = render_joint
+    parity_latent = ((HY_PARITY_FRAMES - 1) // 4 + 1, HY_LATENT[1], HY_LATENT[2])
+    batch = _text_batch(model, HY_PROMPT, (1,) + parity_latent + (32,), dev)
+    valid = {"qwen": int(batch["text_mask"].sum()), "byt5": int(batch["text_mask_2"].sum())}
+    if not (1 < valid["qwen"] < HY_TEXT and 1 < valid["byt5"] < HY_TEXT2):
+        raise RuntimeError(f"hunyuanvideo parity: the captions are not padded: {valid}")
+    model.text_encoders = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    noise = torch.randn((1,) + parity_latent + (32,), generator=gen, device=dev)
+    parity = {**_parity_forward(model, module, batch, noise, HY_SIGMA), "frames": HY_PARITY_FRAMES,
+              "tokens": math.prod(parity_latent) + HY_TEXT + HY_TEXT2, "caption_valid": valid}
+    del runtime, module, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    writes = check_run_writes()
+    phase("28 hunyuanvideo", config="tencent/HunyuanVideo-1.5 transformer/ (t2v-480p) as the JAX preset "
+          "HunyuanVideo15Config() builds it", params=params, hidden=arch.hidden_size,
+          heads=[arch.num_heads, arch.head_dim], blocks=[arch.refiner_depth, arch.depth], depth=[arch.depth, full.depth],
+          clip=[HY_FRAMES, HY_HEIGHT, HY_WIDTH], latents=list(HY_LATENT),
+          tokens={"video": HY_VIDEO, "qwen": HY_TEXT, "byt5": HY_TEXT2, "joint": HY_JOINT}, files=files,
+          text_encoder=text, imported=imported, train=train, render=render, parity=parity,
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device, **writes)
+    return {"hy_joint": {k: v.get(joint_key) for k, v in by_shape.items()},
+            "hy_refiner": {k: v.get(refiner_key, 0) for k, v in by_shape.items()}}  # no backward: 0
 
 
 def int8_cases() -> None:
@@ -5745,7 +6512,8 @@ def main() -> int:
     print(json.dumps({"phases": sorted(RUN["phases"])}), flush=True)
 
     fwd_entry, fwd256_entry, long_fwd_entries = kernel_cases()
-    launches = {"main": None, "auraflow": {}, "wan": {}, "ltx": {}, "chroma": None, "lumina2": {}}
+    launches = {"main": None, "auraflow": {}, "wan": {}, "ltx": {}, "chroma": None, "lumina2": {}, "kandinsky5": {},
+                "hunyuanvideo": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         checkpoints = weight_import(work) if _runs(14) else {"work": work}
         encoders = text_encoders(checkpoints) if _runs(15) else None
@@ -5776,8 +6544,11 @@ def main() -> int:
                 server_phase(phase17, smi)
         from simpletuner_tpu_torch.models.auraflow import AuraFlow, AuraFlowConfig
         from simpletuner_tpu_torch.models.checkpoint_layouts import (
-            auraflow_checkpoint_shapes, ltx_checkpoint_shapes, sd3_checkpoint_shapes, wan_checkpoint_shapes,
+            auraflow_checkpoint_shapes, chroma_checkpoint_shapes, hunyuanvideo_checkpoint_shapes, ltx_checkpoint_shapes,
+            sd3_checkpoint_shapes, wan_checkpoint_shapes,
         )
+        from simpletuner_tpu_torch.models.chroma import Chroma, ChromaConfig
+        from simpletuner_tpu_torch.models.hunyuanvideo import HunyuanVideo, HunyuanVideo15Config
         from simpletuner_tpu_torch.models.ltxvideo import LTXConfig, LTXVideo
         from simpletuner_tpu_torch.models.sd3 import SD3, SD3Config
         from simpletuner_tpu_torch.models.wan import Wan, WanConfig
@@ -5816,19 +6587,33 @@ def main() -> int:
             with family_depth(LTXVideo, depth=depth):
                 launches["ltx"] = ltx_phase(checkpoints, kernels, smi, depth)
         if _runs(25):
-            launches["chroma"] = chroma_phase(checkpoints, kernels, smi)
+            full = ChromaConfig()
+            cut = dataclasses.replace(full, depth_double=CHROMA_CUT_BLOCKS[0], depth_single=CHROMA_CUT_BLOCKS[1])
+            depth = (full.depth_double, full.depth_single) if _full_depth(
+                25, extra_gb(chroma_checkpoint_shapes, full, cut)) else CHROMA_CUT_BLOCKS
+            with family_depth(Chroma, depth_double=depth[0], depth_single=depth[1]):
+                launches["chroma"] = chroma_phase(checkpoints, kernels, smi, depth)
         if _runs(26):
             launches["lumina2"] = lumina2_phase(checkpoints, kernels, smi)
+        if _runs(27):
+            launches["kandinsky5"] = kandinsky5_phase(checkpoints, kernels, smi)
+        if _runs(28):
+            full = HunyuanVideo15Config()
+            depth = full.depth if _full_depth(28, extra_gb(hunyuanvideo_checkpoint_shapes, full, dataclasses.replace(
+                full, depth=HY_CUT_BLOCKS))) else HY_CUT_BLOCKS
+            with family_depth(HunyuanVideo, depth=depth):
+                launches["hunyuanvideo"] = hunyuanvideo_phase(checkpoints, kernels, smi, depth)
         else:
             check_run_writes()
 
     # each wrapper's rows: at the Flux shape (launches: the profiler's count in
     # phase 12's profiled replay), its head dim 256 instances (phase 22's
     # replay, AuraFlow's attention, all at head dim 256), Chroma's (the Flux
-    # shape's times; phase 25's replay) and each kernel at Wan's, LTX's and
-    # Lumina2's three shapes (the wrappers' count at that shape per step in
-    # phase 23's, 24's and 26's runs: the trainers', the 14B and 13B steps');
-    # in a run of some phases only, the rows of the phases it ran
+    # shape's times; phase 25's replay) and each kernel at Wan's, LTX's,
+    # Lumina2's, Kandinsky 5.0's and HunyuanVideo's shapes (the wrappers' count
+    # at that shape per step in phase 23's, 24's, 26's, 27's and 28's runs: the
+    # trainers', the 14B and 13B steps'); in a run of some phases only, the
+    # rows of the phases it ran
     sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
                "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}
     entries = {"flash_fwd": fwd_entry, "flash_fwd_d256": fwd256_entry, **bwd_entries, **long_fwd_entries}
@@ -5838,7 +6623,8 @@ def main() -> int:
         rows += [(f"{name}_d256", f"{name}_d256", name, launches["auraflow"]) for name in sources]
     if launches["chroma"]:
         rows += [(f"{name}_chroma", name, name, launches["chroma"]) for name in sources]
-    for family, cases in (("wan", WAN_KERNEL_CASES), ("ltx", LTX_KERNEL_CASES), ("lumina2", LUMINA_KERNEL_CASES)):
+    for family, cases in (("wan", WAN_KERNEL_CASES), ("ltx", LTX_KERNEL_CASES), ("lumina2", LUMINA_KERNEL_CASES),
+                          ("kandinsky5", K5_KERNEL_CASES), ("hunyuanvideo", HY_KERNEL_CASES)):
         if launches[family]:
             rows += [(f"{name}_{case[0]}", f"{name}_{case[0]}", name, launches[family][case[0]])
                      for case in cases for name in sources]

@@ -47,7 +47,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
@@ -141,9 +141,30 @@ BUCKETS = (
 )
 
 
+def _bucket(key: str) -> str:
+    key = key.lower()
+    return next((n for n, tags in BUCKETS if any(tag in key for tag in tags)), "other")
+
+
+def trace_kernel_launches(prof) -> Dict[str, int]:
+    """Launches by kernel bucket as the trace's device-side kernel records
+    give them (one record per kernel the card ran, read by name from the
+    profiler's raw results), not from ``key_averages()``' aggregation of the
+    parsed events."""
+    from torch.autograd import DeviceType
+
+    counts = {name: 0 for name, _ in BUCKETS}
+    counts["other"] = 0
+    for event in prof.profiler.kineto_results.events():
+        if event.device_type() == DeviceType.CUDA:
+            counts[_bucket(event.name())] += 1
+    return counts
+
+
 def profile_step(step) -> Dict:
-    """One call of ``step`` under ``torch.profiler``: device ms and launches
-    by kernel bucket (elementwise and copies in ``other``), the launches of
+    """One call of ``step`` under ``torch.profiler``: device ms by kernel
+    bucket (elementwise and copies in ``other``), launches by bucket from
+    the trace's kernel records (``trace_kernel_launches``), the launches of
     each flash kernel instance (``flash_fwd_kernel<256, true>``: the head dim
     and the masked mode), the twelve
     kernels with the most device time (name, bucket, launches), the wall time and
@@ -162,28 +183,55 @@ def profile_step(step) -> Dict:
         end.record()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - start) * 1e3
-    buckets = {name: [0.0, 0] for name, _ in BUCKETS}
-    buckets["other"] = [0.0, 0]
+    bucket_ms = {name: 0.0 for name, _ in BUCKETS}
+    bucket_ms["other"] = 0.0
     instances: Dict[str, int] = {}
     kernels = []
     for event in prof.key_averages():
         if event.device_type != DeviceType.CUDA:
             continue
-        key = event.key.lower()
-        name = next((n for n, tags in BUCKETS if any(tag in key for tag in tags)), "other")
-        buckets[name][0] += event.device_time_total / 1e3
-        buckets[name][1] += event.count
+        name = _bucket(event.key)
+        bucket_ms[name] += event.device_time_total / 1e3
         if name.startswith("flash"):
             instance = re.search(r"flash_\w+_kernel<[^>]*>", event.key)
             key = instance.group(0) if instance else event.key[:120]
             instances[key] = instances.get(key, 0) + event.count
         kernels.append((event.device_time_total / 1e3, event.count, event.key[:120], name))
-    device_ms = sum(ms for ms, _ in buckets.values())
+    device_ms = sum(bucket_ms.values())
     top = [{"kernel": key, "bucket": name, "launches": n, "ms": ms} for ms, n, key, name in sorted(kernels, reverse=True)[:12]]
-    return {"bucket_ms": {k: v[0] for k, v in buckets.items()}, "bucket_launches": {k: v[1] for k, v in buckets.items()},
-            "flash_instances": instances,
+    return {"bucket_ms": bucket_ms, "bucket_launches": trace_kernel_launches(prof), "flash_instances": instances,
             "device_ms": device_ms, "traced_wall_ms": wall_ms, "traced_event_ms": begin.elapsed_time(end),
             "idle_share_traced": 1 - device_ms / begin.elapsed_time(end), "top_kernels": top}
+
+
+# attempts of the profiled-replay launch check (``replay_launches``)
+LAUNCH_CHECK_ATTEMPTS = 3
+
+
+def replay_launches(step, captured: Mapping[str, int], buckets: Mapping[str, str], profile=profile_step) -> Dict:
+    """Profile ``step`` (a CUDA graph's replay) until the trace records
+    exactly the launches the capture recorded: ``buckets`` maps each
+    counter's name in ``captured`` to its kernel bucket.  A replay launches
+    what the capture recorded every time, so a shortfall is the profiler's
+    record, not the program: the replay is profiled again, up to
+    ``LAUNCH_CHECK_ATTEMPTS`` times in all (``profile`` is the profiler; a
+    test fakes it).  Raises at once when an attempt records more launches
+    than the capture, and when no attempt records the capture's count.
+    Returns the exact attempt's profile with ``launch_attempts``, the counts
+    of every attempt."""
+    expected = {name: captured[name] for name in buckets}
+    tries = []
+    for _ in range(LAUNCH_CHECK_ATTEMPTS):
+        result = profile(step)
+        counts = {name: result["bucket_launches"][bucket] for name, bucket in buckets.items()}
+        tries.append(counts)
+        if any(counts[name] > expected[name] for name in counts):
+            raise RuntimeError(f"the profiled replay recorded more launches than the capture: attempts {tries}, "
+                               f"captured {expected}")
+        if counts == expected:
+            return {**result, "launch_attempts": tries}
+    raise RuntimeError(f"no profiled replay recorded the capture's launches in {LAUNCH_CHECK_ATTEMPTS} attempts: "
+                       f"{tries}, captured {expected}")
 
 
 @dataclasses.dataclass

@@ -34,8 +34,9 @@ full model (``model_type`` other than ``lora``) without a checkpoint renders
 the loaded base as it is: its train state would only add an optimizer state
 that a render never reads, and the port trains no full model (ROADMAP Queue 1
 item 7), so no full checkpoint exists to restore.  Families other than flux,
-sd3, sdxl, sd1x, sd2x, pixart_sigma, auraflow, wan, ltxvideo, chroma and
-lumina2 are refused (``models/registry.py``).
+sd3, sdxl, sd1x, sd2x, pixart_sigma, auraflow, wan, ltxvideo, chroma, lumina2,
+kandinsky5_image, kandinsky5_video and hunyuanvideo are refused
+(``models/registry.py``).
 
     python -m simpletuner_tpu_torch.inference --config config.json --prompt "a cat" \
         [--checkpoint output/checkpoint-8] [--device cuda|cpu]

@@ -509,6 +509,116 @@ def lumina2_checkpoint_shapes(arch) -> Dict[str, tuple]:
     return shapes
 
 
+def kandinsky5_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a ``Kandinsky5Transformer3DModel`` of
+    ``arch`` (``models/kandinsky5/transformer.py::Kandinsky5Config``) as
+    ``kandinsky5_params_from_checkpoint`` reads it: biased attention
+    projections with per-head q / k norm scales, the bias-free feed-forward,
+    the biased modulation heads and embeddings, the affine text and pooled
+    norms."""
+    dim, td, hd = arch.model_dim, arch.time_dim, arch.head_dim
+    patch = arch.patch_size[0] * arch.patch_size[1] * arch.patch_size[2]
+    shapes: Dict[str, tuple] = {}
+
+    def linear(name, out_features, in_features, bias=True):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        if bias:
+            shapes[f"{name}.bias"] = (out_features,)
+
+    def attention(src):
+        for proj in ("to_query", "to_key", "to_value", "out_layer"):
+            linear(f"{src}.{proj}", dim, dim)
+        shapes[f"{src}.query_norm.weight"] = (hd,)
+        shapes[f"{src}.key_norm.weight"] = (hd,)
+
+    linear("time_embeddings.in_layer", td, dim)
+    linear("time_embeddings.out_layer", td, td)
+    linear("text_embeddings.in_layer", dim, arch.in_text_dim)
+    for name, features in (("text_embeddings.norm", dim), ("pooled_text_embeddings.norm", td)):
+        shapes[f"{name}.weight"] = (features,)
+        shapes[f"{name}.bias"] = (features,)
+    linear("pooled_text_embeddings.in_layer", td, arch.in_text_dim2)
+    linear("visual_embeddings.in_layer", dim, patch * arch.visual_embed_dim)
+    linear("out_layer.modulation.out_layer", 2 * dim, td)
+    linear("out_layer.out_layer", patch * arch.out_visual_dim, dim)
+    for i in range(arch.num_text_blocks):
+        src = f"text_transformer_blocks.{i}"
+        linear(f"{src}.text_modulation.out_layer", 6 * dim, td)
+        attention(f"{src}.self_attention")
+        linear(f"{src}.feed_forward.in_layer", arch.ff_dim, dim, bias=False)
+        linear(f"{src}.feed_forward.out_layer", dim, arch.ff_dim, bias=False)
+    for i in range(arch.num_visual_blocks):
+        src = f"visual_transformer_blocks.{i}"
+        linear(f"{src}.visual_modulation.out_layer", 9 * dim, td)
+        attention(f"{src}.self_attention")
+        attention(f"{src}.cross_attention")
+        linear(f"{src}.feed_forward.in_layer", arch.ff_dim, dim, bias=False)
+        linear(f"{src}.feed_forward.out_layer", dim, arch.ff_dim, bias=False)
+    return shapes
+
+
+def hunyuanvideo_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers
+    ``HunyuanVideo15Transformer3DModel`` of ``arch``
+    (``models/hunyuanvideo/transformer.py::HunyuanVideo15Config``) as
+    ``hunyuanvideo_params_from_diffusers`` reads it: the Conv3d patch embed,
+    the time embedder, ``cond_type_embed``, the ByT5 and image projections,
+    the token refiner, the dual-stream blocks and the output head."""
+    dim, hd, mlp = arch.hidden_size, arch.head_dim, int(arch.hidden_size * arch.mlp_ratio)
+    shapes: Dict[str, tuple] = {}
+
+    def linear(name, out_features, in_features):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        shapes[f"{name}.bias"] = (out_features,)
+
+    def norm(name, features):
+        shapes[f"{name}.weight"] = (features,)
+        shapes[f"{name}.bias"] = (features,)
+
+    shapes["x_embedder.proj.weight"] = (dim, arch.in_channels, *arch.patch)
+    shapes["x_embedder.proj.bias"] = (dim,)
+    linear("time_embed.timestep_embedder.linear_1", dim, 256)
+    linear("time_embed.timestep_embedder.linear_2", dim, dim)
+    shapes["cond_type_embed.weight"] = (3, dim)
+    norm("context_embedder_2.norm", arch.text2_dim)
+    linear("context_embedder_2.linear_1", 2048, arch.text2_dim)
+    linear("context_embedder_2.linear_2", 2048, 2048)
+    linear("context_embedder_2.linear_3", dim, 2048)
+    norm("image_embedder.norm_in", arch.image_embed_dim)
+    linear("image_embedder.linear_1", arch.image_embed_dim, arch.image_embed_dim)
+    linear("image_embedder.linear_2", dim, arch.image_embed_dim)
+    norm("image_embedder.norm_out", dim)
+    linear("norm_out.linear", 2 * dim, dim)
+    linear("proj_out", arch.out_channels, dim)
+    prefix = "context_embedder.time_text_embed"
+    linear(f"{prefix}.timestep_embedder.linear_1", dim, 256)
+    linear(f"{prefix}.timestep_embedder.linear_2", dim, dim)
+    linear(f"{prefix}.text_embedder.linear_1", dim, arch.text_dim)
+    linear(f"{prefix}.text_embedder.linear_2", dim, dim)
+    linear("context_embedder.proj_in", dim, arch.text_dim)
+    for i in range(arch.refiner_depth):
+        src = f"context_embedder.token_refiner.refiner_blocks.{i}"
+        norm(f"{src}.norm1", dim)
+        norm(f"{src}.norm2", dim)
+        for proj in ("to_q", "to_k", "to_v", "to_out.0"):
+            linear(f"{src}.attn.{proj}", dim, dim)
+        linear(f"{src}.ff.net.0.proj", mlp, dim)
+        linear(f"{src}.ff.net.2", dim, mlp)
+        linear(f"{src}.norm_out.linear", 2 * dim, dim)
+    for i in range(arch.depth):
+        src = f"transformer_blocks.{i}"
+        linear(f"{src}.norm1.linear", 6 * dim, dim)
+        linear(f"{src}.norm1_context.linear", 6 * dim, dim)
+        for proj in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj", "to_out.0", "to_add_out"):
+            linear(f"{src}.attn.{proj}", dim, dim)
+        for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            shapes[f"{src}.attn.{name}.weight"] = (hd,)
+        for ff in ("ff", "ff_context"):
+            linear(f"{src}.{ff}.net.0.proj", mlp, dim)
+            linear(f"{src}.{ff}.net.2", dim, mlp)
+    return shapes
+
+
 def llm_checkpoint_shapes(cfg) -> Dict[str, tuple]:
     """Tensor names and torch shapes of an HF causal LM of ``cfg``
     (``models/llm_encoder.py::LLMEncoderConfig``) as ``llm_params_from_hf``

@@ -5,8 +5,9 @@ Counterpart of ``simpletuner_tpu/models/registry.py``: ``ModelRegistry``
 registry's family table and aliases, and ``get_model_family``, which builds
 the family a config names.  Every family of the JAX registry is listed with
 its metadata; ``flux``, ``sd3``, ``sdxl``, ``sd1x``, ``sd2x``,
-``pixart_sigma``, ``auraflow``, ``wan``, ``ltxvideo``, ``chroma`` and ``lumina2`` are ported (with the JAX aliases
-``sd15``, ``sd21`` and ``pixart``), so ``get`` of any other family raises naming ROADMAP Queue 1
+``pixart_sigma``, ``auraflow``, ``wan``, ``ltxvideo``, ``chroma``, ``lumina2``, ``kandinsky5_image``,
+``kandinsky5_video`` and ``hunyuanvideo`` are ported (with the JAX aliases ``sd15``, ``sd21``, ``pixart`` and
+``kandinsky5-image``), so ``get`` of any other family raises naming ROADMAP Queue 1
 item 6, and an unknown name raises ``KeyError`` as in the JAX registry.
 """
 
@@ -61,7 +62,8 @@ _FAMILIES: Dict[str, Dict[str, str]] = {
 ALIASES = {"sd15": "sd1x", "sd21": "sd2x", "pixart": "pixart_sigma", "ltx2": "ltxvideo2",
            "kandinsky5-image": "kandinsky5_image"}
 # the families the port builds
-PORTED = ("flux", "sd3", "sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "chroma", "lumina2")
+PORTED = ("flux", "sd3", "sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "chroma", "lumina2",
+          "kandinsky5_image", "kandinsky5_video", "hunyuanvideo")
 
 
 class ModelRegistry:
@@ -120,6 +122,14 @@ class ModelRegistry:
             from .lumina2 import Lumina2
 
             return Lumina2
+        if family in ("kandinsky5_image", "kandinsky5_video"):
+            from .kandinsky5 import Kandinsky5Image, Kandinsky5Video
+
+            return Kandinsky5Image if family == "kandinsky5_image" else Kandinsky5Video
+        if family == "hunyuanvideo":
+            from .hunyuanvideo import HunyuanVideo
+
+            return HunyuanVideo
         raise NotImplementedError(f"model_family={name!r} is not ported (only {', '.join(PORTED)}; "
                                   "ROADMAP Queue 1 item 6)")
 

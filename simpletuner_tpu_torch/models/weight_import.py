@@ -23,7 +23,10 @@ diffusers ``WanTransformer3DModel`` layout (``transformer/``); LTX-Video the
 diffusers ``LTXVideoTransformer3DModel`` layout (``transformer/``); Chroma the
 diffusers ``ChromaTransformer2DModel`` layout (``transformer/``; read without
 Flux's packing permutation, as the JAX importer reads it: ROADMAP Queue 3);
-Lumina2 the diffusers ``Lumina2Transformer2DModel`` layout (``transformer/``).
+Lumina2 the diffusers ``Lumina2Transformer2DModel`` layout (``transformer/``);
+Kandinsky 5.0 (image and video) the ai-forever ``Kandinsky5Transformer3DModel``
+layout (``transformer/``); HunyuanVideo 1.5 the diffusers
+``HunyuanVideo15Transformer3DModel`` layout (``transformer/``).
 
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
 keeps f32, bf16 and fp8 (e4m3) leaves in the file's dtype (``_float``; the
@@ -38,8 +41,9 @@ The safetensors reader and writer are the port's own (stdlib, numpy and
 torch): an 8-byte little-endian header length, a JSON header, raw
 little-endian bytes.  Files are memory-mapped copy-on-write, so a tensor is
 read from disk when it is first used.  Only the ``flux``, ``sd3``, ``sdxl``,
-``sd1x``, ``sd2x``, ``pixart_sigma``, ``auraflow``, ``wan``, ``ltxvideo``, ``chroma``
-and ``lumina2`` families import; every other family raises.
+``sd1x``, ``sd2x``, ``pixart_sigma``, ``auraflow``, ``wan``, ``ltxvideo``, ``chroma``,
+``lumina2``, ``kandinsky5_video``, ``kandinsky5_image`` and ``hunyuanvideo``
+families import; every other family raises.
 """
 
 from __future__ import annotations
@@ -986,13 +990,146 @@ def load_lumina2_params(model, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# Kandinsky 5.0 (Kandinsky5Transformer3DModel: time / text / pooled / visual
+# embeddings, text and visual transformer blocks, the modulated out layer)
+# ---------------------------------------------------------------------------------
+
+
+def _k5_attention(w: Mapping[str, torch.Tensor], src: str) -> Dict[str, Any]:
+    return {"to_query": _linear(w, f"{src}.to_query"), "to_key": _linear(w, f"{src}.to_key"),
+            "to_value": _linear(w, f"{src}.to_value"), "out_layer": _linear(w, f"{src}.out_layer"),
+            "query_norm": _float(w[f"{src}.query_norm.weight"]), "key_norm": _float(w[f"{src}.key_norm.weight"])}
+
+
+def _k5_ff(w: Mapping[str, torch.Tensor], src: str) -> Dict[str, Any]:
+    return {"in_layer": _linear(w, f"{src}.in_layer"), "out_layer": _linear(w, f"{src}.out_layer")}
+
+
+def kandinsky5_params_from_checkpoint(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a Kandinsky 5.0 transformer of ``arch``
+    (``Kandinsky5Config``): the affine text and pooled norms as flax
+    ``LayerNorm`` scale / bias, the per-head q / k norm scales as the
+    attention's own parameters."""
+    w = weights
+    params: Dict[str, Any] = {
+        "time_in": _linear(w, "time_embeddings.in_layer"),
+        "time_out": _linear(w, "time_embeddings.out_layer"),
+        "text_in": _linear(w, "text_embeddings.in_layer"),
+        "text_norm": _norm(w, "text_embeddings.norm"),
+        "pooled_in": _linear(w, "pooled_text_embeddings.in_layer"),
+        "pooled_norm": _norm(w, "pooled_text_embeddings.norm"),
+        "visual_in": _linear(w, "visual_embeddings.in_layer"),
+        "out_modulation": {"out_layer": _linear(w, "out_layer.modulation.out_layer")},
+        "out_proj": _linear(w, "out_layer.out_layer"),
+    }
+    for i in range(arch.num_text_blocks):
+        src = f"text_transformer_blocks.{i}"
+        params[f"text_block_{i}"] = {
+            "text_modulation": {"out_layer": _linear(w, f"{src}.text_modulation.out_layer")},
+            "self_attention": _k5_attention(w, f"{src}.self_attention"),
+            "feed_forward": _k5_ff(w, f"{src}.feed_forward"),
+        }
+    for i in range(arch.num_visual_blocks):
+        src = f"visual_transformer_blocks.{i}"
+        params[f"visual_block_{i}"] = {
+            "visual_modulation": {"out_layer": _linear(w, f"{src}.visual_modulation.out_layer")},
+            "self_attention": _k5_attention(w, f"{src}.self_attention"),
+            "cross_attention": _k5_attention(w, f"{src}.cross_attention"),
+            "feed_forward": _k5_ff(w, f"{src}.feed_forward"),
+        }
+    return params
+
+
+def load_kandinsky5_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a Kandinsky 5.0 transformer (a
+    model dir with a ``transformer/`` subfolder, or one file)."""
+    params = kandinsky5_params_from_checkpoint(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported kandinsky5 weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
+# HunyuanVideo 1.5 (HunyuanVideo15Transformer3DModel: the token refiner, the
+# ByT5 and image projections, the dual-stream blocks)
+# ---------------------------------------------------------------------------------
+
+
+def hunyuanvideo_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a diffusers HunyuanVideo 1.5 transformer of
+    ``arch`` (``HunyuanVideo15Config``): the Conv3d patch embed (dim, C, pt,
+    ph, pw) as a dense ((pt, ph, pw, C), dim) kernel, the affine LayerNorms
+    one level down (the JAX ``LayerNorm`` wrapper's ``LayerNorm_0``)."""
+    w = weights
+    dim = arch.hidden_size
+    conv = _float(w["x_embedder.proj.weight"])  # (dim, C, pt, ph, pw)
+    params: Dict[str, Any] = {
+        "patch_in": {"kernel": conv.permute(2, 3, 4, 1, 0).reshape(-1, dim), "bias": _float(w["x_embedder.proj.bias"])},
+        "time_in": {"in_layer": _linear(w, "time_embed.timestep_embedder.linear_1"),
+                    "out_layer": _linear(w, "time_embed.timestep_embedder.linear_2")},
+        "cond_type_embed": _float(w["cond_type_embed.weight"]),
+        "byt5_norm": {"LayerNorm_0": _norm(w, "context_embedder_2.norm")},
+        "byt5_in_1": _linear(w, "context_embedder_2.linear_1"),
+        "byt5_in_2": _linear(w, "context_embedder_2.linear_2"),
+        "byt5_in_3": _linear(w, "context_embedder_2.linear_3"),
+        "img_embed_norm_in": {"LayerNorm_0": _norm(w, "image_embedder.norm_in")},
+        "img_embed_in_1": _linear(w, "image_embedder.linear_1"),
+        "img_embed_in_2": _linear(w, "image_embedder.linear_2"),
+        "img_embed_norm_out": {"LayerNorm_0": _norm(w, "image_embedder.norm_out")},
+        "final_mod": _linear(w, "norm_out.linear"),
+        "final_proj": _linear(w, "proj_out"),
+    }
+    prefix = "context_embedder.time_text_embed"
+    refiner: Dict[str, Any] = {
+        "time_in": {"in_layer": _linear(w, f"{prefix}.timestep_embedder.linear_1"),
+                    "out_layer": _linear(w, f"{prefix}.timestep_embedder.linear_2")},
+        "text_in": {"in_layer": _linear(w, f"{prefix}.text_embedder.linear_1"),
+                    "out_layer": _linear(w, f"{prefix}.text_embedder.linear_2")},
+        "proj_in": _linear(w, "context_embedder.proj_in"),
+    }
+    table = (("attn_q", "attn.to_q"), ("attn_k", "attn.to_k"), ("attn_v", "attn.to_v"),
+             ("attn_proj", "attn.to_out.0"), ("ff_in", "ff.net.0.proj"), ("ff_out", "ff.net.2"),
+             ("adanorm_lin", "norm_out.linear"))
+    for i in range(arch.refiner_depth):
+        src = f"context_embedder.token_refiner.refiner_blocks.{i}"
+        block: Dict[str, Any] = {"norm1": {"LayerNorm_0": _norm(w, f"{src}.norm1")},
+                                 "norm2": {"LayerNorm_0": _norm(w, f"{src}.norm2")}}
+        for ours, theirs in table:
+            block[ours] = _linear(w, f"{src}.{theirs}")
+        refiner[f"block_{i}"] = block
+    params["refiner"] = refiner
+    table = (("norm1_lin", "norm1.linear"), ("norm1_context_lin", "norm1_context.linear"),
+             ("img_attn_q", "attn.to_q"), ("img_attn_k", "attn.to_k"), ("img_attn_v", "attn.to_v"),
+             ("txt_attn_q", "attn.add_q_proj"), ("txt_attn_k", "attn.add_k_proj"), ("txt_attn_v", "attn.add_v_proj"),
+             ("img_attn_proj", "attn.to_out.0"), ("txt_attn_proj", "attn.to_add_out"),
+             ("img_mlp_in", "ff.net.0.proj"), ("img_mlp_out", "ff.net.2"),
+             ("txt_mlp_in", "ff_context.net.0.proj"), ("txt_mlp_out", "ff_context.net.2"))
+    norms = (("img_attn_norm_q", "attn.norm_q"), ("img_attn_norm_k", "attn.norm_k"),
+             ("txt_attn_norm_q", "attn.norm_added_q"), ("txt_attn_norm_k", "attn.norm_added_k"))
+    for i in range(arch.depth):
+        src = f"transformer_blocks.{i}"
+        block = {ours: _linear(w, f"{src}.{theirs}") for ours, theirs in table}
+        block.update({ours: _scale(w, f"{src}.{theirs}.weight") for ours, theirs in norms})
+        params[f"block_{i}"] = block
+    return params
+
+
+def load_hunyuanvideo_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a diffusers HunyuanVideo 1.5
+    transformer (a model dir with a ``transformer/`` subfolder, or one file)."""
+    params = hunyuanvideo_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported hunyuanvideo weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
 _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_unet_params, "sd1x": load_unet_params,
               "sd2x": load_unet_params, "pixart_sigma": load_pixart_params, "auraflow": load_auraflow_params,
               "wan": load_wan_params, "ltxvideo": load_ltx_params, "chroma": load_chroma_params,
-              "lumina2": load_lumina2_params}
+              "lumina2": load_lumina2_params, "kandinsky5_video": load_kandinsky5_params,
+              "kandinsky5_image": load_kandinsky5_params, "hunyuanvideo": load_hunyuanvideo_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:

@@ -5,7 +5,8 @@ uses: ``flux_key_map`` (lora.py:76), ``unet_key_map`` (lora.py:116; sdxl,
 sd1x and sd2x), ``sd3_key_map`` (lora.py:158), ``pixart_key_map``
 (lora.py:336), ``wan_key_map`` (lora.py:316), ``auraflow_key_map`` (lora.py:561),
 ``ltx_key_map`` (lora.py:589), ``lumina2_key_map`` (lora.py:468; chroma takes
-``flux_key_map``, lora.py:651) and ``_key_map_for``
+``flux_key_map``, lora.py:651), ``kandinsky5_key_map`` (lora.py:289; both
+Kandinsky flavours), ``hunyuanvideo_key_map`` (lora.py:620) and ``_key_map_for``
 (lora.py:680), which resolve the LoRA target presets and
 name the adapters of an export (the maps leave ``patch_in`` and
 ``context_in`` under their own names, as the JAX export does),
@@ -207,6 +208,39 @@ def lumina2_key_map(arch) -> Dict[str, Any]:
     return mapping
 
 
+def kandinsky5_key_map(arch) -> Dict[str, Any]:
+    """``Kandinsky5Transformer3DModel`` paths: the text blocks' self-attention
+    and feed-forward, the visual blocks' self- and cross-attention and
+    feed-forward, the visual embedding and the out projection."""
+    mapping: Dict[str, Any] = {"visual_in": "visual_embeddings.in_layer", "out_proj": "out_layer.out_layer"}
+    attn = ("to_query", "to_key", "to_value", "out_layer")
+    groups = [(f"text_block_{i}", f"text_transformer_blocks.{i}", ("self_attention",))
+              for i in range(arch.num_text_blocks)]
+    groups += [(f"visual_block_{i}", f"visual_transformer_blocks.{i}", ("self_attention", "cross_attention"))
+               for i in range(arch.num_visual_blocks)]
+    for ours_prefix, theirs_prefix, branches in groups:
+        for branch in branches:
+            for name in attn:
+                mapping[f"{ours_prefix}/{branch}/{name}"] = f"{theirs_prefix}.{branch}.{name}"
+        for name in ("in_layer", "out_layer"):
+            mapping[f"{ours_prefix}/feed_forward/{name}"] = f"{theirs_prefix}.feed_forward.{name}"
+    return mapping
+
+
+def hunyuanvideo_key_map(arch) -> Dict[str, Any]:
+    """diffusers ``HunyuanVideo15Transformer3DModel`` paths of the dual-stream
+    blocks (``patch_in`` keeps its own name)."""
+    table = {
+        "img_attn_q": "attn.to_q", "img_attn_k": "attn.to_k", "img_attn_v": "attn.to_v",
+        "txt_attn_q": "attn.add_q_proj", "txt_attn_k": "attn.add_k_proj", "txt_attn_v": "attn.add_v_proj",
+        "img_attn_proj": "attn.to_out.0", "txt_attn_proj": "attn.to_add_out",
+        "img_mlp_in": "ff.net.0.proj", "img_mlp_out": "ff.net.2",
+        "txt_mlp_in": "ff_context.net.0.proj", "txt_mlp_out": "ff_context.net.2",
+    }
+    return {f"block_{layer}/{ours}": f"transformer_blocks.{layer}.{theirs}"
+            for layer in range(arch.depth) for ours, theirs in table.items()}
+
+
 # family name -> key map builder, for the families the port has
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
@@ -220,6 +254,9 @@ _KEY_MAPS = {
     "ltxvideo": lambda m: ltx_key_map(m.arch),
     "chroma": lambda m: flux_key_map(m.arch),
     "lumina2": lambda m: lumina2_key_map(m.arch),
+    "kandinsky5_video": lambda m: kandinsky5_key_map(m.arch),
+    "kandinsky5_image": lambda m: kandinsky5_key_map(m.arch),
+    "hunyuanvideo": lambda m: hunyuanvideo_key_map(m.arch),
 }
 
 

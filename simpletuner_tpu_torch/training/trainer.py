@@ -50,14 +50,18 @@ latents; each video bucket, whose key carries the frame count, is one batch
 shape and so one captured graph), ``ltxvideo`` (T5-XXL at 128 tokens, the
 video VAE at LTX's config, per-frame timesteps (B, T) from its
 ``prepare_batch``, static per bucket), ``chroma`` (Flux's path with T5-XXL
-only and zero pooled embeds) and ``lumina2`` (Gemma-2 at 256 tokens through
+only and zero pooled embeds), ``lumina2`` (Gemma-2 at 256 tokens through
 the decoder-LLM encoder, the caption mask as ``text_attention_mask``; both
-with the 16-channel ``VAEConfig.flux()``); the batch reaches the step with every numeric array
+with the 16-channel ``VAEConfig.flux()``), ``kandinsky5_image`` and
+``kandinsky5_video`` (Qwen2.5-VL at 512 tokens and CLIP-L pooled, 4 latent
+channels: the SD ``VAEConfig()`` for the image flavour, the video VAE at 4
+latents for the video flavour) and ``hunyuanvideo`` (Qwen2.5-VL at 256 and
+ByT5 at 77 tokens, both masks, the video VAE at 32 latents); the batch reaches the step with every numeric array
 the family's collate gives (Flux's ``t5_embeds``/``t5_masks``, the others'
 ``text_embeds``, SDXL's size conditioning ``original_sizes``,
 ``crop_coordinates`` and ``target_sizes``), and ``pooled_embeds`` for flux,
 sd3 and sdxl.  Refused, each naming its ROADMAP item:
-families other than these eleven, full fine-tunes and ControlNet, distillation and
+families other than these fourteen, full fine-tunes and ControlNet, distillation and
 ODE pairs, CREPA / U-REPA, text-encoder training, slider and assistant
 adapters, a mesh of more than one device and multi-process runs.
 """

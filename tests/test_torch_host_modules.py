@@ -81,15 +81,17 @@ def test_the_port_imports_nothing_of_the_jax_package():
     count, loaded = result.stdout.strip().splitlines()[-1].split(" ", 1)
     names = [m.name for m in pkgutil.walk_packages(simpletuner_tpu_torch.__path__, "simpletuner_tpu_torch.")]
     assert int(count) == len(names) and loaded == "[]"
-    # the SDXL slice's modules, the SD 1.x / 2.x, PixArt-Sigma, AuraFlow, Wan, LTX-Video, Chroma, Lumina2 and
-    # decoder-LLM ones are among those imported
+    # the SDXL slice's modules, the SD 1.x / 2.x, PixArt-Sigma, AuraFlow, Wan, LTX-Video, Chroma, Lumina2,
+    # decoder-LLM, Kandinsky 5.0 and HunyuanVideo ones are among those imported
     assert {f"simpletuner_tpu_torch.{name}" for name in (
         "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc", "models.sd1x",
         "models.sd1x.model", "models.pixart", "models.pixart.model", "models.pixart.transformer",
         "models.auraflow", "models.auraflow.model", "models.auraflow.transformer", "models.wan", "models.wan.model",
         "models.wan.transformer", "models.video_vae", "data.video", "models.ltxvideo", "models.ltxvideo.model",
         "models.ltxvideo.transformer", "models.chroma", "models.chroma.model", "models.chroma.transformer",
-        "models.lumina2", "models.lumina2.model", "models.lumina2.transformer", "models.llm_encoder")} <= set(names)
+        "models.lumina2", "models.lumina2.model", "models.lumina2.transformer", "models.llm_encoder",
+        "models.kandinsky5", "models.kandinsky5.model", "models.kandinsky5.transformer", "models.hunyuanvideo",
+        "models.hunyuanvideo.model", "models.hunyuanvideo.transformer")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -542,7 +544,13 @@ def test_model_registry_refuses_other_families():
 
     assert isinstance(get_model_family(TrainingConfig({"model_family": "chroma"})), Chroma)
     assert isinstance(get_model_family(TrainingConfig({"model_family": "lumina2"})), Lumina2)
-    for family in ("kolors", "sana", "hunyuanvideo"):
+    from simpletuner_tpu_torch.models.hunyuanvideo import HunyuanVideo
+    from simpletuner_tpu_torch.models.kandinsky5 import Kandinsky5Image, Kandinsky5Video
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "hunyuanvideo"})), HunyuanVideo)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "kandinsky5_video"})), Kandinsky5Video)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "kandinsky5-image"})), Kandinsky5Image)
+    for family in ("kolors", "sana", "qwen_image"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):

@@ -709,6 +709,106 @@ def test_tiny_lumina2_on_the_card_matches_its_cpu_run(cuda):
     _card_against_cpu(cpu, card, inputs, torch.randn((2, 8, 6, 4), generator=gen), cuda)
 
 
+# Kandinsky 5.0 Lite at 768 x 512 x 61 frames (16 x 32 x 48 = 24,576 visual
+# tokens after the (1, 2, 2) patchify, 192 full 128-row tiles): the video
+# self-attention at head dim 64, unmasked, and the same queries against the
+# 512 Qwen2.5-VL keys (unmasked: the JAX family drops the mask); HunyuanVideo
+# 1.5 at 848 x 480 x 17 frames: the joint attention over 31,800 video tokens
+# then 256 Qwen and 77 ByT5 tokens (32,133) at head dim 128 with a segment
+# plane (180 and 40 valid, the pads at -1), and the token refiner's 256 Qwen
+# tokens (180 valid); two heads (the heads are independent)
+K5_TOKENS, K5_TEXT = 16 * 32 * 48, 512
+HY_VIDEO, HY_QWEN, HY_BYT5 = 5 * 60 * 106, 256, 77
+QWEN_CASES = [("k5_self_s24576_d64", K5_TOKENS, K5_TOKENS, 64, None),
+              ("k5_cross_512_d64", K5_TOKENS, K5_TEXT, 64, None),
+              ("hy_joint_s32133_d128", HY_VIDEO + HY_QWEN + HY_BYT5, HY_VIDEO + HY_QWEN + HY_BYT5, 128, "joint"),
+              ("hy_refiner_s256_d128", HY_QWEN, HY_QWEN, 128, "refiner")]
+
+
+def _hunyuan_segments(kind, device):
+    """The joint plane (video at 0, then the valid Qwen and ByT5 tokens at 0
+    and their pads at -1) or the refiner's (180 of 256 Qwen tokens valid)."""
+    qwen = torch.where(torch.arange(HY_QWEN) < 180, 0, -1)
+    if kind == "refiner":
+        return qwen[None].to(device, torch.int32)
+    byt5 = torch.where(torch.arange(HY_BYT5) < 40, 0, -1)
+    return torch.cat([torch.zeros(HY_VIDEO, dtype=torch.int64), qwen, byt5])[None].to(device, torch.int32)
+
+
+@pytest.mark.parametrize("name,sq,sk,dim,segments", QWEN_CASES, ids=[c[0] for c in QWEN_CASES])
+def test_kernels_at_the_kandinsky5_and_hunyuanvideo_shapes(cuda, name, sq, sk, dim, segments):
+    """Forward and both backward kernels at Kandinsky 5.0's and HunyuanVideo
+    1.5's shapes against the plain versions, in the dispatcher's (B, S, H, D)
+    layout; a pad's rows come out 0 and its gradients 0."""
+    q, k, v = _qkv(90 + sk % 13 + dim, 1, 2, sq, sk, dim, cuda)
+    strided = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    seg = None if segments is None else _hunyuan_segments(segments, cuda)
+    out, lse = _check(*strided, seg, seg)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    if seg is not None:
+        assert out[0, :, (seg[0] < 0)].abs().max() == 0
+    del out, lse
+    dq, dk, dv = _check_backward(*strided, seg, seed=91)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    if seg is not None:
+        pads = seg[0] < 0
+        assert dq[0, :, pads].abs().max() == dk[0, :, pads].abs().max() == dv[0, :, pads].abs().max() == 0
+
+
+def test_tiny_kandinsky5_on_the_card_matches_its_cpu_run(cuda):
+    """A Kandinsky 5.0 DiT two heads of 64 wide (the head dim 64 kernels, the
+    published rope axes 16 / 24 / 24), one text and two visual blocks, remat,
+    tokenwise timesteps over 3 x 8 x 12 latents (72 ragged tokens) and 40
+    text tokens, its zero-initialised modulation heads given a draw, against
+    its CPU run."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.kandinsky5 import Kandinsky5Config, Kandinsky5Transformer
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg = dataclasses.replace(Kandinsky5Config.tiny(), model_dim=128, ff_dim=256, axes_dims=(16, 24, 24))
+    cpu = init_parameters(Kandinsky5Transformer(cfg, dtype=torch.float32, lora_rank=4, remat=True),
+                          torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, param in cpu.named_parameters():
+            if "modulation.out_layer.weight" in name:
+                param.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(2))
+    with torch.device(cuda):
+        card = Kandinsky5Transformer(cfg, dtype=torch.bfloat16, lora_rank=4, remat=True)
+    gen = torch.Generator().manual_seed(3)
+    inputs = [torch.randn((2, 3, 8, 12, 4), generator=gen), torch.randn((2, 40, cfg.in_text_dim), generator=gen),
+              torch.randn((2, cfg.in_text_dim2), generator=gen), torch.rand((2, 72), generator=gen) * 1000]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 3, 8, 12, 4), generator=gen), cuda)
+
+
+def test_tiny_hunyuanvideo_on_the_card_matches_its_cpu_run(cuda):
+    """A HunyuanVideo DiT two heads of 128 wide (the head dim 128 kernels,
+    the published rope axes 16 / 56 / 56), one refiner and two dual-stream
+    blocks, remat, 2 x 6 x 10 latents, 24 Qwen tokens (9 and 24 valid) and
+    8 ByT5 tokens (3 and 8 valid), pads at -1, against its CPU run (the
+    last block's text-stream adapters, which no gradient reaches, removed)."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.hunyuanvideo import HunyuanVideo15Config, HunyuanVideo15Transformer
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg = dataclasses.replace(HunyuanVideo15Config.tiny(), num_heads=2, head_dim=128, axes_dim=(16, 56, 56))
+    cpu = init_parameters(HunyuanVideo15Transformer(cfg, dtype=torch.float32, lora_rank=4, remat=True),
+                          torch.Generator().manual_seed(0))
+    with torch.device(cuda):
+        card = HunyuanVideo15Transformer(cfg, dtype=torch.bfloat16, lora_rank=4, remat=True)
+    for module in (cpu, card):  # the last block's text-stream output is never read: no gradient reaches these
+        for name in ("txt_attn_proj", "txt_mlp_in", "txt_mlp_out"):
+            getattr(getattr(module, f"block_{cfg.depth - 1}"), name).remove_adapter()
+    gen = torch.Generator().manual_seed(3)
+    inputs = [torch.randn((2, 2, 6, 10, cfg.in_channels), generator=gen), torch.tensor([0.3, 0.8]),
+              torch.randn((2, 24, cfg.text_dim), generator=gen),
+              (torch.arange(24)[None] < torch.tensor([[9], [24]])).to(torch.int32),
+              torch.randn((2, 8, cfg.text2_dim), generator=gen),
+              (torch.arange(8)[None] < torch.tensor([[3], [8]])).to(torch.int32)]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 2, 6, 10, cfg.out_channels), generator=gen), cuda)
+
+
 def test_video_vae_on_the_card(cuda, monkeypatch):
     """The causal video VAE on the card in f32 against the CPU (sum order
     only), with its norms and convolutions split into runs of frames as at
@@ -784,7 +884,7 @@ def test_graph_replays_are_bitwise_the_eager_steps(cuda):
     # state and generator state give the same losses, norms and adapters
     import dataclasses
 
-    from simpletuner_tpu_torch.bench import build_run, flagship_config, profile_step
+    from simpletuner_tpu_torch.bench import build_run, flagship_config, replay_launches
     from simpletuner_tpu_torch.models.flux import FluxConfig
     from simpletuner_tpu_torch.training.quantization import int8_matmul
     from simpletuner_tpu_torch.training.train_state import jit_train_step, state_tensors
@@ -816,11 +916,12 @@ def test_graph_replays_are_bitwise_the_eager_steps(cuda):
     assert int8_matmul.launches == before  # a replay runs no wrapper
     assert torch.isfinite(replayed[0]).all()
     assert torch.equal(replayed[0], eager[0]) and torch.equal(replayed[1], eager[1])
-    # what a replay launches on the card, as the profiler records it
-    recorded = profile_step(lambda: graphed(run.state, run.batch, run.generator))["bucket_launches"]
-    assert {name: recorded[name] for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} == {
-        name: count for name, count in captured.items() if name != "int_mm"}
-    assert recorded["int8_gemm"] == captured["int_mm"]
+    # what a replay launches on the card, as the profiler's trace records it
+    # (profiled again where the record falls short, bench.replay_launches)
+    checked = replay_launches(lambda: graphed(run.state, run.batch, run.generator), captured,
+                              {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
+                               "flash_bwd_dkv": "flash_bwd_dkv", "int_mm": "int8_gemm"})
+    assert checked["launch_attempts"][-1] == captured
     with pytest.raises(ValueError):
         graphed(run.state, run.batch, torch.Generator(device=cuda))
 

@@ -240,6 +240,52 @@ def test_build_from_an_hf_dir_matches_jax(tmp_path):
         assert rel(ours[key], theirs[key]) < BF16_REL, key
 
 
+def test_build_from_a_qwen25_vl_dir_matches_jax(tmp_path):
+    """A seeded Qwen2 trunk (the tiny layout's sizes) in the Qwen2.5-VL HF
+    layout: ``text_encoder/config.json`` with the text sizes as top-level
+    keys beside ``vision_config`` and the mrope ``rope_scaling`` (as
+    Qwen/Qwen2.5-VL-7B-Instruct's), ``model.*`` tensors with qkv biases plus
+    ``visual.*`` and ``lm_head`` tensors that neither importer reads, and a
+    tokenizer in ``tokenizer/``; built through the ``qwen2.5-vl`` spec that
+    kandinsky5 and hunyuanvideo name: both packages read the config onto the
+    ``qwen25_7b`` preset, take the same tokens and encode (bf16 compute)
+    within ``BF16_REL``.  With text-only positions the mrope sections are
+    the 1-D rope, which both modules run."""
+    cfg = LLMEncoderConfig.tiny("qwen2")
+    rng = np.random.default_rng(8)
+    weights = {}
+    for name, shape in llm_checkpoint_shapes(cfg).items():
+        draw = rng.standard_normal(shape).astype(np.float32)
+        weights[name] = (0.1 * draw if len(shape) == 1 else draw / np.sqrt(shape[-1])).astype(np.float32)
+    assert "model.layers.0.self_attn.q_proj.bias" in weights
+    weights["visual.patch_embed.proj.weight"] = rng.standard_normal((16, 3, 2, 14, 14)).astype(np.float32)
+    weights["lm_head.weight"] = rng.standard_normal((cfg.vocab_size, cfg.hidden_size)).astype(np.float32)
+    os.makedirs(tmp_path / "text_encoder")
+    np_save_file(weights, str(tmp_path / "text_encoder" / "model.safetensors"))
+    with open(tmp_path / "text_encoder" / "config.json", "w") as handle:
+        json.dump({"architectures": ["Qwen2_5_VLForConditionalGeneration"], "model_type": "qwen2_5_vl",
+                   "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+                   "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+                   "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+                   "rope_theta": 1000000.0, "rms_norm_eps": cfg.rms_eps,
+                   "rope_scaling": {"type": "mrope", "mrope_section": [2, 3, 3]},
+                   "vision_config": {"hidden_size": 16, "depth": 1, "out_hidden_size": cfg.hidden_size}}, handle)
+    _gemma_tokenizer(str(tmp_path / "tokenizer"), " ".join(PROMPTS).split())
+    spec, jspec = (cls(name="qwen2.5-vl", family="qwen2.5-vl", subfolder="text_encoder", max_length=12)
+                   for cls in (TextEncoderSpec, JaxSpec))
+    (enc,) = te.load_text_encoders([spec], pretrained_path=str(tmp_path), device="cpu")
+    (jenc,) = jax_te.load_text_encoders([jspec], pretrained_path=str(tmp_path))
+    expected = dataclasses.replace(LLMEncoderConfig.qwen25_7b(), vocab_size=1000, hidden_size=32,
+                                   intermediate_size=64, num_layers=2, num_heads=2, num_kv_heads=1, head_dim=16,
+                                   rope_theta=1000000.0)
+    assert dataclasses.asdict(enc.config) == dataclasses.asdict(jenc.config) == dataclasses.asdict(expected)
+    assert enc.config.qkv_bias and enc.config.arch == "qwen2"
+    ours, theirs = enc.encode(PROMPTS), jenc.encode(PROMPTS)
+    np.testing.assert_array_equal(ours["attention_mask"], theirs["attention_mask"])
+    for key in ("last_hidden_state", "pooled"):
+        assert rel(ours[key], theirs[key]) < BF16_REL, key
+
+
 def test_final_norm_state_is_the_output_not_the_penultimate_layer():
     """The JAX module, and so the port's, returns the final-norm hidden
     state, which lumina2 encodes with (ROADMAP Queue 3); diffusers' Lumina2

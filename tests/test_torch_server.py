@@ -46,8 +46,11 @@ from simpletuner_tpu_torch.server.app import create_server
 
 from test_torch_trainer import _seeded, _values, _write_images
 
+# run-dependent values (ids, tokens, wall-clock times); "timestamp" is a git
+# commit's time in whole seconds (``/api/git/history``), which differs between
+# the two servers when their commits fall on either side of a second
 VOLATILE = {"job_id", "approval_id", "token", "time", "mtime", "id", "scan_id", "hash", "prev_hash", "pid",
-            "uptime_seconds", "commit", "sha", "workdir", "cost_usd", "fair_share_usage_seconds"}
+            "uptime_seconds", "commit", "sha", "workdir", "cost_usd", "fair_share_usage_seconds", "timestamp"}
 # the JAX LyCORIS table as imported, before any test runs: a builder's module
 # override writes into it (``LycorisBuilder`` copies a preset shallowly), so a
 # JAX test that ran earlier in this process may have changed the live table
@@ -518,14 +521,16 @@ def test_routes_that_differ_by_design(pair):
     assert [(p["name"], p["config"]) for p in sd3["port"][1]] == jax_presets and len(jax_presets) == 3
     # chroma answers with Flux's presets (the JAX Flux adds a TPU v5e one)
     assert pair.both("GET", "/api/models/chroma/presets", compare=False)["port"] == presets["port"]
-    for family in ("sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "lumina2"):
+    for family in ("sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "lumina2",
+                   "kandinsky5_image", "kandinsky5_video", "hunyuanvideo"):
         answers = pair.both("GET", f"/api/models/{family}/presets", compare=False)
         assert answers["port"][0] == answers["jax"][0] == 200
         assert [(p["name"], p["config"]) for p in answers["port"][1]] == [
             (p["name"], p["config"]) for p in answers["jax"][1] if p["name"] != "multichip"], family
     assert pair.both("GET", "/api/models/kolors/presets", compare=False)["port"] == (
         501, {"error": "model_family='kolors' is not ported (only flux, sd3, sdxl, sd1x, sd2x, pixart_sigma, "
-                       "auraflow, wan, ltxvideo, chroma, lumina2; ROADMAP Queue 1 item 6)"})
+                       "auraflow, wan, ltxvideo, chroma, lumina2, kandinsky5_image, kandinsky5_video, "
+                       "hunyuanvideo; ROADMAP Queue 1 item 6)"})
     pair.both("GET", "/api/models/nope/presets")  # unknown: 404 on both
     job = pair.both("POST", "/api/inference/start",
                     {"checkpoint": "/nope/checkpoint-1", "prompt": "a cat", "steps": 1})

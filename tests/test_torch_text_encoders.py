@@ -243,6 +243,37 @@ def test_pile_t5_xl_config_reads_from_its_config_json():
     assert T5Config.from_hf(values) == T5Config.pile_xl()
 
 
+def test_byt5_is_read_as_t5_from_its_config_json(tmp_path):
+    """HunyuanVideo reads ByT5 through the ``t5-xxl`` spec: a T5 encoder at
+    the file's ``config.json`` sizes.  ByT5-small's published sizes (d_model
+    1472, 6 heads of 64, d_ff 3584, 12 layers, gated-gelu, 384 byte tokens)
+    read onto ``T5Config``; a tiny encoder written by ``transformers``' torch
+    class with a ByT5-style config (gated-gelu, untied, byte vocabulary)
+    loads into the port's module and gives what
+    ``FlaxT5EncoderModel.from_pretrained`` (the JAX package's load) gives on
+    the same directory, within 1e-5 relative L2 (f32)."""
+    byt5_small = {"model_type": "t5", "architectures": ["T5ForConditionalGeneration"], "d_model": 1472,
+                  "d_ff": 3584, "d_kv": 64, "num_heads": 6, "num_layers": 12, "num_decoder_layers": 4,
+                  "feed_forward_proj": "gated-gelu", "vocab_size": 384, "relative_attention_num_buckets": 32,
+                  "layer_norm_epsilon": 1e-6, "tie_word_embeddings": False}
+    assert T5Config.from_hf(byt5_small) == T5Config(vocab_size=384, d_model=1472, d_kv=64, d_ff=3584, num_layers=12,
+                                                    num_heads=6, feed_forward_proj="gated-gelu")
+    config = HFT5Config(vocab_size=384, d_model=48, d_ff=96, num_layers=2, num_heads=3, d_kv=16,
+                        feed_forward_proj="gated-gelu", tie_word_embeddings=False, dropout_rate=0.0)
+    torch.manual_seed(1)
+    hf = transformers.T5EncoderModel(config).eval()
+    hf.save_pretrained(str(tmp_path / "text_encoder_2"), safe_serialization=True)
+    port = load_t5_encoder(str(tmp_path / "text_encoder_2"))
+    assert port.config == T5Config(vocab_size=384, d_model=48, d_kv=16, d_ff=96, num_layers=2, num_heads=3)
+    flax_model = FlaxT5EncoderModel.from_pretrained(str(tmp_path / "text_encoder_2"))
+    ids, mask = _tokens(24)
+    ids = ids % 384
+    ref = flax_model(input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask)).last_hidden_state
+    with torch.no_grad():
+        out = port(torch.from_numpy(ids), torch.from_numpy(mask))["last_hidden_state"]
+    assert rel(out.numpy(), np.asarray(ref)) < 1e-5
+
+
 def test_refusals():
     with pytest.raises(NotImplementedError):
         T5EncoderModel(T5Config.tiny("gelu"))
