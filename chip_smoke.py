@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the torch port of simpletuner-tpu once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                       # every phase, 1-28
+    python3 chip_smoke.py                       # every phase, 1-30
     python3 chip_smoke.py --phases 14-16,27,28  # the named phases, what they need, and 1-3 and 7
 
 With ``--phases`` the script runs the named phases, the phases whose files
 they need (``PHASE_NEEDS``: 25 and 26 need phase 14's Flux VAE, phase 15's
 T5-XXL and tokenizer and phase 16's JPEGs; 27 phase 14's CLIP-L, phase 15's
-CLIP tokenizer and phase 16's JPEGs; 28 phase 15's files) and phases 1, 2, 3 and 7 (the
+CLIP tokenizer and phase 16's JPEGs; 28 phase 15's files; 29 phase 14's VAE and phase 16's
+JPEGs; 30 those, phase 15's T5-XXL and tokenizers and phase 19's CLIP-G) and phases 1, 2, 3 and 7 (the
 build, and every kernel against its plain version); a named family phase
 whose depth a full run cuts writes its full-depth file where the run's
 writes leave room (``_full_depth``), and the kernels line holds the rows of
@@ -345,37 +346,38 @@ exits non-zero with no result line):
    peak GiB, and the launches of a profiled replay (60 / 30 / 30, by shape),
    which must equal the capture's.
 27. kandinsky5: Kandinsky 5.0 Lite, both flavours, at the JAX preset's full
-   width and depth (ai-forever/Kandinsky-5.0-T2V-Lite-sft-5s and T2I-Lite's
+   width (ai-forever/Kandinsky-5.0-T2V-Lite-sft-5s and T2I-Lite's
    ``transformer/``, ``Kandinsky5Config()``: 32 visual and 2 text blocks, 2048
-   wide, 32 heads of 64, FFN 5120, 4 latent channels; 2.15B parameters).
+   wide, 32 heads of 64, FFN 5120, 4 latent channels; 2.15B parameters), at
+   ``K5_CUT_BLOCKS`` (16) of its 32 visual blocks in a run of every phase.
    Deletes phase 26's files; checks ``kandinsky5_step_flops`` against the flop
-   counter on two small configs; writes a seeded e4m3 transformer (2.15 GB,
-   both flavours' file), the seeded Qwen2.5-VL-7B text trunk (``qwen_trunk``:
+   counter on two small configs; writes a seeded e4m3 transformer (1.12 GB at
+   16 blocks, both flavours' file), the seeded Qwen2.5-VL-7B text trunk (``qwen_trunk``:
    e4m3, full width, ``QWEN_FILE_LAYERS`` (4) of its 28 layers in a run of
    every phase, a Qwen2.5-VL ``config.json`` with the text sizes at the top
-   level, written once a run and linked by phase 28), a seeded 4-channel SD
+   level, written once a run and linked by phases 28-29), a seeded 4-channel SD
    VAE (the image flavour's), links to phase 14's CLIP-L, phase 15's CLIP
    tokenizer in ``tokenizer/`` (both specs read it; its config names its
    class so that ``AutoTokenizer`` reads it too) and two seeded 768 x 512 x
    61 mp4 clips; encodes 16 prompts at 512 tokens through the Qwen2.5-VL
    encoder (prompts/s, bf16 against f32 within ``LLM_BF16_REL_L2``); imports
    the file through both family names (bitwise); ``kandinsky5_image`` at
-   1024 px: a true-CFG flow Euler render (guidance 5; 132 flash launches a
-   CFG step: 64 self, 64 cross, 4 text), one full-depth forward against the
+   1024 px: a true-CFG flow Euler render (guidance 5; 4d + 4 flash launches a
+   CFG step at d blocks: 2d self, 2d cross, 4 text), one forward against the
    plain attention (phase 5's bound), ``Trainer.run()`` with a bf16 base,
    every block checkpointed, rank-16 LoRA on the attentions' ``to_query`` /
    ``to_key`` / ``to_value`` / ``out_layer``, AdamW 1e-4, 6 graphed steps on
-   four of phase 16's JPEGs (132 / 66 / 66 launches, by shape);
+   four of phase 16's JPEGs (4d + 4 / 2d + 2 / 2d + 2 launches, by shape);
    ``kandinsky5_video`` on the clips (the ``1.5x61`` bucket, the video VAE
    cache at the Wan config and 4 latents: 16 x 64 x 96 latents, 24,576
    tokens): 6 graphed steps as above, a true-CFG mp4 render at 512 px square
-   and 61 frames (16,384 tokens), the full-depth parity forward on a 17-frame
+   and 61 frames (16,384 tokens), the parity forward on a 17-frame
    clip (7,680 tokens); each run's s/step, MFU, time to the first step, peak
    GiB, and a profiled replay's launches held to the capture's.
 28. hunyuanvideo: HunyuanVideo 1.5 t2v-480p at the JAX preset's full width
    (tencent/HunyuanVideo-1.5's ``transformer/``, ``HunyuanVideo15Config()``: 54
    dual-stream and 2 refiner blocks, 2048 wide, 16 heads of 128, 65 channels
-   in; 8.33B parameters), at ``HY_CUT_BLOCKS`` (12) of its 54 blocks in a run
+   in; 8.33B parameters), at ``HY_CUT_BLOCKS`` (6) of its 54 blocks in a run
    of every phase.  Deletes phase 27's files (not the Qwen trunk); checks
    ``hunyuanvideo_step_flops`` against the flop counter on two small configs;
    writes a seeded e4m3 diffusers transformer, a seeded ByT5-small in the T5
@@ -393,11 +395,56 @@ exits non-zero with no result line):
    backward), by shape; a true-CFG mp4 render at 480 px square and 17 frames;
    one forward against the plain attention on a 5-frame clip with padded
    captions (the -1 pads in the refiner and the joint layers; phase 5's
-   bound); last, the run's writes against ``RUN_WRITE_LIMIT_GB`` less
+   bound).
+29. qwen_image: Qwen-Image at the JAX preset's full width (Qwen/Qwen-Image's
+   ``transformer/``, ``QwenImageConfig()``: 60 double-stream blocks, 3072 wide,
+   24 heads of 128, 64 packed channels in; 20.4B parameters), at
+   ``QI_CUT_BLOCKS`` (4) of its 60 blocks in a run of every phase.  Deletes
+   phase 28's files; checks ``qwen_image_step_flops`` against the flop counter
+   on two small configs; writes a seeded e4m3 diffusers transformer, links
+   phase 27's Qwen2.5-VL trunk (written here when phase 27 did not run) and
+   phase 14's Flux VAE, writes a Qwen-convention tokenizer; encodes 16 prompts
+   at 1024 tokens (prompts/s, bf16 against f32); imports the transformer
+   (bitwise, a tensor at a time); a 1024 px true-CFG flow Euler render
+   (guidance 4; 2d launches a CFG step over the 5,120 joint tokens: the
+   1,024 Qwen tokens unmasked, as the JAX family collates them); one forward
+   against the plain attention (phase 5's bound); ``Trainer.run()`` on an
+   int8 base (``quantized_matmul: full``), every block checkpointed, rank-16
+   LoRA on every adapter-carrying linear (the JAX family's default), 6
+   graphed steps on four of phase 16's JPEGs: s/step, MFU, time to the first
+   step, peak GiB, a replay and an eager step from one state bitwise equal,
+   and a profiled replay's launches (2d / d / d, by shape) held to the
+   capture's.  Then Z-Image (Tongyi-MAI/Z-Image-Turbo as the JAX family
+   builds it: the same DiT without text rope, 19 blocks, 2560-wide Qwen
+   features at 4,096 tokens) at ``ZI_CUT_BLOCKS`` (2) blocks built in memory,
+   with a seeded 2560-wide qwen2-layout trunk (the JAX ``qwen2.5`` spec at
+   Qwen3-4B's sizes, ``ZI_TRUNK_LAYERS`` of 36 layers) and the tokenizer: the
+   parity forward over 8,192 joint tokens and 6 graphed LoRA steps as above.
+   MageFlow does not run: its published arch reads 32 latent channels and its
+   trainer builds the 16-channel Flux VAE (ROADMAP Queue 3).
+30. hidream: HiDream-I1 at the JAX preset's full width (HiDream-ai/
+   HiDream-I1-Full's ``transformer/``, ``HiDreamConfig()``: 16 double and 32
+   single blocks, 20 heads of 128, 4 experts top-2 with a shared expert, FFN
+   6912; 17.1B parameters), at ``HD_CUT_BLOCKS`` (2 + 2) in a run of every
+   phase.  Deletes phase 29's files; checks ``hidream_step_flops`` against
+   the flop counter on two small configs; writes a seeded e4m3 transformer
+   (the adaLN drawn) and a seeded Llama-3.1-8B trunk (``llama3_8b`` at full
+   width, ``LLAMA_FILE_LAYERS`` (2) of its 32 layers, a Llama-3.1
+   ``config.json``) beside links to phase 14's CLIP-L, phase 19's CLIP-G,
+   phase 15's T5-XXL and T5 tokenizer (``tokenizer_2``) and Flux VAE, and
+   phase 15's CLIP tokenizer in ``tokenizer/`` (the CLIP and Llama specs read
+   it); encodes 16 prompts at 128 tokens through the Llama encoder
+   (prompts/s, bf16 against f32); imports the transformer (bitwise); a 1024
+   px true-CFG render (guidance 5; 2(d + s) launches a CFG step over 4,480
+   joint tokens); one forward against the plain attention; ``Trainer.run()``
+   as phase 29's with ``hidream_use_load_balancing_loss``: ``moe_gate_loss``
+   logged at every step, a replay's loss, grad norm and ``moe_gate_loss``
+   bitwise an eager step's, the profiled replay's launches held to the
+   capture's; last, the run's writes against ``RUN_WRITE_LIMIT_GB`` less
    ``RUN_WRITE_MARGIN_GB``.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
-their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-28.
+their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-30.
 Phases 3 and 7 also run head dims 72, 96 and 112 (pixart, lumina2, sana),
 which the wrappers zero-pad to 128, masked and unmasked, the shapes
 phase 21 meets first (``PHASE21_KERNEL_CASES``: PixArt's (1, 16, 4096, 72)
@@ -425,22 +472,27 @@ the video self-attention (1, 32, 24576, 64) and its 512 Qwen keys, unmasked)
 and HunyuanVideo's (``HY_KERNEL_CASES``: the joint (1, 16, 32133, 128) with
 the segment plane the DiT makes, 180 of 256 Qwen and 40 of 77 ByT5 tokens
 valid and the pads at -1, and the refiner's 256 tokens, 180 valid), each held
-at 2 heads; phases 3 and 7 print the seconds of each of
+at 2 heads, and Qwen-Image's, Z-Image's and HiDream's (``QI_KERNEL_CASES``,
+``HD_KERNEL_CASES``: the joint (1, 24, 5120, 128) and (1, 24, 8192, 128) and
+(1, 20, 4480, 128), unmasked), held at 2 heads; at the long shapes the plain
+version is timed once, one head at a time, with no warm-up run (the first
+head warms it); phases 3 and 7 print the seconds of each of
 their sections (``section_s``).  Every phase
 line carries ``elapsed_s`` and ``written_gb`` (the card's machine ends a run
 that writes more than 45 GiB, deleted files included).  On an H100 80GB HBM3 at
-700 W the whole script takes about 865 s of its 1,200 s limit (the host's share
-varies by 10-15% between machines; the fp8 files import at 3-5 GB/s, their
-bytes cast on the card) and writes about 42.7 GB: phases 3
-and 7 about 130 s, phase 12 about 120 s, phases 17-18 about 185 s, phases 19-24
-about 150 s, phases 25-26 about 30 s, phases 27-28 about 110 s.
+700 W the whole script takes about 860 s of its 1,200 s limit (the host's
+share varies by 10-15% between machines; the fp8 files import at 3-5 GB/s, their
+bytes cast on the card) and writes about 45.5 GB: phases 3
+and 7 about 115 s, phase 12 about 100 s, phases 17-18 about 180 s, phases 19-24
+about 180 s, phases 25-26 about 30 s, phases 27-28 about 75 s, phases 29-30 about
+35 s.
 Then a JSON line with the kernels, each wrapper's head dim 256 instances,
 its Chroma row (the Flux shape's times) and its rows at Wan's, LTX's,
-Lumina2's, Kandinsky 5.0's and HunyuanVideo's shapes beside it (launches:
-the profiler's count in phase 12's profiled replay, for the head dim 256
-rows in phase 22's, for the Chroma rows in phase 25's, and for the other
-rows the wrappers' count at that shape per step in phase 23's, 24's, 26's,
-27's and 28's runs),
+Lumina2's, Kandinsky 5.0's, HunyuanVideo's, Qwen-Image's, Z-Image's and
+HiDream's shapes beside it (launches: the profiler's count in phase 12's
+profiled replay, for the head dim 256 rows in phase 22's, for the Chroma rows
+in phase 25's, and for the other rows the wrappers' count at that shape per
+step in phase 23's, 24's and 26's-30's runs),
 and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
 register, spill and warning lines per kernel (a C7514 warning means ptxas
@@ -486,10 +538,10 @@ GRAD_REL_MAX, GRAD_REL_L2 = 2.0 ** -6, 1e-2
 TRAIN_GRAD_REL_L2 = 5e-2
 PARITY_DOUBLE, PARITY_SINGLE = 2, 4
 # phase 12: steps held bitwise against the eager step, and the eager steps and
-# graph replays timed (the replays are the flagship's number, as the bench's
-# median of 20; the eager step at 2.4 s is a yardstick, and 10 keep the script's
-# time in its limit)
-GRAPH_CHECK_STEPS, GRAPH_EAGER_TIMED_STEPS, GRAPH_TIMED_STEPS = 5, 10, 20
+# graph replays timed (the replays are the flagship's number: their median;
+# 20 replays spread by 0.1% on the card, so 10 give the same median; the eager step
+# is a yardstick, and 6 keep the script's time in its limit)
+GRAPH_CHECK_STEPS, GRAPH_EAGER_TIMED_STEPS, GRAPH_TIMED_STEPS = 5, 6, 10
 # H100 SXM: dense bf16 tensor-core peak and device-memory rate (bounds only)
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 # phase 14: the cut depth of the two-layout Flux checkpoints (full width); the
@@ -555,7 +607,7 @@ PHASE21_MODELS = (
     ("pixart_sigma", 1024, 4.5, {}),
 )
 PHASE21_CLIP_H_LAYERS = 4
-PHASE21_WRITE_GB = 3.0
+PHASE21_WRITE_GB = 2.9
 PHASE21_TXT = {"sd1x": 77, "sd2x": 77, "pixart_sigma": 300}
 # phases 3 and 7 at SDXL's 1024 px attention: per level, the heads of 64 and
 # the H x W image tokens, self-attention and cross-attention against the 77
@@ -594,7 +646,7 @@ AURA_TXT = 8 + AURA_T5_LEN  # the register tokens, then the caption
 AURA_S = AURA_TXT + (RESOLUTION // 16) ** 2
 AURA_SIGMA = 0.7  # the full-depth parity forward's sigma
 PHASE22_T5_LAYERS = 6
-PHASE22_WRITE_GB = 2.5  # at the cut depth (AURA_CUT_BLOCKS)
+PHASE22_WRITE_GB = 2.2  # at the cut depth (AURA_CUT_BLOCKS)
 # phases 3 and 7 at head dim 256, the head dim 256 kernels: (name, (batch,
 # heads, seq, head dim), segment ids): AuraFlow's (1, 12, 4360, 256) with no
 # caller mask (4360 is no multiple of the 64- and 32-row tiles, so the
@@ -627,7 +679,7 @@ WAN_RENDER_SIZE, WAN_GUIDANCE = 480, 5.0
 WAN_PARITY_FRAMES, WAN_SIGMA = 17, 0.7
 WAN14B_BLOCKS = 4
 WAN_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
-PHASE23_WRITE_GB = 0.9  # at the cut depth (WAN_CUT_BLOCKS)
+PHASE23_WRITE_GB = 0.6  # at the cut depth (WAN_CUT_BLOCKS)
 # phases 3 and 7 at Wan's attention shapes: (name, heads, query tokens, key
 # tokens, head dim): the 1.3B's self-attention (12 heads of 128 over 32,760
 # tokens, the ragged tail masked), its cross-attention (the same queries
@@ -662,7 +714,7 @@ LTX_RENDER_SIZE, LTX_GUIDANCE = 512, 4.0
 LTX_SIGMA = 0.7
 LTX13B_BLOCKS = 4
 LTX_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
-PHASE24_WRITE_GB = 1.2  # at the cut depth (LTX_CUT_BLOCKS)
+PHASE24_WRITE_GB = 0.9  # at the cut depth (LTX_CUT_BLOCKS)
 # phases 3 and 7 at LTX's attention shapes, as WAN_KERNEL_CASES: the 2B's
 # self-attention (32 heads of 64 over 6,144 tokens: full tiles, the unmasked
 # fast path), its cross-attention (the same queries against the 128 T5 keys:
@@ -688,7 +740,7 @@ CHROMA_GUIDANCE = 4.0
 CHROMA_TRAIN_STEPS, CHROMA_TRAIN_IMAGES = 6, 4
 CHROMA_PROMPT = "a lighthouse on a basalt cliff at dusk"
 CHROMA_SIGMA = 0.7
-PHASE25_WRITE_GB = 1.8  # at the cut depth (CHROMA_CUT_BLOCKS)
+PHASE25_WRITE_GB = 1.4  # at the cut depth (CHROMA_CUT_BLOCKS)
 # phase 26: Lumina-Image 2.0 (Alpha-VLLM/Lumina-Image-2.0's transformer/ as the
 # JAX preset Lumina2Config() builds it: 26 joint blocks + 2 context and 2 noise
 # refiners, 2304 wide, 24 query / 8 kv heads of 96, SwiGLU 6144; 1.97B
@@ -713,7 +765,7 @@ GEMMA_FILE_LAYERS = 6
 # tokens (phases 26-28): every product and the residual stream round to bf16
 # in each layer, so they agree to about a percent in relative L2
 LLM_BF16_REL_L2 = 5e-2
-PHASE26_WRITE_GB = 3.6
+PHASE26_WRITE_GB = 3.2
 # phases 3 and 7 at Lumina2's attention shapes (D = 96, zero-padded to 128 by
 # the wrappers, scaled by 96^-0.5): (name, heads, query tokens, key tokens,
 # head dim, valid caption tokens or None): the joint layers over [256 caption,
@@ -752,7 +804,7 @@ K5_LATENT = ((K5_FRAMES - 1) // 4 + 1, K5_HEIGHT // 8, K5_WIDTH // 8)
 K5_TOKENS = K5_LATENT[0] * (K5_LATENT[1] // 2) * (K5_LATENT[2] // 2)
 K5_CLIPS, K5_RENDER_SIZE, K5_PARITY_FRAMES, K5_SIGMA = 2, 512, 17, 0.7
 QWEN_FILE_LAYERS = 4
-PHASE27_WRITE_GB = 4.2
+PHASE27_WRITE_GB = 3.5  # at the cut depth (K5_CUT_BLOCKS)
 # phases 3 and 7 at Kandinsky 5.0's attention shapes (D = 64, unmasked: the
 # JAX family drops the Qwen mask): the video flavour's self-attention over
 # 24,576 tokens (192 full tiles) and its cross-attention against the 512 Qwen
@@ -784,7 +836,7 @@ HY_VIDEO = HY_LATENT[0] * HY_LATENT[1] * HY_LATENT[2]
 HY_JOINT = HY_VIDEO + HY_TEXT + HY_TEXT2
 HY_CLIPS, HY_RENDER_SIZE, HY_PARITY_FRAMES, HY_SIGMA = 2, 480, 5, 0.7
 HY_QWEN_VALID, HY_BYT5_VALID = 180, 40  # a caption's valid tokens in the kernel cases
-PHASE28_WRITE_GB = 3.0  # at the cut depth (HY_CUT_BLOCKS)
+PHASE28_WRITE_GB = 1.7  # at the cut depth (HY_CUT_BLOCKS)
 # phases 3 and 7 at HunyuanVideo's attention shapes (D = 128): the joint
 # attention over 31,800 video tokens then 256 Qwen and 77 ByT5 tokens with
 # the segment plane the DiT makes (video and valid tokens at 0, pads at -1:
@@ -795,20 +847,70 @@ HY_KERNEL_CASES = (
     ("hy_refiner", 16, HY_TEXT, HY_TEXT, 128, "hy_refiner"),
 )
 HY_CHECK_HEADS = 2
+# phase 29: Qwen-Image (Qwen/Qwen-Image's transformer/ as the JAX preset
+# QwenImageConfig() builds it: 60 double-stream blocks, 3072 wide, 24 heads of
+# 128, 64 packed channels in; 20.4B parameters) at QI_CUT_BLOCKS of its 60
+# blocks in a run of every phase, phase 27's Qwen2.5-VL trunk at 1024 tokens
+# (linked), at 1024 px (64 x 64 = 4,096 packed tokens after 1,024 unmasked
+# text tokens: 5,120 joint); Z-Image (Tongyi-MAI/Z-Image-Turbo as the JAX
+# family builds it: the same block layout without text rope, 19 blocks, 2560-
+# wide Qwen features, 4,096 text tokens: 8,192 joint) at ZI_CUT_BLOCKS of its
+# 19 blocks built in memory, with a seeded 2560-wide qwen2-layout trunk (the
+# JAX family's qwen2.5 spec at Qwen3-4B's sizes from its config.json: 32 heads
+# of 128, 8 kv heads, FFN 9728, 151,936 tokens) at ZI_TRUNK_LAYERS of its 36
+QI_PROMPT = "a lighthouse on a basalt cliff at dusk"
+QI_TEXT, ZI_TEXT = 1024, 4096
+QI_IMG = (RESOLUTION // 16) ** 2
+QI_GUIDANCE, QI_SIGMA = 4.0, 0.7
+QI_TRAIN_STEPS, QI_TRAIN_IMAGES = 6, 4
+ZI_CUT_BLOCKS, ZI_TRUNK_LAYERS = 2, 2
+PHASE29_WRITE_GB = 2.4  # at the cut depths (QI_CUT_BLOCKS, ZI_TRUNK_LAYERS)
+# phases 3 and 7 at Qwen-Image's and Z-Image's joint attention (D = 128,
+# unmasked: the JAX families drop the mask); held at QI_CHECK_HEADS heads
+QI_KERNEL_CASES = (
+    ("qi_joint", 24, QI_IMG + QI_TEXT, QI_IMG + QI_TEXT, 128),
+    ("zi_joint", 24, QI_IMG + ZI_TEXT, QI_IMG + ZI_TEXT, 128),
+)
+QI_CHECK_HEADS = 2
+# phase 30: HiDream-I1 (HiDream-ai/HiDream-I1-Full's transformer/ as the JAX
+# preset HiDreamConfig() builds it: 16 double and 32 single blocks, 20 heads of
+# 128, 4 experts top-2 with a shared expert; 17.1B parameters) at
+# HD_CUT_BLOCKS of its 16 + 32 blocks in a run of every phase, with phase 14's
+# CLIP-L, phase 19's CLIP-G (4 of its 32 layers), phase 15's T5-XXL (6 of 24)
+# and a seeded Llama-3.1-8B trunk (``llama3_8b``: 4096 wide, 32 heads, 8 kv
+# heads, FFN 14,336, 128,256 tokens) at LLAMA_FILE_LAYERS of its 32 layers, at
+# 1024 px: 4,096 image tokens, 128 T5, 128 Llama[last] and the block's 128
+# Llama tokens (4,480 joint, unmasked)
+HD_PROMPT = "a lighthouse on a basalt cliff at dusk"
+HD_TEXT = 128
+HD_JOINT = QI_IMG + 3 * HD_TEXT
+HD_GUIDANCE, HD_SIGMA = 5.0, 0.7
+HD_TRAIN_STEPS, HD_TRAIN_IMAGES = 6, 4
+LLAMA_FILE_LAYERS = 2
+PHASE30_WRITE_GB = 2.7  # at the cut depths (HD_CUT_BLOCKS, LLAMA_FILE_LAYERS)
+HD_KERNEL_CASES = (
+    ("hd_joint", 20, HD_JOINT, HD_JOINT, 128),
+)
+HD_CHECK_HEADS = 2
 # the depth of the earlier families' seeded files in a run of every phase
 # (full width; the kernels' shapes depend on width and tokens, not depth),
-# cut to make room for phases 25-28 in the write budget: SD3.5 Large at 6 of
+# cut to make room for phases 25-30 in the write budget: SD3.5 Large at 6 of
 # its 38 blocks, AuraFlow v0.3 at 2 + 4 of its 4 + 32, Wan 2.1 T2V-1.3B at 10
 # of 30, LTX-Video 2B at 10 of 28, Chroma at 2 + 4 of its 19 + 38 (its kernel
-# shapes are Flux's), Gemma-2 2B at GEMMA_FILE_LAYERS of 26, HunyuanVideo 1.5
-# at 12 of 54; a run that names one of these phases (--phases) writes it at
-# full depth where its writes leave room
+# shapes are Flux's), Gemma-2 2B at GEMMA_FILE_LAYERS of 26, Kandinsky 5.0
+# Lite at 16 of its 32 visual blocks (room and time for phases 29-30),
+# HunyuanVideo 1.5 at 6 of 54, Qwen-Image at 4 of 60 and HiDream-I1
+# at 2 + 2 of its 16 + 32; a run that names one of these phases (--phases)
+# writes it at full depth where its writes leave room
 SD3_CUT_BLOCKS = 6
 AURA_CUT_BLOCKS = (2, 4)
 WAN_CUT_BLOCKS = 10
 LTX_CUT_BLOCKS = 10
 CHROMA_CUT_BLOCKS = (2, 4)
-HY_CUT_BLOCKS = 12
+K5_CUT_BLOCKS = 16
+HY_CUT_BLOCKS = 6
+QI_CUT_BLOCKS = 4
+HD_CUT_BLOCKS = (2, 2)
 # the most a run may write, deleted files included (45 GiB), and the margin
 # below it for what this process's count does not see (the server jobs' child
 # processes in phase 18, nvcc's outputs); the last phase checks the run's
@@ -825,18 +927,19 @@ INT8_ROWS = 4608  # 4096 image + 512 text tokens
 # roundings, so every element is within one bf16 ulp (at most 2^-7 of its value)
 DOT_REL = 2.0 ** -7
 _STARTED = time.perf_counter()
-# what each family phase writes at its depth in a run of every phase, for the
-# reservations each of phases 19-25 makes for the later phases of the run
+# what each family phase writes at its depth in a run of every phase (a little above
+# what a run of every phase writes), for the reservations each of phases 19-30
+# makes for the later phases of the run
 PHASE_WRITE_GB = {19: 2.3, 20: 3.2, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB, 23: PHASE23_WRITE_GB,
                   24: PHASE24_WRITE_GB, 25: PHASE25_WRITE_GB, 26: PHASE26_WRITE_GB, 27: PHASE27_WRITE_GB,
-                  28: PHASE28_WRITE_GB}
+                  28: PHASE28_WRITE_GB, 29: PHASE29_WRITE_GB, 30: PHASE30_WRITE_GB}
 # the phases whose files (or, for 5 and 6, whose runtime) a phase needs before
 # it; 1, 2, 3 and 7 run in every run (the build, and the kernels line's times)
 PHASE_NEEDS = {4: (14, 15, 16), 5: (4,), 6: (5,), 15: (14,), 16: (14,), 17: (14, 15, 16), 18: (17,),
                19: (14, 15, 16), 20: (19,), 21: (20,), 22: (20,), 23: (15, 16), 24: (15, 16), 25: (14, 15, 16),
-               26: (14, 16), 27: (14, 15, 16), 28: (14, 15)}
+               26: (14, 16), 27: (14, 15, 16), 28: (14, 15), 29: (14, 16), 30: (14, 15, 16, 19)}
 ALWAYS = (1, 2, 3, 7)
-LAST_PHASE = 28
+LAST_PHASE = 30
 # the phases named on the command line (None: every phase) and those the run takes
 RUN = {"requested": None, "phases": set(range(1, LAST_PHASE + 1))}
 
@@ -1157,6 +1260,10 @@ def kernel_cases():
     marks.append(("kandinsky5", time.perf_counter()))
     times["hunyuanvideo"], hy_entries = long_forward_cases(HY_KERNEL_CASES, HY_CHECK_HEADS, 860, errors)
     marks.append(("hunyuanvideo", time.perf_counter()))
+    times["qwen_image"], qi_entries = long_forward_cases(QI_KERNEL_CASES, QI_CHECK_HEADS, 900, errors)
+    marks.append(("qwen_image", time.perf_counter()))
+    times["hidream"], hd_entries = long_forward_cases(HD_KERNEL_CASES, HD_CHECK_HEADS, 940, errors)
+    marks.append(("hidream", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
@@ -1169,7 +1276,7 @@ def kernel_cases():
     return {"max_abs_err": worst, "ms": times["kernel_masked_ms"], "plain_ms": times["plain_masked_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_masked_ms,
             "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}, fwd256_entry, \
-        {**wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries}
+        {**wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries, **hd_entries}
 
 
 def backward_cases():
@@ -1293,6 +1400,10 @@ def backward_cases():
     marks.append(("kandinsky5", time.perf_counter()))
     times["hunyuanvideo"], hy_entries = long_backward_cases(HY_KERNEL_CASES, HY_CHECK_HEADS, 880, errors)
     marks.append(("hunyuanvideo", time.perf_counter()))
+    times["qwen_image"], qi_entries = long_backward_cases(QI_KERNEL_CASES, QI_CHECK_HEADS, 920, errors)
+    marks.append(("qwen_image", time.perf_counter()))
+    times["hidream"], hd_entries = long_backward_cases(HD_KERNEL_CASES, HD_CHECK_HEADS, 960, errors)
+    marks.append(("hidream", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
@@ -1304,7 +1415,8 @@ def backward_cases():
                                 "plain_ms": times["plain_masked_ms"], "bound_ms": bounds[(kernel, "masked")][0],
                                 "bound_by": bounds[(kernel, "masked")][1], **library}
         for kernel in ("dq", "dkv")
-    }, **d256_entries, **wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries}
+    }, **d256_entries, **wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries,
+        **hd_entries}
 
 
 def _ddpm_inputs(seed, heads, sq, sk, dim, n):
@@ -1656,7 +1768,7 @@ def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tupl
         pairs = _segment_pairs(seg, sq) if seg is not None else sq * sk
         bound_ms, bound_by = _attention_bound_ms(2, pairs, heads, dim, nbytes)  # q, out; k, v; lse; ids
         kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, seg, seg), 10)
-        plain_ms = cuda_ms(lambda: _by_heads(plain, q, k, v), 1, warmup=1)
+        plain_ms = cuda_ms(lambda: _by_heads(plain, q, k, v), 1, warmup=0)  # one head at a time: the first warms
         cases_out[name] = {"shape": [1, heads, sq, sk, dim], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                            "sdpa_ms": sdpa_ms, "sdpa_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by,
                            "share_of_bound": bound_ms / kernel_ms, "attended_pairs": pairs,
@@ -1732,7 +1844,7 @@ def long_backward_cases(cases, check_heads: int, seed: int, errors: dict) -> tup
             times[f"bound_{kernel}_ms"], times[f"bound_{kernel}_by"] = _attention_bound_ms(
                 products, pairs, heads, dim, nbytes)
             times[f"{kernel}_share_of_bound"] = times[f"bound_{kernel}_ms"] / times[f"{kernel}_ms"]
-        times["plain_ms"] = cuda_ms(lambda: _by_heads(plain, q, k, v, out, lse, do), 1, warmup=1)
+        times["plain_ms"] = cuda_ms(lambda: _by_heads(plain, q, k, v, out, lse, do), 1, warmup=0)
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
 
         def forward():
@@ -4578,10 +4690,12 @@ def _square_jpegs(work: str, name: str, count: int) -> str:
 def _import_bitwise(model, module, root: str, weights: dict, params_from_diffusers, file_bytes: int) -> dict:
     """``load_transformer_params`` of ``root`` onto ``module``: s, GB/s, peak
     host RSS and device GiB, every tensor bitwise the written one taken to the
-    module's dtype (exact for every e4m3 value)."""
+    module's dtype (exact for every e4m3 value), one tensor at a time (a
+    20B module in bf16 and its e4m3 weights fit the card; a second bf16 copy
+    would not)."""
     import torch
 
-    from simpletuner_tpu_torch.models.weight_bridge import flax_to_state_dict
+    from simpletuner_tpu_torch.models.weight_bridge import _checked
     from simpletuner_tpu_torch.models.weight_import import load_transformer_params
 
     params = sum(p.numel() for p in module.parameters())
@@ -4592,8 +4706,9 @@ def _import_bitwise(model, module, root: str, weights: dict, params_from_diffuse
     load_transformer_params(model, module, root)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    expected = flax_to_state_dict(params_from_diffusers(weights, model.arch), module)
-    unequal = [k for k, v in module.state_dict().items() if not torch.equal(v, expected[k])]
+    state = module.state_dict()
+    expected = _checked(params_from_diffusers(weights, model.arch), state, None, None, False)
+    unequal = [k for k, v in state.items() if not torch.equal(v, expected[k].to(v.dtype))]
     if unequal or params != sum(v.numel() for v in weights.values()):
         raise RuntimeError(f"{model.NAME}: the imported module differs from the written tensors at {unequal[:8]}")
     return {"s": load_s, "gb_per_s": file_bytes / load_s / 1e9, "params": params, "tensors_bitwise": len(expected),
@@ -5139,9 +5254,46 @@ def hunyuanvideo_step_flops(arch, batch: int, video_tokens: int, qwen_tokens: in
     return batch * fwd * 3
 
 
+def write_llm_trunk(root: str, config, gen, hf_config: dict, extra: dict = None) -> float:
+    """A seeded decoder-LLM trunk of ``config`` in the HF layout under
+    ``root``: e4m3 tensors (matrices N(0, 1/fan_in), norm weights 1 + N(0,
+    0.1), biases N(0, 0.01)) drawn on the card, ``extra`` tensors beside
+    them, and a ``config.json`` of ``hf_config`` with the trunk's sizes as
+    top-level keys; returns the write seconds."""
+    import torch
+
+    from simpletuner_tpu_torch.models.checkpoint_layouts import llm_checkpoint_shapes
+    from simpletuner_tpu_torch.models.weight_import import save_safetensors
+
+    weights = {}
+    for name, shape in llm_checkpoint_shapes(config).items():
+        draw = torch.randn(shape, generator=gen, device="cuda")
+        if len(shape) > 1:
+            draw = draw / math.sqrt(shape[-1])
+        elif name.endswith("norm.weight") or "layernorm" in name:
+            draw = 1.0 + 0.1 * draw
+        else:
+            draw = 0.01 * draw
+        weights[name] = draw.to(torch.float8_e4m3fn)
+    weights.update(extra or {})
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    save_safetensors(weights, os.path.join(root, "model.safetensors"))
+    write_s = time.perf_counter() - t0
+    with open(os.path.join(root, "config.json"), "w") as handle:
+        json.dump({**hf_config, "vocab_size": config.vocab_size, "hidden_size": config.hidden_size,
+                   "intermediate_size": config.intermediate_size, "num_hidden_layers": config.num_layers,
+                   "num_attention_heads": config.num_heads, "num_key_value_heads": config.num_kv_heads,
+                   "head_dim": config.head_dim, "rope_theta": config.rope_theta, "rms_norm_eps": config.rms_eps,
+                   "torch_dtype": "float8_e4m3fn"}, handle)
+    del weights
+    torch.cuda.empty_cache()
+    return write_s
+
+
 def qwen_trunk(paths: dict, number: int) -> dict:
     """The seeded Qwen2.5-VL-7B text trunk in the HF layout, written once a
-    run (by the first of phases 27-28 that runs, ``number``) under
+    run (by the first of phases 27-29 that runs, ``number``) under
     ``work/qwen25_vl/text_encoder``: the ``qwen25_7b`` preset's width (3584,
     28 query / 4 kv heads of 128, FFN 18,944, 152,064 tokens, qkv biases) at
     ``QWEN_FILE_LAYERS`` of its 28 layers, or all 28 in a run that names the
@@ -5155,7 +5307,6 @@ def qwen_trunk(paths: dict, number: int) -> dict:
 
     from simpletuner_tpu_torch.models.checkpoint_layouts import llm_checkpoint_shapes
     from simpletuner_tpu_torch.models.llm_encoder import LLMEncoderConfig
-    from simpletuner_tpu_torch.models.weight_import import save_safetensors
 
     if "qwen" in paths:
         return paths["qwen"]
@@ -5172,35 +5323,15 @@ def qwen_trunk(paths: dict, number: int) -> dict:
         else QWEN_FILE_LAYERS
     config = dataclasses.replace(full, num_layers=layers)
     gen = torch.Generator(device="cuda").manual_seed(270)
-    weights = {}
-    for name, shape in llm_checkpoint_shapes(config).items():
-        draw = torch.randn(shape, generator=gen, device="cuda")
-        if len(shape) > 1:
-            draw = draw / math.sqrt(shape[-1])
-        elif name.endswith("norm.weight") or "layernorm" in name:
-            draw = 1.0 + 0.1 * draw
-        else:
-            draw = 0.01 * draw
-        weights[name] = draw.to(torch.float8_e4m3fn)
-    weights["visual.patch_embed.proj.weight"] = (0.02 * torch.randn((1280, 3, 2, 14, 14), generator=gen,
-                                                                    device="cuda")).to(torch.float8_e4m3fn)
     root = os.path.join(paths["work"], "qwen25_vl")
-    os.makedirs(os.path.join(root, "text_encoder"))
-    t0 = time.perf_counter()
-    save_safetensors(weights, os.path.join(root, "text_encoder", "model.safetensors"))
-    write_s = time.perf_counter() - t0
-    with open(os.path.join(root, "text_encoder", "config.json"), "w") as handle:
-        json.dump({"architectures": ["Qwen2_5_VLForConditionalGeneration"], "model_type": "qwen2_5_vl",
-                   "vocab_size": config.vocab_size, "hidden_size": config.hidden_size,
-                   "intermediate_size": config.intermediate_size, "num_hidden_layers": layers,
-                   "num_attention_heads": config.num_heads, "num_key_value_heads": config.num_kv_heads,
-                   "max_position_embeddings": 128000, "rope_theta": config.rope_theta, "rms_norm_eps": config.rms_eps,
-                   "hidden_act": "silu", "tie_word_embeddings": False, "torch_dtype": "float8_e4m3fn",
-                   "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
-                   "vision_config": {"depth": 32, "hidden_size": 1280, "out_hidden_size": 3584, "patch_size": 14,
-                                     "temporal_patch_size": 2}}, handle)
-    del weights
-    torch.cuda.empty_cache()
+    visual = {"visual.patch_embed.proj.weight": (0.02 * torch.randn(
+        (1280, 3, 2, 14, 14), generator=gen, device="cuda")).to(torch.float8_e4m3fn)}
+    write_s = write_llm_trunk(os.path.join(root, "text_encoder"), config, gen, {
+        "architectures": ["Qwen2_5_VLForConditionalGeneration"], "model_type": "qwen2_5_vl",
+        "max_position_embeddings": 128000, "hidden_act": "silu", "tie_word_embeddings": False,
+        "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+        "vision_config": {"depth": 32, "hidden_size": 1280, "out_hidden_size": 3584, "patch_size": 14,
+                          "temporal_patch_size": 2}}, extra=visual)
     paths["qwen"] = {"root": root, "config": config, "layers": [layers, full.num_layers],
                      "gb": sum(math.prod(v) for v in llm_checkpoint_shapes(config).values()) / 1e9,
                      "dtype": "float8_e4m3fn", "write_s": write_s, "written_by_phase": number}
@@ -5341,8 +5472,9 @@ def _text_batch(model, prompt: str, latents: tuple, dev) -> dict:
     return batch
 
 
-def kandinsky5_phase(paths: dict, kernels, device: str) -> dict:
-    """Phase 27: Kandinsky 5.0 Lite at the JAX preset's full width and depth,
+def kandinsky5_phase(paths: dict, kernels, device: str, depth: int) -> dict:
+    """Phase 27: Kandinsky 5.0 Lite at the JAX preset's full width and
+    ``depth`` of its 32 visual blocks,
     both flavours on one seeded e4m3 transformer file, with phase 15's CLIP-L
     (``text_encoder_2``) and the seeded Qwen2.5-VL trunk (``qwen_trunk``,
     ``text_encoder``), both encoders reading ``tokenizer/`` (the CLIP
@@ -5387,18 +5519,22 @@ def kandinsky5_phase(paths: dict, kernels, device: str) -> dict:
         for arch, (t, h, w), txt in ((tiny, (3, 4, 6), 7), (wider, (1, 8, 6), 5))])
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(27)
-    arch = Kandinsky5Config()
-    if (arch.model_dim, arch.num_heads, arch.head_dim, arch.ff_dim, arch.num_visual_blocks, arch.num_text_blocks,
-            arch.in_visual_dim, arch.in_text_dim) != (2048, 32, 64, 5120, 32, 2, 4, 3584):
-        raise RuntimeError(f"not the JAX preset of Kandinsky 5.0 Lite: {arch}")
+    full = Kandinsky5Config()
+    if (full.model_dim, full.num_heads, full.head_dim, full.ff_dim, full.num_visual_blocks, full.num_text_blocks,
+            full.in_visual_dim, full.in_text_dim) != (2048, 32, 64, 5120, 32, 2, 4, 3584):
+        raise RuntimeError(f"not the JAX preset of Kandinsky 5.0 Lite: {full}")
+    arch = dataclasses.replace(full, num_visual_blocks=depth)
     if K5_LATENT[0] * (K5_LATENT[1] // 2) * (K5_LATENT[2] // 2) != K5_TOKENS:
         raise RuntimeError(f"kandinsky5: {K5_LATENT} latents do not give {K5_TOKENS} tokens")
     shapes = kandinsky5_checkpoint_shapes(arch)
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     written_before, free = _written_gb(), shutil.disk_usage(work).free
-    if free < file_bytes + 8e9 or written_before + PHASE27_WRITE_GB + _reserved(27) > RUN_WRITE_TARGET_GB:
+    cut_bytes = sum(math.prod(shape) for shape in kandinsky5_checkpoint_shapes(
+        dataclasses.replace(full, num_visual_blocks=K5_CUT_BLOCKS)).values())
+    phase_gb = PHASE27_WRITE_GB + (file_bytes - cut_bytes) / 1e9  # the reservation is at the cut depth
+    if free < file_bytes + 8e9 or written_before + phase_gb + _reserved(27) > RUN_WRITE_TARGET_GB:
         raise RuntimeError(f"kandinsky5: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
-                           f"phase; it and the later phases write {PHASE27_WRITE_GB + _reserved(27):.1f} GB of the "
+                           f"phase; it and the later phases write {phase_gb + _reserved(27):.1f} GB of the "
                            f"{RUN_WRITE_TARGET_GB} GB a run may write")
 
     # (b) the seeded files: the transformer (two e4m3 shards), the 4-channel
@@ -5589,7 +5725,7 @@ def kandinsky5_phase(paths: dict, kernels, device: str) -> dict:
     phase("27 kandinsky5", config="ai-forever/Kandinsky-5.0-T2V-Lite-sft-5s / T2I-Lite transformer/ as the JAX preset "
           "Kandinsky5Config() builds it (4 latent channels)", params=params, hidden=arch.model_dim,
           heads=[arch.num_heads, arch.head_dim], blocks=[arch.num_text_blocks, arch.num_visual_blocks],
-          depth=[arch.num_visual_blocks, Kandinsky5Config().num_visual_blocks], ff_dim=arch.ff_dim,
+          depth=[arch.num_visual_blocks, full.num_visual_blocks], ff_dim=arch.ff_dim,
           qwen_layers=qwen["layers"], clip=[K5_FRAMES, K5_HEIGHT, K5_WIDTH], latents=list(K5_LATENT),
           tokens={"image": K5_IMAGE_TOKENS, "video": K5_TOKENS, "text": K5_TEXT}, files=files, text_encoder=text,
           imported=imported, image={"render": image_render, "parity": image_parity, "train": image_train},
@@ -5615,7 +5751,7 @@ def hunyuanvideo_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     shape; a true-CFG mp4 render at 480 px square and 17 frames; one forward
     with the kernels against the plain attention on a 5-frame clip with
     padded captions (the -1 pads in the refiner and the joint layers).
-    Last, the run's writes against its limit.  Returns the launches per
+    Returns the launches per
     step of each kernel at the HunyuanVideo shapes."""
     import gc
 
@@ -5781,16 +5917,510 @@ def hunyuanvideo_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     del runtime, module, model, batch
     gc.collect()
     torch.cuda.empty_cache()
-    writes = check_run_writes()
     phase("28 hunyuanvideo", config="tencent/HunyuanVideo-1.5 transformer/ (t2v-480p) as the JAX preset "
           "HunyuanVideo15Config() builds it", params=params, hidden=arch.hidden_size,
           heads=[arch.num_heads, arch.head_dim], blocks=[arch.refiner_depth, arch.depth], depth=[arch.depth, full.depth],
           clip=[HY_FRAMES, HY_HEIGHT, HY_WIDTH], latents=list(HY_LATENT),
           tokens={"video": HY_VIDEO, "qwen": HY_TEXT, "byt5": HY_TEXT2, "joint": HY_JOINT}, files=files,
           text_encoder=text, imported=imported, train=train, render=render, parity=parity,
-          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device, **writes)
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device)
     return {"hy_joint": {k: v.get(joint_key) for k, v in by_shape.items()},
             "hy_refiner": {k: v.get(refiner_key, 0) for k, v in by_shape.items()}}  # no backward: 0
+
+
+def qwen_image_step_flops(arch, batch: int, img_tokens: int, txt_tokens: int) -> int:
+    """Model FLOPs of one Qwen-Image (Z-Image, MageFlow) train step in
+    bench.py's convention (forward x 3; remat recompute is hardware work, not
+    model work), counted from the config: ``img_in`` and ``txt_in``, the time
+    MLP; per double-stream block both streams' modulation linears (per
+    sample), q / k / v / out and the MLP per token, and the joint
+    attention's two products over every token; the head."""
+    d, inner, mlp = arch.hidden_size, arch.num_heads * arch.head_dim, int(arch.hidden_size * arch.mlp_ratio)
+    joint = img_tokens + txt_tokens
+    fwd = 2 * img_tokens * arch.in_channels * d + 2 * txt_tokens * arch.txt_in_features * d + 2 * (256 * d + d * d)
+    fwd += arch.depth * (2 * 2 * d * 6 * d + joint * (8 * d * inner + 4 * d * mlp) + 4 * joint * joint * inner)
+    fwd += 2 * d * 2 * d + 2 * img_tokens * d * arch.in_channels
+    return batch * fwd * 3
+
+
+def hidream_step_flops(arch, batch: int, img_tokens: int, t5_tokens: int, llama_tokens: int) -> int:
+    """Model FLOPs of one HiDream-I1 train step in bench.py's convention
+    (forward x 3), counted from the config: the time and pooled MLPs, the
+    patch linear, the T5 and the per-block Llama caption projections (one
+    per block); per double block its adaLN, q / k / v / out over the image
+    and the text ([T5, llama[last], llama[block]]), the joint attention's two
+    products, the MoE over the image tokens and SwiGLU over the text; per
+    single block the same over the merged stream with the MoE over every
+    token; the MoE with its gate, all E experts (both packages compute them
+    densely), the routed sum and the shared expert; the head."""
+    d, h, hs, e = arch.hidden_size, arch.ffn_inner, arch.shared_ffn_inner, arch.num_experts
+    patch = arch.patch_size ** 2 * arch.in_channels
+    text = t5_tokens + 2 * llama_tokens  # the persistent [T5, llama[last]] and the block's llama segment
+    joint = img_tokens + text
+    n_blocks = arch.depth_double + arch.depth_single
+
+    def moe(tokens: int) -> int:
+        return tokens * (2 * d * e + e * 6 * d * h + 2 * e * d + 6 * d * hs)
+
+    fwd = 2 * (256 * d + d * d) + 2 * (arch.pooled_dim * d + d * d) + 2 * img_tokens * patch * d
+    fwd += 2 * t5_tokens * arch.t5_dim * d + n_blocks * 2 * llama_tokens * arch.llama_dim * d
+    fwd += arch.depth_double * (2 * d * 12 * d + joint * 8 * d * d + 4 * joint * joint * d + moe(img_tokens) +
+                                text * 6 * d * h)
+    fwd += arch.depth_single * (2 * d * 6 * d + joint * 8 * d * d + 4 * joint * joint * d + moe(joint))
+    fwd += 2 * d * 2 * d + 2 * img_tokens * d * patch
+    return batch * fwd * 3
+
+
+def _image_train_config(family: str, root, data: str, cache: str, out: str, steps: int, **extra) -> dict:
+    """``Trainer.run()``'s config for an image family on ``data`` at 1024 px
+    (from the model dir ``root``, or None with the paths in ``extra``):
+    rank-16 LoRA on an int8 base (``quantized_matmul: full``), every block
+    checkpointed, AdamW 1e-4, bf16, one square bucket, graphed."""
+    return {
+        "model_family": family, "model_type": "lora", "lora_rank": 16,
+        **({"pretrained_model_name_or_path": root} if root else {}),
+        "base_model_precision": "int8-quanto", "quantized_matmul": "full", "gradient_checkpointing": True,
+        "optimizer": "adamw", "learning_rate": 1e-4, "lr_scheduler": "constant", "mixed_precision": "bf16",
+        "text_encoder_precision": "bf16", "vae_dtype": "bf16", "train_batch_size": 1, "resolution": RESOLUTION,
+        "resolution_type": "pixel_area", "max_train_steps": steps, "logging_steps": 1, "report_to": "jsonl",
+        "seed": 42, "cache_dir": cache, "output_dir": out, "checkpoint_frozen_base": "reference", **extra,
+        "data_backend_config": [
+            {"id": "train", "dataset_type": "image", "type": "local", "instance_data_dir": data,
+             "resolution": RESOLUTION, "resolution_type": "pixel_area", "caption_strategy": "textfile",
+             "cache_dir_vae": os.path.join(cache, "vae")},
+            {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
+             "cache_dir": os.path.join(cache, "text")},
+        ],
+    }
+
+
+def _image_render(work: str, family: str, root: str, name: str, kernels, prompt: str, guidance: float,
+                  per_forward: int, shape_key: str) -> tuple:
+    """A 1024 px true-CFG flow Euler render through ``CheckpointInferenceRuntime``
+    (``_render_report``), every forward's ``per_forward`` flash launches at
+    ``shape_key``; returns the report and the runtime."""
+    import torch
+
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime
+
+    config_path = os.path.join(work, f"{name}_render.json")
+    with open(config_path, "w") as handle:
+        json.dump({"model_family": family, "model_type": "full", "pretrained_model_name_or_path": root,
+                   "mixed_precision": "bf16", "text_encoder_precision": "bf16", "vae_dtype": "bf16",
+                   "validation_resolution": RESOLUTION, "validation_seed": 42, "seed": 42,
+                   "validation_guidance": guidance}, handle)
+    t0 = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, f"{name}_render"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    timed = _timed_render(runtime, kernels, prompt, guidance)
+    report = _render_report(timed, per_forward, guidance, init_s)
+    if timed["launches_by_shape"]["flash_fwd"] != {shape_key: 2 * STEPS * per_forward}:
+        raise RuntimeError(f"{family} render: launches by shape {timed['launches_by_shape']}")
+    return report, runtime
+
+
+def _graph_matches_eager(trainer, keys) -> dict:
+    """One replay of the trainer's captured step and one eager step from the
+    same state and generator state (the state put back after each): the
+    metrics ``keys`` bitwise equal."""
+    import torch
+
+    from simpletuner_tpu_torch.training.train_state import state_tensors
+
+    graphed = next(iter(trainer._graphs.values()))
+    state, generator = trainer._state, trainer._generator
+    with torch.no_grad():
+        saved = [x.clone() for x in state_tensors(state)]
+    rng, step = generator.get_state(), state.step
+
+    def restore():
+        with torch.no_grad():
+            for x, value in zip(state_tensors(state), saved):
+                x.copy_(value)
+        generator.set_state(rng)
+        state.step = step
+
+    _, replayed = graphed(state, graphed.batch, generator)
+    restore()
+    _, eager = trainer._step_fn(state, graphed.batch, generator)
+    eager = {k: v.clone() for k, v in eager.items()}
+    restore()
+    equal = {k: bool(torch.equal(replayed[k], eager[k])) for k in keys}
+    if not all(equal.values()):
+        raise RuntimeError(f"{trainer.model.NAME}: the replayed step's {({k: float(replayed[k]) for k in keys})} "
+                           f"differ from the eager step's {({k: float(eager[k]) for k in keys})}")
+    return {"graph_equals_eager_bitwise": equal, **{f"{k}_replayed": float(replayed[k]) for k in keys}}
+
+
+def qwen_image_phase(paths: dict, kernels, device: str, depth: int) -> dict:
+    """Phase 29: Qwen-Image at the JAX preset's full width and ``depth`` of its
+    60 blocks: a seeded e4m3 diffusers transformer beside phase 27's
+    Qwen2.5-VL trunk (``qwen_trunk``, linked as ``text_encoder``), a
+    Qwen-convention tokenizer (``tokenizer/``) and phase 14's Flux VAE:
+    1024-token prompts through the Qwen2.5-VL encoder (prompts/s, bf16
+    against f32); the import held bitwise; a 1024 px true-CFG flow Euler
+    render; one forward with the kernels against the plain attention (the
+    1,024 text tokens unmasked, as the JAX family collates them); 6 graphed
+    LoRA steps through ``Trainer.run()`` on an int8 base with the profiled
+    replay held to the capture's launches by shape.  Then Z-Image at
+    ``ZI_CUT_BLOCKS`` of its 19 blocks built in memory, with a seeded
+    2560-wide qwen2-layout trunk at ``ZI_TRUNK_LAYERS`` layers: the parity
+    forward at 4,096 text tokens and 6 graphed LoRA steps on an int8 base.
+    MageFlow does not run: its published arch takes 32 latent channels, the
+    Flux VAE its trainer builds gives 16 (ROADMAP Queue 3).  Returns the
+    launches per step of each kernel at the two joint shapes."""
+    import gc
+
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import qwen_image_checkpoint_shapes
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoderConfig
+    from simpletuner_tpu_torch.models.mageflow import MageFlow, ZImage
+    from simpletuner_tpu_torch.models.qwen_image import QwenImage, QwenImageConfig, QwenImageTransformer
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.text_encoders import load_text_encoders
+    from simpletuner_tpu_torch.models.vae import VAEConfig
+    from simpletuner_tpu_torch.models.weight_import import qwen_image_params_from_diffusers
+
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    for out in ("hunyuanvideo", "hy_clips", "hy_cache", "hy_train", "hy_render"):  # phase 28's: disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = QwenImageConfig.tiny()
+    wider = dataclasses.replace(tiny, hidden_size=96, num_heads=3, depth=1, mlp_ratio=3.0, in_channels=8,
+                                txt_in_features=20, txt_rope=False)
+    flop_checks = _flop_checks(qwen_image_step_flops, QwenImageTransformer, [
+        (arch, (torch.zeros(2, hh * ww, arch.in_channels), (hh, ww), torch.zeros(2, txt, arch.txt_in_features),
+                torch.full((2,), 0.5)), (hh * ww, txt))
+        for arch, (hh, ww), txt in ((tiny, (3, 4), 7), (wider, (2, 5), 5))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    full = QwenImageConfig()
+    if (full.hidden_size, full.num_heads, full.head_dim, full.depth, full.in_channels, full.txt_in_features,
+            full.axes_dim, full.txt_rope) != (3072, 24, 128, 60, 64, 3584, (16, 56, 56), True):
+        raise RuntimeError(f"not the JAX preset of Qwen-Image: {full}")
+    arch = dataclasses.replace(full, depth=depth)
+    shapes = qwen_image_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 1.0 + _reserved(29) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"qwen_image: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
+                           f"phase; it and the later phases write {file_bytes / 1e9 + 1.0 + _reserved(29):.1f} GB of "
+                           f"the {RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded files: the transformer (two e4m3 shards), the Qwen trunk
+    # and phase 14's Flux VAE linked, a Qwen-convention tokenizer in tokenizer/
+    qi_dir = os.path.join(work, "qwen_image")
+    weights, write_s = _write_e4m3_transformer(qi_dir, shapes, gen)
+    qwen = qwen_trunk(paths, 29)
+    _link_tree(os.path.join(qwen["root"], "text_encoder"), os.path.join(qi_dir, "text_encoder"))
+    _link_tree(os.path.join(flux_dir, "vae"), os.path.join(qi_dir, "vae"))
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    words = " ".join(TRAIN_CAPTIONS + [QI_PROMPT] + prompts).split()
+    write_gemma_tokenizer(os.path.join(qi_dir, "tokenizer"), words)
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9,
+             "qwen": {"written_by_phase": qwen["written_by_phase"], "layers": qwen["layers"]},
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) 1024-token prompts through the Qwen2.5-VL encoder the trainer builds
+    text = _llm_text_report(QwenImage.TEXT_ENCODER_CONFIGURATION[0], qi_dir, qwen["config"], QI_TEXT, prompts)
+
+    # (d) the import, bitwise
+    model = ModelRegistry.create("qwen_image", config_namespace({"model_family": "qwen_image", "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"qwen_image: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, qi_dir, weights, qwen_image_params_from_diffusers, file_bytes)
+    params = imported["params"]
+    del weights, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the render and (f) the parity forward, the Qwen tokens unmasked
+    joint = QI_IMG + QI_TEXT
+    joint_key = f"24x{joint}x{joint}x128"
+    render, runtime = _image_render(work, "qwen_image", qi_dir, "qi", kernels, QI_PROMPT, QI_GUIDANCE, depth,
+                                    joint_key)
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "qwen_image" or not model.is_flow:
+        raise RuntimeError(f"qwen_image: the runtime built {model.NAME} {model.arch}")
+    latent = RESOLUTION // 8
+    batch = _text_batch(model, QI_PROMPT, (1, latent, latent, 16), dev)
+    if sorted(batch) != ["latents", "text_embeds"] or tuple(batch["text_embeds"].shape) != (1, QI_TEXT, 3584):
+        raise RuntimeError(f"qwen_image: the collated batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    model.text_encoders = []  # the plain attention's scores need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    noise = torch.randn((1, latent, latent, 16), generator=gen, device=dev)
+    parity = {**_parity_forward(model, module, batch, noise, QI_SIGMA), "tokens": joint}
+    del runtime, module, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) Trainer.run(): int8 base, every adapter-carrying linear (the JAX
+    # family's default), 6 graphed steps on four of phase 16's JPEGs
+    def check(trainer, expected_arch, txt) -> dict:
+        batch = trainer._example_batch()
+        conditioning = sorted(k for k in batch if "embeds" in k or "mask" in k)  # the mask is dropped
+        if trainer.model.arch != expected_arch or trainer.vae.config != VAEConfig.flux() or \
+                trainer.model.base_precision != "int8" or conditioning != ["text_embeds"] or \
+                batch["text_embeds"].shape[1] != txt or batch["latents"].shape != (1, latent, latent, 16):
+            raise RuntimeError(f"{trainer.model.NAME} trainer: arch {trainer.model.arch}, VAE {trainer.vae.config}, "
+                               f"base {trainer.model.base_precision}, batch "
+                               f"{({k: v.shape for k, v in batch.items()})}")
+        return {"vae": "VAEConfig.flux() (16 latent channels)", **_graph_matches_eager(trainer, ("loss", "grad_norm"))}
+
+    data = _square_jpegs(work, "qi_data", QI_TRAIN_IMAGES)
+    cache = os.path.join(work, "qi_cache")
+    config = _image_train_config("qwen_image", qi_dir, data, cache, os.path.join(work, "qi_train"), QI_TRAIN_STEPS)
+    expected = {"flash_fwd": 2 * depth, "flash_bwd_dq": depth, "flash_bwd_dkv": depth}
+    flops = qwen_image_step_flops(arch, 1, QI_IMG, QI_TEXT)
+    train = _train_graphed(config, kernels, QI_TRAIN_STEPS, expected, flops, lambda t: check(t, arch, QI_TEXT))
+    by_shape = train["launches_per_step_by_shape"]
+    if any(by_shape[k] != {joint_key: n} for k, n in expected.items()):
+        raise RuntimeError(f"qwen_image trainer: launches per step by shape {by_shape}")
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                  "flop_checks": flop_checks})
+    shutil.rmtree(os.path.join(work, "qi_cache"), ignore_errors=True)
+
+    # (h) Z-Image: a seeded 2560-wide qwen2-layout trunk (Qwen3-4B's sizes)
+    # at ZI_TRUNK_LAYERS layers with the tokenizer and the Flux VAE; the DiT
+    # at ZI_CUT_BLOCKS blocks built in memory (seeded from the trainer's seed)
+    zarch = QwenImageConfig(in_channels=64, depth=ZI_CUT_BLOCKS, txt_in_features=2560, txt_rope=False)
+    zmodel = ZImage(config_namespace({"model_family": "z_image", "model_type": "full"}))
+    if zmodel.arch != zarch or MageFlow.LATENT_CHANNEL_COUNT != 32 or ZImage.LATENT_CHANNEL_COUNT != 16:
+        raise RuntimeError(f"z_image: the family builds {zmodel.arch}, not {zarch}")
+    z_dir = os.path.join(work, "z_image")
+    trunk = LLMEncoderConfig(arch="qwen2", vocab_size=151936, hidden_size=2560, intermediate_size=9728,
+                             num_layers=ZI_TRUNK_LAYERS, num_heads=32, num_kv_heads=8, head_dim=128,
+                             rope_theta=1000000.0, rms_eps=1e-6, qkv_bias=True)
+    trunk_write_s = write_llm_trunk(os.path.join(z_dir, "text_encoder"), trunk, gen, {
+        "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3", "max_position_embeddings": 40960,
+        "hidden_act": "silu", "tie_word_embeddings": True})
+    write_gemma_tokenizer(os.path.join(z_dir, "tokenizer"), words)
+    _link_tree(os.path.join(flux_dir, "vae"), os.path.join(z_dir, "vae"))
+    z_joint = QI_IMG + ZI_TEXT
+    z_key = f"24x{z_joint}x{z_joint}x128"
+    zmodel.attach_text_encoders(load_text_encoders(ZImage.TEXT_ENCODER_CONFIGURATION, pretrained_path=z_dir,
+                                                   device=dev))
+    if zmodel.text_encoders[0].config != trunk:
+        raise RuntimeError(f"z_image: the qwen2.5 spec read {zmodel.text_encoders[0].config}, not {trunk}")
+    batch = _text_batch(zmodel, QI_PROMPT, (1, latent, latent, 16), dev)
+    if tuple(batch["text_embeds"].shape) != (1, ZI_TEXT, 2560):
+        raise RuntimeError(f"z_image: text_embeds {tuple(batch['text_embeds'].shape)}")
+    zmodel.text_encoders = []
+    with torch.device(dev):
+        zmodule = init_parameters(zmodel.create_module(), torch.Generator(device=dev).manual_seed(42))
+    z_parity = {**_parity_forward(zmodel, zmodule, batch, torch.randn((1, latent, latent, 16), generator=gen,
+                                                                        device=dev), QI_SIGMA), "tokens": z_joint}
+    del zmodule, zmodel, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache = os.path.join(work, "zi_cache")
+    config = _image_train_config("z_image", None, data, cache, os.path.join(work, "zi_train"), QI_TRAIN_STEPS,
+                                 allow_untrained_init=True, pretrained_text_encoder_model_name_or_path=z_dir,
+                                 pretrained_vae_model_name_or_path=os.path.join(z_dir, "vae"))
+    expected = {"flash_fwd": 2 * ZI_CUT_BLOCKS, "flash_bwd_dq": ZI_CUT_BLOCKS, "flash_bwd_dkv": ZI_CUT_BLOCKS}
+    z_flops = qwen_image_step_flops(zarch, 1, QI_IMG, ZI_TEXT)
+    z_train = _train_graphed(config, kernels, QI_TRAIN_STEPS, expected, z_flops,
+                             lambda t: check(t, zarch, ZI_TEXT))
+    z_by_shape = z_train["launches_per_step_by_shape"]
+    if any(z_by_shape[k] != {z_key: n} for k, n in expected.items()):
+        raise RuntimeError(f"z_image trainer: launches per step by shape {z_by_shape}")
+    z_train.update({"base": "int8 (built in memory)", "quantized_matmul": "full", "remat": "every block",
+                    "lora_rank": 16})
+    shutil.rmtree(cache, ignore_errors=True)
+    phase("29 qwen_image", config="Qwen/Qwen-Image transformer/ as the JAX preset QwenImageConfig() builds it",
+          params=params, hidden=arch.hidden_size, heads=[arch.num_heads, arch.head_dim], depth=[arch.depth, full.depth],
+          qwen_layers=qwen["layers"], tokens={"image": QI_IMG, "text": QI_TEXT, "joint": joint}, files=files,
+          text_encoder=text, imported=imported, render=render, parity=parity, train=train,
+          z_image={"config": "Tongyi-MAI/Z-Image-Turbo as the JAX family builds it (qwen_image DiT, txt_rope off)",
+                   "depth": [ZI_CUT_BLOCKS, 19], "params": sum(math.prod(v) for v in qwen_image_checkpoint_shapes(
+                       zarch).values()), "trunk": {"layers": [ZI_TRUNK_LAYERS, 36], "write_s": trunk_write_s,
+                                                   "hidden": trunk.hidden_size},
+                   "tokens": {"image": QI_IMG, "text": ZI_TEXT, "joint": z_joint}, "parity": z_parity,
+                   "train": z_train},
+          mageflow="not run: LATENT_CHANNEL_COUNT 32 against the 16-channel Flux VAE its trainer builds (Queue 3)",
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device)
+    return {"qi_joint": {k: v.get(joint_key) for k, v in by_shape.items()},
+            "zi_joint": {k: v.get(z_key) for k, v in z_by_shape.items()}}
+
+
+def hidream_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
+    """Phase 30: HiDream-I1 at the JAX preset's full width and ``depth``
+    (double, single) of its 16 + 32 blocks: a seeded e4m3 diffusers
+    transformer beside phase 14's CLIP-L (``text_encoder``), phase 19's CLIP-G
+    (``text_encoder_2``), phase 15's T5-XXL (``text_encoder_3``) and its T5
+    tokenizer (``tokenizer_2``, the subfolder the T5 spec reads), a seeded
+    Llama-3.1-8B trunk (``text_encoder_4``), phase 15's CLIP tokenizer in
+    ``tokenizer/`` (the CLIP and the Llama specs read it) and phase 14's Flux
+    VAE: 128-token prompts through the Llama encoder (prompts/s, bf16 against
+    f32); the import held bitwise; a 1024 px true-CFG render; one forward
+    with the kernels against the plain attention; 6 graphed LoRA steps
+    through ``Trainer.run()`` on an int8 base with the load-balancing loss on,
+    ``moe_gate_loss`` logged at every step and a replay's equal to the eager
+    step's bitwise, the profiled replay held to the capture's launches.  Last,
+    the run's writes against its limit.  Returns the launches per step of
+    each kernel at the joint shape."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import hidream_checkpoint_shapes
+    from simpletuner_tpu_torch.models.hidream import HiDream, HiDreamConfig, HiDreamTransformer
+    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoderConfig
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.vae import VAEConfig
+    from simpletuner_tpu_torch.models.weight_import import hidream_params_from_diffusers
+
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    for out in ("qwen_image", "qi_data", "qi_train", "qi_render", "z_image", "zi_train"):  # phase 29's: disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = HiDreamConfig.tiny()
+    wider = dataclasses.replace(tiny, num_heads=3, head_dim=16, depth_double=2, depth_single=1, num_experts=3,
+                                top_k=2, pooled_dim=20, t5_dim=24, llama_dim=28, in_channels=3, axes_dim=(8, 4, 4))
+    flop_checks = _flop_checks(hidream_step_flops, HiDreamTransformer, [
+        (arch, (torch.zeros(2, h, w, arch.in_channels), torch.full((2,), 0.5), torch.zeros(2, t5, arch.t5_dim),
+                torch.zeros(2, n_sel, ll, arch.llama_dim), torch.zeros(2, arch.pooled_dim)),
+         ((h // 2) * (w // 2), t5, ll)) for arch, (h, w), t5, ll, n_sel in ((tiny, (8, 6), 5, 4, 1),
+                                                                           (wider, (4, 8), 3, 6, 2))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(30)
+    full = HiDreamConfig()
+    if (full.hidden_size, full.num_heads, full.head_dim, full.depth_double, full.depth_single, full.num_experts,
+            full.top_k, full.ffn_inner, full.shared_ffn_inner, full.t5_dim, full.llama_dim, full.pooled_dim) != \
+            (2560, 20, 128, 16, 32, 4, 2, 6912, 3584, 4096, 4096, 2048):
+        raise RuntimeError(f"not the JAX preset of HiDream-I1: {full}")
+    arch = dataclasses.replace(full, depth_double=depth[0], depth_single=depth[1])
+    shapes = hidream_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 1.2 > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"hidream: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
+                           f"it writes {file_bytes / 1e9 + 1.2:.1f} GB of the {RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded files and the links
+    hd_dir = os.path.join(work, "hidream")
+    weights, write_s = _write_e4m3_transformer(hd_dir, shapes, gen)
+    llama = dataclasses.replace(LLMEncoderConfig.llama3_8b(), num_layers=LLAMA_FILE_LAYERS)
+    llama_write_s = write_llm_trunk(os.path.join(hd_dir, "text_encoder_4"), llama, gen, {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama", "max_position_embeddings": 131072,
+        "hidden_act": "silu", "tie_word_embeddings": False,
+        "rope_scaling": {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                         "original_max_position_embeddings": 8192}})
+    for source, target in ((os.path.join(flux_dir, "text_encoder"), "text_encoder"),
+                           (os.path.join(work, "sd3", "text_encoder_2"), "text_encoder_2"),
+                           (os.path.join(flux_dir, "text_encoder_2"), "text_encoder_3"),
+                           (os.path.join(flux_dir, "tokenizer_2"), "tokenizer_2"),
+                           (os.path.join(flux_dir, "vae"), "vae")):
+        _link_tree(source, os.path.join(hd_dir, target))
+    os.makedirs(os.path.join(hd_dir, "tokenizer"))
+    for name in os.listdir(os.path.join(flux_dir, "tokenizer")):
+        shutil.copy(os.path.join(flux_dir, "tokenizer", name), os.path.join(hd_dir, "tokenizer", name))
+    tok_config = os.path.join(hd_dir, "tokenizer", "tokenizer_config.json")
+    with open(tok_config) as handle:
+        values = json.load(handle)
+    with open(tok_config, "w") as handle:  # its class named, so that AutoTokenizer (the Llama builder) reads it
+        json.dump({**values, "tokenizer_class": "CLIPTokenizer"}, handle)
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "llama_layers": [LLAMA_FILE_LAYERS, 32],
+             "llama_write_s": llama_write_s, "written_gb_before": written_before, "written_gb_after": _written_gb(),
+             "free_gb_before": free / 1e9}
+
+    # (c) 128-token prompts through the Llama encoder (the CLIP tokenizer of
+    # tokenizer/, one token a character: short captions)
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]} #{i}" for i in range(TEXT_PROMPTS)]
+    text = _llm_text_report(HiDream.TEXT_ENCODER_CONFIGURATION[3], hd_dir, llama, HD_TEXT, prompts)
+
+    # (d) the import, bitwise
+    model = ModelRegistry.create("hidream", config_namespace({"model_family": "hidream", "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"hidream: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, hd_dir, weights, hidream_params_from_diffusers, file_bytes)
+    params = imported["params"]
+    del weights, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the render and (f) the parity forward
+    joint_key = f"20x{HD_JOINT}x{HD_JOINT}x128"
+    per_forward = depth[0] + depth[1]
+    render, runtime = _image_render(work, "hidream", hd_dir, "hd", kernels, HD_PROMPT, HD_GUIDANCE, per_forward,
+                                    joint_key)
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "hidream" or not model.is_flow:
+        raise RuntimeError(f"hidream: the runtime built {model.NAME} {model.arch}")
+    latent = RESOLUTION // 8
+    batch = _text_batch(model, HD_PROMPT, (1, latent, latent, 16), dev)
+    collated = {k: tuple(v.shape) for k, v in batch.items()}
+    if collated != {"latents": (1, latent, latent, 16), "t5_embeds": (1, HD_TEXT, 4096),
+                    "llama_embeds": (1, 1, HD_TEXT, 4096), "pooled_embeds": (1, 2048)}:
+        raise RuntimeError(f"hidream: the collated batch {collated}")
+    model.text_encoders = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    noise = torch.randn((1, latent, latent, 16), generator=gen, device=dev)
+    parity = {**_parity_forward(model, module, batch, noise, HD_SIGMA), "tokens": HD_JOINT}
+    del runtime, module, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) Trainer.run(): int8 base, every adapter-carrying linear, the
+    # load-balancing loss on; moe_gate_loss logged and graphed = eager
+    def check(trainer) -> dict:
+        with open(os.path.join(config["output_dir"], "simpletuner-tpu-metrics.jsonl")) as handle:
+            gate = [json.loads(line).get("moe_gate_loss") for line in handle]
+        batch = trainer._example_batch()
+        if trainer.model.arch != arch or trainer.vae.config != VAEConfig.flux() or \
+                trainer.model.base_precision != "int8" or trainer.model.moe_aux_weight != 0.01 or \
+                not all(g is not None and np.isfinite(g) and g > 0 for g in gate) or \
+                {k: v.shape for k, v in batch.items() if "embeds" in k or "mask" in k} != {
+                    "t5_embeds": (1, HD_TEXT, 4096), "llama_embeds": (1, 1, HD_TEXT, 4096),
+                    "pooled_embeds": (1, 2048)}:
+            raise RuntimeError(f"hidream trainer: arch {trainer.model.arch}, VAE {trainer.vae.config}, base "
+                               f"{trainer.model.base_precision}, moe_gate_loss {gate}, batch "
+                               f"{({k: v.shape for k, v in batch.items()})}")
+        return {"moe_gate_loss": gate, "moe_aux_weight": trainer.model.moe_aux_weight,
+                **_graph_matches_eager(trainer, ("loss", "grad_norm", "moe_gate_loss"))}
+
+    data = _square_jpegs(work, "hd_data", HD_TRAIN_IMAGES)
+    cache = os.path.join(work, "hd_cache")
+    config = _image_train_config("hidream", hd_dir, data, cache, os.path.join(work, "hd_train"), HD_TRAIN_STEPS,
+                                 hidream_use_load_balancing_loss=True)
+    expected = {"flash_fwd": 2 * per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
+    flops = hidream_step_flops(arch, 1, QI_IMG, HD_TEXT, HD_TEXT)
+    train = _train_graphed(config, kernels, HD_TRAIN_STEPS, expected, flops, check)
+    by_shape = train["launches_per_step_by_shape"]
+    if any(by_shape[k] != {joint_key: n} for k, n in expected.items()):
+        raise RuntimeError(f"hidream trainer: launches per step by shape {by_shape}")
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                  "flop_checks": flop_checks})
+    writes = check_run_writes()
+    phase("30 hidream", config="HiDream-ai/HiDream-I1-Full transformer/ as the JAX preset HiDreamConfig() builds it",
+          params=params, hidden=arch.hidden_size, heads=[arch.num_heads, arch.head_dim],
+          experts=[arch.num_experts, arch.top_k], depth=[[arch.depth_double, arch.depth_single],
+                                                        [full.depth_double, full.depth_single]],
+          tokens={"image": QI_IMG, "t5": HD_TEXT, "llama": HD_TEXT, "joint": HD_JOINT}, files=files,
+          text_encoder=text, imported=imported, render=render, parity=parity, train=train,
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device, **writes)
+    return {"hd_joint": {k: v.get(joint_key) for k, v in by_shape.items()}}
 
 
 def int8_cases() -> None:
@@ -6513,7 +7143,7 @@ def main() -> int:
 
     fwd_entry, fwd256_entry, long_fwd_entries = kernel_cases()
     launches = {"main": None, "auraflow": {}, "wan": {}, "ltx": {}, "chroma": None, "lumina2": {}, "kandinsky5": {},
-                "hunyuanvideo": {}}
+                "hunyuanvideo": {}, "qwen_image": {}, "hidream": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         checkpoints = weight_import(work) if _runs(14) else {"work": work}
         encoders = text_encoders(checkpoints) if _runs(15) else None
@@ -6544,12 +7174,17 @@ def main() -> int:
                 server_phase(phase17, smi)
         from simpletuner_tpu_torch.models.auraflow import AuraFlow, AuraFlowConfig
         from simpletuner_tpu_torch.models.checkpoint_layouts import (
-            auraflow_checkpoint_shapes, chroma_checkpoint_shapes, hunyuanvideo_checkpoint_shapes, ltx_checkpoint_shapes,
-            sd3_checkpoint_shapes, wan_checkpoint_shapes,
+            auraflow_checkpoint_shapes, chroma_checkpoint_shapes, hidream_checkpoint_shapes,
+            hunyuanvideo_checkpoint_shapes, kandinsky5_checkpoint_shapes, ltx_checkpoint_shapes,
+            qwen_image_checkpoint_shapes, sd3_checkpoint_shapes, wan_checkpoint_shapes,
         )
         from simpletuner_tpu_torch.models.chroma import Chroma, ChromaConfig
+        from simpletuner_tpu_torch.models.hidream import HiDream, HiDreamConfig
         from simpletuner_tpu_torch.models.hunyuanvideo import HunyuanVideo, HunyuanVideo15Config
+        from simpletuner_tpu_torch.models.kandinsky5 import Kandinsky5Config, Kandinsky5Video
         from simpletuner_tpu_torch.models.ltxvideo import LTXConfig, LTXVideo
+        from simpletuner_tpu_torch.models.mageflow import ZImage
+        from simpletuner_tpu_torch.models.qwen_image import QwenImage, QwenImageConfig
         from simpletuner_tpu_torch.models.sd3 import SD3, SD3Config
         from simpletuner_tpu_torch.models.wan import Wan, WanConfig
 
@@ -6596,13 +7231,31 @@ def main() -> int:
         if _runs(26):
             launches["lumina2"] = lumina2_phase(checkpoints, kernels, smi)
         if _runs(27):
-            launches["kandinsky5"] = kandinsky5_phase(checkpoints, kernels, smi)
+            full = Kandinsky5Config()
+            cut = dataclasses.replace(full, num_visual_blocks=K5_CUT_BLOCKS)
+            depth = full.num_visual_blocks if _full_depth(27, extra_gb(kandinsky5_checkpoint_shapes, full, cut)) \
+                else K5_CUT_BLOCKS
+            with family_depth(Kandinsky5Video, num_visual_blocks=depth):  # the image flavour's class inherits it
+                launches["kandinsky5"] = kandinsky5_phase(checkpoints, kernels, smi, depth)
         if _runs(28):
             full = HunyuanVideo15Config()
             depth = full.depth if _full_depth(28, extra_gb(hunyuanvideo_checkpoint_shapes, full, dataclasses.replace(
                 full, depth=HY_CUT_BLOCKS))) else HY_CUT_BLOCKS
             with family_depth(HunyuanVideo, depth=depth):
                 launches["hunyuanvideo"] = hunyuanvideo_phase(checkpoints, kernels, smi, depth)
+        if _runs(29):
+            full = QwenImageConfig()
+            depth = full.depth if _full_depth(29, extra_gb(qwen_image_checkpoint_shapes, full, dataclasses.replace(
+                full, depth=QI_CUT_BLOCKS))) else QI_CUT_BLOCKS
+            with family_depth(QwenImage, depth=depth), family_depth(ZImage, depth=ZI_CUT_BLOCKS):
+                launches["qwen_image"] = qwen_image_phase(checkpoints, kernels, smi, depth)
+        if _runs(30):
+            full = HiDreamConfig()
+            cut = dataclasses.replace(full, depth_double=HD_CUT_BLOCKS[0], depth_single=HD_CUT_BLOCKS[1])
+            depth = (full.depth_double, full.depth_single) if _full_depth(
+                30, extra_gb(hidream_checkpoint_shapes, full, cut)) else HD_CUT_BLOCKS
+            with family_depth(HiDream, depth_double=depth[0], depth_single=depth[1]):
+                launches["hidream"] = hidream_phase(checkpoints, kernels, smi, depth)
         else:
             check_run_writes()
 
@@ -6610,9 +7263,9 @@ def main() -> int:
     # phase 12's profiled replay), its head dim 256 instances (phase 22's
     # replay, AuraFlow's attention, all at head dim 256), Chroma's (the Flux
     # shape's times; phase 25's replay) and each kernel at Wan's, LTX's,
-    # Lumina2's, Kandinsky 5.0's and HunyuanVideo's shapes (the wrappers' count
-    # at that shape per step in phase 23's, 24's, 26's, 27's and 28's runs: the
-    # trainers', the 14B and 13B steps'); in a run of some phases only, the
+    # Lumina2's, Kandinsky 5.0's, HunyuanVideo's, Qwen-Image's, Z-Image's and
+    # HiDream's shapes (the wrappers' count at that shape per step in phase
+    # 23's, 24's and 26's-30's runs: the trainers', the 14B and 13B steps'); in a run of some phases only, the
     # rows of the phases it ran
     sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
                "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}
@@ -6624,7 +7277,8 @@ def main() -> int:
     if launches["chroma"]:
         rows += [(f"{name}_chroma", name, name, launches["chroma"]) for name in sources]
     for family, cases in (("wan", WAN_KERNEL_CASES), ("ltx", LTX_KERNEL_CASES), ("lumina2", LUMINA_KERNEL_CASES),
-                          ("kandinsky5", K5_KERNEL_CASES), ("hunyuanvideo", HY_KERNEL_CASES)):
+                          ("kandinsky5", K5_KERNEL_CASES), ("hunyuanvideo", HY_KERNEL_CASES),
+                          ("qwen_image", QI_KERNEL_CASES), ("hidream", HD_KERNEL_CASES)):
         if launches[family]:
             rows += [(f"{name}_{case[0]}", f"{name}_{case[0]}", name, launches[family][case[0]])
                      for case in cases for name in sources]

@@ -619,6 +619,100 @@ def hunyuanvideo_checkpoint_shapes(arch) -> Dict[str, tuple]:
     return shapes
 
 
+def qwen_image_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers
+    ``QwenImageTransformer2DModel`` of ``arch``
+    (``models/qwen_image/transformer.py::QwenImageConfig``; MageFlow and
+    Z-Image share the layout) as ``qwen_image_params_from_diffusers`` reads it."""
+    dim, hd = arch.hidden_size, arch.head_dim
+    inner, mlp = arch.num_heads * hd, int(dim * arch.mlp_ratio)
+    shapes: Dict[str, tuple] = {}
+
+    def linear(name, out_features, in_features):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        shapes[f"{name}.bias"] = (out_features,)
+
+    linear("img_in", dim, arch.in_channels)
+    shapes["txt_norm.weight"] = (arch.txt_in_features,)
+    linear("txt_in", dim, arch.txt_in_features)
+    linear("time_text_embed.timestep_embedder.linear_1", dim, 256)
+    linear("time_text_embed.timestep_embedder.linear_2", dim, dim)
+    linear("norm_out.linear", 2 * dim, dim)
+    linear("proj_out", arch.in_channels, dim)
+    for i in range(arch.depth):
+        src = f"transformer_blocks.{i}"
+        linear(f"{src}.img_mod.1", 6 * dim, dim)
+        linear(f"{src}.txt_mod.1", 6 * dim, dim)
+        for proj in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj"):
+            linear(f"{src}.attn.{proj}", inner, dim)
+        linear(f"{src}.attn.to_out.0", dim, inner)
+        linear(f"{src}.attn.to_add_out", dim, inner)
+        for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            shapes[f"{src}.attn.{name}.weight"] = (hd,)
+        for mlp_name in ("img_mlp", "txt_mlp"):
+            linear(f"{src}.{mlp_name}.net.0.proj", mlp, dim)
+            linear(f"{src}.{mlp_name}.net.2", dim, mlp)
+    return shapes
+
+
+def hidream_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers
+    ``HiDreamImageTransformer2DModel`` of ``arch``
+    (``models/hidream/transformer.py::HiDreamConfig``) as
+    ``hidream_params_from_diffusers`` reads it: biased projections and
+    embedders, bias-free caption projections and SwiGLU weights, per-expert
+    ``experts.{e}.w1..w3`` and the bias-free ``gate``."""
+    dim, p, e = arch.hidden_size, arch.patch_size, arch.num_experts
+    n_blocks = arch.depth_double + arch.depth_single
+    shapes: Dict[str, tuple] = {}
+
+    def linear(name, out_features, in_features, bias=True):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        if bias:
+            shapes[f"{name}.bias"] = (out_features,)
+
+    def ffn(src, inner):
+        linear(f"{src}.w1", inner, dim, bias=False)
+        linear(f"{src}.w2", dim, inner, bias=False)
+        linear(f"{src}.w3", inner, dim, bias=False)
+
+    def attention(src, suffixes):
+        for suffix in suffixes:
+            for proj in ("to_q", "to_k", "to_v", "to_out"):
+                linear(f"{src}.{proj}{suffix}", dim, dim)
+            shapes[f"{src}.q_rms_norm{suffix}.weight"] = (dim,)
+            shapes[f"{src}.k_rms_norm{suffix}.weight"] = (dim,)
+
+    def moe(src):
+        shapes[f"{src}.gate.weight"] = (e, dim)
+        for j in range(e):
+            ffn(f"{src}.experts.{j}", arch.ffn_inner)
+        ffn(f"{src}.shared_experts", arch.shared_ffn_inner)
+
+    linear("x_embedder.proj", dim, p * p * arch.in_channels)
+    linear("t_embedder.timestep_embedder.linear_1", dim, 256)
+    linear("t_embedder.timestep_embedder.linear_2", dim, dim)
+    linear("p_embedder.pooled_embedder.linear_1", dim, arch.pooled_dim)
+    linear("p_embedder.pooled_embedder.linear_2", dim, dim)
+    for i in range(n_blocks):
+        linear(f"caption_projection.{i}.linear", dim, arch.llama_dim, bias=False)
+    linear(f"caption_projection.{n_blocks}.linear", dim, arch.t5_dim, bias=False)
+    linear("final_layer.adaLN_modulation.1", 2 * dim, dim)
+    linear("final_layer.linear", p * p * arch.in_channels, dim)
+    for i in range(arch.depth_double):
+        src = f"double_stream_blocks.{i}.block"
+        linear(f"{src}.adaLN_modulation.1", 12 * dim, dim)
+        attention(f"{src}.attn1", ("", "_t"))
+        moe(f"{src}.ff_i")
+        ffn(f"{src}.ff_t", arch.ffn_inner)
+    for i in range(arch.depth_single):
+        src = f"single_stream_blocks.{i}.block"
+        linear(f"{src}.adaLN_modulation.1", 6 * dim, dim)
+        attention(f"{src}.attn1", ("",))
+        moe(f"{src}.ff_i")
+    return shapes
+
+
 def llm_checkpoint_shapes(cfg) -> Dict[str, tuple]:
     """Tensor names and torch shapes of an HF causal LM of ``cfg``
     (``models/llm_encoder.py::LLMEncoderConfig``) as ``llm_params_from_hf``

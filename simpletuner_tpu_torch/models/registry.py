@@ -6,7 +6,7 @@ registry's family table and aliases, and ``get_model_family``, which builds
 the family a config names.  Every family of the JAX registry is listed with
 its metadata; ``flux``, ``sd3``, ``sdxl``, ``sd1x``, ``sd2x``,
 ``pixart_sigma``, ``auraflow``, ``wan``, ``ltxvideo``, ``chroma``, ``lumina2``, ``kandinsky5_image``,
-``kandinsky5_video`` and ``hunyuanvideo`` are ported (with the JAX aliases ``sd15``, ``sd21``, ``pixart`` and
+``kandinsky5_video``, ``hunyuanvideo``, ``qwen_image``, ``mageflow``, ``z_image`` and ``hidream`` are ported (with the JAX aliases ``sd15``, ``sd21``, ``pixart`` and
 ``kandinsky5-image``), so ``get`` of any other family raises naming ROADMAP Queue 1
 item 6, and an unknown name raises ``KeyError`` as in the JAX registry.
 """
@@ -63,7 +63,7 @@ ALIASES = {"sd15": "sd1x", "sd21": "sd2x", "pixart": "pixart_sigma", "ltx2": "lt
            "kandinsky5-image": "kandinsky5_image"}
 # the families the port builds
 PORTED = ("flux", "sd3", "sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "chroma", "lumina2",
-          "kandinsky5_image", "kandinsky5_video", "hunyuanvideo")
+          "kandinsky5_image", "kandinsky5_video", "hunyuanvideo", "qwen_image", "mageflow", "z_image", "hidream")
 
 
 class ModelRegistry:
@@ -130,6 +130,18 @@ class ModelRegistry:
             from .hunyuanvideo import HunyuanVideo
 
             return HunyuanVideo
+        if family == "qwen_image":
+            from .qwen_image import QwenImage
+
+            return QwenImage
+        if family in ("mageflow", "z_image"):
+            from .mageflow import MageFlow, ZImage
+
+            return MageFlow if family == "mageflow" else ZImage
+        if family == "hidream":
+            from .hidream import HiDream
+
+            return HiDream
         raise NotImplementedError(f"model_family={name!r} is not ported (only {', '.join(PORTED)}; "
                                   "ROADMAP Queue 1 item 6)")
 

@@ -1122,6 +1122,116 @@ def load_hunyuanvideo_params(model, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# Qwen-Image (QwenImageTransformer2DModel; MageFlow and Z-Image share the layout)
+# ---------------------------------------------------------------------------------
+
+
+def qwen_image_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a diffusers Qwen-Image transformer of ``arch``
+    (``QwenImageConfig``); ``norm_out`` emits (scale, shift) as the port's
+    head does, so nothing is swapped."""
+    w = weights
+    params: Dict[str, Any] = {
+        "img_in": _linear(w, "img_in"),
+        "txt_in": _linear(w, "txt_in"),
+        "txt_norm": _scale(w, "txt_norm.weight"),
+        "time_in": {"in_layer": _linear(w, "time_text_embed.timestep_embedder.linear_1"),
+                    "out_layer": _linear(w, "time_text_embed.timestep_embedder.linear_2")},
+        "final_mod": _linear(w, "norm_out.linear"),
+        "final_proj": _linear(w, "proj_out"),
+    }
+    table = (("img_mod", "img_mod.1"), ("txt_mod", "txt_mod.1"),
+             ("img_attn_q", "attn.to_q"), ("img_attn_k", "attn.to_k"), ("img_attn_v", "attn.to_v"),
+             ("txt_attn_q", "attn.add_q_proj"), ("txt_attn_k", "attn.add_k_proj"), ("txt_attn_v", "attn.add_v_proj"),
+             ("img_attn_proj", "attn.to_out.0"), ("txt_attn_proj", "attn.to_add_out"),
+             ("img_mlp_in", "img_mlp.net.0.proj"), ("img_mlp_out", "img_mlp.net.2"),
+             ("txt_mlp_in", "txt_mlp.net.0.proj"), ("txt_mlp_out", "txt_mlp.net.2"))
+    norms = (("img_attn_norm_q", "attn.norm_q"), ("img_attn_norm_k", "attn.norm_k"),
+             ("txt_attn_norm_q", "attn.norm_added_q"), ("txt_attn_norm_k", "attn.norm_added_k"))
+    for i in range(arch.depth):
+        src = f"transformer_blocks.{i}"
+        block = {ours: _linear(w, f"{src}.{theirs}") for ours, theirs in table}
+        block.update({ours: _scale(w, f"{src}.{theirs}.weight") for ours, theirs in norms})
+        params[f"block_{i}"] = block
+    return params
+
+
+def load_qwen_image_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a diffusers Qwen-Image (MageFlow,
+    Z-Image) transformer (a model dir with a ``transformer/`` subfolder, or one file)."""
+    params = qwen_image_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported %s weights from %s", model.NAME, path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
+# HiDream-I1 (HiDreamImageTransformer2DModel: double / single stream blocks, MoE)
+# ---------------------------------------------------------------------------------
+
+
+def _hidream_ffn(w: Mapping[str, torch.Tensor], src: str) -> Dict[str, Any]:
+    return {name: _linear(w, f"{src}.{name}") for name in ("w1", "w2", "w3")}
+
+
+def _hidream_moe(w: Mapping[str, torch.Tensor], src: str, num_experts: int) -> Dict[str, Any]:
+    """The gate (E, dim) and the per-expert torch (out, in) weights stacked into (E, in, out)."""
+    stack = lambda name: torch.stack([_float(w[f"{src}.experts.{e}.{name}.weight"]).t()  # noqa: E731
+                                      for e in range(num_experts)])
+    return {"gate": _float(w[f"{src}.gate.weight"]), "experts_w1": stack("w1"), "experts_w2": stack("w2"),
+            "experts_w3": stack("w3"), "shared_experts": _hidream_ffn(w, f"{src}.shared_experts")}
+
+
+def _hidream_attn(w: Mapping[str, torch.Tensor], src: str, text_branch: bool) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for suffix in ("", "_t") if text_branch else ("",):
+        out.update({f"attn_{n}{suffix}": _linear(w, f"{src}.to_{n}{suffix}") for n in ("q", "k", "v")})
+        out[f"attn_proj{suffix}"] = _linear(w, f"{src}.to_out{suffix}")
+        out[f"q_rms{suffix}"] = _float(w[f"{src}.q_rms_norm{suffix}.weight"])
+        out[f"k_rms{suffix}"] = _float(w[f"{src}.k_rms_norm{suffix}.weight"])
+    return out
+
+
+def hidream_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a diffusers HiDream-I1 transformer of ``arch``
+    (``HiDreamConfig``): the T5 caption projection is the last of the
+    ``caption_projection`` list, after one per block."""
+    w = weights
+    n_blocks = arch.depth_double + arch.depth_single
+    params: Dict[str, Any] = {
+        "patch_in": _linear(w, "x_embedder.proj"),
+        "time_in": {"in_layer": _linear(w, "t_embedder.timestep_embedder.linear_1"),
+                    "out_layer": _linear(w, "t_embedder.timestep_embedder.linear_2")},
+        "pooled_in": {"in_layer": _linear(w, "p_embedder.pooled_embedder.linear_1"),
+                      "out_layer": _linear(w, "p_embedder.pooled_embedder.linear_2")},
+        "caption_proj_t5": _linear(w, f"caption_projection.{n_blocks}.linear"),
+        "final_mod": _linear(w, "final_layer.adaLN_modulation.1"),
+        "final_proj": _linear(w, "final_layer.linear"),
+    }
+    for i in range(n_blocks):
+        params[f"caption_proj_{i}"] = _linear(w, f"caption_projection.{i}.linear")
+    for i in range(arch.depth_double):
+        src = f"double_stream_blocks.{i}.block"
+        params[f"double_{i}"] = {"ada": _linear(w, f"{src}.adaLN_modulation.1"),
+                                 **_hidream_attn(w, f"{src}.attn1", text_branch=True),
+                                 "ff_i": _hidream_moe(w, f"{src}.ff_i", arch.num_experts),
+                                 "ff_t": _hidream_ffn(w, f"{src}.ff_t")}
+    for i in range(arch.depth_single):
+        src = f"single_stream_blocks.{i}.block"
+        params[f"single_{i}"] = {"ada": _linear(w, f"{src}.adaLN_modulation.1"),
+                                 **_hidream_attn(w, f"{src}.attn1", text_branch=False),
+                                 "ff_i": _hidream_moe(w, f"{src}.ff_i", arch.num_experts)}
+    return params
+
+
+def load_hidream_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a diffusers HiDream-I1 transformer
+    (a model dir with a ``transformer/`` subfolder, or one file)."""
+    params = hidream_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported hidream weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
@@ -1129,7 +1239,10 @@ _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_une
               "sd2x": load_unet_params, "pixart_sigma": load_pixart_params, "auraflow": load_auraflow_params,
               "wan": load_wan_params, "ltxvideo": load_ltx_params, "chroma": load_chroma_params,
               "lumina2": load_lumina2_params, "kandinsky5_video": load_kandinsky5_params,
-              "kandinsky5_image": load_kandinsky5_params, "hunyuanvideo": load_hunyuanvideo_params}
+              "kandinsky5_image": load_kandinsky5_params, "hunyuanvideo": load_hunyuanvideo_params,
+              # MageFlow and Z-Image use the Qwen-Image block layout verbatim
+              "qwen_image": load_qwen_image_params, "mageflow": load_qwen_image_params,
+              "z_image": load_qwen_image_params, "hidream": load_hidream_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:

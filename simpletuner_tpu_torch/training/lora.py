@@ -241,6 +241,39 @@ def hunyuanvideo_key_map(arch) -> Dict[str, Any]:
             for layer in range(arch.depth) for ours, theirs in table.items()}
 
 
+def qwen_image_key_map(arch) -> Dict[str, Any]:
+    """diffusers ``QwenImageTransformer2DModel`` paths of the double-stream
+    blocks (MageFlow and Z-Image share them; ``img_in`` / ``txt_in`` keep
+    their own names)."""
+    table = {
+        "img_attn_q": "attn.to_q", "img_attn_k": "attn.to_k", "img_attn_v": "attn.to_v",
+        "txt_attn_q": "attn.add_q_proj", "txt_attn_k": "attn.add_k_proj", "txt_attn_v": "attn.add_v_proj",
+        "img_attn_proj": "attn.to_out.0", "txt_attn_proj": "attn.to_add_out",
+        "img_mlp_in": "img_mlp.net.0.proj", "img_mlp_out": "img_mlp.net.2",
+        "txt_mlp_in": "txt_mlp.net.0.proj", "txt_mlp_out": "txt_mlp.net.2",
+    }
+    return {f"block_{layer}/{ours}": f"transformer_blocks.{layer}.{theirs}"
+            for layer in range(arch.depth) for ours, theirs in table.items()}
+
+
+def hidream_key_map(arch) -> Dict[str, Any]:
+    """diffusers ``HiDreamImageTransformer2DModel`` paths: the blocks under
+    ``.block``, a plain-Linear ``to_out``; the caption projections and
+    ``final_proj`` keep their own names, as in the JAX map."""
+    mapping: Dict[str, Any] = {"patch_in": "x_embedder.proj"}
+    attn = {"attn_q": "attn1.to_q", "attn_k": "attn1.to_k", "attn_v": "attn1.to_v", "attn_proj": "attn1.to_out"}
+    attn_t = {f"{ours}_t": f"{theirs}_t" for ours, theirs in attn.items()}
+    shared = {f"ff_i/shared_experts/w{j}": f"ff_i.shared_experts.w{j}" for j in (1, 2, 3)}
+    ff_t = {f"ff_t/w{j}": f"ff_t.w{j}" for j in (1, 2, 3)}
+    for i in range(arch.depth_double):
+        for ours, theirs in {**attn, **attn_t, **shared, **ff_t}.items():
+            mapping[f"double_{i}/{ours}"] = f"double_stream_blocks.{i}.block.{theirs}"
+    for i in range(arch.depth_single):
+        for ours, theirs in {**attn, **shared}.items():
+            mapping[f"single_{i}/{ours}"] = f"single_stream_blocks.{i}.block.{theirs}"
+    return mapping
+
+
 # family name -> key map builder, for the families the port has
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
@@ -257,6 +290,10 @@ _KEY_MAPS = {
     "kandinsky5_video": lambda m: kandinsky5_key_map(m.arch),
     "kandinsky5_image": lambda m: kandinsky5_key_map(m.arch),
     "hunyuanvideo": lambda m: hunyuanvideo_key_map(m.arch),
+    "qwen_image": lambda m: qwen_image_key_map(m.arch),
+    "mageflow": lambda m: qwen_image_key_map(m.arch),
+    "z_image": lambda m: qwen_image_key_map(m.arch),
+    "hidream": lambda m: hidream_key_map(m.arch),
 }
 
 

@@ -185,7 +185,10 @@ class TrainStep:
 
     With ``grad_accum_steps`` > 1, batch tensors carry a leading micro-batch
     axis (A, B, ...); gradients are averaged over the A micro-steps.  Metrics
-    are 0-dim tensors on the module's device, so a step makes no host sync.
+    are 0-dim tensors on the module's device, so a step makes no host sync:
+    the loss, the grad norm, ``skipped_nonfinite``, every 0-d value of the
+    model's ``loss_fn`` aux dict (averaged over the micro-steps, the max for
+    ``qk_clip/`` keys, as the JAX step does) and the learning rate.
     The learning rates are written into the state's buffers here before the
     step, except while a CUDA graph captures it (:func:`jit_train_step`
     writes them before each replay)."""
@@ -205,13 +208,17 @@ class TrainStep:
             state.scalars.metric_lr.fill_(self.lr_schedule(state.step))
 
     def _value_and_grad(self, state: TrainState, micro_batch, generator):
+        """The loss, the gradients and the 0-d values of ``loss_fn``'s aux
+        dict (detached), for one micro-batch."""
         micro_batch = {**micro_batch, "global_step": state.step}
-        loss, _ = self.model.loss_fn(state.module, generator, micro_batch)
+        loss, aux = self.model.loss_fn(state.module, generator, micro_batch)
         params = list(state.trainable.values())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
+        scalars = {key: value.detach() for key, value in (aux or {}).items()
+                   if isinstance(value, torch.Tensor) and value.dim() == 0}
         return loss.detach(), {
             key: torch.zeros_like(p) if g is None else g for (key, p), g in zip(state.trainable.items(), grads)
-        }
+        }, scalars
 
     def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator):
         scalars = state.scalars
@@ -219,20 +226,26 @@ class TrainStep:
             self.write_scalars(state)
         accum = self.grad_accum_steps
         if accum <= 1:
-            loss, grads = self._value_and_grad(state, batch, generator)
+            loss, grads, aux = self._value_and_grad(state, batch, generator)
         else:
-            loss, grads = None, None
+            loss, grads, stacks = None, None, {}
             for index in range(accum):
                 micro = {k: v[index] if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
-                micro_loss, micro_grads = self._value_and_grad(state, micro, generator)
+                micro_loss, micro_grads, micro_aux = self._value_and_grad(state, micro, generator)
                 if grads is None:
                     loss, grads = micro_loss, micro_grads
                 else:
                     loss = loss + micro_loss
                     grads = {k: grads[k] + g for k, g in micro_grads.items()}
+                for key, value in micro_aux.items():
+                    stacks.setdefault(key, []).append(value)
             scale = 1.0 / accum
             grads = {k: g * scale for k, g in grads.items()}
             loss = loss * scale
+            # the aux values averaged over the micro-steps, the attention-logit
+            # maxima (``qk_clip/``) by their max, as the JAX step does
+            aux = {key: torch.stack(values).amax(dim=0) if key.startswith("qk_clip/")
+                   else torch.stack(values).mean(dim=0) for key, values in stacks.items()}
 
         with torch.no_grad():
             grad_norm = global_norm(grads)
@@ -251,6 +264,7 @@ class TrainStep:
             "loss": loss,
             "grad_norm": grad_norm,
             "skipped_nonfinite": 1.0 - finite.float(),
+            **aux,  # every 0-d value of the model's aux dict (HiDream's moe_gate_loss)
         }
         if self.lr_schedule is not None:
             metrics["lr"] = scalars.metric_lr.clone()

@@ -56,12 +56,17 @@ with the 16-channel ``VAEConfig.flux()``), ``kandinsky5_image`` and
 ``kandinsky5_video`` (Qwen2.5-VL at 512 tokens and CLIP-L pooled, 4 latent
 channels: the SD ``VAEConfig()`` for the image flavour, the video VAE at 4
 latents for the video flavour) and ``hunyuanvideo`` (Qwen2.5-VL at 256 and
-ByT5 at 77 tokens, both masks, the video VAE at 32 latents); the batch reaches the step with every numeric array
+ByT5 at 77 tokens, both masks, the video VAE at 32 latents), ``qwen_image`` (Qwen2.5-VL
+at 1024 tokens, the mask dropped), ``z_image`` and ``mageflow`` (Qwen at 4096
+tokens on the Qwen-Image DiT without text rope; MageFlow's 32 latent channels
+meet the 16-channel Flux VAE, as in the JAX trainer) and ``hidream`` (CLIP-L and
+CLIP-G pooled, T5-XXL and Llama-3 at 128 tokens; ``moe_gate_loss`` logged at
+every step), all four with ``VAEConfig.flux()``; the batch reaches the step with every numeric array
 the family's collate gives (Flux's ``t5_embeds``/``t5_masks``, the others'
 ``text_embeds``, SDXL's size conditioning ``original_sizes``,
 ``crop_coordinates`` and ``target_sizes``), and ``pooled_embeds`` for flux,
 sd3 and sdxl.  Refused, each naming its ROADMAP item:
-families other than these fourteen, full fine-tunes and ControlNet, distillation and
+families other than these eighteen, full fine-tunes and ControlNet, distillation and
 ODE pairs, CREPA / U-REPA, text-encoder training, slider and assistant
 adapters, a mesh of more than one device and multi-process runs.
 """

@@ -82,7 +82,8 @@ def test_the_port_imports_nothing_of_the_jax_package():
     names = [m.name for m in pkgutil.walk_packages(simpletuner_tpu_torch.__path__, "simpletuner_tpu_torch.")]
     assert int(count) == len(names) and loaded == "[]"
     # the SDXL slice's modules, the SD 1.x / 2.x, PixArt-Sigma, AuraFlow, Wan, LTX-Video, Chroma, Lumina2,
-    # decoder-LLM, Kandinsky 5.0 and HunyuanVideo ones are among those imported
+    # decoder-LLM, Kandinsky 5.0, HunyuanVideo, Qwen-Image, MageFlow / Z-Image and HiDream ones are among
+    # those imported
     assert {f"simpletuner_tpu_torch.{name}" for name in (
         "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc", "models.sd1x",
         "models.sd1x.model", "models.pixart", "models.pixart.model", "models.pixart.transformer",
@@ -91,7 +92,9 @@ def test_the_port_imports_nothing_of_the_jax_package():
         "models.ltxvideo.transformer", "models.chroma", "models.chroma.model", "models.chroma.transformer",
         "models.lumina2", "models.lumina2.model", "models.lumina2.transformer", "models.llm_encoder",
         "models.kandinsky5", "models.kandinsky5.model", "models.kandinsky5.transformer", "models.hunyuanvideo",
-        "models.hunyuanvideo.model", "models.hunyuanvideo.transformer")} <= set(names)
+        "models.hunyuanvideo.model", "models.hunyuanvideo.transformer", "models.qwen_image",
+        "models.qwen_image.model", "models.qwen_image.transformer", "models.mageflow", "models.mageflow.model",
+        "models.hidream", "models.hidream.model", "models.hidream.transformer")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -550,7 +553,15 @@ def test_model_registry_refuses_other_families():
     assert isinstance(get_model_family(TrainingConfig({"model_family": "hunyuanvideo"})), HunyuanVideo)
     assert isinstance(get_model_family(TrainingConfig({"model_family": "kandinsky5_video"})), Kandinsky5Video)
     assert isinstance(get_model_family(TrainingConfig({"model_family": "kandinsky5-image"})), Kandinsky5Image)
-    for family in ("kolors", "sana", "qwen_image"):
+    from simpletuner_tpu_torch.models.hidream import HiDream
+    from simpletuner_tpu_torch.models.mageflow import MageFlow, ZImage
+    from simpletuner_tpu_torch.models.qwen_image import QwenImage
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "qwen_image"})), QwenImage)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "z_image"})), ZImage)
+    assert type(get_model_family(TrainingConfig({"model_family": "mageflow"}))) is MageFlow
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "hidream"})), HiDream)
+    for family in ("kolors", "sana", "flux2"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):

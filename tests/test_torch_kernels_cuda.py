@@ -809,6 +809,158 @@ def test_tiny_hunyuanvideo_on_the_card_matches_its_cpu_run(cuda):
     _card_against_cpu(cpu, card, inputs, torch.randn((2, 2, 6, 10, cfg.out_channels), generator=gen), cuda)
 
 
+# Qwen-Image at 1024 x 1024 (64 x 64 = 4,096 packed tokens) after its 1,024
+# unmasked Qwen tokens (5,120); Z-Image with 4,096 text tokens (8,192);
+# HiDream-I1 at 1024 x 1024: 4,096 image tokens, 128 T5, 128 Llama[last] and
+# the block's 128 Llama tokens (4,480), all unmasked at head dim 128; two
+# heads (the heads are independent)
+QWEN_IMAGE_CASES = [("qwen_image_joint_s5120", 4096 + 1024), ("z_image_joint_s8192", 4096 + 4096),
+                    ("hidream_joint_s4480", 4096 + 3 * 128)]
+
+
+@pytest.mark.parametrize("name,seq", QWEN_IMAGE_CASES, ids=[c[0] for c in QWEN_IMAGE_CASES])
+def test_kernels_at_the_qwen_image_and_hidream_shapes(cuda, name, seq):
+    """Forward and both backward kernels at Qwen-Image's, Z-Image's and
+    HiDream's joint attention against the plain versions, in the
+    dispatcher's (B, S, H, D) layout, unmasked."""
+    q, k, v = _qkv(70 + seq % 17, 1, 2, seq, seq, 128, cuda)
+    strided = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    out, lse = _check(*strided)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    del out, lse
+    dq, dk, dv = _check_backward(*strided, seed=71)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+class _OnGrid(torch.nn.Module):
+    """The Qwen-Image DiT with its token grid fixed, so its inputs are tensors."""
+
+    def __init__(self, inner, grid):
+        super().__init__()
+        self.inner, self.grid = inner, grid
+
+    def forward(self, img, txt, timesteps):
+        return self.inner(img, self.grid, txt, timesteps)
+
+
+@pytest.mark.parametrize("txt_rope", [True, False])
+def test_tiny_qwen_image_on_the_card_matches_its_cpu_run(cuda, txt_rope):
+    """A Qwen-Image DiT two heads of 128 wide (the head dim 128 kernels, the
+    published rope axes 16 / 56 / 56), two blocks, remat, a 6 x 10 token
+    grid and 24 unmasked text tokens, with text rope (Qwen-Image) and
+    without (Z-Image, MageFlow), against its CPU run (the last block's
+    text-stream adapters, which no gradient reaches, removed)."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.qwen_image import QwenImageConfig, QwenImageTransformer
+
+    cfg = dataclasses.replace(QwenImageConfig.tiny(), hidden_size=256, num_heads=2, head_dim=128,
+                              axes_dim=(16, 56, 56), txt_rope=txt_rope)
+    cpu = _OnGrid(init_parameters(QwenImageTransformer(cfg, dtype=torch.float32, lora_rank=4, remat=True),
+                                  torch.Generator().manual_seed(0)), (6, 10))
+    with torch.device(cuda):
+        card = _OnGrid(QwenImageTransformer(cfg, dtype=torch.bfloat16, lora_rank=4, remat=True), (6, 10))
+    for module in (cpu, card):  # the last block's text-stream output is never read: no gradient reaches these
+        for name in ("txt_attn_q", "txt_attn_proj", "txt_mlp_in", "txt_mlp_out"):
+            getattr(getattr(module.inner, f"block_{cfg.depth - 1}"), name).remove_adapter()
+    gen = torch.Generator().manual_seed(3)
+    inputs = [torch.randn((2, 60, cfg.in_channels), generator=gen), torch.randn((2, 24, cfg.txt_in_features),
+                                                                                   generator=gen),
+              torch.tensor([0.3, 0.8])]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 60, cfg.in_channels), generator=gen), cuda)
+
+
+def _tiny_hidream(dtype, device, remat=True):
+    """A HiDream DiT two heads of 128 wide (the head dim 128 kernels, the
+    published rope axes 64 / 32 / 32), one double and two single blocks,
+    four experts top-2."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.hidream import HiDreamConfig, HiDreamTransformer
+
+    cfg = dataclasses.replace(HiDreamConfig.tiny(), num_heads=2, head_dim=128, axes_dim=(64, 32, 32), num_experts=4,
+                              top_k=2)
+    with torch.device(device):
+        return cfg, HiDreamTransformer(cfg, dtype=dtype, lora_rank=4, remat=remat)
+
+
+def test_tiny_hidream_on_the_card_matches_its_cpu_run(cuda):
+    """The tiny HiDream DiT (``_tiny_hidream``), remat, 12 x 20 latents, 8 T5
+    and two layers of 6 Llama tokens, its zero-initialised adaLN given a
+    draw, against its CPU run."""
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg, cpu = _tiny_hidream(torch.float32, "cpu")
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, param in cpu.named_parameters():
+            if name.endswith(("ada.weight", "final_mod.weight")):
+                param.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(2))
+    _, card = _tiny_hidream(torch.bfloat16, cuda)
+    gen = torch.Generator().manual_seed(3)
+    inputs = [torch.randn((2, 12, 20, cfg.in_channels), generator=gen), torch.tensor([0.3, 0.8]),
+              torch.randn((2, 8, cfg.t5_dim), generator=gen), torch.randn((2, 2, 6, cfg.llama_dim), generator=gen),
+              torch.randn((2, cfg.pooled_dim), generator=gen)]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 12, 20, cfg.in_channels), generator=gen), cuda)
+
+
+def test_graphed_hidream_step_carries_moe_gate_loss_bitwise(cuda):
+    """The aux repair on the card: the tiny HiDream LoRA step with the
+    load-balancing loss, three eager steps and then three replays of the
+    captured step from the same state and generator state give the same
+    losses, grad norms and ``moe_gate_loss`` bitwise (the metric a static
+    buffer the graph writes)."""
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.hidream import HiDream
+    from simpletuner_tpu_torch.models.layers import init_parameters, lecun_normal_
+    from simpletuner_tpu_torch.training.optimizers import get_optimizer
+    from simpletuner_tpu_torch.training.train_state import (build_train_step, create_train_state, jit_train_step,
+                                                            state_tensors)
+
+    config = TrainingConfig({"model_family": "hidream", "model_arch_preset": "tiny", "model_type": "lora",
+                             "lora_rank": 4, "learning_rate": 1e-3, "optimizer": "adamw",
+                             "hidream_use_load_balancing_loss": True, "gradient_checkpointing": True})
+    model = HiDream(config)
+    model.arch, module = _tiny_hidream(torch.bfloat16, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    init_parameters(module, gen)
+    with torch.no_grad():  # AdaLN-Zero: zero gates close every block to the adapters
+        for name, param in module.named_parameters():
+            if name.endswith(("ada.weight", "final_mod.weight")):
+                lecun_normal_(param, param.shape[1], gen)
+    tx = get_optimizer(config, 1e-3)
+    state = create_train_state(model, module, tx)
+    step_fn = build_train_step(model, tx)
+    batch = {"latents": torch.randn((1, 12, 20, 4), generator=gen, device=cuda),
+             "t5_embeds": torch.randn((1, 8, 32), generator=gen, device=cuda),
+             "llama_embeds": torch.randn((1, 1, 6, 32), generator=gen, device=cuda),
+             "pooled_embeds": torch.randn((1, 32), generator=gen, device=cuda)}
+    with torch.no_grad():
+        saved = [x.clone() for x in state_tensors(state)]
+    rng = torch.Generator(device=cuda)
+    rng.manual_seed(5)
+    start = rng.get_state()
+
+    def trajectory(step):
+        current, out = state, []
+        for _ in range(3):
+            current, metrics = step(current, batch, rng)
+            out += [metrics["loss"], metrics["grad_norm"], metrics["moe_gate_loss"]]
+        return torch.stack(out)
+
+    eager = trajectory(step_fn)
+    with torch.no_grad():
+        for x, value in zip(state_tensors(state), saved):
+            x.copy_(value)
+    rng.set_state(start)
+    state.step = 0
+    graphed = jit_train_step(step_fn, state, batch, rng)
+    replayed = trajectory(graphed)
+    assert torch.isfinite(eager).all() and (eager[2::3] > 0).all()
+    assert torch.equal(replayed, eager)
+
+
 def test_video_vae_on_the_card(cuda, monkeypatch):
     """The causal video VAE on the card in f32 against the CPU (sum order
     only), with its norms and convolutions split into runs of frames as at

@@ -286,6 +286,48 @@ def test_build_from_a_qwen25_vl_dir_matches_jax(tmp_path):
         assert rel(ours[key], theirs[key]) < BF16_REL, key
 
 
+def test_build_from_a_llama3_dir_matches_jax(tmp_path):
+    """A seeded Llama trunk (the tiny layout's sizes) in the Llama-3.1 HF
+    layout: ``text_encoder_4/config.json`` (``LlamaForCausalLM`` with the
+    llama3 ``rope_scaling``, as meta-llama/Llama-3.1-8B-Instruct's) beside
+    ``model.*`` tensors without biases and an ``lm_head`` that neither
+    importer reads, and a tokenizer in ``tokenizer/`` (the spec names no
+    tokenizer subfolder); built through the ``llama-3`` spec that hidream
+    names: both packages read the config onto the ``llama3_8b`` preset, take
+    the same tokens and encode (bf16 compute) within ``BF16_REL``."""
+    cfg = LLMEncoderConfig.tiny("llama")
+    rng = np.random.default_rng(9)
+    weights = {}
+    for name, shape in llm_checkpoint_shapes(cfg).items():
+        draw = rng.standard_normal(shape).astype(np.float32)
+        weights[name] = (0.1 * draw if len(shape) == 1 else draw / np.sqrt(shape[-1])).astype(np.float32)
+    assert "model.layers.0.self_attn.q_proj.bias" not in weights
+    weights["lm_head.weight"] = rng.standard_normal((cfg.vocab_size, cfg.hidden_size)).astype(np.float32)
+    os.makedirs(tmp_path / "text_encoder_4")
+    np_save_file(weights, str(tmp_path / "text_encoder_4" / "model.safetensors"))
+    with open(tmp_path / "text_encoder_4" / "config.json", "w") as handle:
+        json.dump({"architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+                   "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim, "rope_theta": 500000.0,
+                   "rms_norm_eps": 1e-5, "rope_scaling": {"rope_type": "llama3", "factor": 8.0}}, handle)
+    _gemma_tokenizer(str(tmp_path / "tokenizer"), " ".join(PROMPTS).split())
+    spec, jspec = (cls(name="llama", family="llama-3", subfolder="text_encoder_4", max_length=12,
+                       output="hidden_states") for cls in (TextEncoderSpec, JaxSpec))
+    (enc,) = te.load_text_encoders([spec], pretrained_path=str(tmp_path), device="cpu")
+    (jenc,) = jax_te.load_text_encoders([jspec], pretrained_path=str(tmp_path))
+    expected = dataclasses.replace(LLMEncoderConfig.llama3_8b(), vocab_size=1000, hidden_size=32,
+                                   intermediate_size=64, num_layers=2, num_heads=2, num_kv_heads=1, head_dim=16,
+                                   rope_theta=500000.0, rms_eps=1e-5)
+    assert dataclasses.asdict(enc.config) == dataclasses.asdict(jenc.config) == dataclasses.asdict(expected)
+    assert not enc.config.qkv_bias and enc.config.arch == "llama"
+    ours, theirs = enc.encode(PROMPTS), jenc.encode(PROMPTS)
+    np.testing.assert_array_equal(ours["attention_mask"], theirs["attention_mask"])
+    assert "hidden_states" not in ours and "hidden_states" not in theirs  # HiDream stacks the final state alone
+    for key in ("last_hidden_state", "pooled"):
+        assert rel(ours[key], theirs[key]) < BF16_REL, key
+
+
 def test_final_norm_state_is_the_output_not_the_penultimate_layer():
     """The JAX module, and so the port's, returns the final-norm hidden
     state, which lumina2 encodes with (ROADMAP Queue 3); diffusers' Lumina2

@@ -522,7 +522,8 @@ def test_routes_that_differ_by_design(pair):
     # chroma answers with Flux's presets (the JAX Flux adds a TPU v5e one)
     assert pair.both("GET", "/api/models/chroma/presets", compare=False)["port"] == presets["port"]
     for family in ("sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "lumina2",
-                   "kandinsky5_image", "kandinsky5_video", "hunyuanvideo"):
+                   "kandinsky5_image", "kandinsky5_video", "hunyuanvideo", "qwen_image", "mageflow", "z_image",
+                   "hidream"):
         answers = pair.both("GET", f"/api/models/{family}/presets", compare=False)
         assert answers["port"][0] == answers["jax"][0] == 200
         assert [(p["name"], p["config"]) for p in answers["port"][1]] == [
@@ -530,7 +531,7 @@ def test_routes_that_differ_by_design(pair):
     assert pair.both("GET", "/api/models/kolors/presets", compare=False)["port"] == (
         501, {"error": "model_family='kolors' is not ported (only flux, sd3, sdxl, sd1x, sd2x, pixart_sigma, "
                        "auraflow, wan, ltxvideo, chroma, lumina2, kandinsky5_image, kandinsky5_video, "
-                       "hunyuanvideo; ROADMAP Queue 1 item 6)"})
+                       "hunyuanvideo, qwen_image, mageflow, z_image, hidream; ROADMAP Queue 1 item 6)"})
     pair.both("GET", "/api/models/nope/presets")  # unknown: 404 on both
     job = pair.both("POST", "/api/inference/start",
                     {"checkpoint": "/nope/checkpoint-1", "prompt": "a cat", "steps": 1})

@@ -458,6 +458,48 @@ def test_grad_accumulation_matches_jax(pair):
         assert rel(final_t[key], final_j[key]) < 1e-4, key
 
 
+@pytest.mark.parametrize("accum", [1, 2])
+def test_step_aux_scalars_match_jax(pair, monkeypatch, accum):
+    """Every 0-d value of ``loss_fn``'s aux dict reaches the step's metrics,
+    as in the JAX step: a stand-in aux on both models (twice the loss, and
+    three times the loss under a ``qk_clip/`` key; the (B,) timesteps stay
+    out) gives the same metric keys and values within 1e-4 relative; under
+    two micro-steps the plain key is their mean and the ``qk_clip/`` key
+    their max (the JAX Flux's ``apply_qk_clip`` leaves a LoRA state as it is)."""
+    jax_model, model = pair["jax_model"], pair["model"]
+    jax_model.apply_trace_globals()
+
+    def probed(loss_fn):
+        def wrapped(*args):
+            loss, aux = loss_fn(*args)
+            return loss, {**aux, "probe": 2.0 * loss, "qk_clip/probe": 3.0 * loss}
+        return wrapped
+
+    monkeypatch.setattr(jax_model, "loss_fn", probed(jax_model.loss_fn))
+    monkeypatch.setattr(model, "loss_fn", probed(model.loss_fn))
+    config = TrainingConfig(TRAIN_CONFIG)
+    tx_j = jax_get_optimizer(config, 1e-3)
+    state_j = jax_create_train_state(jax_model, jax.tree_util.tree_map(jnp.asarray, pair["variables"]), tx_j)
+    step_j = jax.jit(jax_build_train_step(jax_model, tx_j, grad_accum_steps=accum))
+    tx_t = get_optimizer(model.config, 1e-3)
+    state_t = create_train_state(model, pair["make_module"](), tx_t)
+    step_t = build_train_step(model, tx_t, grad_accum_steps=accum)
+    steps = [_step_batch(pair, i, "numpy") for i in range(accum)]
+    batch = steps[0] if accum == 1 else {k: np.stack([s[k] for s in steps]) for k in steps[0]}
+    _, m_j = step_j(state_j, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
+    _, m_t = step_t(state_t, {k: t(v) for k, v in batch.items()}, torch.Generator())
+    assert sorted(m_t) == sorted(m_j) == ["grad_norm", "loss", "probe", "qk_clip/probe", "skipped_nonfinite"]
+    for key in m_j:
+        np.testing.assert_allclose(float(m_t[key]), float(m_j[key]), rtol=1e-4, atol=1e-7, err_msg=key)
+    if accum == 2:
+        with torch.no_grad():
+            micro = [float(pair["model"].loss_fn(pair["make_module"](), torch.Generator(),
+                                                 {k: t(v) for k, v in s.items()})[0]) for s in steps]
+        assert micro[0] != micro[1]
+        np.testing.assert_allclose(float(m_t["probe"]), np.mean(micro) * 2.0, rtol=1e-5)
+        np.testing.assert_allclose(float(m_t["qk_clip/probe"]), max(micro) * 3.0, rtol=1e-5)
+
+
 def test_ema_in_the_step_matches_jax(pair):
     jax_model = pair["jax_model"]
     jax_model.apply_trace_globals()
