@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Drive the torch port of simpletuner-tpu once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                       # every phase, 1-30
+    python3 chip_smoke.py                       # every phase, 1-32
     python3 chip_smoke.py --phases 14-16,27,28  # the named phases, what they need, and 1-3 and 7
 
 With ``--phases`` the script runs the named phases, the phases whose files
 they need (``PHASE_NEEDS``: 25 and 26 need phase 14's Flux VAE, phase 15's
 T5-XXL and tokenizer and phase 16's JPEGs; 27 phase 14's CLIP-L, phase 15's
 CLIP tokenizer and phase 16's JPEGs; 28 phase 15's files; 29 phase 14's VAE and phase 16's
-JPEGs; 30 those, phase 15's T5-XXL and tokenizers and phase 19's CLIP-G) and phases 1, 2, 3 and 7 (the
+JPEGs; 30 those, phase 15's T5-XXL and tokenizers and phase 19's CLIP-G; 31 none; 32 phase 16's JPEGs) and
+phases 1, 2, 3 and 7 (the
 build, and every kernel against its plain version); a named family phase
 whose depth a full run cuts writes its full-depth file where the run's
 writes leave room (``_full_depth``), and the kernels line holds the rows of
@@ -105,7 +106,7 @@ exits non-zero with no result line):
    saved and loaded back bitwise;
 15. text encoders: CLIP-L (phase 14's file) and T5-XXL at full size (24
    layers, d_model 4096, 64x64 heads, d_ff 10240, gated-gelu; seeded, bf16;
-   written for phases 17-19 at full width and 6 of its 24 blocks) encode 16 prompts at T5 length 512 through Flux.encode_text and
+   written for phases 17-19 at full width and 2 of its 24 blocks) encode 16 prompts at T5 length 512 through Flux.encode_text and
    TextEmbeddingCache.compute_embeddings_for_prompts; the payload read back
    bitwise what was encoded; the bf16 T5 output against the f32 module;
    prompts/s and MFU;
@@ -155,7 +156,7 @@ exits non-zero with no result line):
 19. sd3: SD3.5 Large (stabilityai/stable-diffusion-3.5-large's
    ``transformer/config.json``: hidden 2432, 38 heads of 64, 38 blocks,
    ``pos_embed_max_size`` 192, qk RMSNorm; 8.1B parameters) at full width, its
-   file and module at ``SD3_CUT_BLOCKS`` (6) of its 38 blocks in a run of
+   file and module at ``SD3_CUT_BLOCKS`` (2) of its 38 blocks in a run of
    every phase (the write budget; the line's ``depth``), every launch count
    following the depth.  Deletes phase 14's Flux file and phase 17-18's output dirs, checks
    the free disk and what the run has written; writes with the port's writer a seeded diffusers
@@ -302,7 +303,7 @@ exits non-zero with no result line):
 25. chroma: Chroma at its published width (lodestones/Chroma's diffusers
    transformer, ``ChromaConfig()``: Flux's 19 double + 38 single blocks, 3072
    wide, 24 heads of 128, the 5 x 5120 distilled-guidance approximator over
-   344 modulation slots; 8.9B parameters; at ``CHROMA_CUT_BLOCKS`` (2 + 4)
+   344 modulation slots; 8.9B parameters; at ``CHROMA_CUT_BLOCKS`` (1 + 2)
    blocks in a run of every phase, its kernel shapes Flux's) at 1024 px.  Deletes phase 24's
    files; checks ``chroma_step_flops`` against ``torch.utils.flop_counter`` on
    two small configs; writes with the port's writer a seeded diffusers
@@ -353,7 +354,7 @@ exits non-zero with no result line):
    Deletes phase 26's files; checks ``kandinsky5_step_flops`` against the flop
    counter on two small configs; writes a seeded e4m3 transformer (1.12 GB at
    16 blocks, both flavours' file), the seeded Qwen2.5-VL-7B text trunk (``qwen_trunk``:
-   e4m3, full width, ``QWEN_FILE_LAYERS`` (4) of its 28 layers in a run of
+   e4m3, full width, ``QWEN_FILE_LAYERS`` (2) of its 28 layers in a run of
    every phase, a Qwen2.5-VL ``config.json`` with the text sizes at the top
    level, written once a run and linked by phases 28-29), a seeded 4-channel SD
    VAE (the image flavour's), links to phase 14's CLIP-L, phase 15's CLIP
@@ -399,7 +400,7 @@ exits non-zero with no result line):
 29. qwen_image: Qwen-Image at the JAX preset's full width (Qwen/Qwen-Image's
    ``transformer/``, ``QwenImageConfig()``: 60 double-stream blocks, 3072 wide,
    24 heads of 128, 64 packed channels in; 20.4B parameters), at
-   ``QI_CUT_BLOCKS`` (4) of its 60 blocks in a run of every phase.  Deletes
+   ``QI_CUT_BLOCKS`` (2) of its 60 blocks in a run of every phase.  Deletes
    phase 28's files; checks ``qwen_image_step_flops`` against the flop counter
    on two small configs; writes a seeded e4m3 diffusers transformer, links
    phase 27's Qwen2.5-VL trunk (written here when phase 27 did not run) and
@@ -425,7 +426,7 @@ exits non-zero with no result line):
 30. hidream: HiDream-I1 at the JAX preset's full width (HiDream-ai/
    HiDream-I1-Full's ``transformer/``, ``HiDreamConfig()``: 16 double and 32
    single blocks, 20 heads of 128, 4 experts top-2 with a shared expert, FFN
-   6912; 17.1B parameters), at ``HD_CUT_BLOCKS`` (2 + 2) in a run of every
+   6912; 17.1B parameters), at ``HD_CUT_BLOCKS`` (1 + 1) in a run of every
    phase.  Deletes phase 29's files; checks ``hidream_step_flops`` against
    the flop counter on two small configs; writes a seeded e4m3 transformer
    (the adaLN drawn) and a seeded Llama-3.1-8B trunk (``llama3_8b`` at full
@@ -440,11 +441,59 @@ exits non-zero with no result line):
    as phase 29's with ``hidream_use_load_balancing_loss``: ``moe_gate_loss``
    logged at every step, a replay's loss, grad norm and ``moe_gate_loss``
    bitwise an eager step's, the profiled replay's launches held to the
-   capture's; last, the run's writes against ``RUN_WRITE_LIMIT_GB`` less
+   capture's.
+31. flux2: FLUX.2-dev at the JAX preset's full width (black-forest-labs/
+   FLUX.2-dev's ``transformer/``, ``Flux2Config()``: 8 double and 48 single
+   blocks, 6144 wide, 48 heads of 128, 32 latent channels, global modulation,
+   guidance embedding; 32.2B parameters), at ``F2_CUT_BLOCKS`` (1 + 1) in a
+   run of every phase.  Deletes phase 30's files; checks ``flux2_step_flops``
+   against the flop counter on two small configs; writes a seeded e4m3
+   diffusers transformer (2.29 GB at 1 + 1) and a word-level tokenizer;
+   builds a seeded Mistral-3 24B trunk (``mistral3_24b``: 5120 wide, 32 heads
+   and 8 kv heads of 128, FFN 32,768, 131,072 tokens, rope theta 1e8) at
+   ``MISTRAL_LAYERS`` (2) of its 40 layers in memory (its loader is held on
+   the CPU) and encodes 16 prompts at 512 tokens with three taps through
+   ``Flux2.encode_text`` (15,360 features; prompts/s, bf16 against f32);
+   imports the transformer (bitwise); one forward against the plain attention
+   over 4,096 image and 512 text tokens (4,608 joint, unmasked, as the JAX
+   family collates them) at 1024 px; the guidance-distilled flow Euler loop
+   (one forward a step, guidance 4) over 32-channel latents, without the
+   decode (the trainer builds the 16-channel Flux VAE for every family of 16
+   channels or more, as the JAX trainer does, so no VAE here decodes FLUX.2's
+   latents: ROADMAP Queue 3); 6 graphed rank-16 LoRA steps on an int8 base
+   (``quantized_matmul: full``), every block checkpointed, through
+   ``build_train_step`` / ``jit_train_step`` (``Trainer.run()`` stops at the
+   same wall): replays bitwise equal to eager steps, s/step, MFU, peak GiB and
+   a profiled replay's launches (2(d + s) / d + s / d + s) held to the
+   capture's.  Then the ``klein`` width (24 heads, 5 + 20 blocks, no
+   guidance) at 1 + 1 blocks built in memory: one parity forward and 2
+   graphed steps.  A run that names the phase (``--phases 31``) also builds
+   all 8 + 48 blocks in memory (an int8 base of 32 GB, nothing written) and
+   times their 6 graphed steps.
+32. kolors: Kolors at the JAX preset's full width (Kwai-Kolors/
+   Kolors-diffusers' ``unet/`` as the JAX family builds it: SDXL's UNet with
+   a 4,096-wide cross-attention and ``addition_embed_dim`` 5,632; 2.94B
+   parameters), with its level-2 transformer depth cut to ``KOLORS_CUT_LAYERS``
+   ((1, 2, 2) of (1, 2, 10)) in a run of every phase.  Deletes phase 31's
+   files; writes a seeded e4m3 diffusers UNet and a seeded ChatGLM3-6B trunk
+   (``chatglm3_6b``: 4096 wide, 32 heads of 128 and 2 kv groups, fused
+   ``query_key_value`` with biases, FFN 13,696, 65,024 tokens) at
+   ``GLM_FILE_LAYERS`` (2) of its 28 layers with ChatGLM's own
+   ``config.json`` keys, a word-level tokenizer, and links phase 20's SDXL VAE
+   (or writes a seeded one); encodes 16 prompts at 256 tokens through the
+   ChatGLM encoder (prompts/s, bf16 against f32); imports the UNet (bitwise);
+   a 1024 px true-CFG DDIM render (guidance 5) through the checkpoint runtime
+   (the ChatGLM states unmasked, the pooled vector the last valid token's);
+   one UNet forward against the plain attention; ``Trainer.run()`` with a
+   bf16 base, rank-16 LoRA on the attention projections, every resnet and
+   spatial transformer checkpointed and min-SNR epsilon: 6 graphed steps on
+   four of phase 16's JPEGs, s/step, MFU, a replay and an eager step bitwise
+   equal and a profiled replay's launches by shape held to the capture's;
+   last, the run's writes against ``RUN_WRITE_LIMIT_GB`` less
    ``RUN_WRITE_MARGIN_GB``.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
-their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-30.
+their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-32.
 Phases 3 and 7 also run head dims 72, 96 and 112 (pixart, lumina2, sana),
 which the wrappers zero-pad to 128, masked and unmasked, the shapes
 phase 21 meets first (``PHASE21_KERNEL_CASES``: PixArt's (1, 16, 4096, 72)
@@ -474,25 +523,29 @@ the segment plane the DiT makes, 180 of 256 Qwen and 40 of 77 ByT5 tokens
 valid and the pads at -1, and the refiner's 256 tokens, 180 valid), each held
 at 2 heads, and Qwen-Image's, Z-Image's and HiDream's (``QI_KERNEL_CASES``,
 ``HD_KERNEL_CASES``: the joint (1, 24, 5120, 128) and (1, 24, 8192, 128) and
-(1, 20, 4480, 128), unmasked), held at 2 heads; at the long shapes the plain
+(1, 20, 4480, 128), unmasked), held at 2 heads, and FLUX.2's and Kolors's
+(``F2_KERNEL_CASES``: the joint (1, 48, 4608, 128), unmasked; the klein
+width's 24 heads share Flux's kernel instance; ``KOLORS_KERNEL_CASES``: the
+UNet's self-attention at its three levels and their cross-attention against
+256 ChatGLM keys, D = 64, unmasked), held at 2 heads; at the long shapes the plain
 version is timed once, one head at a time, with no warm-up run (the first
 head warms it); phases 3 and 7 print the seconds of each of
 their sections (``section_s``).  Every phase
 line carries ``elapsed_s`` and ``written_gb`` (the card's machine ends a run
 that writes more than 45 GiB, deleted files included).  On an H100 80GB HBM3 at
-700 W the whole script takes about 860 s of its 1,200 s limit (the host's
-share varies by 10-15% between machines; the fp8 files import at 3-5 GB/s, their
-bytes cast on the card) and writes about 45.5 GB: phases 3
-and 7 about 115 s, phase 12 about 100 s, phases 17-18 about 180 s, phases 19-24
-about 180 s, phases 25-26 about 30 s, phases 27-28 about 75 s, phases 29-30 about
-35 s.
+700 W the whole script took 857 s of its 1,200 s limit for phases 1-30 and wrote
+45.48 GB (the host's share varies by 10-15% between machines; the fp8 files import
+at 3-5 GB/s, their bytes cast on the card): phases 3 and 7 about 115 s, phase 12
+about 100 s, phases 17-18 about 180 s, phases 19-24 about 180 s, phases 25-26 about
+30 s, phases 27-28 about 75 s, phases 29-30 about 35 s; phases 31-32 add about 60 s
+and their kernel cases about 3 s (PERF.md §7 holds the whole run's seconds and GB).
 Then a JSON line with the kernels, each wrapper's head dim 256 instances,
 its Chroma row (the Flux shape's times) and its rows at Wan's, LTX's,
-Lumina2's, Kandinsky 5.0's, HunyuanVideo's, Qwen-Image's, Z-Image's and
-HiDream's shapes beside it (launches: the profiler's count in phase 12's
-profiled replay, for the head dim 256 rows in phase 22's, for the Chroma rows
-in phase 25's, and for the other rows the wrappers' count at that shape per
-step in phase 23's, 24's and 26's-30's runs),
+Lumina2's, Kandinsky 5.0's, HunyuanVideo's, Qwen-Image's, Z-Image's,
+HiDream's, FLUX.2's and Kolors's shapes beside it (launches: the profiler's
+count in phase 12's profiled replay, for the head dim 256 rows in phase 22's,
+for the Chroma rows in phase 25's, and for the other rows the wrappers' count
+at that shape per step in phase 23's, 24's and 26's-32's runs),
 and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
 register, spill and warning lines per kernel (a C7514 warning means ptxas
@@ -552,8 +605,9 @@ IMPORT_DOUBLE, IMPORT_SINGLE = 1, 1
 # of 24 layers, so the outputs agree to about a percent in relative L2
 T5_BF16_REL_L2 = 5e-2
 TEXT_PROMPTS = 16
-# the T5-XXL file phases 17-19 load: full width, the first 6 of 24 blocks
-T5_FILE_LAYERS = 6
+# the T5-XXL file phases 17-19 load: full width, the first 2 of 24 blocks (6
+# before phases 31-32 needed the room)
+T5_FILE_LAYERS = 2
 # phase 16: bf16 VAE encoder against the f32 one: about 20 bf16-rounded
 # convolutions deep, the latents agree to about a percent in relative L2
 VAE_BF16_REL_L2 = 5e-2
@@ -663,7 +717,7 @@ D256_CASES = (
 # WanConfig.b1_3(): 30 blocks, 1536 wide, 12 heads of 128, FFN 4 x 1536) on its
 # published 480p clip, 832 x 480 x 81 frames: 21 x 60 x 104 latents, 21 x 30 x 52
 # = 32,760 tokens after the (1, 2, 2) patchify (255 full 128-row tiles and a
-# ragged tail of 120), umT5 at 512 tokens (phase 15's T5-XXL file, 6 of 24
+# ragged tail of 120), umT5 at 512 tokens (phase 15's T5-XXL file, 2 of 24
 # blocks).  Two seeded clips; the render at 480 px square and 81 frames (21 x
 # 30 x 30 = 18,900 tokens); the full-depth parity forward on a 17-frame clip
 # (5 x 30 x 52 = 7,800 tokens: the plain attention's scores fit); the 14B I2V
@@ -698,7 +752,7 @@ WAN_CHECK_HEADS = 2
 # captions at 128 tokens) on 768 x 512 x 121 clips (sides multiples of 32,
 # 8n + 1 frames, as LTX-Video asks): 16 x 16 x 24 latents of 128 channels, and
 # with the (1, 1, 1) patch as many tokens, 6,144 (48 full 128-row tiles);
-# phase 15's T5-XXL file (6 of 24 blocks).  Two seeded clips; the render at
+# phase 15's T5-XXL file (2 of 24 blocks).  Two seeded clips; the render at
 # 512 px square and 121 frames (16 x 16 x 16 = 4,096 tokens); the full-depth
 # parity forward on the training clip's latent grid (the plain attention's
 # 6,144^2 scores fit); the 13B width (13b-0.9.7: 4096 wide, 32 heads of 128,
@@ -731,7 +785,7 @@ LTX_CHECK_HEADS = 32
 # phase 25: Chroma (lodestones/Chroma's diffusers transformer, ChromaConfig():
 # Flux's 19 double + 38 single blocks, 3072 wide, 24 heads of 128, the 5 x 5120
 # distilled-guidance approximator; 8.9B parameters) at 1024 px: T5-XXL (phase
-# 15's file, 6 of 24 blocks) at 512 tokens, phase 14's Flux VAE; the render's
+# 15's file, 2 of 24 blocks) at 512 tokens, phase 14's Flux VAE; the render's
 # true CFG (no guidance embedding: two forwards per Euler step), the trainer's
 # steps on phase 16's first square JPEGs, the full-depth parity forward's
 # sigma, and what the phase writes (the e4m3 transformer, 8.9 GB, caches and
@@ -740,7 +794,7 @@ CHROMA_GUIDANCE = 4.0
 CHROMA_TRAIN_STEPS, CHROMA_TRAIN_IMAGES = 6, 4
 CHROMA_PROMPT = "a lighthouse on a basalt cliff at dusk"
 CHROMA_SIGMA = 0.7
-PHASE25_WRITE_GB = 1.4  # at the cut depth (CHROMA_CUT_BLOCKS)
+PHASE25_WRITE_GB = 1.0  # at the cut depth (CHROMA_CUT_BLOCKS)
 # phase 26: Lumina-Image 2.0 (Alpha-VLLM/Lumina-Image-2.0's transformer/ as the
 # JAX preset Lumina2Config() builds it: 26 joint blocks + 2 context and 2 noise
 # refiners, 2304 wide, 24 query / 8 kv heads of 96, SwiGLU 6144; 1.97B
@@ -803,8 +857,8 @@ K5_FRAMES, K5_WIDTH, K5_HEIGHT = 61, 768, 512
 K5_LATENT = ((K5_FRAMES - 1) // 4 + 1, K5_HEIGHT // 8, K5_WIDTH // 8)
 K5_TOKENS = K5_LATENT[0] * (K5_LATENT[1] // 2) * (K5_LATENT[2] // 2)
 K5_CLIPS, K5_RENDER_SIZE, K5_PARITY_FRAMES, K5_SIGMA = 2, 512, 17, 0.7
-QWEN_FILE_LAYERS = 4
-PHASE27_WRITE_GB = 3.5  # at the cut depth (K5_CUT_BLOCKS)
+QWEN_FILE_LAYERS = 2
+PHASE27_WRITE_GB = 3.1  # at the cut depths (K5_CUT_BLOCKS, QWEN_FILE_LAYERS)
 # phases 3 and 7 at Kandinsky 5.0's attention shapes (D = 64, unmasked: the
 # JAX family drops the Qwen mask): the video flavour's self-attention over
 # 24,576 tokens (192 full tiles) and its cross-attention against the 512 Qwen
@@ -864,7 +918,7 @@ QI_IMG = (RESOLUTION // 16) ** 2
 QI_GUIDANCE, QI_SIGMA = 4.0, 0.7
 QI_TRAIN_STEPS, QI_TRAIN_IMAGES = 6, 4
 ZI_CUT_BLOCKS, ZI_TRUNK_LAYERS = 2, 2
-PHASE29_WRITE_GB = 2.4  # at the cut depths (QI_CUT_BLOCKS, ZI_TRUNK_LAYERS)
+PHASE29_WRITE_GB = 1.7  # at the cut depths (QI_CUT_BLOCKS, ZI_TRUNK_LAYERS)
 # phases 3 and 7 at Qwen-Image's and Z-Image's joint attention (D = 128,
 # unmasked: the JAX families drop the mask); held at QI_CHECK_HEADS heads
 QI_KERNEL_CASES = (
@@ -876,7 +930,7 @@ QI_CHECK_HEADS = 2
 # preset HiDreamConfig() builds it: 16 double and 32 single blocks, 20 heads of
 # 128, 4 experts top-2 with a shared expert; 17.1B parameters) at
 # HD_CUT_BLOCKS of its 16 + 32 blocks in a run of every phase, with phase 14's
-# CLIP-L, phase 19's CLIP-G (4 of its 32 layers), phase 15's T5-XXL (6 of 24)
+# CLIP-L, phase 19's CLIP-G (4 of its 32 layers), phase 15's T5-XXL (2 of 24)
 # and a seeded Llama-3.1-8B trunk (``llama3_8b``: 4096 wide, 32 heads, 8 kv
 # heads, FFN 14,336, 128,256 tokens) at LLAMA_FILE_LAYERS of its 32 layers, at
 # 1024 px: 4,096 image tokens, 128 T5, 128 Llama[last] and the block's 128
@@ -887,30 +941,71 @@ HD_JOINT = QI_IMG + 3 * HD_TEXT
 HD_GUIDANCE, HD_SIGMA = 5.0, 0.7
 HD_TRAIN_STEPS, HD_TRAIN_IMAGES = 6, 4
 LLAMA_FILE_LAYERS = 2
-PHASE30_WRITE_GB = 2.7  # at the cut depths (HD_CUT_BLOCKS, LLAMA_FILE_LAYERS)
+PHASE30_WRITE_GB = 2.0  # at the cut depths (HD_CUT_BLOCKS, LLAMA_FILE_LAYERS)
 HD_KERNEL_CASES = (
     ("hd_joint", 20, HD_JOINT, HD_JOINT, 128),
 )
 HD_CHECK_HEADS = 2
+# phase 31: FLUX.2-dev (black-forest-labs/FLUX.2-dev's transformer/ as the JAX
+# preset Flux2Config() builds it: 8 double and 48 single blocks, 6144 wide, 48
+# heads of 128, 32 latent channels, guidance embedding; 32.2B parameters) at
+# F2_CUT_BLOCKS of its 8 + 48 blocks in a run of every phase, with a seeded
+# Mistral-3 24B trunk at MISTRAL_LAYERS of its 40 layers built in memory whose
+# three taps (the embeddings and both layers' outputs) make the 15,360
+# features, at 1024 px: 128 x 128 x 32 latents, 4,096 image tokens after 512
+# text tokens (4,608 joint, unmasked); the klein width at 1 + 1 blocks
+F2_PROMPT = "a lighthouse on a basalt cliff at dusk"
+F2_TEXT = 512
+F2_IMG = (RESOLUTION // 16) ** 2
+F2_JOINT = F2_IMG + F2_TEXT
+F2_GUIDANCE, F2_SIGMA = 4.0, 0.7
+F2_TRAIN_STEPS = 6
+F2_TAPS = "[-3, -2, -1]"
+MISTRAL_LAYERS = 2
+PHASE31_WRITE_GB = 2.35  # at the cut depth (F2_CUT_BLOCKS); 2.29 GB is the file
+F2_KERNEL_CASES = (
+    ("f2_joint", 48, F2_JOINT, F2_JOINT, 128),
+)
+F2_CHECK_HEADS = 2
+# phase 32: Kolors (Kwai-Kolors/Kolors-diffusers' unet/ as the JAX family
+# builds it: SDXL's UNet with the cross-attention 4,096 wide and a 4,096-wide
+# pooled vector in addition_embed_dim 5,632; 2.94B parameters) with the
+# level-2 transformer depth cut to KOLORS_CUT_LAYERS in a run of every phase,
+# a seeded ChatGLM3-6B trunk at GLM_FILE_LAYERS of its 28 layers, at 1024 px:
+# SDXL's three attention levels over 16,384, 4,096 and 1,024 tokens, the
+# cross-attention against 256 unmasked ChatGLM keys
+KOLORS_PROMPT = "a lighthouse on a basalt cliff at dusk"
+KOLORS_TEXT = 256
+KOLORS_GUIDANCE, KOLORS_PARITY_T = 5.0, 500
+KOLORS_TRAIN_STEPS, KOLORS_TRAIN_IMAGES = 6, 4
+KOLORS_CUT_LAYERS = (1, 2, 2)
+GLM_FILE_LAYERS = 2
+PHASE32_WRITE_GB = 2.1  # at the cut depths (KOLORS_CUT_LAYERS, GLM_FILE_LAYERS): 1.69 GB of files
+KOLORS_KERNEL_CASES = tuple(case for level, (heads, seq) in enumerate(SDXL_LEVELS) for case in (
+    (f"kolors_l{level}_self", heads, seq, seq, 64), (f"kolors_l{level}_cross", heads, seq, KOLORS_TEXT, 64)))
+KOLORS_CHECK_HEADS = 2
 # the depth of the earlier families' seeded files in a run of every phase
 # (full width; the kernels' shapes depend on width and tokens, not depth),
-# cut to make room for phases 25-30 in the write budget: SD3.5 Large at 6 of
-# its 38 blocks, AuraFlow v0.3 at 2 + 4 of its 4 + 32, Wan 2.1 T2V-1.3B at 10
-# of 30, LTX-Video 2B at 10 of 28, Chroma at 2 + 4 of its 19 + 38 (its kernel
-# shapes are Flux's), Gemma-2 2B at GEMMA_FILE_LAYERS of 26, Kandinsky 5.0
+# cut to make room for phases 25-32 in the write budget: SD3.5 Large at 2 of
+# its 38 blocks (6 before phases 31-32), AuraFlow v0.3 at 2 + 4 of its 4 + 32,
+# Wan 2.1 T2V-1.3B at 10 of 30, LTX-Video 2B at 10 of 28, Chroma at 1 + 2 of
+# its 19 + 38 (2 + 4 before phases 31-32; its kernel shapes are Flux's),
+# Gemma-2 2B at GEMMA_FILE_LAYERS of 26, Kandinsky 5.0
 # Lite at 16 of its 32 visual blocks (room and time for phases 29-30),
-# HunyuanVideo 1.5 at 6 of 54, Qwen-Image at 4 of 60 and HiDream-I1
-# at 2 + 2 of its 16 + 32; a run that names one of these phases (--phases)
+# HunyuanVideo 1.5 at 6 of 54, Qwen-Image at 2 of 60 and HiDream-I1 at 1 + 1
+# of its 16 + 32 (4 and 2 + 2 before phases 31-32 needed the room), FLUX.2 at
+# 1 + 1 of its 8 + 48; a run that names one of these phases (--phases)
 # writes it at full depth where its writes leave room
-SD3_CUT_BLOCKS = 6
+SD3_CUT_BLOCKS = 2
 AURA_CUT_BLOCKS = (2, 4)
 WAN_CUT_BLOCKS = 10
 LTX_CUT_BLOCKS = 10
-CHROMA_CUT_BLOCKS = (2, 4)
+CHROMA_CUT_BLOCKS = (1, 2)
 K5_CUT_BLOCKS = 16
 HY_CUT_BLOCKS = 6
-QI_CUT_BLOCKS = 4
-HD_CUT_BLOCKS = (2, 2)
+QI_CUT_BLOCKS = 2
+HD_CUT_BLOCKS = (1, 1)
+F2_CUT_BLOCKS = (1, 1)
 # the most a run may write, deleted files included (45 GiB), and the margin
 # below it for what this process's count does not see (the server jobs' child
 # processes in phase 18, nvcc's outputs); the last phase checks the run's
@@ -928,18 +1023,20 @@ INT8_ROWS = 4608  # 4096 image + 512 text tokens
 DOT_REL = 2.0 ** -7
 _STARTED = time.perf_counter()
 # what each family phase writes at its depth in a run of every phase (a little above
-# what a run of every phase writes), for the reservations each of phases 19-30
+# what a run of every phase writes), for the reservations each of phases 19-32
 # makes for the later phases of the run
-PHASE_WRITE_GB = {19: 2.3, 20: 3.2, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB, 23: PHASE23_WRITE_GB,
+PHASE_WRITE_GB = {19: 1.5, 20: 3.2, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB, 23: PHASE23_WRITE_GB,
                   24: PHASE24_WRITE_GB, 25: PHASE25_WRITE_GB, 26: PHASE26_WRITE_GB, 27: PHASE27_WRITE_GB,
-                  28: PHASE28_WRITE_GB, 29: PHASE29_WRITE_GB, 30: PHASE30_WRITE_GB}
+                  28: PHASE28_WRITE_GB, 29: PHASE29_WRITE_GB, 30: PHASE30_WRITE_GB, 31: PHASE31_WRITE_GB,
+                  32: PHASE32_WRITE_GB}
 # the phases whose files (or, for 5 and 6, whose runtime) a phase needs before
 # it; 1, 2, 3 and 7 run in every run (the build, and the kernels line's times)
 PHASE_NEEDS = {4: (14, 15, 16), 5: (4,), 6: (5,), 15: (14,), 16: (14,), 17: (14, 15, 16), 18: (17,),
                19: (14, 15, 16), 20: (19,), 21: (20,), 22: (20,), 23: (15, 16), 24: (15, 16), 25: (14, 15, 16),
-               26: (14, 16), 27: (14, 15, 16), 28: (14, 15), 29: (14, 16), 30: (14, 15, 16, 19)}
+               26: (14, 16), 27: (14, 15, 16), 28: (14, 15), 29: (14, 16), 30: (14, 15, 16, 19), 31: (),
+               32: (14, 16)}
 ALWAYS = (1, 2, 3, 7)
-LAST_PHASE = 30
+LAST_PHASE = 32
 # the phases named on the command line (None: every phase) and those the run takes
 RUN = {"requested": None, "phases": set(range(1, LAST_PHASE + 1))}
 
@@ -1264,6 +1361,10 @@ def kernel_cases():
     marks.append(("qwen_image", time.perf_counter()))
     times["hidream"], hd_entries = long_forward_cases(HD_KERNEL_CASES, HD_CHECK_HEADS, 940, errors)
     marks.append(("hidream", time.perf_counter()))
+    times["flux2"], f2_entries = long_forward_cases(F2_KERNEL_CASES, F2_CHECK_HEADS, 980, errors)
+    marks.append(("flux2", time.perf_counter()))
+    times["kolors"], kolors_entries = long_forward_cases(KOLORS_KERNEL_CASES, KOLORS_CHECK_HEADS, 1020, errors)
+    marks.append(("kolors", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
@@ -1276,7 +1377,8 @@ def kernel_cases():
     return {"max_abs_err": worst, "ms": times["kernel_masked_ms"], "plain_ms": times["plain_masked_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_masked_ms,
             "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}, fwd256_entry, \
-        {**wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries, **hd_entries}
+        {**wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries, **hd_entries,
+         **f2_entries, **kolors_entries}
 
 
 def backward_cases():
@@ -1404,6 +1506,10 @@ def backward_cases():
     marks.append(("qwen_image", time.perf_counter()))
     times["hidream"], hd_entries = long_backward_cases(HD_KERNEL_CASES, HD_CHECK_HEADS, 960, errors)
     marks.append(("hidream", time.perf_counter()))
+    times["flux2"], f2_entries = long_backward_cases(F2_KERNEL_CASES, F2_CHECK_HEADS, 1000, errors)
+    marks.append(("flux2", time.perf_counter()))
+    times["kolors"], kolors_entries = long_backward_cases(KOLORS_KERNEL_CASES, KOLORS_CHECK_HEADS, 1040, errors)
+    marks.append(("kolors", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
@@ -1416,7 +1522,7 @@ def backward_cases():
                                 "bound_by": bounds[(kernel, "masked")][1], **library}
         for kernel in ("dq", "dkv")
     }, **d256_entries, **wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries,
-        **hd_entries}
+        **hd_entries, **f2_entries, **kolors_entries}
 
 
 def _ddpm_inputs(seed, heads, sq, sk, dim, n):
@@ -3860,21 +3966,21 @@ def _per_shape(kernels, scale: int = 1) -> dict:
             for kernel in kernels}
 
 
-def _write_e4m3_transformer(root: str, shapes: dict, gen) -> tuple:
+def _write_e4m3_transformer(root: str, shapes: dict, gen, subfolder: str = "transformer") -> tuple:
     """Seeded weights of ``shapes`` taken to e4m3 on the card, written with the
-    port's writer as two diffusers shards under ``root/transformer``; returns
+    port's writer as two diffusers shards under ``root/subfolder``; returns
     the weights and the write seconds."""
     import torch
 
     from simpletuner_tpu_torch.models.weight_import import save_safetensors
 
-    os.makedirs(os.path.join(root, "transformer"))
+    os.makedirs(os.path.join(root, subfolder))
     weights = {k: v.to(torch.float8_e4m3fn) for k, v in seeded_weights(shapes, gen).items()}
     names = sorted(weights)
     t0 = time.perf_counter()
     for shard, part in enumerate((names[: len(names) // 2], names[len(names) // 2:])):
         save_safetensors({k: weights[k] for k in part}, os.path.join(
-            root, "transformer", f"diffusion_pytorch_model-0000{shard + 1}-of-00002.safetensors"))
+            root, subfolder, f"diffusion_pytorch_model-0000{shard + 1}-of-00002.safetensors"))
     return weights, time.perf_counter() - t0
 
 
@@ -5338,11 +5444,12 @@ def qwen_trunk(paths: dict, number: int) -> dict:
     return paths["qwen"]
 
 
-def _llm_text_report(spec, root: str, config, tokens: int, prompts: list) -> dict:
+def _llm_text_report(spec, root: str, config, tokens: int, prompts: list, encoder=None) -> dict:
     """``prompts`` at ``tokens`` through the decoder-LLM encoder the trainer
-    builds from ``root`` (bf16 compute; ``config`` the one it must read):
-    load seconds, prompts/s after a warm-up, and the bf16 states against the
-    f32 module on the same weights and tokens (within ``LLM_BF16_REL_L2``)."""
+    builds from ``root`` (or ``encoder``, built in memory; bf16 compute;
+    ``config`` the one it must read): load seconds, prompts/s after a
+    warm-up, and the bf16 states against the f32 module on the same weights
+    and tokens (within ``LLM_BF16_REL_L2``)."""
     import gc
 
     import numpy as np
@@ -5351,10 +5458,12 @@ def _llm_text_report(spec, root: str, config, tokens: int, prompts: list) -> dic
     from simpletuner_tpu_torch.models.llm_encoder import LLMEncoder
     from simpletuner_tpu_torch.models.text_encoders import LLMTextEncoder, load_text_encoders
 
-    t0 = time.perf_counter()
-    (encoder,) = load_text_encoders([spec], pretrained_path=root, device="cuda")
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
+    load_s = None
+    if encoder is None:
+        t0 = time.perf_counter()
+        (encoder,) = load_text_encoders([spec], pretrained_path=root, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
     if not isinstance(encoder, LLMTextEncoder) or encoder.config != config or \
             encoder.model.embed_tokens.dtype != torch.bfloat16:
         raise RuntimeError(f"the {spec.family} builder gave {type(encoder).__name__} {encoder.config}")
@@ -6268,9 +6377,8 @@ def hidream_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
     with the kernels against the plain attention; 6 graphed LoRA steps
     through ``Trainer.run()`` on an int8 base with the load-balancing loss on,
     ``moe_gate_loss`` logged at every step and a replay's equal to the eager
-    step's bitwise, the profiled replay held to the capture's launches.  Last,
-    the run's writes against its limit.  Returns the launches per step of
-    each kernel at the joint shape."""
+    step's bitwise, the profiled replay held to the capture's launches.
+    Returns the launches per step of each kernel at the joint shape."""
     import gc
 
     import numpy as np
@@ -6412,15 +6520,577 @@ def hidream_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
         raise RuntimeError(f"hidream trainer: launches per step by shape {by_shape}")
     train.update({"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
                   "flop_checks": flop_checks})
-    writes = check_run_writes()
     phase("30 hidream", config="HiDream-ai/HiDream-I1-Full transformer/ as the JAX preset HiDreamConfig() builds it",
           params=params, hidden=arch.hidden_size, heads=[arch.num_heads, arch.head_dim],
           experts=[arch.num_experts, arch.top_k], depth=[[arch.depth_double, arch.depth_single],
                                                         [full.depth_double, full.depth_single]],
           tokens={"image": QI_IMG, "t5": HD_TEXT, "llama": HD_TEXT, "joint": HD_JOINT}, files=files,
           text_encoder=text, imported=imported, render=render, parity=parity, train=train,
-          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device, **writes)
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device)
     return {"hd_joint": {k: v.get(joint_key) for k, v in by_shape.items()}}
+
+
+def flux2_step_flops(arch, batch: int, img_tokens: int, txt_tokens: int) -> int:
+    """Model FLOPs of one FLUX.2 train step in bench.py's convention (forward
+    x 3; remat recompute is hardware work, not model work), counted from the
+    config: the time (and guidance) MLPs, the three shared modulations and
+    ``final_mod`` (per sample), ``patch_in`` and ``txt_in``; per double block
+    q / k / v / out and the SwiGLU feed-forward (fused gate and up) over every
+    token and the joint attention's two products; per single block the fused
+    ``qkv_mlp`` and ``proj_out`` over every token and the attention; the head."""
+    d, inner, mlp = arch.hidden_size, arch.num_heads * arch.head_dim, arch.mlp_hidden
+    packed = arch.patch_size ** 2 * arch.in_channels
+    joint = img_tokens + txt_tokens
+    fwd = (2 if arch.guidance_embed else 1) * 2 * (256 * d + d * d) + 2 * d * (6 * d + 6 * d + 3 * d + 2 * d)
+    fwd += 2 * img_tokens * packed * d + 2 * txt_tokens * arch.txt_in_features * d
+    fwd += arch.depth_double * (joint * (8 * d * inner + 6 * d * mlp) + 4 * joint * joint * inner)
+    fwd += arch.depth_single * (joint * 2 * d * (4 * inner + 3 * mlp) + 4 * joint * joint * inner)
+    fwd += 2 * img_tokens * d * packed
+    return batch * fwd * 3
+
+
+def _graph_vs_eager(model, module, batch: dict, kernels, steps: int, expected: dict, flops: float) -> dict:
+    """LoRA steps of ``model``'s ``module`` on ``batch`` through
+    ``build_train_step`` and ``jit_train_step``, as ``Trainer.run()`` builds
+    them (the step captured as one CUDA graph): two eager runs of 2 steps and
+    2 replays from one snapshot of the state and the generator (the replays'
+    losses, grad norms and LoRA tensors no further from the first eager run
+    than the second is: bitwise where the eager runs are), then ``steps``
+    replays timed (s/step median, MFU of ``flops``, peak GiB) and one
+    profiled (``bench.replay_launches``: device ms by bucket, idle share, the
+    launches held to the capture's and to ``expected`` a step); the
+    wrappers' launches by shape per step (they count the two warm-up steps
+    and the capture)."""
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench import replay_launches
+    from simpletuner_tpu_torch.training.optimizers import get_optimizer
+    from simpletuner_tpu_torch.training.schedules import get_lr_schedule
+    from simpletuner_tpu_torch.training.train_state import (
+        build_train_step, create_train_state, jit_train_step, state_tensors,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    schedule = get_lr_schedule(model.config, steps)
+    tx = get_optimizer(model.config, schedule)
+    state = create_train_state(model, module, tx, quantize_mode=model.base_precision)
+    step_fn = build_train_step(model, tx, schedule)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    with torch.no_grad():
+        saved = [x.clone() for x in state_tensors(state)]
+    rng = gen.get_state()
+
+    def restore():
+        with torch.no_grad():
+            for tensor, value in zip(state_tensors(state), saved):
+                tensor.copy_(value)
+        gen.set_state(rng)
+
+    def trajectory(step):
+        current, losses, norms = state, [], []
+        for _ in range(2):
+            current, metrics = step(current, batch, gen)
+            losses.append(metrics["loss"])
+            norms.append(metrics["grad_norm"])
+        return torch.stack(losses), torch.stack(norms), torch.cat([p.detach().flatten()
+                                                                    for p in current.trainable.values()]).clone()
+
+    def max_diff(a, b):
+        return [float((x.float() - y.float()).abs().max()) for x, y in zip(a, b)]
+
+    first = trajectory(step_fn)
+    restore()
+    eager_diff = max_diff(first, trajectory(step_fn))
+    restore()
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    t0 = time.perf_counter()
+    graphed = jit_train_step(step_fn, state, batch, gen)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    by_shape = _per_shape(kernels, 3)
+    captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
+    replayed = trajectory(graphed)
+    graph_diff = max_diff(replayed, first)
+    if any(g > e for g, e in zip(graph_diff, eager_diff)) or not torch.isfinite(replayed[0]).all():
+        raise RuntimeError(f"{model.NAME} graphed step: replays {replayed[0].tolist()} differ from the eager steps "
+                           f"{first[0].tolist()} by {graph_diff} (two eager runs: {eager_diff})")
+    step_s, losses = [], []
+    current = state
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        current, metrics = graphed(current, batch, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    profile = replay_launches(lambda: graphed(current, batch, gen), captured,
+                              {kernel.name: kernel.name for kernel in kernels})
+    device_launches = {kernel.name: profile["bucket_launches"][kernel.name] for kernel in kernels}
+    if device_launches != {k: captured[k] for k in device_launches} or device_launches != expected or \
+            not all(np.isfinite(losses)):
+        raise RuntimeError(f"{model.NAME} graphed step: the profiled replay launched {device_launches}, the "
+                           f"capture recorded {captured}, expected {expected}; losses {losses}")
+    median_s = float(np.median(step_s))
+    report = {"lora_params": sum(p.numel() for p in state.trainable.values()), "losses": losses,
+              "grad_norm": float(metrics["grad_norm"]), "step_s": step_s, "s_per_step_median": median_s,
+              "flops_per_step": flops, "mfu": flops / median_s / PEAK_BF16_FLOPS, "capture_s": capture_s,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "bitwise_equal_to_eager": graph_diff == [0.0, 0.0, 0.0], "graph_vs_eager_max_diff": graph_diff,
+              "eager_vs_eager_max_diff": eager_diff, "launches_captured": captured,
+              "launches_profiled_replay": device_launches, "launches_per_step_by_shape": by_shape,
+              "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "launch_attempts", "device_ms",
+                                                  "traced_event_ms", "idle_share_traced", "top_kernels")}}
+    del graphed, state, current, saved
+    return report
+
+
+def flux2_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
+    """Phase 31: FLUX.2-dev at the JAX preset's full width and ``depth``
+    (double, single) of its 8 + 48 blocks: a seeded e4m3 diffusers
+    transformer and a word-level tokenizer; a seeded Mistral-3 24B trunk at
+    ``MISTRAL_LAYERS`` layers built in memory, whose three taps
+    (``F2_TAPS``) through ``Flux2.encode_text`` make the 15,360 features of
+    16 prompts at 512 tokens (prompts/s, bf16 against f32); the import held
+    bitwise; one forward with the kernels against the plain attention; the
+    guidance-distilled flow Euler loop over 32-channel latents (s per step,
+    no decode); 6 graphed LoRA steps on an int8 base (``_graph_vs_eager``).
+    Then the klein width at 1 + 1 blocks built in memory: one parity forward
+    and 2 graphed steps; in a run that names the phase, the 6 graphed steps
+    at all 8 + 48 blocks built in memory too.  Returns the launches per step
+    of each kernel at the joint shape."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import flux2_checkpoint_shapes
+    from simpletuner_tpu_torch.models.flux2 import Flux2, Flux2Config, Flux2Transformer
+    from simpletuner_tpu_torch.models.layers import init_adapters, init_parameters
+    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoder, LLMEncoderConfig
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.text_encoders import LLMTextEncoder, _tokenizer
+    from simpletuner_tpu_torch.models.weight_import import flux2_params_from_diffusers, load_transformer_params
+    from simpletuner_tpu_torch.schedulers.sampling import sample_loop
+    from simpletuner_tpu_torch.training.validation import build_scheduler
+
+    start = time.perf_counter()
+    work = paths["work"]
+    for out in ("hidream", "hd_data", "hd_train", "hd_render", "hd_cache"):  # phase 30's: disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = Flux2Config.tiny()
+    narrow = dataclasses.replace(tiny, num_heads=3, depth_double=2, depth_single=1, in_channels=3, mlp_ratio=2.0,
+                                 txt_in_features=20, axes_dim=(2, 6, 4, 4), guidance_embed=False)
+    flop_checks = _flop_checks(flux2_step_flops, Flux2Transformer, [
+        (arch, (torch.zeros(2, h, w, arch.in_channels), torch.full((2,), 0.5),
+                torch.zeros(2, txt, arch.txt_in_features), torch.full((2,), 4.0) if arch.guidance_embed else None),
+         ((h // 2) * (w // 2), txt))
+        for arch, (h, w), txt in ((tiny, (6, 8), 5), (narrow, (4, 10), 3))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    full = Flux2Config()
+    if (full.hidden_size, full.num_heads, full.head_dim, full.depth_double, full.depth_single, full.in_channels,
+            full.txt_in_features, full.mlp_hidden, full.axes_dim, full.rope_theta, full.guidance_embed) != \
+            (6144, 48, 128, 8, 48, 32, 15360, 18432, (32, 32, 32, 32), 2000.0, True):
+        raise RuntimeError(f"not the JAX preset of FLUX.2-dev: {full}")
+    arch = dataclasses.replace(full, depth_double=depth[0], depth_single=depth[1])
+    shapes = flux2_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.2 + _reserved(31) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"flux2: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
+                           f"it and the later phases write {file_bytes / 1e9 + 0.2 + _reserved(31):.1f} GB of the "
+                           f"{RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded transformer (two e4m3 shards) and a word-level tokenizer
+    f2_dir = os.path.join(work, "flux2")
+    weights, write_s = _write_e4m3_transformer(f2_dir, shapes, gen)
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    write_gemma_tokenizer(os.path.join(f2_dir, "tokenizer"), " ".join(TRAIN_CAPTIONS + [F2_PROMPT] + prompts).split())
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "written_gb_before": written_before,
+             "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) Mistral-3 24B at full width and MISTRAL_LAYERS layers, seeded in
+    # memory; 512-token prompts with the three taps through Flux2.encode_text
+    mistral_full = LLMEncoderConfig.mistral3_24b()
+    if (mistral_full.hidden_size, mistral_full.num_layers, mistral_full.num_heads, mistral_full.num_kv_heads,
+            mistral_full.head_dim, mistral_full.intermediate_size, mistral_full.vocab_size,
+            mistral_full.rope_theta) != (5120, 40, 32, 8, 128, 32768, 131072, 1e8):
+        raise RuntimeError(f"not Mistral-3 24B's trunk: {mistral_full}")
+    mistral = dataclasses.replace(mistral_full, num_layers=MISTRAL_LAYERS)
+    spec = Flux2.TEXT_ENCODER_CONFIGURATION[0]
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        trunk = LLMEncoder(mistral)
+    trunk.reset_parameters(torch.Generator(device=dev).manual_seed(310))
+    encoder = LLMTextEncoder(spec, trunk.eval(), _tokenizer("AutoTokenizer", f2_dir, "tokenizer"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    text = _llm_text_report(spec, None, mistral, F2_TEXT, prompts, encoder=encoder)
+    values = {"model_family": "flux2", "model_type": "full", "flux_guidance_value": F2_GUIDANCE,
+              "custom_text_encoder_intermediary_layers": F2_TAPS, "mixed_precision": "bf16"}
+    tapping = Flux2(config_namespace(values))
+    tapping.attach_text_encoders([encoder])
+    tapping.encode_text(prompts[:2])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tapped = np.stack([p["text_embeds"] for p in tapping.encode_text(prompts)])
+    taps_s = time.perf_counter() - t0
+    with torch.device(dev):
+        trunk32 = LLMEncoder(mistral, dtype=torch.float32)
+    trunk32.load_state_dict({k: v.float() for k, v in trunk.state_dict().items()})
+    tapping.attach_text_encoders([LLMTextEncoder(spec, trunk32.eval(), encoder.tokenizer)])
+    tapped32 = np.stack([p["text_embeds"] for p in tapping.encode_text(prompts)])
+    taps_err = rel_l2(torch.from_numpy(tapped), torch.from_numpy(tapped32))
+    del trunk32, tapped32
+    if tapped.shape != (TEXT_PROMPTS, F2_TEXT, 3 * mistral.hidden_size) or not np.isfinite(tapped).all() or \
+            taps_err > LLM_BF16_REL_L2:
+        raise RuntimeError(f"flux2 text: {tapped.shape}, taps bf16 vs f32 rel L2 {taps_err} (<= {LLM_BF16_REL_L2})")
+    text.update({"layers": [MISTRAL_LAYERS, mistral_full.num_layers], "built_in_memory_s": build_s,
+                 "taps": F2_TAPS, "taps_features": int(tapped.shape[-1]), "taps_encode_s": taps_s,
+                 "taps_prompts_per_s": TEXT_PROMPTS / taps_s, "taps_bf16_vs_f32_rel_l2": taps_err})
+    tapping.attach_text_encoders([encoder])
+    latent = RESOLUTION // 8
+    batch = _text_batch(tapping, F2_PROMPT, (1, latent, latent, 32), dev)
+    if {k: tuple(v.shape) for k, v in batch.items()} != {"latents": (1, latent, latent, 32),
+                                                         "text_embeds": (1, F2_TEXT, 15360)}:
+        raise RuntimeError(f"flux2: the collated batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    del tapped, encoder, trunk, tapping
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the import, bitwise
+    model = ModelRegistry.create("flux2", config_namespace(values))
+    if model.arch != arch:
+        raise RuntimeError(f"flux2: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, f2_dir, weights, flux2_params_from_diffusers, file_bytes)
+    params = imported["params"]
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the parity forward over the 4,608 joint tokens, the text unmasked
+    joint_key = f"48x{F2_JOINT}x{F2_JOINT}x128"
+    per_forward = depth[0] + depth[1]
+    noise = torch.randn((1, latent, latent, 32), generator=gen, device=dev)
+    parity = {**_parity_forward(model, module, batch, noise, F2_SIGMA), "tokens": F2_JOINT}
+
+    # (f) the guidance-distilled flow Euler loop (one forward a step), no decode
+    forward_s = []
+
+    def before(mod, args, kwargs):
+        torch.cuda.synchronize()
+        forward_s.append(-time.perf_counter())
+
+    def after(mod, args, kwargs, out):
+        torch.cuda.synchronize()
+        forward_s[-1] += time.perf_counter()
+
+    hooks = [module.register_forward_pre_hook(before, with_kwargs=True),
+             module.register_forward_hook(after, with_kwargs=True)]
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    try:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            latents = sample_loop(build_scheduler(model, STEPS), model.denoise_fn(module, model.inference_conditioning(
+                batch)), torch.randn((1, latent, latent, 32), generator=gen, device=dev))
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    finally:
+        for hook in hooks:
+            hook.remove()
+    launches = {kernel.name: kernel.launches for kernel in kernels}
+    if launches != {"flash_fwd": STEPS * per_forward, "flash_bwd_dq": 0, "flash_bwd_dkv": 0} or \
+            _per_shape(kernels)["flash_fwd"] != {joint_key: STEPS * per_forward} or len(forward_s) != STEPS or \
+            tuple(latents.shape) != (1, latent, latent, 32) or not torch.isfinite(latents).all():
+        raise RuntimeError(f"flux2 sampler: launches {launches} ({_per_shape(kernels)}), {len(forward_s)} forwards, "
+                           f"latents {tuple(latents.shape)} finite {bool(torch.isfinite(latents).all())}")
+    sampler = {"steps": STEPS, "guidance": F2_GUIDANCE, "loop_s": loop_s, "forward_s": forward_s,
+               "s_per_euler_step": sum(forward_s[1:]) / (STEPS - 1), "launches": launches,
+               "decode": "none: no VAE of either package decodes FLUX.2's 32 channels (ROADMAP Queue 3)"}
+    del module, latents
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) 6 graphed rank-16 LoRA steps on an int8 base, every block checkpointed
+    train_values = {**values, "model_type": "lora", "lora_rank": 16, "base_model_precision": "int8-quanto",
+                    "quantized_matmul": "full", "gradient_checkpointing": True, "optimizer": "adamw",
+                    "learning_rate": 1e-4, "lr_scheduler": "constant", "max_train_steps": F2_TRAIN_STEPS, "seed": 42}
+    train_model = Flux2(config_namespace(train_values))
+    with torch.device(dev):
+        train_module = load_transformer_params(train_model, init_adapters(train_model.create_module(), gen), f2_dir)
+    batch = {**batch, "latents": torch.randn((1, latent, latent, 32), generator=gen, device=dev)}
+    expected = {"flash_fwd": 2 * per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
+    train = _graph_vs_eager(train_model, train_module, batch, kernels, F2_TRAIN_STEPS, expected,
+                            flux2_step_flops(arch, 1, F2_IMG, F2_TEXT))
+    by_shape = train["launches_per_step_by_shape"]
+    if any(by_shape[k] != {joint_key: n} for k, n in expected.items()):
+        raise RuntimeError(f"flux2 train: launches per step by shape {by_shape}")
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                  "lora_targets": "every adapter-carrying linear (the JAX family's default)",
+                  "flop_checks": flop_checks})
+    del train_module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (h) the klein width (24 heads, no guidance) at 1 + 1 blocks built in memory
+    klein_values = {**values, "model_flavour": "klein"}
+    kmodel = Flux2(config_namespace(klein_values))
+    karch = dataclasses.replace(Flux2Config.klein(), depth_double=1, depth_single=1)
+    if kmodel.arch != karch or kmodel.arch.guidance_embed:
+        raise RuntimeError(f"flux2 klein: the family builds {kmodel.arch}, not {karch}")
+    with torch.device(dev):
+        kmodule = init_parameters(kmodel.create_module(), torch.Generator(device=dev).manual_seed(42))
+    klein_parity = {**_parity_forward(kmodel, kmodule, batch, noise, F2_SIGMA), "tokens": F2_JOINT}
+    del kmodule
+    ktrain_model = Flux2(config_namespace({**train_values, "model_flavour": "klein"}))
+    with torch.device(dev):
+        ktrain_module = init_parameters(ktrain_model.create_module(), torch.Generator(device=dev).manual_seed(42))
+    klein_key = f"24x{F2_JOINT}x{F2_JOINT}x128"
+    kexpected = {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    klein_train = _graph_vs_eager(ktrain_model, ktrain_module, batch, kernels, 2, kexpected,
+                                  flux2_step_flops(karch, 1, F2_IMG, F2_TEXT))
+    if any(klein_train["launches_per_step_by_shape"][k] != {klein_key: n} for k, n in kexpected.items()):
+        raise RuntimeError(f"flux2 klein train: launches by shape {klein_train['launches_per_step_by_shape']}")
+    del ktrain_module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (i) a run that names the phase: the 6 graphed steps at all 8 + 48 blocks, built in memory
+    # (bf16 at 64 GB, then the int8 base at 32 GB; nothing written)
+    full_train = "not run: a run that names the phase (--phases 31) builds all 8 + 48 blocks in memory"
+    if RUN["requested"] is not None and 31 in RUN["requested"]:
+        fmodel = Flux2(config_namespace(train_values), arch=full)
+        with torch.device(dev):
+            fmodule = init_parameters(fmodel.create_module(), torch.Generator(device=dev).manual_seed(42))
+        n = full.depth_double + full.depth_single
+        fexpected = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+        full_train = _graph_vs_eager(fmodel, fmodule, batch, kernels, F2_TRAIN_STEPS, fexpected,
+                                     flux2_step_flops(full, 1, F2_IMG, F2_TEXT))
+        if any(full_train["launches_per_step_by_shape"][k] != {joint_key: v} for k, v in fexpected.items()):
+            raise RuntimeError(f"flux2 full-depth train: launches by shape {full_train['launches_per_step_by_shape']}")
+        full_train.update({"depth": [full.depth_double, full.depth_single], "base": "int8 (built in memory)"})
+        del fmodule
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("31 flux2", config="black-forest-labs/FLUX.2-dev transformer/ as the JAX preset Flux2Config() builds it",
+          params=params, hidden=arch.hidden_size, heads=[arch.num_heads, arch.head_dim],
+          depth=[[arch.depth_double, arch.depth_single], [full.depth_double, full.depth_single]],
+          tokens={"image": F2_IMG, "text": F2_TEXT, "joint": F2_JOINT}, latent_channels=arch.in_channels,
+          files=files, text_encoder=text, imported=imported, parity=parity, sampler=sampler, train=train,
+          klein={"config": "Flux2Config.klein() (24 heads, no guidance) built in memory", "depth": [[1, 1], [5, 20]],
+                 "params": sum(math.prod(v) for v in flux2_checkpoint_shapes(karch).values()),
+                 "parity": klein_parity, "train": klein_train},
+          full_depth_train=full_train, allocated_gib_before_phase=baseline_gib,
+          seconds=time.perf_counter() - start, device=device)
+    return {"f2_joint": {k: v.get(joint_key) for k, v in by_shape.items()}}
+
+
+def kolors_phase(paths: dict, kernels, device: str, layers: tuple) -> dict:
+    """Phase 32: Kolors at the JAX family's full width with ``layers`` the
+    transformer depth of its three levels: a seeded e4m3 diffusers UNet, a
+    seeded ChatGLM3-6B trunk at ``GLM_FILE_LAYERS`` layers with ChatGLM's
+    ``config.json``, a word-level tokenizer and phase 20's SDXL VAE (linked,
+    or written here): 256-token prompts through the ChatGLM encoder
+    (prompts/s, bf16 against f32); the import held bitwise; a 1024 px
+    true-CFG DDIM render with its launches by shape; one UNet forward with the
+    kernels against the plain attention; 6 graphed LoRA steps through
+    ``Trainer.run()`` (bf16 base, rank 16 on the attention projections, remat,
+    min-SNR) with the profiled replay held to the capture's launches by
+    shape.  Last, the run's writes against its limit.  Returns the launches
+    per step of each kernel at each of Kolors's attention shapes."""
+    import gc
+
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import unet_checkpoint_shapes, vae_checkpoint_shapes
+    from simpletuner_tpu_torch.models.kolors import Kolors
+    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoderConfig
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.unet import UNet2DCondition, UNetConfig, make_sdxl_added_cond
+    from simpletuner_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from simpletuner_tpu_torch.models.weight_import import save_safetensors, unet_params_from_diffusers
+
+    start = time.perf_counter()
+    work = paths["work"]
+    shutil.rmtree(os.path.join(work, "flux2"), ignore_errors=True)  # phase 31's: disk space
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = dataclasses.replace(UNetConfig.tiny_xl(), cross_attention_dim=32, addition_embed_dim=6 * 8 + 32)
+    wider = dataclasses.replace(tiny, block_out_channels=(32, 64, 64), transformer_layers=(1, 2, 3),
+                                cross_attention_blocks=(True, True, True), cross_attention_dim=24,
+                                addition_embed_dim=6 * 8 + 20)
+    flop_checks = _flop_checks(sdxl_step_flops, UNet2DCondition, [
+        (arch, (torch.zeros(2, h, w, 4), torch.full((2,), 10.0), torch.zeros(2, txt, arch.cross_attention_dim),
+                make_sdxl_added_cond(torch.zeros(2, 6), torch.zeros(2, arch.addition_embed_dim - 48), 8)), (h, w, txt))
+        for arch, (h, w), txt in ((tiny, (8, 8), 7), (wider, (8, 12), 5))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(32)
+    full = dataclasses.replace(UNetConfig.sdxl(), cross_attention_dim=4096, addition_embed_dim=6 * 256 + 4096)
+    arch = dataclasses.replace(full, transformer_layers=layers)
+    shapes = unet_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 1.0 > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"kolors: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
+                           f"it writes {file_bytes / 1e9 + 1.0:.1f} GB of the {RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded UNet (two e4m3 shards in unet/), the ChatGLM trunk with
+    # ChatGLM's config.json, a word-level tokenizer, the SDXL VAE
+    k_dir = os.path.join(work, "kolors")
+    weights, write_s = _write_e4m3_transformer(k_dir, shapes, gen, subfolder="unet")
+    glm_full = LLMEncoderConfig.chatglm3_6b()
+    if (glm_full.hidden_size, glm_full.num_layers, glm_full.num_heads, glm_full.num_kv_heads, glm_full.head_dim,
+            glm_full.intermediate_size, glm_full.vocab_size, glm_full.fused_qkv, glm_full.qkv_bias,
+            glm_full.partial_rotary, glm_full.rope_interleaved) != (4096, 28, 32, 2, 128, 13696, 65024, True, True,
+                                                                     0.5, True):
+        raise RuntimeError(f"not ChatGLM3-6B's trunk: {glm_full}")
+    glm = dataclasses.replace(glm_full, num_layers=GLM_FILE_LAYERS)
+    glm_dir = os.path.join(k_dir, "text_encoder")
+    glm_write_s = write_llm_trunk(glm_dir, glm, gen, {})
+    with open(os.path.join(glm_dir, "config.json"), "w") as handle:  # THUDM/chatglm3-6b's keys
+        json.dump({"architectures": ["ChatGLMModel"], "model_type": "chatglm", "hidden_size": glm.hidden_size,
+                   "ffn_hidden_size": glm.intermediate_size, "num_layers": glm.num_layers,
+                   "num_attention_heads": glm.num_heads, "multi_query_attention": True,
+                   "multi_query_group_num": glm.num_kv_heads, "kv_channels": glm.head_dim,
+                   "layernorm_epsilon": glm.rms_eps, "padded_vocab_size": glm.vocab_size, "add_qkv_bias": True,
+                   "add_bias_linear": False, "rmsnorm": True, "original_rope": True, "seq_length": 8192,
+                   "torch_dtype": "float8_e4m3fn"}, handle)
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    write_gemma_tokenizer(os.path.join(k_dir, "tokenizer"),
+                          " ".join(TRAIN_CAPTIONS + [KOLORS_PROMPT] + prompts).split())
+    sdxl_vae = os.path.join(work, "sdxl", "vae")
+    if os.path.isdir(sdxl_vae):
+        _link_tree(sdxl_vae, os.path.join(k_dir, "vae"))
+    else:
+        with torch.device(dev):
+            vae = AutoencoderKL(VAEConfig.sdxl(), torch.bfloat16)
+        os.makedirs(os.path.join(k_dir, "vae"))
+        save_safetensors(seeded_weights(vae_checkpoint_shapes(vae), gen),
+                         os.path.join(k_dir, "vae", "diffusion_pytorch_model.safetensors"))
+        del vae
+    files = {"unet_gb": file_bytes / 1e9, "unet_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "glm_layers": [GLM_FILE_LAYERS, glm_full.num_layers],
+             "glm_write_s": glm_write_s, "vae": "phase 20's, linked" if os.path.isdir(sdxl_vae) else "seeded here",
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) 256-token prompts through the ChatGLM encoder the trainer builds
+    text = _llm_text_report(Kolors.TEXT_ENCODER_CONFIGURATION[0], k_dir, glm, KOLORS_TEXT, prompts)
+
+    # (d) the import, bitwise
+    model = ModelRegistry.create("kolors", config_namespace({"model_family": "kolors", "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"kolors: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, k_dir, weights, unet_params_from_diffusers, file_bytes)
+    params = imported["params"]
+    del weights, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the true-CFG DDIM render: every transformer block's self- and
+    # cross-attention at its level's shape, two forwards a step
+    levels = len(arch.block_out_channels)
+    per_level = [arch.depth_at(level) * (2 * arch.layers_per_block + 1) + (arch.depth_at(level) if level == levels - 1
+                                                                          else 0) for level in range(levels)]
+    shape_keys = {}
+    for level, (heads, seq) in enumerate(SDXL_LEVELS):
+        shape_keys[f"kolors_l{level}_self"] = (f"{heads}x{seq}x{seq}x64", per_level[level])
+        shape_keys[f"kolors_l{level}_cross"] = (f"{heads}x{seq}x{KOLORS_TEXT}x64", per_level[level])
+    per_forward = sum(n for _, n in shape_keys.values())
+    config_path = os.path.join(work, "kolors_render.json")
+    with open(config_path, "w") as handle:
+        json.dump({"model_family": "kolors", "model_type": "full", "pretrained_model_name_or_path": k_dir,
+                   "mixed_precision": "bf16", "text_encoder_precision": "bf16", "vae_dtype": "bf16",
+                   "validation_resolution": RESOLUTION, "validation_seed": 42, "seed": 42,
+                   "validation_guidance": KOLORS_GUIDANCE}, handle)
+    t0 = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "kolors_render"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    timed = _timed_render(runtime, kernels, KOLORS_PROMPT, KOLORS_GUIDANCE)
+    render = _render_report(timed, per_forward, KOLORS_GUIDANCE, init_s)
+    if timed["launches_by_shape"]["flash_fwd"] != {key: 2 * STEPS * n for key, n in shape_keys.values()}:
+        raise RuntimeError(f"kolors render: launches by shape {timed['launches_by_shape']}")
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "kolors" or model.is_flow:
+        raise RuntimeError(f"kolors: the runtime built {model.NAME} {model.arch}")
+
+    # (f) one UNet forward, kernels against the plain attention (the ChatGLM states unmasked)
+    latent = RESOLUTION // 8
+    batch = _text_batch(model, KOLORS_PROMPT, (1, latent, latent, 4), dev)
+    collated = {k: tuple(v.shape) for k, v in batch.items()}
+    if collated != {"latents": (1, latent, latent, 4), "text_embeds": (1, KOLORS_TEXT, 4096),
+                    "pooled_embeds": (1, 4096)}:
+        raise RuntimeError(f"kolors: the collated batch {collated}")
+    model.text_encoders = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    noise = torch.randn((1, latent, latent, 4), generator=gen, device=dev)
+    parity = {**_parity_forward(model, module, batch, noise, KOLORS_PARITY_T), "t": KOLORS_PARITY_T}
+    parity.pop("sigma")
+    del runtime, module, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) Trainer.run(): bf16 base, rank-16 LoRA on the attention projections,
+    # remat, min-SNR epsilon, 6 graphed steps on four of phase 16's JPEGs
+    def check(trainer) -> dict:
+        batch = trainer._example_batch()
+        conditioning = {k: tuple(v.shape) for k, v in batch.items() if "embeds" in k or "mask" in k}
+        targets = {name.rsplit("/", 2)[-2] for name in trainer._state.trainable}
+        if trainer.model.arch != arch or trainer.vae.config != VAEConfig.sdxl() or \
+                conditioning != {"text_embeds": (1, KOLORS_TEXT, 4096), "pooled_embeds": (1, 4096)} or \
+                targets != {"to_q", "to_k", "to_v", "to_out"}:
+            raise RuntimeError(f"kolors trainer: arch {trainer.model.arch}, VAE {trainer.vae.config}, batch "
+                               f"{conditioning}, adapters on {targets}")
+        return {"vae": "VAEConfig.sdxl() (4 latent channels)", **_graph_matches_eager(trainer, ("loss", "grad_norm"))}
+
+    data = _square_jpegs(work, "kolors_data", KOLORS_TRAIN_IMAGES)
+    cache = os.path.join(work, "kolors_cache")
+    config = _image_train_config("kolors", k_dir, data, cache, os.path.join(work, "kolors_train"),
+                                 KOLORS_TRAIN_STEPS, lora_target_modules=["to_q", "to_k", "to_v", "to_out"],
+                                 snr_gamma=SDXL_SNR_GAMMA)
+    config.pop("base_model_precision")
+    config.pop("quantized_matmul")
+    expected = {"flash_fwd": 2 * per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
+    flops = sdxl_step_flops(arch, 1, latent, latent, KOLORS_TEXT)
+    train = _train_graphed(config, kernels, KOLORS_TRAIN_STEPS, expected, flops, check)
+    by_shape = train["launches_per_step_by_shape"]
+    if by_shape != {"flash_fwd": {key: 2 * n for key, n in shape_keys.values()},
+                    "flash_bwd_dq": {key: n for key, n in shape_keys.values()},
+                    "flash_bwd_dkv": {key: n for key, n in shape_keys.values()}}:
+        raise RuntimeError(f"kolors trainer: launches per step by shape {by_shape}")
+    train.update({"base": "bf16", "remat": "every resnet and spatial transformer", "lora_rank": 16,
+                  "snr_gamma": SDXL_SNR_GAMMA, "flop_checks": flop_checks})
+    shutil.rmtree(cache, ignore_errors=True)
+    writes = check_run_writes()
+    phase("32 kolors", config="Kwai-Kolors/Kolors-diffusers unet/ as the JAX family builds it (UNetConfig.sdxl() with "
+          "cross_attention_dim 4096 and addition_embed_dim 5632)", params=params,
+          channels=list(arch.block_out_channels), transformer_depths=[list(arch.transformer_layers),
+                                                                      list(full.transformer_layers)],
+          heads_of_64=[c // 64 for c in arch.block_out_channels],
+          tokens={"text": KOLORS_TEXT, "image_per_level": [s for _, s in SDXL_LEVELS]},
+          attention_per_forward=per_forward, files=files, text_encoder=text, imported=imported, render=render,
+          parity=parity, train=train, allocated_gib_before_phase=baseline_gib,
+          seconds=time.perf_counter() - start, device=device, **writes)
+    return {name: {k: v.get(key) for k, v in by_shape.items()} for name, (key, _) in shape_keys.items()}
 
 
 def int8_cases() -> None:
@@ -7143,7 +7813,7 @@ def main() -> int:
 
     fwd_entry, fwd256_entry, long_fwd_entries = kernel_cases()
     launches = {"main": None, "auraflow": {}, "wan": {}, "ltx": {}, "chroma": None, "lumina2": {}, "kandinsky5": {},
-                "hunyuanvideo": {}, "qwen_image": {}, "hidream": {}}
+                "hunyuanvideo": {}, "qwen_image": {}, "hidream": {}, "flux2": {}, "kolors": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         checkpoints = weight_import(work) if _runs(14) else {"work": work}
         encoders = text_encoders(checkpoints) if _runs(15) else None
@@ -7172,16 +7842,19 @@ def main() -> int:
             phase17 = trainer_phase(checkpoints, flagship_median, kernels, smi)
             if _runs(18):
                 server_phase(phase17, smi)
+        from simpletuner_tpu_torch.inference import config_namespace
         from simpletuner_tpu_torch.models.auraflow import AuraFlow, AuraFlowConfig
         from simpletuner_tpu_torch.models.checkpoint_layouts import (
             auraflow_checkpoint_shapes, chroma_checkpoint_shapes, hidream_checkpoint_shapes,
             hunyuanvideo_checkpoint_shapes, kandinsky5_checkpoint_shapes, ltx_checkpoint_shapes,
-            qwen_image_checkpoint_shapes, sd3_checkpoint_shapes, wan_checkpoint_shapes,
+            qwen_image_checkpoint_shapes, sd3_checkpoint_shapes, unet_checkpoint_shapes, wan_checkpoint_shapes,
         )
         from simpletuner_tpu_torch.models.chroma import Chroma, ChromaConfig
+        from simpletuner_tpu_torch.models.flux2 import Flux2
         from simpletuner_tpu_torch.models.hidream import HiDream, HiDreamConfig
         from simpletuner_tpu_torch.models.hunyuanvideo import HunyuanVideo, HunyuanVideo15Config
         from simpletuner_tpu_torch.models.kandinsky5 import Kandinsky5Config, Kandinsky5Video
+        from simpletuner_tpu_torch.models.kolors import Kolors
         from simpletuner_tpu_torch.models.ltxvideo import LTXConfig, LTXVideo
         from simpletuner_tpu_torch.models.mageflow import ZImage
         from simpletuner_tpu_torch.models.qwen_image import QwenImage, QwenImageConfig
@@ -7256,6 +7929,16 @@ def main() -> int:
                 30, extra_gb(hidream_checkpoint_shapes, full, cut)) else HD_CUT_BLOCKS
             with family_depth(HiDream, depth_double=depth[0], depth_single=depth[1]):
                 launches["hidream"] = hidream_phase(checkpoints, kernels, smi, depth)
+        if _runs(31):  # the full depth's bf16 module and e4m3 weights would not fit the card together
+            with family_depth(Flux2, depth_double=F2_CUT_BLOCKS[0], depth_single=F2_CUT_BLOCKS[1]):
+                launches["flux2"] = flux2_phase(checkpoints, kernels, smi, F2_CUT_BLOCKS)
+        if _runs(32):
+            kolors = Kolors(config_namespace({"model_family": "kolors"})).arch
+            cut = dataclasses.replace(kolors, transformer_layers=KOLORS_CUT_LAYERS)
+            layers = kolors.transformer_layers if _full_depth(32, extra_gb(unet_checkpoint_shapes, kolors, cut)) \
+                else KOLORS_CUT_LAYERS
+            with family_depth(Kolors, transformer_layers=layers):
+                launches["kolors"] = kolors_phase(checkpoints, kernels, smi, layers)
         else:
             check_run_writes()
 
@@ -7263,9 +7946,10 @@ def main() -> int:
     # phase 12's profiled replay), its head dim 256 instances (phase 22's
     # replay, AuraFlow's attention, all at head dim 256), Chroma's (the Flux
     # shape's times; phase 25's replay) and each kernel at Wan's, LTX's,
-    # Lumina2's, Kandinsky 5.0's, HunyuanVideo's, Qwen-Image's, Z-Image's and
-    # HiDream's shapes (the wrappers' count at that shape per step in phase
-    # 23's, 24's and 26's-30's runs: the trainers', the 14B and 13B steps'); in a run of some phases only, the
+    # Lumina2's, Kandinsky 5.0's, HunyuanVideo's, Qwen-Image's, Z-Image's,
+    # HiDream's, FLUX.2's and Kolors's shapes (the wrappers' count at that shape
+    # per step in phase 23's, 24's and 26's-32's runs: the trainers', the 14B and
+    # 13B steps', FLUX.2's graphed step's); in a run of some phases only, the
     # rows of the phases it ran
     sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
                "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}
@@ -7278,7 +7962,8 @@ def main() -> int:
         rows += [(f"{name}_chroma", name, name, launches["chroma"]) for name in sources]
     for family, cases in (("wan", WAN_KERNEL_CASES), ("ltx", LTX_KERNEL_CASES), ("lumina2", LUMINA_KERNEL_CASES),
                           ("kandinsky5", K5_KERNEL_CASES), ("hunyuanvideo", HY_KERNEL_CASES),
-                          ("qwen_image", QI_KERNEL_CASES), ("hidream", HD_KERNEL_CASES)):
+                          ("qwen_image", QI_KERNEL_CASES), ("hidream", HD_KERNEL_CASES), ("flux2", F2_KERNEL_CASES),
+                          ("kolors", KOLORS_KERNEL_CASES)):
         if launches[family]:
             rows += [(f"{name}_{case[0]}", f"{name}_{case[0]}", name, launches[family][case[0]])
                      for case in cases for name in sources]

@@ -713,6 +713,44 @@ def hidream_checkpoint_shapes(arch) -> Dict[str, tuple]:
     return shapes
 
 
+def flux2_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers ``Flux2Transformer2DModel``
+    of ``arch`` (``models/flux2/transformer.py::Flux2Config``) as
+    ``flux2_params_from_diffusers`` reads it: bias-free linears, the three
+    shared modulations and the guidance embedder where the arch embeds guidance."""
+    dim, hd, mlp = arch.hidden_size, arch.head_dim, arch.mlp_hidden
+    inner, packed = arch.num_heads * hd, arch.patch_size ** 2 * arch.in_channels
+    shapes: Dict[str, tuple] = {"x_embedder.weight": (dim, packed),
+                                "context_embedder.weight": (dim, arch.txt_in_features)}
+    embedders = ("timestep_embedder", "guidance_embedder") if arch.guidance_embed else ("timestep_embedder",)
+    for name in embedders:
+        shapes[f"time_guidance_embed.{name}.linear_1.weight"] = (dim, 256)
+        shapes[f"time_guidance_embed.{name}.linear_2.weight"] = (dim, dim)
+    shapes["double_stream_modulation_img.linear.weight"] = (6 * dim, dim)
+    shapes["double_stream_modulation_txt.linear.weight"] = (6 * dim, dim)
+    shapes["single_stream_modulation.linear.weight"] = (3 * dim, dim)
+    shapes["norm_out.linear.weight"] = (2 * dim, dim)
+    shapes["proj_out.weight"] = (packed, dim)
+    for i in range(arch.depth_double):
+        src = f"transformer_blocks.{i}"
+        for proj in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj"):
+            shapes[f"{src}.attn.{proj}.weight"] = (inner, dim)
+        shapes[f"{src}.attn.to_out.0.weight"] = (dim, inner)
+        shapes[f"{src}.attn.to_add_out.weight"] = (dim, inner)
+        for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            shapes[f"{src}.attn.{name}.weight"] = (hd,)
+        for ff in ("ff", "ff_context"):
+            shapes[f"{src}.{ff}.linear_in.weight"] = (2 * mlp, dim)
+            shapes[f"{src}.{ff}.linear_out.weight"] = (dim, mlp)
+    for i in range(arch.depth_single):
+        src = f"single_transformer_blocks.{i}.attn"
+        shapes[f"{src}.to_qkv_mlp_proj.weight"] = (3 * inner + 2 * mlp, dim)
+        shapes[f"{src}.to_out.weight"] = (dim, inner + mlp)
+        shapes[f"{src}.norm_q.weight"] = (hd,)
+        shapes[f"{src}.norm_k.weight"] = (hd,)
+    return shapes
+
+
 def llm_checkpoint_shapes(cfg) -> Dict[str, tuple]:
     """Tensor names and torch shapes of an HF causal LM of ``cfg``
     (``models/llm_encoder.py::LLMEncoderConfig``) as ``llm_params_from_hf``

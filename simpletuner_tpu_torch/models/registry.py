@@ -5,9 +5,11 @@ Counterpart of ``simpletuner_tpu/models/registry.py``: ``ModelRegistry``
 registry's family table and aliases, and ``get_model_family``, which builds
 the family a config names.  Every family of the JAX registry is listed with
 its metadata; ``flux``, ``sd3``, ``sdxl``, ``sd1x``, ``sd2x``,
-``pixart_sigma``, ``auraflow``, ``wan``, ``ltxvideo``, ``chroma``, ``lumina2``, ``kandinsky5_image``,
-``kandinsky5_video``, ``hunyuanvideo``, ``qwen_image``, ``mageflow``, ``z_image`` and ``hidream`` are ported (with the JAX aliases ``sd15``, ``sd21``, ``pixart`` and
-``kandinsky5-image``), so ``get`` of any other family raises naming ROADMAP Queue 1
+``pixart_sigma``, ``auraflow``, ``wan``, ``ltxvideo``, ``chroma``, ``lumina2``,
+``kandinsky5_image``, ``kandinsky5_video``, ``hunyuanvideo``, ``qwen_image``,
+``mageflow``, ``z_image``, ``hidream``, ``flux2`` and ``kolors`` are ported
+(with the JAX aliases ``sd15``, ``sd21``, ``pixart`` and ``kandinsky5-image``),
+so ``get`` of any other family raises naming ROADMAP Queue 1
 item 6, and an unknown name raises ``KeyError`` as in the JAX registry.
 """
 
@@ -63,7 +65,8 @@ ALIASES = {"sd15": "sd1x", "sd21": "sd2x", "pixart": "pixart_sigma", "ltx2": "lt
            "kandinsky5-image": "kandinsky5_image"}
 # the families the port builds
 PORTED = ("flux", "sd3", "sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "chroma", "lumina2",
-          "kandinsky5_image", "kandinsky5_video", "hunyuanvideo", "qwen_image", "mageflow", "z_image", "hidream")
+          "kandinsky5_image", "kandinsky5_video", "hunyuanvideo", "qwen_image", "mageflow", "z_image", "hidream",
+          "flux2", "kolors")
 
 
 class ModelRegistry:
@@ -142,6 +145,14 @@ class ModelRegistry:
             from .hidream import HiDream
 
             return HiDream
+        if family == "flux2":
+            from .flux2 import Flux2
+
+            return Flux2
+        if family == "kolors":
+            from .kolors import Kolors
+
+            return Kolors
         raise NotImplementedError(f"model_family={name!r} is not ported (only {', '.join(PORTED)}; "
                                   "ROADMAP Queue 1 item 6)")
 

@@ -26,7 +26,9 @@ Flux's packing permutation, as the JAX importer reads it: ROADMAP Queue 3);
 Lumina2 the diffusers ``Lumina2Transformer2DModel`` layout (``transformer/``);
 Kandinsky 5.0 (image and video) the ai-forever ``Kandinsky5Transformer3DModel``
 layout (``transformer/``); HunyuanVideo 1.5 the diffusers
-``HunyuanVideo15Transformer3DModel`` layout (``transformer/``).
+``HunyuanVideo15Transformer3DModel`` layout (``transformer/``); FLUX.2 the diffusers
+``Flux2Transformer2DModel`` layout (``transformer/``); Kolors the diffusers UNet
+layout (``unet/``).
 
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
 keeps f32, bf16 and fp8 (e4m3) leaves in the file's dtype (``_float``; the
@@ -42,8 +44,9 @@ torch): an 8-byte little-endian header length, a JSON header, raw
 little-endian bytes.  Files are memory-mapped copy-on-write, so a tensor is
 read from disk when it is first used.  Only the ``flux``, ``sd3``, ``sdxl``,
 ``sd1x``, ``sd2x``, ``pixart_sigma``, ``auraflow``, ``wan``, ``ltxvideo``, ``chroma``,
-``lumina2``, ``kandinsky5_video``, ``kandinsky5_image`` and ``hunyuanvideo``
-families import; every other family raises.
+``lumina2``, ``kandinsky5_video``, ``kandinsky5_image``, ``hunyuanvideo``, ``qwen_image``,
+``mageflow``, ``z_image``, ``hidream``, ``flux2`` and ``kolors`` families import; every
+other family raises.
 """
 
 from __future__ import annotations
@@ -1232,6 +1235,58 @@ def load_hidream_params(model, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# FLUX.2 (Flux2Transformer2DModel: global modulation, fused single blocks, no biases)
+# ---------------------------------------------------------------------------------
+
+
+def flux2_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a diffusers FLUX.2 transformer of ``arch``
+    (``Flux2Config``); ``norm_out`` emits (scale, shift) as the port's head
+    does, so nothing is swapped."""
+    w = weights
+    params: Dict[str, Any] = {
+        "patch_in": _linear(w, "x_embedder"),
+        "txt_in": _linear(w, "context_embedder"),
+        "time_in_1": _linear(w, "time_guidance_embed.timestep_embedder.linear_1"),
+        "time_in_2": _linear(w, "time_guidance_embed.timestep_embedder.linear_2"),
+        "mod_double_img": _linear(w, "double_stream_modulation_img.linear"),
+        "mod_double_txt": _linear(w, "double_stream_modulation_txt.linear"),
+        "mod_single": _linear(w, "single_stream_modulation.linear"),
+        "final_mod": _linear(w, "norm_out.linear"),
+        "final_proj": _linear(w, "proj_out"),
+    }
+    if arch.guidance_embed:
+        params["guidance_in_1"] = _linear(w, "time_guidance_embed.guidance_embedder.linear_1")
+        params["guidance_in_2"] = _linear(w, "time_guidance_embed.guidance_embedder.linear_2")
+    double = (("attn_q", "attn.to_q"), ("attn_k", "attn.to_k"), ("attn_v", "attn.to_v"),
+              ("attn_add_q", "attn.add_q_proj"), ("attn_add_k", "attn.add_k_proj"), ("attn_add_v", "attn.add_v_proj"),
+              ("attn_proj", "attn.to_out.0"), ("attn_add_proj", "attn.to_add_out"),
+              ("ff_in", "ff.linear_in"), ("ff_out", "ff.linear_out"),
+              ("ff_context_in", "ff_context.linear_in"), ("ff_context_out", "ff_context.linear_out"))
+    norms = ("norm_q", "norm_k", "norm_added_q", "norm_added_k")
+    for i in range(arch.depth_double):
+        src = f"transformer_blocks.{i}"
+        block = {ours: _linear(w, f"{src}.{theirs}") for ours, theirs in double}
+        block.update({name: _scale(w, f"{src}.attn.{name}.weight") for name in norms})
+        params[f"double_{i}"] = block
+    for i in range(arch.depth_single):
+        src = f"single_transformer_blocks.{i}"
+        params[f"single_{i}"] = {"qkv_mlp": _linear(w, f"{src}.attn.to_qkv_mlp_proj"),
+                                 "norm_q": _scale(w, f"{src}.attn.norm_q.weight"),
+                                 "norm_k": _scale(w, f"{src}.attn.norm_k.weight"),
+                                 "proj_out": _linear(w, f"{src}.attn.to_out")}
+    return params
+
+
+def load_flux2_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a diffusers FLUX.2 transformer (a
+    model dir with a ``transformer/`` subfolder, or one file)."""
+    params = flux2_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported flux2 weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
@@ -1242,7 +1297,9 @@ _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_une
               "kandinsky5_image": load_kandinsky5_params, "hunyuanvideo": load_hunyuanvideo_params,
               # MageFlow and Z-Image use the Qwen-Image block layout verbatim
               "qwen_image": load_qwen_image_params, "mageflow": load_qwen_image_params,
-              "z_image": load_qwen_image_params, "hidream": load_hidream_params}
+              "z_image": load_qwen_image_params, "hidream": load_hidream_params, "flux2": load_flux2_params,
+              # Kolors is the SDXL UNet layout with a 4,096-wide cross-attention
+              "kolors": load_unet_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:

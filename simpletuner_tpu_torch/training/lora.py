@@ -6,7 +6,8 @@ sd1x and sd2x), ``sd3_key_map`` (lora.py:158), ``pixart_key_map``
 (lora.py:336), ``wan_key_map`` (lora.py:316), ``auraflow_key_map`` (lora.py:561),
 ``ltx_key_map`` (lora.py:589), ``lumina2_key_map`` (lora.py:468; chroma takes
 ``flux_key_map``, lora.py:651), ``kandinsky5_key_map`` (lora.py:289; both
-Kandinsky flavours), ``hunyuanvideo_key_map`` (lora.py:620) and ``_key_map_for``
+Kandinsky flavours), ``hunyuanvideo_key_map`` (lora.py:620), ``flux2_key_map``
+(lora.py:419; kolors takes ``unet_key_map``, lora.py:655) and ``_key_map_for``
 (lora.py:680), which resolve the LoRA target presets and
 name the adapters of an export (the maps leave ``patch_in`` and
 ``context_in`` under their own names, as the JAX export does),
@@ -274,6 +275,27 @@ def hidream_key_map(arch) -> Dict[str, Any]:
     return mapping
 
 
+def flux2_key_map(arch) -> Dict[str, Any]:
+    """diffusers ``Flux2Transformer2DModel`` paths: the double blocks' split
+    projections and feed-forwards, the single blocks' fused
+    ``to_qkv_mlp_proj`` / ``to_out``, and the adapted embedders and head."""
+    mapping: Dict[str, Any] = {"patch_in": "x_embedder", "txt_in": "context_embedder", "final_proj": "proj_out"}
+    double = {
+        "attn_q": "attn.to_q", "attn_k": "attn.to_k", "attn_v": "attn.to_v",
+        "attn_add_q": "attn.add_q_proj", "attn_add_k": "attn.add_k_proj", "attn_add_v": "attn.add_v_proj",
+        "attn_proj": "attn.to_out.0", "attn_add_proj": "attn.to_add_out",
+        "ff_in": "ff.linear_in", "ff_out": "ff.linear_out",
+        "ff_context_in": "ff_context.linear_in", "ff_context_out": "ff_context.linear_out",
+    }
+    single = {"qkv_mlp": "attn.to_qkv_mlp_proj", "proj_out": "attn.to_out"}
+    for i in range(arch.depth_double):
+        mapping.update({f"double_{i}/{ours}": f"transformer_blocks.{i}.{theirs}" for ours, theirs in double.items()})
+    for i in range(arch.depth_single):
+        mapping.update({f"single_{i}/{ours}": f"single_transformer_blocks.{i}.{theirs}"
+                        for ours, theirs in single.items()})
+    return mapping
+
+
 # family name -> key map builder, for the families the port has
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
@@ -294,6 +316,8 @@ _KEY_MAPS = {
     "mageflow": lambda m: qwen_image_key_map(m.arch),
     "z_image": lambda m: qwen_image_key_map(m.arch),
     "hidream": lambda m: hidream_key_map(m.arch),
+    "flux2": lambda m: flux2_key_map(m.arch),
+    "kolors": lambda m: unet_key_map(m.arch),
 }
 
 

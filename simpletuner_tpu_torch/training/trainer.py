@@ -61,12 +61,16 @@ at 1024 tokens, the mask dropped), ``z_image`` and ``mageflow`` (Qwen at 4096
 tokens on the Qwen-Image DiT without text rope; MageFlow's 32 latent channels
 meet the 16-channel Flux VAE, as in the JAX trainer) and ``hidream`` (CLIP-L and
 CLIP-G pooled, T5-XXL and Llama-3 at 128 tokens; ``moe_gate_loss`` logged at
-every step), all four with ``VAEConfig.flux()``; the batch reaches the step with every numeric array
+every step), all four with ``VAEConfig.flux()``, ``flux2`` (Mistral-3 at 512
+tokens, its taps side by side; ``VAEConfig.flux()`` as in the JAX trainer, whose
+16 channels the published 32-channel arch cannot take: only the tiny preset
+trains) and ``kolors`` (ChatGLM at 256 tokens with its pooled vector, SDXL's
+VAE and DDPM path); the batch reaches the step with every numeric array
 the family's collate gives (Flux's ``t5_embeds``/``t5_masks``, the others'
 ``text_embeds``, SDXL's size conditioning ``original_sizes``,
 ``crop_coordinates`` and ``target_sizes``), and ``pooled_embeds`` for flux,
 sd3 and sdxl.  Refused, each naming its ROADMAP item:
-families other than these eighteen, full fine-tunes and ControlNet, distillation and
+families other than these twenty, full fine-tunes and ControlNet, distillation and
 ODE pairs, CREPA / U-REPA, text-encoder training, slider and assistant
 adapters, a mesh of more than one device and multi-process runs.
 """

@@ -82,8 +82,8 @@ def test_the_port_imports_nothing_of_the_jax_package():
     names = [m.name for m in pkgutil.walk_packages(simpletuner_tpu_torch.__path__, "simpletuner_tpu_torch.")]
     assert int(count) == len(names) and loaded == "[]"
     # the SDXL slice's modules, the SD 1.x / 2.x, PixArt-Sigma, AuraFlow, Wan, LTX-Video, Chroma, Lumina2,
-    # decoder-LLM, Kandinsky 5.0, HunyuanVideo, Qwen-Image, MageFlow / Z-Image and HiDream ones are among
-    # those imported
+    # decoder-LLM, Kandinsky 5.0, HunyuanVideo, Qwen-Image, MageFlow / Z-Image, HiDream, FLUX.2 and Kolors ones
+    # are among those imported
     assert {f"simpletuner_tpu_torch.{name}" for name in (
         "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc", "models.sd1x",
         "models.sd1x.model", "models.pixart", "models.pixart.model", "models.pixart.transformer",
@@ -94,7 +94,8 @@ def test_the_port_imports_nothing_of_the_jax_package():
         "models.kandinsky5", "models.kandinsky5.model", "models.kandinsky5.transformer", "models.hunyuanvideo",
         "models.hunyuanvideo.model", "models.hunyuanvideo.transformer", "models.qwen_image",
         "models.qwen_image.model", "models.qwen_image.transformer", "models.mageflow", "models.mageflow.model",
-        "models.hidream", "models.hidream.model", "models.hidream.transformer")} <= set(names)
+        "models.hidream", "models.hidream.model", "models.hidream.transformer", "models.flux2", "models.flux2.model",
+        "models.flux2.transformer", "models.kolors", "models.kolors.model")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -561,7 +562,12 @@ def test_model_registry_refuses_other_families():
     assert isinstance(get_model_family(TrainingConfig({"model_family": "z_image"})), ZImage)
     assert type(get_model_family(TrainingConfig({"model_family": "mageflow"}))) is MageFlow
     assert isinstance(get_model_family(TrainingConfig({"model_family": "hidream"})), HiDream)
-    for family in ("kolors", "sana", "flux2"):
+    from simpletuner_tpu_torch.models.flux2 import Flux2
+    from simpletuner_tpu_torch.models.kolors import Kolors
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "flux2"})), Flux2)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "kolors"})), Kolors)
+    for family in ("sana", "longcat_image", "deepfloyd"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):
@@ -594,7 +600,7 @@ def test_model_registry_matches():
     assert ModelRegistry.get("sd15") is SD1x and ModelRegistry.get("sd21") is SD2x
     assert ModelRegistry.get("pixart") is ModelRegistry.get("pixart_sigma") is PixartSigma
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        ModelRegistry.get("kolors")
+        ModelRegistry.get("sana")
     for registry in (ModelRegistry, JaxModelRegistry):
         with pytest.raises(KeyError):
             registry.metadata("nope")

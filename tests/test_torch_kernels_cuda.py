@@ -961,6 +961,154 @@ def test_graphed_hidream_step_carries_moe_gate_loss_bitwise(cuda):
     assert torch.equal(replayed, eager)
 
 
+# FLUX.2 at 1024 x 1024: 4,096 image tokens after 512 Mistral tokens (4,608
+# joint, unmasked, head dim 128; 48 heads at dev, 24 at klein); Kolors's
+# cross-attention at SDXL's three levels against 256 unmasked ChatGLM keys
+# (head dim 64; its self-attention shapes are SDXL's); two heads (the heads
+# are independent)
+FLUX2_KOLORS_CASES = [("flux2_joint_s4608", 4608, 4608, 128), ("kolors_l0_cross_k256", 16384, 256, 64),
+                      ("kolors_l1_cross_k256", 4096, 256, 64), ("kolors_l2_cross_k256", 1024, 256, 64)]
+
+
+@pytest.mark.parametrize("name,sq,sk,dim", FLUX2_KOLORS_CASES, ids=[c[0] for c in FLUX2_KOLORS_CASES])
+def test_kernels_at_the_flux2_and_kolors_shapes(cuda, name, sq, sk, dim):
+    """Forward and both backward kernels at FLUX.2's joint attention and
+    Kolors's cross-attention against the plain versions, in the
+    dispatcher's (B, S, H, D) layout, unmasked."""
+    q, k, v = _qkv(80 + sq % 19, 1, 2, sq, sk, dim, cuda)
+    strided = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    out, lse = _check(*strided)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    del out, lse
+    dq, dk, dv = _check_backward(*strided, seed=81)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+def _tiny_flux2(dtype, device, guidance_embed=True):
+    """A FLUX.2 DiT two heads of 128 wide (the head dim 128 kernels, the
+    published four rope axes of 32), 1 + 1 blocks, remat, rank-4 adapters."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.flux2 import Flux2Config, Flux2Transformer
+
+    cfg = dataclasses.replace(Flux2Config.tiny(), num_heads=2, head_dim=128, depth_single=1,
+                              axes_dim=(32, 32, 32, 32), guidance_embed=guidance_embed)
+    with torch.device(device):
+        return cfg, Flux2Transformer(cfg, dtype=dtype, lora_rank=4, remat=True)
+
+
+@pytest.mark.parametrize("guidance_embed", [True, False], ids=["dev", "klein"])
+def test_tiny_flux2_on_the_card_matches_its_cpu_run(cuda, guidance_embed):
+    """The tiny FLUX.2 DiT (``_tiny_flux2``), with the guidance embedding
+    (dev) and without (klein), 12 x 20 latents (60 image tokens) after 24
+    unmasked text tokens, against its CPU run."""
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg, cpu = _tiny_flux2(torch.float32, "cpu", guidance_embed)
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    _, card = _tiny_flux2(torch.bfloat16, cuda, guidance_embed)
+    gen = torch.Generator().manual_seed(3)
+    inputs = [torch.randn((2, 12, 20, cfg.in_channels), generator=gen), torch.tensor([0.3, 0.8]),
+              torch.randn((2, 24, cfg.txt_in_features), generator=gen)]
+    if guidance_embed:
+        inputs.append(torch.tensor([3.5, 4.0]))
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 12, 20, cfg.in_channels), generator=gen), cuda)
+
+
+def _tiny_kolors(dtype, device):
+    """The Kolors UNet at head dim 64 (the kernels' 64 instance): two levels
+    of 64 and 128 channels, the cross-attention over 32-wide ChatGLM states
+    and the 32-wide pooled vector, remat, rank-4 adapters."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.unet import UNet2DCondition, UNetConfig
+
+    cfg = dataclasses.replace(UNetConfig.tiny_xl(), block_out_channels=(64, 128), attention_head_dim=64,
+                              cross_attention_dim=32, addition_embed_dim=6 * 8 + 32)
+    with torch.device(device):
+        return cfg, UNet2DCondition(cfg, dtype=dtype, lora_rank=4, remat=True)
+
+
+def test_tiny_kolors_unet_on_the_card_matches_its_cpu_run(cuda):
+    """The tiny Kolors UNet (``_tiny_kolors``) on a 32 x 32 latent (1,024 and
+    256 tokens) with 40 unmasked ChatGLM states, against its CPU run."""
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.unet import make_sdxl_added_cond
+
+    cfg, cpu = _tiny_kolors(torch.float32, "cpu")
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    _, card = _tiny_kolors(torch.bfloat16, cuda)
+    gen = torch.Generator().manual_seed(2)
+    added = make_sdxl_added_cond(torch.tensor([[256.0, 256.0, 0.0, 0.0, 256.0, 256.0]] * 2),
+                                 torch.randn((2, 32), generator=gen), cfg.addition_time_embed_dim)
+    inputs = [torch.randn((2, 32, 32, 4), generator=gen), torch.tensor([999, 250]),
+              torch.randn((2, 40, 32), generator=gen), added]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 32, 32, 4), generator=gen), cuda)
+
+
+@pytest.mark.parametrize("family", ["flux2", "kolors"])
+def test_graphed_flux2_and_kolors_steps_match_eager_bitwise(cuda, family):
+    """The tiny FLUX.2 (head dim 128) and Kolors (head dim 64, min-SNR) LoRA
+    steps on the card: three eager steps and then three replays of the
+    captured step from the same state and generator state give the same
+    losses and grad norms bitwise."""
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.flux2 import Flux2
+    from simpletuner_tpu_torch.models.kolors import Kolors
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.training.optimizers import get_optimizer
+    from simpletuner_tpu_torch.training.train_state import (build_train_step, create_train_state, jit_train_step,
+                                                            state_tensors)
+
+    config = TrainingConfig({"model_family": family, "model_arch_preset": "tiny", "model_type": "lora",
+                             "lora_rank": 4, "learning_rate": 1e-3, "optimizer": "adamw",
+                             "gradient_checkpointing": True, "snr_gamma": 5.0})
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    if family == "flux2":
+        model = Flux2(config)
+        model.arch, module = _tiny_flux2(torch.bfloat16, cuda)
+        batch = {"latents": torch.randn((1, 12, 20, 4), generator=gen, device=cuda),
+                 "text_embeds": torch.randn((1, 24, 32), generator=gen, device=cuda)}
+    else:
+        model = Kolors(config)
+        model.arch, module = _tiny_kolors(torch.bfloat16, cuda)
+        # the collate's size arrays, as every trainer batch carries them (without them the
+        # step would make its default time ids from a host list, which a capture cannot copy)
+        batch = {"latents": torch.randn((1, 32, 32, 4), generator=gen, device=cuda),
+                 "text_embeds": torch.randn((1, 40, 32), generator=gen, device=cuda),
+                 "pooled_embeds": torch.randn((1, 32), generator=gen, device=cuda),
+                 "original_sizes": torch.tensor([[256, 256]], dtype=torch.int32, device=cuda),
+                 "crop_coordinates": torch.tensor([[0, 0]], dtype=torch.int32, device=cuda),
+                 "target_sizes": torch.tensor([[256, 256]], dtype=torch.int32, device=cuda)}
+    init_parameters(module, gen)
+    tx = get_optimizer(config, 1e-3)
+    state = create_train_state(model, module, tx)
+    step_fn = build_train_step(model, tx)
+    with torch.no_grad():
+        saved = [x.clone() for x in state_tensors(state)]
+    rng = torch.Generator(device=cuda)
+    rng.manual_seed(5)
+    start = rng.get_state()
+
+    def trajectory(step):
+        current, out = state, []
+        for _ in range(3):
+            current, metrics = step(current, batch, rng)
+            out += [metrics["loss"], metrics["grad_norm"]]
+        return torch.stack(out)
+
+    eager = trajectory(step_fn)
+    with torch.no_grad():
+        for x, value in zip(state_tensors(state), saved):
+            x.copy_(value)
+    rng.set_state(start)
+    state.step = 0
+    graphed = jit_train_step(step_fn, state, batch, rng)
+    replayed = trajectory(graphed)
+    assert torch.isfinite(eager).all() and (eager[1::2] > 0).all()
+    assert torch.equal(replayed, eager)
+
+
 def test_video_vae_on_the_card(cuda, monkeypatch):
     """The causal video VAE on the card in f32 against the CPU (sum order
     only), with its norms and convolutions split into runs of frames as at

@@ -328,6 +328,93 @@ def test_build_from_a_llama3_dir_matches_jax(tmp_path):
         assert rel(ours[key], theirs[key]) < BF16_REL, key
 
 
+def _hf_weights(cfg, seed):
+    rng = np.random.default_rng(seed)
+    weights = {}
+    for name, shape in llm_checkpoint_shapes(cfg).items():
+        draw = rng.standard_normal(shape).astype(np.float32)
+        weights[name] = (0.1 * draw if len(shape) == 1 else draw / np.sqrt(shape[-1])).astype(np.float32)
+    return weights
+
+
+def test_build_from_a_mistral_dir_matches_jax(tmp_path):
+    """A seeded Mistral trunk (the tiny layout's sizes) in the HF layout:
+    ``text_encoder/config.json`` (``MistralForCausalLM``, rope theta 1e8 as
+    the ``mistral3_24b`` preset's) beside ``model.*`` tensors (Llama's names,
+    no biases) and an ``lm_head`` that neither importer reads, and a
+    tokenizer in ``tokenizer/``; built through the ``mistral-3`` spec that
+    flux2 names at 512 tokens: both packages read the config onto the
+    preset, take the same tokens and encode (bf16 compute) within
+    ``BF16_REL``, the three states of ``encode_with_hidden_states`` (the
+    taps FLUX.2 concatenates) too."""
+    cfg = dataclasses.replace(LLMEncoderConfig.tiny("mistral"), rope_theta=1e8)
+    weights = _hf_weights(cfg, 10)
+    assert "model.layers.0.self_attn.q_proj.bias" not in weights
+    weights["lm_head.weight"] = np.zeros((cfg.vocab_size, cfg.hidden_size), np.float32)
+    os.makedirs(tmp_path / "text_encoder")
+    np_save_file(weights, str(tmp_path / "text_encoder" / "model.safetensors"))
+    with open(tmp_path / "text_encoder" / "config.json", "w") as handle:
+        json.dump({"architectures": ["MistralForCausalLM"], "model_type": "mistral", "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+                   "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim, "rope_theta": 1e8,
+                   "rms_norm_eps": 1e-5, "max_position_embeddings": 131072, "sliding_window": None}, handle)
+    _gemma_tokenizer(str(tmp_path / "tokenizer"), " ".join(PROMPTS).split())
+    spec, jspec = (cls(name="mistral-3", family="mistral-3", subfolder="text_encoder", max_length=12)
+                   for cls in (TextEncoderSpec, JaxSpec))
+    (enc,) = te.load_text_encoders([spec], pretrained_path=str(tmp_path), device="cpu")
+    (jenc,) = jax_te.load_text_encoders([jspec], pretrained_path=str(tmp_path))
+    expected = dataclasses.replace(LLMEncoderConfig.mistral3_24b(), vocab_size=1000, hidden_size=32,
+                                   intermediate_size=64, num_layers=2, num_heads=2, num_kv_heads=1, head_dim=16)
+    assert dataclasses.asdict(enc.config) == dataclasses.asdict(jenc.config) == dataclasses.asdict(expected)
+    ours, theirs = enc.encode_with_hidden_states(PROMPTS), jenc.encode_with_hidden_states(PROMPTS)
+    np.testing.assert_array_equal(ours["attention_mask"], theirs["attention_mask"])
+    assert len(ours["hidden_states"]) == len(theirs["hidden_states"]) == 3
+    for a, b in zip(ours["hidden_states"] + (ours["last_hidden_state"],),
+                    theirs["hidden_states"] + (theirs["last_hidden_state"],)):
+        assert a.shape == (3, 12, 32) and rel(a, b) < BF16_REL
+
+
+def test_build_from_a_chatglm3_dir_matches_jax(tmp_path):
+    """A seeded ChatGLM trunk (the tiny layout's width, the published
+    65,024-token vocabulary) in the HF layout: ``text_encoder/config.json``
+    with ChatGLM's own keys (``num_layers``, ``ffn_hidden_size``,
+    ``multi_query_group_num``, ``layernorm_epsilon``, ``padded_vocab_size``,
+    as THUDM/chatglm3-6b's and Kolors's), ``transformer.*`` tensors with the
+    fused ``query_key_value`` and its bias and an ``output_layer`` that
+    neither importer reads, and a tokenizer in ``tokenizer/``; built through
+    the ``chatglm`` spec that kolors names: both packages read the config
+    onto the ``chatglm3_6b`` preset (``padded_vocab_size`` is not read: the
+    preset's 65,024 stands), take the same tokens and encode (bf16 compute),
+    the pooled last-valid-token state too, within ``BF16_REL``."""
+    cfg = dataclasses.replace(LLMEncoderConfig.tiny("chatglm"), vocab_size=65024, rms_eps=1e-5)
+    weights = _hf_weights(cfg, 11)
+    assert "transformer.encoder.layers.0.self_attention.query_key_value.bias" in weights
+    weights["transformer.output_layer.weight"] = np.zeros((8, cfg.hidden_size), np.float32)
+    os.makedirs(tmp_path / "text_encoder")
+    np_save_file(weights, str(tmp_path / "text_encoder" / "model.safetensors"))
+    with open(tmp_path / "text_encoder" / "config.json", "w") as handle:
+        json.dump({"architectures": ["ChatGLMModel"], "model_type": "chatglm", "hidden_size": cfg.hidden_size,
+                   "ffn_hidden_size": cfg.intermediate_size, "num_layers": cfg.num_layers,
+                   "num_attention_heads": cfg.num_heads, "multi_query_attention": True,
+                   "multi_query_group_num": cfg.num_kv_heads, "kv_channels": cfg.head_dim,
+                   "layernorm_epsilon": 1e-5, "padded_vocab_size": 65024, "add_qkv_bias": True,
+                   "add_bias_linear": False, "rmsnorm": True, "seq_length": 8192}, handle)
+    _gemma_tokenizer(str(tmp_path / "tokenizer"), " ".join(PROMPTS).split())
+    spec, jspec = (cls(name="chatglm", family="chatglm", subfolder="text_encoder", max_length=12)
+                   for cls in (TextEncoderSpec, JaxSpec))
+    (enc,) = te.load_text_encoders([spec], pretrained_path=str(tmp_path), device="cpu")
+    (jenc,) = jax_te.load_text_encoders([jspec], pretrained_path=str(tmp_path))
+    expected = dataclasses.replace(LLMEncoderConfig.chatglm3_6b(), hidden_size=32, intermediate_size=64,
+                                   num_layers=2, num_heads=2, num_kv_heads=1, head_dim=16)
+    assert dataclasses.asdict(enc.config) == dataclasses.asdict(jenc.config) == dataclasses.asdict(expected)
+    assert enc.model.embed_tokens.shape == (65024, 32)
+    ours, theirs = enc.encode(PROMPTS), jenc.encode(PROMPTS)
+    np.testing.assert_array_equal(ours["attention_mask"], theirs["attention_mask"])
+    for key in ("last_hidden_state", "pooled"):
+        assert rel(ours[key], theirs[key]) < BF16_REL, key
+
+
 def test_final_norm_state_is_the_output_not_the_penultimate_layer():
     """The JAX module, and so the port's, returns the final-norm hidden
     state, which lumina2 encodes with (ROADMAP Queue 3); diffusers' Lumina2

@@ -44,10 +44,12 @@ def seed_text_cache(root, family, count=4, prefix="photo"):
                                      "attention_mask": (np.arange(16) < 5).astype(np.int32)})
 
 
-def run_both(root, values, render):
-    """The JAX trainer, then the port's, on one cache, with the same noise
-    and sigmas; with ``render``, ``run_inference`` from the port's
-    checkpoint-2.  Returns both trainers and the render's exit code."""
+def run_both(root, values, render, export=export_qwen_image_to_diffusers, params=_jax_params, steps=2, pair=_pair):
+    """The JAX trainer, then the port's (the families ``pair`` builds), on
+    one cache, with the same noise and sigmas, from the file ``export``
+    writes of ``params``' seeded tree;
+    with ``render``, ``run_inference`` from the port's checkpoint at
+    ``steps``.  Returns both trainers and the render's exit code."""
     from simpletuner_tpu.data.dataset import MultiDatasetIterator as JaxIterator
     from simpletuner_tpu.parallel.mesh import build_mesh as jax_build_mesh
     from simpletuner_tpu.training import trainer as jax_trainer_module
@@ -62,9 +64,9 @@ def run_both(root, values, render):
     previous = jl._LORA_TARGET, jl._QUANTIZED_MATMUL
     rendered = None
     with pytest.MonkeyPatch.context() as mp:
-        jmodel, port_model = _pair(values("x"))
+        jmodel, port_model = pair(values("x"))
         path = str(root / "transformer.safetensors")
-        exported = export_qwen_image_to_diffusers(_jax_params(port_model.arch, 3), jmodel.arch)
+        exported = export(params(port_model.arch, 3), jmodel.arch)
         np_save_file({k: np.ascontiguousarray(v) for k, v in exported.items()}, path)
         lora_path = str(root / "init_lora.safetensors")
         save_lora_safetensors(port_model, _seeded_adapters(port_model, 4, scale=0.05), lora_path)
@@ -80,27 +82,27 @@ def run_both(root, values, render):
             config = root / "render.json"
             config.write_text(json.dumps(values("port", pretrained_model_name_or_path=path, validation_guidance=2.0,
                                                 validation_resolution=32)))
-            rendered = run_inference("a lighthouse at dusk", checkpoint=str(root / "port" / "checkpoint-2"),
+            rendered = run_inference("a lighthouse at dusk", checkpoint=str(root / "port" / f"checkpoint-{steps}"),
                                      config_path=str(config), output=str(root / "render"), steps=2, device="cpu")
     jl.set_lora_target(previous[0])
     jl.set_quantized_matmul(previous[1])
     return jax_trainer, port_trainer, rendered
 
 
-def assert_trajectories_match(root, marker):
-    """2 steps, no state shared between the runs: per-step loss within 1e-5
+def assert_trajectories_match(root, marker, steps=2):
+    """``steps`` steps, no state shared between the runs: per-step loss within 1e-5
     relative (``TRAJECTORY_TOL``), grad norm within ``GRAD_REL``; the LoRA
     export holds the JAX map's names (``marker`` among them) and, within
     ``GRAD_REL`` in relative L2, its tensors."""
     from test_torch_trainer import TRAJECTORY_TOL, _metrics
 
     ours, theirs = _metrics(root / "port"), _metrics(root / "jax")
-    assert [m["step"] for m in ours] == [m["step"] for m in theirs] == [1, 2]
+    assert [m["step"] for m in ours] == [m["step"] for m in theirs] == list(range(1, steps + 1))
     for a, b in zip(ours, theirs):
         assert sorted(a) == sorted(b), (a, b)
         assert abs(a["loss"] - b["loss"]) <= TRAJECTORY_TOL * max(1.0, abs(b["loss"])), (a["step"], a, b)
         assert abs(a["grad_norm"] - b["grad_norm"]) <= GRAD_REL * abs(b["grad_norm"]), (a["step"], a, b)
-    export = "checkpoint-2/pytorch_lora_weights.safetensors"
+    export = f"checkpoint-{steps}/pytorch_lora_weights.safetensors"
     mine, jax_file = load_safetensors_file(str(root / "port" / export)), load_safetensors_file(str(root / "jax" / export))
     assert sorted(mine) == sorted(jax_file) and any(marker in k for k in mine)
     keys = sorted(mine)

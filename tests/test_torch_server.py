@@ -15,7 +15,7 @@ it does not train) and a job's logs
 (the spawned command: ``python -m simpletuner_tpu_torch.train --config ...
 --device cpu``).  On the port's server alone: a tiny-Flux job completes and
 its LoRA is bitwise the one an in-process ``Trainer`` trains from the same
-config; a ``kolors`` job fails with a log line naming ROADMAP Queue 1 item 6;
+config; a ``sana`` job fails with a log line naming ROADMAP Queue 1 item 6;
 a running job takes a checkpoint signal and is cancelled.
 """
 
@@ -523,15 +523,16 @@ def test_routes_that_differ_by_design(pair):
     assert pair.both("GET", "/api/models/chroma/presets", compare=False)["port"] == presets["port"]
     for family in ("sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "lumina2",
                    "kandinsky5_image", "kandinsky5_video", "hunyuanvideo", "qwen_image", "mageflow", "z_image",
-                   "hidream"):
+                   "hidream", "flux2", "kolors"):
         answers = pair.both("GET", f"/api/models/{family}/presets", compare=False)
         assert answers["port"][0] == answers["jax"][0] == 200
         assert [(p["name"], p["config"]) for p in answers["port"][1]] == [
             (p["name"], p["config"]) for p in answers["jax"][1] if p["name"] != "multichip"], family
-    assert pair.both("GET", "/api/models/kolors/presets", compare=False)["port"] == (
-        501, {"error": "model_family='kolors' is not ported (only flux, sd3, sdxl, sd1x, sd2x, pixart_sigma, "
+    assert pair.both("GET", "/api/models/sana/presets", compare=False)["port"] == (
+        501, {"error": "model_family='sana' is not ported (only flux, sd3, sdxl, sd1x, sd2x, pixart_sigma, "
                        "auraflow, wan, ltxvideo, chroma, lumina2, kandinsky5_image, kandinsky5_video, "
-                       "hunyuanvideo, qwen_image, mageflow, z_image, hidream; ROADMAP Queue 1 item 6)"})
+                       "hunyuanvideo, qwen_image, mageflow, z_image, hidream, flux2, kolors; ROADMAP Queue 1 "
+                       "item 6)"})
     pair.both("GET", "/api/models/nope/presets")  # unknown: 404 on both
     job = pair.both("POST", "/api/inference/start",
                     {"checkpoint": "/nope/checkpoint-1", "prompt": "a cat", "steps": 1})
@@ -615,7 +616,7 @@ def test_an_unported_family_fails_naming_its_item(port_server, tmp_path):
     _, port = port_server
     _write_images(tmp_path / "data")
     status, job = _http(port, "POST", "/api/training/start",
-                        {"config": _values(tmp_path, "out", model_family="kolors")})
+                        {"config": _values(tmp_path, "out", model_family="sana")})
     info = _wait(port, job["job_id"])
     _, logs = _http(port, "GET", f"/api/training/logs/{job['job_id']}?tail=200")
     assert info["state"] == "failed" and info["return_code"] != 0
