@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Drive the torch port of simpletuner-tpu once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                       # every phase, 1-32
+    python3 chip_smoke.py                       # every phase, 1-35
     python3 chip_smoke.py --phases 14-16,27,28  # the named phases, what they need, and 1-3 and 7
 
 With ``--phases`` the script runs the named phases, the phases whose files
 they need (``PHASE_NEEDS``: 25 and 26 need phase 14's Flux VAE, phase 15's
 T5-XXL and tokenizer and phase 16's JPEGs; 27 phase 14's CLIP-L, phase 15's
 CLIP tokenizer and phase 16's JPEGs; 28 phase 15's files; 29 phase 14's VAE and phase 16's
-JPEGs; 30 those, phase 15's T5-XXL and tokenizers and phase 19's CLIP-G; 31 none; 32 phase 16's JPEGs) and
+JPEGs; 30 those, phase 15's T5-XXL and tokenizers and phase 19's CLIP-G; 31 none; 32 phase 16's JPEGs;
+33 and 34 phase 14's VAE and phase 16's JPEGs; 35 none) and
 phases 1, 2, 3 and 7 (the
 build, and every kernel against its plain version); a named family phase
 whose depth a full run cuts writes its full-depth file where the run's
@@ -326,11 +327,13 @@ exits non-zero with no result line):
 26. lumina2: Lumina-Image 2.0 at the JAX preset's size (Alpha-VLLM/
    Lumina-Image-2.0's ``transformer/``, ``Lumina2Config()``: 26 joint blocks
    and 2 + 2 refiners, 2304 wide, 24 query / 8 kv heads of 96, SwiGLU 6144;
-   1.97B parameters) with its Gemma-2 2B text encoder at 1024 px.  Deletes
+   1.97B parameters) at ``LUMINA_CUT_BLOCKS`` (6) of its 26 joint blocks in a
+   run of every phase (all 26 in a run that names phase 26 where the run's
+   writes leave room), with its Gemma-2 2B text encoder at 1024 px.  Deletes
    phase 25's files; checks ``lumina2_step_flops`` against the flop counter
    on two small configs; writes a seeded e4m3 diffusers transformer, a seeded
    Gemma-2 2B in the HF layout (e4m3, ``gemma2_2b`` at full width: 2304 wide,
-   8 heads of 256, 4 kv heads, 256,000 tokens; ``GEMMA_FILE_LAYERS`` (6) of
+   8 heads of 256, 4 kv heads, 256,000 tokens; ``GEMMA_FILE_LAYERS`` (2) of
    its 26 layers, all 26 in a run that names phase 26 where the run's writes
    leave room) with its
    ``config.json``, a seeded Gemma-convention tokenizer that ``AutoTokenizer``
@@ -338,14 +341,14 @@ exits non-zero with no result line):
    prompts at 256 tokens through ``LLMTextEncoder`` (prompts/s; bf16 against
    the f32 module within ``LLM_BF16_REL_L2``); imports the transformer
    (bitwise); renders 1024x1024 with true CFG (guidance 4, 4 flow Euler
-   steps; 60 flash launches per CFG step: 2 over the 256 caption tokens, 2
-   over 4,096 image tokens, 26 over 4,352 joint tokens, two forwards); one
-   full-depth forward with the D = 96 kernels against the plain attention,
+   steps; 2(4 + d) flash launches per CFG step at d joint blocks: 2 over the
+   256 caption tokens, 2 over 4,096 image tokens, d over 4,352 joint tokens,
+   two forwards); one forward with the D = 96 kernels against the plain attention,
    the caption mask on (phase 5's bound); ``Trainer.run()`` with a bf16
    base, every block checkpointed, rank-16 LoRA on the attention projections,
    AdamW 1e-4, 6 graphed steps: losses, s/step, MFU, time to the first step,
-   peak GiB, and the launches of a profiled replay (60 / 30 / 30, by shape),
-   which must equal the capture's.
+   peak GiB, and the launches of a profiled replay (2(4 + d) / 4 + d / 4 + d,
+   by shape), which must equal the capture's.
 27. kandinsky5: Kandinsky 5.0 Lite, both flavours, at the JAX preset's full
    width (ai-forever/Kandinsky-5.0-T2V-Lite-sft-5s and T2I-Lite's
    ``transformer/``, ``Kandinsky5Config()``: 32 visual and 2 text blocks, 2048
@@ -488,8 +491,61 @@ exits non-zero with no result line):
    bf16 base, rank-16 LoRA on the attention projections, every resnet and
    spatial transformer checkpointed and min-SNR epsilon: 6 graphed steps on
    four of phase 16's JPEGs, s/step, MFU, a replay and an eager step bitwise
-   equal and a profiled replay's launches by shape held to the capture's;
-   last, the run's writes against ``RUN_WRITE_LIMIT_GB`` less
+   equal and a profiled replay's launches by shape held to the capture's.
+33. longcat_image: LongCat-Image at the JAX preset's full width
+   (meituan-longcat/LongCat-Image's ``transformer/`` as ``LongcatImage``
+   builds it: Flux's 19 double and 38 single blocks, 3072 wide, 24 heads of
+   128, 3584-wide Qwen text, no pooled or guidance embedder; 11.9B
+   parameters) at ``LC_CUT_BLOCKS`` (1 + 1) in a run of every phase.
+   Deletes phase 32's files; checks ``longcat_image_step_flops`` against the
+   flop counter on two small configs; writes a seeded e4m3 transformer in
+   LongCat's layout (``time_embed.``) and a word-level tokenizer, links the
+   Qwen2.5-VL-7B trunk (``qwen_trunk``, 2 of 28 layers) and phase 14's Flux
+   VAE; encodes 16 prompts through ``LongcatImage.encode_text`` (the
+   captioning template around each, its 40 + 8 token spans sliced off: 464
+   of 512 tokens; prompts/s, bf16 against f32); imports the transformer
+   (bitwise); a 1024 px true-CFG flow Euler render (guidance 4) over 4,096
+   image tokens after 464 text tokens at the sliding ids; one forward against
+   the plain attention; ``Trainer.run()`` on an int8 base, every block
+   checkpointed, rank 16: 6 graphed steps on four of phase 16's JPEGs; then
+   the ``edit`` flavour on the same file: ``build_train_step`` graphed on
+   seeded ``control_latents`` (4,096 reference tokens at modality 2 and t = 0:
+   8,656 joint tokens, tokenwise timesteps), the replays held to the eager
+   steps (bitwise where two eager runs are).
+34. z_image_omni: Z-Image-Omni at the JAX preset's full width
+   (Tongyi-MAI/Z-Image-Omni's ``transformer/``, ``ZImageOmniConfig()``: 30
+   layers and 2 + 2 + 2 refiners, 3840 wide, 30 heads of 128, scale-only
+   adaLN with tanh gates, RoPE theta 256 over (32, 48, 48); 6.51B
+   parameters) at ``ZO_CUT_BLOCKS`` (1 layer, 1 + 1 + 1 refiners) in a run
+   of every phase.  Checks ``z_image_omni_step_flops`` against the flop
+   counter; writes a seeded e4m3 transformer (the ``"2-1"`` patch keys and
+   the SigLIP modules) and a word-level tokenizer, links phase 29's
+   2560-wide qwen2 trunk (2 layers; written here in a run without phase 29)
+   and phase 14's Flux VAE; encodes 16 prompts at 512 tokens (prompts/s,
+   bf16 against f32); imports the transformer (bitwise); a 1024 px
+   true-CFG render (the caption mask on, 512 + 4,096 joint tokens with
+   segment ids all 1, the refiners over 4,096 and 512); ``Trainer.run()`` as
+   phase 33's, text to image; one forward with seeded ``control_latents`` and
+   a 32 x 32 grid of ``siglip_embeds`` (512 + 4,096 + 4,096 + 1,024 joint
+   tokens, each token's modulation the noisy or the clean one) against the
+   plain attention.  Then Boogu-Image, built through the registry by name at
+   2 of its 26 blocks in memory (Lumina2's layout and width): one forward
+   against the plain attention.
+35. zlab_i1: Zlab-i1 at the JAX preset's full width (zlab-princeton/i1-3B's
+   ``transformer/``, ``ZlabI1Config()``: 2016 wide, 28 heads of 72 zero-padded
+   to 128 by the wrappers, 14 in, 1 mid and 14 out U-ViT blocks, 32 latent
+   channels; 3.17B parameters).  Checks ``zlab_i1_step_flops`` against the
+   flop counter; writes a seeded e4m3 checkpoint at ``ZL_FILE_BLOCKS`` (3:
+   1 in, the mid, 1 out) of 29 and imports it (bitwise); builds a seeded
+   Gemma-2 2B at 2 of its 26 layers in memory with a word-level tokenizer
+   and encodes 16 prompts at 256 tokens (prompts/s); builds all 29 blocks in
+   memory: one forward against the plain attention over 4,096 image and 256
+   masked text tokens (query segment ids 1, key ids the text mask), the flow
+   Euler loop without a decode (no VAE of either package decodes FLUX.2's 32
+   channels: ROADMAP Queue 3), and ``build_train_step`` graphed on seeded
+   32-channel latents (normalized by the FLUX.2 statistics): 6 replays held
+   to the eager steps, s/step, MFU, peak GiB and the profiled replay's
+   launches; last, the run's writes against ``RUN_WRITE_LIMIT_GB`` less
    ``RUN_WRITE_MARGIN_GB``.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
@@ -527,7 +583,14 @@ at 2 heads, and Qwen-Image's, Z-Image's and HiDream's (``QI_KERNEL_CASES``,
 (``F2_KERNEL_CASES``: the joint (1, 48, 4608, 128), unmasked; the klein
 width's 24 heads share Flux's kernel instance; ``KOLORS_KERNEL_CASES``: the
 UNet's self-attention at its three levels and their cross-attention against
-256 ChatGLM keys, D = 64, unmasked), held at 2 heads; at the long shapes the plain
+256 ChatGLM keys, D = 64, unmasked), and LongCat-Image's, Z-Image-Omni's and
+Zlab-i1's (``LC_KERNEL_CASES``: the joint (1, 24, 4560, 128) and the edit
+flavour's (1, 24, 8656, 128), unmasked; ``ZO_KERNEL_CASES``: the joint
+(1, 30, 4608, 128) and the omni forward's (1, 30, 9728, 128) with segment ids
+all 1, the noise refiner's 4,096 and the context refiner's 512 tokens,
+unmasked; ``ZL_KERNEL_CASES``: the joint (1, 28, 4352, 72) with query ids 1
+and key ids the text mask (180 of 256 valid), the connector's 256 tokens
+unmasked), held at 2 heads; at the long shapes the plain
 version is timed once, one head at a time, with no warm-up run (the first
 head warms it); phases 3 and 7 print the seconds of each of
 their sections (``section_s``).  Every phase
@@ -538,14 +601,16 @@ that writes more than 45 GiB, deleted files included).  On an H100 80GB HBM3 at
 at 3-5 GB/s, their bytes cast on the card): phases 3 and 7 about 115 s, phase 12
 about 100 s, phases 17-18 about 180 s, phases 19-24 about 180 s, phases 25-26 about
 30 s, phases 27-28 about 75 s, phases 29-30 about 35 s; phases 31-32 add about 60 s
-and their kernel cases about 3 s (PERF.md §7 holds the whole run's seconds and GB).
+and their kernel cases about 3 s, phases 33-35 about 60 s and theirs about 8 s (phases 1-35:
+893 s, 44.79 GB; PERF.md §7 holds the whole run's seconds and GB).
 Then a JSON line with the kernels, each wrapper's head dim 256 instances,
 its Chroma row (the Flux shape's times) and its rows at Wan's, LTX's,
 Lumina2's, Kandinsky 5.0's, HunyuanVideo's, Qwen-Image's, Z-Image's,
-HiDream's, FLUX.2's and Kolors's shapes beside it (launches: the profiler's
-count in phase 12's profiled replay, for the head dim 256 rows in phase 22's,
-for the Chroma rows in phase 25's, and for the other rows the wrappers' count
-at that shape per step in phase 23's, 24's and 26's-32's runs),
+HiDream's, FLUX.2's, Kolors's, LongCat-Image's, Z-Image-Omni's and Zlab-i1's
+shapes beside it (launches: the profiler's count in phase 12's profiled
+replay, for the head dim 256 rows in phase 22's, for the Chroma rows in phase
+25's, and for the other rows the wrappers' count at that shape per step in
+phase 23's, 24's and 26's-35's runs, per forward for Z-Image-Omni's omni shape),
 and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
 register, spill and warning lines per kernel (a C7514 warning means ptxas
@@ -794,7 +859,7 @@ CHROMA_GUIDANCE = 4.0
 CHROMA_TRAIN_STEPS, CHROMA_TRAIN_IMAGES = 6, 4
 CHROMA_PROMPT = "a lighthouse on a basalt cliff at dusk"
 CHROMA_SIGMA = 0.7
-PHASE25_WRITE_GB = 1.0  # at the cut depth (CHROMA_CUT_BLOCKS)
+PHASE25_WRITE_GB = 0.9  # at the cut depth (CHROMA_CUT_BLOCKS): 0.81 GB measured
 # phase 26: Lumina-Image 2.0 (Alpha-VLLM/Lumina-Image-2.0's transformer/ as the
 # JAX preset Lumina2Config() builds it: 26 joint blocks + 2 context and 2 noise
 # refiners, 2304 wide, 24 query / 8 kv heads of 96, SwiGLU 6144; 1.97B
@@ -814,12 +879,12 @@ LUMINA_GUIDANCE = 4.0
 LUMINA_TRAIN_STEPS, LUMINA_TRAIN_IMAGES = 6, 4
 LUMINA_PROMPT = "a lighthouse on a basalt cliff at dusk"
 LUMINA_SIGMA = 0.7
-GEMMA_FILE_LAYERS = 6
+GEMMA_FILE_LAYERS = 2
 # a decoder LLM's bf16 states against the f32 module on the same weights and
 # tokens (phases 26-28): every product and the residual stream round to bf16
 # in each layer, so they agree to about a percent in relative L2
 LLM_BF16_REL_L2 = 5e-2
-PHASE26_WRITE_GB = 3.2
+PHASE26_WRITE_GB = 1.65  # at the cut depths (LUMINA_CUT_BLOCKS, GEMMA_FILE_LAYERS): 1.40 GB of files
 # phases 3 and 7 at Lumina2's attention shapes (D = 96, zero-padded to 128 by
 # the wrappers, scaled by 96^-0.5): (name, heads, query tokens, key tokens,
 # head dim, valid caption tokens or None): the joint layers over [256 caption,
@@ -858,7 +923,7 @@ K5_LATENT = ((K5_FRAMES - 1) // 4 + 1, K5_HEIGHT // 8, K5_WIDTH // 8)
 K5_TOKENS = K5_LATENT[0] * (K5_LATENT[1] // 2) * (K5_LATENT[2] // 2)
 K5_CLIPS, K5_RENDER_SIZE, K5_PARITY_FRAMES, K5_SIGMA = 2, 512, 17, 0.7
 QWEN_FILE_LAYERS = 2
-PHASE27_WRITE_GB = 3.1  # at the cut depths (K5_CUT_BLOCKS, QWEN_FILE_LAYERS)
+PHASE27_WRITE_GB = 2.75  # at the cut depths (K5_CUT_BLOCKS, QWEN_FILE_LAYERS): 2.65 GB measured
 # phases 3 and 7 at Kandinsky 5.0's attention shapes (D = 64, unmasked: the
 # JAX family drops the Qwen mask): the video flavour's self-attention over
 # 24,576 tokens (192 full tiles) and its cross-attention against the 512 Qwen
@@ -941,7 +1006,7 @@ HD_JOINT = QI_IMG + 3 * HD_TEXT
 HD_GUIDANCE, HD_SIGMA = 5.0, 0.7
 HD_TRAIN_STEPS, HD_TRAIN_IMAGES = 6, 4
 LLAMA_FILE_LAYERS = 2
-PHASE30_WRITE_GB = 2.0  # at the cut depths (HD_CUT_BLOCKS, LLAMA_FILE_LAYERS)
+PHASE30_WRITE_GB = 1.9  # at the cut depths (HD_CUT_BLOCKS, LLAMA_FILE_LAYERS): 1.82 GB measured
 HD_KERNEL_CASES = (
     ("hd_joint", 20, HD_JOINT, HD_JOINT, 128),
 )
@@ -980,10 +1045,78 @@ KOLORS_GUIDANCE, KOLORS_PARITY_T = 5.0, 500
 KOLORS_TRAIN_STEPS, KOLORS_TRAIN_IMAGES = 6, 4
 KOLORS_CUT_LAYERS = (1, 2, 2)
 GLM_FILE_LAYERS = 2
-PHASE32_WRITE_GB = 2.1  # at the cut depths (KOLORS_CUT_LAYERS, GLM_FILE_LAYERS): 1.69 GB of files
+PHASE32_WRITE_GB = 1.95  # at the cut depths (KOLORS_CUT_LAYERS, GLM_FILE_LAYERS): 1.86 GB measured
 KOLORS_KERNEL_CASES = tuple(case for level, (heads, seq) in enumerate(SDXL_LEVELS) for case in (
     (f"kolors_l{level}_self", heads, seq, seq, 64), (f"kolors_l{level}_cross", heads, seq, KOLORS_TEXT, 64)))
 KOLORS_CHECK_HEADS = 2
+# phase 33: LongCat-Image (meituan-longcat/LongCat-Image's transformer/ as the
+# JAX family builds it: Flux's 19 double and 38 single blocks at 3072 wide, 24
+# heads of 128, 3584-wide Qwen2.5-VL text, no pooled or guidance embedder;
+# 11.9B parameters) at LC_CUT_BLOCKS of its 19 + 38 blocks in a run of every
+# phase, with the Qwen2.5-VL-7B trunk of phases 27-29 (2 of 28 layers,
+# linked), at 1024 px.  The captioning template's spans under the word-level
+# tokenizer (40 + 8 tokens with its <bos>; the published tokenizer's are 36 +
+# 5) leave 464 of the 512 Qwen tokens: 4,096 image tokens after 464 text
+# tokens (4,560 joint, unmasked); the edit flavour adds 4,096 reference tokens
+LC_PROMPT = "a lighthouse on a basalt cliff at dusk"
+LC_TEXT = 512 - 40 - 8
+LC_IMG = (RESOLUTION // 16) ** 2
+LC_JOINT, LC_EDIT_JOINT = LC_TEXT + LC_IMG, LC_TEXT + 2 * LC_IMG
+LC_GUIDANCE, LC_SIGMA = 4.0, 0.7
+LC_TRAIN_STEPS, LC_TRAIN_IMAGES = 6, 4
+LC_CUT_BLOCKS = (1, 1)
+PHASE33_WRITE_GB = 0.7  # at the cut depth: 0.52 GB is the file
+LC_KERNEL_CASES = (
+    ("lc_joint", 24, LC_JOINT, LC_JOINT, 128),
+    ("lc_edit_joint", 24, LC_EDIT_JOINT, LC_EDIT_JOINT, 128),
+)
+LC_CHECK_HEADS = 2
+# phase 34: Z-Image-Omni (Tongyi-MAI/Z-Image-Omni's transformer/ as the JAX
+# preset ZImageOmniConfig() builds it: 30 layers and 2 + 2 + 2 refiners, 3840
+# wide, 30 heads of 128; 6.51B parameters) at ZO_CUT_BLOCKS (layers, refiner
+# depth) in a run of every phase, phase 29's 2560-wide qwen2 trunk (2 layers,
+# linked), at 1024 px: 512 caption tokens (the qwen2.5 spec's length) and
+# 4,096 image tokens, 4,608 joint with segment ids all 1 (the JAX module
+# passes them); the omni forward adds 4,096 reference tokens and a 32 x 32
+# SigLIP grid (a SigLIP2 at 512 px in patches of 16); Boogu-Image (Lumina2's
+# layout) at BOOGU_BLOCKS of its 26 blocks in memory
+ZO_PROMPT = "a lighthouse on a basalt cliff at dusk"
+ZO_TEXT = 512
+ZO_SIGLIP = (32, 32)
+ZO_JOINT = ZO_TEXT + LC_IMG
+ZO_OMNI_JOINT = ZO_TEXT + 2 * LC_IMG + ZO_SIGLIP[0] * ZO_SIGLIP[1]
+ZO_GUIDANCE, ZO_SIGMA = 4.0, 0.7
+ZO_TRAIN_STEPS, ZO_TRAIN_IMAGES = 6, 4
+ZO_CUT_BLOCKS = (1, 1)
+BOOGU_BLOCKS = 2
+PHASE34_WRITE_GB = 0.9  # at the cut depth: 0.73 GB is the file
+ZO_KERNEL_CASES = (
+    ("zo_joint", 30, ZO_JOINT, ZO_JOINT, 128, "ones"),
+    ("zo_omni_joint", 30, ZO_OMNI_JOINT, ZO_OMNI_JOINT, 128, "ones"),
+    ("zo_noise_refiner", 30, LC_IMG, LC_IMG, 128),
+    ("zo_context_refiner", 30, ZO_TEXT, ZO_TEXT, 128),
+)
+ZO_CHECK_HEADS = 2
+# phase 35: Zlab-i1 (zlab-princeton/i1-3B's transformer/ as the JAX preset
+# ZlabI1Config() builds it: 2016 wide, 28 heads of 72, 29 U-ViT blocks, 32
+# latent channels; 3.17B parameters), its checkpoint written at
+# ZL_FILE_BLOCKS of 29 and all 29 built in memory, with a Gemma-2 2B at
+# GEMMA_ZL_LAYERS of its 26 layers in memory, at 1024 px: 4,096 image tokens
+# and 256 text tokens (180 valid in the kernel cases) in the masked joint
+# attention (query ids 1, key ids the text mask), the connector's 256 unmasked
+ZL_PROMPT = "a lighthouse on a basalt cliff at dusk"
+ZL_TEXT, ZL_VALID = 256, 180
+ZL_JOINT = LC_IMG + ZL_TEXT
+ZL_SIGMA = 0.7
+ZL_TRAIN_STEPS = 6
+ZL_FILE_BLOCKS = 3
+GEMMA_ZL_LAYERS = 2
+PHASE35_WRITE_GB = 0.5  # 0.42 GB is the file
+ZL_KERNEL_CASES = (
+    ("zl_joint", 28, ZL_JOINT, ZL_JOINT, 72, "zl_joint"),
+    ("zl_connector", 28, ZL_TEXT, ZL_TEXT, 72),
+)
+ZL_CHECK_HEADS = 2
 # the depth of the earlier families' seeded files in a run of every phase
 # (full width; the kernels' shapes depend on width and tokens, not depth),
 # cut to make room for phases 25-32 in the write budget: SD3.5 Large at 2 of
@@ -994,7 +1127,10 @@ KOLORS_CHECK_HEADS = 2
 # Lite at 16 of its 32 visual blocks (room and time for phases 29-30),
 # HunyuanVideo 1.5 at 6 of 54, Qwen-Image at 2 of 60 and HiDream-I1 at 1 + 1
 # of its 16 + 32 (4 and 2 + 2 before phases 31-32 needed the room), FLUX.2 at
-# 1 + 1 of its 8 + 48; a run that names one of these phases (--phases)
+# 1 + 1 of its 8 + 48, Lumina-Image 2.0 at 6 of its 26 joint blocks and
+# Gemma-2 2B at 2 of 26 layers (26 and 6 before phases 33-35 needed the room),
+# LongCat-Image at 1 + 1 of 19 + 38, Z-Image-Omni at 1 of 30 layers with
+# refiners 1 deep of 2; a run that names one of these phases (--phases)
 # writes it at full depth where its writes leave room
 SD3_CUT_BLOCKS = 2
 AURA_CUT_BLOCKS = (2, 4)
@@ -1006,6 +1142,7 @@ HY_CUT_BLOCKS = 6
 QI_CUT_BLOCKS = 2
 HD_CUT_BLOCKS = (1, 1)
 F2_CUT_BLOCKS = (1, 1)
+LUMINA_CUT_BLOCKS = 6
 # the most a run may write, deleted files included (45 GiB), and the margin
 # below it for what this process's count does not see (the server jobs' child
 # processes in phase 18, nvcc's outputs); the last phase checks the run's
@@ -1028,15 +1165,15 @@ _STARTED = time.perf_counter()
 PHASE_WRITE_GB = {19: 1.5, 20: 3.2, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB, 23: PHASE23_WRITE_GB,
                   24: PHASE24_WRITE_GB, 25: PHASE25_WRITE_GB, 26: PHASE26_WRITE_GB, 27: PHASE27_WRITE_GB,
                   28: PHASE28_WRITE_GB, 29: PHASE29_WRITE_GB, 30: PHASE30_WRITE_GB, 31: PHASE31_WRITE_GB,
-                  32: PHASE32_WRITE_GB}
+                  32: PHASE32_WRITE_GB, 33: PHASE33_WRITE_GB, 34: PHASE34_WRITE_GB, 35: PHASE35_WRITE_GB}
 # the phases whose files (or, for 5 and 6, whose runtime) a phase needs before
 # it; 1, 2, 3 and 7 run in every run (the build, and the kernels line's times)
 PHASE_NEEDS = {4: (14, 15, 16), 5: (4,), 6: (5,), 15: (14,), 16: (14,), 17: (14, 15, 16), 18: (17,),
                19: (14, 15, 16), 20: (19,), 21: (20,), 22: (20,), 23: (15, 16), 24: (15, 16), 25: (14, 15, 16),
                26: (14, 16), 27: (14, 15, 16), 28: (14, 15), 29: (14, 16), 30: (14, 15, 16, 19), 31: (),
-               32: (14, 16)}
+               32: (14, 16), 33: (14, 16), 34: (14, 16), 35: ()}
 ALWAYS = (1, 2, 3, 7)
-LAST_PHASE = 32
+LAST_PHASE = 35
 # the phases named on the command line (None: every phase) and those the run takes
 RUN = {"requested": None, "phases": set(range(1, LAST_PHASE + 1))}
 
@@ -1365,6 +1502,12 @@ def kernel_cases():
     marks.append(("flux2", time.perf_counter()))
     times["kolors"], kolors_entries = long_forward_cases(KOLORS_KERNEL_CASES, KOLORS_CHECK_HEADS, 1020, errors)
     marks.append(("kolors", time.perf_counter()))
+    times["longcat_image"], lc_entries = long_forward_cases(LC_KERNEL_CASES, LC_CHECK_HEADS, 1060, errors)
+    marks.append(("longcat_image", time.perf_counter()))
+    times["z_image_omni"], zo_entries = long_forward_cases(ZO_KERNEL_CASES, ZO_CHECK_HEADS, 1100, errors)
+    marks.append(("z_image_omni", time.perf_counter()))
+    times["zlab_i1"], zl_entries = long_forward_cases(ZL_KERNEL_CASES, ZL_CHECK_HEADS, 1140, errors)
+    marks.append(("zlab_i1", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
@@ -1378,7 +1521,7 @@ def kernel_cases():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_masked_ms,
             "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}, fwd256_entry, \
         {**wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries, **hd_entries,
-         **f2_entries, **kolors_entries}
+         **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries}
 
 
 def backward_cases():
@@ -1510,6 +1653,12 @@ def backward_cases():
     marks.append(("flux2", time.perf_counter()))
     times["kolors"], kolors_entries = long_backward_cases(KOLORS_KERNEL_CASES, KOLORS_CHECK_HEADS, 1040, errors)
     marks.append(("kolors", time.perf_counter()))
+    times["longcat_image"], lc_entries = long_backward_cases(LC_KERNEL_CASES, LC_CHECK_HEADS, 1080, errors)
+    marks.append(("longcat_image", time.perf_counter()))
+    times["z_image_omni"], zo_entries = long_backward_cases(ZO_KERNEL_CASES, ZO_CHECK_HEADS, 1120, errors)
+    marks.append(("z_image_omni", time.perf_counter()))
+    times["zlab_i1"], zl_entries = long_backward_cases(ZL_KERNEL_CASES, ZL_CHECK_HEADS, 1160, errors)
+    marks.append(("zlab_i1", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
@@ -1522,7 +1671,7 @@ def backward_cases():
                                 "bound_by": bounds[(kernel, "masked")][1], **library}
         for kernel in ("dq", "dkv")
     }, **d256_entries, **wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries,
-        **hd_entries, **f2_entries, **kolors_entries}
+        **hd_entries, **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries}
 
 
 def _ddpm_inputs(seed, heads, sq, sk, dim, n):
@@ -1802,13 +1951,15 @@ def _case_segments(length: int, plane):
     plane (``HY_VIDEO`` video tokens at 0, then ``HY_TEXT`` Qwen and
     ``HY_TEXT2`` ByT5 tokens, ``HY_QWEN_VALID`` and ``HY_BYT5_VALID`` of them
     valid at 0, their pads at -1) and "hy_refiner" its refiner's (the Qwen
-    caption alone)."""
+    caption alone); "ones" is every token at 1 (Z-Image-Omni's joint ids)."""
     import torch
 
     if plane is None:
         return None
     seg = torch.zeros((1, length), dtype=torch.int32, device="cuda")
-    if plane == "hy_refiner":
+    if plane == "ones":
+        seg += 1
+    elif plane == "hy_refiner":
         seg[:, HY_QWEN_VALID:] = -1
     elif plane == "hy_joint":
         seg[:, HY_VIDEO + HY_QWEN_VALID:HY_VIDEO + HY_TEXT] = -1
@@ -1819,15 +1970,32 @@ def _case_segments(length: int, plane):
     return seg
 
 
-def _segment_pairs(seg, length: int) -> int:
-    """(query, key) pairs a segment plane lets attend: the sum of each id's
-    count squared (a pad at -1 attends and is attended by nothing)."""
+def _case_planes(sq: int, sk: int, plane):
+    """A long case's (query, key) segment ids: ``_case_segments``'s plane on
+    both sides, or for "zl_joint" Zlab-i1's joint call: every query at 1, the
+    ``LC_IMG`` image keys and the first ``ZL_VALID`` text keys at 1 and the
+    other text keys at 0 (the text mask as the key ids)."""
     import torch
 
-    if seg is None:
-        return length * length
-    ids = seg[0].long()
-    return int((torch.bincount(ids[ids >= 0]) ** 2).sum())
+    if plane != "zl_joint":
+        seg = _case_segments(sq, plane)
+        return seg, seg
+    kv = torch.ones((1, sk), dtype=torch.int32, device="cuda")
+    kv[:, LC_IMG + ZL_VALID:] = 0
+    return torch.ones((1, sq), dtype=torch.int32, device="cuda"), kv
+
+
+def _segment_pairs(q_seg, kv_seg, sq: int, sk: int) -> int:
+    """(query, key) pairs the segment planes let attend: over each id, its
+    query count times its key count (a pad at -1 attends and is attended by
+    nothing)."""
+    import torch
+
+    if q_seg is None:
+        return sq * sk
+    q, kv = q_seg[0].long(), kv_seg[0].long()
+    size = int(max(q.max(), kv.max())) + 1
+    return int((torch.bincount(q[q >= 0], minlength=size) * torch.bincount(kv[kv >= 0], minlength=size)).sum())
 
 
 def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tuple:
@@ -1849,15 +2017,15 @@ def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tupl
     cases_out, entries = {}, {}
     for index, (name, heads, sq, sk, dim, *valid) in enumerate(cases):
         t0 = time.perf_counter()
-        seg = _case_segments(sq, valid[0] if valid else None)
-        mask = None if seg is None else (seg[0][:, None] == seg[0][None, :])[None, None]
+        q_seg, kv_seg = _case_planes(sq, sk, valid[0] if valid else None)
+        mask = None if q_seg is None else (q_seg[0][:, None] == kv_seg[0][None, :])[None, None]
 
         def plain(q, k, v):
-            return mha_reference_lse(q, k, v, seg, seg)
+            return mha_reference_lse(q, k, v, q_seg, kv_seg)
 
         checked = min(heads, check_heads)
         q, k, v = _long_inputs(seed + 2 * index, checked, sq, sk, dim, 3)
-        out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
+        out, lse = flash_attention(q, k, v, q_seg, kv_seg, return_lse=True)
         ref, ref_lse = _by_heads(plain, q, k, v)
         torch.cuda.synchronize()
         err, bound = (out.float() - ref.float()).abs().max().item(), OUT_REL_MAX * ref.float().abs().max().item()
@@ -1870,10 +2038,10 @@ def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tupl
         q, k, v = _long_inputs(seed + 10 + 2 * index, heads, sq, sk, dim, 3)
         backend, sdpa_ms = _sdpa_backend(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 10,
                                          fused_only=True)
-        nbytes = 2 * heads * (sq + sk) * dim * 2 + heads * sq * 4 + (0 if seg is None else 2 * sq * 4)
-        pairs = _segment_pairs(seg, sq) if seg is not None else sq * sk
+        nbytes = 2 * heads * (sq + sk) * dim * 2 + heads * sq * 4 + (0 if q_seg is None else (sq + sk) * 4)
+        pairs = _segment_pairs(q_seg, kv_seg, sq, sk)
         bound_ms, bound_by = _attention_bound_ms(2, pairs, heads, dim, nbytes)  # q, out; k, v; lse; ids
-        kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, seg, seg), 10)
+        kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, q_seg, kv_seg), 10)
         plain_ms = cuda_ms(lambda: _by_heads(plain, q, k, v), 1, warmup=0)  # one head at a time: the first warms
         cases_out[name] = {"shape": [1, heads, sq, sk, dim], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                            "sdpa_ms": sdpa_ms, "sdpa_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1882,7 +2050,7 @@ def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tupl
         entries[f"flash_fwd_{name}"] = {
             "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": sdpa_ms, "library_call": f"scaled_dot_product_attention ({backend}"
-                                                   f"{'' if seg is None else ', boolean attn_mask'})",
+                                                   f"{'' if q_seg is None else ', boolean attn_mask'})",
             "shape": [1, heads, sq, sk, dim], "max_abs_err_heads": checked,
             "plain_call": "mha_reference_lse, one head at a time"}
         del q, k, v, mask
@@ -1908,16 +2076,16 @@ def long_backward_cases(cases, check_heads: int, seed: int, errors: dict) -> tup
     for index, (name, heads, sq, sk, dim, *valid) in enumerate(cases):
         t0 = time.perf_counter()
         scale = dim ** -0.5
-        seg = _case_segments(sq, valid[0] if valid else None)
-        mask = None if seg is None else (seg[0][:, None] == seg[0][None, :])[None, None]
+        q_seg, kv_seg = _case_planes(sq, sk, valid[0] if valid else None)
+        mask = None if q_seg is None else (q_seg[0][:, None] == kv_seg[0][None, :])[None, None]
 
         def plain(q, k, v, out, lse, do):
-            return mha_backward_reference(q, k, v, seg, seg, out, lse, do, scale)
+            return mha_backward_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
 
         checked = min(heads, check_heads)
         q, k, v, do = _long_inputs(seed + 2 * index, checked, sq, sk, dim, 4)
-        out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
-        grads = flash_backward(q, k, v, seg, seg, out, lse, do, scale)
+        out, lse = flash_attention(q, k, v, q_seg, kv_seg, return_lse=True)
+        grads = flash_backward(q, k, v, q_seg, kv_seg, out, lse, do, scale)
         refs = _by_heads(plain, q, k, v, out, lse, do)
         torch.cuda.synchronize()
         errors[name + "_backward"] = {"heads_checked": checked}
@@ -1935,17 +2103,17 @@ def long_backward_cases(cases, check_heads: int, seed: int, errors: dict) -> tup
         torch.cuda.empty_cache()
 
         q, k, v, do = _long_inputs(seed + 10 + 2 * index, heads, sq, sk, dim, 4)
-        out, lse = flash_attention(q, k, v, seg, seg, return_lse=True)
+        out, lse = flash_attention(q, k, v, q_seg, kv_seg, return_lse=True)
         delta = (out.float() * do.float()).sum(dim=-1)
         q_act, k_act = heads * sq * dim * 2, heads * sk * dim * 2
-        stats = 2 * heads * sq * 4 + (0 if seg is None else 2 * sq * 4)
-        pairs = _segment_pairs(seg, sq) if seg is not None else sq * sk
+        stats = 2 * heads * sq * 4 + (0 if q_seg is None else (sq + sk) * 4)
+        pairs = _segment_pairs(q_seg, kv_seg, sq, sk)
         times = {"shape": [1, heads, sq, sk, dim], "attended_pairs": pairs}
         for kernel, products, nbytes, fn in (
                 ("dq", 3, 3 * q_act + 2 * k_act + stats,
-                 lambda: flash_bwd_dq_kernel(q, k, v, seg, seg, lse, delta, do, scale)),
+                 lambda: flash_bwd_dq_kernel(q, k, v, q_seg, kv_seg, lse, delta, do, scale)),
                 ("dkv", 4, 2 * q_act + 4 * k_act + stats,
-                 lambda: flash_bwd_dkv_kernel(q, k, v, seg, seg, lse, delta, do, scale))):
+                 lambda: flash_bwd_dkv_kernel(q, k, v, q_seg, kv_seg, lse, delta, do, scale))):
             times[f"{kernel}_ms"] = cuda_ms(fn, 5)
             times[f"bound_{kernel}_ms"], times[f"bound_{kernel}_by"] = _attention_bound_ms(
                 products, pairs, heads, dim, nbytes)
@@ -1969,7 +2137,7 @@ def long_backward_cases(cases, check_heads: int, seed: int, errors: dict) -> tup
                 "bound_ms": times[f"bound_{kernel}_ms"], "bound_by": times[f"bound_{kernel}_by"],
                 "library_ms": times["sdpa_backward_ms"],
                 "library_call": f"scaled_dot_product_attention backward, dq + dk + dv together ({backend}"
-                                f"{'' if seg is None else ', boolean attn_mask'})",
+                                f"{'' if q_seg is None else ', boolean attn_mask'})",
                 "shape": [1, heads, sq, sk, dim], "max_abs_err_heads": checked,
                 "plain_call": "mha_backward_reference (whole backward), one head at a time"}
         del q, k, v, do, out, lse, delta, leaves, mask
@@ -3966,16 +4134,16 @@ def _per_shape(kernels, scale: int = 1) -> dict:
             for kernel in kernels}
 
 
-def _write_e4m3_transformer(root: str, shapes: dict, gen, subfolder: str = "transformer") -> tuple:
-    """Seeded weights of ``shapes`` taken to e4m3 on the card, written with the
-    port's writer as two diffusers shards under ``root/subfolder``; returns
-    the weights and the write seconds."""
+def _write_e4m3_transformer(root: str, shapes: dict, gen, subfolder: str = "transformer", weights=None) -> tuple:
+    """Seeded weights of ``shapes`` (or ``weights``) taken to e4m3 on the
+    card, written with the port's writer as two diffusers shards under
+    ``root/subfolder``; returns the weights and the write seconds."""
     import torch
 
     from simpletuner_tpu_torch.models.weight_import import save_safetensors
 
     os.makedirs(os.path.join(root, subfolder))
-    weights = {k: v.to(torch.float8_e4m3fn) for k, v in seeded_weights(shapes, gen).items()}
+    weights = {k: v.to(torch.float8_e4m3fn) for k, v in (weights or seeded_weights(shapes, gen)).items()}
     names = sorted(weights)
     t0 = time.perf_counter()
     for shard, part in enumerate((names[: len(names) // 2], names[len(names) // 2:])):
@@ -5108,8 +5276,9 @@ def write_gemma_tokenizer(root: str, words) -> None:
                    "eos_token": "<eos>", "bos_token": "<bos>", "unk_token": "<unk>", "padding_side": "right"}, handle)
 
 
-def lumina2_phase(paths: dict, kernels, device: str) -> dict:
-    """Phase 26: Lumina-Image 2.0 at the JAX preset's published size with its
+def lumina2_phase(paths: dict, kernels, device: str, depth: int) -> dict:
+    """Phase 26: Lumina-Image 2.0 at the JAX preset's published width and
+    ``depth`` of its 26 joint blocks with its
     Gemma-2 2B text encoder: a seeded e4m3 diffusers transformer, a seeded
     Gemma-2 2B in the HF layout (e4m3, full width; ``GEMMA_FILE_LAYERS`` of
     its 26 layers, the full depth in a run that names phase 26 where its
@@ -5151,10 +5320,11 @@ def lumina2_phase(paths: dict, kernels, device: str) -> dict:
         for arch, (h, w), t in ((tiny, (8, 6), 7), (wider, (4, 8), 5))])
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(26)
-    arch = Lumina2Config()
-    if (arch.hidden_size, arch.depth, arch.refiner_depth, arch.num_heads, arch.num_kv_heads, arch.head_dim,
-            arch.ffn_inner) != (2304, 26, 2, 24, 8, 96, 6144):
-        raise RuntimeError(f"not Lumina-Image 2.0's published transformer: {arch}")
+    full = Lumina2Config()
+    if (full.hidden_size, full.depth, full.refiner_depth, full.num_heads, full.num_kv_heads, full.head_dim,
+            full.ffn_inner) != (2304, 26, 2, 24, 8, 96, 6144):
+        raise RuntimeError(f"not Lumina-Image 2.0's published transformer: {full}")
+    arch = dataclasses.replace(full, depth=depth)
     gemma_full = LLMEncoderConfig.gemma2_2b()
     shapes = lumina2_checkpoint_shapes(arch)
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
@@ -5309,7 +5479,7 @@ def lumina2_phase(paths: dict, kernels, device: str) -> dict:
     train.update({"base": "bf16", "remat": "every block", "lora_rank": 16, "flop_checks": flop_checks})
     phase("26 lumina2", config="Alpha-VLLM/Lumina-Image-2.0 transformer/ as the JAX preset Lumina2Config() builds it",
           params=params, hidden=arch.hidden_size, heads=[arch.num_heads, arch.num_kv_heads, arch.head_dim],
-          blocks=[arch.refiner_depth, arch.refiner_depth, arch.depth], depth=[arch.depth, arch.depth],
+          blocks=[arch.refiner_depth, arch.refiner_depth, arch.depth], depth=[arch.depth, full.depth],
           ffn_inner=arch.ffn_inner, tokens={"caption": LUMINA_CAP, "image": (latent // 2) ** 2, "joint": LUMINA_S},
           files=files, text_encoder=text, imported=imported, render=render, parity=parity, train=train,
           allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device)
@@ -5395,6 +5565,21 @@ def write_llm_trunk(root: str, config, gen, hf_config: dict, extra: dict = None)
     del weights
     torch.cuda.empty_cache()
     return write_s
+
+
+# Z-Image's 2560-wide qwen2-layout trunk (the JAX family's qwen2.5 spec at
+# Qwen3-4B's sizes from its config.json): phase 29 writes it, phase 34 links it
+ZI_TRUNK_HF = {"architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3", "max_position_embeddings": 40960,
+               "hidden_act": "silu", "tie_word_embeddings": True}
+
+
+def zi_trunk_config():
+    """The 2560-wide qwen2-layout trunk at ``ZI_TRUNK_LAYERS`` of its 36 layers."""
+    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoderConfig
+
+    return LLMEncoderConfig(arch="qwen2", vocab_size=151936, hidden_size=2560, intermediate_size=9728,
+                            num_layers=ZI_TRUNK_LAYERS, num_heads=32, num_kv_heads=8, head_dim=128,
+                            rope_theta=1000000.0, rms_eps=1e-6, qkv_bias=True)
 
 
 def qwen_trunk(paths: dict, number: int) -> dict:
@@ -6187,7 +6372,6 @@ def qwen_image_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     from simpletuner_tpu_torch.inference import config_namespace
     from simpletuner_tpu_torch.models.checkpoint_layouts import qwen_image_checkpoint_shapes
     from simpletuner_tpu_torch.models.layers import init_parameters
-    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoderConfig
     from simpletuner_tpu_torch.models.mageflow import MageFlow, ZImage
     from simpletuner_tpu_torch.models.qwen_image import QwenImage, QwenImageConfig, QwenImageTransformer
     from simpletuner_tpu_torch.models.registry import ModelRegistry
@@ -6309,12 +6493,9 @@ def qwen_image_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     if zmodel.arch != zarch or MageFlow.LATENT_CHANNEL_COUNT != 32 or ZImage.LATENT_CHANNEL_COUNT != 16:
         raise RuntimeError(f"z_image: the family builds {zmodel.arch}, not {zarch}")
     z_dir = os.path.join(work, "z_image")
-    trunk = LLMEncoderConfig(arch="qwen2", vocab_size=151936, hidden_size=2560, intermediate_size=9728,
-                             num_layers=ZI_TRUNK_LAYERS, num_heads=32, num_kv_heads=8, head_dim=128,
-                             rope_theta=1000000.0, rms_eps=1e-6, qkv_bias=True)
-    trunk_write_s = write_llm_trunk(os.path.join(z_dir, "text_encoder"), trunk, gen, {
-        "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3", "max_position_embeddings": 40960,
-        "hidden_act": "silu", "tie_word_embeddings": True})
+    trunk = zi_trunk_config()
+    trunk_write_s = write_llm_trunk(os.path.join(z_dir, "text_encoder"), trunk, gen, ZI_TRUNK_HF)
+    paths["zi_trunk"] = os.path.join(z_dir, "text_encoder")  # phase 34 links it
     write_gemma_tokenizer(os.path.join(z_dir, "tokenizer"), words)
     _link_tree(os.path.join(flux_dir, "vae"), os.path.join(z_dir, "vae"))
     z_joint = QI_IMG + ZI_TEXT
@@ -6394,7 +6575,7 @@ def hidream_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
 
     start = time.perf_counter()
     work, flux_dir = paths["work"], paths["flux_dir"]
-    for out in ("qwen_image", "qi_data", "qi_train", "qi_render", "z_image", "zi_train"):  # phase 29's: disk space
+    for out in ("qwen_image", "qi_data", "qi_train", "qi_render", "zi_train"):  # phase 29's (its trunk: phase 34's)
         shutil.rmtree(os.path.join(work, out), ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7091,6 +7272,690 @@ def kolors_phase(paths: dict, kernels, device: str, layers: tuple) -> dict:
           parity=parity, train=train, allocated_gib_before_phase=baseline_gib,
           seconds=time.perf_counter() - start, device=device, **writes)
     return {name: {k: v.get(key) for k, v in by_shape.items()} for name, (key, _) in shape_keys.items()}
+
+
+def longcat_image_step_flops(arch, batch: int, img_tokens: int, txt_tokens: int, tokenwise: bool = False) -> int:
+    """Model FLOPs of one LongCat-Image train step in bench.py's convention
+    (forward x 3), counted from the config (Flux's topology without the
+    pooled and guidance embedders): ``img_in`` and ``txt_in``; the time MLP
+    per sample, or per image token with ``tokenwise`` timesteps; per double
+    block the two AdaLN modulations (the image one per image token when
+    tokenwise, the text one per sample), q / k / v / out and the MLP over
+    every token and the joint attention's two products; per single block its
+    modulation (per token when tokenwise), ``linear1`` and ``linear2`` over
+    every token and the attention; ``final_mod`` and the head."""
+    h, c = arch.hidden_size, arch.in_channels
+    mlp = int(h * arch.mlp_ratio)
+    joint = img_tokens + txt_tokens
+    img_rows, joint_rows = (img_tokens, joint) if tokenwise else (1, 1)
+    fwd = 2 * img_tokens * c * h + 2 * txt_tokens * arch.txt_in_features * h + img_rows * 2 * (256 * h + h * h)
+    fwd += arch.depth_double * (12 * h * h * (img_rows + 1) + joint * (8 * h * h + 4 * h * mlp) + 4 * joint * joint * h)
+    fwd += arch.depth_single * (6 * h * h * joint_rows + joint * 4 * h * (2 * h + mlp) + 4 * joint * joint * h)
+    fwd += img_rows * 4 * h * h + 2 * img_tokens * h * c
+    return batch * fwd * 3
+
+
+def z_image_omni_step_flops(arch, batch: int, img_tokens: int, cap_tokens: int, cond: bool = False,
+                            siglip_tokens: int = 0) -> int:
+    """Model FLOPs of one Z-Image-Omni train step in bench.py's convention
+    (forward x 3), counted from the config: the time MLP twice per sample (the
+    noisy and the clean embedding); the image (with ``cond``, twice the image
+    tokens), caption and SigLIP embedders; per block q, k, v, out and the
+    SwiGLU over its tokens and the attention's two products, the modulated
+    blocks' scale-only adaLN twice per sample; the noise refiners over the
+    image tokens, the context refiners over the caption, the SigLIP refiners
+    over its tokens, the layers over the unified sequence; the final
+    modulation per sample and the head over the noisy tokens."""
+    h, inner, adaln = arch.hidden_size, arch.ffn_inner, arch.adaln_dim
+    q, kv = arch.num_heads * arch.head_dim, arch.num_kv_heads * arch.head_dim
+    packed = arch.patch_size ** 2 * arch.in_channels
+    images = img_tokens * (2 if cond else 1)
+    joint = cap_tokens + images + siglip_tokens
+
+    def block(tokens: int, modulated: bool) -> int:
+        mods = 2 * 2 * adaln * 4 * h if modulated else 0
+        return mods + tokens * (2 * h * (2 * q + 2 * kv) + 6 * h * inner) + 4 * tokens * tokens * q
+
+    fwd = 2 * 2 * (256 * arch.t_mid_size + arch.t_mid_size * adaln)
+    fwd += 2 * h * (images * packed + cap_tokens * arch.cap_feat_dim + siglip_tokens * arch.siglip_feat_dim)
+    fwd += arch.refiner_depth * (block(images, True) + block(cap_tokens, False) +
+                                 (block(siglip_tokens, False) if siglip_tokens else 0))
+    fwd += arch.depth * block(joint, True) + 2 * adaln * h + 2 * img_tokens * h * packed
+    return batch * fwd * 3
+
+
+def zlab_i1_step_flops(arch, batch: int, img_tokens: int, text_tokens: int) -> int:
+    """Model FLOPs of one Zlab-i1 train step in bench.py's convention (forward
+    x 3), counted from the config (no timestep input): the patch embed and
+    the head over the image tokens; the connector's input linear and its two
+    rounds of fused qkv, out, attention and SwiGLU over the text tokens; per
+    U-ViT block the fused qkv, out and SwiGLU over every token and the joint
+    attention's two products; the out blocks' skip linears."""
+    h, inner = arch.hidden_size, arch.ffn_inner
+    packed = arch.patch_size ** 2 * arch.in_channels
+    joint = img_tokens + text_tokens
+
+    def rounds(tokens: int) -> int:
+        return tokens * (8 * h * h + 6 * h * inner) + 4 * tokens * tokens * h
+
+    fwd = 4 * img_tokens * packed * h + 2 * text_tokens * arch.text_embed_dim * h + 2 * rounds(text_tokens)
+    fwd += arch.depth * rounds(joint) + arch.num_in_blocks * joint * 4 * h * h
+    return batch * fwd * 3
+
+
+def _forward_launches(model, module, batch: dict, kernels, sigma: float) -> dict:
+    """The wrappers' launches by shape over one forward of ``batch`` at ``sigma``."""
+    import torch
+
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    with torch.no_grad():
+        model.denoise_fn(module, model.inference_conditioning(batch))(torch.randn_like(batch["latents"]),
+                                                                      torch.tensor(sigma))
+    torch.cuda.synchronize()
+    return _per_shape(kernels)
+
+
+def _encoder_and_report(spec, root: str, config, tokens: int, prompts: list) -> tuple:
+    """The decoder-LLM encoder the trainer builds from ``root`` (its load
+    seconds) and ``_llm_text_report`` of ``prompts`` through it."""
+    import torch
+
+    from simpletuner_tpu_torch.models.text_encoders import load_text_encoders
+
+    t0 = time.perf_counter()
+    (encoder,) = load_text_encoders([spec], pretrained_path=root, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    return encoder, {**_llm_text_report(spec, None, config, tokens, prompts, encoder=encoder), "load_s": load_s}
+
+
+def longcat_image_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
+    """Phase 33: LongCat-Image at the JAX preset's full width and ``depth``
+    (double, single) of its 19 + 38 blocks: a seeded e4m3 transformer in
+    LongCat's layout beside the Qwen2.5-VL trunk (``qwen_trunk``, linked as
+    ``text_encoder``), a word-level tokenizer and phase 14's Flux VAE: 16
+    prompts through the trunk (prompts/s, bf16 against f32) and through
+    ``LongcatImage.encode_text`` (the captioning template's spans sliced off);
+    the import held bitwise; a 1024 px true-CFG flow Euler render; one forward
+    with the kernels against the plain attention; 6 graphed LoRA steps through
+    ``Trainer.run()`` on an int8 base; then the edit flavour on the same file:
+    ``build_train_step`` graphed on seeded ``control_latents`` (tokenwise
+    timesteps, the reference tokens at t = 0).  Returns the launches per step
+    of each kernel at the two joint shapes."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import longcat_image_checkpoint_shapes
+    from simpletuner_tpu_torch.models.flux.transformer import FluxConfig, FluxTransformer
+    from simpletuner_tpu_torch.models.layers import init_adapters
+    from simpletuner_tpu_torch.models.longcat_image import LongcatImage
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.vae import VAEConfig
+    from simpletuner_tpu_torch.models.weight_import import load_transformer_params, longcat_image_params_from_diffusers
+
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    for out in ("kolors", "kolors_data", "kolors_train", "kolors_render"):  # phase 32's: disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = dataclasses.replace(FluxConfig.tiny(), vector_embed=False, guidance_embed=False)
+    narrow = dataclasses.replace(tiny, hidden_size=48, num_heads=3, head_dim=16, depth_double=1, depth_single=2,
+                                 mlp_ratio=2.0, txt_in_features=20, axes_dim=(4, 6, 6))
+    flop_checks = _flop_checks(longcat_image_step_flops, FluxTransformer, [
+        (arch, (torch.zeros(2, img, arch.in_channels), torch.zeros(2, img, 3),
+                torch.zeros(2, txt, arch.txt_in_features), torch.zeros(2, txt, 3),
+                torch.full((2, img) if tokenwise else (2,), 0.5), None), (img, txt, tokenwise))
+        for arch, img, txt, tokenwise in ((tiny, 12, 5, False), (narrow, 10, 3, True))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(33)
+    full = FluxConfig(in_channels=64, hidden_size=3072, num_heads=24, head_dim=128, depth_double=19, depth_single=38,
+                      txt_in_features=3584, vec_in_features=3584, vector_embed=False, guidance_embed=False)
+    arch = dataclasses.replace(full, depth_double=depth[0], depth_single=depth[1])
+    shapes = longcat_image_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.2 + _reserved(33) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"longcat_image: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
+                           f"phase; it and the later phases write {file_bytes / 1e9 + 0.2 + _reserved(33):.1f} GB of "
+                           f"the {RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded files: the transformer (two e4m3 shards), the Qwen trunk
+    # and phase 14's Flux VAE linked, a word-level tokenizer in tokenizer/
+    lc_dir = os.path.join(work, "longcat_image")
+    weights, write_s = _write_e4m3_transformer(lc_dir, shapes, gen)
+    qwen = qwen_trunk(paths, 33)
+    _link_tree(os.path.join(qwen["root"], "text_encoder"), os.path.join(lc_dir, "text_encoder"))
+    _link_tree(os.path.join(flux_dir, "vae"), os.path.join(lc_dir, "vae"))
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    write_gemma_tokenizer(os.path.join(lc_dir, "tokenizer"), " ".join(TRAIN_CAPTIONS + [LC_PROMPT] + prompts).split())
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9,
+             "qwen": {"written_by_phase": qwen["written_by_phase"], "layers": qwen["layers"]},
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) the prompts through the Qwen2.5-VL encoder the trainer builds, then
+    # through the family's template: its prefix and suffix spans sliced off
+    spec = LongcatImage.TEXT_ENCODER_CONFIGURATION[0]
+    encoder, text = _encoder_and_report(spec, lc_dir, qwen["config"], spec.max_length, prompts)
+    values = {"model_family": "longcat_image", "model_type": "full"}
+    templated = LongcatImage(config_namespace({**values, "mixed_precision": "bf16"}))
+    templated.attach_text_encoders([encoder])
+    templated.encode_text(prompts[:2])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payloads = templated.encode_text(prompts)
+    template_s = time.perf_counter() - t0
+    states = np.stack([p["t5_embeds"] for p in payloads])
+    valid = np.stack([p["attention_mask"] for p in payloads]).sum(axis=1)
+    if states.shape != (TEXT_PROMPTS, LC_TEXT, 3584) or not np.isfinite(states).all() or \
+            not ((0 < valid) & (valid < LC_TEXT)).all():
+        raise RuntimeError(f"longcat_image text: {states.shape} (the template's spans should leave {LC_TEXT}), "
+                           f"valid tokens {valid.tolist()}")
+    text.update({"template_tokens": LC_TEXT, "template_encode_s": template_s,
+                 "template_prompts_per_s": TEXT_PROMPTS / template_s, "template_valid": [int(valid.min()),
+                                                                                           int(valid.max())]})
+    latent = RESOLUTION // 8
+    batch = _text_batch(templated, LC_PROMPT, (1, latent, latent, 16), dev)
+    if {k: tuple(v.shape) for k, v in batch.items()} != {"latents": (1, latent, latent, 16),
+                                                         "t5_embeds": (1, LC_TEXT, 3584)}:
+        raise RuntimeError(f"longcat_image: the collated batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    del encoder, templated, states
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the import, bitwise
+    model = ModelRegistry.create("longcat_image", config_namespace(values))
+    if model.arch != arch:
+        raise RuntimeError(f"longcat_image: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, lc_dir, weights, longcat_image_params_from_diffusers, file_bytes)
+    params = imported["params"]
+    del weights, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the true-CFG render at the sliding ids and (f) the parity forward
+    per_forward = depth[0] + depth[1]
+    joint_key = f"24x{LC_JOINT}x{LC_JOINT}x128"
+    render, runtime = _image_render(work, "longcat_image", lc_dir, "lc", kernels, LC_PROMPT, LC_GUIDANCE, per_forward,
+                                    joint_key)
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "longcat_image" or not model.is_flow or model.arch.guidance_embed:
+        raise RuntimeError(f"longcat_image: the runtime built {model.NAME} {model.arch}")
+    model.text_encoders = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    noise = torch.randn((1, latent, latent, 16), generator=gen, device=dev)
+    parity = {**_parity_forward(model, module, batch, noise, LC_SIGMA), "tokens": LC_JOINT}
+    del runtime, module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) Trainer.run(): int8 base, the JAX family's Flux preset "all", 6 graphed steps
+    def check(trainer) -> dict:
+        example = trainer._example_batch()
+        conditioning = {k: tuple(v.shape) for k, v in example.items() if "embeds" in k or "mask" in k}
+        if trainer.model.arch != arch or trainer.vae.config != VAEConfig.flux() or \
+                trainer.model.base_precision != "int8" or conditioning != {"t5_embeds": (1, LC_TEXT, 3584)}:
+            raise RuntimeError(f"longcat_image trainer: arch {trainer.model.arch}, VAE {trainer.vae.config}, base "
+                               f"{trainer.model.base_precision}, batch {conditioning}")
+        return {"vae": "VAEConfig.flux() (16 latent channels)", **_graph_matches_eager(trainer, ("loss", "grad_norm"))}
+
+    data = _square_jpegs(work, "lc_data", LC_TRAIN_IMAGES)
+    cache = os.path.join(work, "lc_cache")
+    config = _image_train_config("longcat_image", lc_dir, data, cache, os.path.join(work, "lc_train"), LC_TRAIN_STEPS)
+    expected = {"flash_fwd": 2 * per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
+    train = _train_graphed(config, kernels, LC_TRAIN_STEPS, expected,
+                           longcat_image_step_flops(arch, 1, LC_IMG, LC_TEXT), check)
+    by_shape = train["launches_per_step_by_shape"]
+    if any(by_shape[k] != {joint_key: n} for k, n in expected.items()):
+        raise RuntimeError(f"longcat_image trainer: launches per step by shape {by_shape}")
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                  "flop_checks": flop_checks})
+    shutil.rmtree(cache, ignore_errors=True)
+
+    # (h) the edit flavour: 4,096 reference tokens at modality 2 and t = 0
+    # (tokenwise timesteps), build_train_step graphed on seeded control latents
+    edit_values = {**_graph_train_values("longcat_image", LC_TRAIN_STEPS), "model_flavour": "edit"}
+    edit_model = LongcatImage(config_namespace(edit_values))
+    if edit_model.arch != arch or not edit_model.is_kontext:
+        raise RuntimeError(f"longcat_image edit: the family builds {edit_model.arch}")
+    with torch.device(dev):
+        edit_module = load_transformer_params(edit_model, init_adapters(edit_model.create_module(), gen), lc_dir)
+    edit_batch = {**batch, "latents": torch.randn((1, latent, latent, 16), generator=gen, device=dev),
+                  "control_latents": torch.randn((1, latent, latent, 16), generator=gen, device=dev)}
+    edit_key = f"24x{LC_EDIT_JOINT}x{LC_EDIT_JOINT}x128"
+    edit = _graph_vs_eager(edit_model, edit_module, edit_batch, kernels, LC_TRAIN_STEPS, expected,
+                           longcat_image_step_flops(arch, 1, 2 * LC_IMG, LC_TEXT, tokenwise=True))
+    edit_by_shape = edit["launches_per_step_by_shape"]
+    if any(edit_by_shape[k] != {edit_key: n} for k, n in expected.items()):
+        raise RuntimeError(f"longcat_image edit: launches per step by shape {edit_by_shape}")
+    edit.update({"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                 "tokens": {"text": LC_TEXT, "image": LC_IMG, "reference": LC_IMG, "joint": LC_EDIT_JOINT}})
+    del edit_module, edit_model, edit_batch, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("33 longcat_image", config="meituan-longcat/LongCat-Image transformer/ as the JAX family builds it (Flux "
+          "topology, no pooled or guidance embedder)", params=params, hidden=arch.hidden_size,
+          heads=[arch.num_heads, arch.head_dim], depth=[[arch.depth_double, arch.depth_single],
+                                                        [full.depth_double, full.depth_single]],
+          tokens={"image": LC_IMG, "text": LC_TEXT, "joint": LC_JOINT}, files=files, text_encoder=text,
+          imported=imported, render=render, parity=parity, train=train, edit=edit,
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device)
+    return {"lc_joint": {k: v.get(joint_key) for k, v in by_shape.items()},
+            "lc_edit_joint": {k: v.get(edit_key) for k, v in edit_by_shape.items()}}
+
+
+def _graph_train_values(family: str, steps: int) -> dict:
+    """``build_train_step``'s config for a family built in memory: rank-16
+    LoRA on an int8 base (``quantized_matmul: full``), every block
+    checkpointed, AdamW 1e-4, bf16, as ``_image_train_config``."""
+    return {"model_family": family, "model_type": "lora", "lora_rank": 16, "base_model_precision": "int8-quanto",
+            "quantized_matmul": "full", "gradient_checkpointing": True, "optimizer": "adamw", "learning_rate": 1e-4,
+            "lr_scheduler": "constant", "max_train_steps": steps, "mixed_precision": "bf16", "seed": 42}
+
+
+def z_image_omni_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
+    """Phase 34: Z-Image-Omni at the JAX preset's full width and ``depth``
+    (layers of 30, refiner depth of 2): a seeded e4m3 transformer (the
+    ``"2-1"`` patch keys and the SigLIP modules) beside phase 29's 2560-wide
+    qwen2 trunk (linked; written here in a run without phase 29), a
+    word-level tokenizer and phase 14's Flux VAE: 16 prompts at 512 tokens
+    (prompts/s, bf16 against f32); the import held bitwise; a 1024 px
+    true-CFG render, text to image; 6 graphed LoRA steps through
+    ``Trainer.run()`` on an int8 base, text to image; one forward with
+    seeded ``control_latents`` and ``siglip_embeds`` (each token's noisy or
+    clean modulation) against the plain attention.  Then Boogu-Image built
+    through the registry by name at ``BOOGU_BLOCKS`` of its 26 blocks in
+    memory: one forward against the plain attention.  Returns the launches
+    per step (the omni forward's per forward) of each kernel at its shapes."""
+    import gc
+
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import z_image_omni_checkpoint_shapes
+    from simpletuner_tpu_torch.models.extended import BooguImage
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.lumina2 import Lumina2, Lumina2Config
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.vae import VAEConfig
+    from simpletuner_tpu_torch.models.weight_import import z_image_omni_params_from_diffusers
+    from simpletuner_tpu_torch.models.z_image_omni import ZImageOmni, ZImageOmniConfig, ZImageOmniTransformer
+
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    for out in ("longcat_image", "lc_data", "lc_train", "lc_render"):  # phase 33's: disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = ZImageOmniConfig.tiny()
+    narrow = dataclasses.replace(tiny, hidden_size=48, num_heads=2, num_kv_heads=1, depth=1, refiner_depth=2,
+                                 cap_feat_dim=20, siglip_feat_dim=12, t_mid_size=32, axes_dim=(8, 8, 8))
+    flop_checks = _flop_checks(z_image_omni_step_flops, ZImageOmniTransformer, [
+        (tiny, (torch.zeros(2, 8, 6, 4), torch.full((2,), 0.5), torch.zeros(2, 7, 32)), (12, 7)),
+        (narrow, (torch.zeros(2, 4, 8, 4), torch.full((2,), 0.5), torch.zeros(2, 5, 20), None,
+                  torch.zeros(2, 2, 3, 12), torch.zeros(2, 4, 8, 4)), (8, 5, True, 6))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(34)
+    full = ZImageOmniConfig()
+    if (full.hidden_size, full.num_heads, full.head_dim, full.depth, full.refiner_depth, full.cap_feat_dim,
+            full.siglip_feat_dim, full.rope_theta, full.axes_dim, full.adaln_dim) != \
+            (3840, 30, 128, 30, 2, 2560, 1152, 256.0, (32, 48, 48), 256):
+        raise RuntimeError(f"not the JAX preset of Z-Image-Omni: {full}")
+    arch = dataclasses.replace(full, depth=depth[0], refiner_depth=depth[1])
+    shapes = z_image_omni_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.2 + _reserved(34) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"z_image_omni: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
+                           f"phase; it and the later phases write {file_bytes / 1e9 + 0.2 + _reserved(34):.1f} GB of "
+                           f"the {RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded files: the transformer (two e4m3 shards), phase 29's
+    # 2560-wide qwen2 trunk and phase 14's Flux VAE linked, the tokenizer
+    zo_dir = os.path.join(work, "z_image_omni")
+    weights, write_s = _write_e4m3_transformer(zo_dir, shapes, gen)
+    trunk = zi_trunk_config()
+    trunk_source = paths.get("zi_trunk")
+    if trunk_source and os.path.isdir(trunk_source):
+        _link_tree(trunk_source, os.path.join(zo_dir, "text_encoder"))
+        trunk_files = {"written_by_phase": 29, "layers": [ZI_TRUNK_LAYERS, 36]}
+    else:
+        trunk_files = {"written_by_phase": 34, "layers": [ZI_TRUNK_LAYERS, 36], "write_s": write_llm_trunk(
+            os.path.join(zo_dir, "text_encoder"), trunk, gen, ZI_TRUNK_HF)}
+    _link_tree(os.path.join(flux_dir, "vae"), os.path.join(zo_dir, "vae"))
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    write_gemma_tokenizer(os.path.join(zo_dir, "tokenizer"), " ".join(TRAIN_CAPTIONS + [ZO_PROMPT] + prompts).split())
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "qwen2_trunk": trunk_files,
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) the prompts at 512 tokens through the qwen2.5 spec's encoder
+    _, text = _encoder_and_report(ZImageOmni.TEXT_ENCODER_CONFIGURATION[0], zo_dir, trunk, ZO_TEXT, prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the import, bitwise
+    model = ModelRegistry.create("z_image_omni", config_namespace({"model_family": "z_image_omni",
+                                                                  "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"z_image_omni: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, zo_dir, weights, z_image_omni_params_from_diffusers, file_bytes)
+    params = imported["params"]
+    del weights, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the true-CFG render, text to image: per forward the noise refiners
+    # over the image, the context refiners over the caption, the layers over both
+    keys = {"zo_noise_refiner": (f"30x{LC_IMG}x{LC_IMG}x128", depth[1]),
+            "zo_context_refiner": (f"30x{ZO_TEXT}x{ZO_TEXT}x128", depth[1]),
+            "zo_joint": (f"30x{ZO_JOINT}x{ZO_JOINT}x128", depth[0])}
+    per_forward = sum(n for _, n in keys.values())
+    config_path = os.path.join(work, "zo_render.json")
+    with open(config_path, "w") as handle:
+        json.dump({"model_family": "z_image_omni", "model_type": "full", "pretrained_model_name_or_path": zo_dir,
+                   "mixed_precision": "bf16", "text_encoder_precision": "bf16", "vae_dtype": "bf16",
+                   "validation_resolution": RESOLUTION,
+                   "validation_seed": 42, "seed": 42, "validation_guidance": ZO_GUIDANCE}, handle)
+    t0 = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "zo_render"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    timed = _timed_render(runtime, kernels, ZO_PROMPT, ZO_GUIDANCE)
+    render = _render_report(timed, per_forward, ZO_GUIDANCE, init_s)
+    if timed["launches_by_shape"]["flash_fwd"] != {key: 2 * STEPS * n for key, n in keys.values()}:
+        raise RuntimeError(f"z_image_omni render: launches by shape {timed['launches_by_shape']}")
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "z_image_omni" or not model.is_flow:
+        raise RuntimeError(f"z_image_omni: the runtime built {model.NAME} {model.arch}")
+    latent = RESOLUTION // 8
+    batch = _text_batch(model, ZO_PROMPT, (1, latent, latent, 16), dev)
+    if {k: tuple(v.shape) for k, v in batch.items()} != {"latents": (1, latent, latent, 16),
+                                                         "text_embeds": (1, ZO_TEXT, 2560),
+                                                         "text_attention_mask": (1, ZO_TEXT)}:
+        raise RuntimeError(f"z_image_omni: the collated batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    model.text_encoders = []
+
+    # (f) the omni forward: a clean reference image and SigLIP features, each
+    # token's modulation the noisy or the clean one, kernels against the plain attention
+    omni = {**batch, "control_latents": torch.randn((1, latent, latent, 16), generator=gen, device=dev),
+            "siglip_embeds": torch.randn((1, *ZO_SIGLIP, full.siglip_feat_dim), generator=gen, device=dev)}
+    siglip_tokens = ZO_SIGLIP[0] * ZO_SIGLIP[1]
+    omni_keys = {f"30x{2 * LC_IMG}x{2 * LC_IMG}x128": depth[1], f"30x{ZO_TEXT}x{ZO_TEXT}x128": depth[1],
+                 f"30x{siglip_tokens}x{siglip_tokens}x128": depth[1],
+                 f"30x{ZO_OMNI_JOINT}x{ZO_OMNI_JOINT}x128": depth[0]}
+    omni_launches = _forward_launches(model, module, omni, kernels, ZO_SIGMA)
+    if omni_launches["flash_fwd"] != omni_keys:
+        raise RuntimeError(f"z_image_omni omni forward: launches by shape {omni_launches}")
+    noise = torch.randn((1, latent, latent, 16), generator=gen, device=dev)
+    omni_parity = {**_parity_forward(model, module, omni, noise, ZO_SIGMA), "launches_by_shape": omni_launches,
+                   "tokens": {"caption": ZO_TEXT, "reference": LC_IMG, "image": LC_IMG, "siglip": siglip_tokens,
+                              "joint": ZO_OMNI_JOINT}}
+    del runtime, module, model, omni
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) Trainer.run(): int8 base, every adapter-carrying linear (the JAX
+    # family's default), 6 graphed steps on four of phase 16's JPEGs, text to image
+    def check(trainer) -> dict:
+        example = trainer._example_batch()
+        conditioning = {k: tuple(v.shape) for k, v in example.items() if "embeds" in k or "mask" in k}
+        if trainer.model.arch != arch or trainer.vae.config != VAEConfig.flux() or \
+                trainer.model.base_precision != "int8" or \
+                conditioning != {"text_embeds": (1, ZO_TEXT, 2560), "text_attention_mask": (1, ZO_TEXT)}:
+            raise RuntimeError(f"z_image_omni trainer: arch {trainer.model.arch}, VAE {trainer.vae.config}, base "
+                               f"{trainer.model.base_precision}, batch {conditioning}")
+        return {"vae": "VAEConfig.flux() (16 latent channels)", "caption_valid": int(
+            example["text_attention_mask"].sum()), **_graph_matches_eager(trainer, ("loss", "grad_norm"))}
+
+    data = _square_jpegs(work, "zo_data", ZO_TRAIN_IMAGES)
+    cache = os.path.join(work, "zo_cache")
+    config = _image_train_config("z_image_omni", zo_dir, data, cache, os.path.join(work, "zo_train"), ZO_TRAIN_STEPS)
+    expected = {"flash_fwd": 2 * per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
+    train = _train_graphed(config, kernels, ZO_TRAIN_STEPS, expected,
+                           z_image_omni_step_flops(arch, 1, LC_IMG, ZO_TEXT), check)
+    by_shape = train["launches_per_step_by_shape"]
+    if by_shape != {"flash_fwd": {key: 2 * n for key, n in keys.values()},
+                    "flash_bwd_dq": {key: n for key, n in keys.values()},
+                    "flash_bwd_dkv": {key: n for key, n in keys.values()}}:
+        raise RuntimeError(f"z_image_omni trainer: launches per step by shape {by_shape}")
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                  "flop_checks": flop_checks})
+    shutil.rmtree(cache, ignore_errors=True)
+
+    # (h) Boogu-Image by name through the registry: Lumina2's layout at
+    # BOOGU_BLOCKS of its 26 blocks in memory, one forward against the plain attention
+    lumina = Lumina2Config()
+    with family_depth(BooguImage, depth=BOOGU_BLOCKS):
+        boogu = ModelRegistry.create("boogu_image", config_namespace({
+            "model_family": "boogu_image", "model_type": "full", "mixed_precision": "bf16"}))
+    if type(boogu) is not BooguImage or not isinstance(boogu, Lumina2) or \
+            boogu.arch != dataclasses.replace(lumina, depth=BOOGU_BLOCKS):
+        raise RuntimeError(f"boogu_image: the registry built {type(boogu).__name__} {boogu.arch}")
+    with torch.device(dev):
+        boogu_module = init_parameters(boogu.create_module(), gen)
+    boogu_batch = {"latents": torch.zeros((1, latent, latent, 16), device=dev),
+                   "text_embeds": torch.randn((1, LUMINA_CAP, lumina.cap_feat_dim), generator=gen, device=dev),
+                   "text_attention_mask": (torch.arange(LUMINA_CAP, device=dev) < LUMINA_VALID).to(torch.int32)[None]}
+    boogu_keys = {f"24x{LUMINA_CAP}x{LUMINA_CAP}x96": lumina.refiner_depth,
+                  f"24x{LUMINA_IMG}x{LUMINA_IMG}x96": lumina.refiner_depth,
+                  f"24x{LUMINA_S}x{LUMINA_S}x96": BOOGU_BLOCKS}
+    boogu_launches = _forward_launches(boogu, boogu_module, boogu_batch, kernels, ZO_SIGMA)
+    if boogu_launches["flash_fwd"] != boogu_keys:
+        raise RuntimeError(f"boogu_image forward: launches by shape {boogu_launches}")
+    boogu_parity = {**_parity_forward(boogu, boogu_module, boogu_batch, torch.randn(
+        (1, latent, latent, 16), generator=gen, device=dev), ZO_SIGMA), "launches_by_shape": boogu_launches}
+    del boogu_module, boogu_batch, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("34 z_image_omni", config="Tongyi-MAI/Z-Image-Omni transformer/ as the JAX preset ZImageOmniConfig() "
+          "builds it", params=params, hidden=arch.hidden_size, heads=[arch.num_heads, arch.head_dim],
+          depth={"layers": [arch.depth, full.depth], "refiners": [arch.refiner_depth, full.refiner_depth]},
+          tokens={"caption": ZO_TEXT, "image": LC_IMG, "joint": ZO_JOINT}, files=files, text_encoder=text,
+          imported=imported, render=render, train=train, omni=omni_parity,
+          boogu_image={"config": "boogu/boogu-image-v0.1 as the JAX family builds it (Lumina2Config())",
+                       "depth": [BOOGU_BLOCKS, lumina.depth], "built": "registry by name, seeded in memory",
+                       "parity": boogu_parity},
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device)
+    out = {name: {k: v.get(key) for k, v in by_shape.items()} for name, (key, _) in keys.items()}
+    out["zo_omni_joint"] = {"flash_fwd": depth[0], "flash_bwd_dq": 0, "flash_bwd_dkv": 0}  # per omni forward
+    return out
+
+
+def zlab_i1_phase(paths: dict, kernels, device: str) -> dict:
+    """Phase 35: Zlab-i1 at the JAX preset's full width: a seeded e4m3
+    checkpoint at ``ZL_FILE_BLOCKS`` of its 29 blocks (norm scales drawn
+    about 1) imported bitwise; a seeded Gemma-2 2B at ``GEMMA_ZL_LAYERS`` of
+    its 26 layers in memory with a word-level tokenizer: 16 prompts at 256
+    tokens (prompts/s, bf16 against f32); all 29 blocks built in memory: one
+    forward against the plain attention (the text masked as key ids), the
+    flow Euler loop without a decode (no VAE of either package decodes
+    FLUX.2's 32 channels), and ``build_train_step`` graphed on seeded
+    32-channel latents (the FLUX.2 statistics normalize them): the replays
+    held to the eager steps, s/step, MFU, peak GiB, the profiled replay's
+    launches.  Last, the run's writes against its limit.  Returns the
+    launches per step of each kernel at the joint and connector shapes."""
+    import gc
+
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import zlab_i1_checkpoint_shapes
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoder, LLMEncoderConfig
+    from simpletuner_tpu_torch.models.text_encoders import LLMTextEncoder, _tokenizer
+    from simpletuner_tpu_torch.models.weight_import import zlab_i1_params_from_checkpoint
+    from simpletuner_tpu_torch.models.zlab_i1 import ZlabI1, ZlabI1Config, ZlabI1Transformer
+    from simpletuner_tpu_torch.schedulers.sampling import sample_loop
+    from simpletuner_tpu_torch.training.validation import build_scheduler
+
+    start = time.perf_counter()
+    work = paths["work"]
+    for out in ("z_image_omni", "zo_data", "zo_train", "zo_render", "z_image"):  # phases 29's and 34's: disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = ZlabI1Config.tiny()
+    narrow = dataclasses.replace(tiny, hidden_size=48, num_heads=2, depth=5, text_embed_dim=20, in_channels=4)
+    flop_checks = _flop_checks(zlab_i1_step_flops, ZlabI1Transformer, [
+        (tiny, (torch.zeros(2, 16, 16, 8), torch.full((2,), 0.5), torch.zeros(2, 12, 32)), (64, 12)),
+        (narrow, (torch.zeros(2, 8, 12, 4), torch.full((2,), 0.5), torch.zeros(2, 7, 20)), (24, 7))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(35)
+    full = ZlabI1Config()
+    if (full.hidden_size, full.num_heads, full.head_dim, full.depth, full.in_channels, full.text_embed_dim,
+            full.text_num_tokens, full.axes_dims, full.input_size) != (2016, 28, 72, 29, 32, 2304, 256, (36, 18, 18),
+                                                                        128):
+        raise RuntimeError(f"not the JAX preset of Zlab-i1: {full}")
+    cut = dataclasses.replace(full, depth=ZL_FILE_BLOCKS)
+    shapes = zlab_i1_checkpoint_shapes(cut)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.1 > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"zlab_i1: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
+                           f"phase; it writes {file_bytes / 1e9 + 0.1:.1f} GB of the {RUN_WRITE_TARGET_GB} GB a run "
+                           "may write")
+
+    # (b) the seeded checkpoint (two e4m3 shards; the RMSNorm scales, ``.scale``
+    # leaves, drawn about 1) and its import, bitwise
+    zl_dir = os.path.join(work, "zlab_i1")
+    weights = seeded_weights(shapes, gen)
+    for name in [n for n in weights if n.endswith(".scale")]:
+        weights[name] = (1.0 + 0.1 * torch.randn(shapes[name], generator=gen, device=dev)).to(torch.bfloat16)
+    weights, write_s = _write_e4m3_transformer(zl_dir, shapes, gen, weights=weights)
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "blocks": [ZL_FILE_BLOCKS, full.depth],
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+    with family_depth(ZlabI1, depth=ZL_FILE_BLOCKS):
+        cut_model = ZlabI1(config_namespace({"model_family": "zlab_i1", "model_type": "full"}))
+    if cut_model.arch != cut:
+        raise RuntimeError(f"zlab_i1: the family builds {cut_model.arch}, not {cut}")
+    with torch.device(dev):
+        module = cut_model.create_module()
+    imported = _import_bitwise(cut_model, module, zl_dir, weights, zlab_i1_params_from_checkpoint, file_bytes)
+    del weights, module, cut_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) Gemma-2 2B at GEMMA_ZL_LAYERS of 26 in memory, 256-token prompts
+    gemma_full = LLMEncoderConfig.gemma2_2b()
+    gemma = dataclasses.replace(gemma_full, num_layers=GEMMA_ZL_LAYERS)
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    write_gemma_tokenizer(os.path.join(zl_dir, "tokenizer"), " ".join(TRAIN_CAPTIONS + [ZL_PROMPT] + prompts).split())
+    spec = ZlabI1.TEXT_ENCODER_CONFIGURATION[0]
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        trunk = LLMEncoder(gemma)
+    trunk.reset_parameters(torch.Generator(device=dev).manual_seed(350))
+    encoder = LLMTextEncoder(spec, trunk.eval(), _tokenizer("AutoTokenizer", zl_dir, "tokenizer"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    text = {**_llm_text_report(spec, None, gemma, ZL_TEXT, prompts, encoder=encoder),
+            "layers": [GEMMA_ZL_LAYERS, gemma_full.num_layers], "built_in_memory_s": build_s}
+
+    # (d) all 29 blocks in memory: a forward against the plain attention and the Euler loop
+    model = ZlabI1(config_namespace(_graph_train_values("zlab_i1", ZL_TRAIN_STEPS)), arch=full)
+    model.attach_text_encoders([encoder])
+    latent = RESOLUTION // 8
+    batch = _text_batch(model, ZL_PROMPT, (1, latent, latent, 32), dev)
+    if {k: tuple(v.shape) for k, v in batch.items()} != {"latents": (1, latent, latent, 32),
+                                                         "text_embeds": (1, ZL_TEXT, 2304),
+                                                         "text_attention_mask": (1, ZL_TEXT)}:
+        raise RuntimeError(f"zlab_i1: the collated batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    model.text_encoders = []
+    del encoder, trunk
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.device(dev):
+        module = init_parameters(model.create_module(), torch.Generator(device=dev).manual_seed(42))
+    joint_key, connector_key = f"28x{ZL_JOINT}x{ZL_JOINT}x72", f"28x{ZL_TEXT}x{ZL_TEXT}x72"
+    launches = _forward_launches(model, module, batch, kernels, ZL_SIGMA)
+    if launches["flash_fwd"] != {joint_key: full.depth, connector_key: 2}:
+        raise RuntimeError(f"zlab_i1 forward: launches by shape {launches}")
+    noise = torch.randn((1, latent, latent, 32), generator=gen, device=dev)
+    parity = {**_parity_forward(model, module, batch, noise, ZL_SIGMA), "tokens": ZL_JOINT,
+              "text_valid": int(batch["text_attention_mask"].sum()), "launches_by_shape": launches}
+    forward_s = []
+
+    def before(mod, args, kwargs):
+        torch.cuda.synchronize()
+        forward_s.append(-time.perf_counter())
+
+    def after(mod, args, kwargs, out):
+        torch.cuda.synchronize()
+        forward_s[-1] += time.perf_counter()
+
+    hooks = [module.register_forward_pre_hook(before, with_kwargs=True),
+             module.register_forward_hook(after, with_kwargs=True)]
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    try:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            latents = sample_loop(build_scheduler(model, STEPS), model.denoise_fn(module, model.inference_conditioning(
+                batch)), torch.randn((1, latent, latent, 32), generator=gen, device=dev))
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    finally:
+        for hook in hooks:
+            hook.remove()
+    loop_launches = {kernel.name: kernel.launches for kernel in kernels}
+    if loop_launches != {"flash_fwd": STEPS * (full.depth + 2), "flash_bwd_dq": 0, "flash_bwd_dkv": 0} or \
+            len(forward_s) != STEPS or tuple(latents.shape) != (1, latent, latent, 32) or \
+            not torch.isfinite(latents).all():
+        raise RuntimeError(f"zlab_i1 sampler: launches {loop_launches}, {len(forward_s)} forwards, latents "
+                           f"{tuple(latents.shape)} finite {bool(torch.isfinite(latents).all())}")
+    sampler = {"steps": STEPS, "loop_s": loop_s, "forward_s": forward_s,
+               "s_per_euler_step": sum(forward_s[1:]) / (STEPS - 1), "launches": loop_launches,
+               "decode": "none: no VAE of either package decodes FLUX.2's 32 channels (ROADMAP Queue 3)"}
+    del latents
+
+    # (e) build_train_step graphed on seeded 32-channel latents, every block checkpointed
+    batch = {**batch, "latents": 2.0 * torch.randn((1, latent, latent, 32), generator=gen, device=dev)}
+    expected = {"flash_fwd": 2 * full.depth + 2, "flash_bwd_dq": full.depth + 2, "flash_bwd_dkv": full.depth + 2}
+    train = _graph_vs_eager(model, module, batch, kernels, ZL_TRAIN_STEPS, expected,
+                            zlab_i1_step_flops(full, 1, LC_IMG, ZL_TEXT))
+    by_shape = train["launches_per_step_by_shape"]
+    if by_shape != {"flash_fwd": {joint_key: 2 * full.depth, connector_key: 2},
+                    "flash_bwd_dq": {joint_key: full.depth, connector_key: 2},
+                    "flash_bwd_dkv": {joint_key: full.depth, connector_key: 2}}:
+        raise RuntimeError(f"zlab_i1 train: launches per step by shape {by_shape}")
+    normalized = model.transform_latents(batch["latents"])
+    train.update({"base": "int8 (built in memory)", "quantized_matmul": "full", "remat": "every U-ViT block",
+                  "lora_rank": 16, "flop_checks": flop_checks,
+                  "latents": {"raw_std": float(batch["latents"].std()), "normalized_std": float(normalized.std())}})
+    del module, model, batch, normalized
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(zl_dir, ignore_errors=True)
+    writes = check_run_writes()
+    phase("35 zlab_i1", config="zlab-princeton/i1-3B transformer/ as the JAX preset ZlabI1Config() builds it",
+          params=sum(math.prod(v) for v in zlab_i1_checkpoint_shapes(full).values()), hidden=full.hidden_size,
+          heads=[full.num_heads, full.head_dim], depth={"file": [ZL_FILE_BLOCKS, full.depth],
+                                                        "in_memory": [full.depth, full.depth]},
+          tokens={"image": LC_IMG, "text": ZL_TEXT, "joint": ZL_JOINT}, files=files, imported=imported,
+          text_encoder=text, parity=parity, sampler=sampler, train=train,
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device, **writes)
+    return {"zl_joint": {k: v.get(joint_key) for k, v in by_shape.items()},
+            "zl_connector": {k: v.get(connector_key) for k, v in by_shape.items()}}
 
 
 def int8_cases() -> None:
@@ -7813,7 +8678,8 @@ def main() -> int:
 
     fwd_entry, fwd256_entry, long_fwd_entries = kernel_cases()
     launches = {"main": None, "auraflow": {}, "wan": {}, "ltx": {}, "chroma": None, "lumina2": {}, "kandinsky5": {},
-                "hunyuanvideo": {}, "qwen_image": {}, "hidream": {}, "flux2": {}, "kolors": {}}
+                "hunyuanvideo": {}, "qwen_image": {}, "hidream": {}, "flux2": {}, "kolors": {}, "longcat_image": {},
+                "z_image_omni": {}, "zlab_i1": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         checkpoints = weight_import(work) if _runs(14) else {"work": work}
         encoders = text_encoders(checkpoints) if _runs(15) else None
@@ -7846,8 +8712,9 @@ def main() -> int:
         from simpletuner_tpu_torch.models.auraflow import AuraFlow, AuraFlowConfig
         from simpletuner_tpu_torch.models.checkpoint_layouts import (
             auraflow_checkpoint_shapes, chroma_checkpoint_shapes, hidream_checkpoint_shapes,
-            hunyuanvideo_checkpoint_shapes, kandinsky5_checkpoint_shapes, ltx_checkpoint_shapes,
-            qwen_image_checkpoint_shapes, sd3_checkpoint_shapes, unet_checkpoint_shapes, wan_checkpoint_shapes,
+            hunyuanvideo_checkpoint_shapes, kandinsky5_checkpoint_shapes, longcat_image_checkpoint_shapes,
+            ltx_checkpoint_shapes, lumina2_checkpoint_shapes, qwen_image_checkpoint_shapes, sd3_checkpoint_shapes,
+            unet_checkpoint_shapes, wan_checkpoint_shapes, z_image_omni_checkpoint_shapes,
         )
         from simpletuner_tpu_torch.models.chroma import Chroma, ChromaConfig
         from simpletuner_tpu_torch.models.flux2 import Flux2
@@ -7855,11 +8722,14 @@ def main() -> int:
         from simpletuner_tpu_torch.models.hunyuanvideo import HunyuanVideo, HunyuanVideo15Config
         from simpletuner_tpu_torch.models.kandinsky5 import Kandinsky5Config, Kandinsky5Video
         from simpletuner_tpu_torch.models.kolors import Kolors
+        from simpletuner_tpu_torch.models.longcat_image import LongcatImage
         from simpletuner_tpu_torch.models.ltxvideo import LTXConfig, LTXVideo
+        from simpletuner_tpu_torch.models.lumina2 import Lumina2, Lumina2Config
         from simpletuner_tpu_torch.models.mageflow import ZImage
         from simpletuner_tpu_torch.models.qwen_image import QwenImage, QwenImageConfig
         from simpletuner_tpu_torch.models.sd3 import SD3, SD3Config
         from simpletuner_tpu_torch.models.wan import Wan, WanConfig
+        from simpletuner_tpu_torch.models.z_image_omni import ZImageOmni, ZImageOmniConfig
 
         def extra_gb(layout, full, cut) -> float:  # e4m3: one byte a parameter
             return sum(math.prod(v) for v in layout(full).values()) / 1e9 - \
@@ -7902,7 +8772,11 @@ def main() -> int:
             with family_depth(Chroma, depth_double=depth[0], depth_single=depth[1]):
                 launches["chroma"] = chroma_phase(checkpoints, kernels, smi, depth)
         if _runs(26):
-            launches["lumina2"] = lumina2_phase(checkpoints, kernels, smi)
+            full = Lumina2Config()
+            depth = full.depth if _full_depth(26, extra_gb(lumina2_checkpoint_shapes, full, dataclasses.replace(
+                full, depth=LUMINA_CUT_BLOCKS))) else LUMINA_CUT_BLOCKS
+            with family_depth(Lumina2, depth=depth):
+                launches["lumina2"] = lumina2_phase(checkpoints, kernels, smi, depth)
         if _runs(27):
             full = Kandinsky5Config()
             cut = dataclasses.replace(full, num_visual_blocks=K5_CUT_BLOCKS)
@@ -7939,6 +8813,22 @@ def main() -> int:
                 else KOLORS_CUT_LAYERS
             with family_depth(Kolors, transformer_layers=layers):
                 launches["kolors"] = kolors_phase(checkpoints, kernels, smi, layers)
+        if _runs(33):
+            full = LongcatImage(config_namespace({"model_family": "longcat_image"})).arch
+            cut = dataclasses.replace(full, depth_double=LC_CUT_BLOCKS[0], depth_single=LC_CUT_BLOCKS[1])
+            depth = (full.depth_double, full.depth_single) if _full_depth(
+                33, extra_gb(longcat_image_checkpoint_shapes, full, cut)) else LC_CUT_BLOCKS
+            with family_depth(LongcatImage, depth_double=depth[0], depth_single=depth[1]):
+                launches["longcat_image"] = longcat_image_phase(checkpoints, kernels, smi, depth)
+        if _runs(34):
+            full = ZImageOmniConfig()
+            cut = dataclasses.replace(full, depth=ZO_CUT_BLOCKS[0], refiner_depth=ZO_CUT_BLOCKS[1])
+            depth = (full.depth, full.refiner_depth) if _full_depth(
+                34, extra_gb(z_image_omni_checkpoint_shapes, full, cut)) else ZO_CUT_BLOCKS
+            with family_depth(ZImageOmni, depth=depth[0], refiner_depth=depth[1]):
+                launches["z_image_omni"] = z_image_omni_phase(checkpoints, kernels, smi, depth)
+        if _runs(35):
+            launches["zlab_i1"] = zlab_i1_phase(checkpoints, kernels, smi)
         else:
             check_run_writes()
 
@@ -7947,10 +8837,12 @@ def main() -> int:
     # replay, AuraFlow's attention, all at head dim 256), Chroma's (the Flux
     # shape's times; phase 25's replay) and each kernel at Wan's, LTX's,
     # Lumina2's, Kandinsky 5.0's, HunyuanVideo's, Qwen-Image's, Z-Image's,
-    # HiDream's, FLUX.2's and Kolors's shapes (the wrappers' count at that shape
-    # per step in phase 23's, 24's and 26's-32's runs: the trainers', the 14B and
-    # 13B steps', FLUX.2's graphed step's); in a run of some phases only, the
-    # rows of the phases it ran
+    # HiDream's, FLUX.2's, Kolors's, LongCat-Image's, Z-Image-Omni's and
+    # Zlab-i1's shapes (the wrappers' count at that shape per step in phase
+    # 23's, 24's and 26's-35's runs: the trainers', the 14B and 13B steps', the
+    # graphed steps of FLUX.2, LongCat's edit flavour and Zlab-i1; per forward
+    # for Z-Image-Omni's omni shape); in a run of some phases only, the rows of
+    # the phases it ran
     sources = {"flash_fwd": ("csrc/flash_fwd.cu", 68), "flash_bwd_dq": ("csrc/flash_bwd.cu", 197),
                "flash_bwd_dkv": ("csrc/flash_bwd.cu", 239)}
     entries = {"flash_fwd": fwd_entry, "flash_fwd_d256": fwd256_entry, **bwd_entries, **long_fwd_entries}
@@ -7963,7 +8855,8 @@ def main() -> int:
     for family, cases in (("wan", WAN_KERNEL_CASES), ("ltx", LTX_KERNEL_CASES), ("lumina2", LUMINA_KERNEL_CASES),
                           ("kandinsky5", K5_KERNEL_CASES), ("hunyuanvideo", HY_KERNEL_CASES),
                           ("qwen_image", QI_KERNEL_CASES), ("hidream", HD_KERNEL_CASES), ("flux2", F2_KERNEL_CASES),
-                          ("kolors", KOLORS_KERNEL_CASES)):
+                          ("kolors", KOLORS_KERNEL_CASES), ("longcat_image", LC_KERNEL_CASES),
+                          ("z_image_omni", ZO_KERNEL_CASES), ("zlab_i1", ZL_KERNEL_CASES)):
         if launches[family]:
             rows += [(f"{name}_{case[0]}", f"{name}_{case[0]}", name, launches[family][case[0]])
                      for case in cases for name in sources]

@@ -36,7 +36,7 @@ that a render never reads, and the port trains no full model (ROADMAP Queue 1
 item 7), so no full checkpoint exists to restore.  Families other than flux,
 sd3, sdxl, sd1x, sd2x, pixart_sigma, auraflow, wan, ltxvideo, chroma, lumina2,
 kandinsky5_image, kandinsky5_video, hunyuanvideo, qwen_image, mageflow, z_image,
-hidream, flux2 and kolors are refused
+hidream, flux2, kolors, longcat_image, z_image_omni, zlab_i1 and boogu_image are refused
 (``models/registry.py``).
 
     python -m simpletuner_tpu_torch.inference --config config.json --prompt "a cat" \

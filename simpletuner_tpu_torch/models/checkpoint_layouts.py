@@ -751,6 +751,111 @@ def flux2_checkpoint_shapes(arch) -> Dict[str, tuple]:
     return shapes
 
 
+def longcat_image_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a LongCat-Image transformer of
+    ``arch`` as ``load_longcat_image_params`` reads it: the diffusers Flux
+    layout (no pooled-text or guidance embedder) with the timestep embedder
+    under ``time_embed.``."""
+    return {("time_embed." + k[len("time_text_embed."):] if k.startswith("time_text_embed.") else k): v
+            for k, v in flux_checkpoint_shapes(arch).items()}
+
+
+def z_image_omni_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a ``ZImageOmniTransformer2DModel`` of
+    ``arch`` (``models/z_image_omni/transformer.py::ZImageOmniConfig``) as
+    ``z_image_omni_params_from_diffusers`` reads it, SigLIP modules included:
+    bias-free attention and SwiGLU, biased embedders, time MLP, modulation and
+    final linears."""
+    dim, dh, inner, p = arch.hidden_size, arch.head_dim, arch.ffn_inner, arch.patch_size
+    patch_key = f"{p}-1"
+    shapes: Dict[str, tuple] = {"cap_pad_token": (1, dim)}
+
+    def linear(name, out_features, in_features, bias=True):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        if bias:
+            shapes[f"{name}.bias"] = (out_features,)
+
+    linear("t_embedder.mlp.0", arch.t_mid_size, 256)
+    linear("t_embedder.mlp.2", arch.adaln_dim, arch.t_mid_size)
+    linear(f"all_x_embedder.{patch_key}", dim, p * p * arch.in_channels)
+    shapes["cap_embedder.0.weight"] = (arch.cap_feat_dim,)
+    linear("cap_embedder.1", dim, arch.cap_feat_dim)
+    shapes["siglip_embedder.0.weight"] = (arch.siglip_feat_dim,)
+    linear("siglip_embedder.1", dim, arch.siglip_feat_dim)
+    linear(f"all_final_layer.{patch_key}.adaLN_modulation.1", dim, arch.adaln_dim)
+    linear(f"all_final_layer.{patch_key}.linear", p * p * arch.in_channels, dim)
+    blocks = [(f"{prefix}.{i}", prefix == "noise_refiner") for prefix in
+              ("noise_refiner", "context_refiner", "siglip_refiner") for i in range(arch.refiner_depth)]
+    blocks += [(f"layers.{i}", True) for i in range(arch.depth)]
+    for src, modulated in blocks:
+        linear(f"{src}.attention.to_q", arch.num_heads * dh, dim, bias=False)
+        linear(f"{src}.attention.to_k", arch.num_kv_heads * dh, dim, bias=False)
+        linear(f"{src}.attention.to_v", arch.num_kv_heads * dh, dim, bias=False)
+        linear(f"{src}.attention.to_out.0", dim, arch.num_heads * dh, bias=False)
+        shapes[f"{src}.attention.norm_q.weight"] = (dh,)
+        shapes[f"{src}.attention.norm_k.weight"] = (dh,)
+        linear(f"{src}.feed_forward.w1", inner, dim, bias=False)
+        linear(f"{src}.feed_forward.w3", inner, dim, bias=False)
+        linear(f"{src}.feed_forward.w2", dim, inner, bias=False)
+        for norm in ("attention_norm1", "attention_norm2", "ffn_norm1", "ffn_norm2"):
+            shapes[f"{src}.{norm}.weight"] = (dim,)
+        if modulated:
+            linear(f"{src}.adaLN_modulation.0", 4 * dim, arch.adaln_dim)
+    return shapes
+
+
+def zlab_i1_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a ``ZlabI1Transformer2DModel`` of
+    ``arch`` (``models/zlab_i1/transformer.py::ZlabI1Config``) as
+    ``zlab_i1_params_from_checkpoint`` reads it: the patch conv, the native
+    position table, the text connector with its null caption, the in / mid /
+    out blocks (biased linears, RMSNorm ``scale`` leaves) and the head."""
+    dim, p, inner = arch.hidden_size, arch.patch_size, arch.ffn_inner
+    hw = arch.input_size // p
+    adapter = "text_encoder_adapter"
+    shapes: Dict[str, tuple] = {"x_embedder.proj.weight": (dim, arch.in_channels, p, p),
+                                "x_embedder.proj.bias": (dim,), "pos_embed": (1, hw * hw, dim),
+                                f"{adapter}.learnable_null_caption": (1, arch.text_num_tokens, arch.text_embed_dim)}
+
+    def linear(name, out_features, in_features):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        shapes[f"{name}.bias"] = (out_features,)
+
+    def swiglu(src):
+        linear(f"{src}.w12", 2 * inner, dim)
+        linear(f"{src}.w3", dim, inner)
+
+    linear(f"{adapter}.connector_in", dim, arch.text_embed_dim)
+    for i in range(1, 5):
+        shapes[f"{adapter}.connector_norm{i}.scale"] = (dim,)
+    for name in ("connector_attn", "connector_attn2"):
+        linear(f"{adapter}.{name}.qkv", 3 * dim, dim)
+        linear(f"{adapter}.{name}.proj", dim, dim)
+        shapes[f"{adapter}.{name}.q_norm.scale"] = (arch.head_dim,)
+        shapes[f"{adapter}.{name}.k_norm.scale"] = (arch.head_dim,)
+    swiglu(f"{adapter}.connector_mlp")
+    swiglu(f"{adapter}.connector_mlp2")
+    blocks = [("mid_block", False)] + [(f"in_blocks.{i}", False) for i in range(arch.num_in_blocks)]
+    blocks += [(f"out_blocks.{i}", True) for i in range(arch.num_in_blocks)]
+    for src, use_skip in blocks:
+        for norm in ("norm1", "norm2", "norm3", "norm4"):
+            shapes[f"{src}.{norm}.scale"] = (dim,)
+        linear(f"{src}.attn.qkv_image", 3 * dim, dim)
+        linear(f"{src}.attn.qkv_text", 3 * dim, dim)
+        shapes[f"{src}.attn.q_norm.scale"] = (arch.head_dim,)
+        shapes[f"{src}.attn.k_norm.scale"] = (arch.head_dim,)
+        linear(f"{src}.attn.proj_image", dim, dim)
+        linear(f"{src}.attn.proj_text", dim, dim)
+        swiglu(f"{src}.mlp_image")
+        swiglu(f"{src}.mlp_text")
+        if use_skip:
+            linear(f"{src}.skip_linear_image", dim, 2 * dim)
+            linear(f"{src}.skip_linear_text", dim, 2 * dim)
+    shapes["final_layer.norm_final.scale"] = (dim,)
+    linear("final_layer.linear", p * p * arch.in_channels, dim)
+    return shapes
+
+
 def llm_checkpoint_shapes(cfg) -> Dict[str, tuple]:
     """Tensor names and torch shapes of an HF causal LM of ``cfg``
     (``models/llm_encoder.py::LLMEncoderConfig``) as ``llm_params_from_hf``

@@ -366,18 +366,25 @@ class ModelFoundation:
             self.lora_algo  # raises on the adapter options that are not ported
 
     # ---- training path ---------------------------------------------------------------------
+    def transform_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """The family's transform of the cached latents before noising
+        (Zlab-i1 normalizes FLUX.2 latents per channel); the identity here."""
+        return latents
+
     def prepare_batch(self, generator: torch.Generator, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Noise, sigmas or timesteps, and the noisy model input.
 
         ``batch`` holds ``latents`` (B, H, W, C) plus the family's conditioning;
-        the result adds ``noisy_latents``, ``noise``, ``timesteps`` (flow: the
-        sigmas, also under ``sigmas``; DDPM: int32 timesteps) and ``target``.
+        the latents pass through :meth:`transform_latents` first.  The result
+        adds ``noisy_latents``, ``noise``, ``timesteps`` (flow: the sigmas,
+        also under ``sigmas``; DDPM: int32 timesteps) and ``target``.
         A batch may carry its own ``override_noise`` and ``override_sigmas`` /
         ``override_timesteps``.  The noise is drawn first, then the sigmas or
         timesteps, from ``generator``."""
         self.check_training_config()
-        latents = batch["latents"]
+        latents = self.transform_latents(batch["latents"])
         prepared = dict(batch)
+        prepared["latents"] = latents
         override_noise = prepared.pop("override_noise", None)
         override_sigmas = prepared.pop("override_sigmas", None)
         override_timesteps = prepared.pop("override_timesteps", None)

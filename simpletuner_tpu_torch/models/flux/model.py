@@ -105,6 +105,10 @@ class Flux(ModelFoundation):
     def latent_channels(self) -> int:
         return self.arch.in_channels // 4  # 2x2 packing
 
+    def check_user_config(self) -> None:
+        if getattr(self.config, "prediction_type", None) not in (None, "flow_matching"):
+            raise ValueError("flux is a flow-matching family; prediction_type override unsupported")
+
     def family_lora_targets(self):
         preset = getattr(self.config, "flux_lora_target", None) or "all"
         if preset == "controlnet":

@@ -26,9 +26,14 @@ Remat (``gradient_checkpointing``) runs blocks under
 
 ``remat_skip_last`` leaves the last N single-stream blocks unchecked, and
 ``remat_interval`` checkpoints only every k-th block of both stacks.  Remat
-changes no gradient.  TREAD routing, ControlNet residuals, FlowMap
-conditioning, QK-clip and tokenwise timesteps are not ported; the forward
-takes none of them.
+changes no gradient.
+
+Timesteps may be tokenwise, (B, S_img) (LongCat-Image's edit flavour gives
+its reference tokens t = 0): each image token then modulates on its own
+conditioning, the text stream on the per-sample mean of it, and the single
+blocks on ``[text mean repeated, per token]`` over the fused stream, as the
+JAX module does.  TREAD routing, ControlNet residuals, FlowMap conditioning
+and QK-clip are not ported; the forward takes none of them.
 """
 
 from __future__ import annotations
@@ -146,10 +151,11 @@ class DoubleStreamBlock(nn.Module):
         k = getattr(self, f"{prefix}_attn_norm_k")(k)
         return q, k, v
 
-    def forward(self, img, txt, vec, rope: Rope, segment_ids=None):
+    def forward(self, img, txt, vec, rope: Rope, segment_ids=None, vec_txt=None):
         dim = self.config.hidden_size
+        # vec may be tokenwise (B, S_img, dim); the text stream then takes vec_txt (B, dim)
         img_mods = self.img_mod(vec)
-        txt_mods = self.txt_mod(vec)
+        txt_mods = self.txt_mod(vec if vec_txt is None else vec_txt)
 
         img_n = modulate(layer_norm(img, self.dtype), img_mods[0], img_mods[1])
         txt_n = modulate(layer_norm(txt, self.dtype), txt_mods[0], txt_mods[1])
@@ -224,7 +230,7 @@ class FluxTransformer(nn.Module):
     img_ids / txt_ids: (B, S, 3) axial position ids
     txt: (B, S_txt, txt_in_features) T5 features
     vec: (B, vec_in_features) pooled CLIP features
-    timesteps: (B,) in [0, 1]
+    timesteps: (B,) in [0, 1], or (B, S_img) tokenwise
     guidance: (B,) guidance scale (distilled flavours)
     segment_ids: (B, S_txt + S_img) int32, -1 on tokens nothing may attend to
     Returns (B, S_img, in_channels) f32.
@@ -275,26 +281,36 @@ class FluxTransformer(nn.Module):
         segment_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         cfg = self.config
-        if timesteps.dim() != 1:
-            raise NotImplementedError("tokenwise timesteps are not ported")
         img_tok = self.img_in(img)
         txt_tok = self.txt_in(txt)
 
-        cond = self.time_in(timestep_embedding(timesteps, 256).to(self.dtype))
+        tokenwise = timesteps.dim() == 2
+        if tokenwise:
+            t_emb = timestep_embedding(timesteps.reshape(-1), 256).reshape(*timesteps.shape, 256)
+        else:
+            t_emb = timestep_embedding(timesteps, 256)
+        cond = self.time_in(t_emb.to(self.dtype))
         if cfg.vector_embed:
-            cond = cond + self.vector_in(vec.to(self.dtype))
+            vec_cond = self.vector_in(vec.to(self.dtype))
+            cond = cond + (vec_cond[:, None] if tokenwise else vec_cond)
         if cfg.guidance_embed:
             if guidance is None:
                 guidance = torch.ones((img.shape[0],), dtype=torch.float32, device=img.device)
-            cond = cond + self.guidance_in(timestep_embedding(guidance, 256).to(self.dtype))
+            g_cond = self.guidance_in(timestep_embedding(guidance, 256).to(self.dtype))
+            cond = cond + (g_cond[:, None] if tokenwise else g_cond)
+        # tokenwise: the text stream modulates on the per-sample mean
+        cond_txt = cond.mean(dim=1) if tokenwise else None
 
         rope = axial_rope(cfg.axes_dim, torch.cat([txt_ids, img_ids], dim=1), cfg.theta)
         for i in range(cfg.depth_double):
-            img_tok, txt_tok = self._block(False, i, img_tok, txt_tok, cond, rope, segment_ids)
+            img_tok, txt_tok = self._block(False, i, img_tok, txt_tok, cond, rope, segment_ids, cond_txt)
 
         stream = torch.cat([txt_tok, img_tok], dim=1)
+        cond_single = cond
+        if tokenwise:
+            cond_single = torch.cat([cond_txt[:, None].expand(-1, txt_tok.shape[1], -1), cond], dim=1)
         for i in range(cfg.depth_single):
-            stream = self._block(True, i, stream, cond, rope, segment_ids)
+            stream = self._block(True, i, stream, cond_single, rope, segment_ids)
         img_tok = stream[:, txt_tok.shape[1]:]
 
         shift, scale = self.final_mod(cond)

@@ -7,7 +7,8 @@ the family a config names.  Every family of the JAX registry is listed with
 its metadata; ``flux``, ``sd3``, ``sdxl``, ``sd1x``, ``sd2x``,
 ``pixart_sigma``, ``auraflow``, ``wan``, ``ltxvideo``, ``chroma``, ``lumina2``,
 ``kandinsky5_image``, ``kandinsky5_video``, ``hunyuanvideo``, ``qwen_image``,
-``mageflow``, ``z_image``, ``hidream``, ``flux2`` and ``kolors`` are ported
+``mageflow``, ``z_image``, ``hidream``, ``flux2``, ``kolors``,
+``longcat_image``, ``z_image_omni``, ``zlab_i1`` and ``boogu_image`` are ported
 (with the JAX aliases ``sd15``, ``sd21``, ``pixart`` and ``kandinsky5-image``),
 so ``get`` of any other family raises naming ROADMAP Queue 1
 item 6, and an unknown name raises ``KeyError`` as in the JAX registry.
@@ -66,7 +67,7 @@ ALIASES = {"sd15": "sd1x", "sd21": "sd2x", "pixart": "pixart_sigma", "ltx2": "lt
 # the families the port builds
 PORTED = ("flux", "sd3", "sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "chroma", "lumina2",
           "kandinsky5_image", "kandinsky5_video", "hunyuanvideo", "qwen_image", "mageflow", "z_image", "hidream",
-          "flux2", "kolors")
+          "flux2", "kolors", "longcat_image", "z_image_omni", "zlab_i1", "boogu_image")
 
 
 class ModelRegistry:
@@ -153,6 +154,22 @@ class ModelRegistry:
             from .kolors import Kolors
 
             return Kolors
+        if family == "longcat_image":
+            from .longcat_image import LongcatImage
+
+            return LongcatImage
+        if family == "z_image_omni":
+            from .z_image_omni import ZImageOmni
+
+            return ZImageOmni
+        if family == "zlab_i1":
+            from .zlab_i1 import ZlabI1
+
+            return ZlabI1
+        if family == "boogu_image":
+            from .extended import BooguImage
+
+            return BooguImage
         raise NotImplementedError(f"model_family={name!r} is not ported (only {', '.join(PORTED)}; "
                                   "ROADMAP Queue 1 item 6)")
 

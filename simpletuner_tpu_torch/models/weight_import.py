@@ -1286,6 +1286,152 @@ def load_flux2_params(model, path: str) -> Dict[str, Any]:
     return params
 
 
+def longcat_image_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a LongCat-Image transformer of ``arch``: the
+    diffusers Flux layout with a bare ``time_embed.timestep_embedder`` (no
+    pooled-text or guidance embedder), read as Flux's after the rename."""
+    renamed = {("time_text_embed." + key[len("time_embed."):] if key.startswith("time_embed.") else key): value
+               for key, value in weights.items()}
+    return flux_params_from_diffusers(renamed, arch.depth_double, arch.depth_single)
+
+
+def load_longcat_image_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a LongCat-Image transformer (a model
+    dir with a ``transformer/`` subfolder, or one file)."""
+    params = longcat_image_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported longcat_image weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
+# Z-Image-Omni (ZImageOmniTransformer2DModel: the refiner stacks, the layers and
+# per-patch embedders keyed "patch-fpatch")
+# ---------------------------------------------------------------------------------
+
+
+def _z_omni_block(w: Mapping[str, torch.Tensor], src: str, modulated: bool) -> Dict[str, Any]:
+    block: Dict[str, Any] = {
+        "attn_q": _linear(w, f"{src}.attention.to_q"),
+        "attn_k": _linear(w, f"{src}.attention.to_k"),
+        "attn_v": _linear(w, f"{src}.attention.to_v"),
+        "attn_proj": _linear(w, f"{src}.attention.to_out.0"),
+        "norm_q": _scale(w, f"{src}.attention.norm_q.weight"),
+        "norm_k": _scale(w, f"{src}.attention.norm_k.weight"),
+        "feed_forward": {name: _linear(w, f"{src}.feed_forward.{name}") for name in ("w1", "w2", "w3")},
+        "attention_norm1": _scale(w, f"{src}.attention_norm1.weight"),
+        "attention_norm2": _scale(w, f"{src}.attention_norm2.weight"),
+        "ffn_norm1": _scale(w, f"{src}.ffn_norm1.weight"),
+        "ffn_norm2": _scale(w, f"{src}.ffn_norm2.weight"),
+    }
+    if modulated:
+        block["adaLN_modulation"] = _linear(w, f"{src}.adaLN_modulation.0")
+    return block
+
+
+def z_image_omni_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a Z-Image-Omni transformer of ``arch``
+    (``ZImageOmniConfig``); the image embedder and final layer are the
+    ``"{patch}-1"`` entries, and the SigLIP modules are read where the file
+    has them."""
+    w = weights
+    patch_key = f"{arch.patch_size}-1"
+    params: Dict[str, Any] = {
+        "t_in": _linear(w, "t_embedder.mlp.0"),
+        "t_out": _linear(w, "t_embedder.mlp.2"),
+        "x_embedder": _linear(w, f"all_x_embedder.{patch_key}"),
+        "cap_norm": _scale(w, "cap_embedder.0.weight"),
+        "cap_embedder": _linear(w, "cap_embedder.1"),
+        "cap_pad_token": _float(w["cap_pad_token"]),
+        "final_adaLN": _linear(w, f"all_final_layer.{patch_key}.adaLN_modulation.1"),
+        "final_linear": _linear(w, f"all_final_layer.{patch_key}.linear"),
+    }
+    if "siglip_embedder.1.weight" in w:
+        params["siglip_norm"] = _scale(w, "siglip_embedder.0.weight")
+        params["siglip_embedder"] = _linear(w, "siglip_embedder.1")
+    for i in range(arch.refiner_depth):
+        params[f"noise_refiner_{i}"] = _z_omni_block(w, f"noise_refiner.{i}", modulated=True)
+        params[f"context_refiner_{i}"] = _z_omni_block(w, f"context_refiner.{i}", modulated=False)
+        if f"siglip_refiner.{i}.attention.to_q.weight" in w:
+            params[f"siglip_refiner_{i}"] = _z_omni_block(w, f"siglip_refiner.{i}", modulated=False)
+    for i in range(arch.depth):
+        params[f"layer_{i}"] = _z_omni_block(w, f"layers.{i}", modulated=True)
+    return params
+
+
+def load_z_image_omni_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a Z-Image-Omni transformer (a model
+    dir with a ``transformer/`` subfolder, or one file)."""
+    params = z_image_omni_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported z_image_omni weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
+# Zlab-i1 (ZlabI1Transformer2DModel: in / mid / out blocks with skip linears; the
+# frozen t_embedder and the rope tables are unused and skipped)
+# ---------------------------------------------------------------------------------
+
+
+def _zlab_swiglu(w: Mapping[str, torch.Tensor], src: str) -> Dict[str, Any]:
+    return {"w12": _linear(w, f"{src}.w12"), "w3": _linear(w, f"{src}.w3")}
+
+
+def _zlab_block(w: Mapping[str, torch.Tensor], src: str, use_skip: bool) -> Dict[str, Any]:
+    block: Dict[str, Any] = {name: _scale(w, f"{src}.{name}.scale") for name in ("norm1", "norm2", "norm3", "norm4")}
+    block.update({name: _linear(w, f"{src}.attn.{name}")
+                  for name in ("qkv_image", "qkv_text", "proj_image", "proj_text")})
+    block["q_norm"] = _scale(w, f"{src}.attn.q_norm.scale")
+    block["k_norm"] = _scale(w, f"{src}.attn.k_norm.scale")
+    block["mlp_image"] = _zlab_swiglu(w, f"{src}.mlp_image")
+    block["mlp_text"] = _zlab_swiglu(w, f"{src}.mlp_text")
+    if use_skip:
+        block["skip_image"] = _linear(w, f"{src}.skip_linear_image")
+        block["skip_text"] = _linear(w, f"{src}.skip_linear_text")
+    return block
+
+
+def _zlab_connector_attn(w: Mapping[str, torch.Tensor], src: str) -> Dict[str, Any]:
+    return {"qkv": _linear(w, f"{src}.qkv"), "q_norm": _scale(w, f"{src}.q_norm.scale"),
+            "k_norm": _scale(w, f"{src}.k_norm.scale"), "proj": _linear(w, f"{src}.proj")}
+
+
+def zlab_i1_params_from_checkpoint(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a Zlab-i1 transformer of ``arch``
+    (``ZlabI1Config``): the patch conv (D, C, p, p) as a dense kernel over
+    (c, ph, pw)-ordered features."""
+    w = weights
+    adapter = "text_encoder_adapter"
+    params: Dict[str, Any] = {
+        "x_embedder": {"kernel": _float(w["x_embedder.proj.weight"]).reshape(arch.hidden_size, -1).t(),
+                       "bias": _float(w["x_embedder.proj.bias"])},
+        "pos_embed": _float(w["pos_embed"]),
+        "text_adapter": {
+            "null_caption": _float(w[f"{adapter}.learnable_null_caption"]),
+            "connector_in": _linear(w, f"{adapter}.connector_in"),
+            **{f"connector_norm{i}": _scale(w, f"{adapter}.connector_norm{i}.scale") for i in range(1, 5)},
+            "connector_attn": _zlab_connector_attn(w, f"{adapter}.connector_attn"),
+            "connector_attn2": _zlab_connector_attn(w, f"{adapter}.connector_attn2"),
+            "connector_mlp": _zlab_swiglu(w, f"{adapter}.connector_mlp"),
+            "connector_mlp2": _zlab_swiglu(w, f"{adapter}.connector_mlp2"),
+        },
+        "mid": _zlab_block(w, "mid_block", use_skip=False),
+        "final_norm": _scale(w, "final_layer.norm_final.scale"),
+        "final_linear": _linear(w, "final_layer.linear"),
+    }
+    for i in range(arch.num_in_blocks):
+        params[f"in_{i}"] = _zlab_block(w, f"in_blocks.{i}", use_skip=False)
+        params[f"out_{i}"] = _zlab_block(w, f"out_blocks.{i}", use_skip=True)
+    return params
+
+
+def load_zlab_i1_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a Zlab-i1 transformer (a model dir
+    with a ``transformer/`` subfolder, or one file)."""
+    params = zlab_i1_params_from_checkpoint(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported zlab_i1 weights from %s", path)
+    return params
+
+
 # ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
@@ -1299,7 +1445,10 @@ _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_une
               "qwen_image": load_qwen_image_params, "mageflow": load_qwen_image_params,
               "z_image": load_qwen_image_params, "hidream": load_hidream_params, "flux2": load_flux2_params,
               # Kolors is the SDXL UNet layout with a 4,096-wide cross-attention
-              "kolors": load_unet_params}
+              "kolors": load_unet_params, "longcat_image": load_longcat_image_params,
+              "z_image_omni": load_z_image_omni_params, "zlab_i1": load_zlab_i1_params,
+              # Boogu-Image is the Lumina2 Next-DiT layout
+              "boogu_image": load_lumina2_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:

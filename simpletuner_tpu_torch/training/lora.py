@@ -296,6 +296,58 @@ def flux2_key_map(arch) -> Dict[str, Any]:
     return mapping
 
 
+def z_image_omni_key_map(arch) -> Dict[str, Any]:
+    """``ZImageOmniTransformer2DModel`` paths: diffusers attention names inside
+    ``attention``, the SwiGLU ``feed_forward.w1/w2/w3``, the per-patch
+    embedders keyed ``"{patch}-1"``."""
+    patch_key = f"{arch.patch_size}-1"
+    mapping: Dict[str, Any] = {
+        "x_embedder": f"all_x_embedder.{patch_key}",
+        "cap_embedder": "cap_embedder.1",
+        "siglip_embedder": "siglip_embedder.1",
+        "final_linear": f"all_final_layer.{patch_key}.linear",
+    }
+    table = {
+        "attn_q": "attention.to_q", "attn_k": "attention.to_k",
+        "attn_v": "attention.to_v", "attn_proj": "attention.to_out.0",
+        "feed_forward/w1": "feed_forward.w1", "feed_forward/w2": "feed_forward.w2",
+        "feed_forward/w3": "feed_forward.w3",
+    }
+    groups = [(f"layer_{i}", f"layers.{i}") for i in range(arch.depth)]
+    for prefix in ("noise_refiner", "context_refiner", "siglip_refiner"):
+        groups += [(f"{prefix}_{i}", f"{prefix}.{i}") for i in range(arch.refiner_depth)]
+    for ours_prefix, theirs_prefix in groups:
+        for ours, theirs in table.items():
+            mapping[f"{ours_prefix}/{ours}"] = f"{theirs_prefix}.{theirs}"
+    return mapping
+
+
+def zlab_i1_key_map(arch) -> Dict[str, Any]:
+    """``ZlabI1Transformer2DModel`` paths: ``in_blocks`` / ``mid_block`` /
+    ``out_blocks`` with the per-modality fused qkv, the SwiGLU ``w12`` / ``w3``
+    and the out blocks' skip linears; the connector's input and the head."""
+    mapping: Dict[str, Any] = {
+        "final_linear": "final_layer.linear",
+        "text_adapter/connector_in": "text_encoder_adapter.connector_in",
+    }
+    table = {
+        "qkv_image": "attn.qkv_image", "qkv_text": "attn.qkv_text",
+        "proj_image": "attn.proj_image", "proj_text": "attn.proj_text",
+        "mlp_image/w12": "mlp_image.w12", "mlp_image/w3": "mlp_image.w3",
+        "mlp_text/w12": "mlp_text.w12", "mlp_text/w3": "mlp_text.w3",
+    }
+    groups = [("mid", "mid_block")]
+    groups += [(f"in_{i}", f"in_blocks.{i}") for i in range(arch.num_in_blocks)]
+    groups += [(f"out_{i}", f"out_blocks.{i}") for i in range(arch.num_in_blocks)]
+    for ours_prefix, theirs_prefix in groups:
+        for ours, theirs in table.items():
+            mapping[f"{ours_prefix}/{ours}"] = f"{theirs_prefix}.{theirs}"
+        if ours_prefix.startswith("out_"):
+            mapping[f"{ours_prefix}/skip_image"] = f"{theirs_prefix}.skip_linear_image"
+            mapping[f"{ours_prefix}/skip_text"] = f"{theirs_prefix}.skip_linear_text"
+    return mapping
+
+
 # family name -> key map builder, for the families the port has
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
@@ -318,6 +370,10 @@ _KEY_MAPS = {
     "hidream": lambda m: hidream_key_map(m.arch),
     "flux2": lambda m: flux2_key_map(m.arch),
     "kolors": lambda m: unet_key_map(m.arch),
+    "longcat_image": lambda m: flux_key_map(m.arch),
+    "z_image_omni": lambda m: z_image_omni_key_map(m.arch),
+    "zlab_i1": lambda m: zlab_i1_key_map(m.arch),
+    "boogu_image": lambda m: lumina2_key_map(m.arch),
 }
 
 

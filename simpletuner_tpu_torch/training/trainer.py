@@ -64,13 +64,19 @@ CLIP-G pooled, T5-XXL and Llama-3 at 128 tokens; ``moe_gate_loss`` logged at
 every step), all four with ``VAEConfig.flux()``, ``flux2`` (Mistral-3 at 512
 tokens, its taps side by side; ``VAEConfig.flux()`` as in the JAX trainer, whose
 16 channels the published 32-channel arch cannot take: only the tiny preset
-trains) and ``kolors`` (ChatGLM at 256 tokens with its pooled vector, SDXL's
-VAE and DDPM path); the batch reaches the step with every numeric array
+trains), ``kolors`` (ChatGLM at 256 tokens with its pooled vector, SDXL's
+VAE and DDPM path), ``longcat_image`` (Qwen2.5-VL at 512 tokens inside its
+captioning template, the template's spans sliced off; the sliding ids),
+``z_image_omni`` (Qwen at 512 tokens with its mask), ``boogu_image``
+(Lumina2's) and ``zlab_i1`` (Gemma-2 at 256 tokens with its mask; 32 latent
+channels against ``VAEConfig.flux()``, as the JAX trainer, so only its tiny
+preset trains), the four with ``VAEConfig.flux()`` at their published widths;
+the batch reaches the step with every numeric array
 the family's collate gives (Flux's ``t5_embeds``/``t5_masks``, the others'
 ``text_embeds``, SDXL's size conditioning ``original_sizes``,
 ``crop_coordinates`` and ``target_sizes``), and ``pooled_embeds`` for flux,
 sd3 and sdxl.  Refused, each naming its ROADMAP item:
-families other than these twenty, full fine-tunes and ControlNet, distillation and
+families other than these twenty-four, full fine-tunes and ControlNet, distillation and
 ODE pairs, CREPA / U-REPA, text-encoder training, slider and assistant
 adapters, a mesh of more than one device and multi-process runs.
 """

@@ -82,8 +82,8 @@ def test_the_port_imports_nothing_of_the_jax_package():
     names = [m.name for m in pkgutil.walk_packages(simpletuner_tpu_torch.__path__, "simpletuner_tpu_torch.")]
     assert int(count) == len(names) and loaded == "[]"
     # the SDXL slice's modules, the SD 1.x / 2.x, PixArt-Sigma, AuraFlow, Wan, LTX-Video, Chroma, Lumina2,
-    # decoder-LLM, Kandinsky 5.0, HunyuanVideo, Qwen-Image, MageFlow / Z-Image, HiDream, FLUX.2 and Kolors ones
-    # are among those imported
+    # decoder-LLM, Kandinsky 5.0, HunyuanVideo, Qwen-Image, MageFlow / Z-Image, HiDream, FLUX.2, Kolors,
+    # LongCat-Image, Z-Image-Omni, Zlab-i1 and Boogu-Image ones are among those imported
     assert {f"simpletuner_tpu_torch.{name}" for name in (
         "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc", "models.sd1x",
         "models.sd1x.model", "models.pixart", "models.pixart.model", "models.pixart.transformer",
@@ -95,7 +95,10 @@ def test_the_port_imports_nothing_of_the_jax_package():
         "models.hunyuanvideo.model", "models.hunyuanvideo.transformer", "models.qwen_image",
         "models.qwen_image.model", "models.qwen_image.transformer", "models.mageflow", "models.mageflow.model",
         "models.hidream", "models.hidream.model", "models.hidream.transformer", "models.flux2", "models.flux2.model",
-        "models.flux2.transformer", "models.kolors", "models.kolors.model")} <= set(names)
+        "models.flux2.transformer", "models.kolors", "models.kolors.model", "models.longcat_image",
+        "models.longcat_image.model", "models.z_image_omni", "models.z_image_omni.model",
+        "models.z_image_omni.transformer", "models.zlab_i1", "models.zlab_i1.model", "models.zlab_i1.transformer",
+        "models.zlab_i1.latent_utils", "models.extended", "models.extended.model")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -567,7 +570,16 @@ def test_model_registry_refuses_other_families():
 
     assert isinstance(get_model_family(TrainingConfig({"model_family": "flux2"})), Flux2)
     assert isinstance(get_model_family(TrainingConfig({"model_family": "kolors"})), Kolors)
-    for family in ("sana", "longcat_image", "deepfloyd"):
+    from simpletuner_tpu_torch.models.extended import BooguImage
+    from simpletuner_tpu_torch.models.longcat_image import LongcatImage
+    from simpletuner_tpu_torch.models.z_image_omni import ZImageOmni
+    from simpletuner_tpu_torch.models.zlab_i1 import ZlabI1
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "longcat_image"})), LongcatImage)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "z_image_omni"})), ZImageOmni)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "zlab_i1"})), ZlabI1)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "boogu_image"})), BooguImage)
+    for family in ("sana", "krea2", "deepfloyd"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):

@@ -458,11 +458,12 @@ def test_kernels_at_the_sd15_sd21_pixart_shapes(cuda, name, batch, heads, sq, sk
                                             backend="pallas_flash").transpose(1, 2), mha_reference_lse(q, k, v)[0])
 
 
-def _card_against_cpu(cpu, card, inputs, weight, device):
+def _card_against_cpu(cpu, card, inputs, weight, device, allow_unused=False):
     """Prediction and LoRA gradients of a linear loss: the bf16 module through
     the kernels on the card against the f32 module on the CPU (plain
     attention), within 5e-2 relative L2, the full-width parity bound of
-    chip_smoke.py (bf16 rounds every product and the residual stream)."""
+    chip_smoke.py (bf16 rounds every product and the residual stream).
+    ``allow_unused``: adapters no output reads count as zero gradients."""
     from simpletuner_tpu_torch.models.layers import freeze_base
 
     with torch.no_grad():  # LoRA B starts at zero: give it a draw so the adapters reach the output
@@ -473,9 +474,10 @@ def _card_against_cpu(cpu, card, inputs, weight, device):
     results = []
     for module, where in ((cpu, "cpu"), (card, device)):
         params = freeze_base(module)
-        out = module(*[x.to(where) for x in inputs])
-        grads = torch.autograd.grad((out * weight.to(where)).sum(), list(params.values()))
-        results.append((out.float().cpu(), torch.cat([g.float().flatten().cpu() for g in grads])))
+        out = module(*[x if x is None else x.to(where) for x in inputs])
+        grads = torch.autograd.grad((out * weight.to(where)).sum(), list(params.values()), allow_unused=allow_unused)
+        results.append((out.float().cpu(), torch.cat([(torch.zeros_like(p) if g is None else g).float().flatten().cpu()
+                                                      for g, p in zip(grads, params.values())])))
     (out_cpu, grad_cpu), (out_card, grad_card) = results
     assert torch.isfinite(out_card).all() and torch.isfinite(grad_card).all()
     assert ((out_card - out_cpu).norm() / out_cpu.norm()).item() <= 5e-2
@@ -1443,3 +1445,159 @@ def test_text_encoders_on_the_card(cuda):
         assert np.array_equal(a["attention_mask"], b["attention_mask"])
         for key in ("t5_embeds", "pooled_embeds"):
             assert np.linalg.norm(a[key] - b[key]) <= 1e-5 * np.linalg.norm(b[key]), key
+
+
+def _tiny_longcat(dtype, device):
+    """LongCat-Image's Flux DiT two heads of 128 wide (the published rope
+    axes, no pooled or guidance embedder), 1 + 1 blocks, remat, rank-4 adapters."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.flux.transformer import FluxConfig, FluxTransformer
+
+    cfg = dataclasses.replace(FluxConfig.tiny(), hidden_size=256, num_heads=2, head_dim=128, depth_double=1,
+                              depth_single=1, axes_dim=(16, 56, 56), vector_embed=False, guidance_embed=False)
+    with torch.device(device):
+        return cfg, FluxTransformer(cfg, dtype=dtype, lora_rank=4, remat=True)
+
+
+def test_tiny_longcat_tokenwise_on_the_card_matches_its_cpu_run(cuda):
+    """The tiny LongCat DiT (``_tiny_longcat``) with tokenwise timesteps: 48
+    scene tokens at the sample's t and 48 reference tokens at t = 0, after 20
+    text tokens, against its CPU run."""
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg, cpu = _tiny_longcat(torch.float32, "cpu")
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    _, card = _tiny_longcat(torch.bfloat16, cuda)
+    gen = torch.Generator().manual_seed(4)
+    timesteps = torch.cat([torch.tensor([[0.3], [0.8]]).expand(2, 48), torch.zeros(2, 48)], dim=1)
+    inputs = [torch.randn((2, 96, cfg.in_channels), generator=gen), torch.randint(0, 40, (2, 96, 3), generator=gen),
+              torch.randn((2, 20, cfg.txt_in_features), generator=gen), torch.randint(0, 40, (2, 20, 3), generator=gen),
+              timesteps, None]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 96, cfg.in_channels), generator=gen), cuda)
+
+
+def _tiny_z_image_omni(dtype, device):
+    """The Z-Image-Omni DiT two heads of 128 wide (the published rope axes),
+    1 layer and 1 + 1 + 1 refiners, remat, rank-4 adapters."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.z_image_omni import ZImageOmniConfig, ZImageOmniTransformer
+
+    cfg = dataclasses.replace(ZImageOmniConfig.tiny(), hidden_size=256, num_heads=2, num_kv_heads=2, depth=1,
+                              axes_dim=(32, 48, 48))
+    with torch.device(device):
+        return cfg, ZImageOmniTransformer(cfg, dtype=dtype, lora_rank=4, remat=True)
+
+
+def test_tiny_z_image_omni_on_the_card_matches_its_cpu_run(cuda):
+    """The tiny Z-Image-Omni DiT (``_tiny_z_image_omni``) with a clean
+    reference image, a 3 x 4 SigLIP grid and a caption mask (20 and 9 of 20
+    valid; segment ids all 1 in the joint layers), 12 x 16 latents, against
+    its CPU run."""
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg, cpu = _tiny_z_image_omni(torch.float32, "cpu")
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    _, card = _tiny_z_image_omni(torch.bfloat16, cuda)
+    gen = torch.Generator().manual_seed(5)
+    mask = (torch.arange(20)[None] < torch.tensor([[20], [9]])).to(torch.int32)
+    inputs = [torch.randn((2, 12, 16, cfg.in_channels), generator=gen), torch.tensor([0.3, 0.8]),
+              torch.randn((2, 20, cfg.cap_feat_dim), generator=gen), mask,
+              torch.randn((2, 3, 4, cfg.siglip_feat_dim), generator=gen),
+              torch.randn((2, 12, 16, cfg.in_channels), generator=gen)]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 12, 16, cfg.in_channels), generator=gen), cuda)
+
+
+def _tiny_zlab(dtype, device):
+    """The Zlab-i1 U-ViT two heads of 72 wide (the published head dim,
+    zero-padded to 128 by the wrappers), 3 blocks, remat, rank-4 adapters."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.zlab_i1 import ZlabI1Config, ZlabI1Transformer
+
+    cfg = dataclasses.replace(ZlabI1Config.tiny(), hidden_size=144, num_heads=2)
+    with torch.device(device):
+        return cfg, ZlabI1Transformer(cfg, dtype=dtype, lora_rank=4, remat=True)
+
+
+def test_tiny_zlab_on_the_card_matches_its_cpu_run(cuda):
+    """The tiny Zlab-i1 U-ViT (``_tiny_zlab``) on its native 16 x 16 latents
+    with 12 text tokens (12 and 5 valid: the text mask as the key ids),
+    against its CPU run (the last block's text-side adapters reach no output)."""
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg, cpu = _tiny_zlab(torch.float32, "cpu")
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    _, card = _tiny_zlab(torch.bfloat16, cuda)
+    gen = torch.Generator().manual_seed(6)
+    mask = (torch.arange(12)[None] < torch.tensor([[12], [5]])).to(torch.int32)
+    inputs = [torch.randn((2, 16, 16, cfg.in_channels), generator=gen), torch.tensor([0.3, 0.8]),
+              torch.randn((2, 12, cfg.text_embed_dim), generator=gen), mask]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 16, 16, cfg.in_channels), generator=gen), cuda,
+                      allow_unused=True)
+
+
+@pytest.mark.parametrize("family", ["longcat_image", "z_image_omni", "zlab_i1"])
+def test_graphed_longcat_omni_zlab_steps_match_eager_bitwise(cuda, family):
+    """The tiny LongCat-Image edit step (reference latents at t = 0,
+    tokenwise), Z-Image-Omni step (a reference image and SigLIP features) and
+    Zlab-i1 step (masked text): three eager steps and then three replays of
+    the captured step from the same state and generator state give the same
+    losses and grad norms bitwise."""
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.training.optimizers import get_optimizer
+    from simpletuner_tpu_torch.training.train_state import (build_train_step, create_train_state, jit_train_step,
+                                                            state_tensors)
+
+    config = TrainingConfig({"model_family": family, "model_arch_preset": "tiny", "model_type": "lora",
+                             "lora_rank": 4, "learning_rate": 1e-3, "optimizer": "adamw",
+                             "gradient_checkpointing": True, "model_flavour": "edit" if family == "longcat_image"
+                             else None})
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    model = ModelRegistry.create(family, config)
+    with torch.device(cuda):
+        module = init_parameters(model.create_module(), gen)
+    with torch.no_grad():  # LongCat's AdaLN-Zero starts at zero: give it a draw so the blocks reach the loss
+        for name, param in module.named_parameters():
+            if name.endswith("lin.weight"):
+                param.normal_(0.0, 0.05, generator=gen)
+    channels = model.latent_channels
+    batch = {"latents": torch.randn((1, 16, 16, channels), generator=gen, device=cuda)}
+    if family == "longcat_image":
+        batch.update({"t5_embeds": torch.randn((1, 16, 32), generator=gen, device=cuda),
+                      "control_latents": torch.randn((1, 16, 16, channels), generator=gen, device=cuda)})
+    else:
+        batch.update({"text_embeds": torch.randn((1, 12, 32), generator=gen, device=cuda),
+                      "text_attention_mask": (torch.arange(12, device=cuda) < 7).to(torch.int32)[None]})
+    if family == "z_image_omni":
+        batch.update({"control_latents": torch.randn((1, 16, 16, channels), generator=gen, device=cuda),
+                      "siglip_embeds": torch.randn((1, 2, 2, 24), generator=gen, device=cuda)})
+    tx = get_optimizer(config, 1e-3)
+    state = create_train_state(model, module, tx)
+    step_fn = build_train_step(model, tx)
+    with torch.no_grad():
+        saved = [x.clone() for x in state_tensors(state)]
+    rng = torch.Generator(device=cuda)
+    rng.manual_seed(5)
+    start = rng.get_state()
+
+    def trajectory(step):
+        current, out = state, []
+        for _ in range(3):
+            current, metrics = step(current, batch, rng)
+            out += [metrics["loss"], metrics["grad_norm"]]
+        return torch.stack(out)
+
+    eager = trajectory(step_fn)
+    with torch.no_grad():
+        for x, value in zip(state_tensors(state), saved):
+            x.copy_(value)
+    rng.set_state(start)
+    state.step = 0
+    graphed = jit_train_step(step_fn, state, batch, rng)
+    replayed = trajectory(graphed)
+    assert torch.isfinite(eager).all() and (eager[1::2] > 0).all()
+    assert torch.equal(replayed, eager)

@@ -519,11 +519,12 @@ def test_routes_that_differ_by_design(pair):
     assert sd3["port"][0] == sd3["jax"][0] == 200
     jax_presets = [(p["name"], p["config"]) for p in sd3["jax"][1] if p["name"] != "multichip"]  # a mesh: item 5
     assert [(p["name"], p["config"]) for p in sd3["port"][1]] == jax_presets and len(jax_presets) == 3
-    # chroma answers with Flux's presets (the JAX Flux adds a TPU v5e one)
-    assert pair.both("GET", "/api/models/chroma/presets", compare=False)["port"] == presets["port"]
+    # chroma and longcat_image answer with Flux's presets (the JAX Flux adds a TPU v5e one)
+    for family in ("chroma", "longcat_image"):
+        assert pair.both("GET", f"/api/models/{family}/presets", compare=False)["port"] == presets["port"], family
     for family in ("sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "lumina2",
                    "kandinsky5_image", "kandinsky5_video", "hunyuanvideo", "qwen_image", "mageflow", "z_image",
-                   "hidream", "flux2", "kolors"):
+                   "hidream", "flux2", "kolors", "z_image_omni", "zlab_i1", "boogu_image"):
         answers = pair.both("GET", f"/api/models/{family}/presets", compare=False)
         assert answers["port"][0] == answers["jax"][0] == 200
         assert [(p["name"], p["config"]) for p in answers["port"][1]] == [
@@ -531,8 +532,8 @@ def test_routes_that_differ_by_design(pair):
     assert pair.both("GET", "/api/models/sana/presets", compare=False)["port"] == (
         501, {"error": "model_family='sana' is not ported (only flux, sd3, sdxl, sd1x, sd2x, pixart_sigma, "
                        "auraflow, wan, ltxvideo, chroma, lumina2, kandinsky5_image, kandinsky5_video, "
-                       "hunyuanvideo, qwen_image, mageflow, z_image, hidream, flux2, kolors; ROADMAP Queue 1 "
-                       "item 6)"})
+                       "hunyuanvideo, qwen_image, mageflow, z_image, hidream, flux2, kolors, longcat_image, "
+                       "z_image_omni, zlab_i1, boogu_image; ROADMAP Queue 1 item 6)"})
     pair.both("GET", "/api/models/nope/presets")  # unknown: 404 on both
     job = pair.both("POST", "/api/inference/start",
                     {"checkpoint": "/nope/checkpoint-1", "prompt": "a cat", "steps": 1})
