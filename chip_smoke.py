@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch port of simpletuner-tpu once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                       # every phase, 1-35
+    python3 chip_smoke.py                       # every phase, 1-38
     python3 chip_smoke.py --phases 14-16,27,28  # the named phases, what they need, and 1-3 and 7
 
 With ``--phases`` the script runs the named phases, the phases whose files
@@ -9,7 +9,8 @@ they need (``PHASE_NEEDS``: 25 and 26 need phase 14's Flux VAE, phase 15's
 T5-XXL and tokenizer and phase 16's JPEGs; 27 phase 14's CLIP-L, phase 15's
 CLIP tokenizer and phase 16's JPEGs; 28 phase 15's files; 29 phase 14's VAE and phase 16's
 JPEGs; 30 those, phase 15's T5-XXL and tokenizers and phase 19's CLIP-G; 31 none; 32 phase 16's JPEGs;
-33 and 34 phase 14's VAE and phase 16's JPEGs; 35 none) and
+33 and 34 phase 14's VAE and phase 16's JPEGs; 35 none; 36 and 38 phase 14's VAE and phase
+16's JPEGs; 37 those and phase 15's T5 tokenizer) and
 phases 1, 2, 3 and 7 (the
 build, and every kernel against its plain version); a named family phase
 whose depth a full run cuts writes its full-depth file where the run's
@@ -182,23 +183,27 @@ exits non-zero with no result line):
 20. sdxl: the SDXL UNet as the JAX preset builds it (``UNetConfig.sdxl()``:
    channels 320 / 640 / 1280, transformer depths 1 / 2 / 10, cross-attention
    at all three levels where the published SDXL UNet has none at level 0,
-   context 2048, added conditioning 2816; 2.58B parameters) at full width and
-   depth.  Deletes phase 19's transformer and outputs; writes with the port's
-   writer a seeded diffusers UNet (5.17 GB bf16, two shards; e4m3 if the
-   run's writes would pass the budget) and a 4-channel VAE beside hard links
+   context 2048, added conditioning 2816; 2.58B parameters) at full width, its
+   level-2 transformer depth cut to 2 of 10 in a run of every phase
+   (``SDXL_CUT_LAYERS``: 0.92B, since phases 36-38; the preset's depths in a run that
+   names the phase).  Deletes phase 19's transformer and outputs; writes with
+   the port's writer a seeded diffusers UNet (two shards, e4m3; bf16 in a run
+   that names the phase where the writes leave room) and a 4-channel VAE beside hard links
    to phase 14's CLIP-L and tokenizer and phase 19's CLIP-G; imports the UNet
    (s, GB/s; every tensor bitwise the written one); renders 1024x1024 through
    ``CheckpointInferenceRuntime`` with true CFG at guidance 7.5, 4 steps of
-   DDIM (the default) and then of UniPC (s per CFG step, peak GiB, 150 flash
-   launches per UNet forward: 75 transformer blocks, two attentions each);
+   DDIM (the default) and then of UniPC (s per CFG step, peak GiB, two flash
+   launches per transformer block a UNet forward: 150 at the preset's 75
+   blocks, 54 at the cut's 27);
    one UNet forward with the kernels against the plain attention (relative
    L2 within phase 5's bound); ``Trainer.run()`` with a bf16 base, remat of
    every resnet and spatial transformer, rank-16 LoRA on to_q / to_k / to_v /
    to_out, AdamW 1e-4, min-SNR gamma 5 epsilon, 6 steps on four of phase 16's
    square JPEGs in one bucket, graphed: losses, s/step, MFU
    (``sdxl_step_flops``, forward x 3), time to the first step, peak GiB, and
-   the launches of a profiled replay (300 / 150 / 150: forward, recompute,
-   backward), which must equal the capture's, with the replay's top kernels;
+   the launches of a profiled replay (300 / 150 / 150 at the preset's depth:
+   forward, recompute, backward), which must equal the capture's, with the
+   replay's top kernels;
    its UNet file is e4m3 when the run's writes would leave phases 21 and 22
    less than ``PHASE21_WRITE_GB`` + ``PHASE22_WRITE_GB``.
 21. sd1x, sd2x, pixart_sigma: deletes phase 20's UNet shards and outputs,
@@ -245,8 +250,8 @@ exits non-zero with no result line):
    the capture's, with device ms by bucket and the idle share.
 23. wan: Wan 2.1 T2V-1.3B as the JAX preset builds it (``WanConfig.b1_3()``:
    30 blocks, 1536 wide, 12 heads of 128, FFN 4 x 1536, umT5 text dim 4096;
-   1.16B parameters; at ``WAN_CUT_BLOCKS`` (10) blocks in a run of every
-   phase) on its published 480p clip, 832 x 480 x 81 frames (21 x
+   1.16B parameters; at ``WAN_CUT_BLOCKS`` (5; 10 before phases 36-38) blocks in a
+   run of every phase) on its published 480p clip, 832 x 480 x 81 frames (21 x
    60 x 104 latents, 32,760 tokens).  Deletes phase 22's files; checks
    ``wan_step_flops`` against ``torch.utils.flop_counter`` on two small
    configs; writes with the port's writer a seeded diffusers transformer
@@ -273,8 +278,8 @@ exits non-zero with no result line):
    peak GiB and the captured launches (16 / 8 / 8).
 24. ltx: LTX-Video 0.9.5 2B as the JAX preset builds it (``LTXConfig()``: 28
    blocks, 2048 wide, 32 heads of 64, FFN 4 x 2048, T5-XXL captions at 128
-   tokens; 1.92B parameters; at ``LTX_CUT_BLOCKS`` (10) blocks in a run of
-   every phase) on 768 x 512 x 121 clips (sides multiples of
+   tokens; 1.92B parameters; at ``LTX_CUT_BLOCKS`` (5; 10 before phases 36-38)
+   blocks in a run of every phase) on 768 x 512 x 121 clips (sides multiples of
    32, 8n + 1 frames; 16 x 16 x 24 latents of 128 channels, 6,144 tokens with
    the (1, 1, 1) patch).  Deletes phase 23's files; checks ``ltx_step_flops``
    against ``torch.utils.flop_counter`` on two small configs (one per-frame);
@@ -353,10 +358,11 @@ exits non-zero with no result line):
    width (ai-forever/Kandinsky-5.0-T2V-Lite-sft-5s and T2I-Lite's
    ``transformer/``, ``Kandinsky5Config()``: 32 visual and 2 text blocks, 2048
    wide, 32 heads of 64, FFN 5120, 4 latent channels; 2.15B parameters), at
-   ``K5_CUT_BLOCKS`` (16) of its 32 visual blocks in a run of every phase.
+   ``K5_CUT_BLOCKS`` (6 since phases 36-38; 16 before) of its 32 visual blocks in a
+   run of every phase.
    Deletes phase 26's files; checks ``kandinsky5_step_flops`` against the flop
-   counter on two small configs; writes a seeded e4m3 transformer (1.12 GB at
-   16 blocks, both flavours' file), the seeded Qwen2.5-VL-7B text trunk (``qwen_trunk``:
+   counter on two small configs; writes a seeded e4m3 transformer (0.48 GB at
+   6 blocks, both flavours' file), the seeded Qwen2.5-VL-7B text trunk (``qwen_trunk``:
    e4m3, full width, ``QWEN_FILE_LAYERS`` (2) of its 28 layers in a run of
    every phase, a Qwen2.5-VL ``config.json`` with the text sizes at the top
    level, written once a run and linked by phases 28-29), a seeded 4-channel SD
@@ -538,15 +544,64 @@ exits non-zero with no result line):
    flop counter; writes a seeded e4m3 checkpoint at ``ZL_FILE_BLOCKS`` (3:
    1 in, the mid, 1 out) of 29 and imports it (bitwise); builds a seeded
    Gemma-2 2B at 2 of its 26 layers in memory with a word-level tokenizer
-   and encodes 16 prompts at 256 tokens (prompts/s); builds all 29 blocks in
-   memory: one forward against the plain attention over 4,096 image and 256
+   and encodes 16 prompts at 256 tokens (prompts/s); builds blocks in memory
+   (all 29 in a run that names the phase, ``ZL_MEMORY_BLOCKS`` (5: 2 in, the
+   mid, 2 out) in a run of every phase): one forward against the plain
+   attention over 4,096 image and 256
    masked text tokens (query segment ids 1, key ids the text mask), the flow
    Euler loop without a decode (no VAE of either package decodes FLUX.2's 32
    channels: ROADMAP Queue 3), and ``build_train_step`` graphed on seeded
    32-channel latents (normalized by the FLUX.2 statistics): 6 replays held
    to the eager steps, s/step, MFU, peak GiB and the profiled replay's
-   launches; last, the run's writes against ``RUN_WRITE_LIMIT_GB`` less
-   ``RUN_WRITE_MARGIN_GB``.
+   launches.
+36. krea2: Krea-2 at the JAX preset's full width (krea/krea-2's
+   ``transformer/``, ``Krea2Config()``: 6144 wide, 48 query and 12 key/value
+   heads of 128 with sigmoid output gates, SwiGLU 16,384, 28 blocks, a
+   2560-wide text fusion of 2 layerwise and 2 refiner blocks over 12 taps;
+   12.82B parameters).  Checks ``krea2_flops`` against the flop counter;
+   writes a seeded e4m3 checkpoint at ``K2_FILE_BLOCKS`` (1) of its 28 blocks
+   with the four fusion blocks, links phase 29's 2560-wide qwen2 trunk (written
+   here in a run without phase 29) and phase 14's Flux VAE, writes a
+   word-level tokenizer; encodes 16 prompts at 512 tokens (prompts/s, bf16
+   against f32) and a caption through ``Krea2.encode_text`` (12 taps spread
+   over the trunk's 3 states); imports the transformer (bitwise); a 1024 px
+   true-CFG render (unmasked, as in JAX); one forward with the caption mask
+   as key ids against the plain attention, and the layerwise attention's plain
+   version timed beside the kernel; ``Trainer.run()`` on an int8 base, every
+   block checkpointed, rank 16: 6 graphed steps; the edit step
+   (``krea2_reference_latents``: 4,096 reference tokens more, 8,704 joint)
+   through ``build_train_step``; in a run that names it, all 28 blocks built
+   in memory (12.8 GB of int8) and their graphed step timed.
+37. cosmos: Cosmos-Predict2 2B at the JAX preset's full width
+   (nvidia/Cosmos-Predict2-2B-Text2Image's ``transformer/``,
+   ``Cosmos1Config.predict2_2b()``: 2048 wide, 16 heads of 128, 28 blocks,
+   AdaLN-LoRA 256; 1.96B parameters) at ``CO_FILE_BLOCKS`` (4).  Deletes phase
+   36's files; checks ``cosmos_flops``; writes a seeded e4m3 checkpoint and a
+   seeded T5-11B encoder (1024 wide, 128 heads of 128, relu FFN 65,536) at
+   ``T5_11B_LAYERS`` (1) of its 24 blocks, links phase 15's T5 tokenizer (in
+   ``tokenizer_2``, where the T5 spec reads it) and phase 14's Flux VAE;
+   encodes 16 prompts at 512 tokens (the states past the mask zeroed);
+   imports (bitwise); a 1024 px true-CFG render down the EDM Euler ladder
+   (Karras rho 7 from 80 to 0.002, x0 predictions); one forward against the
+   plain attention; ``Trainer.run()`` on an int8 base: 6 graphed EDM steps
+   (log-normal sigma drawn through ``erfinv`` inside the graph, the (sigma^2 +
+   1) / sigma^2 weighted x0 loss); then the 14B width (40 heads of 128) at
+   ``CO14B_BLOCKS`` (2) of its 36 blocks in memory: a forward against the
+   plain attention and its graphed step.
+38. anima: Anima at the JAX preset's full width (circulus/anima's
+   ``transformer/``, ``AnimaConfig()``: the 6-layer, 1024-wide LLM adapter
+   over 32,128 T5 ids on the 2B Cosmos core; 2.09B parameters), the whole
+   adapter and ``AN_FILE_BLOCKS`` (4) of the core's 28 blocks.  Deletes phase
+   37's files; checks ``anima_flops``; writes a seeded e4m3 checkpoint and a
+   seeded Qwen3-0.6B trunk (1024 wide, in the qwen2 layout) at
+   ``QWEN3_06B_LAYERS`` (2) of its 28 layers, one word-level tokenizer in
+   ``tokenizer/`` that both the Qwen encoder and the T5 ids read (as in the
+   JAX package), links phase 14's Flux VAE; encodes 16 prompts at 256 tokens
+   and a caption's 64 T5 ids; imports (bitwise); a 1024 px true-CFG flow
+   render; one forward against the plain attention (the adapter's attentions
+   run the plain version, timed beside the kernel); ``Trainer.run()`` on an
+   int8 base: 6 graphed steps; last, the run's writes against
+   ``RUN_WRITE_LIMIT_GB`` less ``RUN_WRITE_MARGIN_GB``.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
 their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-32.
@@ -590,7 +645,14 @@ flavour's (1, 24, 8656, 128), unmasked; ``ZO_KERNEL_CASES``: the joint
 all 1, the noise refiner's 4,096 and the context refiner's 512 tokens,
 unmasked; ``ZL_KERNEL_CASES``: the joint (1, 28, 4352, 72) with query ids 1
 and key ids the text mask (180 of 256 valid), the connector's 256 tokens
-unmasked), held at 2 heads; at the long shapes the plain
+unmasked), held at 2 heads, and Krea-2's and Cosmos's (``K2_KERNEL_CASES``:
+the joint (1, 48, 4608, 128) and the edit's (1, 48, 8704, 128), K and V
+repeated from a quarter of the heads as ``jnp.repeat`` does, query ids 1 and
+the text mask (300 of 512 valid) as key ids, held at 4 heads over one
+key/value head; the refiner's (1, 20, 512, 128), masked alike;
+``CO_KERNEL_CASES``: the 2B's self-attention (1, 16, 4096, 128) and its cross
+against 512 T5 keys, the 14B's at 40 heads, unmasked, held at 2 heads;
+Anima's core has the 2B's shapes); at the long shapes the plain
 version is timed once, one head at a time, with no warm-up run (the first
 head warms it); phases 3 and 7 print the seconds of each of
 their sections (``section_s``).  Every phase
@@ -602,15 +664,21 @@ at 3-5 GB/s, their bytes cast on the card): phases 3 and 7 about 115 s, phase 12
 about 100 s, phases 17-18 about 180 s, phases 19-24 about 180 s, phases 25-26 about
 30 s, phases 27-28 about 75 s, phases 29-30 about 35 s; phases 31-32 add about 60 s
 and their kernel cases about 3 s, phases 33-35 about 60 s and theirs about 8 s (phases 1-35:
-893 s, 44.79 GB; PERF.md §7 holds the whole run's seconds and GB).
+893 s, 44.79 GB).  To make room for phases 36-38, a run of every
+phase checks and times fewer phase-12 steps (``GRAPH_CHECK_STEPS`` and the
+timed counts), times the long kernel cases with fewer runs, and cuts SDXL's
+level 2 to 2 of its 10 transformer layers (``SDXL_CUT_LAYERS``), Wan and LTX
+to 5 blocks, Kandinsky 5.0 to 6 of its 32 visual blocks and Zlab-i1 to 5 of
+its 29 blocks in memory; PERF.md §7 holds the whole run's seconds and GB.
 Then a JSON line with the kernels, each wrapper's head dim 256 instances,
 its Chroma row (the Flux shape's times) and its rows at Wan's, LTX's,
 Lumina2's, Kandinsky 5.0's, HunyuanVideo's, Qwen-Image's, Z-Image's,
-HiDream's, FLUX.2's, Kolors's, LongCat-Image's, Z-Image-Omni's and Zlab-i1's
-shapes beside it (launches: the profiler's count in phase 12's profiled
-replay, for the head dim 256 rows in phase 22's, for the Chroma rows in phase
-25's, and for the other rows the wrappers' count at that shape per step in
-phase 23's, 24's and 26's-35's runs, per forward for Z-Image-Omni's omni shape),
+HiDream's, FLUX.2's, Kolors's, LongCat-Image's, Z-Image-Omni's, Zlab-i1's,
+Krea-2's and Cosmos's shapes beside it, and Anima's rows at Cosmos's shapes
+(launches: the profiler's count in phase 12's profiled replay, for the head
+dim 256 rows in phase 22's, for the Chroma rows in phase 25's, and for the
+other rows the wrappers' count at that shape per step in phase 23's, 24's and
+26's-38's runs, per forward for Z-Image-Omni's omni shape),
 and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
 register, spill and warning lines per kernel (a C7514 warning means ptxas
@@ -657,9 +725,10 @@ TRAIN_GRAD_REL_L2 = 5e-2
 PARITY_DOUBLE, PARITY_SINGLE = 2, 4
 # phase 12: steps held bitwise against the eager step, and the eager steps and
 # graph replays timed (the replays are the flagship's number: their median;
-# 20 replays spread by 0.1% on the card, so 10 give the same median; the eager step
-# is a yardstick, and 6 keep the script's time in its limit)
-GRAPH_CHECK_STEPS, GRAPH_EAGER_TIMED_STEPS, GRAPH_TIMED_STEPS = 5, 6, 10
+# 20 replays spread by 0.1% on the card, so 5 give the same median; the eager step
+# is a yardstick; 2 checked, 3 eager and 5 replays timed keep the script's time
+# in its limit, 5, 6 and 10 before phases 36-38)
+GRAPH_CHECK_STEPS, GRAPH_EAGER_TIMED_STEPS, GRAPH_TIMED_STEPS = 2, 3, 5
 # H100 SXM: dense bf16 tensor-core peak and device-memory rate (bounds only)
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 # phase 14: the cut depth of the two-layout Flux checkpoints (full width); the
@@ -798,7 +867,7 @@ WAN_RENDER_SIZE, WAN_GUIDANCE = 480, 5.0
 WAN_PARITY_FRAMES, WAN_SIGMA = 17, 0.7
 WAN14B_BLOCKS = 4
 WAN_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
-PHASE23_WRITE_GB = 0.6  # at the cut depth (WAN_CUT_BLOCKS)
+PHASE23_WRITE_GB = 0.35  # at the cut depth (WAN_CUT_BLOCKS): 0.29 GB measured
 # phases 3 and 7 at Wan's attention shapes: (name, heads, query tokens, key
 # tokens, head dim): the 1.3B's self-attention (12 heads of 128 over 32,760
 # tokens, the ragged tail masked), its cross-attention (the same queries
@@ -833,7 +902,7 @@ LTX_RENDER_SIZE, LTX_GUIDANCE = 512, 4.0
 LTX_SIGMA = 0.7
 LTX13B_BLOCKS = 4
 LTX_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
-PHASE24_WRITE_GB = 0.9  # at the cut depth (LTX_CUT_BLOCKS)
+PHASE24_WRITE_GB = 0.5  # at the cut depth (LTX_CUT_BLOCKS): 0.45 GB measured
 # phases 3 and 7 at LTX's attention shapes, as WAN_KERNEL_CASES: the 2B's
 # self-attention (32 heads of 64 over 6,144 tokens: full tiles, the unmasked
 # fast path), its cross-attention (the same queries against the 128 T5 keys:
@@ -923,7 +992,7 @@ K5_LATENT = ((K5_FRAMES - 1) // 4 + 1, K5_HEIGHT // 8, K5_WIDTH // 8)
 K5_TOKENS = K5_LATENT[0] * (K5_LATENT[1] // 2) * (K5_LATENT[2] // 2)
 K5_CLIPS, K5_RENDER_SIZE, K5_PARITY_FRAMES, K5_SIGMA = 2, 512, 17, 0.7
 QWEN_FILE_LAYERS = 2
-PHASE27_WRITE_GB = 2.75  # at the cut depths (K5_CUT_BLOCKS, QWEN_FILE_LAYERS): 2.65 GB measured
+PHASE27_WRITE_GB = 1.95  # at the cut depths (K5_CUT_BLOCKS, QWEN_FILE_LAYERS): 1.84 GB measured
 # phases 3 and 7 at Kandinsky 5.0's attention shapes (D = 64, unmasked: the
 # JAX family drops the Qwen mask): the video flavour's self-attention over
 # 24,576 tokens (192 full tiles) and its cross-attention against the 512 Qwen
@@ -1117,14 +1186,84 @@ ZL_KERNEL_CASES = (
     ("zl_connector", 28, ZL_TEXT, ZL_TEXT, 72),
 )
 ZL_CHECK_HEADS = 2
+# phase 36: Krea-2 (krea/krea-2's transformer/ as the JAX preset Krea2Config()
+# builds it: 6144 wide, 48 query and 12 key/value heads of 128, 28 blocks, a
+# 2560-wide text fusion of 2 layerwise and 2 refiner blocks over 12 taps;
+# 12.82B parameters), its checkpoint written at K2_FILE_BLOCKS of 28 with the
+# four fusion blocks, phase 29's 2560-wide qwen2 trunk linked, at 1024 px:
+# 4,096 image tokens after 512 text tokens (K2_VALID valid in the kernel
+# cases) in the joint attention (K/V repeated from 12 to 48 heads, query ids
+# 1, key ids the text mask), the edit's 4,096 reference tokens more, and the
+# refiners' 512 masked text tokens; all 28 blocks in memory in a named run
+K2_PROMPT = "a lighthouse on a basalt cliff at dusk"
+K2_TEXT, K2_VALID = 512, 300
+K2_JOINT = K2_TEXT + LC_IMG
+K2_EDIT_JOINT = K2_TEXT + 2 * LC_IMG
+K2_GUIDANCE = 4.5
+K2_SIGMA = 0.7
+K2_TRAIN_STEPS, K2_TRAIN_IMAGES = 6, 4
+K2_FILE_BLOCKS = 1
+PHASE36_WRITE_GB = 1.45  # 1.39 GB measured: the 1.10 GB file and the 12-tap text cache
+K2_KERNEL_CASES = (
+    ("k2_joint", 48, K2_JOINT, K2_JOINT, 128, "k2_joint"),
+    ("k2_edit_joint", 48, K2_EDIT_JOINT, K2_EDIT_JOINT, 128, "k2_joint"),
+    ("k2_refiner", 20, K2_TEXT, K2_TEXT, 128, "k2_refiner"),
+)
+K2_CHECK_HEADS = 4  # one key/value head repeated to four query heads
+# the layerwise fusion attention: each of the 512 text tokens a sequence of its
+# 12 taps (20 heads of 128, unmasked); forward only on the path (the text stage
+# has no adapter and takes no gradient), so phase 3 alone holds it
+K2_FUSION_CASES = (("k2_layerwise", 20, 12, 12, 128, None, K2_TEXT),)
+# phase 37: Cosmos-Predict2 2B (nvidia/Cosmos-Predict2-2B-Text2Image's
+# transformer/ as the JAX preset Cosmos1Config.predict2_2b() builds it: 2048
+# wide, 16 heads of 128, 28 blocks; 1.96B parameters), its checkpoint at
+# CO_FILE_BLOCKS of 28, a T5-11B encoder (1024 wide, 128 heads of 128, relu
+# FFN 65,536) at T5_11B_LAYERS of its 24 blocks, at 1024 px: 4,096 image
+# tokens in the self-attention and against 512 T5 keys (unmasked), and the
+# 14B width (40 heads of 128) at CO14B_BLOCKS of 36 in memory
+CO_PROMPT = "a lighthouse on a basalt cliff at dusk"
+CO_TEXT = 512
+CO_GUIDANCE = 7.0
+CO_SIGMA = 1.5  # an EDM sigma
+CO_TRAIN_STEPS, CO_TRAIN_IMAGES = 6, 4
+CO_FILE_BLOCKS, T5_11B_LAYERS, CO14B_BLOCKS = 4, 1, 2
+PHASE37_WRITE_GB = 0.65  # 0.60 GB measured: 0.30 GB the transformer, 0.23 GB T5
+CO_KERNEL_CASES = (
+    ("co_self", 16, LC_IMG, LC_IMG, 128),
+    ("co_cross", 16, LC_IMG, CO_TEXT, 128),
+    ("co14b_self", 40, LC_IMG, LC_IMG, 128),
+    ("co14b_cross", 40, LC_IMG, CO_TEXT, 128),
+)
+CO_CHECK_HEADS = 2
+# phase 38: Anima (circulus/anima's transformer/ as the JAX preset
+# AnimaConfig() builds it: the 6-layer, 1024-wide LLM adapter over 32,128 T5
+# ids on the 2B Cosmos core; 2.09B parameters), its checkpoint at the full
+# adapter and AN_FILE_BLOCKS of the core's 28, a Qwen3-0.6B trunk (1024
+# wide, in the qwen2 layout) at QWEN3_06B_LAYERS of its 28 layers: the core's
+# shapes are Cosmos's (its context the adapter's 64 tokens padded to 512);
+# the adapter's attentions run the plain version
+AN_PROMPT = "a lighthouse on a basalt cliff at dusk"
+AN_TEXT, AN_T5 = 256, 64
+AN_GUIDANCE = 4.0
+AN_SIGMA = 0.7
+AN_TRAIN_STEPS, AN_TRAIN_IMAGES = 6, 4
+AN_FILE_BLOCKS, QWEN3_06B_LAYERS = 4, 2
+PHASE38_WRITE_GB = 0.75  # 0.68 GB measured: 0.43 GB the transformer, 0.19 GB the trunk
+# the LLM adapter's attentions (16 heads of 64): self over the 64 T5 ids and
+# cross into the 256 Qwen states, unmasked; forward only on the path (the
+# adapter has no LoRA and its inputs take no gradient), so phase 3 alone holds them
+AN_ADAPTER_CASES = (("an_self", 16, AN_T5, AN_T5, 64), ("an_cross", 16, AN_T5, AN_TEXT, 64))
 # the depth of the earlier families' seeded files in a run of every phase
 # (full width; the kernels' shapes depend on width and tokens, not depth),
 # cut to make room for phases 25-32 in the write budget: SD3.5 Large at 2 of
 # its 38 blocks (6 before phases 31-32), AuraFlow v0.3 at 2 + 4 of its 4 + 32,
-# Wan 2.1 T2V-1.3B at 10 of 30, LTX-Video 2B at 10 of 28, Chroma at 1 + 2 of
+# Wan 2.1 T2V-1.3B at 5 of 30, LTX-Video 2B at 5 of 28 (10 and 10 before
+# phases 36-38), Chroma at 1 + 2 of
 # its 19 + 38 (2 + 4 before phases 31-32; its kernel shapes are Flux's),
 # Gemma-2 2B at GEMMA_FILE_LAYERS of 26, Kandinsky 5.0
-# Lite at 16 of its 32 visual blocks (room and time for phases 29-30),
+# Lite at 6 of its 32 visual blocks (16 before phases 36-38), SDXL's level 2 at
+# 2 of its 10 transformer layers (since phases 36-38), Zlab-i1 at 5 of its 29
+# blocks in memory (all 29 before),
 # HunyuanVideo 1.5 at 6 of 54, Qwen-Image at 2 of 60 and HiDream-I1 at 1 + 1
 # of its 16 + 32 (4 and 2 + 2 before phases 31-32 needed the room), FLUX.2 at
 # 1 + 1 of its 8 + 48, Lumina-Image 2.0 at 6 of its 26 joint blocks and
@@ -1134,10 +1273,12 @@ ZL_CHECK_HEADS = 2
 # writes it at full depth where its writes leave room
 SD3_CUT_BLOCKS = 2
 AURA_CUT_BLOCKS = (2, 4)
-WAN_CUT_BLOCKS = 10
-LTX_CUT_BLOCKS = 10
+WAN_CUT_BLOCKS = 5
+LTX_CUT_BLOCKS = 5
 CHROMA_CUT_BLOCKS = (1, 2)
-K5_CUT_BLOCKS = 16
+K5_CUT_BLOCKS = 6
+SDXL_CUT_LAYERS = (1, 2, 2)
+ZL_MEMORY_BLOCKS = 5
 HY_CUT_BLOCKS = 6
 QI_CUT_BLOCKS = 2
 HD_CUT_BLOCKS = (1, 1)
@@ -1162,18 +1303,19 @@ _STARTED = time.perf_counter()
 # what each family phase writes at its depth in a run of every phase (a little above
 # what a run of every phase writes), for the reservations each of phases 19-32
 # makes for the later phases of the run
-PHASE_WRITE_GB = {19: 1.5, 20: 3.2, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB, 23: PHASE23_WRITE_GB,
+PHASE_WRITE_GB = {19: 1.5, 20: 1.3, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB, 23: PHASE23_WRITE_GB,
                   24: PHASE24_WRITE_GB, 25: PHASE25_WRITE_GB, 26: PHASE26_WRITE_GB, 27: PHASE27_WRITE_GB,
                   28: PHASE28_WRITE_GB, 29: PHASE29_WRITE_GB, 30: PHASE30_WRITE_GB, 31: PHASE31_WRITE_GB,
-                  32: PHASE32_WRITE_GB, 33: PHASE33_WRITE_GB, 34: PHASE34_WRITE_GB, 35: PHASE35_WRITE_GB}
+                  32: PHASE32_WRITE_GB, 33: PHASE33_WRITE_GB, 34: PHASE34_WRITE_GB, 35: PHASE35_WRITE_GB,
+                  36: PHASE36_WRITE_GB, 37: PHASE37_WRITE_GB, 38: PHASE38_WRITE_GB}
 # the phases whose files (or, for 5 and 6, whose runtime) a phase needs before
 # it; 1, 2, 3 and 7 run in every run (the build, and the kernels line's times)
 PHASE_NEEDS = {4: (14, 15, 16), 5: (4,), 6: (5,), 15: (14,), 16: (14,), 17: (14, 15, 16), 18: (17,),
                19: (14, 15, 16), 20: (19,), 21: (20,), 22: (20,), 23: (15, 16), 24: (15, 16), 25: (14, 15, 16),
                26: (14, 16), 27: (14, 15, 16), 28: (14, 15), 29: (14, 16), 30: (14, 15, 16, 19), 31: (),
-               32: (14, 16), 33: (14, 16), 34: (14, 16), 35: ()}
+               32: (14, 16), 33: (14, 16), 34: (14, 16), 35: (), 36: (14, 16), 37: (14, 15, 16), 38: (14, 16)}
 ALWAYS = (1, 2, 3, 7)
-LAST_PHASE = 35
+LAST_PHASE = 38
 # the phases named on the command line (None: every phase) and those the run takes
 RUN = {"requested": None, "phases": set(range(1, LAST_PHASE + 1))}
 
@@ -1508,6 +1650,10 @@ def kernel_cases():
     marks.append(("z_image_omni", time.perf_counter()))
     times["zlab_i1"], zl_entries = long_forward_cases(ZL_KERNEL_CASES, ZL_CHECK_HEADS, 1140, errors)
     marks.append(("zlab_i1", time.perf_counter()))
+    times["krea2"], k2_entries = long_forward_cases(K2_KERNEL_CASES + K2_FUSION_CASES, K2_CHECK_HEADS, 1180, errors)
+    marks.append(("krea2", time.perf_counter()))
+    times["cosmos"], co_entries = long_forward_cases(CO_KERNEL_CASES + AN_ADAPTER_CASES, CO_CHECK_HEADS, 1220, errors)
+    marks.append(("cosmos", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
@@ -1521,7 +1667,7 @@ def kernel_cases():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_masked_ms,
             "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}, fwd256_entry, \
         {**wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries, **hd_entries,
-         **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries}
+         **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries, **k2_entries, **co_entries}
 
 
 def backward_cases():
@@ -1659,6 +1805,10 @@ def backward_cases():
     marks.append(("z_image_omni", time.perf_counter()))
     times["zlab_i1"], zl_entries = long_backward_cases(ZL_KERNEL_CASES, ZL_CHECK_HEADS, 1160, errors)
     marks.append(("zlab_i1", time.perf_counter()))
+    times["krea2"], k2_entries = long_backward_cases(K2_KERNEL_CASES, K2_CHECK_HEADS, 1200, errors)
+    marks.append(("krea2", time.perf_counter()))
+    times["cosmos"], co_entries = long_backward_cases(CO_KERNEL_CASES, CO_CHECK_HEADS, 1240, errors)
+    marks.append(("cosmos", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
@@ -1671,7 +1821,8 @@ def backward_cases():
                                 "bound_by": bounds[(kernel, "masked")][1], **library}
         for kernel in ("dq", "dkv")
     }, **d256_entries, **wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries,
-        **hd_entries, **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries}
+        **hd_entries, **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries, **k2_entries,
+        **co_entries}
 
 
 def _ddpm_inputs(seed, heads, sq, sk, dim, n):
@@ -1914,7 +2065,7 @@ def d256_backward_cases(check, errors: dict) -> tuple:
 
 
 
-def _long_inputs(seed, heads, sq, sk, dim, n):
+def _long_inputs(seed, heads, sq, sk, dim, n, batch=1):
     """``_ddpm_inputs`` drawn on the card (a seeded CUDA generator): q (and
     dO when ``n`` is 4) over ``sq`` tokens, k and v over ``sk``, bf16 views of
     (B, S, H, D) memory; drawing Wan's 40-head tensors on the host would take
@@ -1924,7 +2075,8 @@ def _long_inputs(seed, heads, sq, sk, dim, n):
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def draw(length):
-        return torch.randn((1, length, heads, dim), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+        return torch.randn((batch, length, heads, dim), generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
 
     tensors = [draw(sq), draw(sk), draw(sk)]
     return tensors + [draw(sq)] if n == 4 else tensors
@@ -1974,15 +2126,34 @@ def _case_planes(sq: int, sk: int, plane):
     """A long case's (query, key) segment ids: ``_case_segments``'s plane on
     both sides, or for "zl_joint" Zlab-i1's joint call: every query at 1, the
     ``LC_IMG`` image keys and the first ``ZL_VALID`` text keys at 1 and the
-    other text keys at 0 (the text mask as the key ids)."""
+    other text keys at 0 (the text mask as the key ids); for "k2_joint" and
+    "k2_refiner" Krea-2's: every query at 1, the first ``K2_VALID`` of the
+    ``K2_TEXT`` text keys (first in the sequence) and every image key at 1,
+    the text pads at -1."""
     import torch
 
-    if plane != "zl_joint":
+    if plane not in ("zl_joint", "k2_joint", "k2_refiner"):
         seg = _case_segments(sq, plane)
         return seg, seg
     kv = torch.ones((1, sk), dtype=torch.int32, device="cuda")
-    kv[:, LC_IMG + ZL_VALID:] = 0
+    if plane == "zl_joint":
+        kv[:, LC_IMG + ZL_VALID:] = 0
+    else:
+        kv[:, K2_VALID:K2_TEXT] = -1
     return torch.ones((1, sq), dtype=torch.int32, device="cuda"), kv
+
+
+def _repeat_kv(plane, k, v):
+    """Krea-2's joint K and V (the "k2_joint" plane) as its attention hands
+    them over: a quarter of the heads (one head below four) repeated as
+    ``jnp.repeat`` does, head h reading head h // 4, in the (B, S, H, D)
+    memory layout; other planes' K and V as they are."""
+    if plane != "k2_joint":
+        return k, v
+    heads = k.shape[1]
+    kv_heads = max(heads // 4, 1)
+    return tuple(x.transpose(1, 2)[:, :, :kv_heads].repeat_interleave(heads // kv_heads, dim=2).transpose(1, 2)
+                 for x in (k, v))
 
 
 def _segment_pairs(q_seg, kv_seg, sq: int, sk: int) -> int:
@@ -2017,6 +2188,7 @@ def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tupl
     cases_out, entries = {}, {}
     for index, (name, heads, sq, sk, dim, *valid) in enumerate(cases):
         t0 = time.perf_counter()
+        batch = valid[1] if len(valid) > 1 else 1  # a case of many short sequences
         q_seg, kv_seg = _case_planes(sq, sk, valid[0] if valid else None)
         mask = None if q_seg is None else (q_seg[0][:, None] == kv_seg[0][None, :])[None, None]
 
@@ -2024,7 +2196,8 @@ def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tupl
             return mha_reference_lse(q, k, v, q_seg, kv_seg)
 
         checked = min(heads, check_heads)
-        q, k, v = _long_inputs(seed + 2 * index, checked, sq, sk, dim, 3)
+        q, k, v = _long_inputs(seed + 2 * index, checked, sq, sk, dim, 3, batch)
+        k, v = _repeat_kv(valid[0] if valid else None, k, v)
         out, lse = flash_attention(q, k, v, q_seg, kv_seg, return_lse=True)
         ref, ref_lse = _by_heads(plain, q, k, v)
         torch.cuda.synchronize()
@@ -2035,15 +2208,16 @@ def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tupl
                                f"lse err {lse_err} (<= {LSE_ATOL})")
         errors[name] = {"heads_checked": checked, "out": err, "out_bound": bound, "out_rel_l2": l2, "lse": lse_err}
         del q, k, v, out, lse, ref, ref_lse
-        q, k, v = _long_inputs(seed + 10 + 2 * index, heads, sq, sk, dim, 3)
-        backend, sdpa_ms = _sdpa_backend(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 10,
+        q, k, v = _long_inputs(seed + 10 + 2 * index, heads, sq, sk, dim, 3, batch)
+        k, v = _repeat_kv(valid[0] if valid else None, k, v)
+        backend, sdpa_ms = _sdpa_backend(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 5,
                                          fused_only=True)
-        nbytes = 2 * heads * (sq + sk) * dim * 2 + heads * sq * 4 + (0 if q_seg is None else (sq + sk) * 4)
-        pairs = _segment_pairs(q_seg, kv_seg, sq, sk)
+        nbytes = batch * (2 * heads * (sq + sk) * dim * 2 + heads * sq * 4) + (0 if q_seg is None else (sq + sk) * 4)
+        pairs = batch * _segment_pairs(q_seg, kv_seg, sq, sk)
         bound_ms, bound_by = _attention_bound_ms(2, pairs, heads, dim, nbytes)  # q, out; k, v; lse; ids
-        kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, q_seg, kv_seg), 10)
+        kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, q_seg, kv_seg), 5)
         plain_ms = cuda_ms(lambda: _by_heads(plain, q, k, v), 1, warmup=0)  # one head at a time: the first warms
-        cases_out[name] = {"shape": [1, heads, sq, sk, dim], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        cases_out[name] = {"shape": [batch, heads, sq, sk, dim], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                            "sdpa_ms": sdpa_ms, "sdpa_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by,
                            "share_of_bound": bound_ms / kernel_ms, "attended_pairs": pairs,
                            "segment_plane": valid[0] if valid else None, "seconds": time.perf_counter() - t0}
@@ -2051,7 +2225,7 @@ def long_forward_cases(cases, check_heads: int, seed: int, errors: dict) -> tupl
             "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": sdpa_ms, "library_call": f"scaled_dot_product_attention ({backend}"
                                                    f"{'' if q_seg is None else ', boolean attn_mask'})",
-            "shape": [1, heads, sq, sk, dim], "max_abs_err_heads": checked,
+            "shape": [batch, heads, sq, sk, dim], "max_abs_err_heads": checked,
             "plain_call": "mha_reference_lse, one head at a time"}
         del q, k, v, mask
         torch.cuda.empty_cache()
@@ -2084,6 +2258,7 @@ def long_backward_cases(cases, check_heads: int, seed: int, errors: dict) -> tup
 
         checked = min(heads, check_heads)
         q, k, v, do = _long_inputs(seed + 2 * index, checked, sq, sk, dim, 4)
+        k, v = _repeat_kv(valid[0] if valid else None, k, v)
         out, lse = flash_attention(q, k, v, q_seg, kv_seg, return_lse=True)
         grads = flash_backward(q, k, v, q_seg, kv_seg, out, lse, do, scale)
         refs = _by_heads(plain, q, k, v, out, lse, do)
@@ -2103,6 +2278,7 @@ def long_backward_cases(cases, check_heads: int, seed: int, errors: dict) -> tup
         torch.cuda.empty_cache()
 
         q, k, v, do = _long_inputs(seed + 10 + 2 * index, heads, sq, sk, dim, 4)
+        k, v = _repeat_kv(valid[0] if valid else None, k, v)
         out, lse = flash_attention(q, k, v, q_seg, kv_seg, return_lse=True)
         delta = (out.float() * do.float()).sum(dim=-1)
         q_act, k_act = heads * sq * dim * 2, heads * sk * dim * 2
@@ -2114,7 +2290,7 @@ def long_backward_cases(cases, check_heads: int, seed: int, errors: dict) -> tup
                  lambda: flash_bwd_dq_kernel(q, k, v, q_seg, kv_seg, lse, delta, do, scale)),
                 ("dkv", 4, 2 * q_act + 4 * k_act + stats,
                  lambda: flash_bwd_dkv_kernel(q, k, v, q_seg, kv_seg, lse, delta, do, scale))):
-            times[f"{kernel}_ms"] = cuda_ms(fn, 5)
+            times[f"{kernel}_ms"] = cuda_ms(fn, 3)
             times[f"bound_{kernel}_ms"], times[f"bound_{kernel}_by"] = _attention_bound_ms(
                 products, pairs, heads, dim, nbytes)
             times[f"{kernel}_share_of_bound"] = times[f"bound_{kernel}_ms"] / times[f"{kernel}_ms"]
@@ -2124,10 +2300,10 @@ def long_backward_cases(cases, check_heads: int, seed: int, errors: dict) -> tup
         def forward():
             return F.scaled_dot_product_attention(*leaves, attn_mask=mask)
 
-        backend, fwd_bwd_ms = _sdpa_backend(lambda: torch.autograd.grad(forward(), leaves, do), 5, fused_only=True)
+        backend, fwd_bwd_ms = _sdpa_backend(lambda: torch.autograd.grad(forward(), leaves, do), 3, fused_only=True)
         from torch.nn.attention import SDPBackend, sdpa_kernel
         with sdpa_kernel([getattr(SDPBackend, backend.upper())]):
-            times["sdpa_backward_ms"] = fwd_bwd_ms - cuda_ms(forward, 5)
+            times["sdpa_backward_ms"] = fwd_bwd_ms - cuda_ms(forward, 3)
         times["sdpa_backward_backend"] = backend
         times["seconds"] = time.perf_counter() - t0
         cases_out[name] = times
@@ -3059,8 +3235,10 @@ def sdxl_step_flops(arch, batch: int, height: int, width: int, txt: int) -> floa
     return batch * fwd * 3.0
 
 
-def sdxl_phase(paths: dict, kernels, device: str) -> None:
-    """Phase 20: SDXL at full width and depth as the JAX preset builds it: a
+def sdxl_phase(paths: dict, kernels, device: str, layers: tuple) -> None:
+    """Phase 20: SDXL at full width as the JAX preset builds it, ``layers``
+    the transformer depth of its three levels (``SDXL_CUT_LAYERS`` in a run of
+    every phase, the preset's (1, 2, 10) in a run that names it): a
     seeded diffusers UNet and a 4-channel VAE written with the port's writer
     beside hard links to phase 14's CLIP-L and tokenizer and phase 19's CLIP-G;
     the import held bitwise to the written tensors; a 1024 px render with true
@@ -3098,7 +3276,7 @@ def sdxl_phase(paths: dict, kernels, device: str) -> None:
     baseline_gib = torch.cuda.memory_allocated() / 2**30
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20)
-    arch = UNetConfig.sdxl()
+    arch = dataclasses.replace(UNetConfig.sdxl(), transformer_layers=layers)
     shapes = unet_checkpoint_shapes(arch)
     params = sum(math.prod(shape) for shape in shapes.values())
     # e4m3, which the importer takes to bf16 exactly; bf16 only in a run that
@@ -5567,10 +5745,12 @@ def write_llm_trunk(root: str, config, gen, hf_config: dict, extra: dict = None)
     return write_s
 
 
-# Z-Image's 2560-wide qwen2-layout trunk (the JAX family's qwen2.5 spec at
-# Qwen3-4B's sizes from its config.json): phase 29 writes it, phase 34 links it
-ZI_TRUNK_HF = {"architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3", "max_position_embeddings": 40960,
-               "hidden_act": "silu", "tie_word_embeddings": True}
+# the config.json keys of a Qwen3 text trunk written in the qwen2 layout (the
+# JAX specs read Qwen3 through qwen2.5 / qwen2.5-vl): Z-Image's and Krea-2's
+# 2560-wide trunk (Qwen3-4B's sizes; phase 29 writes it, phases 34 and 36 link
+# it) and Anima's Qwen3-0.6B (phase 38)
+QWEN3_HF = {"architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3", "max_position_embeddings": 40960,
+            "hidden_act": "silu", "tie_word_embeddings": True}
 
 
 def zi_trunk_config():
@@ -6289,10 +6469,10 @@ def _image_train_config(family: str, root, data: str, cache: str, out: str, step
 
 
 def _image_render(work: str, family: str, root: str, name: str, kernels, prompt: str, guidance: float,
-                  per_forward: int, shape_key: str) -> tuple:
-    """A 1024 px true-CFG flow Euler render through ``CheckpointInferenceRuntime``
-    (``_render_report``), every forward's ``per_forward`` flash launches at
-    ``shape_key``; returns the report and the runtime."""
+                  keys: dict) -> tuple:
+    """A 1024 px true-CFG render through ``CheckpointInferenceRuntime``
+    (``_render_report``) whose every forward launches the forward kernel
+    ``keys[shape]`` times at each shape; returns the report and the runtime."""
     import torch
 
     from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime
@@ -6308,8 +6488,8 @@ def _image_render(work: str, family: str, root: str, name: str, kernels, prompt:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     timed = _timed_render(runtime, kernels, prompt, guidance)
-    report = _render_report(timed, per_forward, guidance, init_s)
-    if timed["launches_by_shape"]["flash_fwd"] != {shape_key: 2 * STEPS * per_forward}:
+    report = _render_report(timed, sum(keys.values()), guidance, init_s)
+    if timed["launches_by_shape"]["flash_fwd"] != {key: 2 * STEPS * n for key, n in keys.items()}:
         raise RuntimeError(f"{family} render: launches by shape {timed['launches_by_shape']}")
     return report, runtime
 
@@ -6441,8 +6621,8 @@ def qwen_image_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     # (e) the render and (f) the parity forward, the Qwen tokens unmasked
     joint = QI_IMG + QI_TEXT
     joint_key = f"24x{joint}x{joint}x128"
-    render, runtime = _image_render(work, "qwen_image", qi_dir, "qi", kernels, QI_PROMPT, QI_GUIDANCE, depth,
-                                    joint_key)
+    render, runtime = _image_render(work, "qwen_image", qi_dir, "qi", kernels, QI_PROMPT, QI_GUIDANCE,
+                                    {joint_key: depth})
     module, model = runtime.module, runtime.model
     if model.arch != arch or model.NAME != "qwen_image" or not model.is_flow:
         raise RuntimeError(f"qwen_image: the runtime built {model.NAME} {model.arch}")
@@ -6494,7 +6674,7 @@ def qwen_image_phase(paths: dict, kernels, device: str, depth: int) -> dict:
         raise RuntimeError(f"z_image: the family builds {zmodel.arch}, not {zarch}")
     z_dir = os.path.join(work, "z_image")
     trunk = zi_trunk_config()
-    trunk_write_s = write_llm_trunk(os.path.join(z_dir, "text_encoder"), trunk, gen, ZI_TRUNK_HF)
+    trunk_write_s = write_llm_trunk(os.path.join(z_dir, "text_encoder"), trunk, gen, QWEN3_HF)
     paths["zi_trunk"] = os.path.join(z_dir, "text_encoder")  # phase 34 links it
     write_gemma_tokenizer(os.path.join(z_dir, "tokenizer"), words)
     _link_tree(os.path.join(flux_dir, "vae"), os.path.join(z_dir, "vae"))
@@ -6651,8 +6831,8 @@ def hidream_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
     # (e) the render and (f) the parity forward
     joint_key = f"20x{HD_JOINT}x{HD_JOINT}x128"
     per_forward = depth[0] + depth[1]
-    render, runtime = _image_render(work, "hidream", hd_dir, "hd", kernels, HD_PROMPT, HD_GUIDANCE, per_forward,
-                                    joint_key)
+    render, runtime = _image_render(work, "hidream", hd_dir, "hd", kernels, HD_PROMPT, HD_GUIDANCE,
+                                    {joint_key: per_forward})
     module, model = runtime.module, runtime.model
     if model.arch != arch or model.NAME != "hidream" or not model.is_flow:
         raise RuntimeError(f"hidream: the runtime built {model.NAME} {model.arch}")
@@ -7486,8 +7666,8 @@ def longcat_image_phase(paths: dict, kernels, device: str, depth: tuple) -> dict
     # (e) the true-CFG render at the sliding ids and (f) the parity forward
     per_forward = depth[0] + depth[1]
     joint_key = f"24x{LC_JOINT}x{LC_JOINT}x128"
-    render, runtime = _image_render(work, "longcat_image", lc_dir, "lc", kernels, LC_PROMPT, LC_GUIDANCE, per_forward,
-                                    joint_key)
+    render, runtime = _image_render(work, "longcat_image", lc_dir, "lc", kernels, LC_PROMPT, LC_GUIDANCE,
+                                    {joint_key: per_forward})
     module, model = runtime.module, runtime.model
     if model.arch != arch or model.NAME != "longcat_image" or not model.is_flow or model.arch.guidance_embed:
         raise RuntimeError(f"longcat_image: the runtime built {model.NAME} {model.arch}")
@@ -7634,7 +7814,7 @@ def z_image_omni_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
         trunk_files = {"written_by_phase": 29, "layers": [ZI_TRUNK_LAYERS, 36]}
     else:
         trunk_files = {"written_by_phase": 34, "layers": [ZI_TRUNK_LAYERS, 36], "write_s": write_llm_trunk(
-            os.path.join(zo_dir, "text_encoder"), trunk, gen, ZI_TRUNK_HF)}
+            os.path.join(zo_dir, "text_encoder"), trunk, gen, QWEN3_HF)}
     _link_tree(os.path.join(flux_dir, "vae"), os.path.join(zo_dir, "vae"))
     prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
     write_gemma_tokenizer(os.path.join(zo_dir, "tokenizer"), " ".join(TRAIN_CAPTIONS + [ZO_PROMPT] + prompts).split())
@@ -7777,18 +7957,19 @@ def z_image_omni_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
     return out
 
 
-def zlab_i1_phase(paths: dict, kernels, device: str) -> dict:
+def zlab_i1_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     """Phase 35: Zlab-i1 at the JAX preset's full width: a seeded e4m3
     checkpoint at ``ZL_FILE_BLOCKS`` of its 29 blocks (norm scales drawn
     about 1) imported bitwise; a seeded Gemma-2 2B at ``GEMMA_ZL_LAYERS`` of
     its 26 layers in memory with a word-level tokenizer: 16 prompts at 256
-    tokens (prompts/s, bf16 against f32); all 29 blocks built in memory: one
-    forward against the plain attention (the text masked as key ids), the
+    tokens (prompts/s, bf16 against f32); ``depth`` of the 29 blocks built in
+    memory (``ZL_MEMORY_BLOCKS`` in a run of every phase, all 29 in a run
+    that names the phase): one forward against the plain attention (the text masked as key ids), the
     flow Euler loop without a decode (no VAE of either package decodes
     FLUX.2's 32 channels), and ``build_train_step`` graphed on seeded
     32-channel latents (the FLUX.2 statistics normalize them): the replays
     held to the eager steps, s/step, MFU, peak GiB, the profiled replay's
-    launches.  Last, the run's writes against its limit.  Returns the
+    launches.  Returns the
     launches per step of each kernel at the joint and connector shapes."""
     import gc
 
@@ -7807,7 +7988,7 @@ def zlab_i1_phase(paths: dict, kernels, device: str) -> dict:
 
     start = time.perf_counter()
     work = paths["work"]
-    for out in ("z_image_omni", "zo_data", "zo_train", "zo_render", "z_image"):  # phases 29's and 34's: disk space
+    for out in ("z_image_omni", "zo_data", "zo_train", "zo_render"):  # phase 34's: disk space
         shutil.rmtree(os.path.join(work, out), ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7870,8 +8051,9 @@ def zlab_i1_phase(paths: dict, kernels, device: str) -> dict:
     text = {**_llm_text_report(spec, None, gemma, ZL_TEXT, prompts, encoder=encoder),
             "layers": [GEMMA_ZL_LAYERS, gemma_full.num_layers], "built_in_memory_s": build_s}
 
-    # (d) all 29 blocks in memory: a forward against the plain attention and the Euler loop
-    model = ZlabI1(config_namespace(_graph_train_values("zlab_i1", ZL_TRAIN_STEPS)), arch=full)
+    # (d) ``depth`` blocks in memory: a forward against the plain attention and the Euler loop
+    mem = dataclasses.replace(full, depth=depth)
+    model = ZlabI1(config_namespace(_graph_train_values("zlab_i1", ZL_TRAIN_STEPS)), arch=mem)
     model.attach_text_encoders([encoder])
     latent = RESOLUTION // 8
     batch = _text_batch(model, ZL_PROMPT, (1, latent, latent, 32), dev)
@@ -7887,7 +8069,7 @@ def zlab_i1_phase(paths: dict, kernels, device: str) -> dict:
         module = init_parameters(model.create_module(), torch.Generator(device=dev).manual_seed(42))
     joint_key, connector_key = f"28x{ZL_JOINT}x{ZL_JOINT}x72", f"28x{ZL_TEXT}x{ZL_TEXT}x72"
     launches = _forward_launches(model, module, batch, kernels, ZL_SIGMA)
-    if launches["flash_fwd"] != {joint_key: full.depth, connector_key: 2}:
+    if launches["flash_fwd"] != {joint_key: mem.depth, connector_key: 2}:
         raise RuntimeError(f"zlab_i1 forward: launches by shape {launches}")
     noise = torch.randn((1, latent, latent, 32), generator=gen, device=dev)
     parity = {**_parity_forward(model, module, batch, noise, ZL_SIGMA), "tokens": ZL_JOINT,
@@ -7918,7 +8100,7 @@ def zlab_i1_phase(paths: dict, kernels, device: str) -> dict:
         for hook in hooks:
             hook.remove()
     loop_launches = {kernel.name: kernel.launches for kernel in kernels}
-    if loop_launches != {"flash_fwd": STEPS * (full.depth + 2), "flash_bwd_dq": 0, "flash_bwd_dkv": 0} or \
+    if loop_launches != {"flash_fwd": STEPS * (mem.depth + 2), "flash_bwd_dq": 0, "flash_bwd_dkv": 0} or \
             len(forward_s) != STEPS or tuple(latents.shape) != (1, latent, latent, 32) or \
             not torch.isfinite(latents).all():
         raise RuntimeError(f"zlab_i1 sampler: launches {loop_launches}, {len(forward_s)} forwards, latents "
@@ -7930,13 +8112,13 @@ def zlab_i1_phase(paths: dict, kernels, device: str) -> dict:
 
     # (e) build_train_step graphed on seeded 32-channel latents, every block checkpointed
     batch = {**batch, "latents": 2.0 * torch.randn((1, latent, latent, 32), generator=gen, device=dev)}
-    expected = {"flash_fwd": 2 * full.depth + 2, "flash_bwd_dq": full.depth + 2, "flash_bwd_dkv": full.depth + 2}
+    expected = {"flash_fwd": 2 * mem.depth + 2, "flash_bwd_dq": mem.depth + 2, "flash_bwd_dkv": mem.depth + 2}
     train = _graph_vs_eager(model, module, batch, kernels, ZL_TRAIN_STEPS, expected,
-                            zlab_i1_step_flops(full, 1, LC_IMG, ZL_TEXT))
+                            zlab_i1_step_flops(mem, 1, LC_IMG, ZL_TEXT))
     by_shape = train["launches_per_step_by_shape"]
-    if by_shape != {"flash_fwd": {joint_key: 2 * full.depth, connector_key: 2},
-                    "flash_bwd_dq": {joint_key: full.depth, connector_key: 2},
-                    "flash_bwd_dkv": {joint_key: full.depth, connector_key: 2}}:
+    if by_shape != {"flash_fwd": {joint_key: 2 * mem.depth, connector_key: 2},
+                    "flash_bwd_dq": {joint_key: mem.depth, connector_key: 2},
+                    "flash_bwd_dkv": {joint_key: mem.depth, connector_key: 2}}:
         raise RuntimeError(f"zlab_i1 train: launches per step by shape {by_shape}")
     normalized = model.transform_latents(batch["latents"])
     train.update({"base": "int8 (built in memory)", "quantized_matmul": "full", "remat": "every U-ViT block",
@@ -7946,16 +8128,723 @@ def zlab_i1_phase(paths: dict, kernels, device: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(zl_dir, ignore_errors=True)
-    writes = check_run_writes()
     phase("35 zlab_i1", config="zlab-princeton/i1-3B transformer/ as the JAX preset ZlabI1Config() builds it",
           params=sum(math.prod(v) for v in zlab_i1_checkpoint_shapes(full).values()), hidden=full.hidden_size,
           heads=[full.num_heads, full.head_dim], depth={"file": [ZL_FILE_BLOCKS, full.depth],
-                                                        "in_memory": [full.depth, full.depth]},
+                                                        "in_memory": [mem.depth, full.depth]},
           tokens={"image": LC_IMG, "text": ZL_TEXT, "joint": ZL_JOINT}, files=files, imported=imported,
           text_encoder=text, parity=parity, sampler=sampler, train=train,
-          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device, **writes)
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device)
     return {"zl_joint": {k: v.get(joint_key) for k, v in by_shape.items()},
             "zl_connector": {k: v.get(connector_key) for k, v in by_shape.items()}}
+
+
+def krea2_flops(arch, batch: int, img_tokens: int, txt_tokens: int) -> tuple:
+    """Model FLOPs of one Krea-2 forward, counted from the config, as (the
+    part the backward runs through, the part it does not): ``img_in``, per
+    block q, k, v, the gate and out (48 query and 12 key/value heads), the
+    SwiGLU over every joint token and the joint attention's two products,
+    and the head over the image tokens; then the time MLPs and the shared
+    modulation per sample, the layerwise fusion blocks over each token's
+    taps, the projector, the refiner blocks over the text and ``txt_in``,
+    which carry no adapter and take no gradient input."""
+    h, c = arch.hidden_size, arch.in_channels
+    q, kv = arch.num_attention_heads * arch.attention_head_dim, arch.num_key_value_heads * arch.attention_head_dim
+    dt, taps = arch.text_hidden_dim, arch.num_text_layers
+    qt = dt
+    kvt = arch.text_num_key_value_heads * (dt // arch.text_num_attention_heads)
+    joint = img_tokens + txt_tokens
+
+    def block(tokens: int, seqs: int, width: int, qw: int, kvw: int, inner: int) -> int:
+        per_seq = tokens // seqs
+        return tokens * (2 * width * (3 * qw + 2 * kvw) + 6 * width * inner) + seqs * 4 * per_seq * per_seq * qw
+
+    trained = 2 * img_tokens * c * h + arch.num_layers * block(joint, 1, h, q, kv, arch.intermediate_size)
+    trained += 2 * img_tokens * h * c
+    frozen = 2 * arch.timestep_embed_dim * h + 2 * h * h + 12 * h * h
+    frozen += arch.num_layerwise_text_blocks * block(txt_tokens * taps, txt_tokens, dt, qt, kvt,
+                                                     arch.text_intermediate_size)
+    frozen += 2 * txt_tokens * dt * taps
+    frozen += arch.num_refiner_text_blocks * block(txt_tokens, 1, dt, qt, kvt, arch.text_intermediate_size)
+    frozen += 2 * txt_tokens * (dt * h + h * h)
+    return batch * trained, batch * frozen
+
+
+def krea2_step_flops(arch, batch: int, img_tokens: int, txt_tokens: int) -> int:
+    """Model FLOPs of one Krea-2 train step: the forward, and twice the
+    trained part for the backward (bench.py's forward x 3 where a backward
+    runs; the text stage, frozen and fed no gradient, once)."""
+    trained, frozen = krea2_flops(arch, batch, img_tokens, txt_tokens)
+    return 3 * trained + frozen
+
+
+def cosmos_flops(arch, batch: int, img_tokens: int, txt_tokens: int) -> tuple:
+    """Model FLOPs of one Cosmos core forward, counted from the config, as
+    (the adapted part, the rest): the patch embed over [C + 1, p] features,
+    per block the self-attention's four projections and two products over
+    the image tokens, the cross-attention's query and out over the image and
+    key and value over the text with its two products, the FFN, and the
+    head; then per sample the time MLP, the three AdaLN-LoRA heads a block
+    and the output head's, which carry no adapter and take no gradient
+    input."""
+    h, lora = arch.hidden_size, arch.adaln_lora_dim
+    mlp = int(h * arch.mlp_ratio)
+    patch = math.prod(arch.patch_size)
+    c_in = arch.in_channels + (1 if arch.concat_padding_mask else 0)
+    per_block = img_tokens * (8 * h * h + 4 * h * h + 4 * h * mlp) + 4 * img_tokens * img_tokens * h
+    per_block += txt_tokens * 4 * arch.text_embed_dim * h + 4 * img_tokens * txt_tokens * h
+    trained = 2 * img_tokens * c_in * patch * h + arch.num_layers * per_block
+    trained += 2 * img_tokens * h * patch * arch.out_channels
+    heads = 2 * h * lora + 2 * lora * 3 * h if lora != h else 2 * h * 3 * h
+    frozen = 2 * h * h + 2 * h * 3 * h + arch.num_layers * 3 * heads + 2 * h * lora + 2 * lora * 2 * h
+    return batch * trained, batch * frozen
+
+
+def cosmos_step_flops(arch, batch: int, img_tokens: int, txt_tokens: int) -> int:
+    """Model FLOPs of one Cosmos train step (the adapted part x 3, the rest once)."""
+    trained, frozen = cosmos_flops(arch, batch, img_tokens, txt_tokens)
+    return 3 * trained + frozen
+
+
+def anima_flops(arch, batch: int, img_tokens: int, t5_tokens: int, source_tokens: int) -> tuple:
+    """Model FLOPs of one Anima forward as (the core's adapted part, the
+    rest): the core over the adapter's context padded to
+    ``adapter_pad_length``, and the adapter per layer: the self-attention's
+    four projections and two products over the T5 tokens, the
+    cross-attention's query and out over them and key and value over the
+    Qwen tokens with its two products, the 4x MLP; ``out_proj``."""
+    d = arch.adapter_dim
+    per_layer = t5_tokens * (8 * d * d + 4 * d * d + 16 * d * d) + 4 * t5_tokens * t5_tokens * d
+    per_layer += source_tokens * 4 * d * d + 4 * t5_tokens * source_tokens * d
+    adapter = arch.adapter_layers * per_layer + 2 * t5_tokens * d * d
+    trained, frozen = cosmos_flops(arch.core, 1, img_tokens, max(arch.adapter_pad_length, t5_tokens))
+    return batch * trained, batch * (frozen + adapter)
+
+
+def anima_step_flops(arch, batch: int, img_tokens: int, t5_tokens: int, source_tokens: int) -> int:
+    """Model FLOPs of one Anima train step (the core's adapted part x 3, the rest once)."""
+    trained, frozen = anima_flops(arch, batch, img_tokens, t5_tokens, source_tokens)
+    return 3 * trained + frozen
+
+
+def _x3(flops):
+    """``flops`` (a (trained, frozen) counter) summed and tripled: what
+    ``_flop_checks`` divides by 3 to hold against the forward's count."""
+
+    def step_flops(arch, batch, *counts):
+        return 3 * sum(flops(arch, batch, *counts))
+
+    step_flops.__name__ = flops.__name__
+    return step_flops
+
+
+def _check_family_trainer(trainer, arch, conditioning: dict) -> dict:
+    """The trainer's family arch, the Flux VAE, an int8 base and the batch's
+    conditioning shapes, then a replay against an eager step."""
+    from simpletuner_tpu_torch.models.vae import VAEConfig
+
+    example = trainer._example_batch()
+    shapes = {k: tuple(v.shape) for k, v in example.items() if k.startswith(("text", "t5"))}
+    if trainer.model.arch != arch or trainer.vae.config != VAEConfig.flux() or \
+            trainer.model.base_precision != "int8" or shapes != conditioning:
+        raise RuntimeError(f"{trainer.model.NAME} trainer: arch {trainer.model.arch}, VAE {trainer.vae.config}, base "
+                           f"{trainer.model.base_precision}, batch {shapes}")
+    return {"vae": "VAEConfig.flux() (16 latent channels)", **_graph_matches_eager(trainer, ("loss", "grad_norm"))}
+
+
+def _by_shape_per_step(keys: dict) -> dict:
+    """The launches per step by shape of a step that checkpoints every
+    block: ``keys`` maps a shape to (its forwards, whether a gradient runs
+    through it)."""
+    return {"flash_fwd": {k: n * (2 if grad else 1) for k, (n, grad) in keys.items()},
+            "flash_bwd_dq": {k: n for k, (n, grad) in keys.items() if grad},
+            "flash_bwd_dkv": {k: n for k, (n, grad) in keys.items() if grad}}
+
+
+def _totals(by_shape: dict) -> dict:
+    return {kernel: sum(counts.values()) for kernel, counts in by_shape.items()}
+
+
+def krea2_phase(paths: dict, kernels, device: str, full_in_memory: bool) -> dict:
+    """Phase 36: Krea-2 at the JAX preset's full width (``Krea2Config()``):
+    a seeded e4m3 checkpoint at ``K2_FILE_BLOCKS`` of its 28 blocks with the
+    four 2560-wide fusion blocks beside phase 29's 2560-wide qwen2-layout
+    trunk (linked; written here in a run without phase 29), a word-level
+    tokenizer and phase 14's Flux VAE: 16 prompts at 512 tokens through the
+    trunk (prompts/s, bf16 against f32) and ``Krea2.encode_text`` (12 taps
+    spread over the trunk's states); the import held bitwise; a 1024 px
+    true-CFG render; one forward (the caption mask as key ids) against the
+    plain attention; 6 graphed LoRA steps through
+    ``Trainer.run()`` on an int8 base; the edit
+    (``krea2_reference_latents``) step on the file through
+    ``build_train_step`` on seeded ``control_latents``; in a run that names
+    the phase, all 28 blocks built in memory and their graphed step timed.
+    Returns the launches per step of each kernel at its shapes."""
+    import gc
+
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import krea2_checkpoint_shapes
+    from simpletuner_tpu_torch.models.krea2 import Krea2, Krea2Config, Krea2Transformer
+    from simpletuner_tpu_torch.models.layers import init_adapters, init_parameters
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.weight_import import krea2_params_from_checkpoint, load_transformer_params
+
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = Krea2Config.tiny()
+    narrow = dataclasses.replace(tiny, num_attention_heads=2, num_key_value_heads=1, attention_head_dim=24,
+                                 axes_dims_rope=(8, 8, 8), text_num_key_value_heads=1, num_text_layers=4)
+    cases = []
+    for arch, img, txt in ((tiny, 12, 5), (narrow, 8, 3)):
+        ids = torch.zeros((txt + img, 3), dtype=torch.int32)
+        cases.append((arch, (torch.zeros(2, img, arch.in_channels), torch.zeros(
+            2, txt, arch.num_text_layers, arch.text_hidden_dim), torch.full((2,), 0.5), ids,
+            torch.ones(2, txt, dtype=torch.int32)), (img, txt)))
+    flop_checks = _flop_checks(_x3(krea2_flops), Krea2Transformer, cases)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(36)
+    full = Krea2Config()
+    if (full.hidden_size, full.num_attention_heads, full.num_key_value_heads, full.attention_head_dim,
+            full.num_layers, full.text_hidden_dim, full.num_text_layers, full.axes_dims_rope, full.rope_theta) != \
+            (6144, 48, 12, 128, 28, 2560, 12, (32, 48, 48), 1000.0):
+        raise RuntimeError(f"not the JAX preset of Krea-2: {full}")
+    arch = dataclasses.replace(full, num_layers=K2_FILE_BLOCKS)
+    shapes = krea2_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.2 + _reserved(36) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"krea2: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
+                           f"it and the later phases write {file_bytes / 1e9 + 0.2 + _reserved(36):.1f} GB of the "
+                           f"{RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded files: the transformer (two e4m3 shards), phase 29's
+    # 2560-wide qwen2 trunk and phase 14's Flux VAE linked, the tokenizer
+    k2_dir = os.path.join(work, "krea2")
+    weights, write_s = _write_e4m3_transformer(k2_dir, shapes, gen)
+    trunk = zi_trunk_config()
+    trunk_source = paths.get("zi_trunk")
+    if trunk_source and os.path.isdir(trunk_source):
+        _link_tree(trunk_source, os.path.join(k2_dir, "text_encoder"))
+        trunk_files = {"written_by_phase": 29, "layers": [ZI_TRUNK_LAYERS, 36]}
+    else:
+        trunk_files = {"written_by_phase": 36, "layers": [ZI_TRUNK_LAYERS, 36], "write_s": write_llm_trunk(
+            os.path.join(k2_dir, "text_encoder"), trunk, gen, QWEN3_HF)}
+    shutil.rmtree(os.path.join(work, "z_image"), ignore_errors=True)  # phase 29's trunk: linked, disk space
+    _link_tree(os.path.join(flux_dir, "vae"), os.path.join(k2_dir, "vae"))
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    write_gemma_tokenizer(os.path.join(k2_dir, "tokenizer"), " ".join(TRAIN_CAPTIONS + [K2_PROMPT] + prompts).split())
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "blocks": [K2_FILE_BLOCKS, full.num_layers],
+             "fusion_blocks": [full.num_layerwise_text_blocks, full.num_refiner_text_blocks], "qwen2_trunk": trunk_files,
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) the prompts at 512 tokens through the qwen2.5-vl spec's encoder, then
+    # through the family: 12 taps of the trunk's 3 states stacked (S, L, D)
+    spec = Krea2.TEXT_ENCODER_CONFIGURATION[0]
+    encoder, text = _encoder_and_report(spec, k2_dir, trunk, K2_TEXT, prompts)
+    values = {"model_family": "krea2", "model_type": "full"}
+    family = Krea2(config_namespace({**values, "mixed_precision": "bf16"}))
+    family.attach_text_encoders([encoder])
+    taps = family._select_layers(trunk.num_layers + 1)
+    latent = RESOLUTION // 8
+    batch = _text_batch(family, K2_PROMPT, (1, latent, latent, 16), dev)
+    if {k: tuple(v.shape) for k, v in batch.items()} != {"latents": (1, latent, latent, 16),
+                                                         "text_embeds": (1, K2_TEXT, 12, 2560),
+                                                         "text_attention_mask": (1, K2_TEXT)}:
+        raise RuntimeError(f"krea2: the collated batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    text.update({"taps": list(taps), "caption_valid": int(batch["text_attention_mask"].sum())})
+    del encoder, family
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the import, bitwise
+    model = ModelRegistry.create("krea2", config_namespace(values))
+    if model.arch != arch:
+        raise RuntimeError(f"krea2: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, k2_dir, weights, krea2_params_from_checkpoint, file_bytes)
+    params = sum(math.prod(v) for v in krea2_checkpoint_shapes(full).values())
+    del weights, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the true-CFG render (unmasked: the render payload's mask rides as
+    # ``attention_mask``, which the family does not read) and (f) the parity
+    # forward on the collated batch (masked)
+    joint_key, refiner_key = f"48x{K2_JOINT}x{K2_JOINT}x128", f"20x{K2_TEXT}x{K2_TEXT}x128"
+    taps = full.num_text_layers
+    layerwise_key = f"20x{taps}x{taps}x128"  # each text token's taps a sequence
+    keys = {joint_key: K2_FILE_BLOCKS, refiner_key: full.num_refiner_text_blocks,
+            layerwise_key: full.num_layerwise_text_blocks}
+    render, runtime = _image_render(work, "krea2", k2_dir, "k2", kernels, K2_PROMPT, K2_GUIDANCE, keys)
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "krea2" or not model.is_flow:
+        raise RuntimeError(f"krea2: the runtime built {model.NAME} {model.arch}")
+    model.text_encoders = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    noise = torch.randn((1, latent, latent, 16), generator=gen, device=dev)
+    launches = _forward_launches(model, module, batch, kernels, K2_SIGMA)
+    if launches["flash_fwd"] != keys:
+        raise RuntimeError(f"krea2 forward: launches by shape {launches}")
+    parity = {**_parity_forward(model, module, batch, noise, K2_SIGMA), "tokens": K2_JOINT,
+              "text_valid": int(batch["text_attention_mask"].sum()), "launches_by_shape": launches}
+    del runtime, module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) Trainer.run(): int8 base, every adapter-carrying linear (the family's
+    # preset is unread, as in JAX), 6 graphed steps on four of phase 16's JPEGs
+    data = _square_jpegs(work, "k2_data", K2_TRAIN_IMAGES)
+    cache = os.path.join(work, "k2_cache")
+    config = _image_train_config("krea2", k2_dir, data, cache, os.path.join(work, "k2_train"), K2_TRAIN_STEPS)
+    text_keys = {refiner_key: (full.num_refiner_text_blocks, False),
+                 layerwise_key: (full.num_layerwise_text_blocks, False)}
+    step_keys = {joint_key: (K2_FILE_BLOCKS, True), **text_keys}
+    expected = _totals(_by_shape_per_step(step_keys))
+    train = _train_graphed(config, kernels, K2_TRAIN_STEPS, expected, krea2_step_flops(arch, 1, LC_IMG, K2_TEXT),
+                           lambda trainer: _check_family_trainer(trainer, arch, {
+                               "text_embeds": (1, K2_TEXT, 12, 2560), "text_attention_mask": (1, K2_TEXT)}))
+    by_shape = train["launches_per_step_by_shape"]
+    if by_shape != _by_shape_per_step(step_keys):
+        raise RuntimeError(f"krea2 trainer: launches per step by shape {by_shape}")
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                  "flop_checks": flop_checks})
+    shutil.rmtree(cache, ignore_errors=True)
+
+    # (h) the edit step: 4,096 clean reference tokens after the target's on a
+    # second copy of the grid, build_train_step graphed on the file's blocks
+    edit_model = Krea2(config_namespace({**_graph_train_values("krea2", K2_TRAIN_STEPS),
+                                         "krea2_reference_latents": True}), arch=arch)
+    with torch.device(dev):
+        edit_module = load_transformer_params(edit_model, init_adapters(edit_model.create_module(), gen), k2_dir)
+    edit_batch = {**batch, "latents": torch.randn((1, latent, latent, 16), generator=gen, device=dev),
+                  "control_latents": torch.randn((1, latent, latent, 16), generator=gen, device=dev)}
+    edit_key = f"48x{K2_EDIT_JOINT}x{K2_EDIT_JOINT}x128"
+    edit_keys = {edit_key: (K2_FILE_BLOCKS, True), **text_keys}
+    edit = _graph_vs_eager(edit_model, edit_module, edit_batch, kernels, K2_TRAIN_STEPS,
+                           _totals(_by_shape_per_step(edit_keys)), krea2_step_flops(arch, 1, 2 * LC_IMG, K2_TEXT))
+    if edit["launches_per_step_by_shape"] != _by_shape_per_step(edit_keys):
+        raise RuntimeError(f"krea2 edit: launches per step by shape {edit['launches_per_step_by_shape']}")
+    edit.update({"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                 "tokens": {"text": K2_TEXT, "image": LC_IMG, "reference": LC_IMG, "joint": K2_EDIT_JOINT}})
+    del edit_module, edit_model, edit_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (i) in a run that names the phase: all 28 blocks in memory (12.8 GB of
+    # int8), the zero-init tables and norms drawn so every adapter reaches the loss
+    full_depth = None
+    if full_in_memory:
+        deep = Krea2(config_namespace(_graph_train_values("krea2", K2_TRAIN_STEPS)), arch=full)
+        with torch.device(dev):
+            deep_module = init_parameters(deep.create_module(), gen)
+        with torch.no_grad():
+            for name, param in deep_module.named_parameters():
+                if "lora" not in name and not param.any():
+                    param.normal_(0.0, 0.1, generator=gen)
+        deep_keys = {joint_key: (full.num_layers, True), **text_keys}
+        full_depth = _graph_vs_eager(deep, deep_module, {k: v for k, v in batch.items()}, kernels, K2_TRAIN_STEPS,
+                                     _totals(_by_shape_per_step(deep_keys)),
+                                     krea2_step_flops(full, 1, LC_IMG, K2_TEXT))
+        if full_depth["launches_per_step_by_shape"] != _by_shape_per_step(deep_keys):
+            raise RuntimeError(f"krea2 28 blocks: launches per step by shape {full_depth['launches_per_step_by_shape']}")
+        full_depth.update({"blocks": [full.num_layers, full.num_layers], "base": "int8 (built in memory)",
+                           "quantized_matmul": "full", "remat": "every block", "lora_rank": 16})
+        del deep_module, deep
+        gc.collect()
+        torch.cuda.empty_cache()
+    del batch
+    phase("36 krea2", config="krea/krea-2 transformer/ as the JAX preset Krea2Config() builds it", params=params,
+          params_per_block=sum(math.prod(v) for k, v in krea2_checkpoint_shapes(full).items()
+                               if k.startswith("transformer_blocks.0.")),
+          hidden=full.hidden_size, heads=[full.num_attention_heads, full.num_key_value_heads, full.attention_head_dim],
+          depth={"file": [K2_FILE_BLOCKS, full.num_layers], "train": [K2_FILE_BLOCKS, full.num_layers],
+                 "in_memory": [full.num_layers if full_in_memory else 0, full.num_layers]},
+          tokens={"image": LC_IMG, "text": K2_TEXT, "joint": K2_JOINT, "edit_joint": K2_EDIT_JOINT}, files=files,
+          text_encoder=text, imported=imported, render=render, parity=parity, train=train, edit=edit, full_depth=full_depth, allocated_gib_before_phase=baseline_gib,
+          seconds=time.perf_counter() - start, device=device)
+    # the text stage takes no gradient: its backward kernels launch 0 times a step
+    return {"k2_joint": {k: v.get(joint_key, 0) for k, v in by_shape.items()},
+            "k2_edit_joint": {k: v.get(edit_key, 0) for k, v in edit["launches_per_step_by_shape"].items()},
+            "k2_refiner": {k: v.get(refiner_key, 0) for k, v in by_shape.items()},
+            "k2_layerwise": {k: v.get(layerwise_key, 0) for k, v in by_shape.items()}}
+
+
+def cosmos_phase(paths: dict, kernels, device: str) -> dict:
+    """Phase 37: Cosmos-Predict2 2B at the JAX preset's full width
+    (``Cosmos1Config.predict2_2b()``): a seeded e4m3 checkpoint at
+    ``CO_FILE_BLOCKS`` of its 28 blocks, a seeded T5-11B encoder (1024 wide,
+    128 heads of 128, relu FFN 65,536; e4m3) at ``T5_11B_LAYERS`` of its 24
+    blocks in ``text_encoder``, phase 15's T5 tokenizer (``tokenizer_2``, the
+    folder the T5 spec reads) and phase 14's Flux VAE linked: 16 prompts at
+    512 tokens through ``Cosmos2Image.encode_text`` (the states past the mask
+    zeroed); the import held bitwise; a 1024 px true-CFG render down the EDM
+    Euler ladder (x0 predictions); one forward against the plain attention;
+    6 graphed LoRA steps through ``Trainer.run()`` on an int8 base (the EDM
+    sigma drawn through ``erfinv`` inside the captured step, the weighted x0
+    loss); then the 14B width at ``CO14B_BLOCKS`` of its 36 blocks in memory:
+    one forward against the plain attention and its graphed step.  Returns
+    the launches per step of each kernel at its shapes."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import cosmos1_checkpoint_shapes
+    from simpletuner_tpu_torch.models.cosmos1 import Cosmos1Config, Cosmos1Transformer
+    from simpletuner_tpu_torch.models.cosmos2 import Cosmos2Image
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.t5 import T5Config, T5EncoderModel
+    from simpletuner_tpu_torch.models.text_encoders import load_text_encoders
+    from simpletuner_tpu_torch.models.weight_import import cosmos1_params_from_checkpoint, save_safetensors
+    from simpletuner_tpu_torch.schedulers import EDMEulerScheduler
+    from simpletuner_tpu_torch.training.validation import build_scheduler
+
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    for out in ("krea2", "k2_data", "k2_train", "k2_render"):  # phase 36's: disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = Cosmos1Config.tiny()
+    narrow = dataclasses.replace(tiny, num_heads=2, head_dim=24, learnable_pos_embed=False, adaln_lora_dim=48,
+                                 text_embed_dim=20, rope_scale=(1.0, 4.0, 4.0))
+    flop_checks = _flop_checks(_x3(cosmos_flops), Cosmos1Transformer, [
+        (tiny, (torch.zeros(2, 1, 8, 12, 4), torch.full((2,), 0.5), torch.zeros(2, 6, 32)), (24, 6)),
+        (narrow, (torch.zeros(2, 1, 4, 8, 4), torch.full((2,), 0.5), torch.zeros(2, 5, 20)), (8, 5))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    full, b14 = Cosmos1Config.predict2_2b(), Cosmos1Config.predict2_14b()
+    if (full.hidden_size, full.num_heads, full.head_dim, full.num_layers, full.text_embed_dim, full.rope_scale,
+            full.learnable_pos_embed, b14.num_heads, b14.num_layers) != (2048, 16, 128, 28, 1024, (1.0, 4.0, 4.0),
+                                                                         False, 40, 36):
+        raise RuntimeError(f"not the JAX presets of Cosmos-Predict2: {full}, {b14}")
+    arch = dataclasses.replace(full, num_layers=CO_FILE_BLOCKS)
+    shapes = cosmos1_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.3 + _reserved(37) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"cosmos: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
+                           f"it and the later phases write {file_bytes / 1e9 + 0.3 + _reserved(37):.1f} GB of the "
+                           f"{RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded files: the transformer (two e4m3 shards), T5-11B at a cut
+    # depth (HF's T5 initialisation scale, e4m3), phase 15's T5 tokenizer and
+    # phase 14's Flux VAE linked
+    co_dir = os.path.join(work, "cosmos")
+    weights, write_s = _write_e4m3_transformer(co_dir, shapes, gen)
+    t5_full = T5Config(d_model=1024, d_kv=128, d_ff=65536, num_layers=24, num_heads=128, feed_forward_proj="relu")
+    t5_cfg = dataclasses.replace(t5_full, num_layers=T5_11B_LAYERS)
+    with torch.device(dev):
+        t5 = T5EncoderModel(t5_cfg, torch.float32)
+    t5.reset_parameters(gen)
+    t5_dir = os.path.join(co_dir, "text_encoder")
+    os.makedirs(t5_dir)
+    t0 = time.perf_counter()
+    save_safetensors({k: v.to(torch.float8_e4m3fn) for k, v in t5.state_dict().items()},
+                     os.path.join(t5_dir, "model.safetensors"))
+    t5_write_s = time.perf_counter() - t0
+    with open(os.path.join(t5_dir, "config.json"), "w") as handle:
+        json.dump({**dataclasses.asdict(t5_cfg), "architectures": ["T5EncoderModel"]}, handle)
+    t5_params = sum(p.numel() for p in t5.parameters())
+    del t5
+    torch.cuda.empty_cache()
+    _link_tree(os.path.join(flux_dir, "tokenizer_2"), os.path.join(co_dir, "tokenizer_2"))
+    _link_tree(os.path.join(flux_dir, "vae"), os.path.join(co_dir, "vae"))
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "blocks": [CO_FILE_BLOCKS, full.num_layers],
+             "t5_11b": {"layers": [T5_11B_LAYERS, t5_full.num_layers], "params": t5_params, "dtype": "float8_e4m3fn",
+                        "write_s": t5_write_s},
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) the prompts at 512 tokens through the T5 spec's encoder and the family
+    values = {"model_family": "cosmos", "model_type": "full"}
+    family = Cosmos2Image(config_namespace({**values, "mixed_precision": "bf16"}))
+    (encoder,) = load_text_encoders(family.TEXT_ENCODER_CONFIGURATION, pretrained_path=co_dir, device="cuda")
+    encoder.model.to(torch.bfloat16)
+    if encoder.model.config != t5_cfg:
+        raise RuntimeError(f"cosmos: the T5 spec read {encoder.model.config}, not {t5_cfg}")
+    family.attach_text_encoders([encoder])
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    family.encode_text(prompts[:2])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payloads = family.encode_text(prompts)
+    encode_s = time.perf_counter() - t0
+    states = np.stack([p["text_embeds"] for p in payloads])
+    masks = np.stack([p["attention_mask"] for p in payloads])
+    if states.shape != (TEXT_PROMPTS, CO_TEXT, 1024) or not np.isfinite(states).all() or \
+            np.abs(states[masks == 0]).max() != 0 or not (0 < masks.sum(axis=1)).all():
+        raise RuntimeError(f"cosmos text: {states.shape}, valid {masks.sum(axis=1).tolist()}, pads zeroed "
+                           f"{np.abs(states[masks == 0]).max()}")
+    text = {"prompts": TEXT_PROMPTS, "tokens": CO_TEXT, "encode_s": encode_s, "prompts_per_s": TEXT_PROMPTS / encode_s,
+            "valid": [int(masks.sum(axis=1).min()), int(masks.sum(axis=1).max())], "pads_zeroed": True}
+    latent = RESOLUTION // 8
+    batch = _text_batch(family, CO_PROMPT, (1, latent, latent, 16), dev)
+    if {k: tuple(v.shape) for k, v in batch.items()} != {"latents": (1, latent, latent, 16),
+                                                         "text_embeds": (1, CO_TEXT, 1024)}:
+        raise RuntimeError(f"cosmos: the collated batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    del encoder, family, states
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the import, bitwise
+    model = ModelRegistry.create("cosmos", config_namespace(values))
+    if model.arch != arch:
+        raise RuntimeError(f"cosmos: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, co_dir, weights, cosmos1_params_from_checkpoint, file_bytes)
+    del weights, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the true-CFG render down the EDM Euler ladder and (f) the parity forward
+    self_key, cross_key = f"16x{LC_IMG}x{LC_IMG}x128", f"16x{LC_IMG}x{CO_TEXT}x128"
+    keys = {self_key: CO_FILE_BLOCKS, cross_key: CO_FILE_BLOCKS}
+    render, runtime = _image_render(work, "cosmos", co_dir, "co", kernels, CO_PROMPT, CO_GUIDANCE, keys)
+    module, model = runtime.module, runtime.model
+    scheduler = build_scheduler(model, STEPS)
+    if model.arch != arch or model.NAME != "cosmos" or model.prediction_type != "sample" or \
+            not isinstance(scheduler, EDMEulerScheduler):
+        raise RuntimeError(f"cosmos: the runtime built {model.NAME} {model.arch}, scheduler {type(scheduler)}")
+    render["sigmas"] = scheduler.sigmas.tolist()
+    model.text_encoders = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    noise = torch.randn((1, latent, latent, 16), generator=gen, device=dev)
+    parity = {**_parity_forward(model, module, batch, noise, CO_SIGMA), "tokens": {"image": LC_IMG, "text": CO_TEXT}}
+    del runtime, module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) Trainer.run(): int8 base, every adapter-carrying linear, 6 graphed EDM steps
+    data = _square_jpegs(work, "co_data", CO_TRAIN_IMAGES)
+    cache = os.path.join(work, "co_cache")
+    config = _image_train_config("cosmos", co_dir, data, cache, os.path.join(work, "co_train"), CO_TRAIN_STEPS)
+    step_keys = {self_key: (CO_FILE_BLOCKS, True), cross_key: (CO_FILE_BLOCKS, True)}
+    train = _train_graphed(config, kernels, CO_TRAIN_STEPS, _totals(_by_shape_per_step(step_keys)),
+                           cosmos_step_flops(arch, 1, LC_IMG, CO_TEXT),
+                           lambda trainer: _check_family_trainer(trainer, arch, {"text_embeds": (1, CO_TEXT, 1024)}))
+    by_shape = train["launches_per_step_by_shape"]
+    if by_shape != _by_shape_per_step(step_keys):
+        raise RuntimeError(f"cosmos trainer: launches per step by shape {by_shape}")
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                  "prediction": "sample (EDM x0)", "flop_checks": flop_checks})
+    shutil.rmtree(cache, ignore_errors=True)
+
+    # (h) the 14B width in memory at CO14B_BLOCKS of its 36 blocks
+    arch14 = dataclasses.replace(b14, num_layers=CO14B_BLOCKS)
+    wide = Cosmos2Image(config_namespace({**_graph_train_values("cosmos", 2), "model_flavour": "14b"}), arch=arch14)
+    with torch.device(dev):
+        wide_module = init_parameters(wide.create_module(), gen)
+    self14, cross14 = f"40x{LC_IMG}x{LC_IMG}x128", f"40x{LC_IMG}x{CO_TEXT}x128"
+    launches14 = _forward_launches(wide, wide_module, batch, kernels, CO_SIGMA)
+    if launches14["flash_fwd"] != {self14: CO14B_BLOCKS, cross14: CO14B_BLOCKS}:
+        raise RuntimeError(f"cosmos 14B forward: launches by shape {launches14}")
+    wide_parity = {**_parity_forward(wide, wide_module, batch, noise, CO_SIGMA), "launches_by_shape": launches14}
+    keys14 = {self14: (CO14B_BLOCKS, True), cross14: (CO14B_BLOCKS, True)}
+    wide_train = _graph_vs_eager(wide, wide_module, dict(batch), kernels, 2, _totals(_by_shape_per_step(keys14)),
+                                 cosmos_step_flops(arch14, 1, LC_IMG, CO_TEXT))
+    if wide_train["launches_per_step_by_shape"] != _by_shape_per_step(keys14):
+        raise RuntimeError(f"cosmos 14B step: launches per step by shape {wide_train['launches_per_step_by_shape']}")
+    del wide_module, wide, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("37 cosmos", config="nvidia/Cosmos-Predict2-2B-Text2Image transformer/ as the JAX preset "
+          "Cosmos1Config.predict2_2b() builds it", params=sum(math.prod(v) for v in cosmos1_checkpoint_shapes(
+              full).values()), hidden=full.hidden_size, heads=[full.num_heads, full.head_dim],
+          depth={"file": [CO_FILE_BLOCKS, full.num_layers], "train": [CO_FILE_BLOCKS, full.num_layers]},
+          tokens={"image": LC_IMG, "text": CO_TEXT}, files=files, text_encoder=text, imported=imported,
+          render=render, parity=parity, train=train,
+          b14={"config": "nvidia/Cosmos-Predict2-14B-Text2Image as the JAX preset Cosmos1Config.predict2_14b() "
+                         "builds it", "hidden": b14.hidden_size, "heads": [b14.num_heads, b14.head_dim],
+               "depth": [CO14B_BLOCKS, b14.num_layers], "params": sum(math.prod(v) for v in cosmos1_checkpoint_shapes(
+                   b14).values()), "parity": wide_parity, "train": wide_train},
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device)
+    return {"co_self": {k: v.get(self_key) for k, v in by_shape.items()},
+            "co_cross": {k: v.get(cross_key) for k, v in by_shape.items()},
+            "co14b_self": {k: v.get(self14) for k, v in wide_train["launches_per_step_by_shape"].items()},
+            "co14b_cross": {k: v.get(cross14) for k, v in wide_train["launches_per_step_by_shape"].items()}}
+
+
+def anima_phase(paths: dict, kernels, device: str) -> dict:
+    """Phase 38: Anima at the JAX preset's full width (``AnimaConfig()``): a
+    seeded e4m3 checkpoint of the whole 6-layer LLM adapter and
+    ``AN_FILE_BLOCKS`` of the core's 28 blocks, a seeded Qwen3-0.6B trunk
+    (1024 wide, 16 query and 8 key/value heads of 128, read in the qwen2
+    layout) at ``QWEN3_06B_LAYERS`` of its 28 layers, one word-level
+    tokenizer in ``tokenizer/`` (the folder both the Qwen encoder and the
+    T5 ids read, as in the JAX package) and phase 14's Flux VAE: 16 prompts
+    at 256 tokens through the trunk (prompts/s, bf16 against f32) and
+    ``Anima.encode_text`` (64 T5 ids from that tokenizer); the import held
+    bitwise; a 1024 px true-CFG flow render (the adapter's attentions and the
+    core's through the kernels); one forward against the plain attention; 6
+    graphed LoRA steps through ``Trainer.run()`` on an int8 base.  Last, the run's writes against its limit.  Returns the
+    launches per step of each kernel at the core's shapes."""
+    import gc
+
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.anima import Anima, AnimaConfig, AnimaTransformer
+    from simpletuner_tpu_torch.models.checkpoint_layouts import anima_checkpoint_shapes
+    from simpletuner_tpu_torch.models.cosmos1 import Cosmos1Config
+    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoderConfig
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.weight_import import anima_params_from_checkpoint
+
+    start = time.perf_counter()
+    work, flux_dir = paths["work"], paths["flux_dir"]
+    for out in ("cosmos", "co_data", "co_train", "co_render"):  # phase 37's: disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = AnimaConfig.tiny()
+    wider = dataclasses.replace(tiny, adapter_dim=48, adapter_heads=2, adapter_layers=2, adapter_pad_length=8,
+                                core=dataclasses.replace(tiny.core, text_embed_dim=48, learnable_pos_embed=False))
+    flop_checks = _flop_checks(_x3(anima_flops), AnimaTransformer, [
+        (tiny, (torch.zeros(2, 1, 8, 12, 4), torch.full((2,), 0.5), torch.zeros(2, 7, 32),
+                torch.ones(2, 9, dtype=torch.int32)), (24, 9, 7)),
+        (wider, (torch.zeros(2, 1, 4, 8, 4), torch.full((2,), 0.5), torch.zeros(2, 5, 48),
+                 torch.ones(2, 6, dtype=torch.int32)), (8, 6, 5))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(38)
+    full = AnimaConfig()
+    if (full.adapter_dim, full.adapter_layers, full.adapter_heads, full.adapter_vocab_size, full.adapter_pad_length,
+            full.core) != (1024, 6, 16, 32128, 512, Cosmos1Config.anima()):
+        raise RuntimeError(f"not the JAX preset of Anima: {full}")
+    arch = dataclasses.replace(full, core=dataclasses.replace(full.core, num_layers=AN_FILE_BLOCKS))
+    shapes = anima_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.3 > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"anima: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
+                           f"it writes {file_bytes / 1e9 + 0.3:.1f} GB of the {RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded files: the transformer (two e4m3 shards), the Qwen3-0.6B
+    # trunk, the tokenizer both encoders read, phase 14's Flux VAE linked
+    an_dir = os.path.join(work, "anima")
+    weights, write_s = _write_e4m3_transformer(an_dir, shapes, gen)
+    qwen_full = LLMEncoderConfig(arch="qwen2", vocab_size=151936, hidden_size=1024, intermediate_size=3072,
+                                 num_layers=28, num_heads=16, num_kv_heads=8, head_dim=128, rope_theta=1000000.0,
+                                 rms_eps=1e-6, qkv_bias=True)
+    qwen = dataclasses.replace(qwen_full, num_layers=QWEN3_06B_LAYERS)
+    trunk_write_s = write_llm_trunk(os.path.join(an_dir, "text_encoder"), qwen, gen, QWEN3_HF)
+    _link_tree(os.path.join(flux_dir, "vae"), os.path.join(an_dir, "vae"))
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    write_gemma_tokenizer(os.path.join(an_dir, "tokenizer"), " ".join(TRAIN_CAPTIONS + [AN_PROMPT] + prompts).split())
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "core_blocks": [AN_FILE_BLOCKS, full.core.num_layers],
+             "adapter_layers": [full.adapter_layers, full.adapter_layers],
+             "qwen3_0_6b": {"layers": [QWEN3_06B_LAYERS, qwen_full.num_layers], "write_s": trunk_write_s},
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) the prompts at 256 tokens through the qwen2.5 spec's encoder, then
+    # the family's T5 ids from the same tokenizer folder
+    spec = Anima.TEXT_ENCODER_CONFIGURATION[0]
+    encoder, text = _encoder_and_report(spec, an_dir, qwen, AN_TEXT, prompts)
+    values = {"model_family": "anima", "model_type": "full", "pretrained_model_name_or_path": an_dir}
+    family = Anima(config_namespace({**values, "mixed_precision": "bf16"}))
+    family.attach_text_encoders([encoder])
+    payload = family.encode_text([AN_PROMPT])[0]
+    tokenizer = family._resolve_t5_tokenizer()
+    if tokenizer is None:
+        raise RuntimeError(f"anima: no tokenizer read from {an_dir}/tokenizer for the T5 ids")
+    expected_ids = tokenizer(AN_PROMPT, truncation=True, max_length=AN_T5)["input_ids"]
+    if payload["t5_ids"].shape != (AN_T5,) or \
+            payload["t5_ids"][:len(expected_ids)].tolist() != list(expected_ids) or \
+            payload["t5_ids"].max() >= full.adapter_vocab_size:
+        raise RuntimeError(f"anima: the T5 ids {payload['t5_ids'].tolist()} are not the tokenizer's {expected_ids}")
+    text["t5_ids"] = {"tokens": AN_T5, "valid": len(expected_ids), "from": "tokenizer/ (the Qwen encoder's folder)"}
+    latent = RESOLUTION // 8
+    batch = _text_batch(family, AN_PROMPT, (1, latent, latent, 16), dev)
+    if {k: tuple(v.shape) for k, v in batch.items()} != {"latents": (1, latent, latent, 16),
+                                                         "text_embeds": (1, AN_TEXT, 1024), "t5_ids": (1, AN_T5)}:
+        raise RuntimeError(f"anima: the collated batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    del encoder, family
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the import, bitwise
+    model = ModelRegistry.create("anima", config_namespace(values))
+    if model.arch != arch:
+        raise RuntimeError(f"anima: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, an_dir, weights, anima_params_from_checkpoint, file_bytes)
+    del weights, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the true-CFG render and (f) the parity forward
+    self_key, cross_key = f"16x{LC_IMG}x{LC_IMG}x128", f"16x{LC_IMG}x{full.adapter_pad_length}x128"
+    heads, dim = full.adapter_heads, full.adapter_dim // full.adapter_heads
+    adapter_keys = {f"{heads}x{AN_T5}x{AN_T5}x{dim}": full.adapter_layers,
+                    f"{heads}x{AN_T5}x{AN_TEXT}x{dim}": full.adapter_layers}
+    keys = {self_key: AN_FILE_BLOCKS, cross_key: AN_FILE_BLOCKS, **adapter_keys}
+    render, runtime = _image_render(work, "anima", an_dir, "an", kernels, AN_PROMPT, AN_GUIDANCE, keys)
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "anima" or not model.is_flow:
+        raise RuntimeError(f"anima: the runtime built {model.NAME} {model.arch}")
+    model.text_encoders = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    noise = torch.randn((1, latent, latent, 16), generator=gen, device=dev)
+    parity = {**_parity_forward(model, module, batch, noise, AN_SIGMA),
+              "tokens": {"image": LC_IMG, "t5": AN_T5, "qwen": AN_TEXT, "context": full.adapter_pad_length}}
+    del runtime, module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) Trainer.run(): int8 base, every adapter-carrying linear of the core, 6 graphed steps
+    data = _square_jpegs(work, "an_data", AN_TRAIN_IMAGES)
+    cache = os.path.join(work, "an_cache")
+    config = _image_train_config("anima", an_dir, data, cache, os.path.join(work, "an_train"), AN_TRAIN_STEPS)
+    step_keys = {self_key: (AN_FILE_BLOCKS, True), cross_key: (AN_FILE_BLOCKS, True),
+                 **{key: (n, False) for key, n in adapter_keys.items()}}
+    train = _train_graphed(config, kernels, AN_TRAIN_STEPS, _totals(_by_shape_per_step(step_keys)),
+                           anima_step_flops(arch, 1, LC_IMG, AN_T5, AN_TEXT),
+                           lambda trainer: _check_family_trainer(trainer, arch, {
+                               "text_embeds": (1, AN_TEXT, 1024), "t5_ids": (1, AN_T5)}))
+    by_shape = train["launches_per_step_by_shape"]
+    if by_shape != _by_shape_per_step(step_keys):
+        raise RuntimeError(f"anima trainer: launches per step by shape {by_shape}")
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every core block", "lora_rank": 16,
+                  "flop_checks": flop_checks})
+    shutil.rmtree(cache, ignore_errors=True)
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(an_dir, ignore_errors=True)
+    writes = check_run_writes()
+    phase("38 anima", config="circulus/anima transformer/ as the JAX preset AnimaConfig() builds it",
+          params=sum(math.prod(v) for v in anima_checkpoint_shapes(full).values()), hidden=full.core.hidden_size,
+          heads=[full.core.num_heads, full.core.head_dim],
+          depth={"core": [AN_FILE_BLOCKS, full.core.num_layers], "adapter": [full.adapter_layers, full.adapter_layers]},
+          tokens={"image": LC_IMG, "qwen": AN_TEXT, "t5": AN_T5, "context": full.adapter_pad_length}, files=files,
+          text_encoder=text, imported=imported, render=render, parity=parity, train=train, allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device,
+          **writes)
+    self_adapter, cross_adapter = adapter_keys
+    # the adapter takes no gradient: its backward kernels launch 0 times a step
+    return {"co_self": {k: v.get(self_key, 0) for k, v in by_shape.items()},
+            "co_cross": {k: v.get(cross_key, 0) for k, v in by_shape.items()},
+            "an_self": {k: v.get(self_adapter, 0) for k, v in by_shape.items()},
+            "an_cross": {k: v.get(cross_adapter, 0) for k, v in by_shape.items()}}
 
 
 def int8_cases() -> None:
@@ -8679,7 +9568,7 @@ def main() -> int:
     fwd_entry, fwd256_entry, long_fwd_entries = kernel_cases()
     launches = {"main": None, "auraflow": {}, "wan": {}, "ltx": {}, "chroma": None, "lumina2": {}, "kandinsky5": {},
                 "hunyuanvideo": {}, "qwen_image": {}, "hidream": {}, "flux2": {}, "kolors": {}, "longcat_image": {},
-                "z_image_omni": {}, "zlab_i1": {}}
+                "z_image_omni": {}, "zlab_i1": {}, "krea2": {}, "cosmos": {}, "anima": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         checkpoints = weight_import(work) if _runs(14) else {"work": work}
         encoders = text_encoders(checkpoints) if _runs(15) else None
@@ -8709,6 +9598,7 @@ def main() -> int:
             if _runs(18):
                 server_phase(phase17, smi)
         from simpletuner_tpu_torch.inference import config_namespace
+        from simpletuner_tpu_torch.models.anima import Anima, AnimaConfig
         from simpletuner_tpu_torch.models.auraflow import AuraFlow, AuraFlowConfig
         from simpletuner_tpu_torch.models.checkpoint_layouts import (
             auraflow_checkpoint_shapes, chroma_checkpoint_shapes, hidream_checkpoint_shapes,
@@ -8717,19 +9607,23 @@ def main() -> int:
             unet_checkpoint_shapes, wan_checkpoint_shapes, z_image_omni_checkpoint_shapes,
         )
         from simpletuner_tpu_torch.models.chroma import Chroma, ChromaConfig
+        from simpletuner_tpu_torch.models.cosmos2 import Cosmos2Image
         from simpletuner_tpu_torch.models.flux2 import Flux2
         from simpletuner_tpu_torch.models.hidream import HiDream, HiDreamConfig
         from simpletuner_tpu_torch.models.hunyuanvideo import HunyuanVideo, HunyuanVideo15Config
         from simpletuner_tpu_torch.models.kandinsky5 import Kandinsky5Config, Kandinsky5Video
         from simpletuner_tpu_torch.models.kolors import Kolors
+        from simpletuner_tpu_torch.models.krea2 import Krea2
         from simpletuner_tpu_torch.models.longcat_image import LongcatImage
         from simpletuner_tpu_torch.models.ltxvideo import LTXConfig, LTXVideo
         from simpletuner_tpu_torch.models.lumina2 import Lumina2, Lumina2Config
         from simpletuner_tpu_torch.models.mageflow import ZImage
         from simpletuner_tpu_torch.models.qwen_image import QwenImage, QwenImageConfig
         from simpletuner_tpu_torch.models.sd3 import SD3, SD3Config
+        from simpletuner_tpu_torch.models.sdxl import SDXL
         from simpletuner_tpu_torch.models.wan import Wan, WanConfig
         from simpletuner_tpu_torch.models.z_image_omni import ZImageOmni, ZImageOmniConfig
+        from simpletuner_tpu_torch.models.zlab_i1 import ZlabI1Config
 
         def extra_gb(layout, full, cut) -> float:  # e4m3: one byte a parameter
             return sum(math.prod(v) for v in layout(full).values()) / 1e9 - \
@@ -8742,7 +9636,12 @@ def main() -> int:
             with family_depth(SD3, depth=depth):
                 sd3_phase(checkpoints, kernels, smi, depth)
         if _runs(20):
-            sdxl_phase(checkpoints, kernels, smi)
+            sdxl = SDXL(config_namespace({"model_family": "sdxl"})).arch
+            cut = dataclasses.replace(sdxl, transformer_layers=SDXL_CUT_LAYERS)
+            layers = sdxl.transformer_layers if _full_depth(20, extra_gb(unet_checkpoint_shapes, sdxl, cut)) \
+                else SDXL_CUT_LAYERS
+            with family_depth(SDXL, transformer_layers=layers):
+                sdxl_phase(checkpoints, kernels, smi, layers)
         if _runs(21):
             ddpm_families_phase(checkpoints, kernels, smi)
         if _runs(22):
@@ -8828,7 +9727,18 @@ def main() -> int:
             with family_depth(ZImageOmni, depth=depth[0], refiner_depth=depth[1]):
                 launches["z_image_omni"] = z_image_omni_phase(checkpoints, kernels, smi, depth)
         if _runs(35):
-            launches["zlab_i1"] = zlab_i1_phase(checkpoints, kernels, smi)
+            launches["zlab_i1"] = zlab_i1_phase(checkpoints, kernels, smi, ZlabI1Config().depth if 35 in (
+                RUN["requested"] or ()) else ZL_MEMORY_BLOCKS)
+        if _runs(36):
+            with family_depth(Krea2, num_layers=K2_FILE_BLOCKS):
+                launches["krea2"] = krea2_phase(checkpoints, kernels, smi, 36 in (RUN["requested"] or ()))
+        if _runs(37):
+            with family_depth(Cosmos2Image, num_layers=CO_FILE_BLOCKS):
+                launches["cosmos"] = cosmos_phase(checkpoints, kernels, smi)
+        if _runs(38):
+            anima_core = dataclasses.replace(AnimaConfig().core, num_layers=AN_FILE_BLOCKS)
+            with family_depth(Anima, core=anima_core):
+                launches["anima"] = anima_phase(checkpoints, kernels, smi)
         else:
             check_run_writes()
 
@@ -8856,10 +9766,19 @@ def main() -> int:
                           ("kandinsky5", K5_KERNEL_CASES), ("hunyuanvideo", HY_KERNEL_CASES),
                           ("qwen_image", QI_KERNEL_CASES), ("hidream", HD_KERNEL_CASES), ("flux2", F2_KERNEL_CASES),
                           ("kolors", KOLORS_KERNEL_CASES), ("longcat_image", LC_KERNEL_CASES),
-                          ("z_image_omni", ZO_KERNEL_CASES), ("zlab_i1", ZL_KERNEL_CASES)):
+                          ("z_image_omni", ZO_KERNEL_CASES), ("zlab_i1", ZL_KERNEL_CASES), ("krea2", K2_KERNEL_CASES),
+                          ("cosmos", CO_KERNEL_CASES)):
         if launches[family]:
             rows += [(f"{name}_{case[0]}", f"{name}_{case[0]}", name, launches[family][case[0]])
                      for case in cases for name in sources]
+    if launches["anima"]:  # Anima's core: the Cosmos 2B shapes' times, phase 38's launches
+        rows += [(f"{name}_anima_{case}", f"{name}_{case}", name, launches["anima"][case])
+                 for case in ("co_self", "co_cross") for name in sources]
+    # the forward-only shapes (text stage, adapter: no gradient reaches them)
+    for family, cases in (("krea2", K2_FUSION_CASES), ("anima", AN_ADAPTER_CASES)):
+        if launches[family]:
+            rows += [(f"flash_fwd_{case[0]}", f"flash_fwd_{case[0]}", "flash_fwd", launches[family][case[0]])
+                     for case in cases]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"simpletuner_tpu_torch/{sources[kernel][0]}",
          "replaces": f"simpletuner_tpu/ops/flash_attention.py:{sources[kernel][1]}", "launches": counts[kernel],

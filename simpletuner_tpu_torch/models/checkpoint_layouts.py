@@ -856,6 +856,119 @@ def zlab_i1_checkpoint_shapes(arch) -> Dict[str, tuple]:
     return shapes
 
 
+def krea2_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a ``Krea2Transformer2DModel`` of
+    ``arch`` (``models/krea2/transformer.py::Krea2Config``) as
+    ``krea2_params_from_checkpoint`` reads it: biased embedders and heads,
+    bias-free attention and SwiGLU, the zero-centred norms' ``weight``
+    leaves, the (1, L) projector and the per-block tables."""
+    h, hd, dt = arch.hidden_size, arch.attention_head_dim, arch.text_hidden_dim
+    shapes: Dict[str, tuple] = {"text_fusion.projector.weight": (1, arch.num_text_layers),
+                                "txt_in.norm.weight": (dt,), "final_layer.scale_shift_table": (2, h),
+                                "final_layer.norm.weight": (h,)}
+
+    def linear(name, out_features, in_features, bias=True):
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        if bias:
+            shapes[f"{name}.bias"] = (out_features,)
+
+    def block(src, dim, heads, kv_heads, head_dim, inner):
+        shapes[f"{src}.norm1.weight"] = (dim,)
+        shapes[f"{src}.norm2.weight"] = (dim,)
+        for name, out_features in (("to_q", heads), ("to_k", kv_heads), ("to_v", kv_heads), ("to_gate", heads)):
+            linear(f"{src}.attn.{name}", out_features * head_dim, dim, bias=False)
+        linear(f"{src}.attn.to_out.0", heads * head_dim, heads * head_dim, bias=False)
+        shapes[f"{src}.attn.norm_q.weight"] = (head_dim,)
+        shapes[f"{src}.attn.norm_k.weight"] = (head_dim,)
+        linear(f"{src}.ff.gate", inner, dim, bias=False)
+        linear(f"{src}.ff.up", inner, dim, bias=False)
+        linear(f"{src}.ff.down", dim, inner, bias=False)
+
+    linear("img_in", h, arch.in_channels)
+    linear("time_embed.linear_1", h, arch.timestep_embed_dim)
+    linear("time_embed.linear_2", h, h)
+    linear("time_mod_proj", 6 * h, h)
+    linear("txt_in.linear_1", h, dt)
+    linear("txt_in.linear_2", h, h)
+    linear("final_layer.linear", arch.in_channels, h)
+    text_heads = (arch.text_num_attention_heads, arch.text_num_key_value_heads, dt // arch.text_num_attention_heads)
+    for kind, count in (("layerwise", arch.num_layerwise_text_blocks), ("refiner", arch.num_refiner_text_blocks)):
+        for i in range(count):
+            block(f"text_fusion.{kind}_blocks.{i}", dt, *text_heads, arch.text_intermediate_size)
+    for i in range(arch.num_layers):
+        shapes[f"transformer_blocks.{i}.scale_shift_table"] = (6, h)
+        block(f"transformer_blocks.{i}", h, arch.num_attention_heads, arch.num_key_value_heads, hd,
+              arch.intermediate_size)
+    return shapes
+
+
+def cosmos1_checkpoint_shapes(arch, prefix: str = "") -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a ``CosmosTransformer3DModel`` of
+    ``arch`` (``models/cosmos1/transformer.py::Cosmos1Config``) as
+    ``cosmos1_params_from_checkpoint`` reads it, every name after
+    ``prefix``: all linears bias-free, the patch embed over the latent
+    channels and the padding-mask plane."""
+    h, hd = arch.hidden_size, arch.head_dim
+    pt, ph, pw = arch.patch_size
+    mlp, lora = int(h * arch.mlp_ratio), arch.adaln_lora_dim
+    c_in = arch.in_channels + (1 if arch.concat_padding_mask else 0)
+    shapes: Dict[str, tuple] = {}
+
+    def linear(name, out_features, in_features):
+        shapes[f"{prefix}{name}.weight"] = (out_features, in_features)
+
+    linear("patch_embed.proj", h, c_in * pt * ph * pw)
+    linear("time_embed.t_embedder.linear_1", h, h)
+    linear("time_embed.t_embedder.linear_2", 3 * h, h)
+    shapes[f"{prefix}time_embed.norm.weight"] = (h,)
+    linear("norm_out.linear_1", lora, h)
+    linear("norm_out.linear_2", 2 * h, lora)
+    linear("proj_out", pt * ph * pw * arch.out_channels, h)
+    if arch.learnable_pos_embed:
+        for axis, size, patch in zip("thw", arch.max_size, arch.patch_size):
+            shapes[f"{prefix}learnable_pos_embed.pos_emb_{axis}"] = (size // patch, h)
+    for i in range(arch.num_layers):
+        src = f"transformer_blocks.{i}"
+        for norm in ("norm1", "norm2", "norm3"):
+            linear(f"{src}.{norm}.linear_1", lora, h)
+            linear(f"{src}.{norm}.linear_2", 3 * h, lora)
+        for attn, kv_in in (("attn1", h), ("attn2", arch.text_embed_dim)):
+            linear(f"{src}.{attn}.to_q", h, h)
+            linear(f"{src}.{attn}.to_k", h, kv_in)
+            linear(f"{src}.{attn}.to_v", h, kv_in)
+            linear(f"{src}.{attn}.to_out.0", h, h)
+            shapes[f"{prefix}{src}.{attn}.norm_q.weight"] = (hd,)
+            shapes[f"{prefix}{src}.{attn}.norm_k.weight"] = (hd,)
+        linear(f"{src}.ff.net.0.proj", mlp, h)
+        linear(f"{src}.ff.net.2", h, mlp)
+    return shapes
+
+
+def anima_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of an ``AnimaTransformerModel`` of
+    ``arch`` (``models/anima/transformer.py::AnimaConfig``) as
+    ``anima_params_from_checkpoint`` reads it: the LLM adapter (the T5-id
+    table, bias-free attention with q/k norms, biased MLPs and head) and the
+    Cosmos core under ``core.``."""
+    d, hd = arch.adapter_dim, arch.adapter_dim // arch.adapter_heads
+    shapes: Dict[str, tuple] = {"llm_adapter.embed.weight": (arch.adapter_vocab_size, d),
+                                "llm_adapter.out_proj.weight": (d, d), "llm_adapter.out_proj.bias": (d,),
+                                "llm_adapter.norm.weight": (d,)}
+    for i in range(arch.adapter_layers):
+        src = f"llm_adapter.blocks.{i}"
+        for norm in ("norm_self_attn", "norm_cross_attn", "norm_mlp"):
+            shapes[f"{src}.{norm}.weight"] = (d,)
+        for attn in ("self_attn", "cross_attn"):
+            for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                shapes[f"{src}.{attn}.{proj}.weight"] = (d, d)
+            shapes[f"{src}.{attn}.q_norm.weight"] = (hd,)
+            shapes[f"{src}.{attn}.k_norm.weight"] = (hd,)
+        shapes.update({f"{src}.mlp.0.weight": (4 * d, d), f"{src}.mlp.0.bias": (4 * d,),
+                       f"{src}.mlp.2.weight": (d, 4 * d), f"{src}.mlp.2.bias": (d,)})
+    shapes.update(cosmos1_checkpoint_shapes(arch.core, prefix="core."))
+    return shapes
+
+
 def llm_checkpoint_shapes(cfg) -> Dict[str, tuple]:
     """Tensor names and torch shapes of an HF causal LM of ``cfg``
     (``models/llm_encoder.py::LLMEncoderConfig``) as ``llm_params_from_hf``

@@ -8,7 +8,8 @@ its metadata; ``flux``, ``sd3``, ``sdxl``, ``sd1x``, ``sd2x``,
 ``pixart_sigma``, ``auraflow``, ``wan``, ``ltxvideo``, ``chroma``, ``lumina2``,
 ``kandinsky5_image``, ``kandinsky5_video``, ``hunyuanvideo``, ``qwen_image``,
 ``mageflow``, ``z_image``, ``hidream``, ``flux2``, ``kolors``,
-``longcat_image``, ``z_image_omni``, ``zlab_i1`` and ``boogu_image`` are ported
+``longcat_image``, ``z_image_omni``, ``zlab_i1``, ``boogu_image``, ``krea2``,
+``cosmos`` and ``anima`` are ported
 (with the JAX aliases ``sd15``, ``sd21``, ``pixart`` and ``kandinsky5-image``),
 so ``get`` of any other family raises naming ROADMAP Queue 1
 item 6, and an unknown name raises ``KeyError`` as in the JAX registry.
@@ -67,7 +68,7 @@ ALIASES = {"sd15": "sd1x", "sd21": "sd2x", "pixart": "pixart_sigma", "ltx2": "lt
 # the families the port builds
 PORTED = ("flux", "sd3", "sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "chroma", "lumina2",
           "kandinsky5_image", "kandinsky5_video", "hunyuanvideo", "qwen_image", "mageflow", "z_image", "hidream",
-          "flux2", "kolors", "longcat_image", "z_image_omni", "zlab_i1", "boogu_image")
+          "flux2", "kolors", "longcat_image", "z_image_omni", "zlab_i1", "boogu_image", "krea2", "cosmos", "anima")
 
 
 class ModelRegistry:
@@ -170,6 +171,18 @@ class ModelRegistry:
             from .extended import BooguImage
 
             return BooguImage
+        if family == "krea2":
+            from .krea2 import Krea2
+
+            return Krea2
+        if family == "cosmos":
+            from .cosmos2 import Cosmos2Image
+
+            return Cosmos2Image
+        if family == "anima":
+            from .anima import Anima
+
+            return Anima
         raise NotImplementedError(f"model_family={name!r} is not ported (only {', '.join(PORTED)}; "
                                   "ROADMAP Queue 1 item 6)")
 

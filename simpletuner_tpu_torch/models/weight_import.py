@@ -28,7 +28,9 @@ Kandinsky 5.0 (image and video) the ai-forever ``Kandinsky5Transformer3DModel``
 layout (``transformer/``); HunyuanVideo 1.5 the diffusers
 ``HunyuanVideo15Transformer3DModel`` layout (``transformer/``); FLUX.2 the diffusers
 ``Flux2Transformer2DModel`` layout (``transformer/``); Kolors the diffusers UNet
-layout (``unet/``).
+layout (``unet/``); Krea-2 the ``Krea2Transformer2DModel`` layout, Cosmos-Predict2
+the diffusers ``CosmosTransformer3DModel`` layout and Anima its adapter with a
+``core.``-prefixed Cosmos core (``transformer/``).
 
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
 keeps f32, bf16 and fp8 (e4m3) leaves in the file's dtype (``_float``; the
@@ -45,8 +47,9 @@ little-endian bytes.  Files are memory-mapped copy-on-write, so a tensor is
 read from disk when it is first used.  Only the ``flux``, ``sd3``, ``sdxl``,
 ``sd1x``, ``sd2x``, ``pixart_sigma``, ``auraflow``, ``wan``, ``ltxvideo``, ``chroma``,
 ``lumina2``, ``kandinsky5_video``, ``kandinsky5_image``, ``hunyuanvideo``, ``qwen_image``,
-``mageflow``, ``z_image``, ``hidream``, ``flux2`` and ``kolors`` families import; every
-other family raises.
+``mageflow``, ``z_image``, ``hidream``, ``flux2``, ``kolors``, ``longcat_image``,
+``z_image_omni``, ``zlab_i1``, ``boogu_image``, ``krea2``, ``cosmos`` and ``anima``
+families import; every other family raises.
 """
 
 from __future__ import annotations
@@ -1433,6 +1436,147 @@ def load_zlab_i1_params(model, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# Krea-2 (Krea2Transformer2DModel)
+# ---------------------------------------------------------------------------------
+
+
+def _krea2_attn(w: Mapping[str, torch.Tensor], src: str) -> Dict[str, Any]:
+    node = {name: _linear(w, f"{src}.{name}") for name in ("to_q", "to_k", "to_v", "to_gate")}
+    node["to_out"] = _linear(w, f"{src}.to_out.0")
+    node["norm_q"] = _float(w[f"{src}.norm_q.weight"])
+    node["norm_k"] = _float(w[f"{src}.norm_k.weight"])
+    return node
+
+
+def _krea2_ff(w: Mapping[str, torch.Tensor], src: str) -> Dict[str, Any]:
+    return {name: _linear(w, f"{src}.{name}") for name in ("gate", "up", "down")}
+
+
+def _krea2_block(w: Mapping[str, torch.Tensor], src: str) -> Dict[str, Any]:
+    return {"norm1": _float(w[f"{src}.norm1.weight"]), "norm2": _float(w[f"{src}.norm2.weight"]),
+            "attn": _krea2_attn(w, f"{src}.attn"), "ff": _krea2_ff(w, f"{src}.ff")}
+
+
+def krea2_params_from_checkpoint(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a Krea-2 transformer of ``arch`` (``Krea2Config``):
+    the projector (1, L) as an (L, 1) table, and ``img_in`` / ``final_linear``
+    reordered from the reference's (c, ph, pw) packing to the port's (ph, pw, c)."""
+    w = weights
+    params: Dict[str, Any] = {
+        "img_in": _linear(w, "img_in"),
+        "time_in_1": _linear(w, "time_embed.linear_1"),
+        "time_in_2": _linear(w, "time_embed.linear_2"),
+        "time_mod_proj": _linear(w, "time_mod_proj"),
+        "text_projector": _float(w["text_fusion.projector.weight"]).t(),
+        "txt_norm": _float(w["txt_in.norm.weight"]),
+        "txt_in_1": _linear(w, "txt_in.linear_1"),
+        "txt_in_2": _linear(w, "txt_in.linear_2"),
+        "final_scale_shift_table": _float(w["final_layer.scale_shift_table"]),
+        "final_norm": _float(w["final_layer.norm.weight"]),
+        "final_linear": _linear(w, "final_layer.linear"),
+    }
+    for i in range(arch.num_layerwise_text_blocks):
+        params[f"text_layerwise_{i}"] = _krea2_block(w, f"text_fusion.layerwise_blocks.{i}")
+    for i in range(arch.num_refiner_text_blocks):
+        params[f"text_refiner_{i}"] = _krea2_block(w, f"text_fusion.refiner_blocks.{i}")
+    for i in range(arch.num_layers):
+        src = f"transformer_blocks.{i}"
+        params[f"block_{i}"] = {"scale_shift_table": _float(w[f"{src}.scale_shift_table"]), **_krea2_block(w, src)}
+    img_in, final = params["img_in"], params["final_linear"]
+    img_in["kernel"] = img_in["kernel"][_flux_pack_permutation(img_in["kernel"].shape[0])]
+    out_perm = _flux_pack_permutation(final["kernel"].shape[1])
+    final["kernel"] = final["kernel"][:, out_perm]
+    if "bias" in final:
+        final["bias"] = final["bias"][out_perm]
+    return params
+
+
+def load_krea2_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a Krea-2 transformer (a model dir
+    with a ``transformer/`` subfolder, or one file)."""
+    params = krea2_params_from_checkpoint(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported krea2 weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
+# the Cosmos core (CosmosTransformer3DModel) and Anima (its adapter + core)
+# ---------------------------------------------------------------------------------
+
+
+def cosmos1_params_from_checkpoint(weights: Mapping[str, torch.Tensor], arch, prefix: str = "") -> Dict[str, Any]:
+    """The Flax-layout tree of a Cosmos core of ``arch`` (``Cosmos1Config``)
+    under the names ``prefix`` starts (Anima's ``core.``)."""
+    w, p = weights, prefix
+    params: Dict[str, Any] = {
+        "patch_embed": _linear(w, f"{p}patch_embed.proj"),
+        "t_embedder_1": _linear(w, f"{p}time_embed.t_embedder.linear_1"),
+        "t_embedder_2": _linear(w, f"{p}time_embed.t_embedder.linear_2"),
+        "t_norm": _float(w[f"{p}time_embed.norm.weight"]),
+        "norm_out_1": _linear(w, f"{p}norm_out.linear_1"),
+        "norm_out_2": _linear(w, f"{p}norm_out.linear_2"),
+        "proj_out": _linear(w, f"{p}proj_out"),
+    }
+    if arch.learnable_pos_embed:
+        for axis in "thw":
+            params[f"pos_emb_{axis}"] = _float(w[f"{p}learnable_pos_embed.pos_emb_{axis}"])
+    for i in range(arch.num_layers):
+        src = f"{p}transformer_blocks.{i}"
+        node: Dict[str, Any] = {}
+        for norm, attn in (("norm1", "attn1"), ("norm2", "attn2")):
+            node[norm] = {"linear_1": _linear(w, f"{src}.{norm}.linear_1"),
+                          "linear_2": _linear(w, f"{src}.{norm}.linear_2")}
+            for proj in ("q", "k", "v"):
+                node[f"{attn}_{proj}"] = _linear(w, f"{src}.{attn}.to_{proj}")
+            node[f"{attn}_out"] = _linear(w, f"{src}.{attn}.to_out.0")
+            node[f"{attn}_norm_q"] = _float(w[f"{src}.{attn}.norm_q.weight"])
+            node[f"{attn}_norm_k"] = _float(w[f"{src}.{attn}.norm_k.weight"])
+        node["norm3"] = {"linear_1": _linear(w, f"{src}.norm3.linear_1"),
+                         "linear_2": _linear(w, f"{src}.norm3.linear_2")}
+        node["ff_in"] = _linear(w, f"{src}.ff.net.0.proj")
+        node["ff_out"] = _linear(w, f"{src}.ff.net.2")
+        params[f"block_{i}"] = node
+    return params
+
+
+def load_cosmos2_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a Cosmos-Predict2 transformer (a
+    model dir with a ``transformer/`` subfolder, or one file)."""
+    params = cosmos1_params_from_checkpoint(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported cosmos weights from %s", path)
+    return params
+
+
+def anima_params_from_checkpoint(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of an Anima transformer of ``arch`` (``AnimaConfig``):
+    ``llm_adapter`` and the ``core.``-prefixed Cosmos core."""
+    w = weights
+    adapter: Dict[str, Any] = {"embed": _float(w["llm_adapter.embed.weight"]),
+                               "out_proj": _linear(w, "llm_adapter.out_proj"),
+                               "norm": _float(w["llm_adapter.norm.weight"])}
+    for i in range(arch.adapter_layers):
+        src = f"llm_adapter.blocks.{i}"
+        for ours, theirs in (("self", "norm_self_attn"), ("cross", "norm_cross_attn"), ("mlp", "norm_mlp")):
+            adapter[f"block_{i}_norm_{ours}"] = _float(w[f"{src}.{theirs}.weight"])
+        for ours, theirs in (("self", "self_attn"), ("cross", "cross_attn")):
+            node = {name: _linear(w, f"{src}.{theirs}.{name}") for name in ("q_proj", "k_proj", "v_proj", "o_proj")}
+            node["q_norm"] = _float(w[f"{src}.{theirs}.q_norm.weight"])
+            node["k_norm"] = _float(w[f"{src}.{theirs}.k_norm.weight"])
+            adapter[f"block_{i}_{ours}"] = node
+        adapter[f"block_{i}_mlp_in"] = _linear(w, f"{src}.mlp.0")
+        adapter[f"block_{i}_mlp_out"] = _linear(w, f"{src}.mlp.2")
+    return {"llm_adapter": adapter, "core": cosmos1_params_from_checkpoint(w, arch.core, prefix="core.")}
+
+
+def load_anima_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of an Anima transformer (a model dir
+    with a ``transformer/`` subfolder, or one file)."""
+    params = anima_params_from_checkpoint(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported anima weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
@@ -1448,7 +1592,8 @@ _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_une
               "kolors": load_unet_params, "longcat_image": load_longcat_image_params,
               "z_image_omni": load_z_image_omni_params, "zlab_i1": load_zlab_i1_params,
               # Boogu-Image is the Lumina2 Next-DiT layout
-              "boogu_image": load_lumina2_params}
+              "boogu_image": load_lumina2_params, "krea2": load_krea2_params, "cosmos": load_cosmos2_params,
+              "anima": load_anima_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:

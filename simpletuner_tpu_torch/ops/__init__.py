@@ -1,6 +1,7 @@
 from .attention import (
     dot_product_attention,
     get_attention_backend,
+    key_mask_segments,
     set_attention_backend,
     set_context_parallel,
 )

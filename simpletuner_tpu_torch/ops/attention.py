@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention, mha_reference
+from .flash_attention import SEGMENT_PAD_ID, flash_attention, mha_reference
 
 _VALID_BACKENDS = ("auto", "pallas_flash", "xla", "splash", "sla")
 _state = {"backend": "auto", "cp": None}
@@ -67,6 +67,14 @@ def _resolve(backend: Optional[str], device: torch.device) -> str:
     if name == "auto":
         return "pallas_flash" if device.type == "cuda" else "xla"
     return name
+
+
+def key_mask_segments(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A (B, S) 0/1 key-padding mask as key segment ids for queries of id 1:
+    1 where valid, ``SEGMENT_PAD_ID`` elsewhere (None stays None)."""
+    if mask is None:
+        return None
+    return torch.where(mask.to(torch.bool), 1, SEGMENT_PAD_ID).to(torch.int32)
 
 
 def dot_product_attention(

@@ -6,5 +6,6 @@ from .flow_euler import (
     time_shift_exp,
 )
 from .ddim import DDIMScheduler
+from .edm_euler import EDMEulerScheduler
 from .sampling import classifier_free_guidance, sample_loop
 from .unipc import UniPCScheduler

@@ -7,7 +7,9 @@ sd1x and sd2x), ``sd3_key_map`` (lora.py:158), ``pixart_key_map``
 ``ltx_key_map`` (lora.py:589), ``lumina2_key_map`` (lora.py:468; chroma takes
 ``flux_key_map``, lora.py:651), ``kandinsky5_key_map`` (lora.py:289; both
 Kandinsky flavours), ``hunyuanvideo_key_map`` (lora.py:620), ``flux2_key_map``
-(lora.py:419; kolors takes ``unet_key_map``, lora.py:655) and ``_key_map_for``
+(lora.py:419; kolors takes ``unet_key_map``, lora.py:655), ``krea2_key_map``
+(lora.py:276), ``cosmos1_core_key_map`` (lora.py:215; cosmos) and ``anima_key_map``
+(lora.py:232) and ``_key_map_for``
 (lora.py:680), which resolve the LoRA target presets and
 name the adapters of an export (the maps leave ``patch_in`` and
 ``context_in`` under their own names, as the JAX export does),
@@ -349,6 +351,38 @@ def zlab_i1_key_map(arch) -> Dict[str, Any]:
 
 
 # family name -> key map builder, for the families the port has
+def krea2_key_map(arch) -> Dict[str, Any]:
+    """Krea2Transformer2DModel layout."""
+    mapping: Dict[str, Any] = {"img_in": "img_in", "final_linear": "final_layer.linear"}
+    attn = {"to_q": "to_q", "to_k": "to_k", "to_v": "to_v", "to_gate": "to_gate", "to_out": "to_out.0"}
+    for layer in range(arch.num_layers):
+        for ours, theirs in attn.items():
+            mapping[f"block_{layer}/attn/{ours}"] = f"transformer_blocks.{layer}.attn.{theirs}"
+        for p in ("gate", "up", "down"):
+            mapping[f"block_{layer}/ff/{p}"] = f"transformer_blocks.{layer}.ff.{p}"
+    return mapping
+
+
+def cosmos1_core_key_map(core, ours_prefix: str = "", theirs_prefix: str = "") -> Dict[str, Any]:
+    """The Cosmos core's layout (CosmosTransformer3DModel); ``patch_embed``
+    keeps its own name, as in the JAX map."""
+    mapping: Dict[str, Any] = {f"{ours_prefix}proj_out": f"{theirs_prefix}proj_out"}
+    for layer in range(core.num_layers):
+        ours, theirs = f"{ours_prefix}block_{layer}", f"{theirs_prefix}transformer_blocks.{layer}"
+        for attn in ("attn1", "attn2"):
+            for p in ("q", "k", "v"):
+                mapping[f"{ours}/{attn}_{p}"] = f"{theirs}.{attn}.to_{p}"
+            mapping[f"{ours}/{attn}_out"] = f"{theirs}.{attn}.to_out.0"
+        mapping[f"{ours}/ff_in"] = f"{theirs}.ff.net.0.proj"
+        mapping[f"{ours}/ff_out"] = f"{theirs}.ff.net.2"
+    return mapping
+
+
+def anima_key_map(arch) -> Dict[str, Any]:
+    """AnimaTransformerModel layout: the core under ``core.`` (the adapter has no LoRA)."""
+    return cosmos1_core_key_map(arch.core, ours_prefix="core/", theirs_prefix="core.")
+
+
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
     "sd1x": lambda m: unet_key_map(m.arch),
@@ -374,6 +408,9 @@ _KEY_MAPS = {
     "z_image_omni": lambda m: z_image_omni_key_map(m.arch),
     "zlab_i1": lambda m: zlab_i1_key_map(m.arch),
     "boogu_image": lambda m: lumina2_key_map(m.arch),
+    "krea2": lambda m: krea2_key_map(m.arch),
+    "cosmos": lambda m: cosmos1_core_key_map(m.arch),
+    "anima": lambda m: anima_key_map(m.arch),
 }
 
 

@@ -189,6 +189,7 @@ def resolve_quantized_matmul(config: Any) -> str:
 # cuBLASLt's int8 GEMM takes more than 16 rows, and k and n in multiples of 8
 _INT_MM_MIN_ROWS = 17
 _INT_MM_PAD_ROWS = 32
+_INT_MM_ALIGN = 8
 
 
 class Int8Matmul:
@@ -196,7 +197,10 @@ class Int8Matmul:
 
     ``a`` is row-major and ``b`` must be K-major (the transpose of a
     row-major (n, k) tensor): the layout cuBLASLt's int8 path takes.  Fewer
-    than 17 rows are padded with zero rows, which leaves the product exact.
+    than 17 rows are padded with zero rows, and on the card a k or n off a
+    multiple of 8 (Cosmos's patch embed: 17 channels x 4 = 68 features) with
+    zero columns of ``a`` and zero rows and columns of ``b``, which leaves the
+    product exact.
     ``launches`` goes up by one for every ``torch._int_mm`` call and for
     nothing else."""
 
@@ -210,17 +214,20 @@ class Int8Matmul:
             raise TypeError(f"int8 matmul takes 2-D int8 operands, got {a.dtype}{tuple(a.shape)} "
                             f"and {b.dtype}{tuple(b.shape)}")
         rows, k = a.shape
+        n = b.shape[1]
         if a.is_cuda:
-            if k % 8 or b.shape[1] % 8:
-                raise ValueError(f"int8 matmul on CUDA needs k and n in multiples of 8, got k={k} n={b.shape[1]}")
             if b.stride(0) != 1:
                 raise ValueError("int8 matmul on CUDA needs a K-major second operand (a transposed row-major tensor)")
+            k_pad, n_pad = -k % _INT_MM_ALIGN, -n % _INT_MM_ALIGN
+            if k_pad or n_pad:  # pad b's row-major (n, k) transpose, so that b stays K-major
+                a = F.pad(a, (0, k_pad))
+                b = F.pad(b.t(), (0, k_pad, 0, n_pad)).t()
         a = a.contiguous()
         if rows < _INT_MM_MIN_ROWS:
             a = F.pad(a, (0, 0, 0, _INT_MM_PAD_ROWS - rows))
         out = torch._int_mm(a, b)
         self.launches += 1
-        return out[:rows]
+        return out[:rows, :n]
 
 
 int8_matmul = Int8Matmul()

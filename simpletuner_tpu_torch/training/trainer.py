@@ -70,13 +70,19 @@ captioning template, the template's spans sliced off; the sliding ids),
 ``z_image_omni`` (Qwen at 512 tokens with its mask), ``boogu_image``
 (Lumina2's) and ``zlab_i1`` (Gemma-2 at 256 tokens with its mask; 32 latent
 channels against ``VAEConfig.flux()``, as the JAX trainer, so only its tiny
-preset trains), the four with ``VAEConfig.flux()`` at their published widths;
+preset trains), the four with ``VAEConfig.flux()`` at their published widths,
+``krea2`` (12 taps of the qwen2.5-vl trunk at 512 tokens with the mask),
+``cosmos`` (T5 at 512 tokens, the states past the mask zeroed and the mask
+dropped; EDM x0 prediction with its own ``prepare_batch`` and loss) and
+``anima`` (Qwen at 256 tokens and 64 T5 ids), the three with
+``VAEConfig.flux()`` (every family of 16 channels or more, as the JAX
+trainer builds it, though Cosmos's docstring names the Wan VAE);
 the batch reaches the step with every numeric array
 the family's collate gives (Flux's ``t5_embeds``/``t5_masks``, the others'
 ``text_embeds``, SDXL's size conditioning ``original_sizes``,
 ``crop_coordinates`` and ``target_sizes``), and ``pooled_embeds`` for flux,
 sd3 and sdxl.  Refused, each naming its ROADMAP item:
-families other than these twenty-four, full fine-tunes and ControlNet, distillation and
+families other than these twenty-seven, full fine-tunes and ControlNet, distillation and
 ODE pairs, CREPA / U-REPA, text-encoder training, slider and assistant
 adapters, a mesh of more than one device and multi-process runs.
 """

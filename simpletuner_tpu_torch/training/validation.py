@@ -1,7 +1,8 @@
 """Validation renders: prompt embeds -> sampling loop -> VAE decode -> PNG or mp4.
 
 Counterpart of ``simpletuner_tpu/training/validation.py``: ``build_scheduler``
-(flow Euler for the flow families; for the DDPM families the family's beta
+(flow Euler for the flow families, the EDM Euler ladder for cosmos' x0
+prediction; for the DDPM families the family's beta
 ladder with ``rescale_betas_zero_snr``, DDIM by default and UniPC when
 ``validation_noise_scheduler`` asks for it),
 resolution and seed handling, the prompt list (``validation_prompt``, a user
@@ -28,7 +29,7 @@ index.  ``run_validations`` takes the module to render; the trainer hands it
 Refused, naming ROADMAP Queue 1 item 4d: img2img (``validation_using_datasets``),
 validation adapters, external-script validation, previews, batched
 (``validation_parallel``) and staged renders (SDXL's ``full-pipeline``
-mode) and skip-layer guidance; the EDM Euler ladder of cosmos names item 4c.  PNGs are written with
+mode) and skip-layer guidance.  PNGs are written with
 ``zlib``/``struct`` alone.
 """
 
@@ -48,6 +49,7 @@ from torch import nn
 
 from ..schedulers import (
     DDIMScheduler,
+    EDMEulerScheduler,
     FlowMatchEulerScheduler,
     UniPCScheduler,
     classifier_free_guidance,
@@ -95,7 +97,9 @@ def build_scheduler(model, num_steps: int, image_seq_len: Optional[int] = None):
             image_seq_len=image_seq_len,
         )
     if model.prediction_type == "sample" and hasattr(model, "sigma_max"):
-        raise NotImplementedError("the EDM Euler scheduler (cosmos) is not ported (ROADMAP Queue 1 item 4c)")
+        # an EDM x0-prediction family (cosmos): the Karras rho ladder
+        return EDMEulerScheduler.create(num_steps, sigma_min=model.sigma_min, sigma_max=model.sigma_max,
+                                        rho=model.sigma_schedule_order)
     name = (getattr(model.config, "validation_noise_scheduler", None) or "ddim").lower()
     # the family's beta ladder, not the SD default
     schedule = dataclasses.replace(

@@ -83,7 +83,8 @@ def test_the_port_imports_nothing_of_the_jax_package():
     assert int(count) == len(names) and loaded == "[]"
     # the SDXL slice's modules, the SD 1.x / 2.x, PixArt-Sigma, AuraFlow, Wan, LTX-Video, Chroma, Lumina2,
     # decoder-LLM, Kandinsky 5.0, HunyuanVideo, Qwen-Image, MageFlow / Z-Image, HiDream, FLUX.2, Kolors,
-    # LongCat-Image, Z-Image-Omni, Zlab-i1 and Boogu-Image ones are among those imported
+    # LongCat-Image, Z-Image-Omni, Zlab-i1, Boogu-Image, Krea-2, Cosmos and Anima ones (with the EDM Euler
+    # scheduler) are among those imported
     assert {f"simpletuner_tpu_torch.{name}" for name in (
         "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc", "models.sd1x",
         "models.sd1x.model", "models.pixart", "models.pixart.model", "models.pixart.transformer",
@@ -98,7 +99,10 @@ def test_the_port_imports_nothing_of_the_jax_package():
         "models.flux2.transformer", "models.kolors", "models.kolors.model", "models.longcat_image",
         "models.longcat_image.model", "models.z_image_omni", "models.z_image_omni.model",
         "models.z_image_omni.transformer", "models.zlab_i1", "models.zlab_i1.model", "models.zlab_i1.transformer",
-        "models.zlab_i1.latent_utils", "models.extended", "models.extended.model")} <= set(names)
+        "models.zlab_i1.latent_utils", "models.extended", "models.extended.model", "models.krea2",
+        "models.krea2.model", "models.krea2.transformer", "models.cosmos1", "models.cosmos1.transformer",
+        "models.cosmos2", "models.cosmos2.model", "models.anima", "models.anima.model", "models.anima.transformer",
+        "schedulers.edm_euler")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -579,7 +583,14 @@ def test_model_registry_refuses_other_families():
     assert isinstance(get_model_family(TrainingConfig({"model_family": "z_image_omni"})), ZImageOmni)
     assert isinstance(get_model_family(TrainingConfig({"model_family": "zlab_i1"})), ZlabI1)
     assert isinstance(get_model_family(TrainingConfig({"model_family": "boogu_image"})), BooguImage)
-    for family in ("sana", "krea2", "deepfloyd"):
+    from simpletuner_tpu_torch.models.anima import Anima
+    from simpletuner_tpu_torch.models.cosmos2 import Cosmos2Image
+    from simpletuner_tpu_torch.models.krea2 import Krea2
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "krea2"})), Krea2)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "cosmos"})), Cosmos2Image)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "anima"})), Anima)
+    for family in ("sana", "omnigen", "deepfloyd"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):

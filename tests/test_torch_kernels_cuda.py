@@ -1349,6 +1349,27 @@ def test_int8_products_are_exact_on_the_card(cuda, rows):
     assert y.shape == (rows, 96) and dx.shape == x.shape and torch.isfinite(dx.float()).all()
 
 
+@pytest.mark.parametrize("k,n", [(68, 2048), (256, 2044), (68, 2044)])
+def test_int8_products_pad_k_and_n_on_the_card(cuda, k, n):
+    """A contraction or output width off a multiple of 8 (Cosmos's patch
+    embed takes 17 channels x 4 = 68 features) is zero-padded for cuBLASLt:
+    the product exact and one launch, forward and the int8 backward."""
+    from simpletuner_tpu_torch.training.quantization import int8_dynamic_dot, int8_matmul, quantize_weight
+
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    a = torch.randint(-127, 128, (40, k), dtype=torch.int8, device=cuda, generator=gen)
+    w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=cuda, generator=gen)
+    before = int8_matmul.launches
+    out = int8_matmul(a, w.t())
+    assert int8_matmul.launches == before + 1 and out.shape == (40, n)
+    assert torch.equal(out.double(), a.double() @ w.double().t())
+    stored = quantize_weight(torch.randn(n, k, device=cuda, generator=gen), "int8")
+    x = torch.randn(40, k, device=cuda, generator=gen).bfloat16().requires_grad_(True)
+    y = int8_dynamic_dot(x, stored["weight"], stored["weight_scale"], True)
+    (dx,) = torch.autograd.grad(y, x, torch.ones_like(y))
+    assert y.shape == (40, n) and dx.shape == x.shape and torch.isfinite(dx.float()).all()
+
+
 @pytest.mark.parametrize("precision", ["int8-quanto", "int4-quanto", "fp8-quanto"])
 def test_quantized_base_train_step_on_the_card(cuda, precision):
     from simpletuner_tpu_torch.inference import config_namespace
@@ -1575,6 +1596,198 @@ def test_graphed_longcat_omni_zlab_steps_match_eager_bitwise(cuda, family):
     if family == "z_image_omni":
         batch.update({"control_latents": torch.randn((1, 16, 16, channels), generator=gen, device=cuda),
                       "siglip_embeds": torch.randn((1, 2, 2, 24), generator=gen, device=cuda)})
+    tx = get_optimizer(config, 1e-3)
+    state = create_train_state(model, module, tx)
+    step_fn = build_train_step(model, tx)
+    with torch.no_grad():
+        saved = [x.clone() for x in state_tensors(state)]
+    rng = torch.Generator(device=cuda)
+    rng.manual_seed(5)
+    start = rng.get_state()
+
+    def trajectory(step):
+        current, out = state, []
+        for _ in range(3):
+            current, metrics = step(current, batch, rng)
+            out += [metrics["loss"], metrics["grad_norm"]]
+        return torch.stack(out)
+
+    eager = trajectory(step_fn)
+    with torch.no_grad():
+        for x, value in zip(state_tensors(state), saved):
+            x.copy_(value)
+    rng.set_state(start)
+    state.step = 0
+    graphed = jit_train_step(step_fn, state, batch, rng)
+    replayed = trajectory(graphed)
+    assert torch.isfinite(eager).all() and (eager[1::2] > 0).all()
+    assert torch.equal(replayed, eager)
+
+
+# Krea-2 at 1024 x 1024: 512 text tokens (300 valid) before 4,096 image tokens,
+# and 8,192 with the edit's reference tokens; 48 query heads over 12 key/value
+# heads repeated as jnp.repeat does (here 4 over 2: head h reads head h // 2),
+# query ids all 1 and key ids the text mask (1, or SEGMENT_PAD_ID); the text
+# refiner's 512 tokens with the same key ids; Cosmos's (and Anima's) 4,096-token
+# self-attention and its cross-attention against 512 unmasked T5 keys; head dim
+# 128 throughout
+KREA2_COSMOS_CASES = [("krea2_joint_s4608", 512 + 4096, 512 + 4096, 300, 2),
+                      ("krea2_edit_joint_s8704", 512 + 8192, 512 + 8192, 300, 2),
+                      ("krea2_refiner_s512", 512, 512, 300, 1), ("cosmos_self_s4096", 4096, 4096, None, 1),
+                      ("cosmos_cross_s4096_k512", 4096, 512, None, 1)]
+
+
+@pytest.mark.parametrize("name,sq,sk,valid,rep", KREA2_COSMOS_CASES, ids=[c[0] for c in KREA2_COSMOS_CASES])
+def test_kernels_at_the_krea2_and_cosmos_shapes(cuda, name, sq, sk, valid, rep):
+    """Forward and both backward kernels at Krea-2's joint (K/V repeated
+    from half the heads with ``repeat_interleave``, query ids 1 and key ids
+    from the text mask), edit joint and masked refiner shapes, and Cosmos's
+    self- and cross-attention (unmasked), against the plain versions; the
+    repeated K/V reach the kernels as the module hands them over."""
+    q, k, v = _qkv(90 + sq % 23, 1, 4, sq, sk, 128, cuda)
+    k, v = (x[:, :4 // rep].repeat_interleave(rep, dim=1) for x in (k, v))
+    q_seg = kv_seg = None
+    if valid is not None:
+        kv_seg = torch.ones((1, sk), dtype=torch.int32, device=cuda)
+        kv_seg[:, valid:512] = SEGMENT_PAD_ID
+        q_seg = torch.ones((1, sq), dtype=torch.int32, device=cuda)
+    out, lse = _check(q, k, v, q_seg, kv_seg)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    del out, lse
+    dq, dk, dv = _check_backward(q, k, v, q_seg, seed=91, kv_seg=kv_seg)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    if valid is not None:  # masked keys get no gradient
+        assert not dk[:, :, valid:512].float().any() and not dv[:, :, valid:512].float().any()
+
+
+# the forward-only attentions: Krea-2's layerwise fusion (each of 512 text
+# tokens a sequence of its 12 taps, head dim 128) and Anima's LLM adapter
+# (64 T5 tokens against themselves and against 256 Qwen states, head dim 64);
+# two heads, unmasked
+FUSION_ADAPTER_CASES = [("krea2_layerwise_b512", 512, 12, 12, 128), ("anima_adapter_self", 1, 64, 64, 64),
+                        ("anima_adapter_cross", 1, 64, 256, 64)]
+
+
+@pytest.mark.parametrize("name,batch,sq,sk,dim", FUSION_ADAPTER_CASES, ids=[c[0] for c in FUSION_ADAPTER_CASES])
+def test_forward_kernel_at_the_fusion_and_adapter_shapes(cuda, name, batch, sq, sk, dim):
+    """The forward kernel at the attentions no gradient reaches on the path
+    (Krea-2's text fusion, Anima's adapter) against the plain version."""
+    q, k, v = _qkv(100 + sk, batch, 2, sq, sk, dim, cuda)
+    out, lse = _check(q, k, v)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+
+
+def _tiny_krea2(dtype, device):
+    """A Krea-2 DiT of two query heads of 128 over one key/value head (GQA),
+    the published rope axes, a 256-wide text stage of two heads of 128, 2
+    blocks, remat, rank-4 adapters."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.krea2 import Krea2Config, Krea2Transformer
+
+    cfg = dataclasses.replace(Krea2Config.tiny(), attention_head_dim=128, num_attention_heads=2,
+                              num_key_value_heads=1, text_hidden_dim=256, axes_dims_rope=(32, 48, 48))
+    with torch.device(device):
+        return cfg, Krea2Transformer(cfg, dtype=dtype, lora_rank=4, remat=True)
+
+
+def test_tiny_krea2_on_the_card_matches_its_cpu_run(cuda):
+    """The tiny Krea-2 DiT (``_tiny_krea2``; its zero-init tables and norms
+    drawn) with a caption mask (20 and 9 of 20 valid), 48 image tokens and
+    3 taps, against its CPU run."""
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg, cpu = _tiny_krea2(torch.float32, "cpu")
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, param in cpu.named_parameters():
+            if "lora" not in name and param.dim() <= 2 and not param.any():
+                param.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(3))
+    _, card = _tiny_krea2(torch.bfloat16, cuda)
+    gen = torch.Generator().manual_seed(4)
+    mask = (torch.arange(20)[None] < torch.tensor([[20], [9]])).to(torch.int32)
+    grid = torch.stack(torch.meshgrid(torch.arange(6), torch.arange(8), indexing="ij"), -1).reshape(-1, 2)
+    ids = torch.cat([torch.zeros((20, 3), dtype=torch.int32),
+                     torch.cat([torch.zeros((48, 1), dtype=torch.int64), grid], 1).to(torch.int32)])
+    inputs = [torch.randn((2, 48, cfg.in_channels), generator=gen),
+              torch.randn((2, 20, cfg.num_text_layers, cfg.text_hidden_dim), generator=gen),
+              torch.tensor([0.3, 0.8]), ids, mask]
+    _card_against_cpu(cpu, card, inputs, torch.randn((2, 48, cfg.in_channels), generator=gen), cuda)
+
+
+def _tiny_cosmos(dtype, device, anima=False):
+    """The Cosmos core two heads of 128 wide (the published rope scale, no
+    position embedding), 2 blocks, remat, rank-4 adapters; with ``anima``
+    the Anima adapter before it (two heads of 64, the published head dim)."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.anima import AnimaConfig, AnimaTransformer
+    from simpletuner_tpu_torch.models.cosmos1 import Cosmos1Config, Cosmos1Transformer
+
+    core = dataclasses.replace(Cosmos1Config.tiny(), num_heads=2, head_dim=128, learnable_pos_embed=False,
+                               rope_scale=(1.0, 4.0, 4.0), adaln_lora_dim=64, text_embed_dim=128)
+    with torch.device(device):
+        if anima:
+            cfg = dataclasses.replace(AnimaConfig.tiny(), core=core, adapter_dim=128, adapter_pad_length=32)
+            return cfg, AnimaTransformer(cfg, dtype=dtype, lora_rank=4, remat=True)
+        return core, Cosmos1Transformer(core, dtype=dtype, lora_rank=4, remat=True)
+
+
+@pytest.mark.parametrize("anima", [False, True], ids=["cosmos", "anima"])
+def test_tiny_cosmos_and_anima_on_the_card_match_their_cpu_runs(cuda, anima):
+    """The tiny Cosmos core on 8 x 12 one-frame latents with 20 T5 states,
+    and Anima's adapter (20 ids, 7 Qwen states) before it, against their CPU
+    runs (the adapter's attentions run the plain version on both)."""
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg, cpu = _tiny_cosmos(torch.float32, "cpu", anima)
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    _, card = _tiny_cosmos(torch.bfloat16, cuda, anima)
+    gen = torch.Generator().manual_seed(5)
+    channels = (cfg.core if anima else cfg).in_channels
+    latents = torch.randn((2, 1, 8, 12, channels), generator=gen)
+    if anima:
+        inputs = [latents, torch.tensor([0.3, 0.8]), torch.randn((2, 7, 128), generator=gen),
+                  torch.randint(0, cfg.adapter_vocab_size, (2, 20), generator=gen)]
+    else:
+        inputs = [latents, torch.tensor([0.3, 0.8]), torch.randn((2, 20, 128), generator=gen)]
+    _card_against_cpu(cpu, card, inputs, torch.randn(latents.shape, generator=gen), cuda)
+
+
+@pytest.mark.parametrize("family", ["krea2", "cosmos", "anima"])
+def test_graphed_krea2_cosmos_anima_steps_match_eager_bitwise(cuda, family):
+    """The tiny Krea-2 step (masked taps), Cosmos step (the EDM sigma drawn
+    through ``erfinv`` from the step's generator, the weighted x0 loss) and
+    Anima step (T5 ids into the adapter): three eager steps and then three
+    replays of the captured step from the same state and generator state
+    give the same losses and grad norms bitwise."""
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.training.optimizers import get_optimizer
+    from simpletuner_tpu_torch.training.train_state import (build_train_step, create_train_state, jit_train_step,
+                                                            state_tensors)
+
+    config = TrainingConfig({"model_family": family, "model_arch_preset": "tiny", "model_type": "lora",
+                             "lora_rank": 4, "learning_rate": 1e-3, "optimizer": "adamw",
+                             "gradient_checkpointing": True})
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    model = ModelRegistry.create(family, config)
+    with torch.device(cuda):
+        module = init_parameters(model.create_module(), gen)
+    with torch.no_grad():  # Krea-2's tables and norms start at zero: give them a draw
+        for name, param in module.named_parameters():
+            if "lora" not in name and not param.any():
+                param.normal_(0.0, 0.05, generator=gen)
+    channels = model.latent_channels
+    batch = {"latents": torch.randn((1, 16, 16, channels), generator=gen, device=cuda)}
+    if family == "krea2":
+        batch.update({"text_embeds": torch.randn((1, 12, 3, 32), generator=gen, device=cuda),
+                      "text_attention_mask": (torch.arange(12, device=cuda) < 7).to(torch.int32)[None]})
+    else:
+        batch["text_embeds"] = torch.randn((1, 12, 32), generator=gen, device=cuda)
+    if family == "anima":
+        batch["t5_ids"] = torch.randint(1, 60, (1, 16), generator=gen, device=cuda).to(torch.int32)
     tx = get_optimizer(config, 1e-3)
     state = create_train_state(model, module, tx)
     step_fn = build_train_step(model, tx)
