@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch port of simpletuner-tpu once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                       # every phase, 1-38
+    python3 chip_smoke.py                       # every phase, 1-41
     python3 chip_smoke.py --phases 14-16,27,28  # the named phases, what they need, and 1-3 and 7
 
 With ``--phases`` the script runs the named phases, the phases whose files
@@ -10,7 +10,7 @@ T5-XXL and tokenizer and phase 16's JPEGs; 27 phase 14's CLIP-L, phase 15's
 CLIP tokenizer and phase 16's JPEGs; 28 phase 15's files; 29 phase 14's VAE and phase 16's
 JPEGs; 30 those, phase 15's T5-XXL and tokenizers and phase 19's CLIP-G; 31 none; 32 phase 16's JPEGs;
 33 and 34 phase 14's VAE and phase 16's JPEGs; 35 none; 36 and 38 phase 14's VAE and phase
-16's JPEGs; 37 those and phase 15's T5 tokenizer) and
+16's JPEGs; 37 those and phase 15's T5 tokenizer; 39 phase 16's JPEGs; 40 and 41 none) and
 phases 1, 2, 3 and 7 (the
 build, and every kernel against its plain version); a named family phase
 whose depth a full run cuts writes its full-depth file where the run's
@@ -63,7 +63,7 @@ exits non-zero with no result line):
    masked): first the JAX flagship's configuration, an int8 frozen base with
    quantized_matmul=full and remat policy attn, then an int4 base (attn), then
    a bf16 base with remat attn and full; the eager step, 2 warm-up and 2 timed
-   steps each (phase 12 times the int8 step over 20);
+   steps for the first, 1 and 1 for the others (2 and 2 before phases 39-41);
    counts the kernel launches of each run; the first run's device time by
    kernel bucket from one more step under torch.profiler;
 9. gradient parity: one step's LoRA gradients through the kernels against the
@@ -80,8 +80,9 @@ exits non-zero with no result line):
    steps from one snapshot of the adapters, the optimizer state and the
    generator (bitwise equal, or the difference printed and the graph held to
    it), then 5 graph replays from the same snapshot, whose losses, grad norms
-   and LoRA tensors must equal the eager ones bitwise; then 10 eager steps and
-   20 replays timed, one of each profiled (device time by bucket, idle share);
+   and LoRA tensors must equal the eager ones bitwise; then ``GRAPH_EAGER_TIMED_STEPS``
+   eager steps and ``GRAPH_TIMED_STEPS`` replays timed, and one replay profiled
+   (device time by bucket, idle share; phase 8 profiles the eager step);
    the launches of a profiled replay as the trace's kernel records give them
    on the card (76 / 57 / 57 flash, 1,069 torch._int_mm), which must equal
    what the capture recorded (a replay runs no wrapper, so the counters count
@@ -151,8 +152,9 @@ exits non-zero with no result line):
    (``POST /api/inference/start``: ``cli inference`` in a child process) from
    phase 17's checkpoint-8 (of the resumed run, whose LoRA is the straight
    run's), whose 1024x1024 PNG must equal phase 17's final validation image
-   byte for byte; the events stream (``/api/events``) must show both jobs
-   start and finish.  Prints the parent's allocation before the phase, each
+   byte for byte, run at the same time as the training job (the server has two
+   job slots; one after the other before phases 39-41); the events stream
+   (``/api/events``) must show both jobs start and finish.  Prints the parent's allocation before the phase, each
    job's wall time, the time to the first step, the children's peaks and the
    eval seconds.
 19. sd3: SD3.5 Large (stabilityai/stable-diffusion-3.5-large's
@@ -184,9 +186,9 @@ exits non-zero with no result line):
    channels 320 / 640 / 1280, transformer depths 1 / 2 / 10, cross-attention
    at all three levels where the published SDXL UNet has none at level 0,
    context 2048, added conditioning 2816; 2.58B parameters) at full width, its
-   level-2 transformer depth cut to 2 of 10 in a run of every phase
-   (``SDXL_CUT_LAYERS``: 0.92B, since phases 36-38; the preset's depths in a run that
-   names the phase).  Deletes phase 19's transformer and outputs; writes with
+   level-1 and level-2 transformer depths cut to 1 of 2 and 1 of 10 in a run of
+   every phase (``SDXL_CUT_LAYERS``; (1, 2, 2) since phases 36-38, (1, 1, 1) since
+   phases 39-41; the preset's depths in a run that names the phase).  Deletes phase 19's transformer and outputs; writes with
    the port's writer a seeded diffusers UNet (two shards, e4m3; bf16 in a run
    that names the phase where the writes leave room) and a 4-channel VAE beside hard links
    to phase 14's CLIP-L and tokenizer and phase 19's CLIP-G; imports the UNet
@@ -229,12 +231,12 @@ exits non-zero with no result line):
 22. auraflow: AuraFlow v0.3 at its published width (fal/AuraFlow-v0.3's
    ``transformer/config.json``: 4 joint + 32 single blocks, hidden 3072, 12
    heads of 256, SwiGLU 8192, 8 register tokens; 6.8B parameters) at 1024
-   px, at ``AURA_CUT_BLOCKS`` (2 + 4) blocks in a run of every phase.  Deletes phase 21's files; checks ``auraflow_step_flops`` against
+   px, at ``AURA_CUT_BLOCKS`` (1 + 2; 2 + 4 before phases 39-41) blocks in a run of every phase.  Deletes phase 21's files; checks ``auraflow_step_flops`` against
    ``torch.utils.flop_counter`` on two small configs; writes with the port's
    writer a seeded diffusers transformer (6.8 GB e4m3, two shards) and a
    seeded Pile-T5-XL (a ``umt5`` file: d_model 2048, 32 heads of 64, d_ff
-   5120, gated-silu, a relative attention bias in every layer; full width, 6
-   of its 24 blocks, bf16) beside hard links to phase 15's T5 tokenizer (as
+   5120, gated-silu, a relative attention bias in every layer; full width,
+   ``PHASE22_T5_LAYERS`` (2; 6 before phases 39-41) of its 24 blocks, bf16) beside hard links to phase 15's T5 tokenizer (as
    ``tokenizer_2``, the subfolder both packages' T5 spec reads) and phase
    20's 4-channel VAE; imports the transformer (s, GB/s; every tensor
    bitwise the written one taken to bf16); renders 1024x1024 through
@@ -487,7 +489,7 @@ exits non-zero with no result line):
    files; writes a seeded e4m3 diffusers UNet and a seeded ChatGLM3-6B trunk
    (``chatglm3_6b``: 4096 wide, 32 heads of 128 and 2 kv groups, fused
    ``query_key_value`` with biases, FFN 13,696, 65,024 tokens) at
-   ``GLM_FILE_LAYERS`` (2) of its 28 layers with ChatGLM's own
+   ``GLM_FILE_LAYERS`` (1; 2 before phases 39-41) of its 28 layers with ChatGLM's own
    ``config.json`` keys, a word-level tokenizer, and links phase 20's SDXL VAE
    (or writes a seeded one); encodes 16 prompts at 256 tokens through the
    ChatGLM encoder (prompts/s, bf16 against f32); imports the UNet (bitwise);
@@ -600,8 +602,53 @@ exits non-zero with no result line):
    and a caption's 64 T5 ids; imports (bitwise); a 1024 px true-CFG flow
    render; one forward against the plain attention (the adapter's attentions
    run the plain version, timed beside the kernel); ``Trainer.run()`` on an
-   int8 base: 6 graphed steps; last, the run's writes against
-   ``RUN_WRITE_LIMIT_GB`` less ``RUN_WRITE_MARGIN_GB``.
+   int8 base: 6 graphed steps.
+39. omnigen: OmniGen at the JAX preset's full width (Shitao/OmniGen-v1-diffusers'
+   ``transformer/``, ``OmniGenConfig()``: a 3072-wide Phi-3 decoder, 32 heads
+   of 96 (query and key/value), 32 layers, the fused gate_up SwiGLU, a 32,064-row
+   token table; 3.76B parameters).  Deletes phase 38's files; checks
+   ``omnigen_flops`` against the flop counter; writes a seeded e4m3 checkpoint
+   at ``OG_FILE_BLOCKS`` (2) of its 32 layers, a seeded word-level tokenizer at
+   Phi-3's 32,064 ids (``write_phi3_tokenizer``) and a 4-channel SD VAE (phase
+   20's linked where it is still on disk); tokenises 16 prompts and a caption
+   through ``OmniGen.encode_text`` (no text encoder: int32 ids and a float
+   mask at 120 tokens); imports (bitwise); a 1024 px true-CFG render (the
+   4,096 image rows of each layer through the kernels against all 4,217 keys
+   at head dim 96 zero-padded to 128, the 121 prefix rows a plain causal
+   block); one forward against the plain attention, right- and left-padded;
+   ``Trainer.run()`` on an int8 base (the SD VAE, the ids in the text cache):
+   6 graphed steps; in a run that names it, all 32 layers built in memory
+   and their graphed step timed.
+40. ernie: ERNIE-Image at the JAX preset's full width (baidu/ERNIE-4.5-VL-image's
+   ``transformer/``, ``ErnieConfig()``: 3072 wide, 24 heads of 128, 24 layers,
+   FFN 8192, 128 packed channels, a 2560 -> 3072 ``text_proj``; 2.82B
+   parameters).  Deletes phase 39's files; checks ``ernie_flops``; writes a
+   seeded e4m3 checkpoint at ``ER_FILE_BLOCKS`` (2) of 24 (its zero-init AdaLN
+   and final linear drawn), links phase 29's 2560-wide qwen2 trunk (kept by
+   phase 36; written here in a run without it), writes a word-level tokenizer;
+   encodes 16 prompts at 512 tokens through the ``qwen2.5`` spec (prompts/s,
+   bf16 against f32); imports (bitwise); one forward against the plain
+   attention over [4,096 image | 512 text] with the text lengths as key ids;
+   the flow Euler loop with true CFG over 32-channel latents, without a
+   decode; 6 graphed LoRA steps on an int8 base through ``build_train_step``
+   (the 32-channel wall stops ``Trainer.run()`` in both packages); in a run
+   that names it, all 24 layers in memory.
+41. ideogram: Ideogram at the JAX preset's full width (ideogram-ai/ideogram-v3-fp8's
+   ``transformer/``, ``IdeogramConfig()``: 4608 wide, 18 heads of 256, 34
+   layers, FFN 12,288, 13 taps of a 4096-wide trunk, 53,248 features; 9.28B
+   parameters).  Deletes phase 40's files; checks ``ideogram_flops``; writes a
+   seeded e4m3 checkpoint at ``ID_FILE_BLOCKS`` (1) of 34 with the whole
+   ``llm_cond_proj`` and a word-level tokenizer; builds a seeded 4096-wide
+   qwen2-layout trunk (Qwen3-VL-8B's text sizes) at ``ID_TRUNK_LAYERS`` (2) of
+   36 in memory, encodes 16 prompts at 512 tokens (prompts/s, bf16 against
+   f32) and a caption through ``Ideogram.encode_text`` (the auto-json caption,
+   13 taps spread over 3 states); the enhancer's greedy loop for
+   ``ID_UPSAMPLE_TOKENS`` tokens on a seeded 151,936 x 4096 head held on the
+   card; imports (bitwise); one forward against the plain attention at head
+   dim 256 (the text mask as segment ids, pads at 0); the CFG sampler loop
+   without a decode; 6 graphed LoRA steps through ``build_train_step``; in a
+   run that names it, all 34 layers in memory (9.2 GB of int8); last, the
+   run's writes against ``RUN_WRITE_LIMIT_GB`` less ``RUN_WRITE_MARGIN_GB``.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
 their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-32.
@@ -652,7 +699,13 @@ the text mask (300 of 512 valid) as key ids, held at 4 heads over one
 key/value head; the refiner's (1, 20, 512, 128), masked alike;
 ``CO_KERNEL_CASES``: the 2B's self-attention (1, 16, 4096, 128) and its cross
 against 512 T5 keys, the 14B's at 40 heads, unmasked, held at 2 heads;
-Anima's core has the 2B's shapes); at the long shapes the plain
+Anima's core has the 2B's shapes), and OmniGen's, ERNIE's and Ideogram's
+(``OG_KERNEL_CASES``: the image rows (1, 32, 4096 queries, 4217 keys, 96),
+query ids 1 and key ids 1 / -1 with 77 of 120 prompt keys valid, beside the
+plain prefix block's time (``omnigen_prefix_block``); ``ER_KERNEL_CASES``:
+the joint (1, 24, 4608, 128) with 300 of 512 text keys valid;
+``ID_KERNEL_CASES``: the joint (1, 18, 4608, 256), the text mask as the
+segment ids of both sides), held at 2 heads; at the long shapes the plain
 version is timed once, one head at a time, with no warm-up run (the first
 head warms it); phases 3 and 7 print the seconds of each of
 their sections (``section_s``).  Every phase
@@ -669,16 +722,21 @@ phase checks and times fewer phase-12 steps (``GRAPH_CHECK_STEPS`` and the
 timed counts), times the long kernel cases with fewer runs, and cuts SDXL's
 level 2 to 2 of its 10 transformer layers (``SDXL_CUT_LAYERS``), Wan and LTX
 to 5 blocks, Kandinsky 5.0 to 6 of its 32 visual blocks and Zlab-i1 to 5 of
-its 29 blocks in memory; PERF.md §7 holds the whole run's seconds and GB.
+its 29 blocks in memory; to make room for phases 39-41 it runs phase 18's two
+server jobs at once, times fewer phase-8 and phase-12 steps with one profile
+of the graphed replay, and cuts AuraFlow to 1 + 2 blocks with Pile-T5 at 2 of
+24, SDXL and Kolors to one transformer layer a level and ChatGLM to 1 layer;
+PERF.md §7 holds the whole run's seconds and GB.
 Then a JSON line with the kernels, each wrapper's head dim 256 instances,
 its Chroma row (the Flux shape's times) and its rows at Wan's, LTX's,
 Lumina2's, Kandinsky 5.0's, HunyuanVideo's, Qwen-Image's, Z-Image's,
 HiDream's, FLUX.2's, Kolors's, LongCat-Image's, Z-Image-Omni's, Zlab-i1's,
-Krea-2's and Cosmos's shapes beside it, and Anima's rows at Cosmos's shapes
+Krea-2's, Cosmos's, OmniGen's, ERNIE's and Ideogram's shapes beside it, and
+Anima's rows at Cosmos's shapes
 (launches: the profiler's count in phase 12's profiled replay, for the head
 dim 256 rows in phase 22's, for the Chroma rows in phase 25's, and for the
 other rows the wrappers' count at that shape per step in phase 23's, 24's and
-26's-38's runs, per forward for Z-Image-Omni's omni shape),
+26's-41's runs, per forward for Z-Image-Omni's omni shape),
 and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
 register, spill and warning lines per kernel (a C7514 warning means ptxas
@@ -726,9 +784,10 @@ PARITY_DOUBLE, PARITY_SINGLE = 2, 4
 # phase 12: steps held bitwise against the eager step, and the eager steps and
 # graph replays timed (the replays are the flagship's number: their median;
 # 20 replays spread by 0.1% on the card, so 5 give the same median; the eager step
-# is a yardstick; 2 checked, 3 eager and 5 replays timed keep the script's time
-# in its limit, 5, 6 and 10 before phases 36-38)
-GRAPH_CHECK_STEPS, GRAPH_EAGER_TIMED_STEPS, GRAPH_TIMED_STEPS = 2, 3, 5
+# is a yardstick; 2 checked, 2 eager and 3 replays timed keep the script's time
+# in its limit, 3 and 5 before phases 39-41, 5, 6 and 10 before phases 36-38);
+# the eager step is profiled in phase 8 and the replay once, by the launch check
+GRAPH_CHECK_STEPS, GRAPH_EAGER_TIMED_STEPS, GRAPH_TIMED_STEPS = 2, 2, 3
 # H100 SXM: dense bf16 tensor-core peak and device-memory rate (bounds only)
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 # phase 14: the cut depth of the two-layout Flux checkpoints (full width); the
@@ -833,8 +892,8 @@ AURA_T5_LEN = 256
 AURA_TXT = 8 + AURA_T5_LEN  # the register tokens, then the caption
 AURA_S = AURA_TXT + (RESOLUTION // 16) ** 2
 AURA_SIGMA = 0.7  # the full-depth parity forward's sigma
-PHASE22_T5_LAYERS = 6
-PHASE22_WRITE_GB = 2.2  # at the cut depth (AURA_CUT_BLOCKS)
+PHASE22_T5_LAYERS = 2  # 6 before phases 39-41
+PHASE22_WRITE_GB = 1.15  # at the cut depths (AURA_CUT_BLOCKS, PHASE22_T5_LAYERS): 1.08 GB measured (2.17 at 2 + 4 and 6)
 # phases 3 and 7 at head dim 256, the head dim 256 kernels: (name, (batch,
 # heads, seq, head dim), segment ids): AuraFlow's (1, 12, 4360, 256) with no
 # caller mask (4360 is no multiple of the 64- and 32-row tiles, so the
@@ -1112,9 +1171,9 @@ KOLORS_PROMPT = "a lighthouse on a basalt cliff at dusk"
 KOLORS_TEXT = 256
 KOLORS_GUIDANCE, KOLORS_PARITY_T = 5.0, 500
 KOLORS_TRAIN_STEPS, KOLORS_TRAIN_IMAGES = 6, 4
-KOLORS_CUT_LAYERS = (1, 2, 2)
-GLM_FILE_LAYERS = 2
-PHASE32_WRITE_GB = 1.95  # at the cut depths (KOLORS_CUT_LAYERS, GLM_FILE_LAYERS): 1.86 GB measured
+KOLORS_CUT_LAYERS = (1, 1, 1)  # (1, 2, 2) before phases 39-41
+GLM_FILE_LAYERS = 1  # 2 before phases 39-41
+PHASE32_WRITE_GB = 1.35  # at the cut depths (KOLORS_CUT_LAYERS, GLM_FILE_LAYERS): 1.28 GB measured (1.85 at (1, 2, 2) and 2)
 KOLORS_KERNEL_CASES = tuple(case for level, (heads, seq) in enumerate(SDXL_LEVELS) for case in (
     (f"kolors_l{level}_self", heads, seq, seq, 64), (f"kolors_l{level}_cross", heads, seq, KOLORS_TEXT, 64)))
 KOLORS_CHECK_HEADS = 2
@@ -1253,16 +1312,83 @@ PHASE38_WRITE_GB = 0.75  # 0.68 GB measured: 0.43 GB the transformer, 0.19 GB th
 # cross into the 256 Qwen states, unmasked; forward only on the path (the
 # adapter has no LoRA and its inputs take no gradient), so phase 3 alone holds them
 AN_ADAPTER_CASES = (("an_self", 16, AN_T5, AN_T5, 64), ("an_cross", 16, AN_T5, AN_TEXT, 64))
+# phase 39: OmniGen (Shitao/OmniGen-v1-diffusers' transformer/ as the JAX
+# preset OmniGenConfig() builds it: a 3072-wide Phi-3 decoder, 32 query and 32
+# key/value heads of 96, 32 layers, the fused gate_up SwiGLU 16,384 wide, a
+# 32,064-row token table; 3.76B parameters), its checkpoint at OG_FILE_BLOCKS
+# of 32 with a seeded word-level tokenizer at Phi-3's 32,064 ids: 120 prompt
+# tokens (OG_VALID valid in the kernel cases), the time token and 4,096 image
+# tokens, 4,217 in the joint sequence; the image rows (4,096 queries against
+# every key, the text pads masked as keys) through the flash kernels at head
+# dim 96 zero-padded to 128, the 121 prefix rows a plain causal block; all 32
+# layers in memory in a named run
+OG_PROMPT = "a lighthouse on a basalt cliff at dusk"
+OG_TEXT, OG_VALID = 120, 77
+OG_PREFIX = OG_TEXT + 1
+OG_JOINT = OG_PREFIX + LC_IMG
+OG_GUIDANCE = 3.0
+OG_SIGMA = 0.7
+OG_TRAIN_STEPS, OG_TRAIN_IMAGES = 6, 4
+OG_FILE_BLOCKS = 2
+OG_VOCAB = 32064
+PHASE39_WRITE_GB = 0.45  # 0.40 GB measured: the 0.36 GB file and the caches (0.17 GB more where phase 20's VAE is gone)
+OG_KERNEL_CASES = (("og_image_rows", 32, LC_IMG, OG_JOINT, 96, "og_keys"),)
+OG_CHECK_HEADS = 2
+# phase 40: ERNIE-Image (baidu/ERNIE-4.5-VL-image's transformer/ as the JAX
+# preset ErnieConfig() builds it: 3072 wide, 24 heads of 128, 24 layers, FFN
+# 8192, 128 packed input channels, a 2560 -> 3072 text_proj; 2.82B
+# parameters), its checkpoint at ER_FILE_BLOCKS of 24, phase 29's 2560-wide
+# qwen2-layout trunk linked (the qwen2.5 spec's final-norm states at 512
+# tokens): the joint [4,096 image | 512 text] with query ids 1 and key ids 1
+# for the image and the first ER_VALID text tokens (the pads at -1); its
+# 32-channel latents meet the 16-channel Flux VAE the trainer builds, so the
+# step goes through build_train_step and the sampler loop stops before a
+# decode; all 24 layers in memory in a named run
+ER_PROMPT = "a lighthouse on a basalt cliff at dusk"
+ER_TEXT, ER_VALID = 512, 300
+ER_JOINT = LC_IMG + ER_TEXT
+ER_GUIDANCE = 4.0
+ER_SIGMA = 0.7
+ER_TRAIN_STEPS = 6
+ER_FILE_BLOCKS = 2
+PHASE40_WRITE_GB = 0.35  # 0.33 GB measured, the file
+ER_KERNEL_CASES = (("er_joint", 24, ER_JOINT, ER_JOINT, 128, "er_joint"),)
+ER_CHECK_HEADS = 2
+# phase 41: Ideogram (ideogram-ai/ideogram-v3-fp8's transformer/ as the JAX
+# preset IdeogramConfig() builds it: 4608 wide, 18 heads of 256, 34 layers, FFN
+# 12,288, 13 taps of a 4096-wide Qwen3-VL trunk concatenated to 53,248
+# features; 9.28B parameters), its checkpoint at ID_FILE_BLOCKS of 34 with the
+# whole llm_cond_proj, a seeded 4096-wide qwen2-layout trunk (Qwen3-VL-8B's
+# text sizes) at ID_TRUNK_LAYERS of 36 built in memory (its loader held on the
+# CPU; 13 taps spread over its 3 states): the joint [512 text | 4,096 image]
+# at head dim 256 with the text mask as segment ids (ID_VALID valid, the pads
+# at 0 attending to each other); build_train_step and the sampler loop without
+# a decode, as ERNIE's; the enhancer's greedy loop for ID_UPSAMPLE_TOKENS on a
+# seeded LM head held on the card (151,936 x 4096 f32: not written); all 34
+# layers in memory in a named run
+ID_PROMPT = "a lighthouse on a basalt cliff at dusk"
+ID_TEXT, ID_VALID = 512, 300
+ID_JOINT = ID_TEXT + LC_IMG
+ID_GUIDANCE = 4.0
+ID_SIGMA = 0.7
+ID_TRAIN_STEPS = 6
+ID_FILE_BLOCKS, ID_TRUNK_LAYERS = 1, 2
+ID_UPSAMPLE_TOKENS = 8
+PHASE41_WRITE_GB = 0.6  # 0.56 GB measured, the file
+ID_KERNEL_CASES = (("id_joint", 18, ID_JOINT, ID_JOINT, 256, "id_joint"),)
+ID_CHECK_HEADS = 2
 # the depth of the earlier families' seeded files in a run of every phase
 # (full width; the kernels' shapes depend on width and tokens, not depth),
 # cut to make room for phases 25-32 in the write budget: SD3.5 Large at 2 of
-# its 38 blocks (6 before phases 31-32), AuraFlow v0.3 at 2 + 4 of its 4 + 32,
+# its 38 blocks (6 before phases 31-32), AuraFlow v0.3 at 1 + 2 of its 4 + 32
+# (2 + 4 before phases 39-41; both block kinds and the D = 256 shapes kept),
 # Wan 2.1 T2V-1.3B at 5 of 30, LTX-Video 2B at 5 of 28 (10 and 10 before
 # phases 36-38), Chroma at 1 + 2 of
 # its 19 + 38 (2 + 4 before phases 31-32; its kernel shapes are Flux's),
 # Gemma-2 2B at GEMMA_FILE_LAYERS of 26, Kandinsky 5.0
-# Lite at 6 of its 32 visual blocks (16 before phases 36-38), SDXL's level 2 at
-# 2 of its 10 transformer layers (since phases 36-38), Zlab-i1 at 5 of its 29
+# Lite at 6 of its 32 visual blocks (16 before phases 36-38), SDXL's levels 1
+# and 2 at 1 of their 2 and 10 transformer layers (1 + 2 + 2 since phases
+# 36-38, 1 + 1 + 1 since phases 39-41; Kolors alike), Zlab-i1 at 5 of its 29
 # blocks in memory (all 29 before),
 # HunyuanVideo 1.5 at 6 of 54, Qwen-Image at 2 of 60 and HiDream-I1 at 1 + 1
 # of its 16 + 32 (4 and 2 + 2 before phases 31-32 needed the room), FLUX.2 at
@@ -1272,12 +1398,12 @@ AN_ADAPTER_CASES = (("an_self", 16, AN_T5, AN_T5, 64), ("an_cross", 16, AN_T5, A
 # refiners 1 deep of 2; a run that names one of these phases (--phases)
 # writes it at full depth where its writes leave room
 SD3_CUT_BLOCKS = 2
-AURA_CUT_BLOCKS = (2, 4)
+AURA_CUT_BLOCKS = (1, 2)
 WAN_CUT_BLOCKS = 5
 LTX_CUT_BLOCKS = 5
 CHROMA_CUT_BLOCKS = (1, 2)
 K5_CUT_BLOCKS = 6
-SDXL_CUT_LAYERS = (1, 2, 2)
+SDXL_CUT_LAYERS = (1, 1, 1)
 ZL_MEMORY_BLOCKS = 5
 HY_CUT_BLOCKS = 6
 QI_CUT_BLOCKS = 2
@@ -1303,19 +1429,21 @@ _STARTED = time.perf_counter()
 # what each family phase writes at its depth in a run of every phase (a little above
 # what a run of every phase writes), for the reservations each of phases 19-32
 # makes for the later phases of the run
-PHASE_WRITE_GB = {19: 1.5, 20: 1.3, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB, 23: PHASE23_WRITE_GB,
+PHASE_WRITE_GB = {19: 1.5, 20: 1.0, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB, 23: PHASE23_WRITE_GB,
                   24: PHASE24_WRITE_GB, 25: PHASE25_WRITE_GB, 26: PHASE26_WRITE_GB, 27: PHASE27_WRITE_GB,
                   28: PHASE28_WRITE_GB, 29: PHASE29_WRITE_GB, 30: PHASE30_WRITE_GB, 31: PHASE31_WRITE_GB,
                   32: PHASE32_WRITE_GB, 33: PHASE33_WRITE_GB, 34: PHASE34_WRITE_GB, 35: PHASE35_WRITE_GB,
-                  36: PHASE36_WRITE_GB, 37: PHASE37_WRITE_GB, 38: PHASE38_WRITE_GB}
+                  36: PHASE36_WRITE_GB, 37: PHASE37_WRITE_GB, 38: PHASE38_WRITE_GB, 39: PHASE39_WRITE_GB,
+                  40: PHASE40_WRITE_GB, 41: PHASE41_WRITE_GB}
 # the phases whose files (or, for 5 and 6, whose runtime) a phase needs before
 # it; 1, 2, 3 and 7 run in every run (the build, and the kernels line's times)
 PHASE_NEEDS = {4: (14, 15, 16), 5: (4,), 6: (5,), 15: (14,), 16: (14,), 17: (14, 15, 16), 18: (17,),
                19: (14, 15, 16), 20: (19,), 21: (20,), 22: (20,), 23: (15, 16), 24: (15, 16), 25: (14, 15, 16),
                26: (14, 16), 27: (14, 15, 16), 28: (14, 15), 29: (14, 16), 30: (14, 15, 16, 19), 31: (),
-               32: (14, 16), 33: (14, 16), 34: (14, 16), 35: (), 36: (14, 16), 37: (14, 15, 16), 38: (14, 16)}
+               32: (14, 16), 33: (14, 16), 34: (14, 16), 35: (), 36: (14, 16), 37: (14, 15, 16), 38: (14, 16),
+               39: (16,), 40: (), 41: ()}
 ALWAYS = (1, 2, 3, 7)
-LAST_PHASE = 38
+LAST_PHASE = 41
 # the phases named on the command line (None: every phase) and those the run takes
 RUN = {"requested": None, "phases": set(range(1, LAST_PHASE + 1))}
 
@@ -1654,6 +1782,11 @@ def kernel_cases():
     marks.append(("krea2", time.perf_counter()))
     times["cosmos"], co_entries = long_forward_cases(CO_KERNEL_CASES + AN_ADAPTER_CASES, CO_CHECK_HEADS, 1220, errors)
     marks.append(("cosmos", time.perf_counter()))
+    times["omnigen"], og_entries = long_forward_cases(OG_KERNEL_CASES, OG_CHECK_HEADS, 1260, errors)
+    times["omnigen"]["og_prefix_block"] = omnigen_prefix_block()
+    times["ernie"], er_entries = long_forward_cases(ER_KERNEL_CASES, ER_CHECK_HEADS, 1300, errors)
+    times["ideogram"], id_entries = long_forward_cases(ID_KERNEL_CASES, ID_CHECK_HEADS, 1340, errors)
+    marks.append(("omnigen_ernie_ideogram", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
@@ -1667,7 +1800,39 @@ def kernel_cases():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_masked_ms,
             "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}, fwd256_entry, \
         {**wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries, **hd_entries,
-         **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries, **k2_entries, **co_entries}
+         **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries, **k2_entries, **co_entries,
+         **og_entries, **er_entries, **id_entries}
+
+
+def omnigen_prefix_block() -> dict:
+    """OmniGen's prefix rows at 1024 px (``OG_PREFIX`` = 121 text and time
+    queries against the prefix keys, causal, the prompt pads masked as keys;
+    32 heads of 96, bf16): the plain block (``prefix_attention``) timed on the
+    card beside the bound of its attended pairs, and held to a float64
+    causal softmax on the card (within ``OUT_REL_L2``); no kernel runs it."""
+    import torch
+
+    from simpletuner_tpu_torch.models.omnigen.transformer import prefix_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(1250)
+    q, k, v = (torch.randn((1, OG_PREFIX, 32, 96), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    key_ok = torch.ones((1, OG_PREFIX), dtype=torch.bool, device="cuda")
+    key_ok[:, OG_VALID:OG_TEXT] = False
+    out = prefix_attention(q, k, v, key_ok)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * 96 ** -0.5
+    allowed = torch.ones((OG_PREFIX, OG_PREFIX), dtype=torch.bool, device="cuda").tril()[None, None] & \
+        key_ok[:, None, None, :]
+    p = torch.softmax(s.masked_fill(~allowed, float("-inf")), dim=-1).nan_to_num()
+    ref = torch.einsum("bhqk,bkhd->bqhd", p, v.double())
+    err = rel_l2(out, ref)
+    if not (torch.isfinite(out.float()).all() and err <= OUT_REL_L2):
+        raise RuntimeError(f"omnigen prefix block: rel L2 {err} (<= {OUT_REL_L2})")
+    pairs = int(allowed.sum())
+    bound_ms, bound_by = _attention_bound_ms(2, pairs, 32, 96, 4 * OG_PREFIX * 32 * 96 * 2)
+    return {"shape": [1, 32, OG_PREFIX, OG_PREFIX, 96], "plain_ms": cuda_ms(lambda: prefix_attention(q, k, v, key_ok), 5),
+            "bound_ms": bound_ms, "bound_by": bound_by, "attended_pairs": pairs, "rel_l2_vs_float64": err,
+            "plain_call": "models/omnigen/transformer.py::prefix_attention (f32, causal, the pads as keys)"}
 
 
 def backward_cases():
@@ -1809,6 +1974,10 @@ def backward_cases():
     marks.append(("krea2", time.perf_counter()))
     times["cosmos"], co_entries = long_backward_cases(CO_KERNEL_CASES, CO_CHECK_HEADS, 1240, errors)
     marks.append(("cosmos", time.perf_counter()))
+    times["omnigen"], og_entries = long_backward_cases(OG_KERNEL_CASES, OG_CHECK_HEADS, 1280, errors)
+    times["ernie"], er_entries = long_backward_cases(ER_KERNEL_CASES, ER_CHECK_HEADS, 1320, errors)
+    times["ideogram"], id_entries = long_backward_cases(ID_KERNEL_CASES, ID_CHECK_HEADS, 1360, errors)
+    marks.append(("omnigen_ernie_ideogram", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
@@ -1822,7 +1991,7 @@ def backward_cases():
         for kernel in ("dq", "dkv")
     }, **d256_entries, **wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries,
         **hd_entries, **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries, **k2_entries,
-        **co_entries}
+        **co_entries, **og_entries, **er_entries, **id_entries}
 
 
 def _ddpm_inputs(seed, heads, sq, sk, dim, n):
@@ -2129,15 +2298,29 @@ def _case_planes(sq: int, sk: int, plane):
     other text keys at 0 (the text mask as the key ids); for "k2_joint" and
     "k2_refiner" Krea-2's: every query at 1, the first ``K2_VALID`` of the
     ``K2_TEXT`` text keys (first in the sequence) and every image key at 1,
-    the text pads at -1."""
+    the text pads at -1; for "og_keys" OmniGen's image-row call: every query
+    at 1, the first ``OG_VALID`` of the ``OG_TEXT`` prompt keys, the time key
+    and every image key at 1, the prompt pads at -1; for "er_joint" ERNIE's:
+    every query at 1, the ``LC_IMG`` image keys and the first ``ER_VALID``
+    text keys at 1, the text pads at -1; for "id_joint" Ideogram's: the text
+    mask as the ids of both sides, the first ``ID_VALID`` of the ``ID_TEXT``
+    text tokens and every image token at 1, the text pads at 0."""
     import torch
 
-    if plane not in ("zl_joint", "k2_joint", "k2_refiner"):
+    if plane == "id_joint":
+        seg = torch.ones((1, sq), dtype=torch.int32, device="cuda")
+        seg[:, ID_VALID:ID_TEXT] = 0
+        return seg, seg
+    if plane not in ("zl_joint", "k2_joint", "k2_refiner", "og_keys", "er_joint"):
         seg = _case_segments(sq, plane)
         return seg, seg
     kv = torch.ones((1, sk), dtype=torch.int32, device="cuda")
     if plane == "zl_joint":
         kv[:, LC_IMG + ZL_VALID:] = 0
+    elif plane == "og_keys":
+        kv[:, OG_VALID:OG_TEXT] = -1
+    elif plane == "er_joint":
+        kv[:, LC_IMG + ER_VALID:] = -1
     else:
         kv[:, K2_VALID:K2_TEXT] = -1
     return torch.ones((1, sq), dtype=torch.int32, device="cuda"), kv
@@ -2366,8 +2549,12 @@ def train_steps(kernels) -> None:
         norms = []
         for kernel in kernels:
             kernel.launches = 0
-        with record_backward_norms(norms, calls=2 * blocks):
-            result = flagship(steps=2, warmup=2, profile=label == TRAIN_RUNS[0][0], graph=False, **kwargs)
+        # the first run (phase 12's step, profiled here) 2 warm-up and 2 timed
+        # steps, the others 1 and 1 (2 and 2 before phases 39-41)
+        first = label == TRAIN_RUNS[0][0]
+        warmup = 2 if first else 1
+        with record_backward_norms(norms, calls=warmup * blocks):
+            result = flagship(steps=warmup, warmup=warmup, profile=first, graph=False, **kwargs)
         counts[label] = {kernel.name: kernel.launches for kernel in kernels}
         per_step = result["launches_per_step"]
         norms = torch.stack(norms).cpu()
@@ -2379,7 +2566,7 @@ def train_steps(kernels) -> None:
             problems.append("the LoRA weights did not move")
         if per_step != {"flash_fwd": expected_fwd[policy], "flash_bwd_dq": blocks, "flash_bwd_dkv": blocks}:
             problems.append(f"launches per step {per_step}")
-        if len(norms) != 2 * blocks or not (norms > 0).all():
+        if len(norms) != warmup * blocks or not (norms > 0).all():
             problems.append(f"zero dO/dq/dk/dv reaching the kernels: {norms.min(dim=0).values.tolist()}")
         if result["quant"] != kwargs["quant"] or result["quantized_matmul"] != kwargs["quantized_matmul"]:
             problems.append(f"the run used quant={result['quant']}, quantized_matmul={result['quantized_matmul']}")
@@ -2489,7 +2676,7 @@ def graph_step(kernels):
     second = trajectory(run.step_fn)
     restore()
     eager_diff = max_diff(first, second)  # losses, grad norms, LoRA tensors
-    eager = time_steps(run.step_fn, state, batch, gen, GRAPH_EAGER_TIMED_STEPS, 0, profile=True)
+    eager = time_steps(run.step_fn, state, batch, gen, GRAPH_EAGER_TIMED_STEPS, 0)
     eager.pop("state")
     restore()
 
@@ -2504,7 +2691,7 @@ def graph_step(kernels):
     captured = {counter.name: count for counter, count in graphed.captured_launches.items()}
     replayed = trajectory(graphed)
     graph_diff = max_diff(replayed, first)
-    timed = time_steps(graphed, state, batch, gen, GRAPH_TIMED_STEPS, 0, profile=True)
+    timed = time_steps(graphed, state, batch, gen, GRAPH_TIMED_STEPS, 0)
     timed.pop("state")
     # the wrappers count where they launch: the warm-up steps and the capture
     wrapper_counts = {counter.name: counter.launches for counter in counters}
@@ -2513,6 +2700,7 @@ def graph_step(kernels):
     checked = replay_launches(lambda: graphed(state, batch, gen), captured,
                               {**{kernel.name: kernel.name for kernel in kernels}, "int_mm": "int8_gemm"})
     device = checked["launch_attempts"][-1]
+    checked["idle_share_vs_median"] = 1 - checked["device_ms"] / 1e3 / timed["s_per_step_median"]
     problems = []
     if any(d > e for d, e in zip(graph_diff, eager_diff)):
         problems.append(f"graph replays differ from the eager steps by {graph_diff} (two eager runs: {eager_diff})")
@@ -2534,7 +2722,8 @@ def graph_step(kernels):
           eager_vs_eager_max_diff=eager_diff, capture_s=capture_s, capture_peak_gib=capture_peak,
           launches_captured=captured, launches_profiled_replay=device, launch_attempts=checked["launch_attempts"],
           wrapper_counts_warmup_and_capture=wrapper_counts,
-          eager={**summary(eager), "profile": eager["profile"]}, graph={**summary(timed), "profile": timed["profile"]},
+          eager={**summary(eager), "profile": "phase 8 (int8 attn) profiles the eager step"},
+          graph={**summary(timed), "profile": {k: v for k, v in checked.items() if k != "launch_attempts"}},
           speedup_median=eager["s_per_step_median"] / timed["s_per_step_median"])
     del graphed, run, state, saved
     torch.cuda.empty_cache()
@@ -2719,9 +2908,11 @@ def server_phase(phase17: dict, device: str) -> None:
     a training job (phase 17's straight run with an eval split added: two of
     phase 16's JPEGs that phase 17 does not train on, ``eval_steps_interval``
     4) in a child process, whose losses and final LoRA must equal phase 17's
-    bitwise and which logs a finite eval loss at steps 4 and 8; then a render
-    job, ``cli inference`` from phase 17's checkpoint-8 in a child process,
-    whose PNG must equal phase 17's final validation image byte for byte.
+    bitwise and which logs a finite eval loss at steps 4 and 8; and at the
+    same time (the server runs two jobs at once; one after the other before
+    phases 39-41) a render job, ``cli inference`` from phase 17's
+    checkpoint-8 in a second child process, whose PNG must equal phase 17's
+    final validation image byte for byte.
     The events stream (``/api/events``) must show both jobs start and
     finish."""
     import ast
@@ -2762,7 +2953,10 @@ def server_phase(phase17: dict, device: str) -> None:
     with open(render_config, "w") as handle:
         json.dump(phase17["config"], handle)
 
-    srv = create_server("127.0.0.1", 0, state_dir=os.path.join(work, "server_state"), device="cuda")
+    # two job slots: the training job and the render job (which renders from
+    # phase 17's checkpoint, not the job's) run at once, one child each
+    srv = create_server("127.0.0.1", 0, state_dir=os.path.join(work, "server_state"), device="cuda",
+                        max_concurrent_jobs=2)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     port = srv.server_address[1]
 
@@ -2789,10 +2983,14 @@ def server_phase(phase17: dict, device: str) -> None:
 
     threading.Thread(target=listen, daemon=True).start()
 
-    def run_job(path, body, timeout):
+    def submit(path, body):
         status, job = api("POST", path, body)
         if status != 201:
             raise RuntimeError(f"server: {path} answered {status} {job}")
+        return path, job
+
+    def wait(submitted, timeout):
+        path, job = submitted
         deadline = time.time() + timeout
         while time.time() < deadline:
             _, info = api("GET", f"/api/training/status/{job['job_id']}")
@@ -2816,7 +3014,13 @@ def server_phase(phase17: dict, device: str) -> None:
         if status != 200 or not valid.get("valid"):
             raise RuntimeError(f"server: config validation answered {status} {valid}")
 
-        train_info, train_logs = run_job("/api/training/start", {"config": config}, timeout=900)
+        render_out = os.path.join(work, "server_render")
+        train_job = submit("/api/training/start", {"config": config})
+        render_job = submit("/api/inference/start", {
+            "checkpoint": phase17["checkpoint"], "prompt": TRAIN_PROMPT, "steps": TRAIN_VALIDATION_STEPS,
+            "seed": 42, "resolution": RESOLUTION, "config": render_config, "output": render_out})
+        train_info, train_logs = wait(train_job, timeout=900)
+        render_info, render_logs = wait(render_job, timeout=600)
         with open(os.path.join(config["output_dir"], "simpletuner-tpu-metrics.jsonl")) as handle:
             metrics = [json.loads(line) for line in handle]
         steps = [m for m in metrics if "loss" in m]
@@ -2837,10 +3041,6 @@ def server_phase(phase17: dict, device: str) -> None:
         eval_s = [float(m.group(1)) for m in (re.search(r"eval_loss \S+ at step \d+ \(([\d.]+) s\)", line)
                                               for line in train_logs) if m]
 
-        render_out = os.path.join(work, "server_render")
-        render_info, render_logs = run_job("/api/inference/start", {
-            "checkpoint": phase17["checkpoint"], "prompt": TRAIN_PROMPT, "steps": TRAIN_VALIDATION_STEPS,
-            "seed": 42, "resolution": RESOLUTION, "config": render_config, "output": render_out}, timeout=600)
         png = os.path.join(render_out, "validation", f"step_{TRAIN_STEPS}_0.png")
         check_png(png, RESOLUTION, RESOLUTION)
         with open(png, "rb") as a, open(phase17["png"], "rb") as b:
@@ -2871,7 +3071,9 @@ def server_phase(phase17: dict, device: str) -> None:
           time_to_first_step_s=steps[0]["time"] - train_info["started_at"],
           train_child_peak_gib=max((v.get("peak_gib", 0.0) for v in stages.values()), default=None),
           train_child_stage_peak_gib={k: v.get("peak_gib") for k, v in stages.items()},
-          render_job_s=render_info["finished_at"] - render_info["started_at"],
+          render_job_s=render_info["finished_at"] - render_info["started_at"], jobs_at_once=2,
+          jobs_overlap_s=min(train_info["finished_at"], render_info["finished_at"])
+          - max(train_info["started_at"], render_info["started_at"]),
           render_child_peak_gib=render_peak[-1] if render_peak else None,
           parent_gib_before_phase=parent_gib, hardware=kinds, seconds=time.perf_counter() - start, device=device)
 
@@ -8227,6 +8429,77 @@ def anima_step_flops(arch, batch: int, img_tokens: int, t5_tokens: int, source_t
     return 3 * trained + frozen
 
 
+def omnigen_flops(arch, batch: int, img_tokens: int, txt_tokens: int) -> tuple:
+    """Model FLOPs of one OmniGen forward, counted from the config, as (the
+    part the backward runs through, the rest): per layer q, k, v and out
+    (query and key/value heads), the fused gate_up SwiGLU over every token of
+    [prompt | time | image], the image rows' two products against every key
+    and the prefix block's two products over the prompt and time token; the
+    head over the image tokens; then the patch embed, the two timestep MLPs
+    and the final AdaLN, which carry no adapter and take no gradient input."""
+    h, heads, kv_heads, inner = arch.hidden_size, arch.num_heads, arch.num_kv_heads, arch.intermediate_size
+    hd = h // heads
+    prefix = txt_tokens + 1
+    seq = prefix + img_tokens
+    patch = arch.patch_size ** 2 * arch.in_channels
+    block = seq * (2 * h * (heads + 2 * kv_heads) * hd + 2 * heads * hd * h + 6 * h * inner)
+    block += 4 * img_tokens * seq * heads * hd + 4 * prefix * prefix * heads * hd
+    trained = arch.num_layers * block + 2 * img_tokens * h * patch
+    frozen = 2 * img_tokens * patch * h + 2 * (2 * arch.time_step_dim * h + 2 * h * h) + 4 * h * h
+    return batch * trained, batch * frozen
+
+
+def omnigen_step_flops(arch, batch: int, img_tokens: int, txt_tokens: int) -> int:
+    """Model FLOPs of one OmniGen train step (the adapted part x 3, the rest once)."""
+    trained, frozen = omnigen_flops(arch, batch, img_tokens, txt_tokens)
+    return 3 * trained + frozen
+
+
+def ernie_flops(arch, batch: int, img_tokens: int, txt_tokens: int) -> tuple:
+    """Model FLOPs of one ERNIE-Image forward as (the adapted part, the
+    rest): ``x_embedder`` over the image tokens, per layer the four
+    projections, the gated FFN and the joint attention's two products over
+    [image | text], ``final_linear`` over every joint token (the image rows
+    are sliced after it); then ``text_proj`` over the text and per sample the
+    time MLP, the shared 6-way AdaLN and the final AdaLN, which take no
+    gradient input."""
+    h, inner = arch.hidden_size, arch.ffn_hidden_size
+    seq = img_tokens + txt_tokens
+    block = seq * (8 * h * h + 6 * h * inner) + 4 * seq * seq * h
+    trained = 2 * img_tokens * arch.in_channels * h + arch.num_layers * block + 2 * seq * h * arch.out_channels
+    frozen = (2 * txt_tokens * arch.text_in_dim * h if arch.text_in_dim != h else 0) + 4 * h * h + 12 * h * h + 4 * h * h
+    return batch * trained, batch * frozen
+
+
+def ernie_step_flops(arch, batch: int, img_tokens: int, txt_tokens: int) -> int:
+    """Model FLOPs of one ERNIE-Image train step (the adapted part x 3, the rest once)."""
+    trained, frozen = ernie_flops(arch, batch, img_tokens, txt_tokens)
+    return 3 * trained + frozen
+
+
+def ideogram_flops(arch, batch: int, img_tokens: int, txt_tokens: int) -> tuple:
+    """Model FLOPs of one Ideogram forward (per-sample t) as (the adapted
+    part, the rest): ``input_proj`` and ``llm_cond_proj`` over every packed
+    token (each zeroed where the other applies), per layer the fused qkv,
+    ``o``, the SwiGLU and the joint attention's two products,
+    ``final_linear`` over every token; then per sample the time MLP,
+    ``adaln_proj``, each layer's 4-way ``adaln_modulation`` and the final
+    AdaLN, which take no gradient input."""
+    d, inner, a = arch.emb_dim, arch.intermediate_size, arch.adanln_dim
+    seq = img_tokens + txt_tokens
+    block = seq * (8 * d * d + 6 * d * inner) + 4 * seq * seq * d
+    trained = 2 * seq * (arch.in_channels + arch.llm_features_dim) * d + arch.num_layers * block
+    trained += 2 * seq * d * arch.in_channels
+    frozen = 4 * d * d + 2 * d * a + arch.num_layers * 8 * a * d + 2 * a * d
+    return batch * trained, batch * frozen
+
+
+def ideogram_step_flops(arch, batch: int, img_tokens: int, txt_tokens: int) -> int:
+    """Model FLOPs of one Ideogram train step (the adapted part x 3, the rest once)."""
+    trained, frozen = ideogram_flops(arch, batch, img_tokens, txt_tokens)
+    return 3 * trained + frozen
+
+
 def _x3(flops):
     """``flops`` (a (trained, frozen) counter) summed and tripled: what
     ``_flop_checks`` divides by 3 to hold against the forward's count."""
@@ -8335,6 +8608,10 @@ def krea2_phase(paths: dict, kernels, device: str, full_in_memory: bool) -> dict
     else:
         trunk_files = {"written_by_phase": 36, "layers": [ZI_TRUNK_LAYERS, 36], "write_s": write_llm_trunk(
             os.path.join(k2_dir, "text_encoder"), trunk, gen, QWEN3_HF)}
+    keep = os.path.join(work, "qwen3_4b_trunk")  # the trunk's links for phase 40 (nothing is written)
+    if not os.path.isdir(keep):
+        _link_tree(os.path.join(k2_dir, "text_encoder"), keep)
+    paths["zi_trunk"] = keep
     shutil.rmtree(os.path.join(work, "z_image"), ignore_errors=True)  # phase 29's trunk: linked, disk space
     _link_tree(os.path.join(flux_dir, "vae"), os.path.join(k2_dir, "vae"))
     prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
@@ -8831,20 +9108,673 @@ def anima_phase(paths: dict, kernels, device: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(an_dir, ignore_errors=True)
-    writes = check_run_writes()
     phase("38 anima", config="circulus/anima transformer/ as the JAX preset AnimaConfig() builds it",
           params=sum(math.prod(v) for v in anima_checkpoint_shapes(full).values()), hidden=full.core.hidden_size,
           heads=[full.core.num_heads, full.core.head_dim],
           depth={"core": [AN_FILE_BLOCKS, full.core.num_layers], "adapter": [full.adapter_layers, full.adapter_layers]},
           tokens={"image": LC_IMG, "qwen": AN_TEXT, "t5": AN_T5, "context": full.adapter_pad_length}, files=files,
-          text_encoder=text, imported=imported, render=render, parity=parity, train=train, allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device,
-          **writes)
+          text_encoder=text, imported=imported, render=render, parity=parity, train=train,
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device)
     self_adapter, cross_adapter = adapter_keys
     # the adapter takes no gradient: its backward kernels launch 0 times a step
     return {"co_self": {k: v.get(self_key, 0) for k, v in by_shape.items()},
             "co_cross": {k: v.get(cross_key, 0) for k, v in by_shape.items()},
             "an_self": {k: v.get(self_adapter, 0) for k, v in by_shape.items()},
             "an_cross": {k: v.get(cross_adapter, 0) for k, v in by_shape.items()}}
+
+
+def write_phi3_tokenizer(root: str, words) -> None:
+    """A tokenizer in ``root`` at Phi-3's 32,064 ids that ``AutoTokenizer``
+    reads (``<unk>`` 0, ``<s>`` 1 prepended, ``</s>`` 2, ``<|endoftext|>``
+    32,000 the pad, padding on the right): a word-level ``tokenizer.json``
+    over ``words`` and single characters, the rest of the 32,000 ids filler
+    tokens, the 64 ids past them placeholders, and a ``tokenizer_config.json``."""
+    import string
+
+    from tokenizers import Tokenizer, models, normalizers, pre_tokenizers, processors
+
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    for word in sorted({w.lower().strip(",.") for w in words} | set(string.ascii_lowercase + string.digits)):
+        vocab.setdefault(word, len(vocab))
+    for i in range(len(vocab), 32000):
+        vocab[f"<|filler_{i}|>"] = i
+    vocab["<|endoftext|>"] = 32000
+    for i in range(32001, OG_VOCAB):
+        vocab[f"<|placeholder_{i}|>"] = i
+    tokenizer = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tokenizer.normalizer = normalizers.Lowercase()
+    tokenizer.pre_tokenizer = pre_tokenizers.Whitespace()
+    tokenizer.post_processor = processors.TemplateProcessing(single="<s> $A", special_tokens=[("<s>", 1)])
+    os.makedirs(root, exist_ok=True)
+    tokenizer.save(os.path.join(root, "tokenizer.json"))
+    with open(os.path.join(root, "tokenizer_config.json"), "w") as handle:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "model_max_length": 4096,
+                   "pad_token": "<|endoftext|>", "eos_token": "</s>", "bos_token": "<s>", "unk_token": "<unk>",
+                   "padding_side": "right"}, handle)
+
+
+def _cfg_sampler(model, module, cond_batch: dict, uncond_batch: dict, kernels, guidance: float, latents_shape,
+                 gen, per_forward: dict) -> dict:
+    """The flow Euler loop over ``STEPS`` steps with true CFG (two forwards a
+    step, the negative prompt's conditioning), without a decode: s per CFG
+    step, the launches held to ``per_forward`` (by shape) per forward."""
+    import torch
+
+    from simpletuner_tpu_torch.schedulers import classifier_free_guidance
+    from simpletuner_tpu_torch.schedulers.sampling import sample_loop
+    from simpletuner_tpu_torch.training.validation import build_scheduler
+
+    cond_fn = model.denoise_fn(module, model.inference_conditioning(cond_batch))
+    uncond_fn = model.denoise_fn(module, model.inference_conditioning(uncond_batch))
+    step_s = []
+
+    def denoise(latents, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = classifier_free_guidance(cond_fn(latents, t), uncond_fn(latents, t), guidance)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        latents = sample_loop(build_scheduler(model, STEPS), denoise,
+                              torch.randn(latents_shape, generator=gen, device=gen.device))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {kernel.name: kernel.launches for kernel in kernels}
+    expected = {key: 2 * STEPS * n for key, n in per_forward.items()}
+    if launches != {"flash_fwd": sum(expected.values()), "flash_bwd_dq": 0, "flash_bwd_dkv": 0} or \
+            _per_shape(kernels)["flash_fwd"] != expected or len(step_s) != STEPS or \
+            tuple(latents.shape) != tuple(latents_shape) or not torch.isfinite(latents).all():
+        raise RuntimeError(f"{model.NAME} sampler: launches {launches} ({_per_shape(kernels)}), {len(step_s)} steps, "
+                           f"latents {tuple(latents.shape)} finite {bool(torch.isfinite(latents).all())}")
+    return {"steps": STEPS, "guidance": guidance, "loop_s": loop_s, "step_s": step_s,
+            "s_per_cfg_step": sum(step_s[1:]) / (STEPS - 1), "launches": launches,
+            "launches_per_cfg_step": {k: v // STEPS for k, v in launches.items()},
+            "decode": "none: both trainers build the 16-channel Flux VAE for a 32-channel family (ROADMAP Queue 3)"}
+
+
+def _drawn_in_memory(model, gen):
+    """``model``'s module built on the card with seeded weights, its zero-init
+    tensors (AdaLN, final linears) drawn so every adapter reaches the loss."""
+    import torch
+
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    with torch.device("cuda"):
+        module = init_parameters(model.create_module(), gen)
+    with torch.no_grad():
+        for name, param in module.named_parameters():
+            if "lora" not in name and not param.any():
+                param.normal_(0.0, 0.05, generator=gen)
+    return module
+
+
+def omnigen_phase(paths: dict, kernels, device: str, full_in_memory: bool) -> dict:
+    """Phase 39: OmniGen at the JAX preset's full width (``OmniGenConfig()``):
+    a seeded e4m3 checkpoint at ``OG_FILE_BLOCKS`` of its 32 layers, a seeded
+    word-level tokenizer at Phi-3's 32,064 ids in ``tokenizer/`` and a 4-channel
+    SD VAE (phase 20's linked where it is still on disk): 16 prompts and a
+    caption tokenised by ``OmniGen.encode_text`` at 120 tokens (no text
+    encoder: the cache holds the ids); the import held bitwise; a 1024 px
+    true-CFG render (the image rows through the kernels at head dim 96, the
+    121 prefix rows plain); one forward against the plain attention with the
+    caption right-padded and left-padded; 6 graphed LoRA steps through
+    ``Trainer.run()`` on an int8 base and four of phase 16's JPEGs; in a run
+    that names the phase, all 32 layers built in memory and their graphed step
+    timed.  Returns the launches per step of each kernel at the image-row shape."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import omnigen_checkpoint_shapes, vae_checkpoint_shapes
+    from simpletuner_tpu_torch.models.omnigen import OmniGen, OmniGenConfig, OmniGenTransformer
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from simpletuner_tpu_torch.models.weight_import import omnigen_params_from_diffusers, save_safetensors
+
+    start = time.perf_counter()
+    work = paths["work"]
+    for out in ("anima", "an_data", "an_train", "an_render", "an_cache"):  # phase 38's: disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = OmniGenConfig.tiny()
+    narrow = dataclasses.replace(tiny, hidden_size=48, num_heads=3, num_kv_heads=3, intermediate_size=40, num_layers=1)
+    flop_checks = _flop_checks(_x3(omnigen_flops), OmniGenTransformer, [
+        (arch, (torch.zeros(2, h, w, 4), torch.full((2,), 0.5), torch.zeros(2, txt, dtype=torch.int32),
+                torch.ones(2, txt)), ((h // 2) * (w // 2), txt))
+        for arch, (h, w), txt in ((tiny, (8, 12), 6), (narrow, (4, 8), 5))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(39)
+    full = OmniGenConfig()
+    if (full.hidden_size, full.num_heads, full.num_kv_heads, full.intermediate_size, full.num_layers,
+            full.vocab_size, full.in_channels, full.pos_embed_max_size) != (3072, 32, 32, 8192, 32, OG_VOCAB, 4, 192):
+        raise RuntimeError(f"not the JAX preset of OmniGen: {full}")
+    arch = dataclasses.replace(full, num_layers=OG_FILE_BLOCKS)
+    shapes = omnigen_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.2 + _reserved(39) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"omnigen: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
+                           f"it and the later phases write {file_bytes / 1e9 + 0.2 + _reserved(39):.1f} GB of the "
+                           f"{RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded files: the transformer (two e4m3 shards), the Phi-3-sized
+    # tokenizer and the 4-channel VAE
+    og_dir = os.path.join(work, "omnigen")
+    weights, write_s = _write_e4m3_transformer(og_dir, shapes, gen)
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    write_phi3_tokenizer(os.path.join(og_dir, "tokenizer"), " ".join(TRAIN_CAPTIONS + [OG_PROMPT] + prompts).split())
+    sdxl_vae = os.path.join(work, "sdxl", "vae")
+    if os.path.isdir(sdxl_vae):
+        _link_tree(sdxl_vae, os.path.join(og_dir, "vae"))
+    else:
+        with torch.device(dev):
+            vae = AutoencoderKL(VAEConfig(), torch.bfloat16)
+        os.makedirs(os.path.join(og_dir, "vae"))
+        save_safetensors(seeded_weights(vae_checkpoint_shapes(vae), gen),
+                         os.path.join(og_dir, "vae", "diffusion_pytorch_model.safetensors"))
+        del vae
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "blocks": [OG_FILE_BLOCKS, full.num_layers],
+             "vae": "phase 20's, linked" if os.path.isdir(sdxl_vae) else "seeded here (4 channels, bf16)",
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) no text encoder: the family tokenises (int32 ids and a float mask at 120 tokens)
+    values = {"model_family": "omnigen", "model_type": "full", "pretrained_model_name_or_path": og_dir,
+              "mixed_precision": "bf16"}
+    family = OmniGen(config_namespace(values))
+    if family.TEXT_ENCODER_CONFIGURATION != ():
+        raise RuntimeError("omnigen: the family names a text encoder")
+    family.encode_text(prompts[:2])  # the tokenizer's load
+    t0 = time.perf_counter()
+    payloads = family.encode_text(prompts)
+    encode_s = time.perf_counter() - t0
+    ids = np.stack([p["input_ids"] for p in payloads])
+    valid = np.stack([p["text_attention_mask"] for p in payloads]).sum(axis=1)
+    if ids.shape != (TEXT_PROMPTS, OG_TEXT) or ids.dtype != np.int32 or ids.max() >= OG_VOCAB or \
+            payloads[0]["text_attention_mask"].dtype != np.float32 or not (1 < valid).all() or \
+            not (valid < OG_TEXT).all():
+        raise RuntimeError(f"omnigen text: ids {ids.shape} {ids.dtype} max {ids.max()}, valid {valid.tolist()}")
+    text = {"tokenizer": "word-level at Phi-3's 32,064 ids (tokenizer/, AutoTokenizer), padding right",
+            "prompts": TEXT_PROMPTS, "tokens": OG_TEXT, "encode_s": encode_s,
+            "prompts_per_s": TEXT_PROMPTS / encode_s, "valid_tokens": [int(valid.min()), int(valid.max())]}
+    latent = RESOLUTION // 8
+    batch = _text_batch(family, OG_PROMPT, (1, latent, latent, 4), dev)
+    if {k: (tuple(v.shape), v.dtype) for k, v in batch.items()} != {
+            "latents": ((1, latent, latent, 4), torch.float32), "input_ids": ((1, OG_TEXT), torch.int32),
+            "text_attention_mask": ((1, OG_TEXT), torch.float32)}:
+        raise RuntimeError(f"omnigen: the collated batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    text["caption_valid"] = int(batch["text_attention_mask"].sum())
+    del family
+
+    # (d) the import, bitwise
+    model = ModelRegistry.create("omnigen", config_namespace(values))
+    if model.arch != arch:
+        raise RuntimeError(f"omnigen: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, og_dir, weights, omnigen_params_from_diffusers, file_bytes)
+    params = sum(math.prod(v) for v in omnigen_checkpoint_shapes(full).values())
+    del weights, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the true-CFG render (masked: the payload keys are the collate's) and
+    # (f) the parity forward, right- and left-padded
+    og_key = f"32x{LC_IMG}x{OG_JOINT}x96"
+    keys = {og_key: OG_FILE_BLOCKS}
+    render, runtime = _image_render(work, "omnigen", og_dir, "og", kernels, OG_PROMPT, OG_GUIDANCE, keys)
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "omnigen" or runtime.trainer.vae.config != VAEConfig():
+        raise RuntimeError(f"omnigen: the runtime built {model.NAME} {model.arch}, VAE {runtime.trainer.vae.config}")
+    noise = torch.randn((1, latent, latent, 4), generator=gen, device=dev)
+    launches = _forward_launches(model, module, batch, kernels, OG_SIGMA)
+    if launches["flash_fwd"] != keys:
+        raise RuntimeError(f"omnigen forward: launches by shape {launches}")
+    parity = {**_parity_forward(model, module, batch, noise, OG_SIGMA), "tokens": OG_JOINT,
+              "text_valid": text["caption_valid"], "launches_by_shape": launches}
+    left = {**batch, "input_ids": batch["input_ids"].flip(1), "text_attention_mask": batch["text_attention_mask"].flip(1)}
+    parity["left_padded"] = _parity_forward(model, module, left, noise, OG_SIGMA)
+    del runtime, module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) Trainer.run(): int8 base, every adapter-carrying linear (the blocks'
+    # six projections), 6 graphed steps on four of phase 16's JPEGs
+    data = _square_jpegs(work, "og_data", OG_TRAIN_IMAGES)
+    cache = os.path.join(work, "og_cache")
+    config = _image_train_config("omnigen", og_dir, data, cache, os.path.join(work, "og_train"), OG_TRAIN_STEPS)
+    step_keys = {og_key: (OG_FILE_BLOCKS, True)}
+
+    def check(trainer):
+        example = trainer._example_batch()
+        conditioning = {k: (tuple(v.shape), str(v.dtype)) for k, v in example.items() if k.startswith(("input", "text"))}
+        if trainer.model.arch != arch or trainer.vae.config != VAEConfig() or trainer.model.base_precision != "int8" \
+                or conditioning != {"input_ids": ((1, OG_TEXT), "int32"), "text_attention_mask": ((1, OG_TEXT),
+                                                                                                 "float32")}:
+            raise RuntimeError(f"omnigen trainer: arch {trainer.model.arch}, VAE {trainer.vae.config}, base "
+                               f"{trainer.model.base_precision}, batch {conditioning}")
+        return {"vae": "VAEConfig() (the SD VAE, scaling 0.18215 in the cache; validation divides by 0.13025)",
+                "text_encoders": len(trainer.model.TEXT_ENCODER_CONFIGURATION),
+                **_graph_matches_eager(trainer, ("loss", "grad_norm"))}
+
+    train = _train_graphed(config, kernels, OG_TRAIN_STEPS, _totals(_by_shape_per_step(step_keys)),
+                           omnigen_step_flops(arch, 1, LC_IMG, OG_TEXT), check)
+    by_shape = train["launches_per_step_by_shape"]
+    if by_shape != _by_shape_per_step(step_keys):
+        raise RuntimeError(f"omnigen trainer: launches per step by shape {by_shape}")
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every layer", "lora_rank": 16,
+                  "flop_checks": flop_checks})
+    shutil.rmtree(cache, ignore_errors=True)
+
+    # (h) in a run that names the phase: all 32 layers built in memory, graphed
+    full_depth = None
+    if full_in_memory:
+        deep = OmniGen(config_namespace(_graph_train_values("omnigen", OG_TRAIN_STEPS)), arch=full)
+        deep_keys = {og_key: (full.num_layers, True)}
+        deep_batch = {**batch, "latents": torch.randn((1, latent, latent, 4), generator=gen, device=dev)}
+        full_depth = _graph_vs_eager(deep, _drawn_in_memory(deep, gen), deep_batch, kernels, OG_TRAIN_STEPS,
+                                     _totals(_by_shape_per_step(deep_keys)),
+                                     omnigen_step_flops(full, 1, LC_IMG, OG_TEXT))
+        if full_depth["launches_per_step_by_shape"] != _by_shape_per_step(deep_keys):
+            raise RuntimeError(f"omnigen 32 layers: launches per step by shape "
+                               f"{full_depth['launches_per_step_by_shape']}")
+        full_depth.update({"blocks": [full.num_layers, full.num_layers], "base": "int8 (built in memory)",
+                           "quantized_matmul": "full", "remat": "every layer", "lora_rank": 16})
+        del deep, deep_batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    del batch
+    phase("39 omnigen", config="Shitao/OmniGen-v1-diffusers transformer/ as the JAX preset OmniGenConfig() builds it",
+          params=params, params_per_layer=sum(math.prod(v) for k, v in shapes.items() if k.startswith("layers.0.")),
+          hidden=full.hidden_size, heads=[full.num_heads, full.num_kv_heads, full.hidden_size // full.num_heads],
+          depth={"file": [OG_FILE_BLOCKS, full.num_layers], "train": [OG_FILE_BLOCKS, full.num_layers],
+                 "in_memory": [full.num_layers if full_in_memory else 0, full.num_layers]},
+          tokens={"prompt": OG_TEXT, "prefix": OG_PREFIX, "image": LC_IMG, "joint": OG_JOINT},
+          attention={"image_rows": "flash kernels, query ids 1, key ids 1 / -1 (the prompt pads)",
+                     "prefix_rows": "plain causal block (phase 3 times it)"},
+          files=files, text=text, imported=imported, render=render, parity=parity, train=train,
+          full_depth=full_depth, allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start,
+          device=device)
+    return {"og_image_rows": {k: v.get(og_key, 0) for k, v in by_shape.items()}}
+
+
+def ernie_phase(paths: dict, kernels, device: str, full_in_memory: bool) -> dict:
+    """Phase 40: ERNIE-Image at the JAX preset's full width (``ErnieConfig()``):
+    a seeded e4m3 checkpoint at ``ER_FILE_BLOCKS`` of its 24 layers with
+    ``text_proj``, phase 29's 2560-wide qwen2-layout trunk linked (written here
+    in a run without it) and a word-level tokenizer: 16 prompts at 512 tokens
+    through the ``qwen2.5`` spec (prompts/s, bf16 against f32); the import held
+    bitwise; one forward against the plain attention (the text lengths as key
+    ids); the flow Euler loop with true CFG over 32-channel latents, without a
+    decode; 6 graphed LoRA steps on an int8 base through ``build_train_step``
+    (the 32-channel wall stops ``Trainer.run()`` in both packages); in a run
+    that names the phase, all 24 layers built in memory and their graphed step
+    timed.  Returns the launches per step of each kernel at the joint shape."""
+    import gc
+
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import ernie_checkpoint_shapes
+    from simpletuner_tpu_torch.models.ernie import Ernie, ErnieConfig, ErnieTransformer
+    from simpletuner_tpu_torch.models.layers import init_adapters
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.vae import VAEConfig
+    from simpletuner_tpu_torch.models.weight_import import ernie_params_from_checkpoint, load_transformer_params
+
+    start = time.perf_counter()
+    work = paths["work"]
+    for out in ("omnigen", "og_data", "og_train", "og_render", "og_cache"):  # phase 39's: disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = ErnieConfig.tiny()
+    narrow = dataclasses.replace(tiny, hidden_size=48, num_heads=3, text_in_dim=48, ffn_hidden_size=40, num_layers=1)
+    flop_checks = _flop_checks(_x3(ernie_flops), ErnieTransformer, [
+        (arch, (torch.zeros(2, h, w, arch.in_channels), torch.full((2,), 500.0),
+                torch.zeros(2, txt, arch.text_in_dim), torch.full((2,), txt)), (h * w, txt))
+        for arch, (h, w), txt in ((tiny, (4, 6), 5), (narrow, (2, 4), 3))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(40)
+    full = ErnieConfig()
+    if (full.hidden_size, full.num_heads, full.head_dim, full.num_layers, full.ffn_hidden_size, full.in_channels,
+            full.text_in_dim, full.rope_theta, full.rope_axes_dim) != (3072, 24, 128, 24, 8192, 128, 2560, 256.0,
+                                                                      (32, 48, 48)):
+        raise RuntimeError(f"not the JAX preset of ERNIE-Image: {full}")
+    arch = dataclasses.replace(full, num_layers=ER_FILE_BLOCKS)
+    shapes = ernie_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.05 + _reserved(40) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"ernie: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
+                           f"it and the later phases write {file_bytes / 1e9 + 0.05 + _reserved(40):.1f} GB of the "
+                           f"{RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded transformer (two e4m3 shards; the zero-init AdaLN and
+    # final linear drawn), the 2560-wide trunk linked and a word-level tokenizer
+    er_dir = os.path.join(work, "ernie")
+    weights, write_s = _write_e4m3_transformer(er_dir, shapes, gen)
+    trunk = zi_trunk_config()
+    trunk_source = paths.get("zi_trunk")
+    if trunk_source and os.path.isdir(trunk_source):
+        _link_tree(trunk_source, os.path.join(er_dir, "text_encoder"))
+        trunk_files = {"linked": True, "layers": [ZI_TRUNK_LAYERS, 36]}
+    else:
+        trunk_files = {"written_by_phase": 40, "layers": [ZI_TRUNK_LAYERS, 36], "write_s": write_llm_trunk(
+            os.path.join(er_dir, "text_encoder"), trunk, gen, QWEN3_HF)}
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    write_gemma_tokenizer(os.path.join(er_dir, "tokenizer"), " ".join(TRAIN_CAPTIONS + [ER_PROMPT] + prompts).split())
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "blocks": [ER_FILE_BLOCKS, full.num_layers],
+             "qwen2_trunk": trunk_files, "written_gb_before": written_before, "written_gb_after": _written_gb(),
+             "free_gb_before": free / 1e9}
+
+    # (c) the prompts at 512 tokens through the qwen2.5 spec: the final-norm states
+    spec = Ernie.TEXT_ENCODER_CONFIGURATION[0]
+    encoder, text = _encoder_and_report(spec, er_dir, trunk, ER_TEXT, prompts)
+    values = {"model_family": "ernie", "model_type": "full", "mixed_precision": "bf16"}
+    family = Ernie(config_namespace(values))
+    family.attach_text_encoders([encoder])
+    latent = RESOLUTION // 8
+    batch = _text_batch(family, ER_PROMPT, (1, latent, latent, 32), dev)
+    negative = _text_batch(family, "", (1, latent, latent, 32), dev)
+    if {k: tuple(v.shape) for k, v in batch.items()} != {"latents": (1, latent, latent, 32),
+                                                         "text_embeds": (1, ER_TEXT, 2560),
+                                                         "text_attention_mask": (1, ER_TEXT)}:
+        raise RuntimeError(f"ernie: the collated batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    text["caption_valid"] = int(batch["text_attention_mask"].sum())
+    del encoder, family
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the import, bitwise
+    model = ModelRegistry.create("ernie", config_namespace(values))
+    if model.arch != arch:
+        raise RuntimeError(f"ernie: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, er_dir, weights, ernie_params_from_checkpoint, file_bytes)
+    params = sum(math.prod(v) for v in ernie_checkpoint_shapes(full).values())
+    del weights
+
+    # (e) the parity forward (the caption's length as key ids) and (f) the CFG sampler loop, no decode
+    er_key = f"24x{ER_JOINT}x{ER_JOINT}x128"
+    keys = {er_key: ER_FILE_BLOCKS}
+    noise = torch.randn((1, latent, latent, 32), generator=gen, device=dev)
+    launches = _forward_launches(model, module, batch, kernels, ER_SIGMA)
+    if launches["flash_fwd"] != keys:
+        raise RuntimeError(f"ernie forward: launches by shape {launches}")
+    parity = {**_parity_forward(model, module, batch, noise, ER_SIGMA), "tokens": ER_JOINT,
+              "text_valid": text["caption_valid"], "launches_by_shape": launches}
+    sampler = _cfg_sampler(model, module, batch, negative, kernels, ER_GUIDANCE, (1, latent, latent, 32), gen, keys)
+    del module, model, negative
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) 6 graphed rank-16 LoRA steps on an int8 base, every layer checkpointed,
+    # through build_train_step (both trainers stop at the 32-channel wall)
+    wall = {"latent_channels": Ernie.LATENT_CHANNEL_COUNT, "trainer_vae_channels": VAEConfig.flux().latent_channels,
+            "x_embedder_features": full.in_channels}
+    if (wall["latent_channels"], wall["trainer_vae_channels"]) != (32, 16):
+        raise RuntimeError(f"ernie: the 32-channel wall moved: {wall}")
+    train_model = Ernie(config_namespace(_graph_train_values("ernie", ER_TRAIN_STEPS)))
+    with torch.device(dev):
+        train_module = load_transformer_params(train_model, init_adapters(train_model.create_module(), gen), er_dir)
+    train_batch = {**batch, "latents": torch.randn((1, latent, latent, 32), generator=gen, device=dev)}
+    step_keys = {er_key: (ER_FILE_BLOCKS, True)}
+    train = _graph_vs_eager(train_model, train_module, train_batch, kernels, ER_TRAIN_STEPS,
+                            _totals(_by_shape_per_step(step_keys)), ernie_step_flops(arch, 1, LC_IMG, ER_TEXT))
+    by_shape = train["launches_per_step_by_shape"]
+    if by_shape != _by_shape_per_step(step_keys):
+        raise RuntimeError(f"ernie train: launches per step by shape {by_shape}")
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every layer", "lora_rank": 16,
+                  "lora_targets": "every adapter-carrying linear (the JAX family's default)", "wall": wall,
+                  "flop_checks": flop_checks})
+    del train_module, train_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (h) in a run that names the phase: all 24 layers built in memory, graphed
+    full_depth = None
+    if full_in_memory:
+        deep = Ernie(config_namespace(_graph_train_values("ernie", ER_TRAIN_STEPS)), arch=full)
+        deep_keys = {er_key: (full.num_layers, True)}
+        full_depth = _graph_vs_eager(deep, _drawn_in_memory(deep, gen), train_batch, kernels, ER_TRAIN_STEPS,
+                                     _totals(_by_shape_per_step(deep_keys)), ernie_step_flops(full, 1, LC_IMG, ER_TEXT))
+        if full_depth["launches_per_step_by_shape"] != _by_shape_per_step(deep_keys):
+            raise RuntimeError(f"ernie 24 layers: launches per step by shape {full_depth['launches_per_step_by_shape']}")
+        full_depth.update({"blocks": [full.num_layers, full.num_layers], "base": "int8 (built in memory)",
+                           "quantized_matmul": "full", "remat": "every layer", "lora_rank": 16})
+        del deep
+        gc.collect()
+        torch.cuda.empty_cache()
+    del batch, train_batch
+    phase("40 ernie", config="baidu/ERNIE-4.5-VL-image transformer/ as the JAX preset ErnieConfig() builds it",
+          params=params, params_per_layer=sum(math.prod(v) for k, v in shapes.items() if k.startswith("layers.0.")),
+          hidden=full.hidden_size, heads=[full.num_heads, full.head_dim],
+          depth={"file": [ER_FILE_BLOCKS, full.num_layers], "train": [ER_FILE_BLOCKS, full.num_layers],
+                 "in_memory": [full.num_layers if full_in_memory else 0, full.num_layers]},
+          tokens={"image": LC_IMG, "text": ER_TEXT, "joint": ER_JOINT}, latent_channels=32, files=files,
+          text_encoder=text, imported=imported, parity=parity, sampler=sampler, train=train, full_depth=full_depth,
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device)
+    return {"er_joint": {k: v.get(er_key, 0) for k, v in by_shape.items()}}
+
+
+def ideogram_phase(paths: dict, kernels, device: str, full_in_memory: bool) -> dict:
+    """Phase 41: Ideogram at the JAX preset's full width (``IdeogramConfig()``):
+    a seeded e4m3 checkpoint at ``ID_FILE_BLOCKS`` of its 34 layers with the
+    whole 53,248 -> 4608 ``llm_cond_proj`` and a word-level tokenizer; a seeded
+    4096-wide qwen2-layout trunk (Qwen3-VL-8B's text sizes) at
+    ``ID_TRUNK_LAYERS`` of 36 built in memory, 16 prompts at 512 tokens through
+    it (prompts/s, bf16 against f32) and a caption through
+    ``Ideogram.encode_text`` (the auto-json path; 13 taps spread over the
+    trunk's 3 states, 53,248 features); the enhancer's greedy loop for
+    ``ID_UPSAMPLE_TOKENS`` tokens on a seeded 151,936 x 4096 head held on the
+    card; the import held bitwise; one forward against the plain attention at
+    head dim 256 (the text mask as segment ids, the pads at 0); the flow Euler
+    loop with true CFG over 32-channel latents, without a decode; 6 graphed
+    LoRA steps on an int8 base through ``build_train_step``; in a run that
+    names the phase, all 34 layers built in memory (9.2 GB of int8) and their
+    graphed step timed.  Last, the run's writes against the target.  Returns
+    the launches per step of each kernel at the joint shape."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import ideogram_checkpoint_shapes
+    from simpletuner_tpu_torch.models.ideogram import Ideogram, IdeogramConfig, IdeogramTransformer
+    from simpletuner_tpu_torch.models.ideogram.prompt_enhancer import upsample_prompt
+    from simpletuner_tpu_torch.models.layers import init_adapters
+    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoder, LLMEncoderConfig
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.text_encoders import LLMTextEncoder, _tokenizer
+    from simpletuner_tpu_torch.models.weight_import import ideogram_params_from_checkpoint, load_transformer_params
+
+    start = time.perf_counter()
+    work = paths["work"]
+    for out in ("ernie", "qwen3_4b_trunk"):  # phase 40's and the 2560-wide trunk's links: disk space
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = IdeogramConfig.tiny()
+    narrow = dataclasses.replace(tiny, emb_dim=48, num_heads=2, intermediate_size=40, num_layers=1, llm_taps=2,
+                                 mrope_section=(6, 3, 3))
+    cases = []
+    for arch, (h, w), txt in ((tiny, (8, 12), 6), (narrow, (4, 8), 5)):
+        packing = Ideogram(config_namespace({"model_family": "ideogram", "model_arch_preset": "tiny"}), arch=arch)
+        inputs = packing.get_model_inputs({
+            "noisy_latents": torch.zeros(2, h, w, arch.in_channels // 4), "timesteps": torch.full((2,), 0.5),
+            "text_embeds": torch.zeros(2, txt, arch.llm_features_dim),
+            "text_attention_mask": torch.ones(2, txt, dtype=torch.int32)})
+        cases.append((arch, tuple(inputs[k] for k in ("llm_features", "x", "t", "position_ids", "segment_ids",
+                                                      "indicator")), ((h // 2) * (w // 2), txt)))
+    flop_checks = _flop_checks(_x3(ideogram_flops), IdeogramTransformer, cases)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    full = IdeogramConfig()
+    if (full.emb_dim, full.num_heads, full.head_dim, full.num_layers, full.intermediate_size, full.in_channels,
+            full.llm_features_dim, full.rope_theta, full.mrope_section) != (4608, 18, 256, 34, 12288, 128, 53248,
+                                                                           5e6, (24, 20, 20)):
+        raise RuntimeError(f"not the JAX preset of Ideogram: {full}")
+    arch = dataclasses.replace(full, num_layers=ID_FILE_BLOCKS)
+    shapes = ideogram_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.05 > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"ideogram: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
+                           f"phase; it writes {file_bytes / 1e9 + 0.05:.1f} GB of the {RUN_WRITE_TARGET_GB} GB a "
+                           "run may write")
+
+    # (b) the seeded transformer (two e4m3 shards) and a word-level tokenizer
+    id_dir = os.path.join(work, "ideogram")
+    weights, write_s = _write_e4m3_transformer(id_dir, shapes, gen)
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    write_gemma_tokenizer(os.path.join(id_dir, "tokenizer"), " ".join(TRAIN_CAPTIONS + [ID_PROMPT] + prompts).split())
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "blocks": [ID_FILE_BLOCKS, full.num_layers],
+             "llm_cond_proj": [full.emb_dim, full.llm_features_dim], "written_gb_before": written_before,
+             "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) the 4096-wide qwen2-layout trunk at ID_TRUNK_LAYERS, seeded in
+    # memory; 512-token prompts, then the family's 13 taps of the auto-json captions
+    trunk_cfg = LLMEncoderConfig(arch="qwen2", vocab_size=151936, hidden_size=4096, intermediate_size=12288,
+                                 num_layers=ID_TRUNK_LAYERS, num_heads=32, num_kv_heads=8, head_dim=128,
+                                 rope_theta=5000000.0, rms_eps=1e-6, qkv_bias=True)
+    spec = Ideogram.TEXT_ENCODER_CONFIGURATION[0]
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        trunk = LLMEncoder(trunk_cfg)
+    trunk.reset_parameters(torch.Generator(device=dev).manual_seed(410))
+    encoder = LLMTextEncoder(spec, trunk.eval(), _tokenizer("AutoTokenizer", id_dir, "tokenizer"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    text = _llm_text_report(spec, None, trunk_cfg, ID_TEXT, prompts, encoder=encoder)
+    values = {"model_family": "ideogram", "model_type": "full", "mixed_precision": "bf16"}
+    family = Ideogram(config_namespace(values))
+    family.attach_text_encoders([encoder])
+    taps = family._select_taps(trunk_cfg.num_layers + 1)
+    latent = RESOLUTION // 8
+    batch = _text_batch(family, ID_PROMPT, (1, latent, latent, 32), dev)
+    negative = _text_batch(family, "", (1, latent, latent, 32), dev)
+    if {k: tuple(v.shape) for k, v in batch.items()} != {"latents": (1, latent, latent, 32),
+                                                         "text_embeds": (1, ID_TEXT, 53248),
+                                                         "text_attention_mask": (1, ID_TEXT)}:
+        raise RuntimeError(f"ideogram: the collated batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    caption = family._preprocess_prompts([ID_PROMPT])[0]
+    text.update({"layers": [ID_TRUNK_LAYERS, 36], "built_in_memory_s": build_s, "taps": list(taps),
+                 "features": int(batch["text_embeds"].shape[-1]), "caption_valid": int(batch["text_attention_mask"].sum()),
+                 "auto_json_caption_chars": len(caption), "auto_json_keys": list(json.loads(caption))})
+
+    # (d) the enhancer's greedy loop on a seeded head held on the card
+    # (151,936 x 4096 f32; the tokenizer's ids drawn larger so it speaks them)
+    head = torch.randn((trunk_cfg.hidden_size, trunk_cfg.vocab_size), generator=gen, device=dev) * 0.01
+    words = len(encoder.tokenizer)
+    head[:, :words] *= 100.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    upsampled = upsample_prompt(encoder, head, ID_PROMPT, temperature=0.0, max_new_tokens=ID_UPSAMPLE_TOKENS)
+    torch.cuda.synchronize()
+    upsample_s = time.perf_counter() - t0
+    again = upsample_prompt(encoder, head, ID_PROMPT, temperature=0.0, max_new_tokens=ID_UPSAMPLE_TOKENS)
+    if not upsampled or upsampled != again:
+        raise RuntimeError(f"ideogram enhancer: {upsampled!r} then {again!r}")
+    enhancer = {"head": [trunk_cfg.hidden_size, trunk_cfg.vocab_size], "head_gb_f32": head.numel() * 4 / 1e9,
+                "new_tokens": ID_UPSAMPLE_TOKENS, "temperature": 0.0, "s": upsample_s,
+                "s_per_token": upsample_s / ID_UPSAMPLE_TOKENS, "words": len(upsampled.split()),
+                "greedy_repeatable": True}
+    del head, encoder, trunk, family
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the import, bitwise
+    model = ModelRegistry.create("ideogram", config_namespace(values))
+    if model.arch != arch:
+        raise RuntimeError(f"ideogram: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, id_dir, weights, ideogram_params_from_checkpoint, file_bytes)
+    params = sum(math.prod(v) for v in ideogram_checkpoint_shapes(full).values())
+    del weights
+
+    # (f) the parity forward (segment ids 0 / 1) and (g) the CFG sampler loop, no decode
+    id_key = f"18x{ID_JOINT}x{ID_JOINT}x256"
+    keys = {id_key: ID_FILE_BLOCKS}
+    noise = torch.randn((1, latent, latent, 32), generator=gen, device=dev)
+    launches = _forward_launches(model, module, batch, kernels, ID_SIGMA)
+    if launches["flash_fwd"] != keys:
+        raise RuntimeError(f"ideogram forward: launches by shape {launches}")
+    parity = {**_parity_forward(model, module, batch, noise, ID_SIGMA), "tokens": ID_JOINT,
+              "text_valid": text["caption_valid"], "launches_by_shape": launches}
+    sampler = _cfg_sampler(model, module, batch, negative, kernels, ID_GUIDANCE, (1, latent, latent, 32), gen, keys)
+    del module, model, negative
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (h) 6 graphed rank-16 LoRA steps on an int8 base through build_train_step
+    train_model = Ideogram(config_namespace(_graph_train_values("ideogram", ID_TRAIN_STEPS)))
+    with torch.device(dev):
+        train_module = load_transformer_params(train_model, init_adapters(train_model.create_module(), gen), id_dir)
+    train_batch = {**batch, "latents": torch.randn((1, latent, latent, 32), generator=gen, device=dev)}
+    step_keys = {id_key: (ID_FILE_BLOCKS, True)}
+    train = _graph_vs_eager(train_model, train_module, train_batch, kernels, ID_TRAIN_STEPS,
+                            _totals(_by_shape_per_step(step_keys)), ideogram_step_flops(arch, 1, LC_IMG, ID_TEXT))
+    by_shape = train["launches_per_step_by_shape"]
+    if by_shape != _by_shape_per_step(step_keys):
+        raise RuntimeError(f"ideogram train: launches per step by shape {by_shape}")
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every layer", "lora_rank": 16,
+                  "lora_targets": "every adapter-carrying linear (the JAX family's default)",
+                  "flop_checks": flop_checks})
+    del train_module, train_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (i) in a run that names the phase: all 34 layers built in memory, graphed
+    full_depth = None
+    if full_in_memory:
+        deep = Ideogram(config_namespace(_graph_train_values("ideogram", ID_TRAIN_STEPS)), arch=full)
+        deep_keys = {id_key: (full.num_layers, True)}
+        full_depth = _graph_vs_eager(deep, _drawn_in_memory(deep, gen), train_batch, kernels, ID_TRAIN_STEPS,
+                                     _totals(_by_shape_per_step(deep_keys)),
+                                     ideogram_step_flops(full, 1, LC_IMG, ID_TEXT))
+        if full_depth["launches_per_step_by_shape"] != _by_shape_per_step(deep_keys):
+            raise RuntimeError(f"ideogram 34 layers: launches per step by shape "
+                               f"{full_depth['launches_per_step_by_shape']}")
+        full_depth.update({"blocks": [full.num_layers, full.num_layers], "base": "int8 (built in memory)",
+                           "quantized_matmul": "full", "remat": "every layer", "lora_rank": 16})
+        del deep
+        gc.collect()
+        torch.cuda.empty_cache()
+    del batch, train_batch
+    shutil.rmtree(id_dir, ignore_errors=True)
+    writes = check_run_writes()
+    phase("41 ideogram", config="ideogram-ai/ideogram-v3-fp8 transformer/ as the JAX preset IdeogramConfig() builds it",
+          params=params, params_per_layer=sum(math.prod(v) for k, v in shapes.items() if k.startswith("layers.0.")),
+          hidden=full.emb_dim, heads=[full.num_heads, full.head_dim],
+          depth={"file": [ID_FILE_BLOCKS, full.num_layers], "train": [ID_FILE_BLOCKS, full.num_layers],
+                 "in_memory": [full.num_layers if full_in_memory else 0, full.num_layers],
+                 "trunk": [ID_TRUNK_LAYERS, 36]},
+          tokens={"text": ID_TEXT, "image": LC_IMG, "joint": ID_JOINT}, latent_channels=32, files=files,
+          text_encoder=text, enhancer=enhancer, imported=imported, parity=parity, sampler=sampler, train=train,
+          full_depth=full_depth, allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start,
+          device=device, **writes)
+    return {"id_joint": {k: v.get(id_key, 0) for k, v in by_shape.items()}}
 
 
 def int8_cases() -> None:
@@ -9568,7 +10498,8 @@ def main() -> int:
     fwd_entry, fwd256_entry, long_fwd_entries = kernel_cases()
     launches = {"main": None, "auraflow": {}, "wan": {}, "ltx": {}, "chroma": None, "lumina2": {}, "kandinsky5": {},
                 "hunyuanvideo": {}, "qwen_image": {}, "hidream": {}, "flux2": {}, "kolors": {}, "longcat_image": {},
-                "z_image_omni": {}, "zlab_i1": {}, "krea2": {}, "cosmos": {}, "anima": {}}
+                "z_image_omni": {}, "zlab_i1": {}, "krea2": {}, "cosmos": {}, "anima": {}, "omnigen": {}, "ernie": {},
+                "ideogram": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         checkpoints = weight_import(work) if _runs(14) else {"work": work}
         encoders = text_encoders(checkpoints) if _runs(15) else None
@@ -9608,9 +10539,11 @@ def main() -> int:
         )
         from simpletuner_tpu_torch.models.chroma import Chroma, ChromaConfig
         from simpletuner_tpu_torch.models.cosmos2 import Cosmos2Image
+        from simpletuner_tpu_torch.models.ernie import Ernie
         from simpletuner_tpu_torch.models.flux2 import Flux2
         from simpletuner_tpu_torch.models.hidream import HiDream, HiDreamConfig
         from simpletuner_tpu_torch.models.hunyuanvideo import HunyuanVideo, HunyuanVideo15Config
+        from simpletuner_tpu_torch.models.ideogram import Ideogram
         from simpletuner_tpu_torch.models.kandinsky5 import Kandinsky5Config, Kandinsky5Video
         from simpletuner_tpu_torch.models.kolors import Kolors
         from simpletuner_tpu_torch.models.krea2 import Krea2
@@ -9618,6 +10551,7 @@ def main() -> int:
         from simpletuner_tpu_torch.models.ltxvideo import LTXConfig, LTXVideo
         from simpletuner_tpu_torch.models.lumina2 import Lumina2, Lumina2Config
         from simpletuner_tpu_torch.models.mageflow import ZImage
+        from simpletuner_tpu_torch.models.omnigen import OmniGen
         from simpletuner_tpu_torch.models.qwen_image import QwenImage, QwenImageConfig
         from simpletuner_tpu_torch.models.sd3 import SD3, SD3Config
         from simpletuner_tpu_torch.models.sdxl import SDXL
@@ -9739,6 +10673,15 @@ def main() -> int:
             anima_core = dataclasses.replace(AnimaConfig().core, num_layers=AN_FILE_BLOCKS)
             with family_depth(Anima, core=anima_core):
                 launches["anima"] = anima_phase(checkpoints, kernels, smi)
+        if _runs(39):
+            with family_depth(OmniGen, num_layers=OG_FILE_BLOCKS):
+                launches["omnigen"] = omnigen_phase(checkpoints, kernels, smi, 39 in (RUN["requested"] or ()))
+        if _runs(40):
+            with family_depth(Ernie, num_layers=ER_FILE_BLOCKS):
+                launches["ernie"] = ernie_phase(checkpoints, kernels, smi, 40 in (RUN["requested"] or ()))
+        if _runs(41):
+            with family_depth(Ideogram, num_layers=ID_FILE_BLOCKS):
+                launches["ideogram"] = ideogram_phase(checkpoints, kernels, smi, 41 in (RUN["requested"] or ()))
         else:
             check_run_writes()
 
@@ -9767,7 +10710,8 @@ def main() -> int:
                           ("qwen_image", QI_KERNEL_CASES), ("hidream", HD_KERNEL_CASES), ("flux2", F2_KERNEL_CASES),
                           ("kolors", KOLORS_KERNEL_CASES), ("longcat_image", LC_KERNEL_CASES),
                           ("z_image_omni", ZO_KERNEL_CASES), ("zlab_i1", ZL_KERNEL_CASES), ("krea2", K2_KERNEL_CASES),
-                          ("cosmos", CO_KERNEL_CASES)):
+                          ("cosmos", CO_KERNEL_CASES), ("omnigen", OG_KERNEL_CASES), ("ernie", ER_KERNEL_CASES),
+                          ("ideogram", ID_KERNEL_CASES)):
         if launches[family]:
             rows += [(f"{name}_{case[0]}", f"{name}_{case[0]}", name, launches[family][case[0]])
                      for case in cases for name in sources]

@@ -969,6 +969,92 @@ def anima_checkpoint_shapes(arch) -> Dict[str, tuple]:
     return shapes
 
 
+def omnigen_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers ``OmniGenTransformer2DModel``
+    of ``arch`` (``models/omnigen/transformer.py::OmniGenConfig``) as
+    ``omnigen_params_from_diffusers`` reads it: the 2 x 2 patch conv, the
+    token table, the two timestep MLPs, the bias-free Phi-3 blocks with the
+    fused ``gate_up_proj``, the RMSNorm ``weight`` leaves and the biased heads
+    (the published file's input-image branch, which the importer leaves
+    unread, is not written)."""
+    h, p, hd = arch.hidden_size, arch.patch_size, arch.hidden_size // arch.num_heads
+    shapes: Dict[str, tuple] = {
+        "patch_embedding.output_image_proj.weight": (h, arch.in_channels, p, p),
+        "patch_embedding.output_image_proj.bias": (h,),
+        "embed_tokens.weight": (arch.vocab_size, h), "norm.weight": (h,),
+        "norm_out.linear.weight": (2 * h, h), "norm_out.linear.bias": (2 * h,),
+        "proj_out.weight": (p * p * arch.in_channels, h), "proj_out.bias": (p * p * arch.in_channels,),
+    }
+    for name in ("t_embedder", "time_token"):
+        shapes.update({f"{name}.linear_1.weight": (h, arch.time_step_dim), f"{name}.linear_1.bias": (h,),
+                       f"{name}.linear_2.weight": (h, h), f"{name}.linear_2.bias": (h,)})
+    for i in range(arch.num_layers):
+        src = f"layers.{i}"
+        shapes.update({
+            f"{src}.input_layernorm.weight": (h,), f"{src}.post_attention_layernorm.weight": (h,),
+            f"{src}.self_attn.to_q.weight": (arch.num_heads * hd, h),
+            f"{src}.self_attn.to_k.weight": (arch.num_kv_heads * hd, h),
+            f"{src}.self_attn.to_v.weight": (arch.num_kv_heads * hd, h),
+            f"{src}.self_attn.to_out.0.weight": (h, arch.num_heads * hd),
+            f"{src}.mlp.gate_up_proj.weight": (2 * arch.intermediate_size, h),
+            f"{src}.mlp.down_proj.weight": (h, arch.intermediate_size),
+        })
+    return shapes
+
+
+def ernie_checkpoint_shapes(arch, text_proj: bool = True) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of an ``ErnieImageTransformer2DModel`` of
+    ``arch`` (``models/ernie/transformer.py::ErnieConfig``) as
+    ``ernie_params_from_checkpoint`` reads it: the k = 1 conv ``x_embedder``,
+    the biased time MLP, shared AdaLN and heads, the bias-free blocks with
+    their norm ``weight`` leaves, and ``text_proj`` where the text width is
+    not the hidden width."""
+    h, hd, ffn = arch.hidden_size, arch.head_dim, arch.ffn_hidden_size
+    shapes: Dict[str, tuple] = {"x_embedder.proj.weight": (h, arch.in_channels, 1, 1), "x_embedder.proj.bias": (h,)}
+    for name, out_features, in_features in (("time_embedding.linear_1", h, h), ("time_embedding.linear_2", h, h),
+                                            ("adaLN_modulation.1", 6 * h, h), ("final_norm.linear", 2 * h, h),
+                                            ("final_linear", arch.out_channels, h)):
+        shapes.update({f"{name}.weight": (out_features, in_features), f"{name}.bias": (out_features,)})
+    if text_proj and arch.text_in_dim != h:
+        shapes["text_proj.weight"] = (h, arch.text_in_dim)
+    for i in range(arch.num_layers):
+        src = f"layers.{i}"
+        shapes.update({f"{src}.adaLN_sa_ln.weight": (h,), f"{src}.adaLN_mlp_ln.weight": (h,),
+                       f"{src}.self_attention.norm_q.weight": (hd,), f"{src}.self_attention.norm_k.weight": (hd,),
+                       f"{src}.mlp.gate_proj.weight": (ffn, h), f"{src}.mlp.up_proj.weight": (ffn, h),
+                       f"{src}.mlp.linear_fc2.weight": (h, ffn)})
+        for name in ("to_q", "to_k", "to_v", "to_out.0"):
+            shapes[f"{src}.self_attention.{name}.weight"] = (h, h)
+    return shapes
+
+
+def ideogram_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of an ``Ideogram4Transformer`` of ``arch``
+    (``models/ideogram/transformer.py::IdeogramConfig``) as
+    ``ideogram_params_from_checkpoint`` reads it: biased input, conditioning,
+    time and AdaLN projections and heads, the (2, dim) indicator table, the
+    bias-free fused ``qkv`` / ``o`` / SwiGLU and the norm ``weight`` leaves."""
+    d, hd, ffn, a = arch.emb_dim, arch.head_dim, arch.intermediate_size, arch.adanln_dim
+    shapes: Dict[str, tuple] = {"llm_cond_norm.weight": (arch.llm_features_dim,),
+                                "embed_image_indicator.weight": (2, d)}
+    for name, out_features, in_features in (("input_proj", d, arch.in_channels),
+                                            ("llm_cond_proj", d, arch.llm_features_dim),
+                                            ("t_embedding.mlp_in", d, d), ("t_embedding.mlp_out", d, d),
+                                            ("adaln_proj", a, d), ("final_layer.linear", arch.in_channels, d),
+                                            ("final_layer.adaln_modulation", d, a)):
+        shapes.update({f"{name}.weight": (out_features, in_features), f"{name}.bias": (out_features,)})
+    for i in range(arch.num_layers):
+        src = f"layers.{i}"
+        shapes.update({f"{src}.attention.qkv.weight": (3 * d, d), f"{src}.attention.o.weight": (d, d),
+                       f"{src}.attention.norm_q.weight": (hd,), f"{src}.attention.norm_k.weight": (hd,),
+                       f"{src}.feed_forward.w1.weight": (ffn, d), f"{src}.feed_forward.w3.weight": (ffn, d),
+                       f"{src}.feed_forward.w2.weight": (d, ffn),
+                       f"{src}.adaln_modulation.weight": (4 * d, a), f"{src}.adaln_modulation.bias": (4 * d,)})
+        for norm in ("attention_norm1", "attention_norm2", "ffn_norm1", "ffn_norm2"):
+            shapes[f"{src}.{norm}.weight"] = (d,)
+    return shapes
+
+
 def llm_checkpoint_shapes(cfg) -> Dict[str, tuple]:
     """Tensor names and torch shapes of an HF causal LM of ``cfg``
     (``models/llm_encoder.py::LLMEncoderConfig``) as ``llm_params_from_hf``

@@ -9,7 +9,7 @@ its metadata; ``flux``, ``sd3``, ``sdxl``, ``sd1x``, ``sd2x``,
 ``kandinsky5_image``, ``kandinsky5_video``, ``hunyuanvideo``, ``qwen_image``,
 ``mageflow``, ``z_image``, ``hidream``, ``flux2``, ``kolors``,
 ``longcat_image``, ``z_image_omni``, ``zlab_i1``, ``boogu_image``, ``krea2``,
-``cosmos`` and ``anima`` are ported
+``cosmos``, ``anima``, ``omnigen``, ``ernie`` and ``ideogram`` are ported
 (with the JAX aliases ``sd15``, ``sd21``, ``pixart`` and ``kandinsky5-image``),
 so ``get`` of any other family raises naming ROADMAP Queue 1
 item 6, and an unknown name raises ``KeyError`` as in the JAX registry.
@@ -68,7 +68,8 @@ ALIASES = {"sd15": "sd1x", "sd21": "sd2x", "pixart": "pixart_sigma", "ltx2": "lt
 # the families the port builds
 PORTED = ("flux", "sd3", "sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "chroma", "lumina2",
           "kandinsky5_image", "kandinsky5_video", "hunyuanvideo", "qwen_image", "mageflow", "z_image", "hidream",
-          "flux2", "kolors", "longcat_image", "z_image_omni", "zlab_i1", "boogu_image", "krea2", "cosmos", "anima")
+          "flux2", "kolors", "longcat_image", "z_image_omni", "zlab_i1", "boogu_image", "krea2", "cosmos", "anima",
+          "omnigen", "ernie", "ideogram")
 
 
 class ModelRegistry:
@@ -183,6 +184,18 @@ class ModelRegistry:
             from .anima import Anima
 
             return Anima
+        if family == "omnigen":
+            from .omnigen import OmniGen
+
+            return OmniGen
+        if family == "ernie":
+            from .ernie import Ernie
+
+            return Ernie
+        if family == "ideogram":
+            from .ideogram import Ideogram
+
+            return Ideogram
         raise NotImplementedError(f"model_family={name!r} is not ported (only {', '.join(PORTED)}; "
                                   "ROADMAP Queue 1 item 6)")
 

@@ -30,7 +30,9 @@ layout (``transformer/``); HunyuanVideo 1.5 the diffusers
 ``Flux2Transformer2DModel`` layout (``transformer/``); Kolors the diffusers UNet
 layout (``unet/``); Krea-2 the ``Krea2Transformer2DModel`` layout, Cosmos-Predict2
 the diffusers ``CosmosTransformer3DModel`` layout and Anima its adapter with a
-``core.``-prefixed Cosmos core (``transformer/``).
+``core.``-prefixed Cosmos core (``transformer/``); OmniGen the diffusers
+``OmniGenTransformer2DModel`` layout, ERNIE-Image the ``ErnieImageTransformer2DModel``
+layout and Ideogram the ``Ideogram4Transformer`` layout (``transformer/``).
 
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
 keeps f32, bf16 and fp8 (e4m3) leaves in the file's dtype (``_float``; the
@@ -48,8 +50,8 @@ read from disk when it is first used.  Only the ``flux``, ``sd3``, ``sdxl``,
 ``sd1x``, ``sd2x``, ``pixart_sigma``, ``auraflow``, ``wan``, ``ltxvideo``, ``chroma``,
 ``lumina2``, ``kandinsky5_video``, ``kandinsky5_image``, ``hunyuanvideo``, ``qwen_image``,
 ``mageflow``, ``z_image``, ``hidream``, ``flux2``, ``kolors``, ``longcat_image``,
-``z_image_omni``, ``zlab_i1``, ``boogu_image``, ``krea2``, ``cosmos`` and ``anima``
-families import; every other family raises.
+``z_image_omni``, ``zlab_i1``, ``boogu_image``, ``krea2``, ``cosmos``, ``anima``, ``omnigen``,
+``ernie`` and ``ideogram`` families import; every other family raises.
 """
 
 from __future__ import annotations
@@ -1577,6 +1579,141 @@ def load_anima_params(model, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# OmniGen (OmniGenTransformer2DModel), ERNIE-Image and Ideogram
+# ---------------------------------------------------------------------------------
+
+
+def omnigen_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of an OmniGen transformer of ``arch``
+    (``OmniGenConfig``): the 2 x 2 patch conv as the Dense patchifier by
+    (out, in, kh, kw) -> ((kh, kw, in), out); the sincos table is recomputed,
+    not read; the input-image branch of the published file is not read."""
+    w = weights
+    conv = _float(w["patch_embedding.output_image_proj.weight"])  # (out, in, kh, kw)
+    patch = {"kernel": conv.permute(2, 3, 1, 0).reshape(-1, conv.shape[0])}
+    if "patch_embedding.output_image_proj.bias" in w:
+        patch["bias"] = _float(w["patch_embedding.output_image_proj.bias"])
+    rms = lambda key: {"weight": _float(w[f"{key}.weight"])}  # noqa: E731
+    params: Dict[str, Any] = {
+        "output_image_proj": patch,
+        "embed_tokens": {"embedding": _float(w["embed_tokens.weight"])},
+        "t_embedder": {"linear_1": _linear(w, "t_embedder.linear_1"), "linear_2": _linear(w, "t_embedder.linear_2")},
+        "time_token": {"linear_1": _linear(w, "time_token.linear_1"), "linear_2": _linear(w, "time_token.linear_2")},
+        "norm": rms("norm"),
+        "norm_out_linear": _linear(w, "norm_out.linear"),
+        "proj_out": _linear(w, "proj_out"),
+    }
+    for i in range(arch.num_layers):
+        src = f"layers.{i}"
+        params[f"layers_{i}"] = {
+            "input_layernorm": rms(f"{src}.input_layernorm"),
+            "post_attention_layernorm": rms(f"{src}.post_attention_layernorm"),
+            "to_q": _linear(w, f"{src}.self_attn.to_q"),
+            "to_k": _linear(w, f"{src}.self_attn.to_k"),
+            "to_v": _linear(w, f"{src}.self_attn.to_v"),
+            "to_out": _linear(w, f"{src}.self_attn.to_out.0"),
+            "gate_up_proj": _linear(w, f"{src}.mlp.gate_up_proj"),
+            "down_proj": _linear(w, f"{src}.mlp.down_proj"),
+        }
+    return params
+
+
+def load_omnigen_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of an OmniGen transformer (a model dir
+    with a ``transformer/`` subfolder, or one file; names read as written,
+    no prefix stripped, as the JAX importer reads them)."""
+    params = omnigen_params_from_diffusers(read_safetensors(path), model.arch)
+    logger.info("imported omnigen weights from %s", path)
+    return params
+
+
+def ernie_params_from_checkpoint(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of an ERNIE-Image transformer of ``arch``
+    (``ErnieConfig``): ``x_embedder`` a k = 1 conv read as a Dense (no
+    permutation of its input features, as the JAX importer reads it);
+    ``text_proj`` only where the file has it."""
+    w = weights
+    conv = _float(w["x_embedder.proj.weight"])[:, :, 0, 0]  # (H, C)
+    params: Dict[str, Any] = {
+        "x_embedder": {"kernel": conv.t(), "bias": _float(w["x_embedder.proj.bias"])},
+        "time_in": _linear(w, "time_embedding.linear_1"),
+        "time_out": _linear(w, "time_embedding.linear_2"),
+        "adaLN_modulation": _linear(w, "adaLN_modulation.1"),
+        "final_adaLN": _linear(w, "final_norm.linear"),
+        "final_linear": _linear(w, "final_linear"),
+    }
+    if "text_proj.weight" in w:
+        params["text_proj"] = _linear(w, "text_proj")
+    for i in range(arch.num_layers):
+        src = f"layers.{i}"
+        params[f"layer_{i}"] = {
+            "adaLN_sa_ln": _float(w[f"{src}.adaLN_sa_ln.weight"]),
+            "adaLN_mlp_ln": _float(w[f"{src}.adaLN_mlp_ln.weight"]),
+            "to_q": _linear(w, f"{src}.self_attention.to_q"),
+            "to_k": _linear(w, f"{src}.self_attention.to_k"),
+            "to_v": _linear(w, f"{src}.self_attention.to_v"),
+            "to_out": _linear(w, f"{src}.self_attention.to_out.0"),
+            "norm_q": _float(w[f"{src}.self_attention.norm_q.weight"]),
+            "norm_k": _float(w[f"{src}.self_attention.norm_k.weight"]),
+            "gate_proj": _linear(w, f"{src}.mlp.gate_proj"),
+            "up_proj": _linear(w, f"{src}.mlp.up_proj"),
+            "linear_fc2": _linear(w, f"{src}.mlp.linear_fc2"),
+        }
+    return params
+
+
+def load_ernie_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of an ERNIE-Image transformer."""
+    params = ernie_params_from_checkpoint(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported ernie weights from %s", path)
+    return params
+
+
+def ideogram_params_from_checkpoint(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of an Ideogram transformer of ``arch``
+    (``IdeogramConfig``): every tensor 1:1, ``input_proj`` and
+    ``final_linear`` unpermuted (the JAX importer does not reorder the
+    reference's (c, ph, pw) packing, whatever its family docstring says:
+    ROADMAP Queue 3), the fused ``qkv`` as it is."""
+    w = weights
+    params: Dict[str, Any] = {
+        "input_proj": _linear(w, "input_proj"),
+        "llm_cond_norm": _float(w["llm_cond_norm.weight"]),
+        "llm_cond_proj": _linear(w, "llm_cond_proj"),
+        "t_in": _linear(w, "t_embedding.mlp_in"),
+        "t_out": _linear(w, "t_embedding.mlp_out"),
+        "adaln_proj": _linear(w, "adaln_proj"),
+        "embed_image_indicator": _float(w["embed_image_indicator.weight"]),
+        "final_linear": _linear(w, "final_layer.linear"),
+        "final_adaln": _linear(w, "final_layer.adaln_modulation"),
+    }
+    for i in range(arch.num_layers):
+        src = f"layers.{i}"
+        params[f"layer_{i}"] = {
+            "qkv": _linear(w, f"{src}.attention.qkv"),
+            "o": _linear(w, f"{src}.attention.o"),
+            "norm_q": _float(w[f"{src}.attention.norm_q.weight"]),
+            "norm_k": _float(w[f"{src}.attention.norm_k.weight"]),
+            "w1": _linear(w, f"{src}.feed_forward.w1"),
+            "w2": _linear(w, f"{src}.feed_forward.w2"),
+            "w3": _linear(w, f"{src}.feed_forward.w3"),
+            "attention_norm1": _float(w[f"{src}.attention_norm1.weight"]),
+            "attention_norm2": _float(w[f"{src}.attention_norm2.weight"]),
+            "ffn_norm1": _float(w[f"{src}.ffn_norm1.weight"]),
+            "ffn_norm2": _float(w[f"{src}.ffn_norm2.weight"]),
+            "adaln_modulation": _linear(w, f"{src}.adaln_modulation"),
+        }
+    return params
+
+
+def load_ideogram_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of an Ideogram transformer."""
+    params = ideogram_params_from_checkpoint(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported ideogram weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
@@ -1593,7 +1730,8 @@ _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_une
               "z_image_omni": load_z_image_omni_params, "zlab_i1": load_zlab_i1_params,
               # Boogu-Image is the Lumina2 Next-DiT layout
               "boogu_image": load_lumina2_params, "krea2": load_krea2_params, "cosmos": load_cosmos2_params,
-              "anima": load_anima_params}
+              "anima": load_anima_params, "omnigen": load_omnigen_params, "ernie": load_ernie_params,
+              "ideogram": load_ideogram_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:

@@ -112,12 +112,13 @@ def create_server(
     audit_path: Optional[str] = None,
     state_dir: Optional[str] = None,
     device: str = "cuda",
+    max_concurrent_jobs: int = 1,  # job slots: child processes that run at once
 ) -> ThreadingHTTPServer:
     from .audit import AuditLog
     from .store import ConfigStore, default_state_dir
 
     state_dir = state_dir or default_state_dir()
-    keeper = ProcessKeeper(state_dir=state_dir, device=device)
+    keeper = ProcessKeeper(max_concurrent=max_concurrent_jobs, state_dir=state_dir, device=device)
     configs = ConfigStore(state_dir)
     audit = AuditLog(audit_path)
     sse = SSEManager()

@@ -8,8 +8,10 @@ sd1x and sd2x), ``sd3_key_map`` (lora.py:158), ``pixart_key_map``
 ``flux_key_map``, lora.py:651), ``kandinsky5_key_map`` (lora.py:289; both
 Kandinsky flavours), ``hunyuanvideo_key_map`` (lora.py:620), ``flux2_key_map``
 (lora.py:419; kolors takes ``unet_key_map``, lora.py:655), ``krea2_key_map``
-(lora.py:276), ``cosmos1_core_key_map`` (lora.py:215; cosmos) and ``anima_key_map``
-(lora.py:232) and ``_key_map_for``
+(lora.py:276), ``cosmos1_core_key_map`` (lora.py:215; cosmos), ``anima_key_map``
+(lora.py:232), ``ernie_key_map`` (lora.py:252) and ``ideogram_key_map`` (lora.py:264;
+omnigen has no map, so its adapter files carry the flattened module paths, as in
+the JAX package) and ``_key_map_for``
 (lora.py:680), which resolve the LoRA target presets and
 name the adapters of an export (the maps leave ``patch_in`` and
 ``context_in`` under their own names, as the JAX export does),
@@ -383,6 +385,28 @@ def anima_key_map(arch) -> Dict[str, Any]:
     return cosmos1_core_key_map(arch.core, ours_prefix="core/", theirs_prefix="core.")
 
 
+def ernie_key_map(arch) -> Dict[str, Any]:
+    """ErnieImageTransformer2DModel layout (``x_embedder`` keeps its own name)."""
+    mapping: Dict[str, Any] = {"final_linear": "final_linear"}
+    for layer in range(arch.num_layers):
+        for ours, theirs in (("to_q", "to_q"), ("to_k", "to_k"), ("to_v", "to_v"), ("to_out", "to_out.0")):
+            mapping[f"layer_{layer}/{ours}"] = f"layers.{layer}.self_attention.{theirs}"
+        for p in ("gate_proj", "up_proj", "linear_fc2"):
+            mapping[f"layer_{layer}/{p}"] = f"layers.{layer}.mlp.{p}"
+    return mapping
+
+
+def ideogram_key_map(arch) -> Dict[str, Any]:
+    """Ideogram4Transformer layout (``llm_cond_proj`` keeps its own name)."""
+    mapping: Dict[str, Any] = {"input_proj": "input_proj", "final_linear": "final_layer.linear"}
+    for layer in range(arch.num_layers):
+        mapping[f"layer_{layer}/qkv"] = f"layers.{layer}.attention.qkv"
+        mapping[f"layer_{layer}/o"] = f"layers.{layer}.attention.o"
+        for p in ("w1", "w2", "w3"):
+            mapping[f"layer_{layer}/{p}"] = f"layers.{layer}.feed_forward.{p}"
+    return mapping
+
+
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
     "sd1x": lambda m: unet_key_map(m.arch),
@@ -411,6 +435,8 @@ _KEY_MAPS = {
     "krea2": lambda m: krea2_key_map(m.arch),
     "cosmos": lambda m: cosmos1_core_key_map(m.arch),
     "anima": lambda m: anima_key_map(m.arch),
+    "ernie": lambda m: ernie_key_map(m.arch),
+    "ideogram": lambda m: ideogram_key_map(m.arch),
 }
 
 

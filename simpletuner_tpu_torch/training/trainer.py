@@ -76,13 +76,18 @@ preset trains), the four with ``VAEConfig.flux()`` at their published widths,
 dropped; EDM x0 prediction with its own ``prepare_batch`` and loss) and
 ``anima`` (Qwen at 256 tokens and 64 T5 ids), the three with
 ``VAEConfig.flux()`` (every family of 16 channels or more, as the JAX
-trainer builds it, though Cosmos's docstring names the Wan VAE);
+trainer builds it, though Cosmos's docstring names the Wan VAE),
+``omnigen`` (no text encoder: the cache holds its own Phi-3 ids and mask;
+the SD ``VAEConfig()``), ``ernie`` (the qwen2.5 final-norm states at 512
+tokens with the mask) and ``ideogram`` (13 taps of the qwen2.5-vl trunk side
+by side, with the mask), the last two at 32 latent channels against
+``VAEConfig.flux()``, as the JAX trainer, so only their tiny presets train;
 the batch reaches the step with every numeric array
 the family's collate gives (Flux's ``t5_embeds``/``t5_masks``, the others'
 ``text_embeds``, SDXL's size conditioning ``original_sizes``,
 ``crop_coordinates`` and ``target_sizes``), and ``pooled_embeds`` for flux,
 sd3 and sdxl.  Refused, each naming its ROADMAP item:
-families other than these twenty-seven, full fine-tunes and ControlNet, distillation and
+families other than these thirty, full fine-tunes and ControlNet, distillation and
 ODE pairs, CREPA / U-REPA, text-encoder training, slider and assistant
 adapters, a mesh of more than one device and multi-process runs.
 """

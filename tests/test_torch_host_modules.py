@@ -84,7 +84,8 @@ def test_the_port_imports_nothing_of_the_jax_package():
     # the SDXL slice's modules, the SD 1.x / 2.x, PixArt-Sigma, AuraFlow, Wan, LTX-Video, Chroma, Lumina2,
     # decoder-LLM, Kandinsky 5.0, HunyuanVideo, Qwen-Image, MageFlow / Z-Image, HiDream, FLUX.2, Kolors,
     # LongCat-Image, Z-Image-Omni, Zlab-i1, Boogu-Image, Krea-2, Cosmos and Anima ones (with the EDM Euler
-    # scheduler) are among those imported
+    # scheduler), and the OmniGen, ERNIE-Image and Ideogram ones (with Ideogram's host prompt modules)
+    # are among those imported
     assert {f"simpletuner_tpu_torch.{name}" for name in (
         "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc", "models.sd1x",
         "models.sd1x.model", "models.pixart", "models.pixart.model", "models.pixart.transformer",
@@ -102,7 +103,9 @@ def test_the_port_imports_nothing_of_the_jax_package():
         "models.zlab_i1.latent_utils", "models.extended", "models.extended.model", "models.krea2",
         "models.krea2.model", "models.krea2.transformer", "models.cosmos1", "models.cosmos1.transformer",
         "models.cosmos2", "models.cosmos2.model", "models.anima", "models.anima.model", "models.anima.transformer",
-        "schedulers.edm_euler")} <= set(names)
+        "schedulers.edm_euler", "models.omnigen", "models.omnigen.model", "models.omnigen.transformer",
+        "models.ernie", "models.ernie.model", "models.ernie.transformer", "models.ideogram", "models.ideogram.model",
+        "models.ideogram.transformer", "models.ideogram.prompting", "models.ideogram.prompt_enhancer")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -590,7 +593,14 @@ def test_model_registry_refuses_other_families():
     assert isinstance(get_model_family(TrainingConfig({"model_family": "krea2"})), Krea2)
     assert isinstance(get_model_family(TrainingConfig({"model_family": "cosmos"})), Cosmos2Image)
     assert isinstance(get_model_family(TrainingConfig({"model_family": "anima"})), Anima)
-    for family in ("sana", "omnigen", "deepfloyd"):
+    from simpletuner_tpu_torch.models.ernie import Ernie
+    from simpletuner_tpu_torch.models.ideogram import Ideogram
+    from simpletuner_tpu_torch.models.omnigen import OmniGen
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "omnigen"})), OmniGen)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "ernie"})), Ernie)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "ideogram"})), Ideogram)
+    for family in ("sana", "heartmula", "deepfloyd"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):
@@ -627,3 +637,36 @@ def test_model_registry_matches():
     for registry in (ModelRegistry, JaxModelRegistry):
         with pytest.raises(KeyError):
             registry.metadata("nope")
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_ideogram_prompting_copy_matches(enabled):
+    """``models/ideogram/prompting.py`` is a copy of the JAX module: the
+    same body, and on plain prompts (camera words, hex palettes, non-ASCII),
+    JSON prompts (partial, with elements, bboxes, text elements and palettes
+    past the caps), invalid JSON and empty input, with the auto-json path on
+    and off, the same captions, and the same canonical dicts."""
+    from simpletuner_tpu.models.ideogram import prompting as jax_prompting
+
+    from simpletuner_tpu_torch.models.ideogram import prompting
+
+    body = lambda path: path.read_text().split('"""', 2)[2]  # noqa: E731 (past the module docstring)
+    assert body(REPO / "simpletuner_tpu_torch/models/ideogram/prompting.py") == \
+        body(REPO / "simpletuner_tpu/models/ideogram/prompting.py")
+    palette = " ".join(f"#{i:02x}{i:02x}A0" for i in range(20))
+    prompts = [
+        "a lighthouse on a basalt cliff at dusk", "35mm film photo of a cat, bokeh #ff00aa #FF00AA",
+        f"poster in {palette}", "café au lait, ünïcödé", "", "   ", "{not json", "[1, 2]",
+        json.dumps({"high_level_description": "a sign", "compositional_deconstruction": {"elements": [
+            {"type": "text", "text": "OPEN  24h", "desc": "neon", "bbox": [1.7, 2, 30, 40.2],
+             "color_palette": ["#aaaaaa", "#AAAAAA", "#123456", "bad", "#654321", "#111111", "#222222",
+                               "#333333"]},
+            {"type": "weird", "label": "a dog"}, "skip me"]}}),
+        json.dumps({"description": "cinematic shot", "style_description": {"photo": "wide", "lighting": ""}}),
+        json.dumps({"style_description": {"art_style": "ink", "colour_palette": "#abcdef and #ABCDEF"}}),
+    ]
+    for prompt in prompts:
+        assert prompting.maybe_convert_prompt_to_ideogram_json(prompt, enabled=enabled) == \
+            jax_prompting.maybe_convert_prompt_to_ideogram_json(prompt, enabled=enabled), prompt
+        assert prompting.prompt_to_ideogram_json_caption(prompt) == jax_prompting.prompt_to_ideogram_json_caption(prompt)
+    assert prompting.maybe_convert_prompt_to_ideogram_json(None, enabled=False) is None

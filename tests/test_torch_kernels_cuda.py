@@ -1814,3 +1814,178 @@ def test_graphed_krea2_cosmos_anima_steps_match_eager_bitwise(cuda, family):
     replayed = trajectory(graphed)
     assert torch.isfinite(eager).all() and (eager[1::2] > 0).all()
     assert torch.equal(replayed, eager)
+
+
+# OmniGen at 1024 x 1024: the 4,096 image rows (query ids 1) against the whole
+# sequence of 120 text tokens (77 valid; the pads at SEGMENT_PAD_ID), the time
+# token and the 4,096 image tokens, 4,217 keys, head dim 96 (zero-padded to the
+# kernels' 128); ERNIE-Image's joint [4,096 image | 512 text] with 300 valid
+# text keys, head dim 128; Ideogram's joint [512 text | 4,096 image] with its
+# segment ids passed through (text pads at 0 attend to each other only), head
+# dim 256
+OMNIGEN_ERNIE_IDEOGRAM_CASES = [("omnigen_image_rows_q4096_k4217", 4096, 4217, 96),
+                                ("ernie_joint_s4608", 4608, 4608, 128), ("ideogram_joint_s4608", 4608, 4608, 256)]
+
+
+def _omnigen_ernie_ideogram_segments(name, sq, sk, device):
+    """The (query ids, key ids) each family's module hands the op."""
+    if name.startswith("omnigen"):
+        kv = torch.ones((1, sk), dtype=torch.int32, device=device)
+        kv[:, 77:120] = SEGMENT_PAD_ID
+        return torch.ones((1, sq), dtype=torch.int32, device=device), kv
+    if name.startswith("ernie"):
+        kv = torch.ones((1, sk), dtype=torch.int32, device=device)
+        kv[:, 4096 + 300:] = SEGMENT_PAD_ID
+        return torch.ones((1, sq), dtype=torch.int32, device=device), kv
+    seg = torch.ones((1, sq), dtype=torch.int32, device=device)
+    seg[:, 300:512] = 0
+    return seg, seg
+
+
+@pytest.mark.parametrize("name,sq,sk,dim", OMNIGEN_ERNIE_IDEOGRAM_CASES, ids=[c[0] for c in OMNIGEN_ERNIE_IDEOGRAM_CASES])
+def test_kernels_at_the_omnigen_ernie_ideogram_shapes(cuda, name, sq, sk, dim):
+    """Forward and both backward kernels at OmniGen's image-row call (the
+    prefix rows stay plain), ERNIE's joint attention with key ids and
+    Ideogram's joint attention at head dim 256 with segment ids 0 / 1,
+    against the plain versions, two heads; pad keys get no gradient (OmniGen,
+    ERNIE), and Ideogram's pad rows see only each other."""
+    q, k, v = _qkv(110 + dim, 1, 2, sq, sk, dim, cuda)
+    q_seg, kv_seg = _omnigen_ernie_ideogram_segments(name, sq, sk, cuda)
+    out, lse = _check(q, k, v, q_seg, kv_seg)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    del out, lse
+    dq, dk, dv = _check_backward(q, k, v, q_seg, seed=111, kv_seg=kv_seg)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    pads = (kv_seg[0] == SEGMENT_PAD_ID).nonzero()[:, 0]
+    if len(pads):
+        assert not dk[:, :, pads].float().any() and not dv[:, :, pads].float().any()
+
+
+def _tiny_family_module(family, dtype, device):
+    """The tiny DiT of ``family`` at the head dim its published arch runs
+    (OmniGen 96 with GQA 2 over 1, ERNIE 128, Ideogram 256), 2 blocks, remat,
+    rank-4 adapters."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.ernie import ErnieConfig, ErnieTransformer
+    from simpletuner_tpu_torch.models.ideogram import IdeogramConfig, IdeogramTransformer
+    from simpletuner_tpu_torch.models.omnigen import OmniGenConfig, OmniGenTransformer
+
+    if family == "omnigen":
+        cfg, cls = dataclasses.replace(OmniGenConfig.tiny(), hidden_size=192, intermediate_size=256), \
+            OmniGenTransformer
+    elif family == "ernie":
+        cfg, cls = dataclasses.replace(ErnieConfig.tiny(), hidden_size=256, rope_axes_dim=(32, 48, 48)), \
+            ErnieTransformer
+    else:
+        cfg, cls = dataclasses.replace(IdeogramConfig.tiny(), emb_dim=512, mrope_section=(24, 20, 20)), \
+            IdeogramTransformer
+    with torch.device(device):
+        return cfg, cls(cfg, dtype=dtype, lora_rank=4, remat=True)
+
+
+def _tiny_family_inputs(family, cfg, gen):
+    """Seeded inputs with padded text: OmniGen 16 ids (11 and 16 valid,
+    right-padded) before 48 image tokens; ERNIE 20 states (20 and 9 valid)
+    after 48; Ideogram's packed sequence through the family (20 text tokens,
+    9 valid in the second sample)."""
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.ideogram import Ideogram
+
+    if family == "omnigen":
+        mask = (torch.arange(16)[None] < torch.tensor([[11], [16]])).float()
+        return [torch.randn((2, 12, 16, 4), generator=gen), torch.tensor([0.3, 0.8]),
+                torch.randint(0, cfg.vocab_size, (2, 16), generator=gen), mask], (2, 12, 16, 4)
+    if family == "ernie":
+        return [torch.randn((2, 6, 8, cfg.in_channels), generator=gen), torch.tensor([300.0, 800.0]),
+                torch.randn((2, 20, cfg.text_in_dim), generator=gen), torch.tensor([20, 9])], (2, 6, 8, cfg.in_channels)
+    model = Ideogram(config_namespace({"model_family": "ideogram", "model_arch_preset": "tiny"}), arch=cfg)
+    prepared = {"noisy_latents": torch.randn((2, 12, 16, cfg.in_channels // 4), generator=gen),
+                "timesteps": torch.tensor([0.3, 0.8]),
+                "text_embeds": torch.randn((2, 20, cfg.llm_features_dim), generator=gen),
+                "text_attention_mask": (torch.arange(20)[None] < torch.tensor([[20], [9]])).to(torch.int32)}
+    inputs = model.get_model_inputs(prepared)
+    order = ("llm_features", "x", "t", "position_ids", "segment_ids", "indicator")
+    return [inputs[key] for key in order], tuple(inputs["x"].shape)
+
+
+@pytest.mark.parametrize("family", ["omnigen", "ernie", "ideogram"])
+def test_tiny_omnigen_ernie_ideogram_on_the_card_match_their_cpu_runs(cuda, family):
+    """Each tiny DiT (``_tiny_family_module``; ERNIE's zero-init AdaLN and
+    final linear drawn) with padded text against its CPU run: prediction and
+    LoRA gradients within the card-against-CPU bound."""
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg, cpu = _tiny_family_module(family, torch.float32, "cpu")
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, param in cpu.named_parameters():
+            if "lora" not in name and not param.any():
+                param.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(3))
+    _, card = _tiny_family_module(family, torch.bfloat16, cuda)
+    gen = torch.Generator().manual_seed(4)
+    inputs, out_shape = _tiny_family_inputs(family, cfg, gen)
+    _card_against_cpu(cpu, card, inputs, torch.randn(out_shape, generator=gen), cuda)
+
+
+@pytest.mark.parametrize("family", ["omnigen", "ernie", "ideogram"])
+def test_graphed_omnigen_ernie_ideogram_steps_match_eager_bitwise(cuda, family):
+    """The tiny OmniGen step (int32 ids, a float mask), ERNIE step (the
+    lengths from the mask) and Ideogram step (the packed sequence with text
+    pads): three eager steps and then three replays of the captured step from
+    the same state and generator state give the same losses and grad norms
+    bitwise (every table the modules make on the host is made once per
+    device in the eager steps, so the capture copies nothing)."""
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.training.optimizers import get_optimizer
+    from simpletuner_tpu_torch.training.train_state import (build_train_step, create_train_state, jit_train_step,
+                                                            state_tensors)
+
+    config = TrainingConfig({"model_family": family, "model_arch_preset": "tiny", "model_type": "lora",
+                             "lora_rank": 4, "learning_rate": 1e-3, "optimizer": "adamw",
+                             "gradient_checkpointing": True})
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    model = ModelRegistry.create(family, config)
+    with torch.device(cuda):
+        module = init_parameters(model.create_module(), gen)
+    with torch.no_grad():  # ERNIE's AdaLN and final linear start at zero: give them a draw
+        for name, param in module.named_parameters():
+            if "lora" not in name and not param.any():
+                param.normal_(0.0, 0.05, generator=gen)
+    batch = {"latents": torch.randn((1, 16, 16, model.latent_channels), generator=gen, device=cuda)}
+    mask = (torch.arange(12, device=cuda) < 7)[None]
+    if family == "omnigen":
+        batch.update({"input_ids": torch.randint(3, 120, (1, 12), generator=gen, device=cuda).to(torch.int32),
+                      "text_attention_mask": mask.float()})
+    else:
+        width = model.arch.llm_features_dim if family == "ideogram" else model.arch.text_in_dim
+        batch.update({"text_embeds": torch.randn((1, 12, width), generator=gen, device=cuda),
+                      "text_attention_mask": mask.to(torch.int32)})
+    tx = get_optimizer(config, 1e-3)
+    state = create_train_state(model, module, tx)
+    step_fn = build_train_step(model, tx)
+    with torch.no_grad():
+        saved = [x.clone() for x in state_tensors(state)]
+    rng = torch.Generator(device=cuda)
+    rng.manual_seed(5)
+    start = rng.get_state()
+
+    def trajectory(step):
+        current, out = state, []
+        for _ in range(3):
+            current, metrics = step(current, batch, rng)
+            out += [metrics["loss"], metrics["grad_norm"]]
+        return torch.stack(out)
+
+    eager = trajectory(step_fn)
+    with torch.no_grad():
+        for x, value in zip(state_tensors(state), saved):
+            x.copy_(value)
+    rng.set_state(start)
+    state.step = 0
+    graphed = jit_train_step(step_fn, state, batch, rng)
+    replayed = trajectory(graphed)
+    assert torch.isfinite(eager).all() and (eager[1::2] > 0).all()
+    assert torch.equal(replayed, eager)

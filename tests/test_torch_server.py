@@ -524,7 +524,8 @@ def test_routes_that_differ_by_design(pair):
         assert pair.both("GET", f"/api/models/{family}/presets", compare=False)["port"] == presets["port"], family
     for family in ("sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "lumina2",
                    "kandinsky5_image", "kandinsky5_video", "hunyuanvideo", "qwen_image", "mageflow", "z_image",
-                   "hidream", "flux2", "kolors", "z_image_omni", "zlab_i1", "boogu_image", "krea2", "cosmos", "anima"):
+                   "hidream", "flux2", "kolors", "z_image_omni", "zlab_i1", "boogu_image", "krea2", "cosmos", "anima",
+                   "omnigen", "ernie", "ideogram"):
         answers = pair.both("GET", f"/api/models/{family}/presets", compare=False)
         assert answers["port"][0] == answers["jax"][0] == 200
         assert [(p["name"], p["config"]) for p in answers["port"][1]] == [
@@ -533,7 +534,8 @@ def test_routes_that_differ_by_design(pair):
         501, {"error": "model_family='sana' is not ported (only flux, sd3, sdxl, sd1x, sd2x, pixart_sigma, "
                        "auraflow, wan, ltxvideo, chroma, lumina2, kandinsky5_image, kandinsky5_video, "
                        "hunyuanvideo, qwen_image, mageflow, z_image, hidream, flux2, kolors, longcat_image, "
-                       "z_image_omni, zlab_i1, boogu_image, krea2, cosmos, anima; ROADMAP Queue 1 item 6)"})
+                       "z_image_omni, zlab_i1, boogu_image, krea2, cosmos, anima, omnigen, ernie, ideogram; "
+                       "ROADMAP Queue 1 item 6)"})
     pair.both("GET", "/api/models/nope/presets")  # unknown: 404 on both
     job = pair.both("POST", "/api/inference/start",
                     {"checkpoint": "/nope/checkpoint-1", "prompt": "a cat", "steps": 1})
@@ -644,3 +646,27 @@ def test_signal_and_cancel_a_running_job(port_server, tmp_path):
     info = _wait(port, job_id)
     assert info["state"] == "cancelled"
     assert _http(port, "POST", f"/api/training/signal/{job_id}", {"action": "checkpoint"})[0] == 404
+
+
+def test_two_job_slots_run_two_jobs_at_once(tmp_path):
+    """``create_server(max_concurrent_jobs=2)`` (the chip script's server
+    phase) dispatches a second job while the first runs: two jobs of an
+    unported family, submitted back to back, overlap in time; the default
+    server has one slot."""
+    default = _start(create_server, tmp_path / "default", device="cpu")
+    try:
+        assert default.keeper.max_concurrent == 1
+    finally:
+        _stop(default)
+    srv = _start(create_server, tmp_path / "state", device="cpu", max_concurrent_jobs=2)
+    try:
+        port = srv.server_address[1]
+        assert srv.keeper.max_concurrent == 2
+        _write_images(tmp_path / "data")
+        jobs = [_http(port, "POST", "/api/training/start",
+                      {"config": _values(tmp_path, f"out{i}", model_family="sana")})[1]["job_id"] for i in range(2)]
+        infos = [_wait(port, job) for job in jobs]
+        assert [info["state"] for info in infos] == ["failed", "failed"]
+        assert infos[1]["started_at"] < infos[0]["finished_at"] and infos[0]["started_at"] < infos[1]["finished_at"]
+    finally:
+        _stop(srv)
