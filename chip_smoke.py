@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch port of simpletuner-tpu once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                       # every phase, 1-41
+    python3 chip_smoke.py                       # every phase, 1-44
     python3 chip_smoke.py --phases 14-16,27,28  # the named phases, what they need, and 1-3 and 7
 
 With ``--phases`` the script runs the named phases, the phases whose files
@@ -10,7 +10,8 @@ T5-XXL and tokenizer and phase 16's JPEGs; 27 phase 14's CLIP-L, phase 15's
 CLIP tokenizer and phase 16's JPEGs; 28 phase 15's files; 29 phase 14's VAE and phase 16's
 JPEGs; 30 those, phase 15's T5-XXL and tokenizers and phase 19's CLIP-G; 31 none; 32 phase 16's JPEGs;
 33 and 34 phase 14's VAE and phase 16's JPEGs; 35 none; 36 and 38 phase 14's VAE and phase
-16's JPEGs; 37 those and phase 15's T5 tokenizer; 39 phase 16's JPEGs; 40 and 41 none) and
+16's JPEGs; 37 those and phase 15's T5 tokenizer; 39 phase 16's JPEGs; 40, 41 and 43 none; 42
+phase 15's T5-XXL and tokenizer; 44 phase 42's clips and phase 43's Gemma-2) and
 phases 1, 2, 3 and 7 (the
 build, and every kernel against its plain version); a named family phase
 whose depth a full run cuts writes its full-depth file where the run's
@@ -647,8 +648,47 @@ exits non-zero with no result line):
    card; imports (bitwise); one forward against the plain attention at head
    dim 256 (the text mask as segment ids, pads at 0); the CFG sampler loop
    without a decode; 6 graphed LoRA steps through ``build_train_step``; in a
-   run that names it, all 34 layers in memory (9.2 GB of int8); last, the
-   run's writes against ``RUN_WRITE_LIMIT_GB`` less ``RUN_WRITE_MARGIN_GB``.
+   run that names it, all 34 layers in memory (9.2 GB of int8).
+42. longcat_video: LongCat-Video at the JAX preset's full width
+   (meituan-longcat/LongCat-Video, ``LongCatVideoConfig()``: 4096 wide, 32
+   heads of 128, 48 blocks, SwiGLU 11,008; 13.58B parameters).  Checks
+   ``longcat_video_flops``; writes a seeded e4m3 checkpoint at
+   ``LV_FILE_BLOCKS`` (2) of 48 and two seeded 832 x 480 x 81 clips, links
+   phase 15's T5-XXL and tokenizer; imports (bitwise); ``Trainer.run()``:
+   the T5 text cache at 512 tokens with the mask, the Wan-config video VAE
+   cache (21 x 60 x 104 x 16 latents: 32,760 tokens), 6 graphed rank-16
+   LoRA steps on an int8 base (``quantized_matmul`` full) with every block
+   checkpointed, a replay bitwise against an eager step and the profiled
+   replay's launches by shape (the self-attention over the clip and the
+   cross-attention against the T5 keys with query ids 1 and key ids 1 / -1);
+   a true-CFG mp4 render at 480 px square and 17 frames; one forward against
+   the plain attention on a 17-frame clip (7,800 tokens); in a run that
+   names it, all 48 blocks in memory (13.6 GB of int8) and their graphed
+   step.
+43. sana: Sana 1600M at the JAX preset's full width
+   (Efficient-Large-Model/Sana_1600M_1024px_diffusers' ``transformer/``,
+   ``SanaConfig()``: 2240 wide, 20 blocks, 70 linear heads of 32, 20 cross
+   heads of 112, Mix-FFN 5600, 32 latent channels; 1.60B parameters).
+   Checks ``sana_flops``; writes a seeded e4m3 checkpoint at
+   ``SA_FILE_BLOCKS`` (4) of 20, a seeded Gemma-2 2B at ``GEMMA_FILE_LAYERS``
+   (2) of 26 (e4m3) and a word-level tokenizer; encodes 16 prompts at 300
+   tokens through the ``gemma`` spec; imports (bitwise); one forward against
+   the plain attention (the unmasked cross-attention at head dim 112, 1,024
+   queries against 300 keys); the CFG sampler loop at 1024 px without a
+   decode; 6 graphed LoRA steps through ``build_train_step`` (the
+   32-channel wall); the linear attention's time per block at full width;
+   in a run that names it, all 20 blocks in memory.
+44. sanavideo: Sana-Video 2B at the JAX preset's full width
+   (Efficient-Large-Model/SANA-Video_2B_480p, ``SanaVideoConfig()``: 20
+   heads of 112, 2240 wide, 20 blocks, GLUMBTempConv 5600; 1.91B
+   parameters).  Checks ``sanavideo_flops``; writes a seeded e4m3
+   checkpoint at ``SV_FILE_BLOCKS`` (4) of 20, links phase 43's Gemma-2 and
+   tokenizer and phase 42's clips with their cached latents (each written
+   here in a run without them); then as phase 42, the cross-attention
+   against 300 Gemma keys with the mask as key ids, and the linear
+   attention's time per block at full width; in a run that names it, all
+   20 blocks in memory; last, the run's writes against
+   ``RUN_WRITE_LIMIT_GB`` less ``RUN_WRITE_MARGIN_GB``.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
 their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-32.
@@ -705,7 +745,13 @@ query ids 1 and key ids 1 / -1 with 77 of 120 prompt keys valid, beside the
 plain prefix block's time (``omnigen_prefix_block``); ``ER_KERNEL_CASES``:
 the joint (1, 24, 4608, 128) with 300 of 512 text keys valid;
 ``ID_KERNEL_CASES``: the joint (1, 18, 4608, 256), the text mask as the
-segment ids of both sides), held at 2 heads; at the long shapes the plain
+segment ids of both sides), held at 2 heads, and LongCat-Video's, Sana's and
+Sana-Video's (``LV_KERNEL_CASES``: the self-attention (1, 32, 32760, 128)
+with its ragged tail and the cross-attention against 512 T5 keys, query ids
+1 and key ids 1 / -1 with 300 valid; ``SA_KERNEL_CASES``: the unmasked
+cross-attention (1, 20, 1024 queries, 300 keys, 112); ``SV_KERNEL_CASES``:
+the cross-attention (1, 20, 32760 queries, 300 keys, 112) with 120 keys
+valid), held at 2 heads; at the long shapes the plain
 version is timed once, one head at a time, with no warm-up run (the first
 head warms it); phases 3 and 7 print the seconds of each of
 their sections (``section_s``).  Every phase
@@ -731,12 +777,13 @@ Then a JSON line with the kernels, each wrapper's head dim 256 instances,
 its Chroma row (the Flux shape's times) and its rows at Wan's, LTX's,
 Lumina2's, Kandinsky 5.0's, HunyuanVideo's, Qwen-Image's, Z-Image's,
 HiDream's, FLUX.2's, Kolors's, LongCat-Image's, Z-Image-Omni's, Zlab-i1's,
-Krea-2's, Cosmos's, OmniGen's, ERNIE's and Ideogram's shapes beside it, and
+Krea-2's, Cosmos's, OmniGen's, ERNIE's, Ideogram's, LongCat-Video's, Sana's
+and Sana-Video's shapes beside it, and
 Anima's rows at Cosmos's shapes
 (launches: the profiler's count in phase 12's profiled replay, for the head
 dim 256 rows in phase 22's, for the Chroma rows in phase 25's, and for the
 other rows the wrappers' count at that shape per step in phase 23's, 24's and
-26's-41's runs, per forward for Z-Image-Omni's omni shape),
+26's-44's runs, per forward for Z-Image-Omni's omni shape),
 and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
 register, spill and warning lines per kernel (a C7514 warning means ptxas
@@ -854,7 +901,7 @@ PHASE21_MODELS = (
     ("pixart_sigma", 1024, 4.5, {}),
 )
 PHASE21_CLIP_H_LAYERS = 4
-PHASE21_WRITE_GB = 2.9
+PHASE21_WRITE_GB = 2.85  # 2.81 GB measured
 PHASE21_TXT = {"sd1x": 77, "sd2x": 77, "pixart_sigma": 300}
 # phases 3 and 7 at SDXL's 1024 px attention: per level, the heads of 64 and
 # the H x W image tokens, self-attention and cross-attention against the 77
@@ -987,7 +1034,7 @@ CHROMA_GUIDANCE = 4.0
 CHROMA_TRAIN_STEPS, CHROMA_TRAIN_IMAGES = 6, 4
 CHROMA_PROMPT = "a lighthouse on a basalt cliff at dusk"
 CHROMA_SIGMA = 0.7
-PHASE25_WRITE_GB = 0.9  # at the cut depth (CHROMA_CUT_BLOCKS): 0.81 GB measured
+PHASE25_WRITE_GB = 0.85  # at the cut depth (CHROMA_CUT_BLOCKS): 0.81 GB measured
 # phase 26: Lumina-Image 2.0 (Alpha-VLLM/Lumina-Image-2.0's transformer/ as the
 # JAX preset Lumina2Config() builds it: 26 joint blocks + 2 context and 2 noise
 # refiners, 2304 wide, 24 query / 8 kv heads of 96, SwiGLU 6144; 1.97B
@@ -1012,7 +1059,7 @@ GEMMA_FILE_LAYERS = 2
 # tokens (phases 26-28): every product and the residual stream round to bf16
 # in each layer, so they agree to about a percent in relative L2
 LLM_BF16_REL_L2 = 5e-2
-PHASE26_WRITE_GB = 1.65  # at the cut depths (LUMINA_CUT_BLOCKS, GEMMA_FILE_LAYERS): 1.40 GB of files
+PHASE26_WRITE_GB = 1.5  # at the cut depths (LUMINA_CUT_BLOCKS, GEMMA_FILE_LAYERS): 1.45 GB measured
 # phases 3 and 7 at Lumina2's attention shapes (D = 96, zero-padded to 128 by
 # the wrappers, scaled by 96^-0.5): (name, heads, query tokens, key tokens,
 # head dim, valid caption tokens or None): the joint layers over [256 caption,
@@ -1051,7 +1098,7 @@ K5_LATENT = ((K5_FRAMES - 1) // 4 + 1, K5_HEIGHT // 8, K5_WIDTH // 8)
 K5_TOKENS = K5_LATENT[0] * (K5_LATENT[1] // 2) * (K5_LATENT[2] // 2)
 K5_CLIPS, K5_RENDER_SIZE, K5_PARITY_FRAMES, K5_SIGMA = 2, 512, 17, 0.7
 QWEN_FILE_LAYERS = 2
-PHASE27_WRITE_GB = 1.95  # at the cut depths (K5_CUT_BLOCKS, QWEN_FILE_LAYERS): 1.84 GB measured
+PHASE27_WRITE_GB = 1.9  # at the cut depths (K5_CUT_BLOCKS, QWEN_FILE_LAYERS): 1.84 GB measured
 # phases 3 and 7 at Kandinsky 5.0's attention shapes (D = 64, unmasked: the
 # JAX family drops the Qwen mask): the video flavour's self-attention over
 # 24,576 tokens (192 full tiles) and its cross-attention against the 512 Qwen
@@ -1083,7 +1130,7 @@ HY_VIDEO = HY_LATENT[0] * HY_LATENT[1] * HY_LATENT[2]
 HY_JOINT = HY_VIDEO + HY_TEXT + HY_TEXT2
 HY_CLIPS, HY_RENDER_SIZE, HY_PARITY_FRAMES, HY_SIGMA = 2, 480, 5, 0.7
 HY_QWEN_VALID, HY_BYT5_VALID = 180, 40  # a caption's valid tokens in the kernel cases
-PHASE28_WRITE_GB = 1.7  # at the cut depth (HY_CUT_BLOCKS)
+PHASE28_WRITE_GB = 1.6  # at the cut depth (HY_CUT_BLOCKS): 1.56 GB measured
 # phases 3 and 7 at HunyuanVideo's attention shapes (D = 128): the joint
 # attention over 31,800 video tokens then 256 Qwen and 77 ByT5 tokens with
 # the segment plane the DiT makes (video and valid tokens at 0, pads at -1:
@@ -1111,7 +1158,7 @@ QI_IMG = (RESOLUTION // 16) ** 2
 QI_GUIDANCE, QI_SIGMA = 4.0, 0.7
 QI_TRAIN_STEPS, QI_TRAIN_IMAGES = 6, 4
 ZI_CUT_BLOCKS, ZI_TRUNK_LAYERS = 2, 2
-PHASE29_WRITE_GB = 1.7  # at the cut depths (QI_CUT_BLOCKS, ZI_TRUNK_LAYERS)
+PHASE29_WRITE_GB = 1.7  # at the cut depths (QI_CUT_BLOCKS, ZI_TRUNK_LAYERS): 1.67 GB measured
 # phases 3 and 7 at Qwen-Image's and Z-Image's joint attention (D = 128,
 # unmasked: the JAX families drop the mask); held at QI_CHECK_HEADS heads
 QI_KERNEL_CASES = (
@@ -1134,7 +1181,7 @@ HD_JOINT = QI_IMG + 3 * HD_TEXT
 HD_GUIDANCE, HD_SIGMA = 5.0, 0.7
 HD_TRAIN_STEPS, HD_TRAIN_IMAGES = 6, 4
 LLAMA_FILE_LAYERS = 2
-PHASE30_WRITE_GB = 1.9  # at the cut depths (HD_CUT_BLOCKS, LLAMA_FILE_LAYERS): 1.82 GB measured
+PHASE30_WRITE_GB = 1.85  # at the cut depths (HD_CUT_BLOCKS, LLAMA_FILE_LAYERS): 1.82 GB measured
 HD_KERNEL_CASES = (
     ("hd_joint", 20, HD_JOINT, HD_JOINT, 128),
 )
@@ -1193,7 +1240,7 @@ LC_JOINT, LC_EDIT_JOINT = LC_TEXT + LC_IMG, LC_TEXT + 2 * LC_IMG
 LC_GUIDANCE, LC_SIGMA = 4.0, 0.7
 LC_TRAIN_STEPS, LC_TRAIN_IMAGES = 6, 4
 LC_CUT_BLOCKS = (1, 1)
-PHASE33_WRITE_GB = 0.7  # at the cut depth: 0.52 GB is the file
+PHASE33_WRITE_GB = 0.65  # at the cut depth: 0.58 GB measured, 0.52 GB the file
 LC_KERNEL_CASES = (
     ("lc_joint", 24, LC_JOINT, LC_JOINT, 128),
     ("lc_edit_joint", 24, LC_EDIT_JOINT, LC_EDIT_JOINT, 128),
@@ -1239,7 +1286,7 @@ ZL_SIGMA = 0.7
 ZL_TRAIN_STEPS = 6
 ZL_FILE_BLOCKS = 3
 GEMMA_ZL_LAYERS = 2
-PHASE35_WRITE_GB = 0.5  # 0.42 GB is the file
+PHASE35_WRITE_GB = 0.45  # 0.42 GB is the file
 ZL_KERNEL_CASES = (
     ("zl_joint", 28, ZL_JOINT, ZL_JOINT, 72, "zl_joint"),
     ("zl_connector", 28, ZL_TEXT, ZL_TEXT, 72),
@@ -1377,6 +1424,64 @@ ID_UPSAMPLE_TOKENS = 8
 PHASE41_WRITE_GB = 0.6  # 0.56 GB measured, the file
 ID_KERNEL_CASES = (("id_joint", 18, ID_JOINT, ID_JOINT, 256, "id_joint"),)
 ID_CHECK_HEADS = 2
+# phase 42: LongCat-Video (meituan-longcat/LongCat-Video's dit/ as the JAX
+# preset LongCatVideoConfig() builds it: 4096 wide, 32 heads of 128, 48
+# blocks, SwiGLU 11,008, T5-XXL captions at 512 tokens; 13.58B parameters) on
+# phase 23's clip, 832 x 480 x 81 frames: 21 x 30 x 52 = 32,760 tokens, its
+# checkpoint at LV_FILE_BLOCKS of 48 beside phase 15's T5-XXL (linked); the
+# render at 480 px square and LV_RENDER_FRAMES frames, the parity forward on
+# a 17-frame clip; all 48 blocks in memory in a named run
+LV_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
+LV_TEXT = 512
+LV_CLIPS, LV_TRAIN_STEPS = 2, 6
+LV_GUIDANCE, LV_SIGMA = 4.0, 0.7
+LV_RENDER_FRAMES, LV_PARITY_FRAMES = 17, 17
+LV_FILE_BLOCKS = 2
+LV_FULL_STEPS = 3  # timed replays of the named run's 48-block step
+PHASE42_WRITE_GB = 0.75  # 0.69 GB measured: the 0.60 GB file, two clips and their caches
+# phases 3 and 7 at LongCat-Video's shapes: the self-attention over the clip
+# (32 heads of 128, the ragged tail masked by the kernels) and the
+# cross-attention against the 512 T5 keys with query ids 1 and the first
+# LV_VALID keys at 1, the pads at -1 (a seeded caption's mask)
+LV_VALID = 300
+LV_KERNEL_CASES = (("lv_self", 32, WAN_TOKENS, WAN_TOKENS, 128),
+                   ("lv_cross", 32, WAN_TOKENS, LV_TEXT, 128, "lv_keys"))
+LV_CHECK_HEADS = 2
+# phase 43: Sana 1600M (Efficient-Large-Model/Sana_1600M_1024px_diffusers'
+# transformer/ as the JAX preset SanaConfig() builds it: 2240 wide, 20
+# blocks, 70 linear heads of 32, 20 cross heads of 112, Mix-FFN 5600, 32
+# latent channels; 1.60B parameters) at 1024 px (32 x 32 = 1,024 tokens of
+# DC-AE latents), its checkpoint at SA_FILE_BLOCKS of 20, a seeded Gemma-2 2B
+# (gemma2_2b at GEMMA_FILE_LAYERS of 26, e4m3) that phase 44 links; the
+# 32-channel latents meet the 16-channel Flux VAE the trainer builds, so the
+# step goes through build_train_step and the sampler loop stops before a
+# decode; all 20 blocks in memory in a named run
+SA_PROMPT = "a lighthouse on a basalt cliff at dusk"
+SA_TEXT = 300
+SA_IMG = (RESOLUTION // 32) ** 2
+SA_GUIDANCE, SA_SIGMA = 4.5, 0.7
+SA_TRAIN_STEPS = 6
+SA_FILE_BLOCKS = 4
+PHASE43_WRITE_GB = 1.15  # 1.10 GB measured: the 0.36 GB file and the 0.75 GB Gemma-2
+SA_KERNEL_CASES = (("sa_cross", 20, SA_IMG, SA_TEXT, 112),)
+SA_CHECK_HEADS = 2
+# phase 44: Sana-Video 2B (Efficient-Large-Model/SANA-Video_2B_480p's
+# transformer/ as the JAX preset SanaVideoConfig() builds it: 20 heads of
+# 112, 2240 wide, 20 blocks, GLUMBTempConv 5600; 1.91B parameters) on phase
+# 42's clips (linked, with their VAE latents), its checkpoint at
+# SV_FILE_BLOCKS of 20, phase 43's Gemma-2 linked; all 20 blocks in memory
+# in a named run
+SV_PROMPT = LV_PROMPT
+SV_TEXT = 300
+SV_TRAIN_STEPS = 6
+SV_GUIDANCE, SV_SIGMA = 6.0, 0.7
+SV_FILE_BLOCKS = 4
+PHASE44_WRITE_GB = 0.55  # 0.48 GB measured: the 0.42 GB file and the caches
+# the cross-attention over the clip against 300 Gemma keys, query ids 1 and
+# the first SV_VALID keys at 1 (the -10000 key bias as key ids)
+SV_VALID = 120
+SV_KERNEL_CASES = (("sv_cross", 20, WAN_TOKENS, SV_TEXT, 112, "sv_keys"),)
+SV_CHECK_HEADS = 2
 # the depth of the earlier families' seeded files in a run of every phase
 # (full width; the kernels' shapes depend on width and tokens, not depth),
 # cut to make room for phases 25-32 in the write budget: SD3.5 Large at 2 of
@@ -1429,21 +1534,22 @@ _STARTED = time.perf_counter()
 # what each family phase writes at its depth in a run of every phase (a little above
 # what a run of every phase writes), for the reservations each of phases 19-32
 # makes for the later phases of the run
-PHASE_WRITE_GB = {19: 1.5, 20: 1.0, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB, 23: PHASE23_WRITE_GB,
+PHASE_WRITE_GB = {19: 1.05, 20: 0.95, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB, 23: PHASE23_WRITE_GB,
                   24: PHASE24_WRITE_GB, 25: PHASE25_WRITE_GB, 26: PHASE26_WRITE_GB, 27: PHASE27_WRITE_GB,
                   28: PHASE28_WRITE_GB, 29: PHASE29_WRITE_GB, 30: PHASE30_WRITE_GB, 31: PHASE31_WRITE_GB,
                   32: PHASE32_WRITE_GB, 33: PHASE33_WRITE_GB, 34: PHASE34_WRITE_GB, 35: PHASE35_WRITE_GB,
                   36: PHASE36_WRITE_GB, 37: PHASE37_WRITE_GB, 38: PHASE38_WRITE_GB, 39: PHASE39_WRITE_GB,
-                  40: PHASE40_WRITE_GB, 41: PHASE41_WRITE_GB}
+                  40: PHASE40_WRITE_GB, 41: PHASE41_WRITE_GB, 42: PHASE42_WRITE_GB, 43: PHASE43_WRITE_GB,
+                  44: PHASE44_WRITE_GB}
 # the phases whose files (or, for 5 and 6, whose runtime) a phase needs before
 # it; 1, 2, 3 and 7 run in every run (the build, and the kernels line's times)
 PHASE_NEEDS = {4: (14, 15, 16), 5: (4,), 6: (5,), 15: (14,), 16: (14,), 17: (14, 15, 16), 18: (17,),
                19: (14, 15, 16), 20: (19,), 21: (20,), 22: (20,), 23: (15, 16), 24: (15, 16), 25: (14, 15, 16),
                26: (14, 16), 27: (14, 15, 16), 28: (14, 15), 29: (14, 16), 30: (14, 15, 16, 19), 31: (),
                32: (14, 16), 33: (14, 16), 34: (14, 16), 35: (), 36: (14, 16), 37: (14, 15, 16), 38: (14, 16),
-               39: (16,), 40: (), 41: ()}
+               39: (16,), 40: (), 41: (), 42: (15,), 43: (), 44: (42, 43)}
 ALWAYS = (1, 2, 3, 7)
-LAST_PHASE = 41
+LAST_PHASE = 44
 # the phases named on the command line (None: every phase) and those the run takes
 RUN = {"requested": None, "phases": set(range(1, LAST_PHASE + 1))}
 
@@ -1787,6 +1893,10 @@ def kernel_cases():
     times["ernie"], er_entries = long_forward_cases(ER_KERNEL_CASES, ER_CHECK_HEADS, 1300, errors)
     times["ideogram"], id_entries = long_forward_cases(ID_KERNEL_CASES, ID_CHECK_HEADS, 1340, errors)
     marks.append(("omnigen_ernie_ideogram", time.perf_counter()))
+    times["longcat_video"], lv_entries = long_forward_cases(LV_KERNEL_CASES, LV_CHECK_HEADS, 1380, errors)
+    times["sana"], sa_entries = long_forward_cases(SA_KERNEL_CASES, SA_CHECK_HEADS, 1420, errors)
+    times["sanavideo"], sv_entries = long_forward_cases(SV_KERNEL_CASES, SV_CHECK_HEADS, 1460, errors)
+    marks.append(("longcat_video_sana_sanavideo", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
@@ -1801,7 +1911,7 @@ def kernel_cases():
             "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}, fwd256_entry, \
         {**wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries, **hd_entries,
          **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries, **k2_entries, **co_entries,
-         **og_entries, **er_entries, **id_entries}
+         **og_entries, **er_entries, **id_entries, **lv_entries, **sa_entries, **sv_entries}
 
 
 def omnigen_prefix_block() -> dict:
@@ -1978,6 +2088,10 @@ def backward_cases():
     times["ernie"], er_entries = long_backward_cases(ER_KERNEL_CASES, ER_CHECK_HEADS, 1320, errors)
     times["ideogram"], id_entries = long_backward_cases(ID_KERNEL_CASES, ID_CHECK_HEADS, 1360, errors)
     marks.append(("omnigen_ernie_ideogram", time.perf_counter()))
+    times["longcat_video"], lv_entries = long_backward_cases(LV_KERNEL_CASES, LV_CHECK_HEADS, 1400, errors)
+    times["sana"], sa_entries = long_backward_cases(SA_KERNEL_CASES, SA_CHECK_HEADS, 1440, errors)
+    times["sanavideo"], sv_entries = long_backward_cases(SV_KERNEL_CASES, SV_CHECK_HEADS, 1480, errors)
+    marks.append(("longcat_video_sana_sanavideo", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
@@ -1991,7 +2105,7 @@ def backward_cases():
         for kernel in ("dq", "dkv")
     }, **d256_entries, **wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries,
         **hd_entries, **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries, **k2_entries,
-        **co_entries, **og_entries, **er_entries, **id_entries}
+        **co_entries, **og_entries, **er_entries, **id_entries, **lv_entries, **sa_entries, **sv_entries}
 
 
 def _ddpm_inputs(seed, heads, sq, sk, dim, n):
@@ -2304,14 +2418,17 @@ def _case_planes(sq: int, sk: int, plane):
     every query at 1, the ``LC_IMG`` image keys and the first ``ER_VALID``
     text keys at 1, the text pads at -1; for "id_joint" Ideogram's: the text
     mask as the ids of both sides, the first ``ID_VALID`` of the ``ID_TEXT``
-    text tokens and every image token at 1, the text pads at 0."""
+    text tokens and every image token at 1, the text pads at 0; for
+    "lv_keys" and "sv_keys" LongCat-Video's and Sana-Video's cross-attention:
+    every query at 1, the first ``LV_VALID`` / ``SV_VALID`` caption keys at
+    1 and the pads at -1."""
     import torch
 
     if plane == "id_joint":
         seg = torch.ones((1, sq), dtype=torch.int32, device="cuda")
         seg[:, ID_VALID:ID_TEXT] = 0
         return seg, seg
-    if plane not in ("zl_joint", "k2_joint", "k2_refiner", "og_keys", "er_joint"):
+    if plane not in ("zl_joint", "k2_joint", "k2_refiner", "og_keys", "er_joint", "lv_keys", "sv_keys"):
         seg = _case_segments(sq, plane)
         return seg, seg
     kv = torch.ones((1, sk), dtype=torch.int32, device="cuda")
@@ -2321,6 +2438,8 @@ def _case_planes(sq: int, sk: int, plane):
         kv[:, OG_VALID:OG_TEXT] = -1
     elif plane == "er_joint":
         kv[:, LC_IMG + ER_VALID:] = -1
+    elif plane in ("lv_keys", "sv_keys"):
+        kv[:, LV_VALID if plane == "lv_keys" else SV_VALID:] = -1
     else:
         kv[:, K2_VALID:K2_TEXT] = -1
     return torch.ones((1, sq), dtype=torch.int32, device="cuda"), kv
@@ -3144,7 +3263,7 @@ def sd3_phase(paths: dict, kernels, device: str, depth: int) -> None:
     shapes = sd3_checkpoint_shapes(arch)
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     free, written_before = shutil.disk_usage(work).free, _written_gb()
-    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 1.0 + _reserved(19) > RUN_WRITE_TARGET_GB:
+    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 0.55 + _reserved(19) > RUN_WRITE_TARGET_GB:
         raise RuntimeError(f"sd3: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
                            f"the files need {file_bytes / 1e9:.1f} GB and the later phases {_reserved(19):.1f} GB of "
                            f"the {RUN_WRITE_TARGET_GB} GB a run may write")
@@ -3487,7 +3606,7 @@ def sdxl_phase(paths: dict, kernels, device: str, layers: tuple) -> None:
     fp8 = not _full_depth(20, params / 1e9)
     file_bytes = (1 if fp8 else 2) * params
     free = shutil.disk_usage(work).free
-    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 0.6 + _reserved(20) > RUN_WRITE_TARGET_GB:
+    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 0.3 + _reserved(20) > RUN_WRITE_TARGET_GB:
         raise RuntimeError(f"sdxl: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
                            f"the UNet needs {file_bytes / 1e9:.1f} GB and the later phases {_reserved(20):.1f} GB of "
                            f"the {RUN_WRITE_TARGET_GB} GB a run may write")
@@ -3777,7 +3896,7 @@ def _phase21_files(family: str, paths: dict, gen) -> tuple:
         shapes = unet_checkpoint_shapes(arch, conv_proj=family == "sd1x")  # SD 1.5's 1x1-conv proj_in / out
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     written_before, free = _written_gb(), shutil.disk_usage(work).free
-    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 0.5 + _reserved(21) > RUN_WRITE_TARGET_GB:
+    if free < file_bytes + 4e9 or written_before + file_bytes / 1e9 + 0.3 + _reserved(21) > RUN_WRITE_TARGET_GB:
         raise RuntimeError(f"{family}: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before; the "
                            f"base needs {file_bytes / 1e9:.2f} GB and the later phases {_reserved(21):.1f} GB of the "
                            f"{RUN_WRITE_TARGET_GB} GB a run may write")
@@ -4181,7 +4300,7 @@ def auraflow_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
     shapes = auraflow_checkpoint_shapes(arch)
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     written_before, free = _written_gb(), shutil.disk_usage(work).free
-    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 1.1 + _reserved(22) > RUN_WRITE_TARGET_GB:
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.4 + _reserved(22) > RUN_WRITE_TARGET_GB:
         raise RuntimeError(f"auraflow: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
                            f"phase; it writes {file_bytes / 1e9 + 1.1:.1f} GB and the later phases "
                            f"{_reserved(22):.1f} GB of the {RUN_WRITE_TARGET_GB} GB a run may write")
@@ -4705,9 +4824,9 @@ def wan_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     written_before, free = _written_gb(), shutil.disk_usage(work).free
     target_gb = RUN_WRITE_TARGET_GB
-    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.5 + _reserved(23) > target_gb:
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.15 + _reserved(23) > target_gb:
         raise RuntimeError(f"wan: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; it "
-                           f"and the later phases write {file_bytes / 1e9 + 0.5 + _reserved(23):.1f} GB of the "
+                           f"and the later phases write {file_bytes / 1e9 + 0.15 + _reserved(23):.1f} GB of the "
                            f"{target_gb} GB a run "
                            "may write")
 
@@ -5032,9 +5151,9 @@ def ltx_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     target_gb = RUN_WRITE_TARGET_GB
     written_before, free = _written_gb(), shutil.disk_usage(work).free
-    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.5 + _reserved(24) > target_gb:
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.15 + _reserved(24) > target_gb:
         raise RuntimeError(f"ltx: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; it "
-                           f"and the later phases write {file_bytes / 1e9 + 0.5 + _reserved(24):.1f} GB of the "
+                           f"and the later phases write {file_bytes / 1e9 + 0.15 + _reserved(24):.1f} GB of the "
                            f"{target_gb} GB a run may write")
 
     # (b) the seeded files: the transformer (two e4m3 shards), hard links to
@@ -5521,9 +5640,9 @@ def chroma_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
     shapes = chroma_checkpoint_shapes(arch)
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     written_before, free = _written_gb(), shutil.disk_usage(work).free
-    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.6 + _reserved(25) > RUN_WRITE_TARGET_GB:
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.15 + _reserved(25) > RUN_WRITE_TARGET_GB:
         raise RuntimeError(f"chroma: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
-                           f"it and the later phases write {file_bytes / 1e9 + 0.6 + _reserved(25):.1f} GB of the "
+                           f"it and the later phases write {file_bytes / 1e9 + 0.15 + _reserved(25):.1f} GB of the "
                            f"{RUN_WRITE_TARGET_GB} GB a run may write")
 
     # (b) the seeded files: the transformer (two e4m3 shards), hard links to
@@ -5716,13 +5835,13 @@ def lumina2_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     written_before, free = _written_gb(), shutil.disk_usage(work).free
     # GEMMA_FILE_LAYERS in a run of every phase; full depth in a run that
     # names phase 26 where its writes leave room beside the later phases'
-    room = RUN_WRITE_TARGET_GB - written_before - file_bytes / 1e9 - 0.6 - _reserved(26)
+    room = RUN_WRITE_TARGET_GB - written_before - file_bytes / 1e9 - 0.2 - _reserved(26)
     layers = gemma_full.num_layers if _full_depth(26, (gemma_bytes(gemma_full.num_layers) - gemma_bytes(
         GEMMA_FILE_LAYERS)) / 1e9) else GEMMA_FILE_LAYERS
     gemma = dataclasses.replace(gemma_full, num_layers=layers)
     if free < file_bytes + 8e9 or gemma_bytes(layers) / 1e9 > room:
         raise RuntimeError(f"lumina2: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
-                           f"its files need {(file_bytes + gemma_bytes(layers)) / 1e9 + 0.6:.1f} GB of the "
+                           f"its files need {(file_bytes + gemma_bytes(layers)) / 1e9 + 0.2:.1f} GB of the "
                            f"{RUN_WRITE_TARGET_GB} GB a run may write")
 
     # (b) the seeded files: the transformer (two e4m3 shards), Gemma-2 in the
@@ -6473,9 +6592,9 @@ def hunyuanvideo_phase(paths: dict, kernels, device: str, depth: int) -> dict:
     shapes = hunyuanvideo_checkpoint_shapes(arch)
     file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
     written_before, free = _written_gb(), shutil.disk_usage(work).free
-    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 1.0 + _reserved(28) > RUN_WRITE_TARGET_GB:
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.55 + _reserved(28) > RUN_WRITE_TARGET_GB:
         raise RuntimeError(f"hunyuanvideo: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
-                           f"phase; it writes {file_bytes / 1e9 + 1.0:.1f} GB of the {RUN_WRITE_TARGET_GB} GB a run "
+                           f"phase; it writes {file_bytes / 1e9 + 0.55:.1f} GB of the {RUN_WRITE_TARGET_GB} GB a run "
                            "may write")
 
     # (b) the seeded files
@@ -9763,7 +9882,6 @@ def ideogram_phase(paths: dict, kernels, device: str, full_in_memory: bool) -> d
         torch.cuda.empty_cache()
     del batch, train_batch
     shutil.rmtree(id_dir, ignore_errors=True)
-    writes = check_run_writes()
     phase("41 ideogram", config="ideogram-ai/ideogram-v3-fp8 transformer/ as the JAX preset IdeogramConfig() builds it",
           params=params, params_per_layer=sum(math.prod(v) for k, v in shapes.items() if k.startswith("layers.0.")),
           hidden=full.emb_dim, heads=[full.num_heads, full.head_dim],
@@ -9773,8 +9891,511 @@ def ideogram_phase(paths: dict, kernels, device: str, full_in_memory: bool) -> d
           tokens={"text": ID_TEXT, "image": LC_IMG, "joint": ID_JOINT}, latent_channels=32, files=files,
           text_encoder=text, enhancer=enhancer, imported=imported, parity=parity, sampler=sampler, train=train,
           full_depth=full_depth, allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start,
-          device=device, **writes)
+          device=device)
     return {"id_joint": {k: v.get(id_key, 0) for k, v in by_shape.items()}}
+
+
+def longcat_video_flops(arch, batch: int, tokens: int, text_tokens: int, frames: int) -> tuple:
+    """Model FLOPs of one LongCat-Video forward as (the adapted part, the
+    rest): per block the fused qkv, the projections, ``crs_q``, the SwiGLU
+    and both attentions' two products; ``final_linear``; then the framewise
+    AdaLN heads of every block and of the final layer, each block's
+    ``crs_kv`` over the text, the patch embed, the time MLP and the caption
+    MLP, whose inputs carry no gradient."""
+    d, f, temb = arch.hidden_size, arch.ffn_hidden, arch.adaln_tembed_dim
+    s, text, patch = tokens, text_tokens, math.prod(arch.patch_size)
+    block = s * (12 * d * d + 6 * d * f) + 4 * s * s * d + 4 * s * text * d
+    trained = arch.depth * block + 2 * s * d * patch * arch.out_channels
+    frozen = arch.depth * (12 * frames * temb * d + 4 * text * d * d) + 2 * s * patch * arch.in_channels * d \
+        + 2 * arch.frequency_embedding_size * temb + 2 * temb * temb + 2 * text * arch.caption_channels * d \
+        + 2 * text * d * d + 4 * frames * temb * d
+    return batch * trained, batch * frozen
+
+
+def longcat_video_step_flops(arch, batch: int, tokens: int, text_tokens: int, frames: int) -> int:
+    """Model FLOPs of one LongCat-Video train step (the adapted part x 3, the rest once)."""
+    trained, frozen = longcat_video_flops(arch, batch, tokens, text_tokens, frames)
+    return 3 * trained + frozen
+
+
+def sana_flops(arch, batch: int, tokens: int, text_tokens: int) -> tuple:
+    """Model FLOPs of one Sana forward as (the adapted part, the rest): the
+    patch dense and the caption MLP (both adapted), per block the linear
+    attention's projections and its three products, the cross-attention's
+    projections and two products, the Mix-FFN's 1 x 1 convs and depthwise 3
+    x 3, ``final_proj``; then the time MLP and ``time_proj``, which take no
+    gradient input."""
+    d, s, text = arch.hidden_size, tokens, text_tokens
+    inner, head = arch.self_heads * arch.self_head_dim, arch.self_head_dim
+    cross, hidden = arch.cross_heads * arch.cross_head_dim, int(d * arch.ffn_ratio)
+    features = arch.patch_size ** 2 * arch.in_channels
+    block = (6 * s * d * inner + 4 * s * inner * head + 2 * s * inner + 2 * s * inner * d + 2 * s * d * cross
+             + 4 * text * d * cross + 4 * s * text * cross + 2 * s * cross * d + 6 * s * d * hidden + 36 * s * hidden)
+    trained = arch.depth * block + 4 * s * features * d + 2 * text * arch.text_dim * d + 2 * text * d * d
+    frozen = 2 * 256 * d + 2 * d * d + 12 * d * d
+    return batch * trained, batch * frozen
+
+
+def sana_step_flops(arch, batch: int, tokens: int, text_tokens: int) -> int:
+    """Model FLOPs of one Sana train step (the adapted part x 3, the rest once)."""
+    trained, frozen = sana_flops(arch, batch, tokens, text_tokens)
+    return 3 * trained + frozen
+
+
+def sanavideo_flops(arch, batch: int, tokens: int, text_tokens: int) -> tuple:
+    """Model FLOPs of one Sana-Video forward as (the adapted part, the
+    rest): per block the linear attention's projections and its three
+    products, ``attn2_q``, the cross-attention's two products and
+    projection, GLUMBTempConv's 1 x 1 convs, depthwise 3 x 3 and (3, 1)
+    temporal conv; ``proj_out``; then each block's ``attn2_k`` / ``attn2_v``
+    over the text, the patch embed, AdaLayerNormSingle and the caption MLP,
+    whose inputs carry no gradient."""
+    d, s, text, head = arch.hidden_size, tokens, text_tokens, arch.head_dim
+    cross, hidden, patch = arch.cross_heads * arch.cross_head_dim, int(arch.mlp_ratio * d), math.prod(arch.patch_size)
+    block = (8 * s * d * d + 4 * s * d * head + 2 * s * d + 2 * s * d * cross + 4 * s * text * cross
+             + 2 * s * cross * d + 6 * s * d * hidden + 36 * s * hidden + 6 * s * d * d)
+    trained = arch.num_layers * block + 2 * s * d * patch * arch.out_channels
+    frozen = arch.num_layers * 4 * text * d * cross + 2 * s * patch * arch.in_channels * d + 2 * 256 * d \
+        + 2 * d * d + 12 * d * d + 2 * text * arch.caption_channels * d + 2 * text * d * d
+    return batch * trained, batch * frozen
+
+
+def sanavideo_step_flops(arch, batch: int, tokens: int, text_tokens: int) -> int:
+    """Model FLOPs of one Sana-Video train step (the adapted part x 3, the rest once)."""
+    trained, frozen = sanavideo_flops(arch, batch, tokens, text_tokens)
+    return 3 * trained + frozen
+
+
+def _linear_attention_ms(heads: int, tokens: int, head_dim: int, rope: bool) -> dict:
+    """One block's linear self-attention at full width on the card (bf16
+    projections in, f32 products, no kernel): Sana's ``relu_linear_attention``
+    or Sana-Video's (ReLU, RoPE, the unrotated normaliser), the forward's ms."""
+    import torch
+
+    from simpletuner_tpu_torch.models.sana import relu_linear_attention
+    from simpletuner_tpu_torch.models.sanavideo.transformer import rope_linear_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(tokens)
+    q, k, v = (torch.randn((1, tokens, heads, head_dim), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    if not rope:
+        return {"shape": [1, tokens, heads, head_dim], "ms": cuda_ms(lambda: relu_linear_attention(q, k, v), 10)}
+    cos, sin = (torch.randn((tokens, head_dim), generator=gen, device="cuda") for _ in range(2))
+    return {"shape": [1, tokens, heads, head_dim], "rope": True, "ms": cuda_ms(
+        lambda: rope_linear_attention(torch.relu(q).float(), torch.relu(k).float(), v.float(), cos, sin), 10)}
+
+
+def write_gemma_trunk(root: str, layers: int, gen) -> float:
+    """Gemma-2 2B (``gemma2_2b``: 2304 wide, 8 heads of 256, 4 kv heads,
+    256,000 tokens) at ``layers`` of its 26 in the HF layout (e4m3) with its
+    ``config.json``; returns the write seconds."""
+    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoderConfig
+
+    config = dataclasses.replace(LLMEncoderConfig.gemma2_2b(), num_layers=layers)
+    return write_llm_trunk(root, config, gen, {
+        "architectures": ["Gemma2Model"], "model_type": "gemma2", "query_pre_attn_scalar": 256,
+        "attn_logit_softcapping": 50.0, "hidden_activation": "gelu_pytorch_tanh"})
+
+
+def _video_trainer_check(trainer, arch, family: str, latent_shape: tuple, clips: int, text: int) -> dict:
+    """A video family's ``Trainer.run()``: its arch, one clip bucket of
+    ``clips`` cached latents of ``latent_shape`` (the Wan-config video VAE at
+    16 channels), the batch's text and mask shapes, an int8 base, then a
+    replay against an eager step (``_graph_matches_eager``)."""
+    import numpy as np
+
+    from simpletuner_tpu_torch.models.video_vae import VideoAutoencoderKL, VideoVAEConfig
+
+    bundle = trainer.data_plane.bundles["clips"]
+    buckets = sorted(bundle.metadata_backend.aspect_ratio_bucket_indices)
+    paths = [p for key in buckets for p in bundle.metadata_backend.aspect_ratio_bucket_indices[key]]
+    cached = [bundle.vae_cache.load(p) for p in paths]
+    batch = trainer._example_batch()
+    shapes = {k: tuple(v.shape) for k, v in batch.items() if k.startswith("text")}
+    if trainer.model.arch != arch or len(buckets) != 1 or len(paths) != clips or \
+            not isinstance(trainer.vae, VideoAutoencoderKL) or trainer.vae.config != VideoVAEConfig.wan() or \
+            any(c.shape != latent_shape + (16,) or not np.isfinite(c).all() for c in cached) or \
+            trainer.model.base_precision != "int8" or \
+            shapes != {"text_embeds": (1, text, shapes["text_embeds"][-1]), "text_attention_mask": (1, text)}:
+        raise RuntimeError(f"{family} trainer: arch {trainer.model.arch}, buckets {buckets}, VAE {trainer.vae.config}, "
+                           f"cached {[c.shape for c in cached]}, base {trainer.model.base_precision}, batch {shapes}")
+    startup = trainer.data_plane.startup_metrics
+    return {"buckets": buckets, "latents": list(cached[0].shape), "caption_valid": int(batch["text_attention_mask"].sum()),
+            "cache": {"text_s": startup.get("text_cache_clips_s"), "vae_s": startup.get("vae_cache_clips_s")},
+            **_graph_matches_eager(trainer, ("loss", "grad_norm"))}
+
+
+def video_dit_phase(number: int, family: str, paths: dict, kernels, device: str, full_in_memory: bool) -> dict:
+    """Phases 42 and 44: LongCat-Video (``family`` "longcat_video") or
+    Sana-Video ("sanavideo") at the JAX preset's full width on 832 x 480 x 81
+    clips (21 x 30 x 52 = 32,760 tokens): a seeded e4m3 checkpoint at
+    ``LV_FILE_BLOCKS`` / ``SV_FILE_BLOCKS`` of the published depth beside its
+    text encoder (phase 15's T5-XXL and tokenizer linked; phase 43's Gemma-2
+    and tokenizer linked, written here in a run without them); two seeded
+    clips (Sana-Video links phase 42's with their cached latents); the import
+    held bitwise; ``Trainer.run()``: the text cache, the video VAE cache one
+    clip at a time, 6 graphed rank-16 LoRA steps on an int8 base
+    (``quantized_matmul`` full) with every block checkpointed, a replay
+    bitwise against an eager step and the profiled replay held to the
+    capture's launches by shape; a true-CFG mp4 render at 480 px square;
+    one forward with the kernels against the plain attention on a 17-frame
+    clip with the padded caption; in a run that names the phase, every block
+    built in memory on an int8 base and its graphed step timed.  Returns the
+    launches per step of each kernel at the family's shapes."""
+    import gc
+
+    import torch
+
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models import checkpoint_layouts, weight_import
+    from simpletuner_tpu_torch.models.longcat_video import LongcatVideo, LongCatVideoConfig, LongCatVideoTransformer
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.sanavideo import SanaVideo, SanaVideoConfig, SanaVideoTransformer
+
+    start = time.perf_counter()
+    work = paths["work"]
+    longcat = family == "longcat_video"
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(number)
+    latent_shape = (WAN_FRAMES - 1) // 4 + 1, WAN_HEIGHT // 8, WAN_WIDTH // 8
+    text_len, valid_case = (LV_TEXT, LV_VALID) if longcat else (SV_TEXT, SV_VALID)
+    if longcat:
+        cls, module_cls, full, file_blocks = LongcatVideo, LongCatVideoTransformer, LongCatVideoConfig(), LV_FILE_BLOCKS
+        if (full.hidden_size, full.depth, full.num_heads, full.head_dim, full.ffn_hidden, full.caption_channels) != \
+                (4096, 48, 32, 128, 11008, 4096):
+            raise RuntimeError(f"not the JAX preset of LongCat-Video: {full}")
+        arch, depth_field = dataclasses.replace(full, depth=file_blocks), "depth"
+        tiny = LongCatVideoConfig.tiny()
+        wider = dataclasses.replace(tiny, hidden_size=32, num_heads=2, caption_channels=24, depth=1)
+        flop_checks = _flop_checks(_x3(longcat_video_flops), module_cls, [
+            (a, (torch.zeros(2, t, h, w, a.in_channels), torch.full((2,), 500.0), torch.zeros(2, txt, a.caption_channels),
+                 torch.ones(2, txt, dtype=torch.int32)), (t * h * w // 4, txt, t))
+            for a, (t, h, w), txt in ((tiny, (2, 4, 6), 5), (wider, (3, 2, 4), 3))])
+        step_flops = lambda a: longcat_video_step_flops(a, 1, WAN_TOKENS, text_len, latent_shape[0])  # noqa: E731
+        heads = full.num_heads
+        layout, from_checkpoint = checkpoint_layouts.longcat_video_checkpoint_shapes, \
+            weight_import.longcat_video_params_from_checkpoint
+        prompt, guidance, sigma = LV_PROMPT, LV_GUIDANCE, LV_SIGMA
+        config_name = "meituan-longcat/LongCat-Video as the JAX preset LongCatVideoConfig() builds it"
+    else:
+        cls, module_cls, full, file_blocks = SanaVideo, SanaVideoTransformer, SanaVideoConfig(), SV_FILE_BLOCKS
+        if (full.hidden_size, full.num_layers, full.num_heads, full.head_dim, full.cross_heads,
+                full.caption_channels) != (2240, 20, 20, 112, 20, 2304):
+            raise RuntimeError(f"not the JAX preset of Sana-Video: {full}")
+        arch, depth_field = dataclasses.replace(full, num_layers=file_blocks), "num_layers"
+        tiny = dataclasses.replace(SanaVideoConfig.tiny(), head_dim=16, cross_head_dim=16)
+        wider = dataclasses.replace(tiny, num_heads=3, cross_heads=3, num_layers=1, caption_channels=24)
+        flop_checks = _flop_checks(_x3(sanavideo_flops), module_cls, [
+            (a, (torch.zeros(2, t, h, w, a.in_channels), torch.full((2,), 500.0), torch.zeros(2, txt, a.caption_channels),
+                 torch.ones(2, txt, dtype=torch.int32)), (t * h * w // 4, txt))
+            for a, (t, h, w), txt in ((tiny, (2, 4, 6), 5), (wider, (3, 2, 4), 3))])
+        step_flops = lambda a: sanavideo_step_flops(a, 1, WAN_TOKENS, text_len)  # noqa: E731
+        heads = full.cross_heads
+        layout, from_checkpoint = checkpoint_layouts.sanavideo_checkpoint_shapes, \
+            weight_import.sanavideo_params_from_checkpoint
+        prompt, guidance, sigma = SV_PROMPT, SV_GUIDANCE, SV_SIGMA
+        config_name = "Efficient-Large-Model/SANA-Video_2B_480p transformer/ as the JAX preset SanaVideoConfig() builds it"
+    depth = getattr(arch, depth_field)
+    shapes = layout(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 8e9 or written_before + file_bytes / 1e9 + 0.2 + _reserved(number) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"{family}: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
+                           f"it and the later phases write {file_bytes / 1e9 + 0.2 + _reserved(number):.1f} GB of the "
+                           f"{RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded transformer (two e4m3 shards), the text encoder linked
+    # (or written), the clips written (or linked with their cached latents)
+    root = os.path.join(work, family)
+    weights, write_s = _write_e4m3_transformer(root, shapes, gen)
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "blocks": [depth, getattr(full, depth_field)]}
+    data, cache = os.path.join(work, f"{family}_data"), os.path.join(work, f"{family}_cache")
+    if longcat:
+        for source, target in (("text_encoder_2", "text_encoder"), ("tokenizer_2", "tokenizer_2")):
+            _link_tree(os.path.join(paths["flux_dir"], source), os.path.join(root, target))
+        files["t5_xxl"] = {"linked_from_phase": 15, "blocks": [T5_FILE_LAYERS, 24]}
+        files.update(_write_clips(data, LV_CLIPS, WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH, 16, 42))
+        paths["lv_clips"] = data
+    else:
+        gemma = paths.get("gemma_root")
+        if gemma and os.path.isdir(gemma):
+            for sub in ("text_encoder", "tokenizer"):
+                _link_tree(os.path.join(gemma, sub), os.path.join(root, sub))
+            files["gemma2"] = {"linked_from_phase": 43, "layers": [GEMMA_FILE_LAYERS, 26]}
+        else:
+            files["gemma2"] = {"written_by_phase": number, "layers": [GEMMA_FILE_LAYERS, 26], "write_s":
+                               write_gemma_trunk(os.path.join(root, "text_encoder"), GEMMA_FILE_LAYERS, gen)}
+            write_gemma_tokenizer(os.path.join(root, "tokenizer"), " ".join(TRAIN_CAPTIONS + [prompt]).split())
+        clips = paths.get("lv_clips")
+        if clips and os.path.isdir(clips):
+            _link_tree(clips, data)
+            _link_tree(os.path.join(work, "longcat_video_cache", "vae"), os.path.join(cache, "vae"))
+            files["clips"] = {"linked_from_phase": 42, "with_vae_latents": True}
+        else:
+            files.update(_write_clips(data, LV_CLIPS, WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH, 16, 42))
+    files.update({"written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9})
+
+    # (c) the import, bitwise
+    model = ModelRegistry.create(family, config_namespace({"model_family": family, "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"{family}: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, root, weights, from_checkpoint, file_bytes)
+    params = sum(math.prod(v) for v in layout(full).values())
+    del weights, module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) Trainer.run() on the clips: rank-16 LoRA on an int8 base, every block checkpointed
+    self_key, cross_key = f"{heads}x{WAN_TOKENS}x{WAN_TOKENS}x128", f"{heads}x{WAN_TOKENS}x{text_len}x{112 if not longcat else 128}"
+    keys = {cross_key: (depth, True)}
+    if longcat:
+        keys[self_key] = (depth, True)
+    config = _video_config(family, root, data, cache, os.path.join(work, f"{family}_train"), WAN_FRAMES,
+                           LV_TRAIN_STEPS if longcat else SV_TRAIN_STEPS, base_model_precision="int8-quanto",
+                           quantized_matmul="full")
+    train = _train_graphed(config, kernels, LV_TRAIN_STEPS if longcat else SV_TRAIN_STEPS,
+                           _totals(_by_shape_per_step(keys)), step_flops(arch),
+                           lambda trainer: _video_trainer_check(trainer, arch, family, latent_shape, LV_CLIPS, text_len))
+    by_shape = train["launches_per_step_by_shape"]
+    if by_shape != _by_shape_per_step(keys):
+        raise RuntimeError(f"{family} trainer: launches per step by shape {by_shape}")
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                  "lora_targets": "every adapter-carrying linear (no code reads DEFAULT_LORA_TARGET)",
+                  "flop_checks": flop_checks})
+
+    # (e) the mp4 render at 480 px square; (f) the parity forward on a 17-frame clip
+    per_forward = 2 * depth if longcat else depth
+    render, runtime = _video_render(work, family, root, family, kernels, prompt, guidance, WAN_RENDER_SIZE,
+                                    LV_RENDER_FRAMES, per_forward)
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != family:
+        raise RuntimeError(f"{family}: the runtime built {model.NAME} {model.arch}")
+    render["tokens"] = ((LV_RENDER_FRAMES - 1) // 4 + 1) * (WAN_RENDER_SIZE // 16) ** 2
+    parity_latent = ((LV_PARITY_FRAMES - 1) // 4 + 1, latent_shape[1], latent_shape[2])
+    batch = _text_batch(model, prompt, (1,) + parity_latent + (16,), dev)
+    caption_valid = int(batch["text_attention_mask"].sum())
+    if tuple(batch["text_embeds"].shape[:2]) != (1, text_len) or not 1 < caption_valid < text_len:
+        raise RuntimeError(f"{family} parity: the caption {tuple(batch['text_embeds'].shape)}, {caption_valid} valid")
+    model.text_encoders = []  # the plain attention's scores need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    noise = torch.randn((1,) + parity_latent + (16,), generator=gen, device=dev)
+    parity = {**_parity_forward(model, module, batch, noise, sigma), "frames": LV_PARITY_FRAMES,
+              "tokens": math.prod(parity_latent) // 4, "caption_valid": caption_valid}
+    train_batch = {"latents": torch.randn((1,) + latent_shape + (16,), generator=gen, device=dev),
+                   "text_embeds": torch.randn((1, text_len, batch["text_embeds"].shape[-1]), generator=gen, device=dev),
+                   "text_attention_mask": (torch.arange(text_len, device=dev) < caption_valid)[None].to(torch.int32)}
+    del runtime, module, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) in a run that names the phase: every block built in memory, int8, graphed
+    full_depth = None
+    if full_in_memory:
+        deep = cls(config_namespace(_graph_train_values(family, LV_FULL_STEPS)), arch=full)
+        deep_keys = {k: (getattr(full, depth_field), grad) for k, (_, grad) in keys.items()}
+        full_depth = _graph_vs_eager(deep, _drawn_in_memory(deep, gen), train_batch, kernels, LV_FULL_STEPS,
+                                     _totals(_by_shape_per_step(deep_keys)), step_flops(full))
+        if full_depth["launches_per_step_by_shape"] != _by_shape_per_step(deep_keys):
+            raise RuntimeError(f"{family} full depth: launches per step by shape "
+                               f"{full_depth['launches_per_step_by_shape']}")
+        full_depth.update({"blocks": [getattr(full, depth_field)] * 2, "base": "int8 (built in memory)",
+                           "quantized_matmul": "full", "remat": "every block", "lora_rank": 16})
+        del deep
+        gc.collect()
+        torch.cuda.empty_cache()
+    del train_batch
+    shutil.rmtree(os.path.join(work, f"{family}_train"), ignore_errors=True)
+    shutil.rmtree(os.path.join(work, f"{family}_render"), ignore_errors=True)
+    extra = {}
+    linear = None
+    if not longcat:
+        linear = _linear_attention_ms(full.num_heads, WAN_TOKENS, full.head_dim, rope=True)
+        for name in ("sanavideo", "sanavideo_data", "sanavideo_cache", "longcat_video", "longcat_video_data",
+                     "longcat_video_cache", "sana"):  # the last phase: disk space
+            shutil.rmtree(os.path.join(work, name), ignore_errors=True)
+        extra = check_run_writes()
+    phase(f"{number} {family}", config=config_name, params=params,
+          params_per_block=sum(math.prod(v) for k, v in shapes.items() if k.startswith(("blocks.0.", "transformer_blocks.0."))),
+          hidden=full.hidden_size, heads=[heads, 128 if longcat else full.cross_head_dim],
+          depth={"file": [depth, getattr(full, depth_field)], "train": [depth, getattr(full, depth_field)],
+                 "in_memory": [getattr(full, depth_field) if full_in_memory else 0, getattr(full, depth_field)]},
+          clip=[WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH], latents=list(latent_shape),
+          tokens={"video": WAN_TOKENS, "text": text_len}, files=files, imported=imported, train=train, render=render,
+          parity=parity, full_depth=full_depth, linear_attention=linear, allocated_gib_before_phase=baseline_gib,
+          seconds=time.perf_counter() - start, device=device, **extra)
+    out = {"sv_cross" if not longcat else "lv_cross": {k: v.get(cross_key, 0) for k, v in by_shape.items()}}
+    if longcat:
+        out["lv_self"] = {k: v.get(self_key, 0) for k, v in by_shape.items()}
+    return out
+
+
+def sana_phase(paths: dict, kernels, device: str, full_in_memory: bool) -> dict:
+    """Phase 43: Sana 1600M at the JAX preset's full width (``SanaConfig()``):
+    a seeded e4m3 checkpoint at ``SA_FILE_BLOCKS`` of its 20 blocks, a seeded
+    Gemma-2 2B at ``GEMMA_FILE_LAYERS`` of 26 (e4m3; phase 44 links it) and a
+    word-level tokenizer: 16 prompts at 300 tokens through the ``gemma``
+    spec (prompts/s, bf16 against f32); the import held bitwise; one forward
+    against the plain attention (the unmasked cross-attention at head dim
+    112, Gemma's pads attended); the flow Euler loop with true CFG over
+    32-channel latents at 1024 px, without a decode; 6 graphed LoRA steps on
+    an int8 base through ``build_train_step`` (the 32-channel wall stops
+    ``Trainer.run()`` in both packages); the linear attention's time per
+    block at full width; in a run that names the phase, all 20 blocks in
+    memory and their graphed step timed.  Returns the launches per step of
+    each kernel at the cross-attention's shape."""
+    import gc
+
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import sana_checkpoint_shapes
+    from simpletuner_tpu_torch.models.layers import init_adapters
+    from simpletuner_tpu_torch.models.llm_encoder import LLMEncoderConfig
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.sana import Sana, SanaConfig, SanaTransformer
+    from simpletuner_tpu_torch.models.vae import VAEConfig
+    from simpletuner_tpu_torch.models.weight_import import load_transformer_params, sana_params_from_diffusers
+
+    start = time.perf_counter()
+    work = paths["work"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = SanaConfig.tiny()
+    wider = dataclasses.replace(tiny, hidden_size=48, self_heads=3, cross_heads=3, cross_head_dim=16, text_dim=24,
+                                depth=1)
+    flop_checks = _flop_checks(_x3(sana_flops), SanaTransformer, [
+        (arch, (torch.zeros(2, h, w, arch.in_channels), torch.full((2,), 0.5), torch.zeros(2, txt, arch.text_dim)),
+         (h * w, txt)) for arch, (h, w), txt in ((tiny, (4, 6), 5), (wider, (3, 5), 3))])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(43)
+    full = SanaConfig()
+    if (full.hidden_size, full.depth, full.self_heads, full.self_head_dim, full.cross_heads, full.cross_head_dim,
+            full.in_channels, full.text_dim, int(full.hidden_size * full.ffn_ratio)) != \
+            (2240, 20, 70, 32, 20, 112, 32, 2304, 5600):
+        raise RuntimeError(f"not the JAX preset of Sana 1600M: {full}")
+    arch = dataclasses.replace(full, depth=SA_FILE_BLOCKS)
+    shapes = sana_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + PHASE43_WRITE_GB + _reserved(43) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"sana: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the phase; "
+                           f"it and the later phases write {PHASE43_WRITE_GB + _reserved(43):.1f} GB of the "
+                           f"{RUN_WRITE_TARGET_GB} GB a run may write")
+
+    # (b) the seeded transformer (two e4m3 shards), Gemma-2 and a word-level tokenizer
+    sa_dir = os.path.join(work, "sana")
+    weights, write_s = _write_e4m3_transformer(sa_dir, shapes, gen)
+    gemma_write_s = write_gemma_trunk(os.path.join(sa_dir, "text_encoder"), GEMMA_FILE_LAYERS, gen)
+    paths["gemma_root"] = sa_dir  # phase 44 links it
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    write_gemma_tokenizer(os.path.join(sa_dir, "tokenizer"), " ".join(TRAIN_CAPTIONS + [SA_PROMPT, SV_PROMPT] +
+                                                                      prompts).split())
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "blocks": [SA_FILE_BLOCKS, full.depth],
+             "gemma2": {"layers": [GEMMA_FILE_LAYERS, 26], "write_s": gemma_write_s, "dtype": "float8_e4m3fn"},
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) the prompts at 300 tokens through the gemma spec
+    gemma = dataclasses.replace(LLMEncoderConfig.gemma2_2b(), num_layers=GEMMA_FILE_LAYERS)
+    encoder, text = _encoder_and_report(Sana.TEXT_ENCODER_CONFIGURATION[0], sa_dir, gemma, SA_TEXT, prompts)
+    values = {"model_family": "sana", "model_type": "full", "mixed_precision": "bf16"}
+    family = Sana(config_namespace(values))
+    family.attach_text_encoders([encoder])
+    latent = RESOLUTION // 32
+    batch = _text_batch(family, SA_PROMPT, (1, latent, latent, 32), dev)
+    negative = _text_batch(family, "", (1, latent, latent, 32), dev)
+    if {k: tuple(v.shape) for k, v in batch.items()} != {"latents": (1, latent, latent, 32),
+                                                         "text_embeds": (1, SA_TEXT, 2304)}:
+        raise RuntimeError(f"sana: the collated batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    text["caption_valid"] = int(encoder.encode([SA_PROMPT])["attention_mask"][0].sum())
+    del encoder, family
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the import, bitwise
+    model = ModelRegistry.create("sana", config_namespace(values))
+    if model.arch != arch:
+        raise RuntimeError(f"sana: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, sa_dir, weights, sana_params_from_diffusers, file_bytes)
+    params = sum(math.prod(v) for v in sana_checkpoint_shapes(full).values())
+    del weights
+
+    # (e) the parity forward (the caption unmasked, as the family collates it) and (f) the CFG sampler loop
+    sa_key = f"20x{SA_IMG}x{SA_TEXT}x112"
+    keys = {sa_key: SA_FILE_BLOCKS}
+    noise = torch.randn((1, latent, latent, 32), generator=gen, device=dev)
+    launches = _forward_launches(model, module, batch, kernels, SA_SIGMA)
+    if launches["flash_fwd"] != keys:
+        raise RuntimeError(f"sana forward: launches by shape {launches}")
+    parity = {**_parity_forward(model, module, batch, noise, SA_SIGMA), "tokens": SA_IMG, "keys": SA_TEXT,
+              "text_valid": text["caption_valid"], "launches_by_shape": launches}
+    sampler = _cfg_sampler(model, module, batch, negative, kernels, SA_GUIDANCE, (1, latent, latent, 32), gen, keys)
+    del module, model, negative
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) 6 graphed rank-16 LoRA steps on an int8 base, every block checkpointed,
+    # through build_train_step (both trainers stop at the 32-channel wall)
+    wall = {"latent_channels": Sana.LATENT_CHANNEL_COUNT, "trainer_vae_channels": VAEConfig.flux().latent_channels,
+            "patch_in_features": full.patch_size ** 2 * full.in_channels}
+    if (wall["latent_channels"], wall["trainer_vae_channels"]) != (32, 16):
+        raise RuntimeError(f"sana: the 32-channel wall moved: {wall}")
+    train_model = Sana(config_namespace(_graph_train_values("sana", SA_TRAIN_STEPS)))
+    with torch.device(dev):
+        train_module = load_transformer_params(train_model, init_adapters(train_model.create_module(), gen), sa_dir)
+    train_batch = {**batch, "latents": torch.randn((1, latent, latent, 32), generator=gen, device=dev)}
+    step_keys = {sa_key: (SA_FILE_BLOCKS, True)}
+    train = _graph_vs_eager(train_model, train_module, train_batch, kernels, SA_TRAIN_STEPS,
+                            _totals(_by_shape_per_step(step_keys)), sana_step_flops(arch, 1, SA_IMG, SA_TEXT))
+    by_shape = train["launches_per_step_by_shape"]
+    if by_shape != _by_shape_per_step(step_keys):
+        raise RuntimeError(f"sana train: launches per step by shape {by_shape}")
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                  "lora_targets": "every adapter-carrying linear (the caption MLP's too)", "wall": wall,
+                  "flop_checks": flop_checks})
+    del train_module, train_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (h) in a run that names the phase: all 20 blocks built in memory, graphed
+    full_depth = None
+    if full_in_memory:
+        deep = Sana(config_namespace(_graph_train_values("sana", SA_TRAIN_STEPS)), arch=full)
+        deep_keys = {sa_key: (full.depth, True)}
+        full_depth = _graph_vs_eager(deep, _drawn_in_memory(deep, gen), train_batch, kernels, SA_TRAIN_STEPS,
+                                     _totals(_by_shape_per_step(deep_keys)), sana_step_flops(full, 1, SA_IMG, SA_TEXT))
+        if full_depth["launches_per_step_by_shape"] != _by_shape_per_step(deep_keys):
+            raise RuntimeError(f"sana 20 blocks: launches per step by shape {full_depth['launches_per_step_by_shape']}")
+        full_depth.update({"blocks": [full.depth, full.depth], "base": "int8 (built in memory)",
+                           "quantized_matmul": "full", "remat": "every block", "lora_rank": 16})
+        del deep
+        gc.collect()
+        torch.cuda.empty_cache()
+    del batch, train_batch
+    linear = _linear_attention_ms(full.self_heads, SA_IMG, full.self_head_dim, rope=False)
+    phase("43 sana", config="Efficient-Large-Model/Sana_1600M_1024px_diffusers transformer/ as the JAX preset "
+          "SanaConfig() builds it", params=params,
+          params_per_block=sum(math.prod(v) for k, v in shapes.items() if k.startswith("transformer_blocks.0.")),
+          hidden=full.hidden_size, heads={"linear": [full.self_heads, full.self_head_dim],
+                                          "cross": [full.cross_heads, full.cross_head_dim]},
+          depth={"file": [SA_FILE_BLOCKS, full.depth], "train": [SA_FILE_BLOCKS, full.depth],
+                 "in_memory": [full.depth if full_in_memory else 0, full.depth]},
+          tokens={"image": SA_IMG, "text": SA_TEXT}, latent_channels=32, files=files, text_encoder=text,
+          imported=imported, parity=parity, sampler=sampler, train=train, full_depth=full_depth,
+          linear_attention=linear, allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start,
+          device=device)
+    return {"sa_cross": {k: v.get(sa_key, 0) for k, v in by_shape.items()}}
 
 
 def int8_cases() -> None:
@@ -10499,7 +11120,7 @@ def main() -> int:
     launches = {"main": None, "auraflow": {}, "wan": {}, "ltx": {}, "chroma": None, "lumina2": {}, "kandinsky5": {},
                 "hunyuanvideo": {}, "qwen_image": {}, "hidream": {}, "flux2": {}, "kolors": {}, "longcat_image": {},
                 "z_image_omni": {}, "zlab_i1": {}, "krea2": {}, "cosmos": {}, "anima": {}, "omnigen": {}, "ernie": {},
-                "ideogram": {}}
+                "ideogram": {}, "longcat_video": {}, "sana": {}, "sanavideo": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         checkpoints = weight_import(work) if _runs(14) else {"work": work}
         encoders = text_encoders(checkpoints) if _runs(15) else None
@@ -10548,11 +11169,14 @@ def main() -> int:
         from simpletuner_tpu_torch.models.kolors import Kolors
         from simpletuner_tpu_torch.models.krea2 import Krea2
         from simpletuner_tpu_torch.models.longcat_image import LongcatImage
+        from simpletuner_tpu_torch.models.longcat_video import LongcatVideo
         from simpletuner_tpu_torch.models.ltxvideo import LTXConfig, LTXVideo
         from simpletuner_tpu_torch.models.lumina2 import Lumina2, Lumina2Config
         from simpletuner_tpu_torch.models.mageflow import ZImage
         from simpletuner_tpu_torch.models.omnigen import OmniGen
         from simpletuner_tpu_torch.models.qwen_image import QwenImage, QwenImageConfig
+        from simpletuner_tpu_torch.models.sana import Sana
+        from simpletuner_tpu_torch.models.sanavideo import SanaVideo
         from simpletuner_tpu_torch.models.sd3 import SD3, SD3Config
         from simpletuner_tpu_torch.models.sdxl import SDXL
         from simpletuner_tpu_torch.models.wan import Wan, WanConfig
@@ -10682,6 +11306,17 @@ def main() -> int:
         if _runs(41):
             with family_depth(Ideogram, num_layers=ID_FILE_BLOCKS):
                 launches["ideogram"] = ideogram_phase(checkpoints, kernels, smi, 41 in (RUN["requested"] or ()))
+        if _runs(42):
+            with family_depth(LongcatVideo, depth=LV_FILE_BLOCKS):
+                launches["longcat_video"] = video_dit_phase(42, "longcat_video", checkpoints, kernels, smi,
+                                                            42 in (RUN["requested"] or ()))
+        if _runs(43):
+            with family_depth(Sana, depth=SA_FILE_BLOCKS):
+                launches["sana"] = sana_phase(checkpoints, kernels, smi, 43 in (RUN["requested"] or ()))
+        if _runs(44):
+            with family_depth(SanaVideo, num_layers=SV_FILE_BLOCKS):
+                launches["sanavideo"] = video_dit_phase(44, "sanavideo", checkpoints, kernels, smi,
+                                                        44 in (RUN["requested"] or ()))
         else:
             check_run_writes()
 
@@ -10711,7 +11346,8 @@ def main() -> int:
                           ("kolors", KOLORS_KERNEL_CASES), ("longcat_image", LC_KERNEL_CASES),
                           ("z_image_omni", ZO_KERNEL_CASES), ("zlab_i1", ZL_KERNEL_CASES), ("krea2", K2_KERNEL_CASES),
                           ("cosmos", CO_KERNEL_CASES), ("omnigen", OG_KERNEL_CASES), ("ernie", ER_KERNEL_CASES),
-                          ("ideogram", ID_KERNEL_CASES)):
+                          ("ideogram", ID_KERNEL_CASES), ("longcat_video", LV_KERNEL_CASES), ("sana", SA_KERNEL_CASES),
+                          ("sanavideo", SV_KERNEL_CASES)):
         if launches[family]:
             rows += [(f"{name}_{case[0]}", f"{name}_{case[0]}", name, launches[family][case[0]])
                      for case in cases for name in sources]

@@ -1094,6 +1094,103 @@ def llm_checkpoint_shapes(cfg) -> Dict[str, tuple]:
     return shapes
 
 
+
+def _linears(shapes: Dict[str, tuple], table, bias: bool = True) -> None:
+    """``(name, out, in)`` rows as ``weight`` (and ``bias``) shapes."""
+    for name, out_features, in_features in table:
+        shapes[f"{name}.weight"] = (out_features, in_features)
+        if bias:
+            shapes[f"{name}.bias"] = (out_features,)
+
+
+def longcat_video_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a ``LongCatVideoTransformer3DModel`` of
+    ``arch`` (``models/longcat_video/transformer.py::LongCatVideoConfig``) as
+    ``longcat_video_params_from_checkpoint`` reads it: the Conv3d
+    ``x_embedder``, the biased time, caption and AdaLN MLPs, the fused
+    ``qkv``, the cross-attention's ``q_linear`` / ``kv_linear``, the bias-free
+    SwiGLU and the norm leaves."""
+    d, hd, ffn, temb = arch.hidden_size, arch.head_dim, arch.ffn_hidden, arch.adaln_tembed_dim
+    pt, ph, pw = arch.patch_size
+    shapes: Dict[str, tuple] = {"x_embedder.proj.weight": (d, arch.in_channels, pt, ph, pw),
+                                "x_embedder.proj.bias": (d,)}
+    _linears(shapes, (("t_embedder.mlp.0", temb, arch.frequency_embedding_size), ("t_embedder.mlp.2", temb, temb),
+                      ("y_embedder.y_proj.0", d, arch.caption_channels), ("y_embedder.y_proj.2", d, d),
+                      ("final_layer.adaLN_modulation.1", 2 * d, temb),
+                      ("final_layer.linear", pt * ph * pw * arch.out_channels, d)))
+    for i in range(arch.depth):
+        src = f"blocks.{i}"
+        _linears(shapes, ((f"{src}.adaLN_modulation.1", 6 * d, temb), (f"{src}.attn.qkv", 3 * d, d),
+                          (f"{src}.attn.proj", d, d), (f"{src}.cross_attn.q_linear", d, d),
+                          (f"{src}.cross_attn.kv_linear", 2 * d, d), (f"{src}.cross_attn.proj", d, d)))
+        _linears(shapes, ((f"{src}.ffn.w1", ffn, d), (f"{src}.ffn.w3", ffn, d), (f"{src}.ffn.w2", d, ffn)), bias=False)
+        shapes.update({f"{src}.attn.q_norm.weight": (hd,), f"{src}.attn.k_norm.weight": (hd,),
+                       f"{src}.cross_attn.q_norm.weight": (hd,), f"{src}.cross_attn.k_norm.weight": (hd,),
+                       f"{src}.pre_crs_attn_norm.weight": (d,), f"{src}.pre_crs_attn_norm.bias": (d,)})
+    return shapes
+
+
+def sana_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a diffusers ``SanaTransformer2DModel``
+    of ``arch`` (``models/sana/transformer.py::SanaConfig``) as
+    ``sana_params_from_diffusers`` reads it: the patch conv, the caption MLP
+    and norm, the time MLP and 6-way projection, the (2, dim) table and
+    ``proj_out``, and per block the (6, dim) table, the biased attention
+    projections and the Mix-FFN's three convs."""
+    d, p, hidden = arch.hidden_size, arch.patch_size, int(arch.hidden_size * arch.ffn_ratio)
+    inner_self, inner_cross = arch.self_heads * arch.self_head_dim, arch.cross_heads * arch.cross_head_dim
+    shapes: Dict[str, tuple] = {"patch_embed.proj.weight": (d, arch.in_channels, p, p), "patch_embed.proj.bias": (d,),
+                                "caption_norm.weight": (d,), "scale_shift_table": (2, d)}
+    _linears(shapes, (("caption_projection.linear_1", d, arch.text_dim), ("caption_projection.linear_2", d, d),
+                      ("time_embed.emb.timestep_embedder.linear_1", d, 256),
+                      ("time_embed.emb.timestep_embedder.linear_2", d, d), ("time_embed.linear", 6 * d, d),
+                      ("proj_out", p * p * arch.in_channels, d)))
+    for i in range(arch.depth):
+        src = f"transformer_blocks.{i}"
+        shapes[f"{src}.scale_shift_table"] = (6, d)
+        _linears(shapes, [(f"{src}.attn1.{name}", inner_self, d) for name in ("to_q", "to_k", "to_v")] +
+                 [(f"{src}.attn1.to_out.0", d, inner_self)] +
+                 [(f"{src}.attn2.{name}", inner_cross, d) for name in ("to_q", "to_k", "to_v")] +
+                 [(f"{src}.attn2.to_out.0", d, inner_cross)])
+        shapes.update({f"{src}.ff.conv_inverted.weight": (2 * hidden, d, 1, 1),
+                       f"{src}.ff.conv_inverted.bias": (2 * hidden,),
+                       f"{src}.ff.conv_depth.weight": (2 * hidden, 1, 3, 3), f"{src}.ff.conv_depth.bias": (2 * hidden,),
+                       f"{src}.ff.conv_point.weight": (d, hidden, 1, 1)})
+    return shapes
+
+
+def sanavideo_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a ``SanaVideoTransformer3DModel`` of
+    ``arch`` (``models/sanavideo/transformer.py::SanaVideoConfig``) as
+    ``sanavideo_params_from_checkpoint`` reads it: the Conv3d patch embed,
+    the AdaLayerNormSingle and caption MLPs, the caption norm, the (2, dim)
+    table and ``proj_out``, and per block the (6, dim) table, the bias-free
+    self-attention projections, the biased cross-attention ones, the
+    across-heads norms and the four GLUMBTempConv convs."""
+    d, hidden = arch.hidden_size, int(arch.mlp_ratio * arch.hidden_size)
+    inner_cross = arch.cross_heads * arch.cross_head_dim
+    pt, ph, pw = arch.patch_size
+    shapes: Dict[str, tuple] = {"patch_embedding.weight": (d, arch.in_channels, pt, ph, pw),
+                                "patch_embedding.bias": (d,), "caption_norm.weight": (d,), "scale_shift_table": (2, d)}
+    _linears(shapes, (("time_embed.emb.timestep_embedder.linear_1", d, 256),
+                      ("time_embed.emb.timestep_embedder.linear_2", d, d), ("time_embed.linear", 6 * d, d),
+                      ("caption_projection.linear_1", d, arch.caption_channels), ("caption_projection.linear_2", d, d),
+                      ("proj_out", pt * ph * pw * arch.out_channels, d)))
+    for i in range(arch.num_layers):
+        src = f"transformer_blocks.{i}"
+        shapes[f"{src}.scale_shift_table"] = (6, d)
+        _linears(shapes, [(f"{src}.attn1.{name}", d, d) for name in ("to_q", "to_k", "to_v")], bias=False)
+        _linears(shapes, [(f"{src}.attn1.to_out.0", d, d)] +
+                 [(f"{src}.attn2.{name}", inner_cross, d) for name in ("to_q", "to_k", "to_v")] +
+                 [(f"{src}.attn2.to_out.0", d, inner_cross)])
+        shapes.update({f"{src}.attn1.norm_q.weight": (d,), f"{src}.attn1.norm_k.weight": (d,),
+                       f"{src}.attn2.norm_q.weight": (inner_cross,), f"{src}.attn2.norm_k.weight": (inner_cross,),
+                       f"{src}.ff.conv_inverted.weight": (2 * hidden, d, 1, 1),
+                       f"{src}.ff.conv_inverted.bias": (2 * hidden,),
+                       f"{src}.ff.conv_depth.weight": (2 * hidden, 1, 3, 3), f"{src}.ff.conv_depth.bias": (2 * hidden,),
+                       f"{src}.ff.conv_point.weight": (d, hidden, 1, 1), f"{src}.ff.conv_temp.weight": (d, d, 3, 1)})
+    return shapes
+
 def vae_checkpoint_shapes(vae: nn.Module, legacy_attention: bool = False) -> Dict[str, tuple]:
     """Tensor names and torch shapes of a diffusers ``AutoencoderKL``
     checkpoint for the port's ``vae`` module, ``quant_conv`` and

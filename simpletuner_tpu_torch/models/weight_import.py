@@ -32,7 +32,10 @@ layout (``unet/``); Krea-2 the ``Krea2Transformer2DModel`` layout, Cosmos-Predic
 the diffusers ``CosmosTransformer3DModel`` layout and Anima its adapter with a
 ``core.``-prefixed Cosmos core (``transformer/``); OmniGen the diffusers
 ``OmniGenTransformer2DModel`` layout, ERNIE-Image the ``ErnieImageTransformer2DModel``
-layout and Ideogram the ``Ideogram4Transformer`` layout (``transformer/``).
+layout and Ideogram the ``Ideogram4Transformer`` layout (``transformer/``);
+LongCat-Video the ``LongCatVideoTransformer3DModel`` layout, Sana the diffusers
+``SanaTransformer2DModel`` layout and Sana-Video the ``SanaVideoTransformer3DModel``
+layout (``transformer/``).
 
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
 keeps f32, bf16 and fp8 (e4m3) leaves in the file's dtype (``_float``; the
@@ -1714,6 +1717,145 @@ def load_ideogram_params(model, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# LongCat-Video, Sana and Sana-Video (the Conv3d patch embeds kept as 5-D kernels)
+# ---------------------------------------------------------------------------------
+
+
+def _conv_generic(weights: Mapping[str, torch.Tensor], key: str) -> Dict[str, torch.Tensor]:
+    """A torch conv (O, I, *spatial) as a flax kernel (*spatial, I, O), any rank."""
+    weight = _float(weights[f"{key}.weight"])
+    out = {"kernel": weight.permute(*range(2, weight.dim()), 1, 0)}
+    if f"{key}.bias" in weights:
+        out["bias"] = _float(weights[f"{key}.bias"])
+    return out
+
+
+def longcat_video_params_from_checkpoint(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a LongCat-Video transformer of ``arch``
+    (``LongCatVideoConfig``): the Conv3d ``x_embedder``, the time and caption
+    MLPs, the final AdaLN and linear, and per block the AdaLN, fused ``qkv``,
+    the cross-attention's ``q_linear`` / ``kv_linear``, the SwiGLU and the
+    norm ``weight`` (and ``pre_crs_attn_norm`` bias) leaves."""
+    w = weights
+    params: Dict[str, Any] = {
+        "x_embedder": _conv_generic(w, "x_embedder.proj"),
+        "t_in": _linear(w, "t_embedder.mlp.0"),
+        "t_out": _linear(w, "t_embedder.mlp.2"),
+        "y_in_1": _linear(w, "y_embedder.y_proj.0"),
+        "y_in_2": _linear(w, "y_embedder.y_proj.2"),
+        "final_adaLN": _linear(w, "final_layer.adaLN_modulation.1"),
+        "final_linear": _linear(w, "final_layer.linear"),
+    }
+    for i in range(arch.depth):
+        src = f"blocks.{i}"
+        params[f"block_{i}"] = {
+            "adaLN": _linear(w, f"{src}.adaLN_modulation.1"),
+            "qkv": _linear(w, f"{src}.attn.qkv"),
+            "attn_proj": _linear(w, f"{src}.attn.proj"),
+            "q_norm": _float(w[f"{src}.attn.q_norm.weight"]),
+            "k_norm": _float(w[f"{src}.attn.k_norm.weight"]),
+            "pre_crs_scale": _float(w[f"{src}.pre_crs_attn_norm.weight"]),
+            "pre_crs_bias": _float(w[f"{src}.pre_crs_attn_norm.bias"]),
+            "crs_q": _linear(w, f"{src}.cross_attn.q_linear"),
+            "crs_kv": _linear(w, f"{src}.cross_attn.kv_linear"),
+            "crs_proj": _linear(w, f"{src}.cross_attn.proj"),
+            "crs_q_norm": _float(w[f"{src}.cross_attn.q_norm.weight"]),
+            "crs_k_norm": _float(w[f"{src}.cross_attn.k_norm.weight"]),
+            "ffn_w1": _linear(w, f"{src}.ffn.w1"),
+            "ffn_w2": _linear(w, f"{src}.ffn.w2"),
+            "ffn_w3": _linear(w, f"{src}.ffn.w3"),
+        }
+    return params
+
+
+def load_longcat_video_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a LongCat-Video transformer."""
+    params = longcat_video_params_from_checkpoint(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported longcat_video weights from %s", path)
+    return params
+
+
+_SANA_ATTENTION = (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("proj", "to_out.0"))
+
+
+def sana_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a diffusers Sana transformer of ``arch``
+    (``SanaConfig``): the patch conv (dim, C, p, p) as a dense ((p, p, C),
+    dim) kernel, the (2, dim) and (6, dim) tables reshaped, the Mix-FFN's
+    three convs as flax kernels."""
+    w = weights
+    dim = arch.hidden_size
+    conv = _float(w["patch_embed.proj.weight"])  # (dim, C, p, p)
+    params: Dict[str, Any] = {
+        "patch_in": {"kernel": conv.permute(2, 3, 1, 0).reshape(-1, dim), "bias": _float(w["patch_embed.proj.bias"])},
+        "caption_in_1": _linear(w, "caption_projection.linear_1"),
+        "caption_in_2": _linear(w, "caption_projection.linear_2"),
+        "caption_norm": _scale(w, "caption_norm.weight"),
+        "time_in": {"in_layer": _linear(w, "time_embed.emb.timestep_embedder.linear_1"),
+                    "out_layer": _linear(w, "time_embed.emb.timestep_embedder.linear_2")},
+        "time_proj": _linear(w, "time_embed.linear"),
+        "final_scale_shift_table": _float(w["scale_shift_table"]).reshape(2, dim),
+        "final_proj": _linear(w, "proj_out"),
+    }
+    for i in range(arch.depth):
+        src = f"transformer_blocks.{i}"
+        block: Dict[str, Any] = {"scale_shift_table": _float(w[f"{src}.scale_shift_table"]).reshape(6, dim),
+                                 "ff": {conv: _conv(w, f"{src}.ff.{conv}")
+                                        for conv in ("conv_inverted", "conv_depth", "conv_point")}}
+        for attn in ("attn1", "attn2"):
+            block.update({f"{attn}_{ours}": _linear(w, f"{src}.{attn}.{theirs}") for ours, theirs in _SANA_ATTENTION})
+        params[f"block_{i}"] = block
+    return params
+
+
+def load_sana_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a diffusers Sana transformer."""
+    params = sana_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported sana weights from %s", path)
+    return params
+
+
+def sanavideo_params_from_checkpoint(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a Sana-Video transformer of ``arch``
+    (``SanaVideoConfig``): the Conv3d ``patch_embedding``, the AdaLayerNormSingle
+    MLP, the caption MLP and its norm ``weight``, the tables and ``proj_out``
+    read 1:1 (its features in the reference's (pt, ph, pw, C) order, which
+    the DiT's unpatchify splits), and per block the bias-free self-attention
+    projections, the biased cross-attention ones, the across-heads norm
+    ``weight`` leaves and the four GLUMBTempConv convs."""
+    w = weights
+    params: Dict[str, Any] = {
+        "patch_embedding": _conv_generic(w, "patch_embedding"),
+        "time_in": _linear(w, "time_embed.emb.timestep_embedder.linear_1"),
+        "time_out": _linear(w, "time_embed.emb.timestep_embedder.linear_2"),
+        "time_mod": _linear(w, "time_embed.linear"),
+        "caption_in_1": _linear(w, "caption_projection.linear_1"),
+        "caption_in_2": _linear(w, "caption_projection.linear_2"),
+        "caption_norm": _float(w["caption_norm.weight"]),
+        "scale_shift_table": _float(w["scale_shift_table"]),
+        "proj_out": _linear(w, "proj_out"),
+    }
+    for i in range(arch.num_layers):
+        src = f"transformer_blocks.{i}"
+        block: Dict[str, Any] = {"scale_shift_table": _float(w[f"{src}.scale_shift_table"]),
+                                 "ff": {conv: _conv_generic(w, f"{src}.ff.{conv}")
+                                        for conv in ("conv_inverted", "conv_depth", "conv_point", "conv_temp")}}
+        for attn in ("attn1", "attn2"):
+            block.update({f"{attn}_{ours}": _linear(w, f"{src}.{attn}.{theirs}") for ours, theirs in _SANA_ATTENTION})
+            block[f"{attn}_norm_q"] = _float(w[f"{src}.{attn}.norm_q.weight"])
+            block[f"{attn}_norm_k"] = _float(w[f"{src}.{attn}.norm_k.weight"])
+        params[f"block_{i}"] = block
+    return params
+
+
+def load_sanavideo_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a Sana-Video transformer."""
+    params = sanavideo_params_from_checkpoint(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported sanavideo weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
@@ -1731,7 +1873,8 @@ _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_une
               # Boogu-Image is the Lumina2 Next-DiT layout
               "boogu_image": load_lumina2_params, "krea2": load_krea2_params, "cosmos": load_cosmos2_params,
               "anima": load_anima_params, "omnigen": load_omnigen_params, "ernie": load_ernie_params,
-              "ideogram": load_ideogram_params}
+              "ideogram": load_ideogram_params, "longcat_video": load_longcat_video_params,
+              "sana": load_sana_params, "sanavideo": load_sanavideo_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:

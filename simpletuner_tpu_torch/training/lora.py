@@ -9,9 +9,10 @@ sd1x and sd2x), ``sd3_key_map`` (lora.py:158), ``pixart_key_map``
 Kandinsky flavours), ``hunyuanvideo_key_map`` (lora.py:620), ``flux2_key_map``
 (lora.py:419; kolors takes ``unet_key_map``, lora.py:655), ``krea2_key_map``
 (lora.py:276), ``cosmos1_core_key_map`` (lora.py:215; cosmos), ``anima_key_map``
-(lora.py:232), ``ernie_key_map`` (lora.py:252) and ``ideogram_key_map`` (lora.py:264;
+(lora.py:232), ``ernie_key_map`` (lora.py:252), ``ideogram_key_map`` (lora.py:264;
 omnigen has no map, so its adapter files carry the flattened module paths, as in
-the JAX package) and ``_key_map_for``
+the JAX package), ``longcat_video_key_map`` (lora.py:201), ``sana_key_map``
+(lora.py:547) and ``sanavideo_key_map`` (lora.py:237) and ``_key_map_for``
 (lora.py:680), which resolve the LoRA target presets and
 name the adapters of an export (the maps leave ``patch_in`` and
 ``context_in`` under their own names, as the JAX export does),
@@ -407,6 +408,33 @@ def ideogram_key_map(arch) -> Dict[str, Any]:
     return mapping
 
 
+def longcat_video_key_map(arch) -> Dict[str, Any]:
+    """LongCatVideoTransformer3DModel layout (the FFN included)."""
+    mapping: Dict[str, Any] = {"final_linear": "final_layer.linear"}
+    for layer in range(arch.depth):
+        for ours, theirs in (("qkv", "attn.qkv"), ("attn_proj", "attn.proj"), ("crs_q", "cross_attn.q_linear"),
+                             ("crs_kv", "cross_attn.kv_linear"), ("crs_proj", "cross_attn.proj"),
+                             ("ffn_w1", "ffn.w1"), ("ffn_w2", "ffn.w2"), ("ffn_w3", "ffn.w3")):
+            mapping[f"block_{layer}/{ours}"] = f"blocks.{layer}.{theirs}"
+    return mapping
+
+
+_SANA_ATTENTION = {f"{attn}_{ours}": f"{attn}.{theirs}" for attn in ("attn1", "attn2")
+                   for ours, theirs in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("proj", "to_out.0"))}
+
+
+def sana_key_map(arch, layers: Optional[int] = None) -> Dict[str, Any]:
+    """SanaTransformer2DModel layout: the blocks' attention projections
+    (``patch_in`` and the caption MLP keep their own names)."""
+    return {f"block_{layer}/{ours}": f"transformer_blocks.{layer}.{theirs}"
+            for layer in range(arch.depth if layers is None else layers) for ours, theirs in _SANA_ATTENTION.items()}
+
+
+def sanavideo_key_map(arch) -> Dict[str, Any]:
+    """SanaVideoTransformer3DModel layout: Sana's attention table and ``proj_out``."""
+    return {"proj_out": "proj_out", **sana_key_map(arch, arch.num_layers)}
+
+
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
     "sd1x": lambda m: unet_key_map(m.arch),
@@ -437,6 +465,9 @@ _KEY_MAPS = {
     "anima": lambda m: anima_key_map(m.arch),
     "ernie": lambda m: ernie_key_map(m.arch),
     "ideogram": lambda m: ideogram_key_map(m.arch),
+    "longcat_video": lambda m: longcat_video_key_map(m.arch),
+    "sana": lambda m: sana_key_map(m.arch),
+    "sanavideo": lambda m: sanavideo_key_map(m.arch),
 }
 
 

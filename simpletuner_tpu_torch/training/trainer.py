@@ -81,13 +81,17 @@ trainer builds it, though Cosmos's docstring names the Wan VAE),
 the SD ``VAEConfig()``), ``ernie`` (the qwen2.5 final-norm states at 512
 tokens with the mask) and ``ideogram`` (13 taps of the qwen2.5-vl trunk side
 by side, with the mask), the last two at 32 latent channels against
-``VAEConfig.flux()``, as the JAX trainer, so only their tiny presets train;
+``VAEConfig.flux()``, as the JAX trainer, so only their tiny presets train,
+``longcat_video`` (T5-XXL at 512 tokens with the mask) and ``sanavideo``
+(Gemma-2 at 300 tokens with the mask), both on clips through the video VAE at
+16 latent channels, and ``sana`` (Gemma-2 at 300 tokens, the mask dropped; 32
+latent channels against ``VAEConfig.flux()``, so only its tiny preset trains);
 the batch reaches the step with every numeric array
 the family's collate gives (Flux's ``t5_embeds``/``t5_masks``, the others'
 ``text_embeds``, SDXL's size conditioning ``original_sizes``,
 ``crop_coordinates`` and ``target_sizes``), and ``pooled_embeds`` for flux,
 sd3 and sdxl.  Refused, each naming its ROADMAP item:
-families other than these thirty, full fine-tunes and ControlNet, distillation and
+families other than these thirty-three, full fine-tunes and ControlNet, distillation and
 ODE pairs, CREPA / U-REPA, text-encoder training, slider and assistant
 adapters, a mesh of more than one device and multi-process runs.
 """

@@ -84,8 +84,8 @@ def test_the_port_imports_nothing_of_the_jax_package():
     # the SDXL slice's modules, the SD 1.x / 2.x, PixArt-Sigma, AuraFlow, Wan, LTX-Video, Chroma, Lumina2,
     # decoder-LLM, Kandinsky 5.0, HunyuanVideo, Qwen-Image, MageFlow / Z-Image, HiDream, FLUX.2, Kolors,
     # LongCat-Image, Z-Image-Omni, Zlab-i1, Boogu-Image, Krea-2, Cosmos and Anima ones (with the EDM Euler
-    # scheduler), and the OmniGen, ERNIE-Image and Ideogram ones (with Ideogram's host prompt modules)
-    # are among those imported
+    # scheduler), the OmniGen, ERNIE-Image and Ideogram ones (with Ideogram's host prompt modules), and the
+    # LongCat-Video, Sana and Sana-Video ones are among those imported
     assert {f"simpletuner_tpu_torch.{name}" for name in (
         "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc", "models.sd1x",
         "models.sd1x.model", "models.pixart", "models.pixart.model", "models.pixart.transformer",
@@ -105,7 +105,10 @@ def test_the_port_imports_nothing_of_the_jax_package():
         "models.cosmos2", "models.cosmos2.model", "models.anima", "models.anima.model", "models.anima.transformer",
         "schedulers.edm_euler", "models.omnigen", "models.omnigen.model", "models.omnigen.transformer",
         "models.ernie", "models.ernie.model", "models.ernie.transformer", "models.ideogram", "models.ideogram.model",
-        "models.ideogram.transformer", "models.ideogram.prompting", "models.ideogram.prompt_enhancer")} <= set(names)
+        "models.ideogram.transformer", "models.ideogram.prompting", "models.ideogram.prompt_enhancer",
+        "models.longcat_video", "models.longcat_video.model", "models.longcat_video.transformer", "models.sana",
+        "models.sana.model", "models.sana.transformer", "models.sanavideo", "models.sanavideo.model",
+        "models.sanavideo.transformer")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -600,7 +603,14 @@ def test_model_registry_refuses_other_families():
     assert isinstance(get_model_family(TrainingConfig({"model_family": "omnigen"})), OmniGen)
     assert isinstance(get_model_family(TrainingConfig({"model_family": "ernie"})), Ernie)
     assert isinstance(get_model_family(TrainingConfig({"model_family": "ideogram"})), Ideogram)
-    for family in ("sana", "heartmula", "deepfloyd"):
+    from simpletuner_tpu_torch.models.longcat_video import LongcatVideo
+    from simpletuner_tpu_torch.models.sana import Sana
+    from simpletuner_tpu_torch.models.sanavideo import SanaVideo
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "longcat_video"})), LongcatVideo)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "sana"})), Sana)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "sanavideo"})), SanaVideo)
+    for family in ("cosmos3", "heartmula", "deepfloyd"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):
@@ -633,7 +643,7 @@ def test_model_registry_matches():
     assert ModelRegistry.get("sd15") is SD1x and ModelRegistry.get("sd21") is SD2x
     assert ModelRegistry.get("pixart") is ModelRegistry.get("pixart_sigma") is PixartSigma
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        ModelRegistry.get("sana")
+        ModelRegistry.get("cosmos3")
     for registry in (ModelRegistry, JaxModelRegistry):
         with pytest.raises(KeyError):
             registry.metadata("nope")

@@ -376,7 +376,7 @@ def test_refusals(tmp_path):
         CheckpointInferenceRuntime(config_path=_config(
             tmp_path, model_arch_preset=None, allow_untrained_init=False), device="cpu")
     with pytest.raises(NotImplementedError):
-        CheckpointInferenceRuntime(config_path=_config(tmp_path, model_family="sana"), device="cpu")
+        CheckpointInferenceRuntime(config_path=_config(tmp_path, model_family="deepfloyd"), device="cpu")
     # a quantized base needs a frozen one, as the JAX trainer's create_train_state says
     with pytest.raises(ValueError, match="model_type=lora"):
         CheckpointInferenceRuntime(config_path=_config(tmp_path, base_model_precision="int8-quanto"), device="cpu")

@@ -1989,3 +1989,137 @@ def test_graphed_omnigen_ernie_ideogram_steps_match_eager_bitwise(cuda, family):
     replayed = trajectory(graphed)
     assert torch.isfinite(eager).all() and (eager[1::2] > 0).all()
     assert torch.equal(replayed, eager)
+
+
+# LongCat-Video, Sana and Sana-Video: LongCat-Video's self-attention over the
+# 832 x 480 x 81 clip (32,760 tokens, 255 full 128-row tiles and a ragged tail
+# of 120) and its cross-attention against 512 T5 keys with 300 valid (query
+# ids 1, key ids 1 / -1); Sana's unmasked cross-attention at 1024 px (1,024
+# queries against 300 Gemma keys, head dim 112 zero-padded to 128) and
+# Sana-Video's over the clip (32,760 queries against 300 keys, 120 valid);
+# two heads (the heads are independent)
+LONGCAT_SANA_CASES = [("longcat_self_s32760", WAN_TOKENS, WAN_TOKENS, 128, None),
+                      ("longcat_cross_t5_512", WAN_TOKENS, 512, 128, 300),
+                      ("sana_cross_s1024_k300_d112", 1024, 300, 112, None),
+                      ("sanavideo_cross_s32760_k300_d112", WAN_TOKENS, 300, 112, 120)]
+
+
+@pytest.mark.parametrize("name,sq,sk,dim,valid", LONGCAT_SANA_CASES, ids=[c[0] for c in LONGCAT_SANA_CASES])
+def test_kernels_at_the_longcat_video_and_sana_shapes(cuda, name, sq, sk, dim, valid):
+    """Forward and both backward kernels at the slice's shapes against the
+    plain versions, in the dispatcher's (B, S, H, D) layout as the DiTs call
+    them; with a caption mask the pad keys get no weight (dk, dv 0 there)."""
+    q, k, v = _qkv(120 + sk % 17 + dim, 1, 2, sq, sk, dim, cuda)
+    strided = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    q_seg = kv_seg = None
+    if valid is not None:
+        q_seg = torch.ones((1, sq), dtype=torch.int32, device=cuda)
+        kv_seg = torch.where(torch.arange(sk, device=cuda) < valid, 1, SEGMENT_PAD_ID)[None].to(torch.int32)
+    out, lse = _check(*strided, q_seg, kv_seg)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    del out, lse
+    dq, dk, dv = _check_backward(*strided, q_seg, seed=121, kv_seg=kv_seg)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    if valid is not None:
+        assert dk[0, :, valid:].abs().max() == dv[0, :, valid:].abs().max() == 0
+
+
+def _tiny_video_family(family, dtype, device):
+    """Each family's DiT at a width that runs the head dim 128 kernels
+    (LongCat-Video) or the padded 112 (the Sanas: 2 cross heads of 112),
+    two blocks, remat, rank-4 adapters."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.longcat_video import LongCatVideoConfig, LongCatVideoTransformer
+    from simpletuner_tpu_torch.models.sana import SanaConfig, SanaTransformer
+    from simpletuner_tpu_torch.models.sanavideo import SanaVideoConfig, SanaVideoTransformer
+
+    if family == "longcat_video":
+        cfg = dataclasses.replace(LongCatVideoConfig.tiny(), hidden_size=256, num_heads=2, caption_channels=64)
+        cls = LongCatVideoTransformer
+    elif family == "sana":
+        cfg = dataclasses.replace(SanaConfig.tiny(), hidden_size=224, self_heads=7, self_head_dim=32,
+                                  cross_heads=2, cross_head_dim=112, text_dim=64)
+        cls = SanaTransformer
+    else:
+        cfg = dataclasses.replace(SanaVideoConfig.tiny(), num_heads=2, head_dim=112, cross_heads=2,
+                                  cross_head_dim=112, caption_channels=64)
+        cls = SanaVideoTransformer
+    with torch.device(device):
+        return cfg, cls(cfg, dtype=dtype, lora_rank=4, remat=True)
+
+
+@pytest.mark.parametrize("family", ["longcat_video", "sana", "sanavideo"])
+def test_tiny_longcat_video_and_sana_on_the_card_match_their_cpu_runs(cuda, family):
+    """Each DiT (``_tiny_video_family``) with a padded caption (the video
+    families: 40 keys, 17 valid in the second sample) against its CPU run:
+    prediction and LoRA gradients within the card-against-CPU bound."""
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg, cpu = _tiny_video_family(family, torch.float32, "cpu")
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    _, card = _tiny_video_family(family, torch.bfloat16, cuda)
+    gen = torch.Generator().manual_seed(4)
+    text_width = cfg.text_dim if family == "sana" else cfg.caption_channels
+    text = torch.randn((2, 40, text_width), generator=gen)
+    if family == "sana":
+        shape = (2, 12, 20, cfg.in_channels)
+        inputs = [torch.randn(shape, generator=gen), torch.tensor([0.9, 0.25]), text]
+    else:
+        shape = (2, 5, 8, 14, cfg.in_channels)
+        mask = (torch.arange(40)[None] < torch.tensor([[40], [17]])).to(torch.int32)
+        inputs = [torch.randn(shape, generator=gen), torch.tensor([900.0, 250.0]), text, mask]
+    _card_against_cpu(cpu, card, inputs, torch.randn(shape, generator=gen), cuda)
+
+
+@pytest.mark.parametrize("family", ["longcat_video", "sana", "sanavideo"])
+def test_graphed_longcat_video_and_sana_steps_match_eager_bitwise(cuda, family):
+    """Each tiny family's step (the video families on 5-D latents with a
+    caption mask; their RoPE tables made once per device in the eager steps):
+    three eager steps and three replays of the captured step from the same
+    state and generator state give the same losses and grad norms bitwise."""
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.training.optimizers import get_optimizer
+    from simpletuner_tpu_torch.training.train_state import (build_train_step, create_train_state, jit_train_step,
+                                                            state_tensors)
+
+    config = TrainingConfig({"model_family": family, "model_arch_preset": "tiny", "model_type": "lora",
+                             "lora_rank": 4, "learning_rate": 1e-3, "optimizer": "adamw",
+                             "gradient_checkpointing": True})
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    model = ModelRegistry.create(family, config)
+    with torch.device(cuda):
+        module = init_parameters(model.create_module(), gen)
+    latents = (1, 16, 16, 4) if family == "sana" else (1, 3, 16, 16, 4)
+    batch = {"latents": torch.randn(latents, generator=gen, device=cuda),
+             "text_embeds": torch.randn((1, 12, 32), generator=gen, device=cuda)}
+    if family != "sana":
+        batch["text_attention_mask"] = (torch.arange(12, device=cuda) < 7)[None].to(torch.int32)
+    tx = get_optimizer(config, 1e-3)
+    state = create_train_state(model, module, tx)
+    step_fn = build_train_step(model, tx)
+    with torch.no_grad():
+        saved = [x.clone() for x in state_tensors(state)]
+    rng = torch.Generator(device=cuda)
+    rng.manual_seed(5)
+    start = rng.get_state()
+
+    def trajectory(step):
+        current, out = state, []
+        for _ in range(3):
+            current, metrics = step(current, batch, rng)
+            out += [metrics["loss"], metrics["grad_norm"]]
+        return torch.stack(out)
+
+    eager = trajectory(step_fn)
+    with torch.no_grad():
+        for x, value in zip(state_tensors(state), saved):
+            x.copy_(value)
+    rng.set_state(start)
+    state.step = 0
+    graphed = jit_train_step(step_fn, state, batch, rng)
+    replayed = trajectory(graphed)
+    assert torch.isfinite(eager).all() and (eager[1::2] > 0).all()
+    assert torch.equal(replayed, eager)

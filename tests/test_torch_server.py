@@ -15,7 +15,7 @@ it does not train) and a job's logs
 (the spawned command: ``python -m simpletuner_tpu_torch.train --config ...
 --device cpu``).  On the port's server alone: a tiny-Flux job completes and
 its LoRA is bitwise the one an in-process ``Trainer`` trains from the same
-config; a ``sana`` job fails with a log line naming ROADMAP Queue 1 item 6;
+config; a ``deepfloyd`` job fails with a log line naming ROADMAP Queue 1 item 6;
 a running job takes a checkpoint signal and is cancelled.
 """
 
@@ -260,6 +260,10 @@ def test_auth_quota_orgs_and_approvals(pair):
     pair.both("GET", "/api/quota", token="alice")
     assert pair.both("POST", "/api/training/start", {"config": {**config, "max_train_steps": 3}},
                      token="alice")["port"][0] == 429
+    # the tiny job has no dataset and fails on its own within seconds: wait for
+    # that on both sides before the cancel, which would otherwise race it (a
+    # SIGTERM on one side against an exit code of 1 on the other)
+    pair.wait("job", token="alice", states=("failed",))
     pair.both("POST", "/api/training/cancel/{job}", {}, token="alice")
     pair.wait("job", token="alice")  # its notification lands before the next listing on both sides
     # an org with an approval policy
@@ -525,17 +529,17 @@ def test_routes_that_differ_by_design(pair):
     for family in ("sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "lumina2",
                    "kandinsky5_image", "kandinsky5_video", "hunyuanvideo", "qwen_image", "mageflow", "z_image",
                    "hidream", "flux2", "kolors", "z_image_omni", "zlab_i1", "boogu_image", "krea2", "cosmos", "anima",
-                   "omnigen", "ernie", "ideogram"):
+                   "omnigen", "ernie", "ideogram", "longcat_video", "sana", "sanavideo"):
         answers = pair.both("GET", f"/api/models/{family}/presets", compare=False)
         assert answers["port"][0] == answers["jax"][0] == 200
         assert [(p["name"], p["config"]) for p in answers["port"][1]] == [
             (p["name"], p["config"]) for p in answers["jax"][1] if p["name"] != "multichip"], family
-    assert pair.both("GET", "/api/models/sana/presets", compare=False)["port"] == (
-        501, {"error": "model_family='sana' is not ported (only flux, sd3, sdxl, sd1x, sd2x, pixart_sigma, "
+    assert pair.both("GET", "/api/models/deepfloyd/presets", compare=False)["port"] == (
+        501, {"error": "model_family='deepfloyd' is not ported (only flux, sd3, sdxl, sd1x, sd2x, pixart_sigma, "
                        "auraflow, wan, ltxvideo, chroma, lumina2, kandinsky5_image, kandinsky5_video, "
                        "hunyuanvideo, qwen_image, mageflow, z_image, hidream, flux2, kolors, longcat_image, "
-                       "z_image_omni, zlab_i1, boogu_image, krea2, cosmos, anima, omnigen, ernie, ideogram; "
-                       "ROADMAP Queue 1 item 6)"})
+                       "z_image_omni, zlab_i1, boogu_image, krea2, cosmos, anima, omnigen, ernie, ideogram, "
+                       "longcat_video, sana, sanavideo; ROADMAP Queue 1 item 6)"})
     pair.both("GET", "/api/models/nope/presets")  # unknown: 404 on both
     job = pair.both("POST", "/api/inference/start",
                     {"checkpoint": "/nope/checkpoint-1", "prompt": "a cat", "steps": 1})
@@ -619,7 +623,7 @@ def test_an_unported_family_fails_naming_its_item(port_server, tmp_path):
     _, port = port_server
     _write_images(tmp_path / "data")
     status, job = _http(port, "POST", "/api/training/start",
-                        {"config": _values(tmp_path, "out", model_family="sana")})
+                        {"config": _values(tmp_path, "out", model_family="deepfloyd")})
     info = _wait(port, job["job_id"])
     _, logs = _http(port, "GET", f"/api/training/logs/{job['job_id']}?tail=200")
     assert info["state"] == "failed" and info["return_code"] != 0
@@ -664,7 +668,7 @@ def test_two_job_slots_run_two_jobs_at_once(tmp_path):
         assert srv.keeper.max_concurrent == 2
         _write_images(tmp_path / "data")
         jobs = [_http(port, "POST", "/api/training/start",
-                      {"config": _values(tmp_path, f"out{i}", model_family="sana")})[1]["job_id"] for i in range(2)]
+                      {"config": _values(tmp_path, f"out{i}", model_family="deepfloyd")})[1]["job_id"] for i in range(2)]
         infos = [_wait(port, job) for job in jobs]
         assert [info["state"] for info in infos] == ["failed", "failed"]
         assert infos[1]["started_at"] < infos[0]["finished_at"] and infos[0]["started_at"] < infos[1]["finished_at"]

@@ -373,7 +373,7 @@ def test_entry_trains_from_an_empty_cache(tmp_path):
 
 def test_entry_refuses_another_family(tmp_path):
     config = tmp_path / "cfg.json"
-    config.write_text(json.dumps(_values(tmp_path, "out", model_family="sana")))
+    config.write_text(json.dumps(_values(tmp_path, "out", model_family="deepfloyd")))
     result = subprocess.run([sys.executable, "-m", "simpletuner_tpu_torch.train", "--config", str(config),
                              "--device", "cpu"], cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)},
                             capture_output=True, text=True, timeout=600)

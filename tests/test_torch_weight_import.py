@@ -298,11 +298,11 @@ def test_read_safetensors_directory_rules(tmp_path):
 
 
 def test_only_flux_imports(tmp_path):
-    class Sana:
-        NAME = "sana"
+    class DeepFloyd:
+        NAME = "deepfloyd"
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        load_transformer_params(Sana(), torch.nn.Linear(1, 1), str(tmp_path))
+        load_transformer_params(DeepFloyd(), torch.nn.Linear(1, 1), str(tmp_path))
 
 
 def test_trainer_loads_a_pretrained_checkpoint(tmp_path, flux_models):

@@ -1,8 +1,17 @@
-"""Helpers shared by the torch-port parity tests (tests/test_torch_*.py)."""
+"""Helpers shared by the torch-port parity tests (tests/test_torch_*.py).
+
+Importing it caps torch's intra-op threads at the worker's share of the cores
+(``PYTEST_XDIST_WORKER_COUNT`` workers share ``os.cpu_count()``; one process
+keeps every core): the parity tests run tiny tensors, and workers each
+spinning a pool of every core's threads stall one another."""
+
+import os
 
 import jax
 import numpy as np
 import torch
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 from simpletuner_tpu_torch.models.weight_bridge import load_flax_params
 
