@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the torch port of simpletuner-tpu once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                       # every phase, 1-44
+    python3 chip_smoke.py                       # every phase, 1-45
+    python3 chip_smoke.py --phases 45           # Cosmos3 with all 36 layers in memory, and 1-3, 7
     python3 chip_smoke.py --phases 14-16,27,28  # the named phases, what they need, and 1-3 and 7
 
 With ``--phases`` the script runs the named phases, the phases whose files
@@ -11,7 +12,7 @@ CLIP tokenizer and phase 16's JPEGs; 28 phase 15's files; 29 phase 14's VAE and 
 JPEGs; 30 those, phase 15's T5-XXL and tokenizers and phase 19's CLIP-G; 31 none; 32 phase 16's JPEGs;
 33 and 34 phase 14's VAE and phase 16's JPEGs; 35 none; 36 and 38 phase 14's VAE and phase
 16's JPEGs; 37 those and phase 15's T5 tokenizer; 39 phase 16's JPEGs; 40, 41 and 43 none; 42
-phase 15's T5-XXL and tokenizer; 44 phase 42's clips and phase 43's Gemma-2) and
+phase 15's T5-XXL and tokenizer; 44 phase 42's clips and phase 43's Gemma-2; 45 none) and
 phases 1, 2, 3 and 7 (the
 build, and every kernel against its plain version); a named family phase
 whose depth a full run cuts writes its full-depth file where the run's
@@ -312,8 +313,8 @@ exits non-zero with no result line):
 25. chroma: Chroma at its published width (lodestones/Chroma's diffusers
    transformer, ``ChromaConfig()``: Flux's 19 double + 38 single blocks, 3072
    wide, 24 heads of 128, the 5 x 5120 distilled-guidance approximator over
-   344 modulation slots; 8.9B parameters; at ``CHROMA_CUT_BLOCKS`` (1 + 2)
-   blocks in a run of every phase, its kernel shapes Flux's) at 1024 px.  Deletes phase 24's
+   344 modulation slots; 8.9B parameters; at ``CHROMA_CUT_BLOCKS`` (1 + 1
+   since phase 45; 1 + 2 before) blocks in a run of every phase, its kernel shapes Flux's) at 1024 px.  Deletes phase 24's
    files; checks ``chroma_step_flops`` against ``torch.utils.flop_counter`` on
    two small configs; writes with the port's writer a seeded diffusers
    transformer (1.20 GB e4m3 at the cut depth, 8.9 GB at full depth, two shards) beside hard links to phase 14's Flux
@@ -329,13 +330,13 @@ exits non-zero with no result line):
    rank-16 LoRA on Flux's ``all`` targets, the T5 padding masked, AdamW 1e-4,
    6 graphed steps on four of phase 16's square JPEGs: losses, s/step, MFU,
    time to the first step, peak GiB, and the launches of a profiled replay
-   (2n / n / n for n blocks: 12 / 6 / 6 at the cut depth, 114 / 57 / 57 at
+   (2n / n / n for n blocks: 4 / 2 / 2 at the cut depth, 114 / 57 / 57 at
    full depth), which must equal the capture's, with device ms by bucket and
    the idle share.
 26. lumina2: Lumina-Image 2.0 at the JAX preset's size (Alpha-VLLM/
    Lumina-Image-2.0's ``transformer/``, ``Lumina2Config()``: 26 joint blocks
    and 2 + 2 refiners, 2304 wide, 24 query / 8 kv heads of 96, SwiGLU 6144;
-   1.97B parameters) at ``LUMINA_CUT_BLOCKS`` (6) of its 26 joint blocks in a
+   1.97B parameters) at ``LUMINA_CUT_BLOCKS`` (3 since phase 45; 6 before) of its 26 joint blocks in a
    run of every phase (all 26 in a run that names phase 26 where the run's
    writes leave room), with its Gemma-2 2B text encoder at 1024 px.  Deletes
    phase 25's files; checks ``lumina2_step_flops`` against the flop counter
@@ -361,7 +362,7 @@ exits non-zero with no result line):
    width (ai-forever/Kandinsky-5.0-T2V-Lite-sft-5s and T2I-Lite's
    ``transformer/``, ``Kandinsky5Config()``: 32 visual and 2 text blocks, 2048
    wide, 32 heads of 64, FFN 5120, 4 latent channels; 2.15B parameters), at
-   ``K5_CUT_BLOCKS`` (6 since phases 36-38; 16 before) of its 32 visual blocks in a
+   ``K5_CUT_BLOCKS`` (3 since phase 45; 6 since phases 36-38; 16 before) of its 32 visual blocks in a
    run of every phase.
    Deletes phase 26's files; checks ``kandinsky5_step_flops`` against the flop
    counter on two small configs; writes a seeded e4m3 transformer (0.48 GB at
@@ -390,7 +391,7 @@ exits non-zero with no result line):
 28. hunyuanvideo: HunyuanVideo 1.5 t2v-480p at the JAX preset's full width
    (tencent/HunyuanVideo-1.5's ``transformer/``, ``HunyuanVideo15Config()``: 54
    dual-stream and 2 refiner blocks, 2048 wide, 16 heads of 128, 65 channels
-   in; 8.33B parameters), at ``HY_CUT_BLOCKS`` (6) of its 54 blocks in a run
+   in; 8.33B parameters), at ``HY_CUT_BLOCKS`` (3 since phase 45; 6 before) of its 54 blocks in a run
    of every phase.  Deletes phase 27's files (not the Qwen trunk); checks
    ``hunyuanvideo_step_flops`` against the flop counter on two small configs;
    writes a seeded e4m3 diffusers transformer, a seeded ByT5-small in the T5
@@ -412,7 +413,7 @@ exits non-zero with no result line):
 29. qwen_image: Qwen-Image at the JAX preset's full width (Qwen/Qwen-Image's
    ``transformer/``, ``QwenImageConfig()``: 60 double-stream blocks, 3072 wide,
    24 heads of 128, 64 packed channels in; 20.4B parameters), at
-   ``QI_CUT_BLOCKS`` (2) of its 60 blocks in a run of every phase.  Deletes
+   ``QI_CUT_BLOCKS`` (1 since phase 45; 2 before) of its 60 blocks in a run of every phase.  Deletes
    phase 28's files; checks ``qwen_image_step_flops`` against the flop counter
    on two small configs; writes a seeded e4m3 diffusers transformer, links
    phase 27's Qwen2.5-VL trunk (written here when phase 27 did not run) and
@@ -687,8 +688,33 @@ exits non-zero with no result line):
    here in a run without them); then as phase 42, the cross-attention
    against 300 Gemma keys with the mask as key ids, and the linear
    attention's time per block at full width; in a run that names it, all
-   20 blocks in memory; last, the run's writes against
-   ``RUN_WRITE_LIMIT_GB`` less ``RUN_WRITE_MARGIN_GB``.
+   20 blocks in memory.
+45. cosmos3: the Cosmos3 omni MoT at the JAX preset's full width
+   (``Cosmos3Config()``: a Qwen3-VL backbone run as a Mixture of
+   Transformers, 4096 wide, 36 layers of two pathways, 32 query and 8 kv
+   heads of 128, SwiGLU 12,288, a 151,936-row token table and ``lm_head``,
+   48 latent channels in 2 x 2 patches; 15.16B parameters).  Checks
+   ``cosmos3_flops``; writes a seeded e4m3 checkpoint in the flat layout at
+   ``C3_FILE_LAYERS`` (2) of 36 with the whole table and head, and a
+   word-level tokenizer at the model dir's root; encodes 16 prompts at 64
+   ids through ``AutoTokenizer`` (prompts/s); imports (bitwise) and reads the
+   reasoner's parameters from the same file (bitwise the MoT's
+   understanding pathway); one forward against the plain attention on a
+   17-frame clip (5 latent frames: 4,400 generation tokens); the reasoner
+   over the same 64 ids and the generator-only replay held bitwise to the
+   full MoT forward; the true-CFG flow Euler loop over a 1280 x 704 x 93
+   clip's latents (24 x 44 x 80 x 48: 21,120 generation tokens against 21,184
+   keys) without a decode, the empty prompt's ids as the negative; 6 graphed
+   rank-16 LoRA steps on ``attn_gen_q/k/v/out`` on an int8 base
+   (``quantized_matmul`` full, every layer checkpointed) through
+   ``build_train_step``, a replay bitwise against an eager step and the
+   profiled replay's launches by shape; the AVAE audio tokenizer at its
+   shipped config (496M parameters drawn on the card): 10 s of 48 kHz stereo
+   encoded (250 latent frames of 64) and decoded, s and s of audio per s, a
+   1 s excerpt held against the same module in float64 on the CPU; in a run
+   that names it, all 36 layers in memory (15 GB of int8) and their graphed
+   step; last, the run's writes against ``RUN_WRITE_LIMIT_GB`` less
+   ``RUN_WRITE_MARGIN_GB``.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
 their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-32.
@@ -751,7 +777,11 @@ with its ragged tail and the cross-attention against 512 T5 keys, query ids
 1 and key ids 1 / -1 with 300 valid; ``SA_KERNEL_CASES``: the unmasked
 cross-attention (1, 20, 1024 queries, 300 keys, 112); ``SV_KERNEL_CASES``:
 the cross-attention (1, 20, 32760 queries, 300 keys, 112) with 120 keys
-valid), held at 2 heads; at the long shapes the plain
+valid), held at 2 heads, and Cosmos3's (``COSMOS3_KERNEL_CASES``: the
+generation attention (1, 32, 21120 queries, 21184 keys, 128), unmasked, K
+and V repeated from 8 heads as ``jnp.repeat`` does, held at 2 heads over one
+key/value head, beside the plain causal block of the understanding pathway
+at 64 tokens (``cosmos3_und_block``)); at the long shapes the plain
 version is timed once, one head at a time, with no warm-up run (the first
 head warms it); phases 3 and 7 print the seconds of each of
 their sections (``section_s``).  Every phase
@@ -777,13 +807,13 @@ Then a JSON line with the kernels, each wrapper's head dim 256 instances,
 its Chroma row (the Flux shape's times) and its rows at Wan's, LTX's,
 Lumina2's, Kandinsky 5.0's, HunyuanVideo's, Qwen-Image's, Z-Image's,
 HiDream's, FLUX.2's, Kolors's, LongCat-Image's, Z-Image-Omni's, Zlab-i1's,
-Krea-2's, Cosmos's, OmniGen's, ERNIE's, Ideogram's, LongCat-Video's, Sana's
-and Sana-Video's shapes beside it, and
+Krea-2's, Cosmos's, OmniGen's, ERNIE's, Ideogram's, LongCat-Video's, Sana's,
+Sana-Video's and Cosmos3's shapes beside it, and
 Anima's rows at Cosmos's shapes
 (launches: the profiler's count in phase 12's profiled replay, for the head
 dim 256 rows in phase 22's, for the Chroma rows in phase 25's, and for the
 other rows the wrappers' count at that shape per step in phase 23's, 24's and
-26's-44's runs, per forward for Z-Image-Omni's omni shape),
+26's-45's runs, per forward for Z-Image-Omni's omni shape),
 and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
 register, spill and warning lines per kernel (a C7514 warning means ptxas
@@ -901,7 +931,7 @@ PHASE21_MODELS = (
     ("pixart_sigma", 1024, 4.5, {}),
 )
 PHASE21_CLIP_H_LAYERS = 4
-PHASE21_WRITE_GB = 2.85  # 2.81 GB measured
+PHASE21_WRITE_GB = 2.82  # 2.81 GB measured
 PHASE21_TXT = {"sd1x": 77, "sd2x": 77, "pixart_sigma": 300}
 # phases 3 and 7 at SDXL's 1024 px attention: per level, the heads of 64 and
 # the H x W image tokens, self-attention and cross-attention against the 77
@@ -940,7 +970,7 @@ AURA_TXT = 8 + AURA_T5_LEN  # the register tokens, then the caption
 AURA_S = AURA_TXT + (RESOLUTION // 16) ** 2
 AURA_SIGMA = 0.7  # the full-depth parity forward's sigma
 PHASE22_T5_LAYERS = 2  # 6 before phases 39-41
-PHASE22_WRITE_GB = 1.15  # at the cut depths (AURA_CUT_BLOCKS, PHASE22_T5_LAYERS): 1.08 GB measured (2.17 at 2 + 4 and 6)
+PHASE22_WRITE_GB = 1.1  # at the cut depths (AURA_CUT_BLOCKS, PHASE22_T5_LAYERS): 1.08 GB measured (2.17 at 2 + 4 and 6)
 # phases 3 and 7 at head dim 256, the head dim 256 kernels: (name, (batch,
 # heads, seq, head dim), segment ids): AuraFlow's (1, 12, 4360, 256) with no
 # caller mask (4360 is no multiple of the 64- and 32-row tiles, so the
@@ -973,7 +1003,7 @@ WAN_RENDER_SIZE, WAN_GUIDANCE = 480, 5.0
 WAN_PARITY_FRAMES, WAN_SIGMA = 17, 0.7
 WAN14B_BLOCKS = 4
 WAN_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
-PHASE23_WRITE_GB = 0.35  # at the cut depth (WAN_CUT_BLOCKS): 0.29 GB measured
+PHASE23_WRITE_GB = 0.3  # at the cut depth (WAN_CUT_BLOCKS): 0.29 GB measured
 # phases 3 and 7 at Wan's attention shapes: (name, heads, query tokens, key
 # tokens, head dim): the 1.3B's self-attention (12 heads of 128 over 32,760
 # tokens, the ragged tail masked), its cross-attention (the same queries
@@ -1008,7 +1038,7 @@ LTX_RENDER_SIZE, LTX_GUIDANCE = 512, 4.0
 LTX_SIGMA = 0.7
 LTX13B_BLOCKS = 4
 LTX_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
-PHASE24_WRITE_GB = 0.5  # at the cut depth (LTX_CUT_BLOCKS): 0.45 GB measured
+PHASE24_WRITE_GB = 0.46  # at the cut depth (LTX_CUT_BLOCKS): 0.45 GB measured
 # phases 3 and 7 at LTX's attention shapes, as WAN_KERNEL_CASES: the 2B's
 # self-attention (32 heads of 64 over 6,144 tokens: full tiles, the unmasked
 # fast path), its cross-attention (the same queries against the 128 T5 keys:
@@ -1034,7 +1064,7 @@ CHROMA_GUIDANCE = 4.0
 CHROMA_TRAIN_STEPS, CHROMA_TRAIN_IMAGES = 6, 4
 CHROMA_PROMPT = "a lighthouse on a basalt cliff at dusk"
 CHROMA_SIGMA = 0.7
-PHASE25_WRITE_GB = 0.85  # at the cut depth (CHROMA_CUT_BLOCKS): 0.81 GB measured
+PHASE25_WRITE_GB = 0.71  # at the cut depth (CHROMA_CUT_BLOCKS): 0.69 GB measured (0.81 at 1 + 2)
 # phase 26: Lumina-Image 2.0 (Alpha-VLLM/Lumina-Image-2.0's transformer/ as the
 # JAX preset Lumina2Config() builds it: 26 joint blocks + 2 context and 2 noise
 # refiners, 2304 wide, 24 query / 8 kv heads of 96, SwiGLU 6144; 1.97B
@@ -1059,7 +1089,7 @@ GEMMA_FILE_LAYERS = 2
 # tokens (phases 26-28): every product and the residual stream round to bf16
 # in each layer, so they agree to about a percent in relative L2
 LLM_BF16_REL_L2 = 5e-2
-PHASE26_WRITE_GB = 1.5  # at the cut depths (LUMINA_CUT_BLOCKS, GEMMA_FILE_LAYERS): 1.45 GB measured
+PHASE26_WRITE_GB = 1.26  # at the cut depths (LUMINA_CUT_BLOCKS, GEMMA_FILE_LAYERS): 1.24 GB measured (1.45 at 6 blocks)
 # phases 3 and 7 at Lumina2's attention shapes (D = 96, zero-padded to 128 by
 # the wrappers, scaled by 96^-0.5): (name, heads, query tokens, key tokens,
 # head dim, valid caption tokens or None): the joint layers over [256 caption,
@@ -1098,7 +1128,7 @@ K5_LATENT = ((K5_FRAMES - 1) // 4 + 1, K5_HEIGHT // 8, K5_WIDTH // 8)
 K5_TOKENS = K5_LATENT[0] * (K5_LATENT[1] // 2) * (K5_LATENT[2] // 2)
 K5_CLIPS, K5_RENDER_SIZE, K5_PARITY_FRAMES, K5_SIGMA = 2, 512, 17, 0.7
 QWEN_FILE_LAYERS = 2
-PHASE27_WRITE_GB = 1.9  # at the cut depths (K5_CUT_BLOCKS, QWEN_FILE_LAYERS): 1.84 GB measured
+PHASE27_WRITE_GB = 1.61  # at the cut depths (K5_CUT_BLOCKS, QWEN_FILE_LAYERS): 1.60 GB measured (1.84 at 6 blocks)
 # phases 3 and 7 at Kandinsky 5.0's attention shapes (D = 64, unmasked: the
 # JAX family drops the Qwen mask): the video flavour's self-attention over
 # 24,576 tokens (192 full tiles) and its cross-attention against the 512 Qwen
@@ -1130,7 +1160,7 @@ HY_VIDEO = HY_LATENT[0] * HY_LATENT[1] * HY_LATENT[2]
 HY_JOINT = HY_VIDEO + HY_TEXT + HY_TEXT2
 HY_CLIPS, HY_RENDER_SIZE, HY_PARITY_FRAMES, HY_SIGMA = 2, 480, 5, 0.7
 HY_QWEN_VALID, HY_BYT5_VALID = 180, 40  # a caption's valid tokens in the kernel cases
-PHASE28_WRITE_GB = 1.6  # at the cut depth (HY_CUT_BLOCKS): 1.56 GB measured
+PHASE28_WRITE_GB = 1.1  # at the cut depth (HY_CUT_BLOCKS): 1.09 GB measured (1.56 at 6 blocks)
 # phases 3 and 7 at HunyuanVideo's attention shapes (D = 128): the joint
 # attention over 31,800 video tokens then 256 Qwen and 77 ByT5 tokens with
 # the segment plane the DiT makes (video and valid tokens at 0, pads at -1:
@@ -1158,7 +1188,7 @@ QI_IMG = (RESOLUTION // 16) ** 2
 QI_GUIDANCE, QI_SIGMA = 4.0, 0.7
 QI_TRAIN_STEPS, QI_TRAIN_IMAGES = 6, 4
 ZI_CUT_BLOCKS, ZI_TRUNK_LAYERS = 2, 2
-PHASE29_WRITE_GB = 1.7  # at the cut depths (QI_CUT_BLOCKS, ZI_TRUNK_LAYERS): 1.67 GB measured
+PHASE29_WRITE_GB = 1.31  # at the cut depths (QI_CUT_BLOCKS, ZI_TRUNK_LAYERS): 1.30 GB measured (1.67 at 2 blocks)
 # phases 3 and 7 at Qwen-Image's and Z-Image's joint attention (D = 128,
 # unmasked: the JAX families drop the mask); held at QI_CHECK_HEADS heads
 QI_KERNEL_CASES = (
@@ -1181,7 +1211,7 @@ HD_JOINT = QI_IMG + 3 * HD_TEXT
 HD_GUIDANCE, HD_SIGMA = 5.0, 0.7
 HD_TRAIN_STEPS, HD_TRAIN_IMAGES = 6, 4
 LLAMA_FILE_LAYERS = 2
-PHASE30_WRITE_GB = 1.85  # at the cut depths (HD_CUT_BLOCKS, LLAMA_FILE_LAYERS): 1.82 GB measured
+PHASE30_WRITE_GB = 1.83  # at the cut depths (HD_CUT_BLOCKS, LLAMA_FILE_LAYERS): 1.82 GB measured
 HD_KERNEL_CASES = (
     ("hd_joint", 20, HD_JOINT, HD_JOINT, 128),
 )
@@ -1202,7 +1232,7 @@ F2_GUIDANCE, F2_SIGMA = 4.0, 0.7
 F2_TRAIN_STEPS = 6
 F2_TAPS = "[-3, -2, -1]"
 MISTRAL_LAYERS = 2
-PHASE31_WRITE_GB = 2.35  # at the cut depth (F2_CUT_BLOCKS); 2.29 GB is the file
+PHASE31_WRITE_GB = 2.3  # at the cut depth (F2_CUT_BLOCKS): 2.29 GB measured, the file
 F2_KERNEL_CASES = (
     ("f2_joint", 48, F2_JOINT, F2_JOINT, 128),
 )
@@ -1220,7 +1250,7 @@ KOLORS_GUIDANCE, KOLORS_PARITY_T = 5.0, 500
 KOLORS_TRAIN_STEPS, KOLORS_TRAIN_IMAGES = 6, 4
 KOLORS_CUT_LAYERS = (1, 1, 1)  # (1, 2, 2) before phases 39-41
 GLM_FILE_LAYERS = 1  # 2 before phases 39-41
-PHASE32_WRITE_GB = 1.35  # at the cut depths (KOLORS_CUT_LAYERS, GLM_FILE_LAYERS): 1.28 GB measured (1.85 at (1, 2, 2) and 2)
+PHASE32_WRITE_GB = 1.3  # at the cut depths (KOLORS_CUT_LAYERS, GLM_FILE_LAYERS): 1.28 GB measured (1.85 at (1, 2, 2) and 2)
 KOLORS_KERNEL_CASES = tuple(case for level, (heads, seq) in enumerate(SDXL_LEVELS) for case in (
     (f"kolors_l{level}_self", heads, seq, seq, 64), (f"kolors_l{level}_cross", heads, seq, KOLORS_TEXT, 64)))
 KOLORS_CHECK_HEADS = 2
@@ -1240,7 +1270,7 @@ LC_JOINT, LC_EDIT_JOINT = LC_TEXT + LC_IMG, LC_TEXT + 2 * LC_IMG
 LC_GUIDANCE, LC_SIGMA = 4.0, 0.7
 LC_TRAIN_STEPS, LC_TRAIN_IMAGES = 6, 4
 LC_CUT_BLOCKS = (1, 1)
-PHASE33_WRITE_GB = 0.65  # at the cut depth: 0.58 GB measured, 0.52 GB the file
+PHASE33_WRITE_GB = 0.59  # at the cut depth: 0.58 GB measured, 0.52 GB the file
 LC_KERNEL_CASES = (
     ("lc_joint", 24, LC_JOINT, LC_JOINT, 128),
     ("lc_edit_joint", 24, LC_EDIT_JOINT, LC_EDIT_JOINT, 128),
@@ -1264,7 +1294,7 @@ ZO_GUIDANCE, ZO_SIGMA = 4.0, 0.7
 ZO_TRAIN_STEPS, ZO_TRAIN_IMAGES = 6, 4
 ZO_CUT_BLOCKS = (1, 1)
 BOOGU_BLOCKS = 2
-PHASE34_WRITE_GB = 0.9  # at the cut depth: 0.73 GB is the file
+PHASE34_WRITE_GB = 0.85  # at the cut depth: 0.84 GB measured, 0.73 GB the file
 ZO_KERNEL_CASES = (
     ("zo_joint", 30, ZO_JOINT, ZO_JOINT, 128, "ones"),
     ("zo_omni_joint", 30, ZO_OMNI_JOINT, ZO_OMNI_JOINT, 128, "ones"),
@@ -1286,7 +1316,7 @@ ZL_SIGMA = 0.7
 ZL_TRAIN_STEPS = 6
 ZL_FILE_BLOCKS = 3
 GEMMA_ZL_LAYERS = 2
-PHASE35_WRITE_GB = 0.45  # 0.42 GB is the file
+PHASE35_WRITE_GB = 0.44  # 0.42 GB measured, the file
 ZL_KERNEL_CASES = (
     ("zl_joint", 28, ZL_JOINT, ZL_JOINT, 72, "zl_joint"),
     ("zl_connector", 28, ZL_TEXT, ZL_TEXT, 72),
@@ -1309,7 +1339,7 @@ K2_GUIDANCE = 4.5
 K2_SIGMA = 0.7
 K2_TRAIN_STEPS, K2_TRAIN_IMAGES = 6, 4
 K2_FILE_BLOCKS = 1
-PHASE36_WRITE_GB = 1.45  # 1.39 GB measured: the 1.10 GB file and the 12-tap text cache
+PHASE36_WRITE_GB = 1.41  # 1.39 GB measured: the 1.10 GB file and the 12-tap text cache
 K2_KERNEL_CASES = (
     ("k2_joint", 48, K2_JOINT, K2_JOINT, 128, "k2_joint"),
     ("k2_edit_joint", 48, K2_EDIT_JOINT, K2_EDIT_JOINT, 128, "k2_joint"),
@@ -1333,7 +1363,7 @@ CO_GUIDANCE = 7.0
 CO_SIGMA = 1.5  # an EDM sigma
 CO_TRAIN_STEPS, CO_TRAIN_IMAGES = 6, 4
 CO_FILE_BLOCKS, T5_11B_LAYERS, CO14B_BLOCKS = 4, 1, 2
-PHASE37_WRITE_GB = 0.65  # 0.60 GB measured: 0.30 GB the transformer, 0.23 GB T5
+PHASE37_WRITE_GB = 0.61  # 0.60 GB measured: 0.30 GB the transformer, 0.23 GB T5
 CO_KERNEL_CASES = (
     ("co_self", 16, LC_IMG, LC_IMG, 128),
     ("co_cross", 16, LC_IMG, CO_TEXT, 128),
@@ -1354,7 +1384,7 @@ AN_GUIDANCE = 4.0
 AN_SIGMA = 0.7
 AN_TRAIN_STEPS, AN_TRAIN_IMAGES = 6, 4
 AN_FILE_BLOCKS, QWEN3_06B_LAYERS = 4, 2
-PHASE38_WRITE_GB = 0.75  # 0.68 GB measured: 0.43 GB the transformer, 0.19 GB the trunk
+PHASE38_WRITE_GB = 0.7  # 0.68 GB measured: 0.43 GB the transformer, 0.19 GB the trunk
 # the LLM adapter's attentions (16 heads of 64): self over the 64 T5 ids and
 # cross into the 256 Qwen states, unmasked; forward only on the path (the
 # adapter has no LoRA and its inputs take no gradient), so phase 3 alone holds them
@@ -1378,7 +1408,7 @@ OG_SIGMA = 0.7
 OG_TRAIN_STEPS, OG_TRAIN_IMAGES = 6, 4
 OG_FILE_BLOCKS = 2
 OG_VOCAB = 32064
-PHASE39_WRITE_GB = 0.45  # 0.40 GB measured: the 0.36 GB file and the caches (0.17 GB more where phase 20's VAE is gone)
+PHASE39_WRITE_GB = 0.41  # 0.40 GB measured: the 0.36 GB file and the caches (0.17 GB more where phase 20's VAE is gone)
 OG_KERNEL_CASES = (("og_image_rows", 32, LC_IMG, OG_JOINT, 96, "og_keys"),)
 OG_CHECK_HEADS = 2
 # phase 40: ERNIE-Image (baidu/ERNIE-4.5-VL-image's transformer/ as the JAX
@@ -1398,7 +1428,7 @@ ER_GUIDANCE = 4.0
 ER_SIGMA = 0.7
 ER_TRAIN_STEPS = 6
 ER_FILE_BLOCKS = 2
-PHASE40_WRITE_GB = 0.35  # 0.33 GB measured, the file
+PHASE40_WRITE_GB = 0.34  # 0.33 GB measured, the file
 ER_KERNEL_CASES = (("er_joint", 24, ER_JOINT, ER_JOINT, 128, "er_joint"),)
 ER_CHECK_HEADS = 2
 # phase 41: Ideogram (ideogram-ai/ideogram-v3-fp8's transformer/ as the JAX
@@ -1421,7 +1451,7 @@ ID_SIGMA = 0.7
 ID_TRAIN_STEPS = 6
 ID_FILE_BLOCKS, ID_TRUNK_LAYERS = 1, 2
 ID_UPSAMPLE_TOKENS = 8
-PHASE41_WRITE_GB = 0.6  # 0.56 GB measured, the file
+PHASE41_WRITE_GB = 0.57  # 0.56 GB measured, the file
 ID_KERNEL_CASES = (("id_joint", 18, ID_JOINT, ID_JOINT, 256, "id_joint"),)
 ID_CHECK_HEADS = 2
 # phase 42: LongCat-Video (meituan-longcat/LongCat-Video's dit/ as the JAX
@@ -1438,7 +1468,7 @@ LV_GUIDANCE, LV_SIGMA = 4.0, 0.7
 LV_RENDER_FRAMES, LV_PARITY_FRAMES = 17, 17
 LV_FILE_BLOCKS = 2
 LV_FULL_STEPS = 3  # timed replays of the named run's 48-block step
-PHASE42_WRITE_GB = 0.75  # 0.69 GB measured: the 0.60 GB file, two clips and their caches
+PHASE42_WRITE_GB = 0.71  # 0.70 GB measured: the 0.60 GB file, two clips and their caches
 # phases 3 and 7 at LongCat-Video's shapes: the self-attention over the clip
 # (32 heads of 128, the ragged tail masked by the kernels) and the
 # cross-attention against the 512 T5 keys with query ids 1 and the first
@@ -1462,7 +1492,7 @@ SA_IMG = (RESOLUTION // 32) ** 2
 SA_GUIDANCE, SA_SIGMA = 4.5, 0.7
 SA_TRAIN_STEPS = 6
 SA_FILE_BLOCKS = 4
-PHASE43_WRITE_GB = 1.15  # 1.10 GB measured: the 0.36 GB file and the 0.75 GB Gemma-2
+PHASE43_WRITE_GB = 1.12  # 1.10 GB measured: the 0.36 GB file and the 0.75 GB Gemma-2
 SA_KERNEL_CASES = (("sa_cross", 20, SA_IMG, SA_TEXT, 112),)
 SA_CHECK_HEADS = 2
 # phase 44: Sana-Video 2B (Efficient-Large-Model/SANA-Video_2B_480p's
@@ -1476,29 +1506,60 @@ SV_TEXT = 300
 SV_TRAIN_STEPS = 6
 SV_GUIDANCE, SV_SIGMA = 6.0, 0.7
 SV_FILE_BLOCKS = 4
-PHASE44_WRITE_GB = 0.55  # 0.48 GB measured: the 0.42 GB file and the caches
+PHASE44_WRITE_GB = 0.49  # 0.48 GB measured: the 0.42 GB file and the caches
 # the cross-attention over the clip against 300 Gemma keys, query ids 1 and
 # the first SV_VALID keys at 1 (the -10000 key bias as key ids)
 SV_VALID = 120
 SV_KERNEL_CASES = (("sv_cross", 20, WAN_TOKENS, SV_TEXT, 112, "sv_keys"),)
 SV_CHECK_HEADS = 2
+# phase 45: Cosmos3 (the omni MoT as the JAX preset Cosmos3Config() builds
+# it: a Qwen3-VL backbone, 4096 wide, 36 layers of two pathways, 32 query and
+# 8 kv heads of 128, SwiGLU 12,288, a 151,936-row token table and lm_head, 48
+# latent channels in 2 x 2 patches; 15.16B parameters) on a 1280 x 704 x 93
+# clip in the Wan-2.2-style 48-channel latent (24 x 44 x 80: 21,120 generation
+# tokens behind the 64 text ids), its seeded file at C3_FILE_LAYERS of 36 with
+# the whole table and head (all 36 layers in memory in a named run); the
+# parity forward and the replay identity on a 17-frame clip (5 latent
+# frames: 4,400 generation tokens); the AVAE audio tokenizer at its shipped
+# config on 10 s of 48 kHz stereo, held against float64 on a 1 s excerpt
+C3_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
+C3_TEXT = 64
+C3_LATENT = (24, 44, 80)  # (93 - 1) // 4 + 1 frames, 704 / 16, 1280 / 16
+C3_PARITY_LATENT = (5, 44, 80)  # 17 frames
+C3_GEN = C3_LATENT[0] * (C3_LATENT[1] // 2) * (C3_LATENT[2] // 2)
+C3_KEYS = C3_TEXT + C3_GEN
+C3_GUIDANCE, C3_SIGMA = 4.0, 0.7
+C3_TRAIN_STEPS, C3_FULL_STEPS = 6, 3
+C3_FILE_LAYERS = 2
+C3_AUDIO_RATE, C3_AUDIO_SECONDS, C3_AUDIO_EXCERPT = 48000, 10, 48000
+# the AVAE's f32 encode / decode on the card against float64 on the CPU
+# (TF32 off): f32 rounding through 5 up-sampling blocks of 3 residual units
+C3_AVAE_REL_L2 = 1e-4
+PHASE45_WRITE_GB = 2.05  # 2.04 GB measured: the 2.04 GB file and the tokenizer
+# the generation attention over the clip: 21,120 queries against 64 + 21,120
+# keys (165 full 128-key tiles and a ragged 64), unmasked, K and V repeated
+# from 8 of the 32 heads as jnp.repeat does; held at C3_CHECK_HEADS heads over
+# one key/value head
+COSMOS3_KERNEL_CASES = (("c3_gen", 32, C3_GEN, C3_KEYS, 128, "c3_gen"),)
+C3_CHECK_HEADS = 2
 # the depth of the earlier families' seeded files in a run of every phase
 # (full width; the kernels' shapes depend on width and tokens, not depth),
 # cut to make room for phases 25-32 in the write budget: SD3.5 Large at 2 of
 # its 38 blocks (6 before phases 31-32), AuraFlow v0.3 at 1 + 2 of its 4 + 32
 # (2 + 4 before phases 39-41; both block kinds and the D = 256 shapes kept),
 # Wan 2.1 T2V-1.3B at 5 of 30, LTX-Video 2B at 5 of 28 (10 and 10 before
-# phases 36-38), Chroma at 1 + 2 of
-# its 19 + 38 (2 + 4 before phases 31-32; its kernel shapes are Flux's),
+# phases 36-38), Chroma at 1 + 1 of
+# its 19 + 38 (2 + 4 before phases 31-32, 1 + 2 before phase 45; its kernel shapes are Flux's),
 # Gemma-2 2B at GEMMA_FILE_LAYERS of 26, Kandinsky 5.0
-# Lite at 6 of its 32 visual blocks (16 before phases 36-38), SDXL's levels 1
+# Lite at 3 of its 32 visual blocks (16 before phases 36-38, 6 before phase 45), SDXL's levels 1
 # and 2 at 1 of their 2 and 10 transformer layers (1 + 2 + 2 since phases
 # 36-38, 1 + 1 + 1 since phases 39-41; Kolors alike), Zlab-i1 at 5 of its 29
 # blocks in memory (all 29 before),
-# HunyuanVideo 1.5 at 6 of 54, Qwen-Image at 2 of 60 and HiDream-I1 at 1 + 1
+# HunyuanVideo 1.5 at 3 of 54, Qwen-Image at 1 of 60 (6 and 2 before phase 45
+# needed the room) and HiDream-I1 at 1 + 1
 # of its 16 + 32 (4 and 2 + 2 before phases 31-32 needed the room), FLUX.2 at
-# 1 + 1 of its 8 + 48, Lumina-Image 2.0 at 6 of its 26 joint blocks and
-# Gemma-2 2B at 2 of 26 layers (26 and 6 before phases 33-35 needed the room),
+# 1 + 1 of its 8 + 48, Lumina-Image 2.0 at 3 of its 26 joint blocks (6 before
+# phase 45) and Gemma-2 2B at 2 of 26 layers (26 and 6 before phases 33-35 needed the room),
 # LongCat-Image at 1 + 1 of 19 + 38, Z-Image-Omni at 1 of 30 layers with
 # refiners 1 deep of 2; a run that names one of these phases (--phases)
 # writes it at full depth where its writes leave room
@@ -1506,15 +1567,15 @@ SD3_CUT_BLOCKS = 2
 AURA_CUT_BLOCKS = (1, 2)
 WAN_CUT_BLOCKS = 5
 LTX_CUT_BLOCKS = 5
-CHROMA_CUT_BLOCKS = (1, 2)
-K5_CUT_BLOCKS = 6
+CHROMA_CUT_BLOCKS = (1, 1)
+K5_CUT_BLOCKS = 3
 SDXL_CUT_LAYERS = (1, 1, 1)
 ZL_MEMORY_BLOCKS = 5
-HY_CUT_BLOCKS = 6
-QI_CUT_BLOCKS = 2
+HY_CUT_BLOCKS = 3
+QI_CUT_BLOCKS = 1
 HD_CUT_BLOCKS = (1, 1)
 F2_CUT_BLOCKS = (1, 1)
-LUMINA_CUT_BLOCKS = 6
+LUMINA_CUT_BLOCKS = 3
 # the most a run may write, deleted files included (45 GiB), and the margin
 # below it for what this process's count does not see (the server jobs' child
 # processes in phase 18, nvcc's outputs); the last phase checks the run's
@@ -1534,22 +1595,22 @@ _STARTED = time.perf_counter()
 # what each family phase writes at its depth in a run of every phase (a little above
 # what a run of every phase writes), for the reservations each of phases 19-32
 # makes for the later phases of the run
-PHASE_WRITE_GB = {19: 1.05, 20: 0.95, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB, 23: PHASE23_WRITE_GB,
+PHASE_WRITE_GB = {19: 1.02, 20: 0.91, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB, 23: PHASE23_WRITE_GB,
                   24: PHASE24_WRITE_GB, 25: PHASE25_WRITE_GB, 26: PHASE26_WRITE_GB, 27: PHASE27_WRITE_GB,
                   28: PHASE28_WRITE_GB, 29: PHASE29_WRITE_GB, 30: PHASE30_WRITE_GB, 31: PHASE31_WRITE_GB,
                   32: PHASE32_WRITE_GB, 33: PHASE33_WRITE_GB, 34: PHASE34_WRITE_GB, 35: PHASE35_WRITE_GB,
                   36: PHASE36_WRITE_GB, 37: PHASE37_WRITE_GB, 38: PHASE38_WRITE_GB, 39: PHASE39_WRITE_GB,
                   40: PHASE40_WRITE_GB, 41: PHASE41_WRITE_GB, 42: PHASE42_WRITE_GB, 43: PHASE43_WRITE_GB,
-                  44: PHASE44_WRITE_GB}
+                  44: PHASE44_WRITE_GB, 45: PHASE45_WRITE_GB}
 # the phases whose files (or, for 5 and 6, whose runtime) a phase needs before
 # it; 1, 2, 3 and 7 run in every run (the build, and the kernels line's times)
 PHASE_NEEDS = {4: (14, 15, 16), 5: (4,), 6: (5,), 15: (14,), 16: (14,), 17: (14, 15, 16), 18: (17,),
                19: (14, 15, 16), 20: (19,), 21: (20,), 22: (20,), 23: (15, 16), 24: (15, 16), 25: (14, 15, 16),
                26: (14, 16), 27: (14, 15, 16), 28: (14, 15), 29: (14, 16), 30: (14, 15, 16, 19), 31: (),
                32: (14, 16), 33: (14, 16), 34: (14, 16), 35: (), 36: (14, 16), 37: (14, 15, 16), 38: (14, 16),
-               39: (16,), 40: (), 41: (), 42: (15,), 43: (), 44: (42, 43)}
+               39: (16,), 40: (), 41: (), 42: (15,), 43: (), 44: (42, 43), 45: ()}
 ALWAYS = (1, 2, 3, 7)
-LAST_PHASE = 44
+LAST_PHASE = 45
 # the phases named on the command line (None: every phase) and those the run takes
 RUN = {"requested": None, "phases": set(range(1, LAST_PHASE + 1))}
 
@@ -1897,6 +1958,9 @@ def kernel_cases():
     times["sana"], sa_entries = long_forward_cases(SA_KERNEL_CASES, SA_CHECK_HEADS, 1420, errors)
     times["sanavideo"], sv_entries = long_forward_cases(SV_KERNEL_CASES, SV_CHECK_HEADS, 1460, errors)
     marks.append(("longcat_video_sana_sanavideo", time.perf_counter()))
+    times["cosmos3"], c3_entries = long_forward_cases(COSMOS3_KERNEL_CASES, C3_CHECK_HEADS, 1500, errors)
+    times["cosmos3"]["c3_und_block"] = cosmos3_und_block()
+    marks.append(("cosmos3", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
@@ -1911,7 +1975,7 @@ def kernel_cases():
             "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}, fwd256_entry, \
         {**wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries, **hd_entries,
          **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries, **k2_entries, **co_entries,
-         **og_entries, **er_entries, **id_entries, **lv_entries, **sa_entries, **sv_entries}
+         **og_entries, **er_entries, **id_entries, **lv_entries, **sa_entries, **sv_entries, **c3_entries}
 
 
 def omnigen_prefix_block() -> dict:
@@ -1943,6 +2007,37 @@ def omnigen_prefix_block() -> dict:
     return {"shape": [1, 32, OG_PREFIX, OG_PREFIX, 96], "plain_ms": cuda_ms(lambda: prefix_attention(q, k, v, key_ok), 5),
             "bound_ms": bound_ms, "bound_by": bound_by, "attended_pairs": pairs, "rel_l2_vs_float64": err,
             "plain_call": "models/omnigen/transformer.py::prefix_attention (f32, causal, the pads as keys)"}
+
+
+def cosmos3_und_block() -> dict:
+    """Cosmos3's understanding pathway at its 64 text tokens (the reasoner's
+    attention has the same shape): 32 query heads of 128 against K and V
+    repeated from 8, causal, no key mask, bf16: the plain block
+    (``prefix_attention``) timed on the card beside the bound of its
+    attended pairs, and held to a float64 causal softmax on the card (within
+    ``OUT_REL_L2``); no kernel runs it (the kernels have no causal mode)."""
+    import torch
+
+    from simpletuner_tpu_torch.models.cosmos3.transformer import repeat_kv
+    from simpletuner_tpu_torch.models.omnigen.transformer import prefix_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(1540)
+    q = torch.randn((1, C3_TEXT, 32, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (repeat_kv(torch.randn((1, C3_TEXT, 8, 128), generator=gen, device="cuda").to(torch.bfloat16), 4)
+            for _ in range(2))
+    out = prefix_attention(q, k, v, None)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * 128 ** -0.5
+    allowed = torch.ones((C3_TEXT, C3_TEXT), dtype=torch.bool, device="cuda").tril()[None, None]
+    ref = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s.masked_fill(~allowed, float("-inf")), dim=-1), v.double())
+    err = rel_l2(out, ref)
+    if not (torch.isfinite(out.float()).all() and err <= OUT_REL_L2):
+        raise RuntimeError(f"cosmos3 understanding block: rel L2 {err} (<= {OUT_REL_L2})")
+    pairs = int(allowed.sum())
+    bound_ms, bound_by = _attention_bound_ms(2, pairs, 32, 128, (2 * 32 + 2 * 8) * C3_TEXT * 128 * 2)
+    return {"shape": [1, 32, C3_TEXT, C3_TEXT, 128], "kv_heads": 8,
+            "plain_ms": cuda_ms(lambda: prefix_attention(q, k, v, None), 5), "bound_ms": bound_ms,
+            "bound_by": bound_by, "attended_pairs": pairs, "rel_l2_vs_float64": err,
+            "plain_call": "models/omnigen/transformer.py::prefix_attention (f32, causal, no key mask)"}
 
 
 def backward_cases():
@@ -2092,6 +2187,8 @@ def backward_cases():
     times["sana"], sa_entries = long_backward_cases(SA_KERNEL_CASES, SA_CHECK_HEADS, 1440, errors)
     times["sanavideo"], sv_entries = long_backward_cases(SV_KERNEL_CASES, SV_CHECK_HEADS, 1480, errors)
     marks.append(("longcat_video_sana_sanavideo", time.perf_counter()))
+    times["cosmos3"], c3_entries = long_backward_cases(COSMOS3_KERNEL_CASES, C3_CHECK_HEADS, 1520, errors)
+    marks.append(("cosmos3", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
@@ -2105,7 +2202,8 @@ def backward_cases():
         for kernel in ("dq", "dkv")
     }, **d256_entries, **wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries,
         **hd_entries, **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries, **k2_entries,
-        **co_entries, **og_entries, **er_entries, **id_entries, **lv_entries, **sa_entries, **sv_entries}
+        **co_entries, **og_entries, **er_entries, **id_entries, **lv_entries, **sa_entries, **sv_entries,
+        **c3_entries}
 
 
 def _ddpm_inputs(seed, heads, sq, sk, dim, n):
@@ -2421,9 +2519,11 @@ def _case_planes(sq: int, sk: int, plane):
     text tokens and every image token at 1, the text pads at 0; for
     "lv_keys" and "sv_keys" LongCat-Video's and Sana-Video's cross-attention:
     every query at 1, the first ``LV_VALID`` / ``SV_VALID`` caption keys at
-    1 and the pads at -1."""
+    1 and the pads at -1; "c3_gen" Cosmos3's generation attention, unmasked."""
     import torch
 
+    if plane == "c3_gen":
+        return None, None
     if plane == "id_joint":
         seg = torch.ones((1, sq), dtype=torch.int32, device="cuda")
         seg[:, ID_VALID:ID_TEXT] = 0
@@ -2446,11 +2546,12 @@ def _case_planes(sq: int, sk: int, plane):
 
 
 def _repeat_kv(plane, k, v):
-    """Krea-2's joint K and V (the "k2_joint" plane) as its attention hands
-    them over: a quarter of the heads (one head below four) repeated as
-    ``jnp.repeat`` does, head h reading head h // 4, in the (B, S, H, D)
-    memory layout; other planes' K and V as they are."""
-    if plane != "k2_joint":
+    """Krea-2's joint K and V (the "k2_joint" plane) and Cosmos3's
+    generation K and V ("c3_gen") as their attentions hand them over: a
+    quarter of the heads (one head below four) repeated as ``jnp.repeat``
+    does, head h reading head h // 4, in the (B, S, H, D) memory layout;
+    other planes' K and V as they are."""
+    if plane not in ("k2_joint", "c3_gen"):
         return k, v
     heads = k.shape[1]
     kv_heads = max(heads // 4, 1)
@@ -10213,14 +10314,12 @@ def video_dit_phase(number: int, family: str, paths: dict, kernels, device: str,
     del train_batch
     shutil.rmtree(os.path.join(work, f"{family}_train"), ignore_errors=True)
     shutil.rmtree(os.path.join(work, f"{family}_render"), ignore_errors=True)
-    extra = {}
     linear = None
     if not longcat:
         linear = _linear_attention_ms(full.num_heads, WAN_TOKENS, full.head_dim, rope=True)
         for name in ("sanavideo", "sanavideo_data", "sanavideo_cache", "longcat_video", "longcat_video_data",
-                     "longcat_video_cache", "sana"):  # the last phase: disk space
+                     "longcat_video_cache", "sana"):  # the last of these phases: disk space
             shutil.rmtree(os.path.join(work, name), ignore_errors=True)
-        extra = check_run_writes()
     phase(f"{number} {family}", config=config_name, params=params,
           params_per_block=sum(math.prod(v) for k, v in shapes.items() if k.startswith(("blocks.0.", "transformer_blocks.0."))),
           hidden=full.hidden_size, heads=[heads, 128 if longcat else full.cross_head_dim],
@@ -10229,7 +10328,7 @@ def video_dit_phase(number: int, family: str, paths: dict, kernels, device: str,
           clip=[WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH], latents=list(latent_shape),
           tokens={"video": WAN_TOKENS, "text": text_len}, files=files, imported=imported, train=train, render=render,
           parity=parity, full_depth=full_depth, linear_attention=linear, allocated_gib_before_phase=baseline_gib,
-          seconds=time.perf_counter() - start, device=device, **extra)
+          seconds=time.perf_counter() - start, device=device)
     out = {"sv_cross" if not longcat else "lv_cross": {k: v.get(cross_key, 0) for k, v in by_shape.items()}}
     if longcat:
         out["lv_self"] = {k: v.get(self_key, 0) for k, v in by_shape.items()}
@@ -10396,6 +10495,347 @@ def sana_phase(paths: dict, kernels, device: str, full_in_memory: bool) -> dict:
           linear_attention=linear, allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start,
           device=device)
     return {"sa_cross": {k: v.get(sa_key, 0) for k, v in by_shape.items()}}
+
+
+def cosmos3_flops(arch, batch: int, gen_tokens: int, und_tokens: int) -> tuple:
+    """Model FLOPs of one Cosmos3 forward as (the part a gradient runs
+    through with the default ``attn_gen_*`` adapters, the rest): per layer
+    the generation pathway's q / k / v / out and SwiGLU over the generation
+    tokens and its attention's two products against [und, gen] keys, then
+    ``proj_out``; the rest once: ``proj_in``, the per-token time MLP, the
+    understanding pathway (its linears and the causal block's two products,
+    which the plain block computes over every (query, key) pair) and
+    ``lm_head``."""
+    d, hd, ffn = arch.hidden_size, arch.head_dim, arch.intermediate_size
+    q_out, kv_out = arch.num_heads * hd, arch.num_kv_heads * hd
+    linears = 2 * (2 * d * q_out + 2 * d * kv_out) + 6 * d * ffn  # per token, q / k / v / out and the SwiGLU
+    gen_layer = gen_tokens * linears + 4 * gen_tokens * (und_tokens + gen_tokens) * q_out
+    und_layer = und_tokens * linears + 4 * und_tokens * und_tokens * q_out
+    trained = arch.num_layers * gen_layer + 2 * gen_tokens * d * arch.patch_latent_dim
+    frozen = 2 * gen_tokens * arch.patch_latent_dim * d + 2 * gen_tokens * (256 * d + d * d) + \
+        arch.num_layers * und_layer + 2 * und_tokens * d * arch.vocab_size
+    return batch * trained, batch * frozen
+
+
+def cosmos3_step_flops(arch, batch: int, gen_tokens: int, und_tokens: int) -> int:
+    """Model FLOPs of one Cosmos3 train step (the adapted part x 3, the rest once)."""
+    trained, frozen = cosmos3_flops(arch, batch, gen_tokens, und_tokens)
+    return 3 * trained + frozen
+
+
+def _cosmos3_avae(gen) -> dict:
+    """The AVAE audio tokenizer at its shipped config
+    (``Cosmos3AudioTokenizerConfig()``: 496M parameters, f32), its weights
+    drawn on the card (lecun-normal convs, the residual units' closing 1 x 1
+    convs at a tenth of that, SnakeBeta's log-scale alpha and beta N(0, 0.1):
+    at full lecun scale the untrained decoder's residual stream grows to a
+    std of tens and the clamp saturates nearly every sample): encode and decode of ``C3_AUDIO_SECONDS`` s of 48 kHz
+    stereo (250 latent frames of 64) timed, then a ``C3_AUDIO_EXCERPT``-sample
+    excerpt encoded and decoded on the card and by the same module in
+    float64 on the CPU, within ``C3_AVAE_REL_L2``."""
+    import torch
+
+    from simpletuner_tpu_torch.models.cosmos3.audio_tokenizer import Cosmos3AudioTokenizer, Cosmos3AudioTokenizerConfig
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg = Cosmos3AudioTokenizerConfig()
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        tokenizer = init_parameters(Cosmos3AudioTokenizer(cfg), gen).eval()
+    with torch.no_grad():
+        for name, param in tokenizer.named_parameters():
+            if name.endswith(("alpha", "beta")):
+                param.normal_(0.0, 0.1, generator=gen)
+            elif "_res_" in name and name.endswith("conv2.weight"):
+                param.mul_(0.1)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params = {name: sum(p.numel() for p in getattr(tokenizer, name).parameters()) for name in ("encoder", "decoder")}
+    samples = C3_AUDIO_RATE * C3_AUDIO_SECONDS
+    wave = 0.3 * torch.randn((1, cfg.audio_channels, samples), generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        tokenizer.decode(tokenizer.encode(wave[..., :C3_AUDIO_EXCERPT]))  # warm-up (cuDNN's algorithm choice)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        latents = tokenizer.encode(wave)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        audio = tokenizer.decode(latents)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    if tuple(latents.shape) != (1, cfg.vocoder_input_dim, samples // cfg.hop_size) or \
+            tuple(audio.shape) != (1, cfg.dec_out_channels, samples) or not torch.isfinite(audio).all() or \
+            float(audio.abs().max()) > 1.0:
+        raise RuntimeError(f"cosmos3 AVAE: latents {tuple(latents.shape)}, audio {tuple(audio.shape)}")
+    excerpt = wave[..., :C3_AUDIO_EXCERPT]
+    with torch.no_grad():
+        card_latents = tokenizer.encode(excerpt)
+        card_audio = tokenizer.decode(card_latents)
+    cpu = Cosmos3AudioTokenizer(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in tokenizer.state_dict().items()})
+    cpu = cpu.double()
+    t3 = time.perf_counter()
+    with torch.no_grad():
+        ref_latents = cpu.encode(excerpt.cpu().double())
+        ref_audio = cpu.decode(ref_latents)
+    cpu_s = time.perf_counter() - t3
+    errors = {"latents_rel_l2": rel_l2(card_latents.double().cpu(), ref_latents),
+              "audio_rel_l2": rel_l2(card_audio.double().cpu(), ref_audio)}
+    if not all(err <= C3_AVAE_REL_L2 for err in errors.values()):
+        raise RuntimeError(f"cosmos3 AVAE on the card against float64: {errors} (<= {C3_AVAE_REL_L2})")
+    encode_s, decode_s = t1 - t0, t2 - t1
+    report = {"config": "Cosmos3AudioTokenizerConfig() (the shipped AVAE)", "params": params,
+              "params_total": sum(params.values()), "build_s": build_s, "samples": samples,
+              "rate": C3_AUDIO_RATE, "channels": cfg.audio_channels, "latents": list(latents.shape),
+              "encode_s": encode_s, "decode_s": decode_s,
+              "audio_s_per_s": {"encode": C3_AUDIO_SECONDS / encode_s, "decode": C3_AUDIO_SECONDS / decode_s,
+                                "both": C3_AUDIO_SECONDS / (encode_s + decode_s)},
+              "clamped_share": float((audio.abs() >= 1.0).float().mean()), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "excerpt_samples": C3_AUDIO_EXCERPT, "float64_cpu_s": cpu_s, "bound": C3_AVAE_REL_L2, **errors}
+    del tokenizer, cpu, wave, latents, audio
+    return report
+
+
+def cosmos3_phase(paths: dict, kernels, device: str, full_in_memory: bool, kernel_cases: dict) -> dict:
+    """Phase 45: Cosmos3 at the JAX preset's full width (``Cosmos3Config()``):
+    ``cosmos3_flops`` against the flop counter on two small configs; a
+    seeded e4m3 checkpoint in the flat layout at ``C3_FILE_LAYERS`` of 36
+    layers with the whole 151,936 x 4096 table and ``lm_head``, and a seeded
+    word-level tokenizer in the model dir, so that ``encode_text`` reads it
+    through ``AutoTokenizer`` (not the salted hash); 16 prompts encoded at 64
+    ids (prompts/s); the import held bitwise, and the reasoner's parameters
+    read from the same file and held bitwise to the MoT's understanding
+    pathway; one forward against the plain attention on a 17-frame clip
+    (4,400 generation tokens); the reasoner over the same 64 ids and the
+    generator-only replay held to the full MoT forward; the true-CFG flow
+    Euler loop over the 93-frame clip's latents (21,120 generation tokens)
+    without a decode, the empty prompt's ids as the negative; 6 graphed
+    rank-16 LoRA steps on the default targets (``attn_gen_q/k/v/out``) on an
+    int8 base (``quantized_matmul`` full, every layer checkpointed) through
+    ``build_train_step``, a replay bitwise against an eager step and a
+    profiled replay's launches by shape; the AVAE audio tokenizer at its
+    shipped config; in a run that names the phase, all 36 layers built in
+    memory (15 GB of int8) and their graphed step timed.  Last, the run's
+    writes against the target.  Returns the launches per step of each
+    kernel at the generation shape."""
+    import gc
+
+    import torch
+
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import cosmos3_checkpoint_shapes
+    from simpletuner_tpu_torch.models.cosmos3 import Cosmos3, Cosmos3Config, Cosmos3OmniTransformer
+    from simpletuner_tpu_torch.models.cosmos3.reasoner import (
+        Cosmos3Reasoner, Cosmos3ReasonerConfig, load_cosmos3_reasoner,
+    )
+    from simpletuner_tpu_torch.models.layers import init_adapters
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.weight_bridge import load_flax_params
+    from simpletuner_tpu_torch.models.weight_import import cosmos3_params_from_checkpoint, load_transformer_params
+
+    start = time.perf_counter()
+    work = paths["work"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    tiny = Cosmos3Config.tiny()
+    narrow = dataclasses.replace(tiny, vocab_size=50, hidden_size=48, head_dim=8, num_heads=4, num_kv_heads=2,
+                                 num_layers=1, intermediate_size=40, latent_channel=3, rope_axes_dim=(2, 1, 1))
+    cases = []
+    for arch, grid, txt in ((tiny, (2, 4, 6), 6), (narrow, (3, 2, 4), 5)):
+        family = Cosmos3(config_namespace({"model_family": "cosmos3", "model_arch_preset": "tiny"}), arch=arch)
+        inputs = family.get_model_inputs({
+            "noisy_latents": torch.zeros((2,) + grid + (arch.latent_channel,)), "timesteps": torch.full((2,), 0.5),
+            "text_ids": torch.ones((2, txt), dtype=torch.int32)})
+        cases.append((arch, tuple(inputs[k] for k in ("text_ids", "vision_tokens", "position_ids", "timesteps")),
+                      (inputs["vision_tokens"].shape[1], txt)))
+    flop_checks = _flop_checks(_x3(cosmos3_flops), Cosmos3OmniTransformer, cases)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(45)
+    full = Cosmos3Config()
+    if (full.vocab_size, full.hidden_size, full.head_dim, full.num_heads, full.num_kv_heads, full.num_layers,
+            full.intermediate_size, full.latent_channel, full.patch_latent_dim, full.rope_theta,
+            full.rope_axes_dim) != (151936, 4096, 128, 32, 8, 36, 12288, 48, 192, 5e6, (24, 20, 20)):
+        raise RuntimeError(f"not the JAX preset of Cosmos3: {full}")
+    if C3_GEN != 21120 or C3_KEYS != 21184:
+        raise RuntimeError(f"cosmos3: {C3_LATENT} latents give {C3_GEN} generation tokens")
+    arch = dataclasses.replace(full, num_layers=C3_FILE_LAYERS)
+    shapes = cosmos3_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 6e9 or written_before + file_bytes / 1e9 + 0.05 + _reserved(45) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"cosmos3: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
+                           f"phase; it writes {file_bytes / 1e9 + 0.05:.1f} GB of the {RUN_WRITE_TARGET_GB} GB a "
+                           "run may write")
+
+    # (b) the seeded MoT (two e4m3 shards under transformer/) and a word-level
+    # tokenizer at the model dir's root, where the family's AutoTokenizer reads it
+    c3_dir = os.path.join(work, "cosmos3")
+    weights, write_s = _write_e4m3_transformer(c3_dir, shapes, gen)
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    write_gemma_tokenizer(c3_dir, " ".join(TRAIN_CAPTIONS + [C3_PROMPT] + prompts).split())
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "layers": [C3_FILE_LAYERS, full.num_layers],
+             "table_and_head": [full.vocab_size, full.hidden_size], "written_gb_before": written_before,
+             "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) 16 prompts at 64 ids through the tokenizer
+    values = {"model_family": "cosmos3", "model_type": "full", "mixed_precision": "bf16",
+              "pretrained_model_name_or_path": c3_dir}
+    family = Cosmos3(config_namespace(values))
+    t0 = time.perf_counter()
+    family._resolve_tokenizer()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    payloads = family.encode_text(prompts)
+    encode_s = time.perf_counter() - t0
+    ids = [p["text_ids"] for p in payloads]
+    if family._tokenizer is None or any(x.shape != (C3_TEXT,) or int(x.max()) >= full.vocab_size for x in ids) or \
+            family.encode_text(prompts[:1])[0]["text_ids"].tolist() != ids[0].tolist():
+        raise RuntimeError(f"cosmos3 encode_text: tokenizer {family._tokenizer}, ids {[x.shape for x in ids]}")
+    text = {"prompts": len(prompts), "ids": C3_TEXT, "tokenizer_load_s": load_s, "s": encode_s,
+            "prompts_per_s": len(prompts) / encode_s,
+            "tokenizer": type(family._tokenizer).__name__, "valid_ids": [int((x != 0).sum()) for x in ids[:4]]}
+    batch = _text_batch(family, C3_PROMPT, (1,) + C3_LATENT + (48,), dev)
+    negative = _text_batch(family, "", (1,) + C3_LATENT + (48,), dev)
+    if tuple(batch["text_ids"].shape) != (1, C3_TEXT) or int((negative["text_ids"] != 0).sum()) != 1:
+        raise RuntimeError(f"cosmos3: the collated ids {tuple(batch['text_ids'].shape)}, the empty prompt's "
+                           f"{negative['text_ids'].tolist()} (its <bos> alone)")
+
+    # (d) the import, bitwise; the reasoner from the same file
+    model = ModelRegistry.create("cosmos3", config_namespace(values))
+    if model.arch != arch:
+        raise RuntimeError(f"cosmos3: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, c3_dir, weights, cosmos3_params_from_checkpoint, file_bytes)
+    params = sum(math.prod(v) for v in cosmos3_checkpoint_shapes(full).values())
+    del weights
+    rcfg = Cosmos3ReasonerConfig(num_layers=C3_FILE_LAYERS)
+    if rcfg.as_transformer_config() != arch:
+        raise RuntimeError(f"cosmos3: the reasoner's MoT config {rcfg.as_transformer_config()}")
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        reasoner = Cosmos3Reasoner(rcfg, torch.bfloat16)
+    load_flax_params(reasoner, load_cosmos3_reasoner(rcfg, c3_dir)["params"])
+    torch.cuda.synchronize()
+    reasoner_s = time.perf_counter() - t0
+    mot = module.state_dict()
+    renames = {"to_q": "attn_und_q", "to_k": "attn_und_k", "to_v": "attn_und_v", "to_out": "attn_und_out",
+               "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj", "down_proj": "mlp.down_proj"}
+    unequal = []
+    for name, tensor in reasoner.state_dict().items():
+        parts = name.split(".")
+        source = f"{parts[0]}.{renames[parts[1]]}.{parts[2]}" if len(parts) == 3 and parts[1] in renames else name
+        if not torch.equal(tensor, mot[source]):
+            unequal.append(name)
+    if unequal:
+        raise RuntimeError(f"cosmos3 reasoner: tensors unlike the MoT's understanding pathway: {unequal[:8]}")
+    imported["reasoner"] = {"s": reasoner_s, "tensors_bitwise_the_mot": len(reasoner.state_dict()),
+                            "params": sum(p.numel() for p in reasoner.parameters())}
+
+    # (e) the parity forward on the 17-frame clip, (f) the replay identity
+    gen_key, parity_key = f"32x{C3_GEN}x{C3_KEYS}x128", f"32x{math.prod(C3_PARITY_LATENT) // 4}x" \
+                                                       f"{math.prod(C3_PARITY_LATENT) // 4 + C3_TEXT}x128"
+    parity_batch = {**batch, "latents": torch.zeros((1,) + C3_PARITY_LATENT + (48,), device=dev)}
+    launches = _forward_launches(model, module, parity_batch, kernels, C3_SIGMA)
+    if launches["flash_fwd"] != {parity_key: C3_FILE_LAYERS}:
+        raise RuntimeError(f"cosmos3 forward: launches by shape {launches}")
+    noise = torch.randn((1,) + C3_PARITY_LATENT + (48,), generator=gen, device=dev)
+    parity = {**_parity_forward(model, module, parity_batch, noise, C3_SIGMA), "frames": 17,
+              "tokens": math.prod(C3_PARITY_LATENT) // 4, "launches_by_shape": launches}
+    inputs = model.get_model_inputs({"noisy_latents": noise, "timesteps": torch.full((1,), C3_SIGMA, device=dev),
+                                     "text_ids": batch["text_ids"]})
+    with torch.no_grad():
+        full_pred, logits = module(**inputs)
+        memory = reasoner(inputs["text_ids"], inputs["position_ids"][:, :, :C3_TEXT])
+        replayed, no_logits = module(None, inputs["vision_tokens"], inputs["position_ids"], inputs["timesteps"],
+                                     reasoner_kv=memory)
+        full_ms = cuda_ms(lambda: module(**inputs), 3, warmup=1)
+        replay_ms = cuda_ms(lambda: module(None, inputs["vision_tokens"], inputs["position_ids"],
+                                           inputs["timesteps"], reasoner_kv=memory), 3, warmup=1)
+        reasoner_ms = cuda_ms(lambda: reasoner(inputs["text_ids"], inputs["position_ids"][:, :, :C3_TEXT]), 3)
+    if no_logits is not None or not torch.isfinite(full_pred).all() or not torch.equal(replayed, full_pred) or \
+            tuple(logits.shape) != (1, C3_TEXT, full.vocab_size) or not torch.isfinite(logits).all():
+        raise RuntimeError(f"cosmos3 replay: max |replay - full| {float((replayed - full_pred).abs().max())}, "
+                           f"logits {tuple(logits.shape)}")
+    replay = {"tokens": math.prod(C3_PARITY_LATENT) // 4, "memory_layers": len(memory),
+              "bitwise_equal_to_the_full_forward": True, "tolerance": "bitwise (0)", "full_forward_ms": full_ms,
+              "replay_forward_ms": replay_ms, "reasoner_ms": reasoner_ms}
+    del memory, full_pred, replayed, logits, inputs, reasoner
+
+    # (g) the CFG sampler loop over the 93-frame clip's latents, no decode
+    sampler = _cfg_sampler(model, module, batch, negative, kernels, C3_GUIDANCE, (1,) + C3_LATENT + (48,), gen,
+                           {gen_key: C3_FILE_LAYERS})
+    sampler["decode"] = "none: neither package has a video VAE for 48 latent channels (ROADMAP Queue 3)"
+    del module, model, negative, parity_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (h) 6 graphed rank-16 LoRA steps on the default targets, int8 base, through build_train_step
+    train_values = {**_graph_train_values("cosmos3", C3_TRAIN_STEPS),
+                    "lora_target_modules": list(Cosmos3.DEFAULT_LORA_TARGET)}
+    train_model = Cosmos3(config_namespace(train_values))
+    with torch.device(dev):
+        train_module = load_transformer_params(train_model, init_adapters(train_model.create_module(), gen), c3_dir)
+    adapted = sorted({name.rsplit(".", 1)[0].split(".", 1)[1] for name, _ in train_module.named_parameters()
+                      if name.endswith("lora_A")})
+    if adapted != sorted(f"attn_gen_{n}" for n in ("k", "out", "q", "v")):
+        raise RuntimeError(f"cosmos3 train: adapters on {adapted}")
+    train_batch = {"latents": torch.randn((1,) + C3_LATENT + (48,), generator=gen, device=dev),
+                   "text_ids": batch["text_ids"]}
+    step_keys = {gen_key: (C3_FILE_LAYERS, True)}
+    train = _graph_vs_eager(train_model, train_module, train_batch, kernels, C3_TRAIN_STEPS,
+                            _totals(_by_shape_per_step(step_keys)), cosmos3_step_flops(arch, 1, C3_GEN, C3_TEXT))
+    by_shape = train["launches_per_step_by_shape"]
+    if by_shape != _by_shape_per_step(step_keys):
+        raise RuntimeError(f"cosmos3 train: launches per step by shape {by_shape}")
+    train.update({"base": "int8", "quantized_matmul": "full", "remat": "every layer", "lora_rank": 16,
+                  "lora_targets": list(Cosmos3.DEFAULT_LORA_TARGET), "flop_checks": flop_checks,
+                  "causal_blocks": f"{C3_FILE_LAYERS} a forward (the understanding pathway, a plain f32 block "
+                                   "without a gradient: phase 3's c3_und_block times it)"})
+    del train_module, train_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (i) the AVAE audio tokenizer at its shipped config
+    avae = _cosmos3_avae(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (j) in a run that names the phase: all 36 layers built in memory, graphed
+    full_depth = None
+    if full_in_memory:
+        deep = Cosmos3(config_namespace(train_values), arch=full)
+        deep_keys = {gen_key: (full.num_layers, True)}
+        full_depth = _graph_vs_eager(deep, _drawn_in_memory(deep, gen), train_batch, kernels, C3_FULL_STEPS,
+                                     _totals(_by_shape_per_step(deep_keys)),
+                                     cosmos3_step_flops(full, 1, C3_GEN, C3_TEXT))
+        if full_depth["launches_per_step_by_shape"] != _by_shape_per_step(deep_keys):
+            raise RuntimeError(f"cosmos3 36 layers: launches per step by shape "
+                               f"{full_depth['launches_per_step_by_shape']}")
+        full_depth.update({"layers": [full.num_layers, full.num_layers], "base": "int8 (built in memory)",
+                           "quantized_matmul": "full", "remat": "every layer", "lora_rank": 16})
+        del deep
+        gc.collect()
+        torch.cuda.empty_cache()
+    del batch, train_batch
+    shutil.rmtree(c3_dir, ignore_errors=True)
+    writes = check_run_writes()  # the last phase
+    phase("45 cosmos3", config="the Cosmos3 omni MoT as the JAX preset Cosmos3Config() builds it (nvidia Cosmos3 "
+          "flat layout)", params=params, params_per_layer=sum(math.prod(v) for k, v in shapes.items()
+                                                             if k.startswith("layers.0.")),
+          hidden=full.hidden_size, heads=[full.num_heads, full.num_kv_heads, full.head_dim],
+          depth={"file": [C3_FILE_LAYERS, full.num_layers], "train": [C3_FILE_LAYERS, full.num_layers],
+                 "in_memory": [full.num_layers if full_in_memory else 0, full.num_layers]},
+          clip=[93, 704, 1280], latents=list(C3_LATENT) + [48],
+          tokens={"text": C3_TEXT, "generation": C3_GEN, "keys": C3_KEYS}, files=files, text=text,
+          imported=imported, parity=parity, replay=replay, sampler=sampler, train=train, full_depth=full_depth,
+          avae=avae, kernel_cases=kernel_cases, allocated_gib_before_phase=baseline_gib,
+          seconds=time.perf_counter() - start, device=device, **writes)
+    return {"c3_gen": {k: v.get(gen_key, 0) for k, v in by_shape.items()}}
 
 
 def int8_cases() -> None:
@@ -11120,7 +11560,7 @@ def main() -> int:
     launches = {"main": None, "auraflow": {}, "wan": {}, "ltx": {}, "chroma": None, "lumina2": {}, "kandinsky5": {},
                 "hunyuanvideo": {}, "qwen_image": {}, "hidream": {}, "flux2": {}, "kolors": {}, "longcat_image": {},
                 "z_image_omni": {}, "zlab_i1": {}, "krea2": {}, "cosmos": {}, "anima": {}, "omnigen": {}, "ernie": {},
-                "ideogram": {}, "longcat_video": {}, "sana": {}, "sanavideo": {}}
+                "ideogram": {}, "longcat_video": {}, "sana": {}, "sanavideo": {}, "cosmos3": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         checkpoints = weight_import(work) if _runs(14) else {"work": work}
         encoders = text_encoders(checkpoints) if _runs(15) else None
@@ -11160,6 +11600,7 @@ def main() -> int:
         )
         from simpletuner_tpu_torch.models.chroma import Chroma, ChromaConfig
         from simpletuner_tpu_torch.models.cosmos2 import Cosmos2Image
+        from simpletuner_tpu_torch.models.cosmos3 import Cosmos3
         from simpletuner_tpu_torch.models.ernie import Ernie
         from simpletuner_tpu_torch.models.flux2 import Flux2
         from simpletuner_tpu_torch.models.hidream import HiDream, HiDreamConfig
@@ -11317,6 +11758,11 @@ def main() -> int:
             with family_depth(SanaVideo, num_layers=SV_FILE_BLOCKS):
                 launches["sanavideo"] = video_dit_phase(44, "sanavideo", checkpoints, kernels, smi,
                                                         44 in (RUN["requested"] or ()))
+        if _runs(45):
+            with family_depth(Cosmos3, num_layers=C3_FILE_LAYERS):
+                launches["cosmos3"] = cosmos3_phase(
+                    checkpoints, kernels, smi, 45 in (RUN["requested"] or ()),
+                    {k: v for k, v in {**long_fwd_entries, **bwd_entries}.items() if k.endswith("c3_gen")})
         else:
             check_run_writes()
 
@@ -11347,7 +11793,7 @@ def main() -> int:
                           ("z_image_omni", ZO_KERNEL_CASES), ("zlab_i1", ZL_KERNEL_CASES), ("krea2", K2_KERNEL_CASES),
                           ("cosmos", CO_KERNEL_CASES), ("omnigen", OG_KERNEL_CASES), ("ernie", ER_KERNEL_CASES),
                           ("ideogram", ID_KERNEL_CASES), ("longcat_video", LV_KERNEL_CASES), ("sana", SA_KERNEL_CASES),
-                          ("sanavideo", SV_KERNEL_CASES)):
+                          ("sanavideo", SV_KERNEL_CASES), ("cosmos3", COSMOS3_KERNEL_CASES)):
         if launches[family]:
             rows += [(f"{name}_{case[0]}", f"{name}_{case[0]}", name, launches[family][case[0]])
                      for case in cases for name in sources]

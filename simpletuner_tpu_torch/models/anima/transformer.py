@@ -31,7 +31,7 @@ from torch import nn
 
 from ...ops import dot_product_attention
 from ..cosmos1.transformer import Cosmos1Config, Cosmos1Transformer, apply_half_rope, rms
-from ..layers import LoRADense
+from ..layers import LoRADense, take_rows
 
 Angles = Tuple[torch.Tensor, torch.Tensor]
 
@@ -126,12 +126,7 @@ class AnimaLLMAdapter(nn.Module):
 
     def embed_ids(self, ids: torch.Tensor) -> torch.Tensor:
         """``jnp.take(embed, ids, axis=0)``: negative ids wrap once, ids past the table read NaN."""
-        vocab = self.embed.shape[0]
-        ids = ids.to(torch.int64)
-        ids = torch.where(ids < 0, ids + vocab, ids)
-        valid = (ids >= 0) & (ids < vocab)
-        rows = self.embed[ids.clamp(0, vocab - 1)]
-        return torch.where(valid[..., None], rows, torch.full_like(rows, float("nan")))
+        return take_rows(self.embed, ids)
 
     def forward(self, source_hidden: torch.Tensor, target_ids: torch.Tensor) -> torch.Tensor:
         cfg = self.config

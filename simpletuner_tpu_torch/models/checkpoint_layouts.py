@@ -1055,6 +1055,41 @@ def ideogram_checkpoint_shapes(arch) -> Dict[str, tuple]:
     return shapes
 
 
+def cosmos3_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of a flat ``Cosmos3OmniTransformer`` of
+    ``arch`` (``models/cosmos3/transformer.py::Cosmos3Config``) as
+    ``cosmos3_params_from_checkpoint`` reads it: the token table and
+    ``lm_head``, the biased ``proj_in`` / ``proj_out`` and time MLP, and per
+    layer both pathways' projections (biased where ``attention_bias``), the
+    per-head q / k norms, the four layer norms and both SwiGLUs."""
+    d, hd, ffn, v, p = (arch.hidden_size, arch.head_dim, arch.intermediate_size, arch.vocab_size,
+                        arch.patch_latent_dim)
+    q_out, kv_out = arch.num_heads * hd, arch.num_kv_heads * hd
+    shapes: Dict[str, tuple] = {"embed_tokens.weight": (v, d), "norm.weight": (d,), "norm_moe_gen.weight": (d,),
+                                "lm_head.weight": (v, d)}
+    for name, out_features, in_features in (("proj_in", d, p), ("proj_out", p, d),
+                                            ("time_embedder.linear_1", d, 256), ("time_embedder.linear_2", d, d)):
+        shapes.update({f"{name}.weight": (out_features, in_features), f"{name}.bias": (out_features,)})
+    for i in range(arch.num_layers):
+        src = f"layers.{i}"
+        for und, gen, out_features, in_features in (("to_q", "add_q_proj", q_out, d), ("to_k", "add_k_proj", kv_out, d),
+                                                    ("to_v", "add_v_proj", kv_out, d),
+                                                    ("to_out", "to_add_out", d, q_out)):
+            for name in (und, gen):
+                shapes[f"{src}.self_attn.{name}.weight"] = (out_features, in_features)
+                if arch.attention_bias:
+                    shapes[f"{src}.self_attn.{name}.bias"] = (out_features,)
+        for norm in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            shapes[f"{src}.self_attn.{norm}.weight"] = (hd,)
+        for norm in ("input_layernorm", "post_attention_layernorm", "input_layernorm_moe_gen",
+                     "post_attention_layernorm_moe_gen"):
+            shapes[f"{src}.{norm}.weight"] = (d,)
+        for mlp in ("mlp", "mlp_moe_gen"):
+            shapes.update({f"{src}.{mlp}.gate_proj.weight": (ffn, d), f"{src}.{mlp}.up_proj.weight": (ffn, d),
+                           f"{src}.{mlp}.down_proj.weight": (d, ffn)})
+    return shapes
+
+
 def llm_checkpoint_shapes(cfg) -> Dict[str, tuple]:
     """Tensor names and torch shapes of an HF causal LM of ``cfg``
     (``models/llm_encoder.py::LLMEncoderConfig``) as ``llm_params_from_hf``

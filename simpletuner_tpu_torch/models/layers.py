@@ -259,6 +259,16 @@ def lecun_normal_(tensor: torch.Tensor, fan_in: int, generator: Optional[torch.G
     tensor.copy_(draw)
 
 
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)``: negative ids wrap once, ids past the table read NaN."""
+    vocab = table.shape[0]
+    ids = ids.to(torch.int64)
+    ids = torch.where(ids < 0, ids + vocab, ids)
+    valid = (ids >= 0) & (ids < vocab)
+    rows = table[ids.clamp(0, vocab - 1)]
+    return torch.where(valid[..., None], rows, torch.full_like(rows, float("nan")))
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-6, dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__()
@@ -379,7 +389,7 @@ def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = No
             sub.reset_own_parameters(generator)
         if isinstance(sub, (LoRADense, RMSNorm)):
             sub.reset_parameters(generator)
-        elif isinstance(sub, (nn.Linear, nn.Conv2d, nn.Conv3d)):
+        elif isinstance(sub, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
             lecun_normal_(sub.weight, sub.weight[0].numel(), generator)
             if sub.bias is not None:
                 sub.bias.zero_()

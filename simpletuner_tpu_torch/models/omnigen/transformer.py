@@ -50,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops import dot_product_attention, key_mask_segments
 from ..cosmos1.transformer import rms
-from ..layers import LoRADense, lecun_normal_, timestep_embedding
+from ..layers import LoRADense, lecun_normal_, take_rows, timestep_embedding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,12 +132,7 @@ class Embedding(nn.Module):
         lecun_normal_(self.embedding, self.embedding.shape[1], generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        vocab = self.embedding.shape[0]
-        ids = ids.to(torch.int64)
-        ids = torch.where(ids < 0, ids + vocab, ids)
-        valid = (ids >= 0) & (ids < vocab)
-        rows = self.embedding[ids.clamp(0, vocab - 1)]
-        return torch.where(valid[..., None], rows, torch.full_like(rows, float("nan")))
+        return take_rows(self.embedding, ids)
 
 
 def prefix_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,7 +1,8 @@
 """Flax parameter trees <-> the port's parameters.
 
 The port keeps the JAX submodule names, so the bridge only renames leaves and
-transposes: a dense ``kernel`` (in, out) becomes ``weight`` (out, in), a conv
+transposes: a dense ``kernel`` (in, out) becomes ``weight`` (out, in), a 1-D
+conv ``kernel`` (k, in, out) ``weight`` (out, in, k), a conv
 ``kernel`` (kh, kw, in, out) becomes ``weight`` (out, in, kh, kw) and a 3-D
 conv ``kernel`` (kt, kh, kw, in, out) ``weight`` (out, in, kt, kh, kw), ``lora_A``
 (in, r) / ``lora_B`` (r, out) become (r, in) / (out, r), and a norm ``scale``
@@ -40,8 +41,8 @@ _QUANT_KINDS = ("int8", "uint8", "float8_e4m3fn")
 _QSCALE_LEAVES = {"kernel_scale": "weight_scale", "kernel_packed": "weight_packed"}
 _STORED = (torch.int8, torch.uint8, torch.float8_e4m3fn)  # quantized storage, never cast
 # conv kernels by rank: flax (k..., in, out) <-> torch (out, in, k...)
-_CONV_TO_TORCH = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
-_CONV_TO_FLAX = {4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
+_CONV_TO_TORCH = {3: (2, 1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+_CONV_TO_FLAX = {3: (2, 1, 0), 4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:

@@ -35,7 +35,7 @@ the diffusers ``CosmosTransformer3DModel`` layout and Anima its adapter with a
 layout and Ideogram the ``Ideogram4Transformer`` layout (``transformer/``);
 LongCat-Video the ``LongCatVideoTransformer3DModel`` layout, Sana the diffusers
 ``SanaTransformer2DModel`` layout and Sana-Video the ``SanaVideoTransformer3DModel``
-layout (``transformer/``).
+layout (``transformer/``); Cosmos3 the flat ``Cosmos3OmniTransformer`` layout.
 
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
 keeps f32, bf16 and fp8 (e4m3) leaves in the file's dtype (``_float``; the
@@ -54,7 +54,8 @@ read from disk when it is first used.  Only the ``flux``, ``sd3``, ``sdxl``,
 ``lumina2``, ``kandinsky5_video``, ``kandinsky5_image``, ``hunyuanvideo``, ``qwen_image``,
 ``mageflow``, ``z_image``, ``hidream``, ``flux2``, ``kolors``, ``longcat_image``,
 ``z_image_omni``, ``zlab_i1``, ``boogu_image``, ``krea2``, ``cosmos``, ``anima``, ``omnigen``,
-``ernie`` and ``ideogram`` families import; every other family raises.
+``ernie``, ``ideogram``, ``longcat_video``, ``sana``, ``sanavideo`` and ``cosmos3`` families
+import; every other family raises.
 """
 
 from __future__ import annotations
@@ -1856,6 +1857,58 @@ def load_sanavideo_params(model, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# Cosmos3 (the flat Cosmos3OmniTransformer layout: the understanding pathway on
+# ``self_attn.to_*`` / ``mlp``, the generation pathway on ``add_*_proj`` /
+# ``to_add_out`` / ``mlp_moe_gen``)
+# ---------------------------------------------------------------------------------
+
+
+_COSMOS3_ATTENTION = {"attn_und_q": "to_q", "attn_und_k": "to_k", "attn_und_v": "to_v", "attn_und_out": "to_out",
+                      "attn_gen_q": "add_q_proj", "attn_gen_k": "add_k_proj", "attn_gen_v": "add_v_proj",
+                      "attn_gen_out": "to_add_out"}
+
+
+def cosmos3_params_from_checkpoint(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a Cosmos3 MoT of ``arch`` (``Cosmos3Config``)."""
+    w = weights
+
+    def mlp(src):
+        return {p: _linear(w, f"{src}.{p}") for p in ("gate_proj", "up_proj", "down_proj")}
+
+    params: Dict[str, Any] = {
+        "embed_tokens": _float(w["embed_tokens.weight"]),
+        "norm": _float(w["norm.weight"]),
+        "norm_moe_gen": _float(w["norm_moe_gen.weight"]),
+        "lm_head": _linear(w, "lm_head"),
+        "proj_in": _linear(w, "proj_in"),
+        "proj_out": _linear(w, "proj_out"),
+        "time_in_1": _linear(w, "time_embedder.linear_1"),
+        "time_in_2": _linear(w, "time_embedder.linear_2"),
+    }
+    for i in range(arch.num_layers):
+        src = f"layers.{i}"
+        layer = {ours: _linear(w, f"{src}.self_attn.{theirs}") for ours, theirs in _COSMOS3_ATTENTION.items()}
+        for ours, theirs in (("norm_q", "self_attn.norm_q"), ("norm_k", "self_attn.norm_k"),
+                             ("norm_added_q", "self_attn.norm_added_q"), ("norm_added_k", "self_attn.norm_added_k"),
+                             ("input_layernorm", "input_layernorm"),
+                             ("post_attention_layernorm", "post_attention_layernorm"),
+                             ("input_layernorm_moe_gen", "input_layernorm_moe_gen"),
+                             ("post_attention_layernorm_moe_gen", "post_attention_layernorm_moe_gen")):
+            layer[ours] = _float(w[f"{src}.{theirs}.weight"])
+        layer["mlp"] = mlp(f"{src}.mlp")
+        layer["mlp_moe_gen"] = mlp(f"{src}.mlp_moe_gen")
+        params[f"layer_{i}"] = layer
+    return params
+
+
+def load_cosmos3_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a Cosmos3 MoT."""
+    params = cosmos3_params_from_checkpoint(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported cosmos3 weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
@@ -1874,7 +1927,7 @@ _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_une
               "boogu_image": load_lumina2_params, "krea2": load_krea2_params, "cosmos": load_cosmos2_params,
               "anima": load_anima_params, "omnigen": load_omnigen_params, "ernie": load_ernie_params,
               "ideogram": load_ideogram_params, "longcat_video": load_longcat_video_params,
-              "sana": load_sana_params, "sanavideo": load_sanavideo_params}
+              "sana": load_sana_params, "sanavideo": load_sanavideo_params, "cosmos3": load_cosmos3_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:

@@ -12,7 +12,8 @@ Kandinsky flavours), ``hunyuanvideo_key_map`` (lora.py:620), ``flux2_key_map``
 (lora.py:232), ``ernie_key_map`` (lora.py:252), ``ideogram_key_map`` (lora.py:264;
 omnigen has no map, so its adapter files carry the flattened module paths, as in
 the JAX package), ``longcat_video_key_map`` (lora.py:201), ``sana_key_map``
-(lora.py:547) and ``sanavideo_key_map`` (lora.py:237) and ``_key_map_for``
+(lora.py:547), ``sanavideo_key_map`` (lora.py:237) and ``cosmos3_key_map``
+(lora.py:354) and ``_key_map_for``
 (lora.py:680), which resolve the LoRA target presets and
 name the adapters of an export (the maps leave ``patch_in`` and
 ``context_in`` under their own names, as the JAX export does),
@@ -435,6 +436,25 @@ def sanavideo_key_map(arch) -> Dict[str, Any]:
     return {"proj_out": "proj_out", **sana_key_map(arch, arch.num_layers)}
 
 
+def cosmos3_key_map(arch) -> Dict[str, Any]:
+    """Cosmos3OmniTransformer flat layout: the understanding pathway on
+    ``self_attn.to_*`` and ``mlp``, the generation pathway on ``add_*_proj``,
+    ``to_add_out`` and ``mlp_moe_gen``."""
+    mapping: Dict[str, Any] = {"proj_in": "proj_in", "proj_out": "proj_out"}
+    table = {
+        "attn_und_q": "self_attn.to_q", "attn_und_k": "self_attn.to_k",
+        "attn_und_v": "self_attn.to_v", "attn_und_out": "self_attn.to_out",
+        "attn_gen_q": "self_attn.add_q_proj", "attn_gen_k": "self_attn.add_k_proj",
+        "attn_gen_v": "self_attn.add_v_proj", "attn_gen_out": "self_attn.to_add_out",
+    }
+    for mlp in ("mlp", "mlp_moe_gen"):
+        table.update({f"{mlp}/{p}": f"{mlp}.{p}" for p in ("gate_proj", "up_proj", "down_proj")})
+    for i in range(arch.num_layers):
+        for ours, theirs in table.items():
+            mapping[f"layer_{i}/{ours}"] = f"layers.{i}.{theirs}"
+    return mapping
+
+
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
     "sd1x": lambda m: unet_key_map(m.arch),
@@ -468,6 +488,7 @@ _KEY_MAPS = {
     "longcat_video": lambda m: longcat_video_key_map(m.arch),
     "sana": lambda m: sana_key_map(m.arch),
     "sanavideo": lambda m: sanavideo_key_map(m.arch),
+    "cosmos3": lambda m: cosmos3_key_map(m.arch),
 }
 
 

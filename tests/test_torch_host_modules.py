@@ -85,7 +85,8 @@ def test_the_port_imports_nothing_of_the_jax_package():
     # decoder-LLM, Kandinsky 5.0, HunyuanVideo, Qwen-Image, MageFlow / Z-Image, HiDream, FLUX.2, Kolors,
     # LongCat-Image, Z-Image-Omni, Zlab-i1, Boogu-Image, Krea-2, Cosmos and Anima ones (with the EDM Euler
     # scheduler), the OmniGen, ERNIE-Image and Ideogram ones (with Ideogram's host prompt modules), and the
-    # LongCat-Video, Sana and Sana-Video ones are among those imported
+    # LongCat-Video, Sana and Sana-Video ones, and Cosmos3's (the MoT, the family, the reasoner and the AVAE
+    # audio tokenizer) are among those imported
     assert {f"simpletuner_tpu_torch.{name}" for name in (
         "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc", "models.sd1x",
         "models.sd1x.model", "models.pixart", "models.pixart.model", "models.pixart.transformer",
@@ -108,7 +109,8 @@ def test_the_port_imports_nothing_of_the_jax_package():
         "models.ideogram.transformer", "models.ideogram.prompting", "models.ideogram.prompt_enhancer",
         "models.longcat_video", "models.longcat_video.model", "models.longcat_video.transformer", "models.sana",
         "models.sana.model", "models.sana.transformer", "models.sanavideo", "models.sanavideo.model",
-        "models.sanavideo.transformer")} <= set(names)
+        "models.sanavideo.transformer", "models.cosmos3", "models.cosmos3.model", "models.cosmos3.transformer",
+        "models.cosmos3.reasoner", "models.cosmos3.audio_tokenizer")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -610,7 +612,10 @@ def test_model_registry_refuses_other_families():
     assert isinstance(get_model_family(TrainingConfig({"model_family": "longcat_video"})), LongcatVideo)
     assert isinstance(get_model_family(TrainingConfig({"model_family": "sana"})), Sana)
     assert isinstance(get_model_family(TrainingConfig({"model_family": "sanavideo"})), SanaVideo)
-    for family in ("cosmos3", "heartmula", "deepfloyd"):
+    from simpletuner_tpu_torch.models.cosmos3 import Cosmos3
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "cosmos3"})), Cosmos3)
+    for family in ("ltxvideo2", "heartmula", "deepfloyd"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):
@@ -643,7 +648,7 @@ def test_model_registry_matches():
     assert ModelRegistry.get("sd15") is SD1x and ModelRegistry.get("sd21") is SD2x
     assert ModelRegistry.get("pixart") is ModelRegistry.get("pixart_sigma") is PixartSigma
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        ModelRegistry.get("cosmos3")
+        ModelRegistry.get("ltxvideo2")
     for registry in (ModelRegistry, JaxModelRegistry):
         with pytest.raises(KeyError):
             registry.metadata("nope")

@@ -2123,3 +2123,174 @@ def test_graphed_longcat_video_and_sana_steps_match_eager_bitwise(cuda, family):
     replayed = trajectory(graphed)
     assert torch.isfinite(eager).all() and (eager[1::2] > 0).all()
     assert torch.equal(replayed, eager)
+
+
+# Cosmos3: the generation attention over the 1280 x 704 x 93 clip (21,120
+# generation tokens against 64 + 21,120 = 21,184 keys: 165 full 128-key tiles
+# and a ragged 64), unmasked, and at the 17-frame parity clip (4,400 against
+# 4,464); two heads (the heads are independent; the DiT repeats 8 kv heads to 32)
+COSMOS3_CASES = [("cosmos3_gen_s21120_k21184", 21120, 21184), ("cosmos3_gen_s4400_k4464", 4400, 4464)]
+
+
+@pytest.mark.parametrize("name,sq,sk", COSMOS3_CASES, ids=[c[0] for c in COSMOS3_CASES])
+def test_kernels_at_the_cosmos3_shapes(cuda, name, sq, sk):
+    """Forward and both backward kernels at the generation attention's shapes
+    against the plain versions, in the dispatcher's (B, S, H, D) layout."""
+    q, k, v = _qkv(130 + sk % 17, 1, 2, sq, sk, 128, cuda)
+    strided = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    out, lse = _check(*strided)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    del out, lse
+    dq, dk, dv = _check_backward(*strided, None, seed=131)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+def _tiny_cosmos3(dtype, device, lora_rank=4):
+    """The MoT at head dim 128 (2 query heads, 1 kv head, the published mRoPE
+    sections), two layers, remat, rank-4 adapters."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.cosmos3 import Cosmos3Config, Cosmos3OmniTransformer
+
+    cfg = dataclasses.replace(Cosmos3Config.tiny(), hidden_size=256, head_dim=128, num_heads=2, num_kv_heads=1,
+                              rope_axes_dim=(24, 20, 20))
+    with torch.device(device):
+        return cfg, Cosmos3OmniTransformer(cfg, dtype=dtype, lora_rank=lora_rank, remat=True)
+
+
+class _VisionOnly(torch.nn.Module):
+    """The MoT's vision prediction alone (the logits set aside)."""
+
+    def __init__(self, module):
+        super().__init__()
+        self.module = module
+
+    def forward(self, *args, **kwargs):
+        return self.module(*args, **kwargs)[0]
+
+
+def _cosmos3_inputs(cfg, gen, und=8, frames=3, height=8, width=12):
+    from simpletuner_tpu_torch.models.cosmos3.transformer import cosmos3_position_ids
+
+    pos = torch.from_numpy(cosmos3_position_ids(cfg, und, frames, height, width).astype(np.int32))[None]
+    gen_len = frames * (height // 2) * (width // 2)
+    return [torch.randint(0, cfg.vocab_size, (1, und), generator=gen).to(torch.int32),
+            torch.randn((1, gen_len, cfg.patch_latent_dim), generator=gen), pos,
+            torch.rand((1, gen_len), generator=gen) * 1000.0]
+
+
+def test_tiny_cosmos3_on_the_card_matches_its_cpu_run(cuda):
+    """The MoT (``_tiny_cosmos3``: 8 text tokens, 72 generation tokens) against
+    its CPU run: the vision prediction and the LoRA gradients within the
+    card-against-CPU bound; the replay of the reasoner's memory (the
+    understanding pathway's own weights, no adapters) equals the full
+    forward on the card bitwise."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.cosmos3.reasoner import Cosmos3Reasoner, Cosmos3ReasonerConfig
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg, cpu = _tiny_cosmos3(torch.float32, "cpu")
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    _, card = _tiny_cosmos3(torch.bfloat16, cuda)
+    gen = torch.Generator().manual_seed(4)
+    inputs = _cosmos3_inputs(cfg, gen)
+    # the last layer's understanding adapters reach only the logits
+    _card_against_cpu(_VisionOnly(cpu), _VisionOnly(card), inputs, torch.randn(inputs[1].shape, generator=gen), cuda,
+                      allow_unused=True)
+
+    _, base = _tiny_cosmos3(torch.bfloat16, cuda, lora_rank=0)
+    base.load_state_dict({k: v for k, v in cpu.state_dict().items() if not k.endswith(("lora_A", "lora_B"))})
+    fields = {f.name for f in dataclasses.fields(Cosmos3ReasonerConfig)}
+    with torch.device(cuda):
+        reasoner = Cosmos3Reasoner(Cosmos3ReasonerConfig(**{k: v for k, v in dataclasses.asdict(cfg).items()
+                                                            if k in fields}), torch.bfloat16)
+    # the reasoner's names for the understanding pathway of the MoT
+    renames = {"to_q": "attn_und_q", "to_k": "attn_und_k", "to_v": "attn_und_v", "to_out": "attn_und_out",
+               "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj", "down_proj": "mlp.down_proj"}
+    state = base.state_dict()
+    with torch.no_grad():
+        for name, param in reasoner.named_parameters():
+            parts = name.split(".")
+            if len(parts) == 3 and parts[1] in renames:
+                name = f"{parts[0]}.{renames[parts[1]]}.{parts[2]}"
+            param.copy_(state[name])
+    args = [x.to(cuda) for x in inputs]
+    with torch.no_grad():
+        full, _ = base(*args)
+        memory = reasoner(args[0], args[2][:, :, :8])
+        replay, logits = base(None, *args[1:], reasoner_kv=memory)
+    assert logits is None and torch.equal(replay, full)
+
+
+def test_graphed_cosmos3_step_matches_eager_bitwise(cuda):
+    """The tiny family's step (5-D latents, 6 text ids; the mRoPE constants
+    and ids made once per device in the eager steps): three eager steps and
+    three replays of the captured step from the same state and generator
+    state give the same losses and grad norms bitwise."""
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.training.optimizers import get_optimizer
+    from simpletuner_tpu_torch.training.train_state import (build_train_step, create_train_state, jit_train_step,
+                                                            state_tensors)
+
+    config = TrainingConfig({"model_family": "cosmos3", "model_arch_preset": "tiny", "model_type": "lora",
+                             "lora_rank": 4, "learning_rate": 1e-3, "optimizer": "adamw",
+                             "gradient_checkpointing": True})
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    model = ModelRegistry.create("cosmos3", config)
+    with torch.device(cuda):
+        module = init_parameters(model.create_module(), gen)
+    batch = {"latents": torch.randn((1, 3, 8, 8, 2), generator=gen, device=cuda),
+             "text_ids": torch.randint(0, 64, (1, 6), generator=gen, device=cuda).to(torch.int32)}
+    tx = get_optimizer(config, 1e-3)
+    state = create_train_state(model, module, tx)
+    step_fn = build_train_step(model, tx)
+    with torch.no_grad():
+        saved = [x.clone() for x in state_tensors(state)]
+    rng = torch.Generator(device=cuda)
+    rng.manual_seed(5)
+    start = rng.get_state()
+
+    def trajectory(step):
+        current, out = state, []
+        for _ in range(3):
+            current, metrics = step(current, batch, rng)
+            out += [metrics["loss"], metrics["grad_norm"]]
+        return torch.stack(out)
+
+    eager = trajectory(step_fn)
+    with torch.no_grad():
+        for x, value in zip(state_tensors(state), saved):
+            x.copy_(value)
+    rng.set_state(start)
+    state.step = 0
+    graphed = jit_train_step(step_fn, state, batch, rng)
+    replayed = trajectory(graphed)
+    assert torch.isfinite(eager).all() and (eager[1::2] > 0).all()
+    assert torch.equal(replayed, eager)
+
+
+def test_tiny_avae_on_the_card_matches_float64(cuda):
+    """The tiny AVAE tokenizer (seeded) encodes and decodes a stereo batch on
+    the card within 1e-3 relative L2 of the same module in float64 on the
+    CPU (cuDNN may run f32 convolutions in TF32)."""
+    from simpletuner_tpu_torch.models.cosmos3.audio_tokenizer import Cosmos3AudioTokenizer, Cosmos3AudioTokenizerConfig
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cpu = init_parameters(Cosmos3AudioTokenizer(Cosmos3AudioTokenizerConfig.tiny()), torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        for name, param in cpu.named_parameters():
+            if name.endswith(("alpha", "beta")):
+                param.normal_(0.0, 0.3, generator=torch.Generator().manual_seed(3))
+    card = Cosmos3AudioTokenizer(Cosmos3AudioTokenizerConfig.tiny()).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    wave = torch.randn((2, 2, 640), generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        ref_latents = cpu.double().encode(wave.double())
+        ref = cpu.decode(ref_latents)
+        latents = card.encode(wave.to(cuda))
+        out = card.decode(latents)
+    for a, b in ((latents, ref_latents), (out, ref)):
+        assert ((a.double().cpu() - b).norm() / b.norm()).item() <= 1e-3
