@@ -282,7 +282,7 @@ exits non-zero with no result line):
    peak GiB and the captured launches (16 / 8 / 8).
 24. ltx: LTX-Video 0.9.5 2B as the JAX preset builds it (``LTXConfig()``: 28
    blocks, 2048 wide, 32 heads of 64, FFN 4 x 2048, T5-XXL captions at 128
-   tokens; 1.92B parameters; at ``LTX_CUT_BLOCKS`` (5; 10 before phases 36-38)
+   tokens; 1.92B parameters; at ``LTX_CUT_BLOCKS`` (2 since phase 46; 5 since phases 36-38; 10 before)
    blocks in a run of every phase) on 768 x 512 x 121 clips (sides multiples of
    32, 8n + 1 frames; 16 x 16 x 24 latents of 128 channels, 6,144 tokens with
    the (1, 1, 1) patch).  Deletes phase 23's files; checks ``ltx_step_flops``
@@ -362,7 +362,7 @@ exits non-zero with no result line):
    width (ai-forever/Kandinsky-5.0-T2V-Lite-sft-5s and T2I-Lite's
    ``transformer/``, ``Kandinsky5Config()``: 32 visual and 2 text blocks, 2048
    wide, 32 heads of 64, FFN 5120, 4 latent channels; 2.15B parameters), at
-   ``K5_CUT_BLOCKS`` (3 since phase 45; 6 since phases 36-38; 16 before) of its 32 visual blocks in a
+   ``K5_CUT_BLOCKS`` (2 since phase 46; 3 since phase 45; 6 since phases 36-38; 16 before) of its 32 visual blocks in a
    run of every phase.
    Deletes phase 26's files; checks ``kandinsky5_step_flops`` against the flop
    counter on two small configs; writes a seeded e4m3 transformer (0.48 GB at
@@ -695,7 +695,7 @@ exits non-zero with no result line):
    heads of 128, SwiGLU 12,288, a 151,936-row token table and ``lm_head``,
    48 latent channels in 2 x 2 patches; 15.16B parameters).  Checks
    ``cosmos3_flops``; writes a seeded e4m3 checkpoint in the flat layout at
-   ``C3_FILE_LAYERS`` (2) of 36 with the whole table and head, and a
+   ``C3_FILE_LAYERS`` (1 since phase 46; 2 before) of 36 with the whole table and head, and a
    word-level tokenizer at the model dir's root; encodes 16 prompts at 64
    ids through ``AutoTokenizer`` (prompts/s); imports (bitwise) and reads the
    reasoner's parameters from the same file (bitwise the MoT's
@@ -713,8 +713,36 @@ exits non-zero with no result line):
    encoded (250 latent frames of 64) and decoded, s and s of audio per s, a
    1 s excerpt held against the same module in float64 on the CPU; in a run
    that names it, all 36 layers in memory (15 GB of int8) and their graphed
-   step; last, the run's writes against ``RUN_WRITE_LIMIT_GB`` less
-   ``RUN_WRITE_MARGIN_GB``.
+   step.
+46. ltxvideo2: LTX-2 at the JAX preset's full width (``LTX2Config()``: 48
+   dual-modal blocks, a 4096-wide video stream of 32 heads of 128 and a
+   2048-wide audio stream of 32 heads of 64, six attentions a block, 128
+   latent channels per stream, 3840-wide caption features; 18.88B
+   parameters).  Checks ``ltx2_flops`` against the flop counter on two small
+   configs (one tokenwise); writes a seeded e4m3 diffusers transformer at
+   ``LTX2_FILE_BLOCKS`` (1) of 48 blocks with every parameter outside them
+   (0.73 GB) and a seeded e4m3 latent upsampler at its published config
+   (0.13 GB, the config in the file's metadata) beside hard links to phase
+   43's Gemma-2 and tokenizer (written here in a run without phase 43), and
+   to phase 24's two seeded 768 x 512 x 121 clips (16 x 16 x 24 latents:
+   6,144 video tokens); imports (bitwise); ``Trainer.run()``: the text cache at 256
+   tokens, the video VAE cache at the family's 128-channel config, 6
+   graphed rank-16 LoRA steps on a bf16 base with every block checkpointed
+   and the first frame held clean (tokenwise (1, 6144) timesteps at every
+   DiT call), a replay bitwise against an eager step, the profiled replay's
+   launches by shape; the joint audiovisual step: 6 graphed steps through
+   ``build_train_step`` on an int8 base with 121 audio latent tokens and the
+   caption mask (180 of 256 valid), replays against eager steps,
+   ``audio_loss``; 16 prompts encoded (prompts/s); the trained-stage
+   true-CFG render and the spatial-upscale render through the upsampler
+   file, both at 768 px square and 25 frames, decoded to mp4 and read back;
+   one forward against the plain attention on 25 frames (1,536 video and 25
+   audio tokens); the Gemma connectors at their published config (1.43B
+   parameters built in memory, bf16) on left-padded stacked features (1,
+   256, 3840 x 49) with 180 valid, against the plain attention; in a run that
+   names it, all 48 blocks in memory on an int8 base (about 19 GB) and their
+   graphed joint step; last, the run's writes against ``RUN_WRITE_LIMIT_GB``
+   less ``RUN_WRITE_MARGIN_GB``.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
 their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-32.
@@ -1038,7 +1066,7 @@ LTX_RENDER_SIZE, LTX_GUIDANCE = 512, 4.0
 LTX_SIGMA = 0.7
 LTX13B_BLOCKS = 4
 LTX_PROMPT = "a lighthouse on a basalt cliff at dusk, waves rolling in"
-PHASE24_WRITE_GB = 0.46  # at the cut depth (LTX_CUT_BLOCKS): 0.45 GB measured
+PHASE24_WRITE_GB = 0.23  # at the cut depth (LTX_CUT_BLOCKS): 0.22 GB measured (0.45 GB at 5 blocks)
 # phases 3 and 7 at LTX's attention shapes, as WAN_KERNEL_CASES: the 2B's
 # self-attention (32 heads of 64 over 6,144 tokens: full tiles, the unmasked
 # fast path), its cross-attention (the same queries against the 128 T5 keys:
@@ -1128,7 +1156,7 @@ K5_LATENT = ((K5_FRAMES - 1) // 4 + 1, K5_HEIGHT // 8, K5_WIDTH // 8)
 K5_TOKENS = K5_LATENT[0] * (K5_LATENT[1] // 2) * (K5_LATENT[2] // 2)
 K5_CLIPS, K5_RENDER_SIZE, K5_PARITY_FRAMES, K5_SIGMA = 2, 512, 17, 0.7
 QWEN_FILE_LAYERS = 2
-PHASE27_WRITE_GB = 1.61  # at the cut depths (K5_CUT_BLOCKS, QWEN_FILE_LAYERS): 1.60 GB measured (1.84 at 6 blocks)
+PHASE27_WRITE_GB = 1.53  # at the cut depths (K5_CUT_BLOCKS, QWEN_FILE_LAYERS): 1.52 GB measured (1.60 at 3 blocks, 1.84 at 6)
 # phases 3 and 7 at Kandinsky 5.0's attention shapes (D = 64, unmasked: the
 # JAX family drops the Qwen mask): the video flavour's self-attention over
 # 24,576 tokens (192 full tiles) and its cross-attention against the 512 Qwen
@@ -1530,28 +1558,69 @@ C3_GEN = C3_LATENT[0] * (C3_LATENT[1] // 2) * (C3_LATENT[2] // 2)
 C3_KEYS = C3_TEXT + C3_GEN
 C3_GUIDANCE, C3_SIGMA = 4.0, 0.7
 C3_TRAIN_STEPS, C3_FULL_STEPS = 6, 3
-C3_FILE_LAYERS = 2
+C3_FILE_LAYERS = 1  # 2 before phase 46 needed the room
 C3_AUDIO_RATE, C3_AUDIO_SECONDS, C3_AUDIO_EXCERPT = 48000, 10, 48000
 # the AVAE's f32 encode / decode on the card against float64 on the CPU
 # (TF32 off): f32 rounding through 5 up-sampling blocks of 3 residual units
 C3_AVAE_REL_L2 = 1e-4
-PHASE45_WRITE_GB = 2.05  # 2.04 GB measured: the 2.04 GB file and the tokenizer
+PHASE45_WRITE_GB = 1.66  # 1.65 GB measured at 1 layer: the 1.65 GB file and the tokenizer (2.04 GB at 2 layers)
 # the generation attention over the clip: 21,120 queries against 64 + 21,120
 # keys (165 full 128-key tiles and a ragged 64), unmasked, K and V repeated
 # from 8 of the 32 heads as jnp.repeat does; held at C3_CHECK_HEADS heads over
 # one key/value head
 COSMOS3_KERNEL_CASES = (("c3_gen", 32, C3_GEN, C3_KEYS, 128, "c3_gen"),)
 C3_CHECK_HEADS = 2
+# phase 46: LTX-2 (Lightricks/LTX-2's transformer/ as the JAX preset
+# LTX2Config() builds it: 48 dual-modal blocks, a 4096-wide video stream of
+# 32 heads of 128 and a 2048-wide audio stream of 32 heads of 64, 128 latent
+# channels each, 3840-wide caption features; 18.88B parameters) on 768 x 512
+# x 121 clips (16 x 16 x 24 latents: 6,144 video tokens, the LTX-Video row's
+# shape), 121 audio latent tokens in the joint step (4.84 s at 25 latent
+# frames a second), 256 Gemma-2 tokens (phase 43's file, GEMMA_FILE_LAYERS of
+# 26, tiled to 3840) with 180 valid where a mask rides; the seeded file at
+# LTX2_FILE_BLOCKS of 48 blocks with every parameter outside them (the
+# adaLN heads and caption MLPs are width: 344.6M) and the latent upsampler's
+# at its published config (126.3M); the renders square at 768 px and 25
+# frames (4 x 24 x 24 = 2,304 tokens; the spatial-upscale render's first
+# stage at 4 x 12 x 12), the parity forward on 25 frames (4 x 16 x 24 =
+# 1,536 video and 25 audio tokens); in a named run all 48 blocks in memory
+L2_PROMPT = LV_PROMPT
+L2_TEXT, L2_VALID = 256, 180
+L2_FRAMES, L2_WIDTH, L2_HEIGHT = 121, 768, 512
+L2_LATENT = ((L2_FRAMES - 1) // 8 + 1, L2_HEIGHT // 32, L2_WIDTH // 32)
+L2_TOKENS = L2_LATENT[0] * L2_LATENT[1] * L2_LATENT[2]
+L2_AUDIO, L2_PARITY_FRAMES, L2_PARITY_AUDIO = 121, 25, 25
+L2_RENDER_SIZE, L2_RENDER_FRAMES, L2_GUIDANCE, L2_SIGMA = 768, 25, 3.0, 0.7
+L2_CLIPS, L2_TRAIN_STEPS, L2_FULL_STEPS = 2, 6, 3
+LTX2_FILE_BLOCKS = 1
+PHASE46_WRITE_GB = 0.95  # 0.935 GB measured: the 0.73 GB transformer, the 0.13 GB upsampler, caches and outputs
+# phases 3 and 7 at LTX-2's six attentions: the video self-attention (32 x
+# 128 over 6,144 tokens), its prompt cross-attention against the 256 Gemma
+# keys with 180 valid (query ids 1, key ids 1 / -1), a2v (6,144 video
+# queries against 121 audio keys) and v2a (121 against 6,144) at 32 heads of
+# 64, the audio self-attention (121 tokens: one ragged tile) and its prompt
+# cross-attention; phase 3 also at the connectors' self-attention (30 x 128
+# over 256 tokens, forward only: nothing trains them); held at L2_CHECK_HEADS heads
+LTX2_KERNEL_CASES = (
+    ("l2_video_self", 32, L2_TOKENS, L2_TOKENS, 128),
+    ("l2_video_cross", 32, L2_TOKENS, L2_TEXT, 128, "l2_keys"),
+    ("l2_a2v", 32, L2_TOKENS, L2_AUDIO, 64),
+    ("l2_v2a", 32, L2_AUDIO, L2_TOKENS, 64),
+    ("l2_audio_self", 32, L2_AUDIO, L2_AUDIO, 64),
+    ("l2_audio_cross", 32, L2_AUDIO, L2_TEXT, 64, "l2_keys"),
+)
+LTX2_CONNECTOR_CASES = (("l2_connector", 30, L2_TEXT, L2_TEXT, 128),)
+L2_CHECK_HEADS = 2
 # the depth of the earlier families' seeded files in a run of every phase
 # (full width; the kernels' shapes depend on width and tokens, not depth),
 # cut to make room for phases 25-32 in the write budget: SD3.5 Large at 2 of
 # its 38 blocks (6 before phases 31-32), AuraFlow v0.3 at 1 + 2 of its 4 + 32
 # (2 + 4 before phases 39-41; both block kinds and the D = 256 shapes kept),
-# Wan 2.1 T2V-1.3B at 5 of 30, LTX-Video 2B at 5 of 28 (10 and 10 before
-# phases 36-38), Chroma at 1 + 1 of
+# Wan 2.1 T2V-1.3B at 5 of 30, LTX-Video 2B at 2 of 28 (10 and 10 before
+# phases 36-38, 5 before phase 46), Chroma at 1 + 1 of
 # its 19 + 38 (2 + 4 before phases 31-32, 1 + 2 before phase 45; its kernel shapes are Flux's),
 # Gemma-2 2B at GEMMA_FILE_LAYERS of 26, Kandinsky 5.0
-# Lite at 3 of its 32 visual blocks (16 before phases 36-38, 6 before phase 45), SDXL's levels 1
+# Lite at 2 of its 32 visual blocks (16 before phases 36-38, 6 before phase 45, 3 before phase 46), SDXL's levels 1
 # and 2 at 1 of their 2 and 10 transformer layers (1 + 2 + 2 since phases
 # 36-38, 1 + 1 + 1 since phases 39-41; Kolors alike), Zlab-i1 at 5 of its 29
 # blocks in memory (all 29 before),
@@ -1566,9 +1635,9 @@ C3_CHECK_HEADS = 2
 SD3_CUT_BLOCKS = 2
 AURA_CUT_BLOCKS = (1, 2)
 WAN_CUT_BLOCKS = 5
-LTX_CUT_BLOCKS = 5
+LTX_CUT_BLOCKS = 2
 CHROMA_CUT_BLOCKS = (1, 1)
-K5_CUT_BLOCKS = 3
+K5_CUT_BLOCKS = 2
 SDXL_CUT_LAYERS = (1, 1, 1)
 ZL_MEMORY_BLOCKS = 5
 HY_CUT_BLOCKS = 3
@@ -1601,16 +1670,16 @@ PHASE_WRITE_GB = {19: 1.02, 20: 0.91, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB
                   32: PHASE32_WRITE_GB, 33: PHASE33_WRITE_GB, 34: PHASE34_WRITE_GB, 35: PHASE35_WRITE_GB,
                   36: PHASE36_WRITE_GB, 37: PHASE37_WRITE_GB, 38: PHASE38_WRITE_GB, 39: PHASE39_WRITE_GB,
                   40: PHASE40_WRITE_GB, 41: PHASE41_WRITE_GB, 42: PHASE42_WRITE_GB, 43: PHASE43_WRITE_GB,
-                  44: PHASE44_WRITE_GB, 45: PHASE45_WRITE_GB}
+                  44: PHASE44_WRITE_GB, 45: PHASE45_WRITE_GB, 46: PHASE46_WRITE_GB}
 # the phases whose files (or, for 5 and 6, whose runtime) a phase needs before
 # it; 1, 2, 3 and 7 run in every run (the build, and the kernels line's times)
 PHASE_NEEDS = {4: (14, 15, 16), 5: (4,), 6: (5,), 15: (14,), 16: (14,), 17: (14, 15, 16), 18: (17,),
                19: (14, 15, 16), 20: (19,), 21: (20,), 22: (20,), 23: (15, 16), 24: (15, 16), 25: (14, 15, 16),
                26: (14, 16), 27: (14, 15, 16), 28: (14, 15), 29: (14, 16), 30: (14, 15, 16, 19), 31: (),
                32: (14, 16), 33: (14, 16), 34: (14, 16), 35: (), 36: (14, 16), 37: (14, 15, 16), 38: (14, 16),
-               39: (16,), 40: (), 41: (), 42: (15,), 43: (), 44: (42, 43), 45: ()}
+               39: (16,), 40: (), 41: (), 42: (15,), 43: (), 44: (42, 43), 45: (), 46: ()}
 ALWAYS = (1, 2, 3, 7)
-LAST_PHASE = 45
+LAST_PHASE = 46
 # the phases named on the command line (None: every phase) and those the run takes
 RUN = {"requested": None, "phases": set(range(1, LAST_PHASE + 1))}
 
@@ -1961,6 +2030,9 @@ def kernel_cases():
     times["cosmos3"], c3_entries = long_forward_cases(COSMOS3_KERNEL_CASES, C3_CHECK_HEADS, 1500, errors)
     times["cosmos3"]["c3_und_block"] = cosmos3_und_block()
     marks.append(("cosmos3", time.perf_counter()))
+    times["ltxvideo2"], l2_entries = long_forward_cases(LTX2_KERNEL_CASES + LTX2_CONNECTOR_CASES, L2_CHECK_HEADS,
+                                                        1540, errors)
+    marks.append(("ltxvideo2", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
@@ -1975,7 +2047,8 @@ def kernel_cases():
             "library_call": f"scaled_dot_product_attention, boolean attn_mask ({masked_backend})"}, fwd256_entry, \
         {**wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries, **hd_entries,
          **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries, **k2_entries, **co_entries,
-         **og_entries, **er_entries, **id_entries, **lv_entries, **sa_entries, **sv_entries, **c3_entries}
+         **og_entries, **er_entries, **id_entries, **lv_entries, **sa_entries, **sv_entries, **c3_entries,
+         **l2_entries}
 
 
 def omnigen_prefix_block() -> dict:
@@ -2189,6 +2262,8 @@ def backward_cases():
     marks.append(("longcat_video_sana_sanavideo", time.perf_counter()))
     times["cosmos3"], c3_entries = long_backward_cases(COSMOS3_KERNEL_CASES, C3_CHECK_HEADS, 1520, errors)
     marks.append(("cosmos3", time.perf_counter()))
+    times["ltxvideo2"], l2_entries = long_backward_cases(LTX2_KERNEL_CASES, L2_CHECK_HEADS, 1560, errors)
+    marks.append(("ltxvideo2", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
@@ -2203,7 +2278,7 @@ def backward_cases():
     }, **d256_entries, **wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries,
         **hd_entries, **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries, **k2_entries,
         **co_entries, **og_entries, **er_entries, **id_entries, **lv_entries, **sa_entries, **sv_entries,
-        **c3_entries}
+        **c3_entries, **l2_entries}
 
 
 def _ddpm_inputs(seed, heads, sq, sk, dim, n):
@@ -2517,9 +2592,10 @@ def _case_planes(sq: int, sk: int, plane):
     text keys at 1, the text pads at -1; for "id_joint" Ideogram's: the text
     mask as the ids of both sides, the first ``ID_VALID`` of the ``ID_TEXT``
     text tokens and every image token at 1, the text pads at 0; for
-    "lv_keys" and "sv_keys" LongCat-Video's and Sana-Video's cross-attention:
-    every query at 1, the first ``LV_VALID`` / ``SV_VALID`` caption keys at
-    1 and the pads at -1; "c3_gen" Cosmos3's generation attention, unmasked."""
+    "lv_keys", "sv_keys" and "l2_keys" LongCat-Video's, Sana-Video's and
+    LTX-2's prompt cross-attention: every query at 1, the first ``LV_VALID``
+    / ``SV_VALID`` / ``L2_VALID`` caption keys at 1 and the pads at -1;
+    "c3_gen" Cosmos3's generation attention, unmasked."""
     import torch
 
     if plane == "c3_gen":
@@ -2528,7 +2604,7 @@ def _case_planes(sq: int, sk: int, plane):
         seg = torch.ones((1, sq), dtype=torch.int32, device="cuda")
         seg[:, ID_VALID:ID_TEXT] = 0
         return seg, seg
-    if plane not in ("zl_joint", "k2_joint", "k2_refiner", "og_keys", "er_joint", "lv_keys", "sv_keys"):
+    if plane not in ("zl_joint", "k2_joint", "k2_refiner", "og_keys", "er_joint", "lv_keys", "sv_keys", "l2_keys"):
         seg = _case_segments(sq, plane)
         return seg, seg
     kv = torch.ones((1, sk), dtype=torch.int32, device="cuda")
@@ -2538,8 +2614,8 @@ def _case_planes(sq: int, sk: int, plane):
         kv[:, OG_VALID:OG_TEXT] = -1
     elif plane == "er_joint":
         kv[:, LC_IMG + ER_VALID:] = -1
-    elif plane in ("lv_keys", "sv_keys"):
-        kv[:, LV_VALID if plane == "lv_keys" else SV_VALID:] = -1
+    elif plane in ("lv_keys", "sv_keys", "l2_keys"):
+        kv[:, {"lv_keys": LV_VALID, "sv_keys": SV_VALID, "l2_keys": L2_VALID}[plane]:] = -1
     else:
         kv[:, K2_VALID:K2_TEXT] = -1
     return torch.ones((1, sq), dtype=torch.int32, device="cuda"), kv
@@ -5268,6 +5344,7 @@ def ltx_phase(paths: dict, kernels, device: str, depth: int) -> dict:
              "write_gb_per_s": file_bytes / write_s / 1e9,
              **_write_clips(data, LTX_CLIPS, LTX_FRAMES, LTX_HEIGHT, LTX_WIDTH, 24, 100),
              "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+    paths["ltx_clips"] = data  # phase 46 links them
 
     # (c) import through load_transformer_params, every tensor bitwise the
     # written one taken to bf16 (exact for every e4m3 value)
@@ -5719,8 +5796,8 @@ def chroma_phase(paths: dict, kernels, device: str, depth: tuple) -> dict:
 
     start = time.perf_counter()
     work, flux_dir = paths["work"], paths["flux_dir"]
-    for out in ("ltx", "ltx_train", "ltx_cache", "ltx_data", "ltx_render"):  # phase 24's: disk space
-        shutil.rmtree(os.path.join(work, out), ignore_errors=True)
+    for out in ("ltx", "ltx_train", "ltx_cache", "ltx_render") + (() if _runs(46) else ("ltx_data",)):
+        shutil.rmtree(os.path.join(work, out), ignore_errors=True)  # phase 24's: disk space; phase 46 links its clips
     gc.collect()
     torch.cuda.empty_cache()
     baseline_gib = torch.cuda.memory_allocated() / 2**30
@@ -7332,7 +7409,8 @@ def flux2_step_flops(arch, batch: int, img_tokens: int, txt_tokens: int) -> int:
     return batch * fwd * 3
 
 
-def _graph_vs_eager(model, module, batch: dict, kernels, steps: int, expected: dict, flops: float) -> dict:
+def _graph_vs_eager(model, module, batch: dict, kernels, steps: int, expected: dict, flops: float,
+                    metric_keys: tuple = ()) -> dict:
     """LoRA steps of ``model``'s ``module`` on ``batch`` through
     ``build_train_step`` and ``jit_train_step``, as ``Trainer.run()`` builds
     them (the step captured as one CUDA graph): two eager runs of 2 steps and
@@ -7343,7 +7421,7 @@ def _graph_vs_eager(model, module, batch: dict, kernels, steps: int, expected: d
     profiled (``bench.replay_launches``: device ms by bucket, idle share, the
     launches held to the capture's and to ``expected`` a step); the
     wrappers' launches by shape per step (they count the two warm-up steps
-    and the capture)."""
+    and the capture); the last replay's ``metric_keys`` metrics."""
     import numpy as np
     import torch
 
@@ -7424,7 +7502,8 @@ def _graph_vs_eager(model, module, batch: dict, kernels, steps: int, expected: d
               "eager_vs_eager_max_diff": eager_diff, "launches_captured": captured,
               "launches_profiled_replay": device_launches, "launches_per_step_by_shape": by_shape,
               "profile": {k: profile[k] for k in ("bucket_ms", "bucket_launches", "launch_attempts", "device_ms",
-                                                  "traced_event_ms", "idle_share_traced", "top_kernels")}}
+                                                  "traced_event_ms", "idle_share_traced", "top_kernels")},
+              **{key: float(metrics[key]) for key in metric_keys}}
     del graphed, state, current, saved
     return report
 
@@ -10318,8 +10397,8 @@ def video_dit_phase(number: int, family: str, paths: dict, kernels, device: str,
     if not longcat:
         linear = _linear_attention_ms(full.num_heads, WAN_TOKENS, full.head_dim, rope=True)
         for name in ("sanavideo", "sanavideo_data", "sanavideo_cache", "longcat_video", "longcat_video_data",
-                     "longcat_video_cache", "sana"):  # the last of these phases: disk space
-            shutil.rmtree(os.path.join(work, name), ignore_errors=True)
+                     "longcat_video_cache", os.path.join("sana", "transformer") if _runs(46) else "sana"):
+            shutil.rmtree(os.path.join(work, name), ignore_errors=True)  # disk space; phase 46 links sana's Gemma-2
     phase(f"{number} {family}", config=config_name, params=params,
           params_per_block=sum(math.prod(v) for k, v in shapes.items() if k.startswith(("blocks.0.", "transformer_blocks.0."))),
           hidden=full.hidden_size, heads=[heads, 128 if longcat else full.cross_head_dim],
@@ -10616,8 +10695,8 @@ def cosmos3_phase(paths: dict, kernels, device: str, full_in_memory: bool, kerne
     ``build_train_step``, a replay bitwise against an eager step and a
     profiled replay's launches by shape; the AVAE audio tokenizer at its
     shipped config; in a run that names the phase, all 36 layers built in
-    memory (15 GB of int8) and their graphed step timed.  Last, the run's
-    writes against the target.  Returns the launches per step of each
+    memory (15 GB of int8) and their graphed step timed.  Last, where phase
+    46 does not run, the run's writes against the target.  Returns the launches per step of each
     kernel at the generation shape."""
     import gc
 
@@ -10823,7 +10902,7 @@ def cosmos3_phase(paths: dict, kernels, device: str, full_in_memory: bool, kerne
         torch.cuda.empty_cache()
     del batch, train_batch
     shutil.rmtree(c3_dir, ignore_errors=True)
-    writes = check_run_writes()  # the last phase
+    writes = {} if _runs(46) else check_run_writes()  # the last phase of this run
     phase("45 cosmos3", config="the Cosmos3 omni MoT as the JAX preset Cosmos3Config() builds it (nvidia Cosmos3 "
           "flat layout)", params=params, params_per_layer=sum(math.prod(v) for k, v in shapes.items()
                                                              if k.startswith("layers.0.")),
@@ -10836,6 +10915,432 @@ def cosmos3_phase(paths: dict, kernels, device: str, full_in_memory: bool, kerne
           avae=avae, kernel_cases=kernel_cases, allocated_gib_before_phase=baseline_gib,
           seconds=time.perf_counter() - start, device=device, **writes)
     return {"c3_gen": {k: v.get(gen_key, 0) for k, v in by_shape.items()}}
+
+
+def ltx2_flops(arch, batch: int, video_tokens: int, audio_tokens: int, text_tokens: int,
+               tokenwise: bool = False) -> tuple:
+    """Model FLOPs of one LTX-2 forward as (the adapted part, the rest): per
+    block the six attentions' projections and two products each (video self;
+    audio self; the two prompt cross-attentions, their keys and values over
+    the text; a2v with its keys and values over the audio, v2a with its over
+    the video) and the two FFNs; the projections in and out of both streams
+    and the caption MLPs (all carry adapters); then the six adaLN heads,
+    whose inputs carry no gradient: ``time_embed`` over every video token
+    when the timesteps are tokenwise, the others once a sample.  Gated
+    attention is not counted (the published config has none)."""
+    d, a, sv, sa, lt = arch.inner_dim, arch.audio_inner_dim, video_tokens, audio_tokens, text_tokens
+    ai = arch.audio_num_heads * arch.audio_head_dim
+    block = (8 * sv * d * d + 4 * sv * sv * d + 8 * sa * a * ai + 4 * sa * sa * ai
+             + 4 * sv * d * d + 4 * lt * d * d + 4 * sv * lt * d + 4 * sa * a * ai + 4 * lt * a * ai + 4 * sa * lt * ai
+             + 4 * sv * d * ai + 4 * sa * a * ai + 4 * sv * sa * ai + 4 * sa * a * ai + 4 * sv * d * ai
+             + 4 * sa * sv * ai + 16 * sv * d * d + 16 * sa * a * a)
+    trained = (arch.num_layers * block + 4 * sv * arch.in_channels * d + 4 * sa * arch.audio_in_channels * a
+               + 2 * lt * arch.caption_channels * (d + a) + 2 * lt * (d * d + a * a))
+    rows = sv if tokenwise else 1
+    frozen = (2 * rows * (256 * d + d * d + 6 * d * d) + 2 * (256 * a + a * a + 6 * a * a)
+              + 2 * (256 * d + d * d + 4 * d * d) + 2 * (256 * d + 2 * d * d)
+              + 2 * (256 * a + a * a + 4 * a * a) + 2 * (256 * a + 2 * a * a))
+    return batch * trained, batch * frozen
+
+
+def ltx2_step_flops(arch, batch: int, video_tokens: int, audio_tokens: int, text_tokens: int,
+                    tokenwise: bool = False) -> int:
+    """Model FLOPs of one LTX-2 train step (the adapted part x 3, the rest once)."""
+    trained, frozen = ltx2_flops(arch, batch, video_tokens, audio_tokens, text_tokens, tokenwise)
+    return 3 * trained + frozen
+
+
+def _ltx2_keys(video: int, audio: int) -> tuple:
+    """The "HxSqxSkxD" keys of an LTX-2 block's six attentions over ``video``
+    and ``audio`` tokens: video self, video prompt cross, a2v, v2a, audio
+    self, audio prompt cross."""
+    return (f"32x{video}x{video}x128", f"32x{video}x{L2_TEXT}x128", f"32x{video}x{audio}x64",
+            f"32x{audio}x{video}x64", f"32x{audio}x{audio}x64", f"32x{audio}x{L2_TEXT}x64")
+
+
+def _ltx2_launches(video: int, audio: int, blocks: int, audio_loss: bool) -> dict:
+    """The launches per step by shape of an LTX-2 step that checkpoints
+    every block: each attention's forward twice a block (the forward and its
+    recompute) and its dq / dkv once, except the last block's v2a without an
+    audio loss (its output reaches only the audio prediction, which then
+    reaches no loss, so no gradient runs through it)."""
+    keys = _ltx2_keys(video, audio)
+    grads = {key: blocks - (key == keys[3] and not audio_loss) for key in keys}
+    return {"flash_fwd": {key: 2 * blocks for key in keys},
+            **{kernel: {k: n for k, n in grads.items() if n} for kernel in ("flash_bwd_dq", "flash_bwd_dkv")}}
+
+
+def ltx2_phase(paths: dict, kernels, device: str, full_in_memory: bool, kernel_cases: dict) -> dict:
+    """Phase 46: LTX-2 at the JAX preset's full width (``LTX2Config()``):
+    ``ltx2_flops`` against the flop counter on two small configs (one
+    tokenwise); a seeded e4m3 diffusers transformer at ``LTX2_FILE_BLOCKS`` of
+    48 blocks with every parameter outside them, a seeded e4m3 latent
+    upsampler at ``LTX2UpsamplerConfig()`` with its config in the file's
+    metadata, hard links to phase 43's Gemma-2 and tokenizer (written here in
+    a run without them) and phase 24's two seeded 768 x 512 x 121 clips
+    linked (written here in a run without phase 24); the import held
+    bitwise; ``Trainer.run()``: the text cache at 256 tokens, the video VAE
+    cache at the family's ``video_vae_config()``, 6 graphed rank-16 LoRA
+    steps on a bf16 base (every adapter-carrying linear, all six attentions
+    of a block) with every block checkpointed and the first frame held clean
+    (``ltx2_first_frame_conditioning_probability`` 1: every DiT call takes
+    tokenwise (1, 6144) timesteps, recorded), a replay bitwise against an
+    eager step and the profiled replay held to the capture's launches by
+    shape (the JAX data plane gives no audio latents: one zero audio token,
+    and the last block's v2a takes no gradient);
+    the joint audiovisual step: 6 graphed steps through ``build_train_step``
+    on an int8 base (``quantized_matmul`` full) on a batch with 121 seeded
+    audio latent tokens and the caption mask, a replay against eager steps,
+    ``audio_loss``; the trained-stage true-CFG render and the spatial-upscale
+    render through the upsampler file, both at 768 px square and 25 frames,
+    decoded, written as mp4 and read back; one forward against the plain
+    attention on 25 frames (1,536 video and 25 audio tokens); one forward of
+    the Gemma connectors at their published config built in memory (1.43B
+    parameters, bf16) on left-padded stacked features with 180 valid tokens,
+    against the plain attention; in a run that names the phase, all 48 blocks
+    built in memory on an int8 base and their graphed joint step timed.
+    Last, the run's writes against the target.  Returns the launches per
+    step of each kernel at the joint step's six shapes and the connectors'."""
+    import gc
+
+    import torch
+
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import (
+        ltx2_checkpoint_shapes, ltx2_connector_checkpoint_shapes, ltx2_upsampler_checkpoint_shapes,
+    )
+    from simpletuner_tpu_torch.models.layers import init_adapters, init_parameters
+    from simpletuner_tpu_torch.models.ltxvideo2 import LTX2Config, LTX2Transformer, LTXVideo2
+    from simpletuner_tpu_torch.models.ltxvideo2.connectors import LTX2ConnectorConfig, LTX2TextConnectors
+    from simpletuner_tpu_torch.models.ltxvideo2.latent_upsampler import LTX2UpsamplerConfig
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.video_vae import VideoAutoencoderKL
+    from simpletuner_tpu_torch.models.weight_import import (
+        load_transformer_params, ltx2_params_from_diffusers, save_safetensors,
+    )
+    from simpletuner_tpu_torch.ops import set_attention_backend
+
+    start = time.perf_counter()
+    work = paths["work"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(46)
+
+    # (a) the flop count against the counter on two small configs, the first tokenwise
+    tiny = LTX2Config.tiny()
+    narrow = dataclasses.replace(tiny, num_heads=3, head_dim=8, audio_num_heads=2, audio_head_dim=4,
+                                 audio_cross_attention_dim=8, num_layers=1, caption_channels=12)
+    cases = []
+    for arch_, (f, h, w), sa, txt, tokenwise in ((tiny, (2, 4, 6), 5, 7, True), (narrow, (3, 2, 4), 3, 5, False)):
+        sv = f * h * w
+        t = torch.rand((2, sv), generator=torch.Generator().manual_seed(sv)) if tokenwise else torch.full((2,), 0.5)
+        cases.append((arch_, (torch.zeros(2, sv, arch_.in_channels), torch.zeros(2, sa, arch_.audio_in_channels),
+                              torch.zeros(2, txt, arch_.caption_channels), t, f, h, w), (sv, sa, txt, tokenwise)))
+    flop_checks = _flop_checks(_x3(ltx2_flops), LTX2Transformer, cases)
+    full = LTX2Config()
+    if (full.inner_dim, full.num_heads, full.head_dim, full.audio_inner_dim, full.audio_num_heads,
+            full.audio_head_dim, full.num_layers, full.in_channels, full.audio_in_channels,
+            full.caption_channels, full.gated_attn, full.audio_gated_attn) != \
+            (4096, 32, 128, 2048, 32, 64, 48, 128, 128, 3840, False, False):
+        raise RuntimeError(f"not the JAX preset of LTX-2: {full}")
+    if L2_TOKENS != 6144:
+        raise RuntimeError(f"ltxvideo2: {L2_LATENT} latents give {L2_TOKENS} video tokens")
+    arch = dataclasses.replace(full, num_layers=LTX2_FILE_BLOCKS)
+    depth = arch.num_layers
+    shapes, up_cfg = ltx2_checkpoint_shapes(arch), LTX2UpsamplerConfig()
+    up_shapes = ltx2_upsampler_checkpoint_shapes(up_cfg)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    up_bytes = sum(math.prod(shape) for shape in up_shapes.values())
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + up_bytes + 8e9 or \
+            written_before + PHASE46_WRITE_GB + _reserved(46) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"ltxvideo2: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
+                           f"phase; it writes {PHASE46_WRITE_GB:.2f} GB of the {RUN_WRITE_TARGET_GB} GB a run may "
+                           "write")
+
+    # (b) the seeded transformer (two e4m3 shards), the upsampler, Gemma-2 linked (or written), two clips
+    root = os.path.join(work, "ltxvideo2")
+    weights, write_s = _write_e4m3_transformer(root, shapes, gen)
+    up_path = os.path.join(work, "ltx2_spatial_upscaler.safetensors")
+    up_weights = {k: v.to(torch.float8_e4m3fn) for k, v in seeded_weights(up_shapes, gen).items()}
+    t0 = time.perf_counter()
+    save_safetensors(up_weights, up_path, metadata={"config": json.dumps({"dims": 3, **dataclasses.asdict(up_cfg)})})
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "blocks": [depth, full.num_layers],
+             "outside_blocks": sum(math.prod(v) for k, v in shapes.items() if not k.startswith("transformer_blocks.")),
+             "upsampler": {"gb": up_bytes / 1e9, "params": up_bytes, "write_s": time.perf_counter() - t0,
+                           "config": dataclasses.asdict(up_cfg)}}
+    gemma = paths.get("gemma_root")
+    if gemma and os.path.isdir(os.path.join(gemma, "text_encoder")):
+        for sub in ("text_encoder", "tokenizer"):
+            _link_tree(os.path.join(gemma, sub), os.path.join(root, sub))
+        files["gemma2"] = {"linked_from_phase": 43, "layers": [GEMMA_FILE_LAYERS, 26]}
+    else:
+        files["gemma2"] = {"written_by_phase": 46, "layers": [GEMMA_FILE_LAYERS, 26], "write_s":
+                           write_gemma_trunk(os.path.join(root, "text_encoder"), GEMMA_FILE_LAYERS, gen)}
+        write_gemma_tokenizer(os.path.join(root, "tokenizer"), " ".join(TRAIN_CAPTIONS + [L2_PROMPT]).split())
+    data, cache = os.path.join(work, "ltxvideo2_data"), os.path.join(work, "ltxvideo2_cache")
+    clips = paths.get("ltx_clips")
+    if clips and os.path.isdir(clips) and (L2_CLIPS, L2_FRAMES, L2_HEIGHT, L2_WIDTH) == \
+            (LTX_CLIPS, LTX_FRAMES, LTX_HEIGHT, LTX_WIDTH):
+        _link_tree(clips, data)
+        files["clips"] = {"linked_from_phase": 24, "clips": L2_CLIPS}
+    else:
+        files.update(_write_clips(data, L2_CLIPS, L2_FRAMES, L2_HEIGHT, L2_WIDTH, 25, 46))
+    files.update({"written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9})
+
+    # (c) the import, bitwise
+    model = ModelRegistry.create("ltxvideo2", config_namespace({"model_family": "ltxvideo2", "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"ltxvideo2: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, root, weights, ltx2_params_from_diffusers, file_bytes)
+    params = sum(math.prod(v) for v in ltx2_checkpoint_shapes(full).values())
+    del weights, module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) Trainer.run() on the clips: bf16 base, every block checkpointed, the first frame clean
+    out = os.path.join(work, "ltxvideo2_train")
+    config = _video_config("ltxvideo2", root, data, cache, out, L2_FRAMES, L2_TRAIN_STEPS, alignment=32,
+                           ltx2_first_frame_conditioning_probability=1.0)
+    # no JAX data path gives audio latents: one zero audio token, and no audio loss
+    train_launches = _ltx2_launches(L2_TOKENS, 1, depth, audio_loss=False)
+    timestep_shapes = []  # the DiT's timesteps at each eager call (the warm-up steps, the capture, the eager check)
+    forward = LTX2Transformer.forward
+
+    def recording(self, *args, **kwargs):
+        timestep_shapes.append(tuple((kwargs["timesteps"] if "timesteps" in kwargs else args[3]).shape))
+        return forward(self, *args, **kwargs)
+
+    def check(trainer) -> dict:
+        import numpy as np
+
+        bundle = trainer.data_plane.bundles["clips"]
+        buckets = sorted(bundle.metadata_backend.aspect_ratio_bucket_indices)
+        clip_paths = [p for key in buckets for p in bundle.metadata_backend.aspect_ratio_bucket_indices[key]]
+        cached = [bundle.vae_cache.load(p) for p in clip_paths]
+        batch = trainer._example_batch()
+        text = {k: tuple(v.shape) for k, v in batch.items() if k.startswith("text")}
+        if trainer.model.arch != arch or len(clip_paths) != L2_CLIPS or \
+                not isinstance(trainer.vae, VideoAutoencoderKL) or \
+                trainer.vae.config != trainer.model.video_vae_config() or \
+                any(c.shape != L2_LATENT + (128,) or not np.isfinite(c).all() for c in cached) or \
+                text != {"text_embeds": (1, L2_TEXT, full.caption_channels)} or \
+                set(timestep_shapes) != {(1, L2_TOKENS)}:
+            raise RuntimeError(f"ltxvideo2 trainer: arch {trainer.model.arch}, buckets {buckets}, VAE "
+                               f"{trainer.vae.config}, cached {[c.shape for c in cached]}, batch {text}, the DiT's "
+                               f"timesteps {sorted(set(timestep_shapes))}")
+        startup = trainer.data_plane.startup_metrics
+        return {"buckets": buckets, "latents": list(cached[0].shape), "vae": "the family's video_vae_config() "
+                "(128 latent channels, 32x spatial, 8x temporal)",
+                "cache": {"text_s": startup.get("text_cache_clips_s"), "vae_s": startup.get("vae_cache_clips_s")},
+                **_graph_matches_eager(trainer, ("loss", "grad_norm")),
+                "dit_timesteps": sorted(set(timestep_shapes)), "dit_calls": len(timestep_shapes)}
+
+    LTX2Transformer.forward = recording
+    try:
+        train = _train_graphed(config, kernels, L2_TRAIN_STEPS, _totals(train_launches),
+                               ltx2_step_flops(arch, 1, L2_TOKENS, 1, L2_TEXT, tokenwise=True), check)
+    finally:
+        LTX2Transformer.forward = forward
+    if train["launches_per_step_by_shape"] != train_launches:
+        raise RuntimeError(f"ltxvideo2 trainer: launches per step by shape {train['launches_per_step_by_shape']}")
+    train.update({"base": "bf16", "remat": "every block", "lora_rank": 16, "audio_tokens": 1,
+                  "lora_targets": "every adapter-carrying linear (no code reads DEFAULT_LORA_TARGET): the six "
+                                  "attentions, the FFNs, the projections and caption MLPs", "flop_checks": flop_checks})
+    shutil.rmtree(out, ignore_errors=True)
+
+    # (e) the joint audiovisual step through build_train_step on an int8 base, the caption mask riding
+    joint_values = {**_graph_train_values("ltxvideo2", L2_TRAIN_STEPS), "ltx2_first_frame_conditioning_probability": 1.0}
+    joint_model = LTXVideo2(config_namespace(joint_values))
+    with torch.device(dev):
+        joint_module = load_transformer_params(joint_model, init_adapters(joint_model.create_module(), gen), root)
+    joint_batch = {"latents": torch.randn((1,) + L2_LATENT + (128,), generator=gen, device=dev),
+                   "audio_latents": torch.randn((1, L2_AUDIO, 128), generator=gen, device=dev),
+                   "text_embeds": torch.randn((1, L2_TEXT, full.caption_channels), generator=gen, device=dev),
+                   "text_attention_mask": (torch.arange(L2_TEXT, device=dev) < L2_VALID)[None].to(torch.int32)}
+    joint_launches = _ltx2_launches(L2_TOKENS, L2_AUDIO, depth, audio_loss=True)
+    joint = _graph_vs_eager(joint_model, joint_module, joint_batch, kernels, L2_TRAIN_STEPS, _totals(joint_launches),
+                            ltx2_step_flops(arch, 1, L2_TOKENS, L2_AUDIO, L2_TEXT, tokenwise=True),
+                            metric_keys=("audio_loss",))
+    by_shape = joint["launches_per_step_by_shape"]
+    if by_shape != joint_launches or not 0 < joint["audio_loss"] < float("inf"):
+        raise RuntimeError(f"ltxvideo2 joint step: launches per step by shape {by_shape}, audio_loss "
+                           f"{joint['audio_loss']}")
+    joint.update({"base": "int8", "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                  "audio_tokens": L2_AUDIO, "caption_valid": L2_VALID})
+    del joint_module, joint_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) the trained-stage true-CFG render, then the spatial-upscale render through the upsampler file
+    render, runtime = _video_render(work, "ltxvideo2", root, "ltxvideo2", kernels, L2_PROMPT, L2_GUIDANCE,
+                                    L2_RENDER_SIZE, L2_RENDER_FRAMES, 6 * depth)
+    render["tokens"] = ((L2_RENDER_FRAMES - 1) // 8 + 1) * (L2_RENDER_SIZE // 32) ** 2
+    module, model = runtime.module, runtime.model
+    if model.arch != arch or model.NAME != "ltxvideo2":
+        raise RuntimeError(f"ltxvideo2: the runtime built {model.NAME} {model.arch}")
+    for target in {id(runtime.config): runtime.config, id(model.config): model.config}.values():
+        target.ltx2_validation_pipeline_mode = "spatial-upscale"
+        target.ltx2_validation_spatial_upsampler_model = up_path
+    timed = _timed_render(runtime, kernels, L2_PROMPT, 1.0)
+    upsampler = model._latent_upsampler
+    stage_forwards = STEPS + len(LTXVideo2.LTX2_STAGE2_SIGMAS)
+    rendered = timed["rendered"]
+    read = _mp4_frame_shapes(rendered[0]) if rendered and rendered[0].endswith(".mp4") else []
+    if upsampler is None or upsampler.config != up_cfg or \
+            not torch.equal(upsampler.initial_conv.weight, up_weights["initial_conv.weight"].to(torch.float32)) or \
+            timed["launches"] != {"flash_fwd": 6 * depth * stage_forwards, "flash_bwd_dq": 0, "flash_bwd_dkv": 0} or \
+            len(timed["forward_s"]) != stage_forwards or timed["finite"] != [True] or \
+            len(read) != L2_RENDER_FRAMES or set(read) != {(L2_RENDER_SIZE, L2_RENDER_SIZE, 3)}:
+        raise RuntimeError(f"ltxvideo2 spatial-upscale render: upsampler {upsampler and upsampler.config}, "
+                           f"launches {timed['launches']}, {len(timed['forward_s'])} forwards, finite "
+                           f"{timed['finite']}, the mp4 holds {len(read)} frames of {set(read)}")
+    upscale = {"render_s": timed["render_s"], "forward_s": timed["forward_s"], "steps": [STEPS, 3],
+               "stage_tokens": [((L2_RENDER_FRAMES - 1) // 8 + 1) * (L2_RENDER_SIZE // 64) ** 2, render["tokens"]],
+               "stage2_sigmas": list(LTXVideo2.LTX2_STAGE2_SIGMAS), "vae_decode_s": timed["decode_s"][0],
+               "peak_gib": timed["peak_gib"], "launches": timed["launches"],
+               "launches_by_shape": timed["launches_by_shape"], "mp4": os.path.basename(rendered[0]),
+               "mp4_frames": len(read), "upsampler_params": sum(p.numel() for p in upsampler.parameters()),
+               "upsampler_from": "the seeded e4m3 file, its config from the metadata, held bitwise"}
+    for target in {id(runtime.config): runtime.config, id(model.config): model.config}.values():
+        target.ltx2_validation_pipeline_mode = "trained-stage"
+
+    # (g) 16 prompts through Gemma-2 and the tile to 3840; the parity forward on 25
+    # frames with 25 audio tokens and the prompt's mask
+    from simpletuner_tpu_torch.bench_cache import prompts_for
+
+    prompts = [f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]}, {p}" for i, p in enumerate(prompts_for(TEXT_PROMPTS))]
+    t0 = time.perf_counter()
+    payloads = model.encode_text(prompts)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    if any(p["text_embeds"].shape != (L2_TEXT, full.caption_channels) for p in payloads):
+        raise RuntimeError(f"ltxvideo2 encode_text: {[p['text_embeds'].shape for p in payloads]}")
+    text = {"prompts": len(prompts), "tokens": L2_TEXT, "s": encode_s, "prompts_per_s": len(prompts) / encode_s,
+            "gemma2_width_tiled_to": full.caption_channels}
+    (payload,) = model.encode_text([L2_PROMPT])
+    caption_valid = int(payload["attention_mask"].sum())
+    parity_latent = ((L2_PARITY_FRAMES - 1) // 8 + 1, L2_LATENT[1], L2_LATENT[2])
+    tokens = math.prod(parity_latent)
+    model.text_encoders = []  # the plain attention's scores need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    inputs = {"video_tokens": torch.randn((1, tokens, 128), generator=gen, device=dev),
+              "audio_tokens": torch.randn((1, L2_PARITY_AUDIO, 128), generator=gen, device=dev),
+              "text_embeds": torch.as_tensor(payload["text_embeds"], device=dev)[None],
+              "timesteps": torch.full((1,), L2_SIGMA, device=dev), "num_frames": parity_latent[0],
+              "height": parity_latent[1], "width": parity_latent[2],
+              "text_mask": torch.as_tensor(payload["attention_mask"], device=dev)[None]}
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    with torch.no_grad():
+        kernel_out = module(**inputs)
+        launches = _per_shape(kernels)
+        set_attention_backend("xla")
+        try:
+            plain_out = module(**inputs)
+        finally:
+            set_attention_backend("auto")
+        forward_ms = cuda_ms(lambda: module(**inputs), 3, warmup=1)
+    parity_rel = [rel_l2(a, b) for a, b in zip(kernel_out, plain_out)]
+    if launches["flash_fwd"] != {k: depth for k in _ltx2_keys(tokens, L2_PARITY_AUDIO)} or \
+            not all(torch.isfinite(x).all() for x in kernel_out + plain_out) or max(parity_rel) > PARITY_REL_L2 or \
+            not 1 < caption_valid < L2_TEXT:
+        raise RuntimeError(f"ltxvideo2 parity: rel L2 (video, audio) {parity_rel} (<= {PARITY_REL_L2}), launches "
+                           f"{launches}, caption {caption_valid} valid of {L2_TEXT}")
+    parity = {"rel_l2": {"video": parity_rel[0], "audio": parity_rel[1]}, "bound": PARITY_REL_L2,
+              "sigma": L2_SIGMA, "forward_ms": forward_ms, "frames": L2_PARITY_FRAMES,
+              "tokens": {"video": tokens, "audio": L2_PARITY_AUDIO, "text": L2_TEXT, "text_valid": caption_valid},
+              "launches_by_shape": launches}
+    del runtime, module, model, inputs, kernel_out, plain_out, upsampler
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (h) the Gemma connectors at their published config, built in memory, left-padded features
+    ccfg = LTX2ConnectorConfig()
+    with torch.device(dev):
+        connectors = init_parameters(LTX2TextConnectors(ccfg, torch.bfloat16), gen)
+    connector_params = sum(p.numel() for p in connectors.parameters())
+    if connector_params != sum(math.prod(v) for v in ltx2_connector_checkpoint_shapes(ccfg).values()):
+        raise RuntimeError(f"ltxvideo2 connectors: {connector_params} parameters against the layout's")
+    stacked = torch.randn((1, L2_TEXT, ccfg.caption_channels * ccfg.text_proj_in_factor), generator=gen, device=dev)
+    mask = (torch.arange(L2_TEXT, device=dev) >= L2_TEXT - L2_VALID)[None].to(torch.int32)
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    with torch.no_grad():
+        video_c, audio_c = connectors(stacked, mask)
+        connector_launches = _per_shape(kernels)
+        set_attention_backend("xla")
+        try:
+            plain_c = connectors(stacked, mask)
+        finally:
+            set_attention_backend("auto")
+        connector_ms = cuda_ms(lambda: connectors(stacked, mask), 3, warmup=1)
+    connector_rel = [rel_l2(a, b) for a, b in zip((video_c, audio_c), plain_c)]
+    connector_key = f"{ccfg.num_heads}x{L2_TEXT}x{L2_TEXT}x{ccfg.head_dim}"
+    if connector_launches["flash_fwd"] != {connector_key: 2 * ccfg.num_layers} or max(connector_rel) > PARITY_REL_L2 \
+            or tuple(video_c.shape) != (1, L2_TEXT, ccfg.inner_dim) or not torch.isfinite(video_c).all():
+        raise RuntimeError(f"ltxvideo2 connectors: rel L2 {connector_rel}, launches {connector_launches}, "
+                           f"out {tuple(video_c.shape)}")
+    connector = {"params": connector_params, "dtype": "bfloat16", "tokens": L2_TEXT, "valid": L2_VALID,
+                 "stacked_width": ccfg.caption_channels * ccfg.text_proj_in_factor, "forward_ms": connector_ms,
+                 "rel_l2_against_plain": {"video": connector_rel[0], "audio": connector_rel[1]},
+                 "bound": PARITY_REL_L2, "launches_by_shape": connector_launches}
+    del connectors, stacked, video_c, audio_c, plain_c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (i) in a run that names the phase: all 48 blocks built in memory, int8, the joint step graphed
+    full_depth = None
+    if full_in_memory:
+        deep = LTXVideo2(config_namespace(joint_values), arch=full)
+        deep_launches = _ltx2_launches(L2_TOKENS, L2_AUDIO, full.num_layers, audio_loss=True)
+        full_depth = _graph_vs_eager(deep, _drawn_in_memory(deep, gen), joint_batch, kernels, L2_FULL_STEPS,
+                                     _totals(deep_launches),
+                                     ltx2_step_flops(full, 1, L2_TOKENS, L2_AUDIO, L2_TEXT, tokenwise=True),
+                                     metric_keys=("audio_loss",))
+        if full_depth["launches_per_step_by_shape"] != deep_launches:
+            raise RuntimeError(f"ltxvideo2 48 blocks: launches per step by shape "
+                               f"{full_depth['launches_per_step_by_shape']}")
+        full_depth.update({"blocks": [full.num_layers] * 2, "base": "int8 (built in memory)",
+                           "quantized_matmul": "full", "remat": "every block", "lora_rank": 16,
+                           "audio_tokens": L2_AUDIO})
+        del deep
+        gc.collect()
+        torch.cuda.empty_cache()
+    del joint_batch, up_weights
+    for name in ("ltxvideo2", "ltxvideo2_data", "ltxvideo2_cache", "ltxvideo2_render", "ltx2_spatial_upscaler.safetensors",
+                 "sana", "ltx_data"):
+        target = os.path.join(work, name)
+        if os.path.isdir(target):
+            shutil.rmtree(target, ignore_errors=True)
+        elif os.path.exists(target):
+            os.remove(target)
+    writes = check_run_writes()  # the last phase
+    phase("46 ltxvideo2", config="Lightricks/LTX-2 transformer/ as the JAX preset LTX2Config() builds it",
+          params=params, params_per_block=sum(math.prod(v) for k, v in shapes.items()
+                                              if k.startswith("transformer_blocks.0.")),
+          hidden={"video": full.inner_dim, "audio": full.audio_inner_dim},
+          heads={"video": [full.num_heads, full.head_dim], "audio": [full.audio_num_heads, full.audio_head_dim]},
+          depth={"file": [depth, full.num_layers], "train": [depth, full.num_layers],
+                 "in_memory": [full.num_layers if full_in_memory else 0, full.num_layers]},
+          clip=[L2_FRAMES, L2_HEIGHT, L2_WIDTH], latents=list(L2_LATENT) + [128],
+          tokens={"video": L2_TOKENS, "audio": L2_AUDIO, "text": L2_TEXT}, files=files, imported=imported,
+          text=text, train=train, joint=joint, render=render, upscale_render=upscale, parity=parity,
+          connectors=connector,
+          full_depth=full_depth, kernel_cases=kernel_cases, allocated_gib_before_phase=baseline_gib,
+          seconds=time.perf_counter() - start, device=device, **writes)
+    out = {case[0]: {k: v.get(key, 0) for k, v in by_shape.items()}
+           for case, key in zip(LTX2_KERNEL_CASES, _ltx2_keys(L2_TOKENS, L2_AUDIO))}
+    out["l2_connector"] = {k: v.get(connector_key, 0) for k, v in connector_launches.items()}
+    return out
 
 
 def int8_cases() -> None:
@@ -11560,7 +12065,7 @@ def main() -> int:
     launches = {"main": None, "auraflow": {}, "wan": {}, "ltx": {}, "chroma": None, "lumina2": {}, "kandinsky5": {},
                 "hunyuanvideo": {}, "qwen_image": {}, "hidream": {}, "flux2": {}, "kolors": {}, "longcat_image": {},
                 "z_image_omni": {}, "zlab_i1": {}, "krea2": {}, "cosmos": {}, "anima": {}, "omnigen": {}, "ernie": {},
-                "ideogram": {}, "longcat_video": {}, "sana": {}, "sanavideo": {}, "cosmos3": {}}
+                "ideogram": {}, "longcat_video": {}, "sana": {}, "sanavideo": {}, "cosmos3": {}, "ltxvideo2": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         checkpoints = weight_import(work) if _runs(14) else {"work": work}
         encoders = text_encoders(checkpoints) if _runs(15) else None
@@ -11612,6 +12117,7 @@ def main() -> int:
         from simpletuner_tpu_torch.models.longcat_image import LongcatImage
         from simpletuner_tpu_torch.models.longcat_video import LongcatVideo
         from simpletuner_tpu_torch.models.ltxvideo import LTXConfig, LTXVideo
+        from simpletuner_tpu_torch.models.ltxvideo2 import LTXVideo2
         from simpletuner_tpu_torch.models.lumina2 import Lumina2, Lumina2Config
         from simpletuner_tpu_torch.models.mageflow import ZImage
         from simpletuner_tpu_torch.models.omnigen import OmniGen
@@ -11763,7 +12269,12 @@ def main() -> int:
                 launches["cosmos3"] = cosmos3_phase(
                     checkpoints, kernels, smi, 45 in (RUN["requested"] or ()),
                     {k: v for k, v in {**long_fwd_entries, **bwd_entries}.items() if k.endswith("c3_gen")})
-        else:
+        if _runs(46):
+            with family_depth(LTXVideo2, num_layers=LTX2_FILE_BLOCKS):
+                launches["ltxvideo2"] = ltx2_phase(
+                    checkpoints, kernels, smi, 46 in (RUN["requested"] or ()),
+                    {k: v for k, v in {**long_fwd_entries, **bwd_entries}.items() if "_l2_" in k})
+        elif not _runs(45):
             check_run_writes()
 
     # each wrapper's rows: at the Flux shape (launches: the profiler's count in
@@ -11793,7 +12304,8 @@ def main() -> int:
                           ("z_image_omni", ZO_KERNEL_CASES), ("zlab_i1", ZL_KERNEL_CASES), ("krea2", K2_KERNEL_CASES),
                           ("cosmos", CO_KERNEL_CASES), ("omnigen", OG_KERNEL_CASES), ("ernie", ER_KERNEL_CASES),
                           ("ideogram", ID_KERNEL_CASES), ("longcat_video", LV_KERNEL_CASES), ("sana", SA_KERNEL_CASES),
-                          ("sanavideo", SV_KERNEL_CASES), ("cosmos3", COSMOS3_KERNEL_CASES)):
+                          ("sanavideo", SV_KERNEL_CASES), ("cosmos3", COSMOS3_KERNEL_CASES),
+                          ("ltxvideo2", LTX2_KERNEL_CASES)):
         if launches[family]:
             rows += [(f"{name}_{case[0]}", f"{name}_{case[0]}", name, launches[family][case[0]])
                      for case in cases for name in sources]
@@ -11801,7 +12313,8 @@ def main() -> int:
         rows += [(f"{name}_anima_{case}", f"{name}_{case}", name, launches["anima"][case])
                  for case in ("co_self", "co_cross") for name in sources]
     # the forward-only shapes (text stage, adapter: no gradient reaches them)
-    for family, cases in (("krea2", K2_FUSION_CASES), ("anima", AN_ADAPTER_CASES)):
+    for family, cases in (("krea2", K2_FUSION_CASES), ("anima", AN_ADAPTER_CASES),
+                          ("ltxvideo2", LTX2_CONNECTOR_CASES)):
         if launches[family]:
             rows += [(f"flash_fwd_{case[0]}", f"flash_fwd_{case[0]}", "flash_fwd", launches[family][case[0]])
                      for case in cases]

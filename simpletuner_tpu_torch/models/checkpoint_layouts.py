@@ -1226,6 +1226,103 @@ def sanavideo_checkpoint_shapes(arch) -> Dict[str, tuple]:
                        f"{src}.ff.conv_point.weight": (d, hidden, 1, 1), f"{src}.ff.conv_temp.weight": (d, d, 3, 1)})
     return shapes
 
+
+def ltx2_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of an ``LTX2VideoTransformer3DModel`` of
+    ``arch`` (``models/ltxvideo2/transformer.py::LTX2Config``) as
+    ``ltx2_params_from_diffusers`` reads it: the projections in and out of
+    both streams, the two caption MLPs, the six adaLN heads, the (2, dim)
+    tables, and per block the four modulation tables, the six attentions
+    (biased q / k / v / out, the across-heads norms, the gate logits of a
+    gated stream) and the two FFNs."""
+    d, a = arch.inner_dim, arch.audio_inner_dim
+    a_inner = arch.audio_num_heads * arch.audio_head_dim
+    shapes: Dict[str, tuple] = {"scale_shift_table": (2, d), "audio_scale_shift_table": (2, a)}
+    table = [("proj_in", d, arch.in_channels), ("audio_proj_in", a, arch.audio_in_channels),
+             ("caption_projection.linear_1", d, arch.caption_channels), ("caption_projection.linear_2", d, d),
+             ("audio_caption_projection.linear_1", a, arch.caption_channels),
+             ("audio_caption_projection.linear_2", a, a),
+             ("proj_out", arch.in_channels, d), ("audio_proj_out", arch.audio_in_channels, a)]
+    for name, width, n in (("time_embed", d, 6), ("audio_time_embed", a, 6), ("av_cross_attn_video_scale_shift", d, 4),
+                           ("av_cross_attn_video_a2v_gate", d, 1), ("av_cross_attn_audio_scale_shift", a, 4),
+                           ("av_cross_attn_audio_v2a_gate", a, 1)):
+        table += [(f"{name}.emb.timestep_embedder.linear_1", width, 256),
+                  (f"{name}.emb.timestep_embedder.linear_2", width, width), (f"{name}.linear", n * width, width)]
+    for i in range(arch.num_layers):
+        src = f"transformer_blocks.{i}"
+        shapes.update({f"{src}.scale_shift_table": (6, d), f"{src}.audio_scale_shift_table": (6, a),
+                       f"{src}.video_a2v_cross_attn_scale_shift_table": (5, d),
+                       f"{src}.audio_a2v_cross_attn_scale_shift_table": (5, a)})
+        for attn, query, kv, inner, heads, gated in (
+                ("attn1", d, d, d, arch.num_heads, arch.gated_attn),
+                ("audio_attn1", a, a, a_inner, arch.audio_num_heads, arch.audio_gated_attn),
+                ("attn2", d, d, d, arch.num_heads, arch.gated_attn),
+                ("audio_attn2", a, a, a_inner, arch.audio_num_heads, arch.audio_gated_attn),
+                ("audio_to_video_attn", d, a, a_inner, arch.audio_num_heads, arch.gated_attn),
+                ("video_to_audio_attn", a, d, a_inner, arch.audio_num_heads, arch.audio_gated_attn)):
+            table += [(f"{src}.{attn}.to_q", inner, query), (f"{src}.{attn}.to_k", inner, kv),
+                      (f"{src}.{attn}.to_v", inner, kv), (f"{src}.{attn}.to_out.0", query, inner)]
+            if gated:
+                table.append((f"{src}.{attn}.to_gate_logits", heads, query))
+            shapes.update({f"{src}.{attn}.norm_q.weight": (inner,), f"{src}.{attn}.norm_k.weight": (inner,)})
+        for ff, width in (("ff", d), ("audio_ff", a)):
+            table += [(f"{src}.{ff}.net.0.proj", 4 * width, width), (f"{src}.{ff}.net.2", width, 4 * width)]
+    _linears(shapes, table)
+    return shapes
+
+
+def ltx2_upsampler_checkpoint_shapes(config) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of an LTX-2 latent upsampler of
+    ``config`` (``models/ltxvideo2/latent_upsampler.py::LTX2UpsamplerConfig``)
+    as ``ltx2_upsampler_params`` reads it."""
+    mid, shapes = config.mid_channels, {}
+
+    def conv(name, out_channels, in_channels, kernel=(3, 3, 3)):
+        shapes[f"{name}.weight"] = (out_channels, in_channels, *kernel)
+        shapes[f"{name}.bias"] = (out_channels,)
+
+    def norm(name):
+        shapes[f"{name}.weight"] = shapes[f"{name}.bias"] = (mid,)
+
+    conv("initial_conv", mid, config.in_channels)
+    norm("initial_norm")
+    for prefix in ("res_blocks", "post_upsample_res_blocks"):
+        for i in range(config.num_blocks_per_stage):
+            for j in (1, 2):
+                conv(f"{prefix}.{i}.conv{j}", mid, mid)
+                norm(f"{prefix}.{i}.norm{j}")
+    if config.spatial_upsample and config.temporal_upsample:
+        conv("upsampler.0", 8 * mid, mid)
+    elif config.spatial_upsample and config.rational_resampler:
+        num = {0.75: 3, 1.5: 3, 2.0: 2, 4.0: 4}[float(config.spatial_scale)]
+        conv("upsampler.conv", num * num * mid, mid, (3, 3))
+    elif config.spatial_upsample:
+        conv("upsampler.0", 4 * mid, mid, (3, 3))
+    else:
+        conv("upsampler.0", 2 * mid, mid)
+    conv("final_conv", config.in_channels, mid)
+    return shapes
+
+
+def ltx2_connector_checkpoint_shapes(config) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of ``LTX2TextConnectors`` of ``config``
+    (``models/ltxvideo2/connectors.py::LTX2ConnectorConfig``) as
+    ``ltx2_connector_params`` reads it."""
+    dim = config.inner_dim
+    shapes: Dict[str, tuple] = {"text_proj_in.weight": (config.caption_channels,
+                                                        config.caption_channels * config.text_proj_in_factor)}
+    for prefix in ("video_connector", "audio_connector"):
+        shapes[f"{prefix}.learnable_registers"] = (config.num_registers, dim)
+        table = []
+        for i in range(config.num_layers):
+            src = f"{prefix}.transformer_blocks.{i}"
+            table += [(f"{src}.attn1.{name}", dim, dim) for name in ("to_q", "to_k", "to_v", "to_out.0")]
+            table += [(f"{src}.ff.net.0.proj", 4 * dim, dim), (f"{src}.ff.net.2", dim, 4 * dim)]
+            shapes.update({f"{src}.attn1.norm_q.weight": (dim,), f"{src}.attn1.norm_k.weight": (dim,)})
+        _linears(shapes, table)
+    return shapes
+
+
 def vae_checkpoint_shapes(vae: nn.Module, legacy_attention: bool = False) -> Dict[str, tuple]:
     """Tensor names and torch shapes of a diffusers ``AutoencoderKL``
     checkpoint for the port's ``vae`` module, ``quant_conv`` and

@@ -10,7 +10,7 @@ its metadata; ``flux``, ``sd3``, ``sdxl``, ``sd1x``, ``sd2x``,
 ``mageflow``, ``z_image``, ``hidream``, ``flux2``, ``kolors``,
 ``longcat_image``, ``z_image_omni``, ``zlab_i1``, ``boogu_image``, ``krea2``,
 ``cosmos``, ``anima``, ``omnigen``, ``ernie``, ``ideogram``,
-``longcat_video``, ``sana``, ``sanavideo`` and ``cosmos3`` are ported
+``longcat_video``, ``sana``, ``sanavideo``, ``cosmos3`` and ``ltxvideo2`` are ported
 (with the JAX aliases ``sd15``, ``sd21``, ``pixart`` and ``kandinsky5-image``),
 so ``get`` of any other family raises naming ROADMAP Queue 1
 item 6, and an unknown name raises ``KeyError`` as in the JAX registry.
@@ -70,7 +70,7 @@ ALIASES = {"sd15": "sd1x", "sd21": "sd2x", "pixart": "pixart_sigma", "ltx2": "lt
 PORTED = ("flux", "sd3", "sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "chroma", "lumina2",
           "kandinsky5_image", "kandinsky5_video", "hunyuanvideo", "qwen_image", "mageflow", "z_image", "hidream",
           "flux2", "kolors", "longcat_image", "z_image_omni", "zlab_i1", "boogu_image", "krea2", "cosmos", "anima",
-          "omnigen", "ernie", "ideogram", "longcat_video", "sana", "sanavideo", "cosmos3")
+          "omnigen", "ernie", "ideogram", "longcat_video", "sana", "sanavideo", "cosmos3", "ltxvideo2")
 
 
 class ModelRegistry:
@@ -213,6 +213,10 @@ class ModelRegistry:
             from .cosmos3 import Cosmos3
 
             return Cosmos3
+        if family == "ltxvideo2":
+            from .ltxvideo2 import LTXVideo2
+
+            return LTXVideo2
         raise NotImplementedError(f"model_family={name!r} is not ported (only {', '.join(PORTED)}; "
                                   "ROADMAP Queue 1 item 6)")
 

@@ -35,7 +35,8 @@ the diffusers ``CosmosTransformer3DModel`` layout and Anima its adapter with a
 layout and Ideogram the ``Ideogram4Transformer`` layout (``transformer/``);
 LongCat-Video the ``LongCatVideoTransformer3DModel`` layout, Sana the diffusers
 ``SanaTransformer2DModel`` layout and Sana-Video the ``SanaVideoTransformer3DModel``
-layout (``transformer/``); Cosmos3 the flat ``Cosmos3OmniTransformer`` layout.
+layout (``transformer/``); Cosmos3 the flat ``Cosmos3OmniTransformer`` layout;
+LTX-2 the diffusers ``LTX2VideoTransformer3DModel`` layout (``transformer/``).
 
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
 keeps f32, bf16 and fp8 (e4m3) leaves in the file's dtype (``_float``; the
@@ -54,8 +55,8 @@ read from disk when it is first used.  Only the ``flux``, ``sd3``, ``sdxl``,
 ``lumina2``, ``kandinsky5_video``, ``kandinsky5_image``, ``hunyuanvideo``, ``qwen_image``,
 ``mageflow``, ``z_image``, ``hidream``, ``flux2``, ``kolors``, ``longcat_image``,
 ``z_image_omni``, ``zlab_i1``, ``boogu_image``, ``krea2``, ``cosmos``, ``anima``, ``omnigen``,
-``ernie``, ``ideogram``, ``longcat_video``, ``sana``, ``sanavideo`` and ``cosmos3`` families
-import; every other family raises.
+``ernie``, ``ideogram``, ``longcat_video``, ``sana``, ``sanavideo``, ``cosmos3`` and ``ltxvideo2``
+families import; every other family raises.
 """
 
 from __future__ import annotations
@@ -156,6 +157,13 @@ def save_safetensors(
             host = tensor.to("cpu").contiguous().reshape(-1)
             handle.write(host.view(torch.uint8).numpy().data)
     os.replace(tmp, path)
+
+
+def safetensors_metadata(path: str) -> Dict[str, str]:
+    """The ``__metadata__`` of one ``.safetensors`` file ({} without one)."""
+    with open(path, "rb") as handle:
+        (length,) = struct.unpack("<Q", handle.read(8))
+        return dict(json.loads(handle.read(length)).get("__metadata__") or {})
 
 
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
@@ -1909,6 +1917,73 @@ def load_cosmos3_params(model, path: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------------
+# LTX-2 (the diffusers LTX2VideoTransformer3DModel layout: six attentions and two
+# FFNs per dual-modal block)
+# ---------------------------------------------------------------------------------
+
+
+def _ltx2_adaln(w: Mapping[str, torch.Tensor], src: str) -> Dict[str, Any]:
+    return {"in_layer": _linear(w, f"{src}.emb.timestep_embedder.linear_1"),
+            "out_layer": _linear(w, f"{src}.emb.timestep_embedder.linear_2"), "mod": _linear(w, f"{src}.linear")}
+
+
+def _ltx2_attn(w: Mapping[str, torch.Tensor], src: str, gated: bool) -> Dict[str, Any]:
+    out = {name: _linear(w, f"{src}.{name}") for name in ("to_q", "to_k", "to_v")}
+    out.update(norm_q=_float(w[f"{src}.norm_q.weight"]), norm_k=_float(w[f"{src}.norm_k.weight"]),
+               to_out=_linear(w, f"{src}.to_out.0"))
+    if gated:
+        out["to_gate_logits"] = _linear(w, f"{src}.to_gate_logits")
+    return out
+
+
+_LTX2_ADALN = (("time_embed", "time_embed"), ("audio_time_embed", "audio_time_embed"),
+               ("av_ca_video_scale_shift", "av_cross_attn_video_scale_shift"),
+               ("av_ca_video_a2v_gate", "av_cross_attn_video_a2v_gate"),
+               ("av_ca_audio_scale_shift", "av_cross_attn_audio_scale_shift"),
+               ("av_ca_audio_v2a_gate", "av_cross_attn_audio_v2a_gate"))
+
+
+def ltx2_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of a diffusers LTX-2 transformer of ``arch``
+    (``LTX2Config``): both streams' projections, the caption MLPs, the six
+    adaLN heads and the tables, and per block the four modulation tables,
+    the six attentions and the two FFNs."""
+    w = weights
+    params: Dict[str, Any] = {ours: _linear(w, theirs) for ours, theirs in (
+        ("proj_in", "proj_in"), ("audio_proj_in", "audio_proj_in"),
+        ("caption_proj_1", "caption_projection.linear_1"), ("caption_proj_2", "caption_projection.linear_2"),
+        ("audio_caption_proj_1", "audio_caption_projection.linear_1"),
+        ("audio_caption_proj_2", "audio_caption_projection.linear_2"),
+        ("proj_out", "proj_out"), ("audio_proj_out", "audio_proj_out"))}
+    params.update({ours: _ltx2_adaln(w, theirs) for ours, theirs in _LTX2_ADALN})
+    params["scale_shift_table"] = _float(w["scale_shift_table"])
+    params["audio_scale_shift_table"] = _float(w["audio_scale_shift_table"])
+    gates = {"attn1": arch.gated_attn, "audio_attn1": arch.audio_gated_attn, "attn2": arch.gated_attn,
+             "audio_attn2": arch.audio_gated_attn, "audio_to_video_attn": arch.gated_attn,
+             "video_to_audio_attn": arch.audio_gated_attn}
+    for i in range(arch.num_layers):
+        src = f"transformer_blocks.{i}"
+        block: Dict[str, Any] = {
+            "scale_shift_table": _float(w[f"{src}.scale_shift_table"]),
+            "audio_scale_shift_table": _float(w[f"{src}.audio_scale_shift_table"]),
+            "video_ca_scale_shift_table": _float(w[f"{src}.video_a2v_cross_attn_scale_shift_table"]),
+            "audio_ca_scale_shift_table": _float(w[f"{src}.audio_a2v_cross_attn_scale_shift_table"]),
+        }
+        block.update({attn: _ltx2_attn(w, f"{src}.{attn}", gated) for attn, gated in gates.items()})
+        for ff in ("ff", "audio_ff"):
+            block[ff] = {"proj_in": _linear(w, f"{src}.{ff}.net.0.proj"), "proj_out": _linear(w, f"{src}.{ff}.net.2")}
+        params[f"block_{i}"] = block
+    return params
+
+
+def load_ltx2_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of a diffusers LTX-2 transformer."""
+    params = ltx2_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported ltxvideo2 weights from %s", path)
+    return params
+
+
+# ---------------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------------
 
@@ -1927,7 +2002,8 @@ _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_une
               "boogu_image": load_lumina2_params, "krea2": load_krea2_params, "cosmos": load_cosmos2_params,
               "anima": load_anima_params, "omnigen": load_omnigen_params, "ernie": load_ernie_params,
               "ideogram": load_ideogram_params, "longcat_video": load_longcat_video_params,
-              "sana": load_sana_params, "sanavideo": load_sanavideo_params, "cosmos3": load_cosmos3_params}
+              "sana": load_sana_params, "sanavideo": load_sanavideo_params, "cosmos3": load_cosmos3_params,
+              "ltxvideo2": load_ltx2_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:

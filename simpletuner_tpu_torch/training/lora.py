@@ -12,8 +12,8 @@ Kandinsky flavours), ``hunyuanvideo_key_map`` (lora.py:620), ``flux2_key_map``
 (lora.py:232), ``ernie_key_map`` (lora.py:252), ``ideogram_key_map`` (lora.py:264;
 omnigen has no map, so its adapter files carry the flattened module paths, as in
 the JAX package), ``longcat_video_key_map`` (lora.py:201), ``sana_key_map``
-(lora.py:547), ``sanavideo_key_map`` (lora.py:237) and ``cosmos3_key_map``
-(lora.py:354) and ``_key_map_for``
+(lora.py:547), ``sanavideo_key_map`` (lora.py:237), ``cosmos3_key_map``
+(lora.py:354) and ``ltx2_key_map`` (lora.py:375), and ``_key_map_for``
 (lora.py:680), which resolve the LoRA target presets and
 name the adapters of an export (the maps leave ``patch_in`` and
 ``context_in`` under their own names, as the JAX export does),
@@ -455,6 +455,21 @@ def cosmos3_key_map(arch) -> Dict[str, Any]:
     return mapping
 
 
+def ltx2_key_map(arch) -> Dict[str, Any]:
+    """LTX2VideoTransformer3DModel layout: the projections in and out of both
+    streams, the six attentions and the two FFNs of each block (the caption
+    MLPs keep their dotted JAX paths, as in the JAX map)."""
+    mapping: Dict[str, Any] = {name: name for name in ("proj_in", "audio_proj_in", "proj_out", "audio_proj_out")}
+    for i in range(arch.num_layers):
+        for mod in ("attn1", "audio_attn1", "attn2", "audio_attn2", "audio_to_video_attn", "video_to_audio_attn"):
+            for ours, theirs in (("to_q", "to_q"), ("to_k", "to_k"), ("to_v", "to_v"), ("to_out", "to_out.0")):
+                mapping[f"block_{i}/{mod}/{ours}"] = f"transformer_blocks.{i}.{mod}.{theirs}"
+        for ff in ("ff", "audio_ff"):
+            mapping[f"block_{i}/{ff}/proj_in"] = f"transformer_blocks.{i}.{ff}.net.0.proj"
+            mapping[f"block_{i}/{ff}/proj_out"] = f"transformer_blocks.{i}.{ff}.net.2"
+    return mapping
+
+
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
     "sd1x": lambda m: unet_key_map(m.arch),
@@ -489,6 +504,7 @@ _KEY_MAPS = {
     "sana": lambda m: sana_key_map(m.arch),
     "sanavideo": lambda m: sanavideo_key_map(m.arch),
     "cosmos3": lambda m: cosmos3_key_map(m.arch),
+    "ltxvideo2": lambda m: ltx2_key_map(m.arch),
 }
 
 

@@ -85,13 +85,17 @@ by side, with the mask), the last two at 32 latent channels against
 ``longcat_video`` (T5-XXL at 512 tokens with the mask) and ``sanavideo``
 (Gemma-2 at 300 tokens with the mask), both on clips through the video VAE at
 16 latent channels, and ``sana`` (Gemma-2 at 300 tokens, the mask dropped; 32
-latent channels against ``VAEConfig.flux()``, so only its tiny preset trains);
+latent channels against ``VAEConfig.flux()``, so only its tiny preset trains),
+and ``ltxvideo2`` (Gemma-2 at 256 tokens tiled to 3840, the mask dropped, on
+clips through the video VAE at 128 latent channels; one zero audio token, as
+no data path gives audio latents; ``init_validations`` also encodes and
+installs the IC-LoRA reference video of ``validation_ltx2_video_conditioning``);
 the batch reaches the step with every numeric array
 the family's collate gives (Flux's ``t5_embeds``/``t5_masks``, the others'
 ``text_embeds``, SDXL's size conditioning ``original_sizes``,
 ``crop_coordinates`` and ``target_sizes``), and ``pooled_embeds`` for flux,
 sd3 and sdxl.  Refused, each naming its ROADMAP item:
-families other than these thirty-three, full fine-tunes and ControlNet, distillation and
+families other than these thirty-four, full fine-tunes and ControlNet, distillation and
 ODE pairs, CREPA / U-REPA, text-encoder training, slider and assistant
 adapters, a mesh of more than one device and multi-process runs.
 """
@@ -430,6 +434,7 @@ class Trainer:
             device=self.device,
         )
         self.validation.precompute_embeds()
+        self._init_validation_video_conditioning()
         self.eval_loss = EvalLoss(
             self.model,
             list(self.data_plane.bundles.values()) if self.data_plane else [],
@@ -440,6 +445,45 @@ class Trainer:
             device=self.device,
         )
         self._stage("init_validations", "completed")
+
+    def _init_validation_video_conditioning(self) -> None:
+        """The IC-LoRA reference video of the renders
+        (``validation_ltx2_video_conditioning``, one entry): decoded, resized
+        (Lanczos) to the validation resolution when it differs, VAE-encoded
+        as the latent cache encodes, and installed on the model."""
+        parse = getattr(self.model, "validation_video_conditioning_entries", None)
+        entries = parse() if callable(parse) else None
+        if not entries:
+            return
+        if len(entries) > 1:
+            raise ValueError(f"this build supports one validation reference video; got {len(entries)} "
+                             "validation_ltx2_video_conditioning entries")
+        if self.vae is None:
+            raise ValueError("validation_ltx2_video_conditioning needs the video VAE loaded")
+        from ..data.video import load_video_frames, video_to_array
+
+        class _LocalFS:
+            def abspath(self, path):
+                return path
+
+            def read(self, path):
+                with open(path, "rb") as handle:
+                    return handle.read()
+
+        path, strength = entries[0]
+        raw = load_video_frames(_LocalFS(), path, num_frames=int(self._get("validation_num_video_frames", 9) or 9))
+        if raw is None:
+            raise ValueError(f"could not decode conditioning video {path!r}")
+        res = int(self.validation.resolution)
+        if raw.shape[1] != res or raw.shape[2] != res:
+            from PIL import Image
+
+            raw = np.stack([np.asarray(Image.fromarray(f).resize((res, res), Image.LANCZOS)) for f in raw])
+        pixels = torch.from_numpy(video_to_array(raw)[None]).to(self.device)
+        with torch.no_grad():
+            latents = self.vae.encode(pixels).to(torch.float32).cpu().numpy()
+        self.model.set_validation_video_conditioning(latents, strength)
+        logger.info("validation reference video %s -> latents %s (strength %.2f)", path, latents.shape, strength)
 
     def init_unload_text_encoder(self) -> None:
         """Drop the text encoders after all caching and return their device

@@ -13,6 +13,9 @@ schedule (``would_validate``), ``run_validations`` -> ``_run_one_pass``
 validation webhook event and the trackers' images), ``_latent_shape`` and
 ``_render_single``; a video family renders a square clip at the resolution
 of ``validation_num_video_frames`` frames (default 9: 3 latent frames),
+and a family that asks for it (LTX-2's ``spatial-upscale`` mode) the
+two-stage ``_render_multistage`` (half resolution, the latent upsampler, a
+short re-noised ladder, as the JAX dispatch reaches it),
 decoded 5-D and written as an mp4 (mp4v, 8 fps, through OpenCV, imported
 when a clip is written), its middle frame going to the trackers; it has no
 benchmark render, as in the JAX package.  ``precompute_embeds`` encodes the prompts (and, for
@@ -28,8 +31,9 @@ index.  ``run_validations`` takes the module to render; the trainer hands it
 ``train_state.render_view`` (the counterpart of ``TrainState.variables``).
 Refused, naming ROADMAP Queue 1 item 4d: img2img (``validation_using_datasets``),
 validation adapters, external-script validation, previews, batched
-(``validation_parallel``) and staged renders (SDXL's ``full-pipeline``
-mode) and skip-layer guidance.  PNGs are written with
+(``validation_parallel``), staged renders (SDXL's and PixArt's
+``full-pipeline`` mode, Wan 2.2's other expert; deepfloyd is not ported) and
+skip-layer guidance.  PNGs are written with
 ``zlib``/``struct`` alone.
 """
 
@@ -132,7 +136,7 @@ class Validation:
         for key in _UNPORTED:
             if getattr(config, key, None):
                 raise NotImplementedError(f"{key} is not ported (ROADMAP Queue 1 item 4d)")
-        if model.supports_multistage_validation():
+        if model.supports_multistage_validation() and not callable(getattr(model, "spatial_upscale_latents", None)):
             raise NotImplementedError("staged (full-pipeline) validation renders are not ported "
                                       "(ROADMAP Queue 1 item 4d)")
         method = str(getattr(config, "validation_method", None) or "simpletuner-local").strip().lower()
@@ -244,9 +248,9 @@ class Validation:
         for index, (prompt, embeds) in enumerate(zip(self.prompts, self._embeds)):
             # extra per-prompt variants, noise from a disjoint index space
             for variant in range(1, num_images):
-                extra = self._render_single(module, embeds, index + 7919 * variant)
+                extra = self._render(module, embeds, index + 7919 * variant)
                 self._save(extra, self._path(f"step_{step}_{index}_v{variant}{slug}.{self._ext(extra)}"))
-            image = self._render_single(module, embeds, index)
+            image = self._render(module, embeds, index)
             filename = self._path(f"step_{step}_{index}{slug}.{self._ext(image)}")
             self._save(image, filename)
             if image.ndim == 4:  # a clip: its middle frame for the trackers
@@ -288,6 +292,46 @@ class Validation:
                 batch[key] = torch.as_tensor(np.asarray(value), device=self.device)[None]
         return batch
 
+    def _render(self, module: nn.Module, embeds: Dict[str, np.ndarray], index: int) -> np.ndarray:
+        """The JAX dispatch of what the port renders: the spatial-upscale
+        render for a clip of a family that asks for it, else the single one."""
+        if self.model.supports_multistage_validation() and len(self._latent_shape(1)) == 5:
+            return self._render_multistage(module, embeds, index)
+        return self._render_single(module, embeds, index)
+
+    @torch.no_grad()
+    def _render_multistage(self, module: nn.Module, embeds: Dict[str, np.ndarray], index: int) -> np.ndarray:
+        """The two-stage spatial-upscale render (LTX-2), no CFG: stage 1 at
+        half the spatial resolution on a ladder built for its sequence, the
+        family's latent upsampler doubling it, stage 2 re-noised at the first
+        of ``LTX2_STAGE2_SIGMAS`` and run down that ladder to 0, then the
+        decode.  Both noises come from the prompt's generator, stage 2's after
+        stage 1's."""
+        b, t, h, w, c = self._latent_shape(1)
+        stage1_shape = (b, t, max(h // 2, 1), max(w // 2, 1), c)
+        cond = self.model.inference_conditioning(self._batch(embeds, stage1_shape))
+        seq = stage1_shape[1] * (stage1_shape[2] // 2) * (stage1_shape[3] // 2)
+        scheduler1 = build_scheduler(self.model, self.num_steps, image_seq_len=max(seq, 1))
+        generator = noise_generator(self.seed, index)
+        noise1 = torch.randn(stage1_shape, generator=generator, dtype=torch.float32)
+        latents = sample_loop(scheduler1, self.model.denoise_fn(module, cond), noise1.to(self.device))
+        upscaled = self.model.spatial_upscale_latents(latents)
+        sigma_list = [float(sigma) for sigma in self.model.LTX2_STAGE2_SIGMAS]
+        sigmas2 = torch.tensor(sigma_list + [0.0], dtype=torch.float32)
+        scheduler2 = FlowMatchEulerScheduler(sigmas=sigmas2, timesteps=sigmas2[:-1])
+        noise2 = torch.randn(tuple(upscaled.shape), generator=generator, dtype=torch.float32).to(self.device)
+        start = (1.0 - sigma_list[0]) * upscaled + sigma_list[0] * noise2
+        return self._decoded(sample_loop(scheduler2, self.model.denoise_fn(module, cond), start))
+
+    def _decoded(self, latents: torch.Tensor) -> np.ndarray:
+        """The first sample's latents without a ``decode_fn``, else its uint8 pixels."""
+        if self.decode_fn is None:
+            return latents[0].cpu().numpy()
+        scaling = self.model.VAE_SCALING_FACTOR or 1.0
+        shift = self.model.VAE_SHIFT_FACTOR or 0.0
+        out = self.decode_fn(latents / scaling + shift)[0].to(torch.float32)
+        return ((out + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
+
     @torch.no_grad()
     def _render_single(self, module: nn.Module, embeds: Dict[str, np.ndarray], index: int) -> np.ndarray:
         latent_shape = self._latent_shape(1)
@@ -312,13 +356,7 @@ class Validation:
                 return classifier_free_guidance(cond_fn(latents, t), uncond_fn(latents, t), step_scale, rescale)
 
         noise = torch.randn(latent_shape, generator=noise_generator(self.seed, index), dtype=torch.float32)
-        latents = sample_loop(scheduler, denoise, noise.to(self.device))
-        if self.decode_fn is None:
-            return latents[0].cpu().numpy()
-        scaling = self.model.VAE_SCALING_FACTOR or 1.0
-        shift = self.model.VAE_SHIFT_FACTOR or 0.0
-        out = self.decode_fn(latents / scaling + shift)[0].to(torch.float32)
-        return ((out + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
+        return self._decoded(sample_loop(scheduler, denoise, noise.to(self.device)))
 
     @staticmethod
     def _save_video(frames: np.ndarray, path: str, fps: int = 8) -> None:

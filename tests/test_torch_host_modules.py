@@ -85,8 +85,9 @@ def test_the_port_imports_nothing_of_the_jax_package():
     # decoder-LLM, Kandinsky 5.0, HunyuanVideo, Qwen-Image, MageFlow / Z-Image, HiDream, FLUX.2, Kolors,
     # LongCat-Image, Z-Image-Omni, Zlab-i1, Boogu-Image, Krea-2, Cosmos and Anima ones (with the EDM Euler
     # scheduler), the OmniGen, ERNIE-Image and Ideogram ones (with Ideogram's host prompt modules), and the
-    # LongCat-Video, Sana and Sana-Video ones, and Cosmos3's (the MoT, the family, the reasoner and the AVAE
-    # audio tokenizer) are among those imported
+    # LongCat-Video, Sana and Sana-Video ones, Cosmos3's (the MoT, the family, the reasoner and the AVAE
+    # audio tokenizer) and LTX-2's (the DiT, the family, the connectors and the latent upsampler) are among
+    # those imported
     assert {f"simpletuner_tpu_torch.{name}" for name in (
         "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc", "models.sd1x",
         "models.sd1x.model", "models.pixart", "models.pixart.model", "models.pixart.transformer",
@@ -110,7 +111,8 @@ def test_the_port_imports_nothing_of_the_jax_package():
         "models.longcat_video", "models.longcat_video.model", "models.longcat_video.transformer", "models.sana",
         "models.sana.model", "models.sana.transformer", "models.sanavideo", "models.sanavideo.model",
         "models.sanavideo.transformer", "models.cosmos3", "models.cosmos3.model", "models.cosmos3.transformer",
-        "models.cosmos3.reasoner", "models.cosmos3.audio_tokenizer")} <= set(names)
+        "models.cosmos3.reasoner", "models.cosmos3.audio_tokenizer", "models.ltxvideo2", "models.ltxvideo2.model",
+        "models.ltxvideo2.transformer", "models.ltxvideo2.connectors", "models.ltxvideo2.latent_upsampler")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -615,7 +617,10 @@ def test_model_registry_refuses_other_families():
     from simpletuner_tpu_torch.models.cosmos3 import Cosmos3
 
     assert isinstance(get_model_family(TrainingConfig({"model_family": "cosmos3"})), Cosmos3)
-    for family in ("ltxvideo2", "heartmula", "deepfloyd"):
+    from simpletuner_tpu_torch.models.ltxvideo2 import LTXVideo2
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "ltxvideo2"})), LTXVideo2)
+    for family in ("ace_step", "heartmula", "deepfloyd"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):
@@ -647,8 +652,11 @@ def test_model_registry_matches():
 
     assert ModelRegistry.get("sd15") is SD1x and ModelRegistry.get("sd21") is SD2x
     assert ModelRegistry.get("pixart") is ModelRegistry.get("pixart_sigma") is PixartSigma
+    from simpletuner_tpu_torch.models.ltxvideo2 import LTXVideo2
+
+    assert ModelRegistry.get("ltx2") is ModelRegistry.get("ltxvideo2") is LTXVideo2
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        ModelRegistry.get("ltxvideo2")
+        ModelRegistry.get("ace_step")
     for registry in (ModelRegistry, JaxModelRegistry):
         with pytest.raises(KeyError):
             registry.metadata("nope")

@@ -2294,3 +2294,138 @@ def test_tiny_avae_on_the_card_matches_float64(cuda):
         out = card.decode(latents)
     for a, b in ((latents, ref_latents), (out, ref)):
         assert ((a.double().cpu() - b).norm() / b.norm()).item() <= 1e-3
+
+
+# LTX-2 at the 768 x 512 x 121 clip (16 x 16 x 24 latents: 6,144 video
+# tokens, 121 audio tokens, 256 Gemma tokens with 180 valid): the video
+# self-attention (32 x 128), the video prompt cross-attention, a2v (video
+# queries against the audio keys) and v2a (audio queries against the video
+# keys) at 32 heads of 64, the audio self- and prompt cross-attention, and
+# the connectors' self-attention (30 x 128 over 256 tokens); two heads (the
+# heads are independent)
+LTX2_CASES = [("ltx2_video_self_s6144_d128", 6144, 6144, 128, None),
+              ("ltx2_video_cross_k256_d128", 6144, 256, 128, 180),
+              ("ltx2_a2v_s6144_k121_d64", 6144, 121, 64, None),
+              ("ltx2_v2a_s121_k6144_d64", 121, 6144, 64, None),
+              ("ltx2_audio_self_s121_d64", 121, 121, 64, None),
+              ("ltx2_audio_cross_s121_k256_d64", 121, 256, 64, 180),
+              ("ltx2_connector_s256_d128", 256, 256, 128, None)]
+
+
+@pytest.mark.parametrize("name,sq,sk,dim,valid", LTX2_CASES, ids=[c[0] for c in LTX2_CASES])
+def test_kernels_at_the_ltx2_shapes(cuda, name, sq, sk, dim, valid):
+    """Forward and both backward kernels at each LTX-2 attention's shape
+    against the plain versions, in the dispatcher's (B, S, H, D) layout as
+    the DiT calls them; with the caption mask (query ids 1, key ids 1 / -1)
+    the pad keys get no weight (dk, dv 0 there)."""
+    q, k, v = _qkv(140 + sk % 19 + dim, 1, 2, sq, sk, dim, cuda)
+    strided = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    q_seg = kv_seg = None
+    if valid is not None:
+        q_seg = torch.ones((1, sq), dtype=torch.int32, device=cuda)
+        kv_seg = torch.where(torch.arange(sk, device=cuda) < valid, 1, SEGMENT_PAD_ID)[None].to(torch.int32)
+    out, lse = _check(*strided, q_seg, kv_seg)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    del out, lse
+    dq, dk, dv = _check_backward(*strided, q_seg, seed=141, kv_seg=kv_seg)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    if valid is not None:
+        assert dk[0, :, valid:].abs().max() == dv[0, :, valid:].abs().max() == 0
+
+
+class _LTX2Joint(torch.nn.Module):
+    """The LTX-2 DiT on a 2 x 4 x 6 grid with its video and audio
+    predictions side by side, for ``_card_against_cpu``."""
+
+    def __init__(self, dit):
+        super().__init__()
+        self.dit = dit
+
+    def forward(self, video, audio, text, timesteps, audio_timesteps, mask):
+        out = self.dit(video, audio, text, timesteps, 2, 4, 6, audio_timesteps=audio_timesteps, text_mask=mask)
+        return torch.cat([out[0].flatten(1), out[1].flatten(1)], dim=1)
+
+
+def _tiny_ltx2(dtype, device):
+    """The DiT at widths that run the head dim 64 kernels (2 video heads of
+    64, 2 audio heads of 32 padded to 64), two blocks, remat, rank-4 adapters."""
+    import dataclasses
+
+    from simpletuner_tpu_torch.models.ltxvideo2 import LTX2Config, LTX2Transformer
+
+    cfg = dataclasses.replace(LTX2Config.tiny(), num_heads=2, head_dim=64, audio_num_heads=2, audio_head_dim=32,
+                              audio_cross_attention_dim=64, caption_channels=48)
+    with torch.device(device):
+        return cfg, _LTX2Joint(LTX2Transformer(cfg, dtype=dtype, lora_rank=4, remat=True))
+
+
+def test_tiny_ltx2_on_the_card_matches_its_cpu_run(cuda):
+    """The DiT (``_tiny_ltx2``) with tokenwise video sigmas, a per-sample
+    audio sigma and a padded caption (40 keys, 17 valid in the second
+    sample) against its CPU run: both predictions and the LoRA gradients
+    within the card-against-CPU bound."""
+    from simpletuner_tpu_torch.models.layers import init_parameters
+
+    cfg, cpu = _tiny_ltx2(torch.float32, "cpu")
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    _, card = _tiny_ltx2(torch.bfloat16, cuda)
+    gen = torch.Generator().manual_seed(4)
+    mask = (torch.arange(40)[None] < torch.tensor([[40], [17]])).to(torch.int32)
+    inputs = [torch.randn((2, 48, cfg.in_channels), generator=gen),
+              torch.randn((2, 9, cfg.audio_in_channels), generator=gen),
+              torch.randn((2, 40, cfg.caption_channels), generator=gen), torch.rand((2, 48), generator=gen),
+              torch.tensor([0.9, 0.25]), mask]
+    weight = torch.randn((2, 48 * cfg.in_channels + 9 * cfg.audio_in_channels), generator=gen)
+    _card_against_cpu(cpu, card, inputs, weight, cuda)
+
+
+def test_graphed_ltx2_joint_step_matches_eager_bitwise(cuda):
+    """The tiny family's joint audiovisual step (5-D latents, 5 audio latent
+    tokens whose noise the step draws, the first frame held clean at
+    tokenwise t = 0; the RoPE tables made once per device in the eager
+    steps): three eager steps and three replays of the captured step from
+    the same state and generator state give the same losses, grad norms and
+    audio losses bitwise."""
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.training.optimizers import get_optimizer
+    from simpletuner_tpu_torch.training.train_state import (build_train_step, create_train_state, jit_train_step,
+                                                            state_tensors)
+
+    config = TrainingConfig({"model_family": "ltxvideo2", "model_arch_preset": "tiny", "model_type": "lora",
+                             "lora_rank": 4, "learning_rate": 1e-3, "optimizer": "adamw",
+                             "gradient_checkpointing": True, "ltx2_first_frame_conditioning_probability": 1.0})
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    model = ModelRegistry.create("ltxvideo2", config)
+    with torch.device(cuda):
+        module = init_parameters(model.create_module(), gen)
+    batch = {"latents": torch.randn((1, 3, 4, 6, 8), generator=gen, device=cuda),
+             "audio_latents": torch.randn((1, 5, 6), generator=gen, device=cuda),
+             "text_embeds": torch.randn((1, 12, 20), generator=gen, device=cuda)}
+    tx = get_optimizer(config, 1e-3)
+    state = create_train_state(model, module, tx)
+    step_fn = build_train_step(model, tx)
+    with torch.no_grad():
+        saved = [x.clone() for x in state_tensors(state)]
+    rng = torch.Generator(device=cuda)
+    rng.manual_seed(5)
+    start = rng.get_state()
+
+    def trajectory(step):
+        current, out = state, []
+        for _ in range(3):
+            current, metrics = step(current, batch, rng)
+            out += [metrics["loss"], metrics["grad_norm"], metrics["audio_loss"]]
+        return torch.stack(out)
+
+    eager = trajectory(step_fn)
+    with torch.no_grad():
+        for x, value in zip(state_tensors(state), saved):
+            x.copy_(value)
+    rng.set_state(start)
+    state.step = 0
+    graphed = jit_train_step(step_fn, state, batch, rng)
+    replayed = trajectory(graphed)
+    assert torch.isfinite(eager).all() and (eager[1::3] > 0).all()
+    assert torch.equal(replayed, eager)
