@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the torch port of simpletuner-tpu once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                       # every phase, 1-45
-    python3 chip_smoke.py --phases 45           # Cosmos3 with all 36 layers in memory, and 1-3, 7
+    python3 chip_smoke.py                       # every phase, 1-48
+    python3 chip_smoke.py --phases 47           # ACE-Step with all 28 blocks in memory, and 1-3, 7, 14, 15
     python3 chip_smoke.py --phases 14-16,27,28  # the named phases, what they need, and 1-3 and 7
 
 With ``--phases`` the script runs the named phases, the phases whose files
@@ -66,8 +66,9 @@ exits non-zero with no result line):
    quantized_matmul=full and remat policy attn, then an int4 base (attn), then
    a bf16 base with remat attn and full; the eager step, 2 warm-up and 2 timed
    steps for the first, 1 and 1 for the others (2 and 2 before phases 39-41);
-   counts the kernel launches of each run; the first run's device time by
-   kernel bucket from one more step under torch.profiler;
+   counts the kernel launches of each run; in a run that names phase 8, the
+   first run's device time by kernel bucket from one more step under
+   torch.profiler (phase 12 profiles the same step's graphed replay);
 9. gradient parity: one step's LoRA gradients through the kernels against the
    same step through mha_reference under autograd, full width, depth cut to
    2 double + 4 single blocks;
@@ -98,13 +99,14 @@ exits non-zero with no result line):
    (hidden 3072, 24x128 heads) written with the port's safetensors writer,
    at a cut depth (1 double + 1 single block: the write budget) in the BFL
    layout (one file)
-   and the diffusers layout (two shards), and at full depth (19 + 38 blocks,
-   11.9B parameters) as one fp8 (e4m3) BFL file of 11.9 GB, as the published
-   fp8 Flux files are (the card's machine ends a run that writes more than
-   45 GiB in all, deleted files included, and phase 19 writes SD3.5 Large in
-   bf16); the Flux VAE
+   and the diffusers layout (two shards), and at phase 17's depth
+   (``train_blocks``: ``TRAIN_CUT_BLOCKS``, 2 + 4 blocks and 1.31B parameters,
+   in a run of every phase; 19 + 38 blocks, 11.9B, in a run that names phase
+   17 or 18) as one fp8 (e4m3) BFL file, as the published fp8 Flux files are
+   (the card's machine ends a run that writes more than 45 GiB in all,
+   deleted files included); the Flux VAE
    (diffusers layout, with the quant convs) and CLIP-L at full size; each
-   loaded onto the card, both cut layouts bitwise equal, and the full-depth
+   loaded onto the card, both cut layouts bitwise equal, and the fp8 file's
    module equal to the cut one rounded to e4m3 on the tensors they share;
    load seconds and GB/s (the files are read back from the page cache right
    after being written), peak host and device memory; a rank-16 LoRA adapter
@@ -122,7 +124,10 @@ exits non-zero with no result line):
    images/s end to end and on the device, MFU, peak GiB.
 
 17. trainer: ``Trainer.run()`` (what ``python -m simpletuner_tpu_torch.train``
-   runs) on full-width, full-depth Flux.1-dev from phase 14's fp8 BFL file and
+   runs) on full-width Flux.1-dev at ``train_blocks()`` (2 + 4 of its 19 + 38
+   blocks in a run of every phase, the line's ``depth``, through the
+   config's ``model_arch_overrides``; all of them in a run that names phase
+   17 or 18) from phase 14's fp8 BFL file and
    Flux dir (phase 15 adds its cut-depth T5-XXL and seeded tokenizer files):
    int8 base with quantized_matmul=full, remat attn, rank-16 LoRA on `all`,
    AdamW 1e-4, the T5 mask in the attention, batch 1 at 1024 px over 8 of
@@ -132,7 +137,7 @@ exits non-zero with no result line):
    final LoRA must equal the straight run's bitwise; each run's kernel
    launches (every kernel must launch), init seconds and peak memory per
    stage, caching rates, capture seconds per shape, median s/step beside
-   phase 12's graphed flagship, the idle share of a profiled window of the
+   phase 12's graphed flagship (their ratio at full depth), the idle share of a profiled window of the
    resumed run, checkpoint save and restore seconds and bytes, validation
    seconds.  Its checkpoints refer to the frozen base instead of writing it,
    which keeps the script's disk writes near 40 GB in all (phases 14-15
@@ -146,7 +151,9 @@ exits non-zero with no result line):
    config, its caches and a new output dir, plus an eval split (two of phase
    16's JPEGs that phase 17 does not train on, ``dataset_type: eval``,
    ``eval_steps_interval: 4``, ``eval_timesteps: 4``), which the server runs as ``python -m
-   simpletuner_tpu_torch.train --device cuda`` in a child process: its losses,
+   simpletuner_tpu_torch.train --device cuda`` in a child process (which
+   builds Flux at phase 17's depth from the config's ``model_arch_overrides``;
+   the render job's child alike): its losses,
    grad norms and final LoRA must equal phase 17's straight run bitwise (a
    child's launch counters cannot be read from here: bitwise equality is what
    shows it ran the same kernels and graphs), and it must log a finite
@@ -741,8 +748,47 @@ exits non-zero with no result line):
    parameters built in memory, bf16) on left-padded stacked features (1,
    256, 3840 x 49) with 180 valid, against the plain attention; in a run that
    names it, all 48 blocks in memory on an int8 base (about 19 GB) and their
-   graphed joint step; last, the run's writes against ``RUN_WRITE_LIMIT_GB``
-   less ``RUN_WRITE_MARGIN_GB``.
+   graphed joint step;
+47. ace_step: ACE-Step's transformer at the JAX preset's full width
+   (``ACEStepConfig()``: 28 Lite-LA blocks 1536 wide, 24 heads of 64,
+   GLUMBConv 6,144, the 6-layer 1024-wide conformer over the 6,681-token
+   lyric table, the two SSL heads; 8-channel latents of the stereo 44.1 kHz
+   audio VAE, ``AudioVAEConfig.ace()``).  Checks ``acestep_flops`` against the
+   flop counter on two small configs; writes a seeded e4m3 diffusers
+   transformer at ``ACE_FILE_BLOCKS`` (2) of 28 blocks with the conformer and
+   conditioning whole, a seeded umT5 at umT5-base's 768 width
+   (``UMT5_LAYERS`` of 12 layers) beside phase 15's T5 tokenizer, a seeded BPE
+   ``lyrics_utils/vocab.json`` and four seeded stereo 16-bit WAVs of 47 s at
+   44.1 kHz (2,072,700 samples, 4,048 latents, the mel layout 16 x 253) with
+   captions and ``.lyrics.txt`` sidecars; imports (bitwise); ``Trainer.run()``:
+   audio discovery into the ``47s`` bucket, the text cache at 256 tokens, the
+   audio VAE cache (s per clip, the stage's peak), 6 graphed rank-16 LoRA
+   steps on the default preset with the lyric ids of the sidecars in every
+   batch (the cross-attention over 1 + 256 + 128 keys, 363 valid), a replay
+   bitwise against an eager step and the profiled replay's launches by shape;
+   the true-CFG render of 47 s with ``validation_lyrics`` through
+   ``CheckpointInferenceRuntime``, its WAV read back as (2,072,576, 2) int16
+   (the decode of 4,048 latents x 512: the render keeps whole latents);
+   one forward against the plain attention; the audio VAE encoder's four
+   strided convs on one clip through ``conv1d`` (the card's path) against
+   ``unfolded_conv`` (the CPU's bf16 path): ms each and their rel L2; in a
+   run that names it, all 28 blocks in memory on an int8 base and their
+   graphed step;
+48. wan_s2v: Wan-S2V at the ``s2v-14b`` width (``WanConfig.b14()``: 5120, 40
+   heads of 128).  Writes a seeded e4m3 file in Wan's layout at
+   ``S2V_FILE_BLOCKS`` (1) of 40 blocks beside hard links to phase 15's T5-XXL
+   and tokenizer, and to phase 42's two 832 x 480 x 81 clips and their video
+   latents (written here in a run without phase 42), each with a seeded
+   same-stem 16 kHz WAV; imports through ``load_wan_params`` (bitwise);
+   ``Trainer.run()`` on a dataset with ``audio: {pair_with_video: true}``: 6
+   graphed rank-16 LoRA steps whose cross-attention runs over 512 text and
+   128 audio-feature keys, the collated ``audio_embeds`` equal to a host
+   recomputation from the clip's WAV, a replay bitwise against an eager step
+   and the profiled replay's launches by shape; the text-only true-CFG render
+   (17 frames at 480 px square) through ``CheckpointInferenceRuntime``; one
+   forward with audio features against the plain attention on 17 frames;
+   last, the run's writes against ``RUN_WRITE_LIMIT_GB`` less
+   ``RUN_WRITE_MARGIN_GB``.
 
 Phases 14-16 print before phase 4, which renders from phase 15's encoders;
 their Flux, CLIP-L, T5-XXL, VAE and tokenizer files stay on disk for phases 17-32.
@@ -809,10 +855,15 @@ valid), held at 2 heads, and Cosmos3's (``COSMOS3_KERNEL_CASES``: the
 generation attention (1, 32, 21120 queries, 21184 keys, 128), unmasked, K
 and V repeated from 8 heads as ``jnp.repeat`` does, held at 2 heads over one
 key/value head, beside the plain causal block of the understanding pathway
-at 64 tokens (``cosmos3_und_block``)); at the long shapes the plain
-version is timed once, one head at a time, with no warm-up run (the first
-head warms it); phases 3 and 7 print the seconds of each of
-their sections (``section_s``).  Every phase
+at 64 tokens (``cosmos3_und_block``)), and ACE-Step's and Wan-S2V's
+(``ACE_KERNEL_CASES``: the cross-attention (1, 24, 253 queries, 385 keys, 64),
+query ids 1 and key ids 1 on the speaker, caption and 106 lyric ids, -1 on
+the 22 lyric pads; ``S2V_KERNEL_CASES``: the cross-attention (1, 40, 32760
+queries, 640 keys, 128) over the 512 umT5 and 128 audio-feature keys,
+unmasked), held at 2 heads; at the long shapes the plain version is timed
+once, one head at a time, with no warm-up run (the first head warms it);
+phases 3 and 7 print the seconds of each of their sections
+(``section_s``).  Every phase
 line carries ``elapsed_s`` and ``written_gb`` (the card's machine ends a run
 that writes more than 45 GiB, deleted files included).  On an H100 80GB HBM3 at
 700 W the whole script took 857 s of its 1,200 s limit for phases 1-30 and wrote
@@ -836,12 +887,12 @@ its Chroma row (the Flux shape's times) and its rows at Wan's, LTX's,
 Lumina2's, Kandinsky 5.0's, HunyuanVideo's, Qwen-Image's, Z-Image's,
 HiDream's, FLUX.2's, Kolors's, LongCat-Image's, Z-Image-Omni's, Zlab-i1's,
 Krea-2's, Cosmos's, OmniGen's, ERNIE's, Ideogram's, LongCat-Video's, Sana's,
-Sana-Video's and Cosmos3's shapes beside it, and
+Sana-Video's, Cosmos3's, LTX-2's, ACE-Step's and Wan-S2V's shapes beside it, and
 Anima's rows at Cosmos's shapes
 (launches: the profiler's count in phase 12's profiled replay, for the head
 dim 256 rows in phase 22's, for the Chroma rows in phase 25's, and for the
 other rows the wrappers' count at that shape per step in phase 23's, 24's and
-26's-45's runs, per forward for Z-Image-Omni's omni shape),
+26's-48's runs, per forward for Z-Image-Omni's omni shape),
 and last the device line.  Needs one CUDA
 device; builds into build/kernels/ inside the checkout.  Phase 2 lists ptxas's
 register, spill and warning lines per kernel (a C7514 warning means ptxas
@@ -896,8 +947,13 @@ GRAPH_CHECK_STEPS, GRAPH_EAGER_TIMED_STEPS, GRAPH_TIMED_STEPS = 2, 2, 3
 # H100 SXM: dense bf16 tensor-core peak and device-memory rate (bounds only)
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 # phase 14: the cut depth of the two-layout Flux checkpoints (full width); the
-# full depth is written and imported once more, in the BFL layout
+# depth of phases 17-18 is written and imported once more, as one fp8 BFL file
 IMPORT_DOUBLE, IMPORT_SINGLE = 1, 1
+# phases 17-18: Flux.1-dev at full width and TRAIN_CUT_BLOCKS (double, single)
+# of its 19 + 38 blocks in a run of every phase (the run's time and writes:
+# the full depth's fp8 file is 11.9 GB, and its trainer and server jobs took
+# 176 s of a run); all 19 + 38 in a run that names phase 17 or 18
+TRAIN_CUT_BLOCKS = (2, 4)
 # phase 15: bf16 T5-XXL against the f32 module on the same weights and
 # tokens: every product and the residual stream round to bf16 (2^-8) in each
 # of 24 layers, so the outputs agree to about a percent in relative L2
@@ -910,7 +966,7 @@ T5_FILE_LAYERS = 2
 # convolutions deep, the latents agree to about a percent in relative L2
 VAE_BF16_REL_L2 = 5e-2
 VAE_BATCH, VAE_IMAGES = 8, 24  # one batch of 8 in each of the three Flux buckets
-# phase 17: the trainer at full width and depth on 8 of phase 16's JPEGs in two
+# phase 17: the trainer at full width (``train_blocks``) on 8 of phase 16's JPEGs in two
 # buckets (4 square, 4 at 1152x896), checkpoints every 4 of 8 steps, then a
 # resumed run from checkpoint-4; the validation prompt renders at 1024 px
 TRAIN_STEPS, TRAIN_CHECKPOINT_STEPS, TRAIN_VALIDATION_STEPS = 8, 4, 4
@@ -1611,6 +1667,51 @@ LTX2_KERNEL_CASES = (
 )
 LTX2_CONNECTOR_CASES = (("l2_connector", 30, L2_TEXT, L2_TEXT, 128),)
 L2_CHECK_HEADS = 2
+# phase 47: ACE-Step (ACE-Step/ACE-Step-v1-3.5B's transformer as the JAX preset
+# ACEStepConfig() builds it: 28 Lite-LA blocks 1536 wide, 24 heads of 64, GLUMBConv
+# 6,144, the 6-layer 1024-wide conformer over the 6,681-token lyric table and the
+# two SSL heads; 8-channel latents of the stereo 44.1 kHz audio VAE at 512x) on
+# four seeded stereo 16-bit clips of 47 s: 2,072,700 samples, 4,048 latents, the
+# mel layout 16 x 253 (253 tokens); umT5 at 256 tokens (umT5-base's 768 width at
+# UMT5_LAYERS of its 12 layers, its table cut to the T5 tokenizer's 32,128 rows),
+# the lyric ids of ACE_LYRICS (ACE_LYRIC_IDS ids on the seeded vocab, padded to
+# 128): 1 + 256 + 128 = 385 cross keys, 363 valid; the seeded file at
+# ACE_FILE_BLOCKS of 28 blocks with the conformer and conditioning whole; in a
+# named run all 28 blocks in memory
+ACE_PROMPT = "a lighthouse song of waves and rain, slow piano and strings"
+ACE_LYRICS = ("[verse]\nwaves of colour over the harbour\nthe lighthouse turns in the rain\n\n[chorus]\n"
+              "hold the light, hold the night")
+ACE_RATE, ACE_SECONDS, ACE_CLIPS = 44100, 47, 4
+ACE_LATENTS = 4048  # the audio VAE's encode of 47 s at 44.1 kHz
+ACE_TOKENS = ACE_LATENTS // 16
+ACE_TEXT, ACE_LYRIC_IDS, ACE_LYRIC_KEYS = 256, 106, 128
+ACE_KEYS = 1 + ACE_TEXT + ACE_LYRIC_KEYS
+ACE_VALID_KEYS = 1 + ACE_TEXT + ACE_LYRIC_IDS
+ACE_GUIDANCE, ACE_SIGMA = 3.0, 0.7
+ACE_TRAIN_STEPS, ACE_FULL_STEPS = 6, 3
+ACE_FILE_BLOCKS, UMT5_LAYERS, UMT5_VOCAB = 2, 2, 32128
+PHASE47_WRITE_GB = 0.39
+# phases 3 and 7 at ACE-Step's cross-attention: the 253 latent tokens against the
+# 385 conditioning keys (query ids 1; key ids 1 on the speaker, caption and the
+# lyric ids, -1 on the lyric pads); held at ACE_CHECK_HEADS heads
+ACE_KERNEL_CASES = (("ace_cross", 24, ACE_TOKENS, ACE_KEYS, 64, "ace_keys"),)
+ACE_CHECK_HEADS = 2
+# phase 48: Wan-S2V (Wan-AI/Wan2.2-S2V-14B as the JAX family builds it: Wan's DiT
+# at WanConfig.b14(), 5120 wide, 40 heads of 128, 40 blocks, umT5 at 512 tokens,
+# each clip's audio features (64-bin log STFT frames of its same-stem WAV at 16
+# kHz, cut or zero-padded to S2V_FRAMES, zero-padded to the 4,096-wide text)
+# joined after the text: 512 + 128 = 640 cross keys) on two 832 x 480 x 81 clips
+# (32,760 tokens; phase 42's clips and their latents linked where it ran) with
+# 5 s WAVs; the seeded file at S2V_FILE_BLOCKS of 40 blocks; the render text-only
+# (a validation batch carries no audio), 17 frames at 480 px square
+S2V_PROMPT = WAN_PROMPT
+S2V_FRAMES, S2V_AUDIO_RATE, S2V_AUDIO_SECONDS = 128, 16000, 5
+S2V_KEYS = WAN_TEXT + S2V_FRAMES
+S2V_FILE_BLOCKS, S2V_TRAIN_STEPS = 1, 6
+S2V_RENDER_FRAMES, S2V_GUIDANCE = 17, 5.0
+PHASE48_WRITE_GB = 0.73
+S2V_KERNEL_CASES = (("s2v_cross", 40, WAN_TOKENS, S2V_KEYS, 128),)
+S2V_CHECK_HEADS = 2
 # the depth of the earlier families' seeded files in a run of every phase
 # (full width; the kernels' shapes depend on width and tokens, not depth),
 # cut to make room for phases 25-32 in the write budget: SD3.5 Large at 2 of
@@ -1670,16 +1771,17 @@ PHASE_WRITE_GB = {19: 1.02, 20: 0.91, 21: PHASE21_WRITE_GB, 22: PHASE22_WRITE_GB
                   32: PHASE32_WRITE_GB, 33: PHASE33_WRITE_GB, 34: PHASE34_WRITE_GB, 35: PHASE35_WRITE_GB,
                   36: PHASE36_WRITE_GB, 37: PHASE37_WRITE_GB, 38: PHASE38_WRITE_GB, 39: PHASE39_WRITE_GB,
                   40: PHASE40_WRITE_GB, 41: PHASE41_WRITE_GB, 42: PHASE42_WRITE_GB, 43: PHASE43_WRITE_GB,
-                  44: PHASE44_WRITE_GB, 45: PHASE45_WRITE_GB, 46: PHASE46_WRITE_GB}
+                  44: PHASE44_WRITE_GB, 45: PHASE45_WRITE_GB, 46: PHASE46_WRITE_GB, 47: PHASE47_WRITE_GB,
+                  48: PHASE48_WRITE_GB}
 # the phases whose files (or, for 5 and 6, whose runtime) a phase needs before
 # it; 1, 2, 3 and 7 run in every run (the build, and the kernels line's times)
 PHASE_NEEDS = {4: (14, 15, 16), 5: (4,), 6: (5,), 15: (14,), 16: (14,), 17: (14, 15, 16), 18: (17,),
                19: (14, 15, 16), 20: (19,), 21: (20,), 22: (20,), 23: (15, 16), 24: (15, 16), 25: (14, 15, 16),
                26: (14, 16), 27: (14, 15, 16), 28: (14, 15), 29: (14, 16), 30: (14, 15, 16, 19), 31: (),
                32: (14, 16), 33: (14, 16), 34: (14, 16), 35: (), 36: (14, 16), 37: (14, 15, 16), 38: (14, 16),
-               39: (16,), 40: (), 41: (), 42: (15,), 43: (), 44: (42, 43), 45: (), 46: ()}
+               39: (16,), 40: (), 41: (), 42: (15,), 43: (), 44: (42, 43), 45: (), 46: (), 47: (15,), 48: (15,)}
 ALWAYS = (1, 2, 3, 7)
-LAST_PHASE = 46
+LAST_PHASE = 48
 # the phases named on the command line (None: every phase) and those the run takes
 RUN = {"requested": None, "phases": set(range(1, LAST_PHASE + 1))}
 
@@ -1723,6 +1825,13 @@ def _full_depth(number: int, extra_gb: float) -> bool:
     requested = RUN["requested"]
     return requested is not None and number in requested and \
         _written_gb() + PHASE_WRITE_GB[number] + extra_gb + _reserved(number) <= RUN_WRITE_TARGET_GB
+
+
+def train_blocks() -> tuple:
+    """Flux's (double, single) blocks in phases 14 (the fp8 file), 17 and 18:
+    all of them in a run that names phase 17 or 18, else ``TRAIN_CUT_BLOCKS``."""
+    requested = RUN["requested"] or ()
+    return (19, 38) if 17 in requested or 18 in requested else TRAIN_CUT_BLOCKS
 
 
 @contextlib.contextmanager
@@ -2033,6 +2142,9 @@ def kernel_cases():
     times["ltxvideo2"], l2_entries = long_forward_cases(LTX2_KERNEL_CASES + LTX2_CONNECTOR_CASES, L2_CHECK_HEADS,
                                                         1540, errors)
     marks.append(("ltxvideo2", time.perf_counter()))
+    times["ace_step"], ace_entries = long_forward_cases(ACE_KERNEL_CASES, ACE_CHECK_HEADS, 1580, errors)
+    times["wan_s2v"], s2v_entries = long_forward_cases(S2V_KERNEL_CASES, S2V_CHECK_HEADS, 1620, errors)
+    marks.append(("ace_step_wan_s2v", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     pairs = int(allowed.sum())
     nbytes = 4 * 24 * FLUX_S * 128 * 2 + 24 * FLUX_S * 4 + 2 * FLUX_S * 4  # q, k, v, out; lse; ids
@@ -2048,7 +2160,7 @@ def kernel_cases():
         {**wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries, **hd_entries,
          **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries, **k2_entries, **co_entries,
          **og_entries, **er_entries, **id_entries, **lv_entries, **sa_entries, **sv_entries, **c3_entries,
-         **l2_entries}
+         **l2_entries, **ace_entries, **s2v_entries}
 
 
 def omnigen_prefix_block() -> dict:
@@ -2264,6 +2376,9 @@ def backward_cases():
     marks.append(("cosmos3", time.perf_counter()))
     times["ltxvideo2"], l2_entries = long_backward_cases(LTX2_KERNEL_CASES, L2_CHECK_HEADS, 1560, errors)
     marks.append(("ltxvideo2", time.perf_counter()))
+    times["ace_step"], ace_entries = long_backward_cases(ACE_KERNEL_CASES, ACE_CHECK_HEADS, 1600, errors)
+    times["wan_s2v"], s2v_entries = long_backward_cases(S2V_KERNEL_CASES, S2V_CHECK_HEADS, 1640, errors)
+    marks.append(("ace_step_wan_s2v", time.perf_counter()))
     times["section_s"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     phase("7 backward kernels", shape=[1, 24, FLUX_S, 128], tol={"grad_rel_max": GRAD_REL_MAX,
           "grad_rel_l2": GRAD_REL_L2}, errors=errors, **times)
@@ -2278,7 +2393,7 @@ def backward_cases():
     }, **d256_entries, **wan_entries, **ltx_entries, **lumina_entries, **k5_entries, **hy_entries, **qi_entries,
         **hd_entries, **f2_entries, **kolors_entries, **lc_entries, **zo_entries, **zl_entries, **k2_entries,
         **co_entries, **og_entries, **er_entries, **id_entries, **lv_entries, **sa_entries, **sv_entries,
-        **c3_entries, **l2_entries}
+        **c3_entries, **l2_entries, **ace_entries, **s2v_entries}
 
 
 def _ddpm_inputs(seed, heads, sq, sk, dim, n):
@@ -2595,7 +2710,9 @@ def _case_planes(sq: int, sk: int, plane):
     "lv_keys", "sv_keys" and "l2_keys" LongCat-Video's, Sana-Video's and
     LTX-2's prompt cross-attention: every query at 1, the first ``LV_VALID``
     / ``SV_VALID`` / ``L2_VALID`` caption keys at 1 and the pads at -1;
-    "c3_gen" Cosmos3's generation attention, unmasked."""
+    "c3_gen" Cosmos3's generation attention, unmasked; for "ace_keys" ACE-Step's
+    cross-attention: every query at 1, the first ``ACE_VALID_KEYS`` keys (the
+    speaker, the caption and the lyric ids) at 1 and the lyric pads at -1."""
     import torch
 
     if plane == "c3_gen":
@@ -2604,7 +2721,8 @@ def _case_planes(sq: int, sk: int, plane):
         seg = torch.ones((1, sq), dtype=torch.int32, device="cuda")
         seg[:, ID_VALID:ID_TEXT] = 0
         return seg, seg
-    if plane not in ("zl_joint", "k2_joint", "k2_refiner", "og_keys", "er_joint", "lv_keys", "sv_keys", "l2_keys"):
+    if plane not in ("zl_joint", "k2_joint", "k2_refiner", "og_keys", "er_joint", "lv_keys", "sv_keys", "l2_keys",
+                     "ace_keys"):
         seg = _case_segments(sq, plane)
         return seg, seg
     kv = torch.ones((1, sk), dtype=torch.int32, device="cuda")
@@ -2614,8 +2732,8 @@ def _case_planes(sq: int, sk: int, plane):
         kv[:, OG_VALID:OG_TEXT] = -1
     elif plane == "er_joint":
         kv[:, LC_IMG + ER_VALID:] = -1
-    elif plane in ("lv_keys", "sv_keys", "l2_keys"):
-        kv[:, {"lv_keys": LV_VALID, "sv_keys": SV_VALID, "l2_keys": L2_VALID}[plane]:] = -1
+    elif plane in ("lv_keys", "sv_keys", "l2_keys", "ace_keys"):
+        kv[:, {"lv_keys": LV_VALID, "sv_keys": SV_VALID, "l2_keys": L2_VALID, "ace_keys": ACE_VALID_KEYS}[plane]:] = -1
     else:
         kv[:, K2_VALID:K2_TEXT] = -1
     return torch.ones((1, sq), dtype=torch.int32, device="cuda"), kv
@@ -2845,12 +2963,14 @@ def train_steps(kernels) -> None:
         norms = []
         for kernel in kernels:
             kernel.launches = 0
-        # the first run (phase 12's step, profiled here) 2 warm-up and 2 timed
-        # steps, the others 1 and 1 (2 and 2 before phases 39-41)
+        # the first run (phase 12's step) 2 warm-up and 2 timed steps, the
+        # others 1 and 1 (2 and 2 before phases 39-41); the first is profiled
+        # in a run that names phase 8 (phase 12 profiles its graphed replay)
         first = label == TRAIN_RUNS[0][0]
         warmup = 2 if first else 1
+        profile = first and 8 in (RUN["requested"] or ())
         with record_backward_norms(norms, calls=warmup * blocks):
-            result = flagship(steps=warmup, warmup=warmup, profile=first, graph=False, **kwargs)
+            result = flagship(steps=warmup, warmup=warmup, profile=profile, graph=False, **kwargs)
         counts[label] = {kernel.name: kernel.launches for kernel in kernels}
         per_step = result["launches_per_step"]
         norms = torch.stack(norms).cpu()
@@ -3027,11 +3147,11 @@ def graph_step(kernels):
 
 
 def trainer_phase(paths: dict, flagship_median_s: float, kernels, device: str) -> dict:
-    """Phase 17: ``Trainer.run()`` on full-width, full-depth Flux with an int8
-    base, twice: a straight run of 8 steps, then a run resumed from its
-    checkpoint-4 (the checkpoint hard-linked into a fresh output dir, the
-    config otherwise the same); returns each kernel's launches in the two
-    runs."""
+    """Phase 17: ``Trainer.run()`` on full-width Flux at ``train_blocks()``
+    with an int8 base, twice: a straight run of 8 steps, then a run resumed
+    from its checkpoint-4 (the checkpoint hard-linked into a fresh output
+    dir, the config otherwise the same); returns each kernel's launches in
+    the two runs."""
     import numpy as np
     import torch
 
@@ -3078,6 +3198,7 @@ def trainer_phase(paths: dict, flagship_median_s: float, kernels, device: str) -
             "validation_num_inference_steps": TRAIN_VALIDATION_STEPS, "validation_seed": 42,
             "validation_guidance_real": 3.5, "cache_dir": os.path.join(work, "train_cache"),
             "output_dir": os.path.join(work, out), "checkpoint_frozen_base": "reference",
+            "model_arch_overrides": dict(zip(("depth_double", "depth_single"), train_blocks())),
             "data_backend_config": [
                 {"id": "train", "dataset_type": "image", "type": "local", "instance_data_dir": data,
                  "resolution": 1024, "resolution_type": "pixel_area", "caption_strategy": "textfile",
@@ -3180,7 +3301,9 @@ def trainer_phase(paths: dict, flagship_median_s: float, kernels, device: str) -
                                                            for k in final_lora):
         raise RuntimeError("trainer: the resumed run's final LoRA differs from the straight run's")
     resumed_report = report(resumed, resumed_s, resumed_metrics)
-    phase("17 trainer", blocks=[19, 38], hidden=3072, base="int8", quantized_matmul="full", remat_policy="attn",
+    blocks = list(train_blocks())
+    full_depth = blocks == [19, 38]  # phase 12's graphed flagship is the full depth
+    phase("17 trainer", blocks=blocks, depth={"blocks": blocks, "of": [19, 38]}, hidden=3072, base="int8", quantized_matmul="full", remat_policy="attn",
           lora_rank=16, buckets=["1024x1024", "1152x896"], steps=TRAIN_STEPS, losses=losses,
           grad_norms=[m["grad_norm"] for m in straight_metrics], resumed_losses_bitwise=True,
           resumed_final_lora_bitwise=True, lora_tensors=len(final_lora), validation_png=os.path.basename(png),
@@ -3189,7 +3312,8 @@ def trainer_phase(paths: dict, flagship_median_s: float, kernels, device: str) -
           profiled_window=resumed.profiler.summary, flagship_graphed_median_s=flagship_median_s,
           allocated_gib_before_phase=baseline_gib,
           trainer_vs_flagship=(straight_report["s_per_step_median"] / flagship_median_s
-                               if straight_report["s_per_step_median"] and flagship_median_s else None),
+                               if full_depth and straight_report["s_per_step_median"] and flagship_median_s
+                               else None),
           seconds=time.perf_counter() - start, device=device)
     del resumed
     torch.cuda.empty_cache()
@@ -3248,6 +3372,7 @@ def server_phase(phase17: dict, device: str) -> None:
     render_config = os.path.join(work, "phase17_config.json")
     with open(render_config, "w") as handle:
         json.dump(phase17["config"], handle)
+    blocks = list(train_blocks())  # the children read it from phase 17's model_arch_overrides
 
     # two job slots: the training job and the render job (which renders from
     # phase 17's checkpoint, not the job's) run at once, one child each
@@ -3359,7 +3484,7 @@ def server_phase(phase17: dict, device: str) -> None:
         srv.shutdown()
         srv.server_close()
 
-    phase("18 server", blocks=[19, 38], hidden=3072, base="int8", steps=TRAIN_STEPS, losses_bitwise=True,
+    phase("18 server", blocks=blocks, depth={"blocks": blocks, "of": [19, 38]}, hidden=3072, base="int8", steps=TRAIN_STEPS, losses_bitwise=True,
           final_lora_bitwise=True, render_png_bitwise=True, render_png=os.path.basename(png),
           eval_loss={m["step"]: m["eval_loss"] for m in evals}, eval_s=eval_s, eval_images=len(SERVER_EVAL_IMAGES),
           eval_draws_per_image=SERVER_EVAL_DRAWS,
@@ -10396,9 +10521,11 @@ def video_dit_phase(number: int, family: str, paths: dict, kernels, device: str,
     linear = None
     if not longcat:
         linear = _linear_attention_ms(full.num_heads, WAN_TOKENS, full.head_dim, rope=True)
-        for name in ("sanavideo", "sanavideo_data", "sanavideo_cache", "longcat_video", "longcat_video_data",
-                     "longcat_video_cache", os.path.join("sana", "transformer") if _runs(46) else "sana"):
-            shutil.rmtree(os.path.join(work, name), ignore_errors=True)  # disk space; phase 46 links sana's Gemma-2
+        # disk space; phase 46 links sana's Gemma-2, phase 48 the clips and their latents
+        for name in ("sanavideo", "sanavideo_data", "sanavideo_cache", "longcat_video",
+                     os.path.join("sana", "transformer") if _runs(46) else "sana") + \
+                (() if _runs(48) else ("longcat_video_data", "longcat_video_cache")):
+            shutil.rmtree(os.path.join(work, name), ignore_errors=True)
     phase(f"{number} {family}", config=config_name, params=params,
           params_per_block=sum(math.prod(v) for k, v in shapes.items() if k.startswith(("blocks.0.", "transformer_blocks.0."))),
           hidden=full.hidden_size, heads=[heads, 128 if longcat else full.cross_head_dim],
@@ -11343,6 +11470,519 @@ def ltx2_phase(paths: dict, kernels, device: str, full_in_memory: bool, kernel_c
     return out
 
 
+def acestep_flops(arch, batch: int, tokens: int, text_tokens: int, lyric_tokens: int) -> tuple:
+    """Model FLOPs of one ACE-Step forward, counted from the config, as (the
+    part the backward runs through, the rest): per block the Lite-LA q, k, v
+    and out over the latent tokens and its two f32 products (V padded with
+    the ones column), the cross-attention's q and out per latent token and k
+    and v per conditioning token (1 + text + lyric), its two products, and
+    GLUMBConv's 1 x 1 expansion, depthwise k = 3 conv and point conv; the
+    final projection; then the patch embed's two convs, the timestep MLP and
+    ``t_block`` (per sample), the speaker, caption and lyric projections and
+    the conformer (the linear embed, per layer q, k, v, out and the FFN over
+    the lyric tokens, ``linear_pos`` over the 2L - 1 relative positions once,
+    and the content, position and value products), which carry no adapter
+    and take no gradient input."""
+    d, heads, hd = arch.inner_dim, arch.num_heads, arch.head_dim
+    hidden, channels = int(d * arch.mlp_ratio), arch.in_channels
+    patch, context = channels * arch.patch_mult, 1 + text_tokens + lyric_tokens
+    ly, dl, ffn = lyric_tokens, arch.lyric_hidden, arch.lyric_ffn
+    block = (8 * tokens * d * d + 4 * tokens * heads * (hd + 1) * hd + 4 * tokens * d * d + 4 * context * d * d
+             + 4 * tokens * context * d + 4 * tokens * d * hidden + 12 * tokens * hidden + 2 * tokens * hidden * d)
+    trained = batch * (arch.num_layers * block + 2 * tokens * d * arch.latent_height * channels)
+    conformer = 2 * ly * dl * dl + arch.lyric_depth * (
+        8 * ly * dl * dl + 2 * ly * ly * dl + 2 * ly * (2 * ly - 1) * dl + 2 * ly * ly * dl + 4 * ly * dl * ffn)
+    frozen = batch * (2 * tokens * patch * channels * arch.latent_height + 2 * tokens * patch * d
+                      + 2 * (256 * d + d * d) + 12 * d * d + 2 * arch.speaker_dim * d
+                      + 2 * text_tokens * arch.text_dim * d + 2 * ly * dl * d + conformer)
+    return trained, frozen + arch.lyric_depth * 2 * (2 * ly - 1) * dl * dl
+
+
+def acestep_step_flops(arch, batch: int, tokens: int, text_tokens: int, lyric_tokens: int) -> int:
+    """Model FLOPs of one ACE-Step train step (the adapted part x 3, the rest once)."""
+    trained, frozen = acestep_flops(arch, batch, tokens, text_tokens, lyric_tokens)
+    return 3 * trained + frozen
+
+
+def write_lyrics_vocab(path: str, first_id: int = 270) -> None:
+    """A seeded BPE lyric tokenizer in the ``tokenizers`` JSON format, as
+    ACE-Step's ``lyrics_utils/vocab.json`` is: single characters and a few
+    merges from ``first_id`` on (placeholders below it), the language tags
+    and ``[SPACE]`` as special tokens."""
+    from tokenizers import Tokenizer, models
+
+    chars = list("abcdefghijklmnopqrstuvwxyz0123456789'.,!?-()[]")
+    merges = [("t", "h"), ("th", "e"), ("i", "n"), ("in", "g"), ("e", "r"), ("o", "n"), ("a", "n")]
+    vocab = {f"<unused{i}>": i for i in range(first_id)}  # ids below first_id: never produced
+    for piece in chars + [a + b for a, b in merges]:
+        vocab[piece] = len(vocab)
+    tokenizer = Tokenizer(models.BPE(vocab=vocab, merges=merges))
+    tokenizer.add_special_tokens(["[SPACE]", "[en]", "[zh]", "[ja]", "[ko]"])
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tokenizer.save(path)
+
+
+def _write_wav(path: str, seconds: float, rate: int, channels: int, seed: int) -> None:
+    """A seeded 16-bit WAV: a chord of seeded tones with a little noise."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate), dtype=np.float64) / rate
+    tones = sum(np.sin(2 * np.pi * f * t + p) for f, p in zip(rng.uniform(110, 880, 3), rng.uniform(0, 6, 3)))
+    wave = 0.2 * tones[:, None] + 0.02 * rng.standard_normal((t.size, channels))
+    wavfile.write(path, rate, (np.clip(wave, -1, 1) * 32767).astype(np.int16))
+
+
+def ace_step_phase(paths: dict, kernels, device: str, full_in_memory: bool, kernel_cases: dict) -> dict:
+    """Phase 47: ACE-Step at the JAX preset's full width (``ACEStepConfig()``):
+    ``acestep_flops`` against the flop counter on two small configs; a seeded
+    e4m3 diffusers-layout transformer at ``ACE_FILE_BLOCKS`` of 28 blocks with
+    the conformer and conditioning whole, a seeded umT5 at umT5-base's 768
+    width (``UMT5_LAYERS`` of 12 layers, bf16) beside phase 15's T5 tokenizer
+    (``tokenizer_2``), a seeded BPE ``lyrics_utils/vocab.json``, and four
+    seeded stereo 44.1 kHz 16-bit WAVs of 47 s with captions and
+    ``.lyrics.txt`` sidecars; the import held bitwise; ``Trainer.run()``: audio
+    discovery into the ``47s`` bucket, the text cache at 256 tokens, the audio
+    VAE cache (s per clip, the stage's peak), 6 graphed rank-16 LoRA steps on
+    the default preset (the eight attention projections of every block) on a
+    bf16 base with every block checkpointed, the lyric ids of the sidecars in
+    every batch, a replay bitwise against an eager step and the profiled
+    replay held to the capture's launches; the true-CFG render of 47 s with
+    ``validation_lyrics`` through ``CheckpointInferenceRuntime``, its WAV
+    read back; one forward with the kernels against the plain attention; in a
+    run that names the phase all 28 blocks built in memory and their graphed
+    step timed.  Returns the launches per step of each kernel at the cross
+    shape."""
+    import gc
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from simpletuner_tpu_torch.inference import CheckpointInferenceRuntime, config_namespace
+    from simpletuner_tpu_torch.models.ace_step import ACEStep, ACEStepConfig, ACEStepTransformer
+    from simpletuner_tpu_torch.models.audio_vae import AudioAutoencoderKL, AudioVAEConfig
+    from simpletuner_tpu_torch.models.checkpoint_layouts import acestep_checkpoint_shapes
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.t5 import T5Config, T5EncoderModel
+    from simpletuner_tpu_torch.models.text_encoders import init_encoder
+    from simpletuner_tpu_torch.models.weight_import import acestep_params_from_diffusers, save_safetensors
+
+    start = time.perf_counter()
+    work = paths["work"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(47)
+
+    # (a) the flop count against the counter on two small configs
+    tiny = ACEStepConfig.tiny()
+    narrow = dataclasses.replace(tiny, latent_height=2, num_heads=3, head_dim=8, lyric_hidden=24, lyric_heads=3,
+                                 num_layers=1)
+    cases = []
+    for arch_, (tokens, text, lyric) in ((tiny, (9, 5, 7)), (narrow, (6, 4, 3))):
+        ids = torch.randint(0, arch_.lyric_vocab, (2, lyric), generator=torch.Generator().manual_seed(lyric))
+        cases.append((arch_, (torch.zeros(2, arch_.latent_height, tokens, arch_.in_channels), torch.full((2,), 0.5),
+                              torch.zeros(2, text, arch_.text_dim), torch.zeros(2, arch_.speaker_dim), ids,
+                              torch.ones(2, lyric)), (tokens, text, lyric)))
+    flop_checks = _flop_checks(_x3(acestep_flops), ACEStepTransformer, cases)
+    full = ACEStepConfig()
+    if (full.inner_dim, full.num_heads, full.head_dim, int(full.inner_dim * full.mlp_ratio), full.num_layers,
+            full.lyric_hidden, full.lyric_depth, full.lyric_vocab, full.text_dim) != \
+            (1536, 24, 64, 6144, 28, 1024, 6, 6681, 768):
+        raise RuntimeError(f"not the JAX preset of ACE-Step: {full}")
+    vae_cfg = AudioVAEConfig.ace()
+    arch = dataclasses.replace(full, num_layers=ACE_FILE_BLOCKS)
+    depth = arch.num_layers
+    shapes = acestep_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 4e9 or written_before + PHASE47_WRITE_GB + _reserved(47) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"ace_step: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
+                           f"phase; it writes {PHASE47_WRITE_GB:.2f} GB of the {RUN_WRITE_TARGET_GB} GB a run may "
+                           "write")
+
+    # (b) the seeded files: the transformer (two e4m3 shards), umT5-base's width
+    # at a cut depth (a umt5 file: a relative bias in every layer), the T5
+    # tokenizer linked, the lyric vocab, four 47 s WAVs with captions and lyrics
+    root = os.path.join(work, "ace_step")
+    weights, write_s = _write_e4m3_transformer(root, shapes, gen)
+    umt5 = T5Config(vocab_size=UMT5_VOCAB, d_model=768, d_kv=64, d_ff=2048, num_layers=UMT5_LAYERS, num_heads=12)
+    with torch.device(dev):
+        t5 = init_encoder(T5EncoderModel(umt5, torch.bfloat16), gen)
+    t5_state = dict(t5.state_dict())
+    for layer in range(1, UMT5_LAYERS):
+        t5_state[f"encoder.block.{layer}.layer.0.SelfAttention.relative_attention_bias.weight"] = (
+            torch.randn((umt5.relative_attention_num_buckets, umt5.num_heads), generator=gen, device=dev)
+            * umt5.d_model ** -0.5).to(torch.bfloat16)
+    os.makedirs(os.path.join(root, "text_encoder"))
+    save_safetensors(t5_state, os.path.join(root, "text_encoder", "model.safetensors"))
+    with open(os.path.join(root, "text_encoder", "config.json"), "w") as handle:
+        json.dump({**dataclasses.asdict(umt5), "model_type": "umt5", "architectures": ["UMT5EncoderModel"],
+                   "dense_act_fn": "gelu_new", "is_gated_act": True, "tie_word_embeddings": False}, handle)
+    umt5_params = sum(v.numel() for v in t5_state.values())
+    del t5, t5_state
+    _link_tree(os.path.join(paths["flux_dir"], "tokenizer_2"), os.path.join(root, "tokenizer_2"))
+    write_lyrics_vocab(os.path.join(root, "lyrics_utils", "vocab.json"))
+    data = os.path.join(work, "ace_step_data")
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    for i in range(ACE_CLIPS):
+        _write_wav(os.path.join(data, f"track_{i}.wav"), ACE_SECONDS, ACE_RATE, 2, 470 + i)
+        with open(os.path.join(data, f"track_{i}.txt"), "w") as handle:
+            handle.write(TRAIN_CAPTIONS[i])
+        with open(os.path.join(data, f"track_{i}.lyrics.txt"), "w") as handle:
+            handle.write(ACE_LYRICS)
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "blocks": [depth, full.num_layers],
+             "outside_blocks": sum(math.prod(v) for k, v in shapes.items() if not k.startswith("transformer_blocks.")),
+             "umt5": {"params": umt5_params, "width": 768, "layers": [UMT5_LAYERS, 12],
+                      "vocab": [UMT5_VOCAB, 256384]},
+             "wavs": {"clips": ACE_CLIPS, "seconds": ACE_SECONDS, "rate": ACE_RATE, "channels": 2,
+                      "mb": sum(os.path.getsize(os.path.join(data, f)) for f in os.listdir(data)) / 1e6,
+                      "write_s": time.perf_counter() - t0},
+             "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9}
+
+    # (c) the import, bitwise
+    model = ModelRegistry.create("ace_step", config_namespace({"model_family": "ace_step", "model_type": "full"}))
+    if model.arch != arch:
+        raise RuntimeError(f"ace_step: the family builds {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, root, weights, acestep_params_from_diffusers, file_bytes)
+    params = sum(math.prod(v) for v in acestep_checkpoint_shapes(full).values())
+    del weights, module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) Trainer.run(): audio discovery, the text and audio VAE caches, the default LoRA preset
+    cache, out = os.path.join(work, "ace_step_cache"), os.path.join(work, "ace_step_train")
+    config = {"model_family": "ace_step", "model_type": "lora", "lora_rank": 16, "pretrained_model_name_or_path": root,
+              "gradient_checkpointing": True, "optimizer": "adamw", "learning_rate": 1e-4, "lr_scheduler": "constant",
+              "mixed_precision": "bf16", "text_encoder_precision": "bf16", "train_batch_size": 1, "vae_batch_size": 1,
+              "max_train_steps": ACE_TRAIN_STEPS, "logging_steps": 1, "report_to": "jsonl", "seed": 42,
+              "cache_dir": cache, "output_dir": out, "checkpoint_frozen_base": "reference",
+              "data_backend_config": [
+                  {"id": "tracks", "dataset_type": "audio", "type": "local", "instance_data_dir": data,
+                   "caption_strategy": "textfile", "cache_dir_vae": os.path.join(cache, "vae"), "audio": {}},
+                  {"id": "embeds", "dataset_type": "text_embeds", "type": "local", "default": True,
+                   "cache_dir": os.path.join(cache, "text")}]}
+    cross_key = f"{full.num_heads}x{ACE_TOKENS}x{ACE_KEYS}x{full.head_dim}"
+    train_launches = _by_shape_per_step({cross_key: (depth, True)})
+
+    def check(trainer) -> dict:
+        bundle = trainer.data_plane.bundles["tracks"]
+        buckets = sorted(bundle.metadata_backend.aspect_ratio_bucket_indices)
+        tracks = [p for key in buckets for p in bundle.metadata_backend.aspect_ratio_bucket_indices[key]]
+        cached = [bundle.vae_cache.load(p) for p in tracks]
+        batch = trainer._example_batch()
+        shapes_ = {k: tuple(v.shape) for k, v in batch.items() if k.startswith(("text", "lyrics", "latents"))}
+        if trainer.model.arch != arch or buckets != [f"{ACE_SECONDS}s"] or len(tracks) != ACE_CLIPS or \
+                not isinstance(trainer.vae, AudioAutoencoderKL) or trainer.vae.config != vae_cfg or \
+                any(c.shape != (ACE_LATENTS, 8) or not np.isfinite(c).all() for c in cached) or \
+                shapes_ != {"latents": (1, ACE_LATENTS, 8), "text_embeds": (1, ACE_TEXT, full.text_dim),
+                            "lyrics_tokens": (1, ACE_LYRIC_KEYS), "lyrics_mask": (1, ACE_LYRIC_KEYS)} or \
+                int(batch["lyrics_mask"].sum()) != ACE_LYRIC_IDS:
+            raise RuntimeError(f"ace_step trainer: arch {trainer.model.arch}, buckets {buckets}, VAE "
+                               f"{trainer.vae.config}, cached {[c.shape for c in cached]}, batch {shapes_}, lyric ids "
+                               f"{batch.get('lyrics_mask', np.zeros(1)).sum()}")
+        startup, stages = trainer.data_plane.startup_metrics, trainer.stage_report
+        vae_s = startup.get("vae_cache_tracks_s")
+        return {"buckets": buckets, "latents": list(cached[0].shape),
+                "vae": "AudioVAEConfig.ace() (stereo, strides 4, 4, 4, 8: 512x; seeded from 0, bf16)",
+                "cache": {"text_s": startup.get("text_cache_tracks_s"), "vae_s": vae_s,
+                          "vae_s_per_clip": vae_s / ACE_CLIPS if vae_s else None,
+                          "data_backend_stage_peak_gib": stages.get("init_data_backend", {}).get("peak_gib")},
+                "lyric_ids": ACE_LYRIC_IDS, "lyric_keys": ACE_LYRIC_KEYS,
+                **_graph_matches_eager(trainer, ("loss", "grad_norm"))}
+
+    train = _train_graphed(config, kernels, ACE_TRAIN_STEPS, _totals(train_launches),
+                           acestep_step_flops(arch, 1, ACE_TOKENS, ACE_TEXT, ACE_LYRIC_KEYS), check)
+    if train["launches_per_step_by_shape"] != train_launches or train["lora_targets"] != sorted(
+            f"{kind}_{p}" for kind in ("attn", "cross") for p in ("k", "proj", "q", "v")):
+        raise RuntimeError(f"ace_step trainer: launches per step by shape {train['launches_per_step_by_shape']}, "
+                           f"targets {train['lora_targets']}")
+    train.update({"base": "bf16", "remat": "every block", "lora_rank": 16, "lora_preset": "attn_qkv+linear_qkv",
+                  "flop_checks": flop_checks})
+    shutil.rmtree(out, ignore_errors=True)
+
+    # (e) the true-CFG render of 47 s with validation_lyrics, its WAV read back
+    config_path = os.path.join(work, "ace_step_render.json")
+    with open(config_path, "w") as handle:
+        json.dump({"model_family": "ace_step", "model_type": "full", "pretrained_model_name_or_path": root,
+                   "mixed_precision": "bf16", "text_encoder_precision": "bf16", "seed": 42, "validation_seed": 42,
+                   "validation_guidance": ACE_GUIDANCE, "validation_audio_duration": ACE_SECONDS,
+                   "validation_audio_sample_rate": ACE_RATE, "validation_lyrics": ACE_LYRICS}, handle)
+    t0 = time.perf_counter()
+    runtime = CheckpointInferenceRuntime(config_path=config_path, output=os.path.join(work, "ace_step_render"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    timed = _timed_render(runtime, kernels, ACE_PROMPT, ACE_GUIDANCE)
+    wav = os.path.join(work, "ace_step_render", "validation", "step_0_0.wav")
+    rate, samples = wavfile.read(wav)
+    forward_s = timed["forward_s"]
+    if timed["rendered"] != [] or timed["launches"] != {"flash_fwd": depth * 2 * STEPS, "flash_bwd_dq": 0,
+                                                        "flash_bwd_dkv": 0} or \
+            timed["finite"] != [True] or len(forward_s) != 2 * STEPS or rate != ACE_RATE or \
+            samples.dtype != np.int16 or samples.shape != (ACE_LATENTS * vae_cfg.compression, 2) or \
+            not samples.any():
+        raise RuntimeError(f"ace_step render: paths {timed['rendered']}, launches {timed['launches']}, finite "
+                           f"{timed['finite']}, {len(forward_s)} forwards, the WAV {rate} Hz {samples.shape} "
+                           f"{samples.dtype}")
+    render = {"init_s": init_s, "render_s": timed["render_s"], "steps": STEPS, "guidance": ACE_GUIDANCE,
+              "seconds": ACE_SECONDS, "latents": ACE_LATENTS, "tokens": ACE_TOKENS,
+              "s_per_cfg_step": sum(forward_s[2:]) / (len(forward_s) - 2) * 2, "forward_s": forward_s,
+              "vae_decode_s": timed["decode_s"][0], "peak_gib": timed["peak_gib"], "launches": timed["launches"],
+              "launches_by_shape": timed["launches_by_shape"], "wav": os.path.basename(wav),
+              "wav_samples": list(samples.shape), "wav_rate": rate, "wav_bytes": os.path.getsize(wav),
+              "returned_paths": timed["rendered"]}
+
+    # (f) the parity forward at the file's depth with the caption, the lyrics and the mel layout
+    module, model = runtime.module, runtime.model
+    batch = {"latents": torch.zeros((1, ACE_LATENTS, 8), device=dev)}
+    for key, value in model.collate_text_embeds(model.encode_text([ACE_PROMPT])).items():
+        batch[key] = torch.as_tensor(value, device=dev)
+    ids, mask = model.lyrics_tokenizer.tokenize_batch([ACE_LYRICS])
+    batch.update({"lyrics_tokens": torch.as_tensor(ids, device=dev), "lyrics_mask": torch.as_tensor(mask, device=dev)})
+    noise = torch.randn((1, ACE_LATENTS, 8), generator=gen, device=dev)
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    parity = _parity_forward(model, module, batch, noise, ACE_SIGMA)
+    parity["launches_by_shape"] = _per_shape(kernels)
+    # the kernel forward, then cuda_ms's warm-up and 3 timed calls; the plain one launches nothing
+    if parity["launches_by_shape"]["flash_fwd"] != {cross_key: 5 * depth} or \
+            tuple(ids.shape) != (1, ACE_LYRIC_KEYS) or int(mask.sum()) != ACE_LYRIC_IDS:
+        raise RuntimeError(f"ace_step parity: launches {parity['launches_by_shape']}, lyric ids {ids.shape} "
+                           f"{mask.sum()}")
+
+    # (g) the encoder's four strided convs on one 47 s clip (the render's VAE, seeded 0):
+    # conv1d, the card's path, against unfolded_conv, the CPU's bf16 path; each level's
+    # input is the conv1d path's, and the two outputs agree within a bf16 rounding
+    from simpletuner_tpu_torch.models.audio_vae import unfolded_conv
+
+    encoder = runtime.vae.encoder
+    _, clip = wavfile.read(os.path.join(data, sorted(f for f in os.listdir(data) if f.endswith(".wav"))[0]))
+    strided = {"conv1d_ms": [], "unfolded_ms": [], "rel_l2": [], "shapes": []}
+    with torch.no_grad():
+        h = encoder.stem(torch.as_tensor(clip.astype(np.float32) / 32768.0, device=dev).T[None].to(encoder.dtype))
+        for level in range(len(vae_cfg.strides)):
+            pool, h = getattr(encoder, f"down_{level}_pool"), getattr(encoder, f"down_{level}_res")(h)
+            strided["conv1d_ms"].append(cuda_ms(lambda: pool(h), 5))
+            strided["unfolded_ms"].append(cuda_ms(lambda: unfolded_conv(pool, h), 5))
+            out, product = pool(h), unfolded_conv(pool, h)
+            strided["rel_l2"].append(rel_l2(out, product))
+            strided["shapes"].append([list(h.shape), list(out.shape), pool.kernel_size[0], pool.stride[0]])
+            h = out
+    strided["conv1d_total_ms"], strided["unfolded_total_ms"] = sum(strided["conv1d_ms"]), sum(strided["unfolded_ms"])
+    if max(strided["rel_l2"]) > 2 ** -7:
+        raise RuntimeError(f"ace_step audio VAE: conv1d and the unfolded product differ on the card: {strided}")
+    del runtime, module, model, batch, noise, encoder, h, out, product
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) in a run that names the phase: all 28 blocks built in memory, their graphed step
+    full_depth = None
+    if full_in_memory:
+        deep = ACEStep(config_namespace(_graph_train_values("ace_step", ACE_FULL_STEPS)), arch=full)
+        deep_batch = {"latents": torch.randn((1, ACE_LATENTS, 8), generator=gen, device=dev),
+                      "text_embeds": torch.randn((1, ACE_TEXT, full.text_dim), generator=gen, device=dev),
+                      "lyrics_tokens": torch.as_tensor(ids, device=dev), "lyrics_mask": torch.as_tensor(mask, device=dev)}
+        deep_launches = _by_shape_per_step({cross_key: (full.num_layers, True)})
+        full_depth = _graph_vs_eager(deep, _drawn_in_memory(deep, gen), deep_batch, kernels, ACE_FULL_STEPS,
+                                     _totals(deep_launches),
+                                     acestep_step_flops(full, 1, ACE_TOKENS, ACE_TEXT, ACE_LYRIC_KEYS))
+        if full_depth["launches_per_step_by_shape"] != deep_launches:
+            raise RuntimeError(f"ace_step 28 blocks: launches per step by shape "
+                               f"{full_depth['launches_per_step_by_shape']}")
+        full_depth.update({"blocks": [full.num_layers] * 2, "base": "int8 (built in memory)",
+                           "quantized_matmul": "full", "remat": "every block", "lora_rank": 16})
+        del deep, deep_batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("ace_step", "ace_step_data", "ace_step_cache", "ace_step_render"):
+        shutil.rmtree(os.path.join(work, name), ignore_errors=True)
+    phase("47 ace_step", config="ACE-Step/ACE-Step-v1-3.5B transformer as the JAX preset ACEStepConfig() builds it",
+          params=params, params_per_block=sum(math.prod(v) for k, v in shapes.items()
+                                              if k.startswith("transformer_blocks.0.")),
+          hidden=full.inner_dim, heads=[full.num_heads, full.head_dim],
+          depth={"file": [depth, full.num_layers], "train": [depth, full.num_layers],
+                 "in_memory": [full.num_layers if full_in_memory else 0, full.num_layers],
+                 "umt5_layers": [UMT5_LAYERS, 12]},
+          audio={"seconds": ACE_SECONDS, "rate": ACE_RATE, "samples": ACE_SECONDS * ACE_RATE, "latents": ACE_LATENTS,
+                 "mel_layout": [16, ACE_TOKENS]},
+          tokens={"latent": ACE_TOKENS, "text": ACE_TEXT, "lyric_ids": ACE_LYRIC_IDS, "cross_keys": ACE_KEYS},
+          files=files, imported=imported, train=train, render=render, parity=parity, vae_strided_convs=strided,
+          full_depth=full_depth, kernel_cases=kernel_cases, allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start,
+          device=device)
+    return {"ace_cross": {k: v.get(cross_key, 0) for k, v in train_launches.items()}}
+
+
+def wan_s2v_phase(paths: dict, kernels, device: str, kernel_cases: dict) -> dict:
+    """Phase 48: Wan-S2V at the ``s2v-14b`` width (``WanConfig.b14()``): a seeded
+    e4m3 file in Wan's layout at ``S2V_FILE_BLOCKS`` of 40 blocks imported
+    through ``load_wan_params`` and held bitwise, phase 15's T5-XXL and
+    tokenizer linked as phase 23 links them, phase 42's two 832 x 480 x 81
+    clips and their video latents linked (written here in a run without
+    phase 42) beside seeded same-stem 16 kHz WAVs of 5 s; ``Trainer.run()``
+    with the dataset's ``audio: {pair_with_video: true}``: 6 graphed rank-16
+    LoRA steps on the attention projections (the cross-attention over 512
+    text and 128 audio keys), the collated ``audio_embeds`` held bitwise to a
+    host recomputation from the clip's WAV, a replay bitwise against an eager
+    step and the profiled replay held to the capture's launches by shape; the
+    text-only true-CFG render (17 frames at 480 px square) through
+    ``CheckpointInferenceRuntime``; one forward with audio features against
+    the plain attention on a 17-frame clip.  Last, the run's writes against
+    the target.  Returns the launches per step of each kernel at the
+    cross-attention over the text and audio keys."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from simpletuner_tpu_torch.data.audio import load_audio, waveform_features
+    from simpletuner_tpu_torch.data.backends.local import LocalDataBackend
+    from simpletuner_tpu_torch.inference import config_namespace
+    from simpletuner_tpu_torch.models.checkpoint_layouts import wan_checkpoint_shapes
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.models.wan import WanConfig
+    from simpletuner_tpu_torch.models.weight_import import wan_params_from_diffusers
+
+    start = time.perf_counter()
+    work = paths["work"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(48)
+    full = WanConfig.b14()
+    if (full.hidden_size, full.depth, full.num_heads, full.head_dim, full.text_dim) != (5120, 40, 40, 128, 4096):
+        raise RuntimeError(f"not the JAX preset of Wan 14B: {full}")
+    arch = dataclasses.replace(full, depth=S2V_FILE_BLOCKS)
+    depth = arch.depth
+    latent_shape = (WAN_FRAMES - 1) // 4 + 1, WAN_HEIGHT // 8, WAN_WIDTH // 8
+    shapes = wan_checkpoint_shapes(arch)
+    file_bytes = sum(math.prod(shape) for shape in shapes.values())  # e4m3: one byte each
+    written_before, free = _written_gb(), shutil.disk_usage(work).free
+    if free < file_bytes + 4e9 or written_before + PHASE48_WRITE_GB + _reserved(48) > RUN_WRITE_TARGET_GB:
+        raise RuntimeError(f"wan_s2v: {free / 1e9:.1f} GB free and {written_before:.1f} GB written before the "
+                           f"phase; it writes {PHASE48_WRITE_GB:.2f} GB of the {RUN_WRITE_TARGET_GB} GB a run may "
+                           "write")
+
+    # (b) the transformer, T5-XXL and its tokenizer linked, the clips (with their latents) and their WAVs
+    root = os.path.join(work, "wan_s2v")
+    weights, write_s = _write_e4m3_transformer(root, shapes, gen)
+    for source, target in (("text_encoder_2", "text_encoder"), ("tokenizer_2", "tokenizer_2")):
+        _link_tree(os.path.join(paths["flux_dir"], source), os.path.join(root, target))
+    files = {"transformer_gb": file_bytes / 1e9, "transformer_dtype": "float8_e4m3fn", "write_s": write_s,
+             "write_gb_per_s": file_bytes / write_s / 1e9, "blocks": [depth, full.depth],
+             "t5_xxl": {"linked_from_phase": 15, "blocks": [T5_FILE_LAYERS, 24]}}
+    data, cache = os.path.join(work, "wan_s2v_data"), os.path.join(work, "wan_s2v_cache")
+    clips = paths.get("lv_clips")
+    if clips and os.path.isdir(clips):
+        # without phase 42's bucket index, which lists its own paths: the clips are discovered
+        # here, beside their WAVs (the latents' cache files are named by the file's stem)
+        shutil.copytree(clips, data, copy_function=os.link, ignore=shutil.ignore_patterns("aspect_ratio_bucket_*"))
+        _link_tree(os.path.join(work, "longcat_video_cache", "vae"), os.path.join(cache, "vae"))
+        files["clips"] = {"linked_from_phase": 42, "with_vae_latents": True}
+    else:
+        files.update(_write_clips(data, LV_CLIPS, WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH, 16, 42))
+    stems = sorted(os.path.splitext(f)[0] for f in os.listdir(data) if f.endswith(".mp4"))
+    for i, stem in enumerate(stems):
+        _write_wav(os.path.join(data, f"{stem}.wav"), S2V_AUDIO_SECONDS, S2V_AUDIO_RATE, 1, 480 + i)
+    files.update({"wavs": {"clips": len(stems), "seconds": S2V_AUDIO_SECONDS, "rate": S2V_AUDIO_RATE},
+                  "written_gb_before": written_before, "written_gb_after": _written_gb(), "free_gb_before": free / 1e9})
+
+    # (c) the import through load_wan_params, bitwise
+    model = ModelRegistry.create("wan_s2v", config_namespace({"model_family": "wan_s2v", "model_type": "full"}))
+    if model.arch != arch or model.flavour != "s2v-14b":
+        raise RuntimeError(f"wan_s2v: the family builds {model.flavour} {model.arch}, not {arch}")
+    with torch.device(dev):
+        module = model.create_module()
+    imported = _import_bitwise(model, module, root, weights, wan_params_from_diffusers, file_bytes)
+    params = sum(math.prod(v) for v in wan_checkpoint_shapes(full).values())
+    del weights, module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) Trainer.run() with each clip's WAV paired as audio features
+    out = os.path.join(work, "wan_s2v_train")
+    config = _video_config("wan_s2v", root, data, cache, out, WAN_FRAMES, S2V_TRAIN_STEPS,
+                           lora_target_modules=["to_q", "to_k", "to_v", "to_out.0"])
+    config["data_backend_config"][0]["audio"] = {"pair_with_video": True, "max_feature_frames": S2V_FRAMES}
+    self_key = f"{full.num_heads}x{WAN_TOKENS}x{WAN_TOKENS}x128"
+    cross_key = f"{full.num_heads}x{WAN_TOKENS}x{S2V_KEYS}x128"
+    train_launches = _by_shape_per_step({self_key: (depth, True), cross_key: (depth, True)})
+
+    def check(trainer) -> dict:
+        iterator = trainer.data_plane.iterator
+        snapshot = iterator.save_state()
+        raw = iterator.next_batch()
+        iterator.load_state(snapshot)
+        path = raw["image_paths"][0]
+        wave = load_audio(LocalDataBackend("a", data), os.path.splitext(path)[0] + ".wav", S2V_AUDIO_RATE)
+        feats = waveform_features(wave, sample_rate=S2V_AUDIO_RATE)[:S2V_FRAMES]
+        expected = np.pad(feats, ((0, S2V_FRAMES - feats.shape[0]), (0, 0)))
+        if trainer.model.arch != arch or raw["audio_embeds"].shape != (1, S2V_FRAMES, 64) or \
+                not np.array_equal(raw["audio_embeds"][0], expected) or raw["latents"].shape != (1,) + latent_shape + (16,):
+            raise RuntimeError(f"wan_s2v trainer: arch {trainer.model.arch}, batch {({k: getattr(v, 'shape', None) for k, v in raw.items()})}")
+        return {"audio_embeds": list(raw["audio_embeds"].shape), "audio_embeds_equal_host_recomputation": True,
+                "audio_frames_from_wav": int(waveform_features(wave, sample_rate=S2V_AUDIO_RATE).shape[0]),
+                "cache": {"text_s": trainer.data_plane.startup_metrics.get("text_cache_clips_s"),
+                          "vae_s": trainer.data_plane.startup_metrics.get("vae_cache_clips_s")},
+                **_graph_matches_eager(trainer, ("loss", "grad_norm"))}
+
+    train = _train_graphed(config, kernels, S2V_TRAIN_STEPS, _totals(train_launches),
+                           wan_step_flops(arch, 1, WAN_TOKENS, S2V_KEYS), check)
+    if train["launches_per_step_by_shape"] != train_launches:
+        raise RuntimeError(f"wan_s2v trainer: launches per step by shape {train['launches_per_step_by_shape']}")
+    train.update({"base": "bf16", "remat": "every block", "lora_rank": 16,
+                  "lora_targets_by_name": ["to_q", "to_k", "to_v", "to_out.0"]})
+    shutil.rmtree(out, ignore_errors=True)
+
+    # (e) the text-only true-CFG render, then the parity forward with audio features on 17 frames
+    render, runtime = _video_render(work, "wan_s2v", root, "wan_s2v", kernels, S2V_PROMPT, S2V_GUIDANCE,
+                                    WAN_RENDER_SIZE, S2V_RENDER_FRAMES, 2 * depth)
+    module, model = runtime.module, runtime.model
+    if model.arch != arch:
+        raise RuntimeError(f"wan_s2v: the runtime built {model.arch}")
+    parity_latent = ((WAN_PARITY_FRAMES - 1) // 4 + 1,) + latent_shape[1:]
+    batch = _text_batch(model, S2V_PROMPT, (1,) + parity_latent + (16,), dev)
+    batch["audio_embeds"] = torch.randn((1, S2V_FRAMES, 64), generator=gen, device=dev).abs()
+    model.text_encoders = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    noise = torch.randn((1,) + parity_latent + (16,), generator=gen, device=dev)
+    for kernel in kernels:
+        kernel.launches = 0
+        kernel.shape_launches.clear()
+    parity = _parity_forward(model, module, batch, noise, WAN_SIGMA)
+    parity["launches_by_shape"] = _per_shape(kernels)
+    tokens = parity_latent[0] * (parity_latent[1] // 2) * (parity_latent[2] // 2)
+    parity_cross = f"{full.num_heads}x{tokens}x{S2V_KEYS}x128"
+    if parity["launches_by_shape"]["flash_fwd"].get(parity_cross) != 5 * depth:
+        raise RuntimeError(f"wan_s2v parity: launches {parity['launches_by_shape']}")
+    parity["frames"], parity["tokens"] = WAN_PARITY_FRAMES, tokens
+    del runtime, module, model, batch, noise
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("wan_s2v", "wan_s2v_data", "wan_s2v_cache", "wan_s2v_render", "longcat_video_data",
+                 "longcat_video_cache"):
+        shutil.rmtree(os.path.join(work, name), ignore_errors=True)
+    writes = check_run_writes()  # the last phase
+    phase("48 wan_s2v", config="Wan-AI/Wan2.2-S2V-14B as the JAX family builds it (WanConfig.b14())", params=params,
+          params_per_block=sum(math.prod(v) for k, v in shapes.items() if k.startswith("blocks.0.")),
+          hidden=full.hidden_size, heads=[full.num_heads, full.head_dim],
+          depth={"file": [depth, full.depth], "train": [depth, full.depth]},
+          clip=[WAN_FRAMES, WAN_HEIGHT, WAN_WIDTH], latents=list(latent_shape),
+          tokens={"video": WAN_TOKENS, "text": WAN_TEXT, "audio_frames": S2V_FRAMES, "cross_keys": S2V_KEYS},
+          files=files, imported=imported, train=train, render=render, parity=parity, kernel_cases=kernel_cases,
+          allocated_gib_before_phase=baseline_gib, seconds=time.perf_counter() - start, device=device, **writes)
+    return {"s2v_cross": {k: v.get(cross_key, 0) for k, v in train_launches.items()}}
+
+
 def int8_cases() -> None:
     """Phase 10: torch._int_mm exact at the Flux shapes, int8_dynamic_dot
     against its float64-contraction plain version, and times."""
@@ -11508,9 +12148,10 @@ def weight_import(work: str) -> dict:
                 return int(name.split(".")[1]) < depth
         return True
 
-    # Flux at full width and depth (diffusers names), drawn on the card; the
-    # cut depth is its first blocks, so the two imports share those tensors
-    full_arch = FluxConfig()
+    # Flux at full width and phase 17's depth (diffusers names; ``train_blocks``),
+    # drawn on the card; the cut depth is its first blocks, so the two imports
+    # share those tensors
+    full_arch = dataclasses.replace(FluxConfig(), **dict(zip(("depth_double", "depth_single"), train_blocks())))
     weights = seeded(flux_checkpoint_shapes(full_arch))
     full_bytes = sum(t.numel() for t in weights.values())  # as fp8
     free = shutil.disk_usage(work).free
@@ -11565,10 +12206,10 @@ def weight_import(work: str) -> dict:
         raise RuntimeError(f"LoRA round trip: missing {missing[:4]}, or tensors differ")
     del modules, module, diffusers_state
 
-    # the full depth as one fp8 (e4m3) BFL file, 11.9 GB, as the published fp8
-    # Flux files are: the card's machine ends a run that writes more than 45
-    # GiB in all, deleted files included, and phase 19 writes SD3.5 Large (16.3
-    # GB bf16).  Imported once; the file was just written, so its pages are
+    # phase 17's depth as one fp8 (e4m3) BFL file, as the published fp8 Flux
+    # files are (11.9 GB at full depth, 1.3 GB at TRAIN_CUT_BLOCKS): the card's
+    # machine ends a run that writes more than 45 GiB in all, deleted files
+    # included.  Imported once; the file was just written, so its pages are
     # read from the page cache
     full_path = os.path.join(work, "flux1-dev-fp8.safetensors")
     t0 = time.perf_counter()
@@ -11592,8 +12233,9 @@ def weight_import(work: str) -> dict:
     full_unequal = [k for k in base if not torch.equal(
         full_state[k], bfl_state[k].to(torch.float8_e4m3fn).to(full_state[k].dtype))]
     if full_unequal:
-        raise RuntimeError(f"weight import: the full-depth module differs from the cut one at {full_unequal[:8]}")
-    full = {"blocks": [full_arch.depth_double, full_arch.depth_single], "params": full_bytes, "dtype": "F8_E4M3",
+        raise RuntimeError(f"weight import: the fp8 file's module differs from the cut one at {full_unequal[:8]}")
+    full = {"blocks": [full_arch.depth_double, full_arch.depth_single], "of": [19, 38], "params": full_bytes,
+            "dtype": "F8_E4M3",
             "gb": full_bytes / 1e9, "file_gb": os.path.getsize(full_path) / 1e9, "write_s": full_write_s,
             "load_s": full_s, "gb_per_s": full_bytes / full_s / 1e9,
             "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -11629,7 +12271,7 @@ def weight_import(work: str) -> dict:
     if not (vae_equal and clip_equal):
         raise RuntimeError(f"weight import: VAE equal {vae_equal}, CLIP-L equal {clip_equal}")
     phase("14 weight import", flux_blocks=[IMPORT_DOUBLE, IMPORT_SINGLE], hidden=arch.hidden_size,
-          flux_params=nbytes // 2, flux_gb=nbytes / 1e9, write_s=write_s, load=loads, full_depth=full,
+          flux_params=nbytes // 2, flux_gb=nbytes / 1e9, write_s=write_s, load=loads, fp8_file=full,
           work_fs=_filesystem(work),
           free_gb_before=free / 1e9, written_gb=_written_gb(),
           bfl_equals_diffusers_bitwise=True, base_tensors=len(base), lora_round_trip_bitwise=True,
@@ -12065,7 +12707,8 @@ def main() -> int:
     launches = {"main": None, "auraflow": {}, "wan": {}, "ltx": {}, "chroma": None, "lumina2": {}, "kandinsky5": {},
                 "hunyuanvideo": {}, "qwen_image": {}, "hidream": {}, "flux2": {}, "kolors": {}, "longcat_image": {},
                 "z_image_omni": {}, "zlab_i1": {}, "krea2": {}, "cosmos": {}, "anima": {}, "omnigen": {}, "ernie": {},
-                "ideogram": {}, "longcat_video": {}, "sana": {}, "sanavideo": {}, "cosmos3": {}, "ltxvideo2": {}}
+                "ideogram": {}, "longcat_video": {}, "sana": {}, "sanavideo": {}, "cosmos3": {}, "ltxvideo2": {},
+                "ace_step": {}, "wan_s2v": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         checkpoints = weight_import(work) if _runs(14) else {"work": work}
         encoders = text_encoders(checkpoints) if _runs(15) else None
@@ -12095,6 +12738,7 @@ def main() -> int:
             if _runs(18):
                 server_phase(phase17, smi)
         from simpletuner_tpu_torch.inference import config_namespace
+        from simpletuner_tpu_torch.models.ace_step import ACEStep
         from simpletuner_tpu_torch.models.anima import Anima, AnimaConfig
         from simpletuner_tpu_torch.models.auraflow import AuraFlow, AuraFlowConfig
         from simpletuner_tpu_torch.models.checkpoint_layouts import (
@@ -12107,6 +12751,7 @@ def main() -> int:
         from simpletuner_tpu_torch.models.cosmos2 import Cosmos2Image
         from simpletuner_tpu_torch.models.cosmos3 import Cosmos3
         from simpletuner_tpu_torch.models.ernie import Ernie
+        from simpletuner_tpu_torch.models.extended import WanS2V
         from simpletuner_tpu_torch.models.flux2 import Flux2
         from simpletuner_tpu_torch.models.hidream import HiDream, HiDreamConfig
         from simpletuner_tpu_torch.models.hunyuanvideo import HunyuanVideo, HunyuanVideo15Config
@@ -12274,7 +12919,17 @@ def main() -> int:
                 launches["ltxvideo2"] = ltx2_phase(
                     checkpoints, kernels, smi, 46 in (RUN["requested"] or ()),
                     {k: v for k, v in {**long_fwd_entries, **bwd_entries}.items() if "_l2_" in k})
-        elif not _runs(45):
+        if _runs(47):
+            with family_depth(ACEStep, num_layers=ACE_FILE_BLOCKS):
+                launches["ace_step"] = ace_step_phase(
+                    checkpoints, kernels, smi, 47 in (RUN["requested"] or ()),
+                    {k: v for k, v in {**long_fwd_entries, **bwd_entries}.items() if k.endswith("ace_cross")})
+        if _runs(48):
+            with family_depth(WanS2V, depth=S2V_FILE_BLOCKS):
+                launches["wan_s2v"] = wan_s2v_phase(
+                    checkpoints, kernels, smi,
+                    {k: v for k, v in {**long_fwd_entries, **bwd_entries}.items() if k.endswith("s2v_cross")})
+        else:
             check_run_writes()
 
     # each wrapper's rows: at the Flux shape (launches: the profiler's count in
@@ -12305,7 +12960,8 @@ def main() -> int:
                           ("cosmos", CO_KERNEL_CASES), ("omnigen", OG_KERNEL_CASES), ("ernie", ER_KERNEL_CASES),
                           ("ideogram", ID_KERNEL_CASES), ("longcat_video", LV_KERNEL_CASES), ("sana", SA_KERNEL_CASES),
                           ("sanavideo", SV_KERNEL_CASES), ("cosmos3", COSMOS3_KERNEL_CASES),
-                          ("ltxvideo2", LTX2_KERNEL_CASES)):
+                          ("ltxvideo2", LTX2_KERNEL_CASES), ("ace_step", ACE_KERNEL_CASES),
+                          ("wan_s2v", S2V_KERNEL_CASES)):
         if launches[family]:
             rows += [(f"{name}_{case[0]}", f"{name}_{case[0]}", name, launches[family][case[0]])
                      for case in cases for name in sources]

@@ -1,4 +1,4 @@
-"""VAE latent cache, image and video datasets.
+"""VAE latent cache, image, video and audio datasets.
 
 The torch port's copy of ``simpletuner_tpu/caching/vae_cache.py``.  Disk
 layout matches the reference (reference: helpers/caching/vae.py:118
@@ -10,8 +10,11 @@ the latents and persist ``.pt`` files, so decode, encode and write overlap
 (reference vae.py:2037 process_buckets).  A clip (a path whose metadata
 holds ``num_frames``) is decoded to that many frames, resized and cropped
 (``data/video.py``) and encoded whole, and its latents are stored 4-D
-(T', H', W', C), as the JAX cache stores them.  Audio datasets and the NSFW
-scan are not ported (they raise).
+(T', H', W', C), as the JAX cache stores them.  A waveform (a path whose
+metadata holds ``duration``) is decoded at the file's own rate
+(``data/audio.py::load_audio``), trimmed or zero-padded to its bucket's
+seconds, encoded as (S, C) samples and stored (S', C') latents.  The NSFW
+scan is not ported (it raises).
 """
 
 from __future__ import annotations
@@ -126,8 +129,16 @@ class VAECache:
         JAX cache skips those too, so callers compare the count
         ``process_buckets`` returns with the number of images)."""
         existing = self.metadata_backend.image_metadata.get(path, {})
-        if "duration" in existing:
-            raise NotImplementedError(f"{path}: audio caches are not ported (ROADMAP Queue 1 item 3)")
+        if "duration" in existing:  # a waveform of an audio dataset, at the file's rate
+            from ..data.audio import load_audio
+
+            duration = float(existing.get("bucket", "1s").rstrip("s"))
+            waveform = load_audio(self.data_backend, path, sample_rate=int(existing.get("sample_rate", 44100)),
+                                  duration_seconds=duration)
+            if waveform is None:
+                logger.warning("vae cache %s: skipping %s (no WAV decodes)", self.id, path)
+                return None
+            return path, waveform, {"duration": duration}
         rng = random.Random((self.seed, path).__hash__())
         if "num_frames" in existing:  # a clip of a video dataset
             from ..data.video import load_video_frames, prepare_video, video_to_array
@@ -252,7 +263,7 @@ class VAECache:
 
         def _encode_and_write(batch_paths: List[str], batch_arrays: List[np.ndarray]) -> None:
             try:
-                stacked = np.stack(batch_arrays)  # (B, H, W, 3), or (B, T, H, W, 3) clips
+                stacked = np.stack(batch_arrays)  # (B, H, W, 3), (B, T, H, W, 3) clips or (B, S, C) waveforms
                 latents = self.encode_fn(stacked, len(batch_paths))
                 # encode_fn may return a tensor still being computed on the
                 # device; the fetch rides a writer thread so the dispatch

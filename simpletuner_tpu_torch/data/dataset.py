@@ -1,22 +1,27 @@
 """Collate + multi-dataset iteration.
 
 Counterpart of ``simpletuner_tpu/data/dataset.py``: ``DatasetBundle``,
-``collate_batch`` for image and video datasets with cached latents (4-D
-clips stack to 5-D (B, T', H', W', C) batches) and text embeds
-(the cache reads on threads, the caption and its dropout, the family's
-``collate_text_embeds``, the size conditioning arrays and the
-regularisation flag, in the JAX order) and ``MultiDatasetIterator`` (weighted
-round-robin with schedule windows, epoch rollover, JSON-safe state), line for
-line where ported.  Output batches are numpy dicts with static shapes per
-bucket (a video bucket's key carries its frame count, ``"1.73x81"``).
-Caption-only, audio-token, conditioning-paired (ControlNet / edit /
-loss masks), audio-paired and image-embed batches and text-encoder token
-batches raise, naming their ROADMAP item; the per-process slice of a
-multi-process run is ROADMAP Queue 1 item 5.
+``collate_batch`` for image, video and audio datasets with cached latents
+(4-D clips stack to 5-D (B, T', H', W', C) batches, audio latents to (B, S',
+C)) and text embeds (the cache reads on threads, the caption and its
+dropout, the family's ``collate_text_embeds``, the speech-to-video pairing
+(a dataset's ``audio: {pair_with_video: true}``: each clip's same-stem WAV
+at ``sample_rate`` through ``waveform_features``, cut or zero-padded to
+``max_feature_frames``, as ``audio_embeds``), the size conditioning arrays,
+the regularisation flag and the family's ``collate_batch_extras`` hook, in
+the JAX order) and ``MultiDatasetIterator`` (weighted round-robin with
+schedule windows, epoch rollover, JSON-safe state), line for line where
+ported.  Output batches are numpy dicts with static shapes per bucket (a
+video bucket's key carries its frame count, ``"1.73x81"``, an audio
+bucket's its seconds, ``"47s"``).  Caption-only, codec-token (HeartMuLa),
+conditioning-paired (ControlNet / edit / loss masks) and image-embed batches
+and text-encoder token batches raise, naming their ROADMAP item; the
+per-process slice of a multi-process run is ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations
 
+import os
 import random
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Optional, Sequence
@@ -53,16 +58,18 @@ def check_collatable(bundle: DatasetBundle, model) -> None:
     """Refuse the batches ``collate_batch`` does not build (the JAX branches
     that are not ported)."""
     cfg = bundle.config
-    if cfg.dataset_type not in ("image", "video", "eval"):
+    if cfg.dataset_type not in ("image", "video", "audio", "eval"):
         raise NotImplementedError(
             f"dataset {bundle.id!r}: {cfg.dataset_type} batches are not ported (ROADMAP Queue 1 item 4f)")
+    if cfg.dataset_type == "audio" and any(
+            meta.get("token_file") for meta in bundle.metadata_backend.image_metadata.values()):
+        raise NotImplementedError(f"dataset {bundle.id!r}: codec-token audio batches (HeartMuLa) are not ported "
+                                  "(ROADMAP Queue 1 item 3)")
     if getattr(model, "trains_text_encoder", False):
         raise NotImplementedError("text-encoder token batches are not ported (ROADMAP Queue 1 item 4i)")
     if cfg.conditioning_data:
         raise NotImplementedError(
             f"dataset {bundle.id!r}: conditioning_data pairing is not ported (ROADMAP Queue 1 item 4f)")
-    if (getattr(cfg, "audio", None) or {}).get("pair_with_video"):
-        raise NotImplementedError(f"dataset {bundle.id!r}: audio pairing is not ported (ROADMAP Queue 1 item 4f)")
     if cfg.conditioning_image_embeds:
         raise NotImplementedError(
             f"dataset {bundle.id!r}: conditioning_image_embeds is not ported (ROADMAP Queue 1 item 4f)")
@@ -110,6 +117,31 @@ def collate_batch(
     embeds = [bundle.text_cache.get(c) for c in captions]
     batch.update(model.collate_text_embeds(embeds))
 
+    # speech-to-video pairing: each clip's same-stem .wav becomes its audio
+    # features; a clip without one drops the features of the whole batch, as
+    # in the JAX collate
+    audio_cfg = getattr(cfg, "audio", None) or {}
+    if audio_cfg.get("pair_with_video"):
+        from .audio import load_audio, waveform_features
+
+        sample_rate = int(audio_cfg.get("sample_rate", 16000))
+        max_frames = int(audio_cfg.get("max_feature_frames", 128))
+        features = []
+        for sample in samples:
+            wave = load_audio(bundle.data_backend, os.path.splitext(sample["image_path"])[0] + ".wav",
+                              sample_rate=sample_rate)
+            if wave is None:
+                features = []
+                break
+            feats = waveform_features(wave, sample_rate=sample_rate)
+            if feats.shape[0] >= max_frames:
+                feats = feats[:max_frames]
+            else:
+                feats = np.pad(feats, ((0, max_frames - feats.shape[0]), (0, 0)))
+            features.append(feats)
+        if features:
+            batch["audio_embeds"] = np.stack(features)
+
     # size conditioning (SDXL/PixArt time-ids; reference collate.py)
     metas = [s.get("metadata", {}) for s in samples]
     if all("original_size" in m for m in metas):
@@ -121,6 +153,10 @@ def collate_batch(
     if getattr(cfg, "is_regularisation_data", False):
         # prior-preservation flag; the port's train step refuses it
         batch["is_regularisation_data"] = np.asarray(1.0, np.float32)
+    # the family's extras (ACE-Step's lyric ids from parquet rows or sidecar files)
+    collate_extras = getattr(model, "collate_batch_extras", None)
+    if collate_extras is not None:
+        collate_extras(samples, bundle, batch)
     return batch
 
 

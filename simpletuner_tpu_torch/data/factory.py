@@ -9,11 +9,13 @@ and ``bucket_config_for``.  Ported: local image and video datasets and
 ``text_embeds`` datasets over the port's ``LocalDataBackend``,
 ``MetadataBackend`` (a video dataset's ``video`` settings reach its
 discovery), ``VAECache`` and ``TextEmbeddingCache``, in the JAX order and with
-the JAX arguments.  Refused, naming their ROADMAP item: other storage
-backends (memory, S3, CSV, Hugging Face, webshart) and streaming datasets,
-the parquet metadata backend, on-demand and unhashed caches, the NSFW filter,
-conditioning / audio / caption / distillation datasets and image-embed
-caches.  Eval datasets (``dataset_type: eval``) are built and
+the JAX arguments; audio datasets (``dataset_type: audio``, their
+``audio`` settings in the metadata backend's ``video_config`` slot, as the
+JAX factory passes them) through the audio VAE's cache.  Refused, naming
+their ROADMAP item: other storage backends (memory, S3, CSV, Hugging Face,
+webshart) and streaming datasets, the parquet metadata backend, on-demand and
+unhashed caches, the NSFW filter, conditioning / caption / distillation
+datasets and image-embed caches.  Eval datasets (``dataset_type: eval``) are built and
 cached as image datasets; they, and the datasets ``eval_dataset_id`` names,
 stay out of the train iterator (the eval loss reads them).
 """
@@ -80,7 +82,7 @@ def _check_ported(configs: List[DatasetConfig], args) -> None:
         if args.get(key):
             raise NotImplementedError(f"{key}: on-demand caches are not ported (ROADMAP Queue 1 item 4e)")
     for config in configs:
-        if config.dataset_type not in ("image", "video", "eval", "text_embeds"):
+        if config.dataset_type not in ("image", "video", "audio", "eval", "text_embeds"):
             raise NotImplementedError(
                 f"dataset {config.id!r}: dataset_type {config.dataset_type!r} is not ported "
                 "(ROADMAP Queue 1 item 4f)")
@@ -220,7 +222,7 @@ def configure_multi_databackend(
     # ---- primary datasets -------------------------------------------------------------------
     bundles: Dict[str, DatasetBundle] = {}
     for config in configs:
-        if config.dataset_type not in ("image", "video", "eval"):
+        if config.dataset_type not in ("image", "video", "audio", "eval"):
             continue
         backend = storage[config.id]
         bucket_cfg = bucket_config_for(config, args)
@@ -234,7 +236,7 @@ def configure_multi_databackend(
             metadata_file=os.path.join(cache_base, "aspect_ratio_bucket_metadata.json"),
             repeats=config.repeats,
             dataset_type=config.dataset_type if config.dataset_type != "eval" else "image",
-            video_config=config.video,
+            video_config=config.audio if config.dataset_type == "audio" else config.video,
         )
         metadata.refresh(max_workers=int(args.get("max_workers", 16) or 16))
 
@@ -314,7 +316,7 @@ def configure_multi_databackend(
         raise ValueError(
             f"--eval_dataset_id references unknown dataset(s): {sorted(unknown_eval)} (have: {sorted(bundles)})")
     iterator = MultiDatasetIterator(
-        [b for b in bundles.values() if b.config.dataset_type in ("image", "video") and b.id not in eval_ids],
+        [b for b in bundles.values() if b.config.dataset_type in ("image", "video", "audio") and b.id not in eval_ids],
         model,
         caption_dropout_probability=float(args.get("caption_dropout_probability", 0.0) or 0.0),
         seed=int(args.get("seed", 42) or 42),

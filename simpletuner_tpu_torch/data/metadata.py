@@ -6,11 +6,15 @@ construction, persistence, constraints, DP splits).  The torch port's copy of
 caption datasets, and video datasets (``_discover_video``: (aspect,
 frame count) bucket keys such as ``"1.73x81"``, the frame count aligned to
 1 + 4k and capped by the dataset's ``video`` settings ``num_frames`` /
-``min_frames``): the index maps ``bucket_key -> [file paths]`` plus per-file
-metadata (original/target size, crop coords; a clip's frame counts and fps),
-built on host threads and persisted as JSON on the dataset's storage backend,
-in the same files as the JAX package writes.  Audio discovery and the
-parquet backend are not ported (they raise).
+``min_frames``) and audio datasets (``_discover_audio``: whole-duration
+bucket keys such as ``"47s"`` from the dataset's ``audio`` settings
+``bucket_seconds`` / ``max_duration``, WAV files probed through scipy and
+codec-token files (``.npy`` / ``.npz``) through ``token_frame_rate``): the
+index maps ``bucket_key -> [file paths]`` plus per-file metadata
+(original/target size, crop coords; a clip's frame counts and fps; a
+waveform's duration, rate and channels), built on host threads and
+persisted as JSON on the dataset's storage backend, in the same files as the
+JAX package writes.  The parquet backend is not ported.
 """
 
 from __future__ import annotations
@@ -78,7 +82,7 @@ class MetadataBackend:
         if self.dataset_type == "video":
             return self._discover_video(max_workers)
         if self.dataset_type == "audio":
-            raise NotImplementedError("audio datasets are not ported (ROADMAP Queue 1 item 3: audio caches)")
+            return self._discover_audio(max_workers)
         if self.dataset_type == "caption":
             return self._discover_caption()
         files = self.data_backend.list_files(instance_data_dir=self.instance_data_dir)
@@ -155,6 +159,56 @@ class MetadataBackend:
                 "fps": info.get("fps"),
                 "bucket": key,
             }
+            self.aspect_ratio_bucket_indices.setdefault(key, []).append(path)
+        current = set(files)
+        for key in list(self.aspect_ratio_bucket_indices):
+            kept = [f for f in self.aspect_ratio_bucket_indices[key] if f in current]
+            if kept:
+                self.aspect_ratio_bucket_indices[key] = kept
+            else:
+                del self.aspect_ratio_bucket_indices[key]
+        return self.aspect_ratio_bucket_indices
+
+    def _discover_audio(self, max_workers: int = 16) -> Dict[str, List[str]]:
+        """Audio buckets keyed by the duration quantized to ``bucket_seconds``
+        (capped at ``max_duration``); a codec-token file's duration is its
+        frame count over ``token_frame_rate``."""
+        from .audio import AUDIO_EXTENSIONS, TOKEN_EXTENSIONS, duration_bucket, probe_audio, probe_token_file
+
+        files = self.data_backend.list_files(
+            file_extensions=AUDIO_EXTENSIONS + TOKEN_EXTENSIONS, instance_data_dir=self.instance_data_dir
+        )
+        known = set(self.image_metadata)
+        new_files = [f for f in files if f not in known]
+        audio_cfg = self.video_config  # the dataset's `audio` dict rides the same slot
+        max_duration = float(audio_cfg.get("max_duration", 0) or 0)
+        bucket_seconds = float(audio_cfg.get("bucket_seconds", 1.0) or 1.0)
+        token_frame_rate = float(audio_cfg.get("token_frame_rate", 25.0) or 25.0)
+
+        def probe_one(path):
+            if path.lower().endswith(TOKEN_EXTENSIONS):
+                return path, probe_token_file(self.data_backend, path, token_frame_rate)
+            return path, probe_audio(self.data_backend, path)
+
+        with ThreadPoolExecutor(max_workers=max_workers) as pool:
+            results = list(pool.map(probe_one, new_files))
+
+        for path, info in results:
+            if info is None or info["duration"] <= 0:
+                continue
+            duration = info["duration"]
+            if max_duration:
+                duration = min(duration, max_duration)
+            key = duration_bucket(duration, bucket_seconds)
+            self.image_metadata[path] = {
+                "duration": duration,
+                "sample_rate": info["sample_rate"],
+                "channels": info["channels"],
+                "bucket": key,
+            }
+            if info.get("token_file"):
+                self.image_metadata[path]["token_file"] = True
+                self.image_metadata[path]["frames"] = info["frames"]
             self.aspect_ratio_bucket_indices.setdefault(key, []).append(path)
         current = set(files)
         for key in list(self.aspect_ratio_bucket_indices):

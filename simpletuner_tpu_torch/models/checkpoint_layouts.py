@@ -1347,3 +1347,55 @@ def vae_checkpoint_shapes(vae: nn.Module, legacy_attention: bool = False) -> Dic
             name = f"{match.group(1)}.mid_block.attentions.0.{attn[part]}.{leaf}"
         shapes[name] = shape
     return shapes
+
+
+def acestep_checkpoint_shapes(arch) -> Dict[str, tuple]:
+    """Tensor names and torch shapes of an ``ACEStepTransformer2DModel`` of
+    ``arch`` (``models/ace_step/transformer.py::ACEStepConfig``) as
+    ``acestep_params_from_diffusers`` reads it: the patch embed's (H_mel, 1)
+    conv, GroupNorm and 1 x 1 conv, the time MLP and ``t_block``, the
+    conditioning embedders, the conformer lyric encoder (the lyric table, the
+    linear embed and its LayerNorm, per layer the norms, the biased q / k / v /
+    out, the bias-free ``linear_pos``, ``pos_bias_u`` / ``pos_bias_v`` and the
+    FFN; the after-norm) and ``lyric_proj``, per block the (6, dim) table, the
+    biased Lite-LA and cross-attention projections and GLUMBConv's 1-D convs,
+    the SSL projector heads and the final layer."""
+    dim, channels = arch.inner_dim, arch.in_channels
+    patch, hidden, d = channels * arch.patch_mult, int(arch.inner_dim * arch.mlp_ratio), arch.lyric_hidden
+    shapes: Dict[str, tuple] = {
+        "proj_in.early_conv_layers.0.weight": (patch, channels, arch.latent_height, 1),
+        "proj_in.early_conv_layers.0.bias": (patch,),
+        "proj_in.early_conv_layers.1.weight": (patch,), "proj_in.early_conv_layers.1.bias": (patch,),
+        "proj_in.early_conv_layers.2.weight": (dim, patch, 1, 1), "proj_in.early_conv_layers.2.bias": (dim,),
+        "final_layer.scale_shift_table": (2, dim), "lyric_embs.weight": (arch.lyric_vocab, d),
+    }
+    _linears(shapes, (("timestep_embedder.linear_1", dim, 256), ("timestep_embedder.linear_2", dim, dim),
+                      ("t_block.1", 6 * dim, dim), ("speaker_embedder", dim, arch.speaker_dim),
+                      ("genre_embedder", dim, arch.text_dim), ("lyric_proj", dim, d),
+                      ("lyric_encoder.embed.out.0", d, d), ("final_layer.linear", arch.latent_height * channels, dim)))
+    for norm in ("lyric_encoder.embed.out.1", "lyric_encoder.after_norm"):
+        shapes.update({f"{norm}.weight": (d,), f"{norm}.bias": (d,)})
+    for i in range(arch.lyric_depth):
+        src = f"lyric_encoder.encoders.{i}"
+        _linears(shapes, [(f"{src}.self_attn.{name}", d, d) for name in ("linear_q", "linear_k", "linear_v",
+                                                                          "linear_out")] +
+                 [(f"{src}.feed_forward.w_1", arch.lyric_ffn, d), (f"{src}.feed_forward.w_2", d, arch.lyric_ffn)])
+        shapes[f"{src}.self_attn.linear_pos.weight"] = (d, d)
+        for bias in ("pos_bias_u", "pos_bias_v"):
+            shapes[f"{src}.self_attn.{bias}"] = (arch.lyric_heads, d // arch.lyric_heads)
+        for norm in ("norm_mha", "norm_ff"):
+            shapes.update({f"{src}.{norm}.weight": (d,), f"{src}.{norm}.bias": (d,)})
+    for i in range(arch.num_layers):
+        src = f"transformer_blocks.{i}"
+        shapes[f"{src}.scale_shift_table"] = (6, dim)
+        _linears(shapes, [(f"{src}.{attn}.{name}", dim, dim) for attn in ("attn", "cross_attn")
+                          for name in ("to_q", "to_k", "to_v", "to_out.0")])
+        shapes.update({f"{src}.ff.inverted_conv.conv.weight": (2 * hidden, dim, 1),
+                       f"{src}.ff.inverted_conv.conv.bias": (2 * hidden,),
+                       f"{src}.ff.depth_conv.conv.weight": (2 * hidden, 1, 3),
+                       f"{src}.ff.depth_conv.conv.bias": (2 * hidden,),
+                       f"{src}.ff.point_conv.conv.weight": (dim, hidden, 1)})
+    for head, ssl_dim in enumerate(arch.ssl_dims):
+        _linears(shapes, ((f"projectors.{head}.0", 2 * dim, dim), (f"projectors.{head}.2", 2 * dim, 2 * dim),
+                          (f"projectors.{head}.4", ssl_dim, 2 * dim)))
+    return shapes

@@ -1,3 +1,3 @@
-from .model import BooguImage
+from .model import BooguImage, WanS2V
 
-__all__ = ["BooguImage"]
+__all__ = ["BooguImage", "WanS2V"]

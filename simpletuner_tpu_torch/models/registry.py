@@ -10,14 +10,21 @@ its metadata; ``flux``, ``sd3``, ``sdxl``, ``sd1x``, ``sd2x``,
 ``mageflow``, ``z_image``, ``hidream``, ``flux2``, ``kolors``,
 ``longcat_image``, ``z_image_omni``, ``zlab_i1``, ``boogu_image``, ``krea2``,
 ``cosmos``, ``anima``, ``omnigen``, ``ernie``, ``ideogram``,
-``longcat_video``, ``sana``, ``sanavideo``, ``cosmos3`` and ``ltxvideo2`` are ported
+``longcat_video``, ``sana``, ``sanavideo``, ``cosmos3``, ``ltxvideo2``, ``ace_step`` and
+``wan_s2v`` are ported
 (with the JAX aliases ``sd15``, ``sd21``, ``pixart`` and ``kandinsky5-image``),
 so ``get`` of any other family raises naming ROADMAP Queue 1
 item 6, and an unknown name raises ``KeyError`` as in the JAX registry.
+``get_model_family`` also lays the config's ``model_arch_overrides`` (a
+mapping, or its JSON, of fields of the family's ``arch``) over the arch the
+family chose, e.g. ``{"depth_double": 2, "depth_single": 4}`` for a Flux
+checkpoint cut to its first blocks; the JAX package has no such key.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from typing import Any, Dict, List, Type
 
 # the JAX registry's families with their metadata (models/registry.py:9-51), in its order
@@ -70,7 +77,8 @@ ALIASES = {"sd15": "sd1x", "sd21": "sd2x", "pixart": "pixart_sigma", "ltx2": "lt
 PORTED = ("flux", "sd3", "sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "chroma", "lumina2",
           "kandinsky5_image", "kandinsky5_video", "hunyuanvideo", "qwen_image", "mageflow", "z_image", "hidream",
           "flux2", "kolors", "longcat_image", "z_image_omni", "zlab_i1", "boogu_image", "krea2", "cosmos", "anima",
-          "omnigen", "ernie", "ideogram", "longcat_video", "sana", "sanavideo", "cosmos3", "ltxvideo2")
+          "omnigen", "ernie", "ideogram", "longcat_video", "sana", "sanavideo", "cosmos3", "ltxvideo2", "ace_step",
+          "wan_s2v")
 
 
 class ModelRegistry:
@@ -217,6 +225,14 @@ class ModelRegistry:
             from .ltxvideo2 import LTXVideo2
 
             return LTXVideo2
+        if family == "ace_step":
+            from .ace_step import ACEStep
+
+            return ACEStep
+        if family == "wan_s2v":
+            from .extended import WanS2V
+
+            return WanS2V
         raise NotImplementedError(f"model_family={name!r} is not ported (only {', '.join(PORTED)}; "
                                   "ROADMAP Queue 1 item 6)")
 
@@ -231,6 +247,17 @@ def get_model_family(config: Any):
     if not family:
         raise ValueError("config.model_family is required")
     model = ModelRegistry.create(family, config)
+    overrides = getattr(config, "model_arch_overrides", None)
+    if overrides:
+        if isinstance(overrides, str):
+            overrides = json.loads(overrides)
+        arch = getattr(model, "arch", None)
+        fields = {f.name for f in dataclasses.fields(arch)} if dataclasses.is_dataclass(arch) else set()
+        unknown = sorted(set(overrides) - fields)
+        if unknown:
+            raise ValueError(f"model_arch_overrides: {family!r} has no arch field {unknown} "
+                             f"(its fields: {sorted(fields)})")
+        model.arch = dataclasses.replace(arch, **overrides)
     model.check_user_config()
     if getattr(config, "train_text_encoder", False):
         raise NotImplementedError("train_text_encoder is not ported (ROADMAP Queue 1 item 4i)")

@@ -75,13 +75,13 @@ class WanConfig:
 
 class AffineLayerNorm(nn.Module):
     """The JAX ``LayerNorm`` wrapper with scale and bias: its ``nn.LayerNorm``
-    child (``LayerNorm_0``) holds them in f32; f32 statistics, eps 1e-6,
-    output in ``dtype``."""
+    child (``LayerNorm_0``) holds them in f32; f32 statistics, eps 1e-6
+    unless given, output in ``dtype``."""
 
-    def __init__(self, dim: int, dtype: torch.dtype) -> None:
+    def __init__(self, dim: int, dtype: torch.dtype, eps: float = 1e-6) -> None:
         super().__init__()
         self.dtype = dtype
-        self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-6, dtype=torch.float32)
+        self.LayerNorm_0 = nn.LayerNorm(dim, eps=eps, dtype=torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.LayerNorm_0(x.to(torch.float32)).to(self.dtype)

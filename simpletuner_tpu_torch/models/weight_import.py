@@ -36,7 +36,9 @@ layout and Ideogram the ``Ideogram4Transformer`` layout (``transformer/``);
 LongCat-Video the ``LongCatVideoTransformer3DModel`` layout, Sana the diffusers
 ``SanaTransformer2DModel`` layout and Sana-Video the ``SanaVideoTransformer3DModel``
 layout (``transformer/``); Cosmos3 the flat ``Cosmos3OmniTransformer`` layout;
-LTX-2 the diffusers ``LTX2VideoTransformer3DModel`` layout (``transformer/``).
+LTX-2 the diffusers ``LTX2VideoTransformer3DModel`` layout (``transformer/``);
+ACE-Step the ``ACEStepTransformer2DModel`` layout (its conformer lyric encoder
+included); Wan-S2V Wan's.
 
 Where the JAX side upcasts every leaf to f32 (its ``_to_f32``), the port
 keeps f32, bf16 and fp8 (e4m3) leaves in the file's dtype (``_float``; the
@@ -55,8 +57,8 @@ read from disk when it is first used.  Only the ``flux``, ``sd3``, ``sdxl``,
 ``lumina2``, ``kandinsky5_video``, ``kandinsky5_image``, ``hunyuanvideo``, ``qwen_image``,
 ``mageflow``, ``z_image``, ``hidream``, ``flux2``, ``kolors``, ``longcat_image``,
 ``z_image_omni``, ``zlab_i1``, ``boogu_image``, ``krea2``, ``cosmos``, ``anima``, ``omnigen``,
-``ernie``, ``ideogram``, ``longcat_video``, ``sana``, ``sanavideo``, ``cosmos3`` and ``ltxvideo2``
-families import; every other family raises.
+``ernie``, ``ideogram``, ``longcat_video``, ``sana``, ``sanavideo``, ``cosmos3``, ``ltxvideo2``,
+``ace_step`` and ``wan_s2v`` families import; every other family raises.
 """
 
 from __future__ import annotations
@@ -1987,6 +1989,81 @@ def load_ltx2_params(model, path: str) -> Dict[str, Any]:
 # dispatch
 # ---------------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------------
+# ACE-Step
+# ---------------------------------------------------------------------------------
+
+
+def _ln(weights: Mapping[str, torch.Tensor], key: str) -> Dict[str, Any]:
+    """An affine LayerNorm under the JAX ``LayerNorm`` wrapper's ``LayerNorm_0``."""
+    return {"LayerNorm_0": _norm(weights, key)}
+
+
+def acestep_params_from_diffusers(weights: Mapping[str, torch.Tensor], arch) -> Dict[str, Any]:
+    """The Flax-layout tree of an ACE-Step transformer of ``arch``
+    (``ACEStepConfig``): the patch embed's two convs and GroupNorm, the
+    conformer lyric encoder (its embedding table, linear embed, rel-pos
+    attention with ``pos_bias_u`` / ``pos_bias_v``, FFN and norms), the
+    conditioning embedders, each block's tables, Lite-LA and cross-attention
+    projections and GLUMBConv's three 1-D convs, the SSL projector heads (the
+    reference's ``projectors.{h}.{0, 2, 4}``) and the final layer."""
+    w = weights
+    lyric: Dict[str, Any] = {"lyric_embs": _float(w["lyric_embs.weight"]),
+                             "embed_out": _linear(w, "lyric_encoder.embed.out.0"),
+                             "embed_norm": _ln(w, "lyric_encoder.embed.out.1"),
+                             "after_norm": _ln(w, "lyric_encoder.after_norm")}
+    for i in range(arch.lyric_depth):
+        src = f"lyric_encoder.encoders.{i}"
+        lyric[f"layer_{i}"] = {
+            "norm_mha": _ln(w, f"{src}.norm_mha"),
+            **{ours: _linear(w, f"{src}.self_attn.{theirs}") for ours, theirs in (
+                ("attn_q", "linear_q"), ("attn_k", "linear_k"), ("attn_v", "linear_v"), ("attn_out", "linear_out"),
+                ("linear_pos", "linear_pos"))},
+            "pos_bias_u": _float(w[f"{src}.self_attn.pos_bias_u"]),
+            "pos_bias_v": _float(w[f"{src}.self_attn.pos_bias_v"]),
+            "norm_ff": _ln(w, f"{src}.norm_ff"),
+            "ff_1": _linear(w, f"{src}.feed_forward.w_1"),
+            "ff_2": _linear(w, f"{src}.feed_forward.w_2"),
+        }
+    params: Dict[str, Any] = {
+        "patch_conv": _conv(w, "proj_in.early_conv_layers.0"),
+        "patch_norm": _norm(w, "proj_in.early_conv_layers.1"),
+        "patch_proj": _conv(w, "proj_in.early_conv_layers.2"),
+        "time_in": {"in_layer": _linear(w, "timestep_embedder.linear_1"),
+                    "out_layer": _linear(w, "timestep_embedder.linear_2")},
+        "t_block": _linear(w, "t_block.1"),
+        "speaker_embedder": _linear(w, "speaker_embedder"),
+        "genre_embedder": _linear(w, "genre_embedder"),
+        "lyric_encoder": lyric,
+        "lyric_proj": _linear(w, "lyric_proj"),
+        "final_proj": _linear(w, "final_layer.linear"),
+        "final_scale_shift_table": _float(w["final_layer.scale_shift_table"]),
+    }
+    for i in range(arch.num_layers):
+        src = f"transformer_blocks.{i}"
+        params[f"block_{i}"] = {
+            "scale_shift_table": _float(w[f"{src}.scale_shift_table"]),
+            **{f"attn_{ours}": _linear(w, f"{src}.attn.{theirs}") for ours, theirs in _ACE_ATTENTION},
+            **{f"cross_{ours}": _linear(w, f"{src}.cross_attn.{theirs}") for ours, theirs in _ACE_ATTENTION},
+            "ff": {ours: _conv_generic(w, f"{src}.ff.{theirs}.conv") for ours, theirs in (
+                ("inverted", "inverted_conv"), ("depth", "depth_conv"), ("point", "point_conv"))},
+        }
+    for head in range(len(arch.ssl_dims)):
+        for j, torch_index in enumerate((0, 2, 4)):
+            params[f"projector_{head}_{j}"] = _linear(w, f"projectors.{head}.{torch_index}")
+    return params
+
+
+_ACE_ATTENTION = (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("proj", "to_out.0"))
+
+
+def load_acestep_params(model, path: str) -> Dict[str, Any]:
+    """The Flax-layout ``params`` tree of an ACE-Step transformer (a file or a dir of shards)."""
+    params = acestep_params_from_diffusers(_strip_prefix(read_safetensors(path)), model.arch)
+    logger.info("imported ace_step weights from %s", path)
+    return params
+
+
 _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_unet_params, "sd1x": load_unet_params,
               "sd2x": load_unet_params, "pixart_sigma": load_pixart_params, "auraflow": load_auraflow_params,
               "wan": load_wan_params, "ltxvideo": load_ltx_params, "chroma": load_chroma_params,
@@ -2003,7 +2080,9 @@ _IMPORTERS = {"flux": load_flux_params, "sd3": load_sd3_params, "sdxl": load_une
               "anima": load_anima_params, "omnigen": load_omnigen_params, "ernie": load_ernie_params,
               "ideogram": load_ideogram_params, "longcat_video": load_longcat_video_params,
               "sana": load_sana_params, "sanavideo": load_sanavideo_params, "cosmos3": load_cosmos3_params,
-              "ltxvideo2": load_ltx2_params}
+              "ltxvideo2": load_ltx2_params, "ace_step": load_acestep_params,
+              # wan_s2v is the Wan DiT (its audio features join the context)
+              "wan_s2v": load_wan_params}
 
 
 def load_transformer_params(model, module: nn.Module, path: str) -> nn.Module:

@@ -13,7 +13,8 @@ Kandinsky flavours), ``hunyuanvideo_key_map`` (lora.py:620), ``flux2_key_map``
 omnigen has no map, so its adapter files carry the flattened module paths, as in
 the JAX package), ``longcat_video_key_map`` (lora.py:201), ``sana_key_map``
 (lora.py:547), ``sanavideo_key_map`` (lora.py:237), ``cosmos3_key_map``
-(lora.py:354) and ``ltx2_key_map`` (lora.py:375), and ``_key_map_for``
+(lora.py:354), ``ltx2_key_map`` (lora.py:375) and ``acestep_key_map``
+(lora.py:398; wan_s2v takes ``wan_key_map``, lora.py:659), and ``_key_map_for``
 (lora.py:680), which resolve the LoRA target presets and
 name the adapters of an export (the maps leave ``patch_in`` and
 ``context_in`` under their own names, as the JAX export does),
@@ -470,6 +471,20 @@ def ltx2_key_map(arch) -> Dict[str, Any]:
     return mapping
 
 
+def acestep_key_map(arch) -> Dict[str, Any]:
+    """ACE-Step's layout (ACEStepTransformer2DModel): Lite-LA self-attention
+    and cross-attention blocks, ``to_out`` a ModuleList (``.0``)."""
+    mapping: Dict[str, Any] = {"speaker_embedder": "speaker_embedder", "genre_embedder": "genre_embedder",
+                               "lyric_proj": "lyric_proj", "final_proj": "final_layer.linear"}
+    table = {"attn_q": "attn.to_q", "attn_k": "attn.to_k", "attn_v": "attn.to_v", "attn_proj": "attn.to_out.0",
+             "cross_q": "cross_attn.to_q", "cross_k": "cross_attn.to_k", "cross_v": "cross_attn.to_v",
+             "cross_proj": "cross_attn.to_out.0"}
+    for i in range(arch.num_layers):
+        for ours, theirs in table.items():
+            mapping[f"block_{i}/{ours}"] = f"transformer_blocks.{i}.{theirs}"
+    return mapping
+
+
 _KEY_MAPS = {
     "flux": lambda m: flux_key_map(m.arch),
     "sd1x": lambda m: unet_key_map(m.arch),
@@ -505,6 +520,8 @@ _KEY_MAPS = {
     "sanavideo": lambda m: sanavideo_key_map(m.arch),
     "cosmos3": lambda m: cosmos3_key_map(m.arch),
     "ltxvideo2": lambda m: ltx2_key_map(m.arch),
+    "ace_step": lambda m: acestep_key_map(m.arch),
+    "wan_s2v": lambda m: wan_key_map(m.arch),
 }
 
 

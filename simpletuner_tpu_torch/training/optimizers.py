@@ -303,7 +303,8 @@ def get_optimizer(config: Any, learning_rate: Schedule) -> Optimizer:
     if method != "norm":
         raise NotImplementedError(f"grad_clip_method={method!r} is not ported (only 'norm')")
     if _get(config, "train_text_encoder") or _get(config, "lyrics_embedder_train"):
-        raise NotImplementedError("sidecar optimizer groups (text encoder, lyrics embedder) are not ported")
+        raise NotImplementedError("sidecar optimizer groups (text encoder, lyrics embedder: train_text_encoder, "
+                                  "lyrics_embedder_train) are not ported (ROADMAP Queue 1 item 7)")
     overrides = parse_optimizer_config(_get(config, "optimizer_config"))
     max_norm = _get(config, "max_grad_norm", 1.0)
     return OPTIMIZERS[name](learning_rate, config, overrides, float(max_norm) if max_norm and max_norm > 0 else 0.0)

@@ -7,8 +7,9 @@ device, ``cuda`` unless the caller asks for the CPU:
 * ``configure_webhook``, ``init_seed``;
 * ``init_preprocessing_models``: the text encoders (``text_encoder_precision``,
   ``tokenizer_max_length``) and the VAE (``vae_dtype``; uint8 pixels
-  normalized on the device, f32 latents; a video family's causal video VAE,
-  seeded, bf16, as the JAX trainer builds it);
+  normalized on the device, f32 latents; a video family's causal video VAE
+  and an audio family's 1-D audio VAE, seeded, bf16, as the JAX trainer
+  builds them);
 * ``init_data_backend``: the data plane (``data/factory.py``) with both
   caching passes;
 * ``init_validations`` (prompt embeds while the encoders live, and the eval
@@ -89,13 +90,16 @@ latent channels against ``VAEConfig.flux()``, so only its tiny preset trains),
 and ``ltxvideo2`` (Gemma-2 at 256 tokens tiled to 3840, the mask dropped, on
 clips through the video VAE at 128 latent channels; one zero audio token, as
 no data path gives audio latents; ``init_validations`` also encodes and
-installs the IC-LoRA reference video of ``validation_ltx2_video_conditioning``);
+installs the IC-LoRA reference video of ``validation_ltx2_video_conditioning``),
+``ace_step`` (umT5 at 256 tokens, stereo waveforms through the audio VAE into
+(B, S, 8) latents, the lyric ids of each clip's ``.lyrics.txt`` sidecar) and
+``wan_s2v`` (Wan's path with each clip's same-stem WAV as ``audio_embeds``);
 the batch reaches the step with every numeric array
 the family's collate gives (Flux's ``t5_embeds``/``t5_masks``, the others'
 ``text_embeds``, SDXL's size conditioning ``original_sizes``,
 ``crop_coordinates`` and ``target_sizes``), and ``pooled_embeds`` for flux,
 sd3 and sdxl.  Refused, each naming its ROADMAP item:
-families other than these thirty-four, full fine-tunes and ControlNet, distillation and
+families other than these thirty-six, full fine-tunes and ControlNet, distillation and
 ODE pairs, CREPA / U-REPA, text-encoder training, slider and assistant
 adapters, a mesh of more than one device and multi-process runs.
 """
@@ -118,6 +122,7 @@ from torch import nn
 from ..configuration.args import TrainingConfig
 from ..data.bucket_report import data_plane_report, format_report
 from ..data.factory import configure_multi_databackend
+from ..models.audio_vae import AudioAutoencoderKL
 from ..models.layers import init_adapters, init_parameters
 from ..models.registry import get_model_family
 from ..models.text_encoders import load_text_encoders
@@ -195,15 +200,26 @@ def step_seed(seed: int, step: int) -> int:
     return ((int(seed) * 1_000_003 + 0xBEEF) * 1_000_033 + int(step)) % 2**63
 
 
-def vae_encode_fn(vae: nn.Module, device: torch.device) -> Callable[[np.ndarray, int], torch.Tensor]:
-    """The caching pass's encoder: images (B, H, W, 3), or clips (B, T, H,
-    W, 3) through the video VAE, -> f32 latents on the device, unfetched (the
-    cache's writer threads fetch them).  uint8 pixels
-    cross to the device as they are and are normalized there (exact in f32);
-    float images cross in f32."""
+def vae_encode_fn(vae: nn.Module, device: torch.device,
+                  transfer_dtype: torch.dtype = torch.float32) -> Callable[[np.ndarray, int], torch.Tensor]:
+    """The caching pass's encoder: images (B, H, W, 3), clips (B, T, H, W, 3)
+    through the video VAE, or waveforms (B, S, C) through the audio VAE, ->
+    f32 latents on the device, unfetched (the cache's writer threads fetch
+    them).  uint8 pixels cross to the device as they are and are normalized
+    there (exact in f32); float images cross in f32, waveforms in
+    ``transfer_dtype`` (the JAX trainer stages them in f16 under a bf16
+    ``vae_dtype``)."""
 
     @torch.no_grad()
     def encode(images: np.ndarray, count: int) -> torch.Tensor:
+        if isinstance(vae, AudioAutoencoderKL):
+            channels = vae.config.in_channels
+            if images.shape[-1] != channels:
+                raise ValueError(f"the audio VAE takes {channels}-channel waveforms; a batch of {images.shape[-1]}-"
+                                 f"channel files (a {'mono' if images.shape[-1] == 1 else 'multi-channel'} file) "
+                                 "cannot be encoded: convert the dataset's files to the VAE's channels")
+            staged = torch.from_numpy(np.ascontiguousarray(images)).to(transfer_dtype).to(device)
+            return vae.encode(staged.to(torch.float32)).to(torch.float32)
         pixels = torch.from_numpy(np.ascontiguousarray(images)).to(device)
         if images.dtype == np.uint8:
             pixels = pixels.to(torch.float32) / 127.5 - 1.0
@@ -367,8 +383,15 @@ class Trainer:
 
     def _init_vae(self, tiny: bool) -> None:
         modality = getattr(self.model, "MODALITY", "image")
-        if not getattr(self.model, "REQUIRES_VAE", True) or modality not in ("image", "video"):
-            raise NotImplementedError(f"{self.model.NAME}: only the image and video VAEs are ported")
+        if not getattr(self.model, "REQUIRES_VAE", True) or modality not in ("image", "video", "audio"):
+            raise NotImplementedError(f"{self.model.NAME}: only the image, video and audio VAEs are ported")
+        if modality == "audio":
+            # the JAX trainer builds the audio VAE from PRNGKey(0) whatever the
+            # model dir holds; the port draws it from a generator seeded 0
+            with torch.device(self.device):
+                vae = AudioAutoencoderKL(self.model.audio_vae_config())
+            self.vae = init_parameters(vae, torch.Generator(device=self.device).manual_seed(0)).eval()
+            return
         if modality == "video":
             # the JAX trainer builds the causal video VAE from PRNGKey(0) for
             # every video family, whatever pretrained_vae_model_name_or_path
@@ -404,7 +427,8 @@ class Trainer:
         self.vae = vae.eval()
 
     def _vae_encode_fn(self) -> Callable[[np.ndarray, int], torch.Tensor]:
-        return vae_encode_fn(self.vae, self.device)
+        transfer = torch.float32 if self._vae_dtype() == torch.float32 else torch.float16
+        return vae_encode_fn(self.vae, self.device, transfer)
 
     def vae_decode_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
         vae = self.vae

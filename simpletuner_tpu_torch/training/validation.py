@@ -18,7 +18,12 @@ two-stage ``_render_multistage`` (half resolution, the latent upsampler, a
 short re-noised ladder, as the JAX dispatch reaches it),
 decoded 5-D and written as an mp4 (mp4v, 8 fps, through OpenCV, imported
 when a clip is written), its middle frame going to the trackers; it has no
-benchmark render, as in the JAX package.  ``precompute_embeds`` encodes the prompts (and, for
+benchmark render, as in the JAX package.  An audio family renders
+``validation_audio_duration`` seconds at ``validation_audio_sample_rate``
+(the latent length over the audio VAE's compression, at least 8), decodes
+to f32 samples (no uint8 clip) and writes a 16-bit WAV (``_save_wav``,
+through scipy, the JAX writer's bytes); no image reaches the trackers or the
+webhook for it, as in the JAX pass.  ``precompute_embeds`` encodes the prompts (and, for
 true CFG, the negative prompt) through the model's attached text encoders.
 The render batch takes the payload's keys as they are, as the JAX
 ``_render_single`` does (validation.py:714-718): the T5 padding mask stays
@@ -225,6 +230,11 @@ class Validation:
     # ---- run -------------------------------------------------------------------------------
     def _latent_shape(self, batch_size: int):
         channels = self.model.latent_channels
+        if self._is_audio:
+            vae_cfg = self.model.audio_vae_config()
+            seconds = float(getattr(self.config, "validation_audio_duration", 5.0) or 5.0)
+            length = max(int(seconds * self._audio_rate) // vae_cfg.compression, 8)
+            return (batch_size, length, channels)
         if getattr(self.model, "MODALITY", "image") == "video":
             vae_cfg = self.model.video_vae_config()
             size = self.resolution // vae_cfg.spatial_factor
@@ -253,6 +263,8 @@ class Validation:
             image = self._render(module, embeds, index)
             filename = self._path(f"step_{step}_{index}{slug}.{self._ext(image)}")
             self._save(image, filename)
+            if self._is_audio:  # a waveform: no image for the trackers or the webhook
+                continue
             if image.ndim == 4:  # a clip: its middle frame for the trackers
                 image = image[image.shape[0] // 2]
             elif index < len(self._benchmark_images):
@@ -269,12 +281,21 @@ class Validation:
                 logger.debug("tracker image log failed: %s", exc)
         return paths
 
-    @staticmethod
-    def _ext(image: np.ndarray) -> str:
-        return "mp4" if image.ndim == 4 else "png"
+    @property
+    def _is_audio(self) -> bool:
+        return getattr(self.model, "MODALITY", "image") == "audio"
+
+    @property
+    def _audio_rate(self) -> int:
+        return int(getattr(self.config, "validation_audio_sample_rate", 44100) or 44100)
+
+    def _ext(self, image: np.ndarray) -> str:
+        return "wav" if self._is_audio else ("mp4" if image.ndim == 4 else "png")
 
     def _save(self, image: np.ndarray, path: str) -> None:
-        if image.ndim == 4:
+        if self._is_audio:
+            self._save_wav(image, path, self._audio_rate)
+        elif image.ndim == 4:
             self._save_video(image, path)
         else:
             self._save_png(image, path)
@@ -330,6 +351,8 @@ class Validation:
         scaling = self.model.VAE_SCALING_FACTOR or 1.0
         shift = self.model.VAE_SHIFT_FACTOR or 0.0
         out = self.decode_fn(latents / scaling + shift)[0].to(torch.float32)
+        if self._is_audio:  # f32 samples, clipped only when written
+            return out.cpu().numpy()
         return ((out + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
 
     @torch.no_grad()
@@ -357,6 +380,14 @@ class Validation:
 
         noise = torch.randn(latent_shape, generator=noise_generator(self.seed, index), dtype=torch.float32)
         return self._decoded(sample_loop(scheduler, denoise, noise.to(self.device)))
+
+    @staticmethod
+    def _save_wav(waveform: np.ndarray, path: str, sample_rate: int = 44100) -> None:
+        """(S, C) f32 samples in [-1, 1] -> 16-bit PCM WAV (clipped, x 32767, truncated)."""
+        from scipy.io import wavfile
+
+        clipped = np.clip(waveform, -1.0, 1.0)
+        wavfile.write(path, sample_rate, (clipped * 32767).astype(np.int16))
 
     @staticmethod
     def _save_video(frames: np.ndarray, path: str, fps: int = 8) -> None:

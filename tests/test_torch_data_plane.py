@@ -171,10 +171,15 @@ def test_each_side_continues_from_the_others_state(planes):
 def test_unported_datasets_are_refused(tmp_path):
     values = _values(tmp_path, "port")
     model = Flux(TrainingConfig(values))
+    tokens = tmp_path / "tokens"
+    tokens.mkdir()
+    np.save(tokens / "song.npy", np.zeros((50, 8), np.int64))
     cases = [
         ({"type": "memory"}, "item 4e"),
         ({"dataset_type": "conditioning"}, "item 4f"),
-        ({"dataset_type": "audio"}, "item 4f"),  # video datasets are built (tests/test_torch_video.py)
+        # video and audio datasets are built (tests/test_torch_video.py, test_torch_audio.py); codec-token
+        # audio datasets (HeartMuLa's) are refused
+        ({"dataset_type": "audio", "instance_data_dir": str(tokens)}, "item 3"),
         ({"dataset_type": "caption"}, "item 4f"),  # eval datasets are built (tests/test_torch_evaluation.py)
         ({"vae_cache_ondemand": True}, "item 4e"),
         ({"conditioning_data": ["b"]}, "item 4f"),

@@ -86,7 +86,8 @@ def test_the_port_imports_nothing_of_the_jax_package():
     # LongCat-Image, Z-Image-Omni, Zlab-i1, Boogu-Image, Krea-2, Cosmos and Anima ones (with the EDM Euler
     # scheduler), the OmniGen, ERNIE-Image and Ideogram ones (with Ideogram's host prompt modules), and the
     # LongCat-Video, Sana and Sana-Video ones, Cosmos3's (the MoT, the family, the reasoner and the AVAE
-    # audio tokenizer) and LTX-2's (the DiT, the family, the connectors and the latent upsampler) are among
+    # audio tokenizer), LTX-2's (the DiT, the family, the connectors and the latent upsampler) and the audio
+    # modality's (the data copy, the audio VAE and ACE-Step's DiT, family and lyric tokenizer) are among
     # those imported
     assert {f"simpletuner_tpu_torch.{name}" for name in (
         "models.unet", "models.sdxl", "models.sdxl.model", "schedulers.ddim", "schedulers.unipc", "models.sd1x",
@@ -112,7 +113,9 @@ def test_the_port_imports_nothing_of_the_jax_package():
         "models.sana.model", "models.sana.transformer", "models.sanavideo", "models.sanavideo.model",
         "models.sanavideo.transformer", "models.cosmos3", "models.cosmos3.model", "models.cosmos3.transformer",
         "models.cosmos3.reasoner", "models.cosmos3.audio_tokenizer", "models.ltxvideo2", "models.ltxvideo2.model",
-        "models.ltxvideo2.transformer", "models.ltxvideo2.connectors", "models.ltxvideo2.latent_upsampler")} <= set(names)
+        "models.ltxvideo2.transformer", "models.ltxvideo2.connectors", "models.ltxvideo2.latent_upsampler",
+        "data.audio", "models.audio_vae", "models.ace_step", "models.ace_step.model", "models.ace_step.transformer",
+        "models.ace_step.lyrics")} <= set(names)
 
 
 def test_registry_defaults_match():
@@ -535,6 +538,24 @@ def test_training_config_matches(tmp_path):
     assert ours.was_provided("max_train_steps") and not ours.was_provided("seed")
 
 
+def test_model_arch_overrides_lay_fields_over_the_arch():
+    """``model_arch_overrides`` (a mapping or its JSON) replaces fields of the
+    arch the family chose, preset included; a field the arch lacks raises."""
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.flux import FluxConfig
+    from simpletuner_tpu_torch.models.registry import get_model_family
+
+    tiny = get_model_family(TrainingConfig({"model_family": "flux", "model_arch_preset": "tiny",
+                                            "model_arch_overrides": {"depth_double": 1, "depth_single": 3}}))
+    assert tiny.arch == dataclasses.replace(FluxConfig.tiny(), depth_double=1, depth_single=3)
+    full = get_model_family(TrainingConfig({"model_family": "flux",
+                                            "model_arch_overrides": '{"depth_double": 2, "depth_single": 4}'}))
+    assert (full.arch.depth_double, full.arch.depth_single, full.arch.hidden_size) == (2, 4, 3072)
+    assert get_model_family(TrainingConfig({"model_family": "flux"})).arch.depth_double == 19
+    with pytest.raises(ValueError, match=r"no arch field \['depth'\]"):
+        get_model_family(TrainingConfig({"model_family": "flux", "model_arch_overrides": {"depth": 2}}))
+
+
 def test_model_registry_refuses_other_families():
     from simpletuner_tpu_torch.configuration import TrainingConfig
     from simpletuner_tpu_torch.models.flux import Flux
@@ -620,7 +641,12 @@ def test_model_registry_refuses_other_families():
     from simpletuner_tpu_torch.models.ltxvideo2 import LTXVideo2
 
     assert isinstance(get_model_family(TrainingConfig({"model_family": "ltxvideo2"})), LTXVideo2)
-    for family in ("ace_step", "heartmula", "deepfloyd"):
+    from simpletuner_tpu_torch.models.ace_step import ACEStep
+    from simpletuner_tpu_torch.models.extended import WanS2V
+
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "ace_step"})), ACEStep)
+    assert isinstance(get_model_family(TrainingConfig({"model_family": "wan_s2v"})), WanS2V)
+    for family in ("heartmula", "deepfloyd", "stable_cascade"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             get_model_family(TrainingConfig({"model_family": family}))
     with pytest.raises(KeyError):
@@ -655,8 +681,12 @@ def test_model_registry_matches():
     from simpletuner_tpu_torch.models.ltxvideo2 import LTXVideo2
 
     assert ModelRegistry.get("ltx2") is ModelRegistry.get("ltxvideo2") is LTXVideo2
+    from simpletuner_tpu_torch.models.ace_step import ACEStep
+    from simpletuner_tpu_torch.models.extended import WanS2V
+
+    assert ModelRegistry.get("ace_step") is ACEStep and ModelRegistry.get("wan_s2v") is WanS2V
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        ModelRegistry.get("ace_step")
+        ModelRegistry.get("heartmula")
     for registry in (ModelRegistry, JaxModelRegistry):
         with pytest.raises(KeyError):
             registry.metadata("nope")
@@ -693,3 +723,13 @@ def test_ideogram_prompting_copy_matches(enabled):
             jax_prompting.maybe_convert_prompt_to_ideogram_json(prompt, enabled=enabled), prompt
         assert prompting.prompt_to_ideogram_json_caption(prompt) == jax_prompting.prompt_to_ideogram_json_caption(prompt)
     assert prompting.maybe_convert_prompt_to_ideogram_json(None, enabled=False) is None
+
+
+@pytest.mark.parametrize("path", ["data/audio.py", "models/ace_step/lyrics.py"])
+def test_audio_copies_match(path):
+    """``data/audio.py`` and ACE-Step's ``lyrics.py`` are copies of the JAX
+    modules: the same body past the module docstring (their behaviour on
+    seeded WAVs and a seeded vocab is held in test_torch_audio.py and
+    test_torch_ace_step.py)."""
+    body = lambda module: module.read_text().split('"""', 2)[2]  # noqa: E731 (past the module docstring)
+    assert body(REPO / "simpletuner_tpu_torch" / path) == body(REPO / "simpletuner_tpu" / path)

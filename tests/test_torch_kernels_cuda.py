@@ -2429,3 +2429,103 @@ def test_graphed_ltx2_joint_step_matches_eager_bitwise(cuda):
     replayed = trajectory(graphed)
     assert torch.isfinite(eager).all() and (eager[1::3] > 0).all()
     assert torch.equal(replayed, eager)
+
+
+# ACE-Step at 47 s of 44.1 kHz audio (4,048 latents: 253 tokens of the mel
+# layout) against its 385 conditioning keys (1 speaker, 256 umT5 and 128 lyric
+# keys, 106 lyric ids valid) at 24 heads of 64; Wan-S2V's cross-attention over
+# 512 umT5 and 128 audio-feature keys at the 14B's 40 heads of 128 and 32,760
+# tokens; two heads (the heads are independent)
+AUDIO_CASES = [("ace_cross_s253_k385_d64", 253, 385, 64, 363), ("s2v_cross_s32760_k640_d128", 32760, 640, 128, None)]
+
+
+@pytest.mark.parametrize("name,sq,sk,dim,valid", AUDIO_CASES, ids=[c[0] for c in AUDIO_CASES])
+def test_kernels_at_the_audio_family_shapes(cuda, name, sq, sk, dim, valid):
+    """Forward and both backward kernels at ACE-Step's and Wan-S2V's
+    cross-attention shapes against the plain versions, in the dispatcher's
+    (B, S, H, D) layout; ACE-Step's lyric pad keys (key id -1) get no weight."""
+    q, k, v = _qkv(150 + sk % 23 + dim, 1, 2, sq, sk, dim, cuda)
+    strided = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    q_seg = kv_seg = None
+    if valid is not None:
+        q_seg = torch.ones((1, sq), dtype=torch.int32, device=cuda)
+        kv_seg = torch.where(torch.arange(sk, device=cuda) < valid, 1, SEGMENT_PAD_ID)[None].to(torch.int32)
+    out, lse = _check(*strided, q_seg, kv_seg)
+    assert out.shape == q.shape and torch.isfinite(lse).all()
+    del out, lse
+    dq, dk, dv = _check_backward(*strided, q_seg, seed=151, kv_seg=kv_seg)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    if valid is not None:
+        assert dk[0, :, valid:].abs().max() == dv[0, :, valid:].abs().max() == 0
+
+
+def _graphed_against_eager(cuda, values, batch):
+    """Three eager steps and three replays of the captured step of a tiny
+    family from the same state and generator state: losses and grad norms."""
+    from simpletuner_tpu_torch.configuration import TrainingConfig
+    from simpletuner_tpu_torch.models.layers import init_parameters
+    from simpletuner_tpu_torch.models.registry import ModelRegistry
+    from simpletuner_tpu_torch.training.optimizers import get_optimizer
+    from simpletuner_tpu_torch.training.train_state import (build_train_step, create_train_state, jit_train_step,
+                                                            state_tensors)
+
+    config = TrainingConfig({"model_arch_preset": "tiny", "model_type": "lora", "lora_rank": 4, "learning_rate": 1e-3,
+                             "optimizer": "adamw", "gradient_checkpointing": True, **values})
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    model = ModelRegistry.create(values["model_family"], config)
+    with torch.device(cuda):
+        module = init_parameters(model.create_module(), gen)
+    with torch.no_grad():  # nonzero adapters: every LoRA B reaches the loss
+        for name, param in module.named_parameters():
+            if name.endswith("lora_B"):
+                param.normal_(0.0, 0.05, generator=gen)
+    tx = get_optimizer(config, 1e-3)
+    state = create_train_state(model, module, tx)
+    step_fn = build_train_step(model, tx)
+    with torch.no_grad():
+        saved = [x.clone() for x in state_tensors(state)]
+    rng = torch.Generator(device=cuda)
+    rng.manual_seed(5)
+    start = rng.get_state()
+
+    def trajectory(step):
+        current, out = state, []
+        for _ in range(3):
+            current, metrics = step(current, batch, rng)
+            out += [metrics["loss"], metrics["grad_norm"]]
+        return torch.stack(out)
+
+    eager = trajectory(step_fn)
+    with torch.no_grad():
+        for x, value in zip(state_tensors(state), saved):
+            x.copy_(value)
+    rng.set_state(start)
+    state.step = 0
+    graphed = jit_train_step(step_fn, state, batch, rng)
+    replayed = trajectory(graphed)
+    assert torch.isfinite(eager).all() and (eager[1::2] > 0).all()
+    assert torch.equal(replayed, eager)
+
+
+def test_graphed_ace_step_step_matches_eager_bitwise(cuda):
+    """The tiny ACE-Step step on (B, S, C) audio latents with lyric ids and a
+    padded lyric mask (the rope tables and the conformer's position table
+    made once per device in the eager steps): replays of the captured step
+    bitwise the eager steps."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    batch = {"latents": torch.randn((2, 32, 4), generator=gen, device=cuda),
+             "text_embeds": torch.randn((2, 6, 16), generator=gen, device=cuda),
+             "lyrics_tokens": torch.randint(0, 64, (2, 16), generator=gen, device=cuda, dtype=torch.int32),
+             "lyrics_mask": (torch.arange(16, device=cuda)[None] < torch.tensor([[16], [9]], device=cuda)).float()}
+    _graphed_against_eager(cuda, {"model_family": "ace_step"}, batch)
+
+
+def test_graphed_wan_s2v_step_matches_eager_bitwise(cuda):
+    """The tiny Wan-S2V step with audio features (64 wide, cut to the text
+    width and joined after the text): replays of the captured step bitwise
+    the eager steps."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    batch = {"latents": torch.randn((1, 3, 4, 6, 4), generator=gen, device=cuda),
+             "text_embeds": torch.randn((1, 12, 32), generator=gen, device=cuda),
+             "audio_embeds": torch.randn((1, 10, 64), generator=gen, device=cuda)}
+    _graphed_against_eager(cuda, {"model_family": "wan_s2v"}, batch)

@@ -529,7 +529,8 @@ def test_routes_that_differ_by_design(pair):
     for family in ("sdxl", "sd1x", "sd2x", "pixart_sigma", "auraflow", "wan", "ltxvideo", "lumina2",
                    "kandinsky5_image", "kandinsky5_video", "hunyuanvideo", "qwen_image", "mageflow", "z_image",
                    "hidream", "flux2", "kolors", "z_image_omni", "zlab_i1", "boogu_image", "krea2", "cosmos", "anima",
-                   "omnigen", "ernie", "ideogram", "longcat_video", "sana", "sanavideo", "cosmos3", "ltxvideo2"):
+                   "omnigen", "ernie", "ideogram", "longcat_video", "sana", "sanavideo", "cosmos3", "ltxvideo2",
+                   "ace_step", "wan_s2v"):
         answers = pair.both("GET", f"/api/models/{family}/presets", compare=False)
         assert answers["port"][0] == answers["jax"][0] == 200
         assert [(p["name"], p["config"]) for p in answers["port"][1]] == [
@@ -539,7 +540,8 @@ def test_routes_that_differ_by_design(pair):
                        "auraflow, wan, ltxvideo, chroma, lumina2, kandinsky5_image, kandinsky5_video, "
                        "hunyuanvideo, qwen_image, mageflow, z_image, hidream, flux2, kolors, longcat_image, "
                        "z_image_omni, zlab_i1, boogu_image, krea2, cosmos, anima, omnigen, ernie, ideogram, "
-                       "longcat_video, sana, sanavideo, cosmos3, ltxvideo2; ROADMAP Queue 1 item 6)"})
+                       "longcat_video, sana, sanavideo, cosmos3, ltxvideo2, ace_step, wan_s2v; ROADMAP Queue 1 "
+                       "item 6)"})
     pair.both("GET", "/api/models/nope/presets")  # unknown: 404 on both
     job = pair.both("POST", "/api/inference/start",
                     {"checkpoint": "/nope/checkpoint-1", "prompt": "a cat", "steps": 1})
